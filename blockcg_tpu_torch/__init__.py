@@ -1,0 +1,21 @@
+"""blockcg_tpu_torch: the PyTorch/CUDA port of blockcg_tpu.
+
+Block conjugate-gradient solvers for ``A X = B`` with many right-hand sides,
+on PyTorch tensors. The hot field passes run as hand-written CUDA kernels on
+an NVIDIA Hopper card (``csrc/``, built with nvcc on first use); on CPU
+tensors the same functions run their plain PyTorch versions. The JAX package
+``blockcg_tpu`` is the reference the port is tested against; this package
+never imports JAX.
+"""
+
+from blockcg_tpu_torch.operators import DIAOperator
+from blockcg_tpu_torch.solvers import solve_refined, solve_sbcgrq
+from blockcg_tpu_torch.types import SolverInfo, SolverOptions
+
+__all__ = [
+    "DIAOperator",
+    "SolverInfo",
+    "SolverOptions",
+    "solve_refined",
+    "solve_sbcgrq",
+]

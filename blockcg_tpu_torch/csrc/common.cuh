@@ -1,0 +1,172 @@
+// Pieces shared by the four kernels of blockcg_tpu_torch: launch geometry,
+// column loads, the k x k coefficient apply, the per-block Gram tile and the
+// deterministic second-stage reduction of the Gram partials.
+//
+// Layout: every field is lanes-major (k, n) float32, row r of column i at
+// F[r * n + i], so the threads of a warp (neighbouring columns i) read
+// neighbouring addresses. One thread owns one column of a 128-column tile and
+// keeps its k <= KMAX values in registers; a block walks its tiles with a
+// grid-stride loop. KMAX is the compile-time register width (8, 16, 32 or
+// 64); rows k..KMAX-1 are held at zero so the unrolled loops need no guards.
+//
+// Everything here has internal linkage: each .cu includes this header and the
+// four objects are linked into one library.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;  // threads per block == columns per tile
+
+// Row stride of a staged (KMAX, kThreads) tile in shared memory. The +1 pad
+// puts rows r and r + 1 of one column in neighbouring banks, so the Gram
+// tile's row-strided reads are free of bank conflicts.
+constexpr int kLd = kThreads + 1;
+
+inline int kmax_for(int k) {
+  if (k < 1) return 0;
+  if (k <= 8) return 8;
+  if (k <= 16) return 16;
+  if (k <= 32) return 32;
+  if (k <= 64) return 64;
+  return 0;
+}
+
+// v[r] = F[r, i] for r < k on a valid column, else 0.
+template <int KMAX>
+__device__ __forceinline__ void load_col(float (&v)[KMAX], const float* F,
+                                         int k, long long n, long long i,
+                                         bool valid) {
+#pragma unroll
+  for (int r = 0; r < KMAX; ++r) v[r] = (valid && r < k) ? F[r * n + i] : 0.f;
+}
+
+template <int KMAX>
+__device__ __forceinline__ void store_col(float* F, const float (&v)[KMAX],
+                                          int k, long long n, long long i,
+                                          bool valid) {
+  if (!valid) return;
+#pragma unroll
+  for (int r = 0; r < KMAX; ++r)
+    if (r < k) F[r * n + i] = v[r];
+}
+
+// Stage a k x k row-major coefficient matrix M into shared memory TRANSPOSED
+// and zero-padded to KMAX x KMAX: sT[c * KMAX + r] = M[r, c]. Every thread
+// reads the same sT entry at the same time (a broadcast), and the r-contiguous
+// layout lets the compiler fetch four coefficients per load.
+template <int KMAX>
+__device__ void stage_coeff(float* sT, const float* M, int k) {
+  for (int e = threadIdx.x; e < KMAX * KMAX; e += blockDim.x) {
+    const int c = e / KMAX, r = e % KMAX;
+    sT[e] = (r < k && c < k) ? M[r * k + c] : 0.f;
+  }
+}
+
+// y += M F[:, i], with M staged by stage_coeff: the loop runs over the k
+// real columns of M and reads F's column straight from global memory (no
+// register copy, and a small unroll keeps the code short at KMAX = 64).
+template <int KMAX>
+__device__ __forceinline__ void apply_coeff(float (&y)[KMAX], const float* sT,
+                                            const float* F, int k, long long n,
+                                            long long i, bool valid) {
+  if (!valid) return;
+#pragma unroll 4
+  for (int c = 0; c < k; ++c) {
+    const float fc = F[c * n + i];
+    const float* m = sT + c * KMAX;
+#pragma unroll
+    for (int r = 0; r < KMAX; ++r) y[r] = fmaf(m[r], fc, y[r]);
+  }
+}
+
+// Write the thread's column into a staged (KMAX, kLd) tile.
+template <int KMAX>
+__device__ __forceinline__ void stage_col(float* s, const float (&v)[KMAX]) {
+#pragma unroll
+  for (int r = 0; r < KMAX; ++r) s[r * kLd + threadIdx.x] = v[r];
+}
+
+// The block's share of G = X Y^T. Thread t owns a kTR x kTS register tile of
+// the KMAX x KMAX Gram and, for every staged 128-column tile, adds the
+// products over those columns. Partials stay in registers across the
+// grid-stride loop and are written once per block by store().
+template <int KMAX>
+struct GramTile {
+  static constexpr int kPer =
+      KMAX * KMAX >= kThreads ? KMAX * KMAX / kThreads : 1;
+  static constexpr int kTS = kPer < 4 ? kPer : 4;
+  static constexpr int kTR = kPer / kTS;
+  static constexpr int kColTiles = KMAX / kTS;
+  static constexpr int kActive = (KMAX / kTR) * kColTiles;  // <= kThreads
+
+  float acc[kTR][kTS];
+  int r0, s0;
+
+  __device__ GramTile()
+      : r0((static_cast<int>(threadIdx.x) / kColTiles) * kTR),
+        s0((static_cast<int>(threadIdx.x) % kColTiles) * kTS) {
+#pragma unroll
+    for (int a = 0; a < kTR; ++a)
+#pragma unroll
+      for (int b = 0; b < kTS; ++b) acc[a][b] = 0.f;
+  }
+
+  // xs, ys: staged (KMAX, kLd) tiles; call between two __syncthreads().
+  __device__ __forceinline__ void accumulate(const float* xs, const float* ys) {
+    if (threadIdx.x >= kActive) return;
+#pragma unroll 4
+    for (int c = 0; c < kThreads; ++c) {
+      float xv[kTR], yv[kTS];
+#pragma unroll
+      for (int a = 0; a < kTR; ++a) xv[a] = xs[(r0 + a) * kLd + c];
+#pragma unroll
+      for (int b = 0; b < kTS; ++b) yv[b] = ys[(s0 + b) * kLd + c];
+#pragma unroll
+      for (int a = 0; a < kTR; ++a)
+#pragma unroll
+        for (int b = 0; b < kTS; ++b) acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
+    }
+  }
+
+  // part: this block's (k, k) slot of the (nblocks, k, k) partials.
+  __device__ void store(float* part, int k) const {
+    if (threadIdx.x >= kActive) return;
+#pragma unroll
+    for (int a = 0; a < kTR; ++a)
+#pragma unroll
+      for (int b = 0; b < kTS; ++b) {
+        const int r = r0 + a, s = s0 + b;
+        if (r < k && s < k) part[r * k + s] = acc[a][b];
+      }
+  }
+};
+
+// Second stage: G[e] = sum over blocks of part[b, e], in block order and in
+// double, so a repeated call gives the same bits (no atomics anywhere).
+__global__ void reduce_partials(const float* __restrict__ part,
+                                float* __restrict__ G, int kk, int nblocks) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= kk) return;
+  double s = 0.0;
+  for (int b = 0; b < nblocks; ++b) s += static_cast<double>(part[static_cast<long long>(b) * kk + e]);
+  G[e] = static_cast<float>(s);
+}
+
+inline void launch_reduce(const float* part, float* G, int k, int nblocks,
+                          cudaStream_t stream) {
+  const int kk = k * k;
+  reduce_partials<<<(kk + 255) / 256, 256, 0, stream>>>(part, G, kk, nblocks);
+}
+
+// Raise the dynamic shared-memory cap of a kernel that needs more than the
+// default 48 KB (a launch above the cap is refused).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace

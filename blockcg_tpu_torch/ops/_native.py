@@ -1,0 +1,184 @@
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` into one shared library with a plain C
+interface and loaded with ``ctypes``. The library goes to
+``build/blockcg_tpu_torch/`` at the root of the checkout (``build/`` is listed
+in ``.gitignore``), or to the user's cache directory when the package is
+installed (``build_dir``), named by a hash of the sources and flags, so an unchanged
+tree builds once. It is built on the first kernel launch, never on import: a
+process that only touches CPU tensors needs no ``nvcc``. A failed build
+raises; nothing falls back to the plain versions.
+
+Dispatch rule, shared by every wrapper in ``ops/``:
+
+- CPU tensors run the plain PyTorch version;
+- CUDA float32 tensors launch the kernel;
+- CUDA float64 tensors run the plain version, as the reference's own dtype
+  gate sends f64 to XLA instead of Pallas;
+- any other device, dtype or a non-contiguous operand raises.
+
+``launches`` counts kernel launches per wrapper; the wrappers add to it where
+they launch and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC = PKG_DIR / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+THREADS = 128  # csrc/common.cuh kThreads: columns per tile
+MAX_BLOCKS = 1024  # grid cap; also the row count of the Gram partials
+MAX_K = 64  # widest register tile the kernels are built for
+
+launches: Counter = Counter()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def nblocks(n: int) -> int:
+    """Grid size for a field of n columns. It depends on n alone, so the Gram
+    partials are summed in the same order on every call."""
+    return min(-(-n // THREADS), MAX_BLOCKS)
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the operands go to the CUDA kernel, False for the plain
+    version (see the module docstring for the rule)."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"operands on several devices: {[str(t.device) for t in tensors]}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    dtypes = {t.dtype for t in tensors}
+    if dtypes == {torch.float64}:
+        return False
+    if dtypes != {torch.float32}:
+        raise TypeError(f"CUDA kernels take float32 operands (float64 runs the "
+                        f"plain version); got {sorted(map(str, dtypes))}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("CUDA kernel operands must be contiguous")
+    return True
+
+
+def check_field(F: torch.Tensor, k: int, n: int, what: str) -> None:
+    if F.shape != (k, n):
+        raise ValueError(f"{what}: expected a ({k}, {n}) field, got {tuple(F.shape)}")
+
+
+def check_width(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"CUDA kernels take 1 <= k <= {MAX_K} right-hand sides, got {k}")
+
+
+def check_kk(M: torch.Tensor, k: int, what: str) -> None:
+    if M.shape != (k, k):
+        raise ValueError(f"{what}: expected ({k}, {k}), got {tuple(M.shape)}")
+
+
+def nvcc() -> str:
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(f"nvcc not found at {cand} or on PATH: the CUDA "
+                           "kernels of blockcg_tpu_torch cannot be built")
+    return found
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build_command(out: Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out),
+            *(str(p) for p in sources() if p.suffix == ".cu")]
+
+
+def build_dir(pkg_dir: Path = PKG_DIR) -> Path:
+    """Where the library is built. Run from a source checkout (the package
+    sits beside ``pyproject.toml``), it is ``build/blockcg_tpu_torch/`` at the
+    root of the checkout. Installed, it is ``blockcg_tpu_torch/`` in the
+    user's cache directory (``$XDG_CACHE_HOME``, else ``~/.cache``), never
+    beside site-packages."""
+    root = pkg_dir.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "blockcg_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "blockcg_tpu_torch"
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return build_dir() / f"libblockcg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless this exact source set is already built."""
+    out = library_path()
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = build_command(tmp)
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
+                           f"{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bcg_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, P, P,
+                                     P, P, I, L, I, I, P]
+    lib.bcg_gram.argtypes = [P, P, P, P, I, L, I, I, P]
+    lib.bcg_coeff_update.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, P]
+    lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, P]
+    for fn in (lib.bcg_stencil_spmm, lib.bcg_gram, lib.bcg_coeff_update,
+               lib.bcg_px_update):
+        fn.restype = I
+    lib.bcg_error_string.argtypes = [I]
+    lib.bcg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call ``fn_name`` of the library on the current stream of ``device``,
+    raise on its CUDA error, and count one launch for ``name``."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, fn_name)(*args, device.index, stream)
+    if rc != 0:
+        msg = lib.bcg_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA kernel launch failed: error {rc} ({msg})")
+    launches[name] += 1

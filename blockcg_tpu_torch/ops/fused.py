@@ -1,0 +1,164 @@
+"""Fused per-iteration block updates on lanes-major (k, n) fields.
+
+Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
+
+- ``gram(U, V)``                      G = U V^T            (``csrc/gram.cu``)
+- ``mm_update(M, B, A)``              Y = M B (+ A)        (``csrc/fused_update.cu``)
+- ``mm_update_gram(M, B, A)``         Y = M B (+ A), G = Y Y^T
+- ``mm2_update_gram(M1, B1, M2, B2)`` Y = M1 B1 + M2 B2, G = Y Y^T
+- ``px_update(M1, W, rho, P, C, X)``  Pn = M1 W + rho P, Xn = X + C P
+                                                           (``csrc/px_update.cu``)
+
+Each has a plain PyTorch version beside it, the composition the reference's
+solvers fall back to (``blockcg_tpu/solvers/common.py:216-218, 233-237,
+254-255, 286-287``). Dispatch follows
+``ops/_native.py``: CPU and CUDA float64 run the plain version, CUDA float32
+launches the kernel. Grams are taken on the stored output. Fields must be
+contiguous; the k x k coefficients are made so (they are often transposed
+views).
+
+``donate`` writes an output into the storage of the named input, which the
+caller must treat as dead afterwards; both routes honour it, so a caller that
+still reads a donated input fails on the CPU as it would on the card. Column
+i of every output depends only on column i of the inputs, which is what makes
+the kernels' in-place writes safe.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from blockcg_tpu_torch.ops import _native
+from blockcg_tpu_torch.solvers.common import gram_t, mm
+
+
+def _into(dst, Y):
+    """Write Y into the donated operand ``dst`` (or return Y as it is)."""
+    return Y if dst is None else dst.copy_(Y)
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def gram_plain(U, V):
+    return gram_t(U, V)
+
+
+def mm_update_plain(M, B, A=None):
+    Y = mm(M, B)
+    return (Y if A is None else Y + A).to(B.dtype)
+
+
+def mm_update_gram_plain(M, B, A=None):
+    Y = mm_update_plain(M, B, A)
+    return Y, gram_t(Y, Y)
+
+
+def mm2_update_gram_plain(M1, B1, M2, B2):
+    Y = (mm(M1, B1) + mm(M2, B2)).to(B1.dtype)
+    return Y, gram_t(Y, Y)
+
+
+def px_update_plain(M1, W, rho, P, C, X):
+    Pn = (mm(M1, W) + mm(rho, P)).to(P.dtype)
+    return Pn, (X + mm(C, P)).to(X.dtype)
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def _gram_buffers(k: int, n: int, device):
+    part = torch.empty((_native.nblocks(n), k, k), dtype=torch.float32, device=device)
+    return part, torch.empty((k, k), dtype=torch.float32, device=device)
+
+
+def _field_shape(F, name):
+    if F.dim() != 2:
+        raise ValueError(f"{name}: CUDA kernels take flat (k, n) fields, got {tuple(F.shape)}")
+    k, n = F.shape
+    _native.check_width(k)
+    return k, n
+
+
+def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """G = U V^T over the field dims: (k, n) x (k, n) -> (k, k)."""
+    if not _native.use_kernel(U, V):
+        return gram_plain(U, V)
+    k, n = _field_shape(U, "gram")
+    _native.check_field(V, k, n, "gram V")
+    part, G = _gram_buffers(k, n, U.device)
+    _native.launch("gram", "bcg_gram", U.device, _native.ptr(U), _native.ptr(V),
+                   _native.ptr(part), _native.ptr(G), k, n, _native.nblocks(n))
+    return G
+
+
+def _coeff_update(name, M1, B1, M2, B2, A, with_gram, out):
+    k, n = _field_shape(B1, name)
+    for F, what in ((B2, "B2"), (A, "A")):
+        if F is not None:
+            _native.check_field(F, k, n, f"{name} {what}")
+    for M, what in ((M1, "M1"), (M2, "M2")):
+        if M is not None:
+            _native.check_kk(M, k, f"{name} {what}")
+    Y = torch.empty_like(B1) if out is None else out
+    part, G = _gram_buffers(k, n, B1.device) if with_gram else (None, None)
+    p = _native.ptr
+    _native.launch(name, "bcg_coeff_update", B1.device, p(M1), p(B1), p(M2),
+                   p(B2), p(A), p(Y), p(part), p(G), k, n, _native.nblocks(n))
+    return Y, G
+
+
+def mm_update(M: torch.Tensor, B: torch.Tensor,
+              A: torch.Tensor | None = None) -> torch.Tensor:
+    """Y = M B (+ A); M (k, k), fields (k, n)."""
+    M = M.contiguous()
+    ops = (M, B) if A is None else (M, B, A)
+    if not _native.use_kernel(*ops):
+        return mm_update_plain(M, B, A)
+    return _coeff_update("mm_update", M, B, None, None, A, False, None)[0]
+
+
+def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
+                   A: torch.Tensor | None = None, *, donate: bool = False):
+    """(Y = M B (+ A), G = Y Y^T); ``donate`` writes Y onto B."""
+    M = M.contiguous()
+    ops = (M, B) if A is None else (M, B, A)
+    dst = B if donate else None
+    if not _native.use_kernel(*ops):
+        Y, G = mm_update_gram_plain(M, B, A)
+        return _into(dst, Y), G
+    return _coeff_update("mm_update_gram", M, B, None, None, A, True, dst)
+
+
+def mm2_update_gram(M1: torch.Tensor, B1: torch.Tensor, M2: torch.Tensor,
+                    B2: torch.Tensor, *, donate: bool = False):
+    """(Y = M1 B1 + M2 B2, G = Y Y^T); ``donate`` writes Y onto B1."""
+    M1, M2 = M1.contiguous(), M2.contiguous()
+    dst = B1 if donate else None
+    if not _native.use_kernel(M1, B1, M2, B2):
+        Y, G = mm2_update_gram_plain(M1, B1, M2, B2)
+        return _into(dst, Y), G
+    return _coeff_update("mm2_update_gram", M1, B1, M2, B2, None, True, dst)
+
+
+def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
+              P: torch.Tensor, C: torch.Tensor, X: torch.Tensor, *,
+              donate: bool = False):
+    """(Pn = M1 W + rho P, Xn = X + C P); ``donate`` writes Pn onto P and Xn
+    onto X."""
+    M1, rho, C = M1.contiguous(), rho.contiguous(), C.contiguous()
+    if not _native.use_kernel(M1, W, rho, P, C, X):
+        Pn, Xn = px_update_plain(M1, W, rho, P, C, X)
+        if donate:
+            return P.copy_(Pn), X.copy_(Xn)
+        return Pn, Xn
+    k, n = _field_shape(W, "px_update")
+    for F, what in ((P, "P"), (X, "X")):
+        _native.check_field(F, k, n, f"px_update {what}")
+    for M, what in ((M1, "M1"), (rho, "rho"), (C, "C")):
+        _native.check_kk(M, k, f"px_update {what}")
+    Pn, Xn = (P, X) if donate else (torch.empty_like(P), torch.empty_like(X))
+    p = _native.ptr
+    _native.launch("px_update", "bcg_px_update", W.device, p(M1), p(W), p(rho),
+                   p(P), p(C), p(X), p(Pn), p(Xn), k, n, _native.nblocks(n))
+    return Pn, Xn

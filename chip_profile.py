@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where the device time goes in the port's SBCGrQ solves, on one GPU.
+
+Run from the root of a checkout, on a machine with an NVIDIA Hopper card and
+nvcc:
+
+    python3 chip_profile.py
+
+Three solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1) and
+the first inner solve of the north star (128^3 Laplacian, k = 32, the
+right-hand sides scaled to unit columns as ``solve_refined`` hands them to
+its inner solver, tol 3e-6) at qr_passes 1 and 2. Each solve runs once to
+warm up, once bare (wall clock ending in ``torch.cuda.synchronize()``: "bare
+ms"), and once under ``torch.profiler`` with CUDA activity only. From the
+trace's device events it reports:
+
+- ``kernels_per_iteration``: CUDA kernels launched / iterations;
+- ``busy_ms``: the union of the intervals of every kernel, memcpy and memset;
+  ``port_ms``: the same union over the port's own kernels (``csrc/*.cu``);
+- ``idle_share``: 1 - busy / span, the span running from the first device
+  event's start to the last one's end. The profiler stretches the host side,
+  so this bounds the bare run's idle share from above;
+- ``top``: device ms and calls of the busiest kernels, by name.
+
+It prints the card's name and power limit, then one JSON line per solve. It
+imports neither JAX nor the reference package, and fails without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+
+K = 32
+TOP = 12
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PORT_KERNEL = re.compile(r"\b(stencil_spmm|coeff_update|px_update|gram_kernel|reduce_partials)\b")
+
+
+def union_ms(intervals) -> float:
+    """Length in ms of the union of (start, end) intervals given in us."""
+    total, reach = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > reach:
+            total += e - max(s, reach)
+            reach = e
+    return total / 1e3
+
+
+def summarize(events, iterations: int) -> dict:
+    """Device-time summary of a Chrome trace's events (see the docstring)."""
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device events")
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        per_name[e["name"]][0] += float(e["dur"]) / 1e3
+        per_name[e["name"]][1] += 1
+    span = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3
+    busy = union_ms(spans)
+    port = union_ms([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in kernels if PORT_KERNEL.search(e["name"])])
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    return {"iterations": iterations,
+            "kernels_per_iteration": len(kernels) / max(iterations, 1),
+            "busy_ms": busy, "port_ms": port, "span_ms": span,
+            "idle_share": 1.0 - busy / span if span > 0 else 0.0,
+            "top": [[name[:100], ms, calls] for name, (ms, calls) in top]}
+
+
+def profile_solve(torch, name, run, tmp: Path) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, info = run()
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, info_p = run()
+        torch.cuda.synchronize()
+    trace = tmp / f"{name}.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    if info_p.iterations != info.iterations:
+        raise AssertionError(f"{name}: profiled solve took {info_p.iterations} "
+                             f"iterations, the bare one {info.iterations}")
+    if not bool(info.converged.all()):
+        raise AssertionError(f"{name} did not converge: {info}")
+    return {"solve": name, "bare_ms": bare_ms, **summarize(events, info.iterations)}
+
+
+def main() -> None:
+    root = Path(__file__).resolve().parent
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile.py: no CUDA device (torch.cuda.is_available() is False)")
+    if not (root / "blockcg_tpu_torch" / "csrc").is_dir():
+        raise SystemExit(f"chip_profile.py: no blockcg_tpu_torch/ beside {__file__}; "
+                         "run it from a checkout of the repository")
+    sys.path.insert(0, str(root))
+    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch.problems import config3_sbcgrq_3d_64, laplacian_dia
+    from blockcg_tpu_torch.problems.presets import _rhs
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    print(f"torch={torch.__version__} cuda={torch.version.cuda}")
+
+    op3, B3, _ = config3_sbcgrq_3d_64(device=dev)
+    op = laplacian_dia((128, 128, 128), device=dev)
+    B = _rhs(op.n, K, torch.float64, device=dev)
+    R = (B / torch.linalg.vector_norm(B, dim=0)).float()
+    del B
+    solves = [
+        ("config3 qr_passes=1", lambda: solve_sbcgrq(op3, B3, tol=1e-6, qr_passes=1)),
+        ("north-star inner 128^3 qr_passes=1",
+         lambda: solve_sbcgrq(op, R, tol=3e-6, max_iter=2000, qr_passes=1)),
+        ("north-star inner 128^3 qr_passes=2",
+         lambda: solve_sbcgrq(op, R, tol=3e-6, max_iter=2000, qr_passes=2)),
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in solves:
+            print(json.dumps(profile_solve(torch, name, run, Path(tmp))), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,221 @@
+"""The port's kernel wrappers (blockcg_tpu_torch/ops) against the reference's
+Pallas kernels in interpret mode, on CPU tensors.
+
+On the CPU every wrapper runs its plain PyTorch version, which is what
+these tests hold against the Pallas kernels (and, for the stencil, an f64
+numpy oracle). The same inputs, made from a numpy seed, go to both packages.
+Tolerance: f32, max relative error 1e-5 (different summation order and FMA).
+The CUDA kernels themselves are compared with these plain versions on the
+card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from blockcg_tpu.ops import fused as jfused
+from blockcg_tpu.ops import stencil as jstencil
+from blockcg_tpu.ops import stencil_ring as jring
+from blockcg_tpu.problems import laplacian_dia as jlaplacian_dia
+from blockcg_tpu_torch.ops import _native, fused, stencil
+
+RTOL = 1e-5
+
+
+def _close(got, want, rtol=RTOL):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < rtol, err
+
+
+def _oracle(diags, offsets, Xt):
+    """f64 toroidal apply: Y[:, i] = sum_d diags[d, i] X[:, (i + o_d) mod n]."""
+    n = diags.shape[1]
+    X = np.asarray(Xt, np.float64)
+    Y = np.zeros_like(X)
+    for d, o in enumerate(offsets):
+        Y += np.asarray(diags[d], np.float64)[None, :] * X[:, (np.arange(n) + o) % n]
+    return Y
+
+
+def _banded(n, offsets, seed):
+    """Random banded matrix with EVERY entry of every diagonal populated, the
+    wrap-crossing ones included, so a wrong mod-n index shows."""
+    return np.random.default_rng(seed).standard_normal((len(offsets), n)).astype(np.float32)
+
+
+def _laplacian(shape):
+    op = jlaplacian_dia(shape, dtype=jnp.float32)
+    return np.array(op.diags), op.offsets
+
+
+_LAP8 = ((8, 8, 8), 4)
+_LAP16 = ((16, 16, 16), 8)
+_BAND = (1024, (-130, -7, -1, 0, 2, 64, 257))
+_BAND_RING = (4096, (-1100, -130, -1, 0, 3, 257, 1024))
+
+
+def _case(name):
+    if name == "lap8":
+        d, o = _laplacian(_LAP8[0])
+        return d, o, _LAP8[1]
+    if name == "lap16":
+        d, o = _laplacian(_LAP16[0])
+        return d, o, _LAP16[1]
+    n, o = _BAND if name == "band" else _BAND_RING
+    return _banded(n, o, 3), o, 5
+
+
+@pytest.mark.parametrize("case,kernel", [
+    ("lap8", "stencil"), ("band", "stencil"),
+    ("lap16", "ring"), ("band_ring", "ring"),
+])
+def test_stencil_plain_matches_pallas(case, kernel):
+    diags, offsets, k = _case(case)
+    Xt = np.random.default_rng(1).standard_normal((k, diags.shape[1])).astype(np.float32)
+    jfn = jstencil.stencil_spmm_gram_t if kernel == "stencil" else jring.ring_spmm_gram_t
+    Yj, Gj = jfn(jnp.asarray(diags), offsets, jnp.asarray(Xt), interpret=True)
+    Y, G = stencil.stencil_spmm_gram_t(torch.from_numpy(diags), offsets, torch.from_numpy(Xt))
+    _close(Y, Yj)
+    _close(G, Gj)
+    Y_oracle = _oracle(diags, offsets, Xt)
+    _close(Y, Y_oracle)
+    _close(G, np.asarray(Xt, np.float64) @ Y_oracle.T)
+    _close(stencil.stencil_spmm_t(torch.from_numpy(diags), offsets, torch.from_numpy(Xt)),
+           Y_oracle)
+
+
+def _fields(k, n, count, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((k, n)).astype(np.float32) for _ in range(count)]
+
+
+def _kks(k, count, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((k, k)).astype(np.float32) for _ in range(count)]
+
+
+def _both(arrs):
+    return [jnp.asarray(a) for a in arrs], [torch.from_numpy(a.copy()) for a in arrs]
+
+
+@pytest.mark.parametrize("k,n", [(4, 512), (8, 1024)])
+def test_fused_plain_matches_pallas(k, n):
+    (Mj1, Mj2, Mj3), (M1, M2, M3) = _both(_kks(k, 3, 10 + k))
+    (Bj1, Bj2, Aj), (B1, B2, A) = _both(_fields(k, n, 3, 20 + k))
+
+    _close(fused.gram(B1, B2), jfused.gram(Bj1, Bj2, interpret=True))
+    for a, aj in ((None, None), (A, Aj)):
+        _close(fused.mm_update(M1, B1, a), jfused.mm_update(Mj1, Bj1, aj, interpret=True))
+        Y, G = fused.mm_update_gram(M1, B1, a)
+        Yj, Gj = jfused.mm_update_gram(Mj1, Bj1, aj, interpret=True)
+        _close(Y, Yj)
+        _close(G, Gj)
+    Y, G = fused.mm2_update_gram(M1, B1, M2, B2)
+    Yj, Gj = jfused.mm2_update_gram(Mj1, Bj1, Mj2, Bj2, interpret=True)
+    _close(Y, Yj)
+    _close(G, Gj)
+    Pn, Xn = fused.px_update(M1, B1, M2, B2, M3, A)
+    Pj, Xj = jfused.px_update(Mj1, Bj1, Mj2, Bj2, Mj3, Aj, interpret=True)
+    _close(Pn, Pj)
+    _close(Xn, Xj)
+
+
+def test_donate_writes_into_the_operand_on_cpu():
+    """``donate`` has the kernel's in-place meaning on the plain route too."""
+    (M1, M2, M3) = [torch.from_numpy(m) for m in _kks(4, 3, 30)]
+    W, P, X = [torch.from_numpy(f) for f in _fields(4, 256, 3, 31)]
+    Y, G = fused.mm2_update_gram(M1, W.clone(), M2, P)
+    Wd = W.clone()
+    Yd, Gd = fused.mm2_update_gram(M1, Wd, M2, P, donate=True)
+    assert Yd.data_ptr() == Wd.data_ptr() and torch.equal(Yd, Y) and torch.equal(Gd, G)
+    Bd = W.clone()
+    Yd, _ = fused.mm_update_gram(M1, Bd, donate=True)
+    assert Yd.data_ptr() == Bd.data_ptr()
+    torch.testing.assert_close(Yd, fused.mm_update(M1, W), rtol=0, atol=0)
+    Pn, Xn = fused.px_update(M1, W, M2, P, M3, X)
+    Pd, Xd = P.clone(), X.clone()
+    Pnd, Xnd = fused.px_update(M1, W, M2, Pd, M3, Xd, donate=True)
+    assert Pnd.data_ptr() == Pd.data_ptr() and Xnd.data_ptr() == Xd.data_ptr()
+    assert torch.equal(Pnd, Pn) and torch.equal(Xnd, Xn)
+
+
+def test_cpu_route_launches_nothing_and_loads_no_library():
+    _native.reset_launches()
+    M = torch.eye(4)
+    B = torch.ones(4, 256)
+    fused.mm_update(M, B)
+    fused.gram(B, B)
+    stencil.stencil_spmm_gram_t(torch.ones(3, 256), (-1, 0, 1), B)
+    assert sum(_native.launches.values()) == 0
+    assert _native.library.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("tensors,exc", [
+    ((torch.ones(2, device="meta"),), ValueError),            # not CPU, not CUDA
+    ((torch.ones(2), torch.ones(2, device="meta")), ValueError),  # mixed devices
+])
+def test_dispatch_rejects_other_devices(tensors, exc):
+    with pytest.raises(exc):
+        _native.use_kernel(*tensors)
+
+
+def test_dispatch_cpu_is_plain_for_any_dtype():
+    assert _native.use_kernel(torch.ones(2), torch.ones(2)) is False
+    assert _native.use_kernel(torch.ones(2, dtype=torch.float64)) is False
+    assert _native.use_kernel(torch.ones(2, dtype=torch.bfloat16), torch.ones(2)) is False
+
+
+def test_nblocks_depends_on_n_only():
+    assert _native.nblocks(1) == 1
+    assert _native.nblocks(128) == 1 and _native.nblocks(129) == 2
+    assert _native.nblocks(2 ** 21) == _native.MAX_BLOCKS
+
+
+def test_native_build_command_and_sources(monkeypatch, tmp_path):
+    """The library is built from the four kernel sources of the checkout for
+    sm_90a, and a missing nvcc raises (there is no fallback)."""
+    names = {p.name for p in _native.sources()}
+    assert {"stencil.cu", "gram.cu", "fused_update.cu", "px_update.cu"} <= names
+    assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
+    root = Path(__file__).resolve().parents[1]
+    assert _native.library_path().parent == root / "build" / "blockcg_tpu_torch"
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _native.build_command(tmp_path / "lib.so")
+
+
+@pytest.mark.parametrize("xdg", [True, False])
+def test_native_build_dir_of_installed_package(monkeypatch, tmp_path, xdg):
+    """Installed (no pyproject.toml beside the package), the library goes to
+    the user's cache directory, not next to site-packages."""
+    pkg = tmp_path / "lib" / "site-packages" / "blockcg_tpu_torch"
+    pkg.mkdir(parents=True)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    if xdg:
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+        want = tmp_path / "cache" / "blockcg_tpu_torch"
+    else:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+        want = tmp_path / "home" / ".cache" / "blockcg_tpu_torch"
+    assert _native.build_dir(pkg) == want
+    (pkg.parent / "pyproject.toml").touch()  # a source checkout instead
+    assert _native.build_dir(pkg) == pkg.parent / "build" / "blockcg_tpu_torch"
+
+
+def test_import_leaves_jax_out():
+    """The port never imports JAX (nor the reference package)."""
+    code = ("import sys, blockcg_tpu_torch, blockcg_tpu_torch.problems; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'blockcg_tpu')]; "
+            "print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True)
+    assert out.stdout.strip() == "[]", out.stdout

@@ -1,0 +1,61 @@
+"""The GPU scripts at the root of the repo (chip_smoke.py, chip_profile.py):
+their refusal to run without a card, and the profile's device-time sums."""
+
+import importlib.util
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0),
+    ([(0, 1000)], 1.0),
+    ([(0, 1000), (500, 1500)], 1.5),        # overlap counts once
+    ([(2000, 3000), (0, 1000)], 2.0),       # unsorted, with a gap
+    ([(0, 3000), (1000, 2000)], 3.0),       # nested
+])
+def test_profile_union_ms(intervals, want):
+    assert _load("chip_profile").union_ms(intervals) == pytest.approx(want)
+
+
+def test_profile_summary_of_trace_events():
+    events = [
+        {"cat": "kernel", "name": "void stencil_spmm<32, true>(float const*)", "ts": 0, "dur": 400},
+        {"cat": "kernel", "name": "void px_update<32>(float const*)", "ts": 500, "dur": 300},
+        {"cat": "kernel", "name": "void at::native::elementwise_kernel<128>", "ts": 700, "dur": 200},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 1500, "dur": 500},
+        {"cat": "cpu_op", "name": "aten::mm", "ts": 0, "dur": 5000},  # host side, ignored
+    ]
+    s = _load("chip_profile").summarize(events, iterations=2)
+    assert s["kernels_per_iteration"] == 1.5
+    assert s["span_ms"] == pytest.approx(2.0)
+    assert s["busy_ms"] == pytest.approx(1.3)  # 0-400, 500-900, 1500-2000
+    assert s["port_ms"] == pytest.approx(0.7)
+    assert s["idle_share"] == pytest.approx(0.35)
+    assert s["top"][0][0].startswith("void stencil_spmm")
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
+@pytest.mark.parametrize("alone", [False, True])
+def test_gpu_script_fails_without_card(tmp_path, script, alone):
+    """With no CUDA device, or copied away from the package, the script exits
+    non-zero and prints no result."""
+    path = ROOT / script
+    if alone:
+        path = Path(shutil.copy(path, tmp_path / script))
+    res = subprocess.run([sys.executable, str(path)], capture_output=True, text=True,
+                         cwd=path.parent, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
