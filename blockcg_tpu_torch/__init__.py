@@ -8,11 +8,12 @@ tensors the same functions run their plain PyTorch versions. The JAX package
 never imports JAX.
 """
 
-from blockcg_tpu_torch.operators import DIAOperator
+from blockcg_tpu_torch.operators import ConstBlockDIAOperator, DIAOperator
 from blockcg_tpu_torch.solvers import solve_refined, solve_sbcgrq
 from blockcg_tpu_torch.types import SolverInfo, SolverOptions
 
 __all__ = [
+    "ConstBlockDIAOperator",
     "DIAOperator",
     "SolverInfo",
     "SolverOptions",

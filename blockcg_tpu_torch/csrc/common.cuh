@@ -1,4 +1,4 @@
-// Pieces shared by the four kernels of blockcg_tpu_torch: launch geometry,
+// Pieces shared by the kernels of blockcg_tpu_torch: launch geometry,
 // column loads, the k x k coefficient apply, the per-block Gram tile and the
 // deterministic second-stage reduction of the Gram partials.
 //
@@ -9,8 +9,8 @@
 // grid-stride loop. KMAX is the compile-time register width (8, 16, 32 or
 // 64); rows k..KMAX-1 are held at zero so the unrolled loops need no guards.
 //
-// Everything here has internal linkage: each .cu includes this header and the
-// four objects are linked into one library.
+// Everything here has internal linkage: each .cu includes this header, is
+// compiled to its own object, and the objects are linked into one library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -143,21 +143,23 @@ struct GramTile {
   }
 };
 
-// Second stage: G[e] = sum over blocks of part[b, e], in block order and in
-// double, so a repeated call gives the same bits (no atomics anywhere).
+// Second stage: G[e] = base[e] + sum over blocks of part[b, e] (base may be
+// null), in block order and in double, so a repeated call gives the same
+// bits (no atomics anywhere).
 __global__ void reduce_partials(const float* __restrict__ part,
+                                const float* __restrict__ base,
                                 float* __restrict__ G, int kk, int nblocks) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= kk) return;
-  double s = 0.0;
+  double s = base ? static_cast<double>(base[e]) : 0.0;
   for (int b = 0; b < nblocks; ++b) s += static_cast<double>(part[static_cast<long long>(b) * kk + e]);
   G[e] = static_cast<float>(s);
 }
 
 inline void launch_reduce(const float* part, float* G, int k, int nblocks,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, const float* base = nullptr) {
   const int kk = k * k;
-  reduce_partials<<<(kk + 255) / 256, 256, 0, stream>>>(part, G, kk, nblocks);
+  reduce_partials<<<(kk + 255) / 256, 256, 0, stream>>>(part, base, G, kk, nblocks);
 }
 
 // Raise the dynamic shared-memory cap of a kernel that needs more than the

@@ -1,0 +1,388 @@
+// Const-hop block stencil on merged spin-major fields (optionally with the
+// fused Gram), and the slab accumulate of its periodic wrap diagonals.
+//
+// Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
+// const_block_stencil_spmm_m_t (:617), const_block_stencil_spmm_m_gram_t
+// (:637) and slab_m_accumulate (:780).
+//
+// Layout: a merged field is (m, ns) float32 with m = bs * k; row a * k + i
+// holds spin a of right-hand side i, and site s of row r sits at F[r * ns + s].
+//
+// Contract, main kernel: for every diagonal d of the main set,
+//   Y[a*k+i, s] += w_d(s) * sum_b H_d[a][b] * X[b*k+i, (s + o_d) mod ns],
+// w_d(s) = masks[slot_d, s] when slot_d >= 0, else 1. The mask is a value,
+// not a gate: the gauged operators carry +-1 links in it. The Gram variant
+// also returns G = X Y^T (m x m).
+// Contract, slab kernel: for destination block j < nblocks of g sites,
+// dst = (dst_mul * j + dst_off) mod nb and src = (dst + src_shift) mod nb
+// (nb = ns / g blocks); Y[:, dst block] += (H ⊗ I_k) X[:, src block], in
+// place on Y. With the Gram, G = Gin + sum over the slab sites of
+// X[:, dst] dY^T.
+//
+// The TPU kernels build the MXU weight W = H ⊗ I_k, which is 3/4 zeros at
+// bs = 4. Here one thread owns one site column and applies the bs x bs hop
+// to each of its k-row spin groups directly: its m outputs sit in registers
+// as acc[BS][KI], and for each diagonal and input spin b it loads the k
+// values X[b*k.., src] once and adds H[a][b] times them into every output
+// spin a. BS (1, 2, 4 or 8) is the compile-time spin width >= bs, KMAX (8,
+// 16, 32 or 64) the register tile >= BS * k, KI = KMAX / BS; rows with
+// a >= bs or i >= k stay zero and are never stored.
+//
+// Bound: bytes, and L2 traffic. Per apply at 32^4 sites, m = 48: X read once
+// from DRAM when L2 holds the +-32,768-site window of the far diagonals
+// (about 12.6 MB of the H100's 50 MB), Y written once, 10 mask rows read:
+// about 444 MB. Each diagonal re-reads X's column from L1/L2, so the 13
+// main diagonals move about 2.6 GB through the cache hierarchy; staging
+// windows in shared memory is later work. The hop table (at most 32 x 8 x 8
+// floats) and the offsets sit in shared memory; the offsets come reduced to
+// [0, ns), so the column wraps with one conditional subtraction. Y is a fresh
+// buffer in the main kernel (other blocks still read X). The slab kernel
+// writes Y in place: the destination blocks of one diagonal are distinct (the
+// wrapper checks it), so every destination column has exactly one writer.
+//
+// Gram: as in stencil.cu, each block stages its tile's X and Y columns in
+// shared memory, adds them into a register tile (GramTile), writes one (m, m)
+// partial, and a second kernel sums the partials in a fixed order (and adds
+// Gin for the slab). No atomics: a repeated call gives the same bits.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxDiags = 32;
+constexpr int kMaxBs = 8;
+
+struct Diags {
+  int o[kMaxDiags];     // site offsets, each in [0, ns)
+  int slot[kMaxDiags];  // mask row, or -1 for an unmasked diagonal
+};
+
+struct SlabGeom {  // every field in [0, nb) except g and nblocks
+  long long nb, dst_mul, dst_off, src_shift;
+  int g, nblocks;
+};
+
+template <int BS, int KI>
+__device__ __forceinline__ void zero(float (&v)[BS][KI]) {
+#pragma unroll
+  for (int a = 0; a < BS; ++a)
+#pragma unroll
+    for (int i = 0; i < KI; ++i) v[a][i] = 0.f;
+}
+
+// acc[a][i] += w * sum_b h[a * bs + b] * X[b * k + i, src].
+template <int BS, int KI>
+__device__ __forceinline__ void hop_apply(float (&acc)[BS][KI], const float* h,
+                                          float w, const float* __restrict__ X,
+                                          int bs, int k, long long ns,
+                                          long long src) {
+#pragma unroll
+  for (int b = 0; b < BS; ++b) {
+    if (b < bs) {
+      float xb[KI];
+#pragma unroll
+      for (int i = 0; i < KI; ++i)
+        xb[i] = i < k ? X[static_cast<long long>(b * k + i) * ns + src] : 0.f;
+#pragma unroll
+      for (int a = 0; a < BS; ++a) {
+        if (a < bs) {
+          const float hw = w * h[a * bs + b];
+#pragma unroll
+          for (int i = 0; i < KI; ++i) acc[a][i] = fmaf(hw, xb[i], acc[a][i]);
+        }
+      }
+    }
+  }
+}
+
+// Y[a*k+i, col] = v[a][i] (or += with ADD) for a < bs, i < k.
+template <bool ADD, int BS, int KI>
+__device__ __forceinline__ void store_rows(float* __restrict__ Y,
+                                           const float (&v)[BS][KI], int bs,
+                                           int k, long long ns, long long col) {
+#pragma unroll
+  for (int a = 0; a < BS; ++a)
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+      if (a < bs && i < k) {
+        float* p = Y + static_cast<long long>(a * k + i) * ns + col;
+        *p = ADD ? *p + v[a][i] : v[a][i];
+      }
+}
+
+// The thread's column of a staged (KMAX, kLd) Gram tile: rows a*k+i of v.
+template <int BS, int KI>
+__device__ __forceinline__ void stage_rows(float* s, const float (&v)[BS][KI],
+                                           int bs, int k) {
+#pragma unroll
+  for (int a = 0; a < BS; ++a)
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+      if (a < bs && i < k) s[(a * k + i) * kLd + threadIdx.x] = v[a][i];
+}
+
+// The thread's column of a staged tile: X[:, col] for the m real rows.
+__device__ __forceinline__ void stage_x(float* s, const float* __restrict__ X,
+                                        int m, long long ns, long long col,
+                                        bool valid) {
+  for (int r = 0; r < m; ++r) s[r * kLd + threadIdx.x] = valid ? X[r * ns + col] : 0.f;
+}
+
+// Rows m..KMAX-1 of both staged tiles stay zero for the whole kernel.
+template <int KMAX>
+__device__ __forceinline__ void zero_pad_rows(float* xs, float* ys, int m) {
+  for (int r = m; r < KMAX; ++r) {
+    xs[r * kLd + threadIdx.x] = 0.f;
+    ys[r * kLd + threadIdx.x] = 0.f;
+  }
+}
+
+template <int BS, int KMAX, bool WITH_GRAM>
+__global__ void __launch_bounds__(kThreads)
+    cbs_spmm(const float* __restrict__ hops, Diags diags, int nd, int bs,
+             const float* __restrict__ masks, const float* __restrict__ X,
+             float* __restrict__ Y, float* __restrict__ part, int k,
+             long long ns) {
+  constexpr int KI = KMAX / BS;
+  // Dynamic shared memory: [xs | ys] (WITH_GRAM) then the hop table.
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_off[kMaxDiags], s_slot[kMaxDiags];
+  float* xs = smem;
+  float* ys = smem + KMAX * kLd;
+  float* sh = WITH_GRAM ? smem + 2 * KMAX * kLd : smem;
+  const int m = bs * k;
+  for (int e = threadIdx.x; e < nd * bs * bs; e += blockDim.x) sh[e] = hops[e];
+  if (threadIdx.x < nd) {
+    s_off[threadIdx.x] = diags.o[threadIdx.x];
+    s_slot[threadIdx.x] = diags.slot[threadIdx.x];
+  }
+  if constexpr (WITH_GRAM) zero_pad_rows<KMAX>(xs, ys, m);
+  __syncthreads();
+
+  GramTile<KMAX> g;
+  const long long ntiles = (ns + kThreads - 1) / kThreads;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long s = t * kThreads + threadIdx.x;
+    const bool valid = s < ns;
+    float acc[BS][KI];
+    zero(acc);
+    if (valid) {
+      for (int d = 0; d < nd; ++d) {
+        long long src = s + s_off[d];
+        if (src >= ns) src -= ns;
+        const int sl = s_slot[d];
+        const float w = sl < 0 ? 1.f : masks[sl * ns + s];
+        hop_apply<BS, KI>(acc, sh + d * bs * bs, w, X, bs, k, ns, src);
+      }
+      store_rows<false>(Y, acc, bs, k, ns, s);
+    }
+    if constexpr (WITH_GRAM) {
+      __syncthreads();  // the previous tile's Gram reads are done
+      stage_x(xs, X, m, ns, s, valid);
+      stage_rows(ys, acc, bs, k);
+      __syncthreads();
+      g.accumulate(xs, ys);
+    }
+  }
+  if constexpr (WITH_GRAM) g.store(part + static_cast<long long>(blockIdx.x) * m * m, m);
+}
+
+// part == nullptr: no Gram. The flag is uniform over the grid, so the
+// barriers under it are safe.
+template <int BS, int KMAX>
+__global__ void __launch_bounds__(kThreads)
+    slab_accumulate(const float* __restrict__ hop, SlabGeom geo, int bs,
+                    const float* __restrict__ X, float* __restrict__ Y,
+                    float* __restrict__ part, int k, long long ns) {
+  constexpr int KI = KMAX / BS;
+  extern __shared__ __align__(16) float smem[];  // [xs | ys] (Gram), then hop
+  const bool gram = part != nullptr;
+  float* xs = smem;
+  float* ys = smem + KMAX * kLd;
+  float* sh = gram ? smem + 2 * KMAX * kLd : smem;
+  const int m = bs * k;
+  for (int e = threadIdx.x; e < bs * bs; e += blockDim.x) sh[e] = hop[e];
+  if (gram) zero_pad_rows<KMAX>(xs, ys, m);
+  __syncthreads();
+
+  GramTile<KMAX> g;
+  const long long total = static_cast<long long>(geo.nblocks) * geo.g;
+  const long long ntiles = (total + kThreads - 1) / kThreads;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long e = t * kThreads + threadIdx.x;
+    const bool valid = e < total;
+    long long dst = 0;
+    float acc[BS][KI];
+    zero(acc);
+    if (valid) {
+      const long long j = e / geo.g, c = e - j * geo.g;
+      const long long dblk = (geo.dst_mul * j + geo.dst_off) % geo.nb;
+      long long sblk = dblk + geo.src_shift;
+      if (sblk >= geo.nb) sblk -= geo.nb;
+      dst = dblk * geo.g + c;
+      hop_apply<BS, KI>(acc, sh, 1.f, X, bs, k, ns, sblk * geo.g + c);
+      store_rows<true>(Y, acc, bs, k, ns, dst);
+    }
+    if (gram) {
+      __syncthreads();
+      stage_x(xs, X, m, ns, dst, valid);
+      stage_rows(ys, acc, bs, k);
+      __syncthreads();
+      g.accumulate(xs, ys);
+    }
+  }
+  if (gram) g.store(part + static_cast<long long>(blockIdx.x) * m * m, m);
+}
+
+struct MainArgs {
+  const float* hops;
+  Diags diags;
+  int nd, bs;
+  const float *masks, *X;
+  float *Y, *part, *G;
+  int k;
+  long long ns;
+  int nblocks;
+  cudaStream_t stream;
+};
+
+struct SlabArgs {
+  const float* hop;
+  SlabGeom geo;
+  int bs;
+  const float* X;
+  float* Y;
+  const float* Gin;
+  float *part, *G;
+  int k;
+  long long ns;
+  int nblocks;
+  cudaStream_t stream;
+};
+
+size_t staged_bytes(int kmax, bool gram, int hop_floats) {
+  return ((gram ? 2 * kmax * kLd : 0) + hop_floats) * sizeof(float);
+}
+
+template <int BS, int KMAX, bool WITH_GRAM>
+cudaError_t launch_main(const MainArgs& a) {
+  auto kernel = cbs_spmm<BS, KMAX, WITH_GRAM>;
+  const size_t smem = staged_bytes(KMAX, WITH_GRAM, a.nd * a.bs * a.bs);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hops, a.diags, a.nd, a.bs,
+                                                  a.masks, a.X, a.Y, a.part,
+                                                  a.k, a.ns);
+  if (WITH_GRAM) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
+  return cudaGetLastError();
+}
+
+template <int BS, int KMAX>
+cudaError_t launch_slab(const SlabArgs& a) {
+  auto kernel = slab_accumulate<BS, KMAX>;
+  const bool gram = a.G != nullptr;
+  const size_t smem = staged_bytes(KMAX, gram, a.bs * a.bs);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hop, a.geo, a.bs, a.X, a.Y,
+                                                  gram ? a.part : nullptr,
+                                                  a.k, a.ns);
+  if (gram) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream, a.Gin);
+  return cudaGetLastError();
+}
+
+// The compile-time spin width for bs: the next power of two.
+int bs_width(int bs) {
+  if (bs < 1) return 0;
+  if (bs <= 1) return 1;
+  if (bs <= 2) return 2;
+  if (bs <= 4) return 4;
+  if (bs <= kMaxBs) return 8;
+  return 0;
+}
+
+template <int BS>
+cudaError_t main_by_kmax(int kmax, bool gram, const MainArgs& a) {
+  switch (kmax) {
+    case 8: return gram ? launch_main<BS, 8, true>(a) : launch_main<BS, 8, false>(a);
+    case 16: return gram ? launch_main<BS, 16, true>(a) : launch_main<BS, 16, false>(a);
+    case 32: return gram ? launch_main<BS, 32, true>(a) : launch_main<BS, 32, false>(a);
+    case 64: return gram ? launch_main<BS, 64, true>(a) : launch_main<BS, 64, false>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int BS>
+cudaError_t slab_by_kmax(int kmax, const SlabArgs& a) {
+  switch (kmax) {
+    case 8: return launch_slab<BS, 8>(a);
+    case 16: return launch_slab<BS, 16>(a);
+    case 32: return launch_slab<BS, 32>(a);
+    case 64: return launch_slab<BS, 64>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// offsets, slots: host arrays of nd entries; each offset already reduced to
+// [0, ns). hops: device (nd, bs, bs). masks: device (nmask, ns), or null when
+// every slot is -1. k: right-hand sides per spin (m = bs * k). G == nullptr
+// selects the plain apply; otherwise part holds (nblocks, m, m).
+extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
+                            const int* slots, int nd, int bs,
+                            const float* masks, const float* X, float* Y,
+                            float* part, float* G, int k, long long ns,
+                            int nblocks, int device, cudaStream_t stream) {
+  const int bsw = bs_width(bs);
+  const int kmax = kmax_for(bsw * k);
+  if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 ||
+      nblocks < 1)
+    return cudaErrorInvalidValue;
+  MainArgs a{hops, {}, nd, bs, masks, X, Y, part, G, k, ns, nblocks, stream};
+  for (int d = 0; d < nd; ++d) {
+    if (offsets[d] < 0 || offsets[d] >= ns) return cudaErrorInvalidValue;
+    if (slots[d] >= 0 && masks == nullptr) return cudaErrorInvalidValue;
+    a.diags.o[d] = offsets[d];
+    a.diags.slot[d] = slots[d];
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const bool gram = G != nullptr;
+  switch (bsw) {
+    case 1: return main_by_kmax<1>(kmax, gram, a);
+    case 2: return main_by_kmax<2>(kmax, gram, a);
+    case 4: return main_by_kmax<4>(kmax, gram, a);
+    default: return main_by_kmax<8>(kmax, gram, a);
+  }
+}
+
+// hop: device (bs, bs). dst_mul, dst_off and src_shift already reduced to
+// [0, nb), nb = ns / g; the nblocks destination blocks must be distinct. Y is
+// updated in place. G == nullptr: no Gram; otherwise G = Gin + the slab's
+// X_dst dY^T (Gin may be null), with part (nblocks_grid, m, m).
+extern "C" int bcg_slab_accumulate(const float* hop, int bs, int g, int nblocks,
+                                   long long dst_mul, long long dst_off,
+                                   long long src_shift, const float* X,
+                                   float* Y, const float* Gin, float* part,
+                                   float* G, int k, long long ns,
+                                   int grid, int device, cudaStream_t stream) {
+  const int bsw = bs_width(bs);
+  const int kmax = kmax_for(bsw * k);
+  if (bsw == 0 || k < 1 || kmax == 0 || g < 1 || ns < 1 || ns % g != 0 ||
+      nblocks < 1 || grid < 1)
+    return cudaErrorInvalidValue;
+  const long long nb = ns / g;
+  if (nblocks > nb || dst_mul < 0 || dst_mul >= nb || dst_off < 0 ||
+      dst_off >= nb || src_shift < 0 || src_shift >= nb)
+    return cudaErrorInvalidValue;
+  SlabArgs a{hop, {nb, dst_mul, dst_off, src_shift, g, nblocks}, bs, X, Y, Gin,
+             part, G, k, ns, grid, stream};
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (bsw) {
+    case 1: return slab_by_kmax<1>(kmax, a);
+    case 2: return slab_by_kmax<2>(kmax, a);
+    case 4: return slab_by_kmax<4>(kmax, a);
+    default: return slab_by_kmax<8>(kmax, a);
+  }
+}

@@ -1,6 +1,14 @@
 """Operator formats (lanes-major applies)."""
 
 from blockcg_tpu_torch.operators.base import MatmatMixin, assert_wrap_zero, astype
+from blockcg_tpu_torch.operators.cbdia import ConstBlockDIAOperator, detect_slabs
 from blockcg_tpu_torch.operators.dia import DIAOperator
 
-__all__ = ["DIAOperator", "MatmatMixin", "assert_wrap_zero", "astype"]
+__all__ = [
+    "ConstBlockDIAOperator",
+    "DIAOperator",
+    "MatmatMixin",
+    "assert_wrap_zero",
+    "astype",
+    "detect_slabs",
+]

@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface and loaded with ``ctypes``. The library goes to
+Each source is compiled by its own ``nvcc`` (all started together), and the
+objects are linked into one shared library with a plain C interface, loaded
+with ``ctypes``. The library goes to
 ``build/blockcg_tpu_torch/`` at the root of the checkout (``build/`` is listed
 in ``.gitignore``), or to the user's cache directory when the package is
 installed (``build_dir``), named by a hash of the sources and flags, so an unchanged
@@ -37,7 +38,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 THREADS = 128  # csrc/common.cuh kThreads: columns per tile
 MAX_BLOCKS = 1024  # grid cap; also the row count of the Gram partials
@@ -108,9 +109,14 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def build_command(out: Path) -> list[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out),
-            *(str(p) for p in sources() if p.suffix == ".cu")]
+def build_commands(out: Path) -> tuple[list[list[str]], list[str]]:
+    """(one compile command per ``.cu``, the link command) for a library at
+    ``out``; the objects go beside it."""
+    exe = nvcc()
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    objs = [str(out.with_name(f"{out.name}.{p.stem}.o")) for p in cus]
+    compiles = [[exe, *NVCC_FLAGS, "-c", str(p), "-o", o] for p, o in zip(cus, objs)]
+    return compiles, [exe, *NVCC_FLAGS, "-shared", "-o", str(out), *objs]
 
 
 def build_dir(pkg_dir: Path = PKG_DIR) -> Path:
@@ -134,6 +140,20 @@ def library_path() -> Path:
     return build_dir() / f"libblockcg_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel and raise with the output of every one
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    fails = []
+    for cmd, proc in zip(cmds, procs):
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            fails.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+    if fails:
+        raise RuntimeError("\n".join(fails))
+
+
 def build() -> Path:
     """Compile the library unless this exact source set is already built."""
     out = library_path()
@@ -141,13 +161,16 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = build_command(tmp)
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    compiles, link = build_commands(tmp)
+    objs = [Path(c[-1]) for c in compiles]
+    try:
+        _run_all(compiles)
+        _run_all([link])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stderr}")
-    os.replace(tmp, out)
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 
@@ -160,8 +183,13 @@ def library() -> ctypes.CDLL:
     lib.bcg_gram.argtypes = [P, P, P, P, I, L, I, I, P]
     lib.bcg_coeff_update.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, P]
     lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, P]
+    lib.bcg_cbs_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int),
+                                 ctypes.POINTER(ctypes.c_int), I, I, P, P, P,
+                                 P, P, I, L, I, I, P]
+    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, P, P, P, P, P, I,
+                                        L, I, I, P]
     for fn in (lib.bcg_stencil_spmm, lib.bcg_gram, lib.bcg_coeff_update,
-               lib.bcg_px_update):
+               lib.bcg_px_update, lib.bcg_cbs_spmm, lib.bcg_slab_accumulate):
         fn.restype = I
     lib.bcg_error_string.argtypes = [I]
     lib.bcg_error_string.restype = ctypes.c_char_p

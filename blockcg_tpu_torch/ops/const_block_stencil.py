@@ -1,0 +1,229 @@
+"""Const-hop block stencil on merged spin-major fields, and the slab
+accumulate of its periodic wrap diagonals.
+
+Counterpart of the merged-layout kernels of
+``blockcg_tpu/ops/const_block_stencil.py``; both run as
+``csrc/const_block_stencil.cu``:
+
+- ``const_block_stencil_spmm_m_t``: ``Ym[a*k+i, s] = sum_d w_d(s) sum_b
+  H_d[a][b] Xm[b*k+i, (s + o_d) mod ns]`` on an (m = bs*k, ns) field, with
+  ``w_d = masks[mask_slot[d]]`` (a value: 0/1 gates or +-1 links), or 1 when
+  ``mask_slot[d] == -1``;
+- ``const_block_stencil_spmm_m_gram_t``: the same with ``Gm = X Y^T`` (m, m);
+- ``slab_m_accumulate``: ``Y[:, dst slabs] += (H ⊗ I_k) X[:, src slabs]`` in
+  place on Y, optionally with ``G = Gm + X_dst dY^T``.
+
+The reference's merged kernel needs m % 8 == 0 (``plan_m``, a TPU sublane
+rule) and falls back to XLA otherwise; the CUDA kernel takes any
+m = bs * k <= 64, so ``ConstBlockDIAOperator.matmat_gram_t`` always returns
+the fused Gram. Hops are the operator's (nd, bs, bs) buffer (nested tuples
+are accepted and converted on each call).
+
+Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
+plain versions below (the reference's ``_matmat_m_xla`` roll-and-einsum, and
+an in-place slab add), CUDA float32 tensors launch the kernels. Kernel
+bounds: at most 32 diagonals, bs <= 8, and m <= 64 after bs is rounded up to
+a power of two; the wrappers raise outside them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from blockcg_tpu_torch.ops import _native
+from blockcg_tpu_torch.solvers.common import acc_dtype, gram_t
+
+MAX_DIAGS = 32  # csrc/const_block_stencil.cu kMaxDiags
+MAX_BS = 8  # csrc/const_block_stencil.cu kMaxBs
+
+
+def _hops(hops, Xm: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(hops, dtype=Xm.dtype, device=Xm.device)
+
+
+def _check_main(hops, offsets, mask_slot, masks, Xm, name: str):
+    if hops.dim() != 3 or hops.shape[1] != hops.shape[2]:
+        raise ValueError(f"{name}: hops must be (nd, bs, bs), got {tuple(hops.shape)}")
+    nd, bs, _ = hops.shape
+    if Xm.dim() != 2 or Xm.shape[0] % bs:
+        raise ValueError(f"{name}: expected an (m = {bs} * k, ns) field, got "
+                         f"{tuple(Xm.shape)}")
+    if len(offsets) != nd or len(mask_slot) != nd:
+        raise ValueError(f"{name}: {nd} hops, {len(offsets)} offsets, "
+                         f"{len(mask_slot)} mask slots")
+    nmask = 0 if masks is None else masks.shape[0]
+    if masks is not None and masks.shape != (nmask, Xm.shape[1]):
+        raise ValueError(f"{name}: masks {tuple(masks.shape)} for {Xm.shape[1]} sites")
+    if any(not -1 <= sl < nmask for sl in mask_slot):
+        raise ValueError(f"{name}: mask slots {mask_slot} for {nmask} mask rows")
+
+
+def _check_kernel_width(bs: int, m: int, name: str) -> None:
+    """The kernel's register tile: bs <= 8 rounded up to a power of two,
+    times k, at most 64 rows."""
+    k = m // bs
+    if not 1 <= bs <= MAX_BS or not 1 <= (1 << (bs - 1).bit_length()) * k <= _native.MAX_K:
+        raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS} and "
+                         f"m = bs * k <= {_native.MAX_K} (bs rounded up to a power "
+                         f"of two); got bs={bs}, k={k}, m={m}")
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def const_block_stencil_plain(hops, offsets, mask_slot, masks, Xm,
+                              with_gram: bool = False):
+    """Plain PyTorch version: the roll-and-einsum of the reference's
+    ``ConstBlockDIAOperator._matmat_m_xla``. Returns ``(Ym, Gm or None)``
+    with ``Gm = X Y^T`` taken on the accumulator."""
+    bs = hops.shape[-1]
+    m, ns = Xm.shape
+    adt = acc_dtype(Xm.dtype)
+    Xv = Xm.reshape(bs, m // bs, ns).to(adt)
+    H = hops.to(adt)
+    Yv = torch.zeros_like(Xv)
+    for d, o in enumerate(offsets):
+        src = Xv if o % ns == 0 else torch.roll(Xv, -o, dims=2)
+        t = torch.tensordot(H[d], src, dims=1)
+        if mask_slot[d] >= 0:
+            t = t * masks[mask_slot[d]].to(adt)
+        Yv += t
+    Y = Yv.reshape(m, ns)
+    return Y.to(Xm.dtype), (gram_t(Xm, Y) if with_gram else None)
+
+
+def slab_columns(g: int, nblocks: int, dst_mul: int, dst_off: int,
+                 src_shift: int, ns: int, device=None):
+    """(dst, src) site indices of the slab sites, as the kernel walks them:
+    destination block j -> (dst_mul * j + dst_off) mod nb, its source
+    ``src_shift`` blocks away (toroidal)."""
+    nb = ns // g
+    j = torch.arange(nblocks, device=device)
+    dblk = (dst_mul * j + dst_off) % nb
+    sblk = (dblk + src_shift) % nb
+    c = torch.arange(g, device=device)
+    return (dblk[:, None] * g + c).reshape(-1), (sblk[:, None] * g + c).reshape(-1)
+
+
+def slab_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xm, Ym, Gm=None,
+               with_gram: bool = False):
+    """Plain version of ``slab_m_accumulate``: adds the slab's rows into Ym
+    in place; returns ``Ym``, or ``(Ym, Gm + X_dst dY^T)`` with the Gram."""
+    m, ns = Xm.shape
+    bs = hop.shape[-1]
+    adt = acc_dtype(Xm.dtype)
+    dst, src = slab_columns(g, nblocks, dst_mul, dst_off, src_shift, ns, Xm.device)
+    Xs = Xm[:, src].reshape(bs, m // bs, -1).to(adt)
+    dY = torch.tensordot(hop.to(adt), Xs, dims=1).reshape(m, -1)
+    Ym.index_add_(1, dst, dY.to(Ym.dtype))
+    if not with_gram:
+        return Ym
+    G = gram_t(Xm[:, dst], dY)
+    return Ym, (G if Gm is None else Gm + G)
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def _launch_main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str):
+    nd, bs, _ = hops.shape
+    m, ns = Xm.shape
+    _check_kernel_width(bs, m, name)
+    if nd > MAX_DIAGS:
+        raise ValueError(f"{name}: {nd} diagonals, the CUDA kernel takes at most {MAX_DIAGS}")
+    offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
+    slots = (ctypes.c_int * nd)(*mask_slot)
+    Y = torch.empty_like(Xm)
+    nb = _native.nblocks(ns)
+    part = G = None
+    if with_gram:
+        part = torch.empty((nb, m, m), dtype=torch.float32, device=Xm.device)
+        G = torch.empty((m, m), dtype=torch.float32, device=Xm.device)
+    p = _native.ptr
+    _native.launch(name, "bcg_cbs_spmm", Xm.device, p(hops), offs, slots, nd, bs,
+                   p(masks), p(Xm), p(Y), p(part), p(G), m // bs, ns, nb)
+    return Y, G
+
+
+def _main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str):
+    hops = _hops(hops, Xm)
+    _check_main(hops, offsets, mask_slot, masks, Xm, name)
+    ops = (hops, Xm) if masks is None else (hops, masks, Xm)
+    if not _native.use_kernel(*ops):
+        return const_block_stencil_plain(hops, offsets, mask_slot, masks, Xm, with_gram)
+    return _launch_main(hops, offsets, mask_slot, masks, Xm, with_gram, name)
+
+
+def const_block_stencil_spmm_m_t(hops, offsets: tuple[int, ...],
+                                 mask_slot: tuple[int, ...],
+                                 masks: torch.Tensor | None,
+                                 Xm: torch.Tensor) -> torch.Tensor:
+    """Merged-layout const-hop block SpMM: hops (nd, bs, bs), masks
+    (nmask, ns) or None, Xm (m = bs*k, ns) with row a*k + i. Returns Ym."""
+    return _main(hops, offsets, mask_slot, masks, Xm, False,
+                 "const_block_stencil_spmm_m_t")[0]
+
+
+def const_block_stencil_spmm_m_gram_t(hops, offsets: tuple[int, ...],
+                                      mask_slot: tuple[int, ...],
+                                      masks: torch.Tensor | None,
+                                      Xm: torch.Tensor):
+    """``(Ym, Gm = X Y^T)``, Gm (m, m); contract it to k x k with the
+    operator's ``gram_contract``."""
+    return _main(hops, offsets, mask_slot, masks, Xm, True,
+                 "const_block_stencil_spmm_m_gram_t")
+
+
+def _check_slab(hop, g, nblocks, dst_mul, Xm, Ym, Gm, name):
+    m, ns = Xm.shape
+    bs = hop.shape[-1]
+    if hop.shape != (bs, bs) or m % bs:
+        raise ValueError(f"{name}: hop {tuple(hop.shape)} for an ({m}, {ns}) field")
+    if Ym.shape != Xm.shape:
+        raise ValueError(f"{name}: Y {tuple(Ym.shape)} for X {tuple(Xm.shape)}")
+    if Gm is not None and Gm.shape != (m, m):
+        raise ValueError(f"{name}: Gm {tuple(Gm.shape)}, expected ({m}, {m})")
+    if g < 1 or ns % g:
+        raise ValueError(f"{name}: slab width {g} does not divide {ns} sites")
+    nb = ns // g
+    # Distinct destination blocks: each destination column has one writer.
+    if not 1 <= nblocks <= nb // math.gcd(dst_mul, nb):
+        raise ValueError(f"{name}: {nblocks} slabs of stride {dst_mul} repeat a "
+                         f"destination among {nb} blocks")
+
+
+def slab_m_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
+                      src_shift: int, Xm: torch.Tensor, Ym: torch.Tensor,
+                      Gm: torch.Tensor | None = None, *, with_gram: bool = False):
+    """``Y[:, dst slabs] += (hop ⊗ I_k) X[:, src slabs]`` in place on Ym.
+
+    Destination slab j < nblocks covers sites [(dst_mul*j + dst_off mod nb)*g,
+    ... + g), nb = ns / g; its source sits ``src_shift`` slabs away
+    (toroidal). Returns Ym, or with ``with_gram`` ``(Ym, G = Gm + X_dst
+    dY^T)`` (Gm None counts as zero)."""
+    name = "slab_m_accumulate"
+    hop = _hops(hop, Xm)
+    _check_slab(hop, g, nblocks, dst_mul, Xm, Ym, Gm if with_gram else None, name)
+    ops = [hop, Xm, Ym] + ([Gm] if with_gram and Gm is not None else [])
+    if not _native.use_kernel(*ops):
+        return slab_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xm, Ym,
+                          Gm, with_gram)
+    m, ns = Xm.shape
+    bs = hop.shape[-1]
+    _check_kernel_width(bs, m, name)
+    if Ym.data_ptr() == Xm.data_ptr():
+        raise ValueError(f"{name}: Y must not share X's storage")
+    nb = ns // g
+    grid = _native.nblocks(nblocks * g)
+    part = G = None
+    if with_gram:
+        part = torch.empty((grid, m, m), dtype=torch.float32, device=Xm.device)
+        G = torch.empty((m, m), dtype=torch.float32, device=Xm.device)
+    p = _native.ptr
+    _native.launch(name, "bcg_slab_accumulate", Xm.device, p(hop), bs, g, nblocks,
+                   dst_mul % nb, dst_off % nb, src_shift % nb, p(Xm), p(Ym),
+                   p(Gm if with_gram else None), p(part), p(G), m // bs, ns, grid)
+    return (Ym, G) if with_gram else Ym

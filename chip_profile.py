@@ -6,13 +6,15 @@ nvcc:
 
     python3 chip_profile.py
 
-Three solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1) and
-the first inner solve of the north star (128^3 Laplacian, k = 32, the
+Four solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
-its inner solver, tol 3e-6) at qr_passes 1 and 2. Each solve runs once to
-warm up, once bare (wall clock ending in ``torch.cuda.synchronize()``: "bare
-ms"), and once under ``torch.profiler`` with CUDA activity only. From the
-trace's device events it reports:
+its inner solver, tol 3e-6) at qr_passes 1 and 2, and config 4 (the 32^4
+lattice-Dirac operator in the const-hop container, k = 12, tol 1e-6,
+qr_passes=1). Each solve runs once to warm up, once bare (wall clock ending
+in ``torch.cuda.synchronize()``: "bare ms"), and once under
+``torch.profiler`` with CUDA activity only. From the trace's device events
+it reports:
 
 - ``kernels_per_iteration``: CUDA kernels launched / iterations;
 - ``busy_ms``: the union of the intervals of every kernel, memcpy and memset;
@@ -40,7 +42,8 @@ from pathlib import Path
 K = 32
 TOP = 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-PORT_KERNEL = re.compile(r"\b(stencil_spmm|coeff_update|px_update|gram_kernel|reduce_partials)\b")
+PORT_KERNEL = re.compile(r"\b(stencil_spmm|coeff_update|px_update|gram_kernel|reduce_partials"
+                         r"|cbs_spmm|slab_accumulate)\b")
 
 
 def union_ms(intervals) -> float:
@@ -111,7 +114,11 @@ def main() -> None:
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(root))
     from blockcg_tpu_torch import solve_sbcgrq
-    from blockcg_tpu_torch.problems import config3_sbcgrq_3d_64, laplacian_dia
+    from blockcg_tpu_torch.problems import (
+        config3_sbcgrq_3d_64,
+        config4_dirac_32,
+        laplacian_dia,
+    )
     from blockcg_tpu_torch.problems.presets import _rhs
 
     dev = torch.device("cuda", 0)
@@ -127,12 +134,14 @@ def main() -> None:
     B = _rhs(op.n, K, torch.float64, device=dev)
     R = (B / torch.linalg.vector_norm(B, dim=0)).float()
     del B
+    op4, B4, _ = config4_dirac_32(device=dev)
     solves = [
         ("config3 qr_passes=1", lambda: solve_sbcgrq(op3, B3, tol=1e-6, qr_passes=1)),
         ("north-star inner 128^3 qr_passes=1",
          lambda: solve_sbcgrq(op, R, tol=3e-6, max_iter=2000, qr_passes=1)),
         ("north-star inner 128^3 qr_passes=2",
          lambda: solve_sbcgrq(op, R, tol=3e-6, max_iter=2000, qr_passes=2)),
+        ("config4 dirac_32 qr_passes=1", lambda: solve_sbcgrq(op4, B4, tol=1e-6, qr_passes=1)),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         for name, run in solves:

@@ -7,13 +7,16 @@ nvcc:
     python3 chip_smoke.py
 
 It builds the kernels from ``blockcg_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version at the main path's shapes, then drives the
-main path: SBCGrQ on config 3 (64^3 Laplacian, 32 RHS) and the north-star
-``solve_refined`` to 1e-10 on the 128^3 Laplacian with 32 RHS. Each phase
-prints one line; any failure raises, and the process exits non-zero. The
-last two lines are the kernels' JSON record, whose launch counts are those of
-the north-star solves alone, and the run's JSON result. It
-imports neither JAX nor the reference package, and fails without a card.
+against its plain PyTorch version at its path's shapes, then drives the two
+paths: SBCGrQ on config 3 (64^3 Laplacian, 32 RHS) and the north-star
+``solve_refined`` to 1e-10 on the 128^3 Laplacian with 32 RHS; then config 4,
+the 32^4 lattice-Dirac operator in the const-hop container with 12 RHS,
+through ``solve_sbcgrq`` (twice, bitwise identical) and ``solve_refined`` to
+1e-10. Each phase prints one line; any failure raises, and the process exits
+non-zero. The last two lines are the kernels' JSON record, whose launch
+counts are those of each kernel's own path (the north-star solves, or
+config 4), and the run's JSON result. It imports neither JAX nor the
+reference package, and fails without a card.
 """
 
 from __future__ import annotations
@@ -42,9 +45,26 @@ KERNELS = {
     "mm_update_gram": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:332"),
     "mm2_update_gram": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:405"),
     "px_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:588"),
+    "const_block_stencil_spmm_m_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                                     "blockcg_tpu/ops/const_block_stencil.py:617"),
+    "const_block_stencil_spmm_m_gram_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                                          "blockcg_tpu/ops/const_block_stencil.py:637"),
+    "slab_m_accumulate": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                          "blockcg_tpu/ops/const_block_stencil.py:780"),
 }
+# The kernels of config 4's const-hop operator; the others are the north
+# star's.
+CBS_KERNELS = ("const_block_stencil_spmm_m_t", "const_block_stencil_spmm_m_gram_t",
+               "slab_m_accumulate")
+NORTH_STAR_KERNELS = tuple(w for w in KERNELS if w not in CBS_KERNELS)
 CONFIG3_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update",
                     "mm2_update_gram", "px_update")
+# Every SBCGrQ solve at qr_passes=1 launches these fused kernels
+# (mm_update_gram only when the adaptive second QR pass triggers).
+CONFIG4_WRAPPERS = (*CBS_KERNELS, "gram", "mm_update", "mm2_update_gram", "px_update")
+DIRAC_L = 32
+DIRAC_K = 12
+DIRAC_REF_ITERS = 13  # the reference's SBCGrQ iterations at tol 1e-6
 
 
 def median_ms(torch, fn) -> float:
@@ -104,9 +124,33 @@ def _check(name, what, err, tol):
         raise AssertionError(f"{name}: {what} error {err:.3e} exceeds {tol:.0e}")
 
 
+def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None) -> float:
+    """Run the kernel and its plain version once, compare each output, time
+    both (or the pair ``timed``), print one line, and fold the record into
+    ``records[name]``: its first check sets the times, every check its
+    max_abs_err. Returns the kernel's ms."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    errs, abs_err = [], 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            continue
+        err = relfro(g, w) if is_gram(w) else relmax(g, w)
+        _check(f"{name} ({what})", "Gram" if is_gram(w) else f"output {i}", err,
+               GRAM_RTOL if is_gram(w) else FIELD_RTOL)
+        errs.append(err)
+        abs_err = max(abs_err, float((g - w).abs().max()))
+    ms, plain_ms = (median_ms(torch, fn) for fn in (timed or (kern, plain)))
+    print(f"[kernel] {name} {what}: rel err {max(errs):.2e} (max abs {abs_err:.2e}), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    return ms
+
+
 def phase_kernels(torch, dev) -> dict:
     """Each kernel against its plain version at the main path's shapes, and
-    both timed. Returns {wrapper: record} for the north-star shape."""
+    both timed. Returns {wrapper: record}, timed at the north-star shape."""
     from blockcg_tpu_torch.ops import fused, stencil
     from blockcg_tpu_torch.problems import laplacian_dia
 
@@ -116,60 +160,139 @@ def phase_kernels(torch, dev) -> dict:
     def field(k, n):
         return torch.randn((k, n), generator=gen, device=dev)
 
-    for shape in SHAPES:
+    def is_gram(w):
+        return w.shape == (K, K)
+
+    for shape in SHAPES:  # the north star first: its times go in the records
         op = laplacian_dia(shape, device=dev)
         n = op.n
         M1, M2, M3 = (torch.randn((K, K), generator=gen, device=dev) / K ** 0.5
                       for _ in range(3))
         B1, B2, B3 = field(K, n), field(K, n), field(K, n)
         banded = torch.randn(op.diags.shape, generator=gen, device=dev)  # wraps populated
-        cases = {
-            "stencil_spmm_t": (
-                lambda: (stencil.stencil_spmm_t(op.diags, op.offsets, B1), None),
-                lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1)),
-            "stencil_spmm_gram_t": (
-                lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
-                lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1, True)),
-            "stencil_spmm_gram_t (random banded)": (
-                lambda: stencil.stencil_spmm_gram_t(banded, op.offsets, B1),
-                lambda: stencil.stencil_spmm_plain(banded, op.offsets, B1, True)),
-            "gram": (lambda: (None, fused.gram(B1, B2)),
-                     lambda: (None, fused.gram_plain(B1, B2))),
-            "mm_update": (lambda: (fused.mm_update(M1, B1), None),
-                          lambda: (fused.mm_update_plain(M1, B1), None)),
-            "mm_update_gram": (lambda: fused.mm_update_gram(M1, B1),
-                               lambda: fused.mm_update_gram_plain(M1, B1)),
-            "mm2_update_gram": (lambda: fused.mm2_update_gram(M1, B1, M2, B2),
-                                lambda: fused.mm2_update_gram_plain(M1, B1, M2, B2)),
-            "px_update": (lambda: fused.px_update(M1, B1, M2, B2, M3, B3),
-                          lambda: fused.px_update_plain(M1, B1, M2, B2, M3, B3)),
-        }
-        for name, (kern, plain) in cases.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            errs, abs_err = [], 0.0
-            for i, (g, w) in enumerate(zip(got, want)):
-                if w is None:
-                    continue
-                is_gram = w.shape == (K, K)
-                err = relfro(g, w) if is_gram else relmax(g, w)
-                _check(name, "Gram" if is_gram else f"output {i}", err,
-                       GRAM_RTOL if is_gram else FIELD_RTOL)
-                errs.append(err)
-                abs_err = max(abs_err, float((g - w).abs().max()))
-            ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
-            rate = (f", {op.nnz / ms / 1e6:.2f} Gnnz/s"
-                    if name == "stencil_spmm_t" else "")
-            print(f"[kernel] {name} n={n} k={K}: rel err {max(errs):.2e} "
-                  f"(max abs {abs_err:.2e}), kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms{rate}")
-            if shape == SHAPES[0] and name in KERNELS:
-                records[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
-            elif name in records:
-                records[name]["max_abs_err"] = max(records[name]["max_abs_err"], abs_err)
+        what = f"n={n} k={K}"
+        cases = [
+            ("stencil_spmm_t", what,
+             lambda: (stencil.stencil_spmm_t(op.diags, op.offsets, B1), None),
+             lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1)),
+            ("stencil_spmm_gram_t", what,
+             lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
+             lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1, True)),
+            ("stencil_spmm_gram_t", what + " random banded",
+             lambda: stencil.stencil_spmm_gram_t(banded, op.offsets, B1),
+             lambda: stencil.stencil_spmm_plain(banded, op.offsets, B1, True)),
+            ("gram", what, lambda: (None, fused.gram(B1, B2)),
+             lambda: (None, fused.gram_plain(B1, B2))),
+            ("mm_update", what, lambda: (fused.mm_update(M1, B1), None),
+             lambda: (fused.mm_update_plain(M1, B1), None)),
+            ("mm_update_gram", what, lambda: fused.mm_update_gram(M1, B1),
+             lambda: fused.mm_update_gram_plain(M1, B1)),
+            ("mm2_update_gram", what, lambda: fused.mm2_update_gram(M1, B1, M2, B2),
+             lambda: fused.mm2_update_gram_plain(M1, B1, M2, B2)),
+            ("px_update", what, lambda: fused.px_update(M1, B1, M2, B2, M3, B3),
+             lambda: fused.px_update_plain(M1, B1, M2, B2, M3, B3)),
+        ]
+        for name, label, kern, plain in cases:
+            ms = _timed_check(torch, name, label, kern, plain, is_gram, records)
+            if name == "stencil_spmm_t":
+                print(f"[kernel] stencil_spmm_t {what}: {op.nnz / ms / 1e6:.2f} Gnnz/s")
         del op, B1, B2, B3, banded
         torch.cuda.empty_cache()
     return records
+
+
+def phase_cbs_kernels(torch, dev, records) -> None:
+    """The const-hop kernels against their plain versions at config 4's
+    shapes (ns = 32^4, m = 4 * 12): main, main+Gram and both slab forms on
+    dirac_cbdia(32), main+Gram on the Z2-gauged operator (value masks, no
+    slabs). Then the fused updates at that width (their KMAX = 64 builds) on
+    ``I_bs ⊗ C`` coefficients, as the codec expands them. The const-hop
+    records take dirac_cbdia's times; every check folds into
+    ``records``' max_abs_err."""
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.ops import fused
+    from blockcg_tpu_torch.problems import dirac_cbdia, dirac_gauged_cbdia
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    op = dirac_cbdia(DIRAC_L, device=dev)
+    bs, m, ns = op.bs, op.bs * DIRAC_K, op.ns
+    Xm = torch.randn((m, ns), generator=gen, device=dev)
+    Ym = torch.randn((m, ns), generator=gen, device=dev)
+    Gm = torch.randn((m, m), generator=gen, device=dev)
+    main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main, Xm)
+    d, g, nblocks, mul, off, shift = op.slabs[0]
+    slab = (op.hops_all[d], g, nblocks, mul, off, shift, Xm)
+    Yk, Yp = Ym.clone(), Ym.clone()  # the slab adds in place: one buffer each
+    what = f"ns={ns} m={m}"
+
+    def is_gram(w):
+        return w.shape == (m, m)
+
+    def slab_case(with_gram):
+        """(kern, plain), each from a fresh copy of Ym, for the comparison,
+        and the in-place adds alone, for the timing."""
+        def kern_t():
+            out = cbs.slab_m_accumulate(*slab, Yk, Gm, with_gram=with_gram)
+            return out if with_gram else (out, None)
+
+        def plain_t():
+            out = cbs.slab_plain(*slab, Yp, Gm, with_gram)
+            return out if with_gram else (out, None)
+
+        def kern():
+            Yk.copy_(Ym)
+            return kern_t()
+
+        def plain():
+            Yp.copy_(Ym)
+            return plain_t()
+        return kern, plain, (kern_t, plain_t)
+
+    cases = [
+        ("const_block_stencil_spmm_m_t", what,
+         lambda: (cbs.const_block_stencil_spmm_m_t(*main), None),
+         lambda: cbs.const_block_stencil_plain(*main), None),
+        ("const_block_stencil_spmm_m_gram_t", what,
+         lambda: cbs.const_block_stencil_spmm_m_gram_t(*main),
+         lambda: cbs.const_block_stencil_plain(*main, True), None),
+        ("slab_m_accumulate", what, *slab_case(False)),
+        ("slab_m_accumulate", what + " with Gram", *slab_case(True)),
+    ]
+    for name, label, kern, plain, timed in cases:
+        _timed_check(torch, name, label, kern, plain, is_gram, records, timed)
+    apply_ms = median_ms(torch, lambda: op.matmat_t(Xm))
+    print(f"[kernel] dirac_cbdia({DIRAC_L}).matmat_t on the merged field: {apply_ms:.4f} ms, "
+          f"{op.nnz / apply_ms / 1e6:.2f} Gnnz/s (nnz {op.nnz})")
+    del op, main, slab, Yk, Yp
+    gop = dirac_gauged_cbdia(DIRAC_L, device=dev)
+    gmain = (gop.hops_main, gop.main_offsets, gop.main_slots, gop.masks_main, Xm)
+    _timed_check(torch, "const_block_stencil_spmm_m_gram_t",
+                 f"{what} gauged Z2 value masks",
+                 lambda: cbs.const_block_stencil_spmm_m_gram_t(*gmain),
+                 lambda: cbs.const_block_stencil_plain(*gmain, True), is_gram, records)
+    del gop, gmain
+
+    eye = torch.eye(bs, device=dev)
+    M1, M2, M3 = (torch.kron(eye, torch.randn((DIRAC_K, DIRAC_K), generator=gen, device=dev)
+                             / DIRAC_K ** 0.5) for _ in range(3))
+    Zm = torch.randn((m, ns), generator=gen, device=dev)
+    what = f"{what} I_{bs}⊗C"
+    cases = [
+        ("gram", lambda: (None, fused.gram(Xm, Ym)),
+         lambda: (None, fused.gram_plain(Xm, Ym))),
+        ("mm_update", lambda: (fused.mm_update(M1, Xm), None),
+         lambda: (fused.mm_update_plain(M1, Xm), None)),
+        ("mm_update_gram", lambda: fused.mm_update_gram(M1, Xm),
+         lambda: fused.mm_update_gram_plain(M1, Xm)),
+        ("mm2_update_gram", lambda: fused.mm2_update_gram(M1, Xm, M2, Ym),
+         lambda: fused.mm2_update_gram_plain(M1, Xm, M2, Ym)),
+        ("px_update", lambda: fused.px_update(M1, Xm, M2, Ym, M3, Zm),
+         lambda: fused.px_update_plain(M1, Xm, M2, Ym, M3, Zm)),
+    ]
+    for name, kern, plain in cases:
+        _timed_check(torch, name, what, kern, plain, is_gram, records)
+    del Xm, Ym, Zm
+    torch.cuda.empty_cache()
 
 
 def true_relres(torch, op, X, B) -> float:
@@ -246,6 +369,51 @@ def phase_north_star(torch, dev) -> None:
         del X
 
 
+def phase_config4(torch, dev) -> None:
+    """Config 4 through the entry points: SBCGrQ at tol 1e-6 twice (bitwise
+    identical), then ``solve_refined`` to 1e-10 on the same operator (its f64
+    outer apply runs the plain route)."""
+    from blockcg_tpu_torch import solve_refined, solve_sbcgrq
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import config4_dirac_32
+
+    op, B, meta = config4_dirac_32(L=DIRAC_L, device=dev)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, info = solve_sbcgrq(op, B, tol=1e-6, qr_passes=1)
+        torch.cuda.synchronize()
+        runs.append((X, info, time.perf_counter() - t0))
+    (X1, info, s1), (X2, info2, s2) = runs
+    if not bool(info.converged.all()):
+        raise AssertionError(f"config 4 did not converge: {info}")
+    rel = true_relres(torch, op, X1, B)
+    if not rel <= 1e-5:
+        raise AssertionError(f"config 4 true relres {rel:.3e} > 1e-5")
+    if not torch.equal(X1, X2):
+        raise AssertionError("config 4 repeat solve is not bitwise identical")
+    print(f"[config4] {meta['name']} n={op.n} nnz={op.nnz} k={B.shape[1]}: "
+          f"{info.iterations} iterations (reference {DIRAC_REF_ITERS}), {s1:.3f} s "
+          f"(repeat {s2:.3f} s, {info2.iterations} iterations, bitwise identical), "
+          f"true relres {rel:.3e}, launches {dict(_native.launches)}")
+    del X1, X2, runs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    X, rinfo = solve_refined(op, B, tol=1e-10, inner_tol=3e-6, qr_passes=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel = true_relres(torch, op, X, B)
+    if not (bool(rinfo.converged.all()) and rel <= 1e-10):
+        raise AssertionError(f"config 4 solve_refined reached true relres {rel:.3e}, "
+                             f"not 1e-10: {rinfo}")
+    print(f"[config4] solve_refined tol=1e-10 inner_tol=3e-6 qr_passes=1: "
+          f"{rinfo.iterations} cycles, {rinfo.matvecs} matvecs, {secs:.3f} s, "
+          f"true relres {rel:.3e}, peak {peak:.2f} GiB")
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     import torch
@@ -262,20 +430,30 @@ def main() -> None:
     phase_device(torch)
     phase_build()
     records = phase_kernels(torch, dev)
+    phase_cbs_kernels(torch, dev, records)
 
     from blockcg_tpu_torch.ops import _native
 
     _native.reset_launches()
     phase_config3(torch, dev)  # checks its own six wrappers' counts
-    # The kernels' record counts the main path alone: the north-star chain
-    # (its qr_passes=2 solve launches mm_update_gram).
+    # Each kernel's record counts its own path alone: the north-star chain
+    # (its qr_passes=2 solve launches mm_update_gram), then config 4.
     _native.reset_launches()
     phase_north_star(torch, dev)
     counts = dict(_native.launches)
     print(f"[launches] north star: {counts}")
-    missing = [w for w in KERNELS if counts.get(w, 0) == 0]
+    missing = [w for w in NORTH_STAR_KERNELS if counts.get(w, 0) == 0]
     if missing:
         raise AssertionError(f"the north star never launched the kernels of {missing}")
+    # Config 4's path: its const-hop kernels keep config 4's counts.
+    _native.reset_launches()
+    phase_config4(torch, dev)
+    counts4 = dict(_native.launches)
+    print(f"[launches] config 4: {counts4}")
+    missing = [w for w in CONFIG4_WRAPPERS if counts4.get(w, 0) == 0]
+    if missing:
+        raise AssertionError(f"config 4 never launched the kernels of {missing}")
+    counts.update({w: counts4[w] for w in CBS_KERNELS})
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}

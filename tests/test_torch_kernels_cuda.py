@@ -16,7 +16,13 @@ import pytest
 import torch
 
 from blockcg_tpu_torch.ops import _native, fused, stencil
-from blockcg_tpu_torch.problems import laplacian_dia, laplacian_scipy
+from blockcg_tpu_torch.ops import const_block_stencil as cbs
+from blockcg_tpu_torch.problems import (
+    dirac_cbdia,
+    dirac_gauged_cbdia,
+    laplacian_dia,
+    laplacian_scipy,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +150,123 @@ def test_sbcgrq_on_card_matches_cpu(dev):
     Bn = B.double().numpy()
     res = np.linalg.norm(a @ Xg.double().cpu().numpy() - Bn, axis=0)
     assert (res / np.linalg.norm(Bn, axis=0)).max() <= 1e-4
+
+
+# ------------------------------------------- const-hop block stencil, slabs
+
+
+def _cbs_operands(ns, bs, k, masks, dev, seed=0):
+    """Random hops on offsets that wrap, two with |o| >= ns; every fourth
+    diagonal unmasked, the others on one of three mask rows."""
+    rng = np.random.default_rng(seed)
+    offsets = (0, 1, -1, 17, -150, ns - 1, ns + 150, -ns - 1)
+    hops = _t(rng.standard_normal((len(offsets), bs, bs)), dev)
+    if masks == "none":
+        rows, slots = None, (-1,) * len(offsets)
+    else:
+        vals = [0.0, 1.0] if masks == "gates" else [-1.5, -1.0, 0.0, 1.0, 2.0]
+        rows = _t(rng.choice(vals, size=(3, ns)), dev)
+        slots = tuple(d % 4 - 1 for d in range(len(offsets)))
+    return hops, offsets, slots, rows, _field(bs * k, ns, seed + 1, dev)
+
+
+@pytest.mark.parametrize("bs,k", [(4, 1), (4, 3), (4, 12), (4, 16), (2, 6), (8, 8),
+                                  (3, 5), (1, 64)])
+@pytest.mark.parametrize("masks", ["none", "gates", "values"])
+def test_const_block_stencil_kernel_matches_plain(dev, bs, k, masks):
+    """ns = 300 (not a multiple of 128), m = bs * k in {4, 12, 48, 64, 15}."""
+    hops, offsets, slots, rows, Xm = _cbs_operands(300, bs, k, masks, dev)
+    Y, G = cbs.const_block_stencil_spmm_m_gram_t(hops, offsets, slots, rows, Xm)
+    Yp, Gp = cbs.const_block_stencil_plain(hops, offsets, slots, rows, Xm, True)
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    Y1 = cbs.const_block_stencil_spmm_m_t(hops, offsets, slots, rows, Xm)
+    assert _relmax(Y1, Yp) < 1e-5
+
+
+@pytest.mark.parametrize("masks", ["none", "values"])
+def test_hand_built_cbdia_operator_on_card(dev, masks):
+    """An operator on 300 sites with random hops, one slab-free path, through
+    its public applies on the card against the full plain apply."""
+    from blockcg_tpu_torch import ConstBlockDIAOperator
+
+    hops, offsets, slots, rows, Xm = _cbs_operands(300, 4, 12, masks, dev, seed=5)
+    op = ConstBlockDIAOperator(rows, hops.tolist(), offsets, slots, 300, device=dev)
+    want = op._matmat_m_plain(Xm)
+    Y, G = op.matmat_gram_t(Xm)
+    torch.cuda.synchronize()
+    assert _relmax(op.matmat_t(Xm), want) < 1e-5 and _relmax(Y, want) < 1e-5
+    assert _relfro(G, op.gram_contract(Xm @ want.T)) < 1e-5
+    Xt = op.from_internal(Xm)
+    assert _relmax(op.matmat_t(Xt), op.from_internal(want)) < 1e-5
+
+
+def test_const_block_stencil_kernel_bounds(dev):
+    hops, offsets, slots, rows, Xm = _cbs_operands(300, 4, 16, "gates", dev)
+    _native.reset_launches()
+    cbs.const_block_stencil_spmm_m_gram_t(hops, offsets, slots, rows, Xm)
+    assert _native.launches["const_block_stencil_spmm_m_gram_t"] == 1
+    for bs, k in ((4, 17), (3, 20)):  # m = 68; m = 60 but 4 * 20 > 64
+        h, o, s, r, X = _cbs_operands(300, bs, k, "gates", dev)
+        with pytest.raises(ValueError, match="m = bs"):
+            cbs.const_block_stencil_spmm_m_t(h, o, s, r, X)
+    many = torch.zeros((33, 4, 4), device=dev)
+    with pytest.raises(ValueError, match="at most 32"):
+        cbs.const_block_stencil_spmm_m_t(many, (0,) * 33, (-1,) * 33, None, Xm)
+    with pytest.raises(ValueError, match="contiguous"):
+        cbs.const_block_stencil_spmm_m_t(hops, offsets, slots, rows[:, :150],
+                                         Xm[:, ::2])
+    assert _native.launches["const_block_stencil_spmm_m_t"] == 0
+
+
+@pytest.mark.parametrize("k", [2, 12])
+def test_slab_kernel_matches_plain(dev, k):
+    op = dirac_cbdia(16, device=dev)
+    m, ns = op.bs * k, op.ns
+    Xm, Ym = _field(m, ns, 20, dev), _field(m, ns, 21, dev)
+    Gm = _t(np.random.default_rng(22).standard_normal((m, m)), dev)
+    for d, g, nblocks, mul, off, shift in op.slabs:
+        args = (op.hops_all[d], g, nblocks, mul, off, shift, Xm)
+        Yk, Yp = Ym.clone(), Ym.clone()
+        out = cbs.slab_m_accumulate(*args, Yk)
+        cbs.slab_plain(*args, Yp)
+        assert out.data_ptr() == Yk.data_ptr() and _relmax(Yk, Yp) < 1e-5
+        Yk, Yp = Ym.clone(), Ym.clone()
+        Yk, G = cbs.slab_m_accumulate(*args, Yk, Gm, with_gram=True)
+        Yp, Gp = cbs.slab_plain(*args, Yp, Gm, with_gram=True)
+        assert _relmax(Yk, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+        G2 = cbs.slab_m_accumulate(*args, Ym.clone(), Gm, with_gram=True)[1]
+        assert torch.equal(G, G2)  # a repeat gives the same bits
+    with pytest.raises(ValueError):
+        cbs.slab_m_accumulate(op.hops_all[5], 256, 16, 16, 15, -15, Xm, Xm)
+
+
+@pytest.mark.parametrize("gauged", [False, True])
+def test_cbdia_operator_on_card_matches_plain(dev, gauged):
+    op = dirac_gauged_cbdia(16, device=dev) if gauged else dirac_cbdia(16, device=dev)
+    Xm = _field(op.bs * 12, op.ns, 23, dev)
+    want = op._matmat_m_plain(Xm)
+    _native.reset_launches()
+    Y, G = op.matmat_gram_t(Xm)
+    G1 = op.matmat_gram_t(Xm)[1]
+    assert _native.launches["const_block_stencil_spmm_m_gram_t"] == 2
+    assert _native.launches["slab_m_accumulate"] == (0 if gauged else 4)
+    torch.cuda.synchronize()
+    assert _relmax(Y, want) < 1e-5 and _relmax(op.matmat_t(Xm), want) < 1e-5
+    assert _relfro(G, op.gram_contract(Xm @ want.T)) < 1e-5
+    assert torch.equal(G, G1)
+
+
+def test_sbcgrq_dirac_on_card_matches_cpu(dev):
+    from blockcg_tpu_torch import solve_sbcgrq
+
+    op = dirac_cbdia(8)
+    B = torch.as_tensor(np.random.default_rng(24).standard_normal((op.n, 12)),
+                        dtype=torch.float32)
+    Xc, ic = solve_sbcgrq(op, B, tol=1e-5)
+    opg = dirac_cbdia(8, device=dev)
+    Xg, ig = solve_sbcgrq(opg, B.to(dev), tol=1e-5)
+    assert bool(ig.converged.all()) and abs(ig.iterations - ic.iterations) <= 2
+    R = B.double().to(dev) - opg.astype_op(torch.float64).matmat(Xg.double())
+    res = torch.linalg.vector_norm(R, dim=0) / torch.linalg.vector_norm(B.double().to(dev), dim=0)
+    assert float(res.max()) <= 1e-4

@@ -180,17 +180,28 @@ def test_nblocks_depends_on_n_only():
 
 
 def test_native_build_command_and_sources(monkeypatch, tmp_path):
-    """The library is built from the four kernel sources of the checkout for
-    sm_90a, and a missing nvcc raises (there is no fallback)."""
-    names = {p.name for p in _native.sources()}
-    assert {"stencil.cu", "gram.cu", "fused_update.cu", "px_update.cu"} <= names
+    """The library is built from the kernel sources of the checkout for
+    sm_90a, one compile per source and one link, and a missing nvcc raises
+    (there is no fallback)."""
+    cus = {"stencil.cu", "gram.cu", "fused_update.cu", "px_update.cu",
+           "const_block_stencil.cu"}
+    assert cus <= {p.name for p in _native.sources()}
     assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     root = Path(__file__).resolve().parents[1]
     assert _native.library_path().parent == root / "build" / "blockcg_tpu_torch"
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.touch()
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    compiles, link = _native.build_commands(tmp_path / "lib.so")
+    assert {Path(c[c.index("-c") + 1]).name for c in compiles} == {
+        p.name for p in _native.sources() if p.suffix == ".cu"}
+    assert link[-len(compiles):] == [c[-1] for c in compiles]
+    assert "-shared" in link and link[link.index("-o") + 1] == str(tmp_path / "lib.so")
+    fake.unlink()
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _native.build_command(tmp_path / "lib.so")
+        _native.build_commands(tmp_path / "lib.so")
 
 
 @pytest.mark.parametrize("xdg", [True, False])

@@ -47,6 +47,16 @@ def test_profile_summary_of_trace_events():
     assert s["top"][0][0].startswith("void stencil_spmm")
 
 
+@pytest.mark.parametrize("name,port", [
+    ("void (anonymous namespace)::cbs_spmm<4, 64, true>(float const*, Diags)", True),
+    ("void (anonymous namespace)::slab_accumulate<4, 64>(float const*)", True),
+    ("void (anonymous namespace)::reduce_partials(float const*)", True),
+    ("void at::native::vectorized_elementwise_kernel<4>", False),
+])
+def test_profile_port_kernel_names(name, port):
+    assert bool(_load("chip_profile").PORT_KERNEL.search(name)) is port
+
+
 @pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
 @pytest.mark.parametrize("alone", [False, True])
 def test_gpu_script_fails_without_card(tmp_path, script, alone):
