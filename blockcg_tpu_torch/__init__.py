@@ -8,15 +8,33 @@ tensors the same functions run their plain PyTorch versions. The JAX package
 never imports JAX.
 """
 
-from blockcg_tpu_torch.operators import ConstBlockDIAOperator, DIAOperator
-from blockcg_tpu_torch.solvers import solve_refined, solve_sbcgrq
+from blockcg_tpu_torch.operators import ConstBlockDIAOperator, DenseOperator, DIAOperator
+from blockcg_tpu_torch.solvers import (
+    solve_bcg,
+    solve_bcga,
+    solve_bcgdq,
+    solve_bcgrq,
+    solve_cg,
+    solve_refined,
+    solve_sbcgrq,
+    solve_shifted_cg,
+    solve_shifted_sbcgrq,
+)
 from blockcg_tpu_torch.types import SolverInfo, SolverOptions
 
 __all__ = [
     "ConstBlockDIAOperator",
     "DIAOperator",
+    "DenseOperator",
     "SolverInfo",
     "SolverOptions",
+    "solve_bcg",
+    "solve_bcga",
+    "solve_bcgdq",
+    "solve_bcgrq",
+    "solve_cg",
     "solve_refined",
     "solve_sbcgrq",
+    "solve_shifted_cg",
+    "solve_shifted_sbcgrq",
 ]

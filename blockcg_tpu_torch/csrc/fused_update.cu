@@ -13,10 +13,10 @@
 // tile over staged 128-column tiles (GramTile), reduced across blocks by a
 // second kernel in a fixed order.
 //
-// In place: Y may be the same buffer as B1 (the solvers' donated operand).
-// Column i of Y depends only on column i of the inputs, and a thread reads all
-// of its column before it writes it, so that is safe; B1, A and Y are
-// therefore not declared __restrict__.
+// In place: Y may be the same buffer as B1 or as A (the solvers' donated
+// operand). Column i of Y depends only on column i of the inputs, and a thread
+// reads all of its column before it writes it, so that is safe; B1, A and Y
+// are therefore not declared __restrict__.
 #include "common.cuh"
 
 namespace {
@@ -98,7 +98,7 @@ cudaError_t dispatch(const float* M1, const float* B1, const float* M2,
 }  // namespace
 
 // M2/B2 == nullptr: one term. A == nullptr: no additive field. G == nullptr:
-// no Gram (part is then unused). Y may equal B1.
+// no Gram (part is then unused). Y may equal B1 or A.
 extern "C" int bcg_coeff_update(const float* M1, const float* B1,
                                 const float* M2, const float* B2,
                                 const float* A, float* Y, float* part,

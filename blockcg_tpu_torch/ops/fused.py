@@ -8,10 +8,14 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
 - ``mm2_update_gram(M1, B1, M2, B2)`` Y = M1 B1 + M2 B2, G = Y Y^T
 - ``px_update(M1, W, rho, P, C, X)``  Pn = M1 W + rho P, Xn = X + C P
                                                            (``csrc/px_update.cu``)
+- ``xr_update_gram(a, P, X, Z, R)``   Xn = X + a P, Rn = R - a Z, G = Rn Rn^T
+                                                           (``csrc/xr_update.cu``)
+- ``qr_p_update(M2, Q1, rho, P)``     Q = M2 Q1, Pn = Q + rho P
+                                                           (``csrc/qr_p_update.cu``)
 
 Each has a plain PyTorch version beside it, the composition the reference's
 solvers fall back to (``blockcg_tpu/solvers/common.py:216-218, 233-237,
-254-255, 286-287``). Dispatch follows
+254-255, 271-273, 286-287, 299-300``). Dispatch follows
 ``ops/_native.py``: CPU and CUDA float64 run the plain version, CUDA float32
 launches the kernel. Grams are taken on the stored output. Fields must be
 contiguous; the k x k coefficients are made so (they are often transposed
@@ -64,6 +68,17 @@ def px_update_plain(M1, W, rho, P, C, X):
     return Pn, (X + mm(C, P)).to(X.dtype)
 
 
+def xr_update_gram_plain(alpha, P, X, Z, R):
+    Xn = (X + mm(alpha, P)).to(X.dtype)
+    Rn = (R - mm(alpha, Z)).to(R.dtype)
+    return Xn, Rn, gram_t(Rn, Rn)
+
+
+def qr_p_update_plain(M2, Q1, rho, P):
+    Q = mm(M2, Q1)
+    return Q.to(Q1.dtype), (Q + mm(rho, P)).to(P.dtype)
+
+
 # ------------------------------------------------------------------ wrappers
 
 
@@ -109,13 +124,18 @@ def _coeff_update(name, M1, B1, M2, B2, A, with_gram, out):
 
 
 def mm_update(M: torch.Tensor, B: torch.Tensor,
-              A: torch.Tensor | None = None) -> torch.Tensor:
-    """Y = M B (+ A); M (k, k), fields (k, n)."""
+              A: torch.Tensor | None = None, *,
+              donate: str | None = None) -> torch.Tensor:
+    """Y = M B (+ A); M (k, k), fields (k, n). ``donate`` 'b' writes Y onto
+    B, 'a' onto A."""
     M = M.contiguous()
     ops = (M, B) if A is None else (M, B, A)
+    if donate not in (None, "a", "b") or (donate == "a" and A is None):
+        raise ValueError(f"mm_update: donate must be None, 'b' or 'a' (with A), got {donate!r}")
+    dst = {None: None, "a": A, "b": B}[donate]
     if not _native.use_kernel(*ops):
-        return mm_update_plain(M, B, A)
-    return _coeff_update("mm_update", M, B, None, None, A, False, None)[0]
+        return _into(dst, mm_update_plain(M, B, A))
+    return _coeff_update("mm_update", M, B, None, None, A, False, dst)[0]
 
 
 def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
@@ -162,3 +182,47 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
     _native.launch("px_update", "bcg_px_update", W.device, p(M1), p(W), p(rho),
                    p(P), p(C), p(X), p(Pn), p(Xn), k, n, _native.nblocks(n))
     return Pn, Xn
+
+
+def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
+                   Z: torch.Tensor, R: torch.Tensor, *, donate: bool = False):
+    """(Xn = X + alpha P, Rn = R - alpha Z, G = Rn Rn^T); ``donate`` writes
+    Xn onto X and Rn onto R (P and Z are only read)."""
+    alpha = alpha.contiguous()
+    if not _native.use_kernel(alpha, P, X, Z, R):
+        Xn, Rn, G = xr_update_gram_plain(alpha, P, X, Z, R)
+        if donate:
+            return X.copy_(Xn), R.copy_(Rn), G
+        return Xn, Rn, G
+    k, n = _field_shape(P, "xr_update_gram")
+    for F, what in ((X, "X"), (Z, "Z"), (R, "R")):
+        _native.check_field(F, k, n, f"xr_update_gram {what}")
+    _native.check_kk(alpha, k, "xr_update_gram alpha")
+    Xn, Rn = (X, R) if donate else (torch.empty_like(X), torch.empty_like(R))
+    part, G = _gram_buffers(k, n, P.device)
+    p = _native.ptr
+    _native.launch("xr_update_gram", "bcg_xr_update_gram", P.device, p(alpha), p(P),
+                   p(X), p(Z), p(R), p(Xn), p(Rn), p(part), p(G), k, n,
+                   _native.nblocks(n))
+    return Xn, Rn, G
+
+
+def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
+                P: torch.Tensor, *, donate: bool = False):
+    """(Q = M2 Q1, Pn = Q + rho P); ``donate`` writes Q onto Q1 and Pn onto
+    P."""
+    M2, rho = M2.contiguous(), rho.contiguous()
+    if not _native.use_kernel(M2, Q1, rho, P):
+        Q, Pn = qr_p_update_plain(M2, Q1, rho, P)
+        if donate:
+            return Q1.copy_(Q), P.copy_(Pn)
+        return Q, Pn
+    k, n = _field_shape(Q1, "qr_p_update")
+    _native.check_field(P, k, n, "qr_p_update P")
+    for M, what in ((M2, "M2"), (rho, "rho")):
+        _native.check_kk(M, k, f"qr_p_update {what}")
+    Q, Pn = (Q1, P) if donate else (torch.empty_like(Q1), torch.empty_like(P))
+    p = _native.ptr
+    _native.launch("qr_p_update", "bcg_qr_p_update", Q1.device, p(M2), p(Q1), p(rho),
+                   p(P), p(Q), p(Pn), k, n, _native.nblocks(n))
+    return Q, Pn

@@ -2,8 +2,16 @@
 
 from blockcg_tpu_torch.problems.dirac import dirac_cbdia, dirac_gauged_cbdia, hopping_matrices
 from blockcg_tpu_torch.problems.laplacian import laplacian_dia, laplacian_scipy
+from blockcg_tpu_torch.problems.random_spd import (
+    random_block,
+    random_block_c,
+    random_hpd,
+    random_spd,
+)
 from blockcg_tpu_torch.problems.presets import (
     PRESETS,
+    config1_cg_2d_128,
+    config2_bcg_2d_512,
     config3_sbcgrq_3d_64,
     config4_dirac_32,
     config5_sbcgrq_3d_256,
@@ -11,6 +19,8 @@ from blockcg_tpu_torch.problems.presets import (
 
 __all__ = [
     "PRESETS",
+    "config1_cg_2d_128",
+    "config2_bcg_2d_512",
     "config3_sbcgrq_3d_64",
     "config4_dirac_32",
     "config5_sbcgrq_3d_256",
@@ -19,4 +29,8 @@ __all__ = [
     "hopping_matrices",
     "laplacian_dia",
     "laplacian_scipy",
+    "random_block",
+    "random_block_c",
+    "random_hpd",
+    "random_spd",
 ]

@@ -1,6 +1,25 @@
 """Block Krylov solvers."""
 
+from blockcg_tpu_torch.solvers.bcg import solve_bcg
+from blockcg_tpu_torch.solvers.bcga import solve_bcga
+from blockcg_tpu_torch.solvers.bcgdq import solve_bcgdq
+from blockcg_tpu_torch.solvers.cg import solve_cg
 from blockcg_tpu_torch.solvers.refine import solve_refined
 from blockcg_tpu_torch.solvers.sbcgrq import solve_sbcgrq
+from blockcg_tpu_torch.solvers.shifted import solve_shifted_cg
+from blockcg_tpu_torch.solvers.shifted_block import solve_shifted_sbcgrq
 
-__all__ = ["solve_refined", "solve_sbcgrq"]
+# Dubrulle-ladder naming: "BCGrQ" is the residual-QR rung, SBCGrQ.
+solve_bcgrq = solve_sbcgrq
+
+__all__ = [
+    "solve_bcg",
+    "solve_bcga",
+    "solve_bcgdq",
+    "solve_bcgrq",
+    "solve_cg",
+    "solve_refined",
+    "solve_sbcgrq",
+    "solve_shifted_cg",
+    "solve_shifted_sbcgrq",
+]

@@ -66,40 +66,51 @@ def row_norms2_t(Ut: torch.Tensor, codec=None) -> torch.Tensor:
     return _nc(codec, s)
 
 
+def vdot_real(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Real part of the conjugating inner product over every element, exact
+    for the CG quantities r^H r and p^H A p; bf16 fields reduce in f32."""
+    adt = acc_dtype(u.dtype)
+    return torch.vdot(u.reshape(-1).to(adt), v.reshape(-1).to(adt)).real
+
+
 def safe_cholesky(G: torch.Tensor) -> torch.Tensor:
-    """Cholesky of a k x k SPD Gram with a jittered fallback.
+    """Cholesky of a k x k SPD Gram, or of each matrix of a (..., k, k)
+    stack, with a jittered fallback.
 
     Near-converged RHS columns make the Gram nearly singular. Both
     factorizations are computed on the device (k x k, no host read) and the
-    jittered one is taken where the plain one failed. ``cholesky_ex`` reports
-    failure in ``info`` and returns a finite, wrong factor; the reference's
-    ``jnp.linalg.cholesky`` returns NaN instead. So failure is ``info != 0``
-    or a NaN in the factor, and a jittered factor that fails too is turned
-    into the reference's NaN (lower triangle), so that it propagates."""
-    k = G.shape[0]
+    jittered one is taken where the plain one failed, matrix by matrix (the
+    jitter scales with each matrix's own trace, as the reference's
+    ``vmap``). ``cholesky_ex`` reports failure in ``info`` and returns a
+    finite, wrong factor; the reference's ``jnp.linalg.cholesky`` returns NaN
+    instead. So failure is ``info != 0`` or a NaN in the factor, and a
+    jittered factor that fails too is turned into the reference's NaN (lower
+    triangle), so that it propagates."""
+    k = G.shape[-1]
     L, info = torch.linalg.cholesky_ex(G)
     rdt = G.real.dtype
     eps, tiny = torch.finfo(rdt).eps, torch.finfo(rdt).tiny
-    jitter = (torch.diagonal(G).real.sum() / k) * eps * 32.0 + tiny
+    jitter = (torch.diagonal(G, dim1=-2, dim2=-1).real.sum(-1) / k) * eps * 32.0 + tiny
     eye = torch.eye(k, dtype=G.dtype, device=G.device)
-    L2, info2 = torch.linalg.cholesky_ex(G + jitter * eye)
+    L2, info2 = torch.linalg.cholesky_ex(G + jitter[..., None, None] * eye)
     lower = torch.ones(k, k, dtype=torch.bool, device=G.device).tril()
-    L2 = torch.where(lower & (info2 != 0), torch.nan, L2)
-    bad = (info != 0) | torch.isnan(L).any()
-    return torch.where(bad, L2, L)
+    L2 = torch.where(lower & (info2 != 0)[..., None, None], torch.nan, L2)
+    bad = (info != 0) | torch.isnan(L).any(dim=(-2, -1))  # L is column-major
+    return torch.where(bad[..., None, None], L2, L)
 
 
 def chol_solve_spd(M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Solve ``M X = B`` for SPD k x k ``M`` via Cholesky."""
+    """Solve ``M X = B`` for SPD k x k ``M`` (or a stack) via Cholesky."""
     L = safe_cholesky(M)
     Y = torch.linalg.solve_triangular(L, B, upper=False)
     return torch.linalg.solve_triangular(L.mH, Y, upper=True)
 
 
 def chol_inverse_spd(M: torch.Tensor) -> torch.Tensor:
-    """Explicit inverse of SPD k x k ``M`` (keeps the big updates plain
-    coefficient applies)."""
-    return chol_solve_spd(M, torch.eye(M.shape[0], dtype=M.dtype, device=M.device))
+    """Explicit inverse of SPD k x k ``M``, or of each matrix of a stack
+    (keeps the big updates plain coefficient applies)."""
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return chol_solve_spd(M, eye.expand(M.shape))
 
 
 def tri_inverse_upper(R: torch.Tensor) -> torch.Tensor:
@@ -121,11 +132,12 @@ def f_gram(Ut, Vt, codec=None):
     return _gc(codec, fused.gram(Ut, Vt))
 
 
-def f_mm_update(M, Bt, At=None, codec=None):
-    """M @ B (+ A) in one pass (M expanded to internal rows via codec)."""
+def f_mm_update(M, Bt, At=None, codec=None, donate: str | None = None):
+    """M @ B (+ A) in one pass (M expanded to internal rows via codec).
+    ``donate`` writes the output onto the named dead operand ('a' or 'b')."""
     from blockcg_tpu_torch.ops import fused
 
-    return fused.mm_update(_ce(codec, M), Bt, At)
+    return fused.mm_update(_ce(codec, M), Bt, At, donate=donate)
 
 
 def f_mm_update_gram(M, Bt, At=None, codec=None, donate: bool = False):
@@ -155,6 +167,24 @@ def f_px_update(M1, Wt, rho, Pt, C, Xt, codec=None, donate: bool = False):
 
     return fused.px_update(_ce(codec, M1), Wt, _ce(codec, rho), Pt,
                            _ce(codec, C), Xt, donate=donate)
+
+
+def f_xr_update_gram(alpha, Pt, Xt, Zt, Rt, codec=None, donate: bool = False):
+    """(Xn = X + alpha @ P, Rn = R - alpha @ Z, S' = Rn Rn^T) in one pass:
+    the BCG/BCGA solution and residual updates. ``donate`` writes Xn onto X
+    and Rn onto R; P and Z stay live."""
+    from blockcg_tpu_torch.ops import fused
+
+    Xn, Rn, S = fused.xr_update_gram(_ce(codec, alpha), Pt, Xt, Zt, Rt, donate=donate)
+    return Xn, Rn, _gc(codec, S)
+
+
+def f_qr_p_update(M2, Q1t, rho, Pt, codec=None, donate: bool = False):
+    """(Q = M2 @ Q1, Pn = Q + rho @ P) in one pass: the shifted-block
+    SBCGrQ tail. ``donate`` writes Q onto Q1 and Pn onto P."""
+    from blockcg_tpu_torch.ops import fused
+
+    return fused.qr_p_update(_ce(codec, M2), Q1t, _ce(codec, rho), Pt, donate=donate)
 
 
 def f_matmat_gram(op, Xt):
@@ -261,3 +291,46 @@ def residual_rebase(S, Sn):
     # U (Sn + dI) = (S + dI); Sn upper triangular with positive diagonal.
     Ut = torch.linalg.solve_triangular((Sn + E).T, (S + E).T, upper=False)
     return Ut.T
+
+
+def cholqr_fused_t(Vt, passes: int = 2, codec=None):
+    """Thin QR via CholeskyQR(passes) on the fused kernels. Returns (Qt, R)
+    with V = Q R. V is left as it was: a second field pass would overwrite
+    its operand, so it gets a copy (the reference's XLA inserts the same
+    copy)."""
+    G = f_gram(Vt, Vt, codec)
+    Mi, Wt, rho = qr_passes_from_gram(G, Vt.clone(), passes, codec=codec)
+    return f_mm_update(Mi, Wt, codec=codec), rho
+
+
+# ------------------------------------------------------ solver entry checks
+
+
+def check_precision(solver: str) -> None:
+    """The k x k algebra and the plain f32 routes need full-f32 matmuls."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{solver} needs full-f32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (TF32 keeps about "
+            "three decimal digits)")
+
+
+def check_real(B: torch.Tensor, solver: str) -> None:
+    """Complex systems wait for the realified operators."""
+    if B.is_complex():
+        raise NotImplementedError(
+            f"{solver}: complex fields need operators/realify.py, which is "
+            "not ported yet")
+
+
+def block_setup(op, B: torch.Tensor, X0: torch.Tensor | None, solver: str):
+    """The block solvers' entry checks, and their internal fields: B's
+    lanes-major view and a private copy of X0, which they update in place."""
+    if B.dim() == 1:
+        raise ValueError(f"{solver} expects an (n, k) block; use solve_cg for k=1")
+    check_real(B, solver)
+    check_precision(solver)
+    Bt = op.to_internal(B.T.contiguous())
+    X0t = (torch.zeros_like(Bt) if X0 is None
+           else op.to_internal(X0.T.clone(memory_format=torch.contiguous_format)))
+    return Bt, X0t

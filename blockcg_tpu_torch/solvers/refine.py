@@ -8,7 +8,7 @@ wraps the hot f32 solver in an f64 outer cycle:
     repeat:
         R = B - A X           # true residual in f64, one SpMM per cycle
         stop if max_j ||R e_j|| / ||B e_j|| <= tol
-        D = inner_solve(A_f32, R_f32, tol=inner_tol)   # hot f32 SBCGrQ
+        D = inner_solve(A_f32, R_f32, tol=inner_tol)   # hot f32 SBCGrQ or BCG
         X += D
 
 The f64 apply runs natively on the card through the plain version of the
@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 
 from blockcg_tpu_torch.operators.base import astype as op_astype
+from blockcg_tpu_torch.solvers.bcg import solve_bcg
 from blockcg_tpu_torch.solvers.sbcgrq import solve_sbcgrq
 from blockcg_tpu_torch.types import SolverInfo
 from blockcg_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -65,8 +66,9 @@ def solve_refined(
       B: (n, k) right-hand sides, on the operator's device.
       tol: outer true-residual target.
       inner_tol: per-cycle inner solve target.
-      solve_fn: optional override ``(op, R, tol) -> (D, info)``; defaults to
-        ``solve_sbcgrq`` (``inner_solver="bcg"`` waits for the BCG port).
+      inner_solver: "sbcgrq" (default) or "bcg", the inner f32 solver.
+      solve_fn: optional override ``(op, R, tol) -> (D, info)`` of
+        ``inner_solver``.
       op64: optional full-precision operator for the outer residual; default
         is a new copy of ``op`` in ``outer_dtype`` (exact for stencil
         coefficients).
@@ -85,8 +87,8 @@ def solve_refined(
                                     qr_passes=qr_passes,
                                     replace_every=replace_every)
         elif inner_solver == "bcg":
-            raise NotImplementedError(
-                "inner_solver='bcg' needs solve_bcg, which is not ported yet")
+            def solve_fn(o, r, t):
+                return solve_bcg(o, r, tol=t, max_iter=inner_max_iter)
         else:
             raise ValueError(f"unknown inner solver {inner_solver!r}")
 

@@ -39,6 +39,7 @@ import torch
 
 from blockcg_tpu_torch.solvers.common import (
     acc_dtype,
+    block_setup,
     chol_inverse_spd,
     f_gram,
     f_matmat_gram,
@@ -142,14 +143,6 @@ def _sbcgrq_impl(op, Bt, X0t, tol, max_iter, qr_passes, replace_every,
     return Xt, info
 
 
-def _check_precision() -> None:
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "solve_sbcgrq needs full-f32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False (TF32 keeps about "
-            "three decimal digits)")
-
-
 def solve_sbcgrq(
     op: Any,
     B: torch.Tensor,
@@ -177,19 +170,14 @@ def solve_sbcgrq(
     (f64 only). Returns (X (n, k), SolverInfo). ``B`` and ``X0`` are not
     modified.
     """
-    if B.dim() == 1:
-        raise ValueError("solve_sbcgrq expects an (n, k) block")
     if qr_passes < 1:
         raise ValueError("qr_passes must be >= 1")
     if replace_mode not in ("restart", "rebase"):
         raise ValueError("replace_mode must be 'restart' or 'rebase'")
-    _check_precision()
     # Solver state lives in the operator's internal lanes-major view,
     # converted once here. X0t is a private copy: the solver updates it in
     # place.
-    Bt = op.to_internal(B.T.contiguous())
-    X0t = (torch.zeros_like(Bt) if X0 is None
-           else op.to_internal(X0.T.clone(memory_format=torch.contiguous_format)))
+    Bt, X0t = block_setup(op, B, X0, "solve_sbcgrq")
     Xt, info = _sbcgrq_impl(
         op, Bt, X0t, tol, max_iter, qr_passes, replace_every, record_history,
         active_floor, replace_kappa=float(replace_kappa),

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where the device time goes in the port's SBCGrQ solves, on one GPU.
+"""Where the device time goes in the port's block solves, on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card and
 nvcc:
 
     python3 chip_profile.py
 
-Four solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+Six solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
 first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
-its inner solver, tol 3e-6) at qr_passes 1 and 2, and config 4 (the 32^4
+its inner solver, tol 3e-6) at qr_passes 1 and 2, config 4 (the 32^4
 lattice-Dirac operator in the const-hop container, k = 12, tol 1e-6,
-qr_passes=1). Each solve runs once to warm up, once bare (wall clock ending
+qr_passes=1), config 2's BCG (512^2 Laplacian, k = 16, tol 1e-6) and the
+shifted-block SBCGrQ on config 4 with four shifts (tol 1e-6). Each solve
+runs once to warm up, once bare (wall clock ending
 in ``torch.cuda.synchronize()``: "bare ms"), and once under
 ``torch.profiler`` with CUDA activity only. From the trace's device events
 it reports:
@@ -40,10 +42,11 @@ from collections import defaultdict
 from pathlib import Path
 
 K = 32
+SHIFTS = (0.0, 0.05, 0.5, 2.0)
 TOP = 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PORT_KERNEL = re.compile(r"\b(stencil_spmm|coeff_update|px_update|gram_kernel|reduce_partials"
-                         r"|cbs_spmm|slab_accumulate)\b")
+                         r"|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update)\b")
 
 
 def union_ms(intervals) -> float:
@@ -113,8 +116,9 @@ def main() -> None:
         raise SystemExit(f"chip_profile.py: no blockcg_tpu_torch/ beside {__file__}; "
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(root))
-    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch import solve_bcg, solve_sbcgrq, solve_shifted_sbcgrq
     from blockcg_tpu_torch.problems import (
+        config2_bcg_2d_512,
         config3_sbcgrq_3d_64,
         config4_dirac_32,
         laplacian_dia,
@@ -135,6 +139,7 @@ def main() -> None:
     R = (B / torch.linalg.vector_norm(B, dim=0)).float()
     del B
     op4, B4, _ = config4_dirac_32(device=dev)
+    op2, B2, _ = config2_bcg_2d_512(device=dev)
     solves = [
         ("config3 qr_passes=1", lambda: solve_sbcgrq(op3, B3, tol=1e-6, qr_passes=1)),
         ("north-star inner 128^3 qr_passes=1",
@@ -142,6 +147,9 @@ def main() -> None:
         ("north-star inner 128^3 qr_passes=2",
          lambda: solve_sbcgrq(op, R, tol=3e-6, max_iter=2000, qr_passes=2)),
         ("config4 dirac_32 qr_passes=1", lambda: solve_sbcgrq(op4, B4, tol=1e-6, qr_passes=1)),
+        ("config2 bcg_2d_512 solve_bcg", lambda: solve_bcg(op2, B2, tol=1e-6, max_iter=5000)),
+        (f"config4 dirac_32 solve_shifted_sbcgrq shifts {SHIFTS}",
+         lambda: solve_shifted_sbcgrq(op4, B4, SHIFTS, tol=1e-6)),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         for name, run in solves:

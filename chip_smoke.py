@@ -7,16 +7,20 @@ nvcc:
     python3 chip_smoke.py
 
 It builds the kernels from ``blockcg_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version at its path's shapes, then drives the two
+against its plain PyTorch version at its path's shapes, then drives the
 paths: SBCGrQ on config 3 (64^3 Laplacian, 32 RHS) and the north-star
-``solve_refined`` to 1e-10 on the 128^3 Laplacian with 32 RHS; then config 4,
+``solve_refined`` to 1e-10 on the 128^3 Laplacian with 32 RHS; config 4,
 the 32^4 lattice-Dirac operator in the const-hop container with 12 RHS,
 through ``solve_sbcgrq`` (twice, bitwise identical) and ``solve_refined`` to
-1e-10. Each phase prints one line; any failure raises, and the process exits
-non-zero. The last two lines are the kernels' JSON record, whose launch
-counts are those of each kernel's own path (the north-star solves, or
-config 4), and the run's JSON result. It imports neither JAX nor the
-reference package, and fails without a card.
+1e-10; configs 1 and 2 (2D Laplacians, 128^2 with 4 RHS and 512^2 with 16)
+through ``solve_cg``, ``solve_bcg`` (twice, bitwise identical), ``solve_bcga``,
+``solve_bcgdq`` and ``solve_refined(inner_solver="bcg")`` to 1e-10; and the
+multi-shift solvers on config 4 with four shifts. Each phase prints one line;
+any failure raises, and the process exits non-zero. The last two lines are
+the kernels' JSON record, whose launch counts are those of each kernel's own
+path (the north-star solves, config 4, configs 1 and 2, or the multi-shift
+solves), and the run's JSON result. It imports neither JAX nor the reference
+package, and fails without a card.
 """
 
 from __future__ import annotations
@@ -51,12 +55,15 @@ KERNELS = {
                                           "blockcg_tpu/ops/const_block_stencil.py:637"),
     "slab_m_accumulate": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                           "blockcg_tpu/ops/const_block_stencil.py:780"),
+    "xr_update_gram": ("blockcg_tpu_torch/csrc/xr_update.cu", "blockcg_tpu/ops/fused.py:496"),
+    "qr_p_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:730"),
 }
 # The kernels of config 4's const-hop operator; the others are the north
 # star's.
 CBS_KERNELS = ("const_block_stencil_spmm_m_t", "const_block_stencil_spmm_m_gram_t",
                "slab_m_accumulate")
-NORTH_STAR_KERNELS = tuple(w for w in KERNELS if w not in CBS_KERNELS)
+NORTH_STAR_KERNELS = tuple(w for w in KERNELS
+                           if w not in (*CBS_KERNELS, "xr_update_gram", "qr_p_update"))
 CONFIG3_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update",
                     "mm2_update_gram", "px_update")
 # Every SBCGrQ solve at qr_passes=1 launches these fused kernels
@@ -65,6 +72,19 @@ CONFIG4_WRAPPERS = (*CBS_KERNELS, "gram", "mm_update", "mm2_update_gram", "px_up
 DIRAC_L = 32
 DIRAC_K = 12
 DIRAC_REF_ITERS = 13  # the reference's SBCGrQ iterations at tol 1e-6
+# BCG, BCGA and BCGdQ on config 2 launch these (the stencil with its Gram,
+# xr_update_gram in BCG and BCGA, the Gram-carrying updates in BCGdQ).
+CONFIG12_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update",
+                     "mm_update_gram", "xr_update_gram")
+# The multi-shift solves on config 4 (qr_passes=2: mm_update_gram each step;
+# no apply without the Gram).
+SHIFTED_WRAPPERS = ("const_block_stencil_spmm_m_gram_t", "slab_m_accumulate", "gram",
+                    "mm_update", "mm_update_gram", "qr_p_update")
+SHIFTS = (0.0, 0.05, 0.5, 2.0)
+# Config 1's true f64 residual after f32 CG at tol 1e-6: the recurrence
+# understates it, and the reference's own f32 CG ends at 9.9e-6 to 2.6e-5 on
+# these four columns (its CPU run, the same iteration counts as the port's).
+CG1_TRUE_RELRES = 5e-5
 
 
 def median_ms(torch, fn) -> float:
@@ -295,14 +315,81 @@ def phase_cbs_kernels(torch, dev, records) -> None:
     torch.cuda.empty_cache()
 
 
-def true_relres(torch, op, X, B) -> float:
-    """max_j ||B e_j - A X e_j|| / ||B e_j||, in f64 on the card."""
+def phase_krylov_kernels(torch, dev, records) -> None:
+    """``xr_update_gram`` and ``qr_p_update`` against their plain versions at
+    config 2's width (k = 16, n = 512^2) and config 4's (m = 48 on
+    ``I_4 ⊗ C``, ns = 32^4), each into fresh buffers and in place (donated,
+    from a fresh copy of the inputs for the comparison). The records take
+    each kernel's times on its own path's width: config 2 for
+    ``xr_update_gram`` (BCG), config 4 for ``qr_p_update`` (shifted block)."""
+    from blockcg_tpu_torch.ops import fused
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def is_gram(w):
+        return w.shape[0] == w.shape[1]
+
+    def coeff(k, bs):
+        C = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
+        return torch.kron(torch.eye(bs, device=dev), C)
+
+    def both_ways(name, fn, plain, args, donated, what):
+        def fresh():
+            return fn(*args)
+
+        def want():
+            return plain(*args)
+        _timed_check(torch, name, f"{what} fresh", fresh, want, is_gram, records)
+        bufs = list(args)
+        for i in donated:
+            bufs[i] = args[i].clone()
+
+        def in_place():
+            return fn(*bufs, donate=True)
+
+        def kern():
+            for i in donated:
+                bufs[i].copy_(args[i])
+            return in_place()
+        _timed_check(torch, name, f"{what} in place", kern, want, is_gram, records,
+                     timed=(in_place, want))
+
+    def operands(k, bs, n):
+        m = bs * k
+        what = f"ns={n} m={m} I_{bs}⊗C" if bs > 1 else f"n={n} k={k}"
+        A, M = coeff(k, bs), coeff(k, bs)
+        F = [torch.randn((m, n), generator=gen, device=dev) for _ in range(4)]
+        return {"xr_update_gram": (fused.xr_update_gram, fused.xr_update_gram_plain,
+                                   (A, *F), (2, 4), what),
+                "qr_p_update": (fused.qr_p_update, fused.qr_p_update_plain,
+                                (A, F[0], M, F[1]), (1, 3), what)}
+
+    config4, config2 = operands(DIRAC_K, 4, DIRAC_L ** 4), operands(16, 1, 512 ** 2)
+    # Each kernel's own path first: its first check sets its record's times.
+    for cases, name in ((config4, "qr_p_update"), (config2, "xr_update_gram"),
+                        (config4, "xr_update_gram"), (config2, "qr_p_update")):
+        both_ways(name, *cases[name])
+    del config4, config2
+    torch.cuda.empty_cache()
+
+
+def true_relres(torch, op, X, B, sigma: float = 0.0, op64=None) -> float:
+    """max_j ||B e_j - (A + sigma I) X e_j|| / ||B e_j||, in f64 on the card."""
     from blockcg_tpu_torch.operators import astype
 
-    B64 = B.double()
-    R = B64 - astype(op, torch.float64).matmat(X.double())
+    B64, X64 = B.double(), X.double()
+    op64 = astype(op, torch.float64) if op64 is None else op64
+    R = B64 - op64.matmat(X64) - sigma * X64
     return float((torch.linalg.vector_norm(R, dim=0)
                   / torch.linalg.vector_norm(B64, dim=0)).max())
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def phase_config3(torch, dev) -> None:
@@ -414,6 +501,101 @@ def phase_config4(torch, dev) -> None:
           f"true relres {rel:.3e}, peak {peak:.2f} GiB")
 
 
+def phase_config12(torch, dev) -> None:
+    """Configs 1 and 2 through the entry points: CG per column on config 1;
+    on config 2 BCG (twice, bitwise identical), BCGA, BCGdQ, CG on the first
+    column (the per-RHS comparison config 2 is defined by) and
+    ``solve_refined(inner_solver="bcg")`` to 1e-10. The solvers report their
+    recurrence's monitor; the true f64 residual is printed beside it, and
+    bounded for config 1 (``CG1_TRUE_RELRES``) and the refined solve."""
+    from blockcg_tpu_torch import (
+        solve_bcg,
+        solve_bcga,
+        solve_bcgdq,
+        solve_cg,
+        solve_refined,
+    )
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import config1_cg_2d_128, config2_bcg_2d_512
+
+    op, B, meta = config1_cg_2d_128(device=dev)
+    for j in range(B.shape[1]):
+        (x, info), secs = _timed(torch, lambda: solve_cg(op, B[:, j], tol=1e-6, max_iter=5000))
+        rel = true_relres(torch, op, x[:, None], B[:, j:j + 1])
+        if not (bool(info.converged.all()) and rel <= CG1_TRUE_RELRES):
+            raise AssertionError(f"config 1 column {j}: true relres {rel:.3e}, {info}")
+        print(f"[config1] {meta['name']} n={op.n} column {j}: solve_cg {info.iterations} "
+              f"iterations, {secs:.3f} s, monitor relres {float(info.relres[0]):.3e}, "
+              f"true relres {rel:.3e}")
+
+    op, B, meta = config2_bcg_2d_512(device=dev)
+    _native.reset_launches()
+    (X1, info), s1 = _timed(torch, lambda: solve_bcg(op, B, tol=1e-6, max_iter=5000))
+    if _native.launches["xr_update_gram"] == 0:
+        raise AssertionError("config 2's BCG never launched xr_update_gram")
+    (X2, info2), s2 = _timed(torch, lambda: solve_bcg(op, B, tol=1e-6, max_iter=5000))
+    if not torch.equal(X1, X2) or info2.iterations != info.iterations:
+        raise AssertionError("config 2 repeat BCG solve is not bitwise identical")
+    del X2
+    runs = [("solve_bcg", X1, info, s1)]
+    for name, fn in (("solve_bcga", solve_bcga), ("solve_bcgdq qr_passes=1", solve_bcgdq)):
+        (X, inf), secs = _timed(torch, lambda: fn(op, B, tol=1e-6, max_iter=5000))
+        runs.append((name, X, inf, secs))
+    for name, X, inf, secs in runs:
+        if not bool(inf.converged.all()):
+            raise AssertionError(f"config 2 {name} did not converge: {inf}")
+        print(f"[config2] {meta['name']} n={op.n} k={B.shape[1]} {name}: {inf.iterations} "
+              f"iterations, {secs:.3f} s, monitor relres {float(inf.relres.max()):.3e}, "
+              f"true relres {true_relres(torch, op, X, B):.3e}"
+              + (f" (repeat {s2:.3f} s, bitwise identical)" if name == "solve_bcg" else ""))
+    del runs, X1, X
+    (x, info), secs = _timed(torch, lambda: solve_cg(op, B[:, 0], tol=1e-6, max_iter=5000))
+    if not bool(info.converged.all()):
+        raise AssertionError(f"config 2 CG on column 0 did not converge: {info}")
+    print(f"[config2] solve_cg on column 0: {info.iterations} iterations, {secs:.3f} s, "
+          f"monitor relres {float(info.relres.max()):.3e}, "
+          f"true relres {true_relres(torch, op, x[:, None], B[:, :1]):.3e}")
+    torch.cuda.reset_peak_memory_stats()
+    (X, info), secs = _timed(torch, lambda: solve_refined(op, B, tol=1e-10, inner_solver="bcg"))
+    rel = true_relres(torch, op, X, B)
+    if not (bool(info.converged.all()) and rel <= 1e-10):
+        raise AssertionError(f"config 2 solve_refined(bcg) reached true relres {rel:.3e}: {info}")
+    print(f"[config2] solve_refined tol=1e-10 inner_solver=bcg: {info.iterations} cycles, "
+          f"{info.matvecs} matvecs, {secs:.3f} s, true relres {rel:.3e}, "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
+def phase_config4_shifted(torch, dev) -> None:
+    """The multi-shift solvers on config 4 with ``SHIFTS``: the shifted-block
+    SBCGrQ on the 12 RHS, shifted CG on the first column; every shift's true
+    f64 residual of ``(A + sigma I) X - B`` at most 1e-5."""
+    from blockcg_tpu_torch import solve_shifted_cg, solve_shifted_sbcgrq
+    from blockcg_tpu_torch.operators import astype
+    from blockcg_tpu_torch.problems import config4_dirac_32
+
+    op, B, meta = config4_dirac_32(L=DIRAC_L, device=dev)
+    op64 = astype(op, torch.float64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (Xs, info), secs = _timed(torch, lambda: solve_shifted_sbcgrq(op, B, SHIFTS, tol=1e-6))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    rels = [true_relres(torch, op, Xs[j], B, s, op64) for j, s in enumerate(SHIFTS)]
+    if not (bool(info.converged.all()) and max(rels) <= 1e-5):
+        raise AssertionError(f"config 4 shifted block: true relres {rels}, {info}")
+    print(f"[shifted] {meta['name']} n={op.n} k={B.shape[1]} shifts {SHIFTS}: "
+          f"solve_shifted_sbcgrq {info.iterations} iterations, {secs:.3f} s, true relres "
+          f"{['%.3e' % r for r in rels]}, peak {peak:.2f} GiB above the operator and B")
+    del Xs
+    (X, info), secs = _timed(torch, lambda: solve_shifted_cg(op, B[:, 0], SHIFTS, tol=1e-6))
+    rels = [true_relres(torch, op, X[:, j:j + 1], B[:, :1], s, op64)
+            for j, s in enumerate(SHIFTS)]
+    if not (bool(info.converged.all()) and max(rels) <= 1e-5):
+        raise AssertionError(f"config 4 shifted CG: true relres {rels}, {info}")
+    print(f"[shifted] solve_shifted_cg on column 0: {info.iterations} iterations, "
+          f"{secs:.3f} s, true relres {['%.3e' % r for r in rels]}")
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     import torch
@@ -431,6 +613,7 @@ def main() -> None:
     phase_build()
     records = phase_kernels(torch, dev)
     phase_cbs_kernels(torch, dev, records)
+    phase_krylov_kernels(torch, dev, records)
 
     from blockcg_tpu_torch.ops import _native
 
@@ -454,6 +637,19 @@ def main() -> None:
     if missing:
         raise AssertionError(f"config 4 never launched the kernels of {missing}")
     counts.update({w: counts4[w] for w in CBS_KERNELS})
+    # Configs 1 and 2 (BCG's xr_update_gram), then the multi-shift solves
+    # on config 4 (qr_p_update).
+    for label, phase, wrappers, own in (
+            ("configs 1 and 2", phase_config12, CONFIG12_WRAPPERS, "xr_update_gram"),
+            ("multi-shift", phase_config4_shifted, SHIFTED_WRAPPERS, "qr_p_update")):
+        _native.reset_launches()
+        phase(torch, dev)
+        got = dict(_native.launches)
+        print(f"[launches] {label}: {got}")
+        missing = [w for w in wrappers if got.get(w, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label} never launched the kernels of {missing}")
+        counts[own] = got[own]
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}

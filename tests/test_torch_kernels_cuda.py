@@ -270,3 +270,121 @@ def test_sbcgrq_dirac_on_card_matches_cpu(dev):
     R = B.double().to(dev) - opg.astype_op(torch.float64).matmat(Xg.double())
     res = torch.linalg.vector_norm(R, dim=0) / torch.linalg.vector_norm(B.double().to(dev), dim=0)
     assert float(res.max()) <= 1e-4
+
+
+# ------------------------------------------ xr_update_gram and qr_p_update
+
+
+@pytest.mark.parametrize("k", [1, 3, 12, 16, 48])
+@pytest.mark.parametrize("donate", [False, True])
+def test_xr_update_gram_kernel_matches_plain(dev, k, donate):
+    n = 3001  # not a multiple of 128
+    rng = np.random.default_rng(40 + k)
+    alpha = _t(rng.standard_normal((k, k)), dev)
+    P, X, Z, R = (_field(k, n, s, dev) for s in (41, 42, 43, 44))
+    Xp, Rp, Gp = fused.xr_update_gram_plain(alpha, P, X, Z, R)
+    Xa, Ra = X.clone(), R.clone()
+    _native.reset_launches()
+    Xn, Rn, G = fused.xr_update_gram(alpha, P, Xa, Z, Ra, donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["xr_update_gram"] == 1
+    assert (Xn.data_ptr() == Xa.data_ptr()) is donate
+    assert (Rn.data_ptr() == Ra.data_ptr()) is donate
+    assert _relmax(Xn, Xp) < 1e-5 and _relmax(Rn, Rp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    # A repeat on the same inputs gives the same bits (fixed-order reduction).
+    Xr, Rr, Gr = fused.xr_update_gram(alpha, P, X, Z, R)
+    assert torch.equal(Gr, G) and torch.equal(Xr, Xn) and torch.equal(Rr, Rn)
+
+
+@pytest.mark.parametrize("k", [1, 3, 12, 16, 48])
+@pytest.mark.parametrize("donate", [False, True])
+def test_qr_p_update_kernel_matches_plain(dev, k, donate):
+    n = 3001
+    rng = np.random.default_rng(50 + k)
+    M2, rho = (_t(rng.standard_normal((k, k)), dev) for _ in range(2))
+    Q1, P = _field(k, n, 51, dev), _field(k, n, 52, dev)
+    Qp, Pp = fused.qr_p_update_plain(M2, Q1, rho, P)
+    Qa, Pa = Q1.clone(), P.clone()
+    _native.reset_launches()
+    Q, Pn = fused.qr_p_update(M2, Qa, rho, Pa, donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["qr_p_update"] == 1
+    assert (Q.data_ptr() == Qa.data_ptr()) is donate
+    assert (Pn.data_ptr() == Pa.data_ptr()) is donate
+    assert _relmax(Q, Qp) < 1e-5 and _relmax(Pn, Pp) < 1e-5
+    Qr, Pr = fused.qr_p_update(M2, Q1, rho, P)
+    assert torch.equal(Qr, Q) and torch.equal(Pr, Pn)
+
+
+def test_new_fused_kernels_merged_width_on_coeff_kron(dev):
+    """Config 4's merged width: m = 4 * 12 rows on I_4 ⊗ C coefficients."""
+    k, bs, ns = 12, 4, 5000
+    rng = np.random.default_rng(60)
+    eye = torch.eye(bs, device=dev)
+    A, B = (torch.kron(eye, _t(rng.standard_normal((k, k)), dev)) for _ in range(2))
+    F1, F2, F3, F4 = (_field(bs * k, ns, s, dev) for s in (61, 62, 63, 64))
+    Xn, Rn, G = fused.xr_update_gram(A, F1, F2, F3, F4)
+    Xp, Rp, Gp = fused.xr_update_gram_plain(A, F1, F2, F3, F4)
+    assert _relmax(Xn, Xp) < 1e-5 and _relmax(Rn, Rp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    Q, Pn = fused.qr_p_update(A, F1, B, F2)
+    Qp, Pp = fused.qr_p_update_plain(A, F1, B, F2)
+    assert _relmax(Q, Qp) < 1e-5 and _relmax(Pn, Pp) < 1e-5
+
+
+def test_new_fused_kernels_refuse_bad_operands(dev):
+    k, n = 8, 512
+    a = _t(np.eye(k), dev)
+    F = [_field(k, n, s, dev) for s in (70, 71, 72, 73)]
+    wide = _field(k, 2 * n, 74, dev)[:, ::2]  # (k, n), not contiguous
+    _native.reset_launches()
+    with pytest.raises(TypeError):
+        fused.xr_update_gram(a.bfloat16(), *(f.bfloat16() for f in F))
+    with pytest.raises(TypeError):
+        fused.qr_p_update(a.bfloat16(), F[0].bfloat16(), a.bfloat16(), F[1].bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.xr_update_gram(a, wide, F[1], F[2], F[3])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.qr_p_update(a, F[0], a, wide)
+    big_a = _t(np.eye(65), dev)
+    big = [_field(65, 256, s, dev) for s in (75, 76, 77, 78)]
+    with pytest.raises(ValueError, match="<= 64"):
+        fused.xr_update_gram(big_a, *big)
+    with pytest.raises(ValueError, match="<= 64"):
+        fused.qr_p_update(big_a, big[0], big_a, big[1])
+    assert sum(_native.launches.values()) == 0
+
+
+@pytest.mark.parametrize("solver", ["cg", "bcg", "bcga", "bcgdq", "shifted_cg",
+                                    "shifted_sbcgrq"])
+def test_krylov_on_card_matches_cpu(dev, solver):
+    """Each new solver on the card against the same solve on CPU tensors:
+    iterations within +-2 and a true relative residual below 10 x tol."""
+    import blockcg_tpu_torch as bt
+
+    shape, tol, sig = (16, 16, 16), 1e-5, (0.0, 0.5)
+    B = torch.as_tensor(np.random.default_rng(80).standard_normal((4096, 4)),
+                        dtype=torch.float32)
+    run = {
+        "cg": lambda o, b: bt.solve_cg(o, b[:, 0], tol=tol),
+        "bcg": lambda o, b: bt.solve_bcg(o, b, tol=tol),
+        "bcga": lambda o, b: bt.solve_bcga(o, b, tol=tol),
+        "bcgdq": lambda o, b: bt.solve_bcgdq(o, b, tol=tol),
+        "shifted_cg": lambda o, b: bt.solve_shifted_cg(o, b[:, 0], sig, tol=tol),
+        "shifted_sbcgrq": lambda o, b: bt.solve_shifted_sbcgrq(o, b, sig, tol=tol),
+    }[solver]
+    _, ic = run(laplacian_dia(shape), B)
+    _native.reset_launches()
+    Xg, ig = run(laplacian_dia(shape, device=dev), B.to(dev))
+    assert sum(_native.launches.values()) > 0
+    assert bool(ig.converged.all()) and abs(ig.iterations - ic.iterations) <= 2
+    a = laplacian_scipy(shape)
+    Bn = B.double().numpy()
+    Xs = Xg.double().cpu().numpy()
+    if solver.startswith("shifted"):
+        cols = [Xs[:, j] for j in range(len(sig))] if solver == "shifted_cg" else list(Xs)
+        pairs = [(x, s, Bn[:, 0] if solver == "shifted_cg" else Bn) for x, s in zip(cols, sig)]
+    else:
+        pairs = [(Xs, 0.0, Bn[:, 0] if solver == "cg" else Bn)]
+    for x, s, b in pairs:
+        res = np.linalg.norm(a @ x + s * x - b, axis=0) / np.linalg.norm(b, axis=0)
+        assert res.max() <= 10 * tol

@@ -128,6 +128,28 @@ def test_fused_plain_matches_pallas(k, n):
     _close(Xn, Xj)
 
 
+def _kron4(C):
+    return np.kron(np.eye(4, dtype=np.float32), C)
+
+
+@pytest.mark.parametrize("k,n,merged", [(4, 512, False), (16, 1024, False), (16, 512, True)])
+def test_xr_and_qr_p_plain_match_pallas(k, n, merged):
+    """``xr_update_gram`` and ``qr_p_update`` at k in {4, 16}, and on the
+    merged view of the const-hop operator: m = 4 * 4 rows with ``I_4 ⊗ C``
+    coefficients, as the codec expands them."""
+    kk = _kks(k // 4 if merged else k, 3, 40 + k)
+    (Aj, Mj, Rj), (A, M, R) = _both([_kron4(c) for c in kk] if merged else kk)
+    (Pj, Xj, Zj, Rfj), (P, X, Z, Rf) = _both(_fields(k, n, 4, 50 + k))
+    got = fused.xr_update_gram(A, P, X, Z, Rf)
+    want = jfused.xr_update_gram(Aj, Pj, Xj, Zj, Rfj, interpret=True)
+    for g, w in zip(got, want):
+        _close(g, w)
+    got = fused.qr_p_update(M, P, R, Z)
+    want = jfused.qr_p_update(Mj, Pj, Rj, Zj, interpret=True)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 def test_donate_writes_into_the_operand_on_cpu():
     """``donate`` has the kernel's in-place meaning on the plain route too."""
     (M1, M2, M3) = [torch.from_numpy(m) for m in _kks(4, 3, 30)]
@@ -145,6 +167,31 @@ def test_donate_writes_into_the_operand_on_cpu():
     Pnd, Xnd = fused.px_update(M1, W, M2, Pd, M3, Xd, donate=True)
     assert Pnd.data_ptr() == Pd.data_ptr() and Xnd.data_ptr() == Xd.data_ptr()
     assert torch.equal(Pnd, Pn) and torch.equal(Xnd, Xn)
+
+
+def test_donate_of_the_new_updates_on_cpu():
+    """``xr_update_gram`` writes onto X and R and leaves P and Z;
+    ``qr_p_update`` writes onto Q1 and P; ``mm_update`` onto B or A."""
+    M1, M2 = [torch.from_numpy(m) for m in _kks(4, 2, 32)]
+    P, X, Z, R = [torch.from_numpy(f) for f in _fields(4, 256, 4, 33)]
+    want = fused.xr_update_gram(M1, P, X, Z, R)
+    P_in, Z_in, Xd, Rd = P.clone(), Z.clone(), X.clone(), R.clone()
+    got = fused.xr_update_gram(M1, P, Xd, Z, Rd, donate=True)
+    assert got[0].data_ptr() == Xd.data_ptr() and got[1].data_ptr() == Rd.data_ptr()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(P, P_in) and torch.equal(Z, Z_in)
+    want = fused.qr_p_update(M1, X, M2, P)
+    Qd, Pd = X.clone(), P.clone()
+    got = fused.qr_p_update(M1, Qd, M2, Pd, donate=True)
+    assert got[0].data_ptr() == Qd.data_ptr() and got[1].data_ptr() == Pd.data_ptr()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for donate, dst in (("b", X.clone()), ("a", R.clone())):
+        B, A = (dst, R) if donate == "b" else (X, dst)
+        Y = fused.mm_update(M1, B, A, donate=donate)
+        assert Y.data_ptr() == dst.data_ptr()
+        assert torch.equal(Y, fused.mm_update(M1, X, R))
+    with pytest.raises(ValueError):
+        fused.mm_update(M1, X, donate="a")  # no A to write onto
 
 
 def test_cpu_route_launches_nothing_and_loads_no_library():
@@ -184,7 +231,7 @@ def test_native_build_command_and_sources(monkeypatch, tmp_path):
     sm_90a, one compile per source and one link, and a missing nvcc raises
     (there is no fallback)."""
     cus = {"stencil.cu", "gram.cu", "fused_update.cu", "px_update.cu",
-           "const_block_stencil.cu"}
+           "const_block_stencil.cu", "xr_update.cu", "qr_p_update.cu"}
     assert cus <= {p.name for p in _native.sources()}
     assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     root = Path(__file__).resolve().parents[1]

@@ -51,6 +51,8 @@ def test_profile_summary_of_trace_events():
     ("void (anonymous namespace)::cbs_spmm<4, 64, true>(float const*, Diags)", True),
     ("void (anonymous namespace)::slab_accumulate<4, 64>(float const*)", True),
     ("void (anonymous namespace)::reduce_partials(float const*)", True),
+    ("void (anonymous namespace)::xr_update_gram<16>(float const*, float const*)", True),
+    ("void (anonymous namespace)::qr_p_update<64>(float const*, float const*)", True),
     ("void at::native::vectorized_elementwise_kernel<4>", False),
 ])
 def test_profile_port_kernel_names(name, port):

@@ -111,6 +111,27 @@ def test_safe_cholesky_matches_reference(G):
     np.testing.assert_allclose(np.nan_to_num(L), np.nan_to_num(Lj), rtol=1e-12, atol=1e-12)
 
 
+def test_safe_cholesky_batched_matches_reference_vmap():
+    """A (3, 3, 3) stack factors matrix by matrix, each with its own jitter,
+    as the reference's ``jax.vmap(safe_cholesky)``."""
+    import jax
+
+    G = np.stack([
+        np.outer([1.0, 2.0, 3.0], [1.0, 2.0, 3.0]),       # singular PSD: jitter
+        np.array([[4.0, 1.0, 0.5], [1.0, 3.0, 0.2], [0.5, 0.2, 2.0]]),  # SPD
+        np.array([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]]),  # indefinite
+    ]) * np.array([1.0, 1e3, 1.0])[:, None, None]
+    L = common.safe_cholesky(torch.from_numpy(G)).numpy()
+    Lj = np.asarray(jax.vmap(jcommon.safe_cholesky)(jnp.asarray(G)))
+    assert np.array_equal(np.isnan(L), np.isnan(Lj))
+    np.testing.assert_allclose(np.nan_to_num(L), np.nan_to_num(Lj), rtol=1e-12, atol=1e-12)
+    for j in range(3):
+        assert np.array_equal(np.nan_to_num(L[j]),
+                              np.nan_to_num(common.safe_cholesky(torch.from_numpy(G[j])).numpy()))
+    Ginv = common.chol_inverse_spd(torch.from_numpy(G[1:2])).numpy()
+    np.testing.assert_allclose(Ginv[0] @ G[1], np.eye(3), atol=1e-12)
+
+
 def test_sbcgrq_f32_matches_reference():
     shape = (16, 16, 16)
     a = laplacian_scipy(shape)
@@ -223,8 +244,11 @@ def test_refined_outer_operator_and_dtype():
 
 
 def test_refined_inner_solver_choice():
-    op = laplacian_dia((4, 4))
-    with pytest.raises(NotImplementedError):
-        solve_refined(op, torch.ones(16, 2), inner_solver="bcg")
+    shape = (4, 4)
+    op = laplacian_dia(shape)
+    B = _rhs(16, 2, 11)
+    X, info = solve_refined(op, torch.from_numpy(B), inner_solver="bcg")
+    assert bool(info.converged.all())
+    assert _true_relres(laplacian_scipy(shape), X, B) <= 1e-10
     with pytest.raises(ValueError):
         solve_refined(op, torch.ones(16, 2), inner_solver="cg")
