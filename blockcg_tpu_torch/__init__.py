@@ -8,7 +8,14 @@ tensors the same functions run their plain PyTorch versions. The JAX package
 never imports JAX.
 """
 
-from blockcg_tpu_torch.operators import ConstBlockDIAOperator, DenseOperator, DIAOperator
+from blockcg_tpu_torch.operators import (
+    BlockDIAOperator,
+    ConstBlockDIAOperator,
+    DenseOperator,
+    DIAOperator,
+    RealifiedHermitianOperator,
+    realify,
+)
 from blockcg_tpu_torch.solvers import (
     solve_bcg,
     solve_bcga,
@@ -23,9 +30,11 @@ from blockcg_tpu_torch.solvers import (
 from blockcg_tpu_torch.types import SolverInfo, SolverOptions
 
 __all__ = [
+    "BlockDIAOperator",
     "ConstBlockDIAOperator",
     "DIAOperator",
     "DenseOperator",
+    "RealifiedHermitianOperator",
     "SolverInfo",
     "SolverOptions",
     "solve_bcg",
@@ -37,4 +46,5 @@ __all__ = [
     "solve_sbcgrq",
     "solve_shifted_cg",
     "solve_shifted_sbcgrq",
+    "realify",
 ]

@@ -162,6 +162,46 @@ inline void launch_reduce(const float* part, float* G, int k, int nblocks,
   reduce_partials<<<(kk + 255) / 256, 256, 0, stream>>>(part, base, G, kk, nblocks);
 }
 
+// ---- per-site register tiles of the lattice kernels (const_block_stencil.cu,
+// block_stencil.cu). A thread owns one site column of an (m = bs * k, ns)
+// merged field, row a * k + i, as acc[BS][KI]: BS >= bs spins, KI >= k
+// right-hand sides; entries with a >= bs or i >= k stay zero.
+
+template <int BS, int KI>
+__device__ __forceinline__ void zero(float (&v)[BS][KI]) {
+#pragma unroll
+  for (int a = 0; a < BS; ++a)
+#pragma unroll
+    for (int i = 0; i < KI; ++i) v[a][i] = 0.f;
+}
+
+// The thread's column of a staged (KMAX, kLd) Gram tile: rows a*k+i of v.
+template <int BS, int KI>
+__device__ __forceinline__ void stage_rows(float* s, const float (&v)[BS][KI],
+                                           int bs, int k) {
+#pragma unroll
+  for (int a = 0; a < BS; ++a)
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+      if (a < bs && i < k) s[(a * k + i) * kLd + threadIdx.x] = v[a][i];
+}
+
+// The thread's column of a staged tile: X[:, col] for the m real rows.
+__device__ __forceinline__ void stage_x(float* s, const float* __restrict__ X,
+                                        int m, long long ns, long long col,
+                                        bool valid) {
+  for (int r = 0; r < m; ++r) s[r * kLd + threadIdx.x] = valid ? X[r * ns + col] : 0.f;
+}
+
+// Rows m..KMAX-1 of both staged tiles stay zero for the whole kernel.
+template <int KMAX>
+__device__ __forceinline__ void zero_pad_rows(float* xs, float* ys, int m) {
+  for (int r = m; r < KMAX; ++r) {
+    xs[r * kLd + threadIdx.x] = 0.f;
+    ys[r * kLd + threadIdx.x] = 0.f;
+  }
+}
+
 // Raise the dynamic shared-memory cap of a kernel that needs more than the
 // default 48 KB (a launch above the cap is refused).
 template <typename Kernel>

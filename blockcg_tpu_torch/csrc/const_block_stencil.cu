@@ -61,14 +61,6 @@ struct SlabGeom {  // every field in [0, nb) except g and nblocks
   int g, nblocks;
 };
 
-template <int BS, int KI>
-__device__ __forceinline__ void zero(float (&v)[BS][KI]) {
-#pragma unroll
-  for (int a = 0; a < BS; ++a)
-#pragma unroll
-    for (int i = 0; i < KI; ++i) v[a][i] = 0.f;
-}
-
 // acc[a][i] += w * sum_b h[a * bs + b] * X[b * k + i, src].
 template <int BS, int KI>
 __device__ __forceinline__ void hop_apply(float (&acc)[BS][KI], const float* h,
@@ -107,33 +99,6 @@ __device__ __forceinline__ void store_rows(float* __restrict__ Y,
         float* p = Y + static_cast<long long>(a * k + i) * ns + col;
         *p = ADD ? *p + v[a][i] : v[a][i];
       }
-}
-
-// The thread's column of a staged (KMAX, kLd) Gram tile: rows a*k+i of v.
-template <int BS, int KI>
-__device__ __forceinline__ void stage_rows(float* s, const float (&v)[BS][KI],
-                                           int bs, int k) {
-#pragma unroll
-  for (int a = 0; a < BS; ++a)
-#pragma unroll
-    for (int i = 0; i < KI; ++i)
-      if (a < bs && i < k) s[(a * k + i) * kLd + threadIdx.x] = v[a][i];
-}
-
-// The thread's column of a staged tile: X[:, col] for the m real rows.
-__device__ __forceinline__ void stage_x(float* s, const float* __restrict__ X,
-                                        int m, long long ns, long long col,
-                                        bool valid) {
-  for (int r = 0; r < m; ++r) s[r * kLd + threadIdx.x] = valid ? X[r * ns + col] : 0.f;
-}
-
-// Rows m..KMAX-1 of both staged tiles stay zero for the whole kernel.
-template <int KMAX>
-__device__ __forceinline__ void zero_pad_rows(float* xs, float* ys, int m) {
-  for (int r = m; r < KMAX; ++r) {
-    xs[r * kLd + threadIdx.x] = 0.f;
-    ys[r * kLd + threadIdx.x] = 0.f;
-  }
 }
 
 template <int BS, int KMAX, bool WITH_GRAM>

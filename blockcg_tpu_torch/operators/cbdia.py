@@ -7,7 +7,9 @@ Counterpart of ``blockcg_tpu/operators/cbdia.py``. Semantics:
 
 with ``mask_d = masks[mask_slot[d]]`` (0/1 boundary gates, or link values
 for the gauged operators), and 1 where ``mask_slot[d] == -1``. Rows are
-spin-major: row ``a * ns + s``.
+spin-major: row ``a * ns + s``. Complex hops (the complex ``dirac_cbdia``)
+make a container: its apply runs the plain version on CPU tensors and raises
+on the card, where ``operators.realify`` (doubled real hops) is its route.
 
 The solvers keep their state in the merged spin-major view ``(m = bs * k,
 ns)``, row ``a * k + i`` (``to_internal``), and the codec hooks expand every
@@ -31,19 +33,22 @@ from blockcg_tpu_torch.ops import const_block_stencil as cbs
 
 
 def _hop_tuple(h) -> tuple:
+    """A hop as nested Python scalars: complex when any entry is, else
+    floats."""
     rows = tuple(tuple(v for v in row) for row in h)
-    if any(isinstance(v, complex) for row in rows for v in row):
-        raise NotImplementedError(
-            "complex hops need operators/realify.py, which is not ported yet")
-    return tuple(tuple(float(v) for v in row) for row in rows)
+    cplx = any(isinstance(v, (complex, np.complexfloating)) for row in rows for v in row)
+    scal = complex if cplx else float
+    return tuple(tuple(scal(v) for v in row) for row in rows)
 
 
 class ConstBlockDIAOperator(MatmatMixin, nn.Module):
     """masks: (nmask, ns) buffer or None; hops (noff x bs x bs floats),
     offsets, mask_slot, num_sites and slabs are Python tuples. A slab entry is
     ``(d, g, nblocks, dst_mul, dst_off, src_shift)``. ``nnz`` is the
-    builder's structural count (default ``noff * bs^2 * ns``). With no masks,
-    ``dtype`` and ``device`` say where the hop tables live."""
+    builder's structural count (default ``noff * bs^2 * ns``). ``dtype`` is
+    the real dtype of the masks (with no masks, of the hop tables) and
+    ``device`` where they live; complex hops get tables of the matching
+    complex dtype."""
 
     def __init__(self, masks: torch.Tensor | None, hops, offsets, mask_slot,
                  num_sites: int, slabs=(), nnz: int | None = None, *,
@@ -72,9 +77,11 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
         dtype = dtype or torch.float32
         self._nnz = nnz
         self.register_buffer("masks", masks)
+        cplx = any(isinstance(v, complex) for h in self.hops for row in h for v in row)
+        hdt = dtype.to_complex() if cplx else dtype
 
         def table(hs):
-            return torch.tensor(hs, dtype=dtype, device=device).reshape(len(hs), bs, bs)
+            return torch.tensor(hs, dtype=hdt, device=device).reshape(len(hs), bs, bs)
 
         # Every diagonal's hop (the slab kernel reads its row), and the main
         # kernel's statics: its hops, reduced offsets, re-indexed slots and
@@ -121,7 +128,7 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
     @classmethod
     def from_numpy(cls, masks, hops, offsets, mask_slot, num_sites, slabs=(),
                    nnz: int | None = None, *, dtype: torch.dtype | None = None,
-                   device=None) -> "ConstBlockDIAOperator":
+                   device="cuda") -> "ConstBlockDIAOperator":
         """Build from host data, e.g. a reference operator's
         ``(np.asarray(op.masks), op.hops, op.offsets, op.mask_slot,
         op.num_sites, op.slabs, op.nnz)``, so both packages apply the same
@@ -131,13 +138,13 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
                    dtype=dtype, device=device)
 
     def astype_op(self, dtype: torch.dtype) -> "ConstBlockDIAOperator":
-        """A new operator in ``dtype``. The hop tables are rebuilt from the
-        Python floats of ``hops``, so an f64 copy of an f32 operator applies
-        exactly its matrix (the f32-rounded hops), as the reference's
-        ``astype`` does."""
+        """A new operator in ``dtype`` (a complex dtype names its real
+        width). The hop tables are rebuilt from the Python scalars of
+        ``hops``, so an f64 copy of an f32 operator applies exactly its matrix
+        (the f32-rounded hops), as the reference's ``astype`` does."""
         return ConstBlockDIAOperator(
             self.masks, self.hops, self.offsets, self.mask_slot, self.num_sites,
-            self.slabs, self._nnz, dtype=dtype, device=self.hops_all.device)
+            self.slabs, self._nnz, dtype=dtype.to_real(), device=self.hops_all.device)
 
     def _main_statics(self):
         """Main-kernel diagonals: all but the slab-routed ones, with mask
@@ -191,6 +198,10 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
     def _apply_m(self, Xm: torch.Tensor, with_gram: bool):
         """Main kernel, then the slab diagonals added in place (each also
         adds its Gram correction). Returns (Ym, Gm or None), Gm (m, m)."""
+        if self.hops_all.is_complex() and Xm.device.type == "cuda":
+            raise NotImplementedError(
+                "complex ConstBlockDIAOperator hops apply on CPU tensors only; "
+                "on the card solve with operators.realify(op)")
         Gm = None
         if with_gram:
             Ym, Gm = cbs.const_block_stencil_spmm_m_gram_t(

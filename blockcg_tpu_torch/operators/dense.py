@@ -41,7 +41,7 @@ class DenseOperator(MatmatMixin, nn.Module):
 
     @classmethod
     def from_numpy(cls, A, *, dtype: torch.dtype | None = None,
-                   device=None) -> "DenseOperator":
+                   device="cuda") -> "DenseOperator":
         t = torch.from_numpy(np.array(A))  # a writable host copy
         return cls(t.to(dtype=dtype or t.dtype, device=device))
 

@@ -50,7 +50,7 @@ class DIAOperator(MatmatMixin, nn.Module):
 
     @classmethod
     def from_numpy(cls, diags, offsets, wrap_zero: bool = False, *,
-                   dtype: torch.dtype | None = None, device=None) -> "DIAOperator":
+                   dtype: torch.dtype | None = None, device="cuda") -> "DIAOperator":
         """Build from host arrays, e.g. a reference operator's
         ``(np.asarray(op.diags), op.offsets, op.wrap_zero)``, so both
         packages apply the same matrix."""
@@ -59,7 +59,7 @@ class DIAOperator(MatmatMixin, nn.Module):
 
     @classmethod
     def from_scipy(cls, a, dtype: torch.dtype = torch.float32,
-                   device=None) -> "DIAOperator":
+                   device="cuda") -> "DIAOperator":
         a = a.todia()
         offsets = tuple(int(o) for o in a.offsets)
         n = a.shape[0]

@@ -1,6 +1,14 @@
 """Problem generators and presets."""
 
-from blockcg_tpu_torch.problems.dirac import dirac_cbdia, dirac_gauged_cbdia, hopping_matrices
+from blockcg_tpu_torch.problems.dirac import (
+    bdia_scipy,
+    dirac_bdia,
+    dirac_cbdia,
+    dirac_gauged,
+    dirac_gauged_cbdia,
+    dirac_gauged_matrix,
+    hopping_matrices,
+)
 from blockcg_tpu_torch.problems.laplacian import laplacian_dia, laplacian_scipy
 from blockcg_tpu_torch.problems.random_spd import (
     random_block,
@@ -23,9 +31,13 @@ __all__ = [
     "config2_bcg_2d_512",
     "config3_sbcgrq_3d_64",
     "config4_dirac_32",
+    "bdia_scipy",
     "config5_sbcgrq_3d_256",
+    "dirac_bdia",
     "dirac_cbdia",
+    "dirac_gauged",
     "dirac_gauged_cbdia",
+    "dirac_gauged_matrix",
     "hopping_matrices",
     "laplacian_dia",
     "laplacian_scipy",

@@ -1,22 +1,36 @@
-"""Lattice-Dirac-like SPD block operator (north-star config 4), const-hop form.
+"""Lattice-Dirac-like SPD block operators (north-star config 4 and the
+matrix-link family).
 
-Counterpart of the const-hop builders of ``blockcg_tpu/problems/dirac.py``.
-A 4x4-blocked SPD operator on a 4D lattice L^4 with nearest-neighbour
-hopping, the structure of an even-odd-preconditioned Wilson ``D^H D + m^2``:
+Counterpart of ``blockcg_tpu/problems/dirac.py``. A 4x4-blocked operator on
+a 4D lattice L^4 with nearest-neighbour hopping, the structure of an
+even-odd-preconditioned Wilson ``D^H D + m^2``:
 
     A[x, x]      = (m^2 + 8) * I_4
     A[x, x+mu]   = -H_mu          (mu = 0..3)
-    A[x, x-mu]   = -H_mu^T
+    A[x, x-mu]   = -H_mu^H
 
-with fixed deterministic symmetric 4x4 hopping matrices ``H_mu`` of unit
-spectral norm (block-Gershgorin SPD, ``lambda_min >= m^2``). Boundary
+with fixed deterministic Hermitian 4x4 hopping matrices ``H_mu`` of unit
+spectral norm (block-Gershgorin SPD/HPD, ``lambda_min >= m^2``). Boundary
 conditions are ``periodic`` (wraps become extra masked diagonals) or
-``open``. The numpy construction is carried over as it is, since the port
-may not import the reference package: masks, hops, offsets, slots and slabs
-come out bitwise the reference's.
+``open``. Real dtypes give a real symmetric operator, complex dtypes a
+complex Hermitian one.
 
-Complex dtypes need the realified operator (``operators/realify.py``), which
-is not ported yet: they raise ``NotImplementedError``.
+Two containers:
+
+- ``ConstBlockDIAOperator`` (``dirac_cbdia``, ``dirac_gauged_cbdia``):
+  constant hop blocks and per-site masks. Complex hops make a container
+  whose card route is ``operators.realify``; the complex U(1)
+  ``dirac_gauged_cbdia`` is built realified directly.
+- ``BlockDIAOperator`` (``dirac_bdia``, ``dirac_gauged``,
+  ``dirac_gauged_matrix``): per-site blocks, for links that vary per site;
+  matrix-valued (orthogonal or unitary) links exist only here.
+
+The numpy construction is carried over as it is, since the port may not
+import the reference package: masks, hops, blocks, offsets, slots, slabs,
+``wrap_zero`` and nnz come out bitwise the reference's. The reference's
+folded wrap fields (opt-in through ``BLOCKCG_FOLD``) are not built.
+Every builder puts its operator on the card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -24,10 +38,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from blockcg_tpu_torch.operators.base import assert_wrap_zero
+from blockcg_tpu_torch.operators.bdia import BlockDIAOperator
 from blockcg_tpu_torch.operators.cbdia import ConstBlockDIAOperator, detect_slabs
+from blockcg_tpu_torch.operators.realify import (
+    RealifiedHermitianOperator,
+    k1k2_blocks,
+    real_mask_dtype,
+)
 
 BS = 4  # spin-block size
 _NDIM = 4
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+              torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
 def hopping_matrices(seed: int = 7, hermitian: bool = False) -> np.ndarray:
@@ -55,23 +78,23 @@ def _coords(ns: int, L: int) -> tuple[list[np.ndarray], list[int]]:
     return [(idx // strides[ax]) % L for ax in range(_NDIM)], strides
 
 
-def _real_np_dtype(dtype: torch.dtype, what: str):
-    if dtype.is_complex:
-        raise NotImplementedError(
-            f"{what}: complex operators need operators/realify.py, which is "
-            "not ported yet")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{what}: dtype must be float32 or float64, got {dtype}")
-    return np.float64 if dtype == torch.float64 else np.float32
+def _np_dtype(dtype: torch.dtype, what: str):
+    if dtype not in _NP_DTYPES:
+        raise TypeError(f"{what}: dtype must be float32, float64, complex64 or "
+                        f"complex128, got {dtype}")
+    return np.dtype(_NP_DTYPES[dtype])
 
 
-def _check_bc(bc: str) -> None:
+def _setup(L: int, bc: str, dtype: torch.dtype, seed: int, what: str):
+    """(np dtype, complex?, H, ns, coords, strides) of a builder."""
     if bc not in ("periodic", "open"):
         raise ValueError(f"bc must be 'periodic' or 'open', got {bc!r}")
-
-
-def _tup(block: np.ndarray) -> tuple:
-    return tuple(tuple(float(v) for v in row) for row in block)
+    np_dtype = _np_dtype(dtype, what)
+    cplx = np.issubdtype(np_dtype, np.complexfloating)
+    H = hopping_matrices(seed, hermitian=cplx).astype(np_dtype)
+    ns = L ** _NDIM
+    coords, strides = _coords(ns, L)
+    return np_dtype, cplx, H, ns, coords, strides
 
 
 def _nnz(hops, mask_slot, masks, ns: int) -> int:
@@ -84,32 +107,39 @@ def _nnz(hops, mask_slot, masks, ns: int) -> int:
     return nnz
 
 
+# ------------------------------------------------------ const-hop containers
+
+
 def dirac_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
                 dtype: torch.dtype = torch.float32, seed: int = 7,
-                device=None) -> ConstBlockDIAOperator:
+                device="cuda") -> ConstBlockDIAOperator:
     """The operator as a ConstBlockDIAOperator (spin-major rows): constant
     hop blocks and 0/1 boundary masks. Wrap diagonals whose support is whole
     g-site slabs (the z-wraps, from L = 16 on) go to the slab kernel
-    (``detect_slabs``)."""
-    _check_bc(bc)
-    np_dtype = _real_np_dtype(dtype, "dirac_cbdia")
-    H = hopping_matrices(seed).astype(np_dtype)
-    ns = L ** _NDIM
-    coords, strides = _coords(ns, L)
+    (``detect_slabs``). A complex dtype gives complex hops over real masks:
+    a container, whose card route is ``realify``."""
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_cbdia")
+    scal = complex if cplx else float
+    # Boundary masks are real 0/1 gates, of the dtype's real width.
+    single = np_dtype in (np.float32, np.complex64)
+    mask_dtype = np.float32 if single else np.float64
+
+    def tup(block: np.ndarray) -> tuple:
+        return tuple(tuple(scal(v) for v in row) for row in block)
 
     offsets: list[int] = [0]
-    hops: list[tuple] = [_tup((m * m + 2.0 * _NDIM) * np.eye(BS, dtype=np_dtype))]
+    hops: list[tuple] = [tup((m * m + 2.0 * _NDIM) * np.eye(BS, dtype=np_dtype))]
     mask_slot: list[int] = [-1]
     masks: list[np.ndarray] = []
 
     def add(o: int, block: np.ndarray, mask: np.ndarray | None):
         offsets.append(o)
-        hops.append(_tup(block))
+        hops.append(tup(block))
         if mask is None:
             mask_slot.append(-1)
         else:
             mask_slot.append(len(masks))
-            masks.append(mask.astype(np_dtype))
+            masks.append(mask.astype(mask_dtype))
 
     for ax in range(_NDIM):
         st = strides[ax]
@@ -118,51 +148,72 @@ def dirac_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
             # Slowest axis: the flat-index wraparound is the lattice's
             # (toroidal semantics), so these diagonals need no mask.
             add(st, -H[ax], None)
-            add(-st, -H[ax].T, None)
+            add(-st, -H[ax].conj().T, None)
             continue
         add(st, -H[ax], c < L - 1)
-        add(-st, -H[ax].T, c > 0)
+        add(-st, -H[ax].conj().T, c > 0)
         if bc == "periodic":
             add(-(L - 1) * st, -H[ax], c == L - 1)
-            add((L - 1) * st, -H[ax].T, c == 0)
+            add((L - 1) * st, -H[ax].conj().T, c == 0)
 
     masks_np = np.stack(masks) if masks else None
     nnz = _nnz(hops, mask_slot, masks, ns)
     slabs = detect_slabs(masks_np, offsets, mask_slot, ns)
     return ConstBlockDIAOperator.from_numpy(
         masks_np, tuple(hops), tuple(offsets), tuple(mask_slot), ns,
-        slabs=slabs, nnz=nnz, dtype=dtype, device=device)
+        slabs=slabs, nnz=nnz, dtype=torch.float32 if single else torch.float64,
+        device=device)
 
 
 def dirac_gauged_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
                        dtype: torch.dtype = torch.float32, seed: int = 7,
-                       gauge_seed: int = 11,
-                       device=None) -> ConstBlockDIAOperator:
-    """Gauged Dirac-like operator with real Z2 links in the const-hop
-    container: every hop diagonal carries a value mask, the link (+-1) times
-    the boundary gate, so nothing is slab-routed and every diagonal goes
-    through the main kernel. (The complex U(1) flavour is realified and
-    waits for ``operators/realify.py``.)"""
-    _check_bc(bc)
-    np_dtype = _real_np_dtype(dtype, "dirac_gauged_cbdia")
-    H = hopping_matrices(seed).astype(np_dtype)
-    ns = L ** _NDIM
-    coords, strides = _coords(ns, L)
+                       gauge_seed: int = 11, device="cuda"):
+    """Gauged Dirac-like operator in the const-hop container: a scalar link
+    field factors every per-site hop into (constant spin matrix) x (per-site
+    scalar), so the masks carry the link values times the boundary gate, and
+    nothing is slab-routed.
+
+    Real dtypes: Z2 links (+-1), one value mask per hop diagonal; returns a
+    ConstBlockDIAOperator. Complex dtypes: U(1) phase links; the realified
+    ``phi H = Re(phi) K1 + Im(phi) K2`` (``k1k2_blocks``, constant real
+    2bs x 2bs blocks) gives two value-masked diagonals per hop (29 in all),
+    returned as a RealifiedHermitianOperator over that real const-hop core.
+    Same matrix as ``dirac_gauged``."""
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed,
+                                                    "dirac_gauged_cbdia")
     grng = np.random.default_rng(gauge_seed)
-    links = grng.choice([-1.0, 1.0], size=(_NDIM, ns)).astype(np_dtype)
+    if cplx:
+        links = np.exp(2j * np.pi * grng.random((_NDIM, ns))).astype(np_dtype)
+        rdt = real_mask_dtype(np_dtype)
+    else:
+        links = grng.choice([-1.0, 1.0], size=(_NDIM, ns)).astype(np_dtype)
+        rdt = np_dtype
     s = np.arange(ns)
 
+    def tup(block: np.ndarray) -> tuple:
+        return tuple(tuple(float(v) for v in row) for row in block)
+
     offsets: list[int] = [0]
-    hops: list[tuple] = [_tup((m * m + 2.0 * _NDIM) * np.eye(BS, dtype=np_dtype))]
+    hops: list[tuple] = [tup((m * m + 2.0 * _NDIM) * np.eye(2 * BS if cplx else BS, dtype=rdt))]
     mask_slot: list[int] = [-1]
     masks: list[np.ndarray] = []
 
-    def add(o: int, Hc: np.ndarray, phi: np.ndarray, gate):
-        g = np.ones(ns, np_dtype) if gate is None else gate.astype(np_dtype)
+    def add_masked(o: int, K: np.ndarray, vals: np.ndarray):
         offsets.append(o)
-        hops.append(_tup(-Hc))
+        hops.append(tup(-K))
         mask_slot.append(len(masks))
-        masks.append(phi.astype(np_dtype) * g)
+        masks.append(vals)
+
+    def add(o: int, Hc: np.ndarray, phi: np.ndarray, gate):
+        g = np.ones(ns, rdt) if gate is None else gate.astype(rdt)
+        if not cplx:
+            add_masked(o, Hc, phi.astype(rdt) * g)
+            return
+        K1, K2 = k1k2_blocks(Hc, rdt)
+        for K, part in ((K1, phi.real), (K2, phi.imag)):
+            vals = part.astype(rdt) * g
+            if np.any(vals):
+                add_masked(o, K, vals)
 
     for ax in range(_NDIM):
         st = strides[ax]
@@ -170,17 +221,204 @@ def dirac_gauged_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
         phi = links[ax]  # link from site s toward +mu
         # The -mu coupling of row s uses the link anchored at the neighbour.
         dn = (s + st * np.where(c == 0, L - 1, -1)) % ns
-        phi_dn = links[ax][dn]
+        phi_dn = np.conj(links[ax][dn]) if cplx else links[ax][dn]
         if bc == "periodic" and ax == 0:
             add(st, H[ax], phi, None)
-            add(-st, H[ax].T, phi_dn, None)
+            add(-st, H[ax].conj().T, phi_dn, None)
             continue
         add(st, H[ax], phi, c < L - 1)
-        add(-st, H[ax].T, phi_dn, c > 0)
+        add(-st, H[ax].conj().T, phi_dn, c > 0)
         if bc == "periodic":
             add(-(L - 1) * st, H[ax], phi, c == L - 1)
-            add((L - 1) * st, H[ax].T, phi_dn, c == 0)
+            add((L - 1) * st, H[ax].conj().T, phi_dn, c == 0)
 
-    return ConstBlockDIAOperator.from_numpy(
+    nnz = _nnz(hops, mask_slot, masks, ns)
+    rdtype = torch.float64 if rdt == np.float64 else torch.float32
+    core = ConstBlockDIAOperator.from_numpy(
         np.stack(masks), tuple(hops), tuple(offsets), tuple(mask_slot), ns,
-        nnz=_nnz(hops, mask_slot, masks, ns), dtype=dtype, device=device)
+        nnz=None if cplx else nnz, dtype=rdtype, device=device)
+    if not cplx:
+        return core
+    # The complex operator's nnz (the real core's quadruples it), as the
+    # reference keeps it for nnz/s.
+    return RealifiedHermitianOperator(core, BS, ns, rdtype.to_complex(),
+                                      nnz=nnz // 4 if nnz % 4 == 0 else nnz)
+
+
+# ------------------------------------------------------ per-site containers
+
+
+def _bdia(blk: np.ndarray, offsets, L: int, bc: str, dtype, device) -> BlockDIAOperator:
+    ns = blk.shape[-1]
+    if bc == "open":
+        assert_wrap_zero(blk, offsets, ns, what=f"dirac builder (L={L}, open)")
+    return BlockDIAOperator.from_numpy(blk, tuple(offsets), wrap_zero=(bc == "open"),
+                                       nnz=int(np.count_nonzero(blk)), dtype=dtype,
+                                       device=device)
+
+
+def _diag_blocks(m: float, ns: int, np_dtype) -> np.ndarray:
+    diag = np.zeros((BS, BS, ns), dtype=np_dtype)
+    diag[:, :, :] = ((m * m + 2.0 * _NDIM) * np.eye(BS, dtype=np_dtype))[:, :, None]
+    return diag
+
+
+def dirac_bdia(L: int, m: float = 0.5, bc: str = "periodic",
+               dtype: torch.dtype = torch.float32, seed: int = 7,
+               device="cuda") -> BlockDIAOperator:
+    """The operator as a BlockDIAOperator (spin-major rows): the same matrix
+    as ``dirac_cbdia``, with every hop block stored per site."""
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_bdia")
+    offsets: list[int] = [0]
+    blocks: list[np.ndarray] = [_diag_blocks(m, ns, np_dtype)]
+
+    def masked(block: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        out = np.zeros((BS, BS, ns), dtype=np_dtype)
+        out[:, :, mask] = block[:, :, None]
+        return out
+
+    for ax in range(_NDIM):
+        st = strides[ax]
+        c = coords[ax]
+        if bc == "periodic" and ax == 0:
+            # Slowest axis: one unmasked diagonal per direction covers hop
+            # and wrap ((s +/- L^3) mod ns).
+            offsets.append(st)
+            blocks.append(masked(-H[ax], np.ones(ns, bool)))
+            offsets.append(-st)
+            blocks.append(masked(-H[ax].conj().T, np.ones(ns, bool)))
+            continue
+        offsets.append(st)
+        blocks.append(masked(-H[ax], c < L - 1))
+        offsets.append(-st)
+        blocks.append(masked(-H[ax].conj().T, c > 0))
+        if bc == "periodic":
+            offsets.append(-(L - 1) * st)
+            blocks.append(masked(-H[ax], c == L - 1))
+            offsets.append((L - 1) * st)
+            blocks.append(masked(-H[ax].conj().T, c == 0))
+    return _bdia(np.stack(blocks), offsets, L, bc, dtype, device)
+
+
+def dirac_gauged(L: int, m: float = 0.5, bc: str = "periodic",
+                 dtype: torch.dtype = torch.float32, seed: int = 7,
+                 gauge_seed: int = 11, device="cuda") -> BlockDIAOperator:
+    """Gauged (site-dependent scalar link) flavour as a BlockDIAOperator:
+    real dtypes carry Z2 links (+-1 per site and direction), complex dtypes
+    U(1) phases. ``A[x, x+mu] = -phi_mu(x) H_mu``, ``A[x+mu, x] =
+    -conj(phi_mu(x)) H_mu^H``; |phi| = 1 keeps ``lambda_min >= m^2``."""
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_gauged")
+    grng = np.random.default_rng(gauge_seed)
+    if cplx:
+        links = np.exp(2j * np.pi * grng.random((_NDIM, ns))).astype(np_dtype)
+    else:
+        links = grng.choice([-1.0, 1.0], size=(_NDIM, ns)).astype(np_dtype)
+    offsets: list[int] = [0]
+    blocks: list[np.ndarray] = [_diag_blocks(m, ns, np_dtype)]
+
+    def fielded(block: np.ndarray, phi: np.ndarray, mask: np.ndarray):
+        out = np.zeros((BS, BS, ns), dtype=np_dtype)
+        out[:, :, mask] = block[:, :, None] * phi[mask][None, None, :]
+        return out
+
+    s = np.arange(ns)
+    for ax in range(_NDIM):
+        st = strides[ax]
+        c = coords[ax]
+        phi = links[ax]
+        dn = (s + st * np.where(c == 0, L - 1, -1)) % ns
+        phi_dn = np.conj(links[ax][dn]) if cplx else links[ax][dn]
+        if bc == "periodic" and ax == 0:
+            offsets.append(st)
+            blocks.append(fielded(-H[ax], phi, np.ones(ns, bool)))
+            offsets.append(-st)
+            blocks.append(fielded(-H[ax].conj().T, phi_dn, np.ones(ns, bool)))
+            continue
+        offsets.append(st)
+        blocks.append(fielded(-H[ax], phi, c < L - 1))
+        offsets.append(-st)
+        blocks.append(fielded(-H[ax].conj().T, phi_dn, c > 0))
+        if bc == "periodic":
+            offsets.append(-(L - 1) * st)
+            blocks.append(fielded(-H[ax], phi, c == L - 1))
+            offsets.append((L - 1) * st)
+            blocks.append(fielded(-H[ax].conj().T, phi_dn, c == 0))
+    return _bdia(np.stack(blocks), offsets, L, bc, dtype, device)
+
+
+def dirac_gauged_matrix(L: int, m: float = 0.5, bc: str = "periodic",
+                        dtype: torch.dtype = torch.float32, seed: int = 7,
+                        gauge_seed: int = 11, device="cuda") -> BlockDIAOperator:
+    """Matrix-valued-link (SU(N)-style) gauged operator: per site and
+    direction a random orthogonal (real) or unitary (complex) bs x bs link
+    U_mu(x), with ``A[x, x+mu] = -U_mu(x) H_mu`` and ``A[x+mu, x]`` its
+    adjoint. Orthogonal U keeps ``||U H|| = 1``, so ``lambda_min >= m^2``.
+    Such links do not factor into the const-hop form: this family needs the
+    per-site block stencil."""
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed,
+                                                    "dirac_gauged_matrix")
+    grng = np.random.default_rng(gauge_seed)
+    g = grng.standard_normal((_NDIM, ns, BS, BS))
+    if cplx:
+        g = g + 1j * grng.standard_normal((_NDIM, ns, BS, BS))
+    U, _ = np.linalg.qr(g)  # batched: orthogonal/unitary per site and direction
+    U = U.astype(np_dtype)
+    offsets: list[int] = [0]
+    blocks: list[np.ndarray] = [_diag_blocks(m, ns, np_dtype)]
+
+    def masked(blk3, mask):
+        out = np.zeros((BS, BS, ns), dtype=np_dtype)
+        out[:, :, mask] = blk3[:, :, mask]
+        return out
+
+    s = np.arange(ns)
+    for ax in range(_NDIM):
+        st = strides[ax]
+        c = coords[ax]
+        # forward per-site blocks -U_mu(s) H_mu, laid out (BS, BS, ns)
+        fwd = -np.einsum("sij,jk->iks", U[ax], H[ax])
+        dn = (s + st * np.where(c == 0, L - 1, -1)) % ns
+        # -mu coupling of row s: the adjoint of the neighbour's forward block
+        bwd = np.conj(np.transpose(fwd[:, :, dn], (1, 0, 2)))
+        if bc == "periodic" and ax == 0:
+            offsets.append(st)
+            blocks.append(fwd)
+            offsets.append(-st)
+            blocks.append(bwd)
+            continue
+        offsets.append(st)
+        blocks.append(masked(fwd, c < L - 1))
+        offsets.append(-st)
+        blocks.append(masked(bwd, c > 0))
+        if bc == "periodic":
+            offsets.append(-(L - 1) * st)
+            blocks.append(masked(fwd, c == L - 1))
+            offsets.append((L - 1) * st)
+            blocks.append(masked(bwd, c == 0))
+    return _bdia(np.stack(blocks), offsets, L, bc, dtype, device)
+
+
+def bdia_scipy(op: BlockDIAOperator):
+    """BlockDIAOperator -> scipy CSR in f64 or c128 (small problems; the test
+    oracle)."""
+    import scipy.sparse as sp
+
+    bs, ns = op.bs, op.ns
+    n = bs * ns
+    blocks = op.blocks.detach().cpu().numpy()
+    blocks = blocks.astype(np.complex128 if np.iscomplexobj(blocks) else np.float64)
+    rows, cols, data = [], [], []
+    s = np.arange(ns)
+    for d, o in enumerate(op.offsets):
+        scol = (s + o) % ns  # toroidal semantics
+        for a in range(bs):
+            for b in range(bs):
+                vals = blocks[d, a, b, :]
+                nzm = vals != 0
+                rows.append(a * ns + s[nzm])
+                cols.append(b * ns + scol[nzm])
+                data.append(vals[nzm])
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    data = np.concatenate(data)
+    return sp.coo_matrix((data, (rows, cols)), shape=(n, n)).tocsr()

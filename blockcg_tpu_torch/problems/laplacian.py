@@ -56,7 +56,7 @@ def _laplacian_bands(shape: tuple[int, ...], np_dtype) -> tuple[tuple[int, ...],
 
 
 def laplacian_dia(shape: tuple[int, ...], dtype: torch.dtype = torch.float32,
-                  device=None) -> DIAOperator:
+                  device="cuda") -> DIAOperator:
     """Dirichlet Laplacian as a DIAOperator. Every boundary (hence every mod-n
     wrap-crossing) coefficient is exactly zero, checked at build time. The
     band values (-1, 0, 2d) are exact in any float dtype."""

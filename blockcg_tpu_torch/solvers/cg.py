@@ -21,7 +21,7 @@ import torch
 from blockcg_tpu_torch.solvers.common import (
     acc_dtype,
     check_precision,
-    check_real,
+    check_complex_codec,
     f_matmat_gram,
     vdot_real,
 )
@@ -96,7 +96,7 @@ def solve_cg(
         b = b[:, 0]
         if x0 is not None:
             x0 = x0[:, 0]
-    check_real(b, "solve_cg")
+    check_complex_codec(op, b, "solve_cg")
     check_precision("solve_cg")
     bf = _to_field(op, b)
     x0f = torch.zeros_like(bf) if x0 is None else _to_field(op, x0)

@@ -315,12 +315,14 @@ def check_precision(solver: str) -> None:
             "three decimal digits)")
 
 
-def check_real(B: torch.Tensor, solver: str) -> None:
-    """Complex systems wait for the realified operators."""
-    if B.is_complex():
+def check_complex_codec(op, B: torch.Tensor, solver: str) -> None:
+    """A complex ``B`` needs an operator with a complex codec, whose
+    ``to_internal`` hands the solver real stacked fields: a realified
+    operator. Solves on complex fields themselves are not ported."""
+    if B.is_complex() and not getattr(op, "complex_codec", False):
         raise NotImplementedError(
-            f"{solver}: complex fields need operators/realify.py, which is "
-            "not ported yet")
+            f"{solver}: complex right-hand sides need a realified operator "
+            "(operators.realify(op)); true-complex solves are not ported yet")
 
 
 def block_setup(op, B: torch.Tensor, X0: torch.Tensor | None, solver: str):
@@ -328,7 +330,7 @@ def block_setup(op, B: torch.Tensor, X0: torch.Tensor | None, solver: str):
     lanes-major view and a private copy of X0, which they update in place."""
     if B.dim() == 1:
         raise ValueError(f"{solver} expects an (n, k) block; use solve_cg for k=1")
-    check_real(B, solver)
+    check_complex_codec(op, B, solver)
     check_precision(solver)
     Bt = op.to_internal(B.T.contiguous())
     X0t = (torch.zeros_like(Bt) if X0 is None

@@ -73,7 +73,8 @@ def solve_refined(
         is a new copy of ``op`` in ``outer_dtype`` (exact for stencil
         coefficients).
       outer_dtype: dtype of the outer accumulator and true residual
-        (default float64).
+        (default float64, complex128 for a complex ``B`` on a realified
+        operator).
       checkpoint_path: save X after every cycle, and resume from it.
 
     Returns:
@@ -93,7 +94,7 @@ def solve_refined(
             raise ValueError(f"unknown inner solver {inner_solver!r}")
 
     compute_dtype = op.dtype
-    wide = outer_dtype or torch.float64
+    wide = outer_dtype or (torch.complex128 if B.is_complex() else torch.float64)
     if op64 is None:
         op64 = op_astype(op, wide)
     B64 = B.to(wide)

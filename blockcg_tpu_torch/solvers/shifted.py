@@ -22,7 +22,7 @@ from blockcg_tpu_torch.solvers.cg import _from_field, _to_field
 from blockcg_tpu_torch.solvers.common import (
     acc_dtype,
     check_precision,
-    check_real,
+    check_complex_codec,
     f_matmat_gram,
     row_norms2_t,
 )
@@ -101,9 +101,9 @@ def solve_shifted_cg(
     """
     if b.dim() != 1:
         raise ValueError("solve_shifted_cg expects a single (n,) RHS")
-    check_real(b, "solve_shifted_cg")
+    check_complex_codec(op, b, "solve_shifted_cg")
     check_precision("solve_shifted_cg")
-    sig = torch.as_tensor(sigmas, dtype=acc_dtype(b.dtype), device=b.device)
+    sig = torch.as_tensor(sigmas, dtype=acc_dtype(b.real.dtype), device=b.device)
     bf = _to_field(op, b)
     xs, info = _shifted_cg_impl(op, bf, sig, tol, max_iter, record_history)
     cols = [_from_field(op, xs[j]) for j in range(sig.shape[0])]

@@ -42,7 +42,7 @@ from blockcg_tpu_torch.solvers.common import (
     _ce,
     acc_dtype,
     check_precision,
-    check_real,
+    check_complex_codec,
     chol_inverse_spd,
     cholqr_fused_t,
     f_matmat_gram,
@@ -150,9 +150,9 @@ def solve_shifted_sbcgrq(
         raise ValueError("solve_shifted_sbcgrq expects an (n, k) block")
     if qr_passes < 1:
         raise ValueError("qr_passes must be >= 1")
-    check_real(B, "solve_shifted_sbcgrq")
+    check_complex_codec(op, B, "solve_shifted_sbcgrq")
     check_precision("solve_shifted_sbcgrq")
-    sig = torch.atleast_1d(torch.as_tensor(sigmas, dtype=acc_dtype(B.dtype),
+    sig = torch.atleast_1d(torch.as_tensor(sigmas, dtype=acc_dtype(B.real.dtype),
                                            device=B.device))
     Bt = op.to_internal(B.T.contiguous())
     Xs, info = _shifted_sbcgrq_impl(op, Bt, sig, tol, max_iter, qr_passes,

@@ -6,13 +6,16 @@ nvcc:
 
     python3 chip_profile.py
 
-Six solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+Seven solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
 first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
 its inner solver, tol 3e-6) at qr_passes 1 and 2, config 4 (the 32^4
 lattice-Dirac operator in the const-hop container, k = 12, tol 1e-6,
 qr_passes=1), config 2's BCG (512^2 Laplacian, k = 16, tol 1e-6) and the
-shifted-block SBCGrQ on config 4 with four shifts (tol 1e-6). Each solve
+shifted-block SBCGrQ on config 4 with four shifts (tol 1e-6), and the
+matrix-link lattice operator ``dirac_gauged_matrix(32)`` in the per-site
+block container (k = 12 from ``default_rng(1234)``, tol 1e-6,
+qr_passes=1). Each solve
 runs once to warm up, once bare (wall clock ending
 in ``torch.cuda.synchronize()``: "bare ms"), and once under
 ``torch.profiler`` with CUDA activity only. From the trace's device events
@@ -41,12 +44,14 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
+
 K = 32
 SHIFTS = (0.0, 0.05, 0.5, 2.0)
 TOP = 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PORT_KERNEL = re.compile(r"\b(stencil_spmm|coeff_update|px_update|gram_kernel|reduce_partials"
-                         r"|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update)\b")
+                         r"|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update|bs_spmm)\b")
 
 
 def union_ms(intervals) -> float:
@@ -121,6 +126,7 @@ def main() -> None:
         config2_bcg_2d_512,
         config3_sbcgrq_3d_64,
         config4_dirac_32,
+        dirac_gauged_matrix,
         laplacian_dia,
     )
     from blockcg_tpu_torch.problems.presets import _rhs
@@ -140,6 +146,9 @@ def main() -> None:
     del B
     op4, B4, _ = config4_dirac_32(device=dev)
     op2, B2, _ = config2_bcg_2d_512(device=dev)
+    opm = dirac_gauged_matrix(32, m=0.5, device=dev)
+    Bm = torch.as_tensor(np.random.default_rng(1234).standard_normal((12, opm.n)),
+                         dtype=torch.float32, device=dev).T.contiguous()
     solves = [
         ("config3 qr_passes=1", lambda: solve_sbcgrq(op3, B3, tol=1e-6, qr_passes=1)),
         ("north-star inner 128^3 qr_passes=1",
@@ -150,6 +159,8 @@ def main() -> None:
         ("config2 bcg_2d_512 solve_bcg", lambda: solve_bcg(op2, B2, tol=1e-6, max_iter=5000)),
         (f"config4 dirac_32 solve_shifted_sbcgrq shifts {SHIFTS}",
          lambda: solve_shifted_sbcgrq(op4, B4, SHIFTS, tol=1e-6)),
+        ("matrix link dirac_gauged_matrix(32) k=12 qr_passes=1",
+         lambda: solve_sbcgrq(opm, Bm, tol=1e-6, qr_passes=1)),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         for name, run in solves:

@@ -15,12 +15,21 @@ through ``solve_sbcgrq`` (twice, bitwise identical) and ``solve_refined`` to
 1e-10; configs 1 and 2 (2D Laplacians, 128^2 with 4 RHS and 512^2 with 16)
 through ``solve_cg``, ``solve_bcg`` (twice, bitwise identical), ``solve_bcga``,
 ``solve_bcgdq`` and ``solve_refined(inner_solver="bcg")`` to 1e-10; and the
-multi-shift solvers on config 4 with four shifts. Each phase prints one line;
-any failure raises, and the process exits non-zero. The last two lines are
-the kernels' JSON record, whose launch counts are those of each kernel's own
-path (the north-star solves, config 4, configs 1 and 2, or the multi-shift
-solves), and the run's JSON result. It imports neither JAX nor the reference
-package, and fails without a card.
+multi-shift solvers on config 4 with four shifts; the matrix-link lattice
+operator ``dirac_gauged_matrix(32)`` in the per-site block container with 12
+RHS through ``solve_sbcgrq`` (twice, bitwise identical), the public
+``op(X)`` and ``solve_refined`` to 1e-10; ``dirac_bdia(32)``, config 4's
+matrix in that container, against config 4's const-hop solve; and complex
+systems with 6 RHS on ``realify(dirac_gauged_matrix(32, complex64))`` and
+the U(1) ``dirac_gauged_cbdia(32, complex64)``. Each phase prints one or a
+few lines; any failure raises, and the process exits non-zero. The last two
+lines are the kernels' JSON record, whose launch counts are those of each
+kernel's own path (the north-star solves, config 4, configs 1 and 2, the
+multi-shift solves, or the matrix-link solves), with each kernel's bound
+(the larger of its contract's bytes over 3.35 TB/s and its FLOPs over 67
+TFLOP/s, the H100 SXM's data-sheet peaks) and, where one PyTorch call
+computes the same function, that call's time; and the run's JSON result. It
+imports neither JAX nor the reference package, and fails without a card.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 FIELD_RTOL = 1e-5  # max |kernel - plain| / max |plain| for field outputs
 GRAM_RTOL = 1e-5  # relative Frobenius error of Grams (summation order differs)
@@ -57,13 +68,24 @@ KERNELS = {
                           "blockcg_tpu/ops/const_block_stencil.py:780"),
     "xr_update_gram": ("blockcg_tpu_torch/csrc/xr_update.cu", "blockcg_tpu/ops/fused.py:496"),
     "qr_p_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:730"),
+    # The reference dispatches its ring schedule (block_stencil_ring.py:359,
+    # :371) at 32^4 with the contract of the two merged kernels listed here.
+    "block_stencil_spmm_m_t": ("blockcg_tpu_torch/csrc/block_stencil.cu",
+                               "blockcg_tpu/ops/block_stencil.py:371"),
+    "block_stencil_spmm_m_gram_t": ("blockcg_tpu_torch/csrc/block_stencil.cu",
+                                    "blockcg_tpu/ops/block_stencil.py:383"),
+    "block_stencil_spmm_t": ("blockcg_tpu_torch/csrc/block_stencil.cu",
+                             "blockcg_tpu/ops/block_stencil.py:94"),
 }
-# The kernels of config 4's const-hop operator; the others are the north
-# star's.
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# The kernels of config 4's const-hop operator and of the per-site block
+# operator; the others are the north star's.
 CBS_KERNELS = ("const_block_stencil_spmm_m_t", "const_block_stencil_spmm_m_gram_t",
                "slab_m_accumulate")
-NORTH_STAR_KERNELS = tuple(w for w in KERNELS
-                           if w not in (*CBS_KERNELS, "xr_update_gram", "qr_p_update"))
+BS_KERNELS = ("block_stencil_spmm_m_t", "block_stencil_spmm_m_gram_t", "block_stencil_spmm_t")
+NORTH_STAR_KERNELS = tuple(w for w in KERNELS if w not in (
+    *CBS_KERNELS, *BS_KERNELS, "xr_update_gram", "qr_p_update"))
 CONFIG3_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update",
                     "mm2_update_gram", "px_update")
 # Every SBCGrQ solve at qr_passes=1 launches these fused kernels
@@ -81,6 +103,17 @@ CONFIG12_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update
 SHIFTED_WRAPPERS = ("const_block_stencil_spmm_m_gram_t", "slab_m_accumulate", "gram",
                     "mm_update", "mm_update_gram", "qr_p_update")
 SHIFTS = (0.0, 0.05, 0.5, 2.0)
+# The matrix-link solves (SBCGrQ at qr_passes=1, the public f32 op(X) on the
+# flat field, solve_refined) launch these.
+MATRIXLINK_WRAPPERS = (*BS_KERNELS, "gram", "mm_update", "mm2_update_gram", "px_update")
+ML_L = 32
+ML_K = 12
+ML_SEED = 1234  # the reference's bench.py draws the matrix-link field from this seed
+COMPLEX_K = 6
+COMPLEX_ML_L = 32
+# dirac_bdia(32) against config 4's const-hop solve: two f32 solves of one
+# matrix to tol 1e-6, whose X may differ by up to cond(A) * tol (cond <= 65).
+BDIA_X_RTOL = 1e-4
 # Config 1's true f64 residual after f32 CG at tol 1e-6: the recurrence
 # understates it, and the reference's own f32 CG ends at 9.9e-6 to 2.6e-5 on
 # these four columns (its CPU run, the same iteration counts as the port's).
@@ -144,11 +177,34 @@ def _check(name, what, err, tol):
         raise AssertionError(f"{name}: {what} error {err:.3e} exceeds {tol:.0e}")
 
 
-def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None) -> float:
+def nbytes(*items) -> int:
+    """Bytes of tensors (and of plain counts given as ints)."""
+    return sum(int(t) if isinstance(t, int) else t.numel() * t.element_size() for t in items)
+
+
+def nnz(*tensors) -> int:
+    """Nonzero entries of tensors: the multiply-adds a sparse operand needs."""
+    import torch
+
+    return sum(int(torch.count_nonzero(t)) for t in tensors)
+
+
+def bound_ms(nbytes_: int, flops: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of the contract's bytes
+    (each input read once, each output written once) over the HBM rate and
+    its FLOPs over the f32 rate, and which of the two it is."""
+    tb, tf = nbytes_ / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None, *,
+                 work, library=None) -> float:
     """Run the kernel and its plain version once, compare each output, time
     both (or the pair ``timed``), print one line, and fold the record into
-    ``records[name]``: its first check sets the times, every check its
-    max_abs_err. Returns the kernel's ms."""
+    ``records[name]``. ``work`` is (bytes, FLOPs) of the contract at these
+    shapes; ``library`` one PyTorch call computing the same function, or
+    None. The first check of a wrapper sets its times, bound and library
+    time; every check its max_abs_err. Returns the kernel's ms."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     errs, abs_err = [], 0.0
@@ -161,9 +217,14 @@ def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None) -
         errs.append(err)
         abs_err = max(abs_err, float((g - w).abs().max()))
     ms, plain_ms = (median_ms(torch, fn) for fn in (timed or (kern, plain)))
+    bound, by = bound_ms(*work)
+    lib_ms = None if library is None else median_ms(torch, library)
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     print(f"[kernel] {name} {what}: rel err {max(errs):.2e} (max abs {abs_err:.2e}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+          f"{work[0] / 1e6:.1f} MB, {work[1] / 1e9:.2f} GFLOP), library {lib}")
+    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
     return ms
 
@@ -191,34 +252,59 @@ def phase_kernels(torch, dev) -> dict:
         B1, B2, B3 = field(K, n), field(K, n), field(K, n)
         banded = torch.randn(op.diags.shape, generator=gen, device=dev)  # wraps populated
         what = f"n={n} k={K}"
+        fb, gb, gf = nbytes(B1), K * K * 4, 2 * K * K * n  # field, Gram bytes; Gram FLOPs
+
+        def spmm(diags, gram=False):
+            return (nbytes(diags) + 2 * fb + gram * gb, 2 * K * nnz(diags) + gram * gf)
         cases = [
             ("stencil_spmm_t", what,
              lambda: (stencil.stencil_spmm_t(op.diags, op.offsets, B1), None),
-             lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1)),
+             lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1),
+             spmm(op.diags), None),
             ("stencil_spmm_gram_t", what,
              lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
-             lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1, True)),
+             lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1, True),
+             spmm(op.diags, True), None),
             ("stencil_spmm_gram_t", what + " random banded",
              lambda: stencil.stencil_spmm_gram_t(banded, op.offsets, B1),
-             lambda: stencil.stencil_spmm_plain(banded, op.offsets, B1, True)),
+             lambda: stencil.stencil_spmm_plain(banded, op.offsets, B1, True),
+             spmm(banded, True), None),
             ("gram", what, lambda: (None, fused.gram(B1, B2)),
-             lambda: (None, fused.gram_plain(B1, B2))),
+             lambda: (None, fused.gram_plain(B1, B2)), (2 * fb + gb, gf), lambda: B1 @ B2.T),
             ("mm_update", what, lambda: (fused.mm_update(M1, B1), None),
-             lambda: (fused.mm_update_plain(M1, B1), None)),
+             lambda: (fused.mm_update_plain(M1, B1), None),
+             (nbytes(M1) + 2 * fb, 2 * n * nnz(M1)), lambda: M1 @ B1),
             ("mm_update_gram", what, lambda: fused.mm_update_gram(M1, B1),
-             lambda: fused.mm_update_gram_plain(M1, B1)),
+             lambda: fused.mm_update_gram_plain(M1, B1),
+             (nbytes(M1) + 2 * fb + gb, 2 * n * nnz(M1) + gf), None),
             ("mm2_update_gram", what, lambda: fused.mm2_update_gram(M1, B1, M2, B2),
-             lambda: fused.mm2_update_gram_plain(M1, B1, M2, B2)),
+             lambda: fused.mm2_update_gram_plain(M1, B1, M2, B2),
+             (nbytes(M1, M2) + 3 * fb + gb, 2 * n * nnz(M1, M2) + gf), None),
             ("px_update", what, lambda: fused.px_update(M1, B1, M2, B2, M3, B3),
-             lambda: fused.px_update_plain(M1, B1, M2, B2, M3, B3)),
+             lambda: fused.px_update_plain(M1, B1, M2, B2, M3, B3),
+             (nbytes(M1, M2, M3) + 5 * fb, 2 * n * nnz(M1, M2, M3)), None),
         ]
-        for name, label, kern, plain in cases:
-            ms = _timed_check(torch, name, label, kern, plain, is_gram, records)
+        for name, label, kern, plain, work, library in cases:
+            ms = _timed_check(torch, name, label, kern, plain, is_gram, records,
+                              work=work, library=library)
             if name == "stencil_spmm_t":
                 print(f"[kernel] stencil_spmm_t {what}: {op.nnz / ms / 1e6:.2f} Gnnz/s")
         del op, B1, B2, B3, banded
         torch.cuda.empty_cache()
     return records
+
+
+def _cbs_nnz(op, exclude_slabs: bool = False) -> int:
+    """Structural nonzeros of a const-hop operator: per diagonal, the hop's
+    nonzeros times the sites its mask keeps (all sites without a mask);
+    ``exclude_slabs`` leaves out the slab-routed diagonals."""
+    skip = {s[0] for s in op.slabs} if exclude_slabs else set()
+    total = 0
+    for d, slot in enumerate(op.mask_slot):
+        if d not in skip:
+            sites = op.ns if slot < 0 else nnz(op.masks[slot])
+            total += nnz(op.hops_all[d]) * sites
+    return total
 
 
 def phase_cbs_kernels(torch, dev, records) -> None:
@@ -268,18 +354,31 @@ def phase_cbs_kernels(torch, dev, records) -> None:
             return plain_t()
         return kern, plain, (kern_t, plain_t)
 
+    fb, gb, gf = nbytes(Xm), m * m * 4, 2 * m * m * ns  # field, Gram bytes; Gram FLOPs
+
+    def main_work(o, args, gram=False):
+        """Hops, masks, X read once, Y written once; the FLOPs of the
+        structural nonzeros of the main kernel's diagonals."""
+        return (nbytes(args[0], args[3]) + 2 * fb + gram * gb,
+                2 * DIRAC_K * _cbs_nnz(o, exclude_slabs=True) + gram * gf)
+
+    cols = g * nblocks  # the slab's site columns
+    slab_bytes = 3 * (fb // ns) * cols  # X at the sources, Y read and written
+    slab_flops = 2 * DIRAC_K * nnz(op.hops_all[d]) * cols
     cases = [
         ("const_block_stencil_spmm_m_t", what,
          lambda: (cbs.const_block_stencil_spmm_m_t(*main), None),
-         lambda: cbs.const_block_stencil_plain(*main), None),
+         lambda: cbs.const_block_stencil_plain(*main), None, main_work(op, main)),
         ("const_block_stencil_spmm_m_gram_t", what,
          lambda: cbs.const_block_stencil_spmm_m_gram_t(*main),
-         lambda: cbs.const_block_stencil_plain(*main, True), None),
-        ("slab_m_accumulate", what, *slab_case(False)),
-        ("slab_m_accumulate", what + " with Gram", *slab_case(True)),
+         lambda: cbs.const_block_stencil_plain(*main, True), None, main_work(op, main, True)),
+        ("slab_m_accumulate", what, *slab_case(False), (slab_bytes, slab_flops)),
+        # With the Gram: X at the destinations too, G read and written.
+        ("slab_m_accumulate", what + " with Gram", *slab_case(True),
+         (slab_bytes + (fb // ns) * cols + 2 * gb, slab_flops + 2 * m * m * cols)),
     ]
-    for name, label, kern, plain, timed in cases:
-        _timed_check(torch, name, label, kern, plain, is_gram, records, timed)
+    for name, label, kern, plain, timed, work in cases:
+        _timed_check(torch, name, label, kern, plain, is_gram, records, timed, work=work)
     apply_ms = median_ms(torch, lambda: op.matmat_t(Xm))
     print(f"[kernel] dirac_cbdia({DIRAC_L}).matmat_t on the merged field: {apply_ms:.4f} ms, "
           f"{op.nnz / apply_ms / 1e6:.2f} Gnnz/s (nnz {op.nnz})")
@@ -289,7 +388,8 @@ def phase_cbs_kernels(torch, dev, records) -> None:
     _timed_check(torch, "const_block_stencil_spmm_m_gram_t",
                  f"{what} gauged Z2 value masks",
                  lambda: cbs.const_block_stencil_spmm_m_gram_t(*gmain),
-                 lambda: cbs.const_block_stencil_plain(*gmain, True), is_gram, records)
+                 lambda: cbs.const_block_stencil_plain(*gmain, True), is_gram, records,
+                 work=main_work(gop, gmain, True))
     del gop, gmain
 
     eye = torch.eye(bs, device=dev)
@@ -299,18 +399,23 @@ def phase_cbs_kernels(torch, dev, records) -> None:
     what = f"{what} I_{bs}⊗C"
     cases = [
         ("gram", lambda: (None, fused.gram(Xm, Ym)),
-         lambda: (None, fused.gram_plain(Xm, Ym))),
+         lambda: (None, fused.gram_plain(Xm, Ym)), (2 * fb + gb, gf), lambda: Xm @ Ym.T),
         ("mm_update", lambda: (fused.mm_update(M1, Xm), None),
-         lambda: (fused.mm_update_plain(M1, Xm), None)),
+         lambda: (fused.mm_update_plain(M1, Xm), None),
+         (nbytes(M1) + 2 * fb, 2 * ns * nnz(M1)), lambda: M1 @ Xm),
         ("mm_update_gram", lambda: fused.mm_update_gram(M1, Xm),
-         lambda: fused.mm_update_gram_plain(M1, Xm)),
+         lambda: fused.mm_update_gram_plain(M1, Xm),
+         (nbytes(M1) + 2 * fb + gb, 2 * ns * nnz(M1) + gf), None),
         ("mm2_update_gram", lambda: fused.mm2_update_gram(M1, Xm, M2, Ym),
-         lambda: fused.mm2_update_gram_plain(M1, Xm, M2, Ym)),
+         lambda: fused.mm2_update_gram_plain(M1, Xm, M2, Ym),
+         (nbytes(M1, M2) + 3 * fb + gb, 2 * ns * nnz(M1, M2) + gf), None),
         ("px_update", lambda: fused.px_update(M1, Xm, M2, Ym, M3, Zm),
-         lambda: fused.px_update_plain(M1, Xm, M2, Ym, M3, Zm)),
+         lambda: fused.px_update_plain(M1, Xm, M2, Ym, M3, Zm),
+         (nbytes(M1, M2, M3) + 5 * fb, 2 * ns * nnz(M1, M2, M3)), None),
     ]
-    for name, kern, plain in cases:
-        _timed_check(torch, name, what, kern, plain, is_gram, records)
+    for name, kern, plain, work, library in cases:
+        _timed_check(torch, name, what, kern, plain, is_gram, records, work=work,
+                     library=library)
     del Xm, Ym, Zm
     torch.cuda.empty_cache()
 
@@ -333,13 +438,13 @@ def phase_krylov_kernels(torch, dev, records) -> None:
         C = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
         return torch.kron(torch.eye(bs, device=dev), C)
 
-    def both_ways(name, fn, plain, args, donated, what):
+    def both_ways(name, fn, plain, args, donated, what, work):
         def fresh():
             return fn(*args)
 
         def want():
             return plain(*args)
-        _timed_check(torch, name, f"{what} fresh", fresh, want, is_gram, records)
+        _timed_check(torch, name, f"{what} fresh", fresh, want, is_gram, records, work=work)
         bufs = list(args)
         for i in donated:
             bufs[i] = args[i].clone()
@@ -352,17 +457,21 @@ def phase_krylov_kernels(torch, dev, records) -> None:
                 bufs[i].copy_(args[i])
             return in_place()
         _timed_check(torch, name, f"{what} in place", kern, want, is_gram, records,
-                     timed=(in_place, want))
+                     timed=(in_place, want), work=work)
 
     def operands(k, bs, n):
         m = bs * k
         what = f"ns={n} m={m} I_{bs}⊗C" if bs > 1 else f"n={n} k={k}"
         A, M = coeff(k, bs), coeff(k, bs)
         F = [torch.randn((m, n), generator=gen, device=dev) for _ in range(4)]
+        fb = nbytes(F[0])
+        # xr: P, X, Z, R read, Xn, Rn and G written; qr: Q1, P read, Q, Pn written.
+        xr_work = (nbytes(A) + 6 * fb + m * m * 4, 4 * n * nnz(A) + 2 * m * m * n)
+        qr_work = (nbytes(A, M) + 4 * fb, 2 * n * nnz(A, M))
         return {"xr_update_gram": (fused.xr_update_gram, fused.xr_update_gram_plain,
-                                   (A, *F), (2, 4), what),
+                                   (A, *F), (2, 4), what, xr_work),
                 "qr_p_update": (fused.qr_p_update, fused.qr_p_update_plain,
-                                (A, F[0], M, F[1]), (1, 3), what)}
+                                (A, F[0], M, F[1]), (1, 3), what, qr_work)}
 
     config4, config2 = operands(DIRAC_K, 4, DIRAC_L ** 4), operands(16, 1, 512 ** 2)
     # Each kernel's own path first: its first check sets its record's times.
@@ -374,11 +483,13 @@ def phase_krylov_kernels(torch, dev, records) -> None:
 
 
 def true_relres(torch, op, X, B, sigma: float = 0.0, op64=None) -> float:
-    """max_j ||B e_j - (A + sigma I) X e_j|| / ||B e_j||, in f64 on the card."""
+    """max_j ||B e_j - (A + sigma I) X e_j|| / ||B e_j||, in f64 (complex128
+    for complex fields) on the card."""
     from blockcg_tpu_torch.operators import astype
 
-    B64, X64 = B.double(), X.double()
-    op64 = astype(op, torch.float64) if op64 is None else op64
+    wide = torch.complex128 if B.is_complex() else torch.float64
+    B64, X64 = B.to(wide), X.to(wide)
+    op64 = astype(op, wide) if op64 is None else op64
     R = B64 - op64.matmat(X64) - sigma * X64
     return float((torch.linalg.vector_norm(R, dim=0)
                   / torch.linalg.vector_norm(B64, dim=0)).max())
@@ -596,6 +707,156 @@ def phase_config4_shifted(torch, dev) -> None:
           f"{secs:.3f} s, true relres {['%.3e' % r for r in rels]}")
 
 
+def _bs_kernel_checks(torch, records, blocks, offsets, k, label, seed) -> None:
+    """The three block-stencil wrappers against their plain versions on the
+    per-site ``blocks`` of a built operator with k right-hand sides: merged
+    with and without the Gram (m = bs * k), and the (k, bs, ns) view; then
+    the merged apply's rate in structural nonzeros."""
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+
+    _, bs, _, ns = blocks.shape
+    m = bs * k
+    gen = torch.Generator(device=blocks.device).manual_seed(seed)
+    Xm = torch.randn((m, ns), generator=gen, device=blocks.device)
+    Xv = torch.randn((k, bs, ns), generator=gen, device=blocks.device)
+    # Every block read once (zeros too), X read once, Y written once; the
+    # FLOPs of the nonzero coefficients; the Gram adds G and 2 m^2 ns.
+    nzb = nnz(blocks)
+    apply_work = (nbytes(blocks, Xm, Xm), 2 * k * nzb)
+    gram_work = (apply_work[0] + m * m * 4, apply_work[1] + 2 * m * m * ns)
+
+    def is_gram(w):
+        return w.shape == (m, m)
+    what = f"{label} ns={ns} bs={bs} k={k} m={m}"
+    ms = _timed_check(torch, "block_stencil_spmm_m_t", what,
+                      lambda: (bsk.block_stencil_spmm_m_t(blocks, offsets, Xm), None),
+                      lambda: bsk.block_stencil_plain(blocks, offsets, Xm),
+                      is_gram, records, work=apply_work)
+    gms = _timed_check(torch, "block_stencil_spmm_m_gram_t", what,
+                       lambda: bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xm),
+                       lambda: bsk.block_stencil_plain(blocks, offsets, Xm, True),
+                       is_gram, records, work=gram_work)
+    vms = _timed_check(torch, "block_stencil_spmm_t", f"{label} ({k}, {bs}, {ns}) view",
+                       lambda: (bsk.block_stencil_spmm_t(blocks, offsets, Xv), None),
+                       lambda: (bsk.block_stencil_v_plain(blocks, offsets, Xv), None),
+                       is_gram, records, work=apply_work)
+    print(f"[kernel] block stencil {what}: merged {nzb / ms / 1e6:.2f}, with Gram "
+          f"{nzb / gms / 1e6:.2f}, (k, bs, ns) view {nzb / vms / 1e6:.2f} Gnnz/s "
+          f"(nnz {nzb} of the blocks)")
+
+
+def phase_matrixlink(torch, dev, records) -> dict:
+    """The matrix-link lattice operator ``dirac_gauged_matrix(32, m=0.5)`` in
+    the per-site block container with 12 RHS from ``default_rng(1234)``, as
+    the reference's ``bench.py`` builds it: first the block-stencil kernels
+    against their plain versions on its blocks, then, with the launch counts
+    set to 0, ``solve_sbcgrq`` at tol 1e-6 twice (bitwise identical, true
+    relres <= 1e-5), the public f32 ``op(X)`` and ``solve_refined`` to 1e-10.
+    Returns the launch counts of the solves."""
+    from blockcg_tpu_torch import solve_refined, solve_sbcgrq
+    from blockcg_tpu_torch.operators import astype
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import dirac_gauged_matrix
+
+    op, build_s = _timed(torch, lambda: dirac_gauged_matrix(ML_L, m=0.5, device=dev))
+    print(f"[matrixlink] dirac_gauged_matrix({ML_L}) n={op.n} nnz={op.nnz} "
+          f"offsets {len(op.offsets)}: built in {build_s:.1f} s")
+    _bs_kernel_checks(torch, records, op.blocks, op.offsets, ML_K,
+                      f"dirac_gauged_matrix({ML_L})", 3)
+    rng = np.random.default_rng(ML_SEED)
+    B = torch.as_tensor(rng.standard_normal((ML_K, op.n)), dtype=torch.float32,
+                        device=dev).T.contiguous()
+    op64 = astype(op, torch.float64)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    runs = [_timed(torch, lambda: solve_sbcgrq(op, B, tol=1e-6, qr_passes=1)) for _ in range(2)]
+    ((X1, info), s1), ((X2, info2), s2) = runs
+    Y32 = op(X1)  # the public f32 apply, on the flat field
+    (X, rinfo), rs = _timed(torch, lambda: solve_refined(op, B, tol=1e-10, inner_tol=3e-6,
+                                                         qr_passes=1, op64=op64))
+    counts = dict(_native.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel = true_relres(torch, op, X1, B, op64=op64)
+    rel32 = float((torch.linalg.vector_norm(B - Y32, dim=0)
+                   / torch.linalg.vector_norm(B, dim=0)).max())
+    if not (bool(info.converged.all()) and rel <= 1e-5):
+        raise AssertionError(f"matrix link: true relres {rel:.3e} > 1e-5: {info}")
+    if not torch.equal(X1, X2):
+        raise AssertionError("matrix link: repeat solve is not bitwise identical")
+    print(f"[matrixlink] solve_sbcgrq k={ML_K} tol=1e-6 qr_passes=1: {info.iterations} "
+          f"iterations, {s1:.3f} s (repeat {s2:.3f} s, {info2.iterations} iterations, bitwise "
+          f"identical), true relres {rel:.3e} (f32 op(X): {rel32:.3e})")
+    rrel = true_relres(torch, op, X, B, op64=op64)
+    if not (bool(rinfo.converged.all()) and rrel <= 1e-10):
+        raise AssertionError(f"matrix link solve_refined reached {rrel:.3e}, not 1e-10: {rinfo}")
+    print(f"[matrixlink] solve_refined tol=1e-10 inner_tol=3e-6 qr_passes=1: "
+          f"{rinfo.iterations} cycles, {rinfo.matvecs} matvecs, {rs:.3f} s, true relres "
+          f"{rrel:.3e}; peak {peak:.2f} GiB; launches {counts}")
+    return counts
+
+
+def phase_bdia_config4(torch, dev) -> None:
+    """``dirac_bdia(32)`` holds config 4's matrix in the per-site container:
+    SBCGrQ on config 4's B within one iteration of the const-hop solve, and
+    the same X to the solve's own accuracy."""
+    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch.problems import config4_dirac_32, dirac_bdia
+
+    cop, B, _ = config4_dirac_32(L=DIRAC_L, device=dev)
+    (Xc, ic), sc = _timed(torch, lambda: solve_sbcgrq(cop, B, tol=1e-6, qr_passes=1))
+    del cop
+    torch.cuda.empty_cache()
+    bop, build_s = _timed(torch, lambda: dirac_bdia(DIRAC_L, device=dev))
+    (Xb, ib), sb = _timed(torch, lambda: solve_sbcgrq(bop, B, tol=1e-6, qr_passes=1))
+    rel = true_relres(torch, bop, Xb, B)
+    dx = relfro(Xb, Xc)
+    if not (bool(ib.converged.all()) and abs(ib.iterations - ic.iterations) <= 1
+            and rel <= 1e-5 and dx <= BDIA_X_RTOL):
+        raise AssertionError(f"dirac_bdia({DIRAC_L}): {ib.iterations} iterations against the "
+                             f"const-hop {ic.iterations}, true relres {rel:.3e}, "
+                             f"|Xb - Xc| / |Xc| {dx:.3e}")
+    print(f"[bdia-config4] dirac_bdia({DIRAC_L}) (built in {build_s:.1f} s, nnz {bop.nnz}): "
+          f"{ib.iterations} iterations, {sb:.3f} s; const-hop config 4: {ic.iterations} "
+          f"iterations, {sc:.3f} s; |Xb - Xc| / |Xc| {dx:.3e}, true relres {rel:.3e}")
+
+
+def phase_complex(torch, dev, records) -> None:
+    """Complex Hermitian systems with 6 RHS through their realified
+    operators: the matrix-link ``realify(dirac_gauged_matrix(L,
+    complex64))`` (the block-stencil kernels at bs = 8, k = 6 first checked
+    against their plain versions on its real core) and the U(1)
+    ``dirac_gauged_cbdia(32, complex64)`` (a const-hop core at bs = 8).
+    ``solve_sbcgrq`` at tol 1e-6; true relres <= 1e-5 by the operator's
+    complex128 copy on the card."""
+    from blockcg_tpu_torch import realify, solve_sbcgrq
+    from blockcg_tpu_torch.problems import dirac_gauged_cbdia, dirac_gauged_matrix
+
+    builds = (
+        (f"realify(dirac_gauged_matrix({COMPLEX_ML_L}, complex64))", lambda: realify(
+            dirac_gauged_matrix(COMPLEX_ML_L, m=0.5, dtype=torch.complex64, device=dev))),
+        (f"dirac_gauged_cbdia({DIRAC_L}, complex64)",
+         lambda: dirac_gauged_cbdia(DIRAC_L, m=0.5, dtype=torch.complex64, device=dev)),
+    )
+    for i, (label, build) in enumerate(builds):
+        rop, build_s = _timed(torch, build)
+        if i == 0:
+            _bs_kernel_checks(torch, records, rop.real_op.blocks, rop.real_op.offsets,
+                              COMPLEX_K, "realified matrix link", 4)
+        rng = np.random.default_rng(ML_SEED + 1 + i)
+        Bc = rng.standard_normal((rop.n, COMPLEX_K)) + 1j * rng.standard_normal((rop.n, COMPLEX_K))
+        B = torch.as_tensor(Bc, dtype=torch.complex64, device=dev)
+        (X, info), secs = _timed(torch, lambda: solve_sbcgrq(rop, B, tol=1e-6, qr_passes=1))
+        rel = true_relres(torch, rop, X, B)
+        if not (X.dtype == torch.complex64 and bool(info.converged.all()) and rel <= 1e-5):
+            raise AssertionError(f"{label}: {X.dtype}, true relres {rel:.3e}: {info}")
+        print(f"[complex] {label} n={rop.n} (real core bs={rop.real_op.bs}, "
+              f"{len(rop.real_op.offsets)} diagonals, built in {build_s:.1f} s) k={COMPLEX_K}: "
+              f"solve_sbcgrq {info.iterations} iterations, {secs:.3f} s, true relres {rel:.3e}")
+        del rop, X, B
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     import torch
@@ -650,6 +911,16 @@ def main() -> None:
         if missing:
             raise AssertionError(f"{label} never launched the kernels of {missing}")
         counts[own] = got[own]
+    # The matrix-link path: the block-stencil kernels keep its counts.
+    got = phase_matrixlink(torch, dev, records)
+    print(f"[launches] matrix link: {got}")
+    missing = [w for w in MATRIXLINK_WRAPPERS if got.get(w, 0) == 0]
+    if missing:
+        raise AssertionError(f"the matrix-link solves never launched the kernels of {missing}")
+    counts.update({w: got[w] for w in BS_KERNELS})
+    torch.cuda.empty_cache()
+    phase_bdia_config4(torch, dev)
+    phase_complex(torch, dev, records)
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}

@@ -23,7 +23,12 @@ from blockcg_tpu.ops import const_block_stencil as jcbs
 from blockcg_tpu.problems import bdia_scipy
 from blockcg_tpu.problems import dirac as jdirac
 from blockcg_tpu.problems import presets as jpresets
-from blockcg_tpu_torch import ConstBlockDIAOperator, solve_refined, solve_sbcgrq
+from blockcg_tpu_torch import (
+    ConstBlockDIAOperator,
+    RealifiedHermitianOperator,
+    solve_refined,
+    solve_sbcgrq,
+)
 from blockcg_tpu_torch.operators import astype, detect_slabs
 from blockcg_tpu_torch.ops import _native
 from blockcg_tpu_torch.ops import const_block_stencil as cbs
@@ -83,7 +88,7 @@ def _field(shape, seed, dtype=np.float32):
     (16, "open", torch.float32),
 ])
 def test_dirac_cbdia_matches_reference_bitwise(L, bc, dtype):
-    op = dirac_cbdia(L, bc=bc, dtype=dtype)
+    op = dirac_cbdia(L, bc=bc, dtype=dtype, device="cpu")
     jop = jdirac.dirac_cbdia(L, bc=bc, dtype=_jdt(dtype))
     _same_structure(op, jop)
     assert op.dtype == dtype
@@ -92,7 +97,7 @@ def test_dirac_cbdia_matches_reference_bitwise(L, bc, dtype):
 
 @pytest.mark.parametrize("L,bc", [(4, "periodic"), (4, "open"), (16, "periodic")])
 def test_dirac_gauged_cbdia_matches_reference_bitwise(L, bc):
-    op = dirac_gauged_cbdia(L, bc=bc)
+    op = dirac_gauged_cbdia(L, bc=bc, device="cpu")
     jop = jdirac.dirac_gauged_cbdia(L, bc=bc, dtype=jnp.float32)
     _same_structure(op, jop)
     assert op.slabs == () and set(op.masks.unique().tolist()) == {-1.0, 0.0, 1.0}
@@ -107,7 +112,7 @@ def test_dirac_32_structure():
     """Config 4's operator: z-wraps slab-routed in 1024-site slabs, the
     builder's structural nnz, 10 of the 12 mask rows streamed by the main
     kernel."""
-    op = dirac_cbdia(32)
+    op = dirac_cbdia(32, device="cpu")
     assert op.slabs == ((5, 1024, 32, 32, 31, -31), (6, 1024, 32, 32, 0, 31))
     assert (op.ns, op.n, op.nnz) == (1_048_576, 4_194_304, 138_412_032)
     assert len(op.offsets) == 15 and len(op.main_offsets) == 13
@@ -115,7 +120,7 @@ def test_dirac_32_structure():
 
 
 def test_config4_preset_matches_reference():
-    op, B, meta = config4_dirac_32(L=4)
+    op, B, meta = config4_dirac_32(L=4, device="cpu")
     jop, jB, jmeta = jpresets.config4_dirac_32(jnp.float32, L=4)
     _same_structure(op, jop)
     assert B.dtype == torch.float32 and np.array_equal(B.numpy(), np.asarray(jB))
@@ -123,22 +128,28 @@ def test_config4_preset_matches_reference():
 
 
 def test_complex_and_bad_options_raise():
-    with pytest.raises(NotImplementedError):
-        dirac_cbdia(4, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError):
-        dirac_gauged_cbdia(4, dtype=torch.complex128)
+    """Complex dtypes build a complex-hop container (dirac_cbdia) or the
+    realified U(1) operator (dirac_gauged_cbdia); bad options raise."""
+    op = dirac_cbdia(4, dtype=torch.complex64, device="cpu")
+    assert isinstance(op, ConstBlockDIAOperator) and op.dtype == torch.complex64
+    assert op.masks.dtype == torch.float32 and isinstance(op.hops[1][0][0], complex)
+    rop = dirac_gauged_cbdia(4, dtype=torch.complex128, device="cpu")
+    assert isinstance(rop, RealifiedHermitianOperator) and rop.dtype == torch.complex128
+    assert rop.real_op.bs == 8 and rop.real_op.dtype == torch.float64
     with pytest.raises(ValueError):
-        dirac_cbdia(4, bc="twisted")
-    with pytest.raises(NotImplementedError):
-        ConstBlockDIAOperator(None, (((1j, 0.0), (0.0, 1.0)),), (0,), (-1,), 8)
+        dirac_cbdia(4, bc="twisted", device="cpu")
+    with pytest.raises(TypeError):
+        dirac_cbdia(4, dtype=torch.int32, device="cpu")
+    hand = ConstBlockDIAOperator(None, (((1j, 0.0), (0.0, 1.0)),), (0,), (-1,), 8)
+    assert hand.dtype == torch.complex64 and hand.hops == (((1j, 0j), (0j, 1 + 0j)),)
 
 
 def test_from_numpy_applies_like_the_port_build():
     jop = jdirac.dirac_cbdia(16, dtype=jnp.float64)
     op = ConstBlockDIAOperator.from_numpy(
         np.asarray(jop.masks), jop.hops, jop.offsets, jop.mask_slot,
-        jop.num_sites, jop.slabs, jop.nnz, dtype=torch.float64)
-    built = dirac_cbdia(16, dtype=torch.float64)
+        jop.num_sites, jop.slabs, jop.nnz, dtype=torch.float64, device="cpu")
+    built = dirac_cbdia(16, dtype=torch.float64, device="cpu")
     _same_structure(op, jop)
     Xt = torch.from_numpy(_field((2, op.n), 0, np.float64))
     assert torch.equal(op.matmat_t(Xt), built.matmat_t(Xt))
@@ -148,12 +159,12 @@ def test_from_numpy_applies_like_the_port_build():
 
 
 def test_detect_slabs_and_astype():
-    op = dirac_cbdia(16)
+    op = dirac_cbdia(16, device="cpu")
     plain = ConstBlockDIAOperator(op.masks, op.hops, op.offsets, op.mask_slot, op.ns,
                                   nnz=op.nnz)
     assert plain.slabs == () and len(plain.main_offsets) == 15
     assert detect_slabs(op.masks.numpy(), op.offsets, op.mask_slot, op.ns) == op.slabs
-    gop = dirac_gauged_cbdia(16)  # value masks: never slab-routed
+    gop = dirac_gauged_cbdia(16, device="cpu")  # value masks: never slab-routed
     assert detect_slabs(gop.masks.numpy(), gop.offsets, gop.mask_slot, gop.ns) == ()
     assert detect_slabs(None, (0,), (-1,), 256) == ()
     op64 = astype(op, torch.float64)
@@ -239,7 +250,7 @@ def test_slab_plain_matches_pallas(with_gram):
 
 
 def test_wrapper_argument_checks():
-    op = dirac_cbdia(4)
+    op = dirac_cbdia(4, device="cpu")
     Xm = torch.zeros(8, op.ns)
     with pytest.raises(ValueError):  # m not a multiple of bs
         cbs.const_block_stencil_spmm_m_t(op.hops_main, op.main_offsets, op.main_slots,
@@ -261,7 +272,7 @@ def test_wrapper_argument_checks():
 
 @pytest.mark.parametrize("L,k", [(8, 2), (16, 2)])
 def test_operator_views_match_reference(L, k):
-    op = dirac_cbdia(L)
+    op = dirac_cbdia(L, device="cpu")
     jop = jdirac.dirac_cbdia(L, dtype=jnp.float32)
     a = bdia_scipy(jop.to_block_dia())
     X = _field((op.n, k), 6)
@@ -287,7 +298,7 @@ def test_operator_views_match_reference(L, k):
 
 
 def test_operator_f64_matches_scipy_and_full_plain():
-    op = dirac_cbdia(16, dtype=torch.float64)
+    op = dirac_cbdia(16, dtype=torch.float64, device="cpu")
     jop = jdirac.dirac_cbdia(16, dtype=jnp.float64)
     a = bdia_scipy(jop.to_block_dia())
     X = _field((op.n, 3), 7, np.float64)
@@ -302,7 +313,7 @@ def test_operator_f64_matches_scipy_and_full_plain():
 
 
 def test_codec_matches_reference():
-    op = dirac_cbdia(4, dtype=torch.float64)
+    op = dirac_cbdia(4, dtype=torch.float64, device="cpu")
     jop = jdirac.dirac_cbdia(4, dtype=jnp.float64)
     k = 3
     C = _field((k, k), 8, np.float64)
@@ -326,7 +337,7 @@ def test_codec_matches_reference():
 @pytest.mark.parametrize("L,k", [(4, 4), (8, 12)])
 def test_sbcgrq_f64_dirac_matches_reference(L, k):
     B = np.random.default_rng(20 + L).standard_normal((4 * L ** 4, k))
-    X, info = solve_sbcgrq(dirac_cbdia(L, dtype=torch.float64), torch.from_numpy(B),
+    X, info = solve_sbcgrq(dirac_cbdia(L, dtype=torch.float64, device="cpu"), torch.from_numpy(B),
                            tol=1e-10, max_iter=200)
     Xj, infoj = jbc.solve_sbcgrq(jdirac.dirac_cbdia(L, dtype=jnp.float64), jnp.asarray(B),
                                  tol=1e-10, max_iter=200)
@@ -342,7 +353,7 @@ def test_sbcgrq_f32_dirac_matches_reference():
     jop = jdirac.dirac_cbdia(L, dtype=jnp.float32)
     a = bdia_scipy(jop.to_block_dia())
     B = np.random.default_rng(30).standard_normal((4 * L ** 4, k))
-    X, info = solve_sbcgrq(dirac_cbdia(L), torch.from_numpy(B).float(), tol=tol)
+    X, info = solve_sbcgrq(dirac_cbdia(L, device="cpu"), torch.from_numpy(B).float(), tol=tol)
     _, infoj = jbc.solve_sbcgrq(jop, jnp.asarray(B, jnp.float32), tol=tol)
     assert bool(info.converged.all())
     assert abs(info.iterations - int(infoj.iterations)) <= 2
@@ -353,7 +364,7 @@ def test_sbcgrq_f32_dirac_matches_reference():
 def test_refined_dirac_reaches_1e10():
     """To 1e-10 on the matrix the f32 operator holds (hops rounded to f32),
     which is the one its f64 outer copy applies, as in the reference."""
-    op = dirac_cbdia(4)
+    op = dirac_cbdia(4, device="cpu")
     a = bdia_scipy(jdirac.dirac_cbdia(4, dtype=jnp.float32).to_block_dia())
     B = np.random.default_rng(40).standard_normal((op.n, 4))
     X, info = solve_refined(op, torch.from_numpy(B), tol=1e-10, inner_tol=3e-6,

@@ -16,10 +16,13 @@ import pytest
 import torch
 
 from blockcg_tpu_torch.ops import _native, fused, stencil
+from blockcg_tpu_torch.ops import block_stencil as bsk
 from blockcg_tpu_torch.ops import const_block_stencil as cbs
 from blockcg_tpu_torch.problems import (
+    bdia_scipy,
     dirac_cbdia,
     dirac_gauged_cbdia,
+    dirac_gauged_matrix,
     laplacian_dia,
     laplacian_scipy,
 )
@@ -139,7 +142,7 @@ def test_dispatch_rule_on_card(dev):
 def test_sbcgrq_on_card_matches_cpu(dev):
     from blockcg_tpu_torch import solve_sbcgrq
 
-    op = laplacian_dia((16, 16, 16))
+    op = laplacian_dia((16, 16, 16), device="cpu")
     B = torch.as_tensor(np.random.default_rng(16).standard_normal((op.n, 8)),
                         dtype=torch.float32)
     Xc, ic = solve_sbcgrq(op, B, tol=1e-5)
@@ -260,7 +263,7 @@ def test_cbdia_operator_on_card_matches_plain(dev, gauged):
 def test_sbcgrq_dirac_on_card_matches_cpu(dev):
     from blockcg_tpu_torch import solve_sbcgrq
 
-    op = dirac_cbdia(8)
+    op = dirac_cbdia(8, device="cpu")
     B = torch.as_tensor(np.random.default_rng(24).standard_normal((op.n, 12)),
                         dtype=torch.float32)
     Xc, ic = solve_sbcgrq(op, B, tol=1e-5)
@@ -372,7 +375,7 @@ def test_krylov_on_card_matches_cpu(dev, solver):
         "shifted_cg": lambda o, b: bt.solve_shifted_cg(o, b[:, 0], sig, tol=tol),
         "shifted_sbcgrq": lambda o, b: bt.solve_shifted_sbcgrq(o, b, sig, tol=tol),
     }[solver]
-    _, ic = run(laplacian_dia(shape), B)
+    _, ic = run(laplacian_dia(shape, device="cpu"), B)
     _native.reset_launches()
     Xg, ig = run(laplacian_dia(shape, device=dev), B.to(dev))
     assert sum(_native.launches.values()) > 0
@@ -388,3 +391,111 @@ def test_krylov_on_card_matches_cpu(dev, solver):
     for x, s, b in pairs:
         res = np.linalg.norm(a @ x + s * x - b, axis=0) / np.linalg.norm(b, axis=0)
         assert res.max() <= 10 * tol
+
+
+# ------------------------------------------------ per-site block stencil
+
+
+def _bs_operands(ns, bs, k, dev, seed=0):
+    """Random per-site blocks on offsets that wrap, two with |o| >= ns."""
+    rng = np.random.default_rng(seed)
+    offsets = (0, 1, -1, 17, -150, ns - 1, ns + 150, -ns - 1)
+    blocks = _t(rng.standard_normal((len(offsets), bs, bs, ns)), dev)
+    return blocks, offsets, _field(bs * k, ns, seed + 1, dev)
+
+
+@pytest.mark.parametrize("bs,k", [(4, 1), (4, 3), (4, 12), (4, 16), (3, 5), (8, 6),
+                                  (8, 8), (2, 2)])
+def test_block_stencil_kernel_matches_plain(dev, bs, k):
+    """ns = 300 (not a multiple of 128): merged with and without the Gram,
+    the (k, bs, ns) view and its flat form; a repeat gives the same bits."""
+    ns = 300
+    blocks, offsets, Xm = _bs_operands(ns, bs, k, dev)
+    _native.reset_launches()
+    Y, G = bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xm)
+    Yp, Gp = bsk.block_stencil_plain(blocks, offsets, Xm, True)
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    assert _relmax(bsk.block_stencil_spmm_m_t(blocks, offsets, Xm), Yp) < 1e-5
+    assert torch.equal(bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xm)[1], G)
+    Xv = _field(k, bs * ns, 7, dev)
+    Yvp = bsk.block_stencil_v_plain(blocks, offsets, Xv.reshape(k, bs, ns))
+    Yv = bsk.block_stencil_spmm_t(blocks, offsets, Xv.reshape(k, bs, ns))
+    assert Yv.shape == (k, bs, ns) and _relmax(Yv, Yvp) < 1e-5
+    assert torch.equal(bsk.block_stencil_spmm_t(blocks, offsets, Xv), Yv.reshape(k, -1))
+    assert _native.launches["block_stencil_spmm_m_gram_t"] == 2
+    assert _native.launches["block_stencil_spmm_m_t"] == 1
+    assert _native.launches["block_stencil_spmm_t"] == 2
+
+
+def test_block_stencil_kernel_bounds(dev):
+    blocks, offsets, Xm = _bs_operands(300, 4, 16, dev)
+    _native.reset_launches()
+    with pytest.raises(ValueError, match="bs <= 8"):
+        bsk.block_stencil_spmm_m_t(*_bs_operands(300, 4, 17, dev))
+    with pytest.raises(ValueError, match="bs <= 8"):
+        bsk.block_stencil_spmm_m_t(*_bs_operands(300, 5, 9, dev))
+    many = torch.zeros((33, 4, 4, 300), device=dev)
+    with pytest.raises(ValueError, match="at most 32"):
+        bsk.block_stencil_spmm_m_t(many, (0,) * 33, Xm)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsk.block_stencil_spmm_m_t(blocks[..., :150], offsets, Xm[:, ::2])
+    with pytest.raises(TypeError):
+        bsk.block_stencil_spmm_m_t(blocks.to(torch.complex64), offsets,
+                                   Xm.to(torch.complex64))
+    assert sum(_native.launches.values()) == 0
+
+
+def test_bdia_operator_on_card_matches_plain(dev):
+    op = dirac_gauged_matrix(8, device=dev)
+    Xm = _field(op.bs * 12, op.ns, 30, dev)
+    want = bsk.block_stencil_plain(op.blocks, op.offsets, Xm)[0]
+    _native.reset_launches()
+    Y, G = op.matmat_gram_t(Xm)
+    assert _native.launches["block_stencil_spmm_m_gram_t"] == 1
+    torch.cuda.synchronize()
+    assert _relmax(Y, want) < 1e-5 and _relmax(op.matmat_t(Xm), want) < 1e-5
+    assert _relfro(G, op.gram_contract(Xm @ want.T)) < 1e-5
+    Xt = op.from_internal(Xm)
+    assert _relmax(op.matmat_t(Xt), op.from_internal(want)) < 1e-5
+    cop = dirac_gauged_matrix(3, dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError, match="realify"):
+        cop.matmat_t(torch.zeros((1, cop.n), dtype=torch.complex64, device=dev))
+    ccb = dirac_cbdia(3, dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError, match="realify"):
+        ccb.matmat_t(torch.zeros((1, ccb.n), dtype=torch.complex64, device=dev))
+
+
+@pytest.mark.parametrize("build", ["matrix", "realified", "gauged_cbdia"])
+def test_lattice_solves_on_card_match_cpu(dev, build):
+    """SBCGrQ on the card against the same solve on CPU tensors (iterations
+    within +-2) on the matrix-link operator, its realified complex flavour
+    and the U(1) const-hop core at bs = 8; true relres below 10 x tol."""
+    from blockcg_tpu_torch import realify, solve_sbcgrq
+    from blockcg_tpu_torch.problems import dirac_gauged
+
+    tol = 1e-5
+    if build == "matrix":
+        make = lambda d: dirac_gauged_matrix(4, device=d)  # noqa: E731
+    elif build == "realified":
+        make = lambda d: realify(dirac_gauged_matrix(4, dtype=torch.complex64, device=d))  # noqa: E731
+    else:
+        make = lambda d: dirac_gauged_cbdia(4, dtype=torch.complex64, device=d)  # noqa: E731
+    rng = np.random.default_rng(31)
+    B = rng.standard_normal((4 * 256, 6))
+    if build != "matrix":
+        B = (B + 1j * rng.standard_normal(B.shape)).astype(np.complex64)
+    Bt = torch.as_tensor(B if build != "matrix" else B.astype(np.float32))
+    _, ic = solve_sbcgrq(make("cpu"), Bt, tol=tol)
+    _native.reset_launches()
+    Xg, ig = solve_sbcgrq(make(dev), Bt.to(dev), tol=tol)
+    assert sum(_native.launches.values()) > 0
+    assert bool(ig.converged.all()) and abs(ig.iterations - ic.iterations) <= 2
+    if build == "gauged_cbdia":
+        a = bdia_scipy(dirac_gauged(4, dtype=torch.complex64, device="cpu"))
+    else:
+        a = bdia_scipy(dirac_gauged_matrix(4, dtype=torch.complex64 if build == "realified"
+                                           else torch.float32, device="cpu"))
+    Xn = Xg.cpu().numpy().astype(np.complex128)
+    res = np.linalg.norm(B - a @ Xn, axis=0) / np.linalg.norm(B, axis=0)
+    assert res.max() <= 10 * tol

@@ -72,13 +72,13 @@ def _operators(name, dtype):
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
     if name == "laplacian":
         shape = (8, 8, 8)
-        return (laplacian_dia(shape, dtype=dtype), jlaplacian_dia(shape, dtype=jdt),
+        return (laplacian_dia(shape, dtype=dtype, device="cpu"), jlaplacian_dia(shape, dtype=jdt),
                 laplacian_scipy(shape))
     if name == "dirac":
         jop = jdirac.dirac_cbdia(4, dtype=jdt)
-        return dirac_cbdia(4, dtype=dtype), jop, bdia_scipy(jop.to_block_dia())
+        return dirac_cbdia(4, dtype=dtype, device="cpu"), jop, bdia_scipy(jop.to_block_dia())
     a = random_spd(64, seed=3)
-    return DenseOperator.from_numpy(a, dtype=dtype), JDenseOperator(A=jnp.asarray(a, jdt)), a
+    return DenseOperator.from_numpy(a, dtype=dtype, device="cpu"), JDenseOperator(A=jnp.asarray(a, jdt)), a
 
 
 def _solve(solver, op, jop, B, **kw):
@@ -125,7 +125,7 @@ def test_cg_matches_numpy_oracle():
     shape = (16, 16)
     a = laplacian_scipy(shape)
     b = np.random.default_rng(3).standard_normal(256)
-    x, info = bt.solve_cg(laplacian_dia(shape, dtype=torch.float64),
+    x, info = bt.solve_cg(laplacian_dia(shape, dtype=torch.float64, device="cpu"),
                           torch.from_numpy(b), tol=1e-10)
     xr, it = ref_cg(a, b, tol=1e-10)
     assert info.iterations == it
@@ -140,7 +140,7 @@ def test_bcg_monitor_and_true_residual_match_oracle():
     shape = (16, 16)
     a = laplacian_scipy(shape)
     B = np.random.default_rng(4).standard_normal((256, 4))
-    X, info = bt.solve_bcg(laplacian_dia(shape, dtype=torch.float64),
+    X, info = bt.solve_bcg(laplacian_dia(shape, dtype=torch.float64, device="cpu"),
                            torch.from_numpy(B), tol=1e-10)
     Xr, it = ref_bcg(a, B, tol=1e-10)
     assert info.iterations == it
@@ -160,7 +160,7 @@ def test_f32_iterations_match_reference(solver, opname):
         op, jop, a = _operators("dirac", torch.float32)
     else:
         shape = (16, 16)
-        op, jop, a = (laplacian_dia(shape), jlaplacian_dia(shape, dtype=jnp.float32),
+        op, jop, a = (laplacian_dia(shape, device="cpu"), jlaplacian_dia(shape, dtype=jnp.float32),
                       laplacian_scipy(shape))
     tol = 1e-5
     B = np.random.default_rng(5).standard_normal((op.n, 4)).astype(np.float32)
@@ -177,7 +177,7 @@ def test_refined_bcg_reaches_1e10_like_reference():
     shape = (10, 10, 10)
     a = laplacian_scipy(shape)
     B = np.random.default_rng(7).standard_normal((1000, 4))
-    X, info = bt.solve_refined(laplacian_dia(shape), torch.from_numpy(B), tol=1e-10,
+    X, info = bt.solve_refined(laplacian_dia(shape, device="cpu"), torch.from_numpy(B), tol=1e-10,
                                inner_solver="bcg")
     assert X.dtype == torch.float64 and bool(info.converged.all())
     true = np.linalg.norm(a @ X.numpy() - B, axis=0) / np.linalg.norm(B, axis=0)
@@ -188,7 +188,7 @@ def test_refined_bcg_reaches_1e10_like_reference():
 
 
 def test_solvers_leave_inputs_and_repeat_bitwise():
-    op = laplacian_dia((12, 12))
+    op = laplacian_dia((12, 12), device="cpu")
     B = torch.from_numpy(np.random.default_rng(8).standard_normal((144, 3))).float()
     X0 = torch.full((144, 3), 0.1)
     B_in, X0_in = B.clone(), X0.clone()
@@ -205,7 +205,7 @@ def test_solvers_leave_inputs_and_repeat_bitwise():
 
 @pytest.mark.parametrize("name", ["solve_bcg", "solve_bcga", "solve_bcgdq"])
 def test_block_solvers_reject_bad_input(name):
-    op = laplacian_dia((4, 4))
+    op = laplacian_dia((4, 4), device="cpu")
     with pytest.raises(ValueError):
         getattr(bt, name)(op, torch.ones(16))
     with pytest.raises(NotImplementedError, match="realify"):
@@ -215,7 +215,7 @@ def test_block_solvers_reject_bad_input(name):
 
 
 def test_cg_rejects_bad_input_and_options():
-    op = laplacian_dia((4, 4))
+    op = laplacian_dia((4, 4), device="cpu")
     with pytest.raises(ValueError):
         bt.solve_cg(op, torch.ones(16, 2))
     with pytest.raises(NotImplementedError, match="realify"):
@@ -244,7 +244,7 @@ def test_random_spd_matches_reference_bitwise():
 
 def test_dense_operator_applies_and_converts():
     a = random_spd(64, seed=9)
-    op = DenseOperator.from_numpy(a)
+    op = DenseOperator.from_numpy(a, device="cpu")
     X = np.random.default_rng(10).standard_normal((64, 3))
     np.testing.assert_allclose(op.matmat(torch.from_numpy(X)).numpy(), a @ X, rtol=1e-12)
     np.testing.assert_allclose(op(torch.from_numpy(X[:, 0])).numpy(), a @ X[:, 0], rtol=1e-12)
@@ -262,7 +262,7 @@ def test_dense_operator_applies_and_converts():
     (config2_bcg_2d_512, jpresets.config2_bcg_2d_512),
 ])
 def test_presets_of_configs_1_and_2_match_reference(preset, jpreset):
-    op, B, meta = preset()
+    op, B, meta = preset(device="cpu")
     jop, jB, jmeta = jpreset()
     assert meta == jmeta and PRESETS[meta["name"]] is preset
     assert op.offsets == jop.offsets and op.n == jop.n

@@ -35,11 +35,11 @@ def test_laplacian_bands_bitwise_equal(shape, dtype):
 @pytest.mark.parametrize("shape", [(8, 8, 8), (12, 10)])
 def test_from_numpy_round_trips_a_reference_operator(shape):
     jop = jlaplacian.laplacian_dia(shape, dtype=jnp.float64)
-    op = DIAOperator.from_numpy(np.asarray(jop.diags), jop.offsets, jop.wrap_zero)
+    op = DIAOperator.from_numpy(np.asarray(jop.diags), jop.offsets, jop.wrap_zero, device="cpu")
     assert op.offsets == jop.offsets and op.wrap_zero == jop.wrap_zero
     assert op.dtype == torch.float64
     assert np.array_equal(op.diags.numpy(), np.asarray(jop.diags))
-    built = laplacian.laplacian_dia(shape, dtype=torch.float64)
+    built = laplacian.laplacian_dia(shape, dtype=torch.float64, device="cpu")
     assert torch.equal(built.diags, op.diags) and built.offsets == op.offsets
     Xt = np.random.default_rng(0).standard_normal((3, op.n))
     np.testing.assert_allclose(op.matmat_t(torch.from_numpy(Xt)).numpy(),
@@ -55,7 +55,7 @@ def test_from_scipy_matches_reference():
     n, offsets = 300, [-40, -1, 0, 3, 77]
     a = sp.diags([rng.standard_normal(n - abs(o)) for o in offsets], offsets,
                  shape=(n, n)).tocsr()
-    op = DIAOperator.from_scipy(a, dtype=torch.float64)
+    op = DIAOperator.from_scipy(a, dtype=torch.float64, device="cpu")
     jop = JDIAOperator.from_scipy(a, dtype=jnp.float64)
     assert op.offsets == jop.offsets
     assert np.array_equal(op.diags.numpy(), np.asarray(jop.diags))
@@ -65,7 +65,7 @@ def test_from_scipy_matches_reference():
 
 
 def test_astype_builds_a_new_operator():
-    op = laplacian.laplacian_dia((4, 4))
+    op = laplacian.laplacian_dia((4, 4), device="cpu")
     op64 = astype(op, torch.float64)
     assert op.dtype == torch.float32 and op64.dtype == torch.float64
     assert op64.offsets == op.offsets and op64.wrap_zero
@@ -81,11 +81,11 @@ def test_assert_wrap_zero_rejects_populated_wraps():
 
 
 def test_presets_match_reference():
-    op, B, meta = presets.config5_sbcgrq_3d_256(shape=(6, 6, 6))
+    op, B, meta = presets.config5_sbcgrq_3d_256(shape=(6, 6, 6), device="cpu")
     jop, jB, jmeta = jpresets.config5_sbcgrq_3d_256(shape=(6, 6, 6))
     assert meta == jmeta and op.offsets == jop.offsets
     assert np.array_equal(B.numpy(), np.asarray(jB))
-    assert np.array_equal(presets._rhs(1000, 32, torch.float32).numpy(),
+    assert np.array_equal(presets._rhs(1000, 32, torch.float32, device="cpu").numpy(),
                           np.asarray(jpresets._rhs(1000, 32, jnp.float32)))
     assert presets.PRESETS["sbcgrq_3d_64"] is presets.config3_sbcgrq_3d_64
 
@@ -100,3 +100,26 @@ def test_checkpoint_format_is_shared(tmp_path):
     Xt, it, _ = load_checkpoint(p2)
     assert np.array_equal(Xt.numpy(), X) and it == 7
     assert load_checkpoint(str(tmp_path / "missing.npz")) is None
+
+
+def test_builders_default_to_the_card():
+    """Every builder, preset and ``from_numpy``/``from_scipy`` of the port
+    puts its operator on the card unless the caller names a device (the CPU
+    tests pass ``device="cpu"``)."""
+    import inspect
+
+    import blockcg_tpu_torch.problems as problems
+    from blockcg_tpu_torch.operators import (
+        BlockDIAOperator,
+        ConstBlockDIAOperator,
+        DenseOperator,
+    )
+
+    builders = [getattr(problems, name) for name in (
+        "laplacian_dia", "dirac_cbdia", "dirac_gauged_cbdia", "dirac_bdia", "dirac_gauged",
+        "dirac_gauged_matrix")]
+    builders += list(problems.PRESETS.values()) + [presets._rhs]
+    builders += [DIAOperator.from_numpy, DIAOperator.from_scipy, DenseOperator.from_numpy,
+                 ConstBlockDIAOperator.from_numpy, BlockDIAOperator.from_numpy]
+    for fn in builders:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

@@ -53,10 +53,30 @@ def test_profile_summary_of_trace_events():
     ("void (anonymous namespace)::reduce_partials(float const*)", True),
     ("void (anonymous namespace)::xr_update_gram<16>(float const*, float const*)", True),
     ("void (anonymous namespace)::qr_p_update<64>(float const*, float const*)", True),
+    ("void (anonymous namespace)::bs_spmm<8, 64, true, false>(float const*, Offsets)", True),
     ("void at::native::vectorized_elementwise_kernel<4>", False),
 ])
 def test_profile_port_kernel_names(name, port):
     assert bool(_load("chip_profile").PORT_KERNEL.search(name)) is port
+
+
+@pytest.mark.parametrize("nbytes,flops,want", [
+    (3.35e9, 0, (1.0, "bytes")),            # 3.35 GB at 3.35 TB/s
+    (0, 67e9, (1.0, "operations")),         # 67 GFLOP at 67 TFLOP/s
+    (3.35e9, 2 * 67e9, (2.0, "operations")),
+])
+def test_smoke_bound_ms(nbytes, flops, want):
+    ms, by = _load("chip_smoke").bound_ms(nbytes, flops)
+    assert ms == pytest.approx(want[0]) and by == want[1]
+
+
+def test_smoke_work_counts():
+    import torch
+
+    smoke = _load("chip_smoke")
+    a, b = torch.zeros((3, 4)), torch.eye(5, dtype=torch.float64)
+    assert smoke.nbytes(a, b, 7) == 3 * 4 * 4 + 25 * 8 + 7
+    assert smoke.nnz(a, b) == 5
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])

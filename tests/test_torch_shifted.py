@@ -41,10 +41,10 @@ def _operators(name):
     """(port f64 operator, reference f64 operator, scipy matrix)."""
     if name == "laplacian":
         shape = (16, 16)
-        return (laplacian_dia(shape, dtype=torch.float64),
+        return (laplacian_dia(shape, dtype=torch.float64, device="cpu"),
                 jlaplacian_dia(shape, dtype=jnp.float64), laplacian_scipy(shape))
     jop = jdirac.dirac_cbdia(4, dtype=jnp.float64)
-    return dirac_cbdia(4, dtype=torch.float64), jop, bdia_scipy(jop.to_block_dia())
+    return dirac_cbdia(4, dtype=torch.float64, device="cpu"), jop, bdia_scipy(jop.to_block_dia())
 
 
 def _shifted_relres(a, X, B, sigma):
@@ -114,7 +114,7 @@ def test_shifted_sbcgrq_f64_matches_reference(opname, qr_passes):
 
 def test_shifted_seed_matches_sbcgrq():
     """sigma = 0 reproduces the plain SBCGrQ solution."""
-    op = laplacian_dia((16, 16), dtype=torch.float64)
+    op = laplacian_dia((16, 16), dtype=torch.float64, device="cpu")
     B = torch.from_numpy(np.random.default_rng(4).standard_normal((op.n, 3)))
     Xs, _ = solve_shifted_sbcgrq(op, B, [0.0, 1.0], tol=1e-10, max_iter=600)
     X0, _ = solve_sbcgrq(op, B, tol=1e-10, max_iter=600)
@@ -135,7 +135,7 @@ def test_shifted_history_and_inputs():
 
 
 def test_shifted_solvers_reject_bad_input():
-    op = laplacian_dia((4, 4))
+    op = laplacian_dia((4, 4), device="cpu")
     with pytest.raises(ValueError):
         solve_shifted_cg(op, torch.zeros(16, 2), [0.0])
     with pytest.raises(ValueError):

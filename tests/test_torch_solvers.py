@@ -48,7 +48,7 @@ def test_sbcgrq_f64_matches_reference(kw):
     shape = (8, 8, 8)
     kw = {"tol": 1e-10, "max_iter": 200, **kw}
     B = _rhs(512, 4, 1)
-    X, info = solve_sbcgrq(laplacian_dia(shape, dtype=torch.float64),
+    X, info = solve_sbcgrq(laplacian_dia(shape, dtype=torch.float64, device="cpu"),
                            torch.from_numpy(B), **kw)
     jkw = dict(kw, tol=jnp.asarray(kw["tol"]))
     Xj, infoj = jbc.solve_sbcgrq(jlaplacian_dia(shape, dtype=jnp.float64),
@@ -72,7 +72,7 @@ def test_sbcgrq_f64_matches_numpy_oracle():
     shape = (8, 8, 8)
     a = laplacian_scipy(shape)
     B = _rhs(512, 6, 2)
-    X, info = solve_sbcgrq(laplacian_dia(shape, dtype=torch.float64),
+    X, info = solve_sbcgrq(laplacian_dia(shape, dtype=torch.float64, device="cpu"),
                            torch.from_numpy(B), tol=1e-10, max_iter=300)
     Xr, it = ref_sbcgrq(a, B, tol=1e-10)
     assert abs(info.iterations - it) <= 1
@@ -85,7 +85,7 @@ def test_sbcgrq_invariant_b_minus_ax_is_qs():
     residual after any number of iterations."""
     shape = (8, 8, 8)
     a = laplacian_scipy(shape)
-    op = laplacian_dia(shape, dtype=torch.float64)
+    op = laplacian_dia(shape, dtype=torch.float64, device="cpu")
     B = _rhs(512, 4, 3)
     for j in (1, 3, 7):
         X, info = solve_sbcgrq(op, torch.from_numpy(B), tol=1e-13, max_iter=j)
@@ -137,7 +137,7 @@ def test_sbcgrq_f32_matches_reference():
     a = laplacian_scipy(shape)
     B = _rhs(4096, 8, 4)
     tol = 1e-5
-    X, info = solve_sbcgrq(laplacian_dia(shape), torch.from_numpy(B).float(), tol=tol)
+    X, info = solve_sbcgrq(laplacian_dia(shape, device="cpu"), torch.from_numpy(B).float(), tol=tol)
     Xj, infoj = jbc.solve_sbcgrq(jlaplacian_dia(shape, dtype=jnp.float32),
                                  jnp.asarray(B, jnp.float32), tol=tol)
     assert bool(info.converged.all())
@@ -154,7 +154,7 @@ def test_sbcgrq_breakdown_flag_matches_reference():
     idx = np.arange(n)
     for j in range(8):
         B[:, j] = np.sin((idx + 1) * (j + 1) / 16 * 2 * np.pi / n)
-    X, info = solve_sbcgrq(laplacian_dia(shape), torch.from_numpy(B).float(),
+    X, info = solve_sbcgrq(laplacian_dia(shape, device="cpu"), torch.from_numpy(B).float(),
                            tol=1e-6, max_iter=120)
     _, infoj = jbc.solve_sbcgrq(jlaplacian_dia(shape, dtype=jnp.float32),
                                 jnp.asarray(B, jnp.float32), tol=1e-6, max_iter=120)
@@ -163,7 +163,7 @@ def test_sbcgrq_breakdown_flag_matches_reference():
 
 
 def test_sbcgrq_repeat_is_bitwise_and_leaves_inputs():
-    op = laplacian_dia((12, 12))
+    op = laplacian_dia((12, 12), device="cpu")
     B = torch.from_numpy(_rhs(144, 4, 6)).float()
     X0 = torch.full((144, 4), 0.1)
     B_in, X0_in = B.clone(), X0.clone()
@@ -174,7 +174,7 @@ def test_sbcgrq_repeat_is_bitwise_and_leaves_inputs():
 
 
 def test_sbcgrq_rejects_tf32_and_bad_options():
-    op = laplacian_dia((4, 4))
+    op = laplacian_dia((4, 4), device="cpu")
     B = torch.ones(16, 2)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -196,7 +196,7 @@ def test_refined_reaches_1e10_like_reference(qr_passes, inner_tol):
     shape = (10, 10, 10)
     a = laplacian_scipy(shape)
     B = _rhs(1000, 4, 7)
-    X, info = solve_refined(laplacian_dia(shape), torch.from_numpy(B),
+    X, info = solve_refined(laplacian_dia(shape, device="cpu"), torch.from_numpy(B),
                             tol=1e-10, inner_tol=inner_tol, qr_passes=qr_passes)
     assert X.dtype == torch.float64
     assert bool(info.converged.all()) and info.iterations <= 4
@@ -211,7 +211,7 @@ def test_refined_checkpoint_resume(tmp_path):
     """Kill and resume: a fresh call with the same checkpoint path warm-starts
     from the saved X and needs fewer cycles."""
     shape = (10, 10, 10)
-    op = laplacian_dia(shape)
+    op = laplacian_dia(shape, device="cpu")
     a = laplacian_scipy(shape)
     B = _rhs(1000, 4, 9)
     ck = str(tmp_path / "solve.npz")
@@ -233,9 +233,9 @@ def test_refined_outer_operator_and_dtype():
     shape = (8, 8, 8)
     a = laplacian_scipy(shape)
     B = _rhs(512, 4, 10)
-    op = laplacian_dia(shape)
+    op = laplacian_dia(shape, device="cpu")
     X, info = solve_refined(op, torch.from_numpy(B), tol=1e-10,
-                            op64=laplacian_dia(shape, dtype=torch.float64))
+                            op64=laplacian_dia(shape, dtype=torch.float64, device="cpu"))
     assert bool(info.converged.all()) and _true_relres(a, X, B) <= 1e-10
     X32, info32 = solve_refined(op, torch.from_numpy(B), tol=1e-10, max_cycles=3,
                                 outer_dtype=torch.float32)
@@ -245,7 +245,7 @@ def test_refined_outer_operator_and_dtype():
 
 def test_refined_inner_solver_choice():
     shape = (4, 4)
-    op = laplacian_dia(shape)
+    op = laplacian_dia(shape, device="cpu")
     B = _rhs(16, 2, 11)
     X, info = solve_refined(op, torch.from_numpy(B), inner_solver="bcg")
     assert bool(info.converged.all())
