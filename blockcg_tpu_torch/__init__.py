@@ -17,13 +17,17 @@ from blockcg_tpu_torch.operators import (
     realify,
 )
 from blockcg_tpu_torch.solvers import (
+    jacobi_preconditioner,
     solve_bcg,
     solve_bcga,
     solve_bcgdq,
     solve_bcgrq,
     solve_cg,
+    solve_pbcg,
+    solve_psbcgrq,
     solve_refined,
     solve_sbcgrq,
+    solve_sbcgrq_cheb,
     solve_shifted_cg,
     solve_shifted_sbcgrq,
 )
@@ -37,13 +41,17 @@ __all__ = [
     "RealifiedHermitianOperator",
     "SolverInfo",
     "SolverOptions",
+    "jacobi_preconditioner",
     "solve_bcg",
     "solve_bcga",
     "solve_bcgdq",
     "solve_bcgrq",
     "solve_cg",
+    "solve_pbcg",
+    "solve_psbcgrq",
     "solve_refined",
     "solve_sbcgrq",
+    "solve_sbcgrq_cheb",
     "solve_shifted_cg",
     "solve_shifted_sbcgrq",
     "realify",

@@ -10,9 +10,9 @@
 // Contract: blocks (noff, bs, bs, ns) float32, each (d, a, b) row contiguous
 // over the sites; offsets reduced to [0, ns). For every right-hand side i,
 //   Y[row(a, i), s] = sum_d sum_b blocks[d, a, b, s] * X[row(b, i), (s + o_d) mod ns]
-// on a (bs * k, ns) field whose row map is a template flag:
-//   MERGED: row(a, i) = a * k + i, the merged spin-major view (m, ns);
-//   else:   row(a, i) = i * bs + a, the (k, bs, ns) view (= flat (k, bs * ns)).
+// on a (bs * k, ns) field whose row map is a runtime pair of strides
+// (RowMap in common.cuh): the merged spin-major view (m, ns), or the
+// (k, bs, ns) view (= flat (k, bs * ns)).
 // The Gram variant (merged only) also returns G = X Y^T (m x m).
 //
 // Design: one thread owns one site column s. For each diagonal it loads the
@@ -50,16 +50,11 @@ struct Offsets {
   int o[kMaxDiags];  // site offsets, each in [0, ns)
 };
 
-template <bool MERGED>
-__device__ __forceinline__ long long row_of(int a, int i, int bs, int k) {
-  return MERGED ? a * k + i : i * bs + a;
-}
-
-template <int BS, int KMAX, bool MERGED, bool WITH_GRAM>
+template <int BS, int KMAX, bool WITH_GRAM>
 __global__ void __launch_bounds__(kThreads)
     bs_spmm(const float* __restrict__ blocks, Offsets offs, int nd, int bs,
             const float* __restrict__ X, float* __restrict__ Y,
-            float* __restrict__ part, int k, long long ns) {
+            float* __restrict__ part, RowMap row, int k, long long ns) {
   constexpr int KI = KMAX / BS;
   extern __shared__ __align__(16) float smem[];  // [xs | ys] (WITH_GRAM)
   __shared__ int s_off[kMaxDiags];
@@ -83,13 +78,14 @@ __global__ void __launch_bounds__(kThreads)
         long long src = s + s_off[d];
         if (src >= ns) src -= ns;
         const float* c = blocks + d * plane + s;  // blocks[d, a, b, s] = c[(a*bs+b)*ns]
+        const RowStrides rows = row.times(ns);
 #pragma unroll
         for (int b = 0; b < BS; ++b) {
           if (b < bs) {
+            const float* xrow = X + src + b * rows.a;
             float xb[KI];
 #pragma unroll
-            for (int i = 0; i < KI; ++i)
-              xb[i] = i < k ? X[row_of<MERGED>(b, i, bs, k) * ns + src] : 0.f;
+            for (int i = 0; i < KI; ++i) xb[i] = i < k ? xrow[i * rows.i] : 0.f;
 #pragma unroll
             for (int a = 0; a < BS; ++a) {
               if (a < bs) {
@@ -101,16 +97,17 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
       }
+      const RowStrides rows = row.times(ns);
 #pragma unroll
       for (int a = 0; a < BS; ++a)
 #pragma unroll
         for (int i = 0; i < KI; ++i)
-          if (a < bs && i < k) Y[row_of<MERGED>(a, i, bs, k) * ns + s] = acc[a][i];
+          if (a < bs && i < k) Y[s + a * rows.a + i * rows.i] = acc[a][i];
     }
     if constexpr (WITH_GRAM) {
       __syncthreads();  // the previous tile's Gram reads are done
       stage_x(xs, X, m, ns, s, valid);
-      stage_rows(ys, acc, bs, k);
+      stage_rows(ys, acc, bs, k, row);
       __syncthreads();
       g.accumulate(xs, ys);
     }
@@ -126,36 +123,36 @@ struct Args {
   float *Y, *part, *G;
   int k;
   long long ns;
+  bool merged;
   int nblocks;
   cudaStream_t stream;
 };
 
-template <int BS, int KMAX, bool MERGED, bool WITH_GRAM>
+template <int BS, int KMAX, bool WITH_GRAM>
 cudaError_t launch(const Args& a) {
-  auto kernel = bs_spmm<BS, KMAX, MERGED, WITH_GRAM>;
+  auto kernel = bs_spmm<BS, KMAX, WITH_GRAM>;
   const size_t smem = WITH_GRAM ? 2 * KMAX * kLd * sizeof(float) : 0;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.blocks, a.offs, a.nd, a.bs, a.X,
-                                                  a.Y, a.part, a.k, a.ns);
+                                                  a.Y, a.part,
+                                                  row_map(a.merged, a.bs, a.k), a.k, a.ns);
   if (WITH_GRAM) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
   return cudaGetLastError();
 }
 
-// The (k, bs, ns) view has no Gram variant.
 template <int BS, int KMAX>
-cudaError_t by_layout(bool merged, bool gram, const Args& a) {
-  if (!merged) return launch<BS, KMAX, false, false>(a);
-  return gram ? launch<BS, KMAX, true, true>(a) : launch<BS, KMAX, true, false>(a);
+cudaError_t by_gram(bool gram, const Args& a) {
+  return gram ? launch<BS, KMAX, true>(a) : launch<BS, KMAX, false>(a);
 }
 
 template <int BS>
-cudaError_t by_kmax(int kmax, bool merged, bool gram, const Args& a) {
+cudaError_t by_kmax(int kmax, bool gram, const Args& a) {
   switch (kmax) {
-    case 8: return by_layout<BS, 8>(merged, gram, a);
-    case 16: return by_layout<BS, 16>(merged, gram, a);
-    case 32: return by_layout<BS, 32>(merged, gram, a);
-    case 64: return by_layout<BS, 64>(merged, gram, a);
+    case 8: return by_gram<BS, 8>(gram, a);
+    case 16: return by_gram<BS, 16>(gram, a);
+    case 32: return by_gram<BS, 32>(gram, a);
+    case 64: return by_gram<BS, 64>(gram, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -177,7 +174,7 @@ extern "C" int bcg_block_stencil_spmm(const float* blocks, const int* offsets,
   if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 ||
       nblocks < 1 || (G != nullptr && !merged))
     return cudaErrorInvalidValue;
-  Args a{blocks, {}, nd, bs, X, Y, part, G, k, ns, nblocks, stream};
+  Args a{blocks, {}, nd, bs, X, Y, part, G, k, ns, merged != 0, nblocks, stream};
   for (int d = 0; d < nd; ++d) {
     if (offsets[d] < 0 || offsets[d] >= ns) return cudaErrorInvalidValue;
     a.offs.o[d] = offsets[d];
@@ -185,6 +182,5 @@ extern "C" int bcg_block_stencil_spmm(const float* blocks, const int* offsets,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool gram = G != nullptr;
-  return bsw == 4 ? by_kmax<4>(kmax, merged != 0, gram, a)
-                  : by_kmax<8>(kmax, merged != 0, gram, a);
+  return bsw == 4 ? by_kmax<4>(kmax, gram, a) : by_kmax<8>(kmax, gram, a);
 }

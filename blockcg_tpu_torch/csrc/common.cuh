@@ -163,9 +163,38 @@ inline void launch_reduce(const float* part, float* G, int k, int nblocks,
 }
 
 // ---- per-site register tiles of the lattice kernels (const_block_stencil.cu,
-// block_stencil.cu). A thread owns one site column of an (m = bs * k, ns)
-// merged field, row a * k + i, as acc[BS][KI]: BS >= bs spins, KI >= k
-// right-hand sides; entries with a >= bs or i >= k stay zero.
+// block_stencil.cu). A thread owns one site column of a (m = bs * k, ns)
+// field as acc[BS][KI]: BS >= bs spins, KI >= k right-hand sides; entries
+// with a >= bs or i >= k stay zero. The field's row map is a pair of runtime
+// strides, row(a, i) = a * sa + i * si:
+//   merged: (sa, si) = (k, 1), row a * k + i, the merged spin-major view (m, ns);
+//   else:   (sa, si) = (1, bs), row i * bs + a, the (k, bs, ns) view (= flat
+//           (k, bs * ns)).
+// One instantiation serves both views. At k = 1 the two maps are the same
+// memory, so the two views do the same arithmetic in the same order.
+
+// Element offset of row(a, i) in a field of ns sites: a * a + i * i.
+struct RowStrides {
+  long long a, i;
+};
+
+struct RowMap {
+  int sa, si;
+  __device__ __forceinline__ int operator()(int a, int i) const { return a * sa + i * si; }
+  // Called once per diagonal. The empty asm makes the strides opaque there,
+  // so the compiler forms the row addresses per diagonal instead of hoisting
+  // all BS * KI of them out of the diagonal loop: hoisted, a KMAX = 64 thread
+  // needs about 250 registers, and on an H100 the apply ran 25-45% slower.
+  __device__ __forceinline__ RowStrides times(long long ns) const {
+    RowStrides r{sa * ns, si * ns};
+    asm volatile("" : "+l"(r.a), "+l"(r.i));
+    return r;
+  }
+};
+
+inline RowMap row_map(bool merged, int bs, int k) {
+  return merged ? RowMap{k, 1} : RowMap{1, bs};
+}
 
 template <int BS, int KI>
 __device__ __forceinline__ void zero(float (&v)[BS][KI]) {
@@ -175,15 +204,16 @@ __device__ __forceinline__ void zero(float (&v)[BS][KI]) {
     for (int i = 0; i < KI; ++i) v[a][i] = 0.f;
 }
 
-// The thread's column of a staged (KMAX, kLd) Gram tile: rows a*k+i of v.
+// The thread's column of a staged (KMAX, kLd) Gram tile: v[a][i] in row
+// row(a, i), the field's own row order.
 template <int BS, int KI>
 __device__ __forceinline__ void stage_rows(float* s, const float (&v)[BS][KI],
-                                           int bs, int k) {
+                                           int bs, int k, RowMap row) {
 #pragma unroll
   for (int a = 0; a < BS; ++a)
 #pragma unroll
     for (int i = 0; i < KI; ++i)
-      if (a < bs && i < k) s[(a * k + i) * kLd + threadIdx.x] = v[a][i];
+      if (a < bs && i < k) s[row(a, i) * kLd + threadIdx.x] = v[a][i];
 }
 
 // The thread's column of a staged tile: X[:, col] for the m real rows.

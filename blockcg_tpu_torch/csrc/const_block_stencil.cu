@@ -1,29 +1,38 @@
-// Const-hop block stencil on merged spin-major fields (optionally with the
-// fused Gram), and the slab accumulate of its periodic wrap diagonals.
+// Const-hop block stencil (optionally with the fused Gram) and the slab
+// accumulate of its periodic wrap diagonals, on merged spin-major fields and
+// on the (k, bs, ns) view.
 //
 // Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
 // const_block_stencil_spmm_m_t (:617), const_block_stencil_spmm_m_gram_t
-// (:637) and slab_m_accumulate (:780).
+// (:637) and slab_m_accumulate (:780) on the merged view, and
+// const_block_stencil_spmm_t (:330), const_block_stencil_spmm_gram_t (:361)
+// and slab_block_accumulate (:691) on the (k, bs, ns) view.
 //
-// Layout: a merged field is (m, ns) float32 with m = bs * k; row a * k + i
-// holds spin a of right-hand side i, and site s of row r sits at F[r * ns + s].
+// Layout: a field is (m, ns) float32 with m = bs * k; site s of row r sits at
+// F[r * ns + s]. The row map is a runtime pair of strides (RowMap in
+// common.cuh): on the merged view row a * k + i holds spin a of right-hand
+// side i; on the (k, bs, ns) view, row i * bs + a. One instantiation serves
+// both; at k = 1 the two maps are the same memory, so the two views do the
+// same arithmetic in the same order and give the same bits.
 //
 // Contract, main kernel: for every diagonal d of the main set,
-//   Y[a*k+i, s] += w_d(s) * sum_b H_d[a][b] * X[b*k+i, (s + o_d) mod ns],
+//   Y[row(a, i), s] += w_d(s) * sum_b H_d[a][b] * X[row(b, i), (s + o_d) mod ns],
 // w_d(s) = masks[slot_d, s] when slot_d >= 0, else 1. The mask is a value,
 // not a gate: the gauged operators carry +-1 links in it. The Gram variant
-// also returns G = X Y^T (m x m).
+// also returns G = X Y^T: the (m, m) Gram on the merged view, and on the
+// (k, bs, ns) view its contraction over spins and sites, the (k, k)
+// G[i, j] = sum_{a, s} X[i, a, s] Y[j, a, s].
 // Contract, slab kernel: for destination block j < nblocks of g sites,
 // dst = (dst_mul * j + dst_off) mod nb and src = (dst + src_shift) mod nb
 // (nb = ns / g blocks); Y[:, dst block] += (H ⊗ I_k) X[:, src block], in
-// place on Y. With the Gram, G = Gin + sum over the slab sites of
-// X[:, dst] dY^T.
+// place on Y. With the Gram (merged view only), G = Gin + sum over the slab
+// sites of X[:, dst] dY^T.
 //
 // The TPU kernels build the MXU weight W = H ⊗ I_k, which is 3/4 zeros at
 // bs = 4. Here one thread owns one site column and applies the bs x bs hop
 // to each of its k-row spin groups directly: its m outputs sit in registers
 // as acc[BS][KI], and for each diagonal and input spin b it loads the k
-// values X[b*k.., src] once and adds H[a][b] times them into every output
+// values X[row(b, :), src] once and adds H[a][b] times them into every output
 // spin a. BS (1, 2, 4 or 8) is the compile-time spin width >= bs, KMAX (8,
 // 16, 32 or 64) the register tile >= BS * k, KI = KMAX / BS; rows with
 // a >= bs or i >= k stay zero and are never stored.
@@ -33,17 +42,23 @@
 // (about 12.6 MB of the H100's 50 MB), Y written once, 10 mask rows read:
 // about 444 MB. Each diagonal re-reads X's column from L1/L2, so the 13
 // main diagonals move about 2.6 GB through the cache hierarchy; staging
-// windows in shared memory is later work. The hop table (at most 32 x 8 x 8
-// floats) and the offsets sit in shared memory; the offsets come reduced to
-// [0, ns), so the column wraps with one conditional subtraction. Y is a fresh
-// buffer in the main kernel (other blocks still read X). The slab kernel
-// writes Y in place: the destination blocks of one diagonal are distinct (the
-// wrapper checks it), so every destination column has exactly one writer.
+// windows in shared memory is later work. At k = 1 (the even-odd CG's parity
+// hops, 2^19 sites) the masks outweigh the fields: a thread issues bs = 4
+// loads per diagonal, so the apply is bound by load count and latency more
+// than by bytes. The hop table (at most 32 x 8 x 8 floats) and the offsets
+// sit in shared memory; the offsets come reduced to [0, ns), so the column
+// wraps with one conditional subtraction. Y is a fresh buffer in the main
+// kernel (other blocks still read X). The slab kernel writes Y in place: the
+// destination blocks of one diagonal are distinct (the wrapper checks it), so
+// every destination column has exactly one writer.
 //
 // Gram: as in stencil.cu, each block stages its tile's X and Y columns in
-// shared memory, adds them into a register tile (GramTile), writes one (m, m)
-// partial, and a second kernel sums the partials in a fixed order (and adds
-// Gin for the slab). No atomics: a repeated call gives the same bits.
+// shared memory in the field's own row order, adds them into a register tile
+// (GramTile), writes one (m, m) partial, and a second kernel sums the
+// partials in a fixed order (and adds Gin for the slab). On the (k, bs, ns)
+// view reduce_spin_contract sums and contracts the spins instead: one block
+// per (i, j), each thread a fixed stride of the terms, then a tree in shared
+// memory. No atomics: a repeated call gives the same bits.
 #include "common.cuh"
 
 namespace {
@@ -61,19 +76,19 @@ struct SlabGeom {  // every field in [0, nb) except g and nblocks
   int g, nblocks;
 };
 
-// acc[a][i] += w * sum_b h[a * bs + b] * X[b * k + i, src].
+// acc[a][i] += w * sum_b h[a * bs + b] * X[row(b, i), src].
 template <int BS, int KI>
 __device__ __forceinline__ void hop_apply(float (&acc)[BS][KI], const float* h,
                                           float w, const float* __restrict__ X,
-                                          int bs, int k, long long ns,
+                                          int bs, int k, RowStrides rows,
                                           long long src) {
 #pragma unroll
   for (int b = 0; b < BS; ++b) {
     if (b < bs) {
+      const float* xrow = X + src + b * rows.a;
       float xb[KI];
 #pragma unroll
-      for (int i = 0; i < KI; ++i)
-        xb[i] = i < k ? X[static_cast<long long>(b * k + i) * ns + src] : 0.f;
+      for (int i = 0; i < KI; ++i) xb[i] = i < k ? xrow[i * rows.i] : 0.f;
 #pragma unroll
       for (int a = 0; a < BS; ++a) {
         if (a < bs) {
@@ -86,17 +101,17 @@ __device__ __forceinline__ void hop_apply(float (&acc)[BS][KI], const float* h,
   }
 }
 
-// Y[a*k+i, col] = v[a][i] (or += with ADD) for a < bs, i < k.
+// Y[row(a, i), col] = v[a][i] (or += with ADD) for a < bs, i < k.
 template <bool ADD, int BS, int KI>
 __device__ __forceinline__ void store_rows(float* __restrict__ Y,
                                            const float (&v)[BS][KI], int bs,
-                                           int k, long long ns, long long col) {
+                                           int k, RowStrides rows, long long col) {
 #pragma unroll
   for (int a = 0; a < BS; ++a)
 #pragma unroll
     for (int i = 0; i < KI; ++i)
       if (a < bs && i < k) {
-        float* p = Y + static_cast<long long>(a * k + i) * ns + col;
+        float* p = Y + col + a * rows.a + i * rows.i;
         *p = ADD ? *p + v[a][i] : v[a][i];
       }
 }
@@ -105,7 +120,7 @@ template <int BS, int KMAX, bool WITH_GRAM>
 __global__ void __launch_bounds__(kThreads)
     cbs_spmm(const float* __restrict__ hops, Diags diags, int nd, int bs,
              const float* __restrict__ masks, const float* __restrict__ X,
-             float* __restrict__ Y, float* __restrict__ part, int k,
+             float* __restrict__ Y, float* __restrict__ part, RowMap row, int k,
              long long ns) {
   constexpr int KI = KMAX / BS;
   // Dynamic shared memory: [xs | ys] (WITH_GRAM) then the hop table.
@@ -136,14 +151,14 @@ __global__ void __launch_bounds__(kThreads)
         if (src >= ns) src -= ns;
         const int sl = s_slot[d];
         const float w = sl < 0 ? 1.f : masks[sl * ns + s];
-        hop_apply<BS, KI>(acc, sh + d * bs * bs, w, X, bs, k, ns, src);
+        hop_apply(acc, sh + d * bs * bs, w, X, bs, k, row.times(ns), src);
       }
-      store_rows<false>(Y, acc, bs, k, ns, s);
+      store_rows<false>(Y, acc, bs, k, row.times(ns), s);
     }
     if constexpr (WITH_GRAM) {
       __syncthreads();  // the previous tile's Gram reads are done
       stage_x(xs, X, m, ns, s, valid);
-      stage_rows(ys, acc, bs, k);
+      stage_rows(ys, acc, bs, k, row);
       __syncthreads();
       g.accumulate(xs, ys);
     }
@@ -157,7 +172,7 @@ template <int BS, int KMAX>
 __global__ void __launch_bounds__(kThreads)
     slab_accumulate(const float* __restrict__ hop, SlabGeom geo, int bs,
                     const float* __restrict__ X, float* __restrict__ Y,
-                    float* __restrict__ part, int k, long long ns) {
+                    float* __restrict__ part, RowMap row, int k, long long ns) {
   constexpr int KI = KMAX / BS;
   extern __shared__ __align__(16) float smem[];  // [xs | ys] (Gram), then hop
   const bool gram = part != nullptr;
@@ -184,18 +199,46 @@ __global__ void __launch_bounds__(kThreads)
       long long sblk = dblk + geo.src_shift;
       if (sblk >= geo.nb) sblk -= geo.nb;
       dst = dblk * geo.g + c;
-      hop_apply<BS, KI>(acc, sh, 1.f, X, bs, k, ns, sblk * geo.g + c);
-      store_rows<true>(Y, acc, bs, k, ns, dst);
+      const RowStrides rows = row.times(ns);
+      hop_apply(acc, sh, 1.f, X, bs, k, rows, sblk * geo.g + c);
+      store_rows<true>(Y, acc, bs, k, rows, dst);
     }
     if (gram) {
       __syncthreads();
       stage_x(xs, X, m, ns, dst, valid);
-      stage_rows(ys, acc, bs, k);
+      stage_rows(ys, acc, bs, k, row);
       __syncthreads();
       g.accumulate(xs, ys);
     }
   }
   if (gram) g.store(part + static_cast<long long>(blockIdx.x) * m * m, m);
+}
+
+// The (k, bs, ns) view's Gram: G[i, j] = sum over blocks b and spins a of
+// part[b, i * bs + a, j * bs + a], in double. Block (i, j) of the grid owns
+// one entry: thread t sums terms t, t + kReduceThreads, ... (term = b * bs +
+// a), then a fixed tree adds the threads' sums.
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_spin_contract(const float* __restrict__ part, float* __restrict__ G,
+                         int bs, int k, int nblocks) {
+  __shared__ double s_sum[kReduceThreads];
+  const int i = blockIdx.x / k, j = blockIdx.x % k, m = bs * k;
+  const long long mm = static_cast<long long>(m) * m;
+  const int terms = nblocks * bs;
+  double s = 0.0;
+  for (int t = threadIdx.x; t < terms; t += kReduceThreads) {
+    const int b = t / bs, a = t - b * bs;
+    s += static_cast<double>(part[b * mm + (i * bs + a) * m + j * bs + a]);
+  }
+  s_sum[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s_sum[threadIdx.x] += s_sum[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) G[blockIdx.x] = static_cast<float>(s_sum[0]);
 }
 
 struct MainArgs {
@@ -206,6 +249,7 @@ struct MainArgs {
   float *Y, *part, *G;
   int k;
   long long ns;
+  bool merged;
   int nblocks;
   cudaStream_t stream;
 };
@@ -220,6 +264,7 @@ struct SlabArgs {
   float *part, *G;
   int k;
   long long ns;
+  bool merged;
   int nblocks;
   cudaStream_t stream;
 };
@@ -236,11 +281,19 @@ cudaError_t launch_main(const MainArgs& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hops, a.diags, a.nd, a.bs,
                                                   a.masks, a.X, a.Y, a.part,
-                                                  a.k, a.ns);
-  if (WITH_GRAM) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
+                                                  row_map(a.merged, a.bs, a.k), a.k, a.ns);
+  if (WITH_GRAM) {
+    if (a.merged) {
+      launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
+    } else {
+      reduce_spin_contract<<<a.k * a.k, kReduceThreads, 0, a.stream>>>(a.part, a.G, a.bs,
+                                                                         a.k, a.nblocks);
+    }
+  }
   return cudaGetLastError();
 }
 
+// Only the merged view has the slab's Gram.
 template <int BS, int KMAX>
 cudaError_t launch_slab(const SlabArgs& a) {
   auto kernel = slab_accumulate<BS, KMAX>;
@@ -250,7 +303,7 @@ cudaError_t launch_slab(const SlabArgs& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hop, a.geo, a.bs, a.X, a.Y,
                                                   gram ? a.part : nullptr,
-                                                  a.k, a.ns);
+                                                  row_map(a.merged, a.bs, a.k), a.k, a.ns);
   if (gram) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream, a.Gin);
   return cudaGetLastError();
 }
@@ -265,13 +318,18 @@ int bs_width(int bs) {
   return 0;
 }
 
+template <int BS, int KMAX>
+cudaError_t main_by_gram(bool gram, const MainArgs& a) {
+  return gram ? launch_main<BS, KMAX, true>(a) : launch_main<BS, KMAX, false>(a);
+}
+
 template <int BS>
 cudaError_t main_by_kmax(int kmax, bool gram, const MainArgs& a) {
   switch (kmax) {
-    case 8: return gram ? launch_main<BS, 8, true>(a) : launch_main<BS, 8, false>(a);
-    case 16: return gram ? launch_main<BS, 16, true>(a) : launch_main<BS, 16, false>(a);
-    case 32: return gram ? launch_main<BS, 32, true>(a) : launch_main<BS, 32, false>(a);
-    case 64: return gram ? launch_main<BS, 64, true>(a) : launch_main<BS, 64, false>(a);
+    case 8: return main_by_gram<BS, 8>(gram, a);
+    case 16: return main_by_gram<BS, 16>(gram, a);
+    case 32: return main_by_gram<BS, 32>(gram, a);
+    case 64: return main_by_gram<BS, 64>(gram, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -291,19 +349,23 @@ cudaError_t slab_by_kmax(int kmax, const SlabArgs& a) {
 
 // offsets, slots: host arrays of nd entries; each offset already reduced to
 // [0, ns). hops: device (nd, bs, bs). masks: device (nmask, ns), or null when
-// every slot is -1. k: right-hand sides per spin (m = bs * k). G == nullptr
-// selects the plain apply; otherwise part holds (nblocks, m, m).
+// every slot is -1. k: right-hand sides per spin (m = bs * k). X, Y: device
+// (m, ns) fields, merged (row a * k + i) when merged != 0, else the
+// (k, bs, ns) view (row i * bs + a). G == nullptr selects the plain apply;
+// otherwise part holds (nblocks, m, m) and G receives the (m, m) Gram on the
+// merged view, the (k, k) contraction on the (k, bs, ns) view.
 extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
                             const int* slots, int nd, int bs,
                             const float* masks, const float* X, float* Y,
                             float* part, float* G, int k, long long ns,
-                            int nblocks, int device, cudaStream_t stream) {
+                            int merged, int nblocks, int device,
+                            cudaStream_t stream) {
   const int bsw = bs_width(bs);
   const int kmax = kmax_for(bsw * k);
   if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 ||
       nblocks < 1)
     return cudaErrorInvalidValue;
-  MainArgs a{hops, {}, nd, bs, masks, X, Y, part, G, k, ns, nblocks, stream};
+  MainArgs a{hops, {}, nd, bs, masks, X, Y, part, G, k, ns, merged != 0, nblocks, stream};
   for (int d = 0; d < nd; ++d) {
     if (offsets[d] < 0 || offsets[d] >= ns) return cudaErrorInvalidValue;
     if (slots[d] >= 0 && masks == nullptr) return cudaErrorInvalidValue;
@@ -323,25 +385,26 @@ extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
 
 // hop: device (bs, bs). dst_mul, dst_off and src_shift already reduced to
 // [0, nb), nb = ns / g; the nblocks destination blocks must be distinct. Y is
-// updated in place. G == nullptr: no Gram; otherwise G = Gin + the slab's
+// updated in place; X and Y are merged when merged != 0, else (k, bs, ns)
+// views. G == nullptr: no Gram; otherwise (merged only) G = Gin + the slab's
 // X_dst dY^T (Gin may be null), with part (nblocks_grid, m, m).
 extern "C" int bcg_slab_accumulate(const float* hop, int bs, int g, int nblocks,
                                    long long dst_mul, long long dst_off,
                                    long long src_shift, const float* X,
                                    float* Y, const float* Gin, float* part,
-                                   float* G, int k, long long ns,
+                                   float* G, int k, long long ns, int merged,
                                    int grid, int device, cudaStream_t stream) {
   const int bsw = bs_width(bs);
   const int kmax = kmax_for(bsw * k);
   if (bsw == 0 || k < 1 || kmax == 0 || g < 1 || ns < 1 || ns % g != 0 ||
-      nblocks < 1 || grid < 1)
+      nblocks < 1 || grid < 1 || (G != nullptr && !merged))
     return cudaErrorInvalidValue;
   const long long nb = ns / g;
   if (nblocks > nb || dst_mul < 0 || dst_mul >= nb || dst_off < 0 ||
       dst_off >= nb || src_shift < 0 || src_shift >= nb)
     return cudaErrorInvalidValue;
   SlabArgs a{hop, {nb, dst_mul, dst_off, src_shift, g, nblocks}, bs, X, Y, Gin,
-             part, G, k, ns, grid, stream};
+             part, G, k, ns, merged != 0, grid, stream};
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (bsw) {

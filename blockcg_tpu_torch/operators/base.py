@@ -73,6 +73,32 @@ class MatmatMixin:
         return v
 
 
+class DelegatedCodecMixin(MatmatMixin):
+    """``MatmatMixin`` whose codec hooks forward to an inner operator, the
+    submodule named by the class attribute ``codec_of``: a wrapper (the
+    realified, Schur and Chebyshev operators) keeps its core's field view."""
+
+    codec_of = "base"
+
+    def _codec(self):
+        return getattr(self, self.codec_of)
+
+    def to_internal(self, Xt):
+        return self._codec().to_internal(Xt)
+
+    def from_internal(self, Xf):
+        return self._codec().from_internal(Xf)
+
+    def coeff_expand(self, C):
+        return self._codec().coeff_expand(C)
+
+    def gram_contract(self, G):
+        return self._codec().gram_contract(G)
+
+    def norms2_contract(self, v):
+        return self._codec().norms2_contract(v)
+
+
 def astype(op, dtype):
     """A new operator with its float data in ``dtype``; ``op`` is left as it
     was. (``nn.Module.to`` would convert the caller's operator in place.)"""

@@ -16,7 +16,9 @@ ns)``, row ``a * k + i`` (``to_internal``), and the codec hooks expand every
 k x k coefficient to ``I_bs ⊗ C`` and contract (m, m) Grams back to k x k.
 Diagonals listed in ``slabs`` (periodic wraps whose support is whole
 g-site slabs, found by ``detect_slabs``) go through the slab kernel instead of the
-main one. The main kernel's hop table, mask rows and reduced offsets are
+main one. ``matmat_t`` on a single right-hand side (m = bs) runs the
+(k, bs, ns) view's kernels, as the reference does; ``matmat_gram_t`` keeps
+the merged ones at every width. The main kernel's hop table, mask rows and reduced offsets are
 built once, here, as buffers on the operator's device: the reference
 gathers them per call inside ``jit``, which a per-call gather or copy would
 turn into extra launches on every iteration.
@@ -195,13 +197,16 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
     def _is_internal(self, Xt: torch.Tensor) -> bool:
         return Xt.dim() == 2 and Xt.shape[-1] == self.ns
 
-    def _apply_m(self, Xm: torch.Tensor, with_gram: bool):
-        """Main kernel, then the slab diagonals added in place (each also
-        adds its Gram correction). Returns (Ym, Gm or None), Gm (m, m)."""
-        if self.hops_all.is_complex() and Xm.device.type == "cuda":
+    def _check_device(self, X: torch.Tensor) -> None:
+        if self.hops_all.is_complex() and X.device.type == "cuda":
             raise NotImplementedError(
                 "complex ConstBlockDIAOperator hops apply on CPU tensors only; "
                 "on the card solve with operators.realify(op)")
+
+    def _apply_m(self, Xm: torch.Tensor, with_gram: bool):
+        """Main kernel, then the slab diagonals added in place (each also
+        adds its Gram correction). Returns (Ym, Gm or None), Gm (m, m)."""
+        self._check_device(Xm)
         Gm = None
         if with_gram:
             Ym, Gm = cbs.const_block_stencil_spmm_m_gram_t(
@@ -218,21 +223,43 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
             Ym, Gm = out if with_gram else (out, None)
         return Ym, Gm
 
+    def _apply_v(self, Xv: torch.Tensor) -> torch.Tensor:
+        """The same on the (k, bs, ns) view: its main kernel, then its slab
+        adds in place."""
+        self._check_device(Xv)
+        Yv = cbs.const_block_stencil_spmm_t(self.hops_main, self.main_offsets,
+                                            self.main_slots, self.masks_main, Xv)
+        for d, g, nblocks, dst_mul, dst_off, src_shift in self.slabs:
+            Yv = cbs.slab_block_accumulate(self.hops_all[d], g, nblocks, dst_mul,
+                                           dst_off, src_shift, Xv, Yv)
+        return Yv
+
+    def _apply(self, Xm: torch.Tensor) -> torch.Tensor:
+        """Y = A X on the merged view. One right-hand side (m = bs) goes
+        through the (k, bs, ns) view's kernels, which the merged (bs, ns)
+        field already is at k = 1, as in the reference (``cbdia.py:179-199``);
+        wider blocks through the merged kernels."""
+        if Xm.shape[0] == self.bs:
+            return self._apply_v(Xm.reshape(1, self.bs, self.ns)).reshape(self.bs, self.ns)
+        return self._apply_m(Xm, False)[0]
+
     def matmat_t(self, Xt: torch.Tensor) -> torch.Tensor:
         """Apply to a lanes-major block: flat (k, n) [spin-major rows], the
         merged internal (m, ns) view, or the (k, bs, ns) view."""
         if Xt.dim() == 3:
             k = Xt.shape[0]
             Xm = Xt.transpose(0, 1).reshape(self.bs * k, self.ns).contiguous()
-            Ym = self._apply_m(Xm, False)[0]
+            Ym = self._apply(Xm)
             return Ym.reshape(self.bs, k, self.ns).transpose(0, 1).contiguous()
         if not self._is_internal(Xt):
-            return self.from_internal(self._apply_m(self.to_internal(Xt), False)[0])
-        return self._apply_m(Xt, False)[0]
+            return self.from_internal(self._apply(self.to_internal(Xt)))
+        return self._apply(Xt)
 
     def matmat_gram_t(self, Xt: torch.Tensor):
         """Fused ``(Y = A X, G = X^T Y)`` with G contracted to k x k, on the
-        flat or the merged view."""
+        flat or the merged view, through the merged kernels at every k (the
+        reference's merged kernel needs 8 | m and has no fused Gram at k = 1;
+        the CUDA one takes any m)."""
         if not self._is_internal(Xt):
             Ym, G = self.matmat_gram_t(self.to_internal(Xt))
             return self.from_internal(Ym), G

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from blockcg_tpu_torch.operators.base import MatmatMixin
+from blockcg_tpu_torch.operators.base import DelegatedCodecMixin
 
 
 def real_mask_dtype(np_dtype) -> np.dtype:
@@ -50,7 +50,7 @@ def _doubled_block(h: np.ndarray) -> np.ndarray:
     return np.block([[hr, -hi], [hi, hr]])
 
 
-class RealifiedHermitianOperator(MatmatMixin, nn.Module):
+class RealifiedHermitianOperator(DelegatedCodecMixin, nn.Module):
     """Complex Hermitian operator applied as a real symmetric one.
 
     ``real_op`` (a submodule) acts on stacked fields; ``cbs`` is the complex
@@ -59,6 +59,7 @@ class RealifiedHermitianOperator(MatmatMixin, nn.Module):
     operator's count (default the real core's)."""
 
     complex_codec = True  # the solvers accept complex fields on this operator
+    codec_of = "real_op"  # coeff_expand and the contractions are the core's
 
     def __init__(self, real_op, cbs: int, num_sites: int, cdtype: torch.dtype,
                  nnz: int | None = None):
@@ -114,15 +115,6 @@ class RealifiedHermitianOperator(MatmatMixin, nn.Module):
         else:
             re, im = Xs[:, : self.n], Xs[:, self.n:]
         return torch.complex(re, im).reshape(k, self.n).to(self.cdtype)
-
-    def coeff_expand(self, C):
-        return self.real_op.coeff_expand(C)
-
-    def gram_contract(self, G):
-        return self.real_op.gram_contract(G)
-
-    def norms2_contract(self, v):
-        return self.real_op.norms2_contract(v)
 
     # ---------------------------------------------------------------- apply
 

@@ -187,14 +187,17 @@ def library() -> ctypes.CDLL:
     lib.bcg_qr_p_update.argtypes = [P, P, P, P, P, P, I, L, I, I, P]
     lib.bcg_cbs_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int),
                                  ctypes.POINTER(ctypes.c_int), I, I, P, P, P,
-                                 P, P, I, L, I, I, P]
+                                 P, P, I, L, I, I, I, P]
     lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, P, P, P, P, P, I,
-                                        L, I, I, P]
+                                        L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, I, P,
                                            P, P, P, I, L, I, I, I, P]
+    F = ctypes.c_float
+    lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     for fn in (lib.bcg_stencil_spmm, lib.bcg_gram, lib.bcg_coeff_update,
                lib.bcg_px_update, lib.bcg_xr_update_gram, lib.bcg_qr_p_update,
-               lib.bcg_cbs_spmm, lib.bcg_slab_accumulate, lib.bcg_block_stencil_spmm):
+               lib.bcg_cbs_spmm, lib.bcg_slab_accumulate, lib.bcg_block_stencil_spmm,
+               lib.bcg_cheb_step):
         fn.restype = I
     lib.bcg_error_string.argtypes = [I]
     lib.bcg_error_string.restype = ctypes.c_char_p

@@ -1,9 +1,8 @@
-"""Const-hop block stencil on merged spin-major fields, and the slab
-accumulate of its periodic wrap diagonals.
+"""Const-hop block stencil and the slab accumulate of its periodic wrap
+diagonals, on merged spin-major fields and on the (k, bs, ns) view.
 
-Counterpart of the merged-layout kernels of
-``blockcg_tpu/ops/const_block_stencil.py``; both run as
-``csrc/const_block_stencil.cu``:
+Counterpart of ``blockcg_tpu/ops/const_block_stencil.py``; all run as
+``csrc/const_block_stencil.cu``, whose row map is a pair of runtime strides:
 
 - ``const_block_stencil_spmm_m_t``: ``Ym[a*k+i, s] = sum_d w_d(s) sum_b
   H_d[a][b] Xm[b*k+i, (s + o_d) mod ns]`` on an (m = bs*k, ns) field, with
@@ -11,8 +10,15 @@ Counterpart of the merged-layout kernels of
   ``mask_slot[d] == -1``;
 - ``const_block_stencil_spmm_m_gram_t``: the same with ``Gm = X Y^T`` (m, m);
 - ``slab_m_accumulate``: ``Y[:, dst slabs] += (H ⊗ I_k) X[:, src slabs]`` in
-  place on Y, optionally with ``G = Gm + X_dst dY^T``.
+  place on Y, optionally with ``G = Gm + X_dst dY^T``;
+- ``const_block_stencil_spmm_t``, ``const_block_stencil_spmm_gram_t`` and
+  ``slab_block_accumulate``: the same sums on the (k, bs, ns) view (or its
+  flat (k, bs*ns) form), ``Y[i, a, s] = sum_d w_d(s) sum_b H_d[a][b]
+  X[i, b, (s + o_d) mod ns]``; the view's Gram contracts over spins and
+  sites to (k, k), and its slab add has no Gram, as in the reference.
 
+At k = 1 the two views are the same memory; ``ConstBlockDIAOperator`` sends
+its single-RHS applies through the view's kernels, as the reference does.
 The reference's merged kernel needs m % 8 == 0 (``plan_m``, a TPU sublane
 rule) and falls back to XLA otherwise; the CUDA kernel takes any
 m = bs * k <= 64, so ``ConstBlockDIAOperator.matmat_gram_t`` always returns
@@ -125,26 +131,63 @@ def slab_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xm, Ym, Gm=None,
     return Ym, (G if Gm is None else Gm + G)
 
 
+def _to_merged(Xv: torch.Tensor) -> torch.Tensor:
+    k, bs, ns = Xv.shape
+    return Xv.transpose(0, 1).reshape(bs * k, ns)
+
+
+def _from_merged(Ym: torch.Tensor, k: int) -> torch.Tensor:
+    m, ns = Ym.shape
+    return Ym.reshape(m // k, k, ns).transpose(0, 1).contiguous()
+
+
+def const_block_stencil_v_plain(hops, offsets, mask_slot, masks, Xv,
+                                with_gram: bool = False):
+    """Plain version on the (k, bs, ns) view: the merged version on the
+    transposed field. Returns ``(Yv, G or None)``, G the (k, k)
+    ``sum_{a,s} X[i, a, s] Y[j, a, s]`` taken on the accumulator."""
+    k = Xv.shape[0]
+    Ym = const_block_stencil_plain(hops, offsets, mask_slot, masks, _to_merged(Xv))[0]
+    Yv = _from_merged(Ym, k)
+    return Yv, (gram_t(Xv, Yv) if with_gram else None)
+
+
+def slab_v_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xv, Yv):
+    """Plain version of ``slab_block_accumulate``: adds the slab's sites into
+    the (k, bs, ns) view Yv in place and returns it."""
+    adt = acc_dtype(Xv.dtype)
+    dst, src = slab_columns(g, nblocks, dst_mul, dst_off, src_shift, Xv.shape[-1],
+                            Xv.device)
+    dY = torch.einsum("ab,kbs->kas", hop.to(adt), Xv[:, :, src].to(adt))
+    return Yv.index_add_(2, dst, dY.to(Yv.dtype))
+
+
 # ------------------------------------------------------------------ wrappers
 
 
-def _launch_main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str):
+def _launch_main(hops, offsets, mask_slot, masks, X, k: int, merged: bool,
+                 with_gram: bool, name: str):
+    """Launch on a contiguous (bs * k, ns)-shaped field X: the merged view,
+    or the (k, bs, ns) view and its flat form. Returns (Y shaped like X, the
+    (m, m) Gram on the merged view, the (k, k) one on the other, or None)."""
     nd, bs, _ = hops.shape
-    m, ns = Xm.shape
+    m = bs * k
+    ns = X.numel() // m
     _check_kernel_width(bs, m, name)
     if nd > MAX_DIAGS:
         raise ValueError(f"{name}: {nd} diagonals, the CUDA kernel takes at most {MAX_DIAGS}")
     offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
     slots = (ctypes.c_int * nd)(*mask_slot)
-    Y = torch.empty_like(Xm)
+    Y = torch.empty_like(X)
     nb = _native.nblocks(ns)
     part = G = None
     if with_gram:
-        part = torch.empty((nb, m, m), dtype=torch.float32, device=Xm.device)
-        G = torch.empty((m, m), dtype=torch.float32, device=Xm.device)
+        part = torch.empty((nb, m, m), dtype=torch.float32, device=X.device)
+        g = m if merged else k
+        G = torch.empty((g, g), dtype=torch.float32, device=X.device)
     p = _native.ptr
-    _native.launch(name, "bcg_cbs_spmm", Xm.device, p(hops), offs, slots, nd, bs,
-                   p(masks), p(Xm), p(Y), p(part), p(G), m // bs, ns, nb)
+    _native.launch(name, "bcg_cbs_spmm", X.device, p(hops), offs, slots, nd, bs,
+                   p(masks), p(X), p(Y), p(part), p(G), k, ns, int(merged), nb)
     return Y, G
 
 
@@ -154,7 +197,29 @@ def _main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str):
     ops = (hops, Xm) if masks is None else (hops, masks, Xm)
     if not _native.use_kernel(*ops):
         return const_block_stencil_plain(hops, offsets, mask_slot, masks, Xm, with_gram)
-    return _launch_main(hops, offsets, mask_slot, masks, Xm, with_gram, name)
+    return _launch_main(hops, offsets, mask_slot, masks, Xm, Xm.shape[0] // hops.shape[-1],
+                        True, with_gram, name)
+
+
+def _view(hops, offsets, mask_slot, masks, Xt, with_gram: bool, name: str):
+    """The (k, bs, ns) view or its flat (k, bs*ns) form; Y comes back in
+    Xt's shape."""
+    hops = _hops(hops, Xt)
+    bs = hops.shape[-1]
+    if Xt.dim() not in (2, 3) or (Xt.dim() == 3 and Xt.shape[1] != bs) or (
+            Xt.dim() == 2 and Xt.shape[1] % bs):
+        raise ValueError(f"{name}: expected a (k, {bs}, ns) or (k, {bs} * ns) field, "
+                         f"got {tuple(Xt.shape)}")
+    k = Xt.shape[0]
+    ns = Xt.numel() // (bs * k)
+    # The merged view's checks, on the field's (bs * k, ns) shape.
+    _check_main(hops, offsets, mask_slot, masks, Xt.reshape(bs * k, ns), name)
+    ops = (hops, Xt) if masks is None else (hops, masks, Xt)
+    if not _native.use_kernel(*ops):
+        Yv, G = const_block_stencil_v_plain(hops, offsets, mask_slot, masks,
+                                            Xt.reshape(k, bs, ns), with_gram)
+        return Yv.reshape(Xt.shape), G
+    return _launch_main(hops, offsets, mask_slot, masks, Xt, k, False, with_gram, name)
 
 
 def const_block_stencil_spmm_m_t(hops, offsets: tuple[int, ...],
@@ -175,6 +240,26 @@ def const_block_stencil_spmm_m_gram_t(hops, offsets: tuple[int, ...],
     operator's ``gram_contract``."""
     return _main(hops, offsets, mask_slot, masks, Xm, True,
                  "const_block_stencil_spmm_m_gram_t")
+
+
+def const_block_stencil_spmm_t(hops, offsets: tuple[int, ...],
+                               mask_slot: tuple[int, ...],
+                               masks: torch.Tensor | None,
+                               Xt: torch.Tensor) -> torch.Tensor:
+    """Const-hop block SpMM on the (k, bs, ns) view, or its flat (k, bs*ns)
+    form; returns Yt shaped like Xt."""
+    return _view(hops, offsets, mask_slot, masks, Xt, False,
+                 "const_block_stencil_spmm_t")[0]
+
+
+def const_block_stencil_spmm_gram_t(hops, offsets: tuple[int, ...],
+                                    mask_slot: tuple[int, ...],
+                                    masks: torch.Tensor | None,
+                                    Xt: torch.Tensor):
+    """``(Yt, G)`` on the (k, bs, ns) view, with the (k, k) Gram ``G[i, j] =
+    sum_{a, s} X[i, a, s] Y[j, a, s]`` (the solvers' ``P^T A P``)."""
+    return _view(hops, offsets, mask_slot, masks, Xt, True,
+                 "const_block_stencil_spmm_gram_t")
 
 
 def _check_slab(hop, g, nblocks, dst_mul, Xm, Ym, Gm, name):
@@ -225,5 +310,34 @@ def slab_m_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
     p = _native.ptr
     _native.launch(name, "bcg_slab_accumulate", Xm.device, p(hop), bs, g, nblocks,
                    dst_mul % nb, dst_off % nb, src_shift % nb, p(Xm), p(Ym),
-                   p(Gm if with_gram else None), p(part), p(G), m // bs, ns, grid)
+                   p(Gm if with_gram else None), p(part), p(G), m // bs, ns, 1, grid)
     return (Ym, G) if with_gram else Ym
+
+
+def slab_block_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
+                          src_shift: int, Xv: torch.Tensor,
+                          Yv: torch.Tensor) -> torch.Tensor:
+    """``Y[:, :, dst slabs] += hop @ X[:, :, src slabs]`` in place on the
+    (k, bs, ns) view Yv (slab geometry as in :func:`slab_m_accumulate`);
+    returns Yv."""
+    name = "slab_block_accumulate"
+    hop = _hops(hop, Xv)
+    bs = hop.shape[-1]
+    if Xv.dim() != 3 or Xv.shape[1] != bs or Yv.shape != Xv.shape:
+        raise ValueError(f"{name}: expected (k, {bs}, ns) fields X and Y, got "
+                         f"{tuple(Xv.shape)} and {tuple(Yv.shape)}")
+    k, _, ns = Xv.shape
+    _check_slab(hop, g, nblocks, dst_mul, Xv.reshape(bs * k, ns), Yv.reshape(bs * k, ns),
+                None, name)
+    if not _native.use_kernel(hop, Xv, Yv):
+        return slab_v_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xv, Yv)
+    _check_kernel_width(bs, bs * k, name)
+    if Yv.data_ptr() == Xv.data_ptr():
+        raise ValueError(f"{name}: Y must not share X's storage")
+    nb = ns // g
+    grid = _native.nblocks(nblocks * g)
+    p = _native.ptr
+    _native.launch(name, "bcg_slab_accumulate", Xv.device, p(hop), bs, g, nblocks,
+                   dst_mul % nb, dst_off % nb, src_shift % nb, p(Xv), p(Yv), None,
+                   None, None, k, ns, 0, grid)
+    return Yv

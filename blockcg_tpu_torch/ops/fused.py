@@ -12,10 +12,12 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
                                                            (``csrc/xr_update.cu``)
 - ``qr_p_update(M2, Q1, rho, P)``     Q = M2 Q1, Pn = Q + rho P
                                                            (``csrc/qr_p_update.cu``)
+- ``cheb_step(R, Z, D, AZ, c1, c2)``  D' = c1 D + c2 (R - AZ), Z' = Z + D'
+                                                           (``csrc/cheb_step.cu``)
 
 Each has a plain PyTorch version beside it, the composition the reference's
 solvers fall back to (``blockcg_tpu/solvers/common.py:216-218, 233-237,
-254-255, 271-273, 286-287, 299-300``). Dispatch follows
+254-255, 271-273, 286-287, 299-300``, ``blockcg_tpu/operators/cheb.py:54-55``). Dispatch follows
 ``ops/_native.py``: CPU and CUDA float64 run the plain version, CUDA float32
 launches the kernel. Grams are taken on the stored output. Fields must be
 contiguous; the k x k coefficients are made so (they are often transposed
@@ -77,6 +79,11 @@ def xr_update_gram_plain(alpha, P, X, Z, R):
 def qr_p_update_plain(M2, Q1, rho, P):
     Q = mm(M2, Q1)
     return Q.to(Q1.dtype), (Q + mm(rho, P)).to(P.dtype)
+
+
+def cheb_step_plain(R, Z, D, AZ, c1: float, c2: float):
+    Dn = c1 * D + c2 * (R - AZ)
+    return Z + Dn, Dn
 
 
 # ------------------------------------------------------------------ wrappers
@@ -226,3 +233,25 @@ def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     _native.launch("qr_p_update", "bcg_qr_p_update", Q1.device, p(M2), p(Q1), p(rho),
                    p(P), p(Q), p(Pn), k, n, _native.nblocks(n))
     return Q, Pn
+
+
+def cheb_step(R: torch.Tensor, Z: torch.Tensor, D: torch.Tensor, AZ: torch.Tensor,
+              c1: float, c2: float, *, donate: bool = False):
+    """One Chebyshev semi-iteration step on four fields of one shape, any
+    contiguous layout: returns ``(Z' = Z + D', D' = c1 D + c2 (R - AZ))``.
+    ``c1`` and ``c2`` are host scalars (float32 on the kernel route).
+    ``donate`` writes Z' onto Z and D' onto D, which must not share storage."""
+    if donate and Z.data_ptr() == D.data_ptr():
+        raise ValueError("cheb_step: donated Z and D share storage")
+    if not (R.shape == Z.shape == D.shape == AZ.shape):
+        raise ValueError(f"cheb_step: fields of shapes {[tuple(F.shape) for F in (R, Z, D, AZ)]}")
+    if not _native.use_kernel(R, Z, D, AZ):
+        Zn, Dn = cheb_step_plain(R, Z, D, AZ, c1, c2)
+        if donate:
+            return Z.copy_(Zn), D.copy_(Dn)
+        return Zn, Dn
+    Zo, Do = (Z, D) if donate else (torch.empty_like(Z), torch.empty_like(D))
+    p = _native.ptr
+    _native.launch("cheb_step", "bcg_cheb_step", R.device, p(R), p(Z), p(D), p(AZ),
+                   p(Zo), p(Do), float(c1), float(c2), R.numel())
+    return Zo, Do

@@ -9,6 +9,16 @@ from blockcg_tpu_torch.problems.dirac import (
     dirac_gauged_matrix,
     hopping_matrices,
 )
+from blockcg_tpu_torch.problems.dirac_eo import (
+    EOContext,
+    dirac_eo,
+    dirac_gauged_eo,
+    dirac_gauged_matrix_eo,
+    eo_assemble,
+    eo_split,
+    solve_dirac_eo,
+    solve_dirac_eo_shifted,
+)
 from blockcg_tpu_torch.problems.laplacian import laplacian_dia, laplacian_scipy
 from blockcg_tpu_torch.problems.random_spd import (
     random_block,
@@ -26,6 +36,7 @@ from blockcg_tpu_torch.problems.presets import (
 )
 
 __all__ = [
+    "EOContext",
     "PRESETS",
     "config1_cg_2d_128",
     "config2_bcg_2d_512",
@@ -35,9 +46,14 @@ __all__ = [
     "config5_sbcgrq_3d_256",
     "dirac_bdia",
     "dirac_cbdia",
+    "dirac_eo",
     "dirac_gauged",
     "dirac_gauged_cbdia",
+    "dirac_gauged_eo",
     "dirac_gauged_matrix",
+    "dirac_gauged_matrix_eo",
+    "eo_assemble",
+    "eo_split",
     "hopping_matrices",
     "laplacian_dia",
     "laplacian_scipy",
@@ -45,4 +61,6 @@ __all__ = [
     "random_block_c",
     "random_hpd",
     "random_spd",
+    "solve_dirac_eo",
+    "solve_dirac_eo_shifted",
 ]

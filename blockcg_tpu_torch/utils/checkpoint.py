@@ -26,9 +26,10 @@ def save_checkpoint(path: str, X: torch.Tensor, *, iteration: int = 0,
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device=None):
+def load_checkpoint(path: str, device="cuda"):
     """Returns (X on ``device``, iteration, meta) or None when no checkpoint
-    exists."""
+    exists. X goes to the card unless the caller names another device, as
+    with every entry point of the package."""
     if not os.path.exists(path):
         return None
     with np.load(path) as z:

@@ -6,7 +6,7 @@ nvcc:
 
     python3 chip_profile.py
 
-Seven solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+Nine solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
 first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
 its inner solver, tol 3e-6) at qr_passes 1 and 2, config 4 (the 32^4
@@ -15,7 +15,9 @@ qr_passes=1), config 2's BCG (512^2 Laplacian, k = 16, tol 1e-6) and the
 shifted-block SBCGrQ on config 4 with four shifts (tol 1e-6), and the
 matrix-link lattice operator ``dirac_gauged_matrix(32)`` in the per-site
 block container (k = 12 from ``default_rng(1234)``, tol 1e-6,
-qr_passes=1). Each solve
+qr_passes=1); the even-odd Schur solve ``solve_dirac_eo`` on ``dirac_eo(32)``
+with config 4's 12 RHS (tol 1e-6) and ``solve_sbcgrq_cheb`` on config 3 at
+degree 6 (tol 1e-6, its spectrum estimated in the warm-up run). Each solve
 runs once to warm up, once bare (wall clock ending
 in ``torch.cuda.synchronize()``: "bare ms"), and once under
 ``torch.profiler`` with CUDA activity only. From the trace's device events
@@ -51,7 +53,8 @@ SHIFTS = (0.0, 0.05, 0.5, 2.0)
 TOP = 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PORT_KERNEL = re.compile(r"\b(stencil_spmm|coeff_update|px_update|gram_kernel|reduce_partials"
-                         r"|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update|bs_spmm)\b")
+                         r"|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update|bs_spmm"
+                         r"|cheb_step_vec|cheb_step_scalar|reduce_spin_contract)\b")
 
 
 def union_ms(intervals) -> float:
@@ -121,13 +124,20 @@ def main() -> None:
         raise SystemExit(f"chip_profile.py: no blockcg_tpu_torch/ beside {__file__}; "
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(root))
-    from blockcg_tpu_torch import solve_bcg, solve_sbcgrq, solve_shifted_sbcgrq
+    from blockcg_tpu_torch import (
+        solve_bcg,
+        solve_sbcgrq,
+        solve_sbcgrq_cheb,
+        solve_shifted_sbcgrq,
+    )
     from blockcg_tpu_torch.problems import (
         config2_bcg_2d_512,
         config3_sbcgrq_3d_64,
         config4_dirac_32,
+        dirac_eo,
         dirac_gauged_matrix,
         laplacian_dia,
+        solve_dirac_eo,
     )
     from blockcg_tpu_torch.problems.presets import _rhs
 
@@ -149,6 +159,7 @@ def main() -> None:
     opm = dirac_gauged_matrix(32, m=0.5, device=dev)
     Bm = torch.as_tensor(np.random.default_rng(1234).standard_normal((12, opm.n)),
                          dtype=torch.float32, device=dev).T.contiguous()
+    eo = dirac_eo(32, device=dev)
     solves = [
         ("config3 qr_passes=1", lambda: solve_sbcgrq(op3, B3, tol=1e-6, qr_passes=1)),
         ("north-star inner 128^3 qr_passes=1",
@@ -161,6 +172,9 @@ def main() -> None:
          lambda: solve_shifted_sbcgrq(op4, B4, SHIFTS, tol=1e-6)),
         ("matrix link dirac_gauged_matrix(32) k=12 qr_passes=1",
          lambda: solve_sbcgrq(opm, Bm, tol=1e-6, qr_passes=1)),
+        ("even-odd dirac_eo(32) k=12 solve_dirac_eo", lambda: solve_dirac_eo(eo, B4, tol=1e-6)),
+        ("config3 solve_sbcgrq_cheb degree 6",
+         lambda: solve_sbcgrq_cheb(op3, B3, degree=6, tol=1e-6)),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         for name, run in solves:

@@ -7,7 +7,8 @@ nvcc:
     python3 chip_smoke.py
 
 It builds the kernels from ``blockcg_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version at its path's shapes, then drives the
+against its plain PyTorch version at its path's shapes (and the single-RHS
+const-hop route against the merged kernels, bit for bit), then drives the
 paths: SBCGrQ on config 3 (64^3 Laplacian, 32 RHS) and the north-star
 ``solve_refined`` to 1e-10 on the 128^3 Laplacian with 32 RHS; config 4,
 the 32^4 lattice-Dirac operator in the const-hop container with 12 RHS,
@@ -21,11 +22,19 @@ RHS through ``solve_sbcgrq`` (twice, bitwise identical), the public
 ``op(X)`` and ``solve_refined`` to 1e-10; ``dirac_bdia(32)``, config 4's
 matrix in that container, against config 4's const-hop solve; and complex
 systems with 6 RHS on ``realify(dirac_gauged_matrix(32, complex64))`` and
-the U(1) ``dirac_gauged_cbdia(32, complex64)``. Each phase prints one or a
-few lines; any failure raises, and the process exits non-zero. The last two
-lines are the kernels' JSON record, whose launch counts are those of each
-kernel's own path (the north-star solves, config 4, configs 1 and 2, the
-multi-shift solves, or the matrix-link solves), with each kernel's bound
+the U(1) ``dirac_gauged_cbdia(32, complex64)``; then the preconditioned
+solves: Jacobi PSBCGrQ and PBCG on a badly scaled 128^3 Laplacian with 32
+RHS beside capped unpreconditioned SBCGrQ (``[precond]``), Chebyshev SBCGrQ
+on config 3 and at 128^3 (``[cheb]``), and the even-odd Schur path on 32^4
+(``[eo]``: ``solve_dirac_eo`` on ``dirac_eo(32)`` with config 4's 12 RHS,
+twice and against config 4's full solve, its CG on one column, the
+multi-shift solve, the matrix-link and the U(1) complex contexts). Each
+phase prints one or a few lines; any failure raises, and the process exits
+non-zero. The last two lines are the kernels' JSON record, whose launch
+counts are those of each kernel's own path (the north-star solves, config 4,
+configs 1 and 2, the multi-shift solves, the matrix-link solves, the
+Chebyshev solves or the even-odd CG; the (k, bs, ns) Gram has no solver
+caller and counts 0), with each kernel's bound
 (the larger of its contract's bytes over 3.35 TB/s and its FLOPs over 67
 TFLOP/s, the H100 SXM's data-sheet peaks) and, where one PyTorch call
 computes the same function, that call's time; and the run's JSON result. It
@@ -44,6 +53,7 @@ from pathlib import Path
 import numpy as np
 
 FIELD_RTOL = 1e-5  # max |kernel - plain| / max |plain| for field outputs
+CHEB_RTOL = 1e-6  # cheb_step's fields (the kernel rounds as the plain version does)
 GRAM_RTOL = 1e-5  # relative Frobenius error of Grams (summation order differs)
 K = 32
 SHAPES = ((128, 128, 128), (64, 64, 64))  # north star, config 3
@@ -76,6 +86,13 @@ KERNELS = {
                                     "blockcg_tpu/ops/block_stencil.py:383"),
     "block_stencil_spmm_t": ("blockcg_tpu_torch/csrc/block_stencil.cu",
                              "blockcg_tpu/ops/block_stencil.py:94"),
+    "cheb_step": ("blockcg_tpu_torch/csrc/cheb_step.cu", "blockcg_tpu/ops/fused.py:670"),
+    "const_block_stencil_spmm_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                                   "blockcg_tpu/ops/const_block_stencil.py:330"),
+    "const_block_stencil_spmm_gram_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                                        "blockcg_tpu/ops/const_block_stencil.py:361"),
+    "slab_block_accumulate": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                              "blockcg_tpu/ops/const_block_stencil.py:691"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -84,8 +101,12 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 CBS_KERNELS = ("const_block_stencil_spmm_m_t", "const_block_stencil_spmm_m_gram_t",
                "slab_m_accumulate")
 BS_KERNELS = ("block_stencil_spmm_m_t", "block_stencil_spmm_m_gram_t", "block_stencil_spmm_t")
+# The (k, bs, ns) const-hop kernels: the even-odd CG runs the apply and the
+# slab add; the Gram variant has no solver caller, in the reference too.
+VIEW_KERNELS = ("const_block_stencil_spmm_t", "slab_block_accumulate")
 NORTH_STAR_KERNELS = tuple(w for w in KERNELS if w not in (
-    *CBS_KERNELS, *BS_KERNELS, "xr_update_gram", "qr_p_update"))
+    *CBS_KERNELS, *BS_KERNELS, *VIEW_KERNELS, "const_block_stencil_spmm_gram_t",
+    "xr_update_gram", "qr_p_update", "cheb_step"))
 CONFIG3_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update",
                     "mm2_update_gram", "px_update")
 # Every SBCGrQ solve at qr_passes=1 launches these fused kernels
@@ -118,6 +139,21 @@ BDIA_X_RTOL = 1e-4
 # understates it, and the reference's own f32 CG ends at 9.9e-6 to 2.6e-5 on
 # these four columns (its CPU run, the same iteration counts as the port's).
 CG1_TRUE_RELRES = 5e-5
+# Even-odd SBCGrQ on dirac_eo(32) against config 4's full solve: both stop at
+# tol 1e-6 on an operator with cond(A) <= 65, so their X may differ by about
+# cond * tol.
+EO_X_RTOL = 1e-4
+EO_COMPLEX_K = 6  # 32 diagonals at bs = 8: pow2(8) * k <= 64 allows k <= 8
+# The even-odd multi-shift solve runs on [b_e | H_eo b_o], 2k columns: k = 6
+# of config 4's RHS keep its merged fields at config 4's m = 48 (the fused
+# kernels take m <= 64).
+EO_SHIFTED_K = 6
+PRECOND_SHAPE = (128, 128, 128)
+PRECOND_CAP = 500  # unpreconditioned SBCGrQ does not converge in f32: capped
+CHEB_RUNS = ((64, 6), (128, 4))  # (Laplacian edge, Chebyshev degree), k = 32
+# cheb_step's widths: the 128^3 Chebyshev solve's (32, 2,097,152), config 4's
+# merged (48, 32^4).
+CHEB_STEP_SHAPES = ((K, 128 ** 3), (4 * DIRAC_K, DIRAC_L ** 4))
 
 
 def median_ms(torch, fn) -> float:
@@ -198,13 +234,14 @@ def bound_ms(nbytes_: int, flops: int) -> tuple[float, str]:
 
 
 def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None, *,
-                 work, library=None) -> float:
+                 work, library=None, rtol=FIELD_RTOL) -> float:
     """Run the kernel and its plain version once, compare each output, time
     both (or the pair ``timed``), print one line, and fold the record into
     ``records[name]``. ``work`` is (bytes, FLOPs) of the contract at these
     shapes; ``library`` one PyTorch call computing the same function, or
-    None. The first check of a wrapper sets its times, bound and library
-    time; every check its max_abs_err. Returns the kernel's ms."""
+    None; ``rtol`` the tolerance of field outputs. The first check of a
+    wrapper sets its times, bound and library time; every check its
+    max_abs_err. Returns the kernel's ms."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     errs, abs_err = [], 0.0
@@ -213,7 +250,7 @@ def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None, *
             continue
         err = relfro(g, w) if is_gram(w) else relmax(g, w)
         _check(f"{name} ({what})", "Gram" if is_gram(w) else f"output {i}", err,
-               GRAM_RTOL if is_gram(w) else FIELD_RTOL)
+               GRAM_RTOL if is_gram(w) else rtol)
         errs.append(err)
         abs_err = max(abs_err, float((g - w).abs().max()))
     ms, plain_ms = (median_ms(torch, fn) for fn in (timed or (kern, plain)))
@@ -856,6 +893,312 @@ def phase_complex(torch, dev, records) -> None:
         del rop, X, B
         torch.cuda.empty_cache()
 
+def phase_cheb_kernel(torch, dev, records) -> None:
+    """``cheb_step`` against its plain version at the Chebyshev path's widths:
+    (32, 2,097,152) (128^3, k = 32) and config 4's merged (48, 32^4), into
+    fresh buffers and in place (donated, from a fresh copy of Z and D for
+    the comparison). The record takes the first shape's times."""
+    from blockcg_tpu_torch.ops import fused
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c1, c2 = 0.6180339, -0.2345678
+    for shape in CHEB_STEP_SHAPES:
+        R, Z, D, AZ = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+        work = (6 * nbytes(R), 5 * R.numel())  # 4 fields read, 2 written
+        what = f"{shape}"
+        _timed_check(torch, "cheb_step", f"{what} fresh",
+                     lambda: fused.cheb_step(R, Z, D, AZ, c1, c2),
+                     lambda: fused.cheb_step_plain(R, Z, D, AZ, c1, c2),
+                     lambda w: False, records, work=work, rtol=CHEB_RTOL)
+        Zk, Dk = Z.clone(), D.clone()
+
+        def in_place():
+            return fused.cheb_step(R, Zk, Dk, AZ, c1, c2, donate=True)
+
+        def kern():
+            Zk.copy_(Z)
+            Dk.copy_(D)
+            return in_place()
+        _timed_check(torch, "cheb_step", f"{what} in place", kern,
+                     lambda: fused.cheb_step_plain(R, Z, D, AZ, c1, c2),
+                     lambda w: False, records,
+                     timed=(in_place, lambda: fused.cheb_step_plain(R, Z, D, AZ, c1, c2)),
+                     work=work, rtol=CHEB_RTOL)
+        got = fused.cheb_step(R, Z, D, AZ, c1, c2)
+        want = fused.cheb_step_plain(R, Z, D, AZ, c1, c2)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"cheb_step {what}: not bitwise equal to the plain version")
+        print(f"[kernel] cheb_step {what}: bitwise equal to the plain version")
+        del R, Z, D, AZ, Zk, Dk, got, want
+        torch.cuda.empty_cache()
+
+
+def _view_main_work(op, k, gram=False):
+    """Row 14 (and 15) on the (k, bs, ns) view of ``op``'s main diagonals:
+    hops, the streamed mask rows, X read once, Y written once; the FLOPs of
+    the structural nonzeros; the Gram adds (k, k) and 2 k^2 bs ns."""
+    fb = 4 * op.bs * k * op.ns
+    main = (op.hops_main,) + (() if op.masks_main is None else (op.masks_main,))
+    return (nbytes(*main) + 2 * fb + gram * 4 * k * k,
+            2 * k * _cbs_nnz(op, exclude_slabs=True) + gram * 2 * k * k * op.bs * op.ns)
+
+
+def phase_view_kernels(torch, dev, records) -> None:
+    """The (k, bs, ns) const-hop kernels against their plain versions: first
+    at the even-odd CG's shape, one RHS on a parity hop of dirac_eo(32)
+    (524,288 sites; its records), then on config 4's operator at (1, 4,
+    32^4) and (12, 4, 32^4); with and without the Gram; the slab add on each
+    operator's slabs, in place. Then the k = 1 route through rows 14 and 18
+    against the merged kernels (rows 16 and 19): the same bits."""
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.problems import dirac_cbdia, dirac_eo
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    eo = dirac_eo(DIRAC_L, device=dev)
+    op4 = dirac_cbdia(DIRAC_L, device=dev)
+    for label, op, k in ((f"dirac_eo({DIRAC_L}) hop_oe", eo.hop_oe, 1),
+                         ("config 4", op4, 1), ("config 4", op4, DIRAC_K)):
+        Xv = torch.randn((k, op.bs, op.ns), generator=gen, device=dev)
+        Yv = torch.randn((k, op.bs, op.ns), generator=gen, device=dev)
+        main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main, Xv)
+        what = f"{label} ({k}, {op.bs}, {op.ns})"
+
+        def is_gram(w, k=k):
+            return w.shape == (k, k)
+        _timed_check(torch, "const_block_stencil_spmm_t", what,
+                     lambda: (cbs.const_block_stencil_spmm_t(*main), None),
+                     lambda: cbs.const_block_stencil_v_plain(*main), is_gram, records,
+                     work=_view_main_work(op, k))
+        _timed_check(torch, "const_block_stencil_spmm_gram_t", what,
+                     lambda: cbs.const_block_stencil_spmm_gram_t(*main),
+                     lambda: cbs.const_block_stencil_v_plain(*main, True), is_gram, records,
+                     work=_view_main_work(op, k, True))
+        for d, g, nblocks, mul, off, shift in op.slabs[:1]:
+            slab = (op.hops_all[d], g, nblocks, mul, off, shift, Xv)
+            Yk, Yp = Yv.clone(), Yv.clone()
+            cols = g * nblocks
+            _timed_check(torch, "slab_block_accumulate", f"{what} slab g={g} x {nblocks}",
+                         lambda: (Yk.copy_(Yv), cbs.slab_block_accumulate(*slab, Yk))[1:],
+                         lambda: (Yp.copy_(Yv), cbs.slab_v_plain(*slab, Yp))[1:],
+                         is_gram, records,
+                         timed=(lambda: cbs.slab_block_accumulate(*slab, Yk),
+                                lambda: cbs.slab_v_plain(*slab, Yp)),
+                         work=(3 * 4 * op.bs * k * cols, 2 * k * nnz(op.hops_all[d]) * cols))
+        del Xv, Yv, main
+    for label, op in (("config 4", op4), (f"dirac_eo({DIRAC_L}) hop_oe", eo.hop_oe),
+                      (f"dirac_eo({DIRAC_L}) hop_eo", eo.hop_eo)):
+        x = torch.randn((op.bs, op.ns), generator=gen, device=dev)
+        y, ym = op.matmat_t(x), op._apply_m(x, False)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(y, ym):
+            raise AssertionError(f"{label}: the k = 1 route through rows 14 and 18 differs "
+                                 f"from the merged kernels by {relmax(y, ym):.3e}")
+        print(f"[kernel] {label} k = 1: the (k, bs, ns) route gives the merged kernels' "
+              f"bits ({len(op.main_offsets)} main diagonals, {len(op.slabs)} slabs)")
+    del eo, op4
+    torch.cuda.empty_cache()
+
+
+def _scaled_laplacian(torch, dev, seed: int = 0):
+    """``D A D``: the 128^3 Dirichlet Laplacian with rows and columns scaled
+    by ``D = diag(exp(0.5 g))``, g ~ N(0, 1) from ``default_rng(seed)``, as
+    DIA diagonals built on the host (entries scaled over about two decades
+    each way): the system Jacobi preconditioning is for."""
+    from blockcg_tpu_torch.operators import DIAOperator
+    from blockcg_tpu_torch.problems.laplacian import _laplacian_bands
+
+    offsets, diags = _laplacian_bands(PRECOND_SHAPE, np.float64)
+    n = diags.shape[1]
+    s = np.exp(0.5 * np.random.default_rng(seed).standard_normal(n))
+    i = np.arange(n)
+    scaled = np.stack([s * diags[d] * s[(i + o) % n] for d, o in enumerate(offsets)])
+    return DIAOperator.from_numpy(scaled, offsets, wrap_zero=True, dtype=torch.float32,
+                                  device=dev)
+
+
+def phase_precond(torch, dev) -> dict:
+    """Jacobi-preconditioned PSBCGrQ and PBCG on the badly scaled 128^3
+    Laplacian with k = 32 at tol 1e-5, beside unpreconditioned SBCGrQ capped
+    at ``PRECOND_CAP`` iterations. PSBCGrQ monitors the M-norm, PBCG the
+    2-norm; the true 2-norm relres is printed in f64. Both preconditioned
+    solves must converge in under 0.7x the capped solve's iterations.
+    Returns the launch counts of the two preconditioned solves."""
+    from blockcg_tpu_torch import (
+        jacobi_preconditioner,
+        solve_pbcg,
+        solve_psbcgrq,
+        solve_sbcgrq,
+    )
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems.presets import _rhs
+
+    op, build_s = _timed(torch, lambda: _scaled_laplacian(torch, dev))
+    d = op.diags[op.offsets.index(0)]
+    B = _rhs(op.n, K, torch.float32, device=dev)
+    M = jacobi_preconditioner(op)
+    print(f"[precond] D A D, A = 128^3 Laplacian, n={op.n} k={K}: built in {build_s:.1f} s, "
+          f"diagonal from {float(d.min()):.3e} to {float(d.max()):.3e}")
+    (_, iu), su = _timed(torch, lambda: solve_sbcgrq(op, B, tol=1e-5, max_iter=PRECOND_CAP))
+    _native.reset_launches()
+    runs = [(name, *_timed(torch, lambda fn=fn: fn(op, B, M, tol=1e-5, max_iter=2000)))
+            for name, fn in (("solve_psbcgrq", solve_psbcgrq), ("solve_pbcg", solve_pbcg))]
+    counts = dict(_native.launches)
+    print(f"[precond] solve_sbcgrq (no preconditioner, capped at {PRECOND_CAP}): "
+          f"{iu.iterations} iterations, {su:.3f} s, converged {bool(iu.converged.all())}, "
+          f"monitor relres {float(iu.relres.max()):.3e}")
+    for name, (X, info), secs in runs:
+        rel = true_relres(torch, op, X, B)
+        monitor = "M-norm" if name == "solve_psbcgrq" else "2-norm"
+        print(f"[precond] {name} + jacobi_preconditioner: {info.iterations} iterations, "
+              f"{secs:.3f} s, {monitor} monitor {float(info.relres.max()):.3e}, "
+              f"true 2-norm relres {rel:.3e}")
+        if not (bool(info.converged.all()) and info.iterations < 0.7 * iu.iterations):
+            raise AssertionError(f"{name} with Jacobi: {info}, against {iu.iterations} "
+                                 "unpreconditioned iterations")
+    return counts
+
+
+def phase_cheb(torch, dev) -> dict:
+    """``solve_sbcgrq_cheb`` beside plain SBCGrQ on config 3 (64^3, k = 32)
+    at degree 6 and on the 128^3 Laplacian with k = 32 at degree 4, tol 1e-6:
+    iterations, matvecs, seconds and the f64 true relres, held at 1e-5 (the
+    solver's own f32 check and the iteration counts are printed). Returns the
+    launch counts of the Chebyshev solves."""
+    from blockcg_tpu_torch import solve_sbcgrq, solve_sbcgrq_cheb
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import laplacian_dia
+    from blockcg_tpu_torch.problems.presets import _rhs
+
+    counts: dict = {}
+    for edge, degree in CHEB_RUNS:
+        op = laplacian_dia((edge,) * 3, device=dev)
+        B = _rhs(op.n, K, torch.float32, device=dev)
+        (_, ip), sp = _timed(torch, lambda: solve_sbcgrq(op, B, tol=1e-6, qr_passes=1))
+        _native.reset_launches()
+        (X, info), secs = _timed(torch, lambda: solve_sbcgrq_cheb(op, B, degree=degree,
+                                                                  tol=1e-6))
+        for w, c in _native.launches.items():
+            counts[w] = counts.get(w, 0) + c
+        rel = true_relres(torch, op, X, B)
+        print(f"[cheb] {edge}^3 n={op.n} k={K} degree {degree}: solve_sbcgrq_cheb "
+              f"{info.iterations} iterations, {info.matvecs} matvecs, {secs:.3f} s (spectrum "
+              f"estimate included), own check {bool(info.converged.all())} at relres "
+              f"{float(info.relres.max()):.3e}, f64 true relres {rel:.3e}; plain SBCGrQ "
+              f"{ip.iterations} iterations, {sp:.3f} s")
+        if not rel <= 1e-5:
+            raise AssertionError(f"solve_sbcgrq_cheb at {edge}^3: true relres {rel:.3e}")
+        del op, B, X
+        torch.cuda.empty_cache()
+    if counts.get("cheb_step", 0) == 0:
+        raise AssertionError("the Chebyshev solves never launched cheb_step")
+    return counts
+
+
+def eo_true_relres(torch, eo, X, B, sigma: float = 0.0) -> float:
+    """max_j ||B e_j - (A + sigma I) X e_j|| / ||B e_j|| for the full
+    operator A = [[c I, -H_eo], [-H_oe, c I]] of an even-odd context, in f64
+    on the card (complex fields in their realified form, whose norms are the
+    complex ones)."""
+    from blockcg_tpu_torch.problems import eo_split
+
+    if B.is_complex():
+        B, X = eo.complex_to_real(B), eo.complex_to_real(X)
+    B64, X64 = B.double(), X.double()
+    (be, bo), (xe, xo) = eo_split(eo, B64), eo_split(eo, X64)
+    f = eo.c + sigma
+
+    def hop(h, F):
+        return h.astype_op(torch.float64).matmat_t(F.T.contiguous()).T
+    re = be - (f * xe - hop(eo.hop_eo, xo))
+    ro = bo - (f * xo - hop(eo.hop_oe, xe))
+    r2 = (re * re).sum(0) + (ro * ro).sum(0)
+    return float((torch.sqrt(r2) / torch.linalg.vector_norm(B64, dim=0)).max())
+
+
+def phase_eo(torch, dev) -> dict:
+    """The even-odd Schur path on 32^4: ``dirac_eo(32)`` with config 4's 12
+    RHS through ``solve_dirac_eo`` twice (bitwise identical, X within
+    ``EO_X_RTOL`` of config 4's full solve, true relres on the full operator
+    <= 1e-5, here and through config 4's own operator); ``solver=solve_cg``
+    on column 0 (the (k, bs, ns) kernels, true relres <= ``CG1_TRUE_RELRES``;
+    its launch counts are returned); ``solve_dirac_eo_shifted`` with
+    ``SHIFTS`` on the first ``EO_SHIFTED_K`` columns;
+    ``dirac_gauged_matrix_eo(32)`` with 12 RHS and ``dirac_gauged_eo(32,
+    complex64)`` with 6 complex RHS, each <= 1e-5. Builds are timed."""
+    from blockcg_tpu_torch import solve_cg, solve_sbcgrq
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import (
+        config4_dirac_32,
+        dirac_eo,
+        dirac_gauged_eo,
+        dirac_gauged_matrix_eo,
+        solve_dirac_eo,
+        solve_dirac_eo_shifted,
+    )
+
+    op4, B, _ = config4_dirac_32(L=DIRAC_L, device=dev)
+    (X4, i4), s4 = _timed(torch, lambda: solve_sbcgrq(op4, B, tol=1e-6, qr_passes=1))
+    eo, build_s = _timed(torch, lambda: dirac_eo(DIRAC_L, device=dev))
+    runs = [_timed(torch, lambda: solve_dirac_eo(eo, B, tol=1e-6)) for _ in range(2)]
+    ((X1, info), s1), ((X2, info2), s2) = runs
+    rel, rel4 = eo_true_relres(torch, eo, X1, B), true_relres(torch, op4, X1, B)
+    dx = relfro(X1, X4)
+    if not (bool(info.converged.all()) and max(rel, rel4) <= 1e-5 and dx <= EO_X_RTOL):
+        raise AssertionError(f"dirac_eo(32) SBCGrQ: true relres {rel:.3e} / {rel4:.3e}, "
+                             f"|X - X_config4| / |X_config4| {dx:.3e}: {info}")
+    if not torch.equal(X1, X2):
+        raise AssertionError("dirac_eo(32): the repeat solve is not bitwise identical")
+    print(f"[eo] dirac_eo({DIRAC_L}) built in {build_s:.1f} s (half lattice ns={eo.ns // 2}, "
+          f"{len(eo.hop_oe.main_offsets)} main diagonals, slabs {eo.hop_oe.slabs}); "
+          f"solve_dirac_eo k={B.shape[1]} tol=1e-6: {info.iterations} iterations, {s1:.3f} s "
+          f"(repeat {s2:.3f} s, {info2.iterations} iterations, bitwise identical), true relres "
+          f"{rel:.3e} (by config 4's operator {rel4:.3e}); config 4's full solve "
+          f"{i4.iterations} iterations, {s4:.3f} s, |X - X_config4| / |X_config4| {dx:.3e}")
+    del X1, X2, X4, runs
+    _native.reset_launches()
+    (x, icg), scg = _timed(torch, lambda: solve_dirac_eo(eo, B[:, :1], solver=solve_cg,
+                                                         tol=1e-6, max_iter=5000))
+    cg_counts = dict(_native.launches)
+    rel = eo_true_relres(torch, eo, x, B[:, :1])
+    print(f"[eo] solve_dirac_eo(solver=solve_cg) on column 0: {icg.iterations} iterations, "
+          f"{scg:.3f} s, monitor relres {float(icg.relres.max()):.3e}, true relres {rel:.3e}, "
+          f"launches {cg_counts}")
+    if not (bool(icg.converged.all()) and rel <= CG1_TRUE_RELRES):
+        raise AssertionError(f"even-odd CG: true relres {rel:.3e}: {icg}")
+    Bs = B[:, :EO_SHIFTED_K]
+    (Xs, ish), ssh = _timed(torch, lambda: solve_dirac_eo_shifted(eo, Bs, SHIFTS, tol=1e-6))
+    rels = [eo_true_relres(torch, eo, Xs[j], Bs, sg) for j, sg in enumerate(SHIFTS)]
+    print(f"[eo] solve_dirac_eo_shifted k={EO_SHIFTED_K} shifts {SHIFTS}: {ish.iterations} "
+          f"iterations, {ssh:.3f} s, true relres {['%.3e' % r for r in rels]}")
+    if not (bool(ish.converged.all()) and max(rels) <= 1e-5):
+        raise AssertionError(f"even-odd multi-shift: true relres {rels}: {ish}")
+    del eo, Xs, op4
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(ML_SEED)
+    for label, build, k, cplx in (
+            (f"dirac_gauged_matrix_eo({DIRAC_L})",
+             lambda: dirac_gauged_matrix_eo(DIRAC_L, device=dev), DIRAC_K, False),
+            (f"dirac_gauged_eo({DIRAC_L}, complex64)",
+             lambda: dirac_gauged_eo(DIRAC_L, dtype=torch.complex64, device=dev),
+             EO_COMPLEX_K, True)):
+        geo, build_s = _timed(torch, build)
+        nfull = geo.n // 2 if cplx else geo.n
+        Bn = rng.standard_normal((nfull, k))
+        if cplx:
+            Bn = Bn + 1j * rng.standard_normal((nfull, k))
+        Bg = torch.as_tensor(Bn, dtype=torch.complex64 if cplx else torch.float32, device=dev)
+        (X, gi), secs = _timed(torch, lambda: solve_dirac_eo(geo, Bg, tol=1e-6))
+        rel = eo_true_relres(torch, geo, X, Bg)
+        print(f"[eo] {label} built in {build_s:.1f} s ({len(geo.hop_oe.offsets)} diagonals, "
+              f"bs={geo.bs}), k={k}: {gi.iterations} iterations, {secs:.3f} s, true relres "
+              f"{rel:.3e}")
+        if not (X.dtype == Bg.dtype and bool(gi.converged.all()) and rel <= 1e-5):
+            raise AssertionError(f"{label}: {X.dtype}, true relres {rel:.3e}: {gi}")
+        del geo, X, Bg
+        torch.cuda.empty_cache()
+    return cg_counts
+
 
 def main() -> None:
     root = Path(__file__).resolve().parent
@@ -875,6 +1218,8 @@ def main() -> None:
     records = phase_kernels(torch, dev)
     phase_cbs_kernels(torch, dev, records)
     phase_krylov_kernels(torch, dev, records)
+    phase_cheb_kernel(torch, dev, records)
+    phase_view_kernels(torch, dev, records)
 
     from blockcg_tpu_torch.ops import _native
 
@@ -921,6 +1266,25 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_bdia_config4(torch, dev)
     phase_complex(torch, dev, records)
+    # The preconditioned paths, each with the counts set to 0 just before it:
+    # Jacobi (an elementwise product, no kernel of its own), Chebyshev
+    # (cheb_step keeps its counts), then the even-odd path, whose CG keeps
+    # the counts of the (k, bs, ns) kernels. Their Gram variant has no
+    # solver caller (in the reference neither): the CG's count of it is read
+    # all the same, and is not required to be nonzero.
+    for label, phase, wrappers in (
+            ("precond", phase_precond, ("stencil_spmm_gram_t", "gram", "mm_update",
+                                        "mm_update_gram")),
+            ("cheb", phase_cheb, ("cheb_step", "stencil_spmm_t", "gram", "px_update")),
+            ("even-odd CG", phase_eo, VIEW_KERNELS)):
+        _native.reset_launches()
+        got = phase(torch, dev)
+        print(f"[launches] {label}: {got}")
+        missing = [w for w in wrappers if got.get(w, 0) == 0]
+        if missing:
+            raise AssertionError(f"the {label} path never launched the kernels of {missing}")
+        counts.update({w: got[w] for w in wrappers if w in ("cheb_step", *VIEW_KERNELS)})
+    counts["const_block_stencil_spmm_gram_t"] = got.get("const_block_stencil_spmm_gram_t", 0)
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}

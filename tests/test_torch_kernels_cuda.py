@@ -20,8 +20,11 @@ from blockcg_tpu_torch.ops import block_stencil as bsk
 from blockcg_tpu_torch.ops import const_block_stencil as cbs
 from blockcg_tpu_torch.problems import (
     bdia_scipy,
+    dirac_bdia,
     dirac_cbdia,
+    dirac_eo,
     dirac_gauged_cbdia,
+    dirac_gauged_eo,
     dirac_gauged_matrix,
     laplacian_dia,
     laplacian_scipy,
@@ -499,3 +502,154 @@ def test_lattice_solves_on_card_match_cpu(dev, build):
     Xn = Xg.cpu().numpy().astype(np.complex128)
     res = np.linalg.norm(B - a @ Xn, axis=0) / np.linalg.norm(B, axis=0)
     assert res.max() <= 10 * tol
+
+
+# ----------------------------------------------- cheb_step, the (k, bs, ns) view
+
+
+@pytest.mark.parametrize("shape,offset", [((32, 4099), 0), ((48, 300), 0), ((3, 1001), 1),
+                                          ((1, 7), 0)])
+@pytest.mark.parametrize("donate", [False, True])
+def test_cheb_step_kernel_matches_plain(dev, shape, offset, donate):
+    """Flat and merged widths, a numel that is not a multiple of 4 (the
+    scalar tail) and fields one element off 16-byte alignment (the scalar
+    route); in place against fresh buffers."""
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(90)
+
+    def field():
+        return _t(rng.standard_normal(n + offset), dev)[offset:].reshape(shape)
+    R, Z, D, AZ = field(), field(), field(), field()
+    c1, c2 = 0.6180339, -1.2345678
+    Zp, Dp = fused.cheb_step_plain(R, Z, D, AZ, c1, c2)
+    Za, Da = Z.clone(), D.clone()
+    _native.reset_launches()
+    Zo, Do = fused.cheb_step(R, Za, Da, AZ, c1, c2, donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["cheb_step"] == 1
+    assert (Zo.data_ptr() == Za.data_ptr()) is donate and (Do.data_ptr() == Da.data_ptr()) is donate
+    assert _relmax(Zo, Zp) <= 1e-6 and _relmax(Do, Dp) <= 1e-6
+    Zs, Ds = fused.cheb_step(R, Z, Z, AZ, c1, c2)  # Z and D one buffer, fresh outputs
+    Zsp, Dsp = fused.cheb_step_plain(R, Z, Z, AZ, c1, c2)
+    assert _relmax(Zs, Zsp) <= 1e-6 and _relmax(Ds, Dsp) <= 1e-6
+    with pytest.raises(ValueError, match="share storage"):
+        fused.cheb_step(R, Z, Z, AZ, c1, c2, donate=True)
+
+
+@pytest.mark.parametrize("bs,k", [(4, 1), (4, 3), (4, 12), (2, 6), (8, 1), (8, 6), (3, 5),
+                                  (1, 64)])
+@pytest.mark.parametrize("masks", ["none", "gates", "values"])
+def test_const_block_stencil_view_kernel_matches_plain(dev, bs, k, masks):
+    """Rows 14 and 15 on the (k, bs, ns) view and its flat form, ns = 300,
+    offsets with |o| >= ns; the view's Gram is (k, k)."""
+    hops, offsets, slots, rows, Xm = _cbs_operands(300, bs, k, masks, dev, seed=7)
+    Xv = Xm.reshape(k, bs, 300)
+    Yp, Gp = cbs.const_block_stencil_v_plain(hops, offsets, slots, rows, Xv, True)
+    _native.reset_launches()
+    Y, G = cbs.const_block_stencil_spmm_gram_t(hops, offsets, slots, rows, Xv)
+    Y1 = cbs.const_block_stencil_spmm_t(hops, offsets, slots, rows, Xv)
+    Yf = cbs.const_block_stencil_spmm_t(hops, offsets, slots, rows, Xv.reshape(k, -1))
+    torch.cuda.synchronize()
+    assert _native.launches["const_block_stencil_spmm_gram_t"] == 1
+    assert _native.launches["const_block_stencil_spmm_t"] == 2
+    assert G.shape == (k, k) and _relfro(G, Gp) < 1e-5
+    assert _relmax(Y, Yp) < 1e-5 and torch.equal(Y1, Y) and torch.equal(Yf, Y.reshape(k, -1))
+    G2 = cbs.const_block_stencil_spmm_gram_t(hops, offsets, slots, rows, Xv)[1]
+    assert torch.equal(G, G2)  # a repeat gives the same bits
+
+
+@pytest.mark.parametrize("k", [1, 3, 12])
+def test_slab_view_kernel_matches_plain(dev, k):
+    op = dirac_cbdia(16, device=dev)
+    Xv, Yv = (_field(k, op.bs * op.ns, s, dev).reshape(k, op.bs, op.ns) for s in (91, 92))
+    for d, g, nblocks, mul, off, shift in op.slabs:
+        args = (op.hops_all[d], g, nblocks, mul, off, shift, Xv)
+        Yk, Yp = Yv.clone(), Yv.clone()
+        out = cbs.slab_block_accumulate(*args, Yk)
+        cbs.slab_v_plain(*args, Yp)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == Yk.data_ptr() and _relmax(Yk, Yp) < 1e-5
+    with pytest.raises(ValueError, match="storage"):
+        cbs.slab_block_accumulate(*args, Xv)
+
+
+@pytest.mark.parametrize("build", ["cbdia16", "eo16", "gauged_eo8", "u1_eo8"])
+def test_single_rhs_route_is_bitwise_the_merged_kernels(dev, build):
+    """At k = 1 the (k, bs, ns) route (rows 14 and 18) and the merged one
+    (rows 16 and 19) are the same memory and the same arithmetic: the same
+    bits."""
+    if build == "cbdia16":
+        op = dirac_cbdia(16, device=dev)
+    elif build == "eo16":
+        op = dirac_eo(16, device=dev).hop_oe
+    elif build == "gauged_eo8":
+        op = dirac_gauged_eo(8, device=dev).hop_eo
+    else:
+        op = dirac_gauged_eo(8, dtype=torch.complex64, device=dev).hop_oe
+    x = _field(op.bs, op.ns, 93, dev)
+    _native.reset_launches()
+    y = op.matmat_t(x)
+    assert _native.launches["const_block_stencil_spmm_t"] == 1
+    assert _native.launches["slab_block_accumulate"] == len(op.slabs)
+    ym = op._apply_m(x, False)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(y, ym)
+    assert _relmax(y, op._matmat_m_plain(x)) < 1e-5
+
+
+def test_gram_kernel_takes_two_merged_fields(dev):
+    """PSBCGrQ's M-CholQR Gram f_gram(Q, M Q) with U != V on the merged
+    layout (m = 48)."""
+    from blockcg_tpu_torch.solvers.common import f_gram
+
+    op = dirac_cbdia(8, device=dev)
+    U, V = _field(48, op.ns, 94, dev), _field(48, op.ns, 95, dev)
+    G = f_gram(U, V, codec=op)
+    assert _relfro(G, op.gram_contract(U @ V.T)) < 1e-5
+
+
+@pytest.mark.parametrize("solve", ["eo_sbcgrq", "eo_cg", "eo_shifted", "pbcg", "psbcgrq",
+                                   "cheb"])
+def test_new_solves_on_card_match_cpu(dev, solve):
+    """The slice's solves on the card against the same solve on CPU tensors:
+    iterations within +-2 and a true relative residual below 10 x tol."""
+    import blockcg_tpu_torch as bt
+    from blockcg_tpu_torch.problems import solve_dirac_eo, solve_dirac_eo_shifted
+
+    tol = 1e-5
+    B = torch.as_tensor(np.random.default_rng(96).standard_normal((4 * 8 ** 4, 4)),
+                        dtype=torch.float32)
+    if solve.startswith("eo"):
+        def run(d, b):
+            eo = dirac_eo(8, device=d)
+            if solve == "eo_sbcgrq":
+                return solve_dirac_eo(eo, b, tol=tol)
+            if solve == "eo_cg":
+                return solve_dirac_eo(eo, b[:, :1], solver=bt.solve_cg, tol=tol)
+            return solve_dirac_eo_shifted(eo, b, (0.0, 0.5), tol=tol)
+    else:
+        def run(d, b):
+            op = dirac_cbdia(8, device=d)
+            if solve == "cheb":
+                return bt.solve_sbcgrq_cheb(op, b, degree=4, tol=tol)
+            fn = bt.solve_pbcg if solve == "pbcg" else bt.solve_psbcgrq
+            return fn(op, b, bt.jacobi_preconditioner(op), tol=tol)
+    _, ic = run("cpu", B)
+    _native.reset_launches()
+    Xg, ig = run(dev, B.to(dev))
+    assert sum(_native.launches.values()) > 0
+    if solve == "eo_cg":
+        assert _native.launches["const_block_stencil_spmm_t"] > 0
+    if solve == "cheb":
+        assert _native.launches["cheb_step"] > 0
+    assert bool(ig.converged.all()) and abs(ig.iterations - ic.iterations) <= 2
+    a = bdia_scipy(dirac_bdia(8, dtype=torch.float64, device="cpu"))
+    Bn = B.double().numpy()
+    if solve == "eo_shifted":
+        pairs = [(Xg[j].double().cpu().numpy(), s, Bn) for j, s in enumerate((0.0, 0.5))]
+    else:
+        b = Bn[:, :1] if solve == "eo_cg" else Bn
+        pairs = [(Xg.double().cpu().numpy(), 0.0, b)]
+    for x, s, b in pairs:
+        res = np.linalg.norm(a @ x + s * x - b, axis=0) / np.linalg.norm(b, axis=0)
+        assert res.max() <= 10 * tol

@@ -97,7 +97,7 @@ def test_checkpoint_format_is_shared(tmp_path):
     Xj, it, meta = jload(p1)
     assert np.array_equal(np.asarray(Xj), X) and it == 4 and float(meta["tol"]) == 1e-10
     jsave(p2, jnp.asarray(X), iteration=7)
-    Xt, it, _ = load_checkpoint(p2)
+    Xt, it, _ = load_checkpoint(p2, device="cpu")
     assert np.array_equal(Xt.numpy(), X) and it == 7
     assert load_checkpoint(str(tmp_path / "missing.npz")) is None
 
@@ -105,7 +105,7 @@ def test_checkpoint_format_is_shared(tmp_path):
 def test_builders_default_to_the_card():
     """Every builder, preset and ``from_numpy``/``from_scipy`` of the port
     puts its operator on the card unless the caller names a device (the CPU
-    tests pass ``device="cpu"``)."""
+    tests pass ``device="cpu"``), and ``load_checkpoint`` its X."""
     import inspect
 
     import blockcg_tpu_torch.problems as problems
@@ -117,9 +117,10 @@ def test_builders_default_to_the_card():
 
     builders = [getattr(problems, name) for name in (
         "laplacian_dia", "dirac_cbdia", "dirac_gauged_cbdia", "dirac_bdia", "dirac_gauged",
-        "dirac_gauged_matrix")]
+        "dirac_gauged_matrix", "dirac_eo", "dirac_gauged_eo", "dirac_gauged_matrix_eo")]
     builders += list(problems.PRESETS.values()) + [presets._rhs]
     builders += [DIAOperator.from_numpy, DIAOperator.from_scipy, DenseOperator.from_numpy,
                  ConstBlockDIAOperator.from_numpy, BlockDIAOperator.from_numpy]
+    builders += [load_checkpoint]
     for fn in builders:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

@@ -54,6 +54,10 @@ def test_profile_summary_of_trace_events():
     ("void (anonymous namespace)::xr_update_gram<16>(float const*, float const*)", True),
     ("void (anonymous namespace)::qr_p_update<64>(float const*, float const*)", True),
     ("void (anonymous namespace)::bs_spmm<8, 64, true, false>(float const*, Offsets)", True),
+    ("void (anonymous namespace)::cbs_spmm<4, 8, false, true>(float const*, Diags)", True),
+    ("void (anonymous namespace)::reduce_spin_contract(float const*, float*)", True),
+    ("void (anonymous namespace)::cheb_step_vec(float4 const*, float4 const*)", True),
+    ("void (anonymous namespace)::cheb_step_scalar(float const*, float const*)", True),
     ("void at::native::vectorized_elementwise_kernel<4>", False),
 ])
 def test_profile_port_kernel_names(name, port):
@@ -91,3 +95,54 @@ def test_gpu_script_fails_without_card(tmp_path, script, alone):
                          cwd=path.parent, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_smoke_scaled_laplacian_is_d_a_d(monkeypatch):
+    """The [precond] system: D A D with D = diag(exp(0.5 g)) on the
+    Dirichlet Laplacian, as DIA diagonals."""
+    import numpy as np
+    import torch
+
+    from blockcg_tpu_torch.problems import laplacian_scipy
+
+    smoke = _load("chip_smoke")
+    monkeypatch.setattr(smoke, "PRECOND_SHAPE", (5, 6, 7))
+    op = smoke._scaled_laplacian(torch, torch.device("cpu"), seed=3)
+    a = laplacian_scipy((5, 6, 7)).toarray()
+    s = np.exp(0.5 * np.random.default_rng(3).standard_normal(a.shape[0]))
+    X = np.random.default_rng(4).standard_normal((a.shape[0], 2))
+    got = op.astype_op(torch.float64).matmat(torch.from_numpy(X)).numpy()
+    want = (s[:, None] * a * s[None, :]) @ X
+    # The operator holds f32 diagonals: entries rounded to f32.
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+
+
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_smoke_eo_true_relres_is_the_full_operators(dtype):
+    """[eo]'s residual through the parity hops equals the full matrix's."""
+    import numpy as np
+    import torch
+
+    from blockcg_tpu_torch.problems import (
+        bdia_scipy,
+        dirac_bdia,
+        dirac_eo,
+        dirac_gauged,
+        dirac_gauged_eo,
+    )
+
+    smoke = _load("chip_smoke")
+    rng = np.random.default_rng(5)
+    if dtype == "float64":
+        eo = dirac_eo(4, dtype=torch.float64, device="cpu")
+        a = bdia_scipy(dirac_bdia(4, dtype=torch.float64, device="cpu"))
+        B, X = rng.standard_normal((eo.n, 3)), rng.standard_normal((eo.n, 3))
+    else:
+        eo = dirac_gauged_eo(4, dtype=torch.complex128, device="cpu")
+        a = bdia_scipy(dirac_gauged(4, dtype=torch.complex128, device="cpu"))
+        B, X = (rng.standard_normal((a.shape[0], 3)) + 1j * rng.standard_normal((a.shape[0], 3))
+                for _ in range(2))
+    sigma = 0.5
+    want = (np.linalg.norm(B - a @ X - sigma * X, axis=0) / np.linalg.norm(B, axis=0)).max()
+    got = smoke.eo_true_relres(torch, eo, torch.from_numpy(X), torch.from_numpy(B), sigma)
+    assert got == pytest.approx(want, rel=1e-12)
