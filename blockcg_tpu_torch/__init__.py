@@ -10,10 +10,15 @@ never imports JAX.
 
 from blockcg_tpu_torch.operators import (
     BlockDIAOperator,
+    BSROperator,
     ConstBlockDIAOperator,
+    CSROperator,
     DenseOperator,
     DIAOperator,
+    ELLOperator,
     RealifiedHermitianOperator,
+    TiledOperator,
+    from_scipy_auto,
     realify,
 )
 from blockcg_tpu_torch.solvers import (
@@ -34,13 +39,18 @@ from blockcg_tpu_torch.solvers import (
 from blockcg_tpu_torch.types import SolverInfo, SolverOptions
 
 __all__ = [
+    "BSROperator",
     "BlockDIAOperator",
+    "CSROperator",
     "ConstBlockDIAOperator",
     "DIAOperator",
     "DenseOperator",
+    "ELLOperator",
     "RealifiedHermitianOperator",
     "SolverInfo",
     "SolverOptions",
+    "TiledOperator",
+    "from_scipy_auto",
     "jacobi_preconditioner",
     "solve_bcg",
     "solve_bcga",

@@ -121,7 +121,7 @@ struct Args {
   int nd, bs;
   const float* X;
   float *Y, *part, *G;
-  int k;
+  int k, ks;
   long long ns;
   bool merged;
   int nblocks;
@@ -136,7 +136,7 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.blocks, a.offs, a.nd, a.bs, a.X,
                                                   a.Y, a.part,
-                                                  row_map(a.merged, a.bs, a.k), a.k, a.ns);
+                                                  row_map(a.merged, a.bs, a.ks), a.k, a.ns);
   if (WITH_GRAM) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
   return cudaGetLastError();
 }
@@ -161,20 +161,23 @@ cudaError_t by_kmax(int kmax, bool gram, const Args& a) {
 
 // offsets: host array of nd entries, each already reduced to [0, ns).
 // blocks: device (nd, bs, bs, ns). X, Y: device (bs * k, ns) fields, merged
-// (row a * k + i) when merged != 0, else the (k, bs, ns) view (row i * bs + a).
-// G == nullptr selects the plain apply; otherwise (merged only) part holds
-// (nblocks, m, m) and G receives X Y^T.
+// (row a * ks + i) when merged != 0, else the (k, bs, ns) view (row i * bs +
+// a). ks: the merged view's right-hand sides per spin, k on a whole field; a
+// row-chunked launch covers RHS j0..j0+k of a field of ks, with X and Y
+// offset by j0 rows (the view's chunks are contiguous and take ks = k).
+// G == nullptr selects the plain apply; otherwise (merged only, ks == k) part
+// holds (nblocks, m, m) and G receives X Y^T.
 extern "C" int bcg_block_stencil_spmm(const float* blocks, const int* offsets,
                                       int nd, int bs, const float* X, float* Y,
-                                      float* part, float* G, int k, long long ns,
-                                      int merged, int nblocks, int device,
-                                      cudaStream_t stream) {
+                                      float* part, float* G, int k, int ks,
+                                      long long ns, int merged, int nblocks,
+                                      int device, cudaStream_t stream) {
   const int bsw = bs < 1 ? 0 : bs <= 4 ? 4 : bs <= kMaxBs ? 8 : 0;
   const int kmax = kmax_for(bsw * k);
   if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 ||
-      nblocks < 1 || (G != nullptr && !merged))
+      nblocks < 1 || (G != nullptr && !merged) || ks < k || (G != nullptr && ks != k))
     return cudaErrorInvalidValue;
-  Args a{blocks, {}, nd, bs, X, Y, part, G, k, ns, merged != 0, nblocks, stream};
+  Args a{blocks, {}, nd, bs, X, Y, part, G, k, ks, ns, merged != 0, nblocks, stream};
   for (int d = 0; d < nd; ++d) {
     if (offsets[d] < 0 || offsets[d] >= ns) return cudaErrorInvalidValue;
     a.offs.o[d] = offsets[d];

@@ -9,6 +9,12 @@
 // grid-stride loop. KMAX is the compile-time register width (8, 16, 32 or
 // 64); rows k..KMAX-1 are held at zero so the unrolled loops need no guards.
 //
+// Wider fields (more than 64 rows) run as row-chunked launches, which the
+// Python wrappers issue: output rows r0:r1 of Y = M B (+ A) need only rows
+// r0:r1 of M and all of B, so a launch writes k <= 64 output rows and
+// contracts over kin >= k input rows (kin == k on a narrow field, where the
+// arithmetic is what it was before the split).
+//
 // Everything here has internal linkage: each .cu includes this header, is
 // compiled to its own object, and the objects are linked into one library.
 #pragma once
@@ -52,28 +58,37 @@ __device__ __forceinline__ void store_col(float* F, const float (&v)[KMAX],
     if (r < k) F[r * n + i] = v[r];
 }
 
-// Stage a k x k row-major coefficient matrix M into shared memory TRANSPOSED
-// and zero-padded to KMAX x KMAX: sT[c * KMAX + r] = M[r, c]. Every thread
-// reads the same sT entry at the same time (a broadcast), and the r-contiguous
-// layout lets the compiler fetch four coefficients per load.
+// Columns of a staged coefficient: kin, and at least KMAX (a narrow launch
+// keeps its zero-padded KMAX x KMAX table).
 template <int KMAX>
-__device__ void stage_coeff(float* sT, const float* M, int k) {
-  for (int e = threadIdx.x; e < KMAX * KMAX; e += blockDim.x) {
+__host__ __device__ inline int coeff_cols(int kin) {
+  return kin > KMAX ? kin : KMAX;
+}
+
+// Stage the k x kin row-major coefficient block M (row stride kin) into
+// shared memory TRANSPOSED and zero-padded to coeff_cols x KMAX:
+// sT[c * KMAX + r] = M[r, c]. Every thread reads the same sT entry at the
+// same time (a broadcast), and the r-contiguous layout lets the compiler
+// fetch four coefficients per load.
+template <int KMAX>
+__device__ void stage_coeff(float* sT, const float* M, int k, int kin) {
+  const int cols = kin > KMAX ? kin : KMAX;
+  for (int e = threadIdx.x; e < cols * KMAX; e += blockDim.x) {
     const int c = e / KMAX, r = e % KMAX;
-    sT[e] = (r < k && c < k) ? M[r * k + c] : 0.f;
+    sT[e] = (r < k && c < kin) ? M[r * kin + c] : 0.f;
   }
 }
 
-// y += M F[:, i], with M staged by stage_coeff: the loop runs over the k
+// y += M F[:, i], with M staged by stage_coeff: the loop runs over the kin
 // real columns of M and reads F's column straight from global memory (no
 // register copy, and a small unroll keeps the code short at KMAX = 64).
 template <int KMAX>
 __device__ __forceinline__ void apply_coeff(float (&y)[KMAX], const float* sT,
-                                            const float* F, int k, long long n,
+                                            const float* F, int kin, long long n,
                                             long long i, bool valid) {
   if (!valid) return;
 #pragma unroll 4
-  for (int c = 0; c < k; ++c) {
+  for (int c = 0; c < kin; ++c) {
     const float fc = F[c * n + i];
     const float* m = sT + c * KMAX;
 #pragma unroll
@@ -130,17 +145,20 @@ struct GramTile {
     }
   }
 
-  // part: this block's (k, k) slot of the (nblocks, k, k) partials.
-  __device__ void store(float* part, int k) const {
+  // part: this block's (rows, cols) slot of the (nblocks, rows, cols)
+  // partials.
+  __device__ void store(float* part, int rows, int cols) const {
     if (threadIdx.x >= kActive) return;
 #pragma unroll
     for (int a = 0; a < kTR; ++a)
 #pragma unroll
       for (int b = 0; b < kTS; ++b) {
         const int r = r0 + a, s = s0 + b;
-        if (r < k && s < k) part[r * k + s] = acc[a][b];
+        if (r < rows && s < cols) part[r * cols + s] = acc[a][b];
       }
   }
+
+  __device__ void store(float* part, int k) const { store(part, k, k); }
 };
 
 // Second stage: G[e] = base[e] + sum over blocks of part[b, e] (base may be
@@ -156,10 +174,17 @@ __global__ void reduce_partials(const float* __restrict__ part,
   G[e] = static_cast<float>(s);
 }
 
+// G (rows x cols) from the (nblocks, rows, cols) partials.
+inline void launch_reduce(const float* part, float* G, int rows, int cols,
+                          int nblocks, cudaStream_t stream,
+                          const float* base = nullptr) {
+  const int kk = rows * cols;
+  reduce_partials<<<(kk + 255) / 256, 256, 0, stream>>>(part, base, G, kk, nblocks);
+}
+
 inline void launch_reduce(const float* part, float* G, int k, int nblocks,
                           cudaStream_t stream, const float* base = nullptr) {
-  const int kk = k * k;
-  reduce_partials<<<(kk + 255) / 256, 256, 0, stream>>>(part, base, G, kk, nblocks);
+  launch_reduce(part, G, k, k, nblocks, stream, base);
 }
 
 // ---- per-site register tiles of the lattice kernels (const_block_stencil.cu,
@@ -167,7 +192,10 @@ inline void launch_reduce(const float* part, float* G, int k, int nblocks,
 // field as acc[BS][KI]: BS >= bs spins, KI >= k right-hand sides; entries
 // with a >= bs or i >= k stay zero. The field's row map is a pair of runtime
 // strides, row(a, i) = a * sa + i * si:
-//   merged: (sa, si) = (k, 1), row a * k + i, the merged spin-major view (m, ns);
+//   merged: (sa, si) = (ks, 1), row a * ks + i, the merged spin-major view
+//           (m, ns) with ks = k; a row-chunked launch on RHS j0..j0+k of a
+//           field with ks > k right-hand sides per spin gets X and Y offset
+//           by j0 rows and keeps ks as the spin stride;
 //   else:   (sa, si) = (1, bs), row i * bs + a, the (k, bs, ns) view (= flat
 //           (k, bs * ns)).
 // One instantiation serves both views. At k = 1 the two maps are the same
@@ -192,8 +220,8 @@ struct RowMap {
   }
 };
 
-inline RowMap row_map(bool merged, int bs, int k) {
-  return merged ? RowMap{k, 1} : RowMap{1, bs};
+inline RowMap row_map(bool merged, int bs, int ks) {
+  return merged ? RowMap{ks, 1} : RowMap{1, bs};
 }
 
 template <int BS, int KI>

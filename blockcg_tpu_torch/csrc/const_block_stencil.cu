@@ -247,7 +247,7 @@ struct MainArgs {
   int nd, bs;
   const float *masks, *X;
   float *Y, *part, *G;
-  int k;
+  int k, ks;
   long long ns;
   bool merged;
   int nblocks;
@@ -262,7 +262,7 @@ struct SlabArgs {
   float* Y;
   const float* Gin;
   float *part, *G;
-  int k;
+  int k, ks;
   long long ns;
   bool merged;
   int nblocks;
@@ -281,7 +281,7 @@ cudaError_t launch_main(const MainArgs& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hops, a.diags, a.nd, a.bs,
                                                   a.masks, a.X, a.Y, a.part,
-                                                  row_map(a.merged, a.bs, a.k), a.k, a.ns);
+                                                  row_map(a.merged, a.bs, a.ks), a.k, a.ns);
   if (WITH_GRAM) {
     if (a.merged) {
       launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
@@ -303,7 +303,7 @@ cudaError_t launch_slab(const SlabArgs& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hop, a.geo, a.bs, a.X, a.Y,
                                                   gram ? a.part : nullptr,
-                                                  row_map(a.merged, a.bs, a.k), a.k, a.ns);
+                                                  row_map(a.merged, a.bs, a.ks), a.k, a.ns);
   if (gram) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream, a.Gin);
   return cudaGetLastError();
 }
@@ -351,21 +351,24 @@ cudaError_t slab_by_kmax(int kmax, const SlabArgs& a) {
 // [0, ns). hops: device (nd, bs, bs). masks: device (nmask, ns), or null when
 // every slot is -1. k: right-hand sides per spin (m = bs * k). X, Y: device
 // (m, ns) fields, merged (row a * k + i) when merged != 0, else the
-// (k, bs, ns) view (row i * bs + a). G == nullptr selects the plain apply;
-// otherwise part holds (nblocks, m, m) and G receives the (m, m) Gram on the
-// merged view, the (k, k) contraction on the (k, bs, ns) view.
+// (k, bs, ns) view (row i * bs + a). ks: the merged view's right-hand sides
+// per spin, k on a whole field; a row-chunked launch covers RHS j0..j0+k of
+// a field of ks, with X and Y offset by j0 rows (the view's chunks are
+// contiguous and take ks = k). G == nullptr selects the plain apply;
+// otherwise (ks == k) part holds (nblocks, m, m) and G receives the (m, m)
+// Gram on the merged view, the (k, k) contraction on the (k, bs, ns) view.
 extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
                             const int* slots, int nd, int bs,
                             const float* masks, const float* X, float* Y,
-                            float* part, float* G, int k, long long ns,
+                            float* part, float* G, int k, int ks, long long ns,
                             int merged, int nblocks, int device,
                             cudaStream_t stream) {
   const int bsw = bs_width(bs);
   const int kmax = kmax_for(bsw * k);
   if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 ||
-      nblocks < 1)
+      nblocks < 1 || ks < k || (G != nullptr && ks != k))
     return cudaErrorInvalidValue;
-  MainArgs a{hops, {}, nd, bs, masks, X, Y, part, G, k, ns, merged != 0, nblocks, stream};
+  MainArgs a{hops, {}, nd, bs, masks, X, Y, part, G, k, ks, ns, merged != 0, nblocks, stream};
   for (int d = 0; d < nd; ++d) {
     if (offsets[d] < 0 || offsets[d] >= ns) return cudaErrorInvalidValue;
     if (slots[d] >= 0 && masks == nullptr) return cudaErrorInvalidValue;
@@ -386,25 +389,27 @@ extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
 // hop: device (bs, bs). dst_mul, dst_off and src_shift already reduced to
 // [0, nb), nb = ns / g; the nblocks destination blocks must be distinct. Y is
 // updated in place; X and Y are merged when merged != 0, else (k, bs, ns)
-// views. G == nullptr: no Gram; otherwise (merged only) G = Gin + the slab's
-// X_dst dY^T (Gin may be null), with part (nblocks_grid, m, m).
+// views; ks as in bcg_cbs_spmm. G == nullptr: no Gram; otherwise (merged
+// only, ks == k) G = Gin + the slab's X_dst dY^T (Gin may be null), with part
+// (nblocks_grid, m, m).
 extern "C" int bcg_slab_accumulate(const float* hop, int bs, int g, int nblocks,
                                    long long dst_mul, long long dst_off,
                                    long long src_shift, const float* X,
                                    float* Y, const float* Gin, float* part,
-                                   float* G, int k, long long ns, int merged,
+                                   float* G, int k, int ks, long long ns, int merged,
                                    int grid, int device, cudaStream_t stream) {
   const int bsw = bs_width(bs);
   const int kmax = kmax_for(bsw * k);
   if (bsw == 0 || k < 1 || kmax == 0 || g < 1 || ns < 1 || ns % g != 0 ||
-      nblocks < 1 || grid < 1 || (G != nullptr && !merged))
+      nblocks < 1 || grid < 1 || (G != nullptr && !merged) || ks < k ||
+      (G != nullptr && ks != k))
     return cudaErrorInvalidValue;
   const long long nb = ns / g;
   if (nblocks > nb || dst_mul < 0 || dst_mul >= nb || dst_off < 0 ||
       dst_off >= nb || src_shift < 0 || src_shift >= nb)
     return cudaErrorInvalidValue;
   SlabArgs a{hop, {nb, dst_mul, dst_off, src_shift, g, nblocks}, bs, X, Y, Gin,
-             part, G, k, ns, merged != 0, grid, stream};
+             part, G, k, ks, ns, merged != 0, grid, stream};
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (bsw) {

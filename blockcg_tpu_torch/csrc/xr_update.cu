@@ -15,6 +15,10 @@
 // reduced across blocks by a second kernel in a fixed order, so repeated
 // solves are bitwise identical.
 //
+// Row chunks: Xn, Rn, X and R have k <= 64 rows, alpha is k x kin, P and Z
+// (kin, n); a wider update is one launch per chunk of rows, each with the
+// Gram of its own rows (ops/fused.py adds the cross blocks).
+//
 // In place: Xn may be the same buffer as X and Rn the same as R (the solvers
 // donate both). Column i of each output depends only on column i of the
 // inputs, and a thread reads all of its column before it writes it, so those
@@ -28,11 +32,11 @@ __global__ void __launch_bounds__(kThreads)
     xr_update_gram(const float* __restrict__ Alpha, const float* __restrict__ P,
                    const float* X, const float* __restrict__ Z, const float* R,
                    float* Xn, float* Rn, float* __restrict__ part, int k,
-                   long long n) {
+                   int kin, long long n) {
   extern __shared__ __align__(16) float smem[];  // alphaT | rs
   float* a = smem;
-  float* rs = smem + KMAX * KMAX;
-  stage_coeff<KMAX>(a, Alpha, k);
+  float* rs = smem + coeff_cols<KMAX>(kin) * KMAX;
+  stage_coeff<KMAX>(a, Alpha, k, kin);
   __syncthreads();
   GramTile<KMAX> g;
   const long long ntiles = (n + kThreads - 1) / kThreads;
@@ -44,7 +48,7 @@ __global__ void __launch_bounds__(kThreads)
     load_col<KMAX>(r, R, k, n, i, valid);
     if (valid) {
 #pragma unroll 4
-      for (int c = 0; c < k; ++c) {
+      for (int c = 0; c < kin; ++c) {
         const float pc = P[c * n + i];
         const float zc = Z[c * n + i];
         const float* ac = a + c * KMAX;
@@ -68,13 +72,13 @@ __global__ void __launch_bounds__(kThreads)
 template <int KMAX>
 cudaError_t launch(const float* Alpha, const float* P, const float* X,
                    const float* Z, const float* R, float* Xn, float* Rn,
-                   float* part, float* G, int k, long long n, int nblocks,
+                   float* part, float* G, int k, int kin, long long n, int nblocks,
                    cudaStream_t stream) {
   auto kernel = xr_update_gram<KMAX>;
-  const size_t smem = (KMAX * KMAX + KMAX * kLd) * sizeof(float);
+  const size_t smem = (coeff_cols<KMAX>(kin) * KMAX + KMAX * kLd) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<nblocks, kThreads, smem, stream>>>(Alpha, P, X, Z, R, Xn, Rn, part, k, n);
+  kernel<<<nblocks, kThreads, smem, stream>>>(Alpha, P, X, Z, R, Xn, Rn, part, k, kin, n);
   launch_reduce(part, G, k, nblocks, stream);
   return cudaGetLastError();
 }
@@ -85,16 +89,16 @@ cudaError_t launch(const float* Alpha, const float* P, const float* X,
 extern "C" int bcg_xr_update_gram(const float* Alpha, const float* P,
                                   const float* X, const float* Z,
                                   const float* R, float* Xn, float* Rn,
-                                  float* part, float* G, int k, long long n,
+                                  float* part, float* G, int k, int kin, long long n,
                                   int nblocks, int device, cudaStream_t stream) {
-  if (nblocks < 1 || n < 1) return cudaErrorInvalidValue;
+  if (nblocks < 1 || n < 1 || kin < k) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (kmax_for(k)) {
-    case 8: return launch<8>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, n, nblocks, stream);
-    case 16: return launch<16>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, n, nblocks, stream);
-    case 32: return launch<32>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, n, nblocks, stream);
-    case 64: return launch<64>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, n, nblocks, stream);
+    case 8: return launch<8>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
+    case 16: return launch<16>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
+    case 32: return launch<32>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
+    case 64: return launch<64>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,27 @@ Counterpart of ``blockcg_tpu/operators/base.py``. Two apply entry points:
 
 from __future__ import annotations
 
+from typing import Protocol, runtime_checkable
+
 import numpy as np
+import torch
+
+
+@runtime_checkable
+class LinearOperator(Protocol):
+    """Anything that can apply ``A @ X`` to a dense block."""
+
+    @property
+    def shape(self) -> tuple[int, int]: ...
+
+    @property
+    def nnz(self) -> int: ...
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor: ...
+
+    def matmat_t(self, Xt: torch.Tensor) -> torch.Tensor: ...
+
+    def __call__(self, X: torch.Tensor) -> torch.Tensor: ...
 
 
 def assert_wrap_zero(vals, offsets, ns: int, what: str = "operator") -> None:
@@ -62,6 +82,20 @@ class MatmatMixin:
     def from_internal(self, Xf):
         """Internal field view -> lanes-major (k, n)."""
         return Xf
+
+    # Row-order hooks at the API boundary. An operator that applies in a
+    # permuted row order (the RCM-reordered TiledOperator) overrides them, so
+    # user code is written once for every format:
+    #   X = op.from_solver_order(solve(op, op.to_solver_order(B))).
+
+    def to_solver_order(self, B):
+        """(n, k) right-hand sides in the original row order -> the
+        operator's order."""
+        return B
+
+    def from_solver_order(self, X):
+        """Inverse of :meth:`to_solver_order`."""
+        return X
 
     def coeff_expand(self, C):
         return C

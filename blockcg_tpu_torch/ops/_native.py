@@ -42,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 THREADS = 128  # csrc/common.cuh kThreads: columns per tile
 MAX_BLOCKS = 1024  # grid cap; also the row count of the Gram partials
-MAX_K = 64  # widest register tile the kernels are built for
+MAX_K = 64  # widest register tile the kernels are built for: rows per launch
 
 launches: Counter = Counter()
 
@@ -83,9 +83,15 @@ def check_field(F: torch.Tensor, k: int, n: int, what: str) -> None:
         raise ValueError(f"{what}: expected a ({k}, {n}) field, got {tuple(F.shape)}")
 
 
-def check_width(k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"CUDA kernels take 1 <= k <= {MAX_K} right-hand sides, got {k}")
+def row_chunks(k: int, width: int = MAX_K) -> list[tuple[int, int]]:
+    """Row ranges ``[(r0, r1), ...]`` covering ``0..k`` in as few chunks of
+    at most ``width`` rows as can be, of balanced sizes: a field wider than a
+    kernel's register tile runs as one launch per chunk. ``k <= width`` is one
+    chunk, the whole field."""
+    if k < 1:
+        raise ValueError(f"CUDA kernels take k >= 1 rows, got {k}")
+    step = -(-k // -(-k // width))
+    return [(r, min(r + step, k)) for r in range(0, k, step)]
 
 
 def check_kk(M: torch.Tensor, k: int, what: str) -> None:
@@ -180,28 +186,42 @@ def library() -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bcg_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, P, P,
                                      P, P, I, L, I, I, P]
-    lib.bcg_gram.argtypes = [P, P, P, P, I, L, I, I, P]
-    lib.bcg_coeff_update.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, P]
-    lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, P]
-    lib.bcg_xr_update_gram.argtypes = [P, P, P, P, P, P, P, P, P, I, L, I, I, P]
-    lib.bcg_qr_p_update.argtypes = [P, P, P, P, P, P, I, L, I, I, P]
+    lib.bcg_gram.argtypes = [P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_coeff_update.argtypes = [P, P, P, P, P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_xr_update_gram.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_qr_p_update.argtypes = [P, P, P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_qr_px_update.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, P]
     lib.bcg_cbs_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int),
                                  ctypes.POINTER(ctypes.c_int), I, I, P, P, P,
-                                 P, P, I, L, I, I, I, P]
-    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, P, P, P, P, P, I,
+                                 P, P, I, I, L, I, I, I, P]
+    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, P, P, P, P, P, I, I,
                                         L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, I, P,
-                                           P, P, P, I, L, I, I, I, P]
+                                           P, P, P, I, I, L, I, I, I, P]
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
+    lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, P, I, I, L, I, P]
     for fn in (lib.bcg_stencil_spmm, lib.bcg_gram, lib.bcg_coeff_update,
                lib.bcg_px_update, lib.bcg_xr_update_gram, lib.bcg_qr_p_update,
-               lib.bcg_cbs_spmm, lib.bcg_slab_accumulate, lib.bcg_block_stencil_spmm,
-               lib.bcg_cheb_step):
+               lib.bcg_qr_px_update, lib.bcg_cbs_spmm, lib.bcg_slab_accumulate,
+               lib.bcg_block_stencil_spmm, lib.bcg_cheb_step, lib.bcg_tiled_spmm):
         fn.restype = I
     lib.bcg_error_string.argtypes = [I]
     lib.bcg_error_string.restype = ctypes.c_char_p
+    lib.bcg_max_smem.argtypes = [I]
+    lib.bcg_max_smem.restype = I
     return lib
+
+
+@functools.cache
+def max_smem(device_index: int) -> int:
+    """Bytes of dynamic shared memory one block may use on the card (the
+    opt-in cap the kernels raise themselves to)."""
+    got = library().bcg_max_smem(device_index)
+    if got < 0:
+        raise RuntimeError(f"cannot read the shared-memory cap of cuda:{device_index}")
+    return got
 
 
 def ptr(t: torch.Tensor | None):

@@ -22,8 +22,12 @@ Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
 plain versions below (the reference's ``_matmat_m_xla`` roll-and-einsum),
 CUDA float32 tensors launch the kernel, and anything else raises, complex
 blocks included (their route to the card is ``operators.realify``). Kernel
-bounds: at most 32 diagonals, bs <= 8, and k <= 64 / w, with w = 4 for
-bs <= 4 and 8 above; the wrappers raise outside them.
+bounds: at most 32 diagonals and bs <= 8; the wrappers raise outside them.
+One launch takes k <= 64 / w right-hand sides, w = 4 for bs <= 4 and 8
+above; a wider field runs as one launch per chunk of right-hand sides (on
+the merged view with the field's spin stride, as in
+``ops/const_block_stencil.py``), and a Gram wider than one launch is
+``fused.gram`` of X and the stored Y.
 """
 
 from __future__ import annotations
@@ -51,16 +55,14 @@ def _check(blocks, offsets, rows: int, ns: int, name: str) -> None:
                          f"{rows} rows and {ns} sites")
 
 
-def _check_kernel_width(bs: int, k: int, nd: int, name: str) -> None:
-    """The kernel's register tile: bs <= 8, rounded up to 4 or 8, times k, at
-    most 64 rows; at most 32 diagonals."""
-    w = 4 if bs <= 4 else 8
-    if not 1 <= bs <= MAX_BS or not 1 <= w * k <= _native.MAX_K:
-        raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS} and "
-                         f"k <= {_native.MAX_K} / w (w = 4 for bs <= 4, else 8); "
-                         f"got bs={bs}, k={k}")
+def _rhs_width(bs: int, nd: int, name: str) -> int:
+    """Right-hand sides one launch takes: 64 rows over w (bs <= 8, rounded
+    up to 4 or 8); at most 32 diagonals."""
+    if not 1 <= bs <= MAX_BS:
+        raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
     if nd > MAX_DIAGS:
         raise ValueError(f"{name}: {nd} diagonals, the CUDA kernel takes at most {MAX_DIAGS}")
+    return _native.MAX_K // (4 if bs <= 4 else 8)
 
 
 # ------------------------------------------------------------ plain versions
@@ -99,21 +101,29 @@ def block_stencil_v_plain(blocks, offsets, Xv):
 
 def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str):
     """Launch on a contiguous (bs * k, ns)-shaped field X (the merged view, or
-    the (k, bs, ns) view and its flat form); returns (Y shaped like X, Gm or
-    None)."""
+    the (k, bs, ns) view and its flat form), one launch per chunk of
+    right-hand sides; returns (Y shaped like X, Gm or None)."""
+    from blockcg_tpu_torch.ops import fused
+
     nd, bs, _, ns = blocks.shape
-    _check_kernel_width(bs, k, nd, name)
+    chunks = _native.row_chunks(k, _rhs_width(bs, nd, name))
     offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
     Y = torch.empty_like(X)
     nb = _native.nblocks(ns)
+    fused_gram = with_gram and len(chunks) == 1
     part = G = None
-    if with_gram:
+    if fused_gram:
         m = bs * k
         part = torch.empty((nb, m, m), dtype=torch.float32, device=X.device)
         G = torch.empty((m, m), dtype=torch.float32, device=X.device)
+    row = ns * 4 * (1 if merged else bs)  # bytes from one RHS to the next
     p = _native.ptr
-    _native.launch(name, "bcg_block_stencil_spmm", X.device, p(blocks), offs, nd, bs,
-                   p(X), p(Y), p(part), p(G), k, ns, int(merged), nb)
+    for j0, j1 in chunks:
+        _native.launch(name, "bcg_block_stencil_spmm", X.device, p(blocks), offs, nd, bs,
+                       p(X) + j0 * row, p(Y) + j0 * row, p(part), p(G), j1 - j0,
+                       k if merged else j1 - j0, ns, int(merged), nb)
+    if with_gram and not fused_gram:
+        G = fused.gram(X, Y)
     return Y, G
 
 

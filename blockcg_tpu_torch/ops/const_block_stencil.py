@@ -20,16 +20,26 @@ Counterpart of ``blockcg_tpu/ops/const_block_stencil.py``; all run as
 At k = 1 the two views are the same memory; ``ConstBlockDIAOperator`` sends
 its single-RHS applies through the view's kernels, as the reference does.
 The reference's merged kernel needs m % 8 == 0 (``plan_m``, a TPU sublane
-rule) and falls back to XLA otherwise; the CUDA kernel takes any
-m = bs * k <= 64, so ``ConstBlockDIAOperator.matmat_gram_t`` always returns
-the fused Gram. Hops are the operator's (nd, bs, bs) buffer (nested tuples
-are accepted and converted on each call).
+rule) and falls back to XLA otherwise; the CUDA kernel takes any m, so
+``ConstBlockDIAOperator.matmat_gram_t`` always returns a kernel's Gram. Hops
+are the operator's (nd, bs, bs) buffer (nested tuples are accepted and
+converted on each call).
+
+Width: one launch holds at most 64 rows after bs is rounded up to a power of
+two (``rhs_width(bs)`` right-hand sides). A wider field runs as one launch
+per chunk of right-hand sides: on the merged view the chunk's rows
+``a * k + j0 .. a * k + j1`` are strided, so the kernel takes the field's
+spin stride ``ks = k`` beside the chunk's own width; on the (k, bs, ns) view
+a chunk is contiguous. A Gram wider than one launch is ``fused.gram`` of X
+and the stored Y (the merged (m, m) one, or the view's (k, k) one on the
+flat fields); the slab's with-Gram form computes its increment on the slab's
+columns alone, takes its Gram there, and adds it, so Y's bits are the
+one-launch add's.
 
 Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
 plain versions below (the reference's ``_matmat_m_xla`` roll-and-einsum, and
 an in-place slab add), CUDA float32 tensors launch the kernels. Kernel
-bounds: at most 32 diagonals, bs <= 8, and m <= 64 after bs is rounded up to
-a power of two; the wrappers raise outside them.
+bounds: at most 32 diagonals and bs <= 8; the wrappers raise outside them.
 """
 
 from __future__ import annotations
@@ -67,14 +77,12 @@ def _check_main(hops, offsets, mask_slot, masks, Xm, name: str):
         raise ValueError(f"{name}: mask slots {mask_slot} for {nmask} mask rows")
 
 
-def _check_kernel_width(bs: int, m: int, name: str) -> None:
-    """The kernel's register tile: bs <= 8 rounded up to a power of two,
-    times k, at most 64 rows."""
-    k = m // bs
-    if not 1 <= bs <= MAX_BS or not 1 <= (1 << (bs - 1).bit_length()) * k <= _native.MAX_K:
-        raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS} and "
-                         f"m = bs * k <= {_native.MAX_K} (bs rounded up to a power "
-                         f"of two); got bs={bs}, k={k}, m={m}")
+def rhs_width(bs: int, name: str = "const-hop kernel") -> int:
+    """Right-hand sides one launch takes: 64 rows over bs rounded up to a
+    power of two."""
+    if not 1 <= bs <= MAX_BS:
+        raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
+    return _native.MAX_K // (1 << (bs - 1).bit_length())
 
 
 # ------------------------------------------------------------ plain versions
@@ -168,26 +176,35 @@ def slab_v_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xv, Yv):
 def _launch_main(hops, offsets, mask_slot, masks, X, k: int, merged: bool,
                  with_gram: bool, name: str):
     """Launch on a contiguous (bs * k, ns)-shaped field X: the merged view,
-    or the (k, bs, ns) view and its flat form. Returns (Y shaped like X, the
-    (m, m) Gram on the merged view, the (k, k) one on the other, or None)."""
+    or the (k, bs, ns) view and its flat form, one launch per chunk of
+    right-hand sides. Returns (Y shaped like X, the (m, m) Gram on the
+    merged view, the (k, k) one on the other, or None)."""
+    from blockcg_tpu_torch.ops import fused
+
     nd, bs, _ = hops.shape
     m = bs * k
     ns = X.numel() // m
-    _check_kernel_width(bs, m, name)
+    chunks = _native.row_chunks(k, rhs_width(bs, name))
     if nd > MAX_DIAGS:
         raise ValueError(f"{name}: {nd} diagonals, the CUDA kernel takes at most {MAX_DIAGS}")
     offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
     slots = (ctypes.c_int * nd)(*mask_slot)
     Y = torch.empty_like(X)
     nb = _native.nblocks(ns)
+    fused_gram = with_gram and len(chunks) == 1
     part = G = None
-    if with_gram:
+    if fused_gram:
         part = torch.empty((nb, m, m), dtype=torch.float32, device=X.device)
         g = m if merged else k
         G = torch.empty((g, g), dtype=torch.float32, device=X.device)
+    row = ns * 4 * (1 if merged else bs)  # bytes from one RHS to the next
     p = _native.ptr
-    _native.launch(name, "bcg_cbs_spmm", X.device, p(hops), offs, slots, nd, bs,
-                   p(masks), p(X), p(Y), p(part), p(G), k, ns, int(merged), nb)
+    for j0, j1 in chunks:
+        _native.launch(name, "bcg_cbs_spmm", X.device, p(hops), offs, slots, nd, bs,
+                       p(masks), p(X) + j0 * row, p(Y) + j0 * row, p(part), p(G), j1 - j0,
+                       k if merged else j1 - j0, ns, int(merged), nb)
+    if with_gram and not fused_gram:
+        G = fused.gram(X, Y) if merged else fused.gram(X.reshape(k, -1), Y.reshape(k, -1))
     return Y, G
 
 
@@ -298,9 +315,23 @@ def slab_m_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
                           Gm, with_gram)
     m, ns = Xm.shape
     bs = hop.shape[-1]
-    _check_kernel_width(bs, m, name)
+    k = m // bs
+    chunks = _native.row_chunks(k, rhs_width(bs, name))
     if Ym.data_ptr() == Xm.data_ptr():
         raise ValueError(f"{name}: Y must not share X's storage")
+    if with_gram and len(chunks) > 1:
+        # On the slab's own columns: the source sites gathered into a compact
+        # field whose block j is slab j, the increment into a zeroed buffer
+        # (the same bits as the fused add), its Gram against X's destination
+        # sites, then the add.
+        from blockcg_tpu_torch.ops import fused
+
+        dst, src = slab_columns(g, nblocks, dst_mul, dst_off, src_shift, ns, Xm.device)
+        Xs = Xm[:, src]
+        dY = slab_m_accumulate(hop, g, nblocks, 1, 0, 0, Xs, torch.zeros_like(Xs))
+        G = fused.gram(Xm[:, dst], dY)
+        Ym[:, dst] += dY
+        return Ym, (G if Gm is None else Gm + G)
     nb = ns // g
     grid = _native.nblocks(nblocks * g)
     part = G = None
@@ -308,9 +339,11 @@ def slab_m_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
         part = torch.empty((grid, m, m), dtype=torch.float32, device=Xm.device)
         G = torch.empty((m, m), dtype=torch.float32, device=Xm.device)
     p = _native.ptr
-    _native.launch(name, "bcg_slab_accumulate", Xm.device, p(hop), bs, g, nblocks,
-                   dst_mul % nb, dst_off % nb, src_shift % nb, p(Xm), p(Ym),
-                   p(Gm if with_gram else None), p(part), p(G), m // bs, ns, 1, grid)
+    for j0, j1 in chunks:
+        _native.launch(name, "bcg_slab_accumulate", Xm.device, p(hop), bs, g, nblocks,
+                       dst_mul % nb, dst_off % nb, src_shift % nb, p(Xm) + j0 * ns * 4,
+                       p(Ym) + j0 * ns * 4, p(Gm if with_gram else None), p(part), p(G),
+                       j1 - j0, k, ns, 1, grid)
     return (Ym, G) if with_gram else Ym
 
 
@@ -331,13 +364,15 @@ def slab_block_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
                 None, name)
     if not _native.use_kernel(hop, Xv, Yv):
         return slab_v_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xv, Yv)
-    _check_kernel_width(bs, bs * k, name)
+    chunks = _native.row_chunks(k, rhs_width(bs, name))
     if Yv.data_ptr() == Xv.data_ptr():
         raise ValueError(f"{name}: Y must not share X's storage")
     nb = ns // g
     grid = _native.nblocks(nblocks * g)
+    row = bs * ns * 4  # bytes from one RHS to the next
     p = _native.ptr
-    _native.launch(name, "bcg_slab_accumulate", Xv.device, p(hop), bs, g, nblocks,
-                   dst_mul % nb, dst_off % nb, src_shift % nb, p(Xv), p(Yv), None,
-                   None, None, k, ns, 0, grid)
+    for j0, j1 in chunks:
+        _native.launch(name, "bcg_slab_accumulate", Xv.device, p(hop), bs, g, nblocks,
+                       dst_mul % nb, dst_off % nb, src_shift % nb, p(Xv) + j0 * row,
+                       p(Yv) + j0 * row, None, None, None, j1 - j0, j1 - j0, ns, 0, grid)
     return Yv

@@ -12,6 +12,8 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
                                                            (``csrc/xr_update.cu``)
 - ``qr_p_update(M2, Q1, rho, P)``     Q = M2 Q1, Pn = Q + rho P
                                                            (``csrc/qr_p_update.cu``)
+- ``qr_px_update(M2, Q1, rho, P, C, X)`` Q = M2 Q1, Pn = Q + rho P, Xn = X + C P
+                                                           (``csrc/qr_p_update.cu``)
 - ``cheb_step(R, Z, D, AZ, c1, c2)``  D' = c1 D + c2 (R - AZ), Z' = Z + D'
                                                            (``csrc/cheb_step.cu``)
 
@@ -28,6 +30,15 @@ caller must treat as dead afterwards; both routes honour it, so a caller that
 still reads a donated input fails on the CPU as it would on the card. Column
 i of every output depends only on column i of the inputs, which is what makes
 the kernels' in-place writes safe.
+
+Width: a kernel launch holds at most 64 output rows in registers. A wider
+field runs as one launch per chunk of output rows (``_chunks``: 64 rows, or
+32, 16 or 8 where the staged k-column coefficients would pass the card's
+shared memory), each contracting over all k input rows; a fused Gram then
+takes its diagonal blocks from the chunks' launches and its cross blocks from
+``gram`` on the stored output, laid out by the same chunks. A donated output whose chunks read rows that an earlier chunk
+would overwrite is written to a fresh buffer first and copied over. A field of
+at most 64 rows is one launch, as it always was.
 """
 
 from __future__ import annotations
@@ -81,6 +92,12 @@ def qr_p_update_plain(M2, Q1, rho, P):
     return Q.to(Q1.dtype), (Q + mm(rho, P)).to(P.dtype)
 
 
+def qr_px_update_plain(M2, Q1, rho, P, C, X):
+    Q = mm(M2, Q1)
+    return (Q.to(Q1.dtype), (Q + mm(rho, P)).to(P.dtype),
+            (X + mm(C, P)).to(X.dtype))
+
+
 def cheb_step_plain(R, Z, D, AZ, c1: float, c2: float):
     Dn = c1 * D + c2 * (R - AZ)
     return Z + Dn, Dn
@@ -89,17 +106,64 @@ def cheb_step_plain(R, Z, D, AZ, c1: float, c2: float):
 # ------------------------------------------------------------------ wrappers
 
 
-def _gram_buffers(k: int, n: int, device):
-    part = torch.empty((_native.nblocks(n), k, k), dtype=torch.float32, device=device)
-    return part, torch.empty((k, k), dtype=torch.float32, device=device)
+def _gram_buffers(k: int, n: int, device, kv: int | None = None):
+    kv = k if kv is None else kv
+    part = torch.empty((_native.nblocks(n), k, kv), dtype=torch.float32, device=device)
+    return part, torch.empty((k, kv), dtype=torch.float32, device=device)
 
 
 def _field_shape(F, name):
     if F.dim() != 2:
         raise ValueError(f"{name}: CUDA kernels take flat (k, n) fields, got {tuple(F.shape)}")
-    k, n = F.shape
-    _native.check_width(k)
-    return k, n
+    return F.shape
+
+
+def _chunks(k: int, nmat: int, with_gram: bool, name: str, device):
+    """Row chunks of a k-row coefficient update: 64 rows a launch, fewer
+    where a launch's shared memory would pass the card's cap: ``nmat`` staged
+    coefficient tables of max(k, KMAX) x KMAX floats (csrc/common.cuh
+    coeff_cols) and, with a Gram, a KMAX x (THREADS + 1) tile. A fused Gram
+    is assembled by these same chunks (``wide_gram``)."""
+    cap = _native.max_smem(device.index)
+    for w in (64, 32, 16, 8):
+        if (nmat * max(k, w) + with_gram * (_native.THREADS + 1)) * w * 4 <= cap:
+            return _native.row_chunks(k, w)
+    raise ValueError(f"{name}: {k} right-hand sides leave no room for the "
+                     f"coefficients in {cap} bytes of shared memory")
+
+
+def _launch_gram(U, V, G=None):
+    """One launch: G = U V^T of two row blocks of at most 64 rows each."""
+    ku, n = U.shape
+    kv = V.shape[0]
+    part, Gb = _gram_buffers(ku, n, U.device, kv)
+    _native.launch("gram", "bcg_gram", U.device, _native.ptr(U), _native.ptr(V),
+                   _native.ptr(part), _native.ptr(Gb), ku, kv, n, _native.nblocks(n))
+    return Gb
+
+
+def wide_gram(U, V, diag=None, chunks=None):
+    """G = U V^T of (k, n) fields wider than one launch: block (a, b) of the
+    row ``chunks`` (``row_chunks(k)`` by default) is one ``gram`` launch, or
+    ``diag[a]`` on the diagonal where a fused kernel already gave it, in which
+    case ``chunks`` must be the ones its launches ran on; when U is V the
+    lower blocks mirror the upper ones (the same products, summed in the same
+    order)."""
+    k = U.shape[0]
+    chunks = _native.row_chunks(k) if chunks is None else chunks
+    if diag is not None and len(diag) != len(chunks):
+        raise ValueError(f"wide_gram: {len(diag)} diagonal blocks for {len(chunks)} chunks")
+    same = U.data_ptr() == V.data_ptr() and U.shape == V.shape
+    G = torch.empty((k, k), dtype=torch.float32, device=U.device)
+    for a, (r0, r1) in enumerate(chunks):
+        for b, (s0, s1) in enumerate(chunks):
+            if a == b and diag is not None:
+                G[r0:r1, s0:s1] = diag[a]
+            elif same and b < a:
+                G[r0:r1, s0:s1] = G[s0:s1, r0:r1].T
+            else:
+                G[r0:r1, s0:s1] = _launch_gram(U[r0:r1], V[s0:s1])
+    return G
 
 
 def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -108,10 +172,9 @@ def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
         return gram_plain(U, V)
     k, n = _field_shape(U, "gram")
     _native.check_field(V, k, n, "gram V")
-    part, G = _gram_buffers(k, n, U.device)
-    _native.launch("gram", "bcg_gram", U.device, _native.ptr(U), _native.ptr(V),
-                   _native.ptr(part), _native.ptr(G), k, n, _native.nblocks(n))
-    return G
+    if k <= _native.MAX_K:
+        return _launch_gram(U, V)
+    return wide_gram(U, V)
 
 
 def _coeff_update(name, M1, B1, M2, B2, A, with_gram, out):
@@ -122,12 +185,21 @@ def _coeff_update(name, M1, B1, M2, B2, A, with_gram, out):
     for M, what in ((M1, "M1"), (M2, "M2")):
         if M is not None:
             _native.check_kk(M, k, f"{name} {what}")
-    Y = torch.empty_like(B1) if out is None else out
-    part, G = _gram_buffers(k, n, B1.device) if with_gram else (None, None)
+    chunks = _chunks(k, 1 if M2 is None else 2, with_gram, name, B1.device)
+    # Every chunk reads all of B1: a donated B1 must wait for the last one.
+    direct = out is None or len(chunks) == 1 or out is A
+    Y = out if out is not None and direct else torch.empty_like(B1)
     p = _native.ptr
-    _native.launch(name, "bcg_coeff_update", B1.device, p(M1), p(B1), p(M2),
-                   p(B2), p(A), p(Y), p(part), p(G), k, n, _native.nblocks(n))
-    return Y, G
+    diag = []
+    for r0, r1 in chunks:
+        part, G = _gram_buffers(r1 - r0, n, B1.device) if with_gram else (None, None)
+        _native.launch(name, "bcg_coeff_update", B1.device, p(M1[r0:r1]), p(B1),
+                       p(None if M2 is None else M2[r0:r1]), p(B2),
+                       p(None if A is None else A[r0:r1]), p(Y[r0:r1]), p(part), p(G),
+                       r1 - r0, k, n, _native.nblocks(n))
+        diag.append(G)
+    G = diag[0] if len(chunks) == 1 else wide_gram(Y, Y, diag, chunks) if with_gram else None
+    return (Y if direct else out.copy_(Y)), G
 
 
 def mm_update(M: torch.Tensor, B: torch.Tensor,
@@ -184,11 +256,16 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
         _native.check_field(F, k, n, f"px_update {what}")
     for M, what in ((M1, "M1"), (rho, "rho"), (C, "C")):
         _native.check_kk(M, k, f"px_update {what}")
-    Pn, Xn = (P, X) if donate else (torch.empty_like(P), torch.empty_like(X))
+    chunks = _chunks(k, 3, False, "px_update", W.device)
+    # Every chunk reads all of P: a donated Pn waits for the last chunk.
+    Pn = P if donate and len(chunks) == 1 else torch.empty_like(P)
+    Xn = X if donate else torch.empty_like(X)
     p = _native.ptr
-    _native.launch("px_update", "bcg_px_update", W.device, p(M1), p(W), p(rho),
-                   p(P), p(C), p(X), p(Pn), p(Xn), k, n, _native.nblocks(n))
-    return Pn, Xn
+    for r0, r1 in chunks:
+        _native.launch("px_update", "bcg_px_update", W.device, p(M1[r0:r1]), p(W),
+                       p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Pn[r0:r1]),
+                       p(Xn[r0:r1]), r1 - r0, k, n, _native.nblocks(n))
+    return (P.copy_(Pn) if donate and Pn is not P else Pn), Xn
 
 
 def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
@@ -205,13 +282,19 @@ def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
     for F, what in ((X, "X"), (Z, "Z"), (R, "R")):
         _native.check_field(F, k, n, f"xr_update_gram {what}")
     _native.check_kk(alpha, k, "xr_update_gram alpha")
+    # A chunk reads its own rows of X and R and all of P and Z, which no
+    # chunk writes: in place is safe at every width.
     Xn, Rn = (X, R) if donate else (torch.empty_like(X), torch.empty_like(R))
-    part, G = _gram_buffers(k, n, P.device)
+    chunks = _chunks(k, 1, True, "xr_update_gram", P.device)
     p = _native.ptr
-    _native.launch("xr_update_gram", "bcg_xr_update_gram", P.device, p(alpha), p(P),
-                   p(X), p(Z), p(R), p(Xn), p(Rn), p(part), p(G), k, n,
-                   _native.nblocks(n))
-    return Xn, Rn, G
+    diag = []
+    for r0, r1 in chunks:
+        part, G = _gram_buffers(r1 - r0, n, P.device)
+        _native.launch("xr_update_gram", "bcg_xr_update_gram", P.device, p(alpha[r0:r1]),
+                       p(P), p(X[r0:r1]), p(Z), p(R[r0:r1]), p(Xn[r0:r1]), p(Rn[r0:r1]),
+                       p(part), p(G), r1 - r0, k, n, _native.nblocks(n))
+        diag.append(G)
+    return Xn, Rn, (diag[0] if len(chunks) == 1 else wide_gram(Rn, Rn, diag, chunks))
 
 
 def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
@@ -228,11 +311,50 @@ def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     _native.check_field(P, k, n, "qr_p_update P")
     for M, what in ((M2, "M2"), (rho, "rho")):
         _native.check_kk(M, k, f"qr_p_update {what}")
-    Q, Pn = (Q1, P) if donate else (torch.empty_like(Q1), torch.empty_like(P))
+    chunks = _chunks(k, 2, False, "qr_p_update", Q1.device)
+    # Every chunk reads all of Q1 and P: donated outputs wait for the last.
+    direct = donate and len(chunks) == 1
+    Q, Pn = (Q1, P) if direct else (torch.empty_like(Q1), torch.empty_like(P))
     p = _native.ptr
-    _native.launch("qr_p_update", "bcg_qr_p_update", Q1.device, p(M2), p(Q1), p(rho),
-                   p(P), p(Q), p(Pn), k, n, _native.nblocks(n))
+    for r0, r1 in chunks:
+        _native.launch("qr_p_update", "bcg_qr_p_update", Q1.device, p(M2[r0:r1]), p(Q1),
+                       p(rho[r0:r1]), p(P), p(Q[r0:r1]), p(Pn[r0:r1]), r1 - r0, k, n,
+                       _native.nblocks(n))
+    if donate and not direct:
+        return Q1.copy_(Q), P.copy_(Pn)
     return Q, Pn
+
+
+def qr_px_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
+                 P: torch.Tensor, C: torch.Tensor, X: torch.Tensor, *,
+                 donate: bool = False):
+    """(Q = M2 Q1, Pn = Q + rho P, Xn = X + C P) in one pass: one read of P
+    feeds both updates. ``donate`` writes Q onto Q1, Pn onto P and Xn onto
+    X. No solver calls it (in the reference neither)."""
+    M2, rho, C = M2.contiguous(), rho.contiguous(), C.contiguous()
+    if not _native.use_kernel(M2, Q1, rho, P, C, X):
+        Q, Pn, Xn = qr_px_update_plain(M2, Q1, rho, P, C, X)
+        if donate:
+            return Q1.copy_(Q), P.copy_(Pn), X.copy_(Xn)
+        return Q, Pn, Xn
+    k, n = _field_shape(Q1, "qr_px_update")
+    for F, what in ((P, "P"), (X, "X")):
+        _native.check_field(F, k, n, f"qr_px_update {what}")
+    for M, what in ((M2, "M2"), (rho, "rho"), (C, "C")):
+        _native.check_kk(M, k, f"qr_px_update {what}")
+    chunks = _chunks(k, 3, False, "qr_px_update", Q1.device)
+    # Every chunk reads all of Q1 and P; Xn only reads its own rows of X.
+    direct = donate and len(chunks) == 1
+    Q, Pn = (Q1, P) if direct else (torch.empty_like(Q1), torch.empty_like(P))
+    Xn = X if donate else torch.empty_like(X)
+    p = _native.ptr
+    for r0, r1 in chunks:
+        _native.launch("qr_px_update", "bcg_qr_px_update", Q1.device, p(M2[r0:r1]),
+                       p(Q1), p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Q[r0:r1]),
+                       p(Pn[r0:r1]), p(Xn[r0:r1]), r1 - r0, k, n, _native.nblocks(n))
+    if donate and not direct:
+        return Q1.copy_(Q), P.copy_(Pn), Xn
+    return Q, Pn, Xn
 
 
 def cheb_step(R: torch.Tensor, Z: torch.Tensor, D: torch.Tensor, AZ: torch.Tensor,

@@ -9,7 +9,10 @@ coefficient, which makes this the truncated apply.
 
 Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
 plain roll-and-accumulate below, CUDA float32 tensors launch the kernel.
-The kernel writes Y to a fresh buffer, never onto X.
+The kernel writes Y to a fresh buffer, never onto X. The rows of a field are
+independent right-hand sides, so a field wider than one launch (64 rows) runs
+as one launch per chunk of rows; the fused Gram's cross blocks then come from
+``fused.gram`` on the stored output.
 """
 
 from __future__ import annotations
@@ -39,24 +42,30 @@ def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
 
 
 def _launch(diags, offsets, Xt, with_gram: bool, name: str):
+    from blockcg_tpu_torch.ops import fused
+
     ndiag, n = diags.shape
     k = Xt.shape[0]
-    _native.check_width(k)
     _native.check_field(Xt, k, n, name)
     if len(offsets) != ndiag or not 1 <= ndiag <= MAX_DIAGS:
         raise ValueError(f"{name}: {len(offsets)} offsets for {ndiag} "
                          f"diagonals (at most {MAX_DIAGS})")
     offs = (ctypes.c_int * ndiag)(*(int(o) % n for o in offsets))
     Y = torch.empty_like(Xt)
-    part = G = None
     nb = _native.nblocks(n)
-    if with_gram:
-        part = torch.empty((nb, k, k), dtype=torch.float32, device=Xt.device)
-        G = torch.empty((k, k), dtype=torch.float32, device=Xt.device)
-    _native.launch(name, "bcg_stencil_spmm", Xt.device, _native.ptr(diags),
-                   offs, ndiag, _native.ptr(Xt), _native.ptr(Y),
-                   _native.ptr(part), _native.ptr(G), k, n, nb)
-    return Y, G
+    chunks = _native.row_chunks(k)
+    diag = []
+    for r0, r1 in chunks:
+        part = G = None
+        if with_gram:
+            part, G = fused._gram_buffers(r1 - r0, n, Xt.device)
+        _native.launch(name, "bcg_stencil_spmm", Xt.device, _native.ptr(diags),
+                       offs, ndiag, _native.ptr(Xt[r0:r1]), _native.ptr(Y[r0:r1]),
+                       _native.ptr(part), _native.ptr(G), r1 - r0, n, nb)
+        diag.append(G)
+    if with_gram and len(chunks) > 1:
+        return Y, fused.wide_gram(Xt, Y, diag, chunks)
+    return Y, diag[0]
 
 
 def stencil_spmm_t(diags: torch.Tensor, offsets: tuple[int, ...],

@@ -3,10 +3,12 @@
 from blockcg_tpu_torch.problems.dirac import (
     bdia_scipy,
     dirac_bdia,
+    dirac_bell,
     dirac_cbdia,
     dirac_gauged,
     dirac_gauged_cbdia,
     dirac_gauged_matrix,
+    dirac_scipy,
     hopping_matrices,
 )
 from blockcg_tpu_torch.problems.dirac_eo import (
@@ -19,12 +21,23 @@ from blockcg_tpu_torch.problems.dirac_eo import (
     solve_dirac_eo,
     solve_dirac_eo_shifted,
 )
-from blockcg_tpu_torch.problems.laplacian import laplacian_dia, laplacian_scipy
+from blockcg_tpu_torch.problems.laplacian import (
+    laplacian_csr,
+    laplacian_dia,
+    laplacian_ell,
+    laplacian_scipy,
+)
 from blockcg_tpu_torch.problems.random_spd import (
     random_block,
     random_block_c,
     random_hpd,
     random_spd,
+)
+from blockcg_tpu_torch.problems.unstructured import (
+    delaunay_laplacian,
+    random_regular_spd,
+    rgg_laplacian,
+    uniform_random_spd,
 )
 from blockcg_tpu_torch.problems.presets import (
     PRESETS,
@@ -44,7 +57,9 @@ __all__ = [
     "config4_dirac_32",
     "bdia_scipy",
     "config5_sbcgrq_3d_256",
+    "delaunay_laplacian",
     "dirac_bdia",
+    "dirac_bell",
     "dirac_cbdia",
     "dirac_eo",
     "dirac_gauged",
@@ -52,15 +67,21 @@ __all__ = [
     "dirac_gauged_eo",
     "dirac_gauged_matrix",
     "dirac_gauged_matrix_eo",
+    "dirac_scipy",
     "eo_assemble",
     "eo_split",
     "hopping_matrices",
+    "laplacian_csr",
     "laplacian_dia",
+    "laplacian_ell",
     "laplacian_scipy",
     "random_block",
     "random_block_c",
     "random_hpd",
+    "random_regular_spd",
     "random_spd",
+    "rgg_laplacian",
     "solve_dirac_eo",
     "solve_dirac_eo_shifted",
+    "uniform_random_spd",
 ]

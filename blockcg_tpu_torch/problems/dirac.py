@@ -25,6 +25,9 @@ Two containers:
   ``dirac_gauged_matrix``): per-site blocks, for links that vary per site;
   matrix-valued (orthogonal or unitary) links exist only here.
 
+``dirac_bell`` builds the same matrix as a ``BSROperator`` in site-major
+order (general block sparsity), and ``dirac_scipy`` exports that form.
+
 The numpy construction is carried over as it is, since the port may not
 import the reference package: masks, hops, blocks, offsets, slots, slabs,
 ``wrap_zero`` and nnz come out bitwise the reference's. The reference's
@@ -40,6 +43,7 @@ import torch
 
 from blockcg_tpu_torch.operators.base import assert_wrap_zero
 from blockcg_tpu_torch.operators.bdia import BlockDIAOperator
+from blockcg_tpu_torch.operators.bsr import BSROperator
 from blockcg_tpu_torch.operators.cbdia import ConstBlockDIAOperator, detect_slabs
 from blockcg_tpu_torch.operators.realify import (
     RealifiedHermitianOperator,
@@ -422,3 +426,55 @@ def bdia_scipy(op: BlockDIAOperator):
     cols = np.concatenate(cols)
     data = np.concatenate(data)
     return sp.coo_matrix((data, (rows, cols)), shape=(n, n)).tocsr()
+
+
+def dirac_bell(L: int, m: float = 0.5, dtype: torch.dtype = torch.float32, seed: int = 7,
+               bc: str = "periodic", device="cuda") -> BSROperator:
+    """The operator as a ``BSROperator`` (block-ELL, site-major rows:
+    row ``s * 4 + a``): slot 0 the diagonal block, then the +mu and -mu hops
+    of each axis. ``nnz`` counts the nonzero block entries."""
+    np_dtype, cplx, H, n_sites, coords, strides = _setup(L, bc, dtype, seed, "dirac_bell")
+    wb = 1 + 2 * _NDIM
+    idx = np.arange(n_sites)
+    cols = np.empty((n_sites, wb), dtype=np.int64)
+    vals = np.empty((n_sites, wb, BS, BS), dtype=np_dtype)
+    cols[:, 0] = idx
+    vals[:, 0] = (m * m + 2.0 * _NDIM) * np.eye(BS, dtype=np_dtype)
+    slot = 1
+    for ax in range(_NDIM):
+        st = strides[ax]
+        c = coords[ax]
+        if bc == "periodic":
+            up = idx + st * np.where(c == L - 1, 1 - L, 1)
+            dn = idx + st * np.where(c == 0, L - 1, -1)
+            up_mask = np.ones(n_sites, bool)
+            dn_mask = np.ones(n_sites, bool)
+        else:
+            up = np.where(c < L - 1, idx + st, idx)
+            dn = np.where(c > 0, idx - st, idx)
+            up_mask = c < L - 1
+            dn_mask = c > 0
+        cols[:, slot] = up
+        vals[:, slot] = np.where(up_mask[:, None, None], -H[ax], 0.0)
+        cols[:, slot + 1] = dn
+        vals[:, slot + 1] = np.where(dn_mask[:, None, None], -H[ax].conj().T, 0.0)
+        slot += 2
+    return BSROperator(torch.from_numpy(vals).to(device), torch.from_numpy(cols).to(device),
+                       int(np.count_nonzero(vals)))
+
+
+def dirac_scipy(L: int, m: float = 0.5, seed: int = 7, bc: str = "periodic"):
+    """scipy CSR export of the BSR (site-major) form in f64 for small L
+    (duplicates summed, which handles L = 2, where +mu and -mu coincide)."""
+    import scipy.sparse as sp
+
+    op = dirac_bell(L, m=m, dtype=torch.float64, seed=seed, bc=bc, device="cpu")
+    nbr, wb = op.cols.shape
+    vals = op.vals.numpy()
+    cols = op.cols.numpy()
+    n = nbr * BS
+    br = np.repeat(np.arange(nbr), wb)
+    sub_r, sub_c = np.meshgrid(np.arange(BS), np.arange(BS), indexing="ij")
+    rows = (br[:, None, None] * BS + sub_r[None]).reshape(-1)
+    ccols = (cols.reshape(-1)[:, None, None] * BS + sub_c[None]).reshape(-1)
+    return sp.coo_matrix((vals.reshape(-1), (rows, ccols)), shape=(n, n)).tocsr()

@@ -1,6 +1,7 @@
 """Laplacian problem generators.
 
-Counterpart of ``blockcg_tpu/problems/laplacian.py`` (DIA and scipy exports).
+Counterpart of ``blockcg_tpu/problems/laplacian.py``: DIA, ELL and CSR
+operators and the scipy export.
 The band construction is numpy and is carried over as it is, since the port
 may not import the reference package.
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from blockcg_tpu_torch.operators.base import assert_wrap_zero
+from blockcg_tpu_torch.operators.csr import CSROperator, ELLOperator
 from blockcg_tpu_torch.operators.dia import DIAOperator
 
 
@@ -83,3 +85,23 @@ def laplacian_scipy(shape: tuple[int, ...]):
         else:
             arrs.append(diags[d, -o:])
     return sp.diags(arrs, offsets, shape=(n, n), format="csr")
+
+
+def laplacian_ell(shape: tuple[int, ...], dtype: torch.dtype = torch.float32,
+                  device="cuda") -> ELLOperator:
+    """Dirichlet Laplacian as an ELLOperator (width 2 * ndim + 1). A slot past
+    the boundary keeps a clipped, valid column index; its value is exactly
+    0, so the gather is inert. ``nnz`` counts the nonzero values."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    offsets, diags = _laplacian_bands(tuple(shape), np_dtype)
+    n = diags.shape[1]
+    vals = np.ascontiguousarray(diags.T)  # (n, w)
+    idx = np.arange(n)
+    cols = np.stack([np.clip(idx + o, 0, n - 1) for o in offsets], axis=1)
+    return ELLOperator(torch.from_numpy(vals).to(device, dtype),
+                       torch.from_numpy(cols).to(device), int(np.count_nonzero(vals)))
+
+
+def laplacian_csr(shape: tuple[int, ...], dtype: torch.dtype = torch.float32,
+                  device="cuda") -> CSROperator:
+    return CSROperator.from_scipy(laplacian_scipy(shape), dtype=dtype, device=device)

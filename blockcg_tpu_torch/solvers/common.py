@@ -187,6 +187,16 @@ def f_qr_p_update(M2, Q1t, rho, Pt, codec=None, donate: bool = False):
     return fused.qr_p_update(_ce(codec, M2), Q1t, _ce(codec, rho), Pt, donate=donate)
 
 
+def f_qr_px_update(M2, Q1t, rho, Pt, C, Xt, codec=None, donate: bool = False):
+    """(Q = M2 @ Q1, Pn = Q + rho @ P, Xn = X + C @ P) in one pass: the
+    fused SBCGrQ iteration tail, one read of P for both updates. ``donate``
+    writes Q onto Q1, Pn onto P and Xn onto X."""
+    from blockcg_tpu_torch.ops import fused
+
+    return fused.qr_px_update(_ce(codec, M2), Q1t, _ce(codec, rho), Pt, _ce(codec, C), Xt,
+                              donate=donate)
+
+
 def f_matmat_gram(op, Xt):
     """(Z = A X, M = X^H Z), with the Gram fused into the operator apply when
     the operator supports it."""

@@ -28,13 +28,27 @@ RHS beside capped unpreconditioned SBCGrQ (``[precond]``), Chebyshev SBCGrQ
 on config 3 and at 128^3 (``[cheb]``), and the even-odd Schur path on 32^4
 (``[eo]``: ``solve_dirac_eo`` on ``dirac_eo(32)`` with config 4's 12 RHS,
 twice and against config 4's full solve, its CG on one column, the
-multi-shift solve, the matrix-link and the U(1) complex contexts). Each
-phase prints one or a few lines; any failure raises, and the process exits
+multi-shift solve, the matrix-link and the U(1) complex contexts); then
+fields of 96 rows, above one launch's 64 (``[kernel]`` lines at m = 96 for
+every kernel the row-chunked launches serve, the fused Grams again at 800
+rows, where shared memory leaves room for 32-row launches only, and
+``[wide]``: config 4 with 24 RHS and the even-odd multi-shift solve with
+12); ``qr_px_update``
+against its plain version and against the pair it fuses; and general
+sparsity: ``[sparse]`` (``rgg_laplacian(524288, degree=40)`` through
+``from_scipy_auto``, which must pick the RCM tile format, SBCGrQ with 32 RHS
+twice, bitwise identical, and ``solve_refined`` to 1e-10 with f32 tiles,
+twice, bitwise identical, and with bf16 tiles; ``tiled_spmm_t`` at that
+shape), ``[scattered]`` (the reference's
+``bench_scattered.py`` problems in the CSR, ELL and tile formats) and
+``[bell]`` (config 4's matrix as site-major BSR against the const-hop
+solve). Each phase prints one or a few lines; any failure raises, and the process exits
 non-zero. The last two lines are the kernels' JSON record, whose launch
 counts are those of each kernel's own path (the north-star solves, config 4,
 configs 1 and 2, the multi-shift solves, the matrix-link solves, the
-Chebyshev solves or the even-odd CG; the (k, bs, ns) Gram has no solver
-caller and counts 0), with each kernel's bound
+Chebyshev solves, the even-odd CG or the sparse solves; the (k, bs, ns)
+Gram and ``qr_px_update`` have no solver caller and count 0), with each
+kernel's bound
 (the larger of its contract's bytes over 3.35 TB/s and its FLOPs over 67
 TFLOP/s, the H100 SXM's data-sheet peaks) and, where one PyTorch call
 computes the same function, that call's time; and the run's JSON result. It
@@ -93,6 +107,8 @@ KERNELS = {
                                         "blockcg_tpu/ops/const_block_stencil.py:361"),
     "slab_block_accumulate": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                               "blockcg_tpu/ops/const_block_stencil.py:691"),
+    "tiled_spmm_t": ("blockcg_tpu_torch/csrc/spmm_tiled.cu", "blockcg_tpu/ops/spmm_tiled.py:63"),
+    "qr_px_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:795"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -106,7 +122,7 @@ BS_KERNELS = ("block_stencil_spmm_m_t", "block_stencil_spmm_m_gram_t", "block_st
 VIEW_KERNELS = ("const_block_stencil_spmm_t", "slab_block_accumulate")
 NORTH_STAR_KERNELS = tuple(w for w in KERNELS if w not in (
     *CBS_KERNELS, *BS_KERNELS, *VIEW_KERNELS, "const_block_stencil_spmm_gram_t",
-    "xr_update_gram", "qr_p_update", "cheb_step"))
+    "xr_update_gram", "qr_p_update", "cheb_step", "tiled_spmm_t", "qr_px_update"))
 CONFIG3_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update",
                     "mm2_update_gram", "px_update")
 # Every SBCGrQ solve at qr_passes=1 launches these fused kernels
@@ -143,10 +159,10 @@ CG1_TRUE_RELRES = 5e-5
 # tol 1e-6 on an operator with cond(A) <= 65, so their X may differ by about
 # cond * tol.
 EO_X_RTOL = 1e-4
-EO_COMPLEX_K = 6  # 32 diagonals at bs = 8: pow2(8) * k <= 64 allows k <= 8
+EO_COMPLEX_K = 6  # 6 complex RHS: 12 real columns on the bs = 8 realified context
 # The even-odd multi-shift solve runs on [b_e | H_eo b_o], 2k columns: k = 6
-# of config 4's RHS keep its merged fields at config 4's m = 48 (the fused
-# kernels take m <= 64).
+# of config 4's RHS keep its merged fields at config 4's m = 48, one launch
+# a kernel (``[wide]`` runs all 12 RHS, m = 96, as row-chunked launches).
 EO_SHIFTED_K = 6
 PRECOND_SHAPE = (128, 128, 128)
 PRECOND_CAP = 500  # unpreconditioned SBCGrQ does not converge in f32: capped
@@ -154,6 +170,31 @@ CHEB_RUNS = ((64, 6), (128, 4))  # (Laplacian edge, Chebyshev degree), k = 32
 # cheb_step's widths: the 128^3 Chebyshev solve's (32, 2,097,152), config 4's
 # merged (48, 32^4).
 CHEB_STEP_SHAPES = ((K, 128 ** 3), (4 * DIRAC_K, DIRAC_L ** 4))
+# General sparsity: the largest RGG graph the reference's default tile budget
+# (8 GiB) takes at degree 40, 32 RHS.
+SPARSE_N = 524288
+SPARSE_DEGREE = 40
+SPARSE_K = 32
+SPARSE_WIDE_K = 96  # tiled_spmm_t above the other kernels' 64 rows a launch
+SCATTERED_N = 32768  # bench_scattered.py's size (16,384 for the no-locality graphs)
+# Fields wider than one launch: m = 96 rows (24 RHS on config 4, 12 RHS of
+# the even-odd multi-shift solve on 2k = 24 columns).
+WIDE_M = 96
+WIDE_CONFIG4_K = 24
+# A width whose staged k-column coefficients leave room in shared memory for
+# 32-row launches only (64 rows stop at k = 389 for mm2_update_gram, 778 for
+# xr_update_gram), on a short field.
+NARROW_CHUNK_K = 800
+NARROW_CHUNK_N = 2 ** 16
+# The fused SBCGrQ tail against the pair it replaces: (32, 128^3), (48, 32^4).
+QR_PX_SHAPES = ((K, 128 ** 3), (4 * DIRAC_K, DIRAC_L ** 4))
+# dirac_bell(32) (site-major BSR) against config 4's const-hop solve.
+BELL_X_RTOL = 1e-6
+# The m = 96 solves (config 4's SBCGrQ on 24 RHS, the even-odd multi-shift
+# solve on 12) launch these, each as row-chunked launches.
+WIDE_WRAPPERS = ("const_block_stencil_spmm_m_t", "slab_m_accumulate", "gram",
+                 "mm2_update_gram", "px_update", "qr_p_update")
+SPARSE_WRAPPERS = ("tiled_spmm_t", "gram", "mm2_update_gram", "px_update")
 
 
 def median_ms(torch, fn) -> float:
@@ -1200,6 +1241,472 @@ def phase_eo(torch, dev) -> dict:
     return cg_counts
 
 
+def phase_wide_kernels(torch, dev, records) -> None:
+    """Every kernel the width repair touches, at m = 96 rows (above one
+    launch's 64) against its plain version: the fused updates and the Gram
+    on config 4's merged width (ns = 32^4, ``I_4 ⊗ C``), fresh and donated;
+    ``mm2_update_gram`` and ``xr_update_gram`` at 800 rows, where shared
+    memory leaves room for 32-row launches only, so their Grams are laid out
+    by those chunks; the DIA stencil on config 3's 64^3 Laplacian; the const-hop kernels on
+    config 4's operator with 24 RHS (merged, the (24, 4, ns) view, both slab
+    adds); the block stencil on random per-site blocks (16^4 sites, bs = 4,
+    k = 24). These checks fold into the records' max_abs_err only."""
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.ops import fused, stencil
+    from blockcg_tpu_torch.problems import dirac_cbdia, laplacian_dia
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    m, bs = WIDE_M, 4
+    k = m // bs
+    op = dirac_cbdia(DIRAC_L, device=dev)
+    ns = op.ns
+
+    def is_gram(w):
+        return w.dim() == 2 and w.shape[0] == w.shape[1] == m or w.shape == (k, k)
+
+    def coeff():
+        C = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
+        return torch.kron(torch.eye(bs, device=dev), C)
+    M1, M2, M3 = coeff(), coeff(), coeff()
+    F = [torch.randn((m, ns), generator=gen, device=dev) for _ in range(4)]
+    fb, gb, gf = nbytes(F[0]), m * m * 4, 2 * m * m * ns
+    what = f"ns={ns} m={m} I_{bs}⊗C"
+
+    def both_ways(name, fn, plain, nf, work):
+        """``fn(*fields, donate)`` fresh, then donated (on fresh copies)."""
+        def want():
+            return _tuple(plain(*F[:nf]))
+        _timed_check(torch, name, f"{what} fresh", lambda: _tuple(fn(*F[:nf], False)), want,
+                     is_gram, records, work=work)
+        bufs = [f.clone() for f in F[:nf]]
+
+        def in_place():
+            return _tuple(fn(*bufs, True))
+
+        def kern():
+            for b, f in zip(bufs, F):
+                b.copy_(f)
+            return in_place()
+        _timed_check(torch, name, f"{what} in place", kern, want, is_gram, records,
+                     timed=(in_place, want), work=work)
+
+    _timed_check(torch, "gram", what, lambda: (None, fused.gram(F[0], F[1])),
+                 lambda: (None, fused.gram_plain(F[0], F[1])), is_gram, records,
+                 work=(2 * fb + gb, gf))
+    mm = (nbytes(M1) + 2 * fb, 2 * ns * nnz(M1))
+    both_ways("mm_update", lambda b, a, d: fused.mm_update(M1, b, a, donate="a" if d else None),
+              lambda b, a: fused.mm_update_plain(M1, b, a), 2, (mm[0] + fb, mm[1]))
+    both_ways("mm_update_gram", lambda b, d: fused.mm_update_gram(M1, b, donate=d),
+              lambda b: fused.mm_update_gram_plain(M1, b), 1, (mm[0] + gb, mm[1] + gf))
+    both_ways("mm2_update_gram", lambda b1, b2, d: fused.mm2_update_gram(M1, b1, M2, b2, donate=d),
+              lambda b1, b2: fused.mm2_update_gram_plain(M1, b1, M2, b2), 2,
+              (nbytes(M1, M2) + 3 * fb + gb, 2 * ns * nnz(M1, M2) + gf))
+    both_ways("px_update", lambda w, p, x, d: fused.px_update(M1, w, M2, p, M3, x, donate=d),
+              lambda w, p, x: fused.px_update_plain(M1, w, M2, p, M3, x), 3,
+              (nbytes(M1, M2, M3) + 5 * fb, 2 * ns * nnz(M1, M2, M3)))
+    both_ways("xr_update_gram",
+              lambda p, x, z, r, d: fused.xr_update_gram(M1, p, x, z, r, donate=d),
+              lambda p, x, z, r: fused.xr_update_gram_plain(M1, p, x, z, r), 4,
+              (nbytes(M1) + 6 * fb + gb, 4 * ns * nnz(M1) + gf))
+    both_ways("qr_p_update", lambda q, p, d: fused.qr_p_update(M1, q, M2, p, donate=d),
+              lambda q, p: fused.qr_p_update_plain(M1, q, M2, p), 2,
+              (nbytes(M1, M2) + 4 * fb, 2 * ns * nnz(M1, M2)))
+
+    kw, nw = NARROW_CHUNK_K, NARROW_CHUNK_N
+    Mw = [torch.randn((kw, kw), generator=gen, device=dev) / kw ** 0.5 for _ in range(2)]
+    Fw = [torch.randn((kw, nw), generator=gen, device=dev) for _ in range(4)]
+    wb, wg = nbytes(Fw[0]), (kw * kw * 4, 2 * kw * kw * nw)
+    what_w = f"n={nw} k={kw} (32-row launches)"
+
+    def is_gram_w(w):
+        return w.shape == (kw, kw)
+    _timed_check(torch, "mm2_update_gram", what_w,
+                 lambda: fused.mm2_update_gram(Mw[0], Fw[0], Mw[1], Fw[1]),
+                 lambda: fused.mm2_update_gram_plain(Mw[0], Fw[0], Mw[1], Fw[1]), is_gram_w,
+                 records, work=(nbytes(*Mw) + 3 * wb + wg[0], 4 * kw * kw * nw + wg[1]))
+    _timed_check(torch, "xr_update_gram", what_w, lambda: fused.xr_update_gram(Mw[0], *Fw),
+                 lambda: fused.xr_update_gram_plain(Mw[0], *Fw), is_gram_w, records,
+                 work=(nbytes(Mw[0]) + 6 * wb + wg[0], 4 * kw * kw * nw + wg[1]))
+    del Mw, Fw
+
+    Xm, Ym = F[0], F[1]
+    main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main)
+    mwork = (nbytes(op.hops_main, op.masks_main) + 2 * fb, 2 * k * _cbs_nnz(op, True))
+    _timed_check(torch, "const_block_stencil_spmm_m_t", f"config 4 ns={ns} m={m}",
+                 lambda: (cbs.const_block_stencil_spmm_m_t(*main, Xm), None),
+                 lambda: cbs.const_block_stencil_plain(*main, Xm), is_gram, records, work=mwork)
+    _timed_check(torch, "const_block_stencil_spmm_m_gram_t", f"config 4 ns={ns} m={m}",
+                 lambda: cbs.const_block_stencil_spmm_m_gram_t(*main, Xm),
+                 lambda: cbs.const_block_stencil_plain(*main, Xm, True), is_gram, records,
+                 work=(mwork[0] + gb, mwork[1] + gf))
+    Xv = Xm.reshape(k, bs, ns)
+    _timed_check(torch, "const_block_stencil_spmm_t", f"config 4 ({k}, {bs}, {ns})",
+                 lambda: (cbs.const_block_stencil_spmm_t(*main, Xv), None),
+                 lambda: cbs.const_block_stencil_v_plain(*main, Xv), is_gram, records,
+                 work=mwork)
+    _timed_check(torch, "const_block_stencil_spmm_gram_t", f"config 4 ({k}, {bs}, {ns})",
+                 lambda: cbs.const_block_stencil_spmm_gram_t(*main, Xv),
+                 lambda: cbs.const_block_stencil_v_plain(*main, Xv, True), is_gram, records,
+                 work=(mwork[0] + 4 * k * k, mwork[1] + 2 * k * k * bs * ns))
+    d, g, nblocks, mul, off, shift = op.slabs[0]
+    cols = g * nblocks
+    Gm = torch.randn((m, m), generator=gen, device=dev)
+    Yk, Yp = Ym.clone(), Ym.clone()
+    slab = (op.hops_all[d], g, nblocks, mul, off, shift, Xm)
+    swork = (3 * 4 * m * cols, 2 * k * nnz(op.hops_all[d]) * cols)
+    for with_gram in (False, True):
+        _timed_check(torch, "slab_m_accumulate", f"config 4 m={m} slab" + " with Gram" * with_gram,
+                     lambda: _tuple((Yk.copy_(Ym), cbs.slab_m_accumulate(
+                         *slab, Yk, Gm, with_gram=with_gram))[1]),
+                     lambda: _tuple((Yp.copy_(Ym), cbs.slab_plain(*slab, Yp, Gm, with_gram))[1]),
+                     is_gram, records, work=swork,
+                     timed=(lambda: cbs.slab_m_accumulate(*slab, Yk, Gm, with_gram=with_gram),
+                            lambda: cbs.slab_plain(*slab, Yp, Gm, with_gram)))
+    Yvk, Yvp = Yk.reshape(k, bs, ns), Yp.reshape(k, bs, ns)
+    vslab = (op.hops_all[d], g, nblocks, mul, off, shift, Xv)
+    _timed_check(torch, "slab_block_accumulate", f"config 4 ({k}, {bs}, {ns}) slab",
+                 lambda: (Yvk.copy_(Ym.reshape(k, bs, ns)), cbs.slab_block_accumulate(
+                     *vslab, Yvk))[1:],
+                 lambda: (Yvp.copy_(Ym.reshape(k, bs, ns)), cbs.slab_v_plain(*vslab, Yvp))[1:],
+                 is_gram, records, work=swork,
+                 timed=(lambda: cbs.slab_block_accumulate(*vslab, Yvk),
+                        lambda: cbs.slab_v_plain(*vslab, Yvp)))
+    del F, Xm, Ym, Yk, Yp, Xv, Yvk, Yvp, op, main, slab, vslab
+    torch.cuda.empty_cache()
+
+    lap = laplacian_dia(SHAPES[1], device=dev)
+    X = torch.randn((m, lap.n), generator=gen, device=dev)
+    swork = (nbytes(lap.diags) + 2 * nbytes(X), 2 * m * nnz(lap.diags))
+    _timed_check(torch, "stencil_spmm_t", f"n={lap.n} k={m}",
+                 lambda: (stencil.stencil_spmm_t(lap.diags, lap.offsets, X), None),
+                 lambda: stencil.stencil_spmm_plain(lap.diags, lap.offsets, X), is_gram,
+                 records, work=swork)
+    _timed_check(torch, "stencil_spmm_gram_t", f"n={lap.n} k={m}",
+                 lambda: stencil.stencil_spmm_gram_t(lap.diags, lap.offsets, X),
+                 lambda: stencil.stencil_spmm_plain(lap.diags, lap.offsets, X, True), is_gram,
+                 records, work=(swork[0] + gb, swork[1] + 2 * m * m * lap.n))
+    del lap, X
+    bns = 16 ** 4
+    offsets = (0, 1, -1, 16, -16, 256, -256, 4096, -4096)
+    blocks = torch.randn((len(offsets), bs, bs, bns), generator=gen, device=dev)
+    Xb = torch.randn((m, bns), generator=gen, device=dev)
+    bwork = (nbytes(blocks, Xb, Xb), 2 * k * nnz(blocks))
+    what = f"random blocks ns={bns} bs={bs} k={k} m={m}"
+    _timed_check(torch, "block_stencil_spmm_m_t", what,
+                 lambda: (bsk.block_stencil_spmm_m_t(blocks, offsets, Xb), None),
+                 lambda: bsk.block_stencil_plain(blocks, offsets, Xb), is_gram, records,
+                 work=bwork)
+    _timed_check(torch, "block_stencil_spmm_m_gram_t", what,
+                 lambda: bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xb),
+                 lambda: bsk.block_stencil_plain(blocks, offsets, Xb, True), is_gram, records,
+                 work=(bwork[0] + gb, bwork[1] + 2 * m * m * bns))
+    Xbv = Xb.reshape(k, bs, bns)
+    _timed_check(torch, "block_stencil_spmm_t", f"random blocks ({k}, {bs}, {bns}) view",
+                 lambda: (bsk.block_stencil_spmm_t(blocks, offsets, Xbv), None),
+                 lambda: (bsk.block_stencil_v_plain(blocks, offsets, Xbv), None), is_gram,
+                 records, work=bwork)
+    del blocks, Xb, Xbv
+    torch.cuda.empty_cache()
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def phase_qr_px(torch, dev, records) -> None:
+    """``qr_px_update`` against its plain version at (32, 128^3) and config
+    4's merged (48, 32^4) on ``I_4 ⊗ C``, fresh and in place (from fresh
+    copies), and timed against the pair it replaces, ``qr_p_update`` then
+    ``mm_update``. The record takes the first shape's times."""
+    from blockcg_tpu_torch.ops import fused
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for k, n in QR_PX_SHAPES:
+        bs = 1 if n == 128 ** 3 else 4
+
+        def coeff():
+            C = torch.randn((k // bs, k // bs), generator=gen, device=dev) / (k // bs) ** 0.5
+            return torch.kron(torch.eye(bs, device=dev), C)
+        M2, rho, C = coeff(), coeff(), coeff()
+        Q1, P, X = (torch.randn((k, n), generator=gen, device=dev) for _ in range(3))
+        fb = nbytes(Q1)
+        work = (nbytes(M2, rho, C) + 6 * fb, 2 * n * nnz(M2, rho, C))
+        what = f"({k}, {n})" + (f" I_{bs}⊗C" if bs > 1 else "")
+
+        def want():
+            return fused.qr_px_update_plain(M2, Q1, rho, P, C, X)
+        _timed_check(torch, "qr_px_update", f"{what} fresh",
+                     lambda: fused.qr_px_update(M2, Q1, rho, P, C, X), want, lambda w: False,
+                     records, work=work)
+        bufs = [Q1.clone(), P.clone(), X.clone()]
+
+        def in_place():
+            return fused.qr_px_update(M2, bufs[0], rho, bufs[1], C, bufs[2], donate=True)
+
+        def kern():
+            for b, f in zip(bufs, (Q1, P, X)):
+                b.copy_(f)
+            return in_place()
+        _timed_check(torch, "qr_px_update", f"{what} in place", kern, want, lambda w: False,
+                     records, timed=(in_place, want), work=work)
+
+        def pair():
+            Q, Pn = fused.qr_p_update(M2, Q1, rho, P)
+            return Q, Pn, fused.mm_update(C, P, X)
+        fused_ms, pair_ms = (median_ms(torch, fn) for fn in (
+            lambda: fused.qr_px_update(M2, Q1, rho, P, C, X), pair))
+        print(f"[kernel] qr_px_update {what}: {fused_ms:.4f} ms against qr_p_update + "
+              f"mm_update {pair_ms:.4f} ms (6 field passes against 7)")
+        del Q1, P, X, bufs
+        torch.cuda.empty_cache()
+
+
+def _sparse_work(op, k):
+    """(bytes, FLOPs) of one tiled apply: every tile read once, X read once
+    and Y written once, the row pointers and indices; 2 k T^2 FLOPs a
+    tile."""
+    return (nbytes(op.tiles, op.rt, op.ct, op.first, op.row_ptr) + 2 * 4 * k * op.n,
+            2 * op.ntiles * k * 128 * 128)
+
+
+def _bsr_library(torch, op, Xt):
+    """One PyTorch call computing the same product: A (a torch BSR tensor of
+    the same tiles, blocksize 128, columns sorted in each row) times the
+    dense X^T. Returns (callable, None) or (None, why)."""
+    try:
+        order = torch.argsort(op.rt.long() * (op.n // 128) + op.ct.long())
+        A = torch.sparse_bsr_tensor(op.row_ptr.long(), op.ct[order].long(),
+                                    op.tiles[order].float(), size=(op.n, op.n))
+        X = Xt.T.contiguous()
+
+        def call():
+            return A @ X
+        Y = call()
+        torch.cuda.synchronize()
+        if not torch.allclose(Y.T, op.matmat_t(Xt), rtol=1e-4, atol=1e-4 * float(Y.abs().max())):
+            return None, "torch's BSR product disagrees with the kernel"
+        return call, None
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+
+
+def phase_sparse_kernel(torch, dev, records, op) -> None:
+    """``tiled_spmm_t`` against its plain version at the ``[sparse]`` shape
+    (the RCM tiles of the RGG graph, k = 32) with f32 and with bf16 tiles,
+    and at k = 96 (one launch at KMAX = 128): kernel, plain, bound and library ms, and
+    Gnnz/s on the logical nonzeros. The record takes the f32, k = 32 times."""
+    from blockcg_tpu_torch.operators import TiledOperator
+    from blockcg_tpu_torch.ops import spmm_tiled
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = TiledOperator(op.tiles.to(torch.bfloat16), op.rt, op.ct, op.first, op.n, op.perm,
+                       op.n0, op.nnz_logical)
+    for o, k, label in ((op, SPARSE_K, "f32 tiles"), (bf, SPARSE_K, "bf16 tiles"),
+                        (op, SPARSE_WIDE_K, "f32 tiles")):
+        Xt = torch.randn((k, o.n), generator=gen, device=dev)
+        library, why = _bsr_library(torch, o, Xt)
+        args = (o.tiles, o.rt, o.ct, o.first)
+        ms = _timed_check(torch, "tiled_spmm_t", f"n={o.n} k={k} {label} {o.ntiles} tiles",
+                          lambda: (spmm_tiled.tiled_spmm_t(*args, Xt, o.row_ptr), None),
+                          lambda: (spmm_tiled.tiled_spmm_plain(o.tiles, o.rt, o.ct, Xt), None),
+                          lambda w: False, records, work=_sparse_work(o, k), library=library)
+        x_per_tile = nbytes(o.tiles) + 4 * k * 128 * o.ntiles + 4 * k * o.n
+        print(f"[kernel] tiled_spmm_t k={k} {label}: {o.nnz / ms / 1e6:.2f} Gnnz/s on "
+              f"{o.nnz} logical nonzeros (fill {o.fill:.4%}); bound with X read once a tile: "
+              f"{bound_ms(x_per_tile, _sparse_work(o, k)[1])[0]:.4f} ms; library: "
+              + ("torch BSR @ dense" if why is None else f"none ({why})"))
+        del Xt
+    del bf
+    torch.cuda.empty_cache()
+
+
+def phase_sparse(torch, dev, records) -> dict:
+    """General sparsity at full size: ``rgg_laplacian(524288, degree=40)``
+    through ``from_scipy_auto`` (which must pick the RCM tile format, with the
+    native tilizer), 32 RHS from ``default_rng(0)`` in the original order
+    through ``to_solver_order`` -> ``solve_sbcgrq`` (tol 1e-6, twice, bitwise
+    identical, true f64 relres against scipy's matrix <= 1e-5) ->
+    ``from_solver_order``; then ``solve_refined`` to 1e-10 with the f64 CSR
+    outer operator in internal order, with f32 and with bf16 tiles. Then
+    the kernel checks at this shape. Returns the solves' launch counts."""
+    from blockcg_tpu_torch import native, solve_refined, solve_sbcgrq
+    from blockcg_tpu_torch.operators import CSROperator, TiledOperator, from_scipy_auto
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import rgg_laplacian
+
+    a, gen_s = _timed(torch, lambda: rgg_laplacian(SPARSE_N, degree=SPARSE_DEGREE, seed=0))
+    op, auto_s = _timed(torch, lambda: from_scipy_auto(a, torch.float32, verbose=True,
+                                                       device=dev))
+    if not (isinstance(op, TiledOperator) and op.perm is not None and native.have_native()):
+        raise AssertionError(f"[sparse] from_scipy_auto picked {type(op).__name__} (perm "
+                             f"{op.perm is not None if hasattr(op, 'perm') else None}, native "
+                             f"tilizer {native.have_native()}): expected TiledOperator + RCM")
+    print(f"[sparse] rgg_laplacian({SPARSE_N}, degree={SPARSE_DEGREE}) nnz={a.nnz} built in "
+          f"{gen_s:.1f} s; from_scipy_auto -> TiledOperator + RCM in {auto_s:.1f} s (native "
+          f"tilizer {native.library_path().name}): fill {op.fill:.4%}, {op.ntiles} tiles, "
+          f"{nbytes(op.tiles) / 1e9:.3f} GB of f32 tiles")
+    rng = np.random.default_rng(0)
+    Bn = rng.standard_normal((a.shape[0], SPARSE_K))
+    B = torch.as_tensor(Bn, dtype=torch.float32, device=dev)
+    Bp = op.to_solver_order(B)
+
+    def relres(X):
+        Xn = X.double().cpu().numpy()
+        return float((np.linalg.norm(Bn - a @ Xn, axis=0) / np.linalg.norm(Bn, axis=0)).max())
+    _native.reset_launches()
+    runs = [_timed(torch, lambda: solve_sbcgrq(op, Bp, tol=1e-6, qr_passes=1)) for _ in range(2)]
+    ((X1, info), s1), ((X2, info2), s2) = runs
+    rel = relres(op.from_solver_order(X1))
+    if not (bool(info.converged.all()) and rel <= 1e-5):
+        raise AssertionError(f"[sparse] SBCGrQ true relres {rel:.3e}: {info}")
+    if not torch.equal(X1, X2):
+        raise AssertionError("[sparse] the repeat SBCGrQ solve is not bitwise identical")
+    print(f"[sparse] solve_sbcgrq k={SPARSE_K} tol=1e-6 qr_passes=1: {info.iterations} "
+          f"iterations, {s1:.3f} s (repeat {s2:.3f} s, {info2.iterations} iterations, bitwise "
+          f"identical), true f64 relres {rel:.3e}")
+    del X1, X2, runs
+    op64 = CSROperator.from_scipy(op.reordered_scipy(a), torch.float64, device=dev)
+    bf = TiledOperator(op.tiles.to(torch.bfloat16), op.rt, op.ct, op.first, op.n, op.perm,
+                       op.n0, op.nnz_logical)
+    # The refinement's residual is f64: it takes B unrounded.
+    Bp64 = op.to_solver_order(torch.as_tensor(Bn, dtype=torch.float64, device=dev))
+    first = None
+    for label, o in (("f32 tiles", op), ("f32 tiles, repeat", op), ("bf16 tiles", bf)):
+        (X, rinfo), secs = _timed(torch, lambda: solve_refined(o, Bp64, tol=1e-10,
+                                                               inner_tol=3e-6, op64=op64))
+        rel = relres(o.from_solver_order(X))
+        if not (bool(rinfo.converged.all()) and rel <= 1e-10):
+            raise AssertionError(f"[sparse] solve_refined with {label}: true relres {rel:.3e}: "
+                                 f"{rinfo}")
+        same = ""
+        if first is None:
+            first = X
+        elif o is op:
+            if not torch.equal(X, first):
+                raise AssertionError("[sparse] the repeat solve_refined is not bitwise identical")
+            same = ", bitwise identical"
+        else:
+            same = f", bitwise the f32 tiles' X: {torch.equal(X, first)}"
+        print(f"[sparse] solve_refined tol=1e-10 {label} (op64: f64 CSR in internal order): "
+              f"{rinfo.iterations} cycles, {rinfo.matvecs} matvecs, {secs:.3f} s, true f64 "
+              f"relres {rel:.3e}{same}")
+        del X
+    del first
+    counts = dict(_native.launches)
+    del bf, op64
+    torch.cuda.empty_cache()
+    phase_sparse_kernel(torch, dev, records, op)
+    return counts
+
+
+def phase_scattered(torch, dev) -> None:
+    """The reference's ``bench_scattered.py`` problem set at its own sizes
+    (n = 32,768; 16,384 for the two no-locality graphs), k = 32: one line
+    per (problem, format) with the tile fill and Gnnz/s of ``matmat_t`` on
+    the card: the H100 rates beside the auto-selector's v5e constants."""
+    from blockcg_tpu_torch.operators import CSROperator, ELLOperator, TiledOperator
+    from blockcg_tpu_torch.problems import (
+        delaunay_laplacian,
+        random_regular_spd,
+        rgg_laplacian,
+        uniform_random_spd,
+    )
+
+    n = SCATTERED_N
+    problems = [("delaunay", lambda: delaunay_laplacian(n, seed=0))]
+    problems += [(f"rgg_deg{d}", lambda d=d: rgg_laplacian(n, degree=d, seed=0))
+                 for d in (10, 20, 40)]
+    problems += [("uniform_deg8", lambda: uniform_random_spd(min(n, 16384), degree=8.0, seed=0)),
+                 ("regular_deg8", lambda: random_regular_spd(min(n, 16384), degree=8, seed=0))]
+    formats = (
+        ("csr", lambda a: CSROperator.from_scipy(a, torch.float32, device=dev)),
+        ("ell", lambda a: ELLOperator.from_scipy(a, torch.float32, device=dev)),
+        ("rcm_f32", lambda a: TiledOperator.from_scipy(a, torch.float32, reorder="rcm",
+                                                       max_pad_bytes=4 << 30, device=dev)),
+        ("rcm_bf16", lambda a: TiledOperator.from_scipy(
+            a, torch.float32, reorder="rcm", tile_dtype=torch.bfloat16,
+            max_pad_bytes=4 << 30, device=dev)),
+    )
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for pname, build in problems:
+        a = build()
+        for fname, make in formats:
+            o = make(a)
+            Xt = torch.randn((K, o.n), generator=gen, device=dev)
+            ms = median_ms(torch, lambda: o.matmat_t(Xt))
+            fill = f", fill {o.fill:.4%}, {o.ntiles} tiles" if hasattr(o, "fill") else ""
+            print(f"[scattered] {pname} n={a.shape[0]} nnz={a.nnz} {fname}: {ms:.4f} ms, "
+                  f"{a.nnz / ms / 1e6:.3f} Gnnz/s{fill}")
+            del o, Xt
+    torch.cuda.empty_cache()
+
+
+def phase_bell(torch, dev) -> None:
+    """``dirac_bell(32)``, config 4's matrix as site-major BSR (plain gathers),
+    with config 4's B through SBCGrQ at tol 1e-6: iterations beside config
+    4's and X within ``BELL_X_RTOL`` of the const-hop solve's X (in the same
+    row order)."""
+    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch.problems import config4_dirac_32, dirac_bell
+
+    cop, B, _ = config4_dirac_32(L=DIRAC_L, device=dev)
+    (Xc, ic), sc = _timed(torch, lambda: solve_sbcgrq(cop, B, tol=1e-6, qr_passes=1))
+    ns = cop.ns
+    del cop
+    torch.cuda.empty_cache()
+
+    def site_major(F):  # row a * ns + s -> row s * 4 + a
+        return F.reshape(4, ns, -1).transpose(0, 1).reshape(4 * ns, -1)
+    bop, build_s = _timed(torch, lambda: dirac_bell(DIRAC_L, device=dev))
+    (Xb, ib), sb = _timed(torch, lambda: solve_sbcgrq(bop, site_major(B), tol=1e-6,
+                                                      qr_passes=1))
+    dx = relfro(Xb, site_major(Xc))
+    rel = true_relres(torch, bop, Xb, site_major(B))
+    if not (bool(ib.converged.all()) and rel <= 1e-5 and dx <= BELL_X_RTOL):
+        raise AssertionError(f"[bell] dirac_bell({DIRAC_L}): {ib.iterations} iterations, true "
+                             f"relres {rel:.3e}, |Xb - Xc| / |Xc| {dx:.3e}")
+    print(f"[bell] dirac_bell({DIRAC_L}) (BSR, built in {build_s:.1f} s, nnz {bop.nnz}): "
+          f"{ib.iterations} iterations (config 4: {ic.iterations}, reference "
+          f"{DIRAC_REF_ITERS}), {sb:.3f} s against the const-hop {sc:.3f} s; "
+          f"|Xb - Xc| / |Xc| {dx:.3e}, true relres {rel:.3e}")
+
+
+def phase_wide_solves(torch, dev) -> dict:
+    """Solves on fields of m = 96 rows: config 4's SBCGrQ with 24 RHS (seed
+    42), and ``solve_dirac_eo_shifted`` on ``dirac_eo(32)`` with config 4's
+    12 RHS (2k = 24 columns) and ``SHIFTS``, each true relres <= 1e-5.
+    Returns their launch counts."""
+    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import config4_dirac_32, dirac_eo, solve_dirac_eo_shifted
+    from blockcg_tpu_torch.problems.presets import _rhs
+
+    op, B12, _ = config4_dirac_32(L=DIRAC_L, device=dev)
+    B = _rhs(op.n, WIDE_CONFIG4_K, torch.float32, device=dev)
+    _native.reset_launches()
+    (X, info), secs = _timed(torch, lambda: solve_sbcgrq(op, B, tol=1e-6, qr_passes=1))
+    rel = true_relres(torch, op, X, B)
+    if not (bool(info.converged.all()) and rel <= 1e-5):
+        raise AssertionError(f"[wide] config 4 with {WIDE_CONFIG4_K} RHS: true relres "
+                             f"{rel:.3e}: {info}")
+    print(f"[wide] config 4 SBCGrQ k={WIDE_CONFIG4_K} (m = {4 * WIDE_CONFIG4_K}) tol=1e-6: "
+          f"{info.iterations} iterations, {secs:.3f} s, true relres {rel:.3e}")
+    del op, X
+    torch.cuda.empty_cache()
+    eo = dirac_eo(DIRAC_L, device=dev)
+    (Xs, ish), ssh = _timed(torch, lambda: solve_dirac_eo_shifted(eo, B12, SHIFTS, tol=1e-6))
+    rels = [eo_true_relres(torch, eo, Xs[j], B12, sg) for j, sg in enumerate(SHIFTS)]
+    if not (bool(ish.converged.all()) and max(rels) <= 1e-5):
+        raise AssertionError(f"[wide] even-odd multi-shift on 12 RHS: true relres {rels}: {ish}")
+    print(f"[wide] solve_dirac_eo_shifted k={DIRAC_K} (2k = {2 * DIRAC_K} columns, m = "
+          f"{8 * DIRAC_K}) shifts {SHIFTS}: {ish.iterations} iterations, {ssh:.3f} s, true "
+          f"relres {['%.3e' % r for r in rels]}")
+    del eo, Xs
+    torch.cuda.empty_cache()
+    return dict(_native.launches)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     import torch
@@ -1285,6 +1792,28 @@ def main() -> None:
             raise AssertionError(f"the {label} path never launched the kernels of {missing}")
         counts.update({w: got[w] for w in wrappers if w in ("cheb_step", *VIEW_KERNELS)})
     counts["const_block_stencil_spmm_gram_t"] = got.get("const_block_stencil_spmm_gram_t", 0)
+    # Fields of m = 96 rows through the row-chunked launches: the kernels
+    # (after every path has set its kernels' records), then the solves.
+    phase_wide_kernels(torch, dev, records)
+    phase_qr_px(torch, dev, records)
+    _native.reset_launches()
+    got = phase_wide_solves(torch, dev)
+    print(f"[launches] m = {WIDE_M}: {got}")
+    missing = [w for w in WIDE_WRAPPERS if got.get(w, 0) == 0]
+    if missing:
+        raise AssertionError(f"the m = {WIDE_M} solves never launched the kernels of {missing}")
+    # General sparsity: tiled_spmm_t keeps its counts; qr_px_update has no
+    # solver caller (in the reference neither), and its count is read here.
+    _native.reset_launches()
+    got = phase_sparse(torch, dev, records)
+    print(f"[launches] sparse: {got}")
+    missing = [w for w in SPARSE_WRAPPERS if got.get(w, 0) == 0]
+    if missing:
+        raise AssertionError(f"the sparse solves never launched the kernels of {missing}")
+    counts["tiled_spmm_t"] = got["tiled_spmm_t"]
+    counts["qr_px_update"] = got.get("qr_px_update", 0)
+    phase_scattered(torch, dev)
+    phase_bell(torch, dev)
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}

@@ -150,6 +150,65 @@ def test_xr_and_qr_p_plain_match_pallas(k, n, merged):
         _close(g, w)
 
 
+@pytest.mark.parametrize("k,n,merged", [(4, 512, False), (16, 512, True)])
+def test_qr_px_update_plain_matches_pallas(k, n, merged):
+    """``qr_px_update`` and its codec dispatcher ``f_qr_px_update`` against
+    the Pallas kernel in interpret mode, flat and on ``I_4 ⊗ C``; donated
+    outputs land in Q1, P and X."""
+    from blockcg_tpu_torch.solvers.common import f_qr_px_update
+
+    kk = _kks(k // 4 if merged else k, 3, 60 + k)
+    (Mj, Rj, Cj), (M, R, C) = _both([_kron4(c) for c in kk] if merged else kk)
+    (Qj, Pj, Xj), (Q1, P, X) = _both(_fields(k, n, 3, 70 + k))
+    want = jfused.qr_px_update(Mj, Qj, Rj, Pj, Cj, Xj, interpret=True)
+    for g, w in zip(fused.qr_px_update(M, Q1, R, P, C, X), want):
+        _close(g, w)
+    bufs = [t.clone() for t in (Q1, P, X)]
+    got = fused.qr_px_update(M, bufs[0], R, bufs[1], C, bufs[2], donate=True)
+    assert [g.data_ptr() for g in got] == [b.data_ptr() for b in bufs]
+    for g, w in zip(got, want):
+        _close(g, w)
+    if not merged:
+        for g, w in zip(f_qr_px_update(M, Q1, R, P, C, X), want):
+            _close(g, w)
+
+
+def test_row_chunks_cover_the_field_in_balanced_launches():
+    assert _native.row_chunks(64) == [(0, 64)]
+    assert _native.row_chunks(96) == [(0, 48), (48, 96)]
+    assert _native.row_chunks(65) == [(0, 33), (33, 65)]
+    assert _native.row_chunks(24, 16) == [(0, 12), (12, 24)]
+    for k in (1, 7, 64, 100, 129, 300):
+        for w in (8, 16, 64, 128):
+            chunks = _native.row_chunks(k, w)
+            assert chunks[0][0] == 0 and chunks[-1][1] == k
+            assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+            assert all(0 < r1 - r0 <= w for r0, r1 in chunks)
+            assert len(chunks) == -(-k // w)
+    with pytest.raises(ValueError):
+        _native.row_chunks(0)
+
+
+@pytest.mark.parametrize("k, nmat, with_gram, width", [
+    (96, 2, True, 64), (400, 2, True, 32), (800, 1, True, 32), (800, 3, False, 16)])
+def test_wide_gram_lays_out_the_chunks_that_made_its_blocks(monkeypatch, k, nmat,
+                                                            with_gram, width):
+    """A fused update too wide for 64-row launches under the shared-memory cap
+    runs narrower chunks, and the Gram is assembled by those same chunks:
+    the diagonal blocks as the chunks' launches give them, the rest as
+    ``gram`` blocks (both stood in for by plain products on the CPU)."""
+    monkeypatch.setattr(_native, "max_smem", lambda index: 232448)  # an H100's cap
+    monkeypatch.setattr(fused, "_launch_gram", lambda U, V: U @ V.T)
+    chunks = fused._chunks(k, nmat, with_gram, "test", torch.device("cpu"))
+    assert chunks == _native.row_chunks(k, width)
+    Y = torch.from_numpy(_fields(k, 130, 1, 40)[0])
+    diag = [fused.gram_plain(Y[r0:r1], Y[r0:r1]) for r0, r1 in chunks]
+    G = fused.wide_gram(Y, Y, diag, chunks)
+    _close(G, fused.gram_plain(Y, Y))
+    with pytest.raises(ValueError, match="diagonal blocks"):
+        fused.wide_gram(Y, Y, diag[:-1], chunks)
+
+
 def test_donate_writes_into_the_operand_on_cpu():
     """``donate`` has the kernel's in-place meaning on the plain route too."""
     (M1, M2, M3) = [torch.from_numpy(m) for m in _kks(4, 3, 30)]
@@ -231,7 +290,7 @@ def test_native_build_command_and_sources(monkeypatch, tmp_path):
     sm_90a, one compile per source and one link, and a missing nvcc raises
     (there is no fallback)."""
     cus = {"stencil.cu", "gram.cu", "fused_update.cu", "px_update.cu",
-           "const_block_stencil.cu", "xr_update.cu", "qr_p_update.cu"}
+           "const_block_stencil.cu", "xr_update.cu", "qr_p_update.cu", "spmm_tiled.cu"}
     assert cus <= {p.name for p in _native.sources()}
     assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     root = Path(__file__).resolve().parents[1]
