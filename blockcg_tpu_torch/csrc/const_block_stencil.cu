@@ -4,9 +4,10 @@
 //
 // Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
 // const_block_stencil_spmm_m_t (:617), const_block_stencil_spmm_m_gram_t
-// (:637) and slab_m_accumulate (:780) on the merged view, and
-// const_block_stencil_spmm_t (:330), const_block_stencil_spmm_gram_t (:361)
-// and slab_block_accumulate (:691) on the (k, bs, ns) view.
+// (:637), slab_m_accumulate (:780) and slab_m_accumulate_from (:846) on the
+// merged view, and const_block_stencil_spmm_t (:330),
+// const_block_stencil_spmm_gram_t (:361), slab_block_accumulate (:691) and
+// slab_block_accumulate_from (:955) on the (k, bs, ns) view.
 //
 // Layout: a field is (m, ns) float32 with m = bs * k; site s of row r sits at
 // F[r * ns + s]. The row map is a runtime pair of strides (RowMap in
@@ -22,11 +23,15 @@
 // also returns G = X Y^T: the (m, m) Gram on the merged view, and on the
 // (k, bs, ns) view its contraction over spins and sites, the (k, k)
 // G[i, j] = sum_{a, s} X[i, a, s] Y[j, a, s].
-// Contract, slab kernel: for destination block j < nblocks of g sites,
-// dst = (dst_mul * j + dst_off) mod nb and src = (dst + src_shift) mod nb
-// (nb = ns / g blocks); Y[:, dst block] += (H ⊗ I_k) X[:, src block], in
-// place on Y. With the Gram (merged view only), G = Gin + sum over the slab
-// sites of X[:, dst] dY^T.
+// Contract, slab kernel: for slab j < nblocks of g sites, destination block
+// dst = (dst_mul * j + dst_off) mod nb of Y (nb = ns / g blocks) and source
+// block src = (src_mul * j + src_off) mod src_nb of X; Y[:, dst block] +=
+// v * (H ⊗ I_k) X[:, src block], in place on Y, with v the slab site's entry
+// of vals, or 1. X is the field itself (src_nb = nb, the periodic wraps:
+// src = dst + shift) or a separate halo buffer of its own width (the
+// distributed layer's crossings, with the gauged links in vals). With the
+// Gram (merged view only), G = Gin + sum over the slab sites of
+// Xd[:, dst] dY^T, Xd the field.
 //
 // The TPU kernels build the MXU weight W = H ⊗ I_k, which is 3/4 zeros at
 // bs = 4. Here one thread owns one site column and applies the bs x bs hop
@@ -71,8 +76,11 @@ struct Diags {
   int slot[kMaxDiags];  // mask row, or -1 for an unmasked diagonal
 };
 
-struct SlabGeom {  // every field in [0, nb) except g and nblocks
-  long long nb, dst_mul, dst_off, src_shift;
+// Slab j < nblocks: destination block (dst_mul * j + dst_off) mod nb of Y,
+// source block (src_mul * j + src_off) mod src_nb of X. Every field but g and
+// nblocks is reduced to [0, nb) or [0, src_nb).
+struct SlabGeom {
+  long long nb, dst_mul, dst_off, src_nb, src_mul, src_off;
   int g, nblocks;
 };
 
@@ -167,12 +175,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // part == nullptr: no Gram. The flag is uniform over the grid, so the
-// barriers under it are safe.
+// barriers under it are safe. X has xn columns (ns for a slab of the field
+// itself, the halo's width for a separate source); Xd is the field whose
+// destination columns the Gram reads. vals (or null) scales the increment of
+// slab site e = j * g + c after the hop's sum, as the plain version does.
 template <int BS, int KMAX>
 __global__ void __launch_bounds__(kThreads)
     slab_accumulate(const float* __restrict__ hop, SlabGeom geo, int bs,
-                    const float* __restrict__ X, float* __restrict__ Y,
-                    float* __restrict__ part, RowMap row, int k, long long ns) {
+                    const float* __restrict__ X, long long xn,
+                    const float* __restrict__ vals, const float* __restrict__ Xd,
+                    float* __restrict__ Y, float* __restrict__ part, RowMap row,
+                    int k, long long ns) {
   constexpr int KI = KMAX / BS;
   extern __shared__ __align__(16) float smem[];  // [xs | ys] (Gram), then hop
   const bool gram = part != nullptr;
@@ -196,16 +209,21 @@ __global__ void __launch_bounds__(kThreads)
     if (valid) {
       const long long j = e / geo.g, c = e - j * geo.g;
       const long long dblk = (geo.dst_mul * j + geo.dst_off) % geo.nb;
-      long long sblk = dblk + geo.src_shift;
-      if (sblk >= geo.nb) sblk -= geo.nb;
+      const long long sblk = (geo.src_mul * j + geo.src_off) % geo.src_nb;
       dst = dblk * geo.g + c;
-      const RowStrides rows = row.times(ns);
-      hop_apply(acc, sh, 1.f, X, bs, k, rows, sblk * geo.g + c);
-      store_rows<true>(Y, acc, bs, k, rows, dst);
+      hop_apply(acc, sh, 1.f, X, bs, k, row.times(xn), sblk * geo.g + c);
+      if (vals != nullptr) {
+        const float v = vals[e];
+#pragma unroll
+        for (int a = 0; a < BS; ++a)
+#pragma unroll
+          for (int i = 0; i < KI; ++i) acc[a][i] *= v;
+      }
+      store_rows<true>(Y, acc, bs, k, row.times(ns), dst);
     }
     if (gram) {
       __syncthreads();
-      stage_x(xs, X, m, ns, dst, valid);
+      stage_x(xs, Xd, m, ns, dst, valid);
       stage_rows(ys, acc, bs, k, row);
       __syncthreads();
       g.accumulate(xs, ys);
@@ -259,6 +277,8 @@ struct SlabArgs {
   SlabGeom geo;
   int bs;
   const float* X;
+  long long xn;
+  const float *vals, *Xd;
   float* Y;
   const float* Gin;
   float *part, *G;
@@ -301,8 +321,8 @@ cudaError_t launch_slab(const SlabArgs& a) {
   const size_t smem = staged_bytes(KMAX, gram, a.bs * a.bs);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hop, a.geo, a.bs, a.X, a.Y,
-                                                  gram ? a.part : nullptr,
+  kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hop, a.geo, a.bs, a.X, a.xn, a.vals,
+                                                  a.Xd, a.Y, gram ? a.part : nullptr,
                                                   row_map(a.merged, a.bs, a.ks), a.k, a.ns);
   if (gram) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream, a.Gin);
   return cudaGetLastError();
@@ -386,30 +406,35 @@ extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
   }
 }
 
-// hop: device (bs, bs). dst_mul, dst_off and src_shift already reduced to
-// [0, nb), nb = ns / g; the nblocks destination blocks must be distinct. Y is
-// updated in place; X and Y are merged when merged != 0, else (k, bs, ns)
-// views; ks as in bcg_cbs_spmm. G == nullptr: no Gram; otherwise (merged
-// only, ks == k) G = Gin + the slab's X_dst dY^T (Gin may be null), with part
-// (nblocks_grid, m, m).
+// hop: device (bs, bs). Y (ns columns, nb = ns / g blocks) is updated in
+// place from X (xn columns, src_nb = xn / g blocks): destination block
+// (dst_mul * j + dst_off) mod nb gets (H ⊗ I_k) times source block
+// (src_mul * j + src_off) mod src_nb, each of dst_mul, dst_off, src_mul,
+// src_off reduced to its range; the nblocks destination blocks must be
+// distinct. X is the field itself (xn = ns) or a separate halo buffer. vals:
+// device (nblocks * g), or null. X, Xd and Y are merged when merged != 0,
+// else (k, bs, ns) views; ks as in bcg_cbs_spmm. G == nullptr: no Gram;
+// otherwise (merged only, ks == k) G = Gin + the slab's Xd_dst dY^T (Gin may
+// be null), with part (grid, m, m).
 extern "C" int bcg_slab_accumulate(const float* hop, int bs, int g, int nblocks,
                                    long long dst_mul, long long dst_off,
-                                   long long src_shift, const float* X,
-                                   float* Y, const float* Gin, float* part,
-                                   float* G, int k, int ks, long long ns, int merged,
-                                   int grid, int device, cudaStream_t stream) {
+                                   long long src_mul, long long src_off,
+                                   const float* X, long long xn, const float* vals,
+                                   const float* Xd, float* Y, const float* Gin,
+                                   float* part, float* G, int k, int ks, long long ns,
+                                   int merged, int grid, int device, cudaStream_t stream) {
   const int bsw = bs_width(bs);
   const int kmax = kmax_for(bsw * k);
-  if (bsw == 0 || k < 1 || kmax == 0 || g < 1 || ns < 1 || ns % g != 0 ||
-      nblocks < 1 || grid < 1 || (G != nullptr && !merged) || ks < k ||
-      (G != nullptr && ks != k))
+  if (bsw == 0 || k < 1 || kmax == 0 || g < 1 || ns < 1 || ns % g != 0 || xn < 1 ||
+      xn % g != 0 || nblocks < 1 || grid < 1 || (G != nullptr && !merged) || ks < k ||
+      (G != nullptr && (ks != k || Xd == nullptr)))
     return cudaErrorInvalidValue;
-  const long long nb = ns / g;
-  if (nblocks > nb || dst_mul < 0 || dst_mul >= nb || dst_off < 0 ||
-      dst_off >= nb || src_shift < 0 || src_shift >= nb)
+  const long long nb = ns / g, src_nb = xn / g;
+  if (nblocks > nb || dst_mul < 0 || dst_mul >= nb || dst_off < 0 || dst_off >= nb ||
+      src_mul < 0 || src_mul >= src_nb || src_off < 0 || src_off >= src_nb)
     return cudaErrorInvalidValue;
-  SlabArgs a{hop, {nb, dst_mul, dst_off, src_shift, g, nblocks}, bs, X, Y, Gin,
-             part, G, k, ks, ns, merged != 0, grid, stream};
+  SlabArgs a{hop, {nb, dst_mul, dst_off, src_nb, src_mul, src_off, g, nblocks}, bs, X, xn,
+             vals, Xd, Y, Gin, part, G, k, ks, ns, merged != 0, grid, stream};
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (bsw) {

@@ -135,5 +135,7 @@ class DelegatedCodecMixin(MatmatMixin):
 
 def astype(op, dtype):
     """A new operator with its float data in ``dtype``; ``op`` is left as it
-    was. (``nn.Module.to`` would convert the caller's operator in place.)"""
+    was. (``nn.Module.to`` would convert the caller's operator in place.)
+    The distributed shards of ``parallel/dist_ops.py`` define ``astype_op``
+    too: ``solve_refined_dist`` takes its f64 outer operator from them."""
     return op.astype_op(dtype)

@@ -195,8 +195,8 @@ def library() -> ctypes.CDLL:
     lib.bcg_cbs_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int),
                                  ctypes.POINTER(ctypes.c_int), I, I, P, P, P,
                                  P, P, I, I, L, I, I, I, P]
-    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, P, P, P, P, P, I, I,
-                                        L, I, I, I, P]
+    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P,
+                                        I, I, L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, I, P,
                                            P, P, P, I, I, L, I, I, I, P]
     F = ctypes.c_float

@@ -11,11 +11,19 @@ Counterpart of ``blockcg_tpu/ops/const_block_stencil.py``; all run as
 - ``const_block_stencil_spmm_m_gram_t``: the same with ``Gm = X Y^T`` (m, m);
 - ``slab_m_accumulate``: ``Y[:, dst slabs] += (H ⊗ I_k) X[:, src slabs]`` in
   place on Y, optionally with ``G = Gm + X_dst dY^T``;
-- ``const_block_stencil_spmm_t``, ``const_block_stencil_spmm_gram_t`` and
-  ``slab_block_accumulate``: the same sums on the (k, bs, ns) view (or its
-  flat (k, bs*ns) form), ``Y[i, a, s] = sum_d w_d(s) sum_b H_d[a][b]
-  X[i, b, (s + o_d) mod ns]``; the view's Gram contracts over spins and
-  sites to (k, k), and its slab add has no Gram, as in the reference.
+- ``slab_m_accumulate_from``: ``Y[:, g-blocks dst_base + j] += v * (H ⊗
+  I_k) Src[:, g-blocks src_base + j]`` from a separate (m, bw) source (the
+  distributed layer's halo), v the per-site ``vals`` (gauged links) or 1,
+  optionally with the Gram ``X_dst dY^T`` of the increment alone;
+- ``const_block_stencil_spmm_t``, ``const_block_stencil_spmm_gram_t``,
+  ``slab_block_accumulate`` and ``slab_block_accumulate_from``: the same sums
+  on the (k, bs, ns) view (or its flat (k, bs*ns) form), ``Y[i, a, s] =
+  sum_d w_d(s) sum_b H_d[a][b] X[i, b, (s + o_d) mod ns]``; the view's Gram
+  contracts over spins and sites to (k, k), and its slab adds have no Gram
+  or ``vals``, as in the reference. The reference's
+  ``slab_block_accumulate_from`` body is broken (it passes ``_slab_kernel``
+  three extra arguments and nothing calls it); the port follows its
+  docstring's contract.
 
 At k = 1 the two views are the same memory; ``ConstBlockDIAOperator`` sends
 its single-RHS applies through the view's kernels, as the reference does.
@@ -139,6 +147,24 @@ def slab_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xm, Ym, Gm=None,
     return Ym, (G if Gm is None else Gm + G)
 
 
+def slab_from_plain(hop, g, nblocks, dst_base, src_base, Src, Ym, Xm=None, vals=None,
+                    with_gram: bool = False):
+    """Plain version of ``slab_m_accumulate_from``: adds the increment into
+    Ym's slab columns in place; returns ``Ym``, or ``(Ym, X_dst dY^T)`` with
+    the Gram."""
+    m = Ym.shape[0]
+    bs = hop.shape[-1]
+    adt = acc_dtype(Ym.dtype)
+    cols = nblocks * g
+    d0, s0 = dst_base * g, src_base * g
+    Xs = Src[:, s0:s0 + cols].reshape(bs, m // bs, cols).to(adt)
+    dY = torch.tensordot(hop.to(adt), Xs, dims=1).reshape(m, cols)
+    if vals is not None:
+        dY = dY * vals.to(adt)
+    Ym[:, d0:d0 + cols] += dY.to(Ym.dtype)
+    return (Ym, gram_t(Xm[:, d0:d0 + cols], dY)) if with_gram else Ym
+
+
 def _to_merged(Xv: torch.Tensor) -> torch.Tensor:
     k, bs, ns = Xv.shape
     return Xv.transpose(0, 1).reshape(bs * k, ns)
@@ -168,6 +194,17 @@ def slab_v_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xv, Yv):
                             Xv.device)
     dY = torch.einsum("ab,kbs->kas", hop.to(adt), Xv[:, :, src].to(adt))
     return Yv.index_add_(2, dst, dY.to(Yv.dtype))
+
+
+def slab_v_from_plain(hop, g, nblocks, dst_base, src_base, Src, Yv):
+    """Plain version of ``slab_block_accumulate_from`` on the (k, bs, ns)
+    view: adds in place and returns Yv."""
+    adt = acc_dtype(Yv.dtype)
+    cols = nblocks * g
+    d0, s0 = dst_base * g, src_base * g
+    dY = torch.einsum("ab,kbs->kas", hop.to(adt), Src[:, :, s0:s0 + cols].to(adt))
+    Yv[:, :, d0:d0 + cols] += dY.to(Yv.dtype)
+    return Yv
 
 
 # ------------------------------------------------------------------ wrappers
@@ -333,17 +370,9 @@ def slab_m_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
         Ym[:, dst] += dY
         return Ym, (G if Gm is None else Gm + G)
     nb = ns // g
-    grid = _native.nblocks(nblocks * g)
-    part = G = None
-    if with_gram:
-        part = torch.empty((grid, m, m), dtype=torch.float32, device=Xm.device)
-        G = torch.empty((m, m), dtype=torch.float32, device=Xm.device)
-    p = _native.ptr
-    for j0, j1 in chunks:
-        _native.launch(name, "bcg_slab_accumulate", Xm.device, p(hop), bs, g, nblocks,
-                       dst_mul % nb, dst_off % nb, src_shift % nb, p(Xm) + j0 * ns * 4,
-                       p(Ym) + j0 * ns * 4, p(Gm if with_gram else None), p(part), p(G),
-                       j1 - j0, k, ns, 1, grid)
+    G = _launch_slab(name, hop, g, nblocks, (dst_mul % nb, dst_off % nb),
+                     (dst_mul % nb, (dst_off + src_shift) % nb), Xm, ns, None, Xm, Ym,
+                     Gm if with_gram else None, with_gram, chunks, True)
     return (Ym, G) if with_gram else Ym
 
 
@@ -368,11 +397,125 @@ def slab_block_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
     if Yv.data_ptr() == Xv.data_ptr():
         raise ValueError(f"{name}: Y must not share X's storage")
     nb = ns // g
+    _launch_slab(name, hop, g, nblocks, (dst_mul % nb, dst_off % nb),
+                 (dst_mul % nb, (dst_off + src_shift) % nb), Xv, ns, None, None, Yv, None,
+                 False, chunks, False)
+    return Yv
+
+
+def _check_from(hop, g, nblocks, dst_base, src_base, m, bw, ns, vals, name):
+    """The halo slab's geometry on merged-shaped (m, bw) source and (m, ns)
+    destination: whole g-site blocks inside both, vals one per slab site."""
+    bs = hop.shape[-1]
+    if hop.shape != (bs, bs) or m % bs:
+        raise ValueError(f"{name}: hop {tuple(hop.shape)} for {m} rows")
+    if g < 1 or ns % g or bw % g:
+        raise ValueError(f"{name}: slab width {g} must divide the {ns} sites and the "
+                         f"{bw}-site source")
+    if nblocks < 1 or not 0 <= dst_base <= ns // g - nblocks or \
+            not 0 <= src_base <= bw // g - nblocks:
+        raise ValueError(f"{name}: {nblocks} blocks from {src_base} (of {bw // g}) to "
+                         f"{dst_base} (of {ns // g})")
+    if vals is not None and vals.shape != (1, nblocks * g):
+        raise ValueError(f"{name}: vals {tuple(vals.shape)}, expected (1, {nblocks * g})")
+
+
+def slab_m_accumulate_from(hop, g: int, nblocks: int, dst_base: int, src_base: int,
+                           Src: torch.Tensor, Ym: torch.Tensor, Xm: torch.Tensor | None = None,
+                           vals: torch.Tensor | None = None, *, with_gram: bool = False):
+    """``Y[:, g-blocks dst_base + j] += v * (hop ⊗ I_k) Src[:, g-blocks
+    src_base + j]``, j < nblocks, in place on the merged (m, ns) Ym, from a
+    separate merged (m, bw) source (a received halo; its row stride is bw).
+    ``vals`` (1, nblocks * g) scales each destination site (gauged
+    crossings), or None. Returns Ym, or with ``with_gram`` ``(Ym, G)``, G
+    the (m, m) Gram ``sum_dst X_dst dY^T`` of the increment alone, X the
+    local field ``Xm``."""
+    name = "slab_m_accumulate_from"
+    hop = _hops(hop, Ym)
+    if Src.dim() != 2 or Ym.dim() != 2 or Src.shape[0] != Ym.shape[0]:
+        raise ValueError(f"{name}: Src {tuple(Src.shape)} and Y {tuple(Ym.shape)} must be "
+                         "merged fields of one height")
+    m, ns = Ym.shape
+    bw = Src.shape[1]
+    _check_from(hop, g, nblocks, dst_base, src_base, m, bw, ns, vals, name)
+    if with_gram and (Xm is None or Xm.shape != Ym.shape):
+        raise ValueError(f"{name}: the Gram needs the local field X shaped like Y")
+    ops = ([hop, Src, Ym] + ([vals] if vals is not None else [])
+           + ([Xm] if with_gram else []))
+    if not _native.use_kernel(*ops):
+        return slab_from_plain(hop, g, nblocks, dst_base, src_base, Src, Ym, Xm, vals,
+                               with_gram)
+    bs = hop.shape[-1]
+    chunks = _native.row_chunks(m // bs, rhs_width(bs, name))
+    if Ym.data_ptr() in (Src.data_ptr(), Xm.data_ptr() if with_gram else None):
+        raise ValueError(f"{name}: Y must not share Src's or X's storage")
+    if with_gram and len(chunks) > 1:
+        # As in slab_m_accumulate: the increment into a zeroed compact field,
+        # its Gram against X's destination columns, then the add.
+        from blockcg_tpu_torch.ops import fused
+
+        cols = nblocks * g
+        d0 = dst_base * g
+        dY = slab_m_accumulate_from(hop, g, nblocks, 0, src_base, Src,
+                                    torch.zeros((m, cols), device=Ym.device), vals=vals)
+        G = fused.gram(Xm[:, d0:d0 + cols].contiguous(), dY)
+        Ym[:, d0:d0 + cols] += dY
+        return Ym, G
+    nb, src_nb = ns // g, bw // g
+    G = _launch_slab(name, hop, g, nblocks, (1 % nb, dst_base), (1 % src_nb, src_base), Src,
+                     bw, vals, Xm, Ym, None, with_gram, chunks, True)
+    return (Ym, G) if with_gram else Ym
+
+
+def slab_block_accumulate_from(hop, g: int, nblocks: int, dst_base: int, src_base: int,
+                               Src: torch.Tensor, Yv: torch.Tensor) -> torch.Tensor:
+    """``Y[:, :, g-blocks dst_base + j] += hop @ Src[:, :, g-blocks src_base +
+    j]`` in place on the (k, bs, ns) view Yv, from a separate (k, bs, bw)
+    source; returns Yv. At k = 1 it is ``slab_m_accumulate_from`` without
+    ``vals`` on the same memory."""
+    name = "slab_block_accumulate_from"
+    hop = _hops(hop, Yv)
+    bs = hop.shape[-1]
+    if (Yv.dim() != 3 or Src.dim() != 3 or Yv.shape[1] != bs
+            or Src.shape[:2] != Yv.shape[:2]):
+        raise ValueError(f"{name}: expected (k, {bs}, .) fields Src and Y, got "
+                         f"{tuple(Src.shape)} and {tuple(Yv.shape)}")
+    k, _, ns = Yv.shape
+    bw = Src.shape[2]
+    _check_from(hop, g, nblocks, dst_base, src_base, bs * k, bw, ns, None, name)
+    if not _native.use_kernel(hop, Src, Yv):
+        return slab_v_from_plain(hop, g, nblocks, dst_base, src_base, Src, Yv)
+    if Yv.data_ptr() == Src.data_ptr():
+        raise ValueError(f"{name}: Y must not share Src's storage")
+    chunks = _native.row_chunks(k, rhs_width(bs, name))
+    _launch_slab(name, hop, g, nblocks, (1 % (ns // g), dst_base), (1 % (bw // g), src_base),
+                 Src, bw, None, None, Yv, None, False, chunks, False)
+    return Yv
+
+
+def _launch_slab(name, hop, g, nblocks, dst, src, X, xn, vals, Xd, Y, Gin, with_gram,
+                 chunks, merged):
+    """One slab launch per row chunk: ``dst`` and ``src`` are the reduced
+    (mul, off) block maps of Y (ns columns) and X (xn columns), see
+    ``csrc/const_block_stencil.cu``. Returns the (m, m) Gram, Gin plus the
+    slab's (merged, one chunk only), or None."""
+    bs = hop.shape[-1]
+    k = Y.shape[0] // bs if merged else Y.shape[0]
+    ns = Y.numel() // (bs * k)
     grid = _native.nblocks(nblocks * g)
-    row = bs * ns * 4  # bytes from one RHS to the next
+    part = G = None
+    if with_gram:
+        m = bs * k
+        part = torch.empty((grid, m, m), dtype=torch.float32, device=Y.device)
+        G = torch.empty((m, m), dtype=torch.float32, device=Y.device)
+    # Bytes from one RHS to the next: the merged view's rows are a spin
+    # stride apart (k), the view's chunks are contiguous.
+    yrow, xrow = (ns * 4, xn * 4) if merged else (bs * ns * 4, bs * xn * 4)
     p = _native.ptr
     for j0, j1 in chunks:
-        _native.launch(name, "bcg_slab_accumulate", Xv.device, p(hop), bs, g, nblocks,
-                       dst_mul % nb, dst_off % nb, src_shift % nb, p(Xv) + j0 * row,
-                       p(Yv) + j0 * row, None, None, None, j1 - j0, j1 - j0, ns, 0, grid)
-    return Yv
+        _native.launch(name, "bcg_slab_accumulate", Y.device, p(hop), bs, g, nblocks, *dst,
+                       *src, p(X) + j0 * xrow, xn, p(vals),
+                       None if Xd is None else p(Xd) + j0 * yrow, p(Y) + j0 * yrow, p(Gin),
+                       p(part), p(G), j1 - j0, k if merged else j1 - j0, ns, int(merged),
+                       grid)
+    return G

@@ -17,6 +17,11 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
 - ``cheb_step(R, Z, D, AZ, c1, c2)``  D' = c1 D + c2 (R - AZ), Z' = Z + D'
                                                            (``csrc/cheb_step.cu``)
 
+Fields are (k, n), or any contiguous (k, ...) field, such as the (k, bs, ns)
+view of the distributed per-site block operator: it is the same memory as its
+flat (k, n) form, so the kernels launch on that form and each output comes
+back in its input's shape.
+
 Each has a plain PyTorch version beside it, the composition the reference's
 solvers fall back to (``blockcg_tpu/solvers/common.py:216-218, 233-237,
 254-255, 271-273, 286-287, 299-300``, ``blockcg_tpu/operators/cheb.py:54-55``). Dispatch follows
@@ -112,10 +117,16 @@ def _gram_buffers(k: int, n: int, device, kv: int | None = None):
     return part, torch.empty((k, kv), dtype=torch.float32, device=device)
 
 
-def _field_shape(F, name):
-    if F.dim() != 2:
-        raise ValueError(f"{name}: CUDA kernels take flat (k, n) fields, got {tuple(F.shape)}")
-    return F.shape
+def _flat(name, F, *others):
+    """The (k, n) form of a contiguous (k, ...) field F and of the others
+    (fields of F's shape, or None): views of the same memory."""
+    if F.dim() < 2:
+        raise ValueError(f"{name}: CUDA kernels take (k, ...) fields, got {tuple(F.shape)}")
+    for G in others:
+        if G is not None and G.shape != F.shape:
+            raise ValueError(f"{name}: fields {tuple(F.shape)} and {tuple(G.shape)}")
+    k = F.shape[0]
+    return [None if G is None else G.view(k, -1) for G in (F, *others)]
 
 
 def _chunks(k: int, nmat: int, with_gram: bool, name: str, device):
@@ -170,18 +181,14 @@ def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """G = U V^T over the field dims: (k, n) x (k, n) -> (k, k)."""
     if not _native.use_kernel(U, V):
         return gram_plain(U, V)
-    k, n = _field_shape(U, "gram")
-    _native.check_field(V, k, n, "gram V")
-    if k <= _native.MAX_K:
+    U, V = _flat("gram", U, V)
+    if U.shape[0] <= _native.MAX_K:
         return _launch_gram(U, V)
     return wide_gram(U, V)
 
 
 def _coeff_update(name, M1, B1, M2, B2, A, with_gram, out):
-    k, n = _field_shape(B1, name)
-    for F, what in ((B2, "B2"), (A, "A")):
-        if F is not None:
-            _native.check_field(F, k, n, f"{name} {what}")
+    k, n = B1.shape
     for M, what in ((M1, "M1"), (M2, "M2")):
         if M is not None:
             _native.check_kk(M, k, f"{name} {what}")
@@ -214,7 +221,9 @@ def mm_update(M: torch.Tensor, B: torch.Tensor,
     dst = {None: None, "a": A, "b": B}[donate]
     if not _native.use_kernel(*ops):
         return _into(dst, mm_update_plain(M, B, A))
-    return _coeff_update("mm_update", M, B, None, None, A, False, dst)[0]
+    Bf, Af = _flat("mm_update", B, A)
+    df = {None: None, "a": Af, "b": Bf}[donate]
+    return _coeff_update("mm_update", M, Bf, None, None, Af, False, df)[0].view(B.shape)
 
 
 def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
@@ -226,7 +235,9 @@ def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
     if not _native.use_kernel(*ops):
         Y, G = mm_update_gram_plain(M, B, A)
         return _into(dst, Y), G
-    return _coeff_update("mm_update_gram", M, B, None, None, A, True, dst)
+    Bf, Af = _flat("mm_update_gram", B, A)
+    Y, G = _coeff_update("mm_update_gram", M, Bf, None, None, Af, True, Bf if donate else None)
+    return Y.view(B.shape), G
 
 
 def mm2_update_gram(M1: torch.Tensor, B1: torch.Tensor, M2: torch.Tensor,
@@ -237,7 +248,10 @@ def mm2_update_gram(M1: torch.Tensor, B1: torch.Tensor, M2: torch.Tensor,
     if not _native.use_kernel(M1, B1, M2, B2):
         Y, G = mm2_update_gram_plain(M1, B1, M2, B2)
         return _into(dst, Y), G
-    return _coeff_update("mm2_update_gram", M1, B1, M2, B2, None, True, dst)
+    B1f, B2f = _flat("mm2_update_gram", B1, B2)
+    Y, G = _coeff_update("mm2_update_gram", M1, B1f, M2, B2f, None, True,
+                         B1f if donate else None)
+    return Y.view(B1.shape), G
 
 
 def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
@@ -251,9 +265,9 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
         if donate:
             return P.copy_(Pn), X.copy_(Xn)
         return Pn, Xn
-    k, n = _field_shape(W, "px_update")
-    for F, what in ((P, "P"), (X, "X")):
-        _native.check_field(F, k, n, f"px_update {what}")
+    shape = W.shape
+    W, P, X = _flat("px_update", W, P, X)
+    k, n = W.shape
     for M, what in ((M1, "M1"), (rho, "rho"), (C, "C")):
         _native.check_kk(M, k, f"px_update {what}")
     chunks = _chunks(k, 3, False, "px_update", W.device)
@@ -265,7 +279,7 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
         _native.launch("px_update", "bcg_px_update", W.device, p(M1[r0:r1]), p(W),
                        p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Pn[r0:r1]),
                        p(Xn[r0:r1]), r1 - r0, k, n, _native.nblocks(n))
-    return (P.copy_(Pn) if donate and Pn is not P else Pn), Xn
+    return (P.copy_(Pn) if donate and Pn is not P else Pn).view(shape), Xn.view(shape)
 
 
 def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
@@ -278,9 +292,9 @@ def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
         if donate:
             return X.copy_(Xn), R.copy_(Rn), G
         return Xn, Rn, G
-    k, n = _field_shape(P, "xr_update_gram")
-    for F, what in ((X, "X"), (Z, "Z"), (R, "R")):
-        _native.check_field(F, k, n, f"xr_update_gram {what}")
+    shape = P.shape
+    P, X, Z, R = _flat("xr_update_gram", P, X, Z, R)
+    k, n = P.shape
     _native.check_kk(alpha, k, "xr_update_gram alpha")
     # A chunk reads its own rows of X and R and all of P and Z, which no
     # chunk writes: in place is safe at every width.
@@ -294,7 +308,8 @@ def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
                        p(P), p(X[r0:r1]), p(Z), p(R[r0:r1]), p(Xn[r0:r1]), p(Rn[r0:r1]),
                        p(part), p(G), r1 - r0, k, n, _native.nblocks(n))
         diag.append(G)
-    return Xn, Rn, (diag[0] if len(chunks) == 1 else wide_gram(Rn, Rn, diag, chunks))
+    return (Xn.view(shape), Rn.view(shape),
+            diag[0] if len(chunks) == 1 else wide_gram(Rn, Rn, diag, chunks))
 
 
 def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
@@ -307,8 +322,9 @@ def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
         if donate:
             return Q1.copy_(Q), P.copy_(Pn)
         return Q, Pn
-    k, n = _field_shape(Q1, "qr_p_update")
-    _native.check_field(P, k, n, "qr_p_update P")
+    shape = Q1.shape
+    Q1, P = _flat("qr_p_update", Q1, P)
+    k, n = Q1.shape
     for M, what in ((M2, "M2"), (rho, "rho")):
         _native.check_kk(M, k, f"qr_p_update {what}")
     chunks = _chunks(k, 2, False, "qr_p_update", Q1.device)
@@ -321,8 +337,8 @@ def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
                        p(rho[r0:r1]), p(P), p(Q[r0:r1]), p(Pn[r0:r1]), r1 - r0, k, n,
                        _native.nblocks(n))
     if donate and not direct:
-        return Q1.copy_(Q), P.copy_(Pn)
-    return Q, Pn
+        Q, Pn = Q1.copy_(Q), P.copy_(Pn)
+    return Q.view(shape), Pn.view(shape)
 
 
 def qr_px_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
@@ -337,9 +353,9 @@ def qr_px_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
         if donate:
             return Q1.copy_(Q), P.copy_(Pn), X.copy_(Xn)
         return Q, Pn, Xn
-    k, n = _field_shape(Q1, "qr_px_update")
-    for F, what in ((P, "P"), (X, "X")):
-        _native.check_field(F, k, n, f"qr_px_update {what}")
+    shape = Q1.shape
+    Q1, P, X = _flat("qr_px_update", Q1, P, X)
+    k, n = Q1.shape
     for M, what in ((M2, "M2"), (rho, "rho"), (C, "C")):
         _native.check_kk(M, k, f"qr_px_update {what}")
     chunks = _chunks(k, 3, False, "qr_px_update", Q1.device)
@@ -353,8 +369,8 @@ def qr_px_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
                        p(Q1), p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Q[r0:r1]),
                        p(Pn[r0:r1]), p(Xn[r0:r1]), r1 - r0, k, n, _native.nblocks(n))
     if donate and not direct:
-        return Q1.copy_(Q), P.copy_(Pn), Xn
-    return Q, Pn, Xn
+        Q, Pn = Q1.copy_(Q), P.copy_(Pn)
+    return Q.view(shape), Pn.view(shape), Xn.view(shape)
 
 
 def cheb_step(R: torch.Tensor, Z: torch.Tensor, D: torch.Tensor, AZ: torch.Tensor,

@@ -19,6 +19,7 @@ from blockcg_tpu_torch.problems.dirac_eo import (
     eo_assemble,
     eo_split,
     solve_dirac_eo,
+    solve_dirac_eo_dist,
     solve_dirac_eo_shifted,
 )
 from blockcg_tpu_torch.problems.laplacian import (
@@ -82,6 +83,7 @@ __all__ = [
     "random_spd",
     "rgg_laplacian",
     "solve_dirac_eo",
+    "solve_dirac_eo_dist",
     "solve_dirac_eo_shifted",
     "uniform_random_spd",
 ]

@@ -20,9 +20,10 @@ masked diagonals.
 The numpy construction is carried over as it is, so hops, masks, offsets,
 slabs and blocks come out bitwise the reference's. Left out: the folded wrap
 fields of the matrix-link hops (the reference's opt-in ``BLOCKCG_FOLD``;
-``BlockDIAOperator`` has no ``fold=``), the distributed
-``solve_dirac_eo_dist``, and the reference's single-jit pipeline, a dispatch
-optimisation of the same chain, which runs here as the plain eager chain.
+``BlockDIAOperator`` has no ``fold=``), and the reference's single-jit
+pipeline, a dispatch optimisation of the same chain, which runs here as the
+plain eager chain. ``solve_dirac_eo_dist`` runs the Schur solve row-partitioned
+over a process group (``parallel/``).
 Splitting and assembling run on the device as a masked select on a
 (bs, ns/2, 2, k) view (no gather), and complex U(1) right-hand sides are
 converted to the realified system by torch ops on the device, where the
@@ -33,6 +34,7 @@ card unless ``device`` says otherwise.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -45,8 +47,8 @@ from blockcg_tpu_torch.operators.schur import EONormalOperator, SchurEvenOperato
 from blockcg_tpu_torch.problems.dirac import BS, _NDIM, _np_dtype, hopping_matrices
 
 __all__ = ["dirac_eo", "dirac_gauged_eo", "dirac_gauged_matrix_eo",
-           "eo_split", "eo_assemble", "solve_dirac_eo", "solve_dirac_eo_shifted",
-           "EOContext"]
+           "eo_split", "eo_assemble", "solve_dirac_eo", "solve_dirac_eo_dist",
+           "solve_dirac_eo_shifted", "EOContext"]
 
 
 def _half_coords(L: int, parity: int):
@@ -400,6 +402,49 @@ def solve_dirac_eo(eo: EOContext, B: torch.Tensor, solver=None, *, tol: float = 
     be, bo = eo_split(eo, B)
     rhs = be + _hop(eo.hop_eo, bo) / eo.c
     Xe, info = solver(eo.schur, rhs, tol=tol, max_iter=max_iter, **kwargs)
+    xo = (bo + _hop(eo.hop_oe, Xe)) / eo.c
+    return eo_assemble(eo, Xe, xo), info
+
+
+# The rank's shard of a context's Schur partition, built once per (context,
+# group, D): the host partition and the uploads would dominate repeat
+# solves. Keyed by id() with a weakref finalizer that evicts the entry when
+# the context is collected.
+_EO_PARTITION_CACHE: dict = {}
+
+
+def solve_dirac_eo_dist(eo: EOContext, B: torch.Tensor, group, *, tol: float = 1e-6,
+                        max_iter: int = 1000, qr_passes: int = 1, replace_every: int = 0,
+                        record_history: bool = False):
+    """``solve_dirac_eo`` with the half-size Schur system row-partitioned
+    over the ranks of ``group`` (``parallel.solve_sbcgrq_dist``); the split,
+    right-hand side, odd reconstruction and assembly run on every rank's
+    whole field. The plan is ``partition_dirac_eo(eo, D)``, D the size of
+    ``group``, sharded on the context's device and cached per (context,
+    group, D). Complex B on a U(1) context converts as in
+    ``solve_dirac_eo``. Returns (X (n, k), info)."""
+    import torch.distributed as dist
+
+    from blockcg_tpu_torch.parallel import partition_dirac_eo, solve_sbcgrq_dist
+
+    if eo.cdtype is not None and B.is_complex():
+        Xr, info = solve_dirac_eo_dist(eo, eo.complex_to_real(B), group, tol=tol,
+                                       max_iter=max_iter, qr_passes=qr_passes,
+                                       replace_every=replace_every,
+                                       record_history=record_history)
+        return eo.real_to_complex(Xr), info
+    D = dist.get_world_size(group)
+    key = (id(eo), id(group), D)
+    dschur = _EO_PARTITION_CACHE.get(key)
+    if dschur is None:
+        dschur = partition_dirac_eo(eo, D).shard(dist.get_rank(group), group, eo.q0.device)
+        weakref.finalize(eo, _EO_PARTITION_CACHE.pop, key, None)
+        _EO_PARTITION_CACHE[key] = dschur
+    be, bo = eo_split(eo, B)
+    rhs = be + _hop(eo.hop_eo, bo) / eo.c
+    Xe, info = solve_sbcgrq_dist(dschur, rhs, group, tol=tol, max_iter=max_iter,
+                                 qr_passes=qr_passes, replace_every=replace_every,
+                                 record_history=record_history)
     xo = (bo + _hop(eo.hop_oe, Xe)) / eo.c
     return eo_assemble(eo, Xe, xo), info
 

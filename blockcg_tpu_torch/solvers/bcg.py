@@ -33,10 +33,10 @@ from blockcg_tpu_torch.solvers.common import (
 from blockcg_tpu_torch.types import SolverInfo
 
 
-def block_monitor(Bt, tol, codec):
+def block_monitor(Bt, tol, codec, group=None):
     """(squared RHS norms, squared per-RHS thresholds) of the BCG family's
     stop test ``sqrt(diag S) <= tol ||B e_j||``."""
-    bnorm2 = row_norms2_t(Bt, codec=codec)
+    bnorm2 = row_norms2_t(Bt, codec=codec, group=group)
     bnorm2 = torch.where(bnorm2 > 0, bnorm2, torch.ones_like(bnorm2))
     tol_t = torch.as_tensor(tol, dtype=acc_dtype(Bt.real.dtype), device=Bt.device)
     return bnorm2, tol_t ** 2 * bnorm2
@@ -48,20 +48,21 @@ def block_info(S, bnorm2, tol, it, hist) -> SolverInfo:
                       matvecs=it + 1, history=hist)
 
 
-def _bcg_impl(op, Bt, X0t, tol, max_iter, record_history):
-    bnorm2, tol2 = block_monitor(Bt, tol, op)
+def _bcg_impl(op, Bt, X0t, tol, max_iter, record_history, group=None):
+    bnorm2, tol2 = block_monitor(Bt, tol, op, group)
     Rt = Bt - op.matmat_t(X0t)
-    S = f_gram(Rt, Rt, codec=op)
+    S = f_gram(Rt, Rt, codec=op, group=group)
     Xt, Pt = X0t, Rt.clone()  # P is updated in place, R and X by donation
     hist = (torch.full((max_iter,), torch.nan, dtype=bnorm2.dtype, device=Bt.device)
             if record_history else None)
     it = 0
     # The stop test: the iteration's one host read.
     while it < max_iter and bool((torch.diagonal(S).real > tol2).any()):
-        Zt, M = f_matmat_gram(op, Pt)  # Z = A P, M = P^T A P
+        Zt, M = f_matmat_gram(op, Pt, group)  # Z = A P, M = P^T A P
         alpha = chol_solve_spd(M, S)  # M alpha = S
         # X and R are dead after this; P and Z stay live.
-        Xt, Rt, S_new = f_xr_update_gram(alpha.T, Pt, Xt, Zt, Rt, codec=op, donate=True)
+        Xt, Rt, S_new = f_xr_update_gram(alpha.T, Pt, Xt, Zt, Rt, codec=op, donate=True,
+                                         group=group)
         beta = chol_solve_spd(S, S_new)  # S beta = S'
         Pt = f_mm_update(beta.T, Pt, Rt, codec=op, donate="b")
         S = S_new

@@ -37,10 +37,10 @@ def _from_field(op, f):
     return op.from_internal(f)[0]
 
 
-def _cg_impl(op, b, x0, tol, max_iter, record_history):
+def _cg_impl(op, b, x0, tol, max_iter, record_history, group=None):
     rdtype = acc_dtype(b.real.dtype)
     fadt = acc_dtype(b.dtype)
-    bnorm2 = vdot_real(b, b)
+    bnorm2 = vdot_real(b, b, group)
     bnorm2 = torch.where(bnorm2 > 0, bnorm2, torch.ones_like(bnorm2))
     tol2 = torch.as_tensor(tol, dtype=rdtype, device=b.device) ** 2 * bnorm2
 
@@ -51,16 +51,16 @@ def _cg_impl(op, b, x0, tol, max_iter, record_history):
     x = x0
     r = b - op.matmat_t(x0)
     p = r
-    rho = vdot_real(r, r)
+    rho = vdot_real(r, r, group)
     hist = (torch.full((max_iter,), torch.nan, dtype=rdtype, device=b.device)
             if record_history else None)
     it = 0
     while it < max_iter and bool(rho > tol2):  # the iteration's host read
-        z, M = f_matmat_gram(op, p)
+        z, M = f_matmat_gram(op, p, group)
         alpha = rho / M[0, 0].real.to(rdtype)
         x = axpy(x, alpha, p)
         r = axpy(r, -alpha, z)
-        rho_new = vdot_real(r, r)
+        rho_new = vdot_real(r, r, group)
         p = axpy(r, rho_new / rho, p)
         rho = rho_new
         if hist is not None:

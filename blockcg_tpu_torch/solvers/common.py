@@ -1,12 +1,20 @@
 """Shared solver primitives: the dtype rule, the k x k algebra and the
 dispatchers onto the fused field kernels.
 
-Counterpart of ``blockcg_tpu/solvers/common.py`` for one device (the
-reference's ``axis_name`` psums wait for the distributed layer). Fields are
-lanes-major, an (n, k) block V carried as ``Vt = V^T`` of shape (k, n). The
-k x k algebra runs as small PyTorch ops on the fields' device at full f32:
-callers must leave ``torch.backends.cuda.matmul.allow_tf32`` off
-(``solve_sbcgrq`` checks).
+Counterpart of ``blockcg_tpu/solvers/common.py``. Fields are lanes-major,
+an (n, k) block V carried as ``Vt = V^T`` of shape (k, n). The k x k algebra
+runs as small PyTorch ops on the fields' device at full f32: callers must
+leave ``torch.backends.cuda.matmul.allow_tf32`` off (``solve_sbcgrq``
+checks).
+
+Distribution: every reduction over the row dimension takes a ``group``, the
+counterpart of the reference's ``axis_name``. ``group=None`` is one process.
+With a ``torch.distributed`` process group, the same solver code runs on the
+rank's row shard (``parallel/``) and the reduction is summed over the ranks
+with ``all_reduce``, after the codec's contraction, so k x k goes on the
+wire, never m x m. Every rank then holds the same bits, and the solvers'
+host-side branches (the stop test, the adaptive second QR pass) read only
+such reduced values, so every rank takes the same branch.
 """
 
 from __future__ import annotations
@@ -22,6 +30,18 @@ def acc_dtype(dt: torch.dtype) -> torch.dtype:
 
 # Field-algebra codec shims (operators/base.py): ``codec=None`` means flat
 # fields (identity).
+
+
+def allreduce_if(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the ranks of ``group`` (in place on a contiguous x), or
+    x itself when ``group`` is None."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def _ce(codec, C):
@@ -51,26 +71,26 @@ def _field_dims(Ut: torch.Tensor) -> tuple[int, ...]:
     return tuple(range(1, Ut.dim()))
 
 
-def gram_t(Ut: torch.Tensor, Vt: torch.Tensor, codec=None) -> torch.Tensor:
+def gram_t(Ut: torch.Tensor, Vt: torch.Tensor, codec=None, group=None) -> torch.Tensor:
     """Gram block ``U^H V`` (k x k) from lanes-major fields (k, ...)."""
     adt = acc_dtype(Ut.dtype)
     k = Ut.shape[0]
     G = Ut.reshape(k, -1).conj().to(adt) @ Vt.reshape(k, -1).to(adt).T
-    return _gc(codec, G)
+    return allreduce_if(_gc(codec, G), group)
 
 
-def row_norms2_t(Ut: torch.Tensor, codec=None) -> torch.Tensor:
+def row_norms2_t(Ut: torch.Tensor, codec=None, group=None) -> torch.Tensor:
     """Squared column norms of U (real), from a field (k, ...) -> (k,)."""
     U = Ut.to(acc_dtype(Ut.dtype))
     s = (U * U.conj()).real.sum(dim=_field_dims(Ut))
-    return _nc(codec, s)
+    return allreduce_if(_nc(codec, s), group)
 
 
-def vdot_real(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def vdot_real(u: torch.Tensor, v: torch.Tensor, group=None) -> torch.Tensor:
     """Real part of the conjugating inner product over every element, exact
     for the CG quantities r^H r and p^H A p; bf16 fields reduce in f32."""
     adt = acc_dtype(u.dtype)
-    return torch.vdot(u.reshape(-1).to(adt), v.reshape(-1).to(adt)).real
+    return allreduce_if(torch.vdot(u.reshape(-1).to(adt), v.reshape(-1).to(adt)).real, group)
 
 
 def safe_cholesky(G: torch.Tensor) -> torch.Tensor:
@@ -126,10 +146,10 @@ def tri_inverse_upper(R: torch.Tensor) -> torch.Tensor:
 # ops imports this module for acc_dtype, hence the imports inside.
 
 
-def f_gram(Ut, Vt, codec=None):
+def f_gram(Ut, Vt, codec=None, group=None):
     from blockcg_tpu_torch.ops import fused
 
-    return _gc(codec, fused.gram(Ut, Vt))
+    return allreduce_if(_gc(codec, fused.gram(Ut, Vt)), group)
 
 
 def f_mm_update(M, Bt, At=None, codec=None, donate: str | None = None):
@@ -140,16 +160,16 @@ def f_mm_update(M, Bt, At=None, codec=None, donate: str | None = None):
     return fused.mm_update(_ce(codec, M), Bt, At, donate=donate)
 
 
-def f_mm_update_gram(M, Bt, At=None, codec=None, donate: bool = False):
+def f_mm_update_gram(M, Bt, At=None, codec=None, donate: bool = False, group=None):
     """(Y = M @ B (+ A), G = Y Y^T) in one pass; ``donate`` writes Y onto B,
     which must be dead at the call site."""
     from blockcg_tpu_torch.ops import fused
 
     Y, G = fused.mm_update_gram(_ce(codec, M), Bt, At, donate=donate)
-    return Y, _gc(codec, G)
+    return Y, allreduce_if(_gc(codec, G), group)
 
 
-def f_mm2_update_gram(M1, B1t, M2, B2t, codec=None, donate: bool = False):
+def f_mm2_update_gram(M1, B1t, M2, B2t, codec=None, donate: bool = False, group=None):
     """(Y = M1 @ B1 + M2 @ B2, G = Y Y^T) in one pass: the implicit-Q
     residual-direction update V = Q - Z alpha with Q = M_qr @ W never
     materialized. ``donate`` writes Y onto B1."""
@@ -157,7 +177,7 @@ def f_mm2_update_gram(M1, B1t, M2, B2t, codec=None, donate: bool = False):
 
     Y, G = fused.mm2_update_gram(_ce(codec, M1), B1t, _ce(codec, M2), B2t,
                                  donate=donate)
-    return Y, _gc(codec, G)
+    return Y, allreduce_if(_gc(codec, G), group)
 
 
 def f_px_update(M1, Wt, rho, Pt, C, Xt, codec=None, donate: bool = False):
@@ -169,14 +189,14 @@ def f_px_update(M1, Wt, rho, Pt, C, Xt, codec=None, donate: bool = False):
                            _ce(codec, C), Xt, donate=donate)
 
 
-def f_xr_update_gram(alpha, Pt, Xt, Zt, Rt, codec=None, donate: bool = False):
+def f_xr_update_gram(alpha, Pt, Xt, Zt, Rt, codec=None, donate: bool = False, group=None):
     """(Xn = X + alpha @ P, Rn = R - alpha @ Z, S' = Rn Rn^T) in one pass:
     the BCG/BCGA solution and residual updates. ``donate`` writes Xn onto X
     and Rn onto R; P and Z stay live."""
     from blockcg_tpu_torch.ops import fused
 
     Xn, Rn, S = fused.xr_update_gram(_ce(codec, alpha), Pt, Xt, Zt, Rt, donate=donate)
-    return Xn, Rn, _gc(codec, S)
+    return Xn, Rn, allreduce_if(_gc(codec, S), group)
 
 
 def f_qr_p_update(M2, Q1t, rho, Pt, codec=None, donate: bool = False):
@@ -197,13 +217,14 @@ def f_qr_px_update(M2, Q1t, rho, Pt, C, Xt, codec=None, donate: bool = False):
                               donate=donate)
 
 
-def f_matmat_gram(op, Xt):
+def f_matmat_gram(op, Xt, group=None):
     """(Z = A X, M = X^H Z), with the Gram fused into the operator apply when
-    the operator supports it."""
+    the operator supports it (its Gram is contracted, and local to the rank
+    under a ``group``)."""
     Zt, M = op.matmat_gram_t(Xt)
     if M is None:
-        return Zt, f_gram(Xt, Zt, codec=op)
-    return Zt, M
+        return Zt, f_gram(Xt, Zt, codec=op, group=group)
+    return Zt, allreduce_if(M, group)
 
 
 # ------------------------------------------------------ thin-QR from Grams
@@ -249,7 +270,7 @@ def qr_ortho_err(M, G):
 
 
 def qr_passes_from_gram(G, Wt, passes: int, codec=None,
-                        want_cond: bool = False, want_ortho: bool = False):
+                        want_cond: bool = False, want_ortho: bool = False, group=None):
     """Run CholeskyQR passes given a precomputed Gram, deferring the final
     orthonormalization so the caller can fuse it. Returns (M_last, W_last,
     rho) (+ cond1 with ``want_cond``, + the orthogonality error with
@@ -264,7 +285,7 @@ def qr_passes_from_gram(G, Wt, passes: int, codec=None,
         Mi, Ri, cond1 = qr_factors_from_gram(G, want_cond=True)
         kappa_crit = 0.5 / torch.finfo(G.real.dtype).eps ** 0.5
         if float(cond1) > kappa_crit:
-            Wt, G2 = f_mm_update_gram(Mi, Wt, None, codec, donate=True)
+            Wt, G2 = f_mm_update_gram(Mi, Wt, None, codec, donate=True, group=group)
             Mi2, Ri2 = qr_factors_from_gram(G2)
             oe = qr_ortho_err(Mi2, G2) if want_ortho else None
             Mi, rho = Mi2, kk_mm(Ri2, Ri)
@@ -282,7 +303,7 @@ def qr_passes_from_gram(G, Wt, passes: int, codec=None,
             Mi, Ri = qr_factors_from_gram(G)
         rho = Ri if rho is None else kk_mm(Ri, rho)
         if p < passes - 1:
-            Wt, G = f_mm_update_gram(Mi, Wt, None, codec, donate=True)
+            Wt, G = f_mm_update_gram(Mi, Wt, None, codec, donate=True, group=group)
     extras = ((cond1,) if want_cond else ()) + (
         (qr_ortho_err(Mi, G),) if want_ortho else ())
     return (Mi, Wt, rho) + extras
@@ -303,13 +324,13 @@ def residual_rebase(S, Sn):
     return Ut.T
 
 
-def cholqr_fused_t(Vt, passes: int = 2, codec=None):
+def cholqr_fused_t(Vt, passes: int = 2, codec=None, group=None):
     """Thin QR via CholeskyQR(passes) on the fused kernels. Returns (Qt, R)
     with V = Q R. V is left as it was: a second field pass would overwrite
     its operand, so it gets a copy (the reference's XLA inserts the same
     copy)."""
-    G = f_gram(Vt, Vt, codec)
-    Mi, Wt, rho = qr_passes_from_gram(G, Vt.clone(), passes, codec=codec)
+    G = f_gram(Vt, Vt, codec, group)
+    Mi, Wt, rho = qr_passes_from_gram(G, Vt.clone(), passes, codec=codec, group=group)
     return f_mm_update(Mi, Wt, codec=codec), rho
 
 

@@ -175,7 +175,7 @@ def solve_pbcg(
     return op.from_internal(Xt).T, info
 
 
-def _psbcgrq_impl(op, M, Bt, X0t, tol, max_iter, qr_passes, record_history):
+def _psbcgrq_impl(op, M, Bt, X0t, tol, max_iter, qr_passes, record_history, group=None):
     """Preconditioned SBCGrQ: Dubrulle's rQ stabilization in the M-inner
     product. Residuals factor as R = Q S with Q^H M Q = I (M-CholQR: G =
     V^H (M V), Q = V L^{-H}); the direction seed is P = M Q + P rho^H. It
@@ -183,7 +183,8 @@ def _psbcgrq_impl(op, M, Bt, X0t, tol, max_iter, qr_passes, record_history):
     ``||S e_j||`` is the M-norm of the residual, relative to ``||B_j||_M``."""
     rdtype = acc_dtype(Bt.real.dtype)
     MB = _apply_m(M, Bt)
-    bnorm = torch.sqrt(torch.clamp_min(torch.diagonal(f_gram(Bt, MB, codec=op)).real, 0.0))
+    bnorm = torch.sqrt(torch.clamp_min(
+        torch.diagonal(f_gram(Bt, MB, codec=op, group=group)).real, 0.0))
     bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     tol_arr = torch.as_tensor(tol, dtype=rdtype, device=Bt.device)
 
@@ -193,7 +194,7 @@ def _psbcgrq_impl(op, M, Bt, X0t, tol, max_iter, qr_passes, record_history):
         rho = None
         Qt, MQt = Vt, _apply_m(M, Vt)
         for p in range(passes):
-            G = f_gram(Qt, MQt, codec=op)
+            G = f_gram(Qt, MQt, codec=op, group=group)
             Mi, Ri = qr_factors_from_gram(G)
             rho = Ri if rho is None else kk_mm(Ri, rho)
             Qt = f_mm_update(Mi, Qt, codec=op)
@@ -212,7 +213,7 @@ def _psbcgrq_impl(op, M, Bt, X0t, tol, max_iter, qr_passes, record_history):
             if record_history else None)
     it = 0
     while it < max_iter and bool((relres_of(S) > tol_arr).any()):  # the host read
-        Wt, T = f_matmat_gram(op, Pt)  # W = A P, T = P^H A P
+        Wt, T = f_matmat_gram(op, Pt, group)  # W = A P, T = P^H A P
         alpha_t = chol_inverse_spd(T).conj()
         Xt = f_mm_update(kk_mm(S.T, alpha_t), Pt, Xt, codec=op, donate="a")
         # V = Q - W alpha; W is dead after it.

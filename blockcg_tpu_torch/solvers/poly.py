@@ -37,7 +37,8 @@ from blockcg_tpu_torch.types import SolverInfo
 _SPECTRUM_CACHE: dict = {}
 
 
-def _cheb_cycle(pop, Bt, Xt, bnorm, tol, max_iter, qr_passes, record_history):
+def _cheb_cycle(pop, Bt, Xt, bnorm, tol, max_iter, qr_passes, record_history,
+                group=None):
     """One certified cycle on internal fields: true residual -> M r -> inner
     SBCGrQ on (M A) D = M r -> X += D. Returns (X, true relres, inner
     info)."""
@@ -45,9 +46,9 @@ def _cheb_cycle(pop, Bt, Xt, bnorm, tol, max_iter, qr_passes, record_history):
     Rt = Bt - base.matmat_t(Xt)
     MRt = pop.apply_m_t(Rt)
     Dt, info = _sbcgrq_impl(pop, MRt, torch.zeros_like(MRt), tol, max_iter, qr_passes,
-                            0, record_history)
+                            0, record_history, group=group)
     Xt = Xt + Dt
-    relres = torch.sqrt(row_norms2_t(Bt - base.matmat_t(Xt), codec=base)) / bnorm
+    relres = torch.sqrt(row_norms2_t(Bt - base.matmat_t(Xt), codec=base, group=group)) / bnorm
     return Xt, relres, info
 
 

@@ -56,11 +56,12 @@ from blockcg_tpu_torch.types import SolverInfo
 
 def _sbcgrq_impl(op, Bt, X0t, tol, max_iter, qr_passes, replace_every,
                  record_history, active_floor=0, replace_kappa=0.0,
-                 replace_mode="restart", iter_cap=None):
-    """The solver on internal fields; ``X0t`` is overwritten."""
+                 replace_mode="restart", iter_cap=None, group=None):
+    """The solver on internal fields; ``X0t`` is overwritten. ``group``: the
+    process group whose ranks hold the fields' row shards, or None."""
     rdtype = acc_dtype(Bt.real.dtype)
     dev = Bt.device
-    bnorm = torch.sqrt(row_norms2_t(Bt, codec=op))
+    bnorm = torch.sqrt(row_norms2_t(Bt, codec=op, group=group))
     bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     # tol may be a scalar or a per-RHS (k,) vector.
     tol_arr = torch.as_tensor(tol, dtype=rdtype, device=dev)
@@ -70,8 +71,8 @@ def _sbcgrq_impl(op, Bt, X0t, tol, max_iter, qr_passes, replace_every,
         """True residual, factorized in deferred form (Q = Mi @ W), with the
         k x k-side orthogonality error as the last element."""
         Rt = Bt - op.matmat_t(Xt)
-        G = f_gram(Rt, Rt, codec=op)
-        return qr_passes_from_gram(G, Rt, qr_passes, codec=op, want_ortho=True)
+        G = f_gram(Rt, Rt, codec=op, group=group)
+        return qr_passes_from_gram(G, Rt, qr_passes, codec=op, want_ortho=True, group=group)
 
     def relres_of(S):
         # R = Q S with orthonormal Q: per-RHS residual norm = ||S e_j||.
@@ -92,15 +93,15 @@ def _sbcgrq_impl(op, Bt, X0t, tol, max_iter, qr_passes, replace_every,
         if int(unconverged.sum()) <= active_floor:
             break
         per_rhs += unconverged.to(torch.int32)
-        Zt, M = f_matmat_gram(op, Pt)
+        Zt, M = f_matmat_gram(op, Pt, group)
         alpha = chol_inverse_spd(M)  # Hermitian
         # Lanes-major: V = Q - Z alpha transposes to Vt = Qt - alpha^T Zt
         # with alpha^T = conj(alpha), and Qt = Mqr @ Wt applied on the fly.
         # W is dead after this, so V overwrites it.
         alpha_t = alpha.conj()
-        Vt, G = f_mm2_update_gram(Mqr, Wt, -alpha_t, Zt, codec=op, donate=True)
+        Vt, G = f_mm2_update_gram(Mqr, Wt, -alpha_t, Zt, codec=op, donate=True, group=group)
         Mqr, Wt, rho, cond1, oe = qr_passes_from_gram(
-            G, Vt, qr_passes, codec=op, want_cond=True, want_ortho=True)
+            G, Vt, qr_passes, codec=op, want_cond=True, want_ortho=True, group=group)
         orth = torch.maximum(orth, oe)
         # P' = Mqr W + conj(rho) P and X' = X + (S^T alpha^T) P both read the
         # pre-update P; P and X are dead after, so both update in place.

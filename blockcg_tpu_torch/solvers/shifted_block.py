@@ -57,20 +57,22 @@ from blockcg_tpu_torch.types import SolverInfo
 
 def _smm_f(op, a, b):
     """Batched coefficient-times-field product over the shift axis,
-    (nshift, k, k) @ (nshift, m, n): each (k, k) of the stack is expanded to
-    the operator's internal rows (codec) first."""
-    return torch.stack([_ce(op, c) for c in a]) @ b
+    (nshift, k, k) @ (nshift, m, ...): each (k, k) of the stack is expanded
+    to the operator's internal rows (codec) first."""
+    out = torch.stack([_ce(op, c) for c in a]) @ b.reshape(b.shape[0], b.shape[1], -1)
+    return out.reshape(b.shape)
 
 
-def _shifted_sbcgrq_impl(op, Bt, sigmas, tol, max_iter, qr_passes, record_history):
+def _shifted_sbcgrq_impl(op, Bt, sigmas, tol, max_iter, qr_passes, record_history,
+                         group=None):
     dtype, dev = Bt.dtype, Bt.device
     rdtype = acc_dtype(Bt.real.dtype)
     ns = sigmas.shape[0]
-    bnorm = torch.sqrt(row_norms2_t(Bt, codec=op))
+    bnorm = torch.sqrt(row_norms2_t(Bt, codec=op, group=group))
     bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     tol_arr = torch.as_tensor(tol, dtype=rdtype, device=dev)
 
-    Qt, S0 = cholqr_fused_t(Bt, passes=qr_passes, codec=op)
+    Qt, S0 = cholqr_fused_t(Bt, passes=qr_passes, codec=op, group=group)
     # k from the contracted QR factor: merged layouts carry m = bs*k rows.
     k = S0.shape[0]
     eye = torch.eye(k, dtype=dtype, device=dev)
@@ -92,7 +94,7 @@ def _shifted_sbcgrq_impl(op, Bt, sigmas, tol, max_iter, qr_passes, record_histor
             if record_history else None)
     it = 0
     while it < max_iter and bool((rel > tol_arr).any()):  # the host read
-        Zt, M = f_matmat_gram(op, Pt)  # P^H A P = alpha^{-1}
+        Zt, M = f_matmat_gram(op, Pt, group)  # P^H A P = alpha^{-1}
         alpha = chol_inverse_spd(M)
 
         # ---- per-shift incremental block LDL^H step (all k x k)
@@ -111,8 +113,8 @@ def _shifted_sbcgrq_impl(op, Bt, sigmas, tol, max_iter, qr_passes, record_histor
 
         # ---- seed SBCGrQ update (the shared Krylov engine). Z is dead after
         # V, and Q1 and P after the tail: both donate.
-        Vt, G = f_mm_update_gram(-alpha.conj(), Zt, Qt, codec=op, donate=True)
-        Mi, Wt, rho = qr_passes_from_gram(G, Vt, qr_passes, codec=op)
+        Vt, G = f_mm_update_gram(-alpha.conj(), Zt, Qt, codec=op, donate=True, group=group)
+        Mi, Wt, rho = qr_passes_from_gram(G, Vt, qr_passes, codec=op, group=group)
         Qt, Pt = f_qr_p_update(Mi, Wt, rho.conj(), Pt, codec=op, donate=True)
 
         # shifted residual coefficient: rho_{i+1} M_i eta

@@ -6,7 +6,7 @@ nvcc:
 
     python3 chip_profile.py
 
-Nine solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+Nine single-device solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
 first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
 its inner solver, tol 3e-6) at qr_passes 1 and 2, config 4 (the 32^4
@@ -17,7 +17,15 @@ matrix-link lattice operator ``dirac_gauged_matrix(32)`` in the per-site
 block container (k = 12 from ``default_rng(1234)``, tol 1e-6,
 qr_passes=1); the even-odd Schur solve ``solve_dirac_eo`` on ``dirac_eo(32)``
 with config 4's 12 RHS (tol 1e-6) and ``solve_sbcgrq_cheb`` on config 3 at
-degree 6 (tol 1e-6, its spectrum estimated in the warm-up run). Each solve
+degree 6 (tol 1e-6, its spectrum estimated in the warm-up run); then the
+distributed layer on one rank (NCCL, a group of one): config 3, the
+north-star inner solve, config 4 and the even-odd solve through
+``parallel``, and CG on config 3's column 0 beside the single-device CG,
+with a line of the layer's primitives (host wall time of one k x k
+``all_reduce``, alone and behind queued device work, and of one halo
+exchange at config 4's shape; device time of the one-rank config-4 apply
+with its Gram beside the operator's) and one of the Dist solves' bare ms
+with the all-reduce replaced by the identity. Each solve
 runs once to warm up, once bare (wall clock ending
 in ``torch.cuda.synchronize()``: "bare ms"), and once under
 ``torch.profiler`` with CUDA activity only. From the trace's device events
@@ -31,8 +39,9 @@ it reports:
   so this bounds the bare run's idle share from above;
 - ``top``: device ms and calls of the busiest kernels, by name.
 
-It prints the card's name and power limit, then one JSON line per solve. It
-imports neither JAX nor the reference package, and fails without a card.
+It prints the card's name and power limit, then one JSON line per solve and
+one of the primitives. It imports neither JAX nor the reference package, and
+fails without a card.
 """
 
 from __future__ import annotations
@@ -114,6 +123,90 @@ def profile_solve(torch, name, run, tmp: Path) -> dict:
     return {"solve": name, "bare_ms": bare_ms, **summarize(events, info.iterations)}
 
 
+def nccl_group(torch):
+    """A process group of one rank on cuda:0 over NCCL, at a free local
+    port."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    return dist.group.WORLD
+
+
+def dist_primitives(torch, group, op4, dop4, B4, reps: int = 200) -> dict:
+    """Host wall time (us) of one k x k all_reduce and one halo exchange at
+    config 4's merged (48, 32^4) field, and the device time (ms, CUDA
+    events) of the one-rank apply with its Gram beside the operator's."""
+    from blockcg_tpu_torch.parallel import start_ring_halos
+    from blockcg_tpu_torch.solvers.common import allreduce_if
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    def device_ms(fn):
+        fn()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(20):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / 20
+
+    def behind_work_us():
+        """Host time of one all_reduce issued right behind ~10 ms of queued
+        device work: about that work's time if the call waits for it."""
+        A = torch.randn((6144, 6144), device=B4.device)
+        torch.cuda.synchronize()
+        A @ A
+        t0 = time.perf_counter()
+        allreduce_if(G, group)
+        t = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    G = torch.randn((12, 12), device=B4.device)
+    Xm = dop4.shard_field(B4.T)
+    return {"dist_primitives": {
+        "allreduce_12x12_us": host_us(lambda: allreduce_if(G, group)),
+        "allreduce_behind_device_work_us": behind_work_us(),
+        "halo_exchange_us": host_us(lambda: start_ring_halos(Xm, dop4.bw, group).wait()),
+        "config4_apply_gram_ms": device_ms(lambda: op4.matmat_gram_t(Xm)),
+        "dist_config4_apply_gram_ms": device_ms(lambda: dop4.matmat_gram_t(Xm)),
+        "config4_apply_gram_host_us": host_us(lambda: op4.matmat_gram_t(Xm)),
+        "dist_config4_apply_gram_host_us": host_us(lambda: dop4.matmat_gram_t(Xm))}}
+
+
+def bare_without_allreduce(torch, run) -> float:
+    """Bare ms of a one-rank Dist solve with the solvers' k x k all_reduce
+    replaced by the identity (on one rank the sum has one term): what the
+    collectives cost, against its bare ms with them."""
+    from blockcg_tpu_torch.solvers import common
+
+    kept = common.allreduce_if
+    common.allreduce_if = lambda x, group: x
+    try:
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    finally:
+        common.allreduce_if = kept
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     import torch
@@ -124,8 +217,10 @@ def main() -> None:
         raise SystemExit(f"chip_profile.py: no blockcg_tpu_torch/ beside {__file__}; "
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(root))
+    from blockcg_tpu_torch import parallel as par
     from blockcg_tpu_torch import (
         solve_bcg,
+        solve_cg,
         solve_sbcgrq,
         solve_sbcgrq_cheb,
         solve_shifted_sbcgrq,
@@ -138,6 +233,7 @@ def main() -> None:
         dirac_gauged_matrix,
         laplacian_dia,
         solve_dirac_eo,
+        solve_dirac_eo_dist,
     )
     from blockcg_tpu_torch.problems.presets import _rhs
 
@@ -176,9 +272,36 @@ def main() -> None:
         ("config3 solve_sbcgrq_cheb degree 6",
          lambda: solve_sbcgrq_cheb(op3, B3, degree=6, tol=1e-6)),
     ]
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, run in solves:
-            print(json.dumps(profile_solve(torch, name, run, Path(tmp))), flush=True)
+    group = nccl_group(torch)
+    dop3, dop, dop4 = (par.partition_dia(op3, 1).shard(0, group, dev),
+                       par.partition_dia(op, 1).shard(0, group, dev),
+                       par.partition_cbdia(op4, 1).shard(0, group, dev))
+    b3 = B3[:, 0].contiguous()
+    solves += [
+        ("dist config3 qr_passes=1",
+         lambda: par.solve_sbcgrq_dist(dop3, B3, group, tol=1e-6)),
+        ("dist north-star inner 128^3 qr_passes=1",
+         lambda: par.solve_sbcgrq_dist(dop, R, group, tol=3e-6, max_iter=2000)),
+        ("dist config4 dirac_32 qr_passes=1",
+         lambda: par.solve_sbcgrq_dist(dop4, B4, group, tol=1e-6)),
+        ("dist even-odd dirac_eo(32) k=12 solve_dirac_eo_dist",
+         lambda: solve_dirac_eo_dist(eo, B4, group, tol=1e-6)),
+        ("config3 solve_cg column 0", lambda: solve_cg(op3, b3, tol=1e-6)),
+        ("dist config3 solve_cg_dist column 0",
+         lambda: par.solve_cg_dist(dop3, b3, group, tol=1e-6)),
+    ]
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, run in solves:
+                print(json.dumps(profile_solve(torch, name, run, Path(tmp))), flush=True)
+        print(json.dumps(dist_primitives(torch, group, op4, dop4, B4)), flush=True)
+        print(json.dumps({"bare_ms_without_allreduce": {
+            name: bare_without_allreduce(torch, run)
+            for name, run in solves if name.startswith("dist")}}), flush=True)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -42,12 +42,19 @@ twice, bitwise identical, and with bf16 tiles; ``tiled_spmm_t`` at that
 shape), ``[scattered]`` (the reference's
 ``bench_scattered.py`` problems in the CSR, ELL and tile formats) and
 ``[bell]`` (config 4's matrix as site-major BSR against the const-hop
-solve). Each phase prints one or a few lines; any failure raises, and the process exits
+solve); then the distributed layer on one rank, an NCCL group of one on
+cuda:0 (the halo slab adds, rows 20 and 21, against their plain versions at
+config 4's and the even-odd hop's crossings; ``[dist]``: the row-partitioned
+north star to 1e-10, config 4, the even-odd solve on 12 RHS and on one,
+the matrix-link operator and config 3's BCG, CG, shifted, Jacobi and
+Chebyshev solves, each beside its single-device run with the time ratio).
+Each phase prints one or a few lines; any failure raises, and the process exits
 non-zero. The last two lines are the kernels' JSON record, whose launch
 counts are those of each kernel's own path (the north-star solves, config 4,
 configs 1 and 2, the multi-shift solves, the matrix-link solves, the
-Chebyshev solves, the even-odd CG or the sparse solves; the (k, bs, ns)
-Gram and ``qr_px_update`` have no solver caller and count 0), with each
+Chebyshev solves, the even-odd CG, the sparse solves or the ``[dist]``
+solves; the (k, bs, ns) Gram and ``qr_px_update`` have no solver caller and
+count 0), with each
 kernel's bound
 (the larger of its contract's bytes over 3.35 TB/s and its FLOPs over 67
 TFLOP/s, the H100 SXM's data-sheet peaks) and, where one PyTorch call
@@ -109,6 +116,10 @@ KERNELS = {
                               "blockcg_tpu/ops/const_block_stencil.py:691"),
     "tiled_spmm_t": ("blockcg_tpu_torch/csrc/spmm_tiled.cu", "blockcg_tpu/ops/spmm_tiled.py:63"),
     "qr_px_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:795"),
+    "slab_m_accumulate_from": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                               "blockcg_tpu/ops/const_block_stencil.py:846"),
+    "slab_block_accumulate_from": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+                                   "blockcg_tpu/ops/const_block_stencil.py:955"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -122,7 +133,8 @@ BS_KERNELS = ("block_stencil_spmm_m_t", "block_stencil_spmm_m_gram_t", "block_st
 VIEW_KERNELS = ("const_block_stencil_spmm_t", "slab_block_accumulate")
 NORTH_STAR_KERNELS = tuple(w for w in KERNELS if w not in (
     *CBS_KERNELS, *BS_KERNELS, *VIEW_KERNELS, "const_block_stencil_spmm_gram_t",
-    "xr_update_gram", "qr_p_update", "cheb_step", "tiled_spmm_t", "qr_px_update"))
+    "xr_update_gram", "qr_p_update", "cheb_step", "tiled_spmm_t", "qr_px_update",
+    "slab_m_accumulate_from", "slab_block_accumulate_from"))
 CONFIG3_WRAPPERS = ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update",
                     "mm2_update_gram", "px_update")
 # Every SBCGrQ solve at qr_passes=1 launches these fused kernels
@@ -195,6 +207,13 @@ BELL_X_RTOL = 1e-6
 WIDE_WRAPPERS = ("const_block_stencil_spmm_m_t", "slab_m_accumulate", "gram",
                  "mm2_update_gram", "px_update", "qr_p_update")
 SPARSE_WRAPPERS = ("tiled_spmm_t", "gram", "mm2_update_gram", "px_update")
+# The distributed layer on one rank (NCCL, a group of one): the halo slab
+# adds keep the [dist] solves' counts; the merged one carries config 4's
+# t-hop crossings, the view's those of the one-RHS even-odd solve.
+DIST_KERNELS = ("slab_m_accumulate_from", "slab_block_accumulate_from")
+DIST_ML_ITERS = 10  # dirac_gauged_matrix(32), 12 RHS: the single-device count
+DIST_EO_ITERS = 7  # dirac_eo(32) with config 4's B
+DIST_CHEB_DEGREE = 6
 
 
 def median_ms(torch, fn) -> float:
@@ -1707,6 +1726,283 @@ def phase_wide_solves(torch, dev) -> dict:
     return dict(_native.launches)
 
 
+def _halo_case(torch, kern_fn, plain_fn, Y0):
+    """(kern, plain, timed) for an in-place halo slab add: each compared
+    call starts from a fresh copy of Y0, the timed ones add in place."""
+    Yk, Yp = Y0.clone(), Y0.clone()
+
+    def kern_t():
+        out = kern_fn(Yk)
+        return out if isinstance(out, tuple) else (out, None)
+
+    def plain_t():
+        out = plain_fn(Yp)
+        return out if isinstance(out, tuple) else (out, None)
+
+    def kern():
+        Yk.copy_(Y0)
+        return kern_t()
+
+    def plain():
+        Yp.copy_(Y0)
+        return plain_t()
+    return kern, plain, (kern_t, plain_t)
+
+
+def phase_dist_kernels(torch, dev, records) -> None:
+    """Rows 20 and 21 against their plain versions at the [dist] path's
+    shapes. Row 20 on config 4's +t crossing at one rank: the (48, 32^3)
+    halo into the last 8 slabs of g = 4096 sites of the (48, 32^4) field,
+    without and with the Gram, with the Z2-gauged operator's edge links as
+    ``vals``, and at m = 96. Row 21 on a ``dirac_eo(32)`` parity hop's
+    crossing at (1, 4, 2^19) and on config 4's at (12, 4, 32^4)."""
+    from blockcg_tpu_torch import parallel as par
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.problems import dirac_cbdia, dirac_eo, dirac_gauged_cbdia
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def crossing(plan, ns):
+        """The +t crossing of a one-rank plan: (hop, g, nblocks, dst_base,
+        halo width, its index)."""
+        i, (d, o, g, nb) = next((i, c) for i, c in enumerate(plan.crossings) if c[1] > 0)
+        return torch.tensor(plan.hops[d], device=dev), g, nb, (ns - o) // g, o, i
+
+    def is_gram(w):
+        return w.dim() == 2 and w.shape[0] == w.shape[1]
+
+    ns = DIRAC_L ** 4
+    plan = par.partition_cbdia(dirac_cbdia(DIRAC_L, device=dev), 1)
+    gplan = par.partition_cbdia(dirac_gauged_cbdia(DIRAC_L, device=dev), 1)
+    hop, g, nb, dst, bw, _ = crossing(plan, ns)
+    ghop, _, _, _, _, gi = crossing(gplan, ns)
+    vals = torch.from_numpy(gplan.cross_vals[gi]).to(dev)
+    print(f"[kernel] one-rank dirac_cbdia({DIRAC_L}) plan: crossings {plan.crossings}, "
+          f"halo width {plan.bw}, slab width {plan.g}; the Z2 plan's edge values "
+          f"{tuple(vals.shape)} in {{{', '.join(map(str, sorted(vals.unique().tolist())))}}}")
+    cols = nb * g
+    for m, gram, gauged in ((4 * DIRAC_K, False, False), (4 * DIRAC_K, True, False),
+                            (4 * DIRAC_K, False, True), (4 * DIRAC_K, True, True),
+                            (WIDE_M, False, False), (WIDE_M, True, False)):
+        Src = torch.randn((m, bw), generator=gen, device=dev)
+        Y0 = torch.randn((m, ns), generator=gen, device=dev)
+        X = torch.randn((m, ns), generator=gen, device=dev)
+        h, v = (ghop, vals) if gauged else (hop, None)
+        args = (h, g, nb, dst, 0, Src)
+        kern, plain, timed = _halo_case(
+            torch, lambda Y: cbs.slab_m_accumulate_from(*args, Y, X, v, with_gram=gram),
+            lambda Y: cbs.slab_from_plain(*args, Y, X, v, gram), Y0)
+        fbc = m * 4  # bytes of one site column
+        work = (3 * fbc * cols + (0 if v is None else 4 * cols) + gram * (fbc * cols + m * m * 4),
+                2 * (m // 4) * nnz(h) * cols + (0 if v is None else m * cols)
+                + gram * 2 * m * m * cols)
+        what = (f"halo ({m}, {bw}) into ({m}, {ns}) g={g} x {nb}"
+                + (" with Gram" if gram else "") + (" Z2 vals" if gauged else ""))
+        _timed_check(torch, "slab_m_accumulate_from", what, kern, plain, is_gram, records, timed,
+                     work=work)
+    del plan, gplan, Src, Y0, X
+    eo = dirac_eo(DIRAC_L, device=dev)
+    eplan = par.partition_cbdia(eo.hop_oe, 1)
+    ns2 = eo.ns // 2
+    for label, (h, g, nb, dst, bw, _), k, nsites in (
+            (f"dirac_eo({DIRAC_L}) hop", crossing(eplan, ns2), 1, ns2),
+            ("config 4 hop", crossing(par.partition_cbdia(dirac_cbdia(DIRAC_L, device=dev), 1),
+                                      ns), DIRAC_K, ns)):
+        Src = torch.randn((k, 4, bw), generator=gen, device=dev)
+        Y0 = torch.randn((k, 4, nsites), generator=gen, device=dev)
+        args = (h, g, nb, dst, 0, Src)
+        kern, plain, timed = _halo_case(
+            torch, lambda Y: cbs.slab_block_accumulate_from(*args, Y),
+            lambda Y: cbs.slab_v_from_plain(*args, Y), Y0)
+        cols = nb * g
+        _timed_check(torch, "slab_block_accumulate_from",
+                     f"{label} halo ({k}, 4, {bw}) into ({k}, 4, {nsites}) g={g} x {nb}",
+                     kern, plain, is_gram, records, timed,
+                     work=(3 * 16 * k * cols, 2 * k * nnz(h) * cols))
+    del eo, eplan
+    torch.cuda.empty_cache()
+
+
+def _nccl_group(torch):
+    """A process group of one rank on cuda:0 over NCCL, at a free local
+    port. A failed init raises: the phase has no other backend."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    return dist.group.WORLD
+
+
+def phase_dist(torch, dev) -> dict:
+    """The distributed layer on one rank (NCCL, a group of one; at D = 1 the
+    periodic t-hops still go round the halo ring): each solve beside its
+    single-device run, with the Dist / single-device time ratio. The
+    row-partitioned north star (``solve_refined_dist`` on 128^3, k = 32) to a
+    true f64 relres <= 1e-10; config 4 through ``solve_sbcgrq_dist`` twice
+    (bitwise identical, the reference's 13 iterations, X within
+    ``BDIA_X_RTOL`` of the single-device solve); ``solve_dirac_eo_dist`` on
+    ``dirac_eo(32)`` (7 iterations) and on its one-RHS column 0 (row 21);
+    the matrix-link operator through ``partition_bdia`` (10 iterations);
+    BCG, CG (column 0), the shifted block solve, Jacobi PSBCGrQ and
+    Chebyshev SBCGrQ on config 3, each with its single-device iteration
+    count (the f32 Grams differ in rounding: the fused apply's against the
+    separate one). Returns the launch counts of the Dist solves."""
+    import torch.distributed as dist
+
+    from blockcg_tpu_torch import (
+        jacobi_preconditioner,
+        solve_bcg,
+        solve_cg,
+        solve_psbcgrq,
+        solve_refined,
+        solve_sbcgrq,
+        solve_sbcgrq_cheb,
+        solve_shifted_sbcgrq,
+    )
+    from blockcg_tpu_torch import parallel as par
+    from blockcg_tpu_torch.operators.cheb import estimate_spectrum
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import (
+        config3_sbcgrq_3d_64,
+        config4_dirac_32,
+        dirac_eo,
+        dirac_gauged_matrix,
+        laplacian_dia,
+        solve_dirac_eo,
+        solve_dirac_eo_dist,
+    )
+    from blockcg_tpu_torch.problems.presets import _rhs
+
+    group = par.row_group() if dist.is_initialized() else _nccl_group(torch)
+    counts: dict = {}
+
+    def dist_run(fn):
+        """Run a Dist solve with its launches added to ``counts``."""
+        before = dict(_native.launches)
+        out = _timed(torch, fn)
+        for w, c in _native.launches.items():
+            counts[w] = counts.get(w, 0) + c - before.get(w, 0)
+        return out
+
+    def line(label, di, dsec, si, ssec, extra=""):
+        print(f"[dist] {label}: Dist {di.iterations} iterations {dsec:.3f} s, single-device "
+              f"{si.iterations} iterations {ssec:.3f} s, Dist / single {dsec / ssec:.3f}{extra}")
+
+    try:
+        op = laplacian_dia(SHAPES[0], device=dev)
+        B = _rhs(op.n, K, torch.float32, device=dev)
+        dop = par.partition_dia(op, 1).shard(0, group, dev)
+        (X, info), dsec = dist_run(lambda: par.solve_refined_dist(dop, B, group, tol=1e-10,
+                                                                  inner_tol=3e-6))
+        (_, sinfo), ssec = _timed(torch, lambda: solve_refined(op, B, tol=1e-10, inner_tol=3e-6,
+                                                               qr_passes=1))
+        rel = true_relres(torch, op, X, B)
+        line("north star row-partitioned, solve_refined_dist 128^3 k=32 tol=1e-10 "
+             "(cycles)", info, dsec, sinfo, ssec, f", true relres {rel:.3e}")
+        if not (bool(info.converged.all()) and rel <= 1e-10):
+            raise AssertionError(f"[dist] north star reached true relres {rel:.3e}: {info}")
+        del op, B, dop, X
+        torch.cuda.empty_cache()
+
+        op, B, _ = config4_dirac_32(L=DIRAC_L, device=dev)
+        dop = par.partition_cbdia(op, 1).shard(0, group, dev)
+        runs = [dist_run(lambda: par.solve_sbcgrq_dist(dop, B, group, tol=1e-6))
+                for _ in range(2)]
+        ((X1, info), first), ((X2, info2), dsec) = runs
+        (Xs, sinfo), ssec = _timed(torch, lambda: solve_sbcgrq(op, B, tol=1e-6, qr_passes=1))
+        rel, dx = true_relres(torch, op, X1, B), relfro(X1, Xs)
+        line(f"config 4 solve_sbcgrq_dist (crossings {dop.crossings}), the repeat", info2, dsec,
+             sinfo, ssec, f", first run {first:.3f} s, repeat bitwise {torch.equal(X1, X2)}, "
+             f"true relres {rel:.3e}, |X - X_single| / |X_single| {dx:.3e}")
+        if not (info.iterations == DIRAC_REF_ITERS and torch.equal(X1, X2) and rel <= 1e-5
+                and dx <= BDIA_X_RTOL):
+            raise AssertionError(f"[dist] config 4: {info}, relres {rel:.3e}, dx {dx:.3e}")
+        del dop, X1, X2, Xs, runs
+
+        eo = dirac_eo(DIRAC_L, device=dev)
+        # The first call builds and caches the context's one-rank plan.
+        (_, _), first = dist_run(lambda: solve_dirac_eo_dist(eo, B, group, tol=1e-6))
+        (X, info), dsec = dist_run(lambda: solve_dirac_eo_dist(eo, B, group, tol=1e-6))
+        (Xs, sinfo), ssec = _timed(torch, lambda: solve_dirac_eo(eo, B, tol=1e-6))
+        rel, dx = eo_true_relres(torch, eo, X, B), relfro(X, Xs)
+        line(f"solve_dirac_eo_dist dirac_eo({DIRAC_L}) k={DIRAC_K}, the repeat", info, dsec,
+             sinfo, ssec, f", first run (plan built) {first:.3f} s, true relres {rel:.3e}, "
+             f"|X - X_single| / |X_single| {dx:.3e}")
+        if not (info.iterations == DIST_EO_ITERS and rel <= 1e-5 and dx <= EO_X_RTOL):
+            raise AssertionError(f"[dist] even-odd: {info}, relres {rel:.3e}, dx {dx:.3e}")
+        (x, info), dsec = dist_run(lambda: solve_dirac_eo_dist(eo, B[:, :1], group, tol=1e-6))
+        (_, sinfo), ssec = _timed(torch, lambda: solve_dirac_eo(eo, B[:, :1], tol=1e-6))
+        rel = eo_true_relres(torch, eo, x, B[:, :1])
+        line("solve_dirac_eo_dist one RHS (column 0)", info, dsec, sinfo, ssec,
+             f", true relres {rel:.3e}")
+        if not (bool(info.converged.all()) and rel <= 1e-5):
+            raise AssertionError(f"[dist] even-odd one RHS: {info}, relres {rel:.3e}")
+        del eo, op, B, X, Xs, x
+        torch.cuda.empty_cache()
+
+        op, build_s = _timed(torch, lambda: dirac_gauged_matrix(ML_L, m=0.5, device=dev))
+        B = torch.as_tensor(np.random.default_rng(ML_SEED).standard_normal((ML_K, op.n)),
+                            dtype=torch.float32, device=dev).T.contiguous()
+        dop, part_s = _timed(torch, lambda: par.partition_bdia(op, 1).shard(0, group, dev))
+        (X, info), dsec = dist_run(lambda: par.solve_sbcgrq_dist(dop, B, group, tol=1e-6))
+        (_, sinfo), ssec = _timed(torch, lambda: solve_sbcgrq(op, B, tol=1e-6, qr_passes=1))
+        rel = true_relres(torch, op, X, B)
+        line(f"matrix link solve_sbcgrq_dist (built {build_s:.1f} s, partitioned "
+             f"{part_s:.1f} s)", info, dsec, sinfo, ssec, f", true relres {rel:.3e}")
+        if not (info.iterations == DIST_ML_ITERS and rel <= 1e-5):
+            raise AssertionError(f"[dist] matrix link: {info}, relres {rel:.3e}")
+        del op, B, dop, X
+        torch.cuda.empty_cache()
+
+        op, B, _ = config3_sbcgrq_3d_64(device=dev)
+        dop = par.partition_dia(op, 1).shard(0, group, dev)
+        M = jacobi_preconditioner(op)
+        spectrum = tuple(float(v) for v in estimate_spectrum(op))
+        b = B[:, 0].contiguous()
+        for label, dist_fn, single_fn, relres_fn in (
+                ("config 3 solve_bcg_dist",
+                 lambda: par.solve_bcg_dist(dop, B, group, tol=1e-6),
+                 lambda: solve_bcg(op, B, tol=1e-6), None),
+                ("config 3 solve_cg_dist (column 0)",
+                 lambda: par.solve_cg_dist(dop, b, group, tol=1e-6),
+                 lambda: solve_cg(op, b, tol=1e-6),
+                 lambda x: true_relres(torch, op, x[:, None], b[:, None])),
+                (f"config 3 solve_shifted_sbcgrq_dist shifts {SHIFTS}",
+                 lambda: par.solve_shifted_sbcgrq_dist(dop, B, SHIFTS, group, tol=1e-6),
+                 lambda: solve_shifted_sbcgrq(op, B, SHIFTS, tol=1e-6),
+                 lambda Xs: max(true_relres(torch, op, Xs[j], B, sg)
+                                for j, sg in enumerate(SHIFTS))),
+                ("config 3 solve_psbcgrq_dist (Jacobi)",
+                 lambda: par.solve_psbcgrq_dist(dop, B, M, group, tol=1e-6),
+                 lambda: solve_psbcgrq(op, B, M, tol=1e-6),
+                 lambda X: true_relres(torch, op, X, B)),
+                (f"config 3 solve_sbcgrq_cheb_dist degree {DIST_CHEB_DEGREE}",
+                 lambda: par.solve_sbcgrq_cheb_dist(dop, B, group, spectrum=spectrum,
+                                                    degree=DIST_CHEB_DEGREE, tol=1e-6),
+                 lambda: solve_sbcgrq_cheb(op, B, spectrum=spectrum, degree=DIST_CHEB_DEGREE,
+                                           tol=1e-6, qr_passes=1),
+                 lambda X: true_relres(torch, op, X, B))):
+            (X, info), dsec = dist_run(dist_fn)
+            (_, sinfo), ssec = _timed(torch, single_fn)
+            rel = None if relres_fn is None else relres_fn(X)
+            line(label, info, dsec, sinfo, ssec,
+                 "" if rel is None else f", true relres {rel:.3e}")
+            # The BCG family holds its monitor; the others their true residual.
+            if not (bool(info.converged.all()) and (rel is None or rel <= CG1_TRUE_RELRES)
+                    and abs(info.iterations - sinfo.iterations) <= 2):
+                raise AssertionError(f"[dist] {label}: {info} against {sinfo}, relres {rel}")
+        del op, B, dop, M, X
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     import torch
@@ -1717,6 +2013,7 @@ def main() -> None:
         raise SystemExit(f"chip_smoke.py: no blockcg_tpu_torch/ beside {__file__}; "
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(root))
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -1814,6 +2111,18 @@ def main() -> None:
     counts["qr_px_update"] = got.get("qr_px_update", 0)
     phase_scattered(torch, dev)
     phase_bell(torch, dev)
+    # The distributed layer on one rank: rows 20 and 21 keep its counts.
+    t_dist = time.perf_counter()
+    phase_dist_kernels(torch, dev, records)
+    _native.reset_launches()
+    got = phase_dist(torch, dev)
+    print(f"[launches] dist: {got}")
+    missing = [w for w in DIST_KERNELS if got.get(w, 0) == 0]
+    if missing:
+        raise AssertionError(f"the [dist] solves never launched the kernels of {missing}")
+    counts.update({w: got[w] for w in DIST_KERNELS})
+    print(f"[wall] the distributed layer {time.perf_counter() - t_dist:.1f} s, "
+          f"chip_smoke.py {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}

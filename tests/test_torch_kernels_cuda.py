@@ -859,3 +859,117 @@ def test_tiled_operator_solve_on_card(dev, rgg_tiles):
     X = op.from_solver_order(X).double().cpu().numpy()
     assert bool(info.converged.all())
     assert (np.linalg.norm(a @ X - B, axis=0) / np.linalg.norm(B, axis=0)).max() <= 1e-5
+
+
+# ------------------- the distributed layer: halo slab adds (rows 20, 21), views
+
+
+@pytest.mark.parametrize("m", [48, 96])
+@pytest.mark.parametrize("gram", [False, True])
+@pytest.mark.parametrize("vals", [False, True])
+def test_halo_slab_kernel_matches_plain(dev, m, gram, vals):
+    """Row 20: 3 slabs of g = 256 from block 1 of a 4-block halo into blocks
+    5..7 of an 8-block field (a dirac_cbdia hop, +-1 link values), in place,
+    one launch a 48-row chunk; a repeat gives the same bits."""
+    g, nb = 256, 3
+    hop = dirac_cbdia(4, device=dev).hops_all[1]
+    Src, Y0, X = _field(m, 4 * g, 150, dev), _field(m, 8 * g, 151, dev), _field(m, 8 * g, 152, dev)
+    v = (_t(np.random.default_rng(153).choice([-1.0, 1.0], (1, nb * g)), dev)
+         if vals else None)
+    args = (hop, g, nb, 5, 1, Src)
+    Yk, Yp = Y0.clone(), Y0.clone()
+    _native.reset_launches()
+    got = cbs.slab_m_accumulate_from(*args, Yk, X, v, with_gram=gram)
+    want = cbs.slab_from_plain(*args, Yp, X, v, gram)
+    torch.cuda.synchronize()
+    assert _native.launches["slab_m_accumulate_from"] == m // 48
+    got, want = (got, want) if gram else ((got, None), (want, None))
+    assert got[0].data_ptr() == Yk.data_ptr()
+    _check_all(got, want)
+    again = cbs.slab_m_accumulate_from(*args, Y0.clone(), X, v, with_gram=gram)
+    assert torch.equal((again if gram else (again,))[0], got[0])
+    if gram:
+        assert torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("k", [1, 12, 24])
+def test_halo_slab_view_kernel_matches_plain(dev, k):
+    """Row 21 on the (k, bs, ns) view against its plain version; at k = 1
+    the bits of row 20 on the same memory."""
+    g, nb = 256, 2
+    hop = dirac_cbdia(4, device=dev).hops_all[3]
+    Src = _field(k, 4 * 2 * g, 154, dev).reshape(k, 4, 2 * g)
+    Y0 = _field(k, 4 * 8 * g, 155, dev).reshape(k, 4, 8 * g)
+    args = (hop, g, nb, 6, 0, Src)
+    Yk, Yp = Y0.clone(), Y0.clone()
+    _native.reset_launches()
+    got = cbs.slab_block_accumulate_from(*args, Yk)
+    cbs.slab_v_from_plain(*args, Yp)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == Yk.data_ptr() and _relmax(Yk, Yp) < 1e-5
+    assert _native.launches["slab_block_accumulate_from"] == (2 if k == 24 else 1)
+    if k == 1:
+        Ym = Y0.clone().reshape(4, -1)
+        cbs.slab_m_accumulate_from(hop, g, nb, 6, 0, Src.reshape(4, -1), Ym)
+        assert torch.equal(Ym, Yk.reshape(4, -1))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("gauged", [False, True])
+def test_dist_cbdia_shard_on_card_matches_operator(dev, k, gauged):
+    """The one-rank shard of a const-hop operator (no process group at
+    D = 1: its halos are its own edges) against the operator on the card:
+    the t-hop crossings through row 20 (row 21 for unit crossings at k = 1),
+    with and without the Gram."""
+    from blockcg_tpu_torch import parallel as par
+
+    op = (dirac_gauged_cbdia if gauged else dirac_cbdia)(8, device=dev)
+    dop = par.partition_cbdia(op, 1).shard(0, None, dev)
+    Xm = _field(op.bs * k, op.ns, 156, dev)
+    want = op._matmat_m_plain(Xm)
+    _native.reset_launches()
+    Y = dop.matmat_t(Xm)
+    Yg, G = dop.matmat_gram_t(Xm)
+    torch.cuda.synchronize()
+    view = k == 1 and not gauged
+    assert _native.launches["slab_block_accumulate_from"] == (2 if view else 0)
+    assert _native.launches["slab_m_accumulate_from"] == (2 if view else 4)
+    assert _relmax(Y, want) < 1e-5 and _relmax(Yg, want) < 1e-5
+    assert _relfro(G, op.gram_contract(Xm @ want.T)) < 1e-5
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_fused_kernels_on_the_view_match_plain(dev, donate):
+    """Rows 5-9 (and 10, 12) on (k, bs, ns) fields: launched on the flat
+    form, outputs in the input's shape, donated ones in their operands."""
+    k, bs, ns = 12, 4, 1501
+    rng = np.random.default_rng(157)
+    M1, M2, M3 = (_t(rng.standard_normal((k, k)) / k ** 0.5, dev) for _ in range(3))
+    F = [_field(k, bs * ns, s, dev).reshape(k, bs, ns) for s in (158, 159, 160, 161)]
+    _native.reset_launches()
+    _check_all((None, fused.gram(F[0], F[1])), (None, fused.gram_plain(F[0], F[1])))
+    cases = [
+        (lambda a, d: (fused.mm_update(M1, a[0], a[1], donate="a" if d else None),),
+         lambda a: (fused.mm_update_plain(M1, a[0], a[1]),), (1,)),
+        (lambda a, d: fused.mm_update_gram(M1, a[0], donate=d),
+         lambda a: fused.mm_update_gram_plain(M1, a[0]), (0,)),
+        (lambda a, d: fused.mm2_update_gram(M1, a[0], M2, a[1], donate=d),
+         lambda a: fused.mm2_update_gram_plain(M1, a[0], M2, a[1]), (0,)),
+        (lambda a, d: fused.px_update(M1, a[0], M2, a[1], M3, a[2], donate=d),
+         lambda a: fused.px_update_plain(M1, a[0], M2, a[1], M3, a[2]), (1, 2)),
+        (lambda a, d: fused.xr_update_gram(M1, a[0], a[1], a[2], a[3], donate=d),
+         lambda a: fused.xr_update_gram_plain(M1, a[0], a[1], a[2], a[3]), (1, 3)),
+        (lambda a, d: fused.qr_p_update(M1, a[0], M2, a[1], donate=d),
+         lambda a: fused.qr_p_update_plain(M1, a[0], M2, a[1]), (0, 1)),
+    ]
+    for kern, plain, donated in cases:
+        want = plain(F)
+        args = [f.clone() for f in F]
+        got = kern(args, donate)
+        torch.cuda.synchronize()
+        assert all(g.shape == (k, bs, ns) for g in got if g.dim() == 3)
+        _check_all(got, want)
+        if donate:
+            assert [g.data_ptr() for g in got[:len(donated)]] == [
+                args[i].data_ptr() for i in donated]
+    assert sum(_native.launches.values()) == 7

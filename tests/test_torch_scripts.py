@@ -1,4 +1,4 @@
-"""The GPU scripts at the root of the repo (chip_smoke.py, chip_profile.py):
+"""The GPU scripts of the repo (chip_smoke.py, chip_profile.py, tools/torch_slab_times.py):
 their refusal to run without a card, and the profile's device-time sums."""
 
 import importlib.util
@@ -83,14 +83,15 @@ def test_smoke_work_counts():
     assert smoke.nnz(a, b) == 5
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py",
+                                    "tools/torch_slab_times.py"])
 @pytest.mark.parametrize("alone", [False, True])
 def test_gpu_script_fails_without_card(tmp_path, script, alone):
     """With no CUDA device, or copied away from the package, the script exits
     non-zero and prints no result."""
     path = ROOT / script
     if alone:
-        path = Path(shutil.copy(path, tmp_path / script))
+        path = Path(shutil.copy(path, tmp_path / path.name))
     res = subprocess.run([sys.executable, str(path)], capture_output=True, text=True,
                          cwd=path.parent, timeout=120)
     assert res.returncode != 0

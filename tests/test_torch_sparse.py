@@ -131,9 +131,9 @@ def test_format_agnostic_solve_through_the_order_hooks():
 
 
 def test_exports_cover_the_references():
-    """Everything the reference's operators and problems export, but the
-    distributed even-odd solve, which waits for the distributed layer."""
+    """Everything the reference's operators and problems export, the
+    distributed even-odd solve included."""
     assert set(jops.__all__) <= set(ops.__all__)
-    assert set(jprob.__all__) - set(prob.__all__) == {"solve_dirac_eo_dist"}
+    assert set(jprob.__all__) <= set(prob.__all__)
     assert isinstance(ops.CSROperator.from_scipy(prob.laplacian_scipy((4, 4)), device="cpu"),
                       ops.LinearOperator)
