@@ -260,6 +260,32 @@ __device__ __forceinline__ void zero_pad_rows(float* xs, float* ys, int m) {
   }
 }
 
+// ---- asynchronous global -> shared copies (cp.async, sm_80 and later) for
+// the streaming kernels (mm_update.cu, stencil.cu). A copy whose predicate
+// is false reads nothing and fills its shared bytes with zeros; gmem must
+// still be a valid address.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
 // Raise the dynamic shared-memory cap of a kernel that needs more than the
 // default 48 KB (a launch above the cap is refused).
 template <typename Kernel>

@@ -1,8 +1,9 @@
 // k x k-coefficient field update Y = M1 B1 (+ M2 B2) (+ A), optionally with
 // the Gram G = Y Y^T of the stored Y.
 //
-// Replaces the Pallas kernels blockcg_tpu/ops/fused.py mm_update (1 term, no
-// Gram), mm_update_gram (1 term, Gram) and mm2_update_gram (2 terms, Gram).
+// Replaces the Pallas kernels blockcg_tpu/ops/fused.py mm_update_gram (1 term,
+// Gram) and mm2_update_gram (2 terms, Gram), and mm_update (1 term, no Gram)
+// on fields wider than 128 rows; up to 128 rows mm_update runs mm_update.cu.
 //
 // Bound: bytes at small k on paper (NTERMS + HAS_A field reads, one write),
 // but each column also costs NTERMS * k * k FMAs plus k * k for the Gram, so

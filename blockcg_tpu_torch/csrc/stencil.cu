@@ -3,106 +3,332 @@
 // Replaces the Pallas kernels blockcg_tpu/ops/stencil.py (stencil_spmm_t,
 // stencil_spmm_gram_t) and blockcg_tpu/ops/stencil_ring.py (ring_spmm_t,
 // ring_spmm_gram_t). Contract: Y[r, i] = sum_d diags[d, i] * X[r, (i + o_d) mod n];
-// the Gram variant also returns G = X Y^T (k x k). The TPU windowing and the
-// ring schedule are schedules, not part of the contract.
+// the Gram variant also returns G = X Y^T (k x k) on the stored Y. The TPU
+// windowing and the ring schedule are schedules, not part of the contract.
 //
-// Bound: bytes. Per column it reads ndiag coefficients and ndiag * k values of
-// X, and writes k values of Y. X is read from DRAM once only if the L2 cache
-// holds the window between the far offsets: at 128^3 rows and k = 32 that is
-// +-16,384 columns * 32 rows * 4 B, about 4 MB, well inside the H100's 50 MB.
-// So the design leaves X reuse to L2 (neighbouring blocks run at neighbouring
-// columns) instead of staging windows by hand, and keeps each thread's k sums
-// in registers. The column index wraps by one conditional subtraction: the
-// host passes every offset already reduced to [0, n). Y is always a separate
-// buffer: other blocks still read the X columns this block's Y covers.
+// Bound: bytes. Per column it reads ndiag coefficients and k values of X and
+// writes k values of Y (0.18 ms at 128^3, k = 32). The kernel this replaced
+// read all k rows of X once per diagonal and left the reuse to L2: 7x X of
+// L2->SM traffic at 128^3, which alone takes about as long as the whole
+// apply did (0.44 ms). Its Gram staged X and Y between two barriers and took
+// 6 scalar shared loads for 8 FMAs, so the Gram was bound by shared-memory
+// issue and serialised behind the tile's loads (1.05 ms with the Gram).
 //
-// Gram: each block stages its tile's X and Y columns in shared memory, adds
-// them into a register tile (GramTile), writes one (k, k) partial, and a
-// second kernel sums the partials in a fixed order.
+// Design. A persistent grid walks column tiles [i0, i0 + T), T = 256 (128 on
+// small fields): one column a thread. For each tile a block copies the window
+// X[:, i0 - h, i0 + T + h) (taken mod n, so a window that crosses 0 or n
+// wraps) and the tile's diags into shared memory with cp.async,
+// double-buffered: the next tile's copies are in flight while this tile's
+// SpMM and Gram run. Diagonals with a signed offset |s| <= h (the near ones)
+// read X from the window; the others (far) read global memory, which L2
+// serves, since neighbouring blocks touch the same planes. The host picks h
+// and T (ops/stencil.py stencil_plan) to
+// minimise the L2->SM traffic per column, (T + 2h) / T + the far diagonals,
+// per busy thread: two blocks an SM (KMAX <= 32) beat a wider halo in one, so
+// at 128^3, k = 32, h = 4 serves 0 and +-1 from the window and the traffic
+// falls from 7x X to 5x. The thread keeps its k sums in registers and issues
+// all k loads of a diagonal before their FMAs (rows past k repeat row k - 1
+// and are never stored): with a branch per row, as the kernel before this
+// one had, each load waited for the one before, which the old grid's 32-64
+// warps an SM hid and a window-sized block's 8-16 do not. Window reads are
+// conflict-free scalar loads (consecutive lanes, consecutive columns); Y goes
+// out in coalesced 128-byte lines per warp and row. Each diagonal's terms are
+// added in the order d = 0..ndiag-1 with fmaf, as the kernel before this one
+// did, so Y keeps its bits.
+//
+// Gram. The tile's X is the window's centre; Y goes to shared memory once.
+// VecGram holds a TS x TS register tile of G per thread (8x8 from KMAX = 32,
+// 4x4 below), rows rt + S*a and columns st + S*b (S = KMAX / TS), fed by
+// float4 shared loads along the columns: 16 loads for 256 FMAs. A 4x4 tile
+// (8 loads for 64 FMAs) left the Gram bound by shared-memory wavefronts at
+// half the FMA rate. The row strides of Y and (up to KMAX = 32) of the window
+// are 4 mod 8 words, so the lanes of a quarter warp read their different
+// rows from different bank groups (at KMAX = 64 they share their X row, a
+// broadcast). Blocks of 256 threads hold 256 / S^2 copies of the tile, each
+// over its own columns, summed in a fixed order at the end; every block
+// writes one (k, k) partial, and a second kernel sums the partials in block
+// order in double (common.cuh). No atomics: a repeated call gives the same
+// bits.
+//
+// Width: one launch holds k <= 64 rows (the Python wrapper issues one launch
+// per row chunk; the window's budget shrinks h or T as k grows). Y is always
+// a separate buffer: other blocks still read the X columns this block's Y
+// covers.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxDiags = 32;
+constexpr int kStThreads = 256;
+constexpr int kFar = 0x7fffffff;
 
-struct Offsets {
+struct Diags {
   int o[kMaxDiags];  // each in [0, n)
+  int s[kMaxDiags];  // signed shift in [-h, h] for a near diagonal, kFar otherwise
 };
 
-template <int KMAX, bool WITH_GRAM>
-__global__ void __launch_bounds__(kThreads)
-    stencil_spmm(const float* __restrict__ diags, Offsets offs, int ndiag,
-                 const float* __restrict__ X, float* __restrict__ Y,
-                 float* __restrict__ part, int k, long long n) {
-  extern __shared__ __align__(16) float smem[];  // WITH_GRAM: xs | ys
-  GramTile<KMAX> g;
-  const long long ntiles = (n + kThreads - 1) / kThreads;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long i = t * kThreads + threadIdx.x;
-    const bool valid = i < n;
-    float acc[KMAX];
+// The block's share of G = X Y^T from TS x TS register tiles (see the note
+// above). xs and ys are row-major staged tiles with row strides lx and ly
+// (multiples of 4 words), ncol columns (a multiple of 4).
+template <int KMAX>
+struct VecGram {
+  static constexpr int TS = KMAX >= 32 ? 8 : 4;          // register tile side
+  static constexpr int S = KMAX / TS;
+  static constexpr int kCopy = S * S;                    // threads a copy
+  static constexpr int kGroups = kStThreads / kCopy;     // copies a block
+  static constexpr int kScratch = kGroups * KMAX * KMAX; // floats of store()
+  float acc[TS][TS];
+  int rt, st, grp;
+
+  __device__ VecGram() {
+    const int t = threadIdx.x;
+    grp = t / kCopy;
+    rt = (t % kCopy) / S;
+    st = t % S;
 #pragma unroll
-    for (int r = 0; r < KMAX; ++r) acc[r] = 0.f;
-    if (valid) {
-      for (int d = 0; d < ndiag; ++d) {
-        const float c = diags[d * n + i];
-        long long j = i + offs.o[d];
-        if (j >= n) j -= n;
+    for (int a = 0; a < TS; ++a)
 #pragma unroll
-        for (int r = 0; r < KMAX; ++r)
-          if (r < k) acc[r] = fmaf(c, X[r * n + j], acc[r]);
-      }
-    }
-    store_col<KMAX>(Y, acc, k, n, i, valid);
-    if constexpr (WITH_GRAM) {
-      float x[KMAX];
-      load_col<KMAX>(x, X, k, n, i, valid);
-      __syncthreads();  // the previous tile's Gram reads are done
-      stage_col<KMAX>(smem, x);
-      stage_col<KMAX>(smem + KMAX * kLd, acc);
-      __syncthreads();
-      g.accumulate(smem, smem + KMAX * kLd);
+      for (int b = 0; b < TS; ++b) acc[a][b] = 0.f;
+  }
+
+  __device__ __forceinline__ void accumulate(const float* xs, int lx, const float* ys, int ly,
+                                             int ncol, int k) {
+    // Rows past k read row k - 1: unconditional loads, whose products land
+    // only in entries of G that store() drops.
+    for (int c = 4 * grp; c < ncol; c += 4 * kGroups) {
+      float4 x[TS], y[TS];
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+        x[a] = *reinterpret_cast<const float4*>(xs + min(rt + S * a, k - 1) * lx + c);
+#pragma unroll
+      for (int b = 0; b < TS; ++b)
+        y[b] = *reinterpret_cast<const float4*>(ys + min(st + S * b, k - 1) * ly + c);
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+#pragma unroll
+        for (int b = 0; b < TS; ++b) {
+          float v = acc[a][b];
+          v = fmaf(x[a].x, y[b].x, v);
+          v = fmaf(x[a].y, y[b].y, v);
+          v = fmaf(x[a].z, y[b].z, v);
+          v = fmaf(x[a].w, y[b].w, v);
+          acc[a][b] = v;
+        }
     }
   }
-  if constexpr (WITH_GRAM) g.store(part + static_cast<long long>(blockIdx.x) * k * k, k);
+
+  // Sum the block's copies in group order through scratch (kScratch floats
+  // of shared memory no thread still reads) and write the (k, k) partial.
+  __device__ void store(float* part, int k, float* scratch) const {
+    float* mine = scratch + grp * KMAX * KMAX;
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b) mine[(rt + S * a) * KMAX + st + S * b] = acc[a][b];
+    __syncthreads();
+    for (int e = threadIdx.x; e < KMAX * KMAX; e += kStThreads) {
+      const int r = e / KMAX, s = e % KMAX;
+      if (r >= k || s >= k) continue;
+      float v = scratch[e];
+      for (int g = 1; g < kGroups; ++g) v += scratch[g * KMAX * KMAX + e];
+      part[r * k + s] = v;
+    }
+  }
+};
+
+// Window of the tile at i0: sw[r * W + v] = X[r, (i0 - h + v) mod n] for
+// v < T + 2h; the tile's coefficients: sd[d * T + c] = diags[d, i0 + c]
+// (0 past n).
+__device__ __forceinline__ void load_tile(float* sw, float* sd, const float* X,
+                                          const float* diags, int ndiag, int k, long long n,
+                                          long long i0, int h, int T, int W, bool vec) {
+  const int span = T + 2 * h;
+  long long base = (i0 - h) % n;  // the window's first column, in [0, n)
+  if (base < 0) base += n;
+  if (vec) {  // n, h, T and i0 are multiples of 4: a quad never straddles n
+    const int q = span / 4;
+    for (int e = threadIdx.x; e < k * q; e += kStThreads) {
+      const int r = e / q, v = 4 * (e - r * q);
+      long long j = base + v;
+      while (j >= n) j -= n;  // more than once only where the window is wider than n
+      cp_async16(sw + r * W + v, X + r * n + j, true);
+    }
+    const int tq = T / 4;
+    for (int e = threadIdx.x; e < ndiag * tq; e += kStThreads) {
+      const int d = e / tq, c = 4 * (e - d * tq);
+      const bool in = i0 + c < n;
+      cp_async16(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < k * span; e += kStThreads) {
+      const int r = e / span, v = e - r * span;
+      long long j = base + v;
+      while (j >= n) j -= n;
+      cp_async4(sw + r * W + v, X + r * n + j, true);
+    }
+    for (int e = threadIdx.x; e < ndiag * T; e += kStThreads) {
+      const int d = e / T, c = e - d * T;
+      const bool in = i0 + c < n;
+      cp_async4(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
+    }
+  }
+}
+
+// Row stride of the window: its T + 2h columns, plus 4 where VecGram puts
+// two or more rows of X in one quarter warp (KMAX <= 32), which makes the
+// stride 4 mod 8 words.
+__host__ __device__ inline int window_ld(int k, int h, int T) {
+  return T + 2 * h + (k <= 32 ? 4 : 0);
+}
+
+// Shared floats of one launch; mirrored by ops/stencil.py smem_bytes.
+__host__ __device__ inline long long smem_floats(int k, int ndiag, int h, int T, bool gram) {
+  const long long W = window_ld(k, h, T), LY = T + 4;
+  long long f = 2 * (k * W + static_cast<long long>(ndiag) * T) + (gram ? k * LY : 0);
+  const long long scratch = 256LL * (k > 16 ? 64 : 16);  // VecGram::kScratch
+  if (gram && f < scratch) f = scratch;
+  return f;
+}
+
+// Blocks an SM the kernel is built for: two for the SpMM up to KMAX = 32
+// (128 registers a thread), one at KMAX = 64 and with the Gram, whose 8x8
+// register tiles want the registers more than a second block (held to 128,
+// the Gram variant spilled). ops/stencil.py stencil_plan assumes the same.
+template <int KMAX, bool WITH_GRAM>
+constexpr int kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1;
+
+template <int KMAX, bool WITH_GRAM>
+__global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
+    stencil_spmm(const float* __restrict__ diags, Diags dg, int ndiag,
+                 const float* __restrict__ X, float* __restrict__ Y,
+                 float* __restrict__ part, int k, long long n, int h, int T, bool vec) {
+  extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles | sY
+  const int W = window_ld(k, h, T), LY = T + 4;
+  float* sw0 = smem;
+  float* sd0 = smem + 2 * k * W;
+  float* sy = sd0 + 2 * ndiag * T;
+  VecGram<KMAX> g;
+  const long long ntiles = (n + T - 1) / T;
+  long long t = blockIdx.x;
+  int buf = 0;
+  if (t < ntiles) load_tile(sw0, sd0, X, diags, ndiag, k, n, t * T, h, T, W, vec);
+  cp_async_commit();
+  for (; t < ntiles; t += gridDim.x) {
+    const long long tn = t + gridDim.x;
+    if (tn < ntiles)
+      load_tile(sw0 + (buf ^ 1) * k * W, sd0 + (buf ^ 1) * ndiag * T, X, diags, ndiag, k, n,
+                tn * T, h, T, W, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* sw = sw0 + buf * k * W;
+    const float* sd = sd0 + buf * ndiag * T;
+    const long long i0 = t * T;
+    for (int c = threadIdx.x; c < T; c += kStThreads) {
+      const long long i = i0 + c;
+      const bool valid = i < n;
+      float acc[KMAX];
+#pragma unroll
+      for (int r = 0; r < KMAX; ++r) acc[r] = 0.f;
+      if (valid) {
+        for (int d = 0; d < ndiag; ++d) {
+          const float coef = sd[d * T + c];
+          const int s = dg.s[d];
+          // All KMAX loads first, unconditionally (rows past k repeat row
+          // k - 1 and are never stored), so they are in flight together.
+          float x[KMAX];
+          if (s != kFar) {
+            const float* w = sw + h + s + c;
+#pragma unroll
+            for (int r = 0; r < KMAX; ++r) x[r] = w[min(r, k - 1) * W];
+          } else {
+            long long j = i + dg.o[d];
+            if (j >= n) j -= n;
+            const float* xj = X + j;
+#pragma unroll
+            for (int r = 0; r < KMAX; ++r) x[r] = xj[min(r, k - 1) * n];
+          }
+#pragma unroll
+          for (int r = 0; r < KMAX; ++r) acc[r] = fmaf(coef, x[r], acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < KMAX; ++r)
+          if (r < k) Y[r * n + i] = acc[r];
+      }
+      if constexpr (WITH_GRAM) {
+#pragma unroll
+        for (int r = 0; r < KMAX; ++r)
+          if (r < k) sy[r * LY + c] = acc[r];  // 0 past n
+      }
+    }
+    if constexpr (WITH_GRAM) {
+      __syncthreads();  // sY is written
+      g.accumulate(sw + h, W, sy, LY, T, k);
+    }
+    __syncthreads();  // every read of this buffer and of sY is done
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+  if constexpr (WITH_GRAM) {
+    __syncthreads();
+    g.store(part + static_cast<long long>(blockIdx.x) * k * k, k, smem);
+  }
 }
 
 template <int KMAX, bool WITH_GRAM>
-cudaError_t launch(const float* diags, const Offsets& offs, int ndiag,
-                   const float* X, float* Y, float* part, float* G, int k,
-                   long long n, int nblocks, cudaStream_t stream) {
+cudaError_t launch(const float* diags, const Diags& dg, int ndiag, const float* X, float* Y,
+                   float* part, float* G, int k, long long n, int h, int T, int max_blocks,
+                   int device, cudaStream_t stream) {
   auto kernel = stencil_spmm<KMAX, WITH_GRAM>;
-  const size_t smem = WITH_GRAM ? 2 * KMAX * kLd * sizeof(float) : 0;
+  const size_t smem = smem_floats(k, ndiag, h, T, WITH_GRAM) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<nblocks, kThreads, smem, stream>>>(diags, offs, ndiag, X, Y, part, k, n);
-  if (WITH_GRAM) launch_reduce(part, G, k, nblocks, stream);
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // the plan passes the cap
+  const long long ntiles = (n + T - 1) / T;
+  long long grid = static_cast<long long>(sms) * per_sm;
+  if (grid > ntiles) grid = ntiles;
+  if (grid > max_blocks) grid = max_blocks;
+  const bool vec = n % 4 == 0 && aligned16(X);
+  kernel<<<static_cast<int>(grid), kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k,
+                                                               n, h, T, vec);
+  if (WITH_GRAM) launch_reduce(part, G, k, static_cast<int>(grid), stream);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// offsets: host array of ndiag offsets, each already reduced to [0, n).
-// G == nullptr selects the plain SpMM; otherwise part holds (nblocks, k, k).
-extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets,
-                                int ndiag, const float* X, float* Y,
-                                float* part, float* G, int k, long long n,
-                                int nblocks, int device, cudaStream_t stream) {
-  if (ndiag < 1 || ndiag > kMaxDiags || nblocks < 1 || n < 1)
+// offsets: host array of ndiag offsets, each already reduced to [0, n); a
+// diagonal is near when o <= h or n - o <= h. h (a multiple of 4) and T (a
+// multiple of 128) come from ops/stencil.py stencil_plan. G == nullptr
+// selects the plain SpMM; otherwise part holds (max_blocks, k, k) and the
+// launch uses at most max_blocks blocks.
+extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndiag,
+                                const float* X, float* Y, float* part, float* G, int k,
+                                long long n, int h, int T, int max_blocks, int device,
+                                cudaStream_t stream) {
+  if (ndiag < 1 || ndiag > kMaxDiags || max_blocks < 1 || n < 1 || h < 0 || h % 4 != 0 ||
+      T < 128 || T % 128 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Offsets offs{};
+  Diags dg{};
   for (int d = 0; d < ndiag; ++d) {
-    if (offsets[d] < 0 || offsets[d] >= n) return cudaErrorInvalidValue;
-    offs.o[d] = offsets[d];
+    const int o = offsets[d];
+    if (o < 0 || o >= n) return cudaErrorInvalidValue;
+    dg.o[d] = o;
+    dg.s[d] = o <= h ? o : (n - o <= h ? static_cast<int>(o - n) : kFar);
   }
   const bool gram = G != nullptr;
-#define BCG_STENCIL(KM)                                                        \
-  return gram ? launch<KM, true>(diags, offs, ndiag, X, Y, part, G, k, n,     \
-                                 nblocks, stream)                              \
-              : launch<KM, false>(diags, offs, ndiag, X, Y, part, G, k, n,    \
-                                  nblocks, stream)
+#define BCG_STENCIL(KM)                                                                  \
+  return gram ? launch<KM, true>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
+                                 device, stream)                                          \
+              : launch<KM, false>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
+                                  device, stream)
   switch (kmax_for(k)) {
     case 8: BCG_STENCIL(8);
     case 16: BCG_STENCIL(16);

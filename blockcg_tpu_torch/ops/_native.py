@@ -185,7 +185,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bcg_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, P, P,
-                                     P, P, I, L, I, I, P]
+                                     P, P, I, L, I, I, I, I, P]
+    lib.bcg_mm_update.argtypes = [P, P, P, P, I, L, I, P]
     lib.bcg_gram.argtypes = [P, P, P, P, I, I, L, I, I, P]
     lib.bcg_coeff_update.argtypes = [P, P, P, P, P, P, P, P, I, I, L, I, I, P]
     lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, I, L, I, I, P]
@@ -202,10 +203,11 @@ def library() -> ctypes.CDLL:
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, P, I, I, L, I, P]
-    for fn in (lib.bcg_stencil_spmm, lib.bcg_gram, lib.bcg_coeff_update,
-               lib.bcg_px_update, lib.bcg_xr_update_gram, lib.bcg_qr_p_update,
-               lib.bcg_qr_px_update, lib.bcg_cbs_spmm, lib.bcg_slab_accumulate,
-               lib.bcg_block_stencil_spmm, lib.bcg_cheb_step, lib.bcg_tiled_spmm):
+    for fn in (lib.bcg_stencil_spmm, lib.bcg_mm_update, lib.bcg_gram,
+               lib.bcg_coeff_update, lib.bcg_px_update, lib.bcg_xr_update_gram,
+               lib.bcg_qr_p_update, lib.bcg_qr_px_update, lib.bcg_cbs_spmm,
+               lib.bcg_slab_accumulate, lib.bcg_block_stencil_spmm, lib.bcg_cheb_step,
+               lib.bcg_tiled_spmm):
         fn.restype = I
     lib.bcg_error_string.argtypes = [I]
     lib.bcg_error_string.restype = ctypes.c_char_p
@@ -222,6 +224,13 @@ def max_smem(device_index: int) -> int:
     if got < 0:
         raise RuntimeError(f"cannot read the shared-memory cap of cuda:{device_index}")
     return got
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of the card (``stencil_plan`` caps the tile
+    width by it)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def ptr(t: torch.Tensor | None):

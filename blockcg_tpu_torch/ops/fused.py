@@ -3,8 +3,8 @@
 Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
 
 - ``gram(U, V)``                      G = U V^T            (``csrc/gram.cu``)
-- ``mm_update(M, B, A)``              Y = M B (+ A)        (``csrc/fused_update.cu``)
-- ``mm_update_gram(M, B, A)``         Y = M B (+ A), G = Y Y^T
+- ``mm_update(M, B, A)``              Y = M B (+ A)        (``csrc/mm_update.cu``)
+- ``mm_update_gram(M, B, A)``         Y = M B (+ A), G = Y Y^T (``csrc/fused_update.cu``)
 - ``mm2_update_gram(M1, B1, M2, B2)`` Y = M1 B1 + M2 B2, G = Y Y^T
 - ``px_update(M1, W, rho, P, C, X)``  Pn = M1 W + rho P, Xn = X + C P
                                                            (``csrc/px_update.cu``)
@@ -43,7 +43,10 @@ shared memory), each contracting over all k input rows; a fused Gram then
 takes its diagonal blocks from the chunks' launches and its cross blocks from
 ``gram`` on the stored output, laid out by the same chunks. A donated output whose chunks read rows that an earlier chunk
 would overwrite is written to a fresh buffer first and copied over. A field of
-at most 64 rows is one launch, as it always was.
+at most 64 rows is one launch, as it always was. ``mm_update`` has a kernel
+of its own that stages its input tiles in shared memory and splits the output
+rows across warps: up to 128 rows it is one launch that reads B once
+(``mm_update_plan``).
 """
 
 from __future__ import annotations
@@ -143,6 +146,22 @@ def _chunks(k: int, nmat: int, with_gram: bool, name: str, device):
                      f"coefficients in {cap} bytes of shared memory")
 
 
+MM_UPDATE_MAX_K = 128  # csrc/mm_update.cu: output rows of one launch
+
+
+def mm_update_plan(k: int, donate: str | None, device) -> tuple[list[tuple[int, int]], bool]:
+    """(row chunks, written in place) of ``mm_update`` on k rows. Up to 128
+    rows: one launch of ``csrc/mm_update.cu``, which reads B once, so a
+    donated B or A takes Y in place. Wider: the row chunks of
+    ``coeff_update`` (``_chunks``), each reading all of B, so a donated B
+    waits in a fresh buffer for the last chunk (a donated A does not: a
+    chunk reads only its own rows of A)."""
+    if k <= MM_UPDATE_MAX_K:
+        return [(0, k)], True
+    chunks = _chunks(k, 1, False, "mm_update", device)
+    return chunks, len(chunks) == 1 or donate != "b"
+
+
 def _launch_gram(U, V, G=None):
     """One launch: G = U V^T of two row blocks of at most 64 rows each."""
     ku, n = U.shape
@@ -223,7 +242,14 @@ def mm_update(M: torch.Tensor, B: torch.Tensor,
         return _into(dst, mm_update_plain(M, B, A))
     Bf, Af = _flat("mm_update", B, A)
     df = {None: None, "a": Af, "b": Bf}[donate]
-    return _coeff_update("mm_update", M, Bf, None, None, Af, False, df)[0].view(B.shape)
+    k, n = Bf.shape
+    if len(mm_update_plan(k, donate, Bf.device)[0]) > 1:
+        return _coeff_update("mm_update", M, Bf, None, None, Af, False, df)[0].view(B.shape)
+    _native.check_kk(M, k, "mm_update M")
+    Y = torch.empty_like(Bf) if df is None else df
+    p = _native.ptr
+    _native.launch("mm_update", "bcg_mm_update", Bf.device, p(M), p(Bf), p(Af), p(Y), k, n)
+    return Y.view(B.shape)
 
 
 def mm_update_gram(M: torch.Tensor, B: torch.Tensor,

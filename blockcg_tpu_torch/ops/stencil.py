@@ -13,11 +13,18 @@ The kernel writes Y to a fresh buffer, never onto X. The rows of a field are
 independent right-hand sides, so a field wider than one launch (64 rows) runs
 as one launch per chunk of rows; the fused Gram's cross blocks then come from
 ``fused.gram`` on the stored output.
+
+Each launch stages a window of X in shared memory and serves the diagonals
+near the tile from it (``csrc/stencil.cu``); ``stencil_plan`` picks the
+window's halo and the tile width on the host from the offsets, the launch's
+rows and the card's shared-memory cap.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +32,68 @@ from blockcg_tpu_torch.ops import _native
 from blockcg_tpu_torch.solvers.common import acc_dtype, gram_t
 
 MAX_DIAGS = 32  # csrc/stencil.cu kMaxDiags
+THREADS = 256  # csrc/stencil.cu kStThreads: one column a thread
+TILES = (128, 256)  # tile widths: at most one column a thread
+
+
+class StencilPlan(NamedTuple):
+    """One launch's schedule (``csrc/stencil.cu``): halo ``h`` (a multiple of
+    4) and tile width ``T`` (128 or 256) of the shared-memory window, which
+    diagonals read it (``near``), the launch's shared bytes, the L2->SM
+    traffic per column in units of X, ``(T + 2h) / T`` plus one per far
+    diagonal, and the blocks an SM takes."""
+    h: int
+    T: int
+    near: tuple[bool, ...]
+    smem_bytes: int
+    traffic: float
+    blocks_per_sm: int
+
+
+def smem_bytes(k: int, ndiag: int, h: int, T: int, with_gram: bool) -> int:
+    """Shared bytes of a launch (``csrc/stencil.cu`` smem_floats): two
+    windows of k rows and T + 2h columns (+4 at k <= 32), two (ndiag, T)
+    coefficient tiles and, with the Gram, the (k, T + 4) Y tile, at least the
+    Gram's end-of-kernel scratch (64 KB above 16 rows, 16 KB up to 16)."""
+    W = T + 2 * h + (4 if k <= 32 else 0)
+    f = 2 * (k * W + ndiag * T) + (k * (T + 4) if with_gram else 0)
+    return 4 * (max(f, 256 * (64 if k > 16 else 16)) if with_gram else f)
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
+                 smem_cap: int, sm_count: int) -> StencilPlan:
+    """The (h, T) for a launch of k rows on n columns that minimises the
+    L2->SM traffic per busy thread, ``traffic / (blocks_per_sm * T / 256)``,
+    among those whose shared memory fits ``smem_cap``; ties go to the wider
+    tile, then the smaller halo. A diagonal is near when its offset mod n
+    lies within h of 0 or of n, the rule the kernel applies. Blocks an SM:
+    as many as the SM's shared memory holds (the per-block cap plus the 1 KB
+    the SM reserves for each block), at most the two the SpMM is built for
+    up to 32 rows, one above and with the Gram (csrc/stencil.cu
+    kStBlocksPerSm). T is 128 where n / sm_count < 256, so a small field
+    still spreads over the card."""
+    offs = [int(o) % n for o in offsets]
+    dist = [min(o, n - o) for o in offs]
+    built = 2 if k <= 32 and not with_gram else 1
+    best, best_key = None, None
+    for T in TILES:
+        if T > max(TILES[0], n // sm_count):
+            continue
+        for h in sorted({0} | {-(-d // 4) * 4 for d in dist}):
+            nbytes = smem_bytes(k, len(offs), h, T, with_gram)
+            if nbytes > smem_cap:
+                break
+            blocks = min(built, (smem_cap + 1024) // (nbytes + 1024))
+            traffic = (T + 2 * h) / T + sum(d > h for d in dist)
+            key = (traffic / (blocks * T / THREADS), -T, h)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = StencilPlan(h, T, tuple(d <= h for d in dist), nbytes, traffic, blocks)
+    if best is None:
+        raise ValueError(f"stencil: {k} rows leave no tile in {smem_cap} bytes of "
+                         "shared memory")
+    return best
 
 
 def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
@@ -52,16 +121,20 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str):
                          f"diagonals (at most {MAX_DIAGS})")
     offs = (ctypes.c_int * ndiag)(*(int(o) % n for o in offsets))
     Y = torch.empty_like(Xt)
-    nb = _native.nblocks(n)
     chunks = _native.row_chunks(k)
+    cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
     diag = []
     for r0, r1 in chunks:
+        kc = r1 - r0
+        plan = stencil_plan(tuple(int(o) for o in offsets), n, kc, with_gram, cap, sms)
+        max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None
         if with_gram:
-            part, G = fused._gram_buffers(r1 - r0, n, Xt.device)
+            part = torch.empty((max_blocks, kc, kc), dtype=torch.float32, device=Xt.device)
+            G = torch.empty((kc, kc), dtype=torch.float32, device=Xt.device)
         _native.launch(name, "bcg_stencil_spmm", Xt.device, _native.ptr(diags),
                        offs, ndiag, _native.ptr(Xt[r0:r1]), _native.ptr(Y[r0:r1]),
-                       _native.ptr(part), _native.ptr(G), r1 - r0, n, nb)
+                       _native.ptr(part), _native.ptr(G), kc, n, plan.h, plan.T, max_blocks)
         diag.append(G)
     if with_gram and len(chunks) > 1:
         return Y, fused.wide_gram(Xt, Y, diag, chunks)

@@ -61,8 +61,8 @@ K = 32
 SHIFTS = (0.0, 0.05, 0.5, 2.0)
 TOP = 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-PORT_KERNEL = re.compile(r"\b(stencil_spmm|coeff_update|px_update|gram_kernel|reduce_partials"
-                         r"|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update|bs_spmm"
+PORT_KERNEL = re.compile(r"\b(stencil_spmm|mm_update_kernel|coeff_update|px_update|gram_kernel"
+                         r"|reduce_partials|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update|bs_spmm"
                          r"|cheb_step_vec|cheb_step_scalar|reduce_spin_contract)\b")
 
 

@@ -87,7 +87,7 @@ KERNELS = {
     "stencil_spmm_t": ("blockcg_tpu_torch/csrc/stencil.cu", "blockcg_tpu/ops/stencil.py:264"),
     "stencil_spmm_gram_t": ("blockcg_tpu_torch/csrc/stencil.cu", "blockcg_tpu/ops/stencil.py:282"),
     "gram": ("blockcg_tpu_torch/csrc/gram.cu", "blockcg_tpu/ops/fused.py:203"),
-    "mm_update": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:265"),
+    "mm_update": ("blockcg_tpu_torch/csrc/mm_update.cu", "blockcg_tpu/ops/fused.py:265"),
     "mm_update_gram": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:332"),
     "mm2_update_gram": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:405"),
     "px_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:588"),
@@ -326,6 +326,76 @@ def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None, *
     return ms
 
 
+def _library_check(torch, call, want, what):
+    """(call, None) when one run of the library ``call`` agrees with the
+    kernel's output ``want`` (rtol 1e-4), else (None, why); a call torch
+    refuses is recorded as none, with its error."""
+    try:
+        got = call()
+        if got.is_cuda:
+            torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max())):
+        return None, f"torch's {what} disagrees with the kernel"
+    return call, None
+
+
+def _dia_csr_library(torch, diags, offsets, Xt, Y):
+    """One PyTorch call computing the DIA SpMM: the torch CSR tensor of the
+    same toroidal diagonals (explicit zeros dropped, columns sorted in each
+    row) times the dense X^T. ``Y`` is the kernel's output, to agree with."""
+    ndiag, n = diags.shape
+    rows = torch.arange(n, device=diags.device)
+    cols = torch.stack([(rows + o) % n for o in offsets], dim=1)
+    vals = diags.T.contiguous()
+    order = torch.argsort(cols, dim=1)
+    cols, vals = cols.gather(1, order), vals.gather(1, order)
+    keep = vals != 0
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=diags.device)
+    crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+    A = torch.sparse_csr_tensor(crow, cols[keep], vals[keep], size=(n, n))
+    X = Xt.T.contiguous()
+    return _library_check(torch, lambda: A @ X, Y.T, "CSR product")
+
+
+def _site_bsr_library(torch, blocks, offsets, X, Y):
+    """One PyTorch call computing a per-site block stencil: the torch BSR
+    tensor (blocksize bs) whose block (s, (s + o_d) mod ns) is ``blocks[d,
+    :, :, s]`` times the site-major dense field. ``X`` and ``Y`` are the
+    kernel's input and output in the merged (bs * k, ns) or the (k, bs, ns)
+    layout; the site-major copy of X is made outside the timed call."""
+    nd, bs, _, ns = blocks.shape
+    if X.dim() == 3:  # (k, bs, ns)
+        def site_major(F):
+            return F.permute(2, 1, 0).reshape(ns * bs, -1)
+    else:             # merged (bs * k, ns)
+        def site_major(F):
+            return F.reshape(bs, -1, ns).permute(2, 0, 1).reshape(ns * bs, -1)
+    sites = torch.arange(ns, device=blocks.device)
+    cols = torch.stack([(sites + o) % ns for o in offsets], dim=1)
+    order = torch.argsort(cols, dim=1)
+    vals = blocks.permute(3, 0, 1, 2)[sites[:, None], order]  # (ns, nd, bs, bs)
+    crow = torch.arange(0, (ns + 1) * nd, nd, device=blocks.device)
+    A = torch.sparse_bsr_tensor(crow, cols.gather(1, order).reshape(-1),
+                                vals.reshape(ns * nd, bs, bs).contiguous(),
+                                size=(ns * bs, ns * bs))
+    Xs = site_major(X).contiguous()
+    return _library_check(torch, lambda: A @ Xs, site_major(Y), "BSR product")
+
+
+def _const_hop_blocks(torch, hops, slots, masks, ns):
+    """The per-site blocks (nd, bs, bs, ns) of const-hop diagonals: each hop
+    times its mask row (ones where a diagonal has no mask)."""
+    ones = torch.ones(ns, device=hops.device)
+    return torch.stack([hops[d][:, :, None] * (masks[s] if s >= 0 else ones)
+                        for d, s in enumerate(slots)])
+
+
+def _library_note(name, why):
+    print(f"[library] {name}: " + ("one PyTorch call timed" if why is None else f"none ({why})"))
+
+
 def phase_kernels(torch, dev) -> dict:
     """Each kernel against its plain version at the main path's shapes, and
     both timed. Returns {wrapper: record}, timed at the north-star shape."""
@@ -353,11 +423,14 @@ def phase_kernels(torch, dev) -> dict:
 
         def spmm(diags, gram=False):
             return (nbytes(diags) + 2 * fb + gram * gb, 2 * K * nnz(diags) + gram * gf)
+        csr, why = _dia_csr_library(torch, op.diags, op.offsets, B1,
+                                    stencil.stencil_spmm_t(op.diags, op.offsets, B1))
+        _library_note(f"stencil_spmm_t {what} (torch CSR @ dense)", why)
         cases = [
             ("stencil_spmm_t", what,
              lambda: (stencil.stencil_spmm_t(op.diags, op.offsets, B1), None),
              lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1),
-             spmm(op.diags), None),
+             spmm(op.diags), csr),
             ("stencil_spmm_gram_t", what,
              lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
              lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1, True),
@@ -386,7 +459,7 @@ def phase_kernels(torch, dev) -> dict:
                               work=work, library=library)
             if name == "stencil_spmm_t":
                 print(f"[kernel] stencil_spmm_t {what}: {op.nnz / ms / 1e6:.2f} Gnnz/s")
-        del op, B1, B2, B3, banded
+        del op, B1, B2, B3, banded, csr
         torch.cuda.empty_cache()
     return records
 
@@ -462,20 +535,27 @@ def phase_cbs_kernels(torch, dev, records) -> None:
     cols = g * nblocks  # the slab's site columns
     slab_bytes = 3 * (fb // ns) * cols  # X at the sources, Y read and written
     slab_flops = 2 * DIRAC_K * nnz(op.hops_all[d]) * cols
+    bsr, why = _site_bsr_library(
+        torch, _const_hop_blocks(torch, op.hops_main, op.main_slots, op.masks_main, ns),
+        op.main_offsets, Xm, cbs.const_block_stencil_spmm_m_t(*main))
+    _library_note(f"const_block_stencil_spmm_m_t {what} (torch BSR @ dense)", why)
     cases = [
         ("const_block_stencil_spmm_m_t", what,
          lambda: (cbs.const_block_stencil_spmm_m_t(*main), None),
-         lambda: cbs.const_block_stencil_plain(*main), None, main_work(op, main)),
+         lambda: cbs.const_block_stencil_plain(*main), None, main_work(op, main), bsr),
         ("const_block_stencil_spmm_m_gram_t", what,
          lambda: cbs.const_block_stencil_spmm_m_gram_t(*main),
-         lambda: cbs.const_block_stencil_plain(*main, True), None, main_work(op, main, True)),
-        ("slab_m_accumulate", what, *slab_case(False), (slab_bytes, slab_flops)),
+         lambda: cbs.const_block_stencil_plain(*main, True), None, main_work(op, main, True),
+         None),
+        ("slab_m_accumulate", what, *slab_case(False), (slab_bytes, slab_flops), None),
         # With the Gram: X at the destinations too, G read and written.
         ("slab_m_accumulate", what + " with Gram", *slab_case(True),
-         (slab_bytes + (fb // ns) * cols + 2 * gb, slab_flops + 2 * m * m * cols)),
+         (slab_bytes + (fb // ns) * cols + 2 * gb, slab_flops + 2 * m * m * cols), None),
     ]
-    for name, label, kern, plain, timed, work in cases:
-        _timed_check(torch, name, label, kern, plain, is_gram, records, timed, work=work)
+    for name, label, kern, plain, timed, work, library in cases:
+        _timed_check(torch, name, label, kern, plain, is_gram, records, timed, work=work,
+                     library=library)
+    del bsr
     apply_ms = median_ms(torch, lambda: op.matmat_t(Xm))
     print(f"[kernel] dirac_cbdia({DIRAC_L}).matmat_t on the merged field: {apply_ms:.4f} ms, "
           f"{op.nnz / apply_ms / 1e6:.2f} Gnnz/s (nnz {op.nnz})")
@@ -825,18 +905,25 @@ def _bs_kernel_checks(torch, records, blocks, offsets, k, label, seed) -> None:
     def is_gram(w):
         return w.shape == (m, m)
     what = f"{label} ns={ns} bs={bs} k={k} m={m}"
+    bsr, why = _site_bsr_library(torch, blocks, offsets, Xm,
+                                 bsk.block_stencil_spmm_m_t(blocks, offsets, Xm))
+    _library_note(f"block_stencil_spmm_m_t {what} (torch BSR @ dense)", why)
     ms = _timed_check(torch, "block_stencil_spmm_m_t", what,
                       lambda: (bsk.block_stencil_spmm_m_t(blocks, offsets, Xm), None),
                       lambda: bsk.block_stencil_plain(blocks, offsets, Xm),
-                      is_gram, records, work=apply_work)
+                      is_gram, records, work=apply_work, library=bsr)
     gms = _timed_check(torch, "block_stencil_spmm_m_gram_t", what,
                        lambda: bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xm),
                        lambda: bsk.block_stencil_plain(blocks, offsets, Xm, True),
                        is_gram, records, work=gram_work)
+    bsr, why = _site_bsr_library(torch, blocks, offsets, Xv,
+                                 bsk.block_stencil_spmm_t(blocks, offsets, Xv))
+    _library_note(f"block_stencil_spmm_t {label} view (torch BSR @ dense)", why)
     vms = _timed_check(torch, "block_stencil_spmm_t", f"{label} ({k}, {bs}, {ns}) view",
                        lambda: (bsk.block_stencil_spmm_t(blocks, offsets, Xv), None),
                        lambda: (bsk.block_stencil_v_plain(blocks, offsets, Xv), None),
-                       is_gram, records, work=apply_work)
+                       is_gram, records, work=apply_work, library=bsr)
+    del bsr
     print(f"[kernel] block stencil {what}: merged {nzb / ms / 1e6:.2f}, with Gram "
           f"{nzb / gms / 1e6:.2f}, (k, bs, ns) view {nzb / vms / 1e6:.2f} Gnnz/s "
           f"(nnz {nzb} of the blocks)")
@@ -1025,10 +1112,15 @@ def phase_view_kernels(torch, dev, records) -> None:
 
         def is_gram(w, k=k):
             return w.shape == (k, k)
+        bsr, why = _site_bsr_library(
+            torch, _const_hop_blocks(torch, op.hops_main, op.main_slots, op.masks_main, op.ns),
+            op.main_offsets, Xv, cbs.const_block_stencil_spmm_t(*main))
+        _library_note(f"const_block_stencil_spmm_t {what} (torch BSR @ dense)", why)
         _timed_check(torch, "const_block_stencil_spmm_t", what,
                      lambda: (cbs.const_block_stencil_spmm_t(*main), None),
                      lambda: cbs.const_block_stencil_v_plain(*main), is_gram, records,
-                     work=_view_main_work(op, k))
+                     work=_view_main_work(op, k), library=bsr)
+        del bsr
         _timed_check(torch, "const_block_stencil_spmm_gram_t", what,
                      lambda: cbs.const_block_stencil_spmm_gram_t(*main),
                      lambda: cbs.const_block_stencil_v_plain(*main, True), is_gram, records,
@@ -1292,12 +1384,12 @@ def phase_wide_kernels(torch, dev, records) -> None:
     fb, gb, gf = nbytes(F[0]), m * m * 4, 2 * m * m * ns
     what = f"ns={ns} m={m} I_{bs}⊗C"
 
-    def both_ways(name, fn, plain, nf, work):
+    def both_ways(name, fn, plain, nf, work, library=None):
         """``fn(*fields, donate)`` fresh, then donated (on fresh copies)."""
         def want():
             return _tuple(plain(*F[:nf]))
         _timed_check(torch, name, f"{what} fresh", lambda: _tuple(fn(*F[:nf], False)), want,
-                     is_gram, records, work=work)
+                     is_gram, records, work=work, library=library)
         bufs = [f.clone() for f in F[:nf]]
 
         def in_place():
@@ -1315,7 +1407,8 @@ def phase_wide_kernels(torch, dev, records) -> None:
                  work=(2 * fb + gb, gf))
     mm = (nbytes(M1) + 2 * fb, 2 * ns * nnz(M1))
     both_ways("mm_update", lambda b, a, d: fused.mm_update(M1, b, a, donate="a" if d else None),
-              lambda b, a: fused.mm_update_plain(M1, b, a), 2, (mm[0] + fb, mm[1]))
+              lambda b, a: fused.mm_update_plain(M1, b, a), 2, (mm[0] + fb, mm[1]),
+              library=lambda: torch.addmm(F[1], M1, F[0]))
     both_ways("mm_update_gram", lambda b, d: fused.mm_update_gram(M1, b, donate=d),
               lambda b: fused.mm_update_gram_plain(M1, b), 1, (mm[0] + gb, mm[1] + gf))
     both_ways("mm2_update_gram", lambda b1, b2, d: fused.mm2_update_gram(M1, b1, M2, b2, donate=d),

@@ -973,3 +973,77 @@ def test_fused_kernels_on_the_view_match_plain(dev, donate):
             assert [g.data_ptr() for g in got[:len(donated)]] == [
                 args[i].data_ptr() for i in donated]
     assert sum(_native.launches.values()) == 7
+
+
+# ------------------------- the windowed DIA stencil and the mm_update tiles
+
+
+_WINDOW_CASES = {
+    # name: (n, offsets); random coefficients on every diagonal, wraps populated
+    "ragged_mixed": (1000, (-130, -7, -1, 0, 2, 64, 257)),       # n not a multiple of T
+    "all_near_scalar": (4099, (-5, -1, 0, 1, 3)),                 # n % 4 != 0: 4-byte copies
+    "all_far": (65536, (3000, -3000, 7777)),                      # no diagonal in the window
+    "wrap_both_ends": (4096, (4095, 1, -4, 4092, 2048)),          # windows cross 0 and n
+    "laplacian_16": (16 ** 3, (0, 1, -1, 16, -16, 256, -256)),
+}
+
+
+@pytest.mark.parametrize("k", [1, 5, 32, 48, 64, 96])
+@pytest.mark.parametrize("case", sorted(_WINDOW_CASES))
+def test_stencil_window_kernel_matches_plain(dev, case, k):
+    """The windowed stencil with and without its Gram against the plain
+    version: near, far and mixed diagonals, ragged n, windows that wrap at 0
+    and at n, k from 1 to 96 (two 48-row launches)."""
+    n, offsets = _WINDOW_CASES[case]
+    plan = stencil.stencil_plan(offsets, n, min(k, 64), True,
+                                _native.max_smem(dev.index or 0), _native.sm_count(dev.index or 0))
+    if case == "all_far":
+        assert not any(plan.near)
+    if case == "all_near_scalar":
+        assert all(plan.near)
+    rng = np.random.default_rng(k)
+    diags = _t(rng.standard_normal((len(offsets), n)), dev)
+    Xt = _field(k, n, 200 + k, dev)
+    Y, G = stencil.stencil_spmm_gram_t(diags, offsets, Xt)
+    Yp, Gp = stencil.stencil_spmm_plain(diags, offsets, Xt, with_gram=True)
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5
+    assert _relfro(G, Gp) < 1e-5
+    assert _relmax(stencil.stencil_spmm_t(diags, offsets, Xt), Yp) < 1e-5
+
+
+def test_stencil_gram_repeat_is_bitwise_identical(dev):
+    op = laplacian_dia((64, 64, 64), device=dev)
+    Xt = _field(32, op.n, 210, dev)
+    Y1, G1 = stencil.stencil_spmm_gram_t(op.diags, op.offsets, Xt)
+    Y2, G2 = stencil.stencil_spmm_gram_t(op.diags, op.offsets, Xt)
+    assert torch.equal(Y1, Y2) and torch.equal(G1, G2)
+    assert torch.equal(stencil.stencil_spmm_t(op.diags, op.offsets, Xt), Y1)
+
+
+@pytest.mark.parametrize("k", [1, 5, 32, 48, 64, 96, 128])
+@pytest.mark.parametrize("n", [4096, 3001])
+@pytest.mark.parametrize("donate", [None, "a", "b"])
+def test_mm_update_kernel_matches_plain(dev, k, n, donate):
+    """Y = M B (+ A) in one launch up to 128 rows, 16-byte and 4-byte
+    tiles, fresh and written in place onto B or A."""
+    rng = np.random.default_rng(300 + k)
+    M = _t(rng.standard_normal((k, k)) / k ** 0.5, dev)
+    B, A = _field(k, n, 301, dev), _field(k, n, 302, dev)
+    for a in ((None, A) if donate != "a" else (A,)):
+        want = fused.mm_update_plain(M, B, a)
+        Bd, Ad = B.clone(), None if a is None else a.clone()
+        _native.reset_launches()
+        Y = fused.mm_update(M, Bd, Ad, donate=donate)
+        torch.cuda.synchronize()
+        assert _native.launches["mm_update"] == 1
+        assert _relmax(Y, want) < 1e-5
+        if donate is not None:
+            assert Y.data_ptr() == {"a": Ad, "b": Bd}[donate].data_ptr()
+
+
+def test_mm_update_repeat_is_bitwise_identical(dev):
+    M = _t(np.random.default_rng(310).standard_normal((96, 96)) / 96 ** 0.5, dev)
+    B, A = _field(96, 1 << 16, 311, dev), _field(96, 1 << 16, 312, dev)
+    assert torch.equal(fused.mm_update(M, B, A), fused.mm_update(M, B, A))
+    assert torch.equal(fused.mm_update(M, B), fused.mm_update(M, B))

@@ -1,0 +1,228 @@
+"""Host-side plans of the redesigned kernels, on the CPU.
+
+``csrc/stencil.cu`` stages a window of X in shared memory and reads the
+diagonals near the tile from it; ``ops/stencil.py`` ``stencil_plan`` picks the
+window's halo h and the tile width T from the offsets, the launch's rows and
+the card's shared-memory cap. ``csrc/mm_update.cu`` is one launch up to 128
+rows; ``ops/fused.py`` ``mm_update_plan`` says when a field runs it and when
+it is written in place. The kernels themselves run only on the card
+(tests/test_torch_kernels_cuda.py); here the plans are held to their rules,
+and a numpy emulation of the kernel's windowed schedule is held against the
+f64 oracle. The plain route's ``mm_update`` at m = 96 is held against the
+reference's Pallas kernel in interpret mode (max relative error 1e-5, f32).
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blockcg_tpu.ops import fused as jfused
+from blockcg_tpu_torch.ops import _native, fused, stencil
+
+H100_SMEM = 232448  # bytes of shared memory one block may opt into on an H100
+H100_SMS = 132
+CSRC = Path(__file__).resolve().parents[1] / "blockcg_tpu_torch" / "csrc"
+
+
+def _lap_offsets(shape):
+    """The 7- or 5-point Laplacian's offsets on a row-major grid."""
+    strides = [int(np.prod(shape[i + 1:])) for i in range(len(shape))]
+    return (0,) + tuple(o for s in strides for o in (s, -s))
+
+
+_PRESETS = {
+    "lap_128^3": (128 ** 3, _lap_offsets((128, 128, 128))),
+    "lap_64^3": (64 ** 3, _lap_offsets((64, 64, 64))),
+    "lap_512^2": (512 ** 2, _lap_offsets((512, 512))),
+    "lap_128^2": (128 ** 2, _lap_offsets((128, 128))),
+    "near_n": (5000, (0, 4999, -4998, 2500, 1, 4990)),
+}
+
+
+def _far_count(offsets, n, h):
+    return sum(min(o % n, n - o % n) > h for o in offsets)
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 48, 64, 96])
+@pytest.mark.parametrize("preset", sorted(_PRESETS))
+@pytest.mark.parametrize("with_gram", [False, True])
+def test_stencil_plan_fits_and_splits_the_offsets(preset, k, with_gram):
+    """Every launch of the field (48-row chunks at k = 96) gets a halo that
+    is a multiple of 4, a tile of one column a thread, shared memory within
+    the cap (as the kernel counts it) and blocks an SM that it holds, the
+    near/far split of the kernel's rule, and less L2 traffic than one read
+    of X per diagonal."""
+    n, offsets = _PRESETS[preset]
+    for r0, r1 in _native.row_chunks(k):
+        kc = r1 - r0
+        plan = stencil.stencil_plan(offsets, n, kc, with_gram, H100_SMEM, H100_SMS)
+        assert plan.h % 4 == 0 and plan.T in stencil.TILES
+        assert plan.smem_bytes == stencil.smem_bytes(kc, len(offsets), plan.h, plan.T, with_gram)
+        assert plan.smem_bytes <= H100_SMEM
+        assert 1 <= plan.blocks_per_sm <= (2 if kc <= 32 and not with_gram else 1)
+        assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= H100_SMEM + 1024
+        assert plan.near == tuple(min(o % n, n - o % n) <= plan.h for o in offsets)
+        assert plan.traffic == pytest.approx(
+            (plan.T + 2 * plan.h) / plan.T + _far_count(offsets, n, plan.h))
+        assert plan.traffic < len(offsets)
+        assert plan.T <= max(128, n // H100_SMS)
+
+
+@pytest.mark.parametrize("k,with_gram,h,T,near,blocks", [
+    (32, False, 4, 256, 3, 2),   # 0, +-1 from the window, two blocks an SM
+    (32, True, 128, 256, 5, 1),  # one block an SM with the Gram: the widest halo
+    (1, False, 128, 256, 5, 2),  # small rows: +-128 fits beside two blocks
+    (48, False, 128, 256, 5, 1), # one block an SM at KMAX = 64: the widest halo
+    (64, True, 4, 256, 3, 1),    # no room for a 128-column halo beside 64 rows and Y
+])
+def test_stencil_plan_of_the_north_star(k, with_gram, h, T, near, blocks):
+    plan = stencil.stencil_plan(_PRESETS["lap_128^3"][1], 128 ** 3, k, with_gram,
+                                H100_SMEM, H100_SMS)
+    assert (plan.h, plan.T, sum(plan.near), plan.blocks_per_sm) == (h, T, near, blocks)
+
+
+def test_stencil_plan_at_64_cubed_and_small_fields():
+    plan = stencil.stencil_plan(_PRESETS["lap_64^3"][1], 64 ** 3, 32, False, H100_SMEM, H100_SMS)
+    assert plan.h == 64 and sum(plan.near) == 5 and plan.blocks_per_sm == 2
+    # A field of 1000 columns still makes tiles of at least 128.
+    plan = stencil.stencil_plan((0, 1, -1), 1000, 5, True, H100_SMEM, H100_SMS)
+    assert plan.T == 128 and all(plan.near)
+    # All offsets far from the tile: no halo at all.
+    plan = stencil.stencil_plan((3000, -3000, 7777), 65536, 8, False, H100_SMEM, H100_SMS)
+    assert plan.h == 0 and not any(plan.near)
+
+
+def test_stencil_plan_refuses_a_cap_with_no_room():
+    with pytest.raises(ValueError, match="no tile"):
+        stencil.stencil_plan((0, 1, -1), 4096, 64, True, 16 * 1024, H100_SMS)
+    with pytest.raises(ValueError, match="no tile"):
+        stencil.stencil_plan((0, 1, -1), 4096, 64, False, 128 * 64 * 4, H100_SMS)
+
+
+def _windowed_apply(diags, offsets, X, plan):
+    """The kernel's schedule in numpy (f64): per tile of T columns, a window
+    X[:, (i0 - h + v) mod n], v < T + 2h; near diagonals read it at h + s +
+    c (s the signed offset), far ones read X at (i + o) mod n."""
+    k, n = X.shape
+    Y = np.zeros((k, n))
+    for i0 in range(0, n, plan.T):
+        cols = np.arange(i0, min(i0 + plan.T, n))
+        window = X[:, (i0 - plan.h + np.arange(plan.T + 2 * plan.h)) % n]
+        for d, o in enumerate(offsets):
+            o %= n
+            if plan.near[d]:
+                s = o if o <= plan.h else o - n
+                src = window[:, plan.h + s + (cols - i0)]
+            else:
+                src = X[:, (cols + o) % n]
+            Y[:, cols] += diags[d, cols] * src
+    return Y
+
+
+@pytest.mark.parametrize("n,offsets,cap,sms", [
+    (1000, (-130, -7, -1, 0, 2, 64, 257), H100_SMEM, 4),       # ragged last tile
+    (4099, (-5, -1, 0, 1, 3), H100_SMEM, 8),                   # all near
+    (4096, (4095, 1, -4, 4092, 2048), 64 * 1024, 2),           # windows wrap at 0 and n
+    (300, (0, 149, -150, 1), H100_SMEM, 1),                    # window wider than n
+])
+def test_windowed_schedule_matches_the_oracle(n, offsets, cap, sms):
+    k = 3
+    plan = stencil.stencil_plan(offsets, n, k, True, cap, sms)
+    rng = np.random.default_rng(n)
+    diags, X = rng.standard_normal((len(offsets), n)), rng.standard_normal((k, n))
+    want = np.zeros((k, n))
+    for d, o in enumerate(offsets):
+        want += diags[d] * X[:, (np.arange(n) + o) % n]
+    np.testing.assert_allclose(_windowed_apply(diags, offsets, X, plan), want, rtol=0,
+                               atol=1e-12)
+    Y = stencil.stencil_spmm_t(torch.from_numpy(diags), offsets, torch.from_numpy(X))
+    np.testing.assert_allclose(Y.numpy(), want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", [1, 32, 64, 96, 128])
+@pytest.mark.parametrize("donate", [None, "a", "b"])
+def test_mm_update_is_one_launch_in_place_up_to_128_rows(k, donate):
+    assert fused.mm_update_plan(k, donate, torch.device("cpu")) == ([(0, k)], True)
+
+
+@pytest.mark.parametrize("k", [129, 400, 800])
+def test_mm_update_wider_than_128_rows_runs_the_chunks(monkeypatch, k):
+    """Above 128 rows ``mm_update`` runs coeff_update's row chunks; a donated
+    B then waits for the last chunk, a donated A does not."""
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    chunks = fused._chunks(k, 1, False, "mm_update", torch.device("cpu"))
+    assert len(chunks) > 1
+    assert fused.mm_update_plan(k, "b", torch.device("cpu")) == (chunks, False)
+    assert fused.mm_update_plan(k, "a", torch.device("cpu")) == (chunks, True)
+
+
+@pytest.mark.parametrize("with_a", [False, True])
+@pytest.mark.parametrize("donate", [None, "b"])
+def test_mm_update_at_m96_matches_pallas(with_a, donate):
+    k, n = 96, 512
+    rng = np.random.default_rng(96)
+    M = (rng.standard_normal((k, k)) / k ** 0.5).astype(np.float32)
+    B, A = (rng.standard_normal((k, n)).astype(np.float32) for _ in range(2))
+    want = np.asarray(jfused.mm_update(jnp.asarray(M), jnp.asarray(B),
+                                       jnp.asarray(A) if with_a else None, interpret=True))
+    Bt = torch.from_numpy(B.copy())
+    Y = fused.mm_update(torch.from_numpy(M), Bt, torch.from_numpy(A) if with_a else None,
+                        donate=donate)
+    assert (Y.data_ptr() == Bt.data_ptr()) is (donate == "b")
+    err = np.abs(Y.numpy().astype(np.float64) - want).max() / np.abs(want).max()
+    assert err < 1e-5, err
+
+
+def test_host_constants_mirror_the_sources():
+    """The wrappers' widths and budget formula are the kernels' own."""
+    mm = (CSRC / "mm_update.cu").read_text()
+    assert int(re.search(r"kMmMaxK = (\d+)", mm).group(1)) == fused.MM_UPDATE_MAX_K
+    st = (CSRC / "stencil.cu").read_text()
+    assert int(re.search(r"kMaxDiags = (\d+)", st).group(1)) == stencil.MAX_DIAGS
+    assert "return T + 2 * h + (k <= 32 ? 4 : 0);" in st
+    assert "256LL * (k > 16 ? 64 : 16)" in st
+    assert "kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1" in st
+    assert int(re.search(r"kStThreads = (\d+)", st).group(1)) == stencil.THREADS
+
+
+def _smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["dia_csr", "cbdia_merged", "cbdia_view", "bdia_view"])
+def test_smoke_library_calls_compute_the_kernels_function(case):
+    """``chip_smoke.py``'s library yardsticks (a torch CSR or BSR tensor of
+    the operator times the dense field) compute the wrapper's function: the
+    check inside them passes on the plain route's output."""
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.problems import dirac_cbdia, laplacian_dia
+
+    smoke = _smoke()
+    torch.manual_seed(0)
+    if case == "dia_csr":
+        op = laplacian_dia((8, 8, 8), device="cpu")
+        X = torch.randn(5, op.n)
+        call, why = smoke._dia_csr_library(torch, op.diags, op.offsets, X,
+                                           stencil.stencil_spmm_t(op.diags, op.offsets, X))
+    else:
+        op = dirac_cbdia(4, device="cpu")
+        main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main)
+        blocks = smoke._const_hop_blocks(torch, *main[:1], op.main_slots, op.masks_main, op.ns)
+        X = torch.randn(3, op.bs, op.ns) if case != "cbdia_merged" else torch.randn(
+            3 * op.bs, op.ns)
+        Y = {"cbdia_merged": lambda: cbs.const_block_stencil_spmm_m_t(*main, X),
+             "cbdia_view": lambda: cbs.const_block_stencil_spmm_t(*main, X),
+             "bdia_view": lambda: bsk.block_stencil_spmm_t(blocks, op.main_offsets, X)}[case]()
+        call, why = smoke._site_bsr_library(torch, blocks, op.main_offsets, X, Y)
+    assert why is None and call is not None
