@@ -1,6 +1,9 @@
 // Pieces shared by the kernels of blockcg_tpu_torch: launch geometry,
-// column loads, the k x k coefficient apply, the per-block Gram tile and the
-// deterministic second-stage reduction of the Gram partials.
+// column loads, the k x k coefficient apply, the per-block Gram tiles
+// (GramTile, and VecGram of the streaming kernels), the deterministic
+// second-stage reduction of the Gram partials, and the cp.async pieces of the
+// streaming kernels (stencil.cu, mm_update.cu, mm2_update_gram.cu,
+// px_update.cu).
 //
 // Layout: every field is lanes-major (k, n) float32, row r of column i at
 // F[r * n + i], so the threads of a warp (neighbouring columns i) read
@@ -161,6 +164,93 @@ struct GramTile {
   __device__ void store(float* part, int k) const { store(part, k, k); }
 };
 
+// The block's share of the symmetric G = Y Y^T: VecGram's interleaved TS x
+// TS register tiles (rows rb + S*a, columns cb + S*b, S = KMAX / TS), taken
+// only at the S (S + 1) / 2 tile positions with rb <= cb; store() fills the
+// lower triangle from the mirror tiles, so G is exactly symmetric (a
+// diagonal tile holds both (i, j) and (j, i), the same products in the same
+// order). A block holds THREADS / (S (S + 1) / 2) copies, each over its own
+// columns. Rows of Y are read one at a time after the TS columns' (TS + 1
+// float4s live). With a row stride ly of 8 mod 32 words, the different
+// (row, column) float4s of a warp's load fall at most two to a bank group.
+template <int KMAX, int THREADS, int TS_>  // TS_: the register tile's side, 4 or 8
+struct SymGram {
+  static constexpr int TS = TS_;
+  static constexpr int S = KMAX / TS;
+  static constexpr int kPairs = S * (S + 1) / 2;            // threads a copy
+  static constexpr int kGroups = THREADS / kPairs;          // copies a block
+  static constexpr int kScratch = kGroups * kPairs * TS * TS;  // floats of store()
+  float acc[TS][TS];
+  int rb, cb, grp, pair;
+
+  __device__ SymGram() {
+    const int t = threadIdx.x;
+    grp = t / kPairs;
+    pair = t % kPairs;
+    int p = pair, r = 0;  // pair -> (rb, cb), row by row over the upper triangle
+    while (p >= S - r) {
+      p -= S - r;
+      ++r;
+    }
+    rb = r;
+    cb = r + p;
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b) acc[a][b] = 0.f;
+  }
+
+  // ys: a row-major staged tile with row stride ly (a multiple of 4 words),
+  // ncol columns (a multiple of 4). Rows past k read row k - 1, whose
+  // products land only in entries of G that store() drops.
+  __device__ __forceinline__ void accumulate(const float* ys, int ly, int ncol, int k) {
+    if (grp >= kGroups) return;
+    for (int c = 4 * grp; c < ncol; c += 4 * kGroups) {
+      float4 y[TS];
+#pragma unroll
+      for (int b = 0; b < TS; ++b)
+        y[b] = *reinterpret_cast<const float4*>(ys + min(cb + S * b, k - 1) * ly + c);
+#pragma unroll
+      for (int a = 0; a < TS; ++a) {
+        const float4 x = *reinterpret_cast<const float4*>(ys + min(rb + S * a, k - 1) * ly + c);
+#pragma unroll
+        for (int b = 0; b < TS; ++b) {
+          float v = acc[a][b];
+          v = fmaf(x.x, y[b].x, v);
+          v = fmaf(x.y, y[b].y, v);
+          v = fmaf(x.z, y[b].z, v);
+          v = fmaf(x.w, y[b].w, v);
+          acc[a][b] = v;
+        }
+      }
+    }
+  }
+
+  // Sum the block's copies in group order through scratch (kScratch floats
+  // of shared memory no thread still reads) and write the (k, k) partial.
+  __device__ void store(float* part, int k, float* scratch) const {
+    if (grp < kGroups) {
+      float* mine = scratch + (grp * kPairs + pair) * TS * TS;
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+#pragma unroll
+        for (int b = 0; b < TS; ++b) mine[a * TS + b] = acc[a][b];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < k * k; e += THREADS) {
+      int pr = e / k % S, ps = e % k % S, a = e / k / S, b = e % k / S;
+      if (pr > ps) {  // a lower entry: its mirror in tile (ps, pr)
+        const int t = pr; pr = ps; ps = t;
+        const int u = a; a = b; b = u;
+      }
+      const float* src = scratch + (pr * S - pr * (pr - 1) / 2 + ps - pr) * TS * TS + a * TS + b;
+      float v = src[0];
+      for (int g = 1; g < kGroups; ++g) v += src[g * kPairs * TS * TS];
+      part[e] = v;
+    }
+  }
+};
+
 // Second stage: G[e] = base[e] + sum over blocks of part[b, e] (base may be
 // null), in block order and in double, so a repeated call gives the same
 // bits (no atomics anywhere).
@@ -285,6 +375,200 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
+// ---- the streaming coefficient updates (mm_update.cu, mm2_update_gram.cu,
+// px_update.cu). A persistent grid of kUpThreads-thread blocks walks
+// kUpTile-column tiles; warp w owns output rows w*R .. w*R+R-1 and lane l
+// columns 4l .. 4l+3, so global accesses are 16 bytes a thread and shared
+// reads of a staged tile are conflict-free float4s.
+constexpr int kUpThreads = 256;  // 8 warps: 8 row groups
+constexpr int kUpTile = 128;     // columns a tile: 32 lanes x 4
+constexpr int kUpLd = kUpTile + 8;  // row stride of a staged Y tile: 8 mod 32 words (SymGram)
+constexpr int kUpStages = 2;  // input stages in shared memory: one in flight while one computes
+
+// R, the output rows of a warp: ceil(k / 8) rounded up to a built width (0
+// above 128 rows).
+inline int rows_per_warp(int k) {
+  static const int widths[] = {1, 2, 4, 6, 8, 12, 16};
+  const int r = (k + 7) / 8;
+  for (int w : widths)
+    if (r <= w) return w;
+  return 0;
+}
+
+// R consecutive floats of shared memory into registers, in the widest loads
+// their alignment allows (rows w*R of a stride-8R table).
+template <int R>
+__device__ __forceinline__ void load_rows(float (&m)[R], const float* p) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < R; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + j);
+      m[j] = v.x; m[j + 1] = v.y; m[j + 2] = v.z; m[j + 3] = v.w;
+    }
+  } else if constexpr (R % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < R; j += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + j);
+      m[j] = v.x; m[j + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < R; ++j) m[j] = p[j];
+  }
+}
+
+// Copy rows c0 .. c0+rows-1 of the stacked field [A; B] (A and B (kin, n))
+// at columns i0 .. i0+kUpTile-1 into s (row stride kUpTile) with cp.async;
+// columns past n are zero-filled. vec: 16-byte copies (n % 4 == 0 and A, B
+// 16-byte aligned), else 4-byte copies on the same schedule.
+__device__ __forceinline__ void load_stacked(float* s, const float* A, const float* B, int kin,
+                                             long long n, long long i0, int c0, int rows,
+                                             bool vec) {
+  constexpr int q4 = kUpTile / 4;
+  const int per = vec ? q4 : kUpTile;
+  for (int e = threadIdx.x; e < rows * per; e += kUpThreads) {
+    const int c = e / per, q = (vec ? 4 : 1) * (e - c * per);
+    const int row = c0 + c;
+    const float* F = row < kin ? A + static_cast<long long>(row) * n
+                               : B + static_cast<long long>(row - kin) * n;
+    const bool in = i0 + q < n;
+    const float* g = in ? F + i0 + q : A;
+    if (vec) cp_async16(s + c * kUpTile + q, g, in);
+    else cp_async4(s + c * kUpTile + q, g, in);
+  }
+}
+
+// The pipeline position of a block of a streaming update: tile t of its
+// grid-stride walk, stage j (stacked input rows j*kc ..) of the tile's nk.
+struct StageCursor {
+  long long t;
+  int j;
+  __device__ __forceinline__ void next(int nk) {
+    if (++j == nk) {
+      j = 0;
+      t += gridDim.x;
+    }
+  }
+};
+
+// Copy the stage at `at` of the stacked field [A; B] into s (nothing past the
+// last tile) and commit it as one cp.async group, empty or not, so that
+// cp_async_wait<kUpStages - 1> always finds the stage kUpStages - 1 back.
+__device__ __forceinline__ void load_stage(float* s, const float* A, const float* B, int kin,
+                                           long long n, StageCursor at, int kc,
+                                           long long ntiles, bool vec) {
+  if (at.t < ntiles)
+    load_stacked(s, A, B, kin, n, at.t * kUpTile, at.j * kc, min(kc, 2 * kin - at.j * kc), vec);
+  cp_async_commit();
+}
+
+// Shared floats of a streaming update launch: nmat coefficient tables of kin
+// columns by 8R rows, kUpStages (kc, kUpTile) input buffers and, with the
+// Gram, the (k, kUpLd) Y tile, at least the Gram's end-of-kernel scratch
+// (mm2_update_gram.cu's SymGram::kScratch <= kUpThreads x TS^2 floats: TS = 8
+// above 32 rows, 4 up to 32). Mirrored by ops/fused.py update_smem_bytes.
+inline long long update_smem_floats(int k, int kin, int kc, int nmat, bool gram) {
+  const long long rp = 8LL * rows_per_warp(k);
+  long long f = nmat * kin * rp + 1LL * kUpStages * kc * kUpTile + (gram ? 1LL * k * kUpLd : 0);
+  const long long scratch = 1LL * kUpThreads * (k > 32 ? 64 : 16);
+  if (gram && f < scratch) f = scratch;
+  return f;
+}
+
+// A persistent grid for kernel: as many blocks as the card holds at once, at
+// most ntiles and max_blocks. It depends on the card, the build and the
+// caps alone, so a fixed-order reduction over its blocks repeats bitwise.
+template <typename Kernel>
+inline cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int device,
+                                   long long ntiles, long long max_blocks, int* grid) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // the plan passes the cap
+  long long g = static_cast<long long>(sms) * per_sm;
+  if (g > ntiles) g = ntiles;
+  if (g > max_blocks) g = max_blocks;
+  *grid = static_cast<int>(g);
+  return cudaSuccess;
+}
+
+// The block's share of G = X Y^T from TS x TS register tiles (8x8 from KMAX
+// = 32, 4x4 below), rows rt + S*a and columns st + S*b (S = KMAX / TS), fed
+// by float4 shared loads along the columns: 16 loads for 256 FMAs. xs and ys
+// are row-major staged tiles with row strides lx and ly (multiples of 4
+// words; 4 mod 8 words puts the lanes of a quarter warp that read different
+// rows in different bank groups), ncol columns (a multiple of 4). A block of
+// THREADS threads holds THREADS / S^2 copies of the tile, each over its own
+// columns, summed in a fixed order by store(): no atomics, so a repeated
+// call gives the same bits.
+template <int KMAX, int THREADS>
+struct VecGram {
+  static constexpr int TS = KMAX >= 32 ? 8 : 4;          // register tile side
+  static constexpr int S = KMAX / TS;
+  static constexpr int kCopy = S * S;                    // threads a copy
+  static constexpr int kGroups = THREADS / kCopy;        // copies a block
+  static constexpr int kScratch = kGroups * KMAX * KMAX; // floats of store()
+  float acc[TS][TS];
+  int rt, st, grp;
+
+  __device__ VecGram() {
+    const int t = threadIdx.x;
+    grp = t / kCopy;
+    rt = (t % kCopy) / S;
+    st = t % S;
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b) acc[a][b] = 0.f;
+  }
+
+  __device__ __forceinline__ void accumulate(const float* xs, int lx, const float* ys, int ly,
+                                             int ncol, int k) {
+    // Rows past k read row k - 1: unconditional loads, whose products land
+    // only in entries of G that store() drops.
+    for (int c = 4 * grp; c < ncol; c += 4 * kGroups) {
+      float4 x[TS], y[TS];
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+        x[a] = *reinterpret_cast<const float4*>(xs + min(rt + S * a, k - 1) * lx + c);
+#pragma unroll
+      for (int b = 0; b < TS; ++b)
+        y[b] = *reinterpret_cast<const float4*>(ys + min(st + S * b, k - 1) * ly + c);
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+#pragma unroll
+        for (int b = 0; b < TS; ++b) {
+          float v = acc[a][b];
+          v = fmaf(x[a].x, y[b].x, v);
+          v = fmaf(x[a].y, y[b].y, v);
+          v = fmaf(x[a].z, y[b].z, v);
+          v = fmaf(x[a].w, y[b].w, v);
+          acc[a][b] = v;
+        }
+    }
+  }
+
+  // Sum the block's copies in group order through scratch (kScratch floats
+  // of shared memory no thread still reads) and write the (k, k) partial.
+  __device__ void store(float* part, int k, float* scratch) const {
+    float* mine = scratch + grp * KMAX * KMAX;
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b) mine[(rt + S * a) * KMAX + st + S * b] = acc[a][b];
+    __syncthreads();
+    for (int e = threadIdx.x; e < KMAX * KMAX; e += THREADS) {
+      const int r = e / KMAX, s = e % KMAX;
+      if (r >= k || s >= k) continue;
+      float v = scratch[e];
+      for (int g = 1; g < kGroups; ++g) v += scratch[g * KMAX * KMAX + e];
+      part[r * k + s] = v;
+    }
+  }
+};
 
 // Raise the dynamic shared-memory cap of a kernel that needs more than the
 // default 48 KB (a launch above the cap is refused).

@@ -39,39 +39,9 @@
 
 namespace {
 
-constexpr int kMmThreads = 256;  // 8 warps: 8 row groups
-constexpr int kMmTile = 128;     // columns a tile: 32 lanes x 4
+constexpr int kMmThreads = kUpThreads;  // 8 warps: 8 row groups (common.cuh)
+constexpr int kMmTile = kUpTile;        // columns a tile: 32 lanes x 4
 constexpr int kMmMaxK = 128;
-
-int rows_per_warp(int k) {
-  static const int widths[] = {1, 2, 4, 6, 8, 12, 16};
-  const int r = (k + 7) / 8;
-  for (int w : widths)
-    if (r <= w) return w;
-  return 0;
-}
-
-// R consecutive floats of shared memory into registers, in the widest loads
-// their alignment allows (rows w*R of a stride-8R table).
-template <int R>
-__device__ __forceinline__ void load_rows(float (&m)[R], const float* p) {
-  if constexpr (R % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < R; j += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + j);
-      m[j] = v.x; m[j + 1] = v.y; m[j + 2] = v.z; m[j + 3] = v.w;
-    }
-  } else if constexpr (R % 2 == 0) {
-#pragma unroll
-    for (int j = 0; j < R; j += 2) {
-      const float2 v = *reinterpret_cast<const float2*>(p + j);
-      m[j] = v.x; m[j + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < R; ++j) m[j] = p[j];
-  }
-}
 
 // Copy the (k, 128) tile of B at column i0 into s (row stride 128); columns
 // past n are zero-filled.
@@ -170,16 +140,12 @@ cudaError_t launch(const float* M, const float* B, const float* A, float* Y, int
                       sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmThreads, smem);
-  if (err != cudaSuccess) return err;
   const long long ntiles = (n + kMmTile - 1) / kMmTile;
-  const long long grid = per_sm < 1 ? 1 : static_cast<long long>(sms) * per_sm;
+  int grid = 0;
+  err = persistent_grid(kernel, kMmThreads, smem, device, ntiles, ntiles, &grid);
+  if (err != cudaSuccess) return err;
   const bool vec = n % 4 == 0 && aligned16(B) && aligned16(Y) && (A == nullptr || aligned16(A));
-  kernel<<<static_cast<int>(grid < ntiles ? grid : ntiles), kMmThreads, smem, stream>>>(
-      M, B, A, Y, k, n, vec);
+  kernel<<<grid, kMmThreads, smem, stream>>>(M, B, A, Y, k, n, vec);
   return cudaGetLastError();
 }
 

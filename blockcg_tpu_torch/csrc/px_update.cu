@@ -2,90 +2,211 @@
 //
 // Replaces the Pallas kernel blockcg_tpu/ops/fused.py px_update.
 //
-// Bound: bytes, five field passes (read W, P, X; write Pn, Xn), with 3 k x k
-// FMAs per column beside them. P is read once for both outputs. The three
-// coefficient matrices sit in shared memory (transposed, broadcast reads),
-// both output columns in registers.
+// Bound: bytes, five field passes (read W, P, X; write Pn, Xn), 1,342 MB at
+// (32, 2,097,152), 0.40 ms at 3.35 TB/s, with 3 k^2 FMAs a column beside
+// them (0.19 ms at the f32 rate): traffic-bound only if the FMAs overlap the
+// copies. The kernel it replaced (one thread a column of 128-thread blocks,
+// scalar loads of W and P inside the coefficient loops, loads behind per-row
+// conditions, two KMAX-wide output columns in registers) ran at 47% of the
+// bound.
 //
-// Row chunks: Pn and Xn have k <= 64 rows, M1, rho and C are k x kin, W and P
-// (kin, n); a wider update is one launch per chunk of rows (ops/fused.py).
+// Design: mm_update.cu's streaming schedule on the stacked input [W; P]
+// (2 kin rows). A persistent grid of 256-thread blocks walks 128-column
+// tiles. Each block stages M1, rho and C once, transposed: sA[c][r] = M1[r,
+// c] over W's rows and rho[r, c] over P's, sC[c][r] = C[r, c]. Each tile's
+// input is copied into shared memory with cp.async in stages of kc stacked
+// rows, double-buffered: a stage's buffer is refilled as soon as it has been
+// read, so the next stage's copy is in flight while this one computes (kc =
+// 2 kin, one stage a tile, where the shared memory of the blocks an SM
+// allows: ops/fused.py update_plan; up to 64 rows the kernel is held to 128
+// registers for two blocks an SM). Warp w owns rows w*R .. w*R+R-1
+// of BOTH outputs and lane l columns 4l .. 4l+3, so one float4 shared read
+// of P feeds rho's FMAs and C's, every warp does the same work, and global
+// accesses are 16 bytes a thread: cp.async of W and P, float4 loads of X
+// (issued at the tile's first stage, ahead of their use) and float4 stores
+// of Pn and Xn. A field whose rows are not 16-byte aligned takes 4-byte
+// copies and scalar accesses on the same schedule.
 //
-// In place: Pn may be the same buffer as P and Xn the same as X (the solver
-// donates both). Column i of each output depends only on column i of the
-// inputs, and a thread reads all of its column before it writes it, so the
-// field pointers are not declared __restrict__.
+// Arithmetic: pn_r = fmaf over c of M1[r, c] W[c, i], then of rho[r, c]
+// P[c, i]; xn_r = X[r, i], then fmaf over c of C[r, c] P[c, i]: the order of
+// the kernel this replaced, so Pn and Xn keep their bits.
+//
+// Width: one launch writes k <= 128 rows of Pn and Xn and contracts over kin
+// >= k rows of W and P (a row chunk of a wider field, ops/fused.py).
+//
+// In place: Pn may be P (on a launch that covers all rows) and Xn may be X
+// (the solver donates both). A block copies all stages of its input tile
+// before it writes the tile's columns, the thread that writes Xn[r, i] has
+// read X[r, i] first, the copies in flight meanwhile are of its later tiles'
+// columns, and no block reads columns that another block writes; the field
+// pointers are therefore not __restrict__.
 #include "common.cuh"
 
 namespace {
 
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
-    px_update(const float* __restrict__ M1, const float* W,
-              const float* __restrict__ Rho, const float* P,
-              const float* __restrict__ C, const float* X, float* Pn,
-              float* Xn, int k, int kin, long long n) {
-  extern __shared__ __align__(16) float smem[];  // m1T | rhoT | cT
-  float* m1 = smem;
-  const int mfloats = coeff_cols<KMAX>(kin) * KMAX;
-  float* rho = smem + mfloats;
-  float* cc = smem + 2 * mfloats;
-  stage_coeff<KMAX>(m1, M1, k, kin);
-  stage_coeff<KMAX>(rho, Rho, k, kin);
-  stage_coeff<KMAX>(cc, C, k, kin);
-  __syncthreads();
-  const long long ntiles = (n + kThreads - 1) / kThreads;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long i = t * kThreads + threadIdx.x;
-    const bool valid = i < n;
-    float pn[KMAX], xn[KMAX];
+// Blocks an SM the kernel is built for: two up to 64 rows (at most 128
+// registers a thread; the plan keeps the stages within half the SM's shared
+// memory), one above.
+template <int R>
+constexpr int kPxBlocksPerSm = R <= 8 ? 2 : 1;
+
+template <int R>
+__global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
+    px_update_kernel(const float* __restrict__ M1, const float* W,
+                     const float* __restrict__ Rho, const float* P,
+                     const float* __restrict__ C, const float* X, float* Pn, float* Xn, int k,
+                     int kin, long long n, int kc, bool vec) {
+  extern __shared__ __align__(16) float smem[];  // sA (2kin x 8R) | sC (kin x 8R) | stages
+  constexpr int kRows = 8 * R;
+  const int nin = 2 * kin;
+  float* sA = smem;
+  float* sC = sA + nin * kRows;
+  float* sB = sC + kin * kRows;
+  for (int e = threadIdx.x; e < nin * kRows; e += kUpThreads) {
+    const int c = e / kRows, r = e % kRows;
+    sA[e] = r >= k ? 0.f : c < kin ? M1[r * kin + c] : Rho[r * kin + c - kin];
+  }
+  for (int e = threadIdx.x; e < kin * kRows; e += kUpThreads) {
+    const int c = e / kRows, r = e % kRows;
+    sC[e] = r >= k ? 0.f : C[r * kin + c];
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * R;
+  const int nk = (nin + kc - 1) / kc;
+  const long long ntiles = (n + kUpTile - 1) / kUpTile;
+  StageCursor cur{blockIdx.x, 0}, ahead = cur;
+  for (int s = 0; s < kUpStages; ++s, ahead.next(nk))
+    load_stage(sB + s * kc * kUpTile, W, P, kin, n, ahead, kc, ntiles, vec);
+  int buf = 0;
+  float pn[R][4], xn[R][4];
+  while (cur.t < ntiles) {
+    cp_async_wait<kUpStages - 1>();  // this stage's copy has landed
+    __syncthreads();                 // ... for every thread's share of it (and the coefficients)
+    const long long t = cur.t;
+    const int j = cur.j;
+    const long long i = t * kUpTile + 4 * lane;
+    if (r0 < k) {
+      if (j == 0) {
 #pragma unroll
-    for (int r = 0; r < KMAX; ++r) pn[r] = 0.f;
-    apply_coeff<KMAX>(pn, m1, W, kin, n, i, valid);
-    load_col<KMAX>(xn, X, k, n, i, valid);
-    if (valid) {
-      // One read of P feeds both outputs.
-#pragma unroll 4
-      for (int c = 0; c < kin; ++c) {
-        const float pc = P[c * n + i];
+        for (int a = 0; a < R; ++a) {
+          const int r = r0 + a;
+          pn[a][0] = pn[a][1] = pn[a][2] = pn[a][3] = 0.f;
+          const long long at = r * n + i;
+          if (r >= k) {
+            xn[a][0] = xn[a][1] = xn[a][2] = xn[a][3] = 0.f;
+          } else if (vec && i + 3 < n) {
+            const float4 x = *reinterpret_cast<const float4*>(X + at);
+            xn[a][0] = x.x; xn[a][1] = x.y; xn[a][2] = x.z; xn[a][3] = x.w;
+          } else {
 #pragma unroll
-        for (int r = 0; r < KMAX; ++r) {
-          pn[r] = fmaf(rho[c * KMAX + r], pc, pn[r]);
-          xn[r] = fmaf(cc[c * KMAX + r], pc, xn[r]);
+            for (int q = 0; q < 4; ++q) xn[a][q] = i + q < n ? X[at + q] : 0.f;
+          }
+        }
+      }
+      const int c0 = j * kc, c1 = min(c0 + kc, nin), cw = min(c1, kin);
+      const float* sb = sB + buf * kc * kUpTile + 4 * lane;
+#pragma unroll 2
+      for (int c = c0; c < cw; ++c) {  // W's rows: pn += M1 W
+        const float4 b = *reinterpret_cast<const float4*>(sb + (c - c0) * kUpTile);
+        float m[R];
+        load_rows<R>(m, sA + c * kRows + r0);
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          pn[a][0] = fmaf(m[a], b.x, pn[a][0]);
+          pn[a][1] = fmaf(m[a], b.y, pn[a][1]);
+          pn[a][2] = fmaf(m[a], b.z, pn[a][2]);
+          pn[a][3] = fmaf(m[a], b.w, pn[a][3]);
+        }
+      }
+#pragma unroll 2
+      for (int c = c0 > kin ? c0 : kin; c < c1; ++c) {  // P's rows: pn += rho P, xn += C P
+        const float4 b = *reinterpret_cast<const float4*>(sb + (c - c0) * kUpTile);
+        float m[R], cc[R];
+        load_rows<R>(m, sA + c * kRows + r0);
+        load_rows<R>(cc, sC + (c - kin) * kRows + r0);
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          pn[a][0] = fmaf(m[a], b.x, pn[a][0]);
+          pn[a][1] = fmaf(m[a], b.y, pn[a][1]);
+          pn[a][2] = fmaf(m[a], b.z, pn[a][2]);
+          pn[a][3] = fmaf(m[a], b.w, pn[a][3]);
+          xn[a][0] = fmaf(cc[a], b.x, xn[a][0]);
+          xn[a][1] = fmaf(cc[a], b.y, xn[a][1]);
+          xn[a][2] = fmaf(cc[a], b.z, xn[a][2]);
+          xn[a][3] = fmaf(cc[a], b.w, xn[a][3]);
+        }
+      }
+      if (j == nk - 1) {  // the tile's last stage: store both outputs
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          const int r = r0 + a;
+          if (r >= k) continue;
+          const long long at = r * n + i;
+          if (vec && i + 3 < n) {
+            *reinterpret_cast<float4*>(Pn + at) =
+                make_float4(pn[a][0], pn[a][1], pn[a][2], pn[a][3]);
+            *reinterpret_cast<float4*>(Xn + at) =
+                make_float4(xn[a][0], xn[a][1], xn[a][2], xn[a][3]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (i + q < n) {
+                Pn[at + q] = pn[a][q];
+                Xn[at + q] = xn[a][q];
+              }
+          }
         }
       }
     }
-    store_col<KMAX>(Pn, pn, k, n, i, valid);
-    store_col<KMAX>(Xn, xn, k, n, i, valid);
+    __syncthreads();  // every read of this stage's buffer is done: refill it
+    load_stage(sB + buf * kc * kUpTile, W, P, kin, n, ahead, kc, ntiles, vec);
+    ahead.next(nk);
+    buf = (buf + 1) % kUpStages;
+    cur.next(nk);
   }
+  cp_async_wait<0>();
 }
 
-template <int KMAX>
-cudaError_t launch(const float* M1, const float* W, const float* Rho,
-                   const float* P, const float* C, const float* X, float* Pn,
-                   float* Xn, int k, int kin, long long n, int nblocks,
-                   cudaStream_t stream) {
-  auto kernel = px_update<KMAX>;
-  const size_t smem = 3 * coeff_cols<KMAX>(kin) * KMAX * sizeof(float);
+template <int R>
+cudaError_t launch(const float* M1, const float* W, const float* Rho, const float* P,
+                   const float* C, const float* X, float* Pn, float* Xn, int k, int kin,
+                   long long n, int kc, int device, cudaStream_t stream) {
+  auto kernel = px_update_kernel<R>;
+  const size_t smem = update_smem_floats(k, kin, kc, 3, false) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<nblocks, kThreads, smem, stream>>>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n);
+  const long long ntiles = (n + kUpTile - 1) / kUpTile;
+  int grid = 0;
+  err = persistent_grid(kernel, kUpThreads, smem, device, ntiles, ntiles, &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = n % 4 == 0 && aligned16(W) && aligned16(P) && aligned16(X) &&
+                   aligned16(Pn) && aligned16(Xn);
+  kernel<<<grid, kUpThreads, smem, stream>>>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Pn, Xn, X (k, n); M1, rho, C k x kin (row stride kin); W, P (kin, n). kc:
+// stacked input rows a stage copies (ops/fused.py update_plan). Xn may equal
+// X; Pn may equal P when k == kin.
 extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
-                             const float* P, const float* C, const float* X,
-                             float* Pn, float* Xn, int k, int kin, long long n,
-                             int nblocks, int device, cudaStream_t stream) {
-  if (nblocks < 1 || n < 1 || kin < k) return cudaErrorInvalidValue;
+                             const float* P, const float* C, const float* X, float* Pn,
+                             float* Xn, int k, int kin, long long n, int kc, int device,
+                             cudaStream_t stream) {
+  if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  switch (kmax_for(k)) {
-    case 8: return launch<8>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, nblocks, stream);
-    case 16: return launch<16>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, nblocks, stream);
-    case 32: return launch<32>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, nblocks, stream);
-    case 64: return launch<64>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, nblocks, stream);
+#define BCG_PX(R) return launch<R>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream)
+  switch (rows_per_warp(k)) {
+    case 1: BCG_PX(1);
+    case 2: BCG_PX(2);
+    case 4: BCG_PX(4);
+    case 6: BCG_PX(6);
+    case 8: BCG_PX(8);
+    case 12: BCG_PX(12);
+    case 16: BCG_PX(16);
     default: return cudaErrorInvalidValue;
   }
+#undef BCG_PX
 }

@@ -37,7 +37,7 @@
 // did, so Y keeps its bits.
 //
 // Gram. The tile's X is the window's centre; Y goes to shared memory once.
-// VecGram holds a TS x TS register tile of G per thread (8x8 from KMAX = 32,
+// VecGram (common.cuh) holds a TS x TS register tile of G per thread (8x8 from KMAX = 32,
 // 4x4 below), rows rt + S*a and columns st + S*b (S = KMAX / TS), fed by
 // float4 shared loads along the columns: 16 loads for 256 FMAs. A 4x4 tile
 // (8 loads for 64 FMAs) left the Gram bound by shared-memory wavefronts at
@@ -65,75 +65,6 @@ constexpr int kFar = 0x7fffffff;
 struct Diags {
   int o[kMaxDiags];  // each in [0, n)
   int s[kMaxDiags];  // signed shift in [-h, h] for a near diagonal, kFar otherwise
-};
-
-// The block's share of G = X Y^T from TS x TS register tiles (see the note
-// above). xs and ys are row-major staged tiles with row strides lx and ly
-// (multiples of 4 words), ncol columns (a multiple of 4).
-template <int KMAX>
-struct VecGram {
-  static constexpr int TS = KMAX >= 32 ? 8 : 4;          // register tile side
-  static constexpr int S = KMAX / TS;
-  static constexpr int kCopy = S * S;                    // threads a copy
-  static constexpr int kGroups = kStThreads / kCopy;     // copies a block
-  static constexpr int kScratch = kGroups * KMAX * KMAX; // floats of store()
-  float acc[TS][TS];
-  int rt, st, grp;
-
-  __device__ VecGram() {
-    const int t = threadIdx.x;
-    grp = t / kCopy;
-    rt = (t % kCopy) / S;
-    st = t % S;
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) acc[a][b] = 0.f;
-  }
-
-  __device__ __forceinline__ void accumulate(const float* xs, int lx, const float* ys, int ly,
-                                             int ncol, int k) {
-    // Rows past k read row k - 1: unconditional loads, whose products land
-    // only in entries of G that store() drops.
-    for (int c = 4 * grp; c < ncol; c += 4 * kGroups) {
-      float4 x[TS], y[TS];
-#pragma unroll
-      for (int a = 0; a < TS; ++a)
-        x[a] = *reinterpret_cast<const float4*>(xs + min(rt + S * a, k - 1) * lx + c);
-#pragma unroll
-      for (int b = 0; b < TS; ++b)
-        y[b] = *reinterpret_cast<const float4*>(ys + min(st + S * b, k - 1) * ly + c);
-#pragma unroll
-      for (int a = 0; a < TS; ++a)
-#pragma unroll
-        for (int b = 0; b < TS; ++b) {
-          float v = acc[a][b];
-          v = fmaf(x[a].x, y[b].x, v);
-          v = fmaf(x[a].y, y[b].y, v);
-          v = fmaf(x[a].z, y[b].z, v);
-          v = fmaf(x[a].w, y[b].w, v);
-          acc[a][b] = v;
-        }
-    }
-  }
-
-  // Sum the block's copies in group order through scratch (kScratch floats
-  // of shared memory no thread still reads) and write the (k, k) partial.
-  __device__ void store(float* part, int k, float* scratch) const {
-    float* mine = scratch + grp * KMAX * KMAX;
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) mine[(rt + S * a) * KMAX + st + S * b] = acc[a][b];
-    __syncthreads();
-    for (int e = threadIdx.x; e < KMAX * KMAX; e += kStThreads) {
-      const int r = e / KMAX, s = e % KMAX;
-      if (r >= k || s >= k) continue;
-      float v = scratch[e];
-      for (int g = 1; g < kGroups; ++g) v += scratch[g * KMAX * KMAX + e];
-      part[r * k + s] = v;
-    }
-  }
 };
 
 // Window of the tile at i0: sw[r * W + v] = X[r, (i0 - h + v) mod n] for
@@ -185,7 +116,7 @@ __host__ __device__ inline int window_ld(int k, int h, int T) {
 __host__ __device__ inline long long smem_floats(int k, int ndiag, int h, int T, bool gram) {
   const long long W = window_ld(k, h, T), LY = T + 4;
   long long f = 2 * (k * W + static_cast<long long>(ndiag) * T) + (gram ? k * LY : 0);
-  const long long scratch = 256LL * (k > 16 ? 64 : 16);  // VecGram::kScratch
+  const long long scratch = 256LL * (k > 16 ? 64 : 16);  // VecGram::kScratch (common.cuh)
   if (gram && f < scratch) f = scratch;
   return f;
 }
@@ -207,7 +138,7 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
   float* sw0 = smem;
   float* sd0 = smem + 2 * k * W;
   float* sy = sd0 + 2 * ndiag * T;
-  VecGram<KMAX> g;
+  VecGram<KMAX, kStThreads> g;
   const long long ntiles = (n + T - 1) / T;
   long long t = blockIdx.x;
   int buf = 0;
@@ -283,20 +214,12 @@ cudaError_t launch(const float* diags, const Diags& dg, int ndiag, const float* 
   const size_t smem = smem_floats(k, ndiag, h, T, WITH_GRAM) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int grid = 0;
+  err = persistent_grid(kernel, kStThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // the plan passes the cap
-  const long long ntiles = (n + T - 1) / T;
-  long long grid = static_cast<long long>(sms) * per_sm;
-  if (grid > ntiles) grid = ntiles;
-  if (grid > max_blocks) grid = max_blocks;
   const bool vec = n % 4 == 0 && aligned16(X);
-  kernel<<<static_cast<int>(grid), kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k,
-                                                               n, h, T, vec);
-  if (WITH_GRAM) launch_reduce(part, G, k, static_cast<int>(grid), stream);
+  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k, n, h, T, vec);
+  if (WITH_GRAM) launch_reduce(part, G, k, grid, stream);
   return cudaGetLastError();
 }
 

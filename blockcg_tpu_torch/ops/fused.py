@@ -6,6 +6,7 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
 - ``mm_update(M, B, A)``              Y = M B (+ A)        (``csrc/mm_update.cu``)
 - ``mm_update_gram(M, B, A)``         Y = M B (+ A), G = Y Y^T (``csrc/fused_update.cu``)
 - ``mm2_update_gram(M1, B1, M2, B2)`` Y = M1 B1 + M2 B2, G = Y Y^T
+                                                           (``csrc/mm2_update_gram.cu``)
 - ``px_update(M1, W, rho, P, C, X)``  Pn = M1 W + rho P, Xn = X + C P
                                                            (``csrc/px_update.cu``)
 - ``xr_update_gram(a, P, X, Z, R)``   Xn = X + a P, Rn = R - a Z, G = Rn Rn^T
@@ -36,20 +37,28 @@ still reads a donated input fails on the CPU as it would on the card. Column
 i of every output depends only on column i of the inputs, which is what makes
 the kernels' in-place writes safe.
 
-Width: a kernel launch holds at most 64 output rows in registers. A wider
-field runs as one launch per chunk of output rows (``_chunks``: 64 rows, or
-32, 16 or 8 where the staged k-column coefficients would pass the card's
-shared memory), each contracting over all k input rows; a fused Gram then
-takes its diagonal blocks from the chunks' launches and its cross blocks from
-``gram`` on the stored output, laid out by the same chunks. A donated output whose chunks read rows that an earlier chunk
-would overwrite is written to a fresh buffer first and copied over. A field of
-at most 64 rows is one launch, as it always was. ``mm_update`` has a kernel
-of its own that stages its input tiles in shared memory and splits the output
-rows across warps: up to 128 rows it is one launch that reads B once
-(``mm_update_plan``).
+Width: a kernel launch of the one-thread-a-column kernels holds at most 64
+output rows in registers. A wider field runs as one launch per chunk of
+output rows (``_chunks``: 64 rows, or 32, 16 or 8 where the staged k-column
+coefficients would pass the card's shared memory), each contracting over all
+k input rows; a fused Gram then takes its diagonal blocks from the chunks'
+launches and its cross blocks from ``gram`` on the stored output, laid out by
+the same chunks. A donated output whose chunks read rows that an earlier
+chunk would overwrite is written to a fresh buffer first and copied over. A
+field of at most 64 rows is one launch, as it always was.
+
+``mm_update``, ``mm2_update_gram`` and ``px_update`` run streaming kernels
+that stage their input tiles in shared memory and split the output rows
+across warps (``csrc/mm_update.cu``, ``mm2_update_gram.cu``,
+``px_update.cu``): one launch reads the inputs once up to 96 rows (128 for
+``mm_update``), so a donated operand takes its output in place
+(``mm_update_plan``, ``mm2_update_gram_plan``, ``px_update_plan``).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -162,6 +171,109 @@ def mm_update_plan(k: int, donate: str | None, device) -> tuple[list[tuple[int, 
     return chunks, len(chunks) == 1 or donate != "b"
 
 
+UPDATE_TILE = 128  # csrc/common.cuh kUpTile: columns a tile of the streaming updates
+UPDATE_LD = UPDATE_TILE + 8  # csrc/common.cuh kUpLd: row stride of the staged Y tile
+UPDATE_MAX_K = 128  # output rows of one streaming launch: 8 warps x 16
+UPDATE_GRAM_MAX_K = 64  # rows whose Gram a launch of mm2_update_gram.cu takes (SymGram)
+UPDATE_STAGES = 2  # csrc/common.cuh kUpStages: input stages in shared memory
+UPDATE_MIN_KC = 32  # fewest stacked input rows a stage copies, short of all of them
+_UPDATE_WIDTHS = (1, 2, 4, 6, 8, 12, 16)  # csrc/common.cuh rows_per_warp
+
+
+def rows_per_warp(k: int) -> int:
+    """Output rows a warp owns in a launch of k rows (``csrc/common.cuh``)."""
+    return next(w for w in _UPDATE_WIDTHS if -(-k // 8) <= w)
+
+
+def update_smem_bytes(k: int, kin: int, kc: int, nmat: int, gram: bool) -> int:
+    """Shared bytes of one streaming launch (``csrc/common.cuh``
+    update_smem_floats): ``nmat`` coefficient tables of kin columns by 8R
+    rows, two (kc, 128) input stages and, with the Gram, the (k, 136) Y
+    tile, at least the Gram's end-of-kernel scratch."""
+    f = nmat * kin * 8 * rows_per_warp(k) + UPDATE_STAGES * kc * UPDATE_TILE
+    if gram:
+        f = max(f + k * UPDATE_LD, 256 * (64 if k > 32 else 16))
+    return 4 * f
+
+
+class UpdatePlan(NamedTuple):
+    """The launches of a streaming update of k rows (``mm2_update_gram``,
+    ``px_update``): the output row ``chunks``, one launch each, every one
+    contracting over all k rows of both input fields; the tile width ``T``;
+    ``kc``, the stacked input rows a pipeline stage copies (2k: one stage a
+    tile); whether a donated operand is written ``in_place`` (one launch: it
+    reads all its inputs before it writes); whether the launch takes the Gram
+    (``fused_gram``; else ``wide_gram`` does); the launch's shared bytes;
+    and the blocks an SM they leave room for."""
+    chunks: list[tuple[int, int]]
+    T: int
+    kc: int
+    in_place: bool
+    fused_gram: bool
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def _blocks_per_sm(kout: int, nmat: int, fused: bool) -> int:
+    """Blocks an SM a launch of kout rows is built for (the kernels'
+    ``__launch_bounds__``: csrc/mm2_update_gram.cu kMm2BlocksPerSm, csrc/
+    px_update.cu kPxBlocksPerSm): two where registers allow, else one."""
+    if nmat == 2:
+        return 2 if fused and kout <= 32 else 1
+    return 2 if kout <= 64 else 1
+
+
+@functools.lru_cache(maxsize=64)
+def _update_plan(name: str, k: int, nmat: int, gram: bool, cap: int) -> UpdatePlan:
+    """Up to 128 rows one launch, if its coefficients leave room for stages of
+    at least ``UPDATE_MIN_KC`` rows (or all 2k); wider, the widest row chunks
+    (64, 32, 16 or 8 rows) that do; failing those, 8-row chunks on any
+    stage depth that fits. Stages are as deep as the shared memory
+    of the blocks an SM the kernel is built for allows (two blocks share the
+    SM's cap + 1 KB, less 1 KB a block), or of one block where two leave no
+    such room; cut into equal parts of the 2k stacked rows. The launch takes
+    the Gram up to 64 rows (one launch); wider, ``gram`` takes it on
+    64-row blocks (narrow chunks' diagonal blocks would need as many more
+    cross-block launches)."""
+    widths = ([k] if k <= UPDATE_MAX_K else []) + [w for w in (64, 32, 16, 8) if w < k]
+    for w, min_kc in [(w, UPDATE_MIN_KC) for w in widths] + [(8, 1)]:
+        chunks = _native.row_chunks(k, w)
+        kout = max(r1 - r0 for r0, r1 in chunks)
+        fused = gram and k <= UPDATE_GRAM_MAX_K
+        # Bytes besides the stages (the Gram's scratch floor lies below any
+        # room a plan is made for).
+        fixed = update_smem_bytes(kout, k, 0, nmat, False) + fused * 4 * kout * UPDATE_LD
+        for blocks in range(_blocks_per_sm(kout, nmat, fused), 0, -1):
+            room = (cap + 1024) // blocks - 1024
+            deepest = (room - fixed) // (UPDATE_STAGES * UPDATE_TILE * 4)
+            if deepest < min(2 * k, min_kc):
+                continue
+            stages = -(-2 * k // min(deepest, 2 * k))
+            kc = -(-2 * k // stages)
+            return UpdatePlan(chunks, UPDATE_TILE, kc, len(chunks) == 1, fused,
+                              update_smem_bytes(kout, k, kc, nmat, fused), blocks)
+    raise ValueError(f"{name}: {k} right-hand sides leave no room for the "
+                     f"coefficients in {cap} bytes of shared memory")
+
+
+def mm2_update_gram_plan(k: int, device) -> UpdatePlan:
+    """The launches of ``mm2_update_gram`` on k rows (``csrc/mm2_update_gram.cu``):
+    up to 64 rows one launch with the fused Gram; up to 96 rows (128 where
+    they fit) one launch of Y; wider, row chunks of Y; above 64 rows the
+    Gram comes from ``wide_gram``. A donated B1 takes Y in place on one
+    launch."""
+    return _update_plan("mm2_update_gram", k, 2, True, _native.max_smem(device.index))
+
+
+def px_update_plan(k: int, device) -> UpdatePlan:
+    """The launches of ``px_update`` on k rows (``csrc/px_update.cu``): up to
+    128 rows one launch where its three coefficient tables leave room (m = 96
+    in two stages a tile), wider in row chunks. A donated X always takes Xn in
+    place (a chunk reads only its own rows of X); a donated P takes Pn in
+    place on one launch."""
+    return _update_plan("px_update", k, 3, False, _native.max_smem(device.index))
+
+
 def _launch_gram(U, V, G=None):
     """One launch: G = U V^T of two row blocks of at most 64 rows each."""
     ku, n = U.shape
@@ -206,21 +318,18 @@ def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     return wide_gram(U, V)
 
 
-def _coeff_update(name, M1, B1, M2, B2, A, with_gram, out):
-    k, n = B1.shape
-    for M, what in ((M1, "M1"), (M2, "M2")):
-        if M is not None:
-            _native.check_kk(M, k, f"{name} {what}")
-    chunks = _chunks(k, 1 if M2 is None else 2, with_gram, name, B1.device)
-    # Every chunk reads all of B1: a donated B1 must wait for the last one.
+def _coeff_update(name, M, B, A, with_gram, out):
+    k, n = B.shape
+    _native.check_kk(M, k, f"{name} M")
+    chunks = _chunks(k, 1, with_gram, name, B.device)
+    # Every chunk reads all of B: a donated B must wait for the last one.
     direct = out is None or len(chunks) == 1 or out is A
-    Y = out if out is not None and direct else torch.empty_like(B1)
+    Y = out if out is not None and direct else torch.empty_like(B)
     p = _native.ptr
     diag = []
     for r0, r1 in chunks:
-        part, G = _gram_buffers(r1 - r0, n, B1.device) if with_gram else (None, None)
-        _native.launch(name, "bcg_coeff_update", B1.device, p(M1[r0:r1]), p(B1),
-                       p(None if M2 is None else M2[r0:r1]), p(B2),
+        part, G = _gram_buffers(r1 - r0, n, B.device) if with_gram else (None, None)
+        _native.launch(name, "bcg_coeff_update", B.device, p(M[r0:r1]), p(B),
                        p(None if A is None else A[r0:r1]), p(Y[r0:r1]), p(part), p(G),
                        r1 - r0, k, n, _native.nblocks(n))
         diag.append(G)
@@ -244,7 +353,7 @@ def mm_update(M: torch.Tensor, B: torch.Tensor,
     df = {None: None, "a": Af, "b": Bf}[donate]
     k, n = Bf.shape
     if len(mm_update_plan(k, donate, Bf.device)[0]) > 1:
-        return _coeff_update("mm_update", M, Bf, None, None, Af, False, df)[0].view(B.shape)
+        return _coeff_update("mm_update", M, Bf, Af, False, df)[0].view(B.shape)
     _native.check_kk(M, k, "mm_update M")
     Y = torch.empty_like(Bf) if df is None else df
     p = _native.ptr
@@ -262,7 +371,7 @@ def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
         Y, G = mm_update_gram_plain(M, B, A)
         return _into(dst, Y), G
     Bf, Af = _flat("mm_update_gram", B, A)
-    Y, G = _coeff_update("mm_update_gram", M, Bf, None, None, Af, True, Bf if donate else None)
+    Y, G = _coeff_update("mm_update_gram", M, Bf, Af, True, Bf if donate else None)
     return Y.view(B.shape), G
 
 
@@ -275,8 +384,21 @@ def mm2_update_gram(M1: torch.Tensor, B1: torch.Tensor, M2: torch.Tensor,
         Y, G = mm2_update_gram_plain(M1, B1, M2, B2)
         return _into(dst, Y), G
     B1f, B2f = _flat("mm2_update_gram", B1, B2)
-    Y, G = _coeff_update("mm2_update_gram", M1, B1f, M2, B2f, None, True,
-                         B1f if donate else None)
+    k, n = B1f.shape
+    for M, what in ((M1, "M1"), (M2, "M2")):
+        _native.check_kk(M, k, f"mm2_update_gram {what}")
+    plan = mm2_update_gram_plan(k, B1f.device)
+    Y = B1f if donate and plan.in_place else torch.empty_like(B1f)
+    p = _native.ptr
+    part, G = _gram_buffers(k, n, B1f.device) if plan.fused_gram else (None, None)
+    for r0, r1 in plan.chunks:
+        _native.launch("mm2_update_gram", "bcg_mm2_update_gram", B1f.device, p(M1[r0:r1]),
+                       p(B1f), p(M2[r0:r1]), p(B2f), p(Y[r0:r1]), p(part), p(G), r1 - r0, k,
+                       n, plan.kc, _native.nblocks(n))
+    if not plan.fused_gram:
+        G = wide_gram(Y, Y)
+    if donate and Y is not B1f:
+        Y = B1f.copy_(Y)
     return Y.view(B1.shape), G
 
 
@@ -296,15 +418,15 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
     k, n = W.shape
     for M, what in ((M1, "M1"), (rho, "rho"), (C, "C")):
         _native.check_kk(M, k, f"px_update {what}")
-    chunks = _chunks(k, 3, False, "px_update", W.device)
-    # Every chunk reads all of P: a donated Pn waits for the last chunk.
-    Pn = P if donate and len(chunks) == 1 else torch.empty_like(P)
+    plan = px_update_plan(k, W.device)
+    # A chunk reads all of P but only its own rows of X.
+    Pn = P if donate and plan.in_place else torch.empty_like(P)
     Xn = X if donate else torch.empty_like(X)
     p = _native.ptr
-    for r0, r1 in chunks:
+    for r0, r1 in plan.chunks:
         _native.launch("px_update", "bcg_px_update", W.device, p(M1[r0:r1]), p(W),
                        p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Pn[r0:r1]),
-                       p(Xn[r0:r1]), r1 - r0, k, n, _native.nblocks(n))
+                       p(Xn[r0:r1]), r1 - r0, k, n, plan.kc)
     return (P.copy_(Pn) if donate and Pn is not P else Pn).view(shape), Xn.view(shape)
 
 

@@ -30,8 +30,9 @@ on config 3 and at 128^3 (``[cheb]``), and the even-odd Schur path on 32^4
 twice and against config 4's full solve, its CG on one column, the
 multi-shift solve, the matrix-link and the U(1) complex contexts); then
 fields of 96 rows, above one launch's 64 (``[kernel]`` lines at m = 96 for
-every kernel the row-chunked launches serve, the fused Grams again at 800
-rows, where shared memory leaves room for 32-row launches only, and
+every kernel the row-chunked launches serve, the fused Grams and
+``px_update`` again at 800 rows, where shared memory leaves room for narrow
+row chunks only, and
 ``[wide]``: config 4 with 24 RHS and the even-odd multi-shift solve with
 12); ``qr_px_update``
 against its plain version and against the pair it fuses; and general
@@ -89,7 +90,8 @@ KERNELS = {
     "gram": ("blockcg_tpu_torch/csrc/gram.cu", "blockcg_tpu/ops/fused.py:203"),
     "mm_update": ("blockcg_tpu_torch/csrc/mm_update.cu", "blockcg_tpu/ops/fused.py:265"),
     "mm_update_gram": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:332"),
-    "mm2_update_gram": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:405"),
+    "mm2_update_gram": ("blockcg_tpu_torch/csrc/mm2_update_gram.cu",
+                        "blockcg_tpu/ops/fused.py:405"),
     "px_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:588"),
     "const_block_stencil_spmm_m_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                                      "blockcg_tpu/ops/const_block_stencil.py:617"),
@@ -194,8 +196,8 @@ SCATTERED_N = 32768  # bench_scattered.py's size (16,384 for the no-locality gra
 WIDE_M = 96
 WIDE_CONFIG4_K = 24
 # A width whose staged k-column coefficients leave room in shared memory for
-# 32-row launches only (64 rows stop at k = 389 for mm2_update_gram, 778 for
-# xr_update_gram), on a short field.
+# narrow row chunks only (16 rows for mm2_update_gram, whose plan names them;
+# 32 for xr_update_gram, where 64 rows stop at k = 778), on a short field.
 NARROW_CHUNK_K = 800
 NARROW_CHUNK_N = 2 ** 16
 # The fused SBCGrQ tail against the pair it replaces: (32, 128^3), (48, 32^4).
@@ -1356,9 +1358,11 @@ def phase_wide_kernels(torch, dev, records) -> None:
     """Every kernel the width repair touches, at m = 96 rows (above one
     launch's 64) against its plain version: the fused updates and the Gram
     on config 4's merged width (ns = 32^4, ``I_4 ⊗ C``), fresh and donated;
-    ``mm2_update_gram`` and ``xr_update_gram`` at 800 rows, where shared
-    memory leaves room for 32-row launches only, so their Grams are laid out
-    by those chunks; the DIA stencil on config 3's 64^3 Laplacian; the const-hop kernels on
+    ``mm2_update_gram``, ``px_update`` and ``xr_update_gram`` at 800 rows,
+    where shared memory leaves room for narrow row chunks only (the Gram of
+    ``xr_update_gram`` laid out by those chunks, that of ``mm2_update_gram``
+    taken by ``gram`` on 64-row blocks); the DIA stencil on config 3's 64^3
+    Laplacian; the const-hop kernels on
     config 4's operator with 24 RHS (merged, the (24, 4, ns) view, both slab
     adds); the block stencil on random per-site blocks (16^4 sites, bs = 4,
     k = 24). These checks fold into the records' max_abs_err only."""
@@ -1426,18 +1430,26 @@ def phase_wide_kernels(torch, dev, records) -> None:
               (nbytes(M1, M2) + 4 * fb, 2 * ns * nnz(M1, M2)))
 
     kw, nw = NARROW_CHUNK_K, NARROW_CHUNK_N
-    Mw = [torch.randn((kw, kw), generator=gen, device=dev) / kw ** 0.5 for _ in range(2)]
+    Mw = [torch.randn((kw, kw), generator=gen, device=dev) / kw ** 0.5 for _ in range(3)]
     Fw = [torch.randn((kw, nw), generator=gen, device=dev) for _ in range(4)]
     wb, wg = nbytes(Fw[0]), (kw * kw * 4, 2 * kw * kw * nw)
-    what_w = f"n={nw} k={kw} (32-row launches)"
+
+    def what_w(chunks):
+        return f"n={nw} k={kw} ({len(chunks)} launches of {chunks[0][1]} rows)"
 
     def is_gram_w(w):
         return w.shape == (kw, kw)
-    _timed_check(torch, "mm2_update_gram", what_w,
+    _timed_check(torch, "mm2_update_gram", what_w(fused.mm2_update_gram_plan(kw, dev).chunks),
                  lambda: fused.mm2_update_gram(Mw[0], Fw[0], Mw[1], Fw[1]),
                  lambda: fused.mm2_update_gram_plain(Mw[0], Fw[0], Mw[1], Fw[1]), is_gram_w,
-                 records, work=(nbytes(*Mw) + 3 * wb + wg[0], 4 * kw * kw * nw + wg[1]))
-    _timed_check(torch, "xr_update_gram", what_w, lambda: fused.xr_update_gram(Mw[0], *Fw),
+                 records, work=(nbytes(*Mw[:2]) + 3 * wb + wg[0], 4 * kw * kw * nw + wg[1]))
+    _timed_check(torch, "px_update", what_w(fused.px_update_plan(kw, dev).chunks),
+                 lambda: fused.px_update(Mw[0], Fw[0], Mw[1], Fw[1], Mw[2], Fw[2]),
+                 lambda: fused.px_update_plain(Mw[0], Fw[0], Mw[1], Fw[1], Mw[2], Fw[2]),
+                 is_gram_w, records, work=(nbytes(*Mw) + 5 * wb, 6 * kw * kw * nw))
+    xr_chunks = fused._chunks(kw, 1, True, "xr_update_gram", dev)
+    _timed_check(torch, "xr_update_gram", what_w(xr_chunks),
+                 lambda: fused.xr_update_gram(Mw[0], *Fw),
                  lambda: fused.xr_update_gram_plain(Mw[0], *Fw), is_gram_w, records,
                  work=(nbytes(Mw[0]) + 6 * wb + wg[0], 4 * kw * kw * nw + wg[1]))
     del Mw, Fw

@@ -1047,3 +1047,119 @@ def test_mm_update_repeat_is_bitwise_identical(dev):
     B, A = _field(96, 1 << 16, 311, dev), _field(96, 1 << 16, 312, dev)
     assert torch.equal(fused.mm_update(M, B, A), fused.mm_update(M, B, A))
     assert torch.equal(fused.mm_update(M, B), fused.mm_update(M, B))
+
+
+# ------------------- the streaming mm2_update_gram and px_update (rows 8, 9)
+
+
+def _row89(k, n, seed, dev, offset=0, shape=None):
+    """Coefficients and fields of rows 8 and 9; ``offset`` > 0 makes each
+    field a contiguous view that starts ``offset`` floats into its buffer
+    (not 16-byte aligned), ``shape`` reshapes the fields (the (k, bs, ns)
+    view)."""
+    rng = np.random.default_rng(seed)
+    M1, M2, M3 = (_t(rng.standard_normal((k, k)) / k ** 0.5, dev) for _ in range(3))
+    fields = []
+    for _ in range(3):
+        buf = _t(rng.standard_normal(k * n + offset), dev)
+        F = buf[offset:].view(k, n)
+        fields.append(F if shape is None else F.view(shape))
+    return (M1, M2, M3), fields
+
+
+def _rows89_match_plain(dev, coeffs, fields, donate, launches):
+    M1, M2, M3 = coeffs
+    W, P, X = fields
+    want = fused.mm2_update_gram_plain(M1, W, M2, P)
+    Wd = W.clone() if donate else W
+    _native.reset_launches()
+    Y, G = fused.mm2_update_gram(M1, Wd, M2, P, donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["mm2_update_gram"] == launches
+    assert Y.shape == W.shape and _relmax(Y, want[0]) < 1e-5 and _relfro(G, want[1]) < 1e-5
+    assert (Y.data_ptr() == Wd.data_ptr()) is donate
+    want = fused.px_update_plain(M1, W, M2, P, M3, X)
+    Pd, Xd = (P.clone(), X.clone()) if donate else (P, X)
+    got = fused.px_update(M1, W, M2, Pd, M3, Xd, donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["px_update"] == launches
+    _check_all(got, want)
+    assert [g.data_ptr() == d.data_ptr() for g, d in zip(got, (Pd, Xd))] == [donate] * 2
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 48, 64, 96])
+@pytest.mark.parametrize("n,offset", [
+    (4096, 0),   # whole 16-byte tiles
+    (3001, 0),   # n % 4 != 0: 4-byte copies, a ragged last tile
+    (100, 0),    # a field smaller than one tile
+    (4096, 1),   # an offset view: 4-byte copies on an n % 4 == 0 field
+])
+@pytest.mark.parametrize("donate", [False, True])
+def test_rows89_streaming_kernels_match_plain(dev, k, n, offset, donate):
+    """Rows 8 and 9 in one launch up to 96 rows (the Gram of a launch over
+    64 rows from ``gram``), fresh and written in place, against the plain
+    versions."""
+    coeffs, fields = _row89(k, n, 400 + k, dev, offset)
+    _rows89_match_plain(dev, coeffs, fields, donate, 1)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_rows89_on_the_view_match_plain(dev, donate):
+    k, bs, ns = 32, 4, 1501
+    coeffs, fields = _row89(k, bs * ns, 410, dev, shape=(k, bs, ns))
+    _rows89_match_plain(dev, coeffs, fields, donate, 1)
+
+
+@pytest.mark.parametrize("k", [400, 800])
+@pytest.mark.parametrize("donate", [False, True])
+def test_rows89_wide_fields_run_their_plans(dev, k, donate):
+    """Fields too wide for one launch: the plan's row chunks, each
+    contracting over all rows in several stages, the Gram laid out by the
+    chunks."""
+    coeffs, fields = _row89(k, 700, 420, dev)
+    M1, M2, M3 = coeffs
+    W, P, X = fields
+    plan = fused.mm2_update_gram_plan(k, W.device)
+    want = fused.mm2_update_gram_plain(M1, W, M2, P)
+    _native.reset_launches()
+    got = fused.mm2_update_gram(M1, W.clone() if donate else W, M2, P, donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["mm2_update_gram"] == len(plan.chunks) > 1
+    _check_all(got, want)
+    want = fused.px_update_plain(M1, W, M2, P, M3, X)
+    got = fused.px_update(M1, W, M2, P.clone(), M3, X.clone(), donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["px_update"] == len(fused.px_update_plan(k, W.device).chunks)
+    _check_all(got, want)
+
+
+@pytest.mark.parametrize("k", [32, 48, 96])
+def test_rows89_repeat_is_bitwise_identical(dev, k):
+    coeffs, (W, P, X) = _row89(k, (1 << 16) + 12, 430, dev)
+    M1, M2, M3 = coeffs
+    Y1, G1 = fused.mm2_update_gram(M1, W, M2, P)
+    Y2, G2 = fused.mm2_update_gram(M1, W, M2, P)
+    assert torch.equal(Y1, Y2) and torch.equal(G1, G2)
+    a, b = fused.px_update(M1, W, M2, P, M3, X), fused.px_update(M1, W, M2, P, M3, X)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("case", ["config3", "config4_16", "config4_16_m96"])
+def test_sbcgrq_on_rows89_repeats_bitwise(dev, case):
+    """SBCGrQ on config 3 (64^3, 32 RHS) and on config 4's operator at 16^4
+    sites (12 RHS: m = 48; 24 RHS: m = 96) twice: the same iterations and
+    the same bits."""
+    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch.problems import config3_sbcgrq_3d_64, config4_dirac_32
+
+    if case == "config3":
+        op, k = config3_sbcgrq_3d_64(device=dev)[0], 32
+    else:
+        op, k = config4_dirac_32(L=16, device=dev)[0], 24 if case.endswith("m96") else 12
+    B = _t(np.random.default_rng(440).standard_normal((op.n, k)), dev)
+    _native.reset_launches()
+    X1, i1 = solve_sbcgrq(op, B, tol=1e-6)
+    assert _native.launches["mm2_update_gram"] > 0 and _native.launches["px_update"] > 0
+    X2, i2 = solve_sbcgrq(op, B, tol=1e-6)
+    assert bool(i1.converged.all()) and i1.iterations == i2.iterations
+    assert torch.equal(X1, X2)

@@ -8,8 +8,12 @@ rows; ``ops/fused.py`` ``mm_update_plan`` says when a field runs it and when
 it is written in place. The kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py); here the plans are held to their rules,
 and a numpy emulation of the kernel's windowed schedule is held against the
-f64 oracle. The plain route's ``mm_update`` at m = 96 is held against the
-reference's Pallas kernel in interpret mode (max relative error 1e-5, f32).
+f64 oracle. ``csrc/mm2_update_gram.cu`` and ``csrc/px_update.cu`` stream
+stages of their stacked inputs; ``mm2_update_gram_plan`` and
+``px_update_plan`` pick the row chunks and stage depth under the card's
+shared-memory cap. The plain routes of ``mm_update``, ``mm2_update_gram``
+and ``px_update`` at m = 96 are held against the reference's Pallas kernels
+in interpret mode (max relative error 1e-5, f32).
 """
 
 import re
@@ -177,10 +181,138 @@ def test_mm_update_at_m96_matches_pallas(with_a, donate):
     assert err < 1e-5, err
 
 
+_PLANS = {"mm2_update_gram": (fused.mm2_update_gram_plan, 2, True),
+          "px_update": (fused.px_update_plan, 3, False)}
+
+
+@pytest.mark.parametrize("k", [1, 32, 48, 96, 400, 800])
+@pytest.mark.parametrize("name", sorted(_PLANS))
+def test_update_plans_follow_their_rules(monkeypatch, name, k):
+    """Up to 96 rows one launch (written in place); wider, row chunks of at
+    most 64 rows that cover the field, each contracting over all of it; the
+    stages split the 2k stacked rows evenly, at least 32 rows deep (or all
+    of them); the shared memory (as the kernel counts it) fits the H100's
+    cap for the blocks an SM the plan claims; the fused Gram on a field of
+    up to 64 rows."""
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    make, nmat, gram = _PLANS[name]
+    plan = make(k, torch.device("cpu"))
+    assert plan.T == fused.UPDATE_TILE == 128
+    assert plan.chunks[0][0] == 0 and plan.chunks[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(plan.chunks, plan.chunks[1:]))
+    kout = max(r1 - r0 for r0, r1 in plan.chunks)
+    assert (len(plan.chunks) == 1) is (k <= 96) and plan.in_place is (k <= 96)
+    assert kout <= (fused.UPDATE_MAX_K if k <= 96 else 64)
+    assert plan.fused_gram is (gram and k <= fused.UPDATE_GRAM_MAX_K)
+    assert min(2 * k, fused.UPDATE_MIN_KC) <= plan.kc <= 2 * k
+    stages = -(-2 * k // plan.kc)
+    assert plan.kc == -(-2 * k // stages)
+    assert plan.smem_bytes == fused.update_smem_bytes(kout, k, plan.kc, nmat, plan.fused_gram)
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= H100_SMEM + 1024
+    assert plan.blocks_per_sm <= fused._blocks_per_sm(kout, nmat, plan.fused_gram)
+
+
+@pytest.mark.parametrize("name,k,kc,blocks,smem", [
+    ("mm2_update_gram", 32, 64, 2, 91136),   # one stage a tile, two blocks an SM
+    ("px_update", 32, 64, 2, 77824),
+    ("mm2_update_gram", 48, 96, 1, 142848),  # 64-row Gram tiles: one block an SM
+    ("px_update", 48, 48, 2, 76800),         # two stages a tile leave room for two blocks
+    ("mm2_update_gram", 96, 96, 1, 172032),  # Y alone, its Gram from gram.cu
+    ("px_update", 96, 96, 1, 208896),        # M1, rho and C take 108 KB
+])
+def test_update_plans_of_the_main_paths(monkeypatch, name, k, kc, blocks, smem):
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    plan = _PLANS[name][0](k, torch.device("cpu"))
+    assert (plan.chunks, plan.kc, plan.blocks_per_sm, plan.smem_bytes) == ([(0, k)], kc, blocks,
+                                                                           smem)
+
+
+@pytest.mark.parametrize("name,widest", [("mm2_update_gram", 3616), ("px_update", 2410)])
+def test_update_plans_refuse_a_cap_with_no_room(monkeypatch, name, widest):
+    """The widest field runs 8-row chunks on whatever stage depth fits; one
+    row more, or a small cap, leaves no room and raises."""
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    plan = _PLANS[name][0](widest, torch.device("cpu"))
+    assert max(r1 - r0 for r0, r1 in plan.chunks) <= 8 and plan.kc >= 1
+    with pytest.raises(ValueError, match="no room"):
+        _PLANS[name][0](widest + 1, torch.device("cpu"))
+    monkeypatch.setattr(_native, "max_smem", lambda index: 16 * 1024)
+    with pytest.raises(ValueError, match="no room"):
+        _PLANS[name][0](400, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_symmetric_gram_tiles_cover_every_entry(S):
+    """``SymGram`` (csrc/common.cuh) in numpy: thread pairs p = 0..S(S+1)/2-1
+    decode to tile positions rb <= cb; tile (rb, cb) holds rows rb + S a by
+    columns cb + S b; store() reads entry (r, s) from its own tile or, below
+    the diagonal, from the mirror tile. Every entry of G = Y Y^T comes out
+    right, and G is exactly symmetric."""
+    TS = 4
+    k = S * TS - 1  # one padded row: clamped to k - 1, never stored
+    Y = np.random.default_rng(S).standard_normal((k, 24))
+    tiles = {}
+    for pair in range(S * (S + 1) // 2):
+        p, r = pair, 0
+        while p >= S - r:
+            p -= S - r
+            r += 1
+        rb, cb = r, r + p
+        rows = [min(rb + S * a, k - 1) for a in range(TS)]
+        cols = [min(cb + S * b, k - 1) for b in range(TS)]
+        tiles[pair] = Y[rows] @ Y[cols].T
+    G = np.empty((k, k))
+    for r in range(k):
+        for s_ in range(k):
+            pr, ps, a, b = r % S, s_ % S, r // S, s_ // S
+            if pr > ps:
+                pr, ps, a, b = ps, pr, b, a
+            G[r, s_] = tiles[pr * S - pr * (pr - 1) // 2 + ps - pr][a, b]
+    np.testing.assert_allclose(G, Y @ Y.T, rtol=1e-12, atol=1e-12)
+    assert np.array_equal(G, G.T)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_rows89_at_m96_match_pallas(donate):
+    """``mm2_update_gram`` and ``px_update`` on the plain route at m = 96
+    against the reference's Pallas kernels in interpret mode."""
+    k, n = 96, 512
+    rng = np.random.default_rng(960)
+    M1, M2, M3 = ((rng.standard_normal((k, k)) / k ** 0.5).astype(np.float32) for _ in range(3))
+    W, P, X = (rng.standard_normal((k, n)).astype(np.float32) for _ in range(3))
+    j = [jnp.asarray(a) for a in (M1, W, M2, P, M3, X)]
+    want = [np.asarray(a) for a in (*jfused.mm2_update_gram(*j[:4], interpret=True),
+                                    *jfused.px_update(*j, interpret=True))]
+    t = [torch.from_numpy(a.copy()) for a in (M1, W, M2, P, M3, X)]
+    Y, G = fused.mm2_update_gram(t[0], t[1], t[2], t[3], donate=donate)
+    assert (Y.data_ptr() == t[1].data_ptr()) is donate
+    W2, P2, X2 = (torch.from_numpy(a.copy()) for a in (W, P, X))
+    Pn, Xn = fused.px_update(t[0], W2, t[2], P2, t[4], X2, donate=donate)
+    assert (Pn.data_ptr() == P2.data_ptr()) is donate and (Xn.data_ptr() == X2.data_ptr()) is donate
+    for got, w in zip((Y, G, Pn, Xn), want):
+        err = np.abs(got.numpy().astype(np.float64) - w).max() / np.abs(w).max()
+        assert err < 1e-5, err
+
+
 def test_host_constants_mirror_the_sources():
     """The wrappers' widths and budget formula are the kernels' own."""
     mm = (CSRC / "mm_update.cu").read_text()
     assert int(re.search(r"kMmMaxK = (\d+)", mm).group(1)) == fused.MM_UPDATE_MAX_K
+    common = (CSRC / "common.cuh").read_text()
+    assert int(re.search(r"kUpTile = (\d+)", common).group(1)) == fused.UPDATE_TILE
+    assert int(re.search(r"kUpStages = (\d+)", common).group(1)) == fused.UPDATE_STAGES
+    assert "kUpLd = kUpTile + 8;" in common and fused.UPDATE_LD == fused.UPDATE_TILE + 8
+    assert "widths[] = {1, 2, 4, 6, 8, 12, 16};" in common
+    assert fused._UPDATE_WIDTHS == (1, 2, 4, 6, 8, 12, 16)
+    assert ("nmat * kin * rp + 1LL * kUpStages * kc * kUpTile + (gram ? 1LL * k * kUpLd : 0)"
+            in common)
+    assert "1LL * kUpThreads * (k > 32 ? 64 : 16)" in common
+    mm2 = (CSRC / "mm2_update_gram.cu").read_text()
+    assert "kMm2BlocksPerSm = GK > 0 && GK <= 32 ? 2 : 1;" in mm2
+    assert "update_smem_floats(k, kin, kc, 2, GK > 0)" in mm2
+    px = (CSRC / "px_update.cu").read_text()
+    assert "kPxBlocksPerSm = R <= 8 ? 2 : 1;" in px
+    assert "update_smem_floats(k, kin, kc, 3, false)" in px
     st = (CSRC / "stencil.cu").read_text()
     assert int(re.search(r"kMaxDiags = (\d+)", st).group(1)) == stencil.MAX_DIAGS
     assert "return T + 2 * h + (k <= 32 ? 4 : 0);" in st

@@ -59,6 +59,8 @@ def test_profile_summary_of_trace_events():
     ("void (anonymous namespace)::cheb_step_vec(float4 const*, float4 const*)", True),
     ("void (anonymous namespace)::cheb_step_scalar(float const*, float const*)", True),
     ("void (anonymous namespace)::mm_update_kernel<4, false>(float const*, float const*)", True),
+    ("void (anonymous namespace)::mm2_update_gram_kernel<4, 32, 2>(float const*)", True),
+    ("void (anonymous namespace)::px_update_kernel<4>(float const*, float const*)", True),
     ("void at::native::vectorized_elementwise_kernel<4>", False),
 ])
 def test_profile_port_kernel_names(name, port):

@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
 """Device time of the DIA stencil (rows 1 and 2 of PERF.md's kernel table),
-the Gram (row 5) and ``mm_update`` (row 6) from torch.profiler's kernel
-records, at the shapes of the north star (32, 128^3) and config 3 (32,
-64^3), and ``mm_update`` at config 4's (48, 32^4) and at (96, 32^4).
-Beside them, the one PyTorch call that computes the same function, where
-there is one (``U @ V.T``, ``M @ B``).
+the Gram (row 5), ``mm_update`` (row 6), ``mm2_update_gram`` (row 8) and
+``px_update`` (row 9) from torch.profiler's kernel records, at the shapes of
+the north star (32, 128^3) and config 3 (32, 64^3), rows 6, 8 and 9 at
+config 4's (48, 32^4) and at (96, 32^4), and rows 8 and 9 at (800, 2^16). Beside them, the one PyTorch call
+that computes the same function, where there is one (``U @ V.T``,
+``M @ B``).
 
 Run on a machine with a card, from the root of a checkout:
 
-    python3 tools/torch_kernel_times.py [--root DIR] [--reps 50] [--library | --sweep]
+    python3 tools/torch_kernel_times.py [--root DIR] [--reps 50] [--library | --sweep | --variants]
 
 ``--root`` imports ``blockcg_tpu_torch`` from another checkout (its kernels
 build there), so two commits compare in one call: parent, change, change,
 parent. ``--sweep`` times the stencil of this checkout at each window halo
 and tile width that fits in shared memory, marking the one its plan picks.
+``--variants`` times row 8 beside other builds of its kernel (without the
+Gram; one or three blocks an SM; other stage depths) and row 9 at other
+stage depths.
 One JSON line per case: device us per call (all of the call's
-kernels, the Gram's second stage included) and host us per call (wall time
-of the timed calls over their count, ending in a synchronize). The inputs
-come from a fixed seed; L2 is not flushed between calls (the fields are
-268-805 MB, far above the 50 MB L2).
+kernels, the Gram's second stage included), host us per call (wall time
+of the timed calls over their count, ending in a synchronize) and a
+checksum of the bytes of each of the call's outputs, so two checkouts show whether
+a kernel kept its bits. The inputs come from a fixed seed; L2 is not
+flushed between calls (the fields are 268-805 MB, far above the 50 MB L2).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import tempfile
@@ -56,6 +62,13 @@ def host_us(torch, fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e6 / reps
 
 
+def checksums(torch, out) -> list[str]:
+    """sha256 (first 16 hex digits) of the bytes of each of a call's output
+    tensors, in order."""
+    return [hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+            for t in (out if isinstance(out, tuple) else (out,)) if isinstance(t, torch.Tensor)]
+
+
 def cases(torch, dev, library: bool):
     """(name, fn) of each timed call; the library calls when ``library``."""
     from blockcg_tpu_torch.ops import fused, stencil
@@ -65,8 +78,9 @@ def cases(torch, dev, library: bool):
     for edge in (128, 64):
         op = laplacian_dia((edge,) * 3, device=dev)
         n = op.n
-        X, V = (torch.randn((32, n), generator=gen, device=dev) for _ in range(2))
-        M = torch.randn((32, 32), generator=gen, device=dev) / 32 ** 0.5
+        X, V, Z = (torch.randn((32, n), generator=gen, device=dev) for _ in range(3))
+        M, M2, M3 = (torch.randn((32, 32), generator=gen, device=dev) / 32 ** 0.5
+                     for _ in range(3))
         what = f"(32, {edge}^3)"
         if library:
             yield f"library U @ V.T {what}", lambda X=X, V=V: X @ V.T
@@ -78,17 +92,33 @@ def cases(torch, dev, library: bool):
                lambda op=op, X=X: stencil.stencil_spmm_gram_t(op.diags, op.offsets, X))
         yield f"row 5 gram {what}", lambda X=X, V=V: fused.gram(X, V)
         yield f"row 6 mm_update {what}", lambda M=M, X=X: fused.mm_update(M, X)
-        del op, X, V
+        yield from rows89(fused, what, M, M2, M3, X, V, Z)
+        del op, X, V, Z
     ns = 32 ** 4
     for m in (48, 96):
-        B = torch.randn((m, ns), generator=gen, device=dev)
-        M = torch.randn((m, m), generator=gen, device=dev) / m ** 0.5
+        B, V, Z = (torch.randn((m, ns), generator=gen, device=dev) for _ in range(3))
+        M, M2, M3 = (torch.randn((m, m), generator=gen, device=dev) / m ** 0.5
+                     for _ in range(3))
         what = f"({m}, 32^4)"
         if library:
             yield f"library M @ B {what}", lambda M=M, B=B: M @ B
         else:
             yield f"row 6 mm_update {what}", lambda M=M, B=B: fused.mm_update(M, B)
-        del B
+            yield from rows89(fused, what, M, M2, M3, B, V, Z)
+        del B, V, Z
+    if not library:  # fields too wide for one launch: row chunks, the Gram from gram
+        k, n = 800, 1 << 16
+        W, P, X = (torch.randn((k, n), generator=gen, device=dev) for _ in range(3))
+        M, M2, M3 = (torch.randn((k, k), generator=gen, device=dev) / k ** 0.5 for _ in range(3))
+        yield from rows89(fused, f"({k}, 2^16)", M, M2, M3, W, P, X)
+
+
+def rows89(fused, what, M1, M2, M3, W, P, X):
+    """Rows 8 and 9 on fresh outputs: Y = M1 W + M2 P with its Gram, and
+    (Pn = M1 W + M2 P, Xn = X + M3 P)."""
+    yield (f"row 8 mm2_update_gram {what}",
+           lambda: fused.mm2_update_gram(M1, W, M2, P))
+    yield f"row 9 px_update {what}", lambda: fused.px_update(M1, W, M2, P, M3, X)
 
 
 def sweep_cases(torch, dev):
@@ -129,6 +159,89 @@ def sweep_cases(torch, dev):
         del op, X, Y
 
 
+# Builds of row 8's kernel at 17-32 rows (csrc/mm2_update_gram.cu launch<R,
+# GK, MINB>), exported by a probe that includes the source: which = 0, Y
+# without its Gram; 1, with the Gram, built for one block an SM (no register
+# cap); 3, built for three; 2, the kernel as built; each on the stage depth
+# kc given.
+VARIANT_PROBE = r"""#include "{src}"
+extern "C" int variant_mm2(const float* M1, const float* B1, const float* M2, const float* B2,
+                           float* Y, float* part, float* G, int k, long long n, int kc,
+                           int which, int max_blocks, int device, cudaStream_t stream) {{
+  if (k < 17 || k > 32) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (which) {{
+    case 0: return launch<4, 0>(M1, B1, M2, B2, Y, nullptr, nullptr, k, k, n, kc, max_blocks,
+                                device, stream);
+    case 1: return launch<4, 32, 1>(M1, B1, M2, B2, Y, part, G, k, k, n, kc, max_blocks, device,
+                                    stream);
+    case 3: return launch<4, 32, 3>(M1, B1, M2, B2, Y, part, G, k, k, n, kc, max_blocks, device,
+                                    stream);
+    default: return launch<4, 32>(M1, B1, M2, B2, Y, part, G, k, k, n, kc, max_blocks, device,
+                                  stream);
+  }}
+}}
+"""
+VARIANTS = (("Y without its Gram", 0, None), ("one block an SM, no register cap", 1, None),
+            ("kc = 32", 2, 32), ("three blocks an SM, kc = 32", 3, 32))
+PX_KC = (32,)  # row 9 at these stage depths beside the plan's
+
+
+def variant_cases(torch, dev, tmp: Path):
+    """Row 8 at (32, 128^3) and (32, 64^3) beside the builds above, on the
+    plan's stage depth unless a variant names its own, built from this
+    checkout's source; row 9 beside launches at the depths ``PX_KC``."""
+    import ctypes
+    import subprocess
+
+    from blockcg_tpu_torch.ops import _native, fused
+
+    probe = tmp / "variant.cu"
+    probe.write_text(VARIANT_PROBE.format(src=_native.CSRC / "mm2_update_gram.cu"))
+    lib = tmp / "libvariant.so"
+    built = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-shared", str(probe), "-o",
+                            str(lib)], capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the variant probe:\n{built.stdout}{built.stderr}")
+    fn = ctypes.CDLL(str(lib)).variant_mm2
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes, fn.restype = [P, P, P, P, P, P, P, I, L, I, I, I, I, P], I
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for edge in (128, 64):
+        n = edge ** 3
+        W, P_ = (torch.randn((32, n), generator=gen, device=dev) for _ in range(2))
+        M1, M2 = (torch.randn((32, 32), generator=gen, device=dev) / 32 ** 0.5 for _ in range(2))
+        Y, G = torch.empty_like(W), torch.empty((32, 32), device=dev)
+        nb = _native.nblocks(n)
+        part = torch.empty((nb, 32, 32), device=dev)
+        plan_kc = fused.mm2_update_gram_plan(32, dev).kc
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(which, kc, M1=M1, W=W, M2=M2, P_=P_, Y=Y, G=G, part=part, n=n, nb=nb):
+            rc = fn(M1.data_ptr(), W.data_ptr(), M2.data_ptr(), P_.data_ptr(), Y.data_ptr(),
+                    part.data_ptr(), G.data_ptr(), 32, n, kc, which, nb, dev.index, stream)
+            if rc != 0:
+                raise RuntimeError(f"variant launch failed: {rc}")
+            return (Y, G) if which else Y
+        yield f"row 8 mm2_update_gram (32, {edge}^3)", lambda: fused.mm2_update_gram(M1, W, M2, P_)
+        for label, which, kc in VARIANTS:
+            yield (f"variant row 8, {label} (32, {edge}^3)",
+                   lambda which=which, kc=kc or plan_kc: run(which, kc))
+        X, M3 = torch.randn_like(W), M2.T.contiguous()
+        Pn, Xn = torch.empty_like(W), torch.empty_like(W)
+
+        def px(kc, M1=M1, W=W, M2=M2, P_=P_, M3=M3, X=X, Pn=Pn, Xn=Xn, n=n):
+            p = _native.ptr
+            _native.launch("px_update", "bcg_px_update", dev, p(M1), p(W), p(M2), p(P_), p(M3),
+                           p(X), p(Pn), p(Xn), 32, 32, n, kc)
+            return Pn, Xn
+        yield f"row 9 px_update (32, {edge}^3)", lambda: fused.px_update(M1, W, M2, P_, M3, X)
+        for kc in PX_KC:
+            yield f"variant row 9, kc = {kc} (32, {edge}^3)", lambda kc=kc: px(kc)
+        del W, P_, Y, X, Pn, Xn
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
@@ -138,6 +251,8 @@ def main() -> None:
                     help="time the PyTorch library calls instead of the port's kernels")
     ap.add_argument("--sweep", action="store_true",
                     help="time the stencil at each halo and tile width that fits")
+    ap.add_argument("--variants", action="store_true",
+                    help="time row 8 beside other builds of its kernel (probe builds)")
     args = ap.parse_args()
     import torch
 
@@ -148,13 +263,19 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        for name, fn in (sweep_cases(torch, dev) if args.sweep
-                         else cases(torch, dev, args.library)):
-            for _ in range(3):
+        todo = (sweep_cases(torch, dev) if args.sweep
+                else variant_cases(torch, dev, Path(tmp)) if args.variants
+                else cases(torch, dev, args.library))
+        for name, fn in todo:
+            for _ in range(2):
                 fn()
+            out = fn()
+            torch.cuda.synchronize()
             print(json.dumps({"root": args.root, "case": name,
                               "device_us": device_us(torch, fn, args.reps, Path(tmp)),
-                              "host_us": host_us(torch, fn, args.reps)}), flush=True)
+                              "host_us": host_us(torch, fn, args.reps),
+                              "checksums": checksums(torch, out)}), flush=True)
+            del out
 
 
 if __name__ == "__main__":
