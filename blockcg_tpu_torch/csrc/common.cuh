@@ -2,7 +2,7 @@
 // column loads, the k x k coefficient apply, the per-block Gram tiles
 // (GramTile, and VecGram of the streaming kernels), the deterministic
 // second-stage reduction of the Gram partials, and the cp.async pieces of the
-// streaming kernels (stencil.cu, mm_update.cu, mm2_update_gram.cu,
+// streaming kernels (stencil.cu, mm_update.cu, update_gram.cuh,
 // px_update.cu).
 //
 // Layout: every field is lanes-major (k, n) float32, row r of column i at
@@ -376,7 +376,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
-// ---- the streaming coefficient updates (mm_update.cu, mm2_update_gram.cu,
+// ---- the streaming coefficient updates (mm_update.cu, update_gram.cuh,
 // px_update.cu). A persistent grid of kUpThreads-thread blocks walks
 // kUpTile-column tiles; warp w owns output rows w*R .. w*R+R-1 and lane l
 // columns 4l .. 4l+3, so global accesses are 16 bytes a thread and shared
@@ -452,21 +452,22 @@ struct StageCursor {
   }
 };
 
-// Copy the stage at `at` of the stacked field [A; B] into s (nothing past the
-// last tile) and commit it as one cp.async group, empty or not, so that
-// cp_async_wait<kUpStages - 1> always finds the stage kUpStages - 1 back.
+// Copy the stage at `at` of the stacked field [A; B] (nin = kin stacked rows:
+// A alone; 2 kin: A then B) into s (nothing past the last tile) and commit it
+// as one cp.async group, empty or not, so that cp_async_wait<kUpStages - 1>
+// always finds the stage kUpStages - 1 back.
 __device__ __forceinline__ void load_stage(float* s, const float* A, const float* B, int kin,
-                                           long long n, StageCursor at, int kc,
+                                           int nin, long long n, StageCursor at, int kc,
                                            long long ntiles, bool vec) {
   if (at.t < ntiles)
-    load_stacked(s, A, B, kin, n, at.t * kUpTile, at.j * kc, min(kc, 2 * kin - at.j * kc), vec);
+    load_stacked(s, A, B, kin, n, at.t * kUpTile, at.j * kc, min(kc, nin - at.j * kc), vec);
   cp_async_commit();
 }
 
 // Shared floats of a streaming update launch: nmat coefficient tables of kin
 // columns by 8R rows, kUpStages (kc, kUpTile) input buffers and, with the
 // Gram, the (k, kUpLd) Y tile, at least the Gram's end-of-kernel scratch
-// (mm2_update_gram.cu's SymGram::kScratch <= kUpThreads x TS^2 floats: TS = 8
+// (update_gram.cuh's SymGram::kScratch <= kUpThreads x TS^2 floats: TS = 8
 // above 32 rows, 4 up to 32). Mirrored by ops/fused.py update_smem_bytes.
 inline long long update_smem_floats(int k, int kin, int kc, int nmat, bool gram) {
   const long long rp = 8LL * rows_per_warp(k);

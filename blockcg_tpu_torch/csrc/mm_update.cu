@@ -1,8 +1,8 @@
 // Y = M B (+ A) on lanes-major (k, n) fields, k <= 128, in one launch.
 //
 // Replaces the Pallas kernel blockcg_tpu/ops/fused.py mm_update. Wider fields
-// (k > 128) run the row-chunked coeff_update of fused_update.cu
-// (ops/fused.py).
+// (k > 128) run row chunks of update_gram.cuh's kernel without its Gram
+// (mm_update_gram.cu; ops/fused.py).
 //
 // Bound: bytes. B is read once and Y written once (A read once too): at
 // (32, 2,097,152) that is 537 MB, 0.16 ms at 3.35 TB/s, against 4.3 GFLOP,
@@ -28,7 +28,8 @@
 //
 // Arithmetic: y_r = sum over c = 0..k-1 in order of fmaf(M[r, c], B[c, i], .),
 // then + A[r, i]: f32 FMA only, the same order on every call, and the same
-// order as coeff_update's.
+// order as update_gram.cuh's (so the row chunks above 128 rows give the
+// bits a launch of this kernel would).
 //
 // In place: Y may be B or A (the solvers' donated operand). A block copies
 // its whole input tile into shared memory before it writes the tile's

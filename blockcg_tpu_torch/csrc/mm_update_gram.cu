@@ -1,0 +1,23 @@
+// Y = M B (+ A) on lanes-major (k, n) fields, with the Gram G = Y Y^T of the
+// stored Y, in one pass over B; without the Gram (G == nullptr), also the
+// row chunks of mm_update above 128 rows.
+//
+// Replaces the Pallas kernel blockcg_tpu/ops/fused.py mm_update_gram. The
+// kernel is update_gram.cuh's streaming update on one input field, A added in
+// each tile's epilogue (its design, bound and arithmetic are described
+// there).
+#include "update_gram.cuh"
+
+// Y (k, n) = M B (+ A) with M k x kin (row stride kin), B (kin, n), A (k, n)
+// or nullptr; G (k x k) = Y Y^T when G != nullptr (k <= 96), part then holds
+// (max_blocks, k, k) and the launch uses at most max_blocks blocks. kc: input
+// rows a stage copies (ops/fused.py update_plan). Y may equal B when k ==
+// kin, or A.
+extern "C" int bcg_mm_update_gram(const float* M, const float* B, const float* A, float* Y,
+                                  float* part, float* G, int k, int kin, long long n, int kc,
+                                  int max_blocks, int device, cudaStream_t stream) {
+  return A ? dispatch<1, true>(M, B, nullptr, nullptr, A, Y, part, G, k, kin, n, kc,
+                               max_blocks, device, stream)
+           : dispatch<1, false>(M, B, nullptr, nullptr, nullptr, Y, part, G, k, kin, n, kc,
+                                max_blocks, device, stream);
+}

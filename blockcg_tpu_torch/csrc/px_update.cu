@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
   const long long ntiles = (n + kUpTile - 1) / kUpTile;
   StageCursor cur{blockIdx.x, 0}, ahead = cur;
   for (int s = 0; s < kUpStages; ++s, ahead.next(nk))
-    load_stage(sB + s * kc * kUpTile, W, P, kin, n, ahead, kc, ntiles, vec);
+    load_stage(sB + s * kc * kUpTile, W, P, kin, nin, n, ahead, kc, ntiles, vec);
   int buf = 0;
   float pn[R][4], xn[R][4];
   while (cur.t < ntiles) {
@@ -159,7 +159,7 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
       }
     }
     __syncthreads();  // every read of this stage's buffer is done: refill it
-    load_stage(sB + buf * kc * kUpTile, W, P, kin, n, ahead, kc, ntiles, vec);
+    load_stage(sB + buf * kc * kUpTile, W, P, kin, nin, n, ahead, kc, ntiles, vec);
     ahead.next(nk);
     buf = (buf + 1) % kUpStages;
     cur.next(nk);

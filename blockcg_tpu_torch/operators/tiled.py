@@ -48,6 +48,7 @@ class TiledOperator(MatmatMixin, nn.Module):
         self.n0 = self.n if n0 is None else int(n0)
         self.nnz_logical = nnz_logical
         self._iperm = None
+        self._plans = {}
 
     @property
     def T(self) -> int:
@@ -176,10 +177,20 @@ class TiledOperator(MatmatMixin, nn.Module):
             a = sp.block_diag([a, sp.eye(self.n - a.shape[0])], format="csr")
         return a
 
+    def tiled_plan(self, k: int) -> "spmm_tiled.TiledPlan":
+        """The kernel's schedule for a launch of k rows of X
+        (``spmm_tiled.tiled_plan``), computed once per width, device and
+        tile dtype and kept."""
+        key = (k, self.row_ptr.device, self.tiles.dtype)
+        if key not in self._plans:
+            self._plans[key] = spmm_tiled.tiled_plan(self.row_ptr, k, self.row_ptr.device,
+                                                     self.tiles.dtype)
+        return self._plans[key]
+
     def matmat_t(self, Xt: torch.Tensor) -> torch.Tensor:
         """(k, n) lanes-major apply in the internal order."""
         return spmm_tiled.tiled_spmm_t(self.tiles, self.rt, self.ct, self.first,
-                                       Xt.contiguous(), self.row_ptr)
+                                       Xt.contiguous(), self.row_ptr, self.tiled_plan)
 
     def extra_repr(self) -> str:
         return (f"n={self.n}, n0={self.n0}, ntiles={self.ntiles}, fill={self.fill:.4f}, "

@@ -188,7 +188,7 @@ def library() -> ctypes.CDLL:
                                      P, P, I, L, I, I, I, I, P]
     lib.bcg_mm_update.argtypes = [P, P, P, P, I, L, I, P]
     lib.bcg_gram.argtypes = [P, P, P, P, I, I, L, I, I, P]
-    lib.bcg_coeff_update.argtypes = [P, P, P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_mm_update_gram.argtypes = [P, P, P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_mm2_update_gram.argtypes = [P, P, P, P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, I, L, I, I, P]
     lib.bcg_xr_update_gram.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, P]
@@ -203,14 +203,17 @@ def library() -> ctypes.CDLL:
                                            P, P, P, I, I, L, I, I, I, P]
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
-    lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, P, I, I, L, I, P]
+    lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, I, P, P, I, I, L, I, I, I, I, P]
     for fn in (lib.bcg_stencil_spmm, lib.bcg_mm_update, lib.bcg_gram,
-               lib.bcg_coeff_update, lib.bcg_mm2_update_gram, lib.bcg_px_update,
+               lib.bcg_mm_update_gram, lib.bcg_mm2_update_gram,
+               lib.bcg_px_update,
                lib.bcg_xr_update_gram,
                lib.bcg_qr_p_update, lib.bcg_qr_px_update, lib.bcg_cbs_spmm,
                lib.bcg_slab_accumulate, lib.bcg_block_stencil_spmm, lib.bcg_cheb_step,
                lib.bcg_tiled_spmm):
         fn.restype = I
+    lib.bcg_tiled_spmm_blocks_per_sm.argtypes = [I, I, I, I, I, I]
+    lib.bcg_tiled_spmm_blocks_per_sm.restype = I
     lib.bcg_error_string.argtypes = [I]
     lib.bcg_error_string.restype = ctypes.c_char_p
     lib.bcg_max_smem.argtypes = [I]

@@ -4,7 +4,7 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
 
 - ``gram(U, V)``                      G = U V^T            (``csrc/gram.cu``)
 - ``mm_update(M, B, A)``              Y = M B (+ A)        (``csrc/mm_update.cu``)
-- ``mm_update_gram(M, B, A)``         Y = M B (+ A), G = Y Y^T (``csrc/fused_update.cu``)
+- ``mm_update_gram(M, B, A)``         Y = M B (+ A), G = Y Y^T (``csrc/mm_update_gram.cu``)
 - ``mm2_update_gram(M1, B1, M2, B2)`` Y = M1 B1 + M2 B2, G = Y Y^T
                                                            (``csrc/mm2_update_gram.cu``)
 - ``px_update(M1, W, rho, P, C, X)``  Pn = M1 W + rho P, Xn = X + C P
@@ -47,12 +47,13 @@ the same chunks. A donated output whose chunks read rows that an earlier
 chunk would overwrite is written to a fresh buffer first and copied over. A
 field of at most 64 rows is one launch, as it always was.
 
-``mm_update``, ``mm2_update_gram`` and ``px_update`` run streaming kernels
-that stage their input tiles in shared memory and split the output rows
-across warps (``csrc/mm_update.cu``, ``mm2_update_gram.cu``,
-``px_update.cu``): one launch reads the inputs once up to 96 rows (128 for
-``mm_update``), so a donated operand takes its output in place
-(``mm_update_plan``, ``mm2_update_gram_plan``, ``px_update_plan``).
+``mm_update``, ``mm_update_gram``, ``mm2_update_gram`` and ``px_update`` run
+streaming kernels that stage their input tiles in shared memory and split
+the output rows across warps (``csrc/mm_update.cu``, ``update_gram.cuh``
+through ``mm_update_gram.cu`` and ``mm2_update_gram.cu``, ``px_update.cu``):
+one launch reads the inputs once up to 96 rows (128 where they fit), so a
+donated operand takes its output in place (``mm_update_plan``,
+``mm_update_gram_plan``, ``mm2_update_gram_plan``, ``px_update_plan``).
 """
 
 from __future__ import annotations
@@ -162,19 +163,21 @@ def mm_update_plan(k: int, donate: str | None, device) -> tuple[list[tuple[int, 
     """(row chunks, written in place) of ``mm_update`` on k rows. Up to 128
     rows: one launch of ``csrc/mm_update.cu``, which reads B once, so a
     donated B or A takes Y in place. Wider: the row chunks of
-    ``coeff_update`` (``_chunks``), each reading all of B, so a donated B
+    ``mm_update_gram_plan``, on the same kernel without its Gram
+    (``csrc/mm_update_gram.cu``), each reading all of B, so a donated B
     waits in a fresh buffer for the last chunk (a donated A does not: a
     chunk reads only its own rows of A)."""
     if k <= MM_UPDATE_MAX_K:
         return [(0, k)], True
-    chunks = _chunks(k, 1, False, "mm_update", device)
+    chunks = mm_update_gram_plan(k, device).chunks
     return chunks, len(chunks) == 1 or donate != "b"
 
 
 UPDATE_TILE = 128  # csrc/common.cuh kUpTile: columns a tile of the streaming updates
 UPDATE_LD = UPDATE_TILE + 8  # csrc/common.cuh kUpLd: row stride of the staged Y tile
 UPDATE_MAX_K = 128  # output rows of one streaming launch: 8 warps x 16
-UPDATE_GRAM_MAX_K = 64  # rows whose Gram a launch of mm2_update_gram.cu takes (SymGram)
+UPDATE_GRAM_MAX_K = 64  # rows whose Gram a launch of update_gram.cuh takes on two fields
+UPDATE_GRAM_MAX_K_ONE = 96  # ... on one field (row 7; SymGram's 8x8 tiles at 96)
 UPDATE_STAGES = 2  # csrc/common.cuh kUpStages: input stages in shared memory
 UPDATE_MIN_KC = 32  # fewest stacked input rows a stage copies, short of all of them
 _UPDATE_WIDTHS = (1, 2, 4, 6, 8, 12, 16)  # csrc/common.cuh rows_per_warp
@@ -188,8 +191,9 @@ def rows_per_warp(k: int) -> int:
 def update_smem_bytes(k: int, kin: int, kc: int, nmat: int, gram: bool) -> int:
     """Shared bytes of one streaming launch (``csrc/common.cuh``
     update_smem_floats): ``nmat`` coefficient tables of kin columns by 8R
-    rows, two (kc, 128) input stages and, with the Gram, the (k, 136) Y
-    tile, at least the Gram's end-of-kernel scratch."""
+    rows, two (kc, 128) input stages (kc of the stacked input rows) and,
+    with the Gram, the (k, 136) Y tile, at least the Gram's end-of-kernel
+    scratch."""
     f = nmat * kin * 8 * rows_per_warp(k) + UPDATE_STAGES * kc * UPDATE_TILE
     if gram:
         f = max(f + k * UPDATE_LD, 256 * (64 if k > 32 else 16))
@@ -197,14 +201,15 @@ def update_smem_bytes(k: int, kin: int, kc: int, nmat: int, gram: bool) -> int:
 
 
 class UpdatePlan(NamedTuple):
-    """The launches of a streaming update of k rows (``mm2_update_gram``,
-    ``px_update``): the output row ``chunks``, one launch each, every one
-    contracting over all k rows of both input fields; the tile width ``T``;
-    ``kc``, the stacked input rows a pipeline stage copies (2k: one stage a
-    tile); whether a donated operand is written ``in_place`` (one launch: it
-    reads all its inputs before it writes); whether the launch takes the Gram
-    (``fused_gram``; else ``wide_gram`` does); the launch's shared bytes;
-    and the blocks an SM they leave room for."""
+    """The launches of a streaming update of k rows (``mm_update_gram``,
+    ``mm2_update_gram``, ``px_update``): the output row ``chunks``, one
+    launch each, every one contracting over all k rows of each input field;
+    the tile width ``T``; ``kc``, the stacked input rows a pipeline stage
+    copies (all of them, k a field: one stage a tile); whether a donated
+    operand is written ``in_place`` (one launch: it reads all its inputs
+    before it writes); whether the launch takes the Gram (``fused_gram``;
+    else ``wide_gram`` does); the launch's shared bytes; and the blocks an SM
+    they leave room for."""
     chunks: list[tuple[int, int]]
     T: int
     kc: int
@@ -216,44 +221,58 @@ class UpdatePlan(NamedTuple):
 
 def _blocks_per_sm(kout: int, nmat: int, fused: bool) -> int:
     """Blocks an SM a launch of kout rows is built for (the kernels'
-    ``__launch_bounds__``: csrc/mm2_update_gram.cu kMm2BlocksPerSm, csrc/
-    px_update.cu kPxBlocksPerSm): two where registers allow, else one."""
-    if nmat == 2:
+    ``__launch_bounds__``: csrc/update_gram.cuh kUgBlocksPerSm for the one or
+    two coefficient tables of rows 7 and 8, csrc/px_update.cu kPxBlocksPerSm
+    for row 9's three): two where registers allow, else one."""
+    if nmat <= 2:
         return 2 if fused and kout <= 32 else 1
     return 2 if kout <= 64 else 1
 
 
 @functools.lru_cache(maxsize=64)
-def _update_plan(name: str, k: int, nmat: int, gram: bool, cap: int) -> UpdatePlan:
-    """Up to 128 rows one launch, if its coefficients leave room for stages of
-    at least ``UPDATE_MIN_KC`` rows (or all 2k); wider, the widest row chunks
-    (64, 32, 16 or 8 rows) that do; failing those, 8-row chunks on any
-    stage depth that fits. Stages are as deep as the shared memory
-    of the blocks an SM the kernel is built for allows (two blocks share the
-    SM's cap + 1 KB, less 1 KB a block), or of one block where two leave no
-    such room; cut into equal parts of the 2k stacked rows. The launch takes
-    the Gram up to 64 rows (one launch); wider, ``gram`` takes it on
-    64-row blocks (narrow chunks' diagonal blocks would need as many more
-    cross-block launches)."""
+def _update_plan(name: str, k: int, nfield: int, nmat: int, gram_rows: int,
+                 cap: int) -> UpdatePlan:
+    """Plan of an update that stacks ``nfield`` input fields of k rows and
+    stages ``nmat`` coefficient tables, with its Gram fused on a launch of up
+    to ``gram_rows`` rows (0: no Gram). Up to 128 rows one launch, if its
+    coefficients leave room for stages of at least ``UPDATE_MIN_KC`` rows (or
+    all nfield k); wider, the widest row chunks (64, 32, 16 or 8 rows) that
+    do; failing those, 8-row chunks on any stage depth that fits. Stages are
+    as deep as the shared memory of the blocks an SM the kernel is built for
+    allows (two blocks share the SM's cap + 1 KB, less 1 KB a block), or of
+    one block where two leave no such room; cut into equal parts of the
+    nfield k stacked rows. The launch takes the Gram up to ``gram_rows`` (one
+    launch); wider, ``gram`` takes it on 64-row blocks (narrow chunks'
+    diagonal blocks would need as many more cross-block launches)."""
+    nin = nfield * k
     widths = ([k] if k <= UPDATE_MAX_K else []) + [w for w in (64, 32, 16, 8) if w < k]
     for w, min_kc in [(w, UPDATE_MIN_KC) for w in widths] + [(8, 1)]:
         chunks = _native.row_chunks(k, w)
         kout = max(r1 - r0 for r0, r1 in chunks)
-        fused = gram and k <= UPDATE_GRAM_MAX_K
+        fused = k <= gram_rows
         # Bytes besides the stages (the Gram's scratch floor lies below any
         # room a plan is made for).
         fixed = update_smem_bytes(kout, k, 0, nmat, False) + fused * 4 * kout * UPDATE_LD
         for blocks in range(_blocks_per_sm(kout, nmat, fused), 0, -1):
             room = (cap + 1024) // blocks - 1024
             deepest = (room - fixed) // (UPDATE_STAGES * UPDATE_TILE * 4)
-            if deepest < min(2 * k, min_kc):
+            if deepest < min(nin, min_kc):
                 continue
-            stages = -(-2 * k // min(deepest, 2 * k))
-            kc = -(-2 * k // stages)
+            stages = -(-nin // min(deepest, nin))
+            kc = -(-nin // stages)
             return UpdatePlan(chunks, UPDATE_TILE, kc, len(chunks) == 1, fused,
                               update_smem_bytes(kout, k, kc, nmat, fused), blocks)
     raise ValueError(f"{name}: {k} right-hand sides leave no room for the "
                      f"coefficients in {cap} bytes of shared memory")
+
+
+def mm_update_gram_plan(k: int, device) -> UpdatePlan:
+    """The launches of ``mm_update_gram`` on k rows (``csrc/mm_update_gram.cu``):
+    up to 128 rows one launch, which reads B once, with the fused Gram up to
+    96 rows; wider, row chunks of Y; above 96 rows the Gram comes from
+    ``wide_gram``. A donated B takes Y in place on one launch."""
+    return _update_plan("mm_update_gram", k, 1, 1, UPDATE_GRAM_MAX_K_ONE,
+                        _native.max_smem(device.index))
 
 
 def mm2_update_gram_plan(k: int, device) -> UpdatePlan:
@@ -262,7 +281,8 @@ def mm2_update_gram_plan(k: int, device) -> UpdatePlan:
     they fit) one launch of Y; wider, row chunks of Y; above 64 rows the
     Gram comes from ``wide_gram``. A donated B1 takes Y in place on one
     launch."""
-    return _update_plan("mm2_update_gram", k, 2, True, _native.max_smem(device.index))
+    return _update_plan("mm2_update_gram", k, 2, 2, UPDATE_GRAM_MAX_K,
+                        _native.max_smem(device.index))
 
 
 def px_update_plan(k: int, device) -> UpdatePlan:
@@ -271,7 +291,7 @@ def px_update_plan(k: int, device) -> UpdatePlan:
     in two stages a tile), wider in row chunks. A donated X always takes Xn in
     place (a chunk reads only its own rows of X); a donated P takes Pn in
     place on one launch."""
-    return _update_plan("px_update", k, 3, False, _native.max_smem(device.index))
+    return _update_plan("px_update", k, 2, 3, 0, _native.max_smem(device.index))
 
 
 def _launch_gram(U, V, G=None):
@@ -318,23 +338,24 @@ def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     return wide_gram(U, V)
 
 
-def _coeff_update(name, M, B, A, with_gram, out):
+def _wide_update(M, B, A, out):
+    """``mm_update`` above 128 rows: the row chunks of ``mm_update_gram``'s
+    kernel without its Gram (``bcg_mm_update_gram`` with G null): 976
+    against 1,609 us at (400, 2^16), 4,718 against 10,585 at (800, 2^16) for
+    the one-thread-a-column kernel it replaced, the same bits (H100,
+    tools/torch_kernel_times.py --variants)."""
     k, n = B.shape
-    _native.check_kk(M, k, f"{name} M")
-    chunks = _chunks(k, 1, with_gram, name, B.device)
+    _native.check_kk(M, k, "mm_update M")
+    plan = mm_update_gram_plan(k, B.device)
     # Every chunk reads all of B: a donated B must wait for the last one.
-    direct = out is None or len(chunks) == 1 or out is A
+    direct = out is None or len(plan.chunks) == 1 or out is A
     Y = out if out is not None and direct else torch.empty_like(B)
     p = _native.ptr
-    diag = []
-    for r0, r1 in chunks:
-        part, G = _gram_buffers(r1 - r0, n, B.device) if with_gram else (None, None)
-        _native.launch(name, "bcg_coeff_update", B.device, p(M[r0:r1]), p(B),
-                       p(None if A is None else A[r0:r1]), p(Y[r0:r1]), p(part), p(G),
-                       r1 - r0, k, n, _native.nblocks(n))
-        diag.append(G)
-    G = diag[0] if len(chunks) == 1 else wide_gram(Y, Y, diag, chunks) if with_gram else None
-    return (Y if direct else out.copy_(Y)), G
+    for r0, r1 in plan.chunks:
+        _native.launch("mm_update", "bcg_mm_update_gram", B.device, p(M[r0:r1]), p(B),
+                       p(None if A is None else A[r0:r1]), p(Y[r0:r1]), None, None, r1 - r0,
+                       k, n, plan.kc, _native.nblocks(n))
+    return Y if direct else out.copy_(Y)
 
 
 def mm_update(M: torch.Tensor, B: torch.Tensor,
@@ -353,7 +374,7 @@ def mm_update(M: torch.Tensor, B: torch.Tensor,
     df = {None: None, "a": Af, "b": Bf}[donate]
     k, n = Bf.shape
     if len(mm_update_plan(k, donate, Bf.device)[0]) > 1:
-        return _coeff_update("mm_update", M, Bf, Af, False, df)[0].view(B.shape)
+        return _wide_update(M, Bf, Af, df).view(B.shape)
     _native.check_kk(M, k, "mm_update M")
     Y = torch.empty_like(Bf) if df is None else df
     p = _native.ptr
@@ -371,7 +392,20 @@ def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
         Y, G = mm_update_gram_plain(M, B, A)
         return _into(dst, Y), G
     Bf, Af = _flat("mm_update_gram", B, A)
-    Y, G = _coeff_update("mm_update_gram", M, Bf, Af, True, Bf if donate else None)
+    k, n = Bf.shape
+    _native.check_kk(M, k, "mm_update_gram M")
+    plan = mm_update_gram_plan(k, Bf.device)
+    Y = Bf if donate and plan.in_place else torch.empty_like(Bf)
+    p = _native.ptr
+    part, G = _gram_buffers(k, n, Bf.device) if plan.fused_gram else (None, None)
+    for r0, r1 in plan.chunks:
+        _native.launch("mm_update_gram", "bcg_mm_update_gram", Bf.device, p(M[r0:r1]), p(Bf),
+                       p(None if Af is None else Af[r0:r1]), p(Y[r0:r1]), p(part), p(G),
+                       r1 - r0, k, n, plan.kc, _native.nblocks(n))
+    if not plan.fused_gram:
+        G = wide_gram(Y, Y)
+    if donate and Y is not Bf:
+        Y = Bf.copy_(Y)
     return Y.view(B.shape), G
 
 

@@ -6,7 +6,7 @@ nvcc:
 
     python3 chip_profile.py
 
-Nine single-device solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+Ten single-device solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
 first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
 its inner solver, tol 3e-6) at qr_passes 1 and 2, config 4 (the 32^4
@@ -16,8 +16,11 @@ shifted-block SBCGrQ on config 4 with four shifts (tol 1e-6), and the
 matrix-link lattice operator ``dirac_gauged_matrix(32)`` in the per-site
 block container (k = 12 from ``default_rng(1234)``, tol 1e-6,
 qr_passes=1); the even-odd Schur solve ``solve_dirac_eo`` on ``dirac_eo(32)``
-with config 4's 12 RHS (tol 1e-6) and ``solve_sbcgrq_cheb`` on config 3 at
-degree 6 (tol 1e-6, its spectrum estimated in the warm-up run); then the
+with config 4's 12 RHS (tol 1e-6), ``solve_sbcgrq_cheb`` on config 3 at
+degree 6 (tol 1e-6, its spectrum estimated in the warm-up run) and the
+general-sparsity SBCGrQ of ``chip_smoke.py``'s [sparse] phase
+(``rgg_laplacian(524288, 40)`` through ``from_scipy_auto``, RCM tiles, 32
+RHS from ``default_rng(0)``, tol 1e-6, qr_passes=1); then the
 distributed layer on one rank (NCCL, a group of one): config 3, the
 north-star inner solve, config 4 and the even-odd solve through
 ``parallel``, and CG on config 3's column 0 beside the single-device CG,
@@ -62,7 +65,7 @@ SHIFTS = (0.0, 0.05, 0.5, 2.0)
 TOP = 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PORT_KERNEL = re.compile(r"\b(stencil_spmm|mm_update_kernel|coeff_update|px_update|gram_kernel"
-                         r"|mm2_update_gram_kernel|px_update_kernel"
+                         r"|mm2_update_gram_kernel|update_gram_kernel|px_update_kernel|tiled_spmm"
                          r"|reduce_partials|cbs_spmm|slab_accumulate|xr_update_gram|qr_p_update|bs_spmm"
                          r"|cheb_step_vec|cheb_step_scalar|reduce_spin_contract)\b")
 
@@ -233,9 +236,11 @@ def main() -> None:
         dirac_eo,
         dirac_gauged_matrix,
         laplacian_dia,
+        rgg_laplacian,
         solve_dirac_eo,
         solve_dirac_eo_dist,
     )
+    from blockcg_tpu_torch.operators import from_scipy_auto
     from blockcg_tpu_torch.problems.presets import _rhs
 
     dev = torch.device("cuda", 0)
@@ -257,6 +262,9 @@ def main() -> None:
     Bm = torch.as_tensor(np.random.default_rng(1234).standard_normal((12, opm.n)),
                          dtype=torch.float32, device=dev).T.contiguous()
     eo = dirac_eo(32, device=dev)
+    ops = from_scipy_auto(rgg_laplacian(524288, degree=40, seed=0), torch.float32, device=dev)
+    Bs = ops.to_solver_order(torch.as_tensor(
+        np.random.default_rng(0).standard_normal((524288, K)), dtype=torch.float32, device=dev))
     solves = [
         ("config3 qr_passes=1", lambda: solve_sbcgrq(op3, B3, tol=1e-6, qr_passes=1)),
         ("north-star inner 128^3 qr_passes=1",
@@ -272,6 +280,8 @@ def main() -> None:
         ("even-odd dirac_eo(32) k=12 solve_dirac_eo", lambda: solve_dirac_eo(eo, B4, tol=1e-6)),
         ("config3 solve_sbcgrq_cheb degree 6",
          lambda: solve_sbcgrq_cheb(op3, B3, degree=6, tol=1e-6)),
+        ("sparse rgg_laplacian(524288, 40) RCM tiles k=32 qr_passes=1",
+         lambda: solve_sbcgrq(ops, Bs, tol=1e-6, qr_passes=1)),
     ]
     group = nccl_group(torch)
     dop3, dop, dop4 = (par.partition_dia(op3, 1).shard(0, group, dev),

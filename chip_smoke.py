@@ -30,9 +30,8 @@ on config 3 and at 128^3 (``[cheb]``), and the even-odd Schur path on 32^4
 twice and against config 4's full solve, its CG on one column, the
 multi-shift solve, the matrix-link and the U(1) complex contexts); then
 fields of 96 rows, above one launch's 64 (``[kernel]`` lines at m = 96 for
-every kernel the row-chunked launches serve, the fused Grams and
-``px_update`` again at 800 rows, where shared memory leaves room for narrow
-row chunks only, and
+every kernel the row-chunked launches serve, the fused updates again at
+800 rows, where shared memory leaves room for narrow row chunks only, and
 ``[wide]``: config 4 with 24 RHS and the even-odd multi-shift solve with
 12); ``qr_px_update``
 against its plain version and against the pair it fuses; and general
@@ -89,7 +88,7 @@ KERNELS = {
     "stencil_spmm_gram_t": ("blockcg_tpu_torch/csrc/stencil.cu", "blockcg_tpu/ops/stencil.py:282"),
     "gram": ("blockcg_tpu_torch/csrc/gram.cu", "blockcg_tpu/ops/fused.py:203"),
     "mm_update": ("blockcg_tpu_torch/csrc/mm_update.cu", "blockcg_tpu/ops/fused.py:265"),
-    "mm_update_gram": ("blockcg_tpu_torch/csrc/fused_update.cu", "blockcg_tpu/ops/fused.py:332"),
+    "mm_update_gram": ("blockcg_tpu_torch/csrc/mm_update_gram.cu", "blockcg_tpu/ops/fused.py:332"),
     "mm2_update_gram": ("blockcg_tpu_torch/csrc/mm2_update_gram.cu",
                         "blockcg_tpu/ops/fused.py:405"),
     "px_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:588"),
@@ -287,6 +286,12 @@ def nnz(*tensors) -> int:
     return sum(int(torch.count_nonzero(t)) for t in tensors)
 
 
+def syrk_flops(k: int, n: int) -> int:
+    """FLOPs of a symmetric Gram Y Y^T of a (k, n) field: its k (k + 1) / 2
+    entries on and above the diagonal, 2 n each (the rest mirror them)."""
+    return k * (k + 1) * n
+
+
 def bound_ms(nbytes_: int, flops: int) -> tuple[float, str]:
     """The least time the card could take: the larger of the contract's bytes
     (each input read once, each output written once) over the HBM rate and
@@ -421,10 +426,11 @@ def phase_kernels(torch, dev) -> dict:
         B1, B2, B3 = field(K, n), field(K, n), field(K, n)
         banded = torch.randn(op.diags.shape, generator=gen, device=dev)  # wraps populated
         what = f"n={n} k={K}"
-        fb, gb, gf = nbytes(B1), K * K * 4, 2 * K * K * n  # field, Gram bytes; Gram FLOPs
+        # field, Gram bytes; FLOPs of U V^T and of the symmetric Y Y^T
+        fb, gb, gf, sf = nbytes(B1), K * K * 4, 2 * K * K * n, syrk_flops(K, n)
 
         def spmm(diags, gram=False):
-            return (nbytes(diags) + 2 * fb + gram * gb, 2 * K * nnz(diags) + gram * gf)
+            return (nbytes(diags) + 2 * fb + gram * gb, 2 * K * nnz(diags) + gram * sf)
         csr, why = _dia_csr_library(torch, op.diags, op.offsets, B1,
                                     stencil.stencil_spmm_t(op.diags, op.offsets, B1))
         _library_note(f"stencil_spmm_t {what} (torch CSR @ dense)", why)
@@ -448,10 +454,10 @@ def phase_kernels(torch, dev) -> dict:
              (nbytes(M1) + 2 * fb, 2 * n * nnz(M1)), lambda: M1 @ B1),
             ("mm_update_gram", what, lambda: fused.mm_update_gram(M1, B1),
              lambda: fused.mm_update_gram_plain(M1, B1),
-             (nbytes(M1) + 2 * fb + gb, 2 * n * nnz(M1) + gf), None),
+             (nbytes(M1) + 2 * fb + gb, 2 * n * nnz(M1) + sf), None),
             ("mm2_update_gram", what, lambda: fused.mm2_update_gram(M1, B1, M2, B2),
              lambda: fused.mm2_update_gram_plain(M1, B1, M2, B2),
-             (nbytes(M1, M2) + 3 * fb + gb, 2 * n * nnz(M1, M2) + gf), None),
+             (nbytes(M1, M2) + 3 * fb + gb, 2 * n * nnz(M1, M2) + sf), None),
             ("px_update", what, lambda: fused.px_update(M1, B1, M2, B2, M3, B3),
              lambda: fused.px_update_plain(M1, B1, M2, B2, M3, B3),
              (nbytes(M1, M2, M3) + 5 * fb, 2 * n * nnz(M1, M2, M3)), None),
@@ -526,13 +532,14 @@ def phase_cbs_kernels(torch, dev, records) -> None:
             return plain_t()
         return kern, plain, (kern_t, plain_t)
 
-    fb, gb, gf = nbytes(Xm), m * m * 4, 2 * m * m * ns  # field, Gram bytes; Gram FLOPs
+    # field, Gram bytes; FLOPs of U V^T and of the symmetric Y Y^T
+    fb, gb, gf, sf = nbytes(Xm), m * m * 4, 2 * m * m * ns, syrk_flops(m, ns)
 
     def main_work(o, args, gram=False):
         """Hops, masks, X read once, Y written once; the FLOPs of the
         structural nonzeros of the main kernel's diagonals."""
         return (nbytes(args[0], args[3]) + 2 * fb + gram * gb,
-                2 * DIRAC_K * _cbs_nnz(o, exclude_slabs=True) + gram * gf)
+                2 * DIRAC_K * _cbs_nnz(o, exclude_slabs=True) + gram * sf)
 
     cols = g * nblocks  # the slab's site columns
     slab_bytes = 3 * (fb // ns) * cols  # X at the sources, Y read and written
@@ -584,10 +591,10 @@ def phase_cbs_kernels(torch, dev, records) -> None:
          (nbytes(M1) + 2 * fb, 2 * ns * nnz(M1)), lambda: M1 @ Xm),
         ("mm_update_gram", lambda: fused.mm_update_gram(M1, Xm),
          lambda: fused.mm_update_gram_plain(M1, Xm),
-         (nbytes(M1) + 2 * fb + gb, 2 * ns * nnz(M1) + gf), None),
+         (nbytes(M1) + 2 * fb + gb, 2 * ns * nnz(M1) + sf), None),
         ("mm2_update_gram", lambda: fused.mm2_update_gram(M1, Xm, M2, Ym),
          lambda: fused.mm2_update_gram_plain(M1, Xm, M2, Ym),
-         (nbytes(M1, M2) + 3 * fb + gb, 2 * ns * nnz(M1, M2) + gf), None),
+         (nbytes(M1, M2) + 3 * fb + gb, 2 * ns * nnz(M1, M2) + sf), None),
         ("px_update", lambda: fused.px_update(M1, Xm, M2, Ym, M3, Zm),
          lambda: fused.px_update_plain(M1, Xm, M2, Ym, M3, Zm),
          (nbytes(M1, M2, M3) + 5 * fb, 2 * ns * nnz(M1, M2, M3)), None),
@@ -595,7 +602,17 @@ def phase_cbs_kernels(torch, dev, records) -> None:
     for name, kern, plain, work, library in cases:
         _timed_check(torch, name, what, kern, plain, is_gram, records, work=work,
                      library=library)
-    del Xm, Ym, Zm
+    # Row 7 on the (k, bs, ns) view with k x k coefficients and A, as the
+    # distributed per-site operator hands its fields over.
+    C = torch.randn((DIRAC_K, DIRAC_K), generator=gen, device=dev) / DIRAC_K ** 0.5
+    Xv, Yv = Xm.view(DIRAC_K, bs, ns), Ym.view(DIRAC_K, bs, ns)
+    _timed_check(torch, "mm_update_gram", f"({DIRAC_K}, {bs}, {ns}) view with A",
+                 lambda: fused.mm_update_gram(C, Xv, Yv),
+                 lambda: fused.mm_update_gram_plain(C, Xv, Yv),
+                 lambda w: w.shape == (DIRAC_K, DIRAC_K), records,
+                 work=(nbytes(C) + 3 * fb + 4 * DIRAC_K ** 2,
+                       2 * ns * bs * DIRAC_K ** 2 + syrk_flops(DIRAC_K, bs * ns)))
+    del Xm, Ym, Zm, Xv, Yv
     torch.cuda.empty_cache()
 
 
@@ -645,7 +662,7 @@ def phase_krylov_kernels(torch, dev, records) -> None:
         F = [torch.randn((m, n), generator=gen, device=dev) for _ in range(4)]
         fb = nbytes(F[0])
         # xr: P, X, Z, R read, Xn, Rn and G written; qr: Q1, P read, Q, Pn written.
-        xr_work = (nbytes(A) + 6 * fb + m * m * 4, 4 * n * nnz(A) + 2 * m * m * n)
+        xr_work = (nbytes(A) + 6 * fb + m * m * 4, 4 * n * nnz(A) + syrk_flops(m, n))
         qr_work = (nbytes(A, M) + 4 * fb, 2 * n * nnz(A, M))
         return {"xr_update_gram": (fused.xr_update_gram, fused.xr_update_gram_plain,
                                    (A, *F), (2, 4), what, xr_work),
@@ -899,10 +916,10 @@ def _bs_kernel_checks(torch, records, blocks, offsets, k, label, seed) -> None:
     Xm = torch.randn((m, ns), generator=gen, device=blocks.device)
     Xv = torch.randn((k, bs, ns), generator=gen, device=blocks.device)
     # Every block read once (zeros too), X read once, Y written once; the
-    # FLOPs of the nonzero coefficients; the Gram adds G and 2 m^2 ns.
+    # FLOPs of the nonzero coefficients; the Gram adds G and m (m + 1) ns.
     nzb = nnz(blocks)
     apply_work = (nbytes(blocks, Xm, Xm), 2 * k * nzb)
-    gram_work = (apply_work[0] + m * m * 4, apply_work[1] + 2 * m * m * ns)
+    gram_work = (apply_work[0] + m * m * 4, apply_work[1] + syrk_flops(m, ns))
 
     def is_gram(w):
         return w.shape == (m, m)
@@ -1358,10 +1375,11 @@ def phase_wide_kernels(torch, dev, records) -> None:
     """Every kernel the width repair touches, at m = 96 rows (above one
     launch's 64) against its plain version: the fused updates and the Gram
     on config 4's merged width (ns = 32^4, ``I_4 ⊗ C``), fresh and donated;
-    ``mm2_update_gram``, ``px_update`` and ``xr_update_gram`` at 800 rows,
-    where shared memory leaves room for narrow row chunks only (the Gram of
-    ``xr_update_gram`` laid out by those chunks, that of ``mm2_update_gram``
-    taken by ``gram`` on 64-row blocks); the DIA stencil on config 3's 64^3
+    ``mm2_update_gram``, ``px_update``, ``mm_update_gram``, ``xr_update_gram``
+    and ``mm_update`` at 800 rows, where shared memory leaves room for narrow
+    row chunks only (the Gram of ``xr_update_gram`` laid out by those chunks,
+    those of ``mm2_update_gram`` and ``mm_update_gram`` taken by ``gram`` on
+    64-row blocks); the DIA stencil on config 3's 64^3
     Laplacian; the const-hop kernels on
     config 4's operator with 24 RHS (merged, the (24, 4, ns) view, both slab
     adds); the block stencil on random per-site blocks (16^4 sites, bs = 4,
@@ -1385,7 +1403,7 @@ def phase_wide_kernels(torch, dev, records) -> None:
         return torch.kron(torch.eye(bs, device=dev), C)
     M1, M2, M3 = coeff(), coeff(), coeff()
     F = [torch.randn((m, ns), generator=gen, device=dev) for _ in range(4)]
-    fb, gb, gf = nbytes(F[0]), m * m * 4, 2 * m * m * ns
+    fb, gb, gf, sf = nbytes(F[0]), m * m * 4, 2 * m * m * ns, syrk_flops(m, ns)
     what = f"ns={ns} m={m} I_{bs}⊗C"
 
     def both_ways(name, fn, plain, nf, work, library=None):
@@ -1414,17 +1432,17 @@ def phase_wide_kernels(torch, dev, records) -> None:
               lambda b, a: fused.mm_update_plain(M1, b, a), 2, (mm[0] + fb, mm[1]),
               library=lambda: torch.addmm(F[1], M1, F[0]))
     both_ways("mm_update_gram", lambda b, d: fused.mm_update_gram(M1, b, donate=d),
-              lambda b: fused.mm_update_gram_plain(M1, b), 1, (mm[0] + gb, mm[1] + gf))
+              lambda b: fused.mm_update_gram_plain(M1, b), 1, (mm[0] + gb, mm[1] + sf))
     both_ways("mm2_update_gram", lambda b1, b2, d: fused.mm2_update_gram(M1, b1, M2, b2, donate=d),
               lambda b1, b2: fused.mm2_update_gram_plain(M1, b1, M2, b2), 2,
-              (nbytes(M1, M2) + 3 * fb + gb, 2 * ns * nnz(M1, M2) + gf))
+              (nbytes(M1, M2) + 3 * fb + gb, 2 * ns * nnz(M1, M2) + sf))
     both_ways("px_update", lambda w, p, x, d: fused.px_update(M1, w, M2, p, M3, x, donate=d),
               lambda w, p, x: fused.px_update_plain(M1, w, M2, p, M3, x), 3,
               (nbytes(M1, M2, M3) + 5 * fb, 2 * ns * nnz(M1, M2, M3)))
     both_ways("xr_update_gram",
               lambda p, x, z, r, d: fused.xr_update_gram(M1, p, x, z, r, donate=d),
               lambda p, x, z, r: fused.xr_update_gram_plain(M1, p, x, z, r), 4,
-              (nbytes(M1) + 6 * fb + gb, 4 * ns * nnz(M1) + gf))
+              (nbytes(M1) + 6 * fb + gb, 4 * ns * nnz(M1) + sf))
     both_ways("qr_p_update", lambda q, p, d: fused.qr_p_update(M1, q, M2, p, donate=d),
               lambda q, p: fused.qr_p_update_plain(M1, q, M2, p), 2,
               (nbytes(M1, M2) + 4 * fb, 2 * ns * nnz(M1, M2)))
@@ -1432,7 +1450,7 @@ def phase_wide_kernels(torch, dev, records) -> None:
     kw, nw = NARROW_CHUNK_K, NARROW_CHUNK_N
     Mw = [torch.randn((kw, kw), generator=gen, device=dev) / kw ** 0.5 for _ in range(3)]
     Fw = [torch.randn((kw, nw), generator=gen, device=dev) for _ in range(4)]
-    wb, wg = nbytes(Fw[0]), (kw * kw * 4, 2 * kw * kw * nw)
+    wb, wg = nbytes(Fw[0]), (kw * kw * 4, syrk_flops(kw, nw))
 
     def what_w(chunks):
         return f"n={nw} k={kw} ({len(chunks)} launches of {chunks[0][1]} rows)"
@@ -1447,11 +1465,20 @@ def phase_wide_kernels(torch, dev, records) -> None:
                  lambda: fused.px_update(Mw[0], Fw[0], Mw[1], Fw[1], Mw[2], Fw[2]),
                  lambda: fused.px_update_plain(Mw[0], Fw[0], Mw[1], Fw[1], Mw[2], Fw[2]),
                  is_gram_w, records, work=(nbytes(*Mw) + 5 * wb, 6 * kw * kw * nw))
+    _timed_check(torch, "mm_update_gram", what_w(fused.mm_update_gram_plan(kw, dev).chunks),
+                 lambda: fused.mm_update_gram(Mw[0], Fw[0], Fw[1]),
+                 lambda: fused.mm_update_gram_plain(Mw[0], Fw[0], Fw[1]), is_gram_w, records,
+                 work=(nbytes(Mw[0]) + 3 * wb + wg[0], 2 * kw * kw * nw + wg[1]))
     xr_chunks = fused._chunks(kw, 1, True, "xr_update_gram", dev)
     _timed_check(torch, "xr_update_gram", what_w(xr_chunks),
                  lambda: fused.xr_update_gram(Mw[0], *Fw),
                  lambda: fused.xr_update_gram_plain(Mw[0], *Fw), is_gram_w, records,
                  work=(nbytes(Mw[0]) + 6 * wb + wg[0], 4 * kw * kw * nw + wg[1]))
+    _timed_check(torch, "mm_update", what_w(fused.mm_update_plan(kw, None, dev)[0]),
+                 lambda: (fused.mm_update(Mw[0], Fw[0], Fw[1]), None),
+                 lambda: (fused.mm_update_plain(Mw[0], Fw[0], Fw[1]), None), is_gram_w,
+                 records, work=(nbytes(Mw[0]) + 3 * wb, 2 * kw * kw * nw),
+                 library=lambda: torch.addmm(Fw[1], Mw[0], Fw[0]))
     del Mw, Fw
 
     Xm, Ym = F[0], F[1]
@@ -1463,7 +1490,7 @@ def phase_wide_kernels(torch, dev, records) -> None:
     _timed_check(torch, "const_block_stencil_spmm_m_gram_t", f"config 4 ns={ns} m={m}",
                  lambda: cbs.const_block_stencil_spmm_m_gram_t(*main, Xm),
                  lambda: cbs.const_block_stencil_plain(*main, Xm, True), is_gram, records,
-                 work=(mwork[0] + gb, mwork[1] + gf))
+                 work=(mwork[0] + gb, mwork[1] + sf))
     Xv = Xm.reshape(k, bs, ns)
     _timed_check(torch, "const_block_stencil_spmm_t", f"config 4 ({k}, {bs}, {ns})",
                  lambda: (cbs.const_block_stencil_spmm_t(*main, Xv), None),
@@ -1509,7 +1536,7 @@ def phase_wide_kernels(torch, dev, records) -> None:
     _timed_check(torch, "stencil_spmm_gram_t", f"n={lap.n} k={m}",
                  lambda: stencil.stencil_spmm_gram_t(lap.diags, lap.offsets, X),
                  lambda: stencil.stencil_spmm_plain(lap.diags, lap.offsets, X, True), is_gram,
-                 records, work=(swork[0] + gb, swork[1] + 2 * m * m * lap.n))
+                 records, work=(swork[0] + gb, swork[1] + syrk_flops(m, lap.n)))
     del lap, X
     bns = 16 ** 4
     offsets = (0, 1, -1, 16, -16, 256, -256, 4096, -4096)
@@ -1524,7 +1551,7 @@ def phase_wide_kernels(torch, dev, records) -> None:
     _timed_check(torch, "block_stencil_spmm_m_gram_t", what,
                  lambda: bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xb),
                  lambda: bsk.block_stencil_plain(blocks, offsets, Xb, True), is_gram, records,
-                 work=(bwork[0] + gb, bwork[1] + 2 * m * m * bns))
+                 work=(bwork[0] + gb, bwork[1] + syrk_flops(m, bns)))
     Xbv = Xb.reshape(k, bs, bns)
     _timed_check(torch, "block_stencil_spmm_t", f"random blocks ({k}, {bs}, {bns}) view",
                  lambda: (bsk.block_stencil_spmm_t(blocks, offsets, Xbv), None),
@@ -1618,8 +1645,9 @@ def _bsr_library(torch, op, Xt):
 def phase_sparse_kernel(torch, dev, records, op) -> None:
     """``tiled_spmm_t`` against its plain version at the ``[sparse]`` shape
     (the RCM tiles of the RGG graph, k = 32) with f32 and with bf16 tiles,
-    and at k = 96 (one launch at KMAX = 128): kernel, plain, bound and library ms, and
-    Gnnz/s on the logical nonzeros. The record takes the f32, k = 32 times."""
+    and at k = 96 (one launch of 12 warps): kernel, plain, bound and library ms, and
+    Gnnz/s on the logical nonzeros, each with the ``tiled_plan`` it ran. The
+    record takes the f32, k = 32 times."""
     from blockcg_tpu_torch.operators import TiledOperator
     from blockcg_tpu_torch.ops import spmm_tiled
 
@@ -1632,10 +1660,12 @@ def phase_sparse_kernel(torch, dev, records, op) -> None:
         library, why = _bsr_library(torch, o, Xt)
         args = (o.tiles, o.rt, o.ct, o.first)
         ms = _timed_check(torch, "tiled_spmm_t", f"n={o.n} k={k} {label} {o.ntiles} tiles",
-                          lambda: (spmm_tiled.tiled_spmm_t(*args, Xt, o.row_ptr), None),
+                          lambda: (spmm_tiled.tiled_spmm_t(*args, Xt, o.row_ptr, o.tiled_plan),
+                                   None),
                           lambda: (spmm_tiled.tiled_spmm_plain(o.tiles, o.rt, o.ct, Xt), None),
                           lambda w: False, records, work=_sparse_work(o, k), library=library)
         x_per_tile = nbytes(o.tiles) + 4 * k * 128 * o.ntiles + 4 * k * o.n
+        print(f"[kernel] tiled_spmm_t k={k} {label} plan: {o.tiled_plan(k).describe()}")
         print(f"[kernel] tiled_spmm_t k={k} {label}: {o.nnz / ms / 1e6:.2f} Gnnz/s on "
               f"{o.nnz} logical nonzeros (fill {o.fill:.4%}); bound with X read once a tile: "
               f"{bound_ms(x_per_tile, _sparse_work(o, k)[1])[0]:.4f} ms; library: "
@@ -1686,6 +1716,8 @@ def phase_sparse(torch, dev, records) -> dict:
         raise AssertionError(f"[sparse] SBCGrQ true relres {rel:.3e}: {info}")
     if not torch.equal(X1, X2):
         raise AssertionError("[sparse] the repeat SBCGrQ solve is not bitwise identical")
+    print(f"[sparse] the apply's tiled_plan at k={SPARSE_K}: "
+          f"{op.tiled_plan(SPARSE_K).describe()}")
     print(f"[sparse] solve_sbcgrq k={SPARSE_K} tol=1e-6 qr_passes=1: {info.iterations} "
           f"iterations, {s1:.3f} s (repeat {s2:.3f} s, {info2.iterations} iterations, bitwise "
           f"identical), true f64 relres {rel:.3e}")

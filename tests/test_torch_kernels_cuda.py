@@ -1163,3 +1163,155 @@ def test_sbcgrq_on_rows89_repeats_bitwise(dev, case):
     X2, i2 = solve_sbcgrq(op, B, tol=1e-6)
     assert bool(i1.converged.all()) and i1.iterations == i2.iterations
     assert torch.equal(X1, X2)
+
+
+# ---------------------- the streaming mm_update_gram (row 7), update_gram.cuh
+
+
+def _row7(k, n, seed, dev, offset=0, shape=None):
+    """M and the fields B and A of row 7, as ``_row89`` makes them."""
+    rng = np.random.default_rng(seed)
+    M = _t(rng.standard_normal((k, k)) / k ** 0.5, dev)
+    fields = []
+    for _ in range(2):
+        buf = _t(rng.standard_normal(k * n + offset), dev)
+        F = buf[offset:].view(k, n)
+        fields.append(F if shape is None else F.view(shape))
+    return M, fields
+
+
+def _row7_matches_plain(dev, M, B, A, donate, launches):
+    want = fused.mm_update_gram_plain(M, B, A)
+    Bd = B.clone() if donate else B
+    _native.reset_launches()
+    Y, G = fused.mm_update_gram(M, Bd, A, donate=donate)
+    torch.cuda.synchronize()
+    assert _native.launches["mm_update_gram"] == launches
+    assert Y.shape == B.shape and _relmax(Y, want[0]) < 1e-5 and _relfro(G, want[1]) < 1e-5
+    assert (Y.data_ptr() == Bd.data_ptr()) is donate
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 32, 48, 64, 96, 100, 128])
+@pytest.mark.parametrize("n,offset", [(4096, 0), (3001, 0), (100, 0), (4096, 1)])
+@pytest.mark.parametrize("with_a", [False, True])
+@pytest.mark.parametrize("donate", [False, True])
+def test_row7_streaming_kernel_matches_plain(dev, k, n, offset, with_a, donate):
+    """Row 7 in one launch up to 128 rows (the Gram fused up to 96 rows,
+    above that from ``gram``), with and without A, fresh and in place, on
+    whole 16-byte tiles, n % 4 != 0, a field smaller than one tile and an
+    offset view."""
+    M, (B, A) = _row7(k, n, 500 + k, dev, offset)
+    _row7_matches_plain(dev, M, B, A if with_a else None, donate, 1)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_row7_on_the_view_matches_plain(dev, donate):
+    k, bs, ns = 32, 4, 1501
+    M, (B, A) = _row7(k, bs * ns, 510, dev, shape=(k, bs, ns))
+    for a in (None, A):
+        _row7_matches_plain(dev, M, B, a, donate, 1)
+
+
+@pytest.mark.parametrize("k", [400, 800])
+@pytest.mark.parametrize("donate", [False, True])
+def test_row7_wide_fields_run_their_plan(dev, k, donate):
+    """Fields too wide for one launch: the plan's row chunks, each reading
+    all of B, the Gram from ``gram`` on 64-row blocks; a donated B takes Y
+    after the last chunk."""
+    M, (B, A) = _row7(k, 700, 520, dev)
+    plan = fused.mm_update_gram_plan(k, B.device)
+    assert len(plan.chunks) > 1 and not plan.fused_gram
+    _row7_matches_plain(dev, M, B, A, donate, len(plan.chunks))
+
+
+@pytest.mark.parametrize("k", [32, 48, 96])
+def test_row7_repeat_is_bitwise_identical(dev, k):
+    M, (B, A) = _row7(k, (1 << 16) + 12, 530, dev)
+    Y1, G1 = fused.mm_update_gram(M, B, A)
+    Y2, G2 = fused.mm_update_gram(M, B, A)
+    assert torch.equal(Y1, Y2) and torch.equal(G1, G2)
+
+
+# ---------------------------------- the pipelined tiled_spmm_t (row 25)
+
+
+def _synthetic_tiles(dev, tile_dtype, seed):
+    """A tile set with a row tile of one tile, an empty row tile and a
+    ``first`` reset inside a row tile's run; the tiles the reset drops are
+    left out of the expected product."""
+    rng = np.random.default_rng(seed)
+    nrt = 40
+    counts = rng.integers(2, 9, size=nrt)
+    counts[5], counts[9], counts[17] = 1, 0, 6
+    rt = np.repeat(np.arange(nrt), counts).astype(np.int32)
+    ct = np.concatenate([np.sort(rng.choice(nrt, c, replace=False)) for c in counts])
+    row_ptr = np.concatenate([[0], np.cumsum(counts)])
+    first = np.zeros(len(rt), np.int32)
+    first[row_ptr[:-1][counts > 0]] = 1
+    first[row_ptr[17] + 3] = 1
+    keep = np.ones(len(rt), bool)
+    keep[row_ptr[17]:row_ptr[17] + 3] = False
+    tiles = torch.as_tensor(rng.standard_normal((len(rt), 128, 128)), dtype=torch.float32,
+                            device=dev).to(tile_dtype)
+    i32 = [torch.as_tensor(a.astype(np.int32), device=dev) for a in (rt, ct, first)]
+    return tiles, *i32, torch.as_tensor(keep, device=dev)
+
+
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8, 32, 64, 96, 128])
+def test_tiled_spmm_contract_on_card(dev, tile_dtype, k):
+    """The kernel on the synthetic tile set: a one-tile row tile, an empty
+    one (zeros), a reset inside a run; a repeat gives the same bits."""
+    tiles, rt, ct, first, keep = _synthetic_tiles(dev, tile_dtype, 600 + k)
+    Xt = _field(k, 40 * 128, 610 + k, dev)
+    _native.reset_launches()
+    Y = spmm_tiled.tiled_spmm_t(tiles, rt, ct, first, Xt)
+    want = spmm_tiled.tiled_spmm_plain(tiles[keep], rt[keep], ct[keep], Xt)
+    torch.cuda.synchronize()
+    assert _native.launches["tiled_spmm_t"] == 1
+    assert _relmax(Y, want) < 1e-5 and bool((Y[:, 9 * 128:10 * 128] == 0).all())
+    assert torch.equal(spmm_tiled.tiled_spmm_t(tiles, rt, ct, first, Xt), Y)
+
+
+@pytest.mark.parametrize("J,stages,R,sms", [(16, 2, None, None), (32, 4, None, None),
+                                            (32, 3, 4, None), (32, 2, None, 4)])
+def test_tiled_spmm_plan_variants_match_plain(dev, rgg_tiles, J, stages, R, sms):
+    """The kernel on other slice widths, ring depths, register tiles and
+    grids (the timing tool's variants; 4 SMs' worth of blocks, each summing
+    many row tiles) gives the default plan's bits: the summation order per
+    output does not depend on them."""
+    _, op = rgg_tiles
+    tiles, rt, ct, first = (t.to(dev) for t in (op.tiles, op.rt, op.ct, op.first))
+    row_ptr = spmm_tiled.row_pointers(rt, op.n // 128)
+    Xt = _field(32, op.n, 620, dev)
+    Y = spmm_tiled.tiled_spmm_t(tiles, rt, ct, first, Xt, row_ptr)
+
+    def plan(kk):
+        return spmm_tiled.tiled_plan(row_ptr, kk, dev, tiles.dtype, J=J, stages=stages, R=R,
+                                     sms=sms)
+    assert torch.equal(spmm_tiled.tiled_spmm_t(tiles, rt, ct, first, Xt, row_ptr, plan), Y)
+
+
+@pytest.mark.parametrize("case", ["config2_bcgdq", "rgg_sbcgrq"])
+def test_rows7_25_solves_repeat_bitwise(dev, case):
+    """Config 2's BCGdQ (row 7 every iteration) and SBCGrQ on an RCM-ordered
+    RGG tile operator (row 25 every apply) twice: the same iterations and
+    the same bits."""
+    import blockcg_tpu_torch as bt
+    from blockcg_tpu_torch.operators import TiledOperator
+
+    if case == "config2_bcgdq":
+        from blockcg_tpu_torch.problems import config2_bcg_2d_512
+
+        op, k, solve, name = config2_bcg_2d_512(device=dev)[0], 16, bt.solve_bcgdq, \
+            "mm_update_gram"
+    else:
+        op = TiledOperator.from_scipy(rgg_laplacian(40000, degree=20.0, seed=5),
+                                      torch.float32, reorder="rcm", device=dev)
+        k, solve, name = 32, bt.solve_sbcgrq, "tiled_spmm_t"
+    B = _t(np.random.default_rng(640).standard_normal((op.n, k)), dev)
+    _native.reset_launches()
+    X1, i1 = solve(op, B, tol=1e-5)
+    assert _native.launches[name] > 0
+    X2, i2 = solve(op, B, tol=1e-5)
+    assert i1.iterations == i2.iterations and torch.equal(X1, X2)

@@ -289,7 +289,7 @@ def test_native_build_command_and_sources(monkeypatch, tmp_path):
     """The library is built from the kernel sources of the checkout for
     sm_90a, one compile per source and one link, and a missing nvcc raises
     (there is no fallback)."""
-    cus = {"stencil.cu", "gram.cu", "fused_update.cu", "px_update.cu",
+    cus = {"stencil.cu", "gram.cu", "mm_update_gram.cu", "px_update.cu",
            "const_block_stencil.cu", "xr_update.cu", "qr_p_update.cu", "spmm_tiled.cu"}
     assert cus <= {p.name for p in _native.sources()}
     assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS

@@ -8,12 +8,14 @@ rows; ``ops/fused.py`` ``mm_update_plan`` says when a field runs it and when
 it is written in place. The kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py); here the plans are held to their rules,
 and a numpy emulation of the kernel's windowed schedule is held against the
-f64 oracle. ``csrc/mm2_update_gram.cu`` and ``csrc/px_update.cu`` stream
-stages of their stacked inputs; ``mm2_update_gram_plan`` and
+f64 oracle. ``csrc/update_gram.cuh`` (rows 7 and 8: ``mm_update_gram``,
+``mm2_update_gram``) and ``csrc/px_update.cu`` stream stages of their
+stacked inputs; ``mm_update_gram_plan``, ``mm2_update_gram_plan`` and
 ``px_update_plan`` pick the row chunks and stage depth under the card's
-shared-memory cap. The plain routes of ``mm_update``, ``mm2_update_gram``
-and ``px_update`` at m = 96 are held against the reference's Pallas kernels
-in interpret mode (max relative error 1e-5, f32).
+shared-memory cap. The plain routes of ``mm_update``, ``mm_update_gram``,
+``mm2_update_gram`` and ``px_update`` at m = 96 are held against the
+reference's Pallas kernels in interpret mode (max relative error 1e-5,
+f32).
 """
 
 import re
@@ -25,7 +27,7 @@ import pytest
 import torch
 
 from blockcg_tpu.ops import fused as jfused
-from blockcg_tpu_torch.ops import _native, fused, stencil
+from blockcg_tpu_torch.ops import _native, fused, spmm_tiled, stencil
 
 H100_SMEM = 232448  # bytes of shared memory one block may opt into on an H100
 H100_SMS = 132
@@ -155,13 +157,34 @@ def test_mm_update_is_one_launch_in_place_up_to_128_rows(k, donate):
 
 @pytest.mark.parametrize("k", [129, 400, 800])
 def test_mm_update_wider_than_128_rows_runs_the_chunks(monkeypatch, k):
-    """Above 128 rows ``mm_update`` runs coeff_update's row chunks; a donated
-    B then waits for the last chunk, a donated A does not."""
+    """Above 128 rows ``mm_update`` runs the row chunks of
+    ``mm_update_gram_plan`` (its kernel without the Gram); a donated B then
+    waits for the last chunk, a donated A does not."""
     monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
-    chunks = fused._chunks(k, 1, False, "mm_update", torch.device("cpu"))
+    chunks = fused.mm_update_gram_plan(k, torch.device("cpu")).chunks
     assert len(chunks) > 1
     assert fused.mm_update_plan(k, "b", torch.device("cpu")) == (chunks, False)
     assert fused.mm_update_plan(k, "a", torch.device("cpu")) == (chunks, True)
+
+
+@pytest.mark.parametrize("with_a", [False, True])
+@pytest.mark.parametrize("donate", [False, True])
+def test_mm_update_gram_at_m96_matches_pallas(with_a, donate):
+    """Row 7 on the plain route at m = 96 (one launch of Y on the card, its
+    Gram from ``gram``) against the Pallas kernel in interpret mode."""
+    k, n = 96, 512
+    rng = np.random.default_rng(97)
+    M = (rng.standard_normal((k, k)) / k ** 0.5).astype(np.float32)
+    B, A = (rng.standard_normal((k, n)).astype(np.float32) for _ in range(2))
+    want = [np.asarray(a) for a in jfused.mm_update_gram(
+        jnp.asarray(M), jnp.asarray(B), jnp.asarray(A) if with_a else None, interpret=True)]
+    Bt = torch.from_numpy(B.copy())
+    Y, G = fused.mm_update_gram(torch.from_numpy(M), Bt,
+                                torch.from_numpy(A) if with_a else None, donate=donate)
+    assert (Y.data_ptr() == Bt.data_ptr()) is donate
+    for got, w in zip((Y, G), want):
+        err = np.abs(got.numpy().astype(np.float64) - w).max() / np.abs(w).max()
+        assert err < 1e-5, err
 
 
 @pytest.mark.parametrize("with_a", [False, True])
@@ -181,8 +204,10 @@ def test_mm_update_at_m96_matches_pallas(with_a, donate):
     assert err < 1e-5, err
 
 
-_PLANS = {"mm2_update_gram": (fused.mm2_update_gram_plan, 2, True),
-          "px_update": (fused.px_update_plan, 3, False)}
+# name -> (plan, stacked input fields, coefficient tables, rows of a fused Gram)
+_PLANS = {"mm_update_gram": (fused.mm_update_gram_plan, 1, 1, fused.UPDATE_GRAM_MAX_K_ONE),
+          "mm2_update_gram": (fused.mm2_update_gram_plan, 2, 2, fused.UPDATE_GRAM_MAX_K),
+          "px_update": (fused.px_update_plan, 2, 3, 0)}
 
 
 @pytest.mark.parametrize("k", [1, 32, 48, 96, 400, 800])
@@ -190,12 +215,12 @@ _PLANS = {"mm2_update_gram": (fused.mm2_update_gram_plan, 2, True),
 def test_update_plans_follow_their_rules(monkeypatch, name, k):
     """Up to 96 rows one launch (written in place); wider, row chunks of at
     most 64 rows that cover the field, each contracting over all of it; the
-    stages split the 2k stacked rows evenly, at least 32 rows deep (or all
-    of them); the shared memory (as the kernel counts it) fits the H100's
-    cap for the blocks an SM the plan claims; the fused Gram on a field of
-    up to 64 rows."""
+    stages split the stacked rows (k a field) evenly, at least 32 rows deep
+    (or all of them); the shared memory (as the kernel counts it) fits the
+    H100's cap for the blocks an SM the plan claims; the fused Gram on a
+    field of up to 64 rows (96 on row 7's one input field)."""
     monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
-    make, nmat, gram = _PLANS[name]
+    make, nfield, nmat, gram_rows = _PLANS[name]
     plan = make(k, torch.device("cpu"))
     assert plan.T == fused.UPDATE_TILE == 128
     assert plan.chunks[0][0] == 0 and plan.chunks[-1][1] == k
@@ -203,10 +228,11 @@ def test_update_plans_follow_their_rules(monkeypatch, name, k):
     kout = max(r1 - r0 for r0, r1 in plan.chunks)
     assert (len(plan.chunks) == 1) is (k <= 96) and plan.in_place is (k <= 96)
     assert kout <= (fused.UPDATE_MAX_K if k <= 96 else 64)
-    assert plan.fused_gram is (gram and k <= fused.UPDATE_GRAM_MAX_K)
-    assert min(2 * k, fused.UPDATE_MIN_KC) <= plan.kc <= 2 * k
-    stages = -(-2 * k // plan.kc)
-    assert plan.kc == -(-2 * k // stages)
+    assert plan.fused_gram is (k <= gram_rows)
+    nin = nfield * k
+    assert min(nin, fused.UPDATE_MIN_KC) <= plan.kc <= nin
+    stages = -(-nin // plan.kc)
+    assert plan.kc == -(-nin // stages)
     assert plan.smem_bytes == fused.update_smem_bytes(kout, k, plan.kc, nmat, plan.fused_gram)
     assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= H100_SMEM + 1024
     assert plan.blocks_per_sm <= fused._blocks_per_sm(kout, nmat, plan.fused_gram)
@@ -219,6 +245,10 @@ def test_update_plans_follow_their_rules(monkeypatch, name, k):
     ("px_update", 48, 48, 2, 76800),         # two stages a tile leave room for two blocks
     ("mm2_update_gram", 96, 96, 1, 172032),  # Y alone, its Gram from gram.cu
     ("px_update", 96, 96, 1, 208896),        # M1, rho and C take 108 KB
+    ("mm_update_gram", 32, 32, 2, 54272),    # row 7: one input, one stage a tile
+    ("mm_update_gram", 48, 48, 1, 84480),    # 64-row Gram tiles: one block an SM
+    ("mm_update_gram", 96, 96, 1, 187392),   # one launch with the Gram: SymGram at 96 rows
+    ("mm_update_gram", 128, 128, 1, 196608),  # Y alone, its Gram from gram.cu
 ])
 def test_update_plans_of_the_main_paths(monkeypatch, name, k, kc, blocks, smem):
     monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
@@ -227,7 +257,8 @@ def test_update_plans_of_the_main_paths(monkeypatch, name, k, kc, blocks, smem):
                                                                            smem)
 
 
-@pytest.mark.parametrize("name,widest", [("mm2_update_gram", 3616), ("px_update", 2410)])
+@pytest.mark.parametrize("name,widest", [("mm_update_gram", 7232), ("mm2_update_gram", 3616),
+                                          ("px_update", 2410)])
 def test_update_plans_refuse_a_cap_with_no_room(monkeypatch, name, widest):
     """The widest field runs 8-row chunks on whatever stage depth fits; one
     row more, or a small cap, leaves no room and raises."""
@@ -237,8 +268,8 @@ def test_update_plans_refuse_a_cap_with_no_room(monkeypatch, name, widest):
     with pytest.raises(ValueError, match="no room"):
         _PLANS[name][0](widest + 1, torch.device("cpu"))
     monkeypatch.setattr(_native, "max_smem", lambda index: 16 * 1024)
-    with pytest.raises(ValueError, match="no room"):
-        _PLANS[name][0](400, torch.device("cpu"))
+    with pytest.raises(ValueError, match="no room"):  # row 7's one table: 8-row chunks fit at 400
+        _PLANS[name][0](800 if name == "mm_update_gram" else 400, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("S", [2, 4, 8])
@@ -307,9 +338,15 @@ def test_host_constants_mirror_the_sources():
     assert ("nmat * kin * rp + 1LL * kUpStages * kc * kUpTile + (gram ? 1LL * k * kUpLd : 0)"
             in common)
     assert "1LL * kUpThreads * (k > 32 ? 64 : 16)" in common
-    mm2 = (CSRC / "mm2_update_gram.cu").read_text()
-    assert "kMm2BlocksPerSm = GK > 0 && GK <= 32 ? 2 : 1;" in mm2
-    assert "update_smem_floats(k, kin, kc, 2, GK > 0)" in mm2
+    ug = (CSRC / "update_gram.cuh").read_text()
+    assert "kUgBlocksPerSm = GK > 0 && GK <= 32 ? 2 : 1;" in ug
+    assert "update_smem_floats(k, kin, kc, NF, GK > 0)" in ug
+    assert "return dispatch<2, false>(" in (CSRC / "mm2_update_gram.cu").read_text()
+    mm1 = (CSRC / "mm_update_gram.cu").read_text()
+    assert "dispatch<1, true>(" in mm1 and "dispatch<1, false>(" in mm1
+    assert "if constexpr (NF == 1) BCG_UG(12, 96);" in ug and fused.UPDATE_GRAM_MAX_K_ONE == 96
+    assert "BCG_UG(16, 128)" not in ug
+    assert "      case 8: BCG_UG(8, 64);" in ug and fused.UPDATE_GRAM_MAX_K == 64
     px = (CSRC / "px_update.cu").read_text()
     assert "kPxBlocksPerSm = R <= 8 ? 2 : 1;" in px
     assert "update_smem_floats(k, kin, kc, 3, false)" in px
@@ -319,6 +356,15 @@ def test_host_constants_mirror_the_sources():
     assert "256LL * (k > 16 ? 64 : 16)" in st
     assert "kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1" in st
     assert int(re.search(r"kStThreads = (\d+)", st).group(1)) == stencil.THREADS
+    ts = (CSRC / "spmm_tiled.cu").read_text()
+    assert int(re.search(r"kMaxThreads = (\d+)", ts).group(1)) == spmm_tiled.MAX_THREADS
+    assert int(re.search(r"kCols = (\d+)", ts).group(1)) == spmm_tiled.COLS
+    assert int(re.search(r"kT = (\d+)", ts).group(1)) == spmm_tiled.T
+    assert "a_pitch(int J, int tb) { return J + 16 / tb; }" in ts
+    assert "return kT * a_pitch(J, tb) * tb + kp * J * 4;" in ts
+    built = tuple((int(r), int(j)) for r, j in re.findall(r"BCG_TS\((\d+), (\d+)\);", ts))
+    assert built == spmm_tiled.BUILT
+    assert "stages < 2 || stages > 4" in ts
 
 
 def _smoke():

@@ -8,7 +8,10 @@ The apply is held against the Pallas ``tiled_spmm_t`` in interpret mode
 (f32 and bf16 tiles, max relative error 1e-5: the summation order differs)
 and against scipy in f64 (1e-12). On the CPU the wrapper runs its plain
 version; the CUDA kernel is held against that on the card
-(tests/test_torch_kernels_cuda.py, chip_smoke.py).
+(tests/test_torch_kernels_cuda.py, chip_smoke.py). The kernel's host
+schedule (``spmm_tiled.tiled_plan``) is held to its rules here, and a numpy
+walk of that schedule (blocks, their row tiles, slices of J columns, the
+resets) against the plain version in f64.
 """
 
 import numpy as np
@@ -173,3 +176,110 @@ def test_bf16_tiles_refined_to_1e10(mesh):
     Xo = op.from_solver_order(X).double().numpy()
     res = np.linalg.norm(mesh @ Xo - B, axis=0) / np.linalg.norm(B, axis=0)
     assert bool(info.converged.all()) and res.max() <= 1e-10
+
+
+def _skewed_row_ptr(nrt, seed):
+    """Row pointers of a skewed synthetic tile set: most row tiles hold 1-20
+    tiles, a few hold 60-200, some none."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 21, size=nrt)
+    counts[rng.choice(nrt, nrt // 50, replace=False)] = rng.integers(60, 201, size=nrt // 50)
+    counts[rng.choice(nrt, nrt // 100, replace=False)] = 0
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32)
+
+
+H100_SMS = 132
+H100_SMEM = 232448  # bytes of shared memory one block may opt into on an H100
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 32, 64, 96, 128])
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sms", [H100_SMS, 8])
+def test_tiled_plan_follows_its_rules(k, tile_dtype, sms):
+    """The row tiles cut into one contiguous range a block, in storage
+    order, covering them all; the busiest block the least busiest of any
+    contiguous cut, within one row tile of the mean; k = 96 runs 12 warps
+    of 8 rows, not 16; the shared bytes fit the H100's cap at the blocks an
+    SM claimed; the grid fills ``sms`` SMs (an H100's, and a small card)."""
+    rp = _skewed_row_ptr(4096, k)
+    plan = spmm_tiled.tiled_plan(rp, k, "cpu", tile_dtype, sms=sms, cap=H100_SMEM)
+    nrt = len(rp) - 1
+    bptr = plan.bptr.numpy()
+    assert bptr[0] == 0 and bptr[-1] == nrt
+    assert len(bptr) == plan.grid + 1 and np.all(np.diff(bptr) >= 0)
+    counts = np.diff(rp.numpy())
+    per = [int(counts[a:b].sum()) for a, b in zip(bptr[:-1], bptr[1:])]
+    assert max(per) == plan.busiest and plan.mean == pytest.approx(counts.sum() / plan.grid)
+    assert plan.busiest < plan.mean + counts.max()
+    assert spmm_tiled._cuts(rp.numpy().astype(np.int64), plan.grid, plan.busiest - 1) is None
+    assert plan.R == spmm_tiled.rows_per_warp(k) and (plan.R, plan.J) in spmm_tiled.BUILT
+    assert plan.threads == 32 * -(-k // plan.R) <= spmm_tiled.MAX_THREADS
+    if k == 96:
+        assert plan.threads == 384
+    nbytes = torch.finfo(tile_dtype).bits // 8
+    assert plan.smem_bytes == plan.stages * spmm_tiled.stage_bytes(plan.J, plan.threads // 32 *
+                                                                   plan.R, nbytes)
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= H100_SMEM + 1024
+    assert plan.grid == min(sms * plan.blocks_per_sm, nrt)
+
+
+def test_tiled_plan_off_the_card_needs_the_cards_numbers():
+    rp = _skewed_row_ptr(64, 0)
+    with pytest.raises(ValueError, match="sms and cap"):
+        spmm_tiled.tiled_plan(rp, 32, "cpu")
+    with pytest.raises(ValueError, match="sms and cap"):
+        spmm_tiled.tiled_plan(rp, 32, "cpu", sms=H100_SMS)
+
+
+def _walk(plan, row_ptr, first, ct, tiles, X):
+    """The kernel's schedule in numpy: each block's row tiles in order, each
+    tile's slices of J columns in order, the sum reset at a row tile's first
+    tile and wherever ``first`` is set, Y written at the row tile's end."""
+    k, n = X.shape
+    Y = np.full((k, n), np.nan)
+    bptr = plan.bptr.numpy()
+    for b in range(plan.grid):
+        for rt in range(bptr[b], bptr[b + 1]):
+            t0, t1 = row_ptr[rt], row_ptr[rt + 1]
+            acc = np.zeros((k, 128))
+            for t in range(t0, t1):
+                for j0 in range(0, 128, plan.J):
+                    if j0 == 0 and (t == t0 or first[t]):
+                        acc[:] = 0
+                    c0 = ct[t] * 128 + j0
+                    acc += X[:, c0:c0 + plan.J] @ tiles[t][:, j0:j0 + plan.J].T
+            Y[:, rt * 128:(rt + 1) * 128] = acc
+    return Y
+
+
+@pytest.mark.parametrize("J,R,k", [(32, None, 32), (16, None, 5), (16, None, 9), (32, 4, 1),
+                                   (32, 4, 12)])
+def test_tiled_schedule_walk_matches_plain(J, R, k):
+    """A numpy walk of the plan's schedule (a small grid: 4 SMs) on a tile
+    set with an empty row tile, a row tile of one tile and a ``first`` reset
+    inside a row tile's run, against ``tiled_spmm_plain`` in f64 on the
+    tiles the resets keep: max relative error 1e-6."""
+    rng = np.random.default_rng(J + k)
+    nrt = 24
+    counts = rng.integers(1, 7, size=nrt)
+    counts[3], counts[7], counts[11] = 0, 1, 5
+    rt = np.repeat(np.arange(nrt), counts).astype(np.int32)
+    ct = np.concatenate([np.sort(rng.choice(nrt, c, replace=False)) for c in counts])
+    row_ptr = np.concatenate([[0], np.cumsum(counts)])
+    first = np.zeros(len(rt), np.int32)
+    first[row_ptr[:-1][counts > 0]] = 1
+    first[row_ptr[11] + 2] = 1  # restart row tile 11's sum at its third tile
+    tiles = rng.standard_normal((len(rt), 128, 128))
+    X = rng.standard_normal((k, nrt * 128))
+    plan = spmm_tiled.tiled_plan(torch.from_numpy(row_ptr.astype(np.int32)), k, "cpu",
+                                 J=J, R=R, sms=4, cap=H100_SMEM)
+    assert plan.grid == min(4 * plan.blocks_per_sm, nrt)
+    got = _walk(plan, row_ptr, first, ct, tiles, X)
+    keep = np.ones(len(rt), bool)
+    keep[row_ptr[11]:row_ptr[11] + 2] = False  # the tiles the reset drops
+    want = spmm_tiled.tiled_spmm_plain(torch.from_numpy(tiles[keep]),
+                                       torch.from_numpy(rt[keep]),
+                                       torch.from_numpy(ct[keep].astype(np.int32)),
+                                       torch.from_numpy(X)).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+    assert np.all(got[:, 3 * 128:4 * 128] == 0)

@@ -31,7 +31,6 @@ from blockcg_tpu_torch.ops import _native  # noqa: E402
 # The KMAX = 128 candidates of each source (kernel templates at that width).
 PROBES = {
     "gram.cu": ["gram_kernel<128>"],
-    "fused_update.cu": ["coeff_update<128, false, false>", "coeff_update<128, true, true>"],
     "xr_update.cu": ["xr_update_gram<128>"],
     "qr_p_update.cu": ["qr_p_update<128>", "qr_px_update<128>"],
     "stencil.cu": [],
