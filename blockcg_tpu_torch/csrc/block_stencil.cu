@@ -15,146 +15,363 @@
 // (k, bs, ns) view (= flat (k, bs * ns)).
 // The Gram variant (merged only) also returns G = X Y^T (m x m).
 //
-// Design: one thread owns one site column s. For each diagonal it loads the
-// bs^2 coefficients blocks[d, :, :, s] (the warp's 32 threads read 32
-// neighbouring sites of one (d, a, b) row: one coalesced 128-byte line), and
-// for each input spin b the k values of X at column (s + o_d) mod ns, and
-// adds them into its m = bs * k outputs, held in registers as acc[BS][KI]
-// (common.cuh). BS (4 or 8) is the compile-time spin width >= bs, KMAX (8,
-// 16, 32 or 64) the register tile >= BS * k, KI = KMAX / BS.
-//
 // Bound: bytes. At 32^4 sites, bs = 4, k = 12 (m = 48) and 15 diagonals, the
 // contract reads the blocks once (15 * 16 * 4 B * 1,048,576 = 1.007 GB, 71%
 // of it), X once (201 MB) and writes Y once (201 MB): 1.41 GB, 0.42 ms at the
 // H100's 3.35 TB/s. The arithmetic, 2 * 15 * 16 * 12 * ns = 6.0 GFLOP (+ 4.8
 // for the Gram), takes 0.16 ms at 67 TFLOP/s f32, so the blocks' stream sets
-// the pace. Each block coefficient is read once and used k times from a
-// register; X's columns are re-read per diagonal through L1/L2 (the far
-// +-L^3 window of 48 rows is 12.6 MB, inside the 50 MB L2), so X comes from
-// DRAM about once. The realified complex operator (bs = 8, k = 6) moves 4.03
-// GB of blocks and 0.40 GB of fields: 1.32 ms. Staging X windows in shared
-// memory, TMA and wgmma are later work.
+// the pace. The realified complex operator (bs = 8, k = 6) moves 4.03 GB of
+// blocks and 0.40 GB of fields: 1.32 ms. The kernel this replaced (one
+// thread a site holding all m outputs in registers, 128-thread blocks, each
+// coefficient and each X value a scalar global load at its use, X re-read
+// per diagonal through L1/L2, a GramTile Gram) took 1.98 ms (3.26 with the
+// Gram) at m = 48.
 //
-// Gram: as in const_block_stencil.cu, each block stages its tile's X and Y
-// columns in shared memory, adds them into a register tile (GramTile),
-// writes one (m, m) partial, and reduce_partials sums the partials in a fixed
-// order. No atomics: a repeated call gives the same bits.
+// Design. A persistent grid of blocks, one an SM, walks tiles of T sites, each
+// as nd + 1 stages: first the tile's window of X (all m rows, sites i0 - h ..
+// i0 + T + h mod ns; two windows, by the parity of the block's tile count),
+// then one stage a diagonal: its bs^2 coefficient planes at the tile's sites
+// and, for a far diagonal (|o| > h), the m rows of X at (s + o) mod ns; near
+// diagonals read the window. The block is warp-specialised: PW producer
+// warps copy the stages into a ring of `stages` shared slots with cp.async
+// (16-byte copies; 4-byte ones where rows are not 16-byte aligned, ns % 4 !=
+// 0 or an offset view, or a far offset is not a multiple of 4), and 8
+// consumer warps compute, each thread a site and a group of KI right-hand
+// sides (T = 256 / groups), BS x KI sums. mbarriers hand the slots over: a
+// stage's copies arrive on its slot's `full` barrier when they land, the
+// consumers arrive on `empty` when done with it and on `wfree` when done
+// with a window, so the copies run up to `stages` stages ahead of the
+// arithmetic. The host plan (ops/block_stencil.py block_stencil_plan) picks
+// h, the split and the ring depth from the offsets, the rows and the card's
+// shared memory: at m = 48 on the matrix-link offsets h = 32 (0, +-1, +-31,
+// +-32 from the window), two groups of 6 over 128 sites, four stages.
+// Staged rows are in the order b * k + i whatever the field's row map (the
+// copies apply it), and lanes read consecutive sites: conflict-free shared
+// reads.
+//
+// What the variants showed (H100, tools/torch_kernel_times.py --variants):
+// the copies set the time. With the copies and the arithmetic done by the
+// same 8 warps, stage after stage, the apply took 2.35 ms at m = 48, the
+// copies alone 1.58: the arithmetic did not overlap them, and a deeper ring
+// did not help. Split over warps, the copies run at the rate of the warps
+// that issue them (2 producer warps: 4.1 ms, 4: 2.3, 8: 1.6), so 8 producer
+// warps sit beside the 8 consumer warps. Without the window (every
+// diagonal's X staged) the apply took 2.4 ms; on tiles of 64 or 32 sites
+// (4 or 8 groups) 3.0 and 5.9. 1-D bulk copies (the TMA engine, one copy a
+// 512-byte row) were slower than cp.async here (3.66 ms).
+//
+// Arithmetic: each output adds its terms in the order d = 0..nd-1, then b =
+// 0..bs-1, with fmaf, as the kernel this replaced did, so Y keeps its bits.
+//
+// Gram: after a tile's last diagonal its Y goes to a (m, T + 4) shared tile,
+// and VecGram (common.cuh; 4x4 register tiles fed by float4 reads, 6x6 at 96
+// rows) adds X Y^T over the window's centre and that tile while the
+// producers copy the next tile. Each block writes one (m, m) partial, and
+// reduce_partials sums the partials in block order in double. No atomics: a
+// repeated call gives the same bits.
+//
+// Width: one launch holds m = bs * k <= 96 rows (the wrapper issues one
+// launch per chunk of right-hand sides beyond that); the Gram is fused where
+// the split has at most two groups and the plan fits (the Gram's register
+// width is 2 BS KI), else the wrapper takes it from gram.cu.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxDiags = 32;
 constexpr int kMaxBs = 8;
+constexpr int kBsThreads = 256;  // consumer threads: T sites x groups
+constexpr int kBsProducerWarps = 8;  // warps issuing the copies (as many as consume)
+constexpr int kBsMaxRows = 96;  // m = bs * k of one launch
+constexpr int kBsMaxStages = 4;
+constexpr int kBsScratch = 16384;  // floor of a Gram launch's shared floats (VecGram::store)
+constexpr int kFar = 0x7fffffff;
 
 struct Offsets {
   int o[kMaxDiags];  // site offsets, each in [0, ns)
+  int s[kMaxDiags];  // signed shift in [-h, h] of a near diagonal, kFar for a far one
 };
 
-template <int BS, int KMAX, bool WITH_GRAM>
-__global__ void __launch_bounds__(kThreads)
-    bs_spmm(const float* __restrict__ blocks, Offsets offs, int nd, int bs,
-            const float* __restrict__ X, float* __restrict__ Y,
-            float* __restrict__ part, RowMap row, int k, long long ns) {
-  constexpr int KI = KMAX / BS;
-  extern __shared__ __align__(16) float smem[];  // [xs | ys] (WITH_GRAM)
-  __shared__ int s_off[kMaxDiags];
-  float* xs = smem;
-  float* ys = smem + KMAX * kLd;
-  const int m = bs * k;
-  if (threadIdx.x < nd) s_off[threadIdx.x] = offs.o[threadIdx.x];
-  if constexpr (WITH_GRAM) zero_pad_rows<KMAX>(xs, ys, m);
-  __syncthreads();
+// Row stride of a window of T + 2h sites: plus 4, so it is 4 mod 8 words for
+// VecGram's float4 reads of the centre.
+__host__ __device__ inline int window_ld(int T, int h) { return T + 2 * h + 4; }
 
-  const long long plane = static_cast<long long>(bs) * bs * ns;  // one diagonal
-  GramTile<KMAX> g;
-  const long long ntiles = (ns + kThreads - 1) / kThreads;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long s = t * kThreads + threadIdx.x;
-    const bool valid = s < ns;
+// Shared floats of a launch; mirrored by ops/block_stencil.py smem_bytes.
+// Two windows (m, W); `stages` ring slots, each the bs^2 coefficient planes of
+// T sites and, with any far diagonal, m rows of X; with the Gram the (m, T +
+// 4) Y tile, and at least the Gram's end-of-kernel scratch.
+__host__ __device__ inline long long bs_smem_floats(int bs, int m, int T, int h, int stages,
+                                                    bool far, bool gram) {
+  long long f = 2LL * m * window_ld(T, h) + 1LL * stages * (bs * bs + (far ? m : 0)) * T +
+                (gram ? 1LL * m * (T + 4) : 0);
+  if (gram && f < kBsScratch) f = kBsScratch;
+  return f;
+}
+
+struct Launch {
+  const float* blocks;
+  const float* X;
+  float* Y;
+  float* part;
+  Offsets offs;
+  RowMap row;
+  long long ns;
+  int nd, bs, k, h, T, stages;
+  bool far, vec;
+};
+
+// PROBE: bits that switch parts of the kernel off, for timing probes only
+// (tools/torch_kernel_times.py --variants builds them; the library's
+// launches take 0): 1 no arithmetic, 2 no far-X copies, 4 no coefficient
+// copies, 8 no window copies.
+constexpr int kProbeNoMath = 1, kProbeNoFar = 2, kProbeNoCoef = 4, kProbeNoWindow = 8;
+
+// Copy F[(j0 + v) mod ns], v < span, into d: the lanes of a warp share the
+// row; vec takes 16-byte copies (j0, span, ns multiples of 4: a quad never
+// straddles ns).
+__device__ __forceinline__ void copy_row(float* d, const float* F, long long j0, int span,
+                                         long long ns, bool vec, int lane) {
+  for (int v = (vec ? 4 : 1) * lane; v < span; v += (vec ? 4 : 1) * 32) {
+    long long j = j0 + v;
+    while (j >= ns) j -= ns;  // more than once only where the span is wider than ns
+    if (vec) cp_async16(d + v, F + j, true);
+    else cp_async4(d + v, F + j, true);
+  }
+}
+
+// Row r (staged order b * k + i) of X.
+__device__ __forceinline__ const float* x_row(const Launch& p, int r) {
+  const int b = r / p.k, i = r - b * p.k;
+  return p.X +
+         (static_cast<long long>(b) * p.row.sa + static_cast<long long>(i) * p.row.si) * p.ns;
+}
+
+// The producer warps' share (thread `pt` of 32 PW) of stage j of the
+// tile at i0: j = 0, the m rows of X at sites i0 - h .. i0 + T + h (mod ns)
+// into the window; j = 1 + d, diagonal d's bs^2 coefficient planes at sites
+// i0 .. i0 + T - 1 (zero past ns) and, for a far diagonal, the m rows of X at
+// (s + o_d) mod ns into the slot. Producer warp w copies rows w, w + PW, ...,
+// its lanes over the sites.
+template <int PROBE, int PW>
+__device__ __forceinline__ void produce(const Launch& p, float* win, float* slot, int j,
+                                        long long i0, int pt) {
+  const int m = p.bs * p.k, W = window_ld(p.T, p.h), planes = p.bs * p.bs;
+  const int warp = pt / 32, lane = pt % 32, nwarps = PW;
+  if (j == 0) {
+    if (PROBE & kProbeNoWindow) return;
+    long long base = (i0 - p.h) % p.ns;  // the window's first site, in [0, ns)
+    if (base < 0) base += p.ns;
+    for (int r = warp; r < m; r += nwarps)
+      copy_row(win + r * W, x_row(p, r), base, p.T + 2 * p.h, p.ns, p.vec, lane);
+    return;
+  }
+  const int d = j - 1;
+  if (!(PROBE & kProbeNoCoef)) {
+    const float* base = p.blocks + static_cast<long long>(d) * planes * p.ns + i0;
+    for (int e = warp; e < planes; e += nwarps) {
+      const float* F = base + static_cast<long long>(e) * p.ns;
+      for (int q = (p.vec ? 4 : 1) * lane; q < p.T; q += (p.vec ? 4 : 1) * 32) {
+        const bool in = i0 + q < p.ns;
+        if (p.vec) cp_async16(slot + e * p.T + q, in ? F + q : p.blocks, in);
+        else cp_async4(slot + e * p.T + q, in ? F + q : p.blocks, in);
+      }
+    }
+  }
+  if (p.offs.s[d] == kFar && !(PROBE & kProbeNoFar)) {
+    long long j0 = i0 + p.offs.o[d];
+    if (j0 >= p.ns) j0 -= p.ns;
+    const bool vec = p.vec && p.offs.o[d] % 4 == 0;
+    for (int r = warp; r < m; r += nwarps)
+      copy_row(slot + (planes + r) * p.T, x_row(p, r), j0, p.T, p.ns, vec, lane);
+  }
+}
+
+// The fused Gram's register tiles: 4x4 (6x6 at 96 rows, where 4x4 tiles
+// would pass 256 threads a copy), so that its sums fit beside the apply's
+// under the 128 registers of a 512-thread block: 6x6 tiles at 48 rows
+// spilled 132 bytes (tools/torch_ptxas.py).
+template <int BS, int KI>
+using BsGram = VecGram<2 * BS * KI, kBsThreads, 2 * BS * KI == 96 ? 6 : 4>;
+
+// A barrier of the consumer warps alone (named barrier 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kBsThreads) : "memory");
+}
+
+// BS >= bs spins, KI right-hand sides a consumer thread (group g holds RHS
+// g*KI ..); GRAM: the fused Gram, on a VecGram of 2 BS KI rows (>= m with at
+// most two groups). Warps 0-7 consume, the PW after them produce. A block walks its
+// tiles t = blockIdx.x + i * gridDim.x, each as nd + 1 stages (the window,
+// then one a diagonal); stage q of the walk lives in ring slot q % stages.
+// Barriers: full[s], the producers' copies of the slot's stage have landed
+// (32 PW cp.async arrivals); empty[s], every consumer warp is done
+// with it (kBsThreads / 32 arrivals); wfree[b], every consumer warp is done
+// with window b's tile, its Gram included.
+template <int BS, int KI, bool GRAM, int PROBE = 0, int PW = kBsProducerWarps>
+__global__ void __launch_bounds__(kBsThreads + 32 * PW, 1) bs_spmm(const Launch p) {
+  extern __shared__ __align__(16) float smem[];  // 2 windows | ring | sY
+  __shared__ unsigned long long full[kBsMaxStages], empty[kBsMaxStages], wfree[2];
+  const int m = p.bs * p.k, T = p.T, W = window_ld(T, p.h), LY = T + 4;
+  const int planes = p.bs * p.bs;
+  const int slot_floats = (planes + (p.far ? m : 0)) * T;
+  float* win = smem;
+  float* ring = smem + 2 * m * W;
+  float* sy = ring + p.stages * slot_floats;
+  const int per_tile = p.nd + 1;
+  const long long ntiles = (p.ns + T - 1) / T;
+  const int cwarps = kBsThreads / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 32 * PW);
+      mbar_init(&empty[s], cwarps);
+    }
+    mbar_init(&wfree[0], cwarps);
+    mbar_init(&wfree[1], cwarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  BsGram<BS, KI> gram;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= kBsThreads) {  // producers
+    const int pt = threadIdx.x - kBsThreads;
+    unsigned q = 0;
+    for (long long t = blockIdx.x, lt = 0; t < ntiles; t += gridDim.x, ++lt) {
+      for (int j = 0; j < per_tile; ++j, ++q) {
+        const int sl = static_cast<int>(q % p.stages);
+        if (lane == 0) {
+          if (q >= static_cast<unsigned>(p.stages))
+            mbar_wait(&empty[sl], (q / p.stages - 1) & 1);  // the slot's last stage is consumed
+          if (j == 0 && lt >= 2) mbar_wait(&wfree[lt & 1], (lt / 2 - 1) & 1);  // tile lt - 2 too
+        }
+        __syncwarp();
+        produce<PROBE, PW>(p, win + (lt & 1) * m * W, ring + sl * slot_floats, j, t * T, pt);
+        cp_async_mbar_arrive(&full[sl]);
+      }
+    }
+  } else {  // consumers
+    const int c = threadIdx.x % T, i0g = (threadIdx.x / T) * KI;  // site column, first RHS
     float acc[BS][KI];
-    zero(acc);
-    if (valid) {
-      for (int d = 0; d < nd; ++d) {
-        long long src = s + s_off[d];
-        if (src >= ns) src -= ns;
-        const float* c = blocks + d * plane + s;  // blocks[d, a, b, s] = c[(a*bs+b)*ns]
-        const RowStrides rows = row.times(ns);
+    unsigned q = 0;
+    for (long long t = blockIdx.x, lt = 0; t < ntiles; t += gridDim.x, ++lt) {
+      const float* wt = win + (lt & 1) * m * W;
+      const long long s = t * T + c;
+      for (int j = 0; j < per_tile; ++j, ++q) {
+        const int sl = static_cast<int>(q % p.stages);
+        if (lane == 0) mbar_wait(&full[sl], (q / p.stages) & 1);  // the stage has landed
+        __syncwarp();
+        if (j > 0 && !(PROBE & kProbeNoMath)) {
+          const int d = j - 1;
+          if (d == 0) zero(acc);
+          const float* sp = ring + sl * slot_floats;
+          const int sh = p.offs.s[d];
+          const float* xs = sh != kFar ? wt + p.h + sh + c : sp + planes * T + c;
+          const int lx = sh != kFar ? W : T;
+          const float* cs = sp + c;
+          // The diagonal's X loads first, then, for each b, its column of
+          // coefficients and their FMAs: the order b, then a, of the kernel
+          // this replaced.
+          float x[BS][KI];
 #pragma unroll
-        for (int b = 0; b < BS; ++b) {
-          if (b < bs) {
-            const float* xrow = X + src + b * rows.a;
-            float xb[KI];
+          for (int b = 0; b < BS; ++b)
 #pragma unroll
-            for (int i = 0; i < KI; ++i) xb[i] = i < k ? xrow[i * rows.i] : 0.f;
+            for (int ii = 0; ii < KI; ++ii)
+              x[b][ii] = b < p.bs ? xs[(b * p.k + min(i0g + ii, p.k - 1)) * lx] : 0.f;
 #pragma unroll
-            for (int a = 0; a < BS; ++a) {
-              if (a < bs) {
-                const float w = c[static_cast<long long>(a * bs + b) * ns];
+          for (int b = 0; b < BS; ++b) {
+            if (b < p.bs) {
+              float w[BS];
 #pragma unroll
-                for (int i = 0; i < KI; ++i) acc[a][i] = fmaf(w, xb[i], acc[a][i]);
+              for (int a = 0; a < BS; ++a) w[a] = a < p.bs ? cs[(a * p.bs + b) * T] : 0.f;
+#pragma unroll
+              for (int a = 0; a < BS; ++a) {
+                if (a < p.bs) {
+#pragma unroll
+                  for (int ii = 0; ii < KI; ++ii) acc[a][ii] = fmaf(w[a], x[b][ii], acc[a][ii]);
+                }
               }
             }
           }
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[sl]);  // this warp is done with the slot
       }
-      const RowStrides rows = row.times(ns);
+      if (!(PROBE & kProbeNoMath)) {
+        const bool valid = s < p.ns;
+        const RowStrides rs = p.row.times(p.ns);
+        if constexpr (GRAM) consumers_sync();  // the last tile's Gram is done with sY
 #pragma unroll
-      for (int a = 0; a < BS; ++a)
+        for (int a = 0; a < BS; ++a)
 #pragma unroll
-        for (int i = 0; i < KI; ++i)
-          if (a < bs && i < k) Y[s + a * rows.a + i * rows.i] = acc[a][i];
-    }
-    if constexpr (WITH_GRAM) {
-      __syncthreads();  // the previous tile's Gram reads are done
-      stage_x(xs, X, m, ns, s, valid);
-      stage_rows(ys, acc, bs, k, row);
-      __syncthreads();
-      g.accumulate(xs, ys);
+          for (int ii = 0; ii < KI; ++ii) {
+            const int i = i0g + ii;
+            if (a < p.bs && i < p.k) {
+              if (valid) p.Y[s + a * rs.a + i * rs.i] = acc[a][ii];
+              if constexpr (GRAM) sy[(a * p.k + i) * LY + c] = valid ? acc[a][ii] : 0.f;
+            }
+          }
+        if constexpr (GRAM) {
+          consumers_sync();  // sY is written
+          gram.accumulate(wt + p.h, W, sy, LY, T, m);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&wfree[lt & 1]);  // this warp is done with the window
     }
   }
-  if constexpr (WITH_GRAM) g.store(part + static_cast<long long>(blockIdx.x) * m * m, m);
+  if constexpr (GRAM) {
+    __syncthreads();
+    gram.store(p.part + static_cast<long long>(blockIdx.x) * m * m, m, smem);
+  }
 }
 
-struct Args {
-  const float* blocks;
-  Offsets offs;
-  int nd, bs;
-  const float* X;
-  float *Y, *part, *G;
-  int k, ks;
-  long long ns;
-  bool merged;
-  int nblocks;
-  cudaStream_t stream;
-};
-
-template <int BS, int KMAX, bool WITH_GRAM>
-cudaError_t launch(const Args& a) {
-  auto kernel = bs_spmm<BS, KMAX, WITH_GRAM>;
-  const size_t smem = WITH_GRAM ? 2 * KMAX * kLd * sizeof(float) : 0;
+template <int BS, int KI, bool GRAM, int PROBE = 0, int PW = kBsProducerWarps>
+cudaError_t launch(const Launch& p, float* G, int max_blocks, int device, cudaStream_t stream) {
+  static_assert(BsGram<BS, KI>::kScratch <= kBsScratch,
+                "the Gram's scratch must fit the shared floor");
+  auto kernel = bs_spmm<BS, KI, GRAM, PROBE, PW>;
+  const size_t smem =
+      bs_smem_floats(p.bs, p.bs * p.k, p.T, p.h, p.stages, p.far, GRAM) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.blocks, a.offs, a.nd, a.bs, a.X,
-                                                  a.Y, a.part,
-                                                  row_map(a.merged, a.bs, a.ks), a.k, a.ns);
-  if (WITH_GRAM) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
+  int grid = 0;
+  err = persistent_grid(kernel, kBsThreads + 32 * PW, smem, device, (p.ns + p.T - 1) / p.T,
+                        max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBsThreads + 32 * PW, smem, stream>>>(p);
+  if (GRAM) launch_reduce(p.part, G, p.bs * p.k, grid, stream);
   return cudaGetLastError();
 }
 
-template <int BS, int KMAX>
-cudaError_t by_gram(bool gram, const Args& a) {
-  return gram ? launch<BS, KMAX, true>(a) : launch<BS, KMAX, false>(a);
+template <int BS, int KI>
+cudaError_t by_gram(const Launch& p, float* G, int max_blocks, int device, cudaStream_t stream) {
+  return G != nullptr ? launch<BS, KI, true>(p, G, max_blocks, device, stream)
+                      : launch<BS, KI, false>(p, G, max_blocks, device, stream);
 }
 
-template <int BS>
-cudaError_t by_kmax(int kmax, bool gram, const Args& a) {
-  switch (kmax) {
-    case 8: return by_gram<BS, 8>(gram, a);
-    case 16: return by_gram<BS, 16>(gram, a);
-    case 32: return by_gram<BS, 32>(gram, a);
-    case 64: return by_gram<BS, 64>(gram, a);
-    default: return cudaErrorInvalidValue;
+// Check a launch's arguments and fill in p (the near/far split of the
+// offsets, the copy width); cudaSuccess or cudaErrorInvalidValue.
+cudaError_t make_launch(Launch* p, const float* blocks, const int* offsets, int nd, int bs,
+                        const float* X, float* Y, float* part, bool gram, int k, int ks,
+                        long long ns, int merged, int h, int groups, int ki, int stages,
+                        int max_blocks) {
+  const int bsw = bs < 1 ? 0 : bs <= 4 ? 4 : bs <= kMaxBs ? 8 : 0;
+  const bool pow2 = groups == 1 || groups == 2 || groups == 4 || groups == 8;
+  if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || bs * k > kBsMaxRows || ns < 1 ||
+      max_blocks < 1 || ks < k || !pow2 || ki * groups < k || stages < 2 ||
+      stages > kBsMaxStages || h < 0 || h % 4 != 0 ||
+      (gram && (!merged || ks != k || groups > 2)))
+    return cudaErrorInvalidValue;
+  *p = Launch{blocks, X, Y, part, {}, row_map(merged != 0, bs, ks), ns, nd, bs, k, h,
+              kBsThreads / groups, stages, false, false};
+  for (int d = 0; d < nd; ++d) {
+    const int o = offsets[d];
+    if (o < 0 || o >= ns) return cudaErrorInvalidValue;
+    p->offs.o[d] = o;
+    p->offs.s[d] = o <= h ? o : (ns - o <= h ? static_cast<int>(o - ns) : kFar);
+    p->far = p->far || p->offs.s[d] == kFar;
   }
+  p->vec = ns % 4 == 0 && aligned16(X) && aligned16(blocks);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -163,27 +380,42 @@ cudaError_t by_kmax(int kmax, bool gram, const Args& a) {
 // blocks: device (nd, bs, bs, ns). X, Y: device (bs * k, ns) fields, merged
 // (row a * ks + i) when merged != 0, else the (k, bs, ns) view (row i * bs +
 // a). ks: the merged view's right-hand sides per spin, k on a whole field; a
-// row-chunked launch covers RHS j0..j0+k of a field of ks, with X and Y
-// offset by j0 rows (the view's chunks are contiguous and take ks = k).
-// G == nullptr selects the plain apply; otherwise (merged only, ks == k) part
-// holds (nblocks, m, m) and G receives X Y^T.
-extern "C" int bcg_block_stencil_spmm(const float* blocks, const int* offsets,
-                                      int nd, int bs, const float* X, float* Y,
-                                      float* part, float* G, int k, int ks,
-                                      long long ns, int merged, int nblocks,
-                                      int device, cudaStream_t stream) {
-  const int bsw = bs < 1 ? 0 : bs <= 4 ? 4 : bs <= kMaxBs ? 8 : 0;
-  const int kmax = kmax_for(bsw * k);
-  if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 ||
-      nblocks < 1 || (G != nullptr && !merged) || ks < k || (G != nullptr && ks != k))
-    return cudaErrorInvalidValue;
-  Args a{blocks, {}, nd, bs, X, Y, part, G, k, ks, ns, merged != 0, nblocks, stream};
-  for (int d = 0; d < nd; ++d) {
-    if (offsets[d] < 0 || offsets[d] >= ns) return cudaErrorInvalidValue;
-    a.offs.o[d] = offsets[d];
-  }
-  cudaError_t err = cudaSetDevice(device);
+// launch on a chunk of right-hand sides covers RHS j0..j0+k of a field of
+// ks, with X and Y offset by j0 rows (the view's chunks are contiguous and
+// take ks = k). h, groups, ki and stages come from ops/block_stencil.py
+// block_stencil_plan (T = 256 / groups sites a tile; ki RHS a thread, one of
+// the built widths: 1, 2, 3, 4, 6, 8, 12 for bs <= 4, 1, 2, 3 above).
+// G == nullptr selects the plain apply; otherwise (merged only, ks == k, at
+// most two groups) part holds (max_blocks, m, m) and G receives X Y^T.
+extern "C" int bcg_block_stencil_spmm(const float* blocks, const int* offsets, int nd, int bs,
+                                      const float* X, float* Y, float* part, float* G, int k,
+                                      int ks, long long ns, int merged, int h, int groups,
+                                      int ki, int stages, int max_blocks, int device,
+                                      cudaStream_t stream) {
+  Launch p;
+  cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, part, G != nullptr, k, ks,
+                                ns, merged, h, groups, ki, stages, max_blocks);
   if (err != cudaSuccess) return err;
-  const bool gram = G != nullptr;
-  return bsw == 4 ? by_kmax<4>(kmax, gram, a) : by_kmax<8>(kmax, gram, a);
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+#define BCG_BS(BS, KI) return by_gram<BS, KI>(p, G, max_blocks, device, stream)
+  if (bs <= 4) {
+    switch (ki) {
+      case 1: BCG_BS(4, 1);
+      case 2: BCG_BS(4, 2);
+      case 3: BCG_BS(4, 3);
+      case 4: BCG_BS(4, 4);
+      case 6: BCG_BS(4, 6);
+      case 8: BCG_BS(4, 8);
+      case 12: BCG_BS(4, 12);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (ki) {
+    case 1: BCG_BS(8, 1);
+    case 2: BCG_BS(8, 2);
+    case 3: BCG_BS(8, 3);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BCG_BS
 }

@@ -1,9 +1,10 @@
 // Pieces shared by the kernels of blockcg_tpu_torch: launch geometry,
 // column loads, the k x k coefficient apply, the per-block Gram tiles
-// (GramTile, and VecGram of the streaming kernels), the deterministic
-// second-stage reduction of the Gram partials, and the cp.async pieces of the
-// streaming kernels (stencil.cu, mm_update.cu, update_gram.cuh,
-// px_update.cu).
+// (GramTile, and VecGram and SymGram of the streaming kernels), the
+// deterministic second-stage reduction of the Gram partials, the cp.async
+// pieces of the streaming kernels (stencil.cu, mm_update.cu,
+// update_gram.cuh, px_update.cu, gram.cu) and the mbarriers of the
+// warp-specialised block stencil (block_stencil.cu).
 //
 // Layout: every field is lanes-major (k, n) float32, row r of column i at
 // F[r * n + i], so the threads of a warp (neighbouring columns i) read
@@ -497,20 +498,25 @@ inline cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int 
 }
 
 // The block's share of G = X Y^T from TS x TS register tiles (8x8 from KMAX
-// = 32, 4x4 below), rows rt + S*a and columns st + S*b (S = KMAX / TS), fed
-// by float4 shared loads along the columns: 16 loads for 256 FMAs. xs and ys
-// are row-major staged tiles with row strides lx and ly (multiples of 4
-// words; 4 mod 8 words puts the lanes of a quarter warp that read different
-// rows in different bank groups), ncol columns (a multiple of 4). A block of
-// THREADS threads holds THREADS / S^2 copies of the tile, each over its own
-// columns, summed in a fixed order by store(): no atomics, so a repeated
-// call gives the same bits.
-template <int KMAX, int THREADS>
+// = 32, 6x6 at 96 rows, 4x4 below 32), rows rt + S*a and columns st + S*b (S
+// = KMAX / TS), fed by float4 shared loads along the columns: 16 loads for
+// 256 FMAs at 8x8. xs and ys are row-major staged tiles with row strides lx
+// and ly (multiples of 4 words; 4 mod 8 words puts the lanes of a quarter
+// warp that read different rows in different bank groups), ncol columns (a
+// multiple of 4); X has kx rows and Y ky (a square Gram: both k). A block of
+// THREADS threads holds THREADS / S^2 copies of the tile (threads past the
+// last whole copy idle), each over its own columns, summed in a fixed order
+// by store(): no atomics, so a repeated call gives the same bits. 96 rows
+// take 6x6 tiles: 256 threads are one whole copy, where 8x8 tiles would keep
+// 144 of them busy (gram.cu).
+template <int KMAX, int THREADS, int TS_ = (KMAX == 96 ? 6 : KMAX >= 32 ? 8 : 4)>
 struct VecGram {
-  static constexpr int TS = KMAX >= 32 ? 8 : 4;          // register tile side
+  static constexpr int TS = TS_;                         // register tile side
   static constexpr int S = KMAX / TS;
+  static_assert(S * TS == KMAX, "the register tile must divide KMAX");
   static constexpr int kCopy = S * S;                    // threads a copy
   static constexpr int kGroups = THREADS / kCopy;        // copies a block
+  static_assert(kGroups >= 1, "a block must hold one copy of the tile");
   static constexpr int kScratch = kGroups * KMAX * KMAX; // floats of store()
   float acc[TS][TS];
   int rt, st, grp;
@@ -528,16 +534,22 @@ struct VecGram {
 
   __device__ __forceinline__ void accumulate(const float* xs, int lx, const float* ys, int ly,
                                              int ncol, int k) {
-    // Rows past k read row k - 1: unconditional loads, whose products land
-    // only in entries of G that store() drops.
+    accumulate(xs, lx, ys, ly, ncol, k, k);
+  }
+
+  __device__ __forceinline__ void accumulate(const float* xs, int lx, const float* ys, int ly,
+                                             int ncol, int kx, int ky) {
+    if (grp >= kGroups) return;
+    // Rows past kx (ky) read row kx - 1 (ky - 1): unconditional loads, whose
+    // products land only in entries of G that store() drops.
     for (int c = 4 * grp; c < ncol; c += 4 * kGroups) {
       float4 x[TS], y[TS];
 #pragma unroll
       for (int a = 0; a < TS; ++a)
-        x[a] = *reinterpret_cast<const float4*>(xs + min(rt + S * a, k - 1) * lx + c);
+        x[a] = *reinterpret_cast<const float4*>(xs + min(rt + S * a, kx - 1) * lx + c);
 #pragma unroll
       for (int b = 0; b < TS; ++b)
-        y[b] = *reinterpret_cast<const float4*>(ys + min(st + S * b, k - 1) * ly + c);
+        y[b] = *reinterpret_cast<const float4*>(ys + min(st + S * b, ky - 1) * ly + c);
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll
@@ -553,23 +565,73 @@ struct VecGram {
   }
 
   // Sum the block's copies in group order through scratch (kScratch floats
-  // of shared memory no thread still reads) and write the (k, k) partial.
-  __device__ void store(float* part, int k, float* scratch) const {
-    float* mine = scratch + grp * KMAX * KMAX;
+  // of shared memory no thread still reads) and write the (kx, ky) partial.
+  __device__ void store(float* part, int k, float* scratch) const { store(part, k, k, scratch); }
+
+  __device__ void store(float* part, int kx, int ky, float* scratch) const {
+    if (grp < kGroups) {
+      float* mine = scratch + grp * KMAX * KMAX;
 #pragma unroll
-    for (int a = 0; a < TS; ++a)
+      for (int a = 0; a < TS; ++a)
 #pragma unroll
-      for (int b = 0; b < TS; ++b) mine[(rt + S * a) * KMAX + st + S * b] = acc[a][b];
+        for (int b = 0; b < TS; ++b) mine[(rt + S * a) * KMAX + st + S * b] = acc[a][b];
+    }
     __syncthreads();
+    if (threadIdx.x >= THREADS) return;  // a block's other warps (block_stencil.cu's producers)
     for (int e = threadIdx.x; e < KMAX * KMAX; e += THREADS) {
       const int r = e / KMAX, s = e % KMAX;
-      if (r >= k || s >= k) continue;
+      if (r >= kx || s >= ky) continue;
       float v = scratch[e];
       for (int g = 1; g < kGroups; ++g) v += scratch[g * KMAX * KMAX + e];
-      part[r * k + s] = v;
+      part[r * ky + s] = v;
     }
   }
 };
+
+// ---- mbarriers (sm_80 and later) for warp-specialised pipelines
+// (block_stencil.cu): producer warps' cp.async copies of a stage arrive on
+// the stage's barrier when they land (cp_async_mbar_arrive), consumers wait
+// on the phase's parity and arrive on a second barrier once the stage's
+// buffer may be refilled.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// Make initialised mbarriers visible to the asynchronous proxy (call before
+// the barrier that publishes them to the block).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Arrive on bar once this thread's earlier cp.async copies have landed (the
+// arrival counts against bar's initial count).
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 
 // Raise the dynamic shared-memory cap of a kernel that needs more than the
 // default 48 KB (a launch above the cap is refused).

@@ -1,71 +1,192 @@
 // Gram G = U V^T of two lanes-major fields, U (ku, n) and V (kv, n), each
-// at most 64 rows: the square Gram of a (k, n) pair, or one block of a wider
-// Gram, which the Python wrapper tiles into such launches.
+// at most 96 rows: the square Gram of a (k, n) pair, or one block of a wider
+// Gram, which the Python wrapper tiles into such launches (ops/fused.py
+// wide_gram).
 //
 // Replaces the Pallas kernel blockcg_tpu/ops/fused.py gram (the optional
 // `seed` operand is not part of the port's contract: it only stopped XLA
 // hoisting timing loops).
 //
-// Bound: bytes, two field reads and a k x k output. The TPU kernel carried the
-// sum across sequential grid steps; CUDA blocks run in no order, so each block
-// keeps a register tile of its partial (GramTile) over a grid-stride walk of
-// 128-column tiles staged in shared memory, writes one (k, k) partial, and a
-// second kernel sums the partials in a fixed order (no atomics), which makes
-// repeated calls bitwise identical.
+// Bound: at (32, 2,097,152), U != V, the 537 MB of the two fields (0.160 ms
+// at the H100's 3.35 TB/s) against 4.3 GFLOP (0.064 ms at 67 TFLOP/s f32):
+// bytes. At (96, 32^4) the 19.3 GFLOP of U V^T (0.289 ms) pass the 805 MB
+// (0.240 ms): the FMA pipe; U V^T with U == V is symmetric and needs only
+// its upper triangle, 9.8 GFLOP (0.146 ms). The kernel this replaced (one
+// thread a column of 128-thread blocks, per-row-conditional scalar loads of
+// each column, two barriers a 128-column tile, GramTile's 4x4 register tiles
+// fed by scalar shared reads, at most 64 rows a launch) took 0.319 ms at
+// (32, 2,097,152) and 1.643 ms at (96, 32^4) as four 48-row launches, each
+// field read twice.
+//
+// Design: a persistent grid of 256-thread blocks, one an SM, walks tiles of
+// T columns (ops/fused.py gram_plan: the widest tile whose two stages fit,
+// 128 columns at 96 + 96 rows, 256 at 32 + 32 and at 48 + 48). Each tile of
+// the stacked rows [U; V] (U alone when U is V) is copied into shared
+// memory with cp.async, double-buffered: the next tile's copy is in flight
+// while this one computes. 16-byte copies where
+// n % 4 == 0 and both fields are 16-byte aligned, else 4-byte copies on the
+// same schedule; columns past n are zero-filled. The Gram comes from
+// common.cuh's register tiles fed by float4 shared reads: VecGram for U V^T
+// (8x8 tiles, 6x6 at 96 rows, whose 256 threads make one whole copy), and,
+// when the wrapper passes the same storage for U and V, SymGram, which takes
+// only the tiles on and above the diagonal and mirrors the rest, so G is
+// exactly symmetric. Every block writes one (ku, kv) partial and
+// launch_reduce sums the partials in block order in double; the grid depends
+// on the card and the plan alone, so a repeated call gives the same bits (no
+// atomics).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
-    gram_kernel(const float* __restrict__ U, const float* __restrict__ V,
-                float* __restrict__ part, int ku, int kv, long long n) {
-  extern __shared__ __align__(16) float smem[];  // us | vs
-  GramTile<KMAX> g;
-  const long long ntiles = (n + kThreads - 1) / kThreads;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long i = t * kThreads + threadIdx.x;
-    const bool valid = i < n;
-    float u[KMAX], v[KMAX];
-    load_col<KMAX>(u, U, ku, n, i, valid);
-    load_col<KMAX>(v, V, kv, n, i, valid);
-    __syncthreads();
-    stage_col<KMAX>(smem, u);
-    stage_col<KMAX>(smem + KMAX * kLd, v);
-    __syncthreads();
-    g.accumulate(smem, smem + KMAX * kLd);
-  }
-  g.store(part + static_cast<long long>(blockIdx.x) * ku * kv, ku, kv);
+constexpr int kGrThreads = 256;
+// Tiles in shared memory: one in flight while one computes. Three (two in
+// flight) ran (32, 128^3) in 237 us against 245, but leave room for only 64
+// columns at 96 + 96 rows, which took 1161 us against 814 at 128
+// (tools/torch_kernel_times.py --variants, H100).
+constexpr int kGrStages = 2;
+// Floor of a launch's shared floats: room for every Gram's end-of-kernel
+// scratch (VecGram / SymGram kScratch), mirrored by ops/fused.py.
+constexpr int kGrScratch = 16384;
+
+// Row stride of a staged tile of T columns: 4 mod 8 words for VecGram's
+// float4 reads, 8 mod 32 for SymGram's.
+__host__ __device__ inline int gram_ld(int T, bool sym) { return T + (sym ? 8 : 4); }
+
+// Shared floats of a launch: `stages` tiles of `rows` stacked rows; mirrored
+// by ops/fused.py gram_smem_bytes.
+__host__ __device__ inline long long gram_smem_floats(int rows, int T, bool sym, int stages) {
+  const long long f = 1LL * stages * rows * gram_ld(T, sym);
+  return f > kGrScratch ? f : kGrScratch;
 }
 
-template <int KMAX>
-cudaError_t launch(const float* U, const float* V, float* part, float* G,
-                   int ku, int kv, long long n, int nblocks, cudaStream_t stream) {
-  auto kernel = gram_kernel<KMAX>;
-  const size_t smem = 2 * KMAX * kLd * sizeof(float);
+// Copy columns i0 .. i0+T-1 of the stacked rows [U; V] (U alone: rows == ku)
+// into s (row stride ld) with cp.async: warp w copies rows w, w + 8, ...,
+// each lane 16 (or 4) bytes at a time; columns past n are zero-filled.
+__device__ __forceinline__ void load_tile(float* s, const float* U, const float* V, int ku,
+                                          int rows, long long n, long long i0, int T, int ld,
+                                          bool vec) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kGrThreads / 32) {
+    const float* F = (r < ku ? U + static_cast<long long>(r) * n
+                             : V + static_cast<long long>(r - ku) * n) + i0;
+    float* d = s + r * ld;
+    if (vec) {
+      for (int q = 4 * lane; q < T; q += 128)
+        cp_async16(d + q, i0 + q < n ? F + q : U, i0 + q < n);
+    } else {
+      for (int q = lane; q < T; q += 32) cp_async4(d + q, i0 + q < n ? F + q : U, i0 + q < n);
+    }
+  }
+}
+
+// The register tile's side: VecGram's own (common.cuh) for U V^T; for
+// SymGram 8x8 from 64 rows, 4x4 below (as update_gram.cuh).
+template <int KMAX, bool SYM>
+constexpr int kGrTS = SYM ? (KMAX >= 64 ? 8 : 4) : VecGram<KMAX, kGrThreads>::TS;
+
+// The Gram of a launch: SymGram when U is V, else VecGram, on TS x TS tiles.
+template <int KMAX, bool SYM, int TS>
+using GramOf =
+    std::conditional_t<SYM, SymGram<KMAX, kGrThreads, TS>, VecGram<KMAX, kGrThreads, TS>>;
+
+// TS, MINB (blocks an SM for __launch_bounds__) and ST (tiles in shared
+// memory) other than the built ones are for timing probes
+// (tools/torch_kernel_times.py --variants).
+template <int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1, int ST = kGrStages>
+__global__ void __launch_bounds__(kGrThreads, MINB)
+    gram_kernel(const float* __restrict__ U, const float* __restrict__ V,
+                float* __restrict__ part, int ku, int kv, long long n, int T, bool vec) {
+  extern __shared__ __align__(16) float smem[];  // ST tiles of (rows, ld)
+  const int rows = SYM ? ku : ku + kv;
+  const int ld = gram_ld(T, SYM);
+  const long long stage = static_cast<long long>(rows) * ld;
+  GramOf<KMAX, SYM, TS> g;
+  const long long ntiles = (n + T - 1) / T;
+  for (int s = 0; s < ST - 1; ++s) {  // the first ST - 1 tiles of the walk
+    const long long ts = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+    if (ts < ntiles) load_tile(smem + s * stage, U, V, ku, rows, n, ts * T, T, ld, vec);
+    cp_async_commit();
+  }
+  int buf = 0;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    // Refill the buffer the previous tile computed on, ST - 1 tiles ahead.
+    const long long tn = t + static_cast<long long>(ST - 1) * gridDim.x;
+    if (tn < ntiles)
+      load_tile(smem + (buf + ST - 1) % ST * stage, U, V, ku, rows, n, tn * T, T, ld, vec);
+    cp_async_commit();
+    cp_async_wait<ST - 1>();  // this tile's copy has landed
+    __syncthreads();          // ... for every thread's share of it
+    const float* s = smem + buf * stage;
+    if constexpr (SYM) g.accumulate(s, ld, T, ku);
+    else g.accumulate(s, ld, s + ku * ld, ld, T, ku, kv);
+    __syncthreads();  // every read of this buffer is done before its refill
+    buf = (buf + 1) % ST;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* mine = part + static_cast<long long>(blockIdx.x) * ku * kv;
+  if constexpr (SYM) g.store(mine, ku, smem);
+  else g.store(mine, ku, kv, smem);
+}
+
+template <int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1, int ST = kGrStages>
+cudaError_t launch(const float* U, const float* V, float* part, float* G, int ku, int kv,
+                   long long n, int T, int max_blocks, int device, cudaStream_t stream) {
+  static_assert(GramOf<KMAX, SYM, TS>::kScratch <= kGrScratch,
+                "the Gram's scratch must fit the shared floor");
+  auto kernel = gram_kernel<KMAX, SYM, TS, MINB, ST>;
+  const size_t smem = gram_smem_floats(SYM ? ku : ku + kv, T, SYM, ST) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<nblocks, kThreads, smem, stream>>>(U, V, part, ku, kv, n);
-  launch_reduce(part, G, ku, kv, nblocks, stream);
+  int grid = 0;
+  err = persistent_grid(kernel, kGrThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = n % 4 == 0 && aligned16(U) && aligned16(V);
+  kernel<<<grid, kGrThreads, smem, stream>>>(U, V, part, ku, kv, n, T, vec);
+  launch_reduce(part, G, ku, kv, grid, stream);
   return cudaGetLastError();
+}
+
+// The register width of a launch of up to k rows (0 past 96); mirrored by
+// ops/fused.py GRAM_WIDTHS.
+inline int gram_width(int k) {
+  static const int widths[] = {8, 16, 32, 48, 64, 96};
+  for (int w : widths)
+    if (k <= w) return w;
+  return 0;
+}
+
+template <bool SYM>
+cudaError_t dispatch(const float* U, const float* V, float* part, float* G, int ku, int kv,
+                     long long n, int T, int max_blocks, int device, cudaStream_t stream) {
+  switch (gram_width(ku > kv ? ku : kv)) {
+    case 8: return launch<8, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+    case 16: return launch<16, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+    case 32: return launch<32, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+    case 48: return launch<48, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+    case 64: return launch<64, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+    case 96: return launch<96, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// G (ku, kv) = U V^T; part holds (nblocks, ku, kv).
-extern "C" int bcg_gram(const float* U, const float* V, float* part, float* G,
-                        int ku, int kv, long long n, int nblocks, int device,
-                        cudaStream_t stream) {
-  if (nblocks < 1 || n < 1 || ku < 1 || kv < 1) return cudaErrorInvalidValue;
+// G (ku, kv) = U V^T; U and V are (ku, n) and (kv, n) with row stride n. The
+// same storage for both (U == V, ku == kv) takes the symmetric Gram. T (a
+// multiple of 128, at most 1024) and max_blocks (the rows of part, (max_blocks,
+// ku, kv)) come from ops/fused.py gram_plan.
+extern "C" int bcg_gram(const float* U, const float* V, float* part, float* G, int ku, int kv,
+                        long long n, int T, int max_blocks, int device, cudaStream_t stream) {
+  if (max_blocks < 1 || n < 1 || ku < 1 || kv < 1 || T < 128 || T > 1024 || T % 128 != 0)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  switch (kmax_for(ku > kv ? ku : kv)) {
-    case 8: return launch<8>(U, V, part, G, ku, kv, n, nblocks, stream);
-    case 16: return launch<16>(U, V, part, G, ku, kv, n, nblocks, stream);
-    case 32: return launch<32>(U, V, part, G, ku, kv, n, nblocks, stream);
-    case 64: return launch<64>(U, V, part, G, ku, kv, n, nblocks, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (U == V && ku == kv)
+    return dispatch<true>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+  return dispatch<false>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
 }
 
 extern "C" const char* bcg_error_string(int code) {

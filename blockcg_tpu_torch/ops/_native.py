@@ -187,7 +187,7 @@ def library() -> ctypes.CDLL:
     lib.bcg_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, P, P,
                                      P, P, I, L, I, I, I, I, P]
     lib.bcg_mm_update.argtypes = [P, P, P, P, I, L, I, P]
-    lib.bcg_gram.argtypes = [P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_gram.argtypes = [P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_mm_update_gram.argtypes = [P, P, P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_mm2_update_gram.argtypes = [P, P, P, P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, I, L, I, I, P]
@@ -200,7 +200,7 @@ def library() -> ctypes.CDLL:
     lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P,
                                         I, I, L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, I, P,
-                                           P, P, P, I, I, L, I, I, I, P]
+                                           P, P, P, I, I, L, I, I, I, I, I, I, I, P]
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, I, P, P, I, I, L, I, I, I, I, P]
@@ -234,7 +234,8 @@ def max_smem(device_index: int) -> int:
 @functools.cache
 def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of the card (``stencil_plan`` caps the tile
-    width by it)."""
+    width by it; ``gram_plan`` and ``block_stencil_plan`` size their grids by
+    it)."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 

@@ -23,16 +23,20 @@ plain versions below (the reference's ``_matmat_m_xla`` roll-and-einsum),
 CUDA float32 tensors launch the kernel, and anything else raises, complex
 blocks included (their route to the card is ``operators.realify``). Kernel
 bounds: at most 32 diagonals and bs <= 8; the wrappers raise outside them.
-One launch takes k <= 64 / w right-hand sides, w = 4 for bs <= 4 and 8
-above; a wider field runs as one launch per chunk of right-hand sides (on
-the merged view with the field's spin stride, as in
-``ops/const_block_stencil.py``), and a Gram wider than one launch is
-``fused.gram`` of X and the stored Y.
+One launch takes m = bs * k <= 96 rows; a wider field runs as one launch per
+chunk of right-hand sides (on the merged view with the field's spin stride,
+as in ``ops/const_block_stencil.py``). ``block_stencil_plan`` picks each
+launch's schedule on the host (``csrc/block_stencil.cu``: the window of X
+around a tile of sites, the split of a site's outputs over threads, the ring
+of coefficient stages); a Gram the launch cannot fuse (several chunks, or a
+plan without room for it) is ``fused.gram`` of X and the stored Y.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +45,14 @@ from blockcg_tpu_torch.solvers.common import acc_dtype, gram_t
 
 MAX_DIAGS = 32  # csrc/block_stencil.cu kMaxDiags
 MAX_BS = 8  # csrc/block_stencil.cu kMaxBs
+THREADS = 256  # csrc/block_stencil.cu kBsThreads
+MAX_ROWS = 96  # csrc/block_stencil.cu kBsMaxRows: m = bs * k of one launch
+STAGES = (2, 3, 4)  # ring depths the kernel takes (kBsMaxStages = 4)
+SCRATCH = 16384  # csrc/block_stencil.cu kBsScratch: floats of a Gram launch's floor
+GROUPS = (1, 2, 4, 8)  # splits of a site's right-hand sides over threads
+# The built right-hand sides a thread (bs_spmm<BS, KI, GRAM>), by BS = 4 or 8.
+KI_BUILT = {4: (1, 2, 3, 4, 6, 8, 12), 8: (1, 2, 3)}
+ACC = 24  # sums a thread holds on the natural split: BS * KI <= 24
 
 
 def _check(blocks, offsets, rows: int, ns: int, name: str) -> None:
@@ -56,13 +68,125 @@ def _check(blocks, offsets, rows: int, ns: int, name: str) -> None:
 
 
 def _rhs_width(bs: int, nd: int, name: str) -> int:
-    """Right-hand sides one launch takes: 64 rows over w (bs <= 8, rounded
-    up to 4 or 8); at most 32 diagonals."""
+    """Right-hand sides one launch takes: m = bs * k <= 96 rows (bs <= 8);
+    at most 32 diagonals."""
     if not 1 <= bs <= MAX_BS:
         raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
     if nd > MAX_DIAGS:
         raise ValueError(f"{name}: {nd} diagonals, the CUDA kernel takes at most {MAX_DIAGS}")
-    return _native.MAX_K // (4 if bs <= 4 else 8)
+    return MAX_ROWS // bs
+
+
+BARRIER_BYTES = 8 * (2 * max(STAGES) + 2)  # csrc/block_stencil.cu: static mbarriers
+
+
+def smem_bytes(bs: int, k: int, T: int, h: int, stages: int, far: bool, gram: bool) -> int:
+    """Dynamic shared bytes of a launch (``csrc/block_stencil.cu``
+    bs_smem_floats): two windows of m = bs * k rows and T + 2h + 4 columns;
+    ``stages`` ring slots of the bs^2 coefficient planes of T sites and, with
+    any far diagonal, m rows of X; with the Gram the (m, T + 4) Y tile, at
+    least the Gram's end-of-kernel scratch."""
+    m = bs * k
+    f = 2 * m * (T + 2 * h + 4) + stages * (bs * bs + (m if far else 0)) * T
+    if gram:
+        f = max(f + m * (T + 4), SCRATCH)
+    return 4 * f
+
+
+class BlockStencilPlan(NamedTuple):
+    """One launch's schedule (``csrc/block_stencil.cu``): the window's halo
+    ``h`` (a multiple of 4), the tile of ``T`` sites, the ``groups`` a site's
+    right-hand sides split into (T = 256 / groups) of ``ki`` each, the
+    ring's depth ``stages``, which diagonals read the window (``near``),
+    whether the launch takes the Gram (``fused_gram``), its shared bytes, the
+    L2->SM traffic of X per site in units of X, ``(T + 2h) / T`` plus one
+    per far diagonal, and its grid (one block an SM, at most one a tile),
+    also the row count of the Gram partials."""
+    h: int
+    T: int
+    groups: int
+    ki: int
+    stages: int
+    near: tuple[bool, ...]
+    fused_gram: bool | None
+    smem_bytes: int
+    traffic: float
+    blocks: int
+
+    def describe(self) -> str:
+        gram = {True: "fused", False: "gram.cu", None: "none"}[self.fused_gram]
+        return (f"h={self.h} T={self.T} groups={self.groups} ki={self.ki} "
+                f"stages={self.stages} near={sum(self.near)}/{len(self.near)} gram={gram} "
+                f"smem={self.smem_bytes} traffic={self.traffic:g} blocks={self.blocks}")
+
+
+def _split(bs: int, k: int, groups: int | None) -> tuple[int, int]:
+    """(groups, ki): by default the fewest groups (a power of two, at most 8)
+    that hold k right-hand sides at most ``ACC`` sums a thread, then the
+    narrowest built ki that covers k over them."""
+    w = 4 if bs <= 4 else 8
+    built = KI_BUILT[w]
+    if groups is None:
+        groups = next((g for g in GROUPS if g * (ACC // w) >= k), GROUPS[-1])
+    ki = next((v for v in built if v * groups >= k), None)
+    if ki is None:
+        raise ValueError(f"block stencil: {k} right-hand sides over {groups} groups pass the "
+                         f"built widths {built}")
+    return groups, ki
+
+
+@functools.lru_cache(maxsize=256)
+def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_gram: bool,
+                       smem_cap: int, sm_count: int, *, h: int | None = None,
+                       groups: int | None = None, stages: int | None = None) -> BlockStencilPlan:
+    """The schedule of a launch of k right-hand sides (m = bs * k <= 96) on
+    ns sites. With ``with_gram`` it first tries a fused Gram (at most two
+    groups, so the Gram's register width 2 BS ki covers m), and falls back to
+    the plain split (``fused_gram`` False: the wrapper takes the Gram from
+    ``fused.gram``); without, ``fused_gram`` is None. Among the halos (0, and
+    each offset's distance rounded up to 4) and ring depths whose shared
+    memory fits ``smem_cap`` beside the kernel's mbarriers, it keeps the
+    least L2->SM traffic of X, then the deeper ring, then the smaller halo. A
+    diagonal is near when its offset mod ns lies within h of 0 or of ns, the
+    rule the kernel applies. ``h``, ``groups`` and ``stages`` pin those
+    choices (the timing tool's variants)."""
+    if not 1 <= bs * k <= MAX_ROWS:
+        raise ValueError(f"block stencil: one launch takes bs * k <= {MAX_ROWS} rows, "
+                         f"got {bs} x {k}")
+    offs = [int(o) % ns for o in offsets]
+    dist = [min(o, ns - o) for o in offs]
+    halos = sorted({0} | {-(-d // 4) * 4 for d in dist}) if h is None else [h]
+    depths = STAGES if stages is None else (stages,)
+    tries = [(groups, False)]
+    if with_gram:
+        tries.insert(0, (min(_split(bs, k, None)[0], 2) if groups is None else groups, True))
+    for g_req, gram in tries:
+        if gram and g_req > 2:
+            continue
+        try:
+            g, ki = _split(bs, k, g_req)
+        except ValueError:
+            continue
+        T = THREADS // g
+        best, best_key = None, None
+        for st in depths:
+            for hh in halos:
+                far = [d > hh for d in dist]
+                nbytes = smem_bytes(bs, k, T, hh, st, any(far), gram)
+                if nbytes + BARRIER_BYTES > smem_cap:
+                    break
+                traffic = (T + 2 * hh) / T + sum(far)
+                key = (traffic, -st, hh)
+                if best_key is None or key < best_key:
+                    best_key = key
+                    best = BlockStencilPlan(
+                        hh, T, g, ki, st, tuple(not f for f in far),
+                        gram if with_gram else None, nbytes, traffic,
+                        min(-(-ns // T), sm_count, _native.MAX_BLOCKS))
+        if best is not None:
+            return best
+    raise ValueError(f"block stencil: bs = {bs}, k = {k} leave no schedule in {smem_cap} "
+                     "bytes of shared memory")
 
 
 # ------------------------------------------------------------ plain versions
@@ -99,6 +223,18 @@ def block_stencil_v_plain(blocks, offsets, Xv):
 # ------------------------------------------------------------------ wrappers
 
 
+def launch_plans(blocks, offsets, k: int, with_gram: bool, device, name: str = "block stencil"):
+    """``[((j0, j1), plan), ...]``: the chunks of right-hand sides a field of
+    k runs as, one launch each, and the plan of each (the Gram fused only on a
+    field of one chunk)."""
+    nd, bs, _, ns = blocks.shape
+    chunks = _native.row_chunks(k, _rhs_width(bs, nd, name))
+    offs = tuple(int(o) % ns for o in offsets)
+    cap, sms = _native.max_smem(device.index), _native.sm_count(device.index)
+    return [((j0, j1), block_stencil_plan(offs, ns, bs, j1 - j0, with_gram and len(chunks) == 1,
+                                          cap, sms)) for j0, j1 in chunks]
+
+
 def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str):
     """Launch on a contiguous (bs * k, ns)-shaped field X (the merged view, or
     the (k, bs, ns) view and its flat form), one launch per chunk of
@@ -106,23 +242,22 @@ def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str
     from blockcg_tpu_torch.ops import fused
 
     nd, bs, _, ns = blocks.shape
-    chunks = _native.row_chunks(k, _rhs_width(bs, nd, name))
     offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
     Y = torch.empty_like(X)
-    nb = _native.nblocks(ns)
-    fused_gram = with_gram and len(chunks) == 1
-    part = G = None
-    if fused_gram:
-        m = bs * k
-        part = torch.empty((nb, m, m), dtype=torch.float32, device=X.device)
-        G = torch.empty((m, m), dtype=torch.float32, device=X.device)
     row = ns * 4 * (1 if merged else bs)  # bytes from one RHS to the next
     p = _native.ptr
-    for j0, j1 in chunks:
+    G = None
+    for (j0, j1), plan in launch_plans(blocks, offsets, k, with_gram, X.device, name):
+        part = None
+        if plan.fused_gram:
+            m = bs * k
+            part = torch.empty((plan.blocks, m, m), dtype=torch.float32, device=X.device)
+            G = torch.empty((m, m), dtype=torch.float32, device=X.device)
         _native.launch(name, "bcg_block_stencil_spmm", X.device, p(blocks), offs, nd, bs,
                        p(X) + j0 * row, p(Y) + j0 * row, p(part), p(G), j1 - j0,
-                       k if merged else j1 - j0, ns, int(merged), nb)
-    if with_gram and not fused_gram:
+                       k if merged else j1 - j0, ns, int(merged), plan.h, plan.groups,
+                       plan.ki, plan.stages, plan.blocks)
+    if with_gram and G is None:
         G = fused.gram(X, Y)
     return Y, G
 

@@ -42,10 +42,15 @@ output rows in registers. A wider field runs as one launch per chunk of
 output rows (``_chunks``: 64 rows, or 32, 16 or 8 where the staged k-column
 coefficients would pass the card's shared memory), each contracting over all
 k input rows; a fused Gram then takes its diagonal blocks from the chunks'
-launches and its cross blocks from ``gram`` on the stored output, laid out by
-the same chunks. A donated output whose chunks read rows that an earlier
-chunk would overwrite is written to a fresh buffer first and copied over. A
-field of at most 64 rows is one launch, as it always was.
+launches and the rest from ``gram`` on the stored output (``wide_gram``,
+laid out by ``gram_blocks``). A donated output whose chunks read rows that
+an earlier chunk would overwrite is written to a fresh buffer first and
+copied over. A field of at most 64 rows is one launch, as it always was.
+
+``gram`` streams tiles of [U; V] (U alone when U is V, whose Gram is then
+exactly symmetric) through shared memory, one launch up to 96 rows
+(``csrc/gram.cu``, ``gram_plan``); a wider Gram is blocks of at most 96
+rows.
 
 ``mm_update``, ``mm_update_gram``, ``mm2_update_gram`` and ``px_update`` run
 streaming kernels that stage their input tiles in shared memory and split
@@ -124,10 +129,9 @@ def cheb_step_plain(R, Z, D, AZ, c1: float, c2: float):
 # ------------------------------------------------------------------ wrappers
 
 
-def _gram_buffers(k: int, n: int, device, kv: int | None = None):
-    kv = k if kv is None else kv
-    part = torch.empty((_native.nblocks(n), k, kv), dtype=torch.float32, device=device)
-    return part, torch.empty((k, kv), dtype=torch.float32, device=device)
+def _gram_buffers(k: int, n: int, device):
+    part = torch.empty((_native.nblocks(n), k, k), dtype=torch.float32, device=device)
+    return part, torch.empty((k, k), dtype=torch.float32, device=device)
 
 
 def _flat(name, F, *others):
@@ -294,37 +298,133 @@ def px_update_plan(k: int, device) -> UpdatePlan:
     return _update_plan("px_update", k, 2, 3, 0, _native.max_smem(device.index))
 
 
-def _launch_gram(U, V, G=None):
-    """One launch: G = U V^T of two row blocks of at most 64 rows each."""
+GRAM_THREADS = 256  # csrc/gram.cu kGrThreads
+GRAM_MAX_K = 96  # rows of U (and of V) one gram launch takes
+GRAM_WIDTHS = (8, 16, 32, 48, 64, 96)  # csrc/gram.cu gram_width: the built register widths
+GRAM_TILES = (1024, 512, 256, 128)  # column tiles csrc/gram.cu takes, widest first
+GRAM_STAGES = 2  # csrc/gram.cu kGrStages: tiles in shared memory
+GRAM_SCRATCH = 16384  # csrc/gram.cu kGrScratch: floats of a launch's shared floor
+
+
+def gram_smem_bytes(rows: int, T: int, same: bool) -> int:
+    """Shared bytes of one ``gram`` launch (``csrc/gram.cu``
+    gram_smem_floats): two tiles of ``rows`` stacked rows of T columns at a
+    row stride of T + 8 (``SymGram``, U is V) or T + 4 (``VecGram``), at least
+    the Gram's end-of-kernel scratch."""
+    return 4 * max(GRAM_STAGES * rows * (T + (8 if same else 4)), GRAM_SCRATCH)
+
+
+class GramPlan(NamedTuple):
+    """One ``gram`` launch (``csrc/gram.cu``): the column tile ``T`` a stage
+    copies, the launch's shared bytes and its grid (one block an SM, at most
+    one a tile), which is also the row count of the Gram partials."""
+    T: int
+    smem_bytes: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def gram_plan(ku: int, kv: int, same: bool, n: int, smem_cap: int, sm_count: int) -> GramPlan:
+    """The widest column tile whose two stages of the ``ku + kv`` stacked
+    rows (``ku`` when U is V) fit ``smem_cap`` and that leaves every SM a
+    tile (waived at 128 columns). Wider tiles ran faster wherever they fit:
+    at (48, 32^4) 224 us on 256 columns against 305 on 128, with U is V 171
+    on 512 against 183 on 256; at (96, 32^4) with U is V 444 on 256 against
+    508 on 128 (H100, tools/torch_kernel_times.py --variants)."""
+    if not (1 <= ku <= GRAM_MAX_K and 1 <= kv <= GRAM_MAX_K):
+        raise ValueError(f"gram: one launch takes at most {GRAM_MAX_K} rows, got {ku} x {kv}")
+    rows = ku if same else ku + kv
+    for T in GRAM_TILES:
+        if T > 128 and T > n // sm_count:
+            continue
+        nbytes = gram_smem_bytes(rows, T, same)
+        if nbytes <= smem_cap:
+            return GramPlan(T, nbytes, min(-(-n // T), sm_count, _native.MAX_BLOCKS))
+    raise ValueError(f"gram: {rows} stacked rows leave no tile in {smem_cap} bytes of "
+                     "shared memory")
+
+
+def _launch_gram(U, V):
+    """One launch: G = U V^T of two row blocks of at most 96 rows each; the
+    same storage for U and V takes the symmetric Gram."""
     ku, n = U.shape
     kv = V.shape[0]
-    part, Gb = _gram_buffers(ku, n, U.device, kv)
+    same = U.data_ptr() == V.data_ptr() and ku == kv
+    idx = U.device.index
+    plan = gram_plan(ku, kv, same, n, _native.max_smem(idx), _native.sm_count(idx))
+    part = torch.empty((plan.blocks, ku, kv), dtype=torch.float32, device=U.device)
+    G = torch.empty((ku, kv), dtype=torch.float32, device=U.device)
     _native.launch("gram", "bcg_gram", U.device, _native.ptr(U), _native.ptr(V),
-                   _native.ptr(part), _native.ptr(Gb), ku, kv, n, _native.nblocks(n))
-    return Gb
+                   _native.ptr(part), _native.ptr(G), ku, kv, n, plan.T, plan.blocks)
+    return G
+
+
+def _gram_groups(chunks):
+    """Consecutive row chunks joined into groups of at most ``GRAM_MAX_K``
+    rows: lists of chunk indices."""
+    groups, rows = [], GRAM_MAX_K + 1
+    for a, (r0, r1) in enumerate(chunks):
+        if rows + r1 - r0 > GRAM_MAX_K:
+            groups.append([])
+            rows = 0
+        groups[-1].append(a)
+        rows += r1 - r0
+    return groups
+
+
+def gram_blocks(k: int, chunks=None, same: bool = False):
+    """How ``wide_gram`` lays out G (k x k): ``(what, r0, r1, s0, s1, a)``
+    for each block, ``what`` one of "diag" (``diag[a]`` from a fused
+    kernel's launch on chunk a), "launch" (one ``gram`` launch of rows r0:r1
+    of U by rows s0:s1 of V) or "mirror" (the transpose of block (s0:s1,
+    r0:r1), when U is V). Without fused blocks (``chunks`` None) G is cut
+    into the fewest square blocks of at most 96 rows, the diagonal ones
+    symmetric launches when U is V. With them, the chunks are joined into
+    groups of at most 96 rows: blocks between two groups are one launch (or
+    a mirror), and inside a group each chunk's rows take the group's later
+    columns in one rectangular launch (mirrored, or a second launch, below
+    the diagonal)."""
+    fused = chunks is not None
+    chunks = chunks if fused else _native.row_chunks(k, GRAM_MAX_K)
+    groups = _gram_groups(chunks) if fused else [[a] for a in range(len(chunks))]
+    span = [(chunks[g[0]][0], chunks[g[-1]][1]) for g in groups]
+    out = []
+    for A, ga in enumerate(groups):
+        a0, a1 = span[A]
+        for B in range(len(groups)):
+            b0, b1 = span[B]
+            if A != B:
+                out.append(("mirror" if same and B < A else "launch", a0, a1, b0, b1, None))
+            elif not fused:
+                out.append(("launch", a0, a1, a0, a1, None))
+            else:
+                for a in ga:
+                    r0, r1 = chunks[a]
+                    out.append(("diag", r0, r1, r0, r1, a))
+                    if r1 < a1:
+                        out.append(("launch", r0, r1, r1, a1, None))
+                        out.append(("mirror" if same else "launch", r1, a1, r0, r1, None))
+    return out
 
 
 def wide_gram(U, V, diag=None, chunks=None):
-    """G = U V^T of (k, n) fields wider than one launch: block (a, b) of the
-    row ``chunks`` (``row_chunks(k)`` by default) is one ``gram`` launch, or
-    ``diag[a]`` on the diagonal where a fused kernel already gave it, in which
-    case ``chunks`` must be the ones its launches ran on; when U is V the
-    lower blocks mirror the upper ones (the same products, summed in the same
-    order)."""
+    """G = U V^T of (k, n) fields wider than one launch, laid out by
+    ``gram_blocks``: ``diag[a]`` on the diagonal where a fused kernel already
+    gave it, in which case ``chunks`` must be the ones its launches ran on;
+    when U is V the lower blocks mirror the upper ones (the same products,
+    summed in the same order)."""
     k = U.shape[0]
-    chunks = _native.row_chunks(k) if chunks is None else chunks
     if diag is not None and len(diag) != len(chunks):
         raise ValueError(f"wide_gram: {len(diag)} diagonal blocks for {len(chunks)} chunks")
     same = U.data_ptr() == V.data_ptr() and U.shape == V.shape
     G = torch.empty((k, k), dtype=torch.float32, device=U.device)
-    for a, (r0, r1) in enumerate(chunks):
-        for b, (s0, s1) in enumerate(chunks):
-            if a == b and diag is not None:
-                G[r0:r1, s0:s1] = diag[a]
-            elif same and b < a:
-                G[r0:r1, s0:s1] = G[s0:s1, r0:r1].T
-            else:
-                G[r0:r1, s0:s1] = _launch_gram(U[r0:r1], V[s0:s1])
+    for what, r0, r1, s0, s1, a in gram_blocks(k, None if diag is None else chunks, same):
+        if what == "diag":
+            G[r0:r1, s0:s1] = diag[a]
+        elif what == "mirror":
+            G[r0:r1, s0:s1] = G[s0:s1, r0:r1].T
+        else:
+            G[r0:r1, s0:s1] = _launch_gram(U[r0:r1], V[s0:s1])
     return G
 
 
@@ -333,7 +433,7 @@ def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     if not _native.use_kernel(U, V):
         return gram_plain(U, V)
     U, V = _flat("gram", U, V)
-    if U.shape[0] <= _native.MAX_K:
+    if U.shape[0] <= GRAM_MAX_K:
         return _launch_gram(U, V)
     return wide_gram(U, V)
 

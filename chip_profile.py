@@ -6,7 +6,7 @@ nvcc:
 
     python3 chip_profile.py
 
-Ten single-device solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+Twelve single-device solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
 first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
 its inner solver, tol 3e-6) at qr_passes 1 and 2, config 4 (the 32^4
@@ -20,7 +20,10 @@ with config 4's 12 RHS (tol 1e-6), ``solve_sbcgrq_cheb`` on config 3 at
 degree 6 (tol 1e-6, its spectrum estimated in the warm-up run) and the
 general-sparsity SBCGrQ of ``chip_smoke.py``'s [sparse] phase
 (``rgg_laplacian(524288, 40)`` through ``from_scipy_auto``, RCM tiles, 32
-RHS from ``default_rng(0)``, tol 1e-6, qr_passes=1); then the
+RHS from ``default_rng(0)``, tol 1e-6, qr_passes=1), and the two solves of
+``chip_smoke.py``'s [wide] phase on fields of m = 96 rows: config 4's
+SBCGrQ with 24 RHS (tol 1e-6, qr_passes=1) and ``solve_dirac_eo_shifted``
+on ``dirac_eo(32)`` with config 4's 12 RHS and four shifts; then the
 distributed layer on one rank (NCCL, a group of one): config 3, the
 north-star inner solve, config 4 and the even-odd solve through
 ``parallel``, and CG on config 3's column 0 beside the single-device CG,
@@ -239,6 +242,7 @@ def main() -> None:
         rgg_laplacian,
         solve_dirac_eo,
         solve_dirac_eo_dist,
+        solve_dirac_eo_shifted,
     )
     from blockcg_tpu_torch.operators import from_scipy_auto
     from blockcg_tpu_torch.problems.presets import _rhs
@@ -257,6 +261,7 @@ def main() -> None:
     R = (B / torch.linalg.vector_norm(B, dim=0)).float()
     del B
     op4, B4, _ = config4_dirac_32(device=dev)
+    B24 = _rhs(op4.n, 24, torch.float32, device=dev)  # [wide]: m = 96
     op2, B2, _ = config2_bcg_2d_512(device=dev)
     opm = dirac_gauged_matrix(32, m=0.5, device=dev)
     Bm = torch.as_tensor(np.random.default_rng(1234).standard_normal((12, opm.n)),
@@ -282,6 +287,10 @@ def main() -> None:
          lambda: solve_sbcgrq_cheb(op3, B3, degree=6, tol=1e-6)),
         ("sparse rgg_laplacian(524288, 40) RCM tiles k=32 qr_passes=1",
          lambda: solve_sbcgrq(ops, Bs, tol=1e-6, qr_passes=1)),
+        ("[wide] config4 dirac_32 k=24 qr_passes=1",
+         lambda: solve_sbcgrq(op4, B24, tol=1e-6, qr_passes=1)),
+        (f"[wide] even-odd dirac_eo(32) k=12 solve_dirac_eo_shifted shifts {SHIFTS}",
+         lambda: solve_dirac_eo_shifted(eo, B4, SHIFTS, tol=1e-6)),
     ]
     group = nccl_group(torch)
     dop3, dop, dop4 = (par.partition_dia(op3, 1).shard(0, group, dev),

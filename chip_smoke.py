@@ -30,7 +30,8 @@ on config 3 and at 128^3 (``[cheb]``), and the even-odd Schur path on 32^4
 twice and against config 4's full solve, its CG on one column, the
 multi-shift solve, the matrix-link and the U(1) complex contexts); then
 fields of 96 rows, above one launch's 64 (``[kernel]`` lines at m = 96 for
-every kernel the row-chunked launches serve, the fused updates again at
+every kernel the row-chunked launches serve, and for the Gram, one launch
+there, with U is V as well; the fused updates again at
 800 rows, where shared memory leaves room for narrow row chunks only, and
 ``[wide]``: config 4 with 24 RHS and the even-odd multi-shift solve with
 12); ``qr_px_update``
@@ -943,6 +944,10 @@ def _bs_kernel_checks(torch, records, blocks, offsets, k, label, seed) -> None:
                        lambda: (bsk.block_stencil_v_plain(blocks, offsets, Xv), None),
                        is_gram, records, work=apply_work, library=bsr)
     del bsr
+    for label_, gram in (("merged", False), ("merged with Gram", True)):
+        plans = bsk.launch_plans(blocks, offsets, k, gram, blocks.device)
+        print(f"[kernel] block stencil plan {what} {label_}: " +
+              "; ".join(f"RHS {j0}:{j1} {plan.describe()}" for (j0, j1), plan in plans))
     print(f"[kernel] block stencil {what}: merged {nzb / ms / 1e6:.2f}, with Gram "
           f"{nzb / gms / 1e6:.2f}, (k, bs, ns) view {nzb / vms / 1e6:.2f} Gnnz/s "
           f"(nnz {nzb} of the blocks)")
@@ -1426,7 +1431,14 @@ def phase_wide_kernels(torch, dev, records) -> None:
 
     _timed_check(torch, "gram", what, lambda: (None, fused.gram(F[0], F[1])),
                  lambda: (None, fused.gram_plain(F[0], F[1])), is_gram, records,
-                 work=(2 * fb + gb, gf))
+                 work=(2 * fb + gb, gf), library=lambda: F[0] @ F[1].T)
+    _timed_check(torch, "gram", what + " U is V", lambda: (None, fused.gram(F[0], F[0])),
+                 lambda: (None, fused.gram_plain(F[0], F[0])), is_gram, records,
+                 work=(fb + gb, sf), library=lambda: F[0] @ F[0].T)
+    Gs = fused.gram(F[0], F[0])
+    if not torch.equal(Gs, Gs.T):
+        raise AssertionError("gram: U is V at m = 96 is not exactly symmetric")
+    print(f"[kernel] gram {what} U is V: one launch, exactly symmetric")
     mm = (nbytes(M1) + 2 * fb, 2 * ns * nnz(M1))
     both_ways("mm_update", lambda b, a, d: fused.mm_update(M1, b, a, donate="a" if d else None),
               lambda b, a: fused.mm_update_plain(M1, b, a), 2, (mm[0] + fb, mm[1]),

@@ -11,6 +11,8 @@ FMA and summation order differ from the plain version's), Grams to a relative
 Frobenius error of 1e-5 (blocked two-stage summation).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -1315,3 +1317,151 @@ def test_rows7_25_solves_repeat_bitwise(dev, case):
     assert _native.launches[name] > 0
     X2, i2 = solve(op, B, tol=1e-5)
     assert i1.iterations == i2.iterations and torch.equal(X1, X2)
+
+
+# -------------------- the streamed gram (row 5) and block stencil (rows 22-24)
+
+
+def _gram_fields(k, layout, seed, dev):
+    """Two (k, n) fields: whole 16-byte rows (n = 4096), n % 4 != 0 (n =
+    1001), or views one float into their storage (n = 1024: 4-byte copies)."""
+    n = {"vec": 4096, "ragged": 1001, "offset": 1024}[layout]
+    out = []
+    for s in (seed, seed + 1):
+        a = np.random.default_rng(s).standard_normal(k * n + 1)
+        buf = _t(a, dev)
+        out.append(buf[1:].view(k, n) if layout == "offset" else buf[:k * n].view(k, n))
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 7, 32, 48, 64, 65, 96, 97, 128])
+@pytest.mark.parametrize("case", ["same", "distinct", "rect"])
+@pytest.mark.parametrize("layout", ["vec", "ragged", "offset"])
+def test_gram_kernel_matches_plain(dev, k, case, layout):
+    """G = U V^T with U is V (the symmetric kernel: G exactly symmetric),
+    U != V, and a rectangular block ku != kv of one launch, on whole 16-byte
+    rows, n % 4 != 0 and an offset view; one launch up to 96 rows, the
+    blocks of ``fused.gram_blocks`` above; a repeat gives the same bits."""
+    U, V = _gram_fields(k, layout, 700 + k, dev)
+    if case == "same":
+        V = U
+    _native.reset_launches()
+    if case == "rect":
+        ku = min(k, fused.GRAM_MAX_K)
+        U, V = U[:ku], V[:max(1, (ku + 1) // 2)]
+
+        def run():
+            return fused._launch_gram(U, V)
+        launches = 1
+    else:
+        def run():
+            return fused.gram(U, V)
+        launches = 1 if k <= fused.GRAM_MAX_K else sum(
+            b[0] == "launch" for b in fused.gram_blocks(k, None, case == "same"))
+    G = run()
+    torch.cuda.synchronize()
+    assert _native.launches["gram"] == launches
+    want = U @ V.T if case == "rect" else fused.gram_plain(U, V)  # gram_t takes ku == kv
+    assert G.shape == want.shape and _relfro(G, want) < 1e-5
+    if case == "same":
+        assert torch.equal(G, G.T)
+    assert torch.equal(run(), G)
+
+
+def test_gram_symmetric_and_general_kernels_agree(dev):
+    """The same field as one storage (SymGram) and as a copy (VecGram): both
+    hold the plain Gram; only the first is exactly symmetric by
+    construction."""
+    U = _field(96, 1 << 16, 720, dev)
+    Gs, Gv = fused.gram(U, U), fused.gram(U, U.clone())
+    want = fused.gram_plain(U, U)
+    assert _relfro(Gs, want) < 1e-5 and _relfro(Gv, want) < 1e-5
+    assert torch.equal(Gs, Gs.T)
+
+
+def _bs_redesign_operands(ns, bs, k, dev, seed):
+    """Per-site blocks on near (0, +-1, 17), far (-150, a 16-byte-aligned
+    64) and wrap (ns - 1, ns + 152, -ns - 4) offsets."""
+    rng = np.random.default_rng(seed)
+    offsets = (0, 1, -1, 17, -150, 64, ns - 1, ns + 152, -ns - 4)
+    blocks = _t(rng.standard_normal((len(offsets), bs, bs, ns)), dev)
+    return blocks, offsets, _field(bs * k, ns, seed + 1, dev)
+
+
+@pytest.mark.parametrize("bs", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("width", ["one", "several"])
+@pytest.mark.parametrize("ns", [300, 1000, 40_000])
+def test_block_stencil_redesign_matches_plain(dev, bs, width, ns):
+    """Both row maps, with and without the Gram, on a field of one launch
+    (m = 48 or less) and of several (96 rows a launch, and 3 RHS more), at
+    ns = 300 (4-byte copies), 1000 (16-byte copies) and 40,000 (several
+    tiles a block, on an even grid), none a multiple of a tile; Y has the
+    same bits with and without the Gram (each output's
+    fmaf order does not depend on the plan), and a repeat gives the same
+    bits."""
+    k = max(1, 48 // bs) if width == "one" else bsk.MAX_ROWS // bs + 3
+    blocks, offsets, Xm = _bs_redesign_operands(ns, bs, k, dev, 730 + bs)
+    launches = len(bsk.launch_plans(blocks, offsets, k, False, Xm.device))
+    assert (launches == 1) is (width == "one")
+    _native.reset_launches()
+    Y, G = bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xm)
+    Y1 = bsk.block_stencil_spmm_m_t(blocks, offsets, Xm)
+    Yp, Gp = bsk.block_stencil_plain(blocks, offsets, Xm, True)
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5 and torch.equal(Y, Y1)
+    Y2, G2 = bsk.block_stencil_spmm_m_gram_t(blocks, offsets, Xm)
+    assert torch.equal(Y2, Y) and torch.equal(G2, G)
+    assert _native.launches["block_stencil_spmm_m_t"] == launches
+    Xv = Xm.reshape(k, bs, ns)
+    Yv = bsk.block_stencil_spmm_t(blocks, offsets, Xv)
+    assert _relmax(Yv, bsk.block_stencil_v_plain(blocks, offsets, Xv)) < 1e-5
+    assert torch.equal(bsk.block_stencil_spmm_t(blocks, offsets, Xv.reshape(k, -1)),
+                       Yv.reshape(k, -1))
+
+
+@pytest.mark.parametrize("h,groups,stages", [(0, None, None), (4, None, 2), (20, None, 3),
+                                             (0, 1, 2), (152, 4, 4), (None, 8, 2),
+                                             (None, 2, 4)])
+def test_block_stencil_plan_variants_give_the_same_bits(dev, h, groups, stages):
+    """The kernel on pinned plans (the timing tool's variants: no window, a
+    near-only window, a window over every offset; one to eight groups; two
+    to four stages) gives the default plan's bits, and its Gram holds the
+    plain one."""
+    bs, k, ns = 4, 12, 40_000  # several tiles a block
+    blocks, offsets, Xm = _bs_redesign_operands(ns, bs, k, dev, 740)
+    Y = bsk.block_stencil_spmm_m_t(blocks, offsets, Xm)
+    Yp, Gp = bsk.block_stencil_plain(blocks, offsets, Xm, True)
+    offs = tuple(o % ns for o in offsets)
+    dev = Xm.device  # with its index
+    cap, sms = _native.max_smem(dev.index), _native.sm_count(dev.index)
+    for gram in (False, True):
+        plan = bsk.block_stencil_plan(offs, ns, bs, k, gram, cap, sms, h=h, groups=groups,
+                                      stages=stages)
+        Yk = torch.empty_like(Xm)
+        part = Gk = None
+        if plan.fused_gram:
+            part = torch.empty((plan.blocks, bs * k, bs * k), device=dev)
+            Gk = torch.empty((bs * k, bs * k), device=dev)
+        p = _native.ptr
+        _native.launch("test", "bcg_block_stencil_spmm", dev, p(blocks),
+                       (ctypes.c_int * len(offs))(*offs), len(offs), bs, p(Xm),
+                       p(Yk), p(part), p(Gk), k, k, ns, 1, plan.h, plan.groups, plan.ki,
+                       plan.stages, plan.blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(Yk, Y), plan.describe()
+        if plan.fused_gram:
+            assert _relfro(Gk, Gp) < 1e-5
+
+
+def test_block_stencil_at_m96_is_one_launch(dev):
+    """Config 4's width on ``dirac_bdia``'s bs = 4 (k = 24, m = 96) is one
+    launch; its Gram comes from one 96-row ``gram`` launch."""
+    op = dirac_bdia(8, device=dev)
+    Xm = _field(96, op.ns, 750, dev)
+    _native.reset_launches()
+    Y, G = bsk.block_stencil_spmm_m_gram_t(op.blocks, op.offsets, Xm)
+    Yp, Gp = bsk.block_stencil_plain(op.blocks, op.offsets, Xm, True)
+    torch.cuda.synchronize()
+    assert _native.launches["block_stencil_spmm_m_gram_t"] == 1
+    assert _native.launches["gram"] == 1
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5

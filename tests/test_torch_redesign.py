@@ -15,7 +15,12 @@ stacked inputs; ``mm_update_gram_plan``, ``mm2_update_gram_plan`` and
 shared-memory cap. The plain routes of ``mm_update``, ``mm_update_gram``,
 ``mm2_update_gram`` and ``px_update`` at m = 96 are held against the
 reference's Pallas kernels in interpret mode (max relative error 1e-5,
-f32).
+f32). ``csrc/gram.cu`` streams tiles of [U; V] on ``gram_plan``'s column
+tile, one launch up to 96 rows, wider Grams laid out by ``gram_blocks``;
+``csrc/block_stencil.cu`` runs ``block_stencil_plan``'s schedule (a window
+of X around a tile of sites, the split of a site's outputs over threads, a
+ring of per-diagonal stages), held here in a numpy emulation against the
+f64 oracle.
 """
 
 import re
@@ -28,6 +33,7 @@ import torch
 
 from blockcg_tpu.ops import fused as jfused
 from blockcg_tpu_torch.ops import _native, fused, spmm_tiled, stencil
+from blockcg_tpu_torch.ops import block_stencil as bsk
 
 H100_SMEM = 232448  # bytes of shared memory one block may opt into on an H100
 H100_SMS = 132
@@ -365,6 +371,30 @@ def test_host_constants_mirror_the_sources():
     built = tuple((int(r), int(j)) for r, j in re.findall(r"BCG_TS\((\d+), (\d+)\);", ts))
     assert built == spmm_tiled.BUILT
     assert "stages < 2 || stages > 4" in ts
+    gr = (CSRC / "gram.cu").read_text()
+    assert int(re.search(r"kGrThreads = (\d+)", gr).group(1)) == fused.GRAM_THREADS
+    assert int(re.search(r"kGrScratch = (\d+)", gr).group(1)) == fused.GRAM_SCRATCH
+    assert "return T + (sym ? 8 : 4);" in gr
+    assert "const long long f = 1LL * stages * rows * gram_ld(T, sym);" in gr
+    assert int(re.search(r"kGrStages = (\d+)", gr).group(1)) == fused.GRAM_STAGES
+    listed = re.search(r"widths\[\] = \{([\d, ]+)\};", gr).group(1)
+    widths = tuple(int(w) for w in listed.split(","))
+    assert widths == fused.GRAM_WIDTHS and widths[-1] == fused.GRAM_MAX_K
+    assert "T < 128 || T > 1024 || T % 128 != 0" in gr
+    assert set(fused.GRAM_TILES) == {128, 256, 512, 1024}
+    bs = (CSRC / "block_stencil.cu").read_text()
+    for name, value in (("kMaxDiags", bsk.MAX_DIAGS), ("kMaxBs", bsk.MAX_BS),
+                        ("kBsThreads", bsk.THREADS), ("kBsMaxRows", bsk.MAX_ROWS),
+                        ("kBsMaxStages", max(bsk.STAGES)), ("kBsScratch", bsk.SCRATCH)):
+        assert int(re.search(rf"{name} = (\d+)", bs).group(1)) == value, name
+    assert "return T + 2 * h + 4;" in bs
+    assert ("2LL * m * window_ld(T, h) + 1LL * stages * (bs * bs + (far ? m : 0)) * T +"
+            in bs and "(gram ? 1LL * m * (T + 4) : 0);" in bs)
+    assert ("__shared__ unsigned long long full[kBsMaxStages], empty[kBsMaxStages], wfree[2];"
+            in bs and bsk.BARRIER_BYTES == 8 * (2 * max(bsk.STAGES) + 2))
+    built = {w: tuple(int(ki) for ki in re.findall(rf"BCG_BS\({w}, (\d+)\);", bs)) for w in (4, 8)}
+    assert built == bsk.KI_BUILT
+    assert "kBsThreads / groups" in bs
 
 
 def _smoke():
@@ -404,3 +434,239 @@ def test_smoke_library_calls_compute_the_kernels_function(case):
              "bdia_view": lambda: bsk.block_stencil_spmm_t(blocks, op.main_offsets, X)}[case]()
         call, why = smoke._site_bsr_library(torch, blocks, op.main_offsets, X, Y)
     assert why is None and call is not None
+
+
+# ------------------------------------------------ gram (row 5): plan and layout
+
+
+@pytest.mark.parametrize("ku,kv,same,n,T", [
+    (32, 32, False, 2 ** 21, 256),   # the main shape: two 65 KB stages of 64 rows
+    (32, 32, True, 2 ** 21, 512),    # U alone: twice the columns
+    (96, 96, False, 2 ** 20, 128),   # [wide]: 192 stacked rows, two stages in 198 KB
+    (96, 96, True, 2 ** 20, 256),
+    (48, 48, False, 2 ** 20, 256),   # config 4's width
+    (48, 48, True, 2 ** 20, 512),
+    (64, 32, False, 2 ** 16, 256),   # a rectangular block
+    (8, 8, True, 300, 128),          # a small field: one tile an SM at most
+])
+def test_gram_plan_of_the_main_paths(ku, kv, same, n, T):
+    plan = fused.gram_plan(ku, kv, same, n, H100_SMEM, H100_SMS)
+    rows = ku if same else ku + kv
+    assert plan.T == T and plan.smem_bytes == fused.gram_smem_bytes(rows, T, same)
+    assert plan.smem_bytes <= H100_SMEM and plan.blocks == min(-(-n // T), H100_SMS)
+    assert T == 128 or T <= n // H100_SMS
+    wider = [t for t in fused.GRAM_TILES if t > T and t <= max(128, n // H100_SMS)]
+    assert all(fused.gram_smem_bytes(rows, t, same) > H100_SMEM for t in wider)
+
+
+def test_gram_plan_refuses_what_one_launch_cannot_take():
+    with pytest.raises(ValueError, match="at most 96"):
+        fused.gram_plan(97, 8, False, 4096, H100_SMEM, H100_SMS)
+    with pytest.raises(ValueError, match="no tile"):
+        fused.gram_plan(96, 96, False, 4096, 64 * 1024, H100_SMS)
+
+
+@pytest.mark.parametrize("k,chunks", [
+    (97, None), (128, None), (800, None),
+    (96, [(0, 48), (48, 96)]),                                   # the stencil's two launches
+    (800, _native.row_chunks(800, 32)),                          # xr_update_gram's chunks
+    (400, _native.row_chunks(400, 16)),
+    (200, [(0, 70), (70, 140), (140, 200)]),
+])
+@pytest.mark.parametrize("same", [False, True])
+def test_gram_blocks_cover_every_entry_once(k, chunks, same):
+    """``wide_gram``'s layout: every entry of G from exactly one block; a
+    launch takes at most 96 rows of each field; a mirror copies a block made
+    before it; the fused diagonal blocks are the chunks' own. On the CPU,
+    with a plain product standing in for each launch, it gives U V^T."""
+    blocks = fused.gram_blocks(k, chunks, same)
+    cover = np.zeros((k, k), int)
+    made = set()
+    for what, r0, r1, s0, s1, a in blocks:
+        cover[r0:r1, s0:s1] += 1
+        if what == "launch":
+            assert r1 - r0 <= fused.GRAM_MAX_K and s1 - s0 <= fused.GRAM_MAX_K
+        elif what == "mirror":
+            assert same and (s0, s1, r0, r1) in made
+        else:
+            assert chunks is not None and (r0, r1) == tuple(chunks[a]) == (s0, s1)
+        made.add((r0, r1, s0, s1))
+    assert (cover == 1).all()
+    if chunks is None:
+        assert sum(b[0] == "launch" for b in blocks) == (
+            lambda c: c * (c + 1) // 2 if same else c * c)(-(-k // fused.GRAM_MAX_K))
+    rng = np.random.default_rng(k)
+    U = torch.from_numpy(rng.standard_normal((k, 40)))
+    V = U if same else torch.from_numpy(rng.standard_normal((k, 40)))
+    diag = None if chunks is None else [U[r0:r1] @ V[r0:r1].T for r0, r1 in chunks]
+    orig = fused._launch_gram
+    fused._launch_gram = lambda A, B: A @ B.T
+    try:
+        G = fused.wide_gram(U, V, diag, chunks)
+    finally:
+        fused._launch_gram = orig
+    np.testing.assert_allclose(G.numpy(), (U @ V.T).numpy(), rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------- the per-site block stencil (rows 22-24)
+
+
+def _dirac_offsets(L):
+    """``dirac_gauged_matrix(L)``'s 15 offsets (problems/dirac.py)."""
+    offs = [0, L ** 3, -L ** 3]
+    for st in (L ** 2, L, 1):
+        offs += [st, -st, -(L - 1) * st, (L - 1) * st]
+    return tuple(offs)
+
+
+_BS_PRESETS = {
+    "matrix_32^4": (32 ** 4, _dirac_offsets(32)),
+    "small_wraps": (300, (0, 1, -1, 17, -150, 64, 299, 452, -304)),
+    "aligned": (1000, (0, 4, -4, 40, -400, 996)),
+}
+
+
+@pytest.mark.parametrize("preset", sorted(_BS_PRESETS))
+@pytest.mark.parametrize("bs,k", [(1, 1), (1, 96), (2, 48), (3, 32), (4, 1), (4, 12),
+                                  (4, 24), (5, 19), (8, 6), (8, 12)])
+@pytest.mark.parametrize("with_gram", [False, True])
+def test_block_stencil_plan_fits_and_covers(preset, bs, k, with_gram):
+    """Every plan fits the cap (as the kernel counts its shared memory),
+    covers the launch's right-hand sides (groups x ki >= k, a built ki) and
+    sites (T = 256 / groups, a tile a block at most), splits the offsets by
+    the kernel's near rule, and fuses
+    the Gram only where the Gram's register width 2 BS ki covers m."""
+    ns, offsets = _BS_PRESETS[preset]
+    offs = tuple(o % ns for o in offsets)
+    plan = bsk.block_stencil_plan(offs, ns, bs, k, with_gram, H100_SMEM, H100_SMS)
+    w = 4 if bs <= 4 else 8
+    assert plan.groups in bsk.GROUPS and plan.ki in bsk.KI_BUILT[w]
+    assert plan.groups * plan.ki >= k and plan.T * plan.groups == bsk.THREADS
+    assert plan.h % 4 == 0 and plan.stages in bsk.STAGES
+    assert plan.near == tuple(min(o, ns - o) <= plan.h for o in offs)
+    assert plan.smem_bytes == bsk.smem_bytes(bs, k, plan.T, plan.h, plan.stages,
+                                             not all(plan.near), bool(plan.fused_gram))
+    assert plan.smem_bytes + bsk.BARRIER_BYTES <= H100_SMEM
+    assert plan.blocks == min(-(-ns // plan.T), H100_SMS)
+    assert plan.fused_gram is (None if not with_gram else plan.fused_gram)
+    if plan.fused_gram:
+        assert plan.groups <= 2 and 2 * w * plan.ki >= bs * k
+
+
+@pytest.mark.parametrize("bs,k,with_gram,want", [
+    # m = 48 on dirac_gauged_matrix(32): two groups of 6 RHS, 128 sites, the
+    # +-1, +-31, +-32 and 0 diagonals from a 32-site halo, four stages
+    (4, 12, False, (32, 128, 2, 6, 4, 7, None)),
+    (4, 12, True, (32, 128, 2, 6, 4, 7, True)),
+    # the realified core: 64 coefficient planes fill two stages
+    (8, 6, True, (32, 128, 2, 3, 2, 7, True)),
+    # config 4's 24 RHS (m = 96): four groups of 6 over 64 sites, the Gram
+    # from gram.cu
+    (4, 24, True, (32, 64, 4, 6, 4, 7, False)),
+    (4, 1, False, (32, 256, 1, 1, 4, 7, None)),
+])
+def test_block_stencil_plan_of_the_main_paths(bs, k, with_gram, want):
+    ns, offsets = _BS_PRESETS["matrix_32^4"]
+    plan = bsk.block_stencil_plan(tuple(o % ns for o in offsets), ns, bs, k, with_gram,
+                                  H100_SMEM, H100_SMS)
+    assert (plan.h, plan.T, plan.groups, plan.ki, plan.stages, sum(plan.near),
+            plan.fused_gram) == want
+
+
+def test_block_stencil_plan_pins_and_refusals():
+    ns, offsets = _BS_PRESETS["aligned"]
+    offs = tuple(o % ns for o in offsets)
+    plan = bsk.block_stencil_plan(offs, ns, 4, 12, False, H100_SMEM, H100_SMS, h=0, groups=8,
+                                  stages=2)
+    assert (plan.h, plan.groups, plan.T, plan.ki, plan.stages) == (0, 8, 32, 2, 2)
+    assert sum(plan.near) == 1
+    with pytest.raises(ValueError, match="96 rows"):
+        bsk.block_stencil_plan(offs, ns, 4, 25, False, H100_SMEM, H100_SMS)
+    with pytest.raises(ValueError, match="no schedule"):
+        bsk.block_stencil_plan(offs, ns, 8, 12, False, 16 * 1024, H100_SMS)
+    with pytest.raises(ValueError, match="no schedule"):  # no room for one tile of 256 sites
+        bsk.block_stencil_plan(offs, ns, 4, 12, False, H100_SMEM, H100_SMS, groups=1, h=400)
+
+
+def _bs_schedule_apply(blocks, offsets, X, k, merged, plan):
+    """The kernel's schedule in numpy (f64): per tile of T sites, the
+    window of staged rows b * k + i at sites (i0 - h + v) mod ns, one stage a
+    diagonal (its coefficients zero past ns, a far diagonal's X at (i0 + c +
+    o) mod ns); thread (c, g) sums RHS g ki .. g ki + ki - 1, reading row k - 1
+    past k; Y stored through the field's row map."""
+    nd, bs, _, ns = blocks.shape
+    m = bs * k
+    row = (lambda b, i: b * k + i) if merged else (lambda b, i: i * bs + b)
+    Xr = X.reshape(m, ns)
+    staged = np.stack([Xr[row(b, i)] for b in range(bs) for i in range(k)])  # (m, ns)
+    Y = np.zeros((m, ns))
+    T, h = plan.T, plan.h
+    for i0 in range(0, ns, T):
+        window = staged[:, (i0 - h + np.arange(T + 2 * h)) % ns]
+        acc = np.zeros((plan.groups, bs, plan.ki, T))
+        for d, o in enumerate(offsets):
+            o %= ns
+            cols = np.arange(T)
+            coef = np.zeros((bs, bs, T))
+            live = i0 + cols < ns
+            coef[:, :, live] = blocks[d][:, :, i0 + cols[live]]
+            if plan.near[d]:
+                s = o if o <= h else o - ns
+                xs = window[:, h + s + cols]
+            else:
+                xs = staged[:, (i0 + cols + o) % ns]
+            for g in range(plan.groups):
+                rhs = [min(g * plan.ki + ii, k - 1) for ii in range(plan.ki)]
+                for b in range(bs):
+                    x = xs[[b * k + i for i in rhs]]  # (ki, T)
+                    acc[g] += coef[:, b, None, :] * x[None]
+        for g in range(plan.groups):
+            for ii in range(plan.ki):
+                i = g * plan.ki + ii
+                if i >= k:
+                    continue
+                for a in range(bs):
+                    live = i0 + np.arange(T) < ns
+                    Y[row(a, i), i0 + np.arange(T)[live]] = acc[g, a, ii, live]
+    return Y.reshape(X.shape)
+
+
+@pytest.mark.parametrize("preset", ["small_wraps", "aligned"])
+@pytest.mark.parametrize("bs,k,merged,pins", [
+    (4, 3, True, {}), (3, 5, False, {}), (2, 7, True, {"groups": 4, "h": 0}),
+    (8, 2, False, {"groups": 2, "h": 152}), (1, 9, True, {"groups": 8, "stages": 2}),
+])
+def test_block_stencil_schedule_matches_the_oracle(preset, bs, k, merged, pins):
+    ns, offsets = _BS_PRESETS[preset]
+    offs = tuple(o % ns for o in offsets)
+    pins = {key: v for key, v in pins.items() if key != "h" or ns == 300 or v == 0}
+    plan = bsk.block_stencil_plan(offs, ns, bs, k, False, H100_SMEM, 4, **pins)
+    rng = np.random.default_rng(ns + bs)
+    blocks = rng.standard_normal((len(offs), bs, bs, ns))
+    X = rng.standard_normal((bs * k, ns) if merged else (k, bs, ns))
+    want = bsk.block_stencil_plain(torch.from_numpy(blocks), offs,
+                                   torch.from_numpy(X if merged else
+                                                    X.transpose(1, 0, 2).reshape(bs * k, ns)))[0]
+    want = want.numpy() if merged else want.numpy().reshape(bs, k, ns).transpose(1, 0, 2)
+    got = _bs_schedule_apply(blocks, offs, X, k, merged, plan)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def test_timing_tool_bounds_of_the_new_cases():
+    """``tools/torch_kernel_times.py``'s bound of a row 5 case: the fields
+    read once (U alone when U is V) over 3.35 TB/s against U V^T's FLOPs
+    (the upper triangle when U is V) over 67 TFLOP/s."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "torch_kernel_times.py"
+    spec = importlib.util.spec_from_file_location("torch_kernel_times", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    n = 32 ** 4
+    assert tool.bound_us("row 5 gram (96, 32^4)") == pytest.approx(
+        max(4 * (192 * n + 96 * 96) / 3.35e12, 2 * 96 * 96 * n / 67e12) * 1e6)
+    assert tool.bound_us("row 5 gram U is V (96, 32^4)") == pytest.approx(
+        max(4 * (96 * n + 96 * 96) / 3.35e12, 96 * 97 * n / 67e12) * 1e6)
+    assert tool.bound_us("row 5 gram 64 x 32 (96, 32^4)") == pytest.approx(
+        max(4 * (96 * n + 64 * 32) / 3.35e12, 2 * 64 * 32 * n / 67e12) * 1e6)
+    assert tool.bound_us("row 23 block_stencil_spmm_m_t x") is None

@@ -3,13 +3,18 @@
 the Gram (row 5), ``mm_update`` (row 6), ``mm_update_gram`` (row 7, with and
 without A), ``mm2_update_gram`` (row 8) and ``px_update`` (row 9) from
 torch.profiler's kernel records, at the shapes of the north star (32, 128^3)
-and config 3 (32, 64^3), rows 6-9 at config 4's (48, 32^4) and at (96,
-32^4), rows 6 and 7 (with and without A) at (400, 2^16) and (800, 2^16),
-rows 8 and 9 at (800, 2^16); then ``tiled_spmm_t`` (row 25) on the
-[sparse] tiles (``rgg_laplacian(524288, 40)`` through ``from_scipy_auto``,
-about 10 s of host build) at k = 32 with f32 and bf16 tiles and at k = 96.
-Beside them, the one PyTorch call that computes the same function, where
-there is one (``U @ V.T``, ``M @ B``, torch's BSR product).
+and config 3 (32, 64^3), rows 5-9 at config 4's (48, 32^4) and at (96,
+32^4) (row 5 also with U is V, and a rectangular 64 x 32 block of one
+launch), rows 6 and 7 (with and without A) at (400, 2^16) and (800, 2^16),
+rows 8 and 9 at (800, 2^16); then the per-site block stencil (rows 22, 23,
+23b) on ``dirac_gauged_matrix(32)`` at k = 12 (the (12, 4, 32^4) view, the
+merged (48, 32^4) field, with its Gram) and on the realified complex core
+(bs = 8, k = 6; about 40 s of host build for the two operators); then
+``tiled_spmm_t`` (row 25) on the [sparse] tiles (``rgg_laplacian(524288,
+40)`` through ``from_scipy_auto``, about 10 s of host build) at k = 32 with
+f32 and bf16 tiles and at k = 96. Beside them, the one PyTorch call that
+computes the same function, where there is one (``U @ V.T``, ``M @ B``,
+torch's BSR product).
 
 Run on a machine with a card, from the root of a checkout:
 
@@ -22,16 +27,26 @@ parent. ``--sweep`` times the stencil of this checkout at each window halo
 and tile width that fits in shared memory, marking the one its plan picks.
 ``--variants`` times row 8 beside other builds of its kernel (without the
 Gram; one or three blocks an SM; other stage depths), row 9 at other stage
-depths, row 7 beside other builds of its Gram and, on fields wider than 128
-rows, other row chunks, and row 25 on the [sparse] tiles at other slice
-widths, ring depths and register tiles (``tiled_plan``'s keywords).
+depths, row 7 on fields wider than 128 rows beside other row chunks, row 5
+at (32, 128^3) and (96, 32^4) on other column tiles and in probe builds (4x4
+register tiles at two blocks an SM; a ring of three tiles), rows 23 and 23b
+on ``dirac_gauged_matrix(32)`` at k = 12 on other schedules of
+``block_stencil_plan`` (no window or the plan's; one, two, four or eight
+groups of right-hand sides, which set the tile of 256 / groups sites; two,
+three or four stages), each named by its plan, and row 23 in probe builds
+with parts of the kernel switched off or other counts of producer warps, and
+row 25 on the [sparse] tiles at other slice widths, ring depths and register
+tiles (``tiled_plan``'s keywords).
 ``--only REGEX`` keeps the cases whose name matches. One JSON line per
 case: device us per call (all of the call's kernels, the Gram's second
 stage included), host us per call (wall time of the timed calls over their
 count, ending in a synchronize), the least time the work could take
-(``bound_us``, rows 6-9) and a checksum of the bytes of each of the call's
-outputs, so two checkouts show whether a kernel kept its bits. The inputs come from a fixed seed; L2 is not
-flushed between calls (the fields are 268-805 MB, far above the 50 MB L2).
+(``bound_us``: rows 5-9, 22-23b; max of the bytes over 3.35 TB/s and the
+FLOPs over 67 TFLOP/s, a symmetric Gram counted as its upper triangle) and a
+checksum of the bytes of each of the call's outputs, so two checkouts show
+whether a kernel kept its bits. The inputs come from a fixed seed; L2 is
+not flushed between calls (the fields are 268-805 MB, far above the 50 MB
+L2).
 """
 
 from __future__ import annotations
@@ -112,7 +127,16 @@ def cases(torch, dev, library: bool):
         what = f"({m}, 32^4)"
         if library:
             yield f"library M @ B {what}", lambda M=M, B=B: M @ B
+            yield f"library U @ V.T {what}", lambda B=B, V=V: B @ V.T
+            if m == 96:
+                yield f"library U @ U.T {what}", lambda B=B: B @ B.T
+                yield f"library U @ V.T 64 x 32 {what}", lambda B=B, V=V: B[:64] @ V[:32].T
         else:
+            yield f"row 5 gram {what}", lambda B=B, V=V: fused.gram(B, V)
+            if m == 96:
+                yield f"row 5 gram U is V {what}", lambda B=B: fused.gram(B, B)
+                yield (f"row 5 gram 64 x 32 {what}",
+                       lambda B=B, V=V: fused._launch_gram(B[:64], V[:32]))
             yield f"row 6 mm_update {what}", lambda M=M, B=B: fused.mm_update(M, B)
             yield from row7(fused, what, M, B, V)
             yield from rows89(fused, what, M, M2, M3, B, V, Z)
@@ -130,15 +154,25 @@ def cases(torch, dev, library: bool):
             if k == 800:
                 yield from rows89(fused, what, M, M2, M3, W, P, X)
             del W, P, X
+    yield from block_stencil_cases(torch, dev, library)
     yield from row25(torch, dev, library)
 
 
 def bound_us(name: str) -> float | None:
-    """The least device time of a row 6-9 case (max of its bytes over 3.35
+    """The least device time of a row 5-9 case (max of its bytes over 3.35
     TB/s and its FLOPs over 67 TFLOP/s, chip_smoke.py's rates) from the
     shape in its name, for the dense k x k coefficients the cases use: each
     input field read once, each output written once; Y = M B is 2 k^2 FLOPs
-    a column, a symmetric Gram Y Y^T k (k + 1) (its upper triangle)."""
+    a column, a symmetric Gram Y Y^T k (k + 1) (its upper triangle), U V^T
+    2 ku kv. The block stencil's cases carry their own bound."""
+    g = re.match(r"row 5 gram (U is V |(\d+) x (\d+) )?\((\d+), (\d+)\^(\d+)\)$", name)
+    if g is not None:
+        k, n = int(g.group(4)), int(g.group(5)) ** int(g.group(6))
+        same = g.group(1) == "U is V "
+        ku, kv = (int(g.group(2)), int(g.group(3))) if g.group(2) else (k, k)
+        nbytes = 4 * ((ku if same else ku + kv) * n + ku * kv)
+        flops = ku * (ku + 1) * n if same else 2 * ku * kv * n
+        return max(nbytes / 3.35e12, flops / 67e12) * 1e6
     m = re.match(r"row ([6-9]) \S+ (\+A )?\((\d+), (\d+)\^(\d+)\)$", name)
     if m is None:
         return None
@@ -155,6 +189,256 @@ def row7(fused, what, M, B, A):
     """Row 7 on fresh outputs: Y = M B (+ A) with its Gram."""
     yield f"row 7 mm_update_gram {what}", lambda: fused.mm_update_gram(M, B)
     yield f"row 7 mm_update_gram +A {what}", lambda: fused.mm_update_gram(M, B, A)
+
+
+def block_operators(torch, dev):
+    """``dirac_gauged_matrix(32)`` and the realified complex core (bs = 8):
+    (label, blocks, offsets, k) of each, with the operator's offsets."""
+    from blockcg_tpu_torch.operators import realify
+    from blockcg_tpu_torch.problems import dirac_gauged_matrix
+
+    op = dirac_gauged_matrix(32, m=0.5, device=dev)
+    yield "dirac_gauged_matrix(32)", op.blocks, op.offsets, 12
+    del op
+    core = realify(dirac_gauged_matrix(32, dtype=torch.complex64, device=dev)).real_op
+    yield "realified core", core.blocks, core.offsets, 6
+
+
+def block_work(blocks, k: int, gram: bool) -> float:
+    """bound_us of a block-stencil apply: the blocks, X and Y once (and G);
+    2 k FLOPs a nonzero coefficient (and 2 m^2 a site for G = X Y^T)."""
+    import torch
+
+    _, bs, _, ns = blocks.shape
+    m = bs * k
+    nbytes = 4 * (blocks.numel() + 2 * m * ns + gram * m * m)
+    flops = 2 * k * int(torch.count_nonzero(blocks)) + gram * 2 * m * m * ns
+    return max(nbytes / 3.35e12, flops / 67e12) * 1e6
+
+
+def block_stencil_cases(torch, dev, library: bool):
+    """Rows 22 ((k, bs, ns) view), 23 (merged) and 23b (merged with its Gram)
+    on each of ``block_operators``; or torch's BSR product of the same
+    blocks (row 23's function)."""
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for label, blocks, offsets, k in block_operators(torch, dev):
+        _, bs, _, ns = blocks.shape
+        Xm = torch.randn((bs * k, ns), generator=gen, device=dev)
+        Xv = torch.randn((k, bs, ns), generator=gen, device=dev)
+        what = f"{label} (k={k}, bs={bs})"
+        if library:
+            sites = torch.arange(ns, device=dev)
+            cols = torch.stack([(sites + o) % ns for o in offsets], dim=1)
+            order = torch.argsort(cols, dim=1)
+            vals = blocks.permute(3, 0, 1, 2)[sites[:, None], order]
+            A = torch.sparse_bsr_tensor(torch.arange(0, (ns + 1) * len(offsets), len(offsets),
+                                                     device=dev),
+                                        cols.gather(1, order).reshape(-1),
+                                        vals.reshape(-1, bs, bs).contiguous(),
+                                        size=(ns * bs, ns * bs))
+            Xs = Xm.reshape(bs, k, ns).permute(2, 0, 1).reshape(ns * bs, k).contiguous()
+            del vals, cols, order
+            yield f"library BSR @ dense {what}", lambda A=A, Xs=Xs: A @ Xs
+            continue
+        plain, gram = block_work(blocks, k, False), block_work(blocks, k, True)
+        yield (f"row 22 block_stencil_spmm_t {what}",
+               lambda b=blocks, o=offsets, X=Xv: bsk.block_stencil_spmm_t(b, o, X), plain)
+        yield (f"row 23 block_stencil_spmm_m_t {what}",
+               lambda b=blocks, o=offsets, X=Xm: bsk.block_stencil_spmm_m_t(b, o, X), plain)
+        yield (f"row 23b block_stencil_spmm_m_gram_t {what}",
+               lambda b=blocks, o=offsets, X=Xm: bsk.block_stencil_spmm_m_gram_t(b, o, X), gram)
+        del Xm, Xv
+
+
+# Probe builds of the Gram (csrc/gram.cu gram_kernel<KMAX, SYM, TS, MINB,
+# ST>) beside the built kernels: 4x4 register tiles built for two blocks an
+# SM, and a ring of three tiles.
+GRAM_PROBE = r"""#include "{src}"
+extern "C" int gram_probe(const float* U, const float* V, float* part, float* G, int ku, int kv,
+                          long long n, int T, int max_blocks, int which, int device,
+                          cudaStream_t stream) {{
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (which) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+# which: (label, template arguments, rows, U is V)
+GRAM_PROBES = {0: ("4x4 tiles, two blocks an SM", "32, false, 4, 2", 32, False),
+               1: ("4x4 tiles, two blocks an SM", "32, true, 4, 2", 32, True),
+               2: ("three tiles in shared memory", "32, false, 8, 1, 3", 32, False),
+               3: ("three tiles in shared memory", "32, true, 4, 1, 3", 32, True),
+               4: ("three tiles in shared memory", "96, false, 6, 1, 3", 96, False)}
+
+
+def gram_variants(torch, dev, tmp: Path):
+    """Row 5 at (32, 128^3), (48, 32^4) and (96, 32^4), U != V and U is V:
+    the plan's column tile, the built kernel on other tiles that fit, and
+    the probe builds of ``GRAM_PROBES`` (4x4 tiles on a grid of 2 x SMs)."""
+    import ctypes
+    import subprocess
+
+    from blockcg_tpu_torch.ops import _native, fused
+
+    probe = tmp / "gram_probe.cu"
+    cases = "".join(f"    case {w}: return launch<{args}>(U, V, part, G, ku, kv, n, T, "
+                    "max_blocks, device, stream);\n" for w, (_, args, _, _) in GRAM_PROBES.items())
+    probe.write_text(GRAM_PROBE.format(src=_native.CSRC / "gram.cu", cases=cases))
+    lib = tmp / "libgramprobe.so"
+    built = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-shared", str(probe), "-o",
+                            str(lib)], capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the gram probe:\n{built.stdout}{built.stderr}")
+    fn = ctypes.CDLL(str(lib)).gram_probe
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes, fn.restype = [P, P, P, P, I, I, L, I, I, I, I, P], I
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms, cap, p = _native.sm_count(dev.index), _native.max_smem(dev.index), _native.ptr
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k, n, shape, sames in ((32, 128 ** 3, "(32, 128^3)", (False, True)),
+                               (48, 32 ** 4, "(48, 32^4)", (False, True)),
+                               (96, 32 ** 4, "(96, 32^4)", (False, True))):
+        U, V = (torch.randn((k, n), generator=gen, device=dev) for _ in range(2))
+        part = torch.empty((2 * sms, k, k), device=dev)
+        G = torch.empty((k, k), device=dev)
+        for same in sames:
+            B = U if same else V
+            what = f"{'U is V ' if same else ''}{shape}"
+            yield f"row 5 gram {what}", lambda B=B, U=U: fused.gram(U, B)
+            for T in (128, 256, 512):
+                if fused.gram_smem_bytes(k if same else 2 * k, T, same) <= cap:
+                    yield (f"variant row 5 T={T} {what}",
+                           lambda B=B, U=U, T=T, part=part, G=G, k=k, n=n: (_native.launch(
+                               "variant", "bcg_gram", dev, p(U), p(B), p(part), p(G), k, k, n,
+                               T, sms), G)[1])
+                for w, (label, _, rows, psame) in GRAM_PROBES.items():
+                    if rows != k or psame != same:
+                        continue
+                    grid = 2 * sms if "two blocks" in label else sms
+                    st = 3 if "three tiles" in label else fused.GRAM_STAGES
+                    if st * (k if same else 2 * k) * (T + (8 if same else 4)) * 4 > cap:
+                        continue
+
+                    def run(B=B, U=U, T=T, part=part, G=G, k=k, n=n, w=w, grid=grid):
+                        rc = fn(p(U), p(B), p(part), p(G), k, k, n, T, grid, w, dev.index,
+                                stream)
+                        if rc != 0:
+                            raise RuntimeError(f"gram probe {w} failed: {rc}")
+                        return G
+                    yield f"variant row 5 {label}, T={T} {what}", run
+        del U, V
+
+
+# Probe builds of the block stencil (csrc/block_stencil.cu bs_spmm<4, 6,
+# false, PROBE, PW>, exported by a source that includes it) on row 23's plan
+# at m = 48: parts of the kernel switched off, to see what its time is made
+# of, and other counts of producer warps.
+BS_PROBE = r"""#include "{src}"
+extern "C" int bs_probe(const float* blocks, const int* offsets, int nd, int bs, const float* X,
+                        float* Y, int k, long long ns, int h, int groups, int ki, int stages,
+                        int max_blocks, int probe, int device, cudaStream_t stream) {{
+  Launch p;
+  cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, nullptr, false, k, k, ns, 1,
+                                h, groups, ki, stages, max_blocks);
+  if (err != cudaSuccess) return err;
+  if (bs > 4 || ki != 6) return cudaErrorInvalidValue;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (probe) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+BS_PROBES = ((0, "as built", "0"), (1, "no arithmetic", "1"),
+             (3, "no arithmetic, no far X", "3"), (5, "no arithmetic, no coefficients", "5"),
+             (9, "no arithmetic, no window", "9"), (15, "no arithmetic, no copies", "15"),
+             (104, "4 producer warps", "0, 4"), (112, "12 producer warps", "0, 12"),
+             (113, "12 producer warps, no arithmetic", "1, 12"))
+
+
+def bs_probe_cases(torch, dev, tmp: Path, label, blocks, offsets, k, plan, Xm):
+    import ctypes
+    import subprocess
+
+    from blockcg_tpu_torch.ops import _native
+
+    probe = tmp / "bs_probe.cu"
+    cases = "".join(f"    case {v}: return launch<4, 6, false, {args}>(p, nullptr, max_blocks, "
+                    "device, stream);\n" for v, _, args in BS_PROBES)
+    probe.write_text(BS_PROBE.format(src=_native.CSRC / "block_stencil.cu", cases=cases))
+    lib = tmp / "libbsprobe.so"
+    built = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-shared", str(probe), "-o",
+                            str(lib)], capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the block-stencil probe:\n{built.stdout}{built.stderr}")
+    fn = ctypes.CDLL(str(lib)).bs_probe
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes, fn.restype = [P, ctypes.POINTER(ctypes.c_int), I, I, P, P, I, L, I, I, I, I,
+                               I, I, I, P], I
+    nd, bs, _, ns = blocks.shape
+    coffs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    Y = torch.empty_like(Xm)
+    for v, what, _ in BS_PROBES:
+        def run(v=v):
+            rc = fn(blocks.data_ptr(), coffs, nd, bs, Xm.data_ptr(), Y.data_ptr(), k, ns, plan.h,
+                    plan.groups, plan.ki, plan.stages, plan.blocks, v, dev.index, stream)
+            if rc != 0:
+                raise RuntimeError(f"block-stencil probe {v} failed: {rc}")
+            return Y
+        yield f"probe row 23 {what} {label} k={k} [{plan.describe()}]", run, None
+
+
+# Block-stencil schedules timed beside the plan (block_stencil_plan's pins):
+# no window; each split of a site's RHS (which sets the tile); each depth.
+BS_VARIANTS = ({"h": 0}, {"groups": 1, "h": 0}, {"groups": 4}, {"groups": 8}, {"stages": 2},
+               {"stages": 3})
+
+
+def bs_variants(torch, dev, tmp: Path):
+    """Rows 23 and 23b on ``dirac_gauged_matrix(32)`` at k = 12 under the
+    plan and each of ``BS_VARIANTS`` (launched with the pinned plan; a pin
+    that leaves no schedule is skipped), each named by its plan; then row 23
+    on the plan in the probe builds of ``BS_PROBES``."""
+    import ctypes
+
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+
+    label, blocks, offsets, k = next(block_operators(torch, dev))
+    nd, bs, _, ns = blocks.shape
+    m = bs * k
+    Xm = torch.randn((m, ns), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    offs = tuple(int(o) % ns for o in offsets)
+    coffs = (ctypes.c_int * nd)(*offs)
+    cap, sms = _native.max_smem(dev.index), _native.sm_count(dev.index)
+    p = _native.ptr
+    for gram in (False, True):
+        for kw in ({},) + BS_VARIANTS:
+            try:
+                plan = bsk.block_stencil_plan(offs, ns, bs, k, gram, cap, sms, **kw)
+            except ValueError as e:
+                print(json.dumps({"case": f"variant row 23 {kw} gram={gram}", "skip": str(e)}))
+                continue
+
+            def run(plan=plan):
+                Y = torch.empty_like(Xm)
+                part = G = None
+                if plan.fused_gram:
+                    part = torch.empty((plan.blocks, m, m), device=dev)
+                    G = torch.empty((m, m), device=dev)
+                _native.launch("variant", "bcg_block_stencil_spmm", dev, p(blocks), coffs, nd,
+                               bs, p(Xm), p(Y), p(part), p(G), k, k, ns, 1, plan.h,
+                               plan.groups, plan.ki, plan.stages, plan.blocks)
+                return Y if G is None else (Y, G)
+            name = "row 23 plan" if not kw else f"variant row 23 {kw}"
+            yield (f"{name}{'b' if gram else ''} {label} k={k} [{plan.describe()}]", run,
+                   block_work(blocks, k, bool(plan.fused_gram)))
+    plan = bsk.block_stencil_plan(offs, ns, bs, k, False, cap, sms)
+    yield from bs_probe_cases(torch, dev, tmp, label, blocks, offsets, k, plan, Xm)
 
 
 def sparse_operator(torch, dev):
@@ -315,8 +599,9 @@ def variant_cases(torch, dev, tmp: Path):
         for kc in PX_KC:
             yield f"variant row 9, kc = {kc} (32, {edge}^3)", lambda kc=kc: px(kc)
         del W, P_, Y, X, Pn, Xn
-    yield from row7_variants(torch, dev, tmp)
     yield from wide_variants(torch, dev)
+    yield from gram_variants(torch, dev, tmp)
+    yield from bs_variants(torch, dev, tmp)
     yield from row25_variants(torch, dev)
 
 
@@ -399,7 +684,7 @@ def main() -> None:
     ap.add_argument("--sweep", action="store_true",
                     help="time the stencil at each halo and tile width that fits")
     ap.add_argument("--variants", action="store_true",
-                    help="time rows 7, 8, 9 and 25 beside other builds and plans")
+                    help="time rows 7, 8, 9, 23 and 25 beside other builds and plans")
     ap.add_argument("--only", default=None,
                     help="time only the cases whose name matches this regular expression")
     args = ap.parse_args()
@@ -415,7 +700,7 @@ def main() -> None:
         todo = (sweep_cases(torch, dev) if args.sweep
                 else variant_cases(torch, dev, Path(tmp)) if args.variants
                 else cases(torch, dev, args.library))
-        for name, fn in todo:
+        for name, fn, *bound in todo:
             if args.only and not re.search(args.only, name):
                 continue
             for _ in range(2):
@@ -425,7 +710,7 @@ def main() -> None:
             print(json.dumps({"root": args.root, "case": name,
                               "device_us": device_us(torch, fn, args.reps, Path(tmp)),
                               "host_us": host_us(torch, fn, args.reps),
-                              "bound_us": bound_us(name),
+                              "bound_us": bound[0] if bound else bound_us(name),
                               "checksums": checksums(torch, out)}), flush=True)
             del out
 

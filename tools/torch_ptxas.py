@@ -30,12 +30,12 @@ from blockcg_tpu_torch.ops import _native  # noqa: E402
 
 # The KMAX = 128 candidates of each source (kernel templates at that width).
 PROBES = {
-    "gram.cu": ["gram_kernel<128>"],
+    "gram.cu": ["gram_kernel<128, false>", "gram_kernel<128, true>"],
     "xr_update.cu": ["xr_update_gram<128>"],
     "qr_p_update.cu": ["qr_p_update<128>", "qr_px_update<128>"],
     "stencil.cu": [],
     "const_block_stencil.cu": ["cbs_spmm<4, 128, false>", "cbs_spmm<4, 128, true>"],
-    "block_stencil.cu": ["bs_spmm<4, 128, false>", "bs_spmm<4, 128, true>"],
+    "block_stencil.cu": ["bs_spmm<8, 6, false>", "bs_spmm<8, 6, true>"],
 }
 
 ENTRY = re.compile(r"Compiling entry function '([^']+)'")
