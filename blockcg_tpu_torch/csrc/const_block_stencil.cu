@@ -1,27 +1,27 @@
-// Const-hop block stencil (optionally with the fused Gram) and the slab
-// accumulate of its periodic wrap diagonals, on merged spin-major fields and
-// on the (k, bs, ns) view.
+// Const-hop block stencil (optionally with the fused Gram) on the (k, bs,
+// ns) view, and the slab accumulate of the periodic wrap diagonals on merged
+// spin-major fields and on that view. (The merged view's main kernels run
+// cbs_merged.cu.)
 //
 // Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
-// const_block_stencil_spmm_m_t (:617), const_block_stencil_spmm_m_gram_t
-// (:637), slab_m_accumulate (:780) and slab_m_accumulate_from (:846) on the
-// merged view, and const_block_stencil_spmm_t (:330),
+// slab_m_accumulate (:780) and slab_m_accumulate_from (:846) on the merged
+// view, and const_block_stencil_spmm_t (:330),
 // const_block_stencil_spmm_gram_t (:361), slab_block_accumulate (:691) and
 // slab_block_accumulate_from (:955) on the (k, bs, ns) view.
 //
 // Layout: a field is (m, ns) float32 with m = bs * k; site s of row r sits at
 // F[r * ns + s]. The row map is a runtime pair of strides (RowMap in
 // common.cuh): on the merged view row a * k + i holds spin a of right-hand
-// side i; on the (k, bs, ns) view, row i * bs + a. One instantiation serves
-// both; at k = 1 the two maps are the same memory, so the two views do the
-// same arithmetic in the same order and give the same bits.
+// side i; on the (k, bs, ns) view, row i * bs + a. One slab instantiation
+// serves both. At k = 1 the two views are the same memory, and the main
+// kernel here does the arithmetic of cbs_merged.cu's groups of one, so the
+// two routes give the same bits.
 //
 // Contract, main kernel: for every diagonal d of the main set,
 //   Y[row(a, i), s] += w_d(s) * sum_b H_d[a][b] * X[row(b, i), (s + o_d) mod ns],
 // w_d(s) = masks[slot_d, s] when slot_d >= 0, else 1. The mask is a value,
 // not a gate: the gauged operators carry +-1 links in it. The Gram variant
-// also returns G = X Y^T: the (m, m) Gram on the merged view, and on the
-// (k, bs, ns) view its contraction over spins and sites, the (k, k)
+// also returns the contraction of G = X Y^T over spins and sites, the (k, k)
 // G[i, j] = sum_{a, s} X[i, a, s] Y[j, a, s].
 // Contract, slab kernel: for slab j < nblocks of g sites, destination block
 // dst = (dst_mul * j + dst_off) mod nb of Y (nb = ns / g blocks) and source
@@ -265,9 +265,8 @@ struct MainArgs {
   int nd, bs;
   const float *masks, *X;
   float *Y, *part, *G;
-  int k, ks;
+  int k;
   long long ns;
-  bool merged;
   int nblocks;
   cudaStream_t stream;
 };
@@ -301,15 +300,10 @@ cudaError_t launch_main(const MainArgs& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hops, a.diags, a.nd, a.bs,
                                                   a.masks, a.X, a.Y, a.part,
-                                                  row_map(a.merged, a.bs, a.ks), a.k, a.ns);
-  if (WITH_GRAM) {
-    if (a.merged) {
-      launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream);
-    } else {
-      reduce_spin_contract<<<a.k * a.k, kReduceThreads, 0, a.stream>>>(a.part, a.G, a.bs,
-                                                                         a.k, a.nblocks);
-    }
-  }
+                                                  row_map(false, a.bs, a.k), a.k, a.ns);
+  if (WITH_GRAM)
+    reduce_spin_contract<<<a.k * a.k, kReduceThreads, 0, a.stream>>>(a.part, a.G, a.bs, a.k,
+                                                                       a.nblocks);
   return cudaGetLastError();
 }
 
@@ -369,26 +363,20 @@ cudaError_t slab_by_kmax(int kmax, const SlabArgs& a) {
 
 // offsets, slots: host arrays of nd entries; each offset already reduced to
 // [0, ns). hops: device (nd, bs, bs). masks: device (nmask, ns), or null when
-// every slot is -1. k: right-hand sides per spin (m = bs * k). X, Y: device
-// (m, ns) fields, merged (row a * k + i) when merged != 0, else the
-// (k, bs, ns) view (row i * bs + a). ks: the merged view's right-hand sides
-// per spin, k on a whole field; a row-chunked launch covers RHS j0..j0+k of
-// a field of ks, with X and Y offset by j0 rows (the view's chunks are
-// contiguous and take ks = k). G == nullptr selects the plain apply;
-// otherwise (ks == k) part holds (nblocks, m, m) and G receives the (m, m)
-// Gram on the merged view, the (k, k) contraction on the (k, bs, ns) view.
+// every slot is -1. k: right-hand sides (m = bs * k). X, Y: device (k, bs,
+// ns) views (row i * bs + a); a row-chunked launch gets X and Y offset by
+// its first RHS's rows. G == nullptr selects the plain apply; otherwise part
+// holds (nblocks, m, m) and G receives the (k, k) contraction of X Y^T.
 extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
                             const int* slots, int nd, int bs,
                             const float* masks, const float* X, float* Y,
-                            float* part, float* G, int k, int ks, long long ns,
-                            int merged, int nblocks, int device,
-                            cudaStream_t stream) {
+                            float* part, float* G, int k, long long ns, int nblocks,
+                            int device, cudaStream_t stream) {
   const int bsw = bs_width(bs);
   const int kmax = kmax_for(bsw * k);
-  if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 ||
-      nblocks < 1 || ks < k || (G != nullptr && ks != k))
+  if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || kmax == 0 || ns < 1 || nblocks < 1)
     return cudaErrorInvalidValue;
-  MainArgs a{hops, {}, nd, bs, masks, X, Y, part, G, k, ks, ns, merged != 0, nblocks, stream};
+  MainArgs a{hops, {}, nd, bs, masks, X, Y, part, G, k, ns, nblocks, stream};
   for (int d = 0; d < nd; ++d) {
     if (offsets[d] < 0 || offsets[d] >= ns) return cudaErrorInvalidValue;
     if (slots[d] >= 0 && masks == nullptr) return cudaErrorInvalidValue;
@@ -413,7 +401,10 @@ extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
 // src_off reduced to its range; the nblocks destination blocks must be
 // distinct. X is the field itself (xn = ns) or a separate halo buffer. vals:
 // device (nblocks * g), or null. X, Xd and Y are merged when merged != 0,
-// else (k, bs, ns) views; ks as in bcg_cbs_spmm. G == nullptr: no Gram;
+// else (k, bs, ns) views. ks: the merged view's right-hand sides per spin, k
+// on a whole field; a row-chunked launch covers RHS j0..j0+k of a field of
+// ks, with the fields offset by j0 rows (the view's chunks are contiguous
+// and take ks = k). G == nullptr: no Gram;
 // otherwise (merged only, ks == k) G = Gin + the slab's Xd_dst dY^T (Gin may
 // be null), with part (grid, m, m).
 extern "C" int bcg_slab_accumulate(const float* hop, int bs, int g, int nblocks,

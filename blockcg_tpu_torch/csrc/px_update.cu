@@ -1,6 +1,9 @@
-// The SBCGrQ iteration tail: Pn = M1 W + rho P and Xn = X + C P in one pass.
+// The SBCGrQ iteration tail: Pn = M1 W + rho P and Xn = X + C P in one pass;
+// and, on the same schedule (QR), the shifted-block SBCGrQ tail Q = M2 Q1,
+// Pn = Q + rho P.
 //
-// Replaces the Pallas kernel blockcg_tpu/ops/fused.py px_update.
+// Replaces the Pallas kernels blockcg_tpu/ops/fused.py px_update (:588) and
+// qr_p_update (:730).
 //
 // Bound: bytes, five field passes (read W, P, X; write Pn, Xn), 1,342 MB at
 // (32, 2,097,152), 0.40 ms at 3.35 TB/s, with 3 k^2 FMAs a column beside
@@ -34,12 +37,28 @@
 // Width: one launch writes k <= 128 rows of Pn and Xn and contracts over kin
 // >= k rows of W and P (a row chunk of a wider field, ops/fused.py).
 //
+// QR: the stacked input is [Q1; P], the first table M2 over Q1's rows and
+// rho over P's, and there is no C, X or Xn. Q is pn after Q1's kin rows:
+// the stage that holds Q1's last row stores it (float4 stores, as Pn), and
+// Pn goes on from there over rho's rows. Q and Pn are the fmaf chains of
+// the one-thread-a-column kernel this replaced (q over c of M2[r, c] Q1[c,
+// i] from 0, then pn from q over rho[r, c] P[c, i]), so they keep its
+// bits. Bound: bytes, four field passes (read Q1, P; write Q, Pn), 805 MB
+// at (48, 32^4), 0.24 ms; at 96 rows its 2 k^2 FMAs a column take longer
+// than the bytes (0.58 ms). The kernel it replaced held KMAX = 64 sums a
+// column, read one 4-byte element of Q1 or P per coefficient column, 64
+// shared coefficients for each, a third of them padding at 48 rows; it took
+// 1.15 ms at (48, 32^4) and two launches at 96 rows, each reading all of Q1
+// and P.
+//
 // In place: Pn may be P (on a launch that covers all rows) and Xn may be X
-// (the solver donates both). A block copies all stages of its input tile
-// before it writes the tile's columns, the thread that writes Xn[r, i] has
-// read X[r, i] first, the copies in flight meanwhile are of its later tiles'
-// columns, and no block reads columns that another block writes; the field
-// pointers are therefore not __restrict__.
+// (the solver donates both); with QR, Q may be Q1 and Pn P (one launch): Q
+// is stored mid-tile, after every stage holding Q1's rows of the tile has
+// been copied. A block copies all stages of its input tile before it
+// writes the tile's columns, the thread that writes Xn[r, i] has read X[r,
+// i] first, the copies in flight meanwhile are of its later tiles' columns,
+// and no block reads columns that another block writes; the field pointers
+// are therefore not __restrict__.
 #include "common.cuh"
 
 namespace {
@@ -50,7 +69,28 @@ namespace {
 template <int R>
 constexpr int kPxBlocksPerSm = R <= 8 ? 2 : 1;
 
+// F[r0 + a, i .. i + 3] = v[a] for the rows below k: float4 stores, or
+// scalar ones past n and on unaligned fields.
 template <int R>
+__device__ __forceinline__ void store_rows4(float* F, const float (&v)[R][4], int r0, int k,
+                                            long long n, long long i, bool vec) {
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int r = r0 + a;
+    if (r >= k) continue;
+    const long long at = r * n + i;
+    if (vec && i + 3 < n) {
+      *reinterpret_cast<float4*>(F + at) = make_float4(v[a][0], v[a][1], v[a][2], v[a][3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (i + q < n) F[at + q] = v[a][q];
+    }
+  }
+}
+
+// QR: W is Q1, M1 is M2, Xn receives Q; C and X are unused.
+template <int R, bool QR>
 __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
     px_update_kernel(const float* __restrict__ M1, const float* W,
                      const float* __restrict__ Rho, const float* P,
@@ -61,14 +101,16 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
   const int nin = 2 * kin;
   float* sA = smem;
   float* sC = sA + nin * kRows;
-  float* sB = sC + kin * kRows;
+  float* sB = sC + (QR ? 0 : kin * kRows);
   for (int e = threadIdx.x; e < nin * kRows; e += kUpThreads) {
     const int c = e / kRows, r = e % kRows;
     sA[e] = r >= k ? 0.f : c < kin ? M1[r * kin + c] : Rho[r * kin + c - kin];
   }
-  for (int e = threadIdx.x; e < kin * kRows; e += kUpThreads) {
-    const int c = e / kRows, r = e % kRows;
-    sC[e] = r >= k ? 0.f : C[r * kin + c];
+  if constexpr (!QR) {
+    for (int e = threadIdx.x; e < kin * kRows; e += kUpThreads) {
+      const int c = e / kRows, r = e % kRows;
+      sC[e] = r >= k ? 0.f : C[r * kin + c];
+    }
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * R;
@@ -91,6 +133,7 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
         for (int a = 0; a < R; ++a) {
           const int r = r0 + a;
           pn[a][0] = pn[a][1] = pn[a][2] = pn[a][3] = 0.f;
+          if constexpr (QR) continue;
           const long long at = r * n + i;
           if (r >= k) {
             xn[a][0] = xn[a][1] = xn[a][2] = xn[a][3] = 0.f;
@@ -118,44 +161,30 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
           pn[a][3] = fmaf(m[a], b.w, pn[a][3]);
         }
       }
+      if (QR && c0 < kin && c1 >= kin) store_rows4<R>(Xn, pn, r0, k, n, i, vec);  // Q
 #pragma unroll 2
       for (int c = c0 > kin ? c0 : kin; c < c1; ++c) {  // P's rows: pn += rho P, xn += C P
         const float4 b = *reinterpret_cast<const float4*>(sb + (c - c0) * kUpTile);
         float m[R], cc[R];
         load_rows<R>(m, sA + c * kRows + r0);
-        load_rows<R>(cc, sC + (c - kin) * kRows + r0);
+        if constexpr (!QR) load_rows<R>(cc, sC + (c - kin) * kRows + r0);
 #pragma unroll
         for (int a = 0; a < R; ++a) {
           pn[a][0] = fmaf(m[a], b.x, pn[a][0]);
           pn[a][1] = fmaf(m[a], b.y, pn[a][1]);
           pn[a][2] = fmaf(m[a], b.z, pn[a][2]);
           pn[a][3] = fmaf(m[a], b.w, pn[a][3]);
-          xn[a][0] = fmaf(cc[a], b.x, xn[a][0]);
-          xn[a][1] = fmaf(cc[a], b.y, xn[a][1]);
-          xn[a][2] = fmaf(cc[a], b.z, xn[a][2]);
-          xn[a][3] = fmaf(cc[a], b.w, xn[a][3]);
-        }
-      }
-      if (j == nk - 1) {  // the tile's last stage: store both outputs
-#pragma unroll
-        for (int a = 0; a < R; ++a) {
-          const int r = r0 + a;
-          if (r >= k) continue;
-          const long long at = r * n + i;
-          if (vec && i + 3 < n) {
-            *reinterpret_cast<float4*>(Pn + at) =
-                make_float4(pn[a][0], pn[a][1], pn[a][2], pn[a][3]);
-            *reinterpret_cast<float4*>(Xn + at) =
-                make_float4(xn[a][0], xn[a][1], xn[a][2], xn[a][3]);
-          } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (i + q < n) {
-                Pn[at + q] = pn[a][q];
-                Xn[at + q] = xn[a][q];
-              }
+          if constexpr (!QR) {
+            xn[a][0] = fmaf(cc[a], b.x, xn[a][0]);
+            xn[a][1] = fmaf(cc[a], b.y, xn[a][1]);
+            xn[a][2] = fmaf(cc[a], b.z, xn[a][2]);
+            xn[a][3] = fmaf(cc[a], b.w, xn[a][3]);
           }
         }
+      }
+      if (j == nk - 1) {  // the tile's last stage: store the outputs
+        store_rows4<R>(Pn, pn, r0, k, n, i, vec);
+        if constexpr (!QR) store_rows4<R>(Xn, xn, r0, k, n, i, vec);
       }
     }
     __syncthreads();  // every read of this stage's buffer is done: refill it
@@ -167,19 +196,21 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
   cp_async_wait<0>();
 }
 
-template <int R>
+template <int R, bool QR>
 cudaError_t launch(const float* M1, const float* W, const float* Rho, const float* P,
                    const float* C, const float* X, float* Pn, float* Xn, int k, int kin,
                    long long n, int kc, int device, cudaStream_t stream) {
-  auto kernel = px_update_kernel<R>;
-  const size_t smem = update_smem_floats(k, kin, kc, 3, false) * sizeof(float);
+  auto kernel = px_update_kernel<R, QR>;
+  const size_t smem = (QR ? update_smem_floats(k, kin, kc, 2, false)
+                          : update_smem_floats(k, kin, kc, 3, false)) *
+                      sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long ntiles = (n + kUpTile - 1) / kUpTile;
   int grid = 0;
   err = persistent_grid(kernel, kUpThreads, smem, device, ntiles, ntiles, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % 4 == 0 && aligned16(W) && aligned16(P) && aligned16(X) &&
+  const bool vec = n % 4 == 0 && aligned16(W) && aligned16(P) && (QR || aligned16(X)) &&
                    aligned16(Pn) && aligned16(Xn);
   kernel<<<grid, kUpThreads, smem, stream>>>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, vec);
   return cudaGetLastError();
@@ -197,7 +228,7 @@ extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
   if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-#define BCG_PX(R) return launch<R>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream)
+#define BCG_PX(R) return launch<R, false>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream)
   switch (rows_per_warp(k)) {
     case 1: BCG_PX(1);
     case 2: BCG_PX(2);
@@ -209,4 +240,28 @@ extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
     default: return cudaErrorInvalidValue;
   }
 #undef BCG_PX
+}
+
+// Q, Pn (k, n); M2, rho k x kin (row stride kin); Q1, P (kin, n). kc: stacked
+// input rows a stage copies (ops/fused.py qr_p_update_plan). Q may equal Q1
+// and Pn may equal P when k == kin.
+extern "C" int bcg_qr_p_update(const float* M2, const float* Q1, const float* Rho,
+                               const float* P, float* Q, float* Pn, int k, int kin,
+                               long long n, int kc, int device, cudaStream_t stream) {
+  if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+#define BCG_QR(R) \
+  return launch<R, true>(M2, Q1, Rho, P, nullptr, nullptr, Pn, Q, k, kin, n, kc, device, stream)
+  switch (rows_per_warp(k)) {
+    case 1: BCG_QR(1);
+    case 2: BCG_QR(2);
+    case 4: BCG_QR(4);
+    case 6: BCG_QR(6);
+    case 8: BCG_QR(8);
+    case 12: BCG_QR(12);
+    case 16: BCG_QR(16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BCG_QR
 }

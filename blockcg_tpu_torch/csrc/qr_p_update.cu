@@ -1,19 +1,16 @@
-// The shifted-block SBCGrQ tail, Q = M2 Q1 and Pn = Q + rho P, and the fused
-// SBCGrQ iteration tail that also updates the solution, Q = M2 Q1,
-// Pn = Q + rho P and Xn = X + C P, each in one pass.
+// The fused SBCGrQ iteration tail that also updates the solution: Q = M2 Q1,
+// Pn = Q + rho P and Xn = X + C P in one pass. (The shifted-block tail
+// without Xn, qr_p_update, runs on px_update.cu's streaming schedule.)
 //
-// Replaces the Pallas kernels blockcg_tpu/ops/fused.py qr_p_update and
-// qr_px_update.
+// Replaces the Pallas kernel blockcg_tpu/ops/fused.py qr_px_update (:795).
 //
-// Bound: bytes. qr_p_update makes four field passes (read Q1, P; write Q,
-// Pn), with 2 k x k FMAs per column beside them; qr_px_update six (read Q1,
-// P, X; write Q, Pn, Xn) with 3 k x k FMAs, against seven for qr_p_update and
-// a separate mm_update (P read twice). The TPU kernels stacked the applies
-// into one (2k, 2k) or (3k, 2k) MXU dot; here, as in px_update.cu, the
-// coefficient matrices sit in shared memory (transposed, broadcast reads),
-// one thread owns a column, and Q's column, still in registers, seeds Pn's,
-// so Q1 and P are each read once (in qr_px_update one read of P feeds both
-// Pn and Xn).
+// Bound: bytes, six field passes (read Q1, P, X; write Q, Pn, Xn) with 3 k
+// x k FMAs per column beside them, against seven for qr_p_update and a
+// separate mm_update (P read twice). The TPU kernel stacked the applies into
+// one (3k, 2k) MXU dot; here the coefficient matrices sit in shared memory
+// (transposed, broadcast reads), one thread owns a column, and Q's column,
+// still in registers, seeds Pn's, so Q1 and P are each read once (one read
+// of P feeds both Pn and Xn).
 //
 // Row chunks: the outputs have k <= 64 rows, M2, rho and C are k x kin, Q1
 // and P (kin, n); a wider update is one launch per chunk of rows
@@ -26,33 +23,6 @@
 #include "common.cuh"
 
 namespace {
-
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
-    qr_p_update(const float* __restrict__ M2, const float* Q1,
-                const float* __restrict__ Rho, const float* P, float* Q,
-                float* Pn, int k, int kin, long long n) {
-  extern __shared__ __align__(16) float smem[];  // m2T | rhoT
-  float* m2 = smem;
-  float* rho = smem + coeff_cols<KMAX>(kin) * KMAX;
-  stage_coeff<KMAX>(m2, M2, k, kin);
-  stage_coeff<KMAX>(rho, Rho, k, kin);
-  __syncthreads();
-  const long long ntiles = (n + kThreads - 1) / kThreads;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long i = t * kThreads + threadIdx.x;
-    const bool valid = i < n;
-    float q[KMAX], pn[KMAX];
-#pragma unroll
-    for (int r = 0; r < KMAX; ++r) q[r] = 0.f;
-    apply_coeff<KMAX>(q, m2, Q1, kin, n, i, valid);
-#pragma unroll
-    for (int r = 0; r < KMAX; ++r) pn[r] = q[r];
-    apply_coeff<KMAX>(pn, rho, P, kin, n, i, valid);
-    store_col<KMAX>(Q, q, k, n, i, valid);
-    store_col<KMAX>(Pn, pn, k, n, i, valid);
-  }
-}
 
 template <int KMAX>
 __global__ void __launch_bounds__(kThreads)
@@ -99,18 +69,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int KMAX>
-cudaError_t launch(const float* M2, const float* Q1, const float* Rho,
-                   const float* P, float* Q, float* Pn, int k, int kin,
-                   long long n, int nblocks, cudaStream_t stream) {
-  auto kernel = qr_p_update<KMAX>;
-  const size_t smem = 2 * coeff_cols<KMAX>(kin) * KMAX * sizeof(float);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<nblocks, kThreads, smem, stream>>>(M2, Q1, Rho, P, Q, Pn, k, kin, n);
-  return cudaGetLastError();
-}
-
-template <int KMAX>
 cudaError_t launch_px(const float* M2, const float* Q1, const float* Rho,
                       const float* P, const float* C, const float* X, float* Q,
                       float* Pn, float* Xn, int k, int kin, long long n,
@@ -124,23 +82,6 @@ cudaError_t launch_px(const float* M2, const float* Q1, const float* Rho,
 }
 
 }  // namespace
-
-// Q may equal Q1 and Pn may equal P.
-extern "C" int bcg_qr_p_update(const float* M2, const float* Q1, const float* Rho,
-                               const float* P, float* Q, float* Pn, int k, int kin,
-                               long long n, int nblocks, int device,
-                               cudaStream_t stream) {
-  if (nblocks < 1 || n < 1 || kin < k) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  switch (kmax_for(k)) {
-    case 8: return launch<8>(M2, Q1, Rho, P, Q, Pn, k, kin, n, nblocks, stream);
-    case 16: return launch<16>(M2, Q1, Rho, P, Q, Pn, k, kin, n, nblocks, stream);
-    case 32: return launch<32>(M2, Q1, Rho, P, Q, Pn, k, kin, n, nblocks, stream);
-    case 64: return launch<64>(M2, Q1, Rho, P, Q, Pn, k, kin, n, nblocks, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // Q may equal Q1, Pn may equal P and Xn may equal X.
 extern "C" int bcg_qr_px_update(const float* M2, const float* Q1, const float* Rho,

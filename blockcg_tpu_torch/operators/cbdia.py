@@ -91,6 +91,8 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
         self.register_buffer("hops_all", table(self.hops), persistent=False)
         hops_m, offs_m, slots_m, used = self._main_statics()
         self.register_buffer("hops_main", table(hops_m), persistent=False)
+        # The merged kernel's launch plans, grouped from the host hops.
+        self.main_plans = cbs.MergedPlans(cbs.hop_table_key(hops_m))
         self.main_offsets = tuple(o % self.num_sites for o in offs_m)
         self.main_slots = slots_m
         main_masks = None
@@ -211,11 +213,11 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
         if with_gram:
             Ym, Gm = cbs.const_block_stencil_spmm_m_gram_t(
                 self.hops_main, self.main_offsets, self.main_slots,
-                self.masks_main, Xm)
+                self.masks_main, Xm, self.main_plans)
         else:
             Ym = cbs.const_block_stencil_spmm_m_t(
                 self.hops_main, self.main_offsets, self.main_slots,
-                self.masks_main, Xm)
+                self.masks_main, Xm, self.main_plans)
         for d, g, nblocks, dst_mul, dst_off, src_shift in self.slabs:
             out = cbs.slab_m_accumulate(self.hops_all[d], g, nblocks, dst_mul,
                                         dst_off, src_shift, Xm, Ym, Gm,

@@ -196,7 +196,10 @@ def library() -> ctypes.CDLL:
     lib.bcg_qr_px_update.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, P]
     lib.bcg_cbs_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int),
                                  ctypes.POINTER(ctypes.c_int), I, I, P, P, P,
-                                 P, P, I, I, L, I, I, I, P]
+                                 P, P, I, L, I, I, P]
+    IP = ctypes.POINTER(ctypes.c_int)
+    lib.bcg_cbs_merged_spmm.argtypes = [P, I, IP, IP, IP, IP, I, P, I, P, P, I, L, I, I, I, I,
+                                        I, P]
     lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P,
                                         I, I, L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, I, P,
@@ -209,6 +212,7 @@ def library() -> ctypes.CDLL:
                lib.bcg_px_update,
                lib.bcg_xr_update_gram,
                lib.bcg_qr_p_update, lib.bcg_qr_px_update, lib.bcg_cbs_spmm,
+               lib.bcg_cbs_merged_spmm,
                lib.bcg_slab_accumulate, lib.bcg_block_stencil_spmm, lib.bcg_cheb_step,
                lib.bcg_tiled_spmm):
         fn.restype = I

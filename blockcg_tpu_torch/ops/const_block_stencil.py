@@ -1,8 +1,7 @@
 """Const-hop block stencil and the slab accumulate of its periodic wrap
 diagonals, on merged spin-major fields and on the (k, bs, ns) view.
 
-Counterpart of ``blockcg_tpu/ops/const_block_stencil.py``; all run as
-``csrc/const_block_stencil.cu``, whose row map is a pair of runtime strides:
+Counterpart of ``blockcg_tpu/ops/const_block_stencil.py``:
 
 - ``const_block_stencil_spmm_m_t``: ``Ym[a*k+i, s] = sum_d w_d(s) sum_b
   H_d[a][b] Xm[b*k+i, (s + o_d) mod ns]`` on an (m = bs*k, ns) field, with
@@ -33,16 +32,28 @@ rule) and falls back to XLA otherwise; the CUDA kernel takes any m, so
 are the operator's (nd, bs, bs) buffer (nested tuples are accepted and
 converted on each call).
 
-Width: one launch holds at most 64 rows after bs is rounded up to a power of
-two (``rhs_width(bs)`` right-hand sides). A wider field runs as one launch
-per chunk of right-hand sides: on the merged view the chunk's rows
-``a * k + j0 .. a * k + j1`` are strided, so the kernel takes the field's
-spin stride ``ks = k`` beside the chunk's own width; on the (k, bs, ns) view
-a chunk is contiguous. A Gram wider than one launch is ``fused.gram`` of X
-and the stored Y (the merged (m, m) one, or the view's (k, k) one on the
-flat fields); the slab's with-Gram form computes its increment on the slab's
-columns alone, takes its Gram there, and adds it, so Y's bits are the
-one-launch add's.
+The merged main kernels (rows 16 and 17) run ``csrc/cbs_merged.cu``: a
+persistent grid over (tile of sites, group of right-hand sides) items, a
+warp a right-hand side and four sites a lane, that double-buffers a window
+of X around each tile in shared memory, reads the far diagonals' X from L2,
+and applies each group of diagonals that share a hop once, on the masked
+sum of their windows (``const_block_stencil_plan`` picks the window's halo,
+the tile, the group of right-hand sides and the diagonals' order on the
+host; ``hop_groups`` is the reference's ``_group_offsets``; an operator
+keeps its plans in a ``MergedPlans``). Row 17's Gram is ``fused.gram`` of X and the stored Y:
+on the card that took less time than every fused Gram tried (see the
+kernel's notes). The (k, bs, ns) view's kernels and the slab adds run
+``csrc/const_block_stencil.cu``, whose row map is a pair of runtime strides
+(the slab adds take both views).
+
+Width: the merged kernel takes any k in one launch (its blocks take groups
+of right-hand sides); the other kernels at most 64 rows after bs is rounded
+up to a power of two (``rhs_width(bs)`` right-hand sides), and a wider
+field runs as one launch per chunk of right-hand sides (on the (k, bs, ns)
+view a chunk is contiguous). A view Gram wider than one launch is ``fused.gram`` of X and the
+stored Y on the flat fields; the slab's with-Gram form computes its
+increment on the slab's columns alone, takes its Gram there, and adds it, so
+Y's bits are the one-launch add's.
 
 Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
 plain versions below (the reference's ``_matmat_m_xla`` roll-and-einsum, and
@@ -53,7 +64,9 @@ bounds: at most 32 diagonals and bs <= 8; the wrappers raise outside them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -91,6 +104,172 @@ def rhs_width(bs: int, name: str = "const-hop kernel") -> int:
     if not 1 <= bs <= MAX_BS:
         raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
     return _native.MAX_K // (1 << (bs - 1).bit_length())
+
+
+# -------------------------------------------- the merged kernel's host plan
+
+CM_MAX_ROWS = 96  # csrc/cbs_merged.cu kCmMaxRows: bs * kb rows a block
+CM_MAX_WARPS = 12  # csrc/cbs_merged.cu kCmMaxThreads / 32: kb * sw warps a block
+CM_SW = (4, 2, 1)  # warps a right-hand side (tiles of 128 * sw sites), widest first
+# The plan's group: 4 right-hand sides on 8 warps (256-site tiles at k >= 4).
+# At (48, 32^4) on config 4 that took 0.459 ms against 0.531 for groups of 6
+# and 0.604 for all 12 on 12 warps (H100, tools/torch_kernel_times.py
+# --const-hop --variants, one call): two blocks an SM hold 16 warps.
+CM_KB, CM_WARPS = 4, 8
+
+
+def _spin_width(bs: int) -> int:
+    """BS, the compile-time spin width of the merged kernel for bs."""
+    if not 1 <= bs <= MAX_BS:
+        raise ValueError(f"const-hop kernel: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
+    return 4 if bs <= 4 else 8
+
+
+def cm_smem_bytes(bs: int, kb: int, T: int, h: int, nmask: int, nhop: int) -> int:
+    """Dynamic shared bytes of a merged launch (``csrc/cbs_merged.cu``
+    cm_smem_floats): two buffers of the window, a group's bs * kb rows of T
+    + 2h + 4 sites, and the nmask mask rows of T; the hop table padded to
+    (nhop, BS, BS)."""
+    w = _spin_width(bs)
+    return 4 * (2 * (bs * kb * (T + 2 * h + 4) + nmask * T) + nhop * w * w)
+
+
+def hop_groups(hops) -> tuple[tuple[int, ...], ...]:
+    """Diagonal indices grouped by identical hop, each group in diagonal
+    order, the groups in order of first appearance: the reference's
+    ``_group_offsets`` (``blockcg_tpu/ops/const_block_stencil.py:77``)."""
+    index: dict = {}
+    groups: list[list[int]] = []
+    for d, h in enumerate(hops):
+        g = index.setdefault(h, len(groups))
+        if g == len(groups):
+            groups.append([])
+        groups[g].append(d)
+    return tuple(map(tuple, groups))
+
+
+class ConstHopPlan(NamedTuple):
+    """A merged launch's schedule (``csrc/cbs_merged.cu``): the window's
+    halo ``h`` (a multiple of 4), the tile of ``T = 128 * sw`` sites, ``sw``
+    warps a right-hand side and ``kb`` right-hand sides a block (kb * sw
+    warps, four sites a lane; an item is a tile and a group of kb); the
+    diagonals in hop-group ``order`` (each group's far diagonals first),
+    whether each reads the window (``near``; the others read X from L2) and
+    its hop group ``gid``; the launch's shared bytes; the L2->SM traffic of
+    X per site in units of X, ``(T + 2h) / T`` plus one a far diagonal; and
+    its grid (the blocks an SM that the shared memory holds, at most one an
+    item)."""
+    h: int
+    T: int
+    sw: int
+    kb: int
+    order: tuple[int, ...]
+    near: tuple[bool, ...]
+    gid: tuple[int, ...]
+    smem_bytes: int
+    traffic: float
+    blocks: int
+
+    def describe(self) -> str:
+        return (f"h={self.h} T={self.T} sw={self.sw} kb={self.kb} "
+                f"groups={len(set(self.gid))}/{len(self.gid)} "
+                f"near={sum(self.near)}/{len(self.near)} smem={self.smem_bytes} "
+                f"traffic={self.traffic:g} blocks={self.blocks}")
+
+
+@functools.lru_cache(maxsize=256)
+def const_block_stencil_plan(offsets: tuple[int, ...], hops: tuple, nmask: int, bs: int,
+                             k: int, ns: int, smem_cap: int, sm_count: int, *,
+                             h: int | None = None, sw: int | None = None,
+                             kb: int | None = None,
+                             grouped: bool | None = None) -> ConstHopPlan:
+    """The schedule of a merged launch of k right-hand sides on ns sites,
+    for the diagonals' ``offsets`` and ``hops`` (nested tuples: equal hops
+    form a group, by ``hop_groups``) and ``nmask`` mask rows. A block takes
+    ``kb = min(k, 4)`` right-hand sides; among the tiles (``sw`` of 4, 2, 1
+    with kb * sw <= 8 warps) and halos (0, and each offset's distance rounded
+    up to 4) whose shared memory fits ``smem_cap``, it keeps two blocks an
+    SM where it can, then the least L2->SM traffic of X (wider tiles first),
+    then the smaller halo. A diagonal is near when its offset mod ns lies
+    within h of 0 or of ns, the rule the kernel applies. ``h``, ``sw``,
+    ``kb`` (kb * sw <= 12, bs * kb <= 96) and ``grouped`` (False: a group a
+    diagonal, the default at k = 1, where the merged kernel then gives the
+    (k, bs, ns) route's bits) pin those choices (the timing tool's
+    variants)."""
+    nd = len(offsets)
+    if not 1 <= nd <= MAX_DIAGS or len(hops) != nd:
+        raise ValueError(f"const-hop kernel: {nd} diagonals and {len(hops)} hops (at most "
+                         f"{MAX_DIAGS})")
+    _spin_width(bs)
+    kb = min(k, CM_KB) if kb is None else kb
+    if not 1 <= kb or bs * kb > CM_MAX_ROWS:
+        raise ValueError(f"const-hop kernel: a block takes bs * kb <= {CM_MAX_ROWS} rows, got "
+                         f"{bs} x {kb}")
+    if sw is not None and (sw not in CM_SW or kb * sw > CM_MAX_WARPS):
+        raise ValueError(f"const-hop kernel: kb * sw = {kb} x {sw} passes {CM_MAX_WARPS} warps "
+                         f"(or sw is not one of {CM_SW})")
+    sws = [v for v in CM_SW if kb * v <= CM_WARPS] if sw is None else [sw]
+    if not sws:
+        raise ValueError(f"const-hop kernel: kb = {kb} passes {CM_WARPS} warps a block")
+    offs = [int(o) % ns for o in offsets]
+    dist = [min(o, ns - o) for o in offs]
+    if grouped is None:  # one RHS keeps the (k, bs, ns) route's bits
+        grouped = k > 1
+    groups = hop_groups(hops) if grouped else tuple((d,) for d in range(nd))
+    gid = tuple(j for j, g in enumerate(groups) for _ in g)
+    halos = sorted({0} | {-(-d // 4) * 4 for d in dist}) if h is None else [h]
+    best, best_key = None, None
+    for ww, hh in ((ww, hh) for ww in sws for hh in halos):
+        T = 128 * ww
+        nbytes = cm_smem_bytes(bs, kb, T, hh, nmask, nd)
+        if nbytes > smem_cap:
+            continue
+        fit = (smem_cap + 1024) // (nbytes + 1024)  # blocks an SM the shared memory holds
+        far = [d > hh for d in dist]
+        # Each group's far diagonals first, so that their loads go together.
+        order = tuple(d for g in groups for d in sorted(g, key=lambda d: not far[d]))
+        traffic = (T + 2 * hh) / T + sum(far)
+        key = (-min(fit, 2), traffic, hh)
+        if best_key is None or key < best_key:
+            best_key = key
+            items = -(-ns // T) * -(-k // kb)
+            best = ConstHopPlan(hh, T, ww, kb, order, tuple(not far[d] for d in order), gid,
+                                nbytes, traffic, min(items, fit * sm_count, _native.MAX_BLOCKS))
+    if best is None:
+        raise ValueError(f"const-hop kernel: bs = {bs}, kb = {kb} leave no schedule in "
+                         f"{smem_cap} bytes of shared memory")
+    return best
+
+
+def hop_table_key(hops) -> tuple:
+    """The (nd, bs, bs) hop table as nested Python tuples, the plan's
+    grouping key (equal hops form a group)."""
+    return tuple(tuple(tuple(row) for row in h) for h in hops)
+
+
+def launch_plan(hop_key: tuple, offsets, nmask: int, k: int, ns: int, device) -> ConstHopPlan:
+    """The plan of the one merged launch of k right-hand sides, for the
+    diagonals' ``hop_table_key``, on ``device``'s card."""
+    offs = tuple(int(o) % ns for o in offsets)
+    cap, sms = _native.max_smem(device.index), _native.sm_count(device.index)
+    return const_block_stencil_plan(offs, hop_key, nmask, len(hop_key[0]), k, ns, cap, sms)
+
+
+class MergedPlans:
+    """The ``launch_plan`` of one operator's merged applies, made from its
+    host hop table (``hop_table_key``, taken when the operator is built)
+    once per width and device."""
+
+    def __init__(self, hop_key: tuple):
+        self.hop_key = hop_key
+        self._made: dict = {}
+
+    def get(self, offsets, nmask: int, k: int, ns: int, device) -> ConstHopPlan:
+        key = (k, ns, device.index)
+        got = self._made.get(key)
+        if got is None:
+            got = self._made[key] = launch_plan(self.hop_key, offsets, nmask, k, ns, device)
+        return got
 
 
 # ------------------------------------------------------------ plain versions
@@ -210,12 +389,10 @@ def slab_v_from_plain(hop, g, nblocks, dst_base, src_base, Src, Yv):
 # ------------------------------------------------------------------ wrappers
 
 
-def _launch_main(hops, offsets, mask_slot, masks, X, k: int, merged: bool,
-                 with_gram: bool, name: str):
-    """Launch on a contiguous (bs * k, ns)-shaped field X: the merged view,
-    or the (k, bs, ns) view and its flat form, one launch per chunk of
-    right-hand sides. Returns (Y shaped like X, the (m, m) Gram on the
-    merged view, the (k, k) one on the other, or None)."""
+def _launch_view(hops, offsets, mask_slot, masks, X, k: int, with_gram: bool, name: str):
+    """Launch ``csrc/const_block_stencil.cu`` on a contiguous (k, bs, ns)
+    view or its flat form, one launch per chunk of right-hand sides. Returns
+    (Y shaped like X, the (k, k) Gram or None)."""
     from blockcg_tpu_torch.ops import fused
 
     nd, bs, _ = hops.shape
@@ -232,27 +409,64 @@ def _launch_main(hops, offsets, mask_slot, masks, X, k: int, merged: bool,
     part = G = None
     if fused_gram:
         part = torch.empty((nb, m, m), dtype=torch.float32, device=X.device)
-        g = m if merged else k
-        G = torch.empty((g, g), dtype=torch.float32, device=X.device)
-    row = ns * 4 * (1 if merged else bs)  # bytes from one RHS to the next
+        G = torch.empty((k, k), dtype=torch.float32, device=X.device)
+    row = ns * 4 * bs  # bytes from one RHS to the next
     p = _native.ptr
     for j0, j1 in chunks:
         _native.launch(name, "bcg_cbs_spmm", X.device, p(hops), offs, slots, nd, bs,
                        p(masks), p(X) + j0 * row, p(Y) + j0 * row, p(part), p(G), j1 - j0,
-                       k if merged else j1 - j0, ns, int(merged), nb)
+                       ns, nb)
     if with_gram and not fused_gram:
-        G = fused.gram(X, Y) if merged else fused.gram(X.reshape(k, -1), Y.reshape(k, -1))
+        G = fused.gram(X.reshape(k, -1), Y.reshape(k, -1))
     return Y, G
 
 
-def _main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str):
+def _launch_merged(hops, offsets, mask_slot, masks, X, with_gram: bool, name: str,
+                   plan=None):
+    """Launch ``csrc/cbs_merged.cu`` once on a contiguous merged (bs * k, ns)
+    field on ``plan`` (a ``ConstHopPlan``, or a ``MergedPlans``; by default
+    made from the hop table, which is then read from the card); returns (Y,
+    the (m, m) Gram ``gram(X, Y)`` or None)."""
+    from blockcg_tpu_torch.ops import fused
+
+    nd, bs, _ = hops.shape
+    m, ns = X.shape
+    k = m // bs
+    if nd > MAX_DIAGS:
+        raise ValueError(f"{name}: {nd} diagonals, the CUDA kernel takes at most {MAX_DIAGS}")
+    nmask = 0 if masks is None else masks.shape[0]
+    if plan is None:
+        plan = MergedPlans(hop_table_key(hops.tolist()))
+    if isinstance(plan, MergedPlans):
+        plan = plan.get(offsets, nmask, k, ns, X.device)
+    cint = ctypes.c_int * nd
+    Y = torch.empty_like(X)
+    p = _native.ptr
+    _native.launch(name, "bcg_cbs_merged_spmm", X.device, p(hops), nd,
+                   cint(*(int(o) % ns for o in offsets)), cint(*mask_slot), cint(*plan.order),
+                   cint(*plan.gid), bs, p(masks), nmask, p(X), p(Y), k, ns, plan.h, plan.sw,
+                   plan.kb, plan.blocks)
+    return Y, (fused.gram(X, Y) if with_gram else None)
+
+
+def launch_planned(hops: torch.Tensor, offsets, mask_slot, masks, Xm: torch.Tensor,
+                   plan: ConstHopPlan, name: str = "variant") -> torch.Tensor:
+    """The merged launch on a given plan (a pinned ``const_block_stencil_plan``,
+    as the tests and the timing tool's variants make) on a CUDA float32
+    field; returns Ym and counts a launch for ``name``."""
+    _check_main(hops, offsets, mask_slot, masks, Xm, name)
+    if not _native.use_kernel(*((hops, Xm) if masks is None else (hops, masks, Xm))):
+        raise ValueError(f"{name}: a planned launch takes CUDA float32 operands")
+    return _launch_merged(hops, offsets, mask_slot, masks, Xm, False, name, plan)[0]
+
+
+def _main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str, plans):
     hops = _hops(hops, Xm)
     _check_main(hops, offsets, mask_slot, masks, Xm, name)
     ops = (hops, Xm) if masks is None else (hops, masks, Xm)
     if not _native.use_kernel(*ops):
         return const_block_stencil_plain(hops, offsets, mask_slot, masks, Xm, with_gram)
-    return _launch_main(hops, offsets, mask_slot, masks, Xm, Xm.shape[0] // hops.shape[-1],
-                        True, with_gram, name)
+    return _launch_merged(hops, offsets, mask_slot, masks, Xm, with_gram, name, plans)
 
 
 def _view(hops, offsets, mask_slot, masks, Xt, with_gram: bool, name: str):
@@ -273,27 +487,32 @@ def _view(hops, offsets, mask_slot, masks, Xt, with_gram: bool, name: str):
         Yv, G = const_block_stencil_v_plain(hops, offsets, mask_slot, masks,
                                             Xt.reshape(k, bs, ns), with_gram)
         return Yv.reshape(Xt.shape), G
-    return _launch_main(hops, offsets, mask_slot, masks, Xt, k, False, with_gram, name)
+    return _launch_view(hops, offsets, mask_slot, masks, Xt, k, with_gram, name)
 
 
 def const_block_stencil_spmm_m_t(hops, offsets: tuple[int, ...],
                                  mask_slot: tuple[int, ...],
                                  masks: torch.Tensor | None,
-                                 Xm: torch.Tensor) -> torch.Tensor:
+                                 Xm: torch.Tensor,
+                                 plans: MergedPlans | None = None) -> torch.Tensor:
     """Merged-layout const-hop block SpMM: hops (nd, bs, bs), masks
-    (nmask, ns) or None, Xm (m = bs*k, ns) with row a*k + i. Returns Ym."""
+    (nmask, ns) or None, Xm (m = bs*k, ns) with row a*k + i. Returns Ym.
+    ``plans``: the operator's ``MergedPlans`` (else the plan is made from
+    the hop table on each kernel call)."""
     return _main(hops, offsets, mask_slot, masks, Xm, False,
-                 "const_block_stencil_spmm_m_t")[0]
+                 "const_block_stencil_spmm_m_t", plans)[0]
 
 
 def const_block_stencil_spmm_m_gram_t(hops, offsets: tuple[int, ...],
                                       mask_slot: tuple[int, ...],
                                       masks: torch.Tensor | None,
-                                      Xm: torch.Tensor):
+                                      Xm: torch.Tensor,
+                                      plans: MergedPlans | None = None):
     """``(Ym, Gm = X Y^T)``, Gm (m, m); contract it to k x k with the
-    operator's ``gram_contract``."""
+    operator's ``gram_contract``. ``plans`` as in
+    :func:`const_block_stencil_spmm_m_t`."""
     return _main(hops, offsets, mask_slot, masks, Xm, True,
-                 "const_block_stencil_spmm_m_gram_t")
+                 "const_block_stencil_spmm_m_gram_t", plans)
 
 
 def const_block_stencil_spmm_t(hops, offsets: tuple[int, ...],

@@ -12,7 +12,7 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
 - ``xr_update_gram(a, P, X, Z, R)``   Xn = X + a P, Rn = R - a Z, G = Rn Rn^T
                                                            (``csrc/xr_update.cu``)
 - ``qr_p_update(M2, Q1, rho, P)``     Q = M2 Q1, Pn = Q + rho P
-                                                           (``csrc/qr_p_update.cu``)
+                                                           (``csrc/px_update.cu``)
 - ``qr_px_update(M2, Q1, rho, P, C, X)`` Q = M2 Q1, Pn = Q + rho P, Xn = X + C P
                                                            (``csrc/qr_p_update.cu``)
 - ``cheb_step(R, Z, D, AZ, c1, c2)``  D' = c1 D + c2 (R - AZ), Z' = Z + D'
@@ -52,13 +52,14 @@ exactly symmetric) through shared memory, one launch up to 96 rows
 (``csrc/gram.cu``, ``gram_plan``); a wider Gram is blocks of at most 96
 rows.
 
-``mm_update``, ``mm_update_gram``, ``mm2_update_gram`` and ``px_update`` run
-streaming kernels that stage their input tiles in shared memory and split
-the output rows across warps (``csrc/mm_update.cu``, ``update_gram.cuh``
-through ``mm_update_gram.cu`` and ``mm2_update_gram.cu``, ``px_update.cu``):
-one launch reads the inputs once up to 96 rows (128 where they fit), so a
-donated operand takes its output in place (``mm_update_plan``,
-``mm_update_gram_plan``, ``mm2_update_gram_plan``, ``px_update_plan``).
+``mm_update``, ``mm_update_gram``, ``mm2_update_gram``, ``px_update`` and
+``qr_p_update`` run streaming kernels that stage their input tiles in shared
+memory and split the output rows across warps (``csrc/mm_update.cu``,
+``update_gram.cuh`` through ``mm_update_gram.cu`` and ``mm2_update_gram.cu``,
+``px_update.cu`` for the last two): one launch reads the inputs once up to
+96 rows (128 where they fit), so a donated operand takes its output in place
+(``mm_update_plan``, ``mm_update_gram_plan``, ``mm2_update_gram_plan``,
+``px_update_plan``, ``qr_p_update_plan``).
 """
 
 from __future__ import annotations
@@ -223,19 +224,21 @@ class UpdatePlan(NamedTuple):
     blocks_per_sm: int
 
 
-def _blocks_per_sm(kout: int, nmat: int, fused: bool) -> int:
+def _blocks_per_sm(kout: int, fused: bool, px: bool) -> int:
     """Blocks an SM a launch of kout rows is built for (the kernels'
-    ``__launch_bounds__``: csrc/update_gram.cuh kUgBlocksPerSm for the one or
-    two coefficient tables of rows 7 and 8, csrc/px_update.cu kPxBlocksPerSm
-    for row 9's three): two where registers allow, else one."""
-    if nmat <= 2:
+    ``__launch_bounds__``: csrc/update_gram.cuh kUgBlocksPerSm for rows 7
+    and 8, csrc/px_update.cu kPxBlocksPerSm for rows 9 and 12, ``px``): two
+    where registers allow, else one. At (48, 32^4) row 12 took 324 us on two
+    blocks an SM (two stages a tile) against 370 on one (one stage; H100,
+    tools/torch_kernel_times.py --const-hop --variants)."""
+    if not px:
         return 2 if fused and kout <= 32 else 1
     return 2 if kout <= 64 else 1
 
 
 @functools.lru_cache(maxsize=64)
 def _update_plan(name: str, k: int, nfield: int, nmat: int, gram_rows: int,
-                 cap: int) -> UpdatePlan:
+                 cap: int, px: bool) -> UpdatePlan:
     """Plan of an update that stacks ``nfield`` input fields of k rows and
     stages ``nmat`` coefficient tables, with its Gram fused on a launch of up
     to ``gram_rows`` rows (0: no Gram). Up to 128 rows one launch, if its
@@ -247,7 +250,9 @@ def _update_plan(name: str, k: int, nfield: int, nmat: int, gram_rows: int,
     one block where two leave no such room; cut into equal parts of the
     nfield k stacked rows. The launch takes the Gram up to ``gram_rows`` (one
     launch); wider, ``gram`` takes it on 64-row blocks (narrow chunks'
-    diagonal blocks would need as many more cross-block launches)."""
+    diagonal blocks would need as many more cross-block launches). ``px``:
+    the kernel is ``csrc/px_update.cu`` (rows 9 and 12), whose blocks an SM
+    follow its own rule (``_blocks_per_sm``)."""
     nin = nfield * k
     widths = ([k] if k <= UPDATE_MAX_K else []) + [w for w in (64, 32, 16, 8) if w < k]
     for w, min_kc in [(w, UPDATE_MIN_KC) for w in widths] + [(8, 1)]:
@@ -257,7 +262,7 @@ def _update_plan(name: str, k: int, nfield: int, nmat: int, gram_rows: int,
         # Bytes besides the stages (the Gram's scratch floor lies below any
         # room a plan is made for).
         fixed = update_smem_bytes(kout, k, 0, nmat, False) + fused * 4 * kout * UPDATE_LD
-        for blocks in range(_blocks_per_sm(kout, nmat, fused), 0, -1):
+        for blocks in range(_blocks_per_sm(kout, fused, px), 0, -1):
             room = (cap + 1024) // blocks - 1024
             deepest = (room - fixed) // (UPDATE_STAGES * UPDATE_TILE * 4)
             if deepest < min(nin, min_kc):
@@ -276,7 +281,7 @@ def mm_update_gram_plan(k: int, device) -> UpdatePlan:
     96 rows; wider, row chunks of Y; above 96 rows the Gram comes from
     ``wide_gram``. A donated B takes Y in place on one launch."""
     return _update_plan("mm_update_gram", k, 1, 1, UPDATE_GRAM_MAX_K_ONE,
-                        _native.max_smem(device.index))
+                        _native.max_smem(device.index), False)
 
 
 def mm2_update_gram_plan(k: int, device) -> UpdatePlan:
@@ -286,7 +291,15 @@ def mm2_update_gram_plan(k: int, device) -> UpdatePlan:
     Gram comes from ``wide_gram``. A donated B1 takes Y in place on one
     launch."""
     return _update_plan("mm2_update_gram", k, 2, 2, UPDATE_GRAM_MAX_K,
-                        _native.max_smem(device.index))
+                        _native.max_smem(device.index), False)
+
+
+def qr_p_update_plan(k: int, device) -> UpdatePlan:
+    """The launches of ``qr_p_update`` on k rows (``csrc/px_update.cu``, QR):
+    up to 96 rows one launch (128 where the two coefficient tables leave
+    room), which reads Q1 and P once, so donated Q1 and P take Q and Pn in
+    place; wider, row chunks, each reading all of Q1 and P."""
+    return _update_plan("qr_p_update", k, 2, 2, 0, _native.max_smem(device.index), True)
 
 
 def px_update_plan(k: int, device) -> UpdatePlan:
@@ -295,7 +308,7 @@ def px_update_plan(k: int, device) -> UpdatePlan:
     in two stages a tile), wider in row chunks. A donated X always takes Xn in
     place (a chunk reads only its own rows of X); a donated P takes Pn in
     place on one launch."""
-    return _update_plan("px_update", k, 2, 3, 0, _native.max_smem(device.index))
+    return _update_plan("px_update", k, 2, 3, 0, _native.max_smem(device.index), True)
 
 
 GRAM_THREADS = 256  # csrc/gram.cu kGrThreads
@@ -609,15 +622,15 @@ def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     k, n = Q1.shape
     for M, what in ((M2, "M2"), (rho, "rho")):
         _native.check_kk(M, k, f"qr_p_update {what}")
-    chunks = _chunks(k, 2, False, "qr_p_update", Q1.device)
+    plan = qr_p_update_plan(k, Q1.device)
     # Every chunk reads all of Q1 and P: donated outputs wait for the last.
-    direct = donate and len(chunks) == 1
+    direct = donate and plan.in_place
     Q, Pn = (Q1, P) if direct else (torch.empty_like(Q1), torch.empty_like(P))
     p = _native.ptr
-    for r0, r1 in chunks:
+    for r0, r1 in plan.chunks:
         _native.launch("qr_p_update", "bcg_qr_p_update", Q1.device, p(M2[r0:r1]), p(Q1),
                        p(rho[r0:r1]), p(P), p(Q[r0:r1]), p(Pn[r0:r1]), r1 - r0, k, n,
-                       _native.nblocks(n))
+                       plan.kc)
     if donate and not direct:
         Q, Pn = Q1.copy_(Q), P.copy_(Pn)
     return Q.view(shape), Pn.view(shape)

@@ -93,14 +93,14 @@ KERNELS = {
     "mm2_update_gram": ("blockcg_tpu_torch/csrc/mm2_update_gram.cu",
                         "blockcg_tpu/ops/fused.py:405"),
     "px_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:588"),
-    "const_block_stencil_spmm_m_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+    "const_block_stencil_spmm_m_t": ("blockcg_tpu_torch/csrc/cbs_merged.cu",
                                      "blockcg_tpu/ops/const_block_stencil.py:617"),
-    "const_block_stencil_spmm_m_gram_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+    "const_block_stencil_spmm_m_gram_t": ("blockcg_tpu_torch/csrc/cbs_merged.cu",
                                           "blockcg_tpu/ops/const_block_stencil.py:637"),
     "slab_m_accumulate": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                           "blockcg_tpu/ops/const_block_stencil.py:780"),
     "xr_update_gram": ("blockcg_tpu_torch/csrc/xr_update.cu", "blockcg_tpu/ops/fused.py:496"),
-    "qr_p_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:730"),
+    "qr_p_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:730"),
     # The reference dispatches its ring schedule (block_stencil_ring.py:359,
     # :371) at 32^4 with the contract of the two merged kernels listed here.
     "block_stencil_spmm_m_t": ("blockcg_tpu_torch/csrc/block_stencil.cu",
@@ -400,6 +400,16 @@ def _const_hop_blocks(torch, hops, slots, masks, ns):
                         for d, s in enumerate(slots)])
 
 
+def _cbs_plans(op, Xm) -> str:
+    """The merged const-hop launch of the operator's main diagonals on Xm:
+    its ``const_block_stencil_plan`` (one launch; row 17 adds one ``gram``
+    launch)."""
+    k = Xm.shape[0] // op.bs
+    nmask = 0 if op.masks_main is None else op.masks_main.shape[0]
+    plan = op.main_plans.get(op.main_offsets, nmask, k, Xm.shape[1], Xm.device)
+    return f"1 launch: {plan.describe()}"
+
+
 def _library_note(name, why):
     print(f"[library] {name}: " + ("one PyTorch call timed" if why is None else f"none ({why})"))
 
@@ -538,23 +548,24 @@ def phase_cbs_kernels(torch, dev, records) -> None:
 
     def main_work(o, args, gram=False):
         """Hops, masks, X read once, Y written once; the FLOPs of the
-        structural nonzeros of the main kernel's diagonals."""
+        structural nonzeros of the main kernel's diagonals, and of G = X Y^T
+        (2 m^2 a site: not symmetric)."""
         return (nbytes(args[0], args[3]) + 2 * fb + gram * gb,
-                2 * DIRAC_K * _cbs_nnz(o, exclude_slabs=True) + gram * sf)
+                2 * DIRAC_K * _cbs_nnz(o, exclude_slabs=True) + gram * gf)
 
     cols = g * nblocks  # the slab's site columns
     slab_bytes = 3 * (fb // ns) * cols  # X at the sources, Y read and written
     slab_flops = 2 * DIRAC_K * nnz(op.hops_all[d]) * cols
     bsr, why = _site_bsr_library(
         torch, _const_hop_blocks(torch, op.hops_main, op.main_slots, op.masks_main, ns),
-        op.main_offsets, Xm, cbs.const_block_stencil_spmm_m_t(*main))
+        op.main_offsets, Xm, cbs.const_block_stencil_spmm_m_t(*main, op.main_plans))
     _library_note(f"const_block_stencil_spmm_m_t {what} (torch BSR @ dense)", why)
     cases = [
         ("const_block_stencil_spmm_m_t", what,
-         lambda: (cbs.const_block_stencil_spmm_m_t(*main), None),
+         lambda: (cbs.const_block_stencil_spmm_m_t(*main, op.main_plans), None),
          lambda: cbs.const_block_stencil_plain(*main), None, main_work(op, main), bsr),
         ("const_block_stencil_spmm_m_gram_t", what,
-         lambda: cbs.const_block_stencil_spmm_m_gram_t(*main),
+         lambda: cbs.const_block_stencil_spmm_m_gram_t(*main, op.main_plans),
          lambda: cbs.const_block_stencil_plain(*main, True), None, main_work(op, main, True),
          None),
         ("slab_m_accumulate", what, *slab_case(False), (slab_bytes, slab_flops), None),
@@ -565,6 +576,7 @@ def phase_cbs_kernels(torch, dev, records) -> None:
     for name, label, kern, plain, timed, work, library in cases:
         _timed_check(torch, name, label, kern, plain, is_gram, records, timed, work=work,
                      library=library)
+    print(f"[plan] const_block_stencil_spmm_m_t and _m_gram_t {what}: {_cbs_plans(op, Xm)}")
     del bsr
     apply_ms = median_ms(torch, lambda: op.matmat_t(Xm))
     print(f"[kernel] dirac_cbdia({DIRAC_L}).matmat_t on the merged field: {apply_ms:.4f} ms, "
@@ -574,7 +586,7 @@ def phase_cbs_kernels(torch, dev, records) -> None:
     gmain = (gop.hops_main, gop.main_offsets, gop.main_slots, gop.masks_main, Xm)
     _timed_check(torch, "const_block_stencil_spmm_m_gram_t",
                  f"{what} gauged Z2 value masks",
-                 lambda: cbs.const_block_stencil_spmm_m_gram_t(*gmain),
+                 lambda: cbs.const_block_stencil_spmm_m_gram_t(*gmain, gop.main_plans),
                  lambda: cbs.const_block_stencil_plain(*gmain, True), is_gram, records,
                  work=main_work(gop, gmain, True))
     del gop, gmain
@@ -671,6 +683,8 @@ def phase_krylov_kernels(torch, dev, records) -> None:
                                 (A, F[0], M, F[1]), (1, 3), what, qr_work)}
 
     config4, config2 = operands(DIRAC_K, 4, DIRAC_L ** 4), operands(16, 1, 512 ** 2)
+    for m in (4 * DIRAC_K, 16):
+        print(f"[plan] qr_p_update m={m}: {fused.qr_p_update_plan(m, dev)}")
     # Each kernel's own path first: its first check sets its record's times.
     for cases, name in ((config4, "qr_p_update"), (config2, "xr_update_gram"),
                         (config4, "xr_update_gram"), (config2, "qr_p_update")):
@@ -1458,6 +1472,10 @@ def phase_wide_kernels(torch, dev, records) -> None:
     both_ways("qr_p_update", lambda q, p, d: fused.qr_p_update(M1, q, M2, p, donate=d),
               lambda q, p: fused.qr_p_update_plain(M1, q, M2, p), 2,
               (nbytes(M1, M2) + 4 * fb, 2 * ns * nnz(M1, M2)))
+    plan = fused.qr_p_update_plan(m, dev)
+    if len(plan.chunks) != 1 or not plan.in_place:
+        raise AssertionError(f"qr_p_update at m = {m}: {plan}, not one launch in place")
+    print(f"[plan] qr_p_update m={m}: {plan}")
 
     kw, nw = NARROW_CHUNK_K, NARROW_CHUNK_N
     Mw = [torch.randn((kw, kw), generator=gen, device=dev) / kw ** 0.5 for _ in range(3)]
@@ -1497,12 +1515,14 @@ def phase_wide_kernels(torch, dev, records) -> None:
     main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main)
     mwork = (nbytes(op.hops_main, op.masks_main) + 2 * fb, 2 * k * _cbs_nnz(op, True))
     _timed_check(torch, "const_block_stencil_spmm_m_t", f"config 4 ns={ns} m={m}",
-                 lambda: (cbs.const_block_stencil_spmm_m_t(*main, Xm), None),
+                 lambda: (cbs.const_block_stencil_spmm_m_t(*main, Xm, op.main_plans), None),
                  lambda: cbs.const_block_stencil_plain(*main, Xm), is_gram, records, work=mwork)
     _timed_check(torch, "const_block_stencil_spmm_m_gram_t", f"config 4 ns={ns} m={m}",
-                 lambda: cbs.const_block_stencil_spmm_m_gram_t(*main, Xm),
+                 lambda: cbs.const_block_stencil_spmm_m_gram_t(*main, Xm, op.main_plans),
                  lambda: cbs.const_block_stencil_plain(*main, Xm, True), is_gram, records,
-                 work=(mwork[0] + gb, mwork[1] + sf))
+                 work=(mwork[0] + gb, mwork[1] + gf))
+    print(f"[plan] const_block_stencil_spmm_m_t and _m_gram_t config 4 m={m}: "
+          f"{_cbs_plans(op, Xm)}")
     Xv = Xm.reshape(k, bs, ns)
     _timed_check(torch, "const_block_stencil_spmm_t", f"config 4 ({k}, {bs}, {ns})",
                  lambda: (cbs.const_block_stencil_spmm_t(*main, Xv), None),

@@ -211,24 +211,27 @@ def test_hand_built_cbdia_operator_on_card(dev, masks):
 
 
 def test_const_block_stencil_kernel_bounds(dev):
-    """Wider than one launch (m = 68; m = 60 with 4 * 20 > 64) runs as row
-    chunks; more than 32 diagonals and strided fields raise."""
+    """A merged launch takes any k (its blocks take groups of right-hand
+    sides): m = 64 and 68, m = 60 at bs = 3 and m = 100 are one launch each;
+    the Gram is one ``gram`` launch beside it; more than 32 diagonals and
+    strided fields raise."""
     hops, offsets, slots, rows, Xm = _cbs_operands(300, 4, 16, "gates", dev)
     _native.reset_launches()
     cbs.const_block_stencil_spmm_m_gram_t(hops, offsets, slots, rows, Xm)
     assert _native.launches["const_block_stencil_spmm_m_gram_t"] == 1
-    for bs, k in ((4, 17), (3, 20)):
+    assert _native.launches["gram"] == 1
+    for bs, k in ((4, 17), (3, 20), (4, 25)):
         h, o, s, r, X = _cbs_operands(300, bs, k, "gates", dev)
         Y = cbs.const_block_stencil_spmm_m_t(h, o, s, r, X)
         assert _relmax(Y, cbs.const_block_stencil_plain(h, o, s, r, X)[0]) < 1e-5
-    assert _native.launches["const_block_stencil_spmm_m_t"] == 4
+    assert _native.launches["const_block_stencil_spmm_m_t"] == 3
     many = torch.zeros((33, 4, 4), device=dev)
     with pytest.raises(ValueError, match="at most 32"):
         cbs.const_block_stencil_spmm_m_t(many, (0,) * 33, (-1,) * 33, None, Xm)
     with pytest.raises(ValueError, match="contiguous"):
         cbs.const_block_stencil_spmm_m_t(hops, offsets, slots, rows[:, :150],
                                          Xm[:, ::2])
-    assert _native.launches["const_block_stencil_spmm_m_t"] == 4
+    assert _native.launches["const_block_stencil_spmm_m_t"] == 3
 
 
 @pytest.mark.parametrize("k", [2, 12])
@@ -365,7 +368,7 @@ def test_new_fused_kernels_refuse_bad_operands(dev):
                        fused.qr_p_update_plain(big_a, big[0], big_a, big[1]))):
         for g, w in zip(got, want):
             assert (_relfro if g.shape == (65, 65) else _relmax)(g, w) < 1e-5
-    assert _native.launches["xr_update_gram"] == 2 and _native.launches["qr_p_update"] == 2
+    assert _native.launches["xr_update_gram"] == 2 and _native.launches["qr_p_update"] == 1
 
 
 @pytest.mark.parametrize("solver", ["cg", "bcg", "bcga", "bcgdq", "shifted_cg",
@@ -1465,3 +1468,113 @@ def test_block_stencil_at_m96_is_one_launch(dev):
     assert _native.launches["block_stencil_spmm_m_gram_t"] == 1
     assert _native.launches["gram"] == 1
     assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+
+
+# ------------------- the merged const-hop kernel (csrc/cbs_merged.cu) and
+# qr_p_update on px_update's schedule
+
+
+def _grouped_operands(ns, bs, k, dev, seed):
+    """Offsets in +- pairs that share a hop (as the Dirac operators' do),
+    near and far ones, value masks: the plan groups and spans them."""
+    rng = np.random.default_rng(seed)
+    offsets = (0, 1, -1, 40, -40, 44, -44, ns // 3, -(ns // 3), 2 * ns + 7)
+    base = rng.standard_normal((6, bs, bs))
+    hops = _t(base[[0, 1, 1, 2, 2, 3, 3, 4, 4, 5]], dev)
+    rows = _t(rng.choice([-1.0, 0.0, 1.0, 2.0], size=(4, ns)), dev)
+    slots = (-1, 0, 1, 2, 3, -1, 0, 1, -1, 2)
+    return hops, offsets, slots, rows, _field(bs * k, ns, seed + 1, dev)
+
+
+def _config4_main(gauged, dev):
+    op = (dirac_gauged_cbdia if gauged else dirac_cbdia)(32, device=dev)
+    return op.hops_main, op.main_offsets, op.main_slots, op.masks_main, op.ns
+
+
+@pytest.mark.parametrize("m", [4, 12, 48, 60, 96])
+@pytest.mark.parametrize("which", ["random 300", "grouped 300", "config4", "gauged"])
+def test_merged_kernel_matches_plain(dev, m, which):
+    """Rows 16 and 17 against the plain version at ns = 300 (random and
+    grouped hops, value masks) and at 32^4 on config 4's operator and its
+    Z2-gauged form: one launch (groups of ``launch_plan``'s kb right-hand
+    sides a block, the last one partial at m = 60), the Gram from one
+    ``gram`` launch, and a repeat gives the same bits."""
+    k = m // 4
+    if which.endswith("300"):
+        make = _cbs_operands if which.startswith("random") else _grouped_operands
+        args = (300, 4, k, "values", dev, 40 + m) if make is _cbs_operands else (300, 4, k,
+                                                                                  dev, 40 + m)
+        hops, offsets, slots, rows, Xm = make(*args)
+    else:
+        hops, offsets, slots, rows, ns = _config4_main(which == "gauged", dev)
+        Xm = _field(m, ns, 50 + m, dev)
+    main = (hops, offsets, slots, rows)
+    plan = cbs.launch_plan(cbs.hop_table_key(hops.tolist()), offsets, rows.shape[0], k,
+                           Xm.shape[1], Xm.device)
+    assert plan.kb == min(k, cbs.CM_KB)
+    _native.reset_launches()
+    Y, G = cbs.const_block_stencil_spmm_m_gram_t(*main, Xm)
+    Y1 = cbs.const_block_stencil_spmm_m_t(*main, Xm)
+    assert _native.launches["const_block_stencil_spmm_m_gram_t"] == 1
+    assert _native.launches["const_block_stencil_spmm_m_t"] == 1
+    assert _native.launches["gram"] == 1
+    Yp, Gp = cbs.const_block_stencil_plain(*main, Xm, True)
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y1, Y)
+    Y2, G2 = cbs.const_block_stencil_spmm_m_gram_t(*main, Xm)
+    assert torch.equal(Y2, Y) and torch.equal(G2, G)
+
+
+@pytest.mark.parametrize("pin", [{"h": 0}, {"h": 4}, {"sw": 1}, {"kb": 12, "sw": 1},
+                                 {"kb": 5, "sw": 2}, {"grouped": False}])
+def test_merged_plan_pins(dev, pin):
+    """A pinned ``const_block_stencil_plan`` (no window, a 4-site halo,
+    128-site tiles, other groups of right-hand sides a block, a partial one
+    at kb = 5, no hop groups) agrees with the plain version within the
+    tolerance, and gives the default plan's Y bits where it keeps the plan's
+    order and groups (the tile and the blocks' right-hand sides alone do not
+    move a sum)."""
+    ns = 32 ** 4
+    op = dirac_cbdia(32, device=dev)
+    main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main)
+    Xm = _field(48, ns, 61, dev)
+    idx = Xm.device.index
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    args = (tuple(o % ns for o in op.main_offsets), op.main_plans.hop_key,
+            op.masks_main.shape[0], 4, 12, ns, cap, sms)
+    plan0 = cbs.const_block_stencil_plan(*args)
+    plan = cbs.const_block_stencil_plan(*args, **pin)
+    Y0 = cbs.launch_planned(*main, Xm, plan0)
+    Y = cbs.launch_planned(*main, Xm, plan)
+    Yp = cbs.const_block_stencil_plain(*main, Xm)[0]
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5
+    if (plan.order, plan.gid) == (plan0.order, plan0.gid):
+        assert torch.equal(Y, Y0)
+
+
+@pytest.mark.parametrize("k", [8, 48, 96, 100])
+@pytest.mark.parametrize("donate", [False, True])
+def test_qr_p_update_on_px_schedule(dev, k, donate):
+    """Row 12 on px_update.cu: one launch up to 128 rows, in place when
+    donated; Q has mm_update's bits (the fmaf chain over M2's columns from
+    0) and Pn px_update's (the same chain on over rho's), the order of the
+    one-thread-a-column kernel it replaced."""
+    n = 5000
+    rng = np.random.default_rng(k)
+    M2, rho = (_t(rng.standard_normal((k, k)) / k ** 0.5, dev) for _ in range(2))
+    Q1, P = _field(k, n, 70, dev), _field(k, n, 71, dev)
+    Qa, Pa = Q1.clone(), P.clone()
+    _native.reset_launches()
+    Q, Pn = fused.qr_p_update(M2, Qa, rho, Pa, donate=donate)
+    assert _native.launches["qr_p_update"] == 1
+    assert fused.qr_p_update_plan(k, Q1.device).in_place
+    if donate:
+        assert Q.data_ptr() == Qa.data_ptr() and Pn.data_ptr() == Pa.data_ptr()
+    want_q = fused.mm_update(M2, Q1)
+    want_p = fused.px_update(M2, Q1, rho, P, rho, P)[0]
+    Qp, Pp = fused.qr_p_update_plain(M2, Q1, rho, P)
+    torch.cuda.synchronize()
+    assert torch.equal(Q, want_q) and torch.equal(Pn, want_p)
+    assert _relmax(Q, Qp) < 1e-5 and _relmax(Pn, Pp) < 1e-5

@@ -210,10 +210,12 @@ def test_mm_update_at_m96_matches_pallas(with_a, donate):
     assert err < 1e-5, err
 
 
-# name -> (plan, stacked input fields, coefficient tables, rows of a fused Gram)
-_PLANS = {"mm_update_gram": (fused.mm_update_gram_plan, 1, 1, fused.UPDATE_GRAM_MAX_K_ONE),
-          "mm2_update_gram": (fused.mm2_update_gram_plan, 2, 2, fused.UPDATE_GRAM_MAX_K),
-          "px_update": (fused.px_update_plan, 2, 3, 0)}
+# name -> (plan, stacked input fields, coefficient tables, rows of a fused Gram,
+# whether the kernel is px_update.cu's)
+_PLANS = {"mm_update_gram": (fused.mm_update_gram_plan, 1, 1, fused.UPDATE_GRAM_MAX_K_ONE,
+                             False),
+          "mm2_update_gram": (fused.mm2_update_gram_plan, 2, 2, fused.UPDATE_GRAM_MAX_K, False),
+          "px_update": (fused.px_update_plan, 2, 3, 0, True)}
 
 
 @pytest.mark.parametrize("k", [1, 32, 48, 96, 400, 800])
@@ -226,7 +228,7 @@ def test_update_plans_follow_their_rules(monkeypatch, name, k):
     H100's cap for the blocks an SM the plan claims; the fused Gram on a
     field of up to 64 rows (96 on row 7's one input field)."""
     monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
-    make, nfield, nmat, gram_rows = _PLANS[name]
+    make, nfield, nmat, gram_rows, px = _PLANS[name]
     plan = make(k, torch.device("cpu"))
     assert plan.T == fused.UPDATE_TILE == 128
     assert plan.chunks[0][0] == 0 and plan.chunks[-1][1] == k
@@ -241,7 +243,7 @@ def test_update_plans_follow_their_rules(monkeypatch, name, k):
     assert plan.kc == -(-nin // stages)
     assert plan.smem_bytes == fused.update_smem_bytes(kout, k, plan.kc, nmat, plan.fused_gram)
     assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= H100_SMEM + 1024
-    assert plan.blocks_per_sm <= fused._blocks_per_sm(kout, nmat, plan.fused_gram)
+    assert plan.blocks_per_sm <= fused._blocks_per_sm(kout, plan.fused_gram, px)
 
 
 @pytest.mark.parametrize("name,k,kc,blocks,smem", [

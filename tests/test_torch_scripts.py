@@ -55,6 +55,9 @@ def test_profile_summary_of_trace_events():
     ("void (anonymous namespace)::qr_p_update<64>(float const*, float const*)", True),
     ("void (anonymous namespace)::bs_spmm<8, 64, true, false>(float const*, Offsets)", True),
     ("void (anonymous namespace)::cbs_spmm<4, 8, false, true>(float const*, Diags)", True),
+    ("void (anonymous namespace)::cm_spmm<4, 6, 0>((anonymous namespace)::CmLaunch)", True),
+    ("void (anonymous namespace)::px_update_kernel<6, true>(float const*, float const*)", True),
+    ("void (anonymous namespace)::qr_px_update<64>(float const*, float const*)", True),
     ("void (anonymous namespace)::reduce_spin_contract(float const*, float*)", True),
     ("void (anonymous namespace)::cheb_step_vec(float4 const*, float4 const*)", True),
     ("void (anonymous namespace)::cheb_step_scalar(float const*, float const*)", True),

@@ -19,7 +19,18 @@ torch's BSR product).
 Run on a machine with a card, from the root of a checkout:
 
     python3 tools/torch_kernel_times.py [--root DIR] [--reps 50] [--only REGEX]
-        [--library | --sweep | --variants]
+        [--const-hop] [--library | --sweep | --variants]
+
+``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
+32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
+without and with its Gram on ``dirac_cbdia(32)``'s main diagonals at k = 12
+and 24, each with its bound, checksums and plan (its ``--only 'row 12'``
+also runs on checkouts back to the first port of ``qr_p_update``); with
+``--variants`` it times ``const_block_stencil_plan``'s pins and tiles,
+probe builds with the window copies or the far loads off or other counts of
+far loads in flight together, the z-plane ring (a probe: a slice of
+1,024-site planes a block, only +-32,768 from L2; alone and with ``gram``),
+and row 12 at twice its plan's stage depth.
 
 ``--root`` imports ``blockcg_tpu_torch`` from another checkout (its kernels
 build there), so two commits compare in one call: parent, change, change,
@@ -41,7 +52,7 @@ tiles (``tiled_plan``'s keywords).
 case: device us per call (all of the call's kernels, the Gram's second
 stage included), host us per call (wall time of the timed calls over their
 count, ending in a synchronize), the least time the work could take
-(``bound_us``: rows 5-9, 22-23b; max of the bytes over 3.35 TB/s and the
+(``bound_us``: rows 5-9, 12, 16, 17, 22-23b; max of the bytes over 3.35 TB/s and the
 FLOPs over 67 TFLOP/s, a symmetric Gram counted as its upper triangle) and a
 checksum of the bytes of each of the call's outputs, so two checkouts show
 whether a kernel kept its bits. The inputs come from a fixed seed; L2 is
@@ -156,6 +167,287 @@ def cases(torch, dev, library: bool):
             del W, P, X
     yield from block_stencil_cases(torch, dev, library)
     yield from row25(torch, dev, library)
+
+
+def cbs_work(op, k: int, gram: bool) -> float:
+    """bound_us of a merged const-hop apply of k right-hand sides (rows 16,
+    17) on the operator's main diagonals: the hops and the mask rows read
+    once, X read and Y written once (and G written); 2 k FLOPs per
+    structural nonzero of the main diagonals (a hop's nonzeros times the
+    sites its mask keeps), plus 2 m^2 a site for G = X Y^T (not symmetric)."""
+    import torch
+
+    m, ns = op.bs * k, op.ns
+    nbytes = 4 * (op.hops_main.numel() + (0 if op.masks_main is None else op.masks_main.numel())
+                  + 2 * m * ns + gram * m * m)
+    nnz = 0
+    for d, slot in enumerate(op.main_slots):
+        sites = ns if slot < 0 else int(torch.count_nonzero(op.masks_main[slot]))
+        nnz += int(torch.count_nonzero(op.hops_main[d])) * sites
+    flops = 2 * k * nnz + gram * 2 * m * m * ns
+    return max(nbytes / 3.35e12, flops / 67e12) * 1e6
+
+
+def const_hop_cases(torch, dev, only: str | None):
+    """Row 12 (``qr_p_update``) at (48, 32^4) and (96, 32^4), fresh and
+    donated (M2 orthogonal, rho small, so the donated calls' repeated updates
+    stay bounded), then rows 16 and 17 (the merged const-hop stencil without
+    and with its Gram) on ``dirac_cbdia(32)``'s main diagonals at k = 12 and
+    24 (m = 48 and 96). The operator is built only when a row 16/17 case is
+    wanted, so ``--only 'row 12'`` also times checkouts older than its
+    attributes (the slowdown bisect)."""
+    from blockcg_tpu_torch.ops import fused
+
+    def wanted(name):
+        return not only or re.search(only, name)
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ns = 32 ** 4
+    for m in (48, 96):
+        names = [f"row 12 qr_p_update{d} ({m}, 32^4)" for d in ("", " donated")]
+        if not any(map(wanted, names)):
+            continue
+        M2 = torch.linalg.qr(torch.randn((m, m), generator=gen, device=dev))[0].contiguous()
+        rho = 0.1 * torch.randn((m, m), generator=gen, device=dev) / m ** 0.5
+        Q1, P = (torch.randn((m, ns), generator=gen, device=dev) for _ in range(2))
+        Qd, Pd = Q1.clone(), P.clone()
+        nbytes = 4 * (4 * m * ns + 2 * m * m)
+        bound = max(nbytes / 3.35e12, 4 * m * m * ns / 67e12) * 1e6
+        planner = getattr(fused, "qr_p_update_plan", None)
+        desc = None if planner is None else str(planner(m, dev))
+        yield (names[0], lambda M2=M2, Q1=Q1, rho=rho, P=P: fused.qr_p_update(M2, Q1, rho, P),
+               bound, desc)
+        yield (names[1], lambda M2=M2, Qd=Qd, rho=rho, Pd=Pd:
+               fused.qr_p_update(M2, Qd, rho, Pd, donate=True), bound, desc)
+        del Q1, P, Qd, Pd
+    if not any(wanted(f"row {r} (k={k})") for r in ("16", "17") for k in (12, 24)) and \
+            only and not re.search(only, "row 1[67]"):
+        return
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.problems import dirac_cbdia
+
+    op = dirac_cbdia(32, device=dev)
+    # The operator's own plans where the checkout has them (as its applies
+    # pass them); an older checkout's wrappers take none.
+    plans = getattr(op, "main_plans", None)
+    main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main)
+    extra = () if plans is None else (plans,)
+    for k in (12, 24):
+        Xm = torch.randn((op.bs * k, ns), generator=gen, device=dev)
+        what = f"dirac_cbdia(32) merged (k={k}, m={op.bs * k})"
+        desc = None if plans is None else plans.get(op.main_offsets, op.masks_main.shape[0], k,
+                                                    ns, dev).describe()
+        yield (f"row 16 const_block_stencil_spmm_m_t {what}",
+               lambda Xm=Xm: cbs.const_block_stencil_spmm_m_t(*main, Xm, *extra),
+               cbs_work(op, k, False), desc)
+        yield (f"row 17 const_block_stencil_spmm_m_gram_t {what}",
+               lambda Xm=Xm: cbs.const_block_stencil_spmm_m_gram_t(*main, Xm, *extra),
+               cbs_work(op, k, True), desc)
+        del Xm
+
+
+# Probe builds of the merged const-hop kernel (csrc/cbs_merged.cu, included
+# by a source that exports them) at k = 12 on config 4: cm_spmm<4, PROBE,
+# NFB> with its copies or its far loads switched off (PROBE) or another count
+# of far diagonals' loads in flight together (NFB); and the z-plane ring.
+# The ring: block b takes right-hand side b % k and a slice of L planes of
+# 1,024 sites; a ring of four plane buffers (its bs rows) holds planes j - 1,
+# j, j + 1 while j + 2 is copied, so every offset within +-1,024 reads shared
+# memory and only +-32,768 goes through L2. Its sums are cm_spmm's
+# (cm_sums), so Y has its bits; its Gram cannot be fused (a block holds one
+# right-hand side).
+CM_PROBE = r"""#include "{src}"
+namespace {{
+template <int BS>
+__global__ void __launch_bounds__(256) cr_spmm(const CmLaunch p, int L) {{
+  extern __shared__ __align__(16) float smem[];
+  constexpr int P = 1024;
+  const int rows = p.bs, i = blockIdx.x % p.k;
+  const long long nplanes = p.ns / P, first = static_cast<long long>(blockIdx.x / p.k) * L;
+  float* sh = smem + 4 * rows * P;
+  cm_stage_hops<BS>(p, sh);
+  const RowStrides rs = RowMap{{p.k, 1}}.times(p.ns);
+  const int c = 4 * threadIdx.x;
+  auto copy = [&](int j) {{  // plane first + j into slot (j + 1) & 3
+    long long pl = (first + j) % nplanes;
+    if (pl < 0) pl += nplanes;
+    float* buf = smem + ((j + 1) & 3) * rows * P;
+    for (int e = threadIdx.x; e < rows * (P / 4); e += blockDim.x) {{
+      const int b = e / (P / 4), q = 4 * (e % (P / 4));
+      cp_async16(buf + b * P + q, p.X + (b * static_cast<long long>(p.k) + i) * p.ns + pl * P + q,
+                 true);
+    }}
+  }};
+  copy(-1);
+  cp_async_commit();
+  copy(0);
+  cp_async_commit();
+  copy(1);
+  cp_async_commit();
+  float acc[BS][4];
+  for (int j = 0; j < L; ++j) {{
+    if (j + 2 <= L) copy(j + 2);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const long long s = ((first + j) % nplanes) * P + c;
+    cm_sums<BS, 0, 2>(
+        p, sh, s, i, rs,
+        [&](int shd, int b) {{
+          const int a0 = (c + shd) & ~3;
+          auto at = [&](int a) {{  // the aligned quad at a, in plane j + floor(a / P)
+            const int pl = (a + P) / P - 1;
+            return smem + ((j + pl + 1) & 3) * rows * P + b * P + (a - pl * P);
+          }};
+          return CmQuads{{at(a0), at(a0 + 4)}};
+        }},
+        [&](int slot) {{
+          return __ldg(reinterpret_cast<const float4*>(p.masks + slot * p.ns + s));
+        }},
+        acc);
+    cm_store(p, s, i, rs, acc);
+    __syncthreads();
+  }}
+  cp_async_wait<0>();
+}}
+}}  // namespace
+
+// cm_spmm<4, PROBE, NFB> (probe = 10 * PROBE + NFB) on a plan's tile and group.
+extern "C" int cm_probe(const float* hops, int nhop, const int* offsets, const int* slots,
+                        const int* order, const int* gid, const float* masks, int nmask,
+                        const float* X, float* Y, int k, long long ns, int h, int T, int kb,
+                        int max_blocks, int probe, int device, cudaStream_t stream) {{
+  CmLaunch p;
+  cudaError_t err = cm_make_launch(&p, hops, nhop, offsets, slots, order, gid, 4, masks, nmask,
+                                   X, Y, k, ns, h, T, kb, max_blocks);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (probe) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+
+// The z-plane ring on slices of L planes (bs = 4; ns a multiple of 1,024 L).
+extern "C" int cr_probe(const float* hops, int nhop, const int* offsets, const int* slots,
+                        const int* order, const int* gid, const float* masks, int nmask,
+                        const float* X, float* Y, int k, long long ns, int L, int device,
+                        cudaStream_t stream) {{
+  CmLaunch p;
+  cudaError_t err = cm_make_launch(&p, hops, nhop, offsets, slots, order, gid, 4, masks, nmask,
+                                   X, Y, k, ns, 1024, 1024, 1, 1);
+  if (err != cudaSuccess) return err;
+  if (ns % (1024LL * L) != 0 || !p.vec) return cudaErrorInvalidValue;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto kernel = cr_spmm<4>;
+  const size_t smem = (4LL * 4 * 1024 + nhop * 16) * sizeof(float);
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<int>(ns / (1024LL * L) * k), 256, smem, stream>>>(p, L);
+  return cudaGetLastError();
+}}
+"""
+CM_PROBES = ((0, 2, "as built"), (4, 2, "no far loads"), (2, 2, "no window copies"),
+             (6, 2, "no window copies, no far loads"), (0, 1, "far loads one at a time"),
+             (0, 4, "four far diagonals' loads together"))
+CR_PLANES = (8, 16, 32)  # the z-plane ring's slices
+# const_block_stencil_plan's pins timed beside the plan: no window (every
+# diagonal from L2), a 4-site halo, no hop groups; other groups of
+# right-hand sides a block and tiles (kb, sw).
+CM_VARIANTS = ({"h": 0}, {"h": 4}, {"grouped": False}, {"kb": 12, "sw": 1}, {"kb": 6, "sw": 2},
+               {"kb": 6, "sw": 1}, {"kb": 4, "sw": 1}, {"kb": 3, "sw": 4}, {"kb": 2, "sw": 4},
+               {"kb": 8, "sw": 1})
+
+
+def const_hop_variants(torch, dev, tmp: Path, only: str | None):
+    """Row 16 on ``dirac_cbdia(32)`` at k = 12 and 24 under its plan and each
+    of ``CM_VARIANTS`` (a pin that leaves no schedule is skipped), each named
+    by its plan; then at k = 12 the probe builds of ``CM_PROBES`` and the
+    z-plane ring on slices of ``CR_PLANES`` planes, alone and followed by
+    ``gram`` (row 17's form); and row 12 at (48, 32^4) on its plan beside a
+    launch at twice its stage depth (one block an SM)."""
+    import ctypes
+    import subprocess
+
+    from blockcg_tpu_torch.ops import _native, fused
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.problems import dirac_cbdia
+
+    op = dirac_cbdia(32, device=dev)
+    main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main)
+    ns, nd = op.ns, len(op.main_offsets)
+    offs = tuple(o % ns for o in op.main_offsets)
+    key, nmask = op.main_plans.hop_key, op.masks_main.shape[0]
+    cap, sms = _native.max_smem(dev.index), _native.sm_count(dev.index)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for k in (12, 24):
+        Xm = torch.randn((op.bs * k, ns), generator=gen, device=dev)
+        for kw in ({},) + CM_VARIANTS:
+            try:
+                plan = cbs.const_block_stencil_plan(offs, key, nmask, op.bs, k, ns, cap, sms, **kw)
+            except ValueError as e:
+                print(json.dumps({"case": f"variant row 16 {kw} k={k}", "skip": str(e)}))
+                continue
+            name = "row 16 plan" if not kw else f"variant row 16 {kw}"
+            yield (f"{name} k={k} [{plan.describe()}]",
+                   lambda plan=plan, Xm=Xm: cbs.launch_planned(*main, Xm, plan),
+                   cbs_work(op, k, False))
+        del Xm
+    k = 12
+    Xm = torch.randn((op.bs * k, ns), generator=gen, device=dev)
+    Y = torch.empty_like(Xm)
+    plan = cbs.const_block_stencil_plan(offs, key, nmask, op.bs, k, ns, cap, sms)
+    probe = tmp / "cm_probe.cu"
+    cases = "".join(f"    case {10 * w + f}: return cm_launch<4, {w}, {f}>(p, max_blocks, "
+                    "device, stream);\n" for w, f, _ in CM_PROBES)
+    probe.write_text(CM_PROBE.format(src=_native.CSRC / "cbs_merged.cu", cases=cases))
+    lib = tmp / "libcmprobe.so"
+    built = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-shared", str(probe), "-o",
+                            str(lib)], capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the const-hop probe:\n{built.stdout}{built.stderr}")
+    P, I, L, IP = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+    fn, ring = ctypes.CDLL(str(lib)).cm_probe, ctypes.CDLL(str(lib)).cr_probe
+    fn.argtypes = [P, I, IP, IP, IP, IP, P, I, P, P, I, L, I, I, I, I, I, I, P]
+    ring.argtypes = [P, I, IP, IP, IP, IP, P, I, P, P, I, L, I, I, P]
+    fn.restype = ring.restype = I
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cint = ctypes.c_int * nd
+    p = _native.ptr
+    tables = (p(op.hops_main), nd, cint(*offs), cint(*op.main_slots), cint(*plan.order),
+              cint(*plan.gid), p(op.masks_main), nmask, p(Xm), p(Y), k, ns)
+    for w, f, label in CM_PROBES:
+        def run(w=w, f=f):
+            rc = fn(*tables, plan.h, plan.T, plan.kb, plan.blocks, 10 * w + f, dev.index, stream)
+            if rc != 0:
+                raise RuntimeError(f"const-hop probe {w}, {f} failed: {rc}")
+            return Y
+        yield f"probe row 16 {label} k={k} [{plan.describe()}]", run, cbs_work(op, k, False)
+    for planes in CR_PLANES:
+        def zring(planes=planes):
+            rc = ring(*tables, planes, dev.index, stream)
+            if rc != 0:
+                raise RuntimeError(f"z-plane ring probe (L = {planes}) failed: {rc}")
+            return Y
+        yield (f"probe row 16 z-plane ring k={k} L={planes} blocks={ns // (1024 * planes) * k}",
+               zring, cbs_work(op, k, False))
+        yield (f"probe row 17 z-plane ring + gram k={k} L={planes}",
+               lambda zring=zring: (zring(), fused.gram(Xm, Y)), cbs_work(op, k, True))
+    del Xm, Y
+    gen = torch.Generator(device=dev).manual_seed(12)
+    M2 = torch.linalg.qr(torch.randn((48, 48), generator=gen, device=dev))[0].contiguous()
+    rho = 0.1 * torch.randn((48, 48), generator=gen, device=dev) / 48 ** 0.5
+    Q1, Pf = (torch.randn((48, ns), generator=gen, device=dev) for _ in range(2))
+    Q, Pn = torch.empty_like(Q1), torch.empty_like(Pf)
+    qplan = fused.qr_p_update_plan(48, dev)
+    for kc in (qplan.kc, 2 * qplan.kc):
+        def qr(kc=kc):
+            _native.launch("variant", "bcg_qr_p_update", dev, p(M2), p(Q1), p(rho), p(Pf), p(Q),
+                           p(Pn), 48, 48, ns, kc)
+            return Q, Pn
+        yield (f"{'row 12 plan' if kc == qplan.kc else 'variant row 12'} kc={kc} (48, 32^4)", qr,
+               max(4 * (4 * 48 * ns + 2 * 48 * 48) / 3.35e12, 4 * 48 * 48 * ns / 67e12) * 1e6)
 
 
 def bound_us(name: str) -> float | None:
@@ -685,6 +977,9 @@ def main() -> None:
                     help="time the stencil at each halo and tile width that fits")
     ap.add_argument("--variants", action="store_true",
                     help="time rows 7, 8, 9, 23 and 25 beside other builds and plans")
+    ap.add_argument("--const-hop", action="store_true",
+                    help="time only rows 12, 16 and 17 (qr_p_update, the merged const-hop "
+                         "stencil)")
     ap.add_argument("--only", default=None,
                     help="time only the cases whose name matches this regular expression")
     args = ap.parse_args()
@@ -698,11 +993,16 @@ def main() -> None:
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
         todo = (sweep_cases(torch, dev) if args.sweep
+                else const_hop_variants(torch, dev, Path(tmp), args.only)
+                if args.variants and args.const_hop
                 else variant_cases(torch, dev, Path(tmp)) if args.variants
+                else const_hop_cases(torch, dev, args.only) if args.const_hop
                 else cases(torch, dev, args.library))
-        for name, fn, *bound in todo:
+        for name, fn, *extra in todo:
             if args.only and not re.search(args.only, name):
                 continue
+            bound = extra[:1]
+            plan = {"plan": extra[1]} if len(extra) > 1 and extra[1] else {}
             for _ in range(2):
                 fn()
             out = fn()
@@ -711,7 +1011,7 @@ def main() -> None:
                               "device_us": device_us(torch, fn, args.reps, Path(tmp)),
                               "host_us": host_us(torch, fn, args.reps),
                               "bound_us": bound[0] if bound else bound_us(name),
-                              "checksums": checksums(torch, out)}), flush=True)
+                              "checksums": checksums(torch, out), **plan}), flush=True)
             del out
 
 

@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """Registers and spills of the port's CUDA kernels, as ``nvcc -Xptxas -v``
-reports them, at the built register widths and at a KMAX = 128 candidate.
+reports them, at the built register widths and at candidate widths: KMAX =
+128 for the one-thread-a-column kernels, and for the merged const-hop
+kernel (``cbs_merged.cu``) four far diagonals' loads in flight together
+(two are built).
 
 Run from the root of a checkout on a machine with nvcc:
 
@@ -32,7 +35,8 @@ from blockcg_tpu_torch.ops import _native  # noqa: E402
 PROBES = {
     "gram.cu": ["gram_kernel<128, false>", "gram_kernel<128, true>"],
     "xr_update.cu": ["xr_update_gram<128>"],
-    "qr_p_update.cu": ["qr_p_update<128>", "qr_px_update<128>"],
+    "qr_p_update.cu": ["qr_px_update<128>"],
+    "cbs_merged.cu": ["cm_spmm<4, 0, 4>", "cm_spmm<8, 0, 4>"],
     "stencil.cu": [],
     "const_block_stencil.cu": ["cbs_spmm<4, 128, false>", "cbs_spmm<4, 128, true>"],
     "block_stencil.cu": ["bs_spmm<8, 6, false>", "bs_spmm<8, 6, true>"],
