@@ -31,6 +31,7 @@ from blockcg_tpu_torch.solvers import (
     solve_pbcg,
     solve_psbcgrq,
     solve_refined,
+    solve_refined_lean,
     solve_sbcgrq,
     solve_sbcgrq_cheb,
     solve_shifted_cg,
@@ -60,6 +61,7 @@ __all__ = [
     "solve_pbcg",
     "solve_psbcgrq",
     "solve_refined",
+    "solve_refined_lean",
     "solve_sbcgrq",
     "solve_sbcgrq_cheb",
     "solve_shifted_cg",

@@ -6,7 +6,7 @@
 // update_gram.cuh, px_update.cu, gram.cu) and the mbarriers of the
 // warp-specialised block stencil (block_stencil.cu).
 //
-// Layout: every field is lanes-major (k, n) float32, row r of column i at
+// Layout: every field is lanes-major (k, n), row r of column i at
 // F[r * n + i], so the threads of a warp (neighbouring columns i) read
 // neighbouring addresses. One thread owns one column of a 128-column tile and
 // keeps its k <= KMAX values in registers; a block walks its tiles with a
@@ -19,13 +19,76 @@
 // contracts over kin >= k input rows (kin == k on a narrow field, where the
 // arithmetic is what it was before the split).
 //
+// Field elements: float32, or bfloat16 on the kernels that take bf16 fields
+// (stencil.cu, gram.cu, mm_update.cu, update_gram.cuh, px_update.cu). A bf16
+// element is converted to f32 where it enters registers and every FMA runs
+// in f32; an output is rounded to bf16 where it is stored (from_f32). The
+// staged k x k coefficients of a bf16 update are rounded to bf16 once, when
+// they are staged (rounded<E>), and lifted back to f32: a bf16 x bf16
+// product is exact in f32, so the kernels and their plain versions differ
+// in summation order alone.
+//
 // Everything here has internal linkage: each .cu includes this header, is
 // compiled to its own object, and the objects are linked into one library.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// Elements of E a 16-byte copy carries: 4 floats, 8 bf16.
+template <typename E>
+constexpr int kVec = 16 / static_cast<int>(sizeof(E));
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename E>
+__device__ __forceinline__ E from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v as a field of E holds it: the identity on f32, the f32 of v's bf16
+// rounding on bf16.
+template <typename E>
+__device__ __forceinline__ float rounded(float v) {
+  return to_f32(from_f32<E>(v));
+}
+
+// Four consecutive elements, as f32: one 16-byte load of floats, one 8-byte
+// load of bf16 (p 16- or 8-byte aligned).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  *reinterpret_cast<unsigned*>(&lo) = u.x;
+  *reinterpret_cast<unsigned*>(&hi) = u.y;
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 constexpr int kThreads = 128;  // threads per block == columns per tile
 
@@ -201,19 +264,19 @@ struct SymGram {
       for (int b = 0; b < TS; ++b) acc[a][b] = 0.f;
   }
 
-  // ys: a row-major staged tile with row stride ly (a multiple of 4 words),
-  // ncol columns (a multiple of 4). Rows past k read row k - 1, whose
-  // products land only in entries of G that store() drops.
-  __device__ __forceinline__ void accumulate(const float* ys, int ly, int ncol, int k) {
+  // ys: a row-major staged tile of float or bf16 with row stride ly (a
+  // multiple of 4 elements), ncol columns (a multiple of 4). Rows past k read
+  // row k - 1, whose products land only in entries of G that store() drops.
+  template <typename E>
+  __device__ __forceinline__ void accumulate(const E* ys, int ly, int ncol, int k) {
     if (grp >= kGroups) return;
     for (int c = 4 * grp; c < ncol; c += 4 * kGroups) {
       float4 y[TS];
 #pragma unroll
-      for (int b = 0; b < TS; ++b)
-        y[b] = *reinterpret_cast<const float4*>(ys + min(cb + S * b, k - 1) * ly + c);
+      for (int b = 0; b < TS; ++b) y[b] = load4(ys + min(cb + S * b, k - 1) * ly + c);
 #pragma unroll
       for (int a = 0; a < TS; ++a) {
-        const float4 x = *reinterpret_cast<const float4*>(ys + min(rb + S * a, k - 1) * ly + c);
+        const float4 x = load4(ys + min(rb + S * a, k - 1) * ly + c);
 #pragma unroll
         for (int b = 0; b < TS; ++b) {
           float v = acc[a][b];
@@ -355,7 +418,7 @@ __device__ __forceinline__ void zero_pad_rows(float* xs, float* ys, int m) {
 // the streaming kernels (mm_update.cu, stencil.cu). A copy whose predicate
 // is false reads nothing and fills its shared bytes with zeros; gmem must
 // still be a valid address.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool pred) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(pred ? 16 : 0));
@@ -365,6 +428,16 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool p
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
                "r"(pred ? 4 : 0));
+}
+
+// One element into shared memory where a 16-byte copy does not fit: a 4-byte
+// cp.async for a float; a bf16 (2 bytes, below cp.async's least size) is
+// loaded and stored by the thread. !pred stores 0 and reads nothing.
+__device__ __forceinline__ void cp_elem(float* smem, const float* gmem, bool pred) {
+  cp_async4(smem, gmem, pred);
+}
+__device__ __forceinline__ void cp_elem(bf16* smem, const bf16* gmem, bool pred) {
+  *smem = pred ? *gmem : __float2bfloat16_rn(0.f);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -421,22 +494,23 @@ __device__ __forceinline__ void load_rows(float (&m)[R], const float* p) {
 
 // Copy rows c0 .. c0+rows-1 of the stacked field [A; B] (A and B (kin, n))
 // at columns i0 .. i0+kUpTile-1 into s (row stride kUpTile) with cp.async;
-// columns past n are zero-filled. vec: 16-byte copies (n % 4 == 0 and A, B
-// 16-byte aligned), else 4-byte copies on the same schedule.
-__device__ __forceinline__ void load_stacked(float* s, const float* A, const float* B, int kin,
+// columns past n are zero-filled. vec: 16-byte copies (n % kVec<E> == 0 and
+// A, B 16-byte aligned), else element copies (cp_elem) on the same schedule.
+template <typename E>
+__device__ __forceinline__ void load_stacked(E* s, const E* A, const E* B, int kin,
                                              long long n, long long i0, int c0, int rows,
                                              bool vec) {
-  constexpr int q4 = kUpTile / 4;
-  const int per = vec ? q4 : kUpTile;
+  constexpr int kv = kVec<E>;
+  const int per = vec ? kUpTile / kv : kUpTile;
   for (int e = threadIdx.x; e < rows * per; e += kUpThreads) {
-    const int c = e / per, q = (vec ? 4 : 1) * (e - c * per);
+    const int c = e / per, q = (vec ? kv : 1) * (e - c * per);
     const int row = c0 + c;
-    const float* F = row < kin ? A + static_cast<long long>(row) * n
-                               : B + static_cast<long long>(row - kin) * n;
+    const E* F = row < kin ? A + static_cast<long long>(row) * n
+                           : B + static_cast<long long>(row - kin) * n;
     const bool in = i0 + q < n;
-    const float* g = in ? F + i0 + q : A;
+    const E* g = in ? F + i0 + q : A;
     if (vec) cp_async16(s + c * kUpTile + q, g, in);
-    else cp_async4(s + c * kUpTile + q, g, in);
+    else cp_elem(s + c * kUpTile + q, g, in);
   }
 }
 
@@ -457,25 +531,28 @@ struct StageCursor {
 // A alone; 2 kin: A then B) into s (nothing past the last tile) and commit it
 // as one cp.async group, empty or not, so that cp_async_wait<kUpStages - 1>
 // always finds the stage kUpStages - 1 back.
-__device__ __forceinline__ void load_stage(float* s, const float* A, const float* B, int kin,
-                                           int nin, long long n, StageCursor at, int kc,
+template <typename E>
+__device__ __forceinline__ void load_stage(E* s, const E* A, const E* B, int kin, int nin,
+                                           long long n, StageCursor at, int kc,
                                            long long ntiles, bool vec) {
   if (at.t < ntiles)
     load_stacked(s, A, B, kin, n, at.t * kUpTile, at.j * kc, min(kc, nin - at.j * kc), vec);
   cp_async_commit();
 }
 
-// Shared floats of a streaming update launch: nmat coefficient tables of kin
-// columns by 8R rows, kUpStages (kc, kUpTile) input buffers and, with the
-// Gram, the (k, kUpLd) Y tile, at least the Gram's end-of-kernel scratch
-// (update_gram.cuh's SymGram::kScratch <= kUpThreads x TS^2 floats: TS = 8
-// above 32 rows, 4 up to 32). Mirrored by ops/fused.py update_smem_bytes.
-inline long long update_smem_floats(int k, int kin, int kc, int nmat, bool gram) {
+// Shared bytes of a streaming update launch: nmat float coefficient tables of
+// kin columns by 8R rows, kUpStages (kc, kUpTile) input buffers of esize-byte
+// field elements and, with the Gram, the float (k, kUpLd) Y tile, at least
+// the Gram's end-of-kernel scratch (update_gram.cuh's SymGram::kScratch <=
+// kUpThreads x TS^2 floats: TS = 8 above 32 rows, 4 up to 32). Mirrored by
+// ops/fused.py update_smem_bytes.
+inline long long update_smem_bytes(int k, int kin, int kc, int nmat, bool gram, int esize) {
   const long long rp = 8LL * rows_per_warp(k);
-  long long f = nmat * kin * rp + 1LL * kUpStages * kc * kUpTile + (gram ? 1LL * k * kUpLd : 0);
-  const long long scratch = 1LL * kUpThreads * (k > 32 ? 64 : 16);
-  if (gram && f < scratch) f = scratch;
-  return f;
+  long long b = 4 * (nmat * kin * rp + (gram ? 1LL * k * kUpLd : 0)) +
+                1LL * esize * kUpStages * kc * kUpTile;
+  const long long scratch = 4LL * kUpThreads * (k > 32 ? 64 : 16);
+  if (gram && b < scratch) b = scratch;
+  return b;
 }
 
 // A persistent grid for kernel: as many blocks as the card holds at once, at
@@ -532,12 +609,16 @@ struct VecGram {
       for (int b = 0; b < TS; ++b) acc[a][b] = 0.f;
   }
 
-  __device__ __forceinline__ void accumulate(const float* xs, int lx, const float* ys, int ly,
+  template <typename EX, typename EY>
+  __device__ __forceinline__ void accumulate(const EX* xs, int lx, const EY* ys, int ly,
                                              int ncol, int k) {
     accumulate(xs, lx, ys, ly, ncol, k, k);
   }
 
-  __device__ __forceinline__ void accumulate(const float* xs, int lx, const float* ys, int ly,
+  // xs and ys: staged tiles of float or bf16 (load4: a float4 or four bf16
+  // a read, lifted to f32).
+  template <typename EX, typename EY>
+  __device__ __forceinline__ void accumulate(const EX* xs, int lx, const EY* ys, int ly,
                                              int ncol, int kx, int ky) {
     if (grp >= kGroups) return;
     // Rows past kx (ky) read row kx - 1 (ky - 1): unconditional loads, whose
@@ -545,11 +626,9 @@ struct VecGram {
     for (int c = 4 * grp; c < ncol; c += 4 * kGroups) {
       float4 x[TS], y[TS];
 #pragma unroll
-      for (int a = 0; a < TS; ++a)
-        x[a] = *reinterpret_cast<const float4*>(xs + min(rt + S * a, kx - 1) * lx + c);
+      for (int a = 0; a < TS; ++a) x[a] = load4(xs + min(rt + S * a, kx - 1) * lx + c);
 #pragma unroll
-      for (int b = 0; b < TS; ++b)
-        y[b] = *reinterpret_cast<const float4*>(ys + min(st + S * b, ky - 1) * ly + c);
+      for (int b = 0; b < TS; ++b) y[b] = load4(ys + min(st + S * b, ky - 1) * ly + c);
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll

@@ -34,6 +34,12 @@
 // launch_reduce sums the partials in block order in double; the grid depends
 // on the card and the plan alone, so a repeated call gives the same bits (no
 // atomics).
+//
+// bf16 fields (bcg_gram_bf16): the tiles are staged as bf16, 16-byte copies
+// of 8 elements (n % 8 == 0), a row stride of T + 8 elements for both Grams,
+// and the register tiles read four bf16 a load, lifted to f32. A bf16 x bf16
+// product is exact in f32, so G is the f32 sum of exact products, as the
+// reference's native-bf16 Gram.
 #include <type_traits>
 
 #include "common.cuh"
@@ -50,33 +56,39 @@ constexpr int kGrStages = 2;
 // scratch (VecGram / SymGram kScratch), mirrored by ops/fused.py.
 constexpr int kGrScratch = 16384;
 
-// Row stride of a staged tile of T columns: 4 mod 8 words for VecGram's
-// float4 reads, 8 mod 32 for SymGram's.
-__host__ __device__ inline int gram_ld(int T, bool sym) { return T + (sym ? 8 : 4); }
+// Row stride of a staged tile of T columns, in elements of esize bytes: for
+// floats 4 mod 8 words for VecGram's float4 reads, 8 mod 32 for SymGram's;
+// for bf16 T + 8, which keeps every row's 16-byte copies aligned.
+__host__ __device__ inline int gram_ld(int T, bool sym, int esize) {
+  return T + (sym || esize != 4 ? 8 : 4);
+}
 
-// Shared floats of a launch: `stages` tiles of `rows` stacked rows; mirrored
+// Shared bytes of a launch: `stages` tiles of `rows` stacked rows; mirrored
 // by ops/fused.py gram_smem_bytes.
-__host__ __device__ inline long long gram_smem_floats(int rows, int T, bool sym, int stages) {
-  const long long f = 1LL * stages * rows * gram_ld(T, sym);
-  return f > kGrScratch ? f : kGrScratch;
+__host__ __device__ inline long long gram_smem_bytes(int rows, int T, bool sym, int stages,
+                                                     int esize) {
+  const long long b = 1LL * esize * stages * rows * gram_ld(T, sym, esize);
+  return b > 4LL * kGrScratch ? b : 4LL * kGrScratch;
 }
 
 // Copy columns i0 .. i0+T-1 of the stacked rows [U; V] (U alone: rows == ku)
 // into s (row stride ld) with cp.async: warp w copies rows w, w + 8, ...,
-// each lane 16 (or 4) bytes at a time; columns past n are zero-filled.
-__device__ __forceinline__ void load_tile(float* s, const float* U, const float* V, int ku,
-                                          int rows, long long n, long long i0, int T, int ld,
-                                          bool vec) {
+// each lane 16 bytes (or one element) at a time; columns past n are
+// zero-filled.
+template <typename E>
+__device__ __forceinline__ void load_tile(E* s, const E* U, const E* V, int ku, int rows,
+                                          long long n, long long i0, int T, int ld, bool vec) {
+  constexpr int kv = kVec<E>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kGrThreads / 32) {
-    const float* F = (r < ku ? U + static_cast<long long>(r) * n
-                             : V + static_cast<long long>(r - ku) * n) + i0;
-    float* d = s + r * ld;
+    const E* F = (r < ku ? U + static_cast<long long>(r) * n
+                         : V + static_cast<long long>(r - ku) * n) + i0;
+    E* d = s + r * ld;
     if (vec) {
-      for (int q = 4 * lane; q < T; q += 128)
+      for (int q = kv * lane; q < T; q += 32 * kv)
         cp_async16(d + q, i0 + q < n ? F + q : U, i0 + q < n);
     } else {
-      for (int q = lane; q < T; q += 32) cp_async4(d + q, i0 + q < n ? F + q : U, i0 + q < n);
+      for (int q = lane; q < T; q += 32) cp_elem(d + q, i0 + q < n ? F + q : U, i0 + q < n);
     }
   }
 }
@@ -91,22 +103,24 @@ template <int KMAX, bool SYM, int TS>
 using GramOf =
     std::conditional_t<SYM, SymGram<KMAX, kGrThreads, TS>, VecGram<KMAX, kGrThreads, TS>>;
 
-// TS, MINB (blocks an SM for __launch_bounds__) and ST (tiles in shared
-// memory) other than the built ones are for timing probes
-// (tools/torch_kernel_times.py --variants).
-template <int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1, int ST = kGrStages>
+// E: the field element (float or bf16). TS, MINB (blocks an SM for
+// __launch_bounds__) and ST (tiles in shared memory) other than the built
+// ones are for timing probes (tools/torch_kernel_times.py --variants).
+template <typename E, int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1,
+          int ST = kGrStages>
 __global__ void __launch_bounds__(kGrThreads, MINB)
-    gram_kernel(const float* __restrict__ U, const float* __restrict__ V,
-                float* __restrict__ part, int ku, int kv, long long n, int T, bool vec) {
-  extern __shared__ __align__(16) float smem[];  // ST tiles of (rows, ld)
+    gram_kernel(const E* __restrict__ U, const E* __restrict__ V, float* __restrict__ part,
+                int ku, int kv, long long n, int T, bool vec) {
+  extern __shared__ __align__(16) float smem[];  // ST tiles of (rows, ld) elements of E
+  E* tiles = reinterpret_cast<E*>(smem);
   const int rows = SYM ? ku : ku + kv;
-  const int ld = gram_ld(T, SYM);
+  const int ld = gram_ld(T, SYM, sizeof(E));
   const long long stage = static_cast<long long>(rows) * ld;
   GramOf<KMAX, SYM, TS> g;
   const long long ntiles = (n + T - 1) / T;
   for (int s = 0; s < ST - 1; ++s) {  // the first ST - 1 tiles of the walk
     const long long ts = blockIdx.x + static_cast<long long>(s) * gridDim.x;
-    if (ts < ntiles) load_tile(smem + s * stage, U, V, ku, rows, n, ts * T, T, ld, vec);
+    if (ts < ntiles) load_tile(tiles + s * stage, U, V, ku, rows, n, ts * T, T, ld, vec);
     cp_async_commit();
   }
   int buf = 0;
@@ -114,11 +128,11 @@ __global__ void __launch_bounds__(kGrThreads, MINB)
     // Refill the buffer the previous tile computed on, ST - 1 tiles ahead.
     const long long tn = t + static_cast<long long>(ST - 1) * gridDim.x;
     if (tn < ntiles)
-      load_tile(smem + (buf + ST - 1) % ST * stage, U, V, ku, rows, n, tn * T, T, ld, vec);
+      load_tile(tiles + (buf + ST - 1) % ST * stage, U, V, ku, rows, n, tn * T, T, ld, vec);
     cp_async_commit();
     cp_async_wait<ST - 1>();  // this tile's copy has landed
     __syncthreads();          // ... for every thread's share of it
-    const float* s = smem + buf * stage;
+    const E* s = tiles + buf * stage;
     if constexpr (SYM) g.accumulate(s, ld, T, ku);
     else g.accumulate(s, ld, s + ku * ld, ld, T, ku, kv);
     __syncthreads();  // every read of this buffer is done before its refill
@@ -131,19 +145,20 @@ __global__ void __launch_bounds__(kGrThreads, MINB)
   else g.store(mine, ku, kv, smem);
 }
 
-template <int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1, int ST = kGrStages>
-cudaError_t launch(const float* U, const float* V, float* part, float* G, int ku, int kv,
-                   long long n, int T, int max_blocks, int device, cudaStream_t stream) {
+template <typename E, int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1,
+          int ST = kGrStages>
+cudaError_t launch(const E* U, const E* V, float* part, float* G, int ku, int kv, long long n,
+                   int T, int max_blocks, int device, cudaStream_t stream) {
   static_assert(GramOf<KMAX, SYM, TS>::kScratch <= kGrScratch,
                 "the Gram's scratch must fit the shared floor");
-  auto kernel = gram_kernel<KMAX, SYM, TS, MINB, ST>;
-  const size_t smem = gram_smem_floats(SYM ? ku : ku + kv, T, SYM, ST) * sizeof(float);
+  auto kernel = gram_kernel<E, KMAX, SYM, TS, MINB, ST>;
+  const size_t smem = gram_smem_bytes(SYM ? ku : ku + kv, T, SYM, ST, sizeof(E));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
   err = persistent_grid(kernel, kGrThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % 4 == 0 && aligned16(U) && aligned16(V);
+  const bool vec = n % kVec<E> == 0 && aligned16(U) && aligned16(V);
   kernel<<<grid, kGrThreads, smem, stream>>>(U, V, part, ku, kv, n, T, vec);
   launch_reduce(part, G, ku, kv, grid, stream);
   return cudaGetLastError();
@@ -158,18 +173,32 @@ inline int gram_width(int k) {
   return 0;
 }
 
-template <bool SYM>
-cudaError_t dispatch(const float* U, const float* V, float* part, float* G, int ku, int kv,
+template <typename E, bool SYM>
+cudaError_t dispatch(const E* U, const E* V, float* part, float* G, int ku, int kv,
                      long long n, int T, int max_blocks, int device, cudaStream_t stream) {
+#define BCG_GR(W) return launch<E, W, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream)
   switch (gram_width(ku > kv ? ku : kv)) {
-    case 8: return launch<8, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
-    case 16: return launch<16, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
-    case 32: return launch<32, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
-    case 48: return launch<48, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
-    case 64: return launch<64, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
-    case 96: return launch<96, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+    case 8: BCG_GR(8);
+    case 16: BCG_GR(16);
+    case 32: BCG_GR(32);
+    case 48: BCG_GR(48);
+    case 64: BCG_GR(64);
+    case 96: BCG_GR(96);
     default: return cudaErrorInvalidValue;
   }
+#undef BCG_GR
+}
+
+template <typename E>
+int gram_entry(const E* U, const E* V, float* part, float* G, int ku, int kv, long long n,
+               int T, int max_blocks, int device, cudaStream_t stream) {
+  if (max_blocks < 1 || n < 1 || ku < 1 || kv < 1 || T < 128 || T > 1024 || T % 128 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (U == V && ku == kv)
+    return dispatch<E, true>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+  return dispatch<E, false>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
 }
 
 }  // namespace
@@ -180,13 +209,14 @@ cudaError_t dispatch(const float* U, const float* V, float* part, float* G, int 
 // ku, kv)) come from ops/fused.py gram_plan.
 extern "C" int bcg_gram(const float* U, const float* V, float* part, float* G, int ku, int kv,
                         long long n, int T, int max_blocks, int device, cudaStream_t stream) {
-  if (max_blocks < 1 || n < 1 || ku < 1 || kv < 1 || T < 128 || T > 1024 || T % 128 != 0)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (U == V && ku == kv)
-    return dispatch<true>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
-  return dispatch<false>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+  return gram_entry(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+}
+
+// The same on bf16 fields; G is f32.
+extern "C" int bcg_gram_bf16(const bf16* U, const bf16* V, float* part, float* G, int ku,
+                             int kv, long long n, int T, int max_blocks, int device,
+                             cudaStream_t stream) {
+  return gram_entry(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
 }
 
 extern "C" const char* bcg_error_string(int code) {

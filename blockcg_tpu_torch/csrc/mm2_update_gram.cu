@@ -15,6 +15,16 @@ extern "C" int bcg_mm2_update_gram(const float* M1, const float* B1, const float
                                    const float* B2, float* Y, float* part, float* G, int k,
                                    int kin, long long n, int kc, int max_blocks, int device,
                                    cudaStream_t stream) {
-  return dispatch<2, false>(M1, B1, M2, B2, nullptr, Y, part, G, k, kin, n, kc, max_blocks,
-                            device, stream);
+  return dispatch<float, 2, false>(M1, B1, M2, B2, nullptr, Y, part, G, k, kin, n, kc,
+                                   max_blocks, device, stream);
+}
+
+// The same on bf16 fields B1, B2 and Y (M1 and M2 stay f32 and are rounded to
+// bf16 where they are staged; G is f32, of the stored bf16 Y).
+extern "C" int bcg_mm2_update_gram_bf16(const float* M1, const bf16* B1, const float* M2,
+                                        const bf16* B2, bf16* Y, float* part, float* G, int k,
+                                        int kin, long long n, int kc, int max_blocks,
+                                        int device, cudaStream_t stream) {
+  return dispatch<bf16, 2, false>(M1, B1, M2, B2, nullptr, Y, part, G, k, kin, n, kc,
+                                  max_blocks, device, stream);
 }

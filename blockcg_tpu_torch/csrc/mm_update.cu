@@ -31,6 +31,11 @@
 // order as update_gram.cuh's (so the row chunks above 128 rows give the
 // bits a launch of this kernel would).
 //
+// bf16 fields (bcg_mm_update_bf16): B's tiles are staged as bf16, 16-byte
+// copies of 8 elements (n % 8 == 0), lifted to f32 four at a time as they
+// are read; M is rounded to bf16 where it is staged; A is read and Y written
+// four bf16 at a time. The FMAs and their order are those of the f32 kernel.
+//
 // In place: Y may be B or A (the solvers' donated operand). A block copies
 // its whole input tile into shared memory before it writes the tile's
 // columns, reads A[r, i] before it writes Y[r, i] in the same thread, and no
@@ -46,11 +51,13 @@ constexpr int kMmMaxK = 128;
 
 // Copy the (k, 128) tile of B at column i0 into s (row stride 128); columns
 // past n are zero-filled.
-__device__ __forceinline__ void load_tile(float* s, const float* B, int k, long long n,
-                                          long long i0, bool vec) {
+template <typename E>
+__device__ __forceinline__ void load_tile(E* s, const E* B, int k, long long n, long long i0,
+                                          bool vec) {
+  constexpr int kv = kVec<E>;
   if (vec) {
-    for (int e = threadIdx.x; e < k * (kMmTile / 4); e += kMmThreads) {
-      const int c = e / (kMmTile / 4), q = 4 * (e % (kMmTile / 4));
+    for (int e = threadIdx.x; e < k * (kMmTile / kv); e += kMmThreads) {
+      const int c = e / (kMmTile / kv), q = kv * (e % (kMmTile / kv));
       const bool in = i0 + q < n;
       cp_async16(s + c * kMmTile + q, B + (in ? c * n + i0 + q : 0), in);
     }
@@ -58,23 +65,23 @@ __device__ __forceinline__ void load_tile(float* s, const float* B, int k, long 
     for (int e = threadIdx.x; e < k * kMmTile; e += kMmThreads) {
       const int c = e / kMmTile, q = e % kMmTile;
       const bool in = i0 + q < n;
-      cp_async4(s + c * kMmTile + q, B + (in ? c * n + i0 + q : 0), in);
+      cp_elem(s + c * kMmTile + q, B + (in ? c * n + i0 + q : 0), in);
     }
   }
 }
 
-template <int R, bool HAS_A>
+template <typename E, int R, bool HAS_A>
 __global__ void __launch_bounds__(kMmThreads)
-    mm_update_kernel(const float* __restrict__ M, const float* B, const float* A, float* Y,
-                     int k, long long n, bool vec) {
+    mm_update_kernel(const float* __restrict__ M, const E* B, const E* A, E* Y, int k,
+                     long long n, bool vec) {
   extern __shared__ __align__(16) float smem[];  // sM (k x 8R) | two (k, 128) tiles of B
   constexpr int kRows = 8 * R;
   float* sM = smem;
-  float* sB = smem + k * kRows;
-  const int tile_floats = k * kMmTile;
+  E* sB = reinterpret_cast<E*>(smem + k * kRows);
+  const int tile_floats = k * kMmTile;  // elements of a tile
   for (int e = threadIdx.x; e < k * kRows; e += kMmThreads) {
     const int c = e / kRows, r = e % kRows;
-    sM[e] = r < k ? M[r * k + c] : 0.f;  // sM[c][r] = M[r, c]
+    sM[e] = r < k ? rounded<E>(M[r * k + c]) : 0.f;  // sM[c][r] = M[r, c]
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * R;
@@ -90,13 +97,13 @@ __global__ void __launch_bounds__(kMmThreads)
     cp_async_wait<1>();  // this tile's copy has landed
     __syncthreads();     // ... for every thread's share of it (and sM)
     if (r0 < k) {
-      const float* sb = sB + buf * tile_floats + 4 * lane;
+      const E* sb = sB + buf * tile_floats + 4 * lane;
       float acc[R][4];
 #pragma unroll
       for (int j = 0; j < R; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll 2
       for (int c = 0; c < k; ++c) {
-        const float4 b = *reinterpret_cast<const float4*>(sb + c * kMmTile);
+        const float4 b = load4(sb + c * kMmTile);
         float m[R];
         load_rows<R>(m, sM + c * kRows + r0);
 #pragma unroll
@@ -116,14 +123,15 @@ __global__ void __launch_bounds__(kMmThreads)
         if (vec && i + 3 < n) {
           float4 y = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
           if constexpr (HAS_A) {
-            const float4 a = *reinterpret_cast<const float4*>(A + at);
+            const float4 a = load4(A + at);
             y.x += a.x; y.y += a.y; y.z += a.z; y.w += a.w;
           }
-          *reinterpret_cast<float4*>(Y + at) = y;
+          store4(Y + at, y);
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            if (i + q < n) Y[at + q] = HAS_A ? acc[j][q] + A[at + q] : acc[j][q];
+            if (i + q < n)
+              Y[at + q] = from_f32<E>(HAS_A ? acc[j][q] + to_f32(A[at + q]) : acc[j][q]);
         }
       }
     }
@@ -133,28 +141,47 @@ __global__ void __launch_bounds__(kMmThreads)
   cp_async_wait<0>();
 }
 
-template <int R, bool HAS_A>
-cudaError_t launch(const float* M, const float* B, const float* A, float* Y, int k,
-                   long long n, int device, cudaStream_t stream) {
-  auto kernel = mm_update_kernel<R, HAS_A>;
-  const size_t smem = (static_cast<size_t>(k) * 8 * R + 2 * static_cast<size_t>(k) * kMmTile) *
-                      sizeof(float);
+template <typename E, int R, bool HAS_A>
+cudaError_t launch(const float* M, const E* B, const E* A, E* Y, int k, long long n,
+                   int device, cudaStream_t stream) {
+  auto kernel = mm_update_kernel<E, R, HAS_A>;
+  const size_t smem = static_cast<size_t>(k) * 8 * R * sizeof(float) +
+                      2 * static_cast<size_t>(k) * kMmTile * sizeof(E);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long ntiles = (n + kMmTile - 1) / kMmTile;
   int grid = 0;
   err = persistent_grid(kernel, kMmThreads, smem, device, ntiles, ntiles, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % 4 == 0 && aligned16(B) && aligned16(Y) && (A == nullptr || aligned16(A));
+  const bool vec =
+      n % kVec<E> == 0 && aligned16(B) && aligned16(Y) && (A == nullptr || aligned16(A));
   kernel<<<grid, kMmThreads, smem, stream>>>(M, B, A, Y, k, n, vec);
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t dispatch(const float* M, const float* B, const float* A, float* Y, int k,
-                     long long n, int device, cudaStream_t stream) {
-  return A ? launch<R, true>(M, B, A, Y, k, n, device, stream)
-           : launch<R, false>(M, B, A, Y, k, n, device, stream);
+template <typename E, int R>
+cudaError_t dispatch(const float* M, const E* B, const E* A, E* Y, int k, long long n,
+                     int device, cudaStream_t stream) {
+  return A ? launch<E, R, true>(M, B, A, Y, k, n, device, stream)
+           : launch<E, R, false>(M, B, A, Y, k, n, device, stream);
+}
+
+template <typename E>
+int mm_update_entry(const float* M, const E* B, const E* A, E* Y, int k, long long n,
+                    int device, cudaStream_t stream) {
+  if (n < 1 || k < 1 || k > kMmMaxK) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (rows_per_warp(k)) {
+    case 1: return dispatch<E, 1>(M, B, A, Y, k, n, device, stream);
+    case 2: return dispatch<E, 2>(M, B, A, Y, k, n, device, stream);
+    case 4: return dispatch<E, 4>(M, B, A, Y, k, n, device, stream);
+    case 6: return dispatch<E, 6>(M, B, A, Y, k, n, device, stream);
+    case 8: return dispatch<E, 8>(M, B, A, Y, k, n, device, stream);
+    case 12: return dispatch<E, 12>(M, B, A, Y, k, n, device, stream);
+    case 16: return dispatch<E, 16>(M, B, A, Y, k, n, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -163,17 +190,12 @@ cudaError_t dispatch(const float* M, const float* B, const float* A, float* Y, i
 // may equal B or A. 1 <= k <= 128.
 extern "C" int bcg_mm_update(const float* M, const float* B, const float* A, float* Y, int k,
                              long long n, int device, cudaStream_t stream) {
-  if (n < 1 || k < 1 || k > kMmMaxK) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  switch (rows_per_warp(k)) {
-    case 1: return dispatch<1>(M, B, A, Y, k, n, device, stream);
-    case 2: return dispatch<2>(M, B, A, Y, k, n, device, stream);
-    case 4: return dispatch<4>(M, B, A, Y, k, n, device, stream);
-    case 6: return dispatch<6>(M, B, A, Y, k, n, device, stream);
-    case 8: return dispatch<8>(M, B, A, Y, k, n, device, stream);
-    case 12: return dispatch<12>(M, B, A, Y, k, n, device, stream);
-    case 16: return dispatch<16>(M, B, A, Y, k, n, device, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return mm_update_entry(M, B, A, Y, k, n, device, stream);
+}
+
+// The same on bf16 fields B, A and Y; M stays f32 and is rounded to bf16
+// where it is staged.
+extern "C" int bcg_mm_update_bf16(const float* M, const bf16* B, const bf16* A, bf16* Y, int k,
+                                  long long n, int device, cudaStream_t stream) {
+  return mm_update_entry(M, B, A, Y, k, n, device, stream);
 }

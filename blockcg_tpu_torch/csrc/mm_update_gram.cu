@@ -13,11 +13,27 @@
 // (max_blocks, k, k) and the launch uses at most max_blocks blocks. kc: input
 // rows a stage copies (ops/fused.py update_plan). Y may equal B when k ==
 // kin, or A.
+template <typename E>
+int mm_update_gram_entry(const float* M, const E* B, const E* A, E* Y, float* part, float* G,
+                         int k, int kin, long long n, int kc, int max_blocks, int device,
+                         cudaStream_t stream) {
+  return A ? dispatch<E, 1, true>(M, B, nullptr, nullptr, A, Y, part, G, k, kin, n, kc,
+                                  max_blocks, device, stream)
+           : dispatch<E, 1, false>(M, B, nullptr, nullptr, nullptr, Y, part, G, k, kin, n, kc,
+                                   max_blocks, device, stream);
+}
+
 extern "C" int bcg_mm_update_gram(const float* M, const float* B, const float* A, float* Y,
                                   float* part, float* G, int k, int kin, long long n, int kc,
                                   int max_blocks, int device, cudaStream_t stream) {
-  return A ? dispatch<1, true>(M, B, nullptr, nullptr, A, Y, part, G, k, kin, n, kc,
-                               max_blocks, device, stream)
-           : dispatch<1, false>(M, B, nullptr, nullptr, nullptr, Y, part, G, k, kin, n, kc,
-                                max_blocks, device, stream);
+  return mm_update_gram_entry(M, B, A, Y, part, G, k, kin, n, kc, max_blocks, device, stream);
+}
+
+// The same on bf16 fields B, A and Y (M stays f32 and is rounded to bf16
+// where it is staged; G is f32, of the stored bf16 Y).
+extern "C" int bcg_mm_update_gram_bf16(const float* M, const bf16* B, const bf16* A, bf16* Y,
+                                       float* part, float* G, int k, int kin, long long n,
+                                       int kc, int max_blocks, int device,
+                                       cudaStream_t stream) {
+  return mm_update_gram_entry(M, B, A, Y, part, G, k, kin, n, kc, max_blocks, device, stream);
 }

@@ -37,6 +37,12 @@
 // Width: one launch writes k <= 128 rows of Pn and Xn and contracts over kin
 // >= k rows of W and P (a row chunk of a wider field, ops/fused.py).
 //
+// bf16 fields (bcg_px_update_bf16): W and P are staged as bf16, 16-byte
+// copies of 8 elements (n % 8 == 0), lifted to f32 four at a time as they
+// are read; M1, rho and C are rounded to bf16 where they are staged; X is
+// read and Pn and Xn written four bf16 at a time. The FMAs and their order
+// are those of the f32 kernel. QR mode stays f32 only.
+//
 // QR: the stacked input is [Q1; P], the first table M2 over Q1's rows and
 // rho over P's, and there is no C, X or Xn. Q is pn after Q1's kin rows:
 // the stage that holds Q1's last row stores it (float4 stores, as Pn), and
@@ -69,10 +75,10 @@ namespace {
 template <int R>
 constexpr int kPxBlocksPerSm = R <= 8 ? 2 : 1;
 
-// F[r0 + a, i .. i + 3] = v[a] for the rows below k: float4 stores, or
+// F[r0 + a, i .. i + 3] = v[a] for the rows below k: 4-element stores, or
 // scalar ones past n and on unaligned fields.
-template <int R>
-__device__ __forceinline__ void store_rows4(float* F, const float (&v)[R][4], int r0, int k,
+template <typename E, int R>
+__device__ __forceinline__ void store_rows4(E* F, const float (&v)[R][4], int r0, int k,
                                             long long n, long long i, bool vec) {
 #pragma unroll
   for (int a = 0; a < R; ++a) {
@@ -80,36 +86,37 @@ __device__ __forceinline__ void store_rows4(float* F, const float (&v)[R][4], in
     if (r >= k) continue;
     const long long at = r * n + i;
     if (vec && i + 3 < n) {
-      *reinterpret_cast<float4*>(F + at) = make_float4(v[a][0], v[a][1], v[a][2], v[a][3]);
+      store4(F + at, make_float4(v[a][0], v[a][1], v[a][2], v[a][3]));
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (i + q < n) F[at + q] = v[a][q];
+        if (i + q < n) F[at + q] = from_f32<E>(v[a][q]);
     }
   }
 }
 
-// QR: W is Q1, M1 is M2, Xn receives Q; C and X are unused.
-template <int R, bool QR>
+// E: the field element (float or bf16; QR takes float only). QR: W is Q1, M1
+// is M2, Xn receives Q; C and X are unused.
+template <typename E, int R, bool QR>
 __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
-    px_update_kernel(const float* __restrict__ M1, const float* W,
-                     const float* __restrict__ Rho, const float* P,
-                     const float* __restrict__ C, const float* X, float* Pn, float* Xn, int k,
+    px_update_kernel(const float* __restrict__ M1, const E* W, const float* __restrict__ Rho,
+                     const E* P, const float* __restrict__ C, const E* X, E* Pn, E* Xn, int k,
                      int kin, long long n, int kc, bool vec) {
+  static_assert(!QR || sizeof(E) == 4, "QR mode takes f32 fields");
   extern __shared__ __align__(16) float smem[];  // sA (2kin x 8R) | sC (kin x 8R) | stages
   constexpr int kRows = 8 * R;
   const int nin = 2 * kin;
   float* sA = smem;
   float* sC = sA + nin * kRows;
-  float* sB = sC + (QR ? 0 : kin * kRows);
+  E* sB = reinterpret_cast<E*>(sC + (QR ? 0 : kin * kRows));
   for (int e = threadIdx.x; e < nin * kRows; e += kUpThreads) {
     const int c = e / kRows, r = e % kRows;
-    sA[e] = r >= k ? 0.f : c < kin ? M1[r * kin + c] : Rho[r * kin + c - kin];
+    sA[e] = r >= k ? 0.f : rounded<E>(c < kin ? M1[r * kin + c] : Rho[r * kin + c - kin]);
   }
   if constexpr (!QR) {
     for (int e = threadIdx.x; e < kin * kRows; e += kUpThreads) {
       const int c = e / kRows, r = e % kRows;
-      sC[e] = r >= k ? 0.f : C[r * kin + c];
+      sC[e] = r >= k ? 0.f : rounded<E>(C[r * kin + c]);
     }
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -138,19 +145,19 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
           if (r >= k) {
             xn[a][0] = xn[a][1] = xn[a][2] = xn[a][3] = 0.f;
           } else if (vec && i + 3 < n) {
-            const float4 x = *reinterpret_cast<const float4*>(X + at);
+            const float4 x = load4(X + at);
             xn[a][0] = x.x; xn[a][1] = x.y; xn[a][2] = x.z; xn[a][3] = x.w;
           } else {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) xn[a][q] = i + q < n ? X[at + q] : 0.f;
+            for (int q = 0; q < 4; ++q) xn[a][q] = i + q < n ? to_f32(X[at + q]) : 0.f;
           }
         }
       }
       const int c0 = j * kc, c1 = min(c0 + kc, nin), cw = min(c1, kin);
-      const float* sb = sB + buf * kc * kUpTile + 4 * lane;
+      const E* sb = sB + buf * kc * kUpTile + 4 * lane;
 #pragma unroll 2
       for (int c = c0; c < cw; ++c) {  // W's rows: pn += M1 W
-        const float4 b = *reinterpret_cast<const float4*>(sb + (c - c0) * kUpTile);
+        const float4 b = load4(sb + (c - c0) * kUpTile);
         float m[R];
         load_rows<R>(m, sA + c * kRows + r0);
 #pragma unroll
@@ -161,10 +168,10 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
           pn[a][3] = fmaf(m[a], b.w, pn[a][3]);
         }
       }
-      if (QR && c0 < kin && c1 >= kin) store_rows4<R>(Xn, pn, r0, k, n, i, vec);  // Q
+      if (QR && c0 < kin && c1 >= kin) store_rows4<E, R>(Xn, pn, r0, k, n, i, vec);  // Q
 #pragma unroll 2
       for (int c = c0 > kin ? c0 : kin; c < c1; ++c) {  // P's rows: pn += rho P, xn += C P
-        const float4 b = *reinterpret_cast<const float4*>(sb + (c - c0) * kUpTile);
+        const float4 b = load4(sb + (c - c0) * kUpTile);
         float m[R], cc[R];
         load_rows<R>(m, sA + c * kRows + r0);
         if constexpr (!QR) load_rows<R>(cc, sC + (c - kin) * kRows + r0);
@@ -183,8 +190,8 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
         }
       }
       if (j == nk - 1) {  // the tile's last stage: store the outputs
-        store_rows4<R>(Pn, pn, r0, k, n, i, vec);
-        if constexpr (!QR) store_rows4<R>(Xn, xn, r0, k, n, i, vec);
+        store_rows4<E, R>(Pn, pn, r0, k, n, i, vec);
+        if constexpr (!QR) store_rows4<E, R>(Xn, xn, r0, k, n, i, vec);
       }
     }
     __syncthreads();  // every read of this stage's buffer is done: refill it
@@ -196,39 +203,33 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
   cp_async_wait<0>();
 }
 
-template <int R, bool QR>
-cudaError_t launch(const float* M1, const float* W, const float* Rho, const float* P,
-                   const float* C, const float* X, float* Pn, float* Xn, int k, int kin,
-                   long long n, int kc, int device, cudaStream_t stream) {
-  auto kernel = px_update_kernel<R, QR>;
-  const size_t smem = (QR ? update_smem_floats(k, kin, kc, 2, false)
-                          : update_smem_floats(k, kin, kc, 3, false)) *
-                      sizeof(float);
+template <typename E, int R, bool QR>
+cudaError_t launch(const float* M1, const E* W, const float* Rho, const E* P, const float* C,
+                   const E* X, E* Pn, E* Xn, int k, int kin, long long n, int kc, int device,
+                   cudaStream_t stream) {
+  auto kernel = px_update_kernel<E, R, QR>;
+  const size_t smem = update_smem_bytes(k, kin, kc, QR ? 2 : 3, false, sizeof(E));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long ntiles = (n + kUpTile - 1) / kUpTile;
   int grid = 0;
   err = persistent_grid(kernel, kUpThreads, smem, device, ntiles, ntiles, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % 4 == 0 && aligned16(W) && aligned16(P) && (QR || aligned16(X)) &&
+  const bool vec = n % kVec<E> == 0 && aligned16(W) && aligned16(P) && (QR || aligned16(X)) &&
                    aligned16(Pn) && aligned16(Xn);
   kernel<<<grid, kUpThreads, smem, stream>>>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, vec);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Pn, Xn, X (k, n); M1, rho, C k x kin (row stride kin); W, P (kin, n). kc:
-// stacked input rows a stage copies (ops/fused.py update_plan). Xn may equal
-// X; Pn may equal P when k == kin.
-extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
-                             const float* P, const float* C, const float* X, float* Pn,
-                             float* Xn, int k, int kin, long long n, int kc, int device,
-                             cudaStream_t stream) {
+template <typename E>
+int px_update_entry(const float* M1, const E* W, const float* Rho, const E* P, const float* C,
+                    const E* X, E* Pn, E* Xn, int k, int kin, long long n, int kc, int device,
+                    cudaStream_t stream) {
   if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-#define BCG_PX(R) return launch<R, false>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream)
+#define BCG_PX(R) \
+  return launch<E, R, false>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream)
   switch (rows_per_warp(k)) {
     case 1: BCG_PX(1);
     case 2: BCG_PX(2);
@@ -242,6 +243,27 @@ extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
 #undef BCG_PX
 }
 
+}  // namespace
+
+// Pn, Xn, X (k, n); M1, rho, C k x kin (row stride kin); W, P (kin, n). kc:
+// stacked input rows a stage copies (ops/fused.py update_plan). Xn may equal
+// X; Pn may equal P when k == kin.
+extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
+                             const float* P, const float* C, const float* X, float* Pn,
+                             float* Xn, int k, int kin, long long n, int kc, int device,
+                             cudaStream_t stream) {
+  return px_update_entry(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream);
+}
+
+// The same on bf16 fields W, P, X, Pn and Xn; M1, rho and C stay f32 and are
+// rounded to bf16 where they are staged.
+extern "C" int bcg_px_update_bf16(const float* M1, const bf16* W, const float* Rho,
+                                  const bf16* P, const float* C, const bf16* X, bf16* Pn,
+                                  bf16* Xn, int k, int kin, long long n, int kc, int device,
+                                  cudaStream_t stream) {
+  return px_update_entry(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream);
+}
+
 // Q, Pn (k, n); M2, rho k x kin (row stride kin); Q1, P (kin, n). kc: stacked
 // input rows a stage copies (ops/fused.py qr_p_update_plan). Q may equal Q1
 // and Pn may equal P when k == kin.
@@ -251,8 +273,9 @@ extern "C" int bcg_qr_p_update(const float* M2, const float* Q1, const float* Rh
   if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-#define BCG_QR(R) \
-  return launch<R, true>(M2, Q1, Rho, P, nullptr, nullptr, Pn, Q, k, kin, n, kc, device, stream)
+#define BCG_QR(R)                                                                            \
+  return launch<float, R, true>(M2, Q1, Rho, P, nullptr, nullptr, Pn, Q, k, kin, n, kc, device, \
+                                stream)
   switch (rows_per_warp(k)) {
     case 1: BCG_QR(1);
     case 2: BCG_QR(2);

@@ -54,6 +54,16 @@
 // per row chunk; the window's budget shrinks h or T as k grows). Y is always
 // a separate buffer: other blocks still read the X columns this block's Y
 // covers.
+//
+// bf16 (bcg_stencil_spmm_bf16: bf16 X, diagonals and Y): the window and the
+// coefficient tiles are staged as bf16, 16-byte copies of 8 elements, so h
+// is a multiple of 8 (the window's first column then is too) and n % 8 == 0
+// for the vector copies; the window's row stride is T + 2h. Every product
+// of two bf16 is exact in f32 and accumulates in f32 in the same order as
+// the f32 kernel's; Y is stored rounded to bf16, and the Gram is taken on
+// the unrounded f32 sums in sY, against the window's bf16 X read four at a
+// time (load4), as the reference's Pallas kernel takes it from its f32
+// accumulator.
 #include "common.cuh"
 
 namespace {
@@ -70,23 +80,25 @@ struct Diags {
 // Window of the tile at i0: sw[r * W + v] = X[r, (i0 - h + v) mod n] for
 // v < T + 2h; the tile's coefficients: sd[d * T + c] = diags[d, i0 + c]
 // (0 past n).
-__device__ __forceinline__ void load_tile(float* sw, float* sd, const float* X,
-                                          const float* diags, int ndiag, int k, long long n,
-                                          long long i0, int h, int T, int W, bool vec) {
+template <typename E>
+__device__ __forceinline__ void load_tile(E* sw, E* sd, const E* X, const E* diags, int ndiag,
+                                          int k, long long n, long long i0, int h, int T, int W,
+                                          bool vec) {
+  constexpr int kv = kVec<E>;
   const int span = T + 2 * h;
   long long base = (i0 - h) % n;  // the window's first column, in [0, n)
   if (base < 0) base += n;
-  if (vec) {  // n, h, T and i0 are multiples of 4: a quad never straddles n
-    const int q = span / 4;
+  if (vec) {  // n, h, T and i0 are multiples of kv: a 16-byte copy never straddles n
+    const int q = span / kv;
     for (int e = threadIdx.x; e < k * q; e += kStThreads) {
-      const int r = e / q, v = 4 * (e - r * q);
+      const int r = e / q, v = kv * (e - r * q);
       long long j = base + v;
       while (j >= n) j -= n;  // more than once only where the window is wider than n
       cp_async16(sw + r * W + v, X + r * n + j, true);
     }
-    const int tq = T / 4;
+    const int tq = T / kv;
     for (int e = threadIdx.x; e < ndiag * tq; e += kStThreads) {
-      const int d = e / tq, c = 4 * (e - d * tq);
+      const int d = e / tq, c = kv * (e - d * tq);
       const bool in = i0 + c < n;
       cp_async16(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
     }
@@ -95,30 +107,34 @@ __device__ __forceinline__ void load_tile(float* sw, float* sd, const float* X,
       const int r = e / span, v = e - r * span;
       long long j = base + v;
       while (j >= n) j -= n;
-      cp_async4(sw + r * W + v, X + r * n + j, true);
+      cp_elem(sw + r * W + v, X + r * n + j, true);
     }
     for (int e = threadIdx.x; e < ndiag * T; e += kStThreads) {
       const int d = e / T, c = e - d * T;
       const bool in = i0 + c < n;
-      cp_async4(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
+      cp_elem(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
     }
   }
 }
 
-// Row stride of the window: its T + 2h columns, plus 4 where VecGram puts
-// two or more rows of X in one quarter warp (KMAX <= 32), which makes the
-// stride 4 mod 8 words.
-__host__ __device__ inline int window_ld(int k, int h, int T) {
-  return T + 2 * h + (k <= 32 ? 4 : 0);
+// Row stride of the window, in elements of esize bytes: its T + 2h columns,
+// plus 4 for floats where VecGram puts two or more rows of X in one quarter
+// warp (KMAX <= 32), which makes the stride 4 mod 8 words. A bf16 window
+// keeps T + 2h, a multiple of 8: every row's 16-byte copies stay aligned.
+__host__ __device__ inline int window_ld(int k, int h, int T, int esize) {
+  return T + 2 * h + (esize == 4 && k <= 32 ? 4 : 0);
 }
 
-// Shared floats of one launch; mirrored by ops/stencil.py smem_bytes.
-__host__ __device__ inline long long smem_floats(int k, int ndiag, int h, int T, bool gram) {
-  const long long W = window_ld(k, h, T), LY = T + 4;
-  long long f = 2 * (k * W + static_cast<long long>(ndiag) * T) + (gram ? k * LY : 0);
-  const long long scratch = 256LL * (k > 16 ? 64 : 16);  // VecGram::kScratch (common.cuh)
-  if (gram && f < scratch) f = scratch;
-  return f;
+// Shared bytes of one launch: two windows and two coefficient tiles of
+// esize-byte elements, and with the Gram the float Y tile, at least the
+// Gram's scratch; mirrored by ops/stencil.py smem_bytes.
+__host__ __device__ inline long long smem_bytes(int k, int ndiag, int h, int T, bool gram,
+                                                int esize) {
+  const long long W = window_ld(k, h, T, esize), LY = T + 4;
+  long long b = 2LL * esize * (k * W + static_cast<long long>(ndiag) * T) + (gram ? 4 * k * LY : 0);
+  const long long scratch = 4 * 256LL * (k > 16 ? 64 : 16);  // VecGram::kScratch (common.cuh)
+  if (gram && b < scratch) b = scratch;
+  return b;
 }
 
 // Blocks an SM the kernel is built for: two for the SpMM up to KMAX = 32
@@ -128,16 +144,17 @@ __host__ __device__ inline long long smem_floats(int k, int ndiag, int h, int T,
 template <int KMAX, bool WITH_GRAM>
 constexpr int kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1;
 
-template <int KMAX, bool WITH_GRAM>
+// E: the element of X, the diagonals and Y (float or bf16).
+template <typename E, int KMAX, bool WITH_GRAM>
 __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
-    stencil_spmm(const float* __restrict__ diags, Diags dg, int ndiag,
-                 const float* __restrict__ X, float* __restrict__ Y,
-                 float* __restrict__ part, int k, long long n, int h, int T, bool vec) {
+    stencil_spmm(const E* __restrict__ diags, Diags dg, int ndiag, const E* __restrict__ X,
+                 E* __restrict__ Y, float* __restrict__ part, int k, long long n, int h, int T,
+                 bool vec) {
   extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles | sY
-  const int W = window_ld(k, h, T), LY = T + 4;
-  float* sw0 = smem;
-  float* sd0 = smem + 2 * k * W;
-  float* sy = sd0 + 2 * ndiag * T;
+  const int W = window_ld(k, h, T, sizeof(E)), LY = T + 4;
+  E* sw0 = reinterpret_cast<E*>(smem);
+  E* sd0 = sw0 + 2 * k * W;
+  float* sy = reinterpret_cast<float*>(sd0 + 2 * ndiag * T);
   VecGram<KMAX, kStThreads> g;
   const long long ntiles = (n + T - 1) / T;
   long long t = blockIdx.x;
@@ -152,8 +169,8 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* sw = sw0 + buf * k * W;
-    const float* sd = sd0 + buf * ndiag * T;
+    const E* sw = sw0 + buf * k * W;
+    const E* sd = sd0 + buf * ndiag * T;
     const long long i0 = t * T;
     for (int c = threadIdx.x; c < T; c += kStThreads) {
       const long long i = i0 + c;
@@ -163,28 +180,28 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
       for (int r = 0; r < KMAX; ++r) acc[r] = 0.f;
       if (valid) {
         for (int d = 0; d < ndiag; ++d) {
-          const float coef = sd[d * T + c];
+          const float coef = to_f32(sd[d * T + c]);
           const int s = dg.s[d];
           // All KMAX loads first, unconditionally (rows past k repeat row
           // k - 1 and are never stored), so they are in flight together.
           float x[KMAX];
           if (s != kFar) {
-            const float* w = sw + h + s + c;
+            const E* w = sw + h + s + c;
 #pragma unroll
-            for (int r = 0; r < KMAX; ++r) x[r] = w[min(r, k - 1) * W];
+            for (int r = 0; r < KMAX; ++r) x[r] = to_f32(w[min(r, k - 1) * W]);
           } else {
             long long j = i + dg.o[d];
             if (j >= n) j -= n;
-            const float* xj = X + j;
+            const E* xj = X + j;
 #pragma unroll
-            for (int r = 0; r < KMAX; ++r) x[r] = xj[min(r, k - 1) * n];
+            for (int r = 0; r < KMAX; ++r) x[r] = to_f32(xj[min(r, k - 1) * n]);
           }
 #pragma unroll
           for (int r = 0; r < KMAX; ++r) acc[r] = fmaf(coef, x[r], acc[r]);
         }
 #pragma unroll
         for (int r = 0; r < KMAX; ++r)
-          if (r < k) Y[r * n + i] = acc[r];
+          if (r < k) Y[r * n + i] = from_f32<E>(acc[r]);
       }
       if constexpr (WITH_GRAM) {
 #pragma unroll
@@ -206,36 +223,29 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
   }
 }
 
-template <int KMAX, bool WITH_GRAM>
-cudaError_t launch(const float* diags, const Diags& dg, int ndiag, const float* X, float* Y,
-                   float* part, float* G, int k, long long n, int h, int T, int max_blocks,
-                   int device, cudaStream_t stream) {
-  auto kernel = stencil_spmm<KMAX, WITH_GRAM>;
-  const size_t smem = smem_floats(k, ndiag, h, T, WITH_GRAM) * sizeof(float);
+template <typename E, int KMAX, bool WITH_GRAM>
+cudaError_t launch(const E* diags, const Diags& dg, int ndiag, const E* X, E* Y, float* part,
+                   float* G, int k, long long n, int h, int T, int max_blocks, int device,
+                   cudaStream_t stream) {
+  auto kernel = stencil_spmm<E, KMAX, WITH_GRAM>;
+  const size_t smem = smem_bytes(k, ndiag, h, T, WITH_GRAM, sizeof(E));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
   err = persistent_grid(kernel, kStThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % 4 == 0 && aligned16(X);
+  const bool vec = n % kVec<E> == 0 && aligned16(X) && aligned16(diags);
   kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k, n, h, T, vec);
   if (WITH_GRAM) launch_reduce(part, G, k, grid, stream);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// offsets: host array of ndiag offsets, each already reduced to [0, n); a
-// diagonal is near when o <= h or n - o <= h. h (a multiple of 4) and T (a
-// multiple of 128) come from ops/stencil.py stencil_plan. G == nullptr
-// selects the plain SpMM; otherwise part holds (max_blocks, k, k) and the
-// launch uses at most max_blocks blocks.
-extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndiag,
-                                const float* X, float* Y, float* part, float* G, int k,
-                                long long n, int h, int T, int max_blocks, int device,
-                                cudaStream_t stream) {
-  if (ndiag < 1 || ndiag > kMaxDiags || max_blocks < 1 || n < 1 || h < 0 || h % 4 != 0 ||
-      T < 128 || T % 128 != 0)
+template <typename E>
+int stencil_entry(const E* diags, const int* offsets, int ndiag, const E* X, E* Y, float* part,
+                  float* G, int k, long long n, int h, int T, int max_blocks, int device,
+                  cudaStream_t stream) {
+  if (ndiag < 1 || ndiag > kMaxDiags || max_blocks < 1 || n < 1 || h < 0 ||
+      h % kVec<E> != 0 || T < 128 || T % 128 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -247,11 +257,11 @@ extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndia
     dg.s[d] = o <= h ? o : (n - o <= h ? static_cast<int>(o - n) : kFar);
   }
   const bool gram = G != nullptr;
-#define BCG_STENCIL(KM)                                                                  \
-  return gram ? launch<KM, true>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
-                                 device, stream)                                          \
-              : launch<KM, false>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
-                                  device, stream)
+#define BCG_STENCIL(KM)                                                                     \
+  return gram ? launch<E, KM, true>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
+                                    device, stream)                                          \
+              : launch<E, KM, false>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
+                                     device, stream)
   switch (kmax_for(k)) {
     case 8: BCG_STENCIL(8);
     case 16: BCG_STENCIL(16);
@@ -260,4 +270,28 @@ extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndia
     default: return cudaErrorInvalidValue;
   }
 #undef BCG_STENCIL
+}
+
+}  // namespace
+
+// offsets: host array of ndiag offsets, each already reduced to [0, n); a
+// diagonal is near when o <= h or n - o <= h. h (a multiple of 4; of 8 on
+// bf16) and T (a multiple of 128) come from ops/stencil.py stencil_plan.
+// G == nullptr selects the plain SpMM; otherwise part holds (max_blocks, k,
+// k) and the launch uses at most max_blocks blocks.
+extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndiag,
+                                const float* X, float* Y, float* part, float* G, int k,
+                                long long n, int h, int T, int max_blocks, int device,
+                                cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                       stream);
+}
+
+// The same on bf16 diagonals, X and Y; G is f32, of the unrounded sums.
+extern "C" int bcg_stencil_spmm_bf16(const bf16* diags, const int* offsets, int ndiag,
+                                     const bf16* X, bf16* Y, float* part, float* G, int k,
+                                     long long n, int h, int T, int max_blocks, int device,
+                                     cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                       stream);
 }

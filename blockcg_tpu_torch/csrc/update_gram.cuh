@@ -56,6 +56,14 @@
 // coeff_update these replaced, so Y keeps its bits (mm_update's row chunks
 // above 128 rows too).
 //
+// bf16 fields (E = bf16): the staged inputs are bf16, 16-byte copies of 8
+// elements, lifted to f32 four at a time as they are read (load4); the
+// staged coefficients are rounded to bf16 (rounded<E>), every FMA is f32, Y
+// and A are read and written four bf16 at a time, and the Gram is taken on
+// the stored, rounded Y: the sY tile holds rounded<E>(y). That is the
+// reference's bf16 contract (the coefficient rounded for the multiply, f32
+// accumulation, G on the stored output).
+//
 // Width: one launch writes k <= 128 rows of Y and contracts over kin >= k
 // input rows of each field (a row chunk of a wider field, ops/fused.py).
 // The fused Gram is taken on a launch that covers a field of up to 64 rows
@@ -79,30 +87,30 @@ namespace {
 template <int GK>
 constexpr int kUgBlocksPerSm = GK > 0 && GK <= 32 ? 2 : 1;
 
-// NF: stacked input fields (1 or 2). HAS_A: the additive field (NF == 1).
-// GK: the Gram's register width (>= k: dispatch); 0: no Gram. MINB: blocks an
-// SM for __launch_bounds__ (tools/torch_kernel_times.py --variants builds
-// other values).
-template <int NF, bool HAS_A, int R, int GK, int MINB = kUgBlocksPerSm<GK>>
+// E: the field element (float or bf16). NF: stacked input fields (1 or 2).
+// HAS_A: the additive field (NF == 1). GK: the Gram's register width (>= k:
+// dispatch); 0: no Gram. MINB: blocks an SM for __launch_bounds__
+// (tools/torch_kernel_times.py --variants builds other values).
+template <typename E, int NF, bool HAS_A, int R, int GK, int MINB = kUgBlocksPerSm<GK>>
 __global__ void __launch_bounds__(kUpThreads, MINB)
-    update_gram_kernel(const float* __restrict__ M1, const float* B1,
-                       const float* __restrict__ M2, const float* B2, const float* A,
-                       float* Y, float* __restrict__ part, int k, int kin, long long n,
+    update_gram_kernel(const float* __restrict__ M1, const E* B1,
+                       const float* __restrict__ M2, const E* B2, const E* A,
+                       E* Y, float* __restrict__ part, int k, int kin, long long n,
                        int kc, bool vec) {
   static_assert(NF == 1 || (NF == 2 && !HAS_A), "A goes with one input field");
   extern __shared__ __align__(16) float smem[];  // sM (NF kin x 8R) | kUpStages (kc, 128) stages | sY
   constexpr int kRows = 8 * R;
   const int nin = NF * kin;
   float* sM = smem;
-  float* sB = smem + nin * kRows;
-  float* sY = sB + kUpStages * kc * kUpTile;
+  E* sB = reinterpret_cast<E*>(smem + nin * kRows);
+  float* sY = reinterpret_cast<float*>(sB + kUpStages * kc * kUpTile);
   for (int e = threadIdx.x; e < nin * kRows; e += kUpThreads) {
     const int c = e / kRows, r = e % kRows;
-    sM[e] = r >= k ? 0.f : c < kin ? M1[r * kin + c] : M2[r * kin + c - kin];
+    sM[e] = r >= k ? 0.f : rounded<E>(c < kin ? M1[r * kin + c] : M2[r * kin + c - kin]);
   }
   using Gram = SymGram<GK ? GK : 8, kUpThreads, GK >= 64 ? 8 : 4>;
   static_assert(Gram::kScratch <= kUpThreads * (GK > 32 ? 64 : 16),
-                "the Gram's scratch must fit update_smem_floats' floor");
+                "the Gram's scratch must fit update_smem_bytes' floor");
   Gram g;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * R;
@@ -130,20 +138,21 @@ __global__ void __launch_bounds__(kUpThreads, MINB)
           if (r0 + a >= k) {
             av[a] = make_float4(0.f, 0.f, 0.f, 0.f);
           } else if (vec && i + 3 < n) {
-            av[a] = *reinterpret_cast<const float4*>(A + at);
+            av[a] = load4(A + at);
           } else {  // 0 past n, where Y is not stored
-            av[a] = make_float4(i < n ? A[at] : 0.f, i + 1 < n ? A[at + 1] : 0.f,
-                                i + 2 < n ? A[at + 2] : 0.f, i + 3 < n ? A[at + 3] : 0.f);
+            av[a] = make_float4(i < n ? to_f32(A[at]) : 0.f, i + 1 < n ? to_f32(A[at + 1]) : 0.f,
+                                i + 2 < n ? to_f32(A[at + 2]) : 0.f,
+                                i + 3 < n ? to_f32(A[at + 3]) : 0.f);
           }
         }
       }
     }
     if (r0 < k) {
       const int c0 = j * kc, c1 = min(c0 + kc, nin);
-      const float* sb = sB + buf * kc * kUpTile + 4 * lane;
+      const E* sb = sB + buf * kc * kUpTile + 4 * lane;
 #pragma unroll 2
       for (int c = c0; c < c1; ++c) {
-        const float4 b = *reinterpret_cast<const float4*>(sb + (c - c0) * kUpTile);
+        const float4 b = load4(sb + (c - c0) * kUpTile);
         float m[R];
         load_rows<R>(m, sM + c * kRows + r0);
 #pragma unroll
@@ -168,15 +177,16 @@ __global__ void __launch_bounds__(kUpThreads, MINB)
           y.x += av[a].x; y.y += av[a].y; y.z += av[a].z; y.w += av[a].w;
         }
         if (vec && i + 3 < n) {
-          *reinterpret_cast<float4*>(Y + at) = y;
+          store4(Y + at, y);
         } else {
-          if (i < n) Y[at] = y.x;
-          if (i + 1 < n) Y[at + 1] = y.y;
-          if (i + 2 < n) Y[at + 2] = y.z;
-          if (i + 3 < n) Y[at + 3] = y.w;
+          if (i < n) Y[at] = from_f32<E>(y.x);
+          if (i + 1 < n) Y[at + 1] = from_f32<E>(y.y);
+          if (i + 2 < n) Y[at + 2] = from_f32<E>(y.z);
+          if (i + 3 < n) Y[at + 3] = from_f32<E>(y.w);
         }
         if constexpr (GK > 0)  // 0 past n: the stage was zero-filled there, and A taken as 0
-          *reinterpret_cast<float4*>(sY + r * kUpLd + 4 * lane) = y;
+          *reinterpret_cast<float4*>(sY + r * kUpLd + 4 * lane) =
+              make_float4(rounded<E>(y.x), rounded<E>(y.y), rounded<E>(y.z), rounded<E>(y.w));
       }
     }
     __syncthreads();  // every read of this stage's buffer is done (and sY is written)
@@ -196,19 +206,19 @@ __global__ void __launch_bounds__(kUpThreads, MINB)
   }
 }
 
-template <int NF, bool HAS_A, int R, int GK, int MINB = kUgBlocksPerSm<GK>>
-cudaError_t launch(const float* M1, const float* B1, const float* M2, const float* B2,
-                   const float* A, float* Y, float* part, float* G, int k, int kin, long long n,
-                   int kc, int max_blocks, int device, cudaStream_t stream) {
-  auto kernel = update_gram_kernel<NF, HAS_A, R, GK, MINB>;
-  const size_t smem = update_smem_floats(k, kin, kc, NF, GK > 0) * sizeof(float);
+template <typename E, int NF, bool HAS_A, int R, int GK, int MINB = kUgBlocksPerSm<GK>>
+cudaError_t launch(const float* M1, const E* B1, const float* M2, const E* B2, const E* A,
+                   E* Y, float* part, float* G, int k, int kin, long long n, int kc,
+                   int max_blocks, int device, cudaStream_t stream) {
+  auto kernel = update_gram_kernel<E, NF, HAS_A, R, GK, MINB>;
+  const size_t smem = update_smem_bytes(k, kin, kc, NF, GK > 0, sizeof(E));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
   err = persistent_grid(kernel, kUpThreads, smem, device, (n + kUpTile - 1) / kUpTile,
                         max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % 4 == 0 && aligned16(B1) && aligned16(Y) &&
+  const bool vec = n % kVec<E> == 0 && aligned16(B1) && aligned16(Y) &&
                    (NF == 1 || aligned16(B2)) && (!HAS_A || aligned16(A));
   kernel<<<grid, kUpThreads, smem, stream>>>(M1, B1, M2, B2, A, Y, part, k, kin, n, kc, vec);
   if (GK > 0) launch_reduce(part, G, k, grid, stream);
@@ -218,17 +228,17 @@ cudaError_t launch(const float* M1, const float* B1, const float* M2, const floa
 // The launch of a k-row update at its built register widths: R =
 // rows_per_warp(k); the Gram (G != nullptr) up to 64 rows, 96 with one
 // input field.
-template <int NF, bool HAS_A>
-cudaError_t dispatch(const float* M1, const float* B1, const float* M2, const float* B2,
-                     const float* A, float* Y, float* part, float* G, int k, int kin,
-                     long long n, int kc, int max_blocks, int device, cudaStream_t stream) {
+template <typename E, int NF, bool HAS_A>
+cudaError_t dispatch(const float* M1, const E* B1, const float* M2, const E* B2, const E* A,
+                     E* Y, float* part, float* G, int k, int kin, long long n, int kc,
+                     int max_blocks, int device, cudaStream_t stream) {
   if (n < 1 || k < 1 || kin < k || kc < 1 || kc > NF * kin || max_blocks < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
 #define BCG_UG(R, GK)                                                                         \
-  return launch<NF, HAS_A, R, GK>(M1, B1, M2, B2, A, Y, part, G, k, kin, n, kc, max_blocks, \
-                                  device, stream)
+  return launch<E, NF, HAS_A, R, GK>(M1, B1, M2, B2, A, Y, part, G, k, kin, n, kc, max_blocks, \
+                                     device, stream)
   // With one input field the Gram's register width follows k from 33 rows
   // (48, 96): at (48, 32^4) 315 us against 426 at 64; at (96, 32^4) 983 us
   // against 1510 at 128 (136 of 256 threads in the Gram), so no 128-row

@@ -4,6 +4,13 @@ Counterpart of ``blockcg_tpu/operators/dia.py``. ``diags[d, i]`` multiplies
 ``X[(i + offsets[d]) mod n]`` into ``Y[i]`` (diagonals aligned to the row
 index). Dirichlet builders zero every wrap-crossing coefficient, so the
 toroidal apply equals the truncated one.
+
+A bf16 operator (``laplacian_dia(..., dtype=torch.bfloat16)``, the capacity
+route of config 5) applies to bf16 fields through the stencil's bf16
+variant on the card; its exact f32 widening, ``operators.astype(op,
+torch.float32)``, is the lean refinement's outer operator (a bf16 value is
+exact in f32). A bf16 operator on an f32 field, or the reverse, raises on the
+card.
 """
 
 from __future__ import annotations

@@ -16,10 +16,20 @@ Dispatch rule, shared by every wrapper in ``ops/``:
 - CUDA float32 tensors launch the kernel;
 - CUDA float64 tensors run the plain version, as the reference's own dtype
   gate sends f64 to XLA instead of Pallas;
+- CUDA bfloat16 fields launch the kernel's bf16 variant on the wrappers that
+  have one (``field_kernel``): ``gram``, ``mm_update``, ``mm_update_gram``,
+  ``mm2_update_gram`` and ``px_update`` with float32 k x k coefficients,
+  ``stencil_spmm_t`` and ``stencil_spmm_gram_t`` with bfloat16 diagonals. A
+  bf16 field beside coefficients of another dtype, a mixed stencil pair
+  (bf16 diagonals with an f32 field, or the reverse) and a bf16 operand on
+  any other wrapper (``xr_update_gram``, ``qr_p_update``, ``qr_px_update``,
+  ``cheb_step``, the lattice, block, slab and tile kernels) raise
+  ``TypeError``;
 - any other device, dtype or a non-contiguous operand raises.
 
 ``launches`` counts kernel launches per wrapper; the wrappers add to it where
-they launch and nowhere else.
+they launch and nowhere else. A bf16 variant counts under its own name, the
+wrapper's with ``[bf16]`` after it (``px_update[bf16]``).
 """
 
 from __future__ import annotations
@@ -76,6 +86,42 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("CUDA kernel operands must be contiguous")
     return True
+
+
+def field_kernel(fields, coeffs=(), bf16_coeffs: torch.dtype = torch.float32):
+    """The field dtype whose kernel the operands go to (``torch.float32`` or
+    ``torch.bfloat16``), or None for the plain version: the rule of
+    ``use_kernel``, and besides it bf16 ``fields`` (None entries skipped)
+    with every one of ``coeffs`` of dtype ``bf16_coeffs`` launch the bf16
+    variant. Any other mix with a bf16 operand raises ``TypeError``."""
+    fields = [f for f in fields if f is not None]
+    ops = (*fields, *coeffs)
+    if not any(t.dtype == torch.bfloat16 for t in ops):
+        return torch.float32 if use_kernel(*ops) else None
+    dev = ops[0].device
+    if any(t.device != dev for t in ops):
+        raise ValueError(f"operands on several devices: {[str(t.device) for t in ops]}")
+    if dev.type == "cpu":
+        return None
+    if not (all(f.dtype == torch.bfloat16 for f in fields)
+            and all(c.dtype == bf16_coeffs for c in coeffs)):
+        raise TypeError(f"CUDA bf16 kernels take bfloat16 fields with {bf16_coeffs} "
+                        f"coefficients; got fields {sorted({str(f.dtype) for f in fields})}"
+                        f", coefficients {sorted({str(c.dtype) for c in coeffs})}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("CUDA kernel operands must be contiguous")
+    return torch.bfloat16
+
+
+def variant(name: str, fn_name: str, dtype: torch.dtype) -> tuple[str, str]:
+    """(launch-count name, library function) of a wrapper's kernel for the
+    field dtype: the bf16 variant counts as ``name[bf16]`` and is
+    ``fn_name_bf16`` in the library."""
+    if dtype == torch.bfloat16:
+        return f"{name}[bf16]", f"{fn_name}_bf16"
+    return name, fn_name
 
 
 def check_field(F: torch.Tensor, k: int, n: int, what: str) -> None:
@@ -207,6 +253,10 @@ def library() -> ctypes.CDLL:
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, I, P, P, I, I, L, I, I, I, I, P]
+    for fn in ("stencil_spmm", "mm_update", "gram", "mm_update_gram", "mm2_update_gram",
+               "px_update"):  # the bf16 variants take the f32 kernels' arguments
+        getattr(lib, f"bcg_{fn}_bf16").argtypes = getattr(lib, f"bcg_{fn}").argtypes
+        getattr(lib, f"bcg_{fn}_bf16").restype = I
     for fn in (lib.bcg_stencil_spmm, lib.bcg_mm_update, lib.bcg_gram,
                lib.bcg_mm_update_gram, lib.bcg_mm2_update_gram,
                lib.bcg_px_update,

@@ -31,6 +31,16 @@ launches the kernel. Grams are taken on the stored output. Fields must be
 contiguous; the k x k coefficients are made so (they are often transposed
 views).
 
+bf16 fields: ``gram``, ``mm_update``, ``mm_update_gram``,
+``mm2_update_gram`` and ``px_update`` take bfloat16 fields with float32
+k x k coefficients (CUDA: the kernels' bf16 variants, counted as
+``name[bf16]``). Their contract is the reference kernels' on bf16
+(``blockcg_tpu/ops/fused.py`` ``_mxu_pair``, ``_dot_gram``): the
+coefficient is rounded to bf16 for the multiply (``solvers.common.
+field_coeff``), products are exact and summed in f32, outputs are stored
+in bf16, and a fused Gram is taken on the stored bf16 output, its f32 sum of
+exact products. The other updates refuse bf16 on the card.
+
 ``donate`` writes an output into the storage of the named input, which the
 caller must treat as dead afterwards; both routes honour it, so a caller that
 still reads a donated input fails on the CPU as it would on the card. Column
@@ -164,7 +174,8 @@ def _chunks(k: int, nmat: int, with_gram: bool, name: str, device):
 MM_UPDATE_MAX_K = 128  # csrc/mm_update.cu: output rows of one launch
 
 
-def mm_update_plan(k: int, donate: str | None, device) -> tuple[list[tuple[int, int]], bool]:
+def mm_update_plan(k: int, donate: str | None, device,
+                   esize: int = 4) -> tuple[list[tuple[int, int]], bool]:
     """(row chunks, written in place) of ``mm_update`` on k rows. Up to 128
     rows: one launch of ``csrc/mm_update.cu``, which reads B once, so a
     donated B or A takes Y in place. Wider: the row chunks of
@@ -174,7 +185,7 @@ def mm_update_plan(k: int, donate: str | None, device) -> tuple[list[tuple[int, 
     chunk reads only its own rows of A)."""
     if k <= MM_UPDATE_MAX_K:
         return [(0, k)], True
-    chunks = mm_update_gram_plan(k, device).chunks
+    chunks = mm_update_gram_plan(k, device, esize).chunks
     return chunks, len(chunks) == 1 or donate != "b"
 
 
@@ -193,16 +204,16 @@ def rows_per_warp(k: int) -> int:
     return next(w for w in _UPDATE_WIDTHS if -(-k // 8) <= w)
 
 
-def update_smem_bytes(k: int, kin: int, kc: int, nmat: int, gram: bool) -> int:
+def update_smem_bytes(k: int, kin: int, kc: int, nmat: int, gram: bool,
+                      esize: int = 4) -> int:
     """Shared bytes of one streaming launch (``csrc/common.cuh``
-    update_smem_floats): ``nmat`` coefficient tables of kin columns by 8R
-    rows, two (kc, 128) input stages (kc of the stacked input rows) and,
-    with the Gram, the (k, 136) Y tile, at least the Gram's end-of-kernel
-    scratch."""
-    f = nmat * kin * 8 * rows_per_warp(k) + UPDATE_STAGES * kc * UPDATE_TILE
-    if gram:
-        f = max(f + k * UPDATE_LD, 256 * (64 if k > 32 else 16))
-    return 4 * f
+    update_smem_bytes): ``nmat`` float coefficient tables of kin columns by
+    8R rows, two (kc, 128) input stages (kc of the stacked input rows) of
+    ``esize``-byte field elements and, with the Gram, the float (k, 136) Y
+    tile, at least the Gram's end-of-kernel scratch."""
+    b = 4 * (nmat * kin * 8 * rows_per_warp(k) + (k * UPDATE_LD if gram else 0))
+    b += esize * UPDATE_STAGES * kc * UPDATE_TILE
+    return max(b, 4 * 256 * (64 if k > 32 else 16)) if gram else b
 
 
 class UpdatePlan(NamedTuple):
@@ -238,7 +249,7 @@ def _blocks_per_sm(kout: int, fused: bool, px: bool) -> int:
 
 @functools.lru_cache(maxsize=64)
 def _update_plan(name: str, k: int, nfield: int, nmat: int, gram_rows: int,
-                 cap: int, px: bool) -> UpdatePlan:
+                 cap: int, px: bool, esize: int = 4) -> UpdatePlan:
     """Plan of an update that stacks ``nfield`` input fields of k rows and
     stages ``nmat`` coefficient tables, with its Gram fused on a launch of up
     to ``gram_rows`` rows (0: no Gram). Up to 128 rows one launch, if its
@@ -252,7 +263,8 @@ def _update_plan(name: str, k: int, nfield: int, nmat: int, gram_rows: int,
     launch); wider, ``gram`` takes it on 64-row blocks (narrow chunks'
     diagonal blocks would need as many more cross-block launches). ``px``:
     the kernel is ``csrc/px_update.cu`` (rows 9 and 12), whose blocks an SM
-    follow its own rule (``_blocks_per_sm``)."""
+    follow its own rule (``_blocks_per_sm``). ``esize``: the bytes of a
+    field element (4, or 2 on bf16 fields), which size the stages."""
     nin = nfield * k
     widths = ([k] if k <= UPDATE_MAX_K else []) + [w for w in (64, 32, 16, 8) if w < k]
     for w, min_kc in [(w, UPDATE_MIN_KC) for w in widths] + [(8, 1)]:
@@ -264,34 +276,35 @@ def _update_plan(name: str, k: int, nfield: int, nmat: int, gram_rows: int,
         fixed = update_smem_bytes(kout, k, 0, nmat, False) + fused * 4 * kout * UPDATE_LD
         for blocks in range(_blocks_per_sm(kout, fused, px), 0, -1):
             room = (cap + 1024) // blocks - 1024
-            deepest = (room - fixed) // (UPDATE_STAGES * UPDATE_TILE * 4)
+            deepest = (room - fixed) // (UPDATE_STAGES * UPDATE_TILE * esize)
             if deepest < min(nin, min_kc):
                 continue
             stages = -(-nin // min(deepest, nin))
             kc = -(-nin // stages)
             return UpdatePlan(chunks, UPDATE_TILE, kc, len(chunks) == 1, fused,
-                              update_smem_bytes(kout, k, kc, nmat, fused), blocks)
+                              update_smem_bytes(kout, k, kc, nmat, fused, esize), blocks)
     raise ValueError(f"{name}: {k} right-hand sides leave no room for the "
                      f"coefficients in {cap} bytes of shared memory")
 
 
-def mm_update_gram_plan(k: int, device) -> UpdatePlan:
+def mm_update_gram_plan(k: int, device, esize: int = 4) -> UpdatePlan:
     """The launches of ``mm_update_gram`` on k rows (``csrc/mm_update_gram.cu``):
     up to 128 rows one launch, which reads B once, with the fused Gram up to
     96 rows; wider, row chunks of Y; above 96 rows the Gram comes from
-    ``wide_gram``. A donated B takes Y in place on one launch."""
+    ``wide_gram``. A donated B takes Y in place on one launch. ``esize``:
+    bytes of a field element (2 on bf16 fields)."""
     return _update_plan("mm_update_gram", k, 1, 1, UPDATE_GRAM_MAX_K_ONE,
-                        _native.max_smem(device.index), False)
+                        _native.max_smem(device.index), False, esize)
 
 
-def mm2_update_gram_plan(k: int, device) -> UpdatePlan:
+def mm2_update_gram_plan(k: int, device, esize: int = 4) -> UpdatePlan:
     """The launches of ``mm2_update_gram`` on k rows (``csrc/mm2_update_gram.cu``):
     up to 64 rows one launch with the fused Gram; up to 96 rows (128 where
     they fit) one launch of Y; wider, row chunks of Y; above 64 rows the
     Gram comes from ``wide_gram``. A donated B1 takes Y in place on one
     launch."""
     return _update_plan("mm2_update_gram", k, 2, 2, UPDATE_GRAM_MAX_K,
-                        _native.max_smem(device.index), False)
+                        _native.max_smem(device.index), False, esize)
 
 
 def qr_p_update_plan(k: int, device) -> UpdatePlan:
@@ -302,13 +315,13 @@ def qr_p_update_plan(k: int, device) -> UpdatePlan:
     return _update_plan("qr_p_update", k, 2, 2, 0, _native.max_smem(device.index), True)
 
 
-def px_update_plan(k: int, device) -> UpdatePlan:
+def px_update_plan(k: int, device, esize: int = 4) -> UpdatePlan:
     """The launches of ``px_update`` on k rows (``csrc/px_update.cu``): up to
     128 rows one launch where its three coefficient tables leave room (m = 96
     in two stages a tile), wider in row chunks. A donated X always takes Xn in
     place (a chunk reads only its own rows of X); a donated P takes Pn in
     place on one launch."""
-    return _update_plan("px_update", k, 2, 3, 0, _native.max_smem(device.index), True)
+    return _update_plan("px_update", k, 2, 3, 0, _native.max_smem(device.index), True, esize)
 
 
 GRAM_THREADS = 256  # csrc/gram.cu kGrThreads
@@ -319,12 +332,14 @@ GRAM_STAGES = 2  # csrc/gram.cu kGrStages: tiles in shared memory
 GRAM_SCRATCH = 16384  # csrc/gram.cu kGrScratch: floats of a launch's shared floor
 
 
-def gram_smem_bytes(rows: int, T: int, same: bool) -> int:
+def gram_smem_bytes(rows: int, T: int, same: bool, esize: int = 4) -> int:
     """Shared bytes of one ``gram`` launch (``csrc/gram.cu``
-    gram_smem_floats): two tiles of ``rows`` stacked rows of T columns at a
-    row stride of T + 8 (``SymGram``, U is V) or T + 4 (``VecGram``), at least
-    the Gram's end-of-kernel scratch."""
-    return 4 * max(GRAM_STAGES * rows * (T + (8 if same else 4)), GRAM_SCRATCH)
+    gram_smem_bytes): two tiles of ``rows`` stacked rows of T columns of
+    ``esize``-byte elements at a row stride of T + 8 (``SymGram``, U is V, and
+    every bf16 tile) or T + 4 (``VecGram`` on floats), at least the Gram's
+    end-of-kernel scratch."""
+    ld = T + (8 if same or esize != 4 else 4)
+    return max(esize * GRAM_STAGES * rows * ld, 4 * GRAM_SCRATCH)
 
 
 class GramPlan(NamedTuple):
@@ -337,7 +352,8 @@ class GramPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def gram_plan(ku: int, kv: int, same: bool, n: int, smem_cap: int, sm_count: int) -> GramPlan:
+def gram_plan(ku: int, kv: int, same: bool, n: int, smem_cap: int, sm_count: int,
+              esize: int = 4) -> GramPlan:
     """The widest column tile whose two stages of the ``ku + kv`` stacked
     rows (``ku`` when U is V) fit ``smem_cap`` and that leaves every SM a
     tile (waived at 128 columns). Wider tiles ran faster wherever they fit:
@@ -350,7 +366,7 @@ def gram_plan(ku: int, kv: int, same: bool, n: int, smem_cap: int, sm_count: int
     for T in GRAM_TILES:
         if T > 128 and T > n // sm_count:
             continue
-        nbytes = gram_smem_bytes(rows, T, same)
+        nbytes = gram_smem_bytes(rows, T, same, esize)
         if nbytes <= smem_cap:
             return GramPlan(T, nbytes, min(-(-n // T), sm_count, _native.MAX_BLOCKS))
     raise ValueError(f"gram: {rows} stacked rows leave no tile in {smem_cap} bytes of "
@@ -364,11 +380,13 @@ def _launch_gram(U, V):
     kv = V.shape[0]
     same = U.data_ptr() == V.data_ptr() and ku == kv
     idx = U.device.index
-    plan = gram_plan(ku, kv, same, n, _native.max_smem(idx), _native.sm_count(idx))
+    plan = gram_plan(ku, kv, same, n, _native.max_smem(idx), _native.sm_count(idx),
+                     U.element_size())
     part = torch.empty((plan.blocks, ku, kv), dtype=torch.float32, device=U.device)
     G = torch.empty((ku, kv), dtype=torch.float32, device=U.device)
-    _native.launch("gram", "bcg_gram", U.device, _native.ptr(U), _native.ptr(V),
-                   _native.ptr(part), _native.ptr(G), ku, kv, n, plan.T, plan.blocks)
+    _native.launch(*_native.variant("gram", "bcg_gram", U.dtype), U.device, _native.ptr(U),
+                   _native.ptr(V), _native.ptr(part), _native.ptr(G), ku, kv, n, plan.T,
+                   plan.blocks)
     return G
 
 
@@ -443,7 +461,7 @@ def wide_gram(U, V, diag=None, chunks=None):
 
 def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """G = U V^T over the field dims: (k, n) x (k, n) -> (k, k)."""
-    if not _native.use_kernel(U, V):
+    if _native.field_kernel((U, V)) is None:
         return gram_plain(U, V)
     U, V = _flat("gram", U, V)
     if U.shape[0] <= GRAM_MAX_K:
@@ -459,13 +477,14 @@ def _wide_update(M, B, A, out):
     tools/torch_kernel_times.py --variants)."""
     k, n = B.shape
     _native.check_kk(M, k, "mm_update M")
-    plan = mm_update_gram_plan(k, B.device)
+    plan = mm_update_gram_plan(k, B.device, B.element_size())
     # Every chunk reads all of B: a donated B must wait for the last one.
     direct = out is None or len(plan.chunks) == 1 or out is A
     Y = out if out is not None and direct else torch.empty_like(B)
     p = _native.ptr
+    name = _native.variant("mm_update", "bcg_mm_update_gram", B.dtype)
     for r0, r1 in plan.chunks:
-        _native.launch("mm_update", "bcg_mm_update_gram", B.device, p(M[r0:r1]), p(B),
+        _native.launch(*name, B.device, p(M[r0:r1]), p(B),
                        p(None if A is None else A[r0:r1]), p(Y[r0:r1]), None, None, r1 - r0,
                        k, n, plan.kc, _native.nblocks(n))
     return Y if direct else out.copy_(Y)
@@ -481,17 +500,19 @@ def mm_update(M: torch.Tensor, B: torch.Tensor,
     if donate not in (None, "a", "b") or (donate == "a" and A is None):
         raise ValueError(f"mm_update: donate must be None, 'b' or 'a' (with A), got {donate!r}")
     dst = {None: None, "a": A, "b": B}[donate]
-    if not _native.use_kernel(*ops):
+    dt = _native.field_kernel((B, A), (M,))
+    if dt is None:
         return _into(dst, mm_update_plain(M, B, A))
     Bf, Af = _flat("mm_update", B, A)
     df = {None: None, "a": Af, "b": Bf}[donate]
     k, n = Bf.shape
-    if len(mm_update_plan(k, donate, Bf.device)[0]) > 1:
+    if len(mm_update_plan(k, donate, Bf.device, Bf.element_size())[0]) > 1:
         return _wide_update(M, Bf, Af, df).view(B.shape)
     _native.check_kk(M, k, "mm_update M")
     Y = torch.empty_like(Bf) if df is None else df
     p = _native.ptr
-    _native.launch("mm_update", "bcg_mm_update", Bf.device, p(M), p(Bf), p(Af), p(Y), k, n)
+    _native.launch(*_native.variant("mm_update", "bcg_mm_update", dt), Bf.device, p(M), p(Bf),
+                   p(Af), p(Y), k, n)
     return Y.view(B.shape)
 
 
@@ -499,20 +520,21 @@ def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
                    A: torch.Tensor | None = None, *, donate: bool = False):
     """(Y = M B (+ A), G = Y Y^T); ``donate`` writes Y onto B."""
     M = M.contiguous()
-    ops = (M, B) if A is None else (M, B, A)
     dst = B if donate else None
-    if not _native.use_kernel(*ops):
+    dt = _native.field_kernel((B, A), (M,))
+    if dt is None:
         Y, G = mm_update_gram_plain(M, B, A)
         return _into(dst, Y), G
     Bf, Af = _flat("mm_update_gram", B, A)
     k, n = Bf.shape
     _native.check_kk(M, k, "mm_update_gram M")
-    plan = mm_update_gram_plan(k, Bf.device)
+    plan = mm_update_gram_plan(k, Bf.device, Bf.element_size())
     Y = Bf if donate and plan.in_place else torch.empty_like(Bf)
     p = _native.ptr
     part, G = _gram_buffers(k, n, Bf.device) if plan.fused_gram else (None, None)
+    name = _native.variant("mm_update_gram", "bcg_mm_update_gram", dt)
     for r0, r1 in plan.chunks:
-        _native.launch("mm_update_gram", "bcg_mm_update_gram", Bf.device, p(M[r0:r1]), p(Bf),
+        _native.launch(*name, Bf.device, p(M[r0:r1]), p(Bf),
                        p(None if Af is None else Af[r0:r1]), p(Y[r0:r1]), p(part), p(G),
                        r1 - r0, k, n, plan.kc, _native.nblocks(n))
     if not plan.fused_gram:
@@ -527,19 +549,21 @@ def mm2_update_gram(M1: torch.Tensor, B1: torch.Tensor, M2: torch.Tensor,
     """(Y = M1 B1 + M2 B2, G = Y Y^T); ``donate`` writes Y onto B1."""
     M1, M2 = M1.contiguous(), M2.contiguous()
     dst = B1 if donate else None
-    if not _native.use_kernel(M1, B1, M2, B2):
+    dt = _native.field_kernel((B1, B2), (M1, M2))
+    if dt is None:
         Y, G = mm2_update_gram_plain(M1, B1, M2, B2)
         return _into(dst, Y), G
     B1f, B2f = _flat("mm2_update_gram", B1, B2)
     k, n = B1f.shape
     for M, what in ((M1, "M1"), (M2, "M2")):
         _native.check_kk(M, k, f"mm2_update_gram {what}")
-    plan = mm2_update_gram_plan(k, B1f.device)
+    plan = mm2_update_gram_plan(k, B1f.device, B1f.element_size())
     Y = B1f if donate and plan.in_place else torch.empty_like(B1f)
     p = _native.ptr
     part, G = _gram_buffers(k, n, B1f.device) if plan.fused_gram else (None, None)
+    name = _native.variant("mm2_update_gram", "bcg_mm2_update_gram", dt)
     for r0, r1 in plan.chunks:
-        _native.launch("mm2_update_gram", "bcg_mm2_update_gram", B1f.device, p(M1[r0:r1]),
+        _native.launch(*name, B1f.device, p(M1[r0:r1]),
                        p(B1f), p(M2[r0:r1]), p(B2f), p(Y[r0:r1]), p(part), p(G), r1 - r0, k,
                        n, plan.kc, _native.nblocks(n))
     if not plan.fused_gram:
@@ -555,7 +579,8 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
     """(Pn = M1 W + rho P, Xn = X + C P); ``donate`` writes Pn onto P and Xn
     onto X."""
     M1, rho, C = M1.contiguous(), rho.contiguous(), C.contiguous()
-    if not _native.use_kernel(M1, W, rho, P, C, X):
+    dt = _native.field_kernel((W, P, X), (M1, rho, C))
+    if dt is None:
         Pn, Xn = px_update_plain(M1, W, rho, P, C, X)
         if donate:
             return P.copy_(Pn), X.copy_(Xn)
@@ -565,13 +590,14 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
     k, n = W.shape
     for M, what in ((M1, "M1"), (rho, "rho"), (C, "C")):
         _native.check_kk(M, k, f"px_update {what}")
-    plan = px_update_plan(k, W.device)
+    plan = px_update_plan(k, W.device, W.element_size())
     # A chunk reads all of P but only its own rows of X.
     Pn = P if donate and plan.in_place else torch.empty_like(P)
     Xn = X if donate else torch.empty_like(X)
     p = _native.ptr
+    name = _native.variant("px_update", "bcg_px_update", dt)
     for r0, r1 in plan.chunks:
-        _native.launch("px_update", "bcg_px_update", W.device, p(M1[r0:r1]), p(W),
+        _native.launch(*name, W.device, p(M1[r0:r1]), p(W),
                        p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Pn[r0:r1]),
                        p(Xn[r0:r1]), r1 - r0, k, n, plan.kc)
     return (P.copy_(Pn) if donate and Pn is not P else Pn).view(shape), Xn.view(shape)

@@ -8,7 +8,14 @@ Xt[:, (i + offsets[d]) mod n]``; Dirichlet builders zero every wrap-crossing
 coefficient, which makes this the truncated apply.
 
 Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
-plain roll-and-accumulate below, CUDA float32 tensors launch the kernel.
+plain roll-and-accumulate below, CUDA float32 tensors launch the kernel, and
+CUDA bf16 X with bf16 diagonals its bf16 variant (counted as
+``stencil_spmm_t[bf16]`` and ``stencil_spmm_gram_t[bf16]``): products of two
+bf16 are exact in f32 and accumulate in f32, Y is stored in bf16, and the
+fused Gram is taken on the unrounded f32 sums, as the reference's Pallas
+kernel takes it (``blockcg_tpu/ops/stencil.py`` ``_kernel``). A bf16 Gram
+needs those sums, so it takes one launch: at most 64 rows. A mixed pair
+(bf16 diagonals and an f32 field, or the reverse) raises ``TypeError``.
 The kernel writes Y to a fresh buffer, never onto X. The rows of a field are
 independent right-hand sides, so a field wider than one launch (64 rows) runs
 as one launch per chunk of rows; the fused Gram's cross blocks then come from
@@ -50,19 +57,20 @@ class StencilPlan(NamedTuple):
     blocks_per_sm: int
 
 
-def smem_bytes(k: int, ndiag: int, h: int, T: int, with_gram: bool) -> int:
-    """Shared bytes of a launch (``csrc/stencil.cu`` smem_floats): two
-    windows of k rows and T + 2h columns (+4 at k <= 32), two (ndiag, T)
-    coefficient tiles and, with the Gram, the (k, T + 4) Y tile, at least the
-    Gram's end-of-kernel scratch (64 KB above 16 rows, 16 KB up to 16)."""
-    W = T + 2 * h + (4 if k <= 32 else 0)
-    f = 2 * (k * W + ndiag * T) + (k * (T + 4) if with_gram else 0)
-    return 4 * (max(f, 256 * (64 if k > 16 else 16)) if with_gram else f)
+def smem_bytes(k: int, ndiag: int, h: int, T: int, with_gram: bool, esize: int = 4) -> int:
+    """Shared bytes of a launch (``csrc/stencil.cu`` smem_bytes): two
+    windows of k rows and T + 2h columns (+4 at k <= 32 on floats), two
+    (ndiag, T) coefficient tiles, all of ``esize``-byte elements, and, with
+    the Gram, the float (k, T + 4) Y tile, at least the Gram's end-of-kernel
+    scratch (64 KB above 16 rows, 16 KB up to 16)."""
+    W = T + 2 * h + (4 if esize == 4 and k <= 32 else 0)
+    b = 2 * esize * (k * W + ndiag * T) + (4 * k * (T + 4) if with_gram else 0)
+    return max(b, 4 * 256 * (64 if k > 16 else 16)) if with_gram else b
 
 
 @functools.lru_cache(maxsize=256)
 def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
-                 smem_cap: int, sm_count: int) -> StencilPlan:
+                 smem_cap: int, sm_count: int, esize: int = 4) -> StencilPlan:
     """The (h, T) for a launch of k rows on n columns that minimises the
     L2->SM traffic per busy thread, ``traffic / (blocks_per_sm * T / 256)``,
     among those whose shared memory fits ``smem_cap``; ties go to the wider
@@ -72,16 +80,19 @@ def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
     the SM reserves for each block), at most the two the SpMM is built for
     up to 32 rows, one above and with the Gram (csrc/stencil.cu
     kStBlocksPerSm). T is 128 where n / sm_count < 256, so a small field
-    still spreads over the card."""
+    still spreads over the card. ``esize``: bytes of an element of X and of
+    the diagonals (2 on bf16, whose halos are multiples of 8: a 16-byte copy
+    carries 8 elements)."""
     offs = [int(o) % n for o in offsets]
     dist = [min(o, n - o) for o in offs]
+    quantum = 16 // esize
     built = 2 if k <= 32 and not with_gram else 1
     best, best_key = None, None
     for T in TILES:
         if T > max(TILES[0], n // sm_count):
             continue
-        for h in sorted({0} | {-(-d // 4) * 4 for d in dist}):
-            nbytes = smem_bytes(k, len(offs), h, T, with_gram)
+        for h in sorted({0} | {-(-d // quantum) * quantum for d in dist}):
+            nbytes = smem_bytes(k, len(offs), h, T, with_gram, esize)
             if nbytes > smem_cap:
                 break
             blocks = min(built, (smem_cap + 1024) // (nbytes + 1024))
@@ -100,7 +111,8 @@ def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
                        Xt: torch.Tensor, with_gram: bool = False):
     """Plain PyTorch version: the roll-and-accumulate of the reference's XLA
     path (``DIAOperator._matmat_t_xla``). Returns ``(Yt, G or None)`` with
-    ``G = X Y^T`` taken on the accumulator, as the Pallas kernel does."""
+    ``G = X Y^T`` taken on the accumulator, as the Pallas kernel does: on
+    bf16 fields the f32 sums, before Y is rounded to bf16."""
     adt = acc_dtype(Xt.dtype)
     acc = torch.zeros(Xt.shape, dtype=adt, device=Xt.device)
     for d, o in enumerate(offsets):
@@ -122,17 +134,22 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str):
     offs = (ctypes.c_int * ndiag)(*(int(o) % n for o in offsets))
     Y = torch.empty_like(Xt)
     chunks = _native.row_chunks(k)
+    if with_gram and Xt.dtype == torch.bfloat16 and len(chunks) > 1:
+        raise ValueError(f"{name}: a bf16 field's Gram comes from the f32 sums of one "
+                         f"launch, at most {_native.MAX_K} rows; got {k}")
     cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
+    label, fn = _native.variant(name, "bcg_stencil_spmm", Xt.dtype)
     diag = []
     for r0, r1 in chunks:
         kc = r1 - r0
-        plan = stencil_plan(tuple(int(o) for o in offsets), n, kc, with_gram, cap, sms)
+        plan = stencil_plan(tuple(int(o) for o in offsets), n, kc, with_gram, cap, sms,
+                            Xt.element_size())
         max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None
         if with_gram:
             part = torch.empty((max_blocks, kc, kc), dtype=torch.float32, device=Xt.device)
             G = torch.empty((kc, kc), dtype=torch.float32, device=Xt.device)
-        _native.launch(name, "bcg_stencil_spmm", Xt.device, _native.ptr(diags),
+        _native.launch(label, fn, Xt.device, _native.ptr(diags),
                        offs, ndiag, _native.ptr(Xt[r0:r1]), _native.ptr(Y[r0:r1]),
                        _native.ptr(part), _native.ptr(G), kc, n, plan.h, plan.T, max_blocks)
         diag.append(G)
@@ -145,7 +162,7 @@ def stencil_spmm_t(diags: torch.Tensor, offsets: tuple[int, ...],
                    Xt: torch.Tensor) -> torch.Tensor:
     """``Yt[:, i] = sum_d diags[d, i] * Xt[:, (i + offsets[d]) mod n]``;
     diags (ndiag, n), Xt (k, n)."""
-    if not _native.use_kernel(diags, Xt):
+    if _native.field_kernel((Xt,), (diags,), torch.bfloat16) is None:
         return stencil_spmm_plain(diags, offsets, Xt)[0]
     return _launch(diags, offsets, Xt, False, "stencil_spmm_t")[0]
 
@@ -153,6 +170,6 @@ def stencil_spmm_t(diags: torch.Tensor, offsets: tuple[int, ...],
 def stencil_spmm_gram_t(diags: torch.Tensor, offsets: tuple[int, ...],
                         Xt: torch.Tensor):
     """``(Yt, G = X Y^T)``: the SpMM with the solvers' ``P^T A P`` Gram."""
-    if not _native.use_kernel(diags, Xt):
+    if _native.field_kernel((Xt,), (diags,), torch.bfloat16) is None:
         return stencil_spmm_plain(diags, offsets, Xt, with_gram=True)
     return _launch(diags, offsets, Xt, True, "stencil_spmm_gram_t")

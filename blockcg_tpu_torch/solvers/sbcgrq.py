@@ -24,6 +24,11 @@ iteration counts match the reference's; the adaptive second QR pass
 host too. Fields that are dead after an update are overwritten in place
 (``donate``).
 
+bf16 fields (the capacity route, ``solve_refined_lean``): X, P, W, Z and V
+stay bf16 and go through the kernels' bf16 variants; the k x k algebra, the
+Grams and the monitors run in ``acc_dtype`` (f32), as in the reference
+(``blockcg_tpu/solvers/sbcgrq.py:100``).
+
 Residual replacement: every ``replace_every`` iterations, or when the QR
 Gram's kappa_1 exceeds ``replace_kappa``, the true residual is recomputed with
 one extra SpMM. ``replace_mode="restart"`` resets P to the fresh Q;

@@ -6,7 +6,7 @@ nvcc:
 
     python3 chip_profile.py
 
-Twelve single-device solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
+Thirteen single-device solves: config 3 (64^3 Laplacian, k = 32, tol 1e-6, qr_passes=1), the
 first inner solve of the north star (128^3 Laplacian, k = 32, the
 right-hand sides scaled to unit columns as ``solve_refined`` hands them to
 its inner solver, tol 3e-6) at qr_passes 1 and 2, config 4 (the 32^4
@@ -23,7 +23,11 @@ general-sparsity SBCGrQ of ``chip_smoke.py``'s [sparse] phase
 RHS from ``default_rng(0)``, tol 1e-6, qr_passes=1), and the two solves of
 ``chip_smoke.py``'s [wide] phase on fields of m = 96 rows: config 4's
 SBCGrQ with 24 RHS (tol 1e-6, qr_passes=1) and ``solve_dirac_eo_shifted``
-on ``dirac_eo(32)`` with config 4's 12 RHS and four shifts; then the
+on ``dirac_eo(32)`` with config 4's 12 RHS and four shifts; one inner solve
+of config 5's lean route at full size (the 256^3 Laplacian in bf16, the
+first 32-column slice of the first cycle's right-hand sides: B from
+``lean_rhs(0, 64, ...)`` scaled to unit columns, bf16 SBCGrQ to tol 5e-3,
+qr_passes=1, as ``solve_refined_lean`` runs it); then the
 distributed layer on one rank (NCCL, a group of one): config 3, the
 north-star inner solve, config 4 and the even-odd solve through
 ``parallel``, and CG on config 3's column 0 beside the single-device CG,
@@ -247,6 +251,7 @@ def main() -> None:
     )
     from blockcg_tpu_torch.operators import from_scipy_auto
     from blockcg_tpu_torch.problems.presets import _rhs
+    from blockcg_tpu_torch.solvers.refine import lean_rhs
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -271,6 +276,10 @@ def main() -> None:
     ops = from_scipy_auto(rgg_laplacian(524288, degree=40, seed=0), torch.float32, device=dev)
     Bs = ops.to_solver_order(torch.as_tensor(
         np.random.default_rng(0).standard_normal((524288, K)), dtype=torch.float32, device=dev))
+    op5 = laplacian_dia((256, 256, 256), dtype=torch.bfloat16, device=dev)
+    B5 = lean_rhs(0, 64, op5.n, torch.bfloat16, dev)[:K].float()
+    R5 = (B5 / torch.linalg.vector_norm(B5, dim=1, keepdim=True)).bfloat16().T
+    del B5
     solves = [
         ("config3 qr_passes=1", lambda: solve_sbcgrq(op3, B3, tol=1e-6, qr_passes=1)),
         ("north-star inner 128^3 qr_passes=1",
@@ -292,6 +301,8 @@ def main() -> None:
          lambda: solve_sbcgrq(op4, B24, tol=1e-6, qr_passes=1)),
         (f"[wide] even-odd dirac_eo(32) k=12 solve_dirac_eo_shifted shifts {SHIFTS}",
          lambda: solve_dirac_eo_shifted(eo, B4, SHIFTS, tol=1e-6)),
+        ("config5 lean inner 256^3 bf16 k=32 tol 5e-3 qr_passes=1",
+         lambda: solve_sbcgrq(op5, R5, tol=5e-3, max_iter=2000, qr_passes=1)),
     ]
     group = nccl_group(torch)
     dop3, dop, dop4 = (par.partition_dia(op3, 1).shard(0, group, dev),

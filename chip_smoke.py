@@ -49,16 +49,26 @@ config 4's and the even-odd hop's crossings; ``[dist]``: the row-partitioned
 north star to 1e-10, config 4, the even-odd solve on 12 RHS and on one,
 the matrix-link operator and config 3's BCG, CG, shifted, Jacobi and
 Chebyshev solves, each beside its single-device run with the time ratio).
+Before the distributed layer, config 5 at full size (the 256^3 Laplacian,
+64 RHS): ``[config5] kernels`` holds each bf16 variant (rows 1-2, 5-9)
+against its plain version at (32, 256^3) on the bf16 operator, beside the
+f32 kernel at that shape; ``[config5] lean`` drives ``solve_refined_lean``
+on the bf16 preset (inner slices of 32, tol 1e-6) to a true f64 relres <=
+1e-6 within 16 GiB of allocated memory; ``[config5] qr2``, row 7's own path,
+runs its first inner solve again at ``qr_passes=2`` (the second QR pass,
+which the adaptive default did not take on the lean path) beside the same
+solve at ``qr_passes=1``; and ``[config5] f32`` drives ``solve_refined`` on
+the f32 preset to the same tol.
 Each phase prints one or a few lines; any failure raises, and the process exits
 non-zero. The last two lines are the kernels' JSON record, whose launch
 counts are those of each kernel's own path (the north-star solves, config 4,
 configs 1 and 2, the multi-shift solves, the matrix-link solves, the
 Chebyshev solves, the even-odd CG, the sparse solves or the ``[dist]``
-solves; the (k, bs, ns) Gram and ``qr_px_update`` have no solver caller and
-count 0), with each
-kernel's bound
-(the larger of its contract's bytes over 3.35 TB/s and its FLOPs over 67
-TFLOP/s, the H100 SXM's data-sheet peaks) and, where one PyTorch call
+solves, the ``[config5] lean`` solve for the bf16 variants; the (k, bs, ns)
+Gram and ``qr_px_update`` have no solver caller and count 0, nor does
+``mm_update_gram[bf16]`` on the lean path), with each kernel's bound (the
+larger of its contract's bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s,
+989 TFLOP/s for products of bf16 fields: the H100 SXM's data-sheet peaks) and, where one PyTorch call
 computes the same function, that call's time; and the run's JSON result. It
 imports neither JAX nor the reference package, and fails without a card.
 """
@@ -123,8 +133,14 @@ KERNELS = {
     "slab_block_accumulate_from": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                                    "blockcg_tpu/ops/const_block_stencil.py:955"),
 }
+# The bf16 variants (config 5's capacity route): wrapper[bf16] -> (source,
+# the TPU kernel whose bf16 branch it replaces).
+BF16_KERNELS = {f"{w}[bf16]": KERNELS[w] for w in (
+    "stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update", "mm_update_gram",
+    "mm2_update_gram", "px_update")}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 products with f32 sums, tensor cores, dense
 # The kernels of config 4's const-hop operator and of the per-site block
 # operator; the others are the north star's.
 CBS_KERNELS = ("const_block_stencil_spmm_m_t", "const_block_stencil_spmm_m_gram_t",
@@ -216,6 +232,36 @@ DIST_KERNELS = ("slab_m_accumulate_from", "slab_block_accumulate_from")
 DIST_ML_ITERS = 10  # dirac_gauged_matrix(32), 12 RHS: the single-device count
 DIST_EO_ITERS = 7  # dirac_eo(32) with config 4's B
 DIST_CHEB_DEGREE = 6
+# Config 5 (BASELINE.json configs[4]) at full size: the 256^3 Laplacian, 64
+# RHS; the lean route's inner slices, the seed of its B, the tolerance of
+# both routes and the lean route's budget of allocated memory.
+CONFIG5_SHAPE = (256, 256, 256)
+CONFIG5_K = 64
+CONFIG5_KB = 32
+CONFIG5_SEED = 0
+CONFIG5_TOL = 1e-6
+CONFIG5_INNER_TOL = 5e-3  # solve_refined_lean's inner_tol
+# [config5] qr2: the second QR pass changes rounding alone, so the solve at
+# qr_passes=2 takes the iterations of the one at qr_passes=1 within 5% (at
+# least 3) and reaches its true relres within a factor 1.5.
+QR2_ITERS = 0.05
+QR2_RELRES = 1.5
+# A Gram's contract told apart from the other candidate (the Gram of the
+# stored bf16 Y against that of the unrounded f32 sums): at config 5's shape
+# the kernel must be nearer its own; on a 64^3 cut, where the f32 sums are
+# shorter, nearer by GRAM_MARGIN.
+CONFIG5_CUT = (64, 64, 64)
+GRAM_MARGIN = 4.0
+CONFIG5_PEAK_GIB = 16.0
+# A stored bf16 element within one bf16 ulp of the plain version's, an element
+# below 2^-8 of the field's largest held to the ulp at that floor (a sum that
+# cancels keeps the f32 rounding error of its terms).
+BF16_ULPS = 1.0
+# Grams over config 5's 16.7M columns against the plain version's: two f32
+# sums of 16.7M products in different orders (cuBLAS's f32 Gram of the plain
+# version is the less accurate of the two). Each kernel's Gram of stored
+# bf16 fields is also held to GRAM_RTOL against its f64 sum.
+C5_GRAM_RTOL = 1e-4
 
 
 def median_ms(torch, fn) -> float:
@@ -293,11 +339,12 @@ def syrk_flops(k: int, n: int) -> int:
     return k * (k + 1) * n
 
 
-def bound_ms(nbytes_: int, flops: int) -> tuple[float, str]:
+def bound_ms(nbytes_: int, flops: int, rate: float = F32_FLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of the contract's bytes
     (each input read once, each output written once) over the HBM rate and
-    its FLOPs over the f32 rate, and which of the two it is."""
-    tb, tf = nbytes_ / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    its FLOPs over the peak rate of their type (``BF16_FLOPS`` for products
+    of bf16 fields), and which of the two it is."""
+    tb, tf = nbytes_ / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -334,25 +381,31 @@ def _timed_check(torch, name, what, kern, plain, is_gram, records, timed=None, *
     return ms
 
 
-def _library_check(torch, call, want, what):
+def _library_check(torch, call, want, what, measure=None):
     """(call, None) when one run of the library ``call`` agrees with the
     kernel's output ``want`` (rtol 1e-4), else (None, why); a call torch
-    refuses is recorded as none, with its error."""
+    refuses is recorded as none, with its error. With ``measure(got, want)``
+    the call is kept whatever that error, which is printed: a bf16 call that
+    sums less accurately than the kernel still computes its function."""
     try:
         got = call()
         if got.is_cuda:
             torch.cuda.synchronize()
-    except (RuntimeError, NotImplementedError) as e:
+    except (RuntimeError, NotImplementedError, TypeError) as e:
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    if measure is not None:
+        print(f"[library] {what}: error {measure(got, want):.3e}")
+        return call, None
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max())):
         return None, f"torch's {what} disagrees with the kernel"
     return call, None
 
 
-def _dia_csr_library(torch, diags, offsets, Xt, Y):
+def _dia_csr_library(torch, diags, offsets, Xt, Y, measure=None):
     """One PyTorch call computing the DIA SpMM: the torch CSR tensor of the
     same toroidal diagonals (explicit zeros dropped, columns sorted in each
-    row) times the dense X^T. ``Y`` is the kernel's output, to agree with."""
+    row) times the dense X^T. ``Y`` is the kernel's output, held to the call
+    by ``_library_check`` (with ``measure``, if given)."""
     ndiag, n = diags.shape
     rows = torch.arange(n, device=diags.device)
     cols = torch.stack([(rows + o) % n for o in offsets], dim=1)
@@ -364,7 +417,7 @@ def _dia_csr_library(torch, diags, offsets, Xt, Y):
     crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
     A = torch.sparse_csr_tensor(crow, cols[keep], vals[keep], size=(n, n))
     X = Xt.T.contiguous()
-    return _library_check(torch, lambda: A @ X, Y.T, "CSR product")
+    return _library_check(torch, lambda: A @ X, Y.T, "CSR product", measure)
 
 
 def _site_bsr_library(torch, blocks, offsets, X, Y):
@@ -1895,6 +1948,307 @@ def phase_wide_solves(torch, dev) -> dict:
     return dict(_native.launches)
 
 
+# ---- config 5 at full size: the bf16 capacity route and the f32 route.
+
+
+def bf16_ulps(torch, got, want, chunk: int = 1 << 25) -> float:
+    """Largest |got - want| of two fields of one shape, in bf16 ulps of the
+    larger of the two, at least of 2^-8 of the largest |want|, ``chunk``
+    elements at a time on the card."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    worst, floor = 0.0, float(want.abs().max()) * 2.0 ** -8
+    for i in range(0, want.numel(), chunk):
+        g, w = got[i:i + chunk].float(), want[i:i + chunk].float()
+        m = torch.clamp_min(torch.maximum(g.abs(), w.abs()), floor)
+        ulp = torch.exp2(torch.floor(torch.log2(torch.where(m > 0, m, torch.ones_like(m)))) - 7)
+        worst = max(worst, float(((g - w).abs() / ulp).max()))
+    return worst
+
+
+def gram_contract(torch, op, M1, M2, B1, B2, margin: float, label: str) -> None:
+    """Each fused Gram of the bf16 path against the f64 Gram of the operands
+    its contract names and of the other candidate: row 2's X Y^T of its
+    unrounded f32 sums (the f32 kernel on the same values), not of the
+    stored bf16 Y; rows 7 and 8's Y Y^T of the stored Y, not of the f32
+    sums; row 5's U V^T (no other candidate). e_c and e_o are relative
+    Frobenius distances; the check needs e_c <= GRAM_RTOL and margin * e_c
+    < e_o."""
+    from blockcg_tpu_torch.ops import fused, stencil
+    from blockcg_tpu_torch.solvers.common import field_coeff
+
+    F1, F2 = B1.float(), B2.float()
+    R1, R2 = (field_coeff(M, torch.bfloat16) for M in (M1, M2))  # the staged coefficients
+    cases = (  # name, kernel, its output Y -> (contract, other) operand pairs
+        ("stencil_spmm_gram_t[bf16]",
+         lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
+         lambda Y: ((B1, stencil.stencil_spmm_t(op.diags.float(), op.offsets, F1)), (B1, Y))),
+        ("gram[bf16]", lambda: (None, fused.gram(B1, B2)), lambda Y: ((B1, B2), None)),
+        ("mm_update_gram[bf16]", lambda: fused.mm_update_gram(M1, B1),
+         lambda Y: ((Y, Y), (fused.mm_update(R1, F1),) * 2)),
+        ("mm2_update_gram[bf16]", lambda: fused.mm2_update_gram(M1, B1, M2, B2),
+         lambda Y: ((Y, Y), (fused.mm2_update_gram(R1, F1, R2, F2)[0],) * 2)),
+    )
+    for name, kern, pairs in cases:
+        Y, G = kern()
+        e_c, e_o = (float("inf") if p is None else
+                    relfro(G.double(), p[0].double() @ p[1].double().T) for p in pairs(Y))
+        print(f"[config5] gram contract {name} {label}: {e_c:.3e} from its contract's f64 "
+              f"Gram, {e_o:.3e} from the other candidate's (margin {margin:g})")
+        _check(f"{name} ({label})", "Gram against its f64 sum", e_c, GRAM_RTOL)
+        if not margin * e_c < e_o:
+            raise AssertionError(f"{name} ({label}): the Gram is {e_c:.3e} from its contract "
+                                 f"and {e_o:.3e} from the other candidate (margin {margin:g})")
+        del Y, G
+
+
+def phase_config5_kernels(torch, dev, records) -> None:
+    """``[config5] kernels``: each bf16 variant against its plain version at
+    config 5's inner shape, (32, 256^3), on the 7-point operator in bf16; a
+    stored bf16 element within ``BF16_ULPS`` of the plain version's, a Gram
+    within ``C5_GRAM_RTOL`` of it and, through ``gram_contract``, nearer the
+    f64 Gram its contract names than the other candidate's, at this shape
+    and (by ``GRAM_MARGIN``) on the ``CONFIG5_CUT`` grid. Times (event
+    medians: every launch here takes milliseconds) of the variant, its plain
+    version, the f32 kernel on the same values in f32 and the library call,
+    and the bound of the bf16 contract."""
+    from blockcg_tpu_torch.ops import fused, stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    bf = torch.bfloat16
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # bf16 GEMM: f32 sums
+    op = laplacian_dia(CONFIG5_SHAPE, dtype=bf, device=dev)
+    n, k = op.n, CONFIG5_KB
+    gen = torch.Generator(device=dev).manual_seed(5)
+    M1, M2, M3 = (torch.randn((k, k), generator=gen, device=dev) / k ** 0.5 for _ in range(3))
+    B1, B2, B3 = (torch.randn((k, n), generator=gen, device=dev).to(bf) for _ in range(3))
+    F1, F2, F3 = (B.float() for B in (B1, B2, B3))  # the same values for the f32 kernels
+    d32 = op.diags.float()
+    fb, gb, sf = nbytes(B1), k * k * 4, syrk_flops(k, n)
+    what = f"n={n} k={k} bf16"
+
+    def ulps(got, want):
+        return bf16_ulps(torch, got, want)
+
+    G64 = B1.double() @ B2.double().T
+    Y = stencil.stencil_spmm_t(op.diags, op.offsets, B1)
+    csr, why = _dia_csr_library(torch, op.diags, op.offsets, B1, Y, ulps)
+    _library_note(f"stencil_spmm_t[bf16] {what} (torch CSR @ dense, bf16; error in bf16 ulps "
+                  f"of the kernel's Y)", why)
+    mmf, why = _library_check(torch, lambda: torch.mm(B1, B2.T, out_dtype=torch.float32),
+                              G64, "bf16 mm with out_dtype=float32 (relative Frobenius "
+                              "error against the f64 Gram)", lambda g, w: relfro(g.double(), w))
+    _library_note(f"gram[bf16] {what} (torch.mm, f32 out)", why)
+    Mb = M1.to(bf)  # the rounded coefficient: bf16 GEMM with f32 accumulation
+    mmb, why = _library_check(torch, lambda: Mb @ B1, fused.mm_update(M1, B1),
+                              "bf16 GEMM (bf16 ulps of the kernel's Y)", ulps)
+    _library_note(f"mm_update[bf16] {what} (bf16 M @ B)", why)
+    for name in ("stencil_spmm_gram_t[bf16]", "mm_update_gram[bf16]", "mm2_update_gram[bf16]",
+                 "px_update[bf16]"):
+        _library_note(f"{name} {what}", "no single PyTorch call computes the fused outputs")
+    del Y, G64
+    cases = [
+        ("stencil_spmm_t[bf16]",
+         lambda: (stencil.stencil_spmm_t(op.diags, op.offsets, B1),),
+         lambda: (stencil.stencil_spmm_plain(op.diags, op.offsets, B1)[0],),
+         lambda: stencil.stencil_spmm_t(d32, op.offsets, F1),
+         (nbytes(op.diags) + 2 * fb, 2 * k * nnz(op.diags)), csr),
+        ("stencil_spmm_gram_t[bf16]",
+         lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
+         lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, B1, True),
+         lambda: stencil.stencil_spmm_gram_t(d32, op.offsets, F1),
+         # X Y^T is not symmetric: 2 k^2 FLOPs a column
+         (nbytes(op.diags) + 2 * fb + gb, 2 * k * nnz(op.diags) + 2 * k * k * n), None),
+        ("gram[bf16]", lambda: (fused.gram(B1, B2),), lambda: (fused.gram_plain(B1, B2),),
+         lambda: fused.gram(F1, F2), (2 * fb + gb, 2 * k * k * n), mmf),
+        ("mm_update[bf16]", lambda: (fused.mm_update(M1, B1),),
+         lambda: (fused.mm_update_plain(M1, B1),), lambda: fused.mm_update(M1, F1),
+         (nbytes(M1) + 2 * fb, 2 * n * nnz(M1)), mmb),
+        ("mm_update_gram[bf16]", lambda: fused.mm_update_gram(M1, B1),
+         lambda: fused.mm_update_gram_plain(M1, B1), lambda: fused.mm_update_gram(M1, F1),
+         (nbytes(M1) + 2 * fb + gb, 2 * n * nnz(M1) + sf), None),
+        ("mm2_update_gram[bf16]", lambda: fused.mm2_update_gram(M1, B1, M2, B2),
+         lambda: fused.mm2_update_gram_plain(M1, B1, M2, B2),
+         lambda: fused.mm2_update_gram(M1, F1, M2, F2),
+         (nbytes(M1, M2) + 3 * fb + gb, 2 * n * nnz(M1, M2) + sf), None),
+        ("px_update[bf16]", lambda: fused.px_update(M1, B1, M2, B2, M3, B3),
+         lambda: fused.px_update_plain(M1, B1, M2, B2, M3, B3),
+         lambda: fused.px_update(M1, F1, M2, F2, M3, F3),
+         (nbytes(M1, M2, M3) + 5 * fb, 2 * n * nnz(M1, M2, M3)), None),
+    ]
+    for name, kern, plain, f32, work, library in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        errs, abs_err = [], 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if w.dtype == torch.float32:
+                err = relfro(g, w)
+                _check(f"{name} ({what})", "Gram", err, C5_GRAM_RTOL)
+            else:
+                err = bf16_ulps(torch, g, w)
+                _check(f"{name} ({what})", f"output {i} (bf16 ulps)", err, BF16_ULPS)
+            errs.append(err)
+            abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
+        del got, want
+        ms, plain_ms, f32_ms = (median_ms(torch, fn) for fn in (kern, plain, f32))
+        bound, by = bound_ms(*work, BF16_FLOPS)
+        lib_ms = None if library is None else median_ms(torch, library)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[config5] kernels {name} {what}: max err {max(errs):.2e} (ulps of a field, "
+              f"rel Frobenius of a Gram; max abs {abs_err:.2e}), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{work[0] / 1e6:.1f} MB, {work[1] / 1e9:.2f} GFLOP), library {lib}")
+        records[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    del cases, F1, F2, F3, d32, csr, mmf, mmb
+    gram_contract(torch, op, M1, M2, B1, B2, 1.0, what)
+    del op, B1, B2, B3
+    op = laplacian_dia(CONFIG5_CUT, dtype=bf, device=dev)
+    B1, B2 = (torch.randn((k, op.n), generator=gen, device=dev).to(bf) for _ in range(2))
+    gram_contract(torch, op, M1, M2, B1, B2, GRAM_MARGIN, f"n={op.n} k={k} bf16")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def relres_by_columns(torch, op, X, B, step: int = 8) -> float:
+    """max_j ||B e_j - A X e_j|| / ||B e_j|| in f64 on the card, ``step``
+    columns at a time (B and X (n, k), any float dtype)."""
+    from blockcg_tpu_torch.operators import astype
+
+    op64 = astype(op, torch.float64)
+    worst = 0.0
+    for j in range(0, X.shape[1], step):
+        B64 = B[:, j:j + step].double()
+        R = B64 - op64.matmat(X[:, j:j + step].double())
+        worst = max(worst, float((torch.linalg.vector_norm(R, dim=0)
+                                  / torch.linalg.vector_norm(B64, dim=0)).max()))
+    return worst
+
+
+def phase_config5_lean(torch, dev) -> tuple[dict, float, object]:
+    """``[config5] lean``: ``solve_refined_lean`` on the bf16 config-5 preset
+    at full size (B regenerated from ``CONFIG5_SEED``; the preset's own B is
+    dropped), inner slices of 32, tol 1e-6. The launch counts are set to 0
+    just before the solve and read just after; the peak is of allocated
+    memory over the solve, its operator included. The true relres is taken
+    in f64 against the regenerated B once the solve has returned. Returns
+    (launch counts, peak GiB, the operator)."""
+    from blockcg_tpu_torch import solve_refined_lean
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import config5_sbcgrq_3d_256
+    from blockcg_tpu_torch.solvers import refine
+
+    (op, B, meta), build_s = _timed(
+        torch, lambda: config5_sbcgrq_3d_256(dtype=torch.bfloat16, device=dev))
+    del B
+    torch.cuda.empty_cache()
+    inner, impl = [], refine._sbcgrq_impl
+
+    def counted(*args, **kw):  # the inner solves' iterations, for the record
+        X, info = impl(*args, **kw)
+        inner.append(info.iterations)
+        return X, info
+
+    refine._sbcgrq_impl = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        X, info = solve_refined_lean(op, CONFIG5_SEED, CONFIG5_K, tol=CONFIG5_TOL,
+                                     inner_block=CONFIG5_KB, verbose=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_native.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        refine._sbcgrq_impl = impl
+    B = refine.lean_rhs(CONFIG5_SEED, CONFIG5_K, op.n, torch.bfloat16, dev).T
+    rel = relres_by_columns(torch, op, X, B)
+    bf16 = {w: counts.get(w, 0) for w in BF16_KERNELS}
+    print(f"[config5] lean {meta['name']} n={op.n} k={CONFIG5_K} bf16 (built in {build_s:.1f} "
+          f"s) solve_refined_lean tol={CONFIG5_TOL:g} inner_block={CONFIG5_KB}: "
+          f"{info.iterations} cycles, {info.matvecs} matvecs, {sum(inner)} inner iterations "
+          f"{inner}, {secs:.3f} s, true f64 relres {rel:.3e}, peak allocated {peak:.2f} GiB, "
+          f"bf16 launches {bf16}")
+    if not (bool(info.converged.all()) and rel <= CONFIG5_TOL):
+        raise AssertionError(f"[config5] lean: true relres {rel:.3e}, not {CONFIG5_TOL:g}: {info}")
+    if not peak <= CONFIG5_PEAK_GIB:
+        raise AssertionError(f"[config5] lean: peak {peak:.2f} GiB > {CONFIG5_PEAK_GIB} GiB")
+    return counts, peak, op
+
+
+def phase_config5_qr2(torch, dev, op) -> int:
+    """``[config5] qr2``, row 7's own path: at ``qr_passes=1`` row 7 runs only
+    in the adaptive second QR pass (where kappa_1 of an equilibrated Gram
+    passes 0.5 / sqrt(eps_f32)), which the lean solve may never take. So the
+    lean route's first inner solve (the first 32 columns of cycle 0's
+    right-hand sides, unit columns) runs through ``solve_sbcgrq`` at
+    ``qr_passes=2``, which takes row 7 every iteration, beside the same solve
+    at ``qr_passes=1``. The second pass changes rounding alone: the two
+    solves must take the same iterations within ``QR2_ITERS`` (at least 3)
+    and reach the same true relres within a factor ``QR2_RELRES``; a wrong
+    row 7 breaks the basis and the solve with it. Returns row 7's launches
+    in the ``qr_passes=2`` solve, the counts set to 0 just before it."""
+    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.solvers import refine
+
+    Bs = refine.lean_rhs(CONFIG5_SEED, CONFIG5_K, op.n, torch.bfloat16, dev)[:CONFIG5_KB].float()
+    Bs = (Bs / torch.linalg.vector_norm(Bs, dim=1, keepdim=True)).to(torch.bfloat16).T
+    runs = {}
+    for passes in (1, 2):
+        _native.reset_launches()
+        (X, info), secs = _timed(torch, lambda: solve_sbcgrq(op, Bs, tol=CONFIG5_INNER_TOL,
+                                                             qr_passes=passes))
+        row7 = _native.launches["mm_update_gram[bf16]"]
+        rel = relres_by_columns(torch, op, X, Bs)
+        print(f"[config5] qr2: the lean route's first inner solve (solve_sbcgrq, bf16, k="
+              f"{CONFIG5_KB}, tol {CONFIG5_INNER_TOL:g}) at qr_passes={passes}: "
+              f"{info.iterations} iterations, {secs:.3f} s, monitor "
+              f"{float(info.relres.max()):.3e}, true f64 relres {rel:.3e}, "
+              f"mm_update_gram[bf16] launches {row7}")
+        if not bool(info.converged.all()):
+            raise AssertionError(f"[config5] qr2: qr_passes={passes} did not converge: {info}")
+        runs[passes] = (info.iterations, rel, row7)
+        del X
+    (it1, rel1, _), (it2, rel2, row7) = runs[1], runs[2]
+    if not abs(it2 - it1) <= max(3, QR2_ITERS * it1):
+        raise AssertionError(f"[config5] qr2: {it2} iterations at qr_passes=2, {it1} at 1")
+    if not 1 / QR2_RELRES <= rel2 / rel1 <= QR2_RELRES:
+        raise AssertionError(f"[config5] qr2: true relres {rel2:.3e} at qr_passes=2, "
+                             f"{rel1:.3e} at 1")
+    return row7
+
+
+def phase_config5_f32(torch, dev, lean_peak: float) -> None:
+    """``[config5] f32``: ``solve_refined`` (f64 outer, SBCGrQ inner at
+    qr_passes=2, its defaults) on the f32 config-5 preset to tol 1e-6, beside
+    the lean route's peak."""
+    from blockcg_tpu_torch import solve_refined, solve_sbcgrq
+    from blockcg_tpu_torch.problems import config5_sbcgrq_3d_256
+
+    (op, B, meta), build_s = _timed(torch, lambda: config5_sbcgrq_3d_256(device=dev))
+    inner = []
+
+    def solve_fn(o, r, t):  # solve_refined's default inner solve, counted
+        X, info = solve_sbcgrq(o, r, tol=t, max_iter=2000, qr_passes=2)
+        inner.append(info.iterations)
+        return X, info
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (X, info), secs = _timed(torch, lambda: solve_refined(op, B, tol=CONFIG5_TOL,
+                                                          solve_fn=solve_fn))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel = relres_by_columns(torch, op, X, B)
+    print(f"[config5] f32 {meta['name']} n={op.n} k={B.shape[1]} (built in {build_s:.1f} s) "
+          f"solve_refined tol={CONFIG5_TOL:g}: {info.iterations} cycles, {info.matvecs} "
+          f"matvecs, {sum(inner)} inner iterations {inner}, {secs:.3f} s, true f64 relres "
+          f"{rel:.3e}, peak allocated {peak:.2f} GiB (lean route {lean_peak:.2f} GiB)")
+    if not (bool(info.converged.all()) and rel <= CONFIG5_TOL):
+        raise AssertionError(f"[config5] f32: true relres {rel:.3e}, not {CONFIG5_TOL:g}: {info}")
+
+
 def _halo_case(torch, kern_fn, plain_fn, Y0):
     """(kern, plain, timed) for an in-place halo slab add: each compared
     call starts from a fresh copy of Y0, the timed ones add in place."""
@@ -2280,6 +2634,29 @@ def main() -> None:
     counts["qr_px_update"] = got.get("qr_px_update", 0)
     phase_scattered(torch, dev)
     phase_bell(torch, dev)
+    # Config 5 at full size: the bf16 variants' records and counts are those
+    # of the capacity route (the lean solve), beside the f32 route.
+    t5 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_config5_kernels(torch, dev, records)
+    torch.cuda.empty_cache()
+    got, lean_peak, op5 = phase_config5_lean(torch, dev)
+    print(f"[launches] config 5 lean: {got}")
+    # Row 7 keeps the lean path's count (0 where the adaptive pass never
+    # fired); its own path is the qr_passes=2 solve, printed beside it.
+    row7 = phase_config5_qr2(torch, dev, op5)
+    print(f"[launches] mm_update_gram[bf16]: {got.get('mm_update_gram[bf16]', 0)} on the "
+          f"[config5] lean path, {row7} on [config5] qr2")
+    missing = [w for w in BF16_KERNELS if w != "mm_update_gram[bf16]" and got.get(w, 0) == 0]
+    missing += [] if row7 else ["mm_update_gram[bf16] (qr2)"]
+    if missing:
+        raise AssertionError(f"[config5] never launched the kernels of {missing}")
+    counts.update({w: got.get(w, 0) for w in BF16_KERNELS})
+    del op5
+    torch.cuda.empty_cache()
+    phase_config5_f32(torch, dev, lean_peak)
+    torch.cuda.empty_cache()
+    print(f"[wall] config 5 {time.perf_counter() - t5:.1f} s")
     # The distributed layer on one rank: rows 20 and 21 keep its counts.
     t_dist = time.perf_counter()
     phase_dist_kernels(torch, dev, records)
@@ -2295,7 +2672,7 @@ def main() -> None:
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}
-               for name, (src, rep) in KERNELS.items()]
+               for name, (src, rep) in {**KERNELS, **BF16_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

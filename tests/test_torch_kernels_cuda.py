@@ -139,7 +139,9 @@ def test_dispatch_rule_on_card(dev):
     assert _native.launches["mm_update"] == 1
     fused.mm_update(M.double(), B.double())  # f64 runs the plain version
     assert _native.launches["mm_update"] == 1
-    with pytest.raises(TypeError):
+    fused.mm_update(M, B.bfloat16())  # bf16 fields, f32 M: the bf16 variant
+    assert _native.launches["mm_update[bf16]"] == 1 and _native.launches["mm_update"] == 1
+    with pytest.raises(TypeError):  # a bf16 coefficient is not the contract
         fused.mm_update(M.bfloat16(), B.bfloat16())
     with pytest.raises(ValueError):
         fused.gram(B[:, ::2], B[:, ::2])
@@ -1578,3 +1580,158 @@ def test_qr_p_update_on_px_schedule(dev, k, donate):
     torch.cuda.synchronize()
     assert torch.equal(Q, want_q) and torch.equal(Pn, want_p)
     assert _relmax(Q, Qp) < 1e-5 and _relmax(Pn, Pp) < 1e-5
+
+
+# ---- bf16 fields (rows 1-2, 5-9): each bf16 variant against its plain
+# version. Tolerances: a stored bf16 element within one bf16 ulp of the plain
+# version's (products are exact in f32; the two differ in f32 summation
+# order alone, which can flip a rounding), an element below 2^-8 of the
+# field's largest held to the ulp at that floor (where a sum cancels, its f32
+# rounding error is a fraction of the terms', not of the sum's: 2 ulps of a
+# small sum at k = 96 on an H100); Grams to a relative Frobenius error of 1e-5.
+
+
+def _bf(a, dev):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev).bfloat16()
+
+
+def _bf_field(k, n, seed, dev):
+    return _bf(np.random.default_rng(seed).standard_normal((k, n)), dev)
+
+
+def _ulps(got, want):
+    """Largest |got - want| in bf16 ulps of the larger of the two, at least of
+    2^-8 of the largest |want|."""
+    g, w = got.double(), want.double()
+    m = torch.maximum(torch.maximum(g.abs(), w.abs()), w.abs().max() * 2.0 ** -8)
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(m > 0, m, torch.ones_like(m)))) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("n,k,offsets", [
+    (1000, 4, (-130, -7, -1, 0, 2, 64, 257)),      # n % 8 == 0, populated wraps
+    (4096, 32, (-256, -16, -1, 0, 1, 16, 256)),
+    (777, 40, (0, 700, -700, 3)),                   # ragged n: element copies
+    (300, 64, (-1, 0, 1, 600)),                     # |o| >= n reduces mod n
+])
+def test_stencil_bf16_matches_plain(dev, n, k, offsets):
+    rng = np.random.default_rng(100)
+    diags = _bf(rng.standard_normal((len(offsets), n)), dev)
+    Xt = _bf_field(k, n, 101, dev)
+    _native.reset_launches()
+    Y, G = stencil.stencil_spmm_gram_t(diags, offsets, Xt)
+    Y1 = stencil.stencil_spmm_t(diags, offsets, Xt)
+    assert _native.launches["stencil_spmm_gram_t[bf16]"] == 1
+    assert _native.launches["stencil_spmm_t[bf16]"] == 1
+    Yp, Gp = stencil.stencil_spmm_plain(diags, offsets, Xt, with_gram=True)
+    assert Y.dtype == torch.bfloat16 and G.dtype == torch.float32
+    assert _ulps(Y, Yp) <= 1 and _ulps(Y1, Yp) <= 1 and _relfro(G, Gp) < 1e-5
+
+
+def test_stencil_bf16_laplacian_256(dev):
+    """Config 5's operator in bf16 at a 64^3 cut: the plan's halo of 8 serves
+    +-1 from the window, +-64 and +-4096 are far."""
+    op = laplacian_dia((64, 64, 64), dtype=torch.bfloat16, device=dev)
+    Xt = _bf_field(32, op.n, 102, dev)
+    Y, G = op.matmat_gram_t(Xt)
+    Yp, Gp = stencil.stencil_spmm_plain(op.diags, op.offsets, Xt, with_gram=True)
+    assert _ulps(Y, Yp) <= 1 and _relfro(G, Gp) < 1e-5
+
+
+@pytest.mark.parametrize("k,n", [(3, 1000), (16, 5000), (32, 4099), (32, 8192), (64, 700),
+                                 (96, 2048), (128, 1024), (200, 512)])
+def test_fused_bf16_kernels_match_plain(dev, k, n):
+    rng = np.random.default_rng(200 + k)
+    M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
+    B1, B2, A = (_bf_field(k, n, s, dev) for s in (203, 204, 205))
+    _native.reset_launches()
+    G = fused.gram(B1, B2)
+    assert G.dtype == torch.float32 and _relfro(G, fused.gram_plain(B1, B2)) < 1e-5
+    Gs = fused.gram(B1, B1)
+    assert torch.equal(Gs, Gs.T) and _relfro(Gs, fused.gram_plain(B1, B1)) < 1e-5
+    for a in (None, A):
+        Y = fused.mm_update(M1, B1, a)
+        assert Y.dtype == torch.bfloat16 and _ulps(Y, fused.mm_update_plain(M1, B1, a)) <= 1
+        # The Gram is of the stored, rounded Y: held against the Gram of the
+        # kernel's own Y (a flipped element of Y moves the plain version's G
+        # by more than the f32 summation order does).
+        Y, G = fused.mm_update_gram(M1, B1, a)
+        Yp, _ = fused.mm_update_gram_plain(M1, B1, a)
+        assert _ulps(Y, Yp) <= 1 and _relfro(G, fused.gram_plain(Y, Y)) < 1e-5
+    Y, G = fused.mm2_update_gram(M1, B1, M2, B2)
+    Yp, _ = fused.mm2_update_gram_plain(M1, B1, M2, B2)
+    assert _ulps(Y, Yp) <= 1 and _relfro(G, fused.gram_plain(Y, Y)) < 1e-5
+    Pn, Xn = fused.px_update(M1, B1, M2, B2, M3, A)
+    Pp, Xp = fused.px_update_plain(M1, B1, M2, B2, M3, A)
+    assert _ulps(Pn, Pp) <= 1 and _ulps(Xn, Xp) <= 1
+    for w in ("gram", "mm_update", "mm_update_gram", "mm2_update_gram", "px_update"):
+        assert _native.launches[f"{w}[bf16]"] >= 1 and _native.launches[w] == 0
+
+
+def test_fused_bf16_donated_match_fresh(dev):
+    k, n = 32, 3000
+    rng = np.random.default_rng(210)
+    M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
+    W, P, X = (_bf_field(k, n, s, dev) for s in (211, 212, 213))
+    want = fused.mm2_update_gram(M1, W, M2, P)
+    Wd = W.clone()
+    got = fused.mm2_update_gram(M1, Wd, M2, P, donate=True)
+    assert got[0].data_ptr() == Wd.data_ptr()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want = fused.px_update(M1, W, M2, P, M3, X)
+    Pd, Xd = P.clone(), X.clone()
+    got = fused.px_update(M1, W, M2, Pd, M3, Xd, donate=True)
+    assert got[0].data_ptr() == Pd.data_ptr() and got[1].data_ptr() == Xd.data_ptr()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bf16_dispatch_refusals(dev):
+    """Mixed stencil pairs and bf16 operands outside the slice raise; nothing
+    launches and nothing falls back to a plain version."""
+    op32 = laplacian_dia((8, 8, 8), device=dev)
+    d16 = op32.diags.bfloat16()
+    X32 = _field(4, op32.n, 220, dev)
+    _native.reset_launches()
+    with pytest.raises(TypeError):
+        stencil.stencil_spmm_t(d16, op32.offsets, X32)  # bf16 diagonals, f32 field
+    with pytest.raises(TypeError):
+        stencil.stencil_spmm_gram_t(op32.diags, op32.offsets, X32.bfloat16())  # the reverse
+    a = _t(np.eye(4), dev)
+    with pytest.raises(TypeError):
+        fused.xr_update_gram(a, *(X32.bfloat16() for _ in range(4)))
+    with pytest.raises(TypeError):
+        fused.qr_p_update(a, X32.bfloat16(), a, X32.bfloat16())
+    with pytest.raises(TypeError):
+        fused.cheb_step(*(X32.bfloat16() for _ in range(4)), 0.5, 0.5)
+    with pytest.raises(TypeError):  # bf16 and f32 fields in one call
+        fused.mm2_update_gram(a, X32.bfloat16(), a, X32)
+    assert sum(_native.launches.values()) == 0
+    with pytest.raises(ValueError, match="64 rows"):  # the bf16 Gram takes one launch
+        stencil.stencil_spmm_gram_t(d16, op32.offsets, _bf_field(65, op32.n, 221, dev))
+
+
+def test_bf16_sbcgrq_and_lean_on_card(dev):
+    """The bf16 inner solve launches the bf16 variants and agrees with the
+    CPU run of the same inputs in iterations; the lean refinement reaches 1e-6."""
+    from blockcg_tpu_torch import solve_refined_lean
+    from blockcg_tpu_torch.solvers import refine
+    from blockcg_tpu_torch.solvers.sbcgrq import _sbcgrq_impl
+
+    op = laplacian_dia((32, 32, 32), dtype=torch.bfloat16, device=dev)
+    opc = laplacian_dia((32, 32, 32), dtype=torch.bfloat16, device="cpu")
+    Bt = refine.lean_rhs(5, 16, op.n, torch.bfloat16, "cpu")
+    _native.reset_launches()
+    X, info = _sbcgrq_impl(op, Bt.to(dev), torch.zeros_like(Bt, device=dev), 5e-3, 400, 1, 0,
+                           False)
+    Xc, infoc = _sbcgrq_impl(opc, Bt, torch.zeros_like(Bt), 5e-3, 400, 1, 0, False)
+    assert X.dtype == torch.bfloat16 and bool(info.converged.all())
+    assert abs(info.iterations - infoc.iterations) <= 2
+    for w in ("stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update", "mm2_update_gram",
+              "px_update"):
+        assert _native.launches[f"{w}[bf16]"] >= 1, w
+    Xl, infol = solve_refined_lean(op, 3, 16, tol=1e-6, inner_block=8)
+    assert bool(infol.converged.all()) and Xl.dtype == torch.float32
+    B = refine.lean_rhs(3, 16, op.n, torch.bfloat16, dev).double().T
+    op64 = laplacian_dia((32, 32, 32), dtype=torch.float64, device=dev)
+    res = torch.linalg.vector_norm(B - op64.matmat(Xl.double()), dim=0)
+    assert float((res / torch.linalg.vector_norm(B, dim=0)).max()) <= 1e-6

@@ -343,24 +343,25 @@ def test_host_constants_mirror_the_sources():
     assert "kUpLd = kUpTile + 8;" in common and fused.UPDATE_LD == fused.UPDATE_TILE + 8
     assert "widths[] = {1, 2, 4, 6, 8, 12, 16};" in common
     assert fused._UPDATE_WIDTHS == (1, 2, 4, 6, 8, 12, 16)
-    assert ("nmat * kin * rp + 1LL * kUpStages * kc * kUpTile + (gram ? 1LL * k * kUpLd : 0)"
-            in common)
-    assert "1LL * kUpThreads * (k > 32 ? 64 : 16)" in common
+    assert ("4 * (nmat * kin * rp + (gram ? 1LL * k * kUpLd : 0)) +\n"
+            "                1LL * esize * kUpStages * kc * kUpTile;" in common)
+    assert "4LL * kUpThreads * (k > 32 ? 64 : 16)" in common
     ug = (CSRC / "update_gram.cuh").read_text()
     assert "kUgBlocksPerSm = GK > 0 && GK <= 32 ? 2 : 1;" in ug
-    assert "update_smem_floats(k, kin, kc, NF, GK > 0)" in ug
-    assert "return dispatch<2, false>(" in (CSRC / "mm2_update_gram.cu").read_text()
+    assert "update_smem_bytes(k, kin, kc, NF, GK > 0, sizeof(E))" in ug
+    mm2 = (CSRC / "mm2_update_gram.cu").read_text()
+    assert "return dispatch<float, 2, false>(" in mm2 and "return dispatch<bf16, 2, false>(" in mm2
     mm1 = (CSRC / "mm_update_gram.cu").read_text()
-    assert "dispatch<1, true>(" in mm1 and "dispatch<1, false>(" in mm1
+    assert "dispatch<E, 1, true>(" in mm1 and "dispatch<E, 1, false>(" in mm1
     assert "if constexpr (NF == 1) BCG_UG(12, 96);" in ug and fused.UPDATE_GRAM_MAX_K_ONE == 96
     assert "BCG_UG(16, 128)" not in ug
     assert "      case 8: BCG_UG(8, 64);" in ug and fused.UPDATE_GRAM_MAX_K == 64
     px = (CSRC / "px_update.cu").read_text()
     assert "kPxBlocksPerSm = R <= 8 ? 2 : 1;" in px
-    assert "update_smem_floats(k, kin, kc, 3, false)" in px
+    assert "update_smem_bytes(k, kin, kc, QR ? 2 : 3, false, sizeof(E))" in px
     st = (CSRC / "stencil.cu").read_text()
     assert int(re.search(r"kMaxDiags = (\d+)", st).group(1)) == stencil.MAX_DIAGS
-    assert "return T + 2 * h + (k <= 32 ? 4 : 0);" in st
+    assert "return T + 2 * h + (esize == 4 && k <= 32 ? 4 : 0);" in st
     assert "256LL * (k > 16 ? 64 : 16)" in st
     assert "kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1" in st
     assert int(re.search(r"kStThreads = (\d+)", st).group(1)) == stencil.THREADS
@@ -376,8 +377,8 @@ def test_host_constants_mirror_the_sources():
     gr = (CSRC / "gram.cu").read_text()
     assert int(re.search(r"kGrThreads = (\d+)", gr).group(1)) == fused.GRAM_THREADS
     assert int(re.search(r"kGrScratch = (\d+)", gr).group(1)) == fused.GRAM_SCRATCH
-    assert "return T + (sym ? 8 : 4);" in gr
-    assert "const long long f = 1LL * stages * rows * gram_ld(T, sym);" in gr
+    assert "return T + (sym || esize != 4 ? 8 : 4);" in gr
+    assert "const long long b = 1LL * esize * stages * rows * gram_ld(T, sym, esize);" in gr
     assert int(re.search(r"kGrStages = (\d+)", gr).group(1)) == fused.GRAM_STAGES
     listed = re.search(r"widths\[\] = \{([\d, ]+)\};", gr).group(1)
     widths = tuple(int(w) for w in listed.split(","))

@@ -83,6 +83,88 @@ def test_smoke_bound_ms(nbytes, flops, want):
     assert ms == pytest.approx(want[0]) and by == want[1]
 
 
+@pytest.mark.parametrize("nbytes,flops,want", [
+    (0, 989e9, (1.0, "operations")),        # 989 GFLOP at the bf16 tensor-core rate
+    # mm2_update_gram[bf16] at (32, 256^3): 3.22 GB and 86.4 GFLOP, bytes-bound
+    (3 * 2 * 32 * 2 ** 24 + 2 * 4 * 32 * 32 + 4 * 32 * 32,
+     4 * 32 * 32 * 2 ** 24 + 32 * 33 * 2 ** 24, (0.9616, "bytes")),
+])
+def test_smoke_bound_ms_bf16(nbytes, flops, want):
+    smoke = _load("chip_smoke")
+    ms, by = smoke.bound_ms(nbytes, flops, smoke.BF16_FLOPS)
+    assert ms == pytest.approx(want[0], rel=1e-4) and by == want[1]
+
+
+def test_smoke_library_check_measures_a_less_accurate_call(capsys):
+    """Given a measure, a library call that disagrees with the kernel is kept
+    and its error printed; without one it is refused."""
+    import torch
+
+    smoke = _load("chip_smoke")
+    want = torch.ones(4)
+
+    def call():
+        return want + 1e-2
+
+    assert smoke._library_check(torch, call, want, "sum")[0] is None
+    kept, why = smoke._library_check(torch, call, want, "sum",
+                                     lambda g, w: float((g - w).abs().max()))
+    assert kept is call and why is None
+    assert "[library] sum: error 1.000e-02" in capsys.readouterr().out
+
+
+def _gram_contract_case(smoke, torch):
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    op = laplacian_dia((8, 8, 8), dtype=torch.bfloat16, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    M1, M2 = (torch.randn((4, 4), generator=gen) / 2 for _ in range(2))
+    B1, B2 = (torch.randn((4, op.n), generator=gen).bfloat16() for _ in range(2))
+    return op, M1, M2, B1, B2
+
+
+def test_smoke_gram_contract_holds_the_plain_versions(capsys):
+    """[config5]'s Gram check on the plain versions (the CPU route): each
+    Gram is nearer the f64 Gram its contract names (rows 7-8 the stored bf16
+    Y, row 2 the f32 sums) by the margin of the 64^3 cut."""
+    import torch
+
+    smoke = _load("chip_smoke")
+    smoke.gram_contract(torch, *_gram_contract_case(smoke, torch), smoke.GRAM_MARGIN, "8^3")
+    assert capsys.readouterr().out.count("[config5] gram contract") == 4
+
+
+@pytest.mark.parametrize("row", ["stencil_spmm_gram_t", "mm_update_gram"])
+def test_smoke_gram_contract_refuses_the_other_candidate(monkeypatch, row):
+    """A Gram taken on the other candidate (row 7 on the unrounded f32 sums,
+    row 2 on the stored bf16 Y) fails the nearer check, with the f64 bound
+    out of the way."""
+    import torch
+
+    from blockcg_tpu_torch.ops import fused, stencil
+
+    smoke = _load("chip_smoke")
+    monkeypatch.setattr(smoke, "GRAM_RTOL", 1.0)
+    if row == "mm_update_gram":
+        update = fused.mm_update
+
+        def wrong(M, B):
+            Y32 = update(M.bfloat16().float(), B.float())
+            return Y32.bfloat16(), Y32 @ Y32.T
+
+        monkeypatch.setattr(fused, "mm_update_gram", wrong)
+    else:
+        spmm = stencil.stencil_spmm_t
+
+        def wrong(diags, offsets, X):
+            Y = spmm(diags, offsets, X)
+            return Y, X.float() @ Y.float().T
+
+        monkeypatch.setattr(stencil, "stencil_spmm_gram_t", wrong)
+    with pytest.raises(AssertionError, match=f"{row}.*other candidate"):
+        smoke.gram_contract(torch, *_gram_contract_case(smoke, torch), 1.0, "8^3")
+
+
 def test_smoke_work_counts():
     import torch
 

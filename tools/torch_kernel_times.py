@@ -19,7 +19,14 @@ torch's BSR product).
 Run on a machine with a card, from the root of a checkout:
 
     python3 tools/torch_kernel_times.py [--root DIR] [--reps 50] [--only REGEX]
-        [--const-hop] [--library | --sweep | --variants]
+        [--const-hop | --bf16] [--library | --sweep | --variants]
+
+``--bf16`` times the bf16 variants of rows 1, 2 and 5-9 (config 5's
+capacity route) at its inner shape, (32, 256^3), on the bf16 7-point
+operator, each beside its f32 kernel on the same values in f32, with the
+bound of each (bf16 fields 2 bytes an element, their FLOPs at the bf16
+tensor-core rate, 989 TFLOP/s; the stencil's Gram X Y^T counted as 2 k^2
+FLOPs a column, it is not symmetric).
 
 ``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
 32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
@@ -100,7 +107,11 @@ def host_us(torch, fn, reps: int) -> float:
 def checksums(torch, out) -> list[str]:
     """sha256 (first 16 hex digits) of the bytes of each of a call's output
     tensors, in order."""
-    return [hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+    def raw(t):  # numpy has no bf16: hash its bits as int16
+        t = t.detach().contiguous().cpu()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+
+    return [hashlib.sha256(raw(t)).hexdigest()[:16]
             for t in (out if isinstance(out, tuple) else (out,)) if isinstance(t, torch.Tensor)]
 
 
@@ -450,6 +461,54 @@ def const_hop_variants(torch, dev, tmp: Path, only: str | None):
                max(4 * (4 * 48 * ns + 2 * 48 * 48) / 3.35e12, 4 * 48 * 48 * ns / 67e12) * 1e6)
 
 
+def bf16_cases(torch, dev):
+    """(name, fn, bound us) of the bf16 variants of rows 1, 2 and 5-9 at
+    (32, 256^3), then of the f32 kernels on the same values in f32."""
+    from blockcg_tpu_torch.ops import fused, stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 32
+    op = laplacian_dia((256,) * 3, dtype=torch.bfloat16, device=dev)
+    n, nd = op.n, len(op.offsets)
+    nnz = int(torch.count_nonzero(op.diags))
+    M, M2, M3 = (torch.randn((k, k), generator=gen, device=dev) / k ** 0.5 for _ in range(3))
+    fields = [torch.randn((k, n), generator=gen, device=dev).bfloat16() for _ in range(3)]
+
+    for dt in (torch.bfloat16, torch.float32):
+        X, V, Z = (f.to(dt) for f in fields)
+        D = op.diags.to(dt)
+        e = X.element_size()
+        # FLOPs at the peak rate of their type: bf16 products with f32 sums
+        # on the tensor cores, else f32 outside them (chip_smoke.py's rates)
+        rate = 989e12 if e == 2 else 67e12
+
+        def bound(nbytes, flops, rate=rate):
+            return max(nbytes / 3.35e12, flops / rate) * 1e6
+
+        fb, kk, syrk = e * k * n, 4 * k * k, k * (k + 1) * n
+        what = f"{'bf16' if e == 2 else 'f32'} (32, 256^3)"
+        yield (f"row 1 stencil_spmm_t {what}",
+               lambda D=D, X=X: stencil.stencil_spmm_t(D, op.offsets, X),
+               bound(e * nd * n + 2 * fb, 2 * k * nnz))
+        yield (f"row 2 stencil_spmm_gram_t {what}",
+               lambda D=D, X=X: stencil.stencil_spmm_gram_t(D, op.offsets, X),
+               bound(e * nd * n + 2 * fb + kk, 2 * k * nnz + 2 * k * k * n))
+        yield (f"row 5 gram {what}", lambda X=X, V=V: fused.gram(X, V),
+               bound(2 * fb + kk, 2 * k * k * n))
+        yield (f"row 6 mm_update {what}", lambda X=X: fused.mm_update(M, X),
+               bound(2 * fb + kk, 2 * k * k * n))
+        yield (f"row 7 mm_update_gram {what}", lambda X=X: fused.mm_update_gram(M, X),
+               bound(2 * fb + 2 * kk, 2 * k * k * n + syrk))
+        yield (f"row 8 mm2_update_gram {what}",
+               lambda X=X, V=V: fused.mm2_update_gram(M, X, M2, V),
+               bound(3 * fb + 3 * kk, 4 * k * k * n + syrk))
+        yield (f"row 9 px_update {what}",
+               lambda X=X, V=V, Z=Z: fused.px_update(M, X, M2, V, M3, Z),
+               bound(5 * fb + 3 * kk, 6 * k * k * n))
+        del X, V, Z
+
+
 def bound_us(name: str) -> float | None:
     """The least device time of a row 5-9 case (max of its bytes over 3.35
     TB/s and its FLOPs over 67 TFLOP/s, chip_smoke.py's rates) from the
@@ -544,8 +603,8 @@ def block_stencil_cases(torch, dev, library: bool):
         del Xm, Xv
 
 
-# Probe builds of the Gram (csrc/gram.cu gram_kernel<KMAX, SYM, TS, MINB,
-# ST>) beside the built kernels: 4x4 register tiles built for two blocks an
+# Probe builds of the Gram (csrc/gram.cu gram_kernel<E, KMAX, SYM, TS, MINB,
+# ST>, E = float) beside the built kernels: 4x4 register tiles built for two blocks an
 # SM, and a ring of three tiles.
 GRAM_PROBE = r"""#include "{src}"
 extern "C" int gram_probe(const float* U, const float* V, float* part, float* G, int ku, int kv,
@@ -559,11 +618,11 @@ extern "C" int gram_probe(const float* U, const float* V, float* part, float* G,
 }}
 """
 # which: (label, template arguments, rows, U is V)
-GRAM_PROBES = {0: ("4x4 tiles, two blocks an SM", "32, false, 4, 2", 32, False),
-               1: ("4x4 tiles, two blocks an SM", "32, true, 4, 2", 32, True),
-               2: ("three tiles in shared memory", "32, false, 8, 1, 3", 32, False),
-               3: ("three tiles in shared memory", "32, true, 4, 1, 3", 32, True),
-               4: ("three tiles in shared memory", "96, false, 6, 1, 3", 96, False)}
+GRAM_PROBES = {0: ("4x4 tiles, two blocks an SM", "float, 32, false, 4, 2", 32, False),
+               1: ("4x4 tiles, two blocks an SM", "float, 32, true, 4, 2", 32, True),
+               2: ("three tiles in shared memory", "float, 32, false, 8, 1, 3", 32, False),
+               3: ("three tiles in shared memory", "float, 32, true, 4, 1, 3", 32, True),
+               4: ("three tiles in shared memory", "float, 96, false, 6, 1, 3", 96, False)}
 
 
 def gram_variants(torch, dev, tmp: Path):
@@ -810,8 +869,8 @@ def sweep_cases(torch, dev):
         del op, X, Y
 
 
-# Builds of row 8's kernel at 17-32 rows (csrc/update_gram.cuh launch<NF,
-# HAS_A, R, GK, MINB> on two fields), exported by a probe that includes the
+# Builds of row 8's kernel at 17-32 rows (csrc/update_gram.cuh launch<E, NF,
+# HAS_A, R, GK, MINB> on two f32 fields), exported by a probe that includes the
 # source: which = 0, Y without its Gram; 1, with the Gram, built for one
 # block an SM (no register cap); 3, built for three; 2, the kernel as built;
 # each on the stage depth kc given.
@@ -823,13 +882,13 @@ extern "C" int variant_mm2(const float* M1, const float* B1, const float* M2, co
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (which) {{
-    case 0: return launch<2, false, 4, 0>(M1, B1, M2, B2, nullptr, Y, nullptr, nullptr, k, k,
+    case 0: return launch<float, 2, false, 4, 0>(M1, B1, M2, B2, nullptr, Y, nullptr, nullptr, k, k,
                                           n, kc, max_blocks, device, stream);
-    case 1: return launch<2, false, 4, 32, 1>(M1, B1, M2, B2, nullptr, Y, part, G, k, k, n, kc,
+    case 1: return launch<float, 2, false, 4, 32, 1>(M1, B1, M2, B2, nullptr, Y, part, G, k, k, n, kc,
                                               max_blocks, device, stream);
-    case 3: return launch<2, false, 4, 32, 3>(M1, B1, M2, B2, nullptr, Y, part, G, k, k, n, kc,
+    case 3: return launch<float, 2, false, 4, 32, 3>(M1, B1, M2, B2, nullptr, Y, part, G, k, k, n, kc,
                                               max_blocks, device, stream);
-    default: return launch<2, false, 4, 32>(M1, B1, M2, B2, nullptr, Y, part, G, k, k, n, kc,
+    default: return launch<float, 2, false, 4, 32>(M1, B1, M2, B2, nullptr, Y, part, G, k, k, n, kc,
                                             max_blocks, device, stream);
   }}
 }}
@@ -980,6 +1039,9 @@ def main() -> None:
     ap.add_argument("--const-hop", action="store_true",
                     help="time only rows 12, 16 and 17 (qr_p_update, the merged const-hop "
                          "stencil)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="time only the bf16 variants of rows 1, 2 and 5-9 and their f32 "
+                         "kernels at (32, 256^3)")
     ap.add_argument("--only", default=None,
                     help="time only the cases whose name matches this regular expression")
     args = ap.parse_args()
@@ -992,7 +1054,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        todo = (sweep_cases(torch, dev) if args.sweep
+        todo = (bf16_cases(torch, dev) if args.bf16
+                else sweep_cases(torch, dev) if args.sweep
                 else const_hop_variants(torch, dev, Path(tmp), args.only)
                 if args.variants and args.const_hop
                 else variant_cases(torch, dev, Path(tmp)) if args.variants
