@@ -20,13 +20,13 @@
 // arithmetic is what it was before the split).
 //
 // Field elements: float32, or bfloat16 on the kernels that take bf16 fields
-// (stencil.cu, gram.cu, mm_update.cu, update_gram.cuh, px_update.cu). A bf16
-// element is converted to f32 where it enters registers and every FMA runs
-// in f32; an output is rounded to bf16 where it is stored (from_f32). The
-// staged k x k coefficients of a bf16 update are rounded to bf16 once, when
-// they are staged (rounded<E>), and lifted back to f32: a bf16 x bf16
-// product is exact in f32, so the kernels and their plain versions differ
-// in summation order alone.
+// (stencil.cu, gram.cu, mm_update.cu, update_gram.cuh, px_update.cu,
+// xr_update.cu, qr_p_update.cu). A bf16 element is converted to f32 where it
+// enters registers and every FMA runs in f32; an output is rounded to bf16
+// where it is stored (from_f32). The
+// k x k coefficients of a bf16 update stay f32 (the reference's f32
+// coefficient route, BLOCKCG_NO_BF16_MXU=1), so the kernels and their plain
+// versions differ in summation order alone.
 //
 // Everything here has internal linkage: each .cu includes this header, is
 // compiled to its own object, and the objects are linked into one library.
@@ -106,23 +106,24 @@ inline int kmax_for(int k) {
   return 0;
 }
 
-// v[r] = F[r, i] for r < k on a valid column, else 0.
-template <int KMAX>
-__device__ __forceinline__ void load_col(float (&v)[KMAX], const float* F,
+// v[r] = F[r, i] (lifted to f32) for r < k on a valid column, else 0.
+template <int KMAX, typename E>
+__device__ __forceinline__ void load_col(float (&v)[KMAX], const E* F,
                                          int k, long long n, long long i,
                                          bool valid) {
 #pragma unroll
-  for (int r = 0; r < KMAX; ++r) v[r] = (valid && r < k) ? F[r * n + i] : 0.f;
+  for (int r = 0; r < KMAX; ++r) v[r] = (valid && r < k) ? to_f32(F[r * n + i]) : 0.f;
 }
 
-template <int KMAX>
-__device__ __forceinline__ void store_col(float* F, const float (&v)[KMAX],
+// F[r, i] = v[r] (rounded to E) for r < k on a valid column.
+template <int KMAX, typename E>
+__device__ __forceinline__ void store_col(E* F, const float (&v)[KMAX],
                                           int k, long long n, long long i,
                                           bool valid) {
   if (!valid) return;
 #pragma unroll
   for (int r = 0; r < KMAX; ++r)
-    if (r < k) F[r * n + i] = v[r];
+    if (r < k) F[r * n + i] = from_f32<E>(v[r]);
 }
 
 // Columns of a staged coefficient: kin, and at least KMAX (a narrow launch
@@ -136,7 +137,8 @@ __host__ __device__ inline int coeff_cols(int kin) {
 // shared memory TRANSPOSED and zero-padded to coeff_cols x KMAX:
 // sT[c * KMAX + r] = M[r, c]. Every thread reads the same sT entry at the
 // same time (a broadcast), and the r-contiguous layout lets the compiler
-// fetch four coefficients per load.
+// fetch four coefficients per load. The coefficients stay f32 on bf16
+// fields too.
 template <int KMAX>
 __device__ void stage_coeff(float* sT, const float* M, int k, int kin) {
   const int cols = kin > KMAX ? kin : KMAX;
@@ -149,25 +151,26 @@ __device__ void stage_coeff(float* sT, const float* M, int k, int kin) {
 // y += M F[:, i], with M staged by stage_coeff: the loop runs over the kin
 // real columns of M and reads F's column straight from global memory (no
 // register copy, and a small unroll keeps the code short at KMAX = 64).
-template <int KMAX>
+template <int KMAX, typename E>
 __device__ __forceinline__ void apply_coeff(float (&y)[KMAX], const float* sT,
-                                            const float* F, int kin, long long n,
+                                            const E* F, int kin, long long n,
                                             long long i, bool valid) {
   if (!valid) return;
 #pragma unroll 4
   for (int c = 0; c < kin; ++c) {
-    const float fc = F[c * n + i];
+    const float fc = to_f32(F[c * n + i]);
     const float* m = sT + c * KMAX;
 #pragma unroll
     for (int r = 0; r < KMAX; ++r) y[r] = fmaf(m[r], fc, y[r]);
   }
 }
 
-// Write the thread's column into a staged (KMAX, kLd) tile.
-template <int KMAX>
+// Write the thread's column into a staged (KMAX, kLd) tile, as a field of E
+// stores it (rounded to bf16 on bf16 fields, lifted back to f32).
+template <int KMAX, typename E = float>
 __device__ __forceinline__ void stage_col(float* s, const float (&v)[KMAX]) {
 #pragma unroll
-  for (int r = 0; r < KMAX; ++r) s[r * kLd + threadIdx.x] = v[r];
+  for (int r = 0; r < KMAX; ++r) s[r * kLd + threadIdx.x] = rounded<E>(v[r]);
 }
 
 // The block's share of G = X Y^T. Thread t owns a kTR x kTS register tile of

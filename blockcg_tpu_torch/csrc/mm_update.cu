@@ -33,7 +33,7 @@
 //
 // bf16 fields (bcg_mm_update_bf16): B's tiles are staged as bf16, 16-byte
 // copies of 8 elements (n % 8 == 0), lifted to f32 four at a time as they
-// are read; M is rounded to bf16 where it is staged; A is read and Y written
+// are read; M stays f32; A is read and Y written
 // four bf16 at a time. The FMAs and their order are those of the f32 kernel.
 //
 // In place: Y may be B or A (the solvers' donated operand). A block copies
@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(kMmThreads)
   const int tile_floats = k * kMmTile;  // elements of a tile
   for (int e = threadIdx.x; e < k * kRows; e += kMmThreads) {
     const int c = e / kRows, r = e % kRows;
-    sM[e] = r < k ? rounded<E>(M[r * k + c]) : 0.f;  // sM[c][r] = M[r, c]
+    sM[e] = r < k ? M[r * k + c] : 0.f;  // sM[c][r] = M[r, c]
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * R;
@@ -193,8 +193,7 @@ extern "C" int bcg_mm_update(const float* M, const float* B, const float* A, flo
   return mm_update_entry(M, B, A, Y, k, n, device, stream);
 }
 
-// The same on bf16 fields B, A and Y; M stays f32 and is rounded to bf16
-// where it is staged.
+// The same on bf16 fields B, A and Y; M stays f32.
 extern "C" int bcg_mm_update_bf16(const float* M, const bf16* B, const bf16* A, bf16* Y, int k,
                                   long long n, int device, cudaStream_t stream) {
   return mm_update_entry(M, B, A, Y, k, n, device, stream);

@@ -39,9 +39,12 @@
 //
 // bf16 fields (bcg_px_update_bf16): W and P are staged as bf16, 16-byte
 // copies of 8 elements (n % 8 == 0), lifted to f32 four at a time as they
-// are read; M1, rho and C are rounded to bf16 where they are staged; X is
+// are read; M1, rho and C stay f32; X is
 // read and Pn and Xn written four bf16 at a time. The FMAs and their order
-// are those of the f32 kernel. QR mode stays f32 only.
+// are those of the f32 kernel. QR mode takes bf16 fields too
+// (bcg_qr_p_update_bf16): Q is rounded where it is stored mid-tile, while pn
+// goes on from the unrounded f32 sums, so Pn = Q + rho P adds rho P to the
+// f32 Q (the reference's q + rho p) and is rounded once, at its own store.
 //
 // QR: the stacked input is [Q1; P], the first table M2 over Q1's rows and
 // rho over P's, and there is no C, X or Xn. Q is pn after Q1's kin rows:
@@ -95,14 +98,13 @@ __device__ __forceinline__ void store_rows4(E* F, const float (&v)[R][4], int r0
   }
 }
 
-// E: the field element (float or bf16; QR takes float only). QR: W is Q1, M1
-// is M2, Xn receives Q; C and X are unused.
+// E: the field element (float or bf16). QR: W is Q1, M1 is M2, Xn receives
+// Q; C and X are unused.
 template <typename E, int R, bool QR>
 __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
     px_update_kernel(const float* __restrict__ M1, const E* W, const float* __restrict__ Rho,
                      const E* P, const float* __restrict__ C, const E* X, E* Pn, E* Xn, int k,
                      int kin, long long n, int kc, bool vec) {
-  static_assert(!QR || sizeof(E) == 4, "QR mode takes f32 fields");
   extern __shared__ __align__(16) float smem[];  // sA (2kin x 8R) | sC (kin x 8R) | stages
   constexpr int kRows = 8 * R;
   const int nin = 2 * kin;
@@ -111,12 +113,12 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
   E* sB = reinterpret_cast<E*>(sC + (QR ? 0 : kin * kRows));
   for (int e = threadIdx.x; e < nin * kRows; e += kUpThreads) {
     const int c = e / kRows, r = e % kRows;
-    sA[e] = r >= k ? 0.f : rounded<E>(c < kin ? M1[r * kin + c] : Rho[r * kin + c - kin]);
+    sA[e] = r >= k ? 0.f : (c < kin ? M1[r * kin + c] : Rho[r * kin + c - kin]);
   }
   if constexpr (!QR) {
     for (int e = threadIdx.x; e < kin * kRows; e += kUpThreads) {
       const int c = e / kRows, r = e % kRows;
-      sC[e] = r >= k ? 0.f : rounded<E>(C[r * kin + c]);
+      sC[e] = r >= k ? 0.f : C[r * kin + c];
     }
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -243,6 +245,28 @@ int px_update_entry(const float* M1, const E* W, const float* Rho, const E* P, c
 #undef BCG_PX
 }
 
+template <typename E>
+int qr_p_update_entry(const float* M2, const E* Q1, const float* Rho, const E* P, E* Q, E* Pn,
+                      int k, int kin, long long n, int kc, int device, cudaStream_t stream) {
+  if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+#define BCG_QR(R)                                                                            \
+  return launch<E, R, true>(M2, Q1, Rho, P, nullptr, nullptr, Pn, Q, k, kin, n, kc, device, \
+                            stream)
+  switch (rows_per_warp(k)) {
+    case 1: BCG_QR(1);
+    case 2: BCG_QR(2);
+    case 4: BCG_QR(4);
+    case 6: BCG_QR(6);
+    case 8: BCG_QR(8);
+    case 12: BCG_QR(12);
+    case 16: BCG_QR(16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BCG_QR
+}
+
 }  // namespace
 
 // Pn, Xn, X (k, n); M1, rho, C k x kin (row stride kin); W, P (kin, n). kc:
@@ -255,8 +279,7 @@ extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
   return px_update_entry(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream);
 }
 
-// The same on bf16 fields W, P, X, Pn and Xn; M1, rho and C stay f32 and are
-// rounded to bf16 where they are staged.
+// The same on bf16 fields W, P, X, Pn and Xn; M1, rho and C stay f32.
 extern "C" int bcg_px_update_bf16(const float* M1, const bf16* W, const float* Rho,
                                   const bf16* P, const float* C, const bf16* X, bf16* Pn,
                                   bf16* Xn, int k, int kin, long long n, int kc, int device,
@@ -270,21 +293,12 @@ extern "C" int bcg_px_update_bf16(const float* M1, const bf16* W, const float* R
 extern "C" int bcg_qr_p_update(const float* M2, const float* Q1, const float* Rho,
                                const float* P, float* Q, float* Pn, int k, int kin,
                                long long n, int kc, int device, cudaStream_t stream) {
-  if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-#define BCG_QR(R)                                                                            \
-  return launch<float, R, true>(M2, Q1, Rho, P, nullptr, nullptr, Pn, Q, k, kin, n, kc, device, \
-                                stream)
-  switch (rows_per_warp(k)) {
-    case 1: BCG_QR(1);
-    case 2: BCG_QR(2);
-    case 4: BCG_QR(4);
-    case 6: BCG_QR(6);
-    case 8: BCG_QR(8);
-    case 12: BCG_QR(12);
-    case 16: BCG_QR(16);
-    default: return cudaErrorInvalidValue;
-  }
-#undef BCG_QR
+  return qr_p_update_entry(M2, Q1, Rho, P, Q, Pn, k, kin, n, kc, device, stream);
+}
+
+// The same on bf16 fields Q1, P, Q and Pn; M2 and rho stay f32.
+extern "C" int bcg_qr_p_update_bf16(const float* M2, const bf16* Q1, const float* Rho,
+                                    const bf16* P, bf16* Q, bf16* Pn, int k, int kin,
+                                    long long n, int kc, int device, cudaStream_t stream) {
+  return qr_p_update_entry(M2, Q1, Rho, P, Q, Pn, k, kin, n, kc, device, stream);
 }

@@ -16,6 +16,11 @@
 // and P (kin, n); a wider update is one launch per chunk of rows
 // (ops/fused.py).
 //
+// bf16 fields (bcg_qr_px_update_bf16): Q1, P, X, Q, Pn and Xn are bf16; M2,
+// rho and C stay f32. Every FMA runs in f32, Pn goes on from the unrounded f32 Q (as the reference's
+// q + rho P does), and Q, Pn and Xn are each rounded once where they are
+// stored.
+//
 // In place: Q may be the same buffer as Q1, Pn the same as P and Xn the same
 // as X (the solver donates them). Column i of each output depends only on
 // column i of the inputs, and a thread reads all of its column before it
@@ -24,12 +29,13 @@
 
 namespace {
 
-template <int KMAX>
+// E: the field element (float or bf16).
+template <typename E, int KMAX>
 __global__ void __launch_bounds__(kThreads)
-    qr_px_update(const float* __restrict__ M2, const float* Q1,
-                 const float* __restrict__ Rho, const float* P,
-                 const float* __restrict__ C, const float* X, float* Q,
-                 float* Pn, float* Xn, int k, int kin, long long n) {
+    qr_px_update(const float* __restrict__ M2, const E* Q1,
+                 const float* __restrict__ Rho, const E* P,
+                 const float* __restrict__ C, const E* X, E* Q,
+                 E* Pn, E* Xn, int k, int kin, long long n) {
   extern __shared__ __align__(16) float smem[];  // m2T | rhoT | cT
   const int mfloats = coeff_cols<KMAX>(kin) * KMAX;
   float* m2 = smem;
@@ -55,7 +61,7 @@ __global__ void __launch_bounds__(kThreads)
       // One read of P feeds both outputs.
 #pragma unroll 4
       for (int c = 0; c < kin; ++c) {
-        const float pc = P[c * n + i];
+        const float pc = to_f32(P[c * n + i]);
 #pragma unroll
         for (int r = 0; r < KMAX; ++r) {
           pn[r] = fmaf(rho[c * KMAX + r], pc, pn[r]);
@@ -68,17 +74,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int KMAX>
-cudaError_t launch_px(const float* M2, const float* Q1, const float* Rho,
-                      const float* P, const float* C, const float* X, float* Q,
-                      float* Pn, float* Xn, int k, int kin, long long n,
-                      int nblocks, cudaStream_t stream) {
-  auto kernel = qr_px_update<KMAX>;
+template <typename E, int KMAX>
+cudaError_t launch_px(const float* M2, const E* Q1, const float* Rho, const E* P,
+                      const float* C, const E* X, E* Q, E* Pn, E* Xn, int k, int kin,
+                      long long n, int nblocks, cudaStream_t stream) {
+  auto kernel = qr_px_update<E, KMAX>;
   const size_t smem = 3 * coeff_cols<KMAX>(kin) * KMAX * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<nblocks, kThreads, smem, stream>>>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n);
   return cudaGetLastError();
+}
+
+template <typename E>
+int qr_px_update_entry(const float* M2, const E* Q1, const float* Rho, const E* P,
+                       const float* C, const E* X, E* Q, E* Pn, E* Xn, int k, int kin,
+                       long long n, int nblocks, int device, cudaStream_t stream) {
+  if (nblocks < 1 || n < 1 || kin < k) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+#define BCG_QPX(KMAX) \
+  return launch_px<E, KMAX>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, nblocks, stream)
+  switch (kmax_for(k)) {
+    case 8: BCG_QPX(8);
+    case 16: BCG_QPX(16);
+    case 32: BCG_QPX(32);
+    case 64: BCG_QPX(64);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BCG_QPX
 }
 
 }  // namespace
@@ -89,14 +113,15 @@ extern "C" int bcg_qr_px_update(const float* M2, const float* Q1, const float* R
                                 float* Q, float* Pn, float* Xn, int k, int kin,
                                 long long n, int nblocks, int device,
                                 cudaStream_t stream) {
-  if (nblocks < 1 || n < 1 || kin < k) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  switch (kmax_for(k)) {
-    case 8: return launch_px<8>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, nblocks, stream);
-    case 16: return launch_px<16>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, nblocks, stream);
-    case 32: return launch_px<32>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, nblocks, stream);
-    case 64: return launch_px<64>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, nblocks, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return qr_px_update_entry(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, nblocks, device,
+                            stream);
+}
+
+// The same on bf16 fields; M2, rho and C stay f32.
+extern "C" int bcg_qr_px_update_bf16(const float* M2, const bf16* Q1, const float* Rho,
+                                     const bf16* P, const float* C, const bf16* X, bf16* Q,
+                                     bf16* Pn, bf16* Xn, int k, int kin, long long n,
+                                     int nblocks, int device, cudaStream_t stream) {
+  return qr_px_update_entry(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, nblocks, device,
+                            stream);
 }

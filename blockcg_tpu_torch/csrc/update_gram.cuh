@@ -58,11 +58,11 @@
 //
 // bf16 fields (E = bf16): the staged inputs are bf16, 16-byte copies of 8
 // elements, lifted to f32 four at a time as they are read (load4); the
-// staged coefficients are rounded to bf16 (rounded<E>), every FMA is f32, Y
-// and A are read and written four bf16 at a time, and the Gram is taken on
-// the stored, rounded Y: the sY tile holds rounded<E>(y). That is the
-// reference's bf16 contract (the coefficient rounded for the multiply, f32
-// accumulation, G on the stored output).
+// staged coefficients stay f32, every FMA is f32, Y and A are read and
+// written four bf16 at a time, and the Gram is taken on the stored, rounded
+// Y: the sY tile holds rounded<E>(y). That is the reference's bf16 contract
+// on its f32 coefficient route (f32 coefficients and accumulation, G on the
+// stored output).
 //
 // Width: one launch writes k <= 128 rows of Y and contracts over kin >= k
 // input rows of each field (a row chunk of a wider field, ops/fused.py).
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(kUpThreads, MINB)
   float* sY = reinterpret_cast<float*>(sB + kUpStages * kc * kUpTile);
   for (int e = threadIdx.x; e < nin * kRows; e += kUpThreads) {
     const int c = e / kRows, r = e % kRows;
-    sM[e] = r >= k ? 0.f : rounded<E>(c < kin ? M1[r * kin + c] : M2[r * kin + c - kin]);
+    sM[e] = r >= k ? 0.f : (c < kin ? M1[r * kin + c] : M2[r * kin + c - kin]);
   }
   using Gram = SymGram<GK ? GK : 8, kUpThreads, GK >= 64 ? 8 : 4>;
   static_assert(Gram::kScratch <= kUpThreads * (GK > 32 ? 64 : 16),

@@ -19,6 +19,11 @@
 // (kin, n); a wider update is one launch per chunk of rows, each with the
 // Gram of its own rows (ops/fused.py adds the cross blocks).
 //
+// bf16 fields (bcg_xr_update_gram_bf16): P, X, Z, R, Xn and Rn are bf16,
+// alpha stays f32. X and R are lifted to f32, every FMA runs in f32, Xn and Rn
+// are rounded once where they are stored, and the Gram is of the stored Rn:
+// the tile stages each rounded value, lifted back to f32.
+//
 // In place: Xn may be the same buffer as X and Rn the same as R (the solvers
 // donate both). Column i of each output depends only on column i of the
 // inputs, and a thread reads all of its column before it writes it, so those
@@ -27,11 +32,12 @@
 
 namespace {
 
-template <int KMAX>
+// E: the field element (float or bf16).
+template <typename E, int KMAX>
 __global__ void __launch_bounds__(kThreads)
-    xr_update_gram(const float* __restrict__ Alpha, const float* __restrict__ P,
-                   const float* X, const float* __restrict__ Z, const float* R,
-                   float* Xn, float* Rn, float* __restrict__ part, int k,
+    xr_update_gram(const float* __restrict__ Alpha, const E* __restrict__ P,
+                   const E* X, const E* __restrict__ Z, const E* R,
+                   E* Xn, E* Rn, float* __restrict__ part, int k,
                    int kin, long long n) {
   extern __shared__ __align__(16) float smem[];  // alphaT | rs
   float* a = smem;
@@ -49,8 +55,8 @@ __global__ void __launch_bounds__(kThreads)
     if (valid) {
 #pragma unroll 4
       for (int c = 0; c < kin; ++c) {
-        const float pc = P[c * n + i];
-        const float zc = Z[c * n + i];
+        const float pc = to_f32(P[c * n + i]);
+        const float zc = to_f32(Z[c * n + i]);
         const float* ac = a + c * KMAX;
 #pragma unroll
         for (int s = 0; s < KMAX; ++s) {
@@ -62,25 +68,43 @@ __global__ void __launch_bounds__(kThreads)
     store_col<KMAX>(Xn, x, k, n, i, valid);
     store_col<KMAX>(Rn, r, k, n, i, valid);
     __syncthreads();
-    stage_col<KMAX>(rs, r);
+    stage_col<KMAX, E>(rs, r);  // the stored Rn
     __syncthreads();
     g.accumulate(rs, rs);
   }
   g.store(part + static_cast<long long>(blockIdx.x) * k * k, k);
 }
 
-template <int KMAX>
-cudaError_t launch(const float* Alpha, const float* P, const float* X,
-                   const float* Z, const float* R, float* Xn, float* Rn,
-                   float* part, float* G, int k, int kin, long long n, int nblocks,
+template <typename E, int KMAX>
+cudaError_t launch(const float* Alpha, const E* P, const E* X, const E* Z, const E* R, E* Xn,
+                   E* Rn, float* part, float* G, int k, int kin, long long n, int nblocks,
                    cudaStream_t stream) {
-  auto kernel = xr_update_gram<KMAX>;
+  auto kernel = xr_update_gram<E, KMAX>;
   const size_t smem = (coeff_cols<KMAX>(kin) * KMAX + KMAX * kLd) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<nblocks, kThreads, smem, stream>>>(Alpha, P, X, Z, R, Xn, Rn, part, k, kin, n);
   launch_reduce(part, G, k, nblocks, stream);
   return cudaGetLastError();
+}
+
+template <typename E>
+int xr_update_gram_entry(const float* Alpha, const E* P, const E* X, const E* Z, const E* R,
+                         E* Xn, E* Rn, float* part, float* G, int k, int kin, long long n,
+                         int nblocks, int device, cudaStream_t stream) {
+  if (nblocks < 1 || n < 1 || kin < k) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+#define BCG_XR(KMAX) \
+  return launch<E, KMAX>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream)
+  switch (kmax_for(k)) {
+    case 8: BCG_XR(8);
+    case 16: BCG_XR(16);
+    case 32: BCG_XR(32);
+    case 64: BCG_XR(64);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BCG_XR
 }
 
 }  // namespace
@@ -91,14 +115,16 @@ extern "C" int bcg_xr_update_gram(const float* Alpha, const float* P,
                                   const float* R, float* Xn, float* Rn,
                                   float* part, float* G, int k, int kin, long long n,
                                   int nblocks, int device, cudaStream_t stream) {
-  if (nblocks < 1 || n < 1 || kin < k) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  switch (kmax_for(k)) {
-    case 8: return launch<8>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
-    case 16: return launch<16>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
-    case 32: return launch<32>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
-    case 64: return launch<64>(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return xr_update_gram_entry(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, device,
+                              stream);
+}
+
+// The same on bf16 fields; alpha stays f32, and G is the f32 Gram of the
+// stored bf16 Rn.
+extern "C" int bcg_xr_update_gram_bf16(const float* Alpha, const bf16* P, const bf16* X,
+                                       const bf16* Z, const bf16* R, bf16* Xn, bf16* Rn,
+                                       float* part, float* G, int k, int kin, long long n,
+                                       int nblocks, int device, cudaStream_t stream) {
+  return xr_update_gram_entry(Alpha, P, X, Z, R, Xn, Rn, part, G, k, kin, n, nblocks, device,
+                              stream);
 }

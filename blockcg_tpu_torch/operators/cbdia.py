@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from blockcg_tpu_torch.operators.base import MatmatMixin
+from blockcg_tpu_torch.ops import _native
 from blockcg_tpu_torch.ops import const_block_stencil as cbs
 
 
@@ -240,7 +241,13 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
         """Y = A X on the merged view. One right-hand side (m = bs) goes
         through the (k, bs, ns) view's kernels, which the merged (bs, ns)
         field already is at k = 1, as in the reference (``cbdia.py:179-199``);
-        wider blocks through the merged kernels."""
+        wider blocks through the merged kernels. A bf16 operator and field
+        take the reference's route for the dtypes its kernels refuse
+        (``_env_ok``; ``_native.f32_gate_refuses``): every diagonal, slab
+        ones included, in offset order by the plain roll-and-einsum
+        (``_matmat_m_plain``), and no kernel wrapper is called."""
+        if _native.f32_gate_refuses(self.hops_all, Xm):
+            return self._matmat_m_plain(Xm)
         if Xm.shape[0] == self.bs:
             return self._apply_v(Xm.reshape(1, self.bs, self.ns)).reshape(self.bs, self.ns)
         return self._apply_m(Xm, False)[0]
@@ -261,10 +268,13 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
         """Fused ``(Y = A X, G = X^T Y)`` with G contracted to k x k, on the
         flat or the merged view, through the merged kernels at every k (the
         reference's merged kernel needs 8 | m and has no fused Gram at k = 1;
-        the CUDA one takes any m)."""
+        the CUDA one takes any m). On a bf16 field G is None, as the
+        reference's: the solvers take it from ``gram`` on the stored Y."""
         if not self._is_internal(Xt):
             Ym, G = self.matmat_gram_t(self.to_internal(Xt))
             return self.from_internal(Ym), G
+        if _native.f32_gate_refuses(self.hops_all, Xt):
+            return self._apply(Xt), None
         Ym, Gm = self._apply_m(Xt, True)
         return Ym, self.gram_contract(Gm)
 

@@ -18,14 +18,25 @@ Dispatch rule, shared by every wrapper in ``ops/``:
   gate sends f64 to XLA instead of Pallas;
 - CUDA bfloat16 fields launch the kernel's bf16 variant on the wrappers that
   have one (``field_kernel``): ``gram``, ``mm_update``, ``mm_update_gram``,
-  ``mm2_update_gram`` and ``px_update`` with float32 k x k coefficients,
-  ``stencil_spmm_t`` and ``stencil_spmm_gram_t`` with bfloat16 diagonals. A
-  bf16 field beside coefficients of another dtype, a mixed stencil pair
-  (bf16 diagonals with an f32 field, or the reverse) and a bf16 operand on
-  any other wrapper (``xr_update_gram``, ``qr_p_update``, ``qr_px_update``,
-  ``cheb_step``, the lattice, block, slab and tile kernels) raise
-  ``TypeError``;
-- any other device, dtype or a non-contiguous operand raises.
+  ``mm2_update_gram``, ``px_update``, ``xr_update_gram``, ``qr_p_update``
+  and ``qr_px_update`` with float32 k x k coefficients, ``stencil_spmm_t``
+  and ``stencil_spmm_gram_t`` with bfloat16 diagonals. A bf16 field beside
+  coefficients of another dtype and a mixed stencil pair (bf16 diagonals
+  with an f32 field, or the reverse) raise ``TypeError``;
+- CUDA bfloat16 operands of the const-hop kernels (the stencil and slab
+  adds of ``ops/const_block_stencil.py``, rows 14-21) run the plain version,
+  as float64 does: the reference's gate for those kernels
+  (``ConstBlockDIAOperator._env_ok``, ``blockcg_tpu/operators/cbdia.py:133-141``,
+  which its main and slab kernels share) takes float32 alone and sends every
+  other dtype to XLA. ``f32_gate_refuses`` is this rule; the operator
+  (``operators/cbdia.py``) reads it and sends a bf16 field whole to the
+  plain roll-and-einsum, diagonals in the reference's order, and the
+  wrappers read it through ``f32_kernel`` for direct calls. The rule reads
+  the dtypes before any launch; nothing is tried and retried. A bf16
+  operand beside an f32 one there raises ``TypeError``;
+- a bf16 operand on any other wrapper (``cheb_step``, the block and tile
+  kernels) raises ``TypeError``, as does any other dtype; any other device
+  and a non-contiguous operand raise ``ValueError``.
 
 ``launches`` counts kernel launches per wrapper; the wrappers add to it where
 they launch and nowhere else. A bf16 variant counts under its own name, the
@@ -86,6 +97,20 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("CUDA kernel operands must be contiguous")
     return True
+
+
+def f32_gate_refuses(*tensors: torch.Tensor) -> bool:
+    """True for operands that are all bfloat16, which a route whose
+    reference kernels take float32 alone (the const-hop stencil and slab
+    adds) runs by its plain version on any device, as float64 runs on the
+    card (see the module docstring)."""
+    return all(t.dtype == torch.bfloat16 for t in tensors)
+
+
+def f32_kernel(*tensors: torch.Tensor) -> bool:
+    """``use_kernel`` for the wrappers of those kernels: False where
+    ``f32_gate_refuses``."""
+    return not f32_gate_refuses(*tensors) and use_kernel(*tensors)
 
 
 def field_kernel(fields, coeffs=(), bf16_coeffs: torch.dtype = torch.float32):
@@ -254,7 +279,8 @@ def library() -> ctypes.CDLL:
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, I, P, P, I, I, L, I, I, I, I, P]
     for fn in ("stencil_spmm", "mm_update", "gram", "mm_update_gram", "mm2_update_gram",
-               "px_update"):  # the bf16 variants take the f32 kernels' arguments
+               "px_update", "xr_update_gram", "qr_p_update",
+               "qr_px_update"):  # the bf16 variants take the f32 kernels' arguments
         getattr(lib, f"bcg_{fn}_bf16").argtypes = getattr(lib, f"bcg_{fn}").argtypes
         getattr(lib, f"bcg_{fn}_bf16").restype = I
     for fn in (lib.bcg_stencil_spmm, lib.bcg_mm_update, lib.bcg_gram,

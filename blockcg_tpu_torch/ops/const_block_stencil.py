@@ -55,10 +55,12 @@ stored Y on the flat fields; the slab's with-Gram form computes its
 increment on the slab's columns alone, takes its Gram there, and adds it, so
 Y's bits are the one-launch add's.
 
-Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
-plain versions below (the reference's ``_matmat_m_xla`` roll-and-einsum, and
-an in-place slab add), CUDA float32 tensors launch the kernels. Kernel
-bounds: at most 32 diagonals and bs <= 8; the wrappers raise outside them.
+Dispatch follows ``ops/_native.py`` ``f32_kernel``: CPU tensors and CUDA
+float64 and bfloat16 tensors run the plain versions below (the reference's
+``_matmat_m_xla`` roll-and-einsum, and an in-place slab add), CUDA float32
+tensors launch the kernels: the reference's kernels take float32 alone
+(``ConstBlockDIAOperator._env_ok``). Kernel bounds: at most 32 diagonals
+and bs <= 8; the wrappers raise outside them.
 """
 
 from __future__ import annotations
@@ -278,22 +280,27 @@ class MergedPlans:
 def const_block_stencil_plain(hops, offsets, mask_slot, masks, Xm,
                               with_gram: bool = False):
     """Plain PyTorch version: the roll-and-einsum of the reference's
-    ``ConstBlockDIAOperator._matmat_m_xla``. Returns ``(Ym, Gm or None)``
-    with ``Gm = X Y^T`` taken on the accumulator."""
+    ``ConstBlockDIAOperator._matmat_m_xla`` (``blockcg_tpu/operators/cbdia.py:233-248``),
+    which works in the field dtype: each diagonal's term, the bs x bs hop
+    times the rolled X (exact products of a bf16 field summed in f32), is
+    stored in the field dtype, masked there and added to Y there, diagonal
+    by diagonal in the order given; on a bf16 field each of those steps
+    rounds to bf16, as the reference's does. Returns ``(Ym, Gm or None)``
+    with ``Gm = X Y^T`` of the stored Y."""
     bs = hops.shape[-1]
     m, ns = Xm.shape
     adt = acc_dtype(Xm.dtype)
-    Xv = Xm.reshape(bs, m // bs, ns).to(adt)
+    Xv = Xm.reshape(bs, m // bs, ns)
     H = hops.to(adt)
     Yv = torch.zeros_like(Xv)
     for d, o in enumerate(offsets):
         src = Xv if o % ns == 0 else torch.roll(Xv, -o, dims=2)
-        t = torch.tensordot(H[d], src, dims=1)
+        t = torch.tensordot(H[d], src.to(adt), dims=1).to(Xm.dtype)
         if mask_slot[d] >= 0:
-            t = t * masks[mask_slot[d]].to(adt)
+            t = t * masks[mask_slot[d]].to(Xm.dtype)
         Yv += t
     Y = Yv.reshape(m, ns)
-    return Y.to(Xm.dtype), (gram_t(Xm, Y) if with_gram else None)
+    return Y, (gram_t(Xm, Y) if with_gram else None)
 
 
 def slab_columns(g: int, nblocks: int, dst_mul: int, dst_off: int,
@@ -464,7 +471,7 @@ def _main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str, plans
     hops = _hops(hops, Xm)
     _check_main(hops, offsets, mask_slot, masks, Xm, name)
     ops = (hops, Xm) if masks is None else (hops, masks, Xm)
-    if not _native.use_kernel(*ops):
+    if not _native.f32_kernel(*ops):
         return const_block_stencil_plain(hops, offsets, mask_slot, masks, Xm, with_gram)
     return _launch_merged(hops, offsets, mask_slot, masks, Xm, with_gram, name, plans)
 
@@ -483,7 +490,7 @@ def _view(hops, offsets, mask_slot, masks, Xt, with_gram: bool, name: str):
     # The merged view's checks, on the field's (bs * k, ns) shape.
     _check_main(hops, offsets, mask_slot, masks, Xt.reshape(bs * k, ns), name)
     ops = (hops, Xt) if masks is None else (hops, masks, Xt)
-    if not _native.use_kernel(*ops):
+    if not _native.f32_kernel(*ops):
         Yv, G = const_block_stencil_v_plain(hops, offsets, mask_slot, masks,
                                             Xt.reshape(k, bs, ns), with_gram)
         return Yv.reshape(Xt.shape), G
@@ -566,7 +573,7 @@ def slab_m_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
     hop = _hops(hop, Xm)
     _check_slab(hop, g, nblocks, dst_mul, Xm, Ym, Gm if with_gram else None, name)
     ops = [hop, Xm, Ym] + ([Gm] if with_gram and Gm is not None else [])
-    if not _native.use_kernel(*ops):
+    if not _native.f32_kernel(*ops):
         return slab_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xm, Ym,
                           Gm, with_gram)
     m, ns = Xm.shape
@@ -610,7 +617,7 @@ def slab_block_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
     k, _, ns = Xv.shape
     _check_slab(hop, g, nblocks, dst_mul, Xv.reshape(bs * k, ns), Yv.reshape(bs * k, ns),
                 None, name)
-    if not _native.use_kernel(hop, Xv, Yv):
+    if not _native.f32_kernel(hop, Xv, Yv):
         return slab_v_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xv, Yv)
     chunks = _native.row_chunks(k, rhs_width(bs, name))
     if Yv.data_ptr() == Xv.data_ptr():
@@ -661,7 +668,7 @@ def slab_m_accumulate_from(hop, g: int, nblocks: int, dst_base: int, src_base: i
         raise ValueError(f"{name}: the Gram needs the local field X shaped like Y")
     ops = ([hop, Src, Ym] + ([vals] if vals is not None else [])
            + ([Xm] if with_gram else []))
-    if not _native.use_kernel(*ops):
+    if not _native.f32_kernel(*ops):
         return slab_from_plain(hop, g, nblocks, dst_base, src_base, Src, Ym, Xm, vals,
                                with_gram)
     bs = hop.shape[-1]
@@ -702,7 +709,7 @@ def slab_block_accumulate_from(hop, g: int, nblocks: int, dst_base: int, src_bas
     k, _, ns = Yv.shape
     bw = Src.shape[2]
     _check_from(hop, g, nblocks, dst_base, src_base, bs * k, bw, ns, None, name)
-    if not _native.use_kernel(hop, Src, Yv):
+    if not _native.f32_kernel(hop, Src, Yv):
         return slab_v_from_plain(hop, g, nblocks, dst_base, src_base, Src, Yv)
     if Yv.data_ptr() == Src.data_ptr():
         raise ValueError(f"{name}: Y must not share Src's storage")

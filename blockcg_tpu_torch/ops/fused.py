@@ -31,15 +31,18 @@ launches the kernel. Grams are taken on the stored output. Fields must be
 contiguous; the k x k coefficients are made so (they are often transposed
 views).
 
-bf16 fields: ``gram``, ``mm_update``, ``mm_update_gram``,
-``mm2_update_gram`` and ``px_update`` take bfloat16 fields with float32
-k x k coefficients (CUDA: the kernels' bf16 variants, counted as
-``name[bf16]``). Their contract is the reference kernels' on bf16
-(``blockcg_tpu/ops/fused.py`` ``_mxu_pair``, ``_dot_gram``): the
-coefficient is rounded to bf16 for the multiply (``solvers.common.
-field_coeff``), products are exact and summed in f32, outputs are stored
-in bf16, and a fused Gram is taken on the stored bf16 output, its f32 sum of
-exact products. The other updates refuse bf16 on the card.
+bf16 fields: every update here but ``cheb_step`` takes bfloat16 fields
+with float32 k x k coefficients (CUDA: the kernels' bf16 variants, counted
+as ``name[bf16]``). Their contract is the reference kernels' on bf16
+fields with its f32 coefficient route (``blockcg_tpu/ops/fused.py``
+``_mxu_pair`` under ``BLOCKCG_NO_BF16_MXU=1``; its default rounds each
+coefficient to bf16 for the TPU's bf16 MXU rate, which stalls bf16 BCG and
+breaks BCGA down, and buys nothing here, where the kernels multiply in
+f32): the f32 coefficient times the field lifted to f32, summed in f32,
+outputs stored in bf16 (``qr_p_update`` and ``qr_px_update`` add rho P to
+the unrounded f32 Q), and a fused Gram taken on the stored bf16 output,
+its f32 sum of exact products. ``cheb_step`` refuses bf16 on the card, as the reference's gate
+does (``cheb_step_available``).
 
 ``donate`` writes an output into the storage of the named input, which the
 caller must treat as dead afterwards; both routes honour it, so a caller that
@@ -307,12 +310,13 @@ def mm2_update_gram_plan(k: int, device, esize: int = 4) -> UpdatePlan:
                         _native.max_smem(device.index), False, esize)
 
 
-def qr_p_update_plan(k: int, device) -> UpdatePlan:
+def qr_p_update_plan(k: int, device, esize: int = 4) -> UpdatePlan:
     """The launches of ``qr_p_update`` on k rows (``csrc/px_update.cu``, QR):
     up to 96 rows one launch (128 where the two coefficient tables leave
     room), which reads Q1 and P once, so donated Q1 and P take Q and Pn in
-    place; wider, row chunks, each reading all of Q1 and P."""
-    return _update_plan("qr_p_update", k, 2, 2, 0, _native.max_smem(device.index), True)
+    place; wider, row chunks, each reading all of Q1 and P. ``esize``: bytes
+    of a field element (2 on bf16 fields)."""
+    return _update_plan("qr_p_update", k, 2, 2, 0, _native.max_smem(device.index), True, esize)
 
 
 def px_update_plan(k: int, device, esize: int = 4) -> UpdatePlan:
@@ -608,7 +612,8 @@ def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
     """(Xn = X + alpha P, Rn = R - alpha Z, G = Rn Rn^T); ``donate`` writes
     Xn onto X and Rn onto R (P and Z are only read)."""
     alpha = alpha.contiguous()
-    if not _native.use_kernel(alpha, P, X, Z, R):
+    dt = _native.field_kernel((P, X, Z, R), (alpha,))
+    if dt is None:
         Xn, Rn, G = xr_update_gram_plain(alpha, P, X, Z, R)
         if donate:
             return X.copy_(Xn), R.copy_(Rn), G
@@ -622,10 +627,11 @@ def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
     Xn, Rn = (X, R) if donate else (torch.empty_like(X), torch.empty_like(R))
     chunks = _chunks(k, 1, True, "xr_update_gram", P.device)
     p = _native.ptr
+    name = _native.variant("xr_update_gram", "bcg_xr_update_gram", dt)
     diag = []
     for r0, r1 in chunks:
         part, G = _gram_buffers(r1 - r0, n, P.device)
-        _native.launch("xr_update_gram", "bcg_xr_update_gram", P.device, p(alpha[r0:r1]),
+        _native.launch(*name, P.device, p(alpha[r0:r1]),
                        p(P), p(X[r0:r1]), p(Z), p(R[r0:r1]), p(Xn[r0:r1]), p(Rn[r0:r1]),
                        p(part), p(G), r1 - r0, k, n, _native.nblocks(n))
         diag.append(G)
@@ -638,7 +644,8 @@ def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     """(Q = M2 Q1, Pn = Q + rho P); ``donate`` writes Q onto Q1 and Pn onto
     P."""
     M2, rho = M2.contiguous(), rho.contiguous()
-    if not _native.use_kernel(M2, Q1, rho, P):
+    dt = _native.field_kernel((Q1, P), (M2, rho))
+    if dt is None:
         Q, Pn = qr_p_update_plain(M2, Q1, rho, P)
         if donate:
             return Q1.copy_(Q), P.copy_(Pn)
@@ -648,13 +655,14 @@ def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     k, n = Q1.shape
     for M, what in ((M2, "M2"), (rho, "rho")):
         _native.check_kk(M, k, f"qr_p_update {what}")
-    plan = qr_p_update_plan(k, Q1.device)
+    plan = qr_p_update_plan(k, Q1.device, Q1.element_size())
     # Every chunk reads all of Q1 and P: donated outputs wait for the last.
     direct = donate and plan.in_place
     Q, Pn = (Q1, P) if direct else (torch.empty_like(Q1), torch.empty_like(P))
     p = _native.ptr
+    name = _native.variant("qr_p_update", "bcg_qr_p_update", dt)
     for r0, r1 in plan.chunks:
-        _native.launch("qr_p_update", "bcg_qr_p_update", Q1.device, p(M2[r0:r1]), p(Q1),
+        _native.launch(*name, Q1.device, p(M2[r0:r1]), p(Q1),
                        p(rho[r0:r1]), p(P), p(Q[r0:r1]), p(Pn[r0:r1]), r1 - r0, k, n,
                        plan.kc)
     if donate and not direct:
@@ -669,7 +677,8 @@ def qr_px_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     feeds both updates. ``donate`` writes Q onto Q1, Pn onto P and Xn onto
     X. No solver calls it (in the reference neither)."""
     M2, rho, C = M2.contiguous(), rho.contiguous(), C.contiguous()
-    if not _native.use_kernel(M2, Q1, rho, P, C, X):
+    dt = _native.field_kernel((Q1, P, X), (M2, rho, C))
+    if dt is None:
         Q, Pn, Xn = qr_px_update_plain(M2, Q1, rho, P, C, X)
         if donate:
             return Q1.copy_(Q), P.copy_(Pn), X.copy_(Xn)
@@ -685,8 +694,9 @@ def qr_px_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     Q, Pn = (Q1, P) if direct else (torch.empty_like(Q1), torch.empty_like(P))
     Xn = X if donate else torch.empty_like(X)
     p = _native.ptr
+    name = _native.variant("qr_px_update", "bcg_qr_px_update", dt)
     for r0, r1 in chunks:
-        _native.launch("qr_px_update", "bcg_qr_px_update", Q1.device, p(M2[r0:r1]),
+        _native.launch(*name, Q1.device, p(M2[r0:r1]),
                        p(Q1), p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Q[r0:r1]),
                        p(Pn[r0:r1]), p(Xn[r0:r1]), r1 - r0, k, n, _native.nblocks(n))
     if donate and not direct:

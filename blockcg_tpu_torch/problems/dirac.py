@@ -121,14 +121,21 @@ def dirac_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
     hop blocks and 0/1 boundary masks. Wrap diagonals whose support is whole
     g-site slabs (the z-wraps, from L = 16 on) go to the slab kernel
     (``detect_slabs``). A complex dtype gives complex hops over real masks:
-    a container, whose card route is ``realify``."""
-    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_cbdia")
+    a container, whose card route is ``realify``. ``torch.bfloat16`` builds
+    in float32 and rounds every hop entry to bf16 (round to nearest even,
+    as the reference's bf16 build does), so ``hops`` holds the bf16 values
+    and an f64 copy (``astype``) applies exactly the bf16 matrix."""
+    bf16 = dtype == torch.bfloat16
+    np_dtype, cplx, H, ns, coords, strides = _setup(
+        L, bc, torch.float32 if bf16 else dtype, seed, "dirac_cbdia")
     scal = complex if cplx else float
     # Boundary masks are real 0/1 gates, of the dtype's real width.
     single = np_dtype in (np.float32, np.complex64)
     mask_dtype = np.float32 if single else np.float64
 
     def tup(block: np.ndarray) -> tuple:
+        if bf16:
+            block = torch.from_numpy(np.asarray(block)).to(torch.bfloat16).double().numpy()
         return tuple(tuple(scal(v) for v in row) for row in block)
 
     offsets: list[int] = [0]
@@ -165,7 +172,7 @@ def dirac_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
     slabs = detect_slabs(masks_np, offsets, mask_slot, ns)
     return ConstBlockDIAOperator.from_numpy(
         masks_np, tuple(hops), tuple(offsets), tuple(mask_slot), ns,
-        slabs=slabs, nnz=nnz, dtype=torch.float32 if single else torch.float64,
+        slabs=slabs, nnz=nnz, dtype=dtype if bf16 else (torch.float32 if single else torch.float64),
         device=device)
 
 

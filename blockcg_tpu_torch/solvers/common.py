@@ -28,18 +28,6 @@ def acc_dtype(dt: torch.dtype) -> torch.dtype:
     return torch.float32 if dt == torch.bfloat16 else dt
 
 
-def field_coeff(a: torch.Tensor, field_dtype: torch.dtype) -> torch.Tensor:
-    """The k x k coefficient ``a`` as the fused kernels multiply a field of
-    ``field_dtype`` by it. On bf16 fields it is rounded to bf16 and lifted
-    back to its own dtype, so the multiply is exact products summed in f32
-    (the reference's Pallas kernels round it for the bf16 MXU:
-    ``blockcg_tpu/ops/fused.py`` ``_mxu_pair``); on any other field it is
-    ``a`` itself. The k x k algebra that made ``a`` stays f32."""
-    if field_dtype == torch.bfloat16 and a.dtype == torch.float32:
-        return a.to(torch.bfloat16).to(a.dtype)
-    return a
-
-
 # Field-algebra codec shims (operators/base.py): ``codec=None`` means flat
 # fields (identity).
 
@@ -70,9 +58,10 @@ def _nc(codec, v):
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """k x k coefficient times a lanes-major field (k, ...), in the
-    coefficient's dtype (a bf16 field is lifted to it, and the coefficient
-    rounded as ``field_coeff`` says)."""
-    return torch.tensordot(field_coeff(a, b.dtype), b.to(a.dtype), dims=1)
+    coefficient's dtype (a bf16 field is lifted to it; an f32 coefficient
+    stays f32, as on the reference's f32 coefficient route,
+    ``BLOCKCG_NO_BF16_MXU=1``)."""
+    return torch.tensordot(a, b.to(a.dtype), dims=1)
 
 
 def kk_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

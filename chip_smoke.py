@@ -58,15 +58,25 @@ on the bf16 preset (inner slices of 32, tol 1e-6) to a true f64 relres <=
 runs its first inner solve again at ``qr_passes=2`` (the second QR pass,
 which the adaptive default did not take on the lean path) beside the same
 solve at ``qr_passes=1``; and ``[config5] f32`` drives ``solve_refined`` on
-the f32 preset to the same tol.
+the f32 preset to the same tol. Then the bf16 presets of configs 1-4
+(``[bf16presets]``, as ``bench_cli.py --dtype bf16 [--refined]`` runs them):
+``xr_update_gram[bf16]``, ``qr_p_update[bf16]`` and ``qr_px_update[bf16]``
+against their plain versions at (16, 512^2), (48, 32^4) and m = 96; then,
+at full size, CG on config 1's column 0, BCG, BCGA and BCGdQ on config 2,
+SBCGrQ on configs 3 and 4 (config 4's const-hop applies on the plain route,
+no const-hop kernel launched), each beside ``solve_refined`` on the bf16
+operator and the f32 B to 1e-6 (up to 16 cycles: config 2's, with inner
+BCG, takes about 11).
 Each phase prints one or a few lines; any failure raises, and the process exits
 non-zero. The last two lines are the kernels' JSON record, whose launch
 counts are those of each kernel's own path (the north-star solves, config 4,
 configs 1 and 2, the multi-shift solves, the matrix-link solves, the
 Chebyshev solves, the even-odd CG, the sparse solves or the ``[dist]``
-solves, the ``[config5] lean`` solve for the bf16 variants; the (k, bs, ns)
-Gram and ``qr_px_update`` have no solver caller and count 0, nor does
-``mm_update_gram[bf16]`` on the lean path), with each kernel's bound (the
+solves, the ``[config5] lean`` solve for the bf16 variants of rows 1-9,
+config 2's bf16 solves for ``xr_update_gram[bf16]``; the (k, bs, ns) Gram,
+``qr_px_update`` and the bf16 ``qr_p_update`` and ``qr_px_update`` have no
+solver caller and count 0, nor does ``mm_update_gram[bf16]`` on the lean
+path), with each kernel's bound (the
 larger of its contract's bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s,
 989 TFLOP/s for products of bf16 fields: the H100 SXM's data-sheet peaks) and, where one PyTorch call
 computes the same function, that call's time; and the run's JSON result. It
@@ -133,11 +143,16 @@ KERNELS = {
     "slab_block_accumulate_from": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                                    "blockcg_tpu/ops/const_block_stencil.py:955"),
 }
-# The bf16 variants (config 5's capacity route): wrapper[bf16] -> (source,
-# the TPU kernel whose bf16 branch it replaces).
-BF16_KERNELS = {f"{w}[bf16]": KERNELS[w] for w in (
+# The bf16 variants: wrapper[bf16] -> (source, the TPU kernel whose bf16
+# branch it replaces). Config 5's capacity route launches the first seven;
+# the bf16 presets of configs 1-4 the others (qr_p_update and qr_px_update
+# have no bf16 solver path: the reference's shifted-block SBCGrQ fails on
+# bf16 fields, and nothing calls qr_px_update).
+CONFIG5_BF16 = tuple(f"{w}[bf16]" for w in (
     "stencil_spmm_t", "stencil_spmm_gram_t", "gram", "mm_update", "mm_update_gram",
-    "mm2_update_gram", "px_update")}
+    "mm2_update_gram", "px_update"))
+PRESETS_BF16 = ("xr_update_gram[bf16]", "qr_p_update[bf16]", "qr_px_update[bf16]")
+BF16_KERNELS = {w: KERNELS[w.removesuffix("[bf16]")] for w in (*CONFIG5_BF16, *PRESETS_BF16)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 products with f32 sums, tensor cores, dense
@@ -262,6 +277,30 @@ BF16_ULPS = 1.0
 # version is the less accurate of the two). Each kernel's Gram of stored
 # bf16 fields is also held to GRAM_RTOL against its f64 sum.
 C5_GRAM_RTOL = 1e-4
+# [bf16presets]: configs 1-4 in bf16 as bench_cli.py --dtype bf16 runs them
+# (tol 1e-6, max_iter 2000; --refined: solve_refined with inner_tol 5e-3, the
+# f64 outer loop and the f32 B, inner BCG on config 2 and SBCGrQ on the
+# others), at full size. The refined solves are held to the true f64 relres
+# PRESETS_TOL against the f32 B; the plain solves' true relres is printed,
+# not held (a bf16 solve's true residual stalls at X's rounding), and their
+# X must stay bf16 and finite. Each refinement cycle contracts the true
+# residual only to about kappa(A) times bf16's rounding of the stored
+# correction, far less than inner_tol on config 2, whose 512^2 Laplacian is
+# the worst conditioned of the four: it needs about 11 cycles, past
+# bench_cli's default of 8 (the verbose cycles print where the 8th ends).
+# PRESETS_CYCLES lets every refined solve run to PRESETS_TOL.
+PRESETS_TOL = 1e-6
+PRESETS_MAX_ITER = 2000
+PRESETS_INNER_TOL = 5e-3
+PRESETS_CYCLES = 16
+PRESETS_DIRAC_K = 4 * DIRAC_K  # config 4's merged width, m = bs * k
+PRESETS_BCG_SHAPE = (16, 512 ** 2)  # config 2's field
+# The const-hop kernels a bf16 config 4 must not launch: their reference
+# gate takes float32 alone, and the operator sends a bf16 field whole to the
+# plain route (ops/_native.py f32_gate_refuses).
+CONST_HOP_KERNELS = (*CBS_KERNELS, "const_block_stencil_spmm_t",
+                     "const_block_stencil_spmm_gram_t", "slab_block_accumulate",
+                     "slab_m_accumulate_from", "slab_block_accumulate_from")
 
 
 def median_ms(torch, fn) -> float:
@@ -1965,6 +2004,40 @@ def bf16_ulps(torch, got, want, chunk: int = 1 << 25) -> float:
     return worst
 
 
+def bf16_compare(torch, name, what, got, want, gram_rtol) -> tuple[float, float]:
+    """Hold a bf16 variant's outputs against its plain version's: a stored
+    bf16 field within ``BF16_ULPS``, an f32 Gram within ``gram_rtol``
+    (relative Frobenius). Returns (the largest error, the largest absolute
+    difference)."""
+    torch.cuda.synchronize()
+    errs, abs_err = [], 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w.dtype == torch.float32:
+            err = relfro(g, w)
+            _check(f"{name} ({what})", "Gram", err, gram_rtol)
+        else:
+            err = bf16_ulps(torch, g, w)
+            _check(f"{name} ({what})", f"output {i} (bf16 ulps)", err, BF16_ULPS)
+        errs.append(err)
+        abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
+    return max(errs), abs_err
+
+
+def contract_distance(torch, tag, name, what, G, contract, other, margin: float) -> None:
+    """A fused Gram G against the f64 Gram of the operand pair its contract
+    names and of the other candidate (None: there is none): e_c and e_o are
+    relative Frobenius distances; the check needs e_c <= GRAM_RTOL and
+    margin * e_c < e_o. Prints one line after the phase's ``tag``."""
+    e_c, e_o = (float("inf") if p is None else
+                relfro(G.double(), p[0].double() @ p[1].double().T) for p in (contract, other))
+    print(f"{tag} gram contract {name} {what}: {e_c:.3e} from its contract's f64 Gram, "
+          f"{e_o:.3e} from the other candidate's (margin {margin:g})")
+    _check(f"{name} ({what})", "Gram against its f64 sum", e_c, GRAM_RTOL)
+    if not margin * e_c < e_o:
+        raise AssertionError(f"{name} ({what}): the Gram is {e_c:.3e} from its contract "
+                             f"and {e_o:.3e} from the other candidate (margin {margin:g})")
+
+
 def gram_contract(torch, op, M1, M2, B1, B2, margin: float, label: str) -> None:
     """Each fused Gram of the bf16 path against the f64 Gram of the operands
     its contract names and of the other candidate: row 2's X Y^T of its
@@ -1974,30 +2047,21 @@ def gram_contract(torch, op, M1, M2, B1, B2, margin: float, label: str) -> None:
     Frobenius distances; the check needs e_c <= GRAM_RTOL and margin * e_c
     < e_o."""
     from blockcg_tpu_torch.ops import fused, stencil
-    from blockcg_tpu_torch.solvers.common import field_coeff
 
     F1, F2 = B1.float(), B2.float()
-    R1, R2 = (field_coeff(M, torch.bfloat16) for M in (M1, M2))  # the staged coefficients
     cases = (  # name, kernel, its output Y -> (contract, other) operand pairs
         ("stencil_spmm_gram_t[bf16]",
          lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
          lambda Y: ((B1, stencil.stencil_spmm_t(op.diags.float(), op.offsets, F1)), (B1, Y))),
         ("gram[bf16]", lambda: (None, fused.gram(B1, B2)), lambda Y: ((B1, B2), None)),
         ("mm_update_gram[bf16]", lambda: fused.mm_update_gram(M1, B1),
-         lambda Y: ((Y, Y), (fused.mm_update(R1, F1),) * 2)),
+         lambda Y: ((Y, Y), (fused.mm_update(M1, F1),) * 2)),
         ("mm2_update_gram[bf16]", lambda: fused.mm2_update_gram(M1, B1, M2, B2),
-         lambda Y: ((Y, Y), (fused.mm2_update_gram(R1, F1, R2, F2)[0],) * 2)),
+         lambda Y: ((Y, Y), (fused.mm2_update_gram(M1, F1, M2, F2)[0],) * 2)),
     )
     for name, kern, pairs in cases:
         Y, G = kern()
-        e_c, e_o = (float("inf") if p is None else
-                    relfro(G.double(), p[0].double() @ p[1].double().T) for p in pairs(Y))
-        print(f"[config5] gram contract {name} {label}: {e_c:.3e} from its contract's f64 "
-              f"Gram, {e_o:.3e} from the other candidate's (margin {margin:g})")
-        _check(f"{name} ({label})", "Gram against its f64 sum", e_c, GRAM_RTOL)
-        if not margin * e_c < e_o:
-            raise AssertionError(f"{name} ({label}): the Gram is {e_c:.3e} from its contract "
-                                 f"and {e_o:.3e} from the other candidate (margin {margin:g})")
+        contract_distance(torch, "[config5]", name, label, G, *pairs(Y), margin)
         del Y, G
 
 
@@ -2077,24 +2141,12 @@ def phase_config5_kernels(torch, dev, records) -> None:
          (nbytes(M1, M2, M3) + 5 * fb, 2 * n * nnz(M1, M2, M3)), None),
     ]
     for name, kern, plain, f32, work, library in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        errs, abs_err = [], 0.0
-        for i, (g, w) in enumerate(zip(got, want)):
-            if w.dtype == torch.float32:
-                err = relfro(g, w)
-                _check(f"{name} ({what})", "Gram", err, C5_GRAM_RTOL)
-            else:
-                err = bf16_ulps(torch, g, w)
-                _check(f"{name} ({what})", f"output {i} (bf16 ulps)", err, BF16_ULPS)
-            errs.append(err)
-            abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
-        del got, want
+        err, abs_err = bf16_compare(torch, name, what, kern(), plain(), C5_GRAM_RTOL)
         ms, plain_ms, f32_ms = (median_ms(torch, fn) for fn in (kern, plain, f32))
         bound, by = bound_ms(*work, BF16_FLOPS)
         lib_ms = None if library is None else median_ms(torch, library)
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[config5] kernels {name} {what}: max err {max(errs):.2e} (ulps of a field, "
+        print(f"[config5] kernels {name} {what}: max err {err:.2e} (ulps of a field, "
               f"rel Frobenius of a Gram; max abs {abs_err:.2e}), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
               f"{work[0] / 1e6:.1f} MB, {work[1] / 1e9:.2f} GFLOP), library {lib}")
@@ -2247,6 +2299,184 @@ def phase_config5_f32(torch, dev, lean_peak: float) -> None:
           f"{rel:.3e}, peak allocated {peak:.2f} GiB (lean route {lean_peak:.2f} GiB)")
     if not (bool(info.converged.all()) and rel <= CONFIG5_TOL):
         raise AssertionError(f"[config5] f32: true relres {rel:.3e}, not {CONFIG5_TOL:g}: {info}")
+
+
+def phase_bf16presets_kernels(torch, dev, records) -> None:
+    """``[bf16presets] kernels``: the bf16 variants of rows 10, 12 and 13
+    against their plain versions: ``xr_update_gram[bf16]`` at config 2's
+    field (16, 512^2) and at config 4's merged (48, 32^4) on I_4 ⊗ C
+    coefficients, ``qr_p_update[bf16]`` at (48, 32^4) and at m = 96,
+    ``qr_px_update[bf16]`` at (48, 32^4). Fields within ``BF16_ULPS`` of the
+    plain version's, the Gram within ``GRAM_RTOL`` of it and, by
+    ``contract_distance``, nearer the f64 Gram of the stored bf16 Rn than of
+    the unrounded f32 Rn (by ``GRAM_MARGIN`` at 512^2, by 1 at 32^4, as
+    [config5] at its cut and at full size). Times (event medians) of the
+    variant, its plain version and the f32 kernel on the same values; the
+    first shape of each sets its record. No single PyTorch call computes any
+    of the three fused functions."""
+    from blockcg_tpu_torch.ops import fused
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for name in PRESETS_BF16:
+        _library_note(name, "no single PyTorch call computes the fused outputs")
+
+    def coeff(m, k):  # m x m: dense (k == m) or I_bs ⊗ C with C k x k
+        C = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
+        return C if k == m else torch.kron(torch.eye(m // k, device=dev), C)
+
+    c4 = (PRESETS_DIRAC_K, DIRAC_K, DIRAC_L ** 4)
+    cases = (  # name, label, (m, k of C, n), Gram margin
+        ("xr_update_gram[bf16]", "config 2", (*PRESETS_BCG_SHAPE[:1], *PRESETS_BCG_SHAPE),
+         GRAM_MARGIN),
+        ("xr_update_gram[bf16]", "config 4", c4, 1.0),
+        ("qr_p_update[bf16]", "config 4", c4, None),
+        ("qr_p_update[bf16]", f"m = {WIDE_M}", (WIDE_M, WIDE_M // 4, DIRAC_L ** 4), None),
+        ("qr_px_update[bf16]", "config 4", c4, None),
+    )
+    for name, label, (m, k, n), margin in cases:
+        A1, A2, A3 = (coeff(m, k) for _ in range(3))
+        F = [torch.randn((m, n), generator=gen, device=dev).to(bf) for _ in range(4)]
+        F32 = [f.float() for f in F]
+        fb = nbytes(F[0])
+        if name.startswith("xr_update_gram"):
+            calls = (lambda: fused.xr_update_gram(A1, *F),
+                     lambda: fused.xr_update_gram_plain(A1, *F),
+                     lambda: fused.xr_update_gram(A1, *F32))
+            work = (nbytes(A1) + 6 * fb + 4 * m * m, 4 * n * nnz(A1) + syrk_flops(m, n))
+        elif name.startswith("qr_p_update"):
+            calls = (lambda: fused.qr_p_update(A1, F[0], A2, F[1]),
+                     lambda: fused.qr_p_update_plain(A1, F[0], A2, F[1]),
+                     lambda: fused.qr_p_update(A1, F32[0], A2, F32[1]))
+            work = (nbytes(A1, A2) + 4 * fb, 2 * n * nnz(A1, A2))
+        else:
+            calls = (lambda: fused.qr_px_update(A1, F[0], A2, F[1], A3, F[2]),
+                     lambda: fused.qr_px_update_plain(A1, F[0], A2, F[1], A3, F[2]),
+                     lambda: fused.qr_px_update(A1, F32[0], A2, F32[1], A3, F32[2]))
+            work = (nbytes(A1, A2, A3) + 6 * fb, 2 * n * nnz(A1, A2, A3))
+        what = f"{label} ({m}, {n}) bf16"
+        got = calls[0]()
+        err, abs_err = bf16_compare(torch, name, what, got, calls[1](), GRAM_RTOL)
+        if margin is not None:  # the Gram of the stored Rn, not of the f32 sums
+            Rn32 = calls[2]()[1]
+            contract_distance(torch, "[bf16presets]", name, what, got[2], (got[1], got[1]),
+                              (Rn32, Rn32), margin)
+            del Rn32
+        del got
+        ms, plain_ms, f32_ms = (median_ms(torch, fn) for fn in calls)
+        bound, by = bound_ms(*work, BF16_FLOPS)
+        print(f"[bf16presets] kernels {name} {what}: max err {err:.2e} (ulps of a field, rel "
+              f"Frobenius of a Gram; max abs {abs_err:.2e}), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{work[0] / 1e6:.1f} MB, {work[1] / 1e9:.2f} GFLOP), library none")
+        rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                        "bound_ms": bound, "bound_by": by, "library_ms": None})
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+        del F, F32, calls
+        torch.cuda.empty_cache()
+
+
+def _bf16_solve(torch, tag, op, B, solve) -> None:
+    """One plain bf16 solve of [bf16presets]: X must come back bf16 and
+    finite; prints iterations, convergence, the monitor, the true f64
+    relres and the seconds."""
+    (X, info), secs = _timed(torch, solve)
+    if X.dtype != torch.bfloat16 or not bool(torch.isfinite(X).all()):
+        raise AssertionError(f"[bf16presets] {tag}: X is {X.dtype}, finite "
+                             f"{bool(torch.isfinite(X).all())}, monitor {info.relres}")
+    rel = relres_by_columns(torch, op, X.reshape(op.n, -1), B.reshape(op.n, -1))
+    print(f"[bf16presets] {tag}: {info.iterations} iterations, converged "
+          f"{bool(info.converged.all())}, monitor {float(info.relres.max()):.3e}, true f64 "
+          f"relres {rel:.3e}, {secs:.3f} s, X bf16, finite")
+
+
+def _bf16_refined(torch, tag, op, B, inner: str) -> None:
+    """``bench_cli.py --dtype bf16 --refined``: ``solve_refined`` on the bf16
+    operator and the f32 B (the bf16 preset's values), the f64 outer loop,
+    inner_tol 5e-3, up to ``PRESETS_CYCLES`` cycles (each printed). X must
+    come back f64 and finite, within a true f64 relres of ``PRESETS_TOL``."""
+    from blockcg_tpu_torch import solve_refined
+
+    B32 = B.float()
+    (X, info), secs = _timed(torch, lambda: solve_refined(
+        op, B32, tol=PRESETS_TOL, inner_tol=PRESETS_INNER_TOL, inner_solver=inner,
+        max_cycles=PRESETS_CYCLES, verbose=True))
+    if X.dtype != torch.float64 or not bool(torch.isfinite(X).all()):
+        raise AssertionError(f"[bf16presets] {tag} --refined: X is {X.dtype}, finite "
+                             f"{bool(torch.isfinite(X).all())}")
+    rel = relres_by_columns(torch, op, X, B32)
+    print(f"[bf16presets] {tag} --refined (inner {inner}, inner_tol {PRESETS_INNER_TOL:g}): "
+          f"{info.iterations} cycles, {info.matvecs} matvecs, {secs:.3f} s, true f64 relres "
+          f"{rel:.3e}")
+    if not (bool(info.converged.all()) and rel <= PRESETS_TOL):
+        raise AssertionError(f"[bf16presets] {tag} --refined: true relres {rel:.3e}, not "
+                             f"{PRESETS_TOL:g}: {info}")
+
+
+def phase_bf16presets(torch, dev) -> dict:
+    """``[bf16presets]``: configs 1-4 in bf16 at full size, as ``bench_cli.py
+    --dtype bf16`` runs them (tol 1e-6, max_iter 2000): CG on config 1's
+    column 0, BCG, BCGA and BCGdQ on config 2, SBCGrQ on configs 3 and 4,
+    each beside its ``--refined`` run (inner BCG on config 2, SBCGrQ on the
+    others). The launch counts are set to 0 before each configuration and
+    read after it; config 4's const-hop kernels must launch no time (bf16
+    fields take the plain route). Returns config 2's counts, the path of
+    ``xr_update_gram[bf16]``."""
+    from blockcg_tpu_torch import solve_bcg, solve_bcga, solve_bcgdq, solve_cg, solve_sbcgrq
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import presets
+
+    bf = torch.bfloat16
+    kw = dict(tol=PRESETS_TOL, max_iter=PRESETS_MAX_ITER)
+    t0 = time.perf_counter()
+
+    def column0(B):
+        return B[:, 0]
+
+    runs = (  # preset, plain solves (name, solver, its RHS), --refined's inner solver,
+        # the kernels the configuration must launch
+        (presets.config1_cg_2d_128, (("solve_cg column 0", solve_cg, column0),), "sbcgrq",
+         ("stencil_spmm_gram_t[bf16]",)),
+        (presets.config2_bcg_2d_512, (("solve_bcg", solve_bcg, None),
+                                      ("solve_bcga", solve_bcga, None),
+                                      ("solve_bcgdq", solve_bcgdq, None)), "bcg",
+         ("stencil_spmm_gram_t[bf16]", "xr_update_gram[bf16]", "gram[bf16]", "mm_update[bf16]",
+          "mm_update_gram[bf16]")),
+        (presets.config3_sbcgrq_3d_64, (("solve_sbcgrq", solve_sbcgrq, None),), "sbcgrq",
+         ("stencil_spmm_gram_t[bf16]", "gram[bf16]", "mm2_update_gram[bf16]",
+          "px_update[bf16]")),
+        (presets.config4_dirac_32, (("solve_sbcgrq", solve_sbcgrq, None),), "sbcgrq",
+         ("gram[bf16]", "mm2_update_gram[bf16]", "px_update[bf16]")),
+    )
+    counts2 = None
+    for preset, plain, inner, wrappers in runs:
+        op, B, meta = preset(dtype=bf, device=dev)
+        tag = f"{meta['name']} n={op.n} k={B.shape[1]} bf16"
+        _native.reset_launches()
+        for name, fn, rhs in plain:
+            Bs = B if rhs is None else rhs(B)
+            _bf16_solve(torch, f"{tag} {name}", op, Bs, lambda: fn(op, Bs, **kw))
+        _bf16_refined(torch, tag, op, B, inner)
+        got = dict(_native.launches)
+        print(f"[launches] bf16 {meta['name']}: {got}")
+        missing = [w for w in wrappers if got.get(w, 0) == 0]
+        if missing:
+            raise AssertionError(f"[bf16presets] {meta['name']} never launched {missing}")
+        if preset is presets.config2_bcg_2d_512:
+            counts2 = got
+        if preset is presets.config4_dirac_32:
+            hops = {w: got.get(w, 0) for w in CONST_HOP_KERNELS}
+            print(f"[bf16presets] {meta['name']} const-hop launches {hops}: 0 by the dtype "
+                  "rule (ops/_native.py f32_gate_refuses, read by ConstBlockDIAOperator."
+                  "_apply: a bf16 field takes the whole plain roll-and-einsum, so no "
+                  "const-hop wrapper is called, as the reference's gate "
+                  "blockcg_tpu/operators/cbdia.py:133-141 takes float32 alone)")
+            if any(hops.values()):
+                raise AssertionError(f"[bf16presets] bf16 config 4 launched {hops}")
+        del op, B
+        torch.cuda.empty_cache()
+    print(f"[wall] [bf16presets] solves {time.perf_counter() - t0:.1f} s")
+    return counts2
 
 
 def _halo_case(torch, kern_fn, plain_fn, Y0):
@@ -2647,16 +2877,24 @@ def main() -> None:
     row7 = phase_config5_qr2(torch, dev, op5)
     print(f"[launches] mm_update_gram[bf16]: {got.get('mm_update_gram[bf16]', 0)} on the "
           f"[config5] lean path, {row7} on [config5] qr2")
-    missing = [w for w in BF16_KERNELS if w != "mm_update_gram[bf16]" and got.get(w, 0) == 0]
+    missing = [w for w in CONFIG5_BF16 if w != "mm_update_gram[bf16]" and got.get(w, 0) == 0]
     missing += [] if row7 else ["mm_update_gram[bf16] (qr2)"]
     if missing:
         raise AssertionError(f"[config5] never launched the kernels of {missing}")
-    counts.update({w: got.get(w, 0) for w in BF16_KERNELS})
+    counts.update({w: got.get(w, 0) for w in CONFIG5_BF16})
     del op5
     torch.cuda.empty_cache()
     phase_config5_f32(torch, dev, lean_peak)
     torch.cuda.empty_cache()
     print(f"[wall] config 5 {time.perf_counter() - t5:.1f} s")
+    # The bf16 presets of configs 1-4: xr_update_gram[bf16] keeps config 2's
+    # count; qr_p_update[bf16] and qr_px_update[bf16] have no bf16 solver path.
+    t_presets = time.perf_counter()
+    phase_bf16presets_kernels(torch, dev, records)
+    got = phase_bf16presets(torch, dev)
+    counts["xr_update_gram[bf16]"] = got["xr_update_gram[bf16]"]
+    counts["qr_p_update[bf16]"] = counts["qr_px_update[bf16]"] = 0
+    print(f"[wall] [bf16presets] {time.perf_counter() - t_presets:.1f} s")
     # The distributed layer on one rank: rows 20 and 21 keep its counts.
     t_dist = time.perf_counter()
     phase_dist_kernels(torch, dev, records)

@@ -1,6 +1,6 @@
 """The port's bf16 capacity tier on CPU tensors: the plain versions of the
-bf16 kernels against the reference's Pallas kernels in interpret mode, the
-bf16 coefficient rule, the dispatch rule, the lean refinement
+bf16 kernels against the reference's Pallas kernels in interpret mode on
+their f32 coefficient route, the dispatch rule, the lean refinement
 against the reference's, and the plans sized by element bytes.
 
 The same inputs, made from a numpy seed and rounded to bf16, go to both
@@ -25,7 +25,7 @@ from blockcg_tpu.ops import stencil as jstencil
 from blockcg_tpu.problems import laplacian_dia as jlaplacian_dia
 from blockcg_tpu_torch.ops import _native, fused, stencil
 from blockcg_tpu_torch.problems import laplacian_dia, laplacian_scipy
-from blockcg_tpu_torch.solvers import common, refine
+from blockcg_tpu_torch.solvers import refine
 
 BF = torch.bfloat16
 GRAM_RTOL = 1e-5
@@ -78,6 +78,12 @@ _FUSED = {
                         lambda F, C: jfused.mm2_update_gram(C[0], F[0], C[1], F[1])),
     "px_update": (lambda F, C: fused.px_update(C[0], F[0], C[1], F[1], C[2], F[2]),
                   lambda F, C: jfused.px_update(C[0], F[0], C[1], F[1], C[2], F[2])),
+    "xr_update_gram": (lambda F, C: fused.xr_update_gram(C[0], F[0], F[1], F[2], F[1]),
+                       lambda F, C: jfused.xr_update_gram(C[0], F[0], F[1], F[2], F[1])),
+    "qr_p_update": (lambda F, C: fused.qr_p_update(C[0], F[0], C[1], F[1]),
+                    lambda F, C: jfused.qr_p_update(C[0], F[0], C[1], F[1])),
+    "qr_px_update": (lambda F, C: fused.qr_px_update(C[0], F[0], C[1], F[1], C[2], F[2]),
+                     lambda F, C: jfused.qr_px_update(C[0], F[0], C[1], F[1], C[2], F[2])),
 }
 
 
@@ -91,11 +97,25 @@ def _check_outputs(got, want):
             assert _ulps(g, w) <= 1.0
 
 
-@pytest.mark.parametrize("case", sorted(_FUSED))
-def test_fused_bf16_plain_matches_pallas(case, monkeypatch):
-    """Rows 5-9 on bf16 fields: the plain version (what the CPU runs and the
-    card's smoke compares with) against the Pallas kernel in interpret mode."""
+@pytest.fixture
+def f32_coeff_route(monkeypatch):
+    """The reference's Pallas kernels in interpret mode on their f32
+    coefficient route (``BLOCKCG_NO_BF16_MXU=1``: a k x k coefficient stays
+    f32 for the multiply of a bf16 field), the port's bf16 contract. The
+    reference reads the switch when it traces, so the traces are dropped on
+    the way in and on the way out."""
     monkeypatch.setenv("BLOCKCG_FUSED_INTERPRET", "1")
+    monkeypatch.setenv("BLOCKCG_NO_BF16_MXU", "1")
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("case", sorted(_FUSED))
+def test_fused_bf16_plain_matches_pallas(case, f32_coeff_route):
+    """Rows 5-10, 12 and 13 on bf16 fields: the plain version (what the CPU
+    runs and the card's smoke compares with) against the Pallas kernel in
+    interpret mode on its f32 coefficient route."""
     F, C, JF, JC = _inputs(sorted(_FUSED).index(case))
     port, ref = _FUSED[case]
     _check_outputs(port(F, C), ref(JF, JC))
@@ -127,42 +147,60 @@ def test_stencil_bf16_plain_matches_pallas(gram, banded):
         assert _gram_err(got[1], exact.numpy()) < GRAM_RTOL
 
 
-_ROUNDED = ("mm_update", "mm_update_a", "mm_update_gram", "mm2_update_gram", "px_update")
+_ROUNDED = ("mm_update", "mm_update_a", "mm_update_gram", "mm2_update_gram", "px_update",
+            "xr_update_gram", "qr_p_update", "qr_px_update")
 
 
 @pytest.mark.parametrize("case", _ROUNDED)
 def test_coefficient_rounding_repair(case, monkeypatch):
-    """The bf16 coefficient rule (``common.field_coeff``): without it (the
-    composition before it, which lifted the bf16 field to the f32
-    coefficient and never rounded the coefficient) the plain version misses
-    the Pallas kernel by many ulps; with it, it is within one."""
+    """The coefficient route decides the bits. The port's plain version (f32
+    coefficients) is within one ulp of the Pallas kernel on the reference's
+    f32 coefficient route and many ulps from its default bf16 MXU route,
+    which rounds each coefficient to bf16 (``_mxu_pair``); given the
+    coefficients rounded to bf16, the plain version is within one ulp of
+    that route instead. The port keeps the coefficients f32: the rounding
+    stalls bf16 BCG and breaks BCGA down (ROADMAP.md, "The bf16 coefficient
+    rule")."""
     monkeypatch.setenv("BLOCKCG_FUSED_INTERPRET", "1")
     F, C, JF, JC = _inputs(40 + _ROUNDED.index(case))
     port, ref = _FUSED[case]
-    want = ref(JF, JC)
-    _check_outputs(port(F, C), want)
-    with monkeypatch.context() as m:
-        m.setattr(common, "field_coeff", lambda a, field_dtype: a)
-        unrounded = port(F, C)
-    assert _ulps(unrounded[0], want[0]) > 4.0
+    got = port(F, C)
+    jax.clear_caches()
+    rounded_route = ref(JF, JC)
+    monkeypatch.setenv("BLOCKCG_NO_BF16_MXU", "1")
+    jax.clear_caches()
+    try:
+        f32_route = ref(JF, JC)
+    finally:
+        jax.clear_caches()  # no later test may reuse a trace of this route
+    _check_outputs(got, f32_route)
+    assert _ulps(got[0], rounded_route[0]) > 4.0
+    _check_outputs(port(F, [c.to(BF).float() for c in C]), rounded_route)
 
 
-def test_coefficient_rounding_cancellation():
-    """A case the rounding decides outright: Y = (1 + 2^-10) B - B. The
-    coefficient 1 + 2^-10 rounds to 1 in bf16, so the kernels store exactly
-    0; the unrounded composition stores 2^-10 B."""
+def test_coefficient_rounding_cancellation(monkeypatch):
+    """A case the coefficient route decides outright: Y = (1 + 2^-10) B - B.
+    With the f32 coefficient (the port's plain version, and the reference's
+    kernel on its f32 coefficient route) Y is exactly 2^-10 B; the
+    reference's bf16 MXU route rounds 1 + 2^-10 to 1 and stores exactly 0."""
     B = torch.from_numpy(np.random.default_rng(9).standard_normal((1, N)).astype(np.float32))
     B = B.to(BF).repeat(2, 1)
     M = torch.tensor([[1 + 2.0 ** -10, -1.0], [0.0, 1.0]])
     Y = fused.mm_update_plain(M, B)
-    assert torch.equal(Y[0], torch.zeros_like(Y[0]))
+    assert torch.equal(Y[0], B[0] * 2.0 ** -10)
     assert torch.equal(Y[1], B[1])
-    assert torch.equal(common.field_coeff(M, BF)[0], torch.tensor([1.0, -1.0]))
-    assert torch.equal(common.field_coeff(M, torch.float32), M)  # f32 fields: unchanged
     jM = jnp.asarray(M.numpy())
     jB = jnp.asarray(B.float().numpy(), jnp.bfloat16)
-    want = jfused.mm_update(jM, jB, interpret=True)
-    assert np.array_equal(np.asarray(want.astype(jnp.float32)), Y.float().numpy())
+    jax.clear_caches()
+    rounded_route = jfused.mm_update(jM, jB, interpret=True)
+    assert not np.asarray(rounded_route[0].astype(jnp.float32)).any()
+    monkeypatch.setenv("BLOCKCG_NO_BF16_MXU", "1")
+    jax.clear_caches()
+    try:
+        f32_route = jfused.mm_update(jM, jB, interpret=True)
+    finally:
+        jax.clear_caches()
+    assert np.array_equal(np.asarray(f32_route.astype(jnp.float32)), Y.float().numpy())
 
 
 def test_dispatch_rule_cpu():
@@ -193,6 +231,93 @@ def test_dispatch_rule_cpu():
     assert _native.variant("px_update", "bcg_px_update", BF) == (
         "px_update[bf16]", "bcg_px_update_bf16")
     assert _native.variant("gram", "bcg_gram", torch.float32) == ("gram", "bcg_gram")
+
+
+def test_dispatch_rule_rows_10_to_21():
+    """The dtype rule on meta tensors (no card needed: the rule is read
+    before the device type). ``xr_update_gram``, ``qr_p_update`` and
+    ``qr_px_update`` send bf16 fields with f32 coefficients on to their bf16
+    variants (which refuse the meta device) and raise ``TypeError`` on a bf16
+    coefficient or a mixed field set; the const-hop wrappers run their plain
+    version on bf16 operands (a meta result, nothing launched) and send f32
+    on to their kernels. (On the card a mix raises there, and ``cheb_step``
+    refuses bf16: ``tests/test_torch_kernels_cuda.py``.)"""
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.problems import dirac_cbdia
+
+    f = torch.empty((8, 512), dtype=BF, device="meta")
+    c = torch.empty((8, 8), dtype=torch.float32, device="meta")
+    calls = {
+        "xr_update_gram": lambda f, g, c: fused.xr_update_gram(c, f, f, g, f),
+        "qr_p_update": lambda f, g, c: fused.qr_p_update(c, f, c, g),
+        "qr_px_update": lambda f, g, c: fused.qr_px_update(c, f, c, f, c, g),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="unsupported device"):
+            call(f, f, c)  # past the dtype rule: the bf16 variant
+        with pytest.raises(TypeError):
+            call(f, f, c.to(BF))  # a bf16 coefficient
+        with pytest.raises(TypeError):
+            call(f, f.float(), c)  # bf16 and f32 fields
+    op = dirac_cbdia(4, dtype=BF, device="cpu")
+    h, m = op.hops_main.to("meta"), op.masks_main.to("meta")
+    X = torch.empty((op.bs * 3, op.ns), dtype=BF, device="meta")
+    _native.reset_launches()
+    Y = cbs.const_block_stencil_spmm_m_t(h, op.main_offsets, op.main_slots, m, X)
+    Yv = cbs.const_block_stencil_spmm_t(h, op.main_offsets, op.main_slots, m,
+                                        X.reshape(3, op.bs, op.ns))
+    assert Y.device.type == "meta" and Y.dtype == BF and Yv.shape == (3, op.bs, op.ns)
+    assert sum(_native.launches.values()) == 0
+    assert not _native.f32_kernel(h, m, X)
+    with pytest.raises(ValueError, match="unsupported device"):
+        _native.f32_kernel(h.float(), m.float(), X.float())  # f32: the kernel
+    # The operator reads the same rule and sends a bf16 field whole to the
+    # plain roll-and-einsum: no const-hop wrapper is called.
+    assert _native.f32_gate_refuses(op.hops_all, X)
+    assert not _native.f32_gate_refuses(op.hops_all.float(), X)
+    Xc = torch.ones((op.bs * 3, op.ns), dtype=BF)
+    want = cbs.const_block_stencil_plain(op.hops_all, op.offsets, op.mask_slot, op.masks, Xc)[0]
+    with pytest.MonkeyPatch.context() as patch:
+        for name in ("const_block_stencil_spmm_m_t", "const_block_stencil_spmm_m_gram_t",
+                     "const_block_stencil_spmm_t", "slab_m_accumulate",
+                     "slab_block_accumulate"):
+            patch.setattr(cbs, name, None)  # calling a wrapper would raise
+        assert torch.equal(op.matmat_t(Xc), want)
+        Y, G = op.matmat_gram_t(Xc)
+        assert torch.equal(Y, want) and G is None
+
+
+def test_dirac_cbdia_bf16_matches_reference():
+    """``dirac_cbdia(4, bfloat16)`` builds (it raised ``TypeError`` before):
+    hops, masks, offsets, slots, slabs and nnz bitwise the reference's bf16
+    operator (both round each hop entry to nearest even), and its apply, on
+    the reference's route for bf16 (every diagonal by the plain
+    roll-and-einsum, each term and each add rounded to bf16), within one
+    bf16 ulp of the reference's ``_matmat_m_xla`` (the two sum a term's four
+    exact products in f32, perhaps in other orders) at k = 3 and k = 1; no
+    fused Gram, as the reference returns none for bf16. An f64 copy
+    (``astype``) applies the bf16 matrix exactly."""
+    from blockcg_tpu.problems import dirac_cbdia as jdirac_cbdia
+    from blockcg_tpu_torch.operators import astype
+    from blockcg_tpu_torch.problems import dirac_cbdia
+
+    op = dirac_cbdia(4, dtype=BF, device="cpu")
+    jop = jdirac_cbdia(4, dtype=jnp.bfloat16)
+    assert op.dtype == BF and op.masks.dtype == BF
+    assert (op.hops, op.offsets, op.mask_slot, op.slabs, op.nnz) == (
+        jop.hops, jop.offsets, jop.mask_slot, jop.slabs, jop.nnz)
+    assert np.array_equal(op.masks.float().numpy(), np.asarray(jop.masks.astype(jnp.float32)))
+    assert torch.equal(op.hops_all.double(), torch.tensor(jop.hops, dtype=torch.float64))
+    rng = np.random.default_rng(12)
+    for k in (3, 1):
+        jX = jnp.asarray(rng.standard_normal((k, op.n)), jnp.bfloat16)
+        X = torch.from_numpy(np.array(jX.astype(jnp.float32))).to(BF)
+        Y = op.matmat_t(X)
+        assert Y.dtype == BF and _ulps(Y, jop.matmat_t(jX)) <= 1.0
+        Z, G = op.matmat_gram_t(X)
+        assert G is None and torch.equal(Z, Y)
+    op64 = astype(op, torch.float64)
+    assert torch.equal(op64.hops_all, op.hops_all.double())
 
 
 def test_plans_sized_by_element_bytes():

@@ -1686,8 +1686,9 @@ def test_fused_bf16_donated_match_fresh(dev):
 
 
 def test_bf16_dispatch_refusals(dev):
-    """Mixed stencil pairs and bf16 operands outside the slice raise; nothing
-    launches and nothing falls back to a plain version."""
+    """Mixed stencil pairs, bf16 coefficients, mixed field sets and a bf16
+    ``cheb_step`` raise; nothing launches and nothing falls back to a plain
+    version."""
     op32 = laplacian_dia((8, 8, 8), device=dev)
     d16 = op32.diags.bfloat16()
     X32 = _field(4, op32.n, 220, dev)
@@ -1697,10 +1698,12 @@ def test_bf16_dispatch_refusals(dev):
     with pytest.raises(TypeError):
         stencil.stencil_spmm_gram_t(op32.diags, op32.offsets, X32.bfloat16())  # the reverse
     a = _t(np.eye(4), dev)
+    with pytest.raises(TypeError):  # a bf16 coefficient is not the contract
+        fused.xr_update_gram(a.bfloat16(), *(X32.bfloat16() for _ in range(4)))
+    with pytest.raises(TypeError):  # bf16 and f32 fields in one call
+        fused.qr_p_update(a, X32.bfloat16(), a, X32)
     with pytest.raises(TypeError):
-        fused.xr_update_gram(a, *(X32.bfloat16() for _ in range(4)))
-    with pytest.raises(TypeError):
-        fused.qr_p_update(a, X32.bfloat16(), a, X32.bfloat16())
+        fused.qr_px_update(a, X32.bfloat16(), a, X32.bfloat16(), a, X32)
     with pytest.raises(TypeError):
         fused.cheb_step(*(X32.bfloat16() for _ in range(4)), 0.5, 0.5)
     with pytest.raises(TypeError):  # bf16 and f32 fields in one call
@@ -1708,6 +1711,35 @@ def test_bf16_dispatch_refusals(dev):
     assert sum(_native.launches.values()) == 0
     with pytest.raises(ValueError, match="64 rows"):  # the bf16 Gram takes one launch
         stencil.stencil_spmm_gram_t(d16, op32.offsets, _bf_field(65, op32.n, 221, dev))
+
+
+# Each staging site of a bf16 variant's coefficients, on Y = (1 + 2^-10) b - b:
+# the f32 coefficient gives exactly 2^-10 b; rounded to bf16 it would be 1 and
+# give 0. (name, call on (M, B, zero coefficients, zero field)) -> the stored
+# output whose first row is Y.
+_F32_COEFF_CASES = {
+    "mm_update": lambda M, B, O, Z: fused.mm_update(M, B),
+    "mm_update_gram": lambda M, B, O, Z: fused.mm_update_gram(M, B)[0],
+    "mm2_update_gram": lambda M, B, O, Z: fused.mm2_update_gram(M, B, O, B)[0],
+    "px_update": lambda M, B, O, Z: fused.px_update(M, B, O, B, O, B)[0],
+    "xr_update_gram": lambda M, B, O, Z: fused.xr_update_gram(M, B, Z, B, B)[0],
+    "qr_p_update": lambda M, B, O, Z: fused.qr_p_update(M, B, O, B)[0],
+    "qr_px_update": lambda M, B, O, Z: fused.qr_px_update(M, B, O, B, M, Z)[2],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_F32_COEFF_CASES))
+def test_bf16_coefficients_stay_f32(dev, name):
+    """The bf16 variants multiply by the f32 coefficient, as the plain
+    versions do (the reference's f32 coefficient route), never by its bf16
+    rounding."""
+    b = _bf_field(1, 4096, 350, dev)
+    B = torch.cat([b, b])
+    M = _t([[1 + 2.0 ** -10, -1.0], [0.0, 1.0]], dev)
+    _native.reset_launches()
+    Y = _F32_COEFF_CASES[name](M, B, torch.zeros_like(M), torch.zeros_like(B))
+    assert torch.equal(Y[0], b[0] * 2.0 ** -10)
+    assert _native.launches[f"{name}[bf16]"] == 1
 
 
 def test_bf16_sbcgrq_and_lean_on_card(dev):
@@ -1735,3 +1767,105 @@ def test_bf16_sbcgrq_and_lean_on_card(dev):
     op64 = laplacian_dia((32, 32, 32), dtype=torch.float64, device=dev)
     res = torch.linalg.vector_norm(B - op64.matmat(Xl.double()), dim=0)
     assert float((res / torch.linalg.vector_norm(B, dim=0)).max()) <= 1e-6
+
+
+# ---- bf16 fields on rows 10, 12 and 13 (xr_update_gram, qr_p_update,
+# qr_px_update): tolerances as for rows 5-9 above.
+
+
+def _xr_qr_bf16(k, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
+    F = [_bf_field(k, n, seed + s, dev) for s in range(4)]
+    return (M1, M2, M3), F
+
+
+@pytest.mark.parametrize("k,n", [(3, 1000), (16, 5000), (32, 4099), (48, 8192), (64, 700),
+                                 (96, 2048), (128, 1024)])
+def test_xr_qr_bf16_kernels_match_plain(dev, k, n):
+    """Each bf16 variant against its plain version: 4099 columns take element
+    copies, 96 and 128 rows the row-chunked launches (``xr_update_gram``'s
+    Gram then from ``wide_gram`` on ``gram[bf16]``)."""
+    (M1, M2, M3), (P, X, Z, R) = _xr_qr_bf16(k, n, 300 + k, dev)
+    _native.reset_launches()
+    Xn, Rn, G = fused.xr_update_gram(M1, P, X, Z, R)
+    Xp, Rp, _ = fused.xr_update_gram_plain(M1, P, X, Z, R)
+    assert Xn.dtype == Rn.dtype == torch.bfloat16 and G.dtype == torch.float32
+    # The Gram is of the stored Rn (see the rows 5-9 test above).
+    assert _ulps(Xn, Xp) <= 1 and _ulps(Rn, Rp) <= 1
+    assert _relfro(G, fused.gram_plain(Rn, Rn)) < 1e-5
+    Q, Pn = fused.qr_p_update(M1, P, M2, X)
+    Qp, Pp = fused.qr_p_update_plain(M1, P, M2, X)
+    assert _ulps(Q, Qp) <= 1 and _ulps(Pn, Pp) <= 1
+    got = fused.qr_px_update(M1, P, M2, X, M3, Z)
+    for g, w in zip(got, fused.qr_px_update_plain(M1, P, M2, X, M3, Z)):
+        assert g.dtype == torch.bfloat16 and _ulps(g, w) <= 1
+    torch.cuda.synchronize()
+    for w in ("xr_update_gram", "qr_p_update", "qr_px_update"):
+        assert _native.launches[f"{w}[bf16]"] >= 1 and _native.launches[w] == 0
+
+
+def test_xr_qr_bf16_donated_match_fresh(dev):
+    """In place (the solvers donate) gives the fresh call's bits, and a
+    repeat gives the same bits."""
+    k, n = 48, 3000
+    (M1, M2, M3), (P, X, Z, R) = _xr_qr_bf16(k, n, 320, dev)
+    want = fused.xr_update_gram(M1, P, X, Z, R)
+    Xd, Rd = X.clone(), R.clone()
+    got = fused.xr_update_gram(M1, P, Xd, Z, Rd, donate=True)
+    assert got[0].data_ptr() == Xd.data_ptr() and got[1].data_ptr() == Rd.data_ptr()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(fused.xr_update_gram(M1, P, X, Z, R), want))
+    want = fused.qr_p_update(M1, P, M2, X)
+    Pd, Xd = P.clone(), X.clone()
+    got = fused.qr_p_update(M1, Pd, M2, Xd, donate=True)
+    assert got[0].data_ptr() == Pd.data_ptr() and got[1].data_ptr() == Xd.data_ptr()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    want = fused.qr_px_update(M1, P, M2, X, M3, Z)
+    args = [P.clone(), X.clone(), Z.clone()]
+    got = fused.qr_px_update(M1, args[0], M2, args[1], M3, args[2], donate=True)
+    assert [g.data_ptr() for g in got] == [a.data_ptr() for a in args]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_qr_bf16_rounds_q_after_pn(dev):
+    """Pn adds rho P to the unrounded f32 Q, and Q and Pn are each rounded
+    once: with rho = 0 the stored Pn is the stored Q, and with rho P the
+    kernel's Pn disagrees with the plain version far less often than with
+    bf16(bf16(Q) + rho P), the order that rounds Q first."""
+    k, n = 16, 4096
+    (M1, M2, _), (P, X, _, _) = _xr_qr_bf16(k, n, 330, dev)
+    zero = torch.zeros_like(M1)
+    for Q, Pn in (fused.qr_p_update(M1, P, zero, X),
+                  fused.qr_px_update(M1, P, zero, X, zero, X)[:2]):
+        assert torch.equal(Q, Pn)
+    Qp, Pp = fused.qr_p_update_plain(M1, P, M2, X)
+    q_first = (Qp.float() + fused.mm_update_plain(M2, X).float()).bfloat16()
+    for Q, Pn in (fused.qr_p_update(M1, P, M2, X), fused.qr_px_update(M1, P, M2, X, M1, X)[:2]):
+        assert _ulps(Pn, Pp) <= 1
+        assert int((Pn != q_first).sum()) > 2 * int((Pn != Pp).sum())
+
+
+@pytest.mark.parametrize("k", [1, 12])
+def test_const_hop_bf16_runs_plain_on_card(dev, k):
+    """The dtype rule of the const-hop wrappers: bf16 operands on the card run
+    the plain version (the reference's gate takes float32 alone), with no
+    launch; an f32 field beside bf16 hops raises."""
+    op = dirac_cbdia(8, dtype=torch.bfloat16, device=dev)
+    Xm = _bf_field(op.bs * k, op.ns, 340 + k, dev)
+    _native.reset_launches()
+    Ym = cbs.const_block_stencil_spmm_m_t(op.hops_main, op.main_offsets, op.main_slots,
+                                          op.masks_main, Xm)
+    Ym2, Gm = cbs.const_block_stencil_spmm_m_gram_t(op.hops_main, op.main_offsets,
+                                                    op.main_slots, op.masks_main, Xm)
+    Yp, Gp = cbs.const_block_stencil_plain(op.hops_main, op.main_offsets, op.main_slots,
+                                           op.masks_main, Xm, True)
+    assert Ym.dtype == torch.bfloat16 and torch.equal(Ym, Yp) and torch.equal(Ym2, Yp)
+    assert torch.equal(Gm, Gp)
+    Yv = op.matmat_t(op.from_internal(Xm))
+    assert torch.equal(op.to_internal(Yv), op._matmat_m_plain(Xm))
+    assert op.matmat_gram_t(Xm)[1] is None  # the solvers take the Gram from gram[bf16]
+    assert sum(_native.launches.values()) == 0
+    with pytest.raises(TypeError):
+        cbs.const_block_stencil_spmm_m_t(op.hops_main, op.main_offsets, op.main_slots,
+                                         op.masks_main, Xm.float())

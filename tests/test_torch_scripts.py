@@ -149,7 +149,7 @@ def test_smoke_gram_contract_refuses_the_other_candidate(monkeypatch, row):
         update = fused.mm_update
 
         def wrong(M, B):
-            Y32 = update(M.bfloat16().float(), B.float())
+            Y32 = update(M, B.float())  # the f32 sums, f32 coefficients
             return Y32.bfloat16(), Y32 @ Y32.T
 
         monkeypatch.setattr(fused, "mm_update_gram", wrong)
