@@ -5,9 +5,10 @@
 // block_stencil_spmm_t (:94), block_stencil_spmm_m_t (:371) and
 // block_stencil_spmm_m_gram_t (:383), and the ring schedule of the same
 // contract, blockcg_tpu/ops/block_stencil_ring.py ring_block_spmm_m_t (:359)
-// and ring_block_spmm_m_gram_t (:371).
+// and ring_block_spmm_m_gram_t (:371), their fold= mode included.
 //
-// Contract: blocks (noff, bs, bs, ns) float32, each (d, a, b) row contiguous
+// Contract: blocks (noff, bs, bs, ns) float32 or bfloat16 (lifted exactly to
+// f32), each (d, a, b) row contiguous
 // over the sites; offsets reduced to [0, ns). For every right-hand side i,
 //   Y[row(a, i), s] = sum_d sum_b blocks[d, a, b, s] * X[row(b, i), (s + o_d) mod ns]
 // on a (bs * k, ns) field whose row map is a runtime pair of strides
@@ -74,6 +75,29 @@
 // launch per chunk of right-hand sides beyond that); the Gram is fused where
 // the split has at most two groups and the plan fits (the Gram's register
 // width is 2 BS KI), else the wrapper takes it from gram.cu.
+//
+// bf16 blocks (CE = __nv_bfloat16; the reference's gate takes bf16 or f32
+// blocks with f32 fields, a memory option): the ring's coefficient planes
+// are staged as bf16, 16-byte copies of 8 sites where ns % 8 == 0 and the
+// blocks are 16-byte aligned, else 4-byte copies of 2 sites (ns even), and
+// each is lifted to f32 exactly at its use. X, Y and every sum stay f32, in
+// the order of the f32 kernel, so bf16 blocks give the bits of the f32
+// kernel on the lifted blocks. At 32^4, m = 48 the blocks' stream falls from
+// 1.007 GB to 0.503 GB: 0.27 ms of bytes against 0.42.
+//
+// Folded wraps (fold != nullptr; the reference's fold=, block_stencil_ring.py
+// :62-97): a folded diagonal's coefficients carry a bulk hop o and its
+// toroidal wrap partner w = o (1 - L) on complementary sites, so one stream
+// serves both. Its source site is chosen per destination s: (s + w) mod ns
+// where (s / st) % L == phase (st = |o|; phase L - 1 for o > 0, 0 for o < 0),
+// (s + o) mod ns elsewhere. Where both shifts lie within the window's halo
+// (the x-axis pair at 32^4: +-1 and -+31 in h = 32), the consumer reads each
+// site's X from the window at its own shift. Otherwise the diagonal is
+// staged as a far one: the producers copy each site's X from its own
+// source, 16 bytes at a time where four sites share their choice and an
+// aligned source (st, o and w multiples of 4), else 4 bytes a site. Its
+// terms are added where its bulk partner's were, so the sum is not bitwise
+// the unfolded one.
 #include "common.cuh"
 
 namespace {
@@ -90,26 +114,35 @@ constexpr int kFar = 0x7fffffff;
 struct Offsets {
   int o[kMaxDiags];  // site offsets, each in [0, ns)
   int s[kMaxDiags];  // signed shift in [-h, h] of a near diagonal, kFar for a far one
+  // Folded diagonals (st > 0): the wrap source offset in [0, ns), the run st
+  // of sites sharing a choice, the axis extent L and the wrap phase; fs, the
+  // wrap's signed shift in [-h, h] where the diagonal is near (s != kFar).
+  int fw[kMaxDiags], fst[kMaxDiags], fL[kMaxDiags], fph[kMaxDiags], fs[kMaxDiags];
 };
 
 // Row stride of a window of T + 2h sites: plus 4, so it is 4 mod 8 words for
 // VecGram's float4 reads of the centre.
 __host__ __device__ inline int window_ld(int T, int h) { return T + 2 * h + 4; }
 
-// Shared floats of a launch; mirrored by ops/block_stencil.py smem_bytes.
-// Two windows (m, W); `stages` ring slots, each the bs^2 coefficient planes of
-// T sites and, with any far diagonal, m rows of X; with the Gram the (m, T +
+// Bytes of one ring slot: the bs^2 coefficient planes of T sites of
+// csize-byte elements and, with any far diagonal, m float rows of X.
+__host__ __device__ inline long long bs_slot_bytes(int bs, int m, int T, bool far, int csize) {
+  return 1LL * csize * bs * bs * T + (far ? 4LL * m * T : 0);
+}
+
+// Shared bytes of a launch; mirrored by ops/block_stencil.py smem_bytes.
+// Two float windows (m, W); `stages` ring slots; with the Gram the (m, T +
 // 4) Y tile, and at least the Gram's end-of-kernel scratch.
-__host__ __device__ inline long long bs_smem_floats(int bs, int m, int T, int h, int stages,
-                                                    bool far, bool gram) {
-  long long f = 2LL * m * window_ld(T, h) + 1LL * stages * (bs * bs + (far ? m : 0)) * T +
-                (gram ? 1LL * m * (T + 4) : 0);
-  if (gram && f < kBsScratch) f = kBsScratch;
-  return f;
+__host__ __device__ inline long long bs_smem_bytes(int bs, int m, int T, int h, int stages,
+                                                   bool far, bool gram, int csize) {
+  long long b = 8LL * m * window_ld(T, h) + stages * bs_slot_bytes(bs, m, T, far, csize) +
+                (gram ? 4LL * m * (T + 4) : 0);
+  if (gram && b < 4LL * kBsScratch) b = 4LL * kBsScratch;
+  return b;
 }
 
 struct Launch {
-  const float* blocks;
+  const void* blocks;  // of the kernel's CE
   const float* X;
   float* Y;
   float* part;
@@ -117,7 +150,7 @@ struct Launch {
   RowMap row;
   long long ns;
   int nd, bs, k, h, T, stages;
-  bool far, vec;
+  bool far, vec, cvec;  // vec: 16-byte copies of X; cvec: of the coefficients
 };
 
 // PROBE: bits that switch parts of the kernel off, for timing probes only
@@ -146,14 +179,43 @@ __device__ __forceinline__ const float* x_row(const Launch& p, int r) {
          (static_cast<long long>(b) * p.row.sa + static_cast<long long>(i) * p.row.si) * p.ns;
 }
 
+// The m rows of X for folded diagonal d at the T sites from i0 into dst,
+// each site's from its own source (see the header); the lanes of a warp take
+// four consecutive sites each.
+__device__ __forceinline__ void copy_folded(const Launch& p, float* dst, int d, long long i0,
+                                            int warp, int nwarps, int lane) {
+  const int m = p.bs * p.k, st = p.offs.fst[d], L = p.offs.fL[d], ph = p.offs.fph[d];
+  const long long o = p.offs.o[d], w = p.offs.fw[d];
+  const bool vec = p.vec && st % 4 == 0 && o % 4 == 0 && w % 4 == 0;
+  for (int r = warp; r < m; r += nwarps) {
+    const float* F = x_row(p, r);
+    float* dr = dst + r * p.T;
+    for (int q = 4 * lane; q < p.T; q += 4 * 32) {
+      if (vec) {  // i0 + q, o and w multiples of 4: four sites, one choice, one aligned quad
+        const long long s = i0 + q;
+        long long j = s + ((s / st) % L == ph ? w : o);
+        while (j >= p.ns) j -= p.ns;
+        cp_async16(dr + q, F + j, true);
+      } else {
+        for (int e = 0; e < 4; ++e) {
+          const long long s = i0 + q + e;
+          long long j = s + ((s / st) % L == ph ? w : o);
+          while (j >= p.ns) j -= p.ns;
+          cp_async4(dr + q + e, F + j, true);
+        }
+      }
+    }
+  }
+}
+
 // The producer warps' share (thread `pt` of 32 PW) of stage j of the
 // tile at i0: j = 0, the m rows of X at sites i0 - h .. i0 + T + h (mod ns)
 // into the window; j = 1 + d, diagonal d's bs^2 coefficient planes at sites
 // i0 .. i0 + T - 1 (zero past ns) and, for a far diagonal, the m rows of X at
-// (s + o_d) mod ns into the slot. Producer warp w copies rows w, w + PW, ...,
-// its lanes over the sites.
-template <int PROBE, int PW>
-__device__ __forceinline__ void produce(const Launch& p, float* win, float* slot, int j,
+// (s + o_d) mod ns into the slot (a folded one's from each site's source).
+// Producer warp w copies rows w, w + PW, ..., its lanes over the sites.
+template <typename CE, int PROBE, int PW>
+__device__ __forceinline__ void produce(const Launch& p, float* win, char* slot, int j,
                                         long long i0, int pt) {
   const int m = p.bs * p.k, W = window_ld(p.T, p.h), planes = p.bs * p.bs;
   const int warp = pt / 32, lane = pt % 32, nwarps = PW;
@@ -167,22 +229,31 @@ __device__ __forceinline__ void produce(const Launch& p, float* win, float* slot
   }
   const int d = j - 1;
   if (!(PROBE & kProbeNoCoef)) {
-    const float* base = p.blocks + static_cast<long long>(d) * planes * p.ns + i0;
+    // 16-byte copies of kVec<CE> sites, else 4-byte ones of 4 / sizeof(CE)
+    const int step = p.cvec ? kVec<CE> : 4 / static_cast<int>(sizeof(CE));
+    const CE* blocks = static_cast<const CE*>(p.blocks);
+    const CE* base = blocks + static_cast<long long>(d) * planes * p.ns + i0;
+    CE* cs = reinterpret_cast<CE*>(slot);
     for (int e = warp; e < planes; e += nwarps) {
-      const float* F = base + static_cast<long long>(e) * p.ns;
-      for (int q = (p.vec ? 4 : 1) * lane; q < p.T; q += (p.vec ? 4 : 1) * 32) {
+      const CE* F = base + static_cast<long long>(e) * p.ns;
+      for (int q = step * lane; q < p.T; q += step * 32) {
         const bool in = i0 + q < p.ns;
-        if (p.vec) cp_async16(slot + e * p.T + q, in ? F + q : p.blocks, in);
-        else cp_async4(slot + e * p.T + q, in ? F + q : p.blocks, in);
+        if (p.cvec) cp_async16(cs + e * p.T + q, in ? F + q : blocks, in);
+        else cp_async4(cs + e * p.T + q, in ? F + q : blocks, in);
       }
     }
   }
   if (p.offs.s[d] == kFar && !(PROBE & kProbeNoFar)) {
+    float* xs = reinterpret_cast<float*>(slot + sizeof(CE) * planes * p.T);
+    if (p.offs.fst[d] > 0) {
+      copy_folded(p, xs, d, i0, warp, nwarps, lane);
+      return;
+    }
     long long j0 = i0 + p.offs.o[d];
     if (j0 >= p.ns) j0 -= p.ns;
     const bool vec = p.vec && p.offs.o[d] % 4 == 0;
     for (int r = warp; r < m; r += nwarps)
-      copy_row(slot + (planes + r) * p.T, x_row(p, r), j0, p.T, p.ns, vec, lane);
+      copy_row(xs + r * p.T, x_row(p, r), j0, p.T, p.ns, vec, lane);
   }
 }
 
@@ -200,23 +271,25 @@ __device__ __forceinline__ void consumers_sync() {
 
 // BS >= bs spins, KI right-hand sides a consumer thread (group g holds RHS
 // g*KI ..); GRAM: the fused Gram, on a VecGram of 2 BS KI rows (>= m with at
-// most two groups). Warps 0-7 consume, the PW after them produce. A block walks its
-// tiles t = blockIdx.x + i * gridDim.x, each as nd + 1 stages (the window,
+// most two groups); CE: the blocks' element (float or bf16). Warps 0-7
+// consume, the PW after them produce. A block walks its tiles t = blockIdx.x
+// + i * gridDim.x, each as nd + 1 stages (the window,
 // then one a diagonal); stage q of the walk lives in ring slot q % stages.
 // Barriers: full[s], the producers' copies of the slot's stage have landed
 // (32 PW cp.async arrivals); empty[s], every consumer warp is done
 // with it (kBsThreads / 32 arrivals); wfree[b], every consumer warp is done
 // with window b's tile, its Gram included.
-template <int BS, int KI, bool GRAM, int PROBE = 0, int PW = kBsProducerWarps>
+template <int BS, int KI, bool GRAM, int PROBE = 0, int PW = kBsProducerWarps,
+          typename CE = float>
 __global__ void __launch_bounds__(kBsThreads + 32 * PW, 1) bs_spmm(const Launch p) {
   extern __shared__ __align__(16) float smem[];  // 2 windows | ring | sY
   __shared__ unsigned long long full[kBsMaxStages], empty[kBsMaxStages], wfree[2];
   const int m = p.bs * p.k, T = p.T, W = window_ld(T, p.h), LY = T + 4;
   const int planes = p.bs * p.bs;
-  const int slot_floats = (planes + (p.far ? m : 0)) * T;
+  const int slot_bytes = static_cast<int>(bs_slot_bytes(p.bs, m, T, p.far, sizeof(CE)));
   float* win = smem;
-  float* ring = smem + 2 * m * W;
-  float* sy = ring + p.stages * slot_floats;
+  char* ring = reinterpret_cast<char*>(smem + 2 * m * W);
+  float* sy = reinterpret_cast<float*>(ring + p.stages * slot_bytes);
   const int per_tile = p.nd + 1;
   const long long ntiles = (p.ns + T - 1) / T;
   const int cwarps = kBsThreads / 32;
@@ -244,7 +317,7 @@ __global__ void __launch_bounds__(kBsThreads + 32 * PW, 1) bs_spmm(const Launch 
           if (j == 0 && lt >= 2) mbar_wait(&wfree[lt & 1], (lt / 2 - 1) & 1);  // tile lt - 2 too
         }
         __syncwarp();
-        produce<PROBE, PW>(p, win + (lt & 1) * m * W, ring + sl * slot_floats, j, t * T, pt);
+        produce<CE, PROBE, PW>(p, win + (lt & 1) * m * W, ring + sl * slot_bytes, j, t * T, pt);
         cp_async_mbar_arrive(&full[sl]);
       }
     }
@@ -262,11 +335,16 @@ __global__ void __launch_bounds__(kBsThreads + 32 * PW, 1) bs_spmm(const Launch 
         if (j > 0 && !(PROBE & kProbeNoMath)) {
           const int d = j - 1;
           if (d == 0) zero(acc);
-          const float* sp = ring + sl * slot_floats;
-          const int sh = p.offs.s[d];
-          const float* xs = sh != kFar ? wt + p.h + sh + c : sp + planes * T + c;
+          const char* sp = ring + sl * slot_bytes;
+          int sh = p.offs.s[d];
+          const int st = p.offs.fst[d];
+          if (sh != kFar && st > 0 && (s / st) % p.offs.fL[d] == p.offs.fph[d])
+            sh = p.offs.fs[d];  // a near folded diagonal's wrap site
+          const float* xs = sh != kFar
+                                ? wt + p.h + sh + c
+                                : reinterpret_cast<const float*>(sp + sizeof(CE) * planes * T) + c;
           const int lx = sh != kFar ? W : T;
-          const float* cs = sp + c;
+          const CE* cs = reinterpret_cast<const CE*>(sp) + c;
           // The diagonal's X loads first, then, for each b, its column of
           // coefficients and their FMAs: the order b, then a, of the kernel
           // this replaced.
@@ -281,7 +359,8 @@ __global__ void __launch_bounds__(kBsThreads + 32 * PW, 1) bs_spmm(const Launch 
             if (b < p.bs) {
               float w[BS];
 #pragma unroll
-              for (int a = 0; a < BS; ++a) w[a] = a < p.bs ? cs[(a * p.bs + b) * T] : 0.f;
+              for (int a = 0; a < BS; ++a)
+                w[a] = a < p.bs ? to_f32(cs[(a * p.bs + b) * T]) : 0.f;
 #pragma unroll
               for (int a = 0; a < BS; ++a) {
                 if (a < p.bs) {
@@ -324,13 +403,14 @@ __global__ void __launch_bounds__(kBsThreads + 32 * PW, 1) bs_spmm(const Launch 
   }
 }
 
-template <int BS, int KI, bool GRAM, int PROBE = 0, int PW = kBsProducerWarps>
+template <int BS, int KI, bool GRAM, int PROBE = 0, int PW = kBsProducerWarps,
+          typename CE = float>
 cudaError_t launch(const Launch& p, float* G, int max_blocks, int device, cudaStream_t stream) {
   static_assert(BsGram<BS, KI>::kScratch <= kBsScratch,
                 "the Gram's scratch must fit the shared floor");
-  auto kernel = bs_spmm<BS, KI, GRAM, PROBE, PW>;
+  auto kernel = bs_spmm<BS, KI, GRAM, PROBE, PW, CE>;
   const size_t smem =
-      bs_smem_floats(p.bs, p.bs * p.k, p.T, p.h, p.stages, p.far, GRAM) * sizeof(float);
+      bs_smem_bytes(p.bs, p.bs * p.k, p.T, p.h, p.stages, p.far, GRAM, sizeof(CE));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
@@ -342,42 +422,62 @@ cudaError_t launch(const Launch& p, float* G, int max_blocks, int device, cudaSt
   return cudaGetLastError();
 }
 
-template <int BS, int KI>
+template <int BS, int KI, typename CE>
 cudaError_t by_gram(const Launch& p, float* G, int max_blocks, int device, cudaStream_t stream) {
-  return G != nullptr ? launch<BS, KI, true>(p, G, max_blocks, device, stream)
-                      : launch<BS, KI, false>(p, G, max_blocks, device, stream);
+  return G != nullptr
+             ? launch<BS, KI, true, 0, kBsProducerWarps, CE>(p, G, max_blocks, device, stream)
+             : launch<BS, KI, false, 0, kBsProducerWarps, CE>(p, G, max_blocks, device, stream);
 }
 
 // Check a launch's arguments and fill in p (the near/far split of the
-// offsets, the copy width); cudaSuccess or cudaErrorInvalidValue.
-cudaError_t make_launch(Launch* p, const float* blocks, const int* offsets, int nd, int bs,
+// offsets, the folds, the copy widths); cudaSuccess or
+// cudaErrorInvalidValue. csize: bytes of a block element (4 or 2); fold:
+// null, or a host array of nd quadruples (wrap offset in [0, ns), st, L,
+// phase), st = 0 for a diagonal that is not folded.
+cudaError_t make_launch(Launch* p, const void* blocks, const int* offsets, int nd, int bs,
                         const float* X, float* Y, float* part, bool gram, int k, int ks,
                         long long ns, int merged, int h, int groups, int ki, int stages,
-                        int max_blocks) {
+                        int max_blocks, int csize = 4, const int* fold = nullptr) {
   const int bsw = bs < 1 ? 0 : bs <= 4 ? 4 : bs <= kMaxBs ? 8 : 0;
   const bool pow2 = groups == 1 || groups == 2 || groups == 4 || groups == 8;
   if (nd < 1 || nd > kMaxDiags || bsw == 0 || k < 1 || bs * k > kBsMaxRows || ns < 1 ||
       max_blocks < 1 || ks < k || !pow2 || ki * groups < k || stages < 2 ||
       stages > kBsMaxStages || h < 0 || h % 4 != 0 ||
-      (gram && (!merged || ks != k || groups > 2)))
+      (gram && (!merged || ks != k || groups > 2)) || (csize != 4 && csize != 2) ||
+      (csize == 2 && (ns % 2 != 0 || reinterpret_cast<size_t>(blocks) % 4 != 0)))
     return cudaErrorInvalidValue;
   *p = Launch{blocks, X, Y, part, {}, row_map(merged != 0, bs, ks), ns, nd, bs, k, h,
-              kBsThreads / groups, stages, false, false};
+              kBsThreads / groups, stages, false, false, false};
   for (int d = 0; d < nd; ++d) {
     const int o = offsets[d];
     if (o < 0 || o >= ns) return cudaErrorInvalidValue;
     p->offs.o[d] = o;
     p->offs.s[d] = o <= h ? o : (ns - o <= h ? static_cast<int>(o - ns) : kFar);
+    const int* f = fold != nullptr ? fold + 4 * d : nullptr;
+    if (f != nullptr && f[1] > 0) {
+      if (f[0] < 0 || f[0] >= ns || f[2] < 2 || f[3] < 0 || f[3] >= f[2])
+        return cudaErrorInvalidValue;
+      p->offs.fw[d] = f[0];
+      p->offs.fst[d] = f[1];
+      p->offs.fL[d] = f[2];
+      p->offs.fph[d] = f[3];
+      const int w = f[0];
+      p->offs.fs[d] = w <= h ? w : (ns - w <= h ? static_cast<int>(w - ns) : kFar);
+      if (p->offs.fs[d] == kFar) p->offs.s[d] = kFar;  // staged: each site's source
+    }
     p->far = p->far || p->offs.s[d] == kFar;
   }
-  p->vec = ns % 4 == 0 && aligned16(X) && aligned16(blocks);
+  p->vec = ns % 4 == 0 && aligned16(X);
+  p->cvec = ns % (16 / csize) == 0 && aligned16(blocks);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // offsets: host array of nd entries, each already reduced to [0, ns).
-// blocks: device (nd, bs, bs, ns). X, Y: device (bs * k, ns) fields, merged
+// blocks: device (nd, bs, bs, ns) of float (csize 4) or bf16 (csize 2; ns
+// even). fold: null, or nd host quadruples (see make_launch) for folded
+// diagonals. X, Y: device (bs * k, ns) float fields, merged
 // (row a * ks + i) when merged != 0, else the (k, bs, ns) view (row i * bs +
 // a). ks: the merged view's right-hand sides per spin, k on a whole field; a
 // launch on a chunk of right-hand sides covers RHS j0..j0+k of a field of
@@ -387,18 +487,20 @@ cudaError_t make_launch(Launch* p, const float* blocks, const int* offsets, int 
 // the built widths: 1, 2, 3, 4, 6, 8, 12 for bs <= 4, 1, 2, 3 above).
 // G == nullptr selects the plain apply; otherwise (merged only, ks == k, at
 // most two groups) part holds (max_blocks, m, m) and G receives X Y^T.
-extern "C" int bcg_block_stencil_spmm(const float* blocks, const int* offsets, int nd, int bs,
-                                      const float* X, float* Y, float* part, float* G, int k,
-                                      int ks, long long ns, int merged, int h, int groups,
-                                      int ki, int stages, int max_blocks, int device,
-                                      cudaStream_t stream) {
+extern "C" int bcg_block_stencil_spmm(const void* blocks, int csize, const int* offsets,
+                                      const int* fold, int nd, int bs, const float* X, float* Y,
+                                      float* part, float* G, int k, int ks, long long ns,
+                                      int merged, int h, int groups, int ki, int stages,
+                                      int max_blocks, int device, cudaStream_t stream) {
   Launch p;
   cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, part, G != nullptr, k, ks,
-                                ns, merged, h, groups, ki, stages, max_blocks);
+                                ns, merged, h, groups, ki, stages, max_blocks, csize, fold);
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-#define BCG_BS(BS, KI) return by_gram<BS, KI>(p, G, max_blocks, device, stream)
+#define BCG_BS(BS, KI)                                                          \
+  return csize == 2 ? by_gram<BS, KI, bf16>(p, G, max_blocks, device, stream) \
+                    : by_gram<BS, KI, float>(p, G, max_blocks, device, stream)
   if (bs <= 4) {
     switch (ki) {
       case 1: BCG_BS(4, 1);

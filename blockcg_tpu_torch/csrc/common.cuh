@@ -427,7 +427,7 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
                "r"(pred ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool pred) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
                "r"(pred ? 4 : 0));

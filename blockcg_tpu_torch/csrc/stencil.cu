@@ -64,6 +64,21 @@
 // the unrounded f32 sums in sY, against the window's bf16 X read four at a
 // time (load4), as the reference's Pallas kernel takes it from its f32
 // accumulator.
+//
+// Mixed pairs (the reference's gate takes bf16 or f32 for the diagonals and
+// the field independently): bcg_stencil_spmm_bf16d takes bf16 diagonals with
+// f32 X and Y, bcg_stencil_spmm_bf16x f32 diagonals with bf16 X and Y. The
+// diagonals' element (ED) and the field's (EX) are separate template
+// parameters: the window is staged in EX (h a multiple of kVec<EX>), the
+// coefficient tiles in ED, each lifted to f32 at its use, and every sum runs
+// in f32 in the order d = 0..ndiag-1, so a pair whose values are exact in
+// both types gives the unmixed kernel's bits.
+//
+// Wide bf16 Gram: where Y is bf16 and the field is wider than one launch,
+// the solvers' Gram needs the f32 sums of every row, which the stored Y has
+// lost. A launch given S (f32, the launch's rows of a (k, n) scratch) also
+// writes its f32 sums there, and the wrapper takes the Gram's cross blocks
+// from gram.cu on X lifted to f32 and S (ops/stencil.py).
 #include "common.cuh"
 
 namespace {
@@ -80,25 +95,25 @@ struct Diags {
 // Window of the tile at i0: sw[r * W + v] = X[r, (i0 - h + v) mod n] for
 // v < T + 2h; the tile's coefficients: sd[d * T + c] = diags[d, i0 + c]
 // (0 past n).
-template <typename E>
-__device__ __forceinline__ void load_tile(E* sw, E* sd, const E* X, const E* diags, int ndiag,
+template <typename ED, typename EX>
+__device__ __forceinline__ void load_tile(EX* sw, ED* sd, const EX* X, const ED* diags, int ndiag,
                                           int k, long long n, long long i0, int h, int T, int W,
                                           bool vec) {
-  constexpr int kv = kVec<E>;
+  constexpr int kx = kVec<EX>, kd = kVec<ED>;
   const int span = T + 2 * h;
   long long base = (i0 - h) % n;  // the window's first column, in [0, n)
   if (base < 0) base += n;
-  if (vec) {  // n, h, T and i0 are multiples of kv: a 16-byte copy never straddles n
-    const int q = span / kv;
+  if (vec) {  // n, h, T and i0 are multiples of kx and kd: a 16-byte copy never straddles n
+    const int q = span / kx;
     for (int e = threadIdx.x; e < k * q; e += kStThreads) {
-      const int r = e / q, v = kv * (e - r * q);
+      const int r = e / q, v = kx * (e - r * q);
       long long j = base + v;
       while (j >= n) j -= n;  // more than once only where the window is wider than n
       cp_async16(sw + r * W + v, X + r * n + j, true);
     }
-    const int tq = T / kv;
+    const int tq = T / kd;
     for (int e = threadIdx.x; e < ndiag * tq; e += kStThreads) {
-      const int d = e / tq, c = kv * (e - d * tq);
+      const int d = e / tq, c = kd * (e - d * tq);
       const bool in = i0 + c < n;
       cp_async16(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
     }
@@ -125,13 +140,14 @@ __host__ __device__ inline int window_ld(int k, int h, int T, int esize) {
   return T + 2 * h + (esize == 4 && k <= 32 ? 4 : 0);
 }
 
-// Shared bytes of one launch: two windows and two coefficient tiles of
-// esize-byte elements, and with the Gram the float Y tile, at least the
-// Gram's scratch; mirrored by ops/stencil.py smem_bytes.
+// Shared bytes of one launch: two windows of esize-byte elements, two
+// coefficient tiles of dsize-byte ones, and with the Gram the float Y tile,
+// at least the Gram's scratch; mirrored by ops/stencil.py smem_bytes.
 __host__ __device__ inline long long smem_bytes(int k, int ndiag, int h, int T, bool gram,
-                                                int esize) {
+                                                int esize, int dsize) {
   const long long W = window_ld(k, h, T, esize), LY = T + 4;
-  long long b = 2LL * esize * (k * W + static_cast<long long>(ndiag) * T) + (gram ? 4 * k * LY : 0);
+  long long b = 2LL * (esize * k * W + dsize * static_cast<long long>(ndiag) * T) +
+                (gram ? 4 * k * LY : 0);
   const long long scratch = 4 * 256LL * (k > 16 ? 64 : 16);  // VecGram::kScratch (common.cuh)
   if (gram && b < scratch) b = scratch;
   return b;
@@ -144,16 +160,18 @@ __host__ __device__ inline long long smem_bytes(int k, int ndiag, int h, int T, 
 template <int KMAX, bool WITH_GRAM>
 constexpr int kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1;
 
-// E: the element of X, the diagonals and Y (float or bf16).
-template <typename E, int KMAX, bool WITH_GRAM>
+// ED: the element of the diagonals, EX: of X and Y (float or bf16 each).
+// S: null, or the launch's rows of an f32 (k, n) scratch that takes the
+// f32 sums (the wide bf16 Gram's).
+template <typename ED, typename EX, int KMAX, bool WITH_GRAM>
 __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
-    stencil_spmm(const E* __restrict__ diags, Diags dg, int ndiag, const E* __restrict__ X,
-                 E* __restrict__ Y, float* __restrict__ part, int k, long long n, int h, int T,
-                 bool vec) {
+    stencil_spmm(const ED* __restrict__ diags, Diags dg, int ndiag, const EX* __restrict__ X,
+                 EX* __restrict__ Y, float* __restrict__ S, float* __restrict__ part, int k,
+                 long long n, int h, int T, bool vec) {
   extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles | sY
-  const int W = window_ld(k, h, T, sizeof(E)), LY = T + 4;
-  E* sw0 = reinterpret_cast<E*>(smem);
-  E* sd0 = sw0 + 2 * k * W;
+  const int W = window_ld(k, h, T, sizeof(EX)), LY = T + 4;
+  EX* sw0 = reinterpret_cast<EX*>(smem);
+  ED* sd0 = reinterpret_cast<ED*>(sw0 + 2 * k * W);
   float* sy = reinterpret_cast<float*>(sd0 + 2 * ndiag * T);
   VecGram<KMAX, kStThreads> g;
   const long long ntiles = (n + T - 1) / T;
@@ -169,8 +187,8 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const E* sw = sw0 + buf * k * W;
-    const E* sd = sd0 + buf * ndiag * T;
+    const EX* sw = sw0 + buf * k * W;
+    const ED* sd = sd0 + buf * ndiag * T;
     const long long i0 = t * T;
     for (int c = threadIdx.x; c < T; c += kStThreads) {
       const long long i = i0 + c;
@@ -186,13 +204,13 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
           // k - 1 and are never stored), so they are in flight together.
           float x[KMAX];
           if (s != kFar) {
-            const E* w = sw + h + s + c;
+            const EX* w = sw + h + s + c;
 #pragma unroll
             for (int r = 0; r < KMAX; ++r) x[r] = to_f32(w[min(r, k - 1) * W]);
           } else {
             long long j = i + dg.o[d];
             if (j >= n) j -= n;
-            const E* xj = X + j;
+            const EX* xj = X + j;
 #pragma unroll
             for (int r = 0; r < KMAX; ++r) x[r] = to_f32(xj[min(r, k - 1) * n]);
           }
@@ -201,7 +219,12 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
         }
 #pragma unroll
         for (int r = 0; r < KMAX; ++r)
-          if (r < k) Y[r * n + i] = from_f32<E>(acc[r]);
+          if (r < k) Y[r * n + i] = from_f32<EX>(acc[r]);
+        if (S != nullptr) {
+#pragma unroll
+          for (int r = 0; r < KMAX; ++r)
+            if (r < k) S[r * n + i] = acc[r];
+        }
       }
       if constexpr (WITH_GRAM) {
 #pragma unroll
@@ -223,29 +246,29 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
   }
 }
 
-template <typename E, int KMAX, bool WITH_GRAM>
-cudaError_t launch(const E* diags, const Diags& dg, int ndiag, const E* X, E* Y, float* part,
-                   float* G, int k, long long n, int h, int T, int max_blocks, int device,
-                   cudaStream_t stream) {
-  auto kernel = stencil_spmm<E, KMAX, WITH_GRAM>;
-  const size_t smem = smem_bytes(k, ndiag, h, T, WITH_GRAM, sizeof(E));
+template <typename ED, typename EX, int KMAX, bool WITH_GRAM>
+cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX* Y, float* S,
+                   float* part, float* G, int k, long long n, int h, int T, int max_blocks,
+                   int device, cudaStream_t stream) {
+  auto kernel = stencil_spmm<ED, EX, KMAX, WITH_GRAM>;
+  const size_t smem = smem_bytes(k, ndiag, h, T, WITH_GRAM, sizeof(EX), sizeof(ED));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
   err = persistent_grid(kernel, kStThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % kVec<E> == 0 && aligned16(X) && aligned16(diags);
-  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k, n, h, T, vec);
+  const bool vec = n % kVec<EX> == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
+  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, S, part, k, n, h, T, vec);
   if (WITH_GRAM) launch_reduce(part, G, k, grid, stream);
   return cudaGetLastError();
 }
 
-template <typename E>
-int stencil_entry(const E* diags, const int* offsets, int ndiag, const E* X, E* Y, float* part,
-                  float* G, int k, long long n, int h, int T, int max_blocks, int device,
-                  cudaStream_t stream) {
+template <typename ED, typename EX>
+int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, EX* Y, float* S,
+                  float* part, float* G, int k, long long n, int h, int T, int max_blocks,
+                  int device, cudaStream_t stream) {
   if (ndiag < 1 || ndiag > kMaxDiags || max_blocks < 1 || n < 1 || h < 0 ||
-      h % kVec<E> != 0 || T < 128 || T % 128 != 0)
+      h % kVec<EX> != 0 || T < 128 || T % 128 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -257,11 +280,11 @@ int stencil_entry(const E* diags, const int* offsets, int ndiag, const E* X, E* 
     dg.s[d] = o <= h ? o : (n - o <= h ? static_cast<int>(o - n) : kFar);
   }
   const bool gram = G != nullptr;
-#define BCG_STENCIL(KM)                                                                     \
-  return gram ? launch<E, KM, true>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
-                                    device, stream)                                          \
-              : launch<E, KM, false>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, \
-                                     device, stream)
+#define BCG_STENCIL(KM)                                                                        \
+  return gram ? launch<ED, EX, KM, true>(diags, dg, ndiag, X, Y, S, part, G, k, n, h, T,        \
+                                         max_blocks, device, stream)                           \
+              : launch<ED, EX, KM, false>(diags, dg, ndiag, X, Y, S, part, G, k, n, h, T,       \
+                                          max_blocks, device, stream)
   switch (kmax_for(k)) {
     case 8: BCG_STENCIL(8);
     case 16: BCG_STENCIL(16);
@@ -275,23 +298,42 @@ int stencil_entry(const E* diags, const int* offsets, int ndiag, const E* X, E* 
 }  // namespace
 
 // offsets: host array of ndiag offsets, each already reduced to [0, n); a
-// diagonal is near when o <= h or n - o <= h. h (a multiple of 4; of 8 on
-// bf16) and T (a multiple of 128) come from ops/stencil.py stencil_plan.
-// G == nullptr selects the plain SpMM; otherwise part holds (max_blocks, k,
-// k) and the launch uses at most max_blocks blocks.
+// diagonal is near when o <= h or n - o <= h. h (a multiple of 4; of 8 on a
+// bf16 field) and T (a multiple of 128) come from ops/stencil.py
+// stencil_plan. G == nullptr selects the plain SpMM; otherwise part holds
+// (max_blocks, k, k) and the launch uses at most max_blocks blocks. S: null,
+// or f32 (k, n) rows that also take the f32 sums.
 extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndiag,
-                                const float* X, float* Y, float* part, float* G, int k,
+                                const float* X, float* Y, float* S, float* part, float* G, int k,
                                 long long n, int h, int T, int max_blocks, int device,
                                 cudaStream_t stream) {
-  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
                        stream);
 }
 
 // The same on bf16 diagonals, X and Y; G is f32, of the unrounded sums.
 extern "C" int bcg_stencil_spmm_bf16(const bf16* diags, const int* offsets, int ndiag,
-                                     const bf16* X, bf16* Y, float* part, float* G, int k,
-                                     long long n, int h, int T, int max_blocks, int device,
-                                     cudaStream_t stream) {
-  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                                     const bf16* X, bf16* Y, float* S, float* part, float* G,
+                                     int k, long long n, int h, int T, int max_blocks,
+                                     int device, cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
+                       stream);
+}
+
+// bf16 diagonals with f32 X and Y.
+extern "C" int bcg_stencil_spmm_bf16d(const bf16* diags, const int* offsets, int ndiag,
+                                      const float* X, float* Y, float* S, float* part, float* G,
+                                      int k, long long n, int h, int T, int max_blocks,
+                                      int device, cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
+                       stream);
+}
+
+// f32 diagonals with bf16 X and Y; G is f32, of the unrounded sums.
+extern "C" int bcg_stencil_spmm_bf16x(const float* diags, const int* offsets, int ndiag,
+                                      const bf16* X, bf16* Y, float* S, float* part, float* G,
+                                      int k, long long n, int h, int T, int max_blocks,
+                                      int device, cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
                        stream);
 }

@@ -10,9 +10,11 @@ apply costs d SpMMs and d - 1 fused Chebyshev steps (``ops.fused.cheb_step``,
 ``csrc/cheb_step.cu``). The solver's monitor sees the preconditioned
 residual; ``solvers/poly.py`` wraps the solve in a true-residual outer loop.
 
-The scalar recurrence (theta, delta, sigma1, rho, c1, c2) runs once per
-operator on the host, in the field's real dtype with the reference's
-operation order, so an apply reads nothing back from the card.
+The scalar recurrence (theta, delta, sigma1, rho, c1, c2) runs on the host
+once per operator and field dtype, in the field's real dtype (bfloat16 on a
+bf16 field, whose steps then run the plain ``cheb_step`` as the reference's
+do) with the reference's operation order, so an apply reads nothing back
+from the card.
 """
 
 from __future__ import annotations
@@ -24,8 +26,14 @@ from torch import nn
 from blockcg_tpu_torch.operators.base import DelegatedCodecMixin
 
 
-def _np_real(dtype: torch.dtype):
-    return np.float64 if dtype in (torch.float64, torch.complex128) else np.float32
+_TORCH_OF_NP = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+
+
+def _real(dtype: torch.dtype) -> torch.dtype:
+    """The real dtype the recurrence runs in for a field of ``dtype``."""
+    if dtype in (torch.float64, torch.complex128):
+        return torch.float64
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
 
 def cheb_coefficients(lo, hi, degree: int, field_dtype: torch.dtype):
@@ -33,22 +41,28 @@ def cheb_coefficients(lo, hi, degree: int, field_dtype: torch.dtype):
     z0 = r / theta, then per step ``d' = c1 d + c2 (r - A z)``, ``z' = z +
     d'``. ``lo`` and ``hi`` are host scalars; numpy scalars keep their width
     (the reference sums them in their own dtype before the cast). Every
-    operation rounds to the field's real dtype, as the reference's jnp
-    scalars do; the results are Python floats holding those values."""
-    rdt = _np_real(field_dtype)
-    lo = lo if isinstance(lo, np.generic) else rdt(lo)
-    hi = hi if isinstance(hi, np.generic) else rdt(hi)
-    two, one = rdt(2), rdt(1)
-    theta = rdt(hi + lo) / two
-    delta = rdt(hi - lo) / two
+    operation rounds to the field's real dtype (bfloat16 too), as the
+    reference's jnp scalars do; the results are Python floats holding those
+    values."""
+    rdt = _real(field_dtype)
+
+    def scalar(v):
+        if isinstance(v, np.generic):
+            return torch.tensor(v.item(), dtype=_TORCH_OF_NP[v.dtype])
+        return torch.tensor(v, dtype=rdt)
+
+    two, one = torch.tensor(2, dtype=rdt), torch.tensor(1, dtype=rdt)
+    lo, hi = scalar(lo), scalar(hi)
+    theta = (hi + lo).to(rdt) / two
+    delta = (hi - lo).to(rdt) / two
     sigma1 = theta / delta
     rho = one / sigma1
     steps = []
     for _ in range(degree - 1):
         rho_new = one / (two * sigma1 - rho)
-        steps.append((float(rho_new * rho), float(two * rho_new / delta)))
+        steps.append(((rho_new * rho).item(), (two * rho_new / delta).item()))
         rho = rho_new
-    return float(theta), steps
+    return theta.item(), steps
 
 
 def _cheb_m_apply(base, Rt, theta: float, steps):
@@ -78,7 +92,7 @@ class ChebyshevOperator(DelegatedCodecMixin, nn.Module):
         self.degree = int(degree)
         lo, hi = (v.item() if isinstance(v, torch.Tensor) else v for v in (lo, hi))
         self.lo, self.hi = lo, hi
-        self.theta, self.steps = cheb_coefficients(lo, hi, self.degree, base.dtype)
+        self._coefficients = {}
 
     @property
     def shape(self):
@@ -99,9 +113,17 @@ class ChebyshevOperator(DelegatedCodecMixin, nn.Module):
     def matmat_t(self, Xt: torch.Tensor) -> torch.Tensor:
         return self.apply_m_t(self.base.matmat_t(Xt))
 
+    def coefficients(self, field_dtype: torch.dtype):
+        """``cheb_coefficients`` for fields of ``field_dtype``, computed once
+        and kept."""
+        if field_dtype not in self._coefficients:
+            self._coefficients[field_dtype] = cheb_coefficients(self.lo, self.hi,
+                                                                self.degree, field_dtype)
+        return self._coefficients[field_dtype]
+
     def apply_m_t(self, Rt: torch.Tensor) -> torch.Tensor:
         """M r on a lanes-major field (the right-hand side's transform)."""
-        return _cheb_m_apply(self.base, Rt, self.theta, self.steps)
+        return _cheb_m_apply(self.base, Rt, *self.coefficients(Rt.dtype))
 
     def extra_repr(self) -> str:
         return f"degree={self.degree}, lo={self.lo}, hi={self.hi}"

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from blockcg_tpu_torch.operators.base import MatmatMixin
-from blockcg_tpu_torch.ops import spmm_tiled
+from blockcg_tpu_torch.ops import _native, spmm_tiled
 
 T = spmm_tiled.T
 
@@ -188,7 +188,13 @@ class TiledOperator(MatmatMixin, nn.Module):
         return self._plans[key]
 
     def matmat_t(self, Xt: torch.Tensor) -> torch.Tensor:
-        """(k, n) lanes-major apply in the internal order."""
+        """(k, n) lanes-major apply in the internal order. A bf16 field takes
+        the reference's route for it on any device: its kernel gate takes
+        float32 X alone (``blockcg_tpu/operators/tiled.py:190-199``), and its
+        XLA route casts the tiles to X's dtype and sums in it
+        (``tiled_spmm_plain``; ``_native.f32_field_gate_refuses``)."""
+        if _native.f32_field_gate_refuses(Xt):
+            return spmm_tiled.tiled_spmm_plain(self.tiles, self.rt, self.ct, Xt)
         return spmm_tiled.tiled_spmm_t(self.tiles, self.rt, self.ct, self.first,
                                        Xt.contiguous(), self.row_ptr, self.tiled_plan)
 

@@ -19,10 +19,21 @@ Dispatch rule, shared by every wrapper in ``ops/``:
 - CUDA bfloat16 fields launch the kernel's bf16 variant on the wrappers that
   have one (``field_kernel``): ``gram``, ``mm_update``, ``mm_update_gram``,
   ``mm2_update_gram``, ``px_update``, ``xr_update_gram``, ``qr_p_update``
-  and ``qr_px_update`` with float32 k x k coefficients, ``stencil_spmm_t``
-  and ``stencil_spmm_gram_t`` with bfloat16 diagonals. A bf16 field beside
-  coefficients of another dtype and a mixed stencil pair (bf16 diagonals
-  with an f32 field, or the reverse) raise ``TypeError``;
+  and ``qr_px_update`` with float32 k x k coefficients. A bf16 field beside
+  coefficients of another dtype raises ``TypeError``;
+- the kernels whose reference gate takes the field's and the coefficients'
+  dtypes independently launch the variant of the pair (``pair_kernel``,
+  ``pair_variant``): ``stencil_spmm_t`` and ``stencil_spmm_gram_t`` take
+  float32 or bfloat16 diagonals with a float32 or bfloat16 field (the
+  reference's ``DIAOperator._pallas_ok``), the per-site block stencil
+  float32 or bfloat16 blocks with a float32 field
+  (``BlockDIAOperator._kernel_ok``). Each sums in float32. A pair no rule
+  names raises ``TypeError``;
+- a CUDA bfloat16 field of an operator whose reference kernels take float32
+  fields alone (the per-site block stencil, whatever its blocks; the tiles
+  of ``TiledOperator``) goes whole to the operator's plain route, which
+  rounds as the reference's XLA route does (``f32_field_gate_refuses``; the
+  operators in ``operators/bdia.py`` and ``operators/tiled.py`` read it);
 - CUDA bfloat16 operands of the const-hop kernels (the stencil and slab
   adds of ``ops/const_block_stencil.py``, rows 14-21) run the plain version,
   as float64 does: the reference's gate for those kernels
@@ -31,16 +42,24 @@ Dispatch rule, shared by every wrapper in ``ops/``:
   other dtype to XLA. ``f32_gate_refuses`` is this rule; the operator
   (``operators/cbdia.py``) reads it and sends a bf16 field whole to the
   plain roll-and-einsum, diagonals in the reference's order, and the
-  wrappers read it through ``f32_kernel`` for direct calls. The rule reads
-  the dtypes before any launch; nothing is tried and retried. A bf16
-  operand beside an f32 one there raises ``TypeError``;
-- a bf16 operand on any other wrapper (``cheb_step``, the block and tile
-  kernels) raises ``TypeError``, as does any other dtype; any other device
-  and a non-contiguous operand raise ``ValueError``.
+  wrappers read it through ``f32_kernel`` for direct calls. ``cheb_step``
+  follows the same rule (the reference's ``cheb_step_available`` takes
+  float32 alone). A bf16 operand beside an f32 one there raises
+  ``TypeError``;
+- a bf16 operand on any other wrapper (the tile kernel, a bf16 field on the
+  block stencil's) raises ``TypeError``, as does any other dtype; any other
+  device and a non-contiguous operand raise ``ValueError``.
+
+Every rule reads the dtypes before any launch; nothing is tried and retried.
 
 ``launches`` counts kernel launches per wrapper; the wrappers add to it where
 they launch and nowhere else. A bf16 variant counts under its own name, the
-wrapper's with ``[bf16]`` after it (``px_update[bf16]``).
+wrapper's with ``[bf16]`` after it (``px_update[bf16]``); the mixed pairs as
+``[bf16 coeffs]`` (bf16 diagonals or blocks, f32 field) and ``[bf16 field]``
+(f32 diagonals, bf16 field); the stencil's launches that also write their
+f32 sums for a bf16 Gram above one launch as ``[bf16, wide]`` (``[bf16
+field, wide]``); a folded block stencil as ``[fold]`` (``[fold, bf16
+coeffs]`` on bf16 blocks).
 """
 
 from __future__ import annotations
@@ -113,12 +132,12 @@ def f32_kernel(*tensors: torch.Tensor) -> bool:
     return not f32_gate_refuses(*tensors) and use_kernel(*tensors)
 
 
-def field_kernel(fields, coeffs=(), bf16_coeffs: torch.dtype = torch.float32):
+def field_kernel(fields, coeffs=()):
     """The field dtype whose kernel the operands go to (``torch.float32`` or
     ``torch.bfloat16``), or None for the plain version: the rule of
     ``use_kernel``, and besides it bf16 ``fields`` (None entries skipped)
-    with every one of ``coeffs`` of dtype ``bf16_coeffs`` launch the bf16
-    variant. Any other mix with a bf16 operand raises ``TypeError``."""
+    with float32 ``coeffs`` launch the bf16 variant. Any other mix with a
+    bf16 operand raises ``TypeError``."""
     fields = [f for f in fields if f is not None]
     ops = (*fields, *coeffs)
     if not any(t.dtype == torch.bfloat16 for t in ops):
@@ -129,8 +148,8 @@ def field_kernel(fields, coeffs=(), bf16_coeffs: torch.dtype = torch.float32):
     if dev.type == "cpu":
         return None
     if not (all(f.dtype == torch.bfloat16 for f in fields)
-            and all(c.dtype == bf16_coeffs for c in coeffs)):
-        raise TypeError(f"CUDA bf16 kernels take bfloat16 fields with {bf16_coeffs} "
+            and all(c.dtype == torch.float32 for c in coeffs)):
+        raise TypeError(f"CUDA bf16 kernels take bfloat16 fields with float32 "
                         f"coefficients; got fields {sorted({str(f.dtype) for f in fields})}"
                         f", coefficients {sorted({str(c.dtype) for c in coeffs})}")
     if dev.type != "cuda":
@@ -138,6 +157,52 @@ def field_kernel(fields, coeffs=(), bf16_coeffs: torch.dtype = torch.float32):
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("CUDA kernel operands must be contiguous")
     return torch.bfloat16
+
+
+def f32_field_gate_refuses(X: torch.Tensor) -> bool:
+    """True for a bfloat16 field, which an operator whose reference kernels
+    take float32 fields alone (the per-site block stencil, the tiles) sends
+    whole to its plain route on any device (see the module docstring)."""
+    return X.dtype == torch.bfloat16
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (field dtype, coefficient dtype) -> (launch-count tag, library suffix)
+PAIR_VARIANTS = {(F32, F32): ("", ""), (BF16, BF16): ("[bf16]", "_bf16"),
+                 (F32, BF16): ("[bf16 coeffs]", "_bf16d"),
+                 (BF16, F32): ("[bf16 field]", "_bf16x")}
+
+
+def pair_kernel(field: torch.Tensor, coeff: torch.Tensor, pairs):
+    """The (field dtype, coefficient dtype) pair whose kernel variant the
+    operands launch, or None for the plain version: CPU tensors, and float64
+    for both. Elsewhere the pair must be one of ``pairs`` (else
+    ``TypeError``, read before the device type), the device CUDA and both
+    operands contiguous (else ``ValueError``)."""
+    dev = field.device
+    if coeff.device != dev:
+        raise ValueError(f"operands on several devices: {field.device}, {coeff.device}")
+    if dev.type == "cpu":
+        return None
+    pair = (field.dtype, coeff.dtype)
+    if pair == (torch.float64, torch.float64):
+        return None
+    if pair not in pairs:
+        raise TypeError(f"CUDA kernel: no variant for a {field.dtype} field with "
+                        f"{coeff.dtype} coefficients; it takes "
+                        f"{sorted((str(f), str(c)) for f, c in pairs)}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (field.is_contiguous() and coeff.is_contiguous()):
+        raise ValueError("CUDA kernel operands must be contiguous")
+    return pair
+
+
+def pair_variant(name: str, fn_name: str, pair) -> tuple[str, str]:
+    """(launch-count name, library function) of the variant of a (field,
+    coefficient) dtype pair (``PAIR_VARIANTS``)."""
+    tag, suffix = PAIR_VARIANTS[pair]
+    return f"{name}{tag}", f"{fn_name}{suffix}"
 
 
 def variant(name: str, fn_name: str, dtype: torch.dtype) -> tuple[str, str]:
@@ -256,7 +321,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bcg_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, P, P,
-                                     P, P, I, L, I, I, I, I, P]
+                                     P, P, P, I, L, I, I, I, I, P]
     lib.bcg_mm_update.argtypes = [P, P, P, P, I, L, I, P]
     lib.bcg_gram.argtypes = [P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_mm_update_gram.argtypes = [P, P, P, P, P, P, I, I, L, I, I, I, P]
@@ -273,8 +338,8 @@ def library() -> ctypes.CDLL:
                                         I, P]
     lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P,
                                         I, I, L, I, I, I, P]
-    lib.bcg_block_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, I, P,
-                                           P, P, P, I, I, L, I, I, I, I, I, I, I, P]
+    lib.bcg_block_stencil_spmm.argtypes = [P, I, IP, IP, I, I, P, P, P, P, I, I, L, I, I,
+                                           I, I, I, I, I, P]
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, I, P, P, I, I, L, I, I, I, I, P]
@@ -283,6 +348,9 @@ def library() -> ctypes.CDLL:
                "qr_px_update"):  # the bf16 variants take the f32 kernels' arguments
         getattr(lib, f"bcg_{fn}_bf16").argtypes = getattr(lib, f"bcg_{fn}").argtypes
         getattr(lib, f"bcg_{fn}_bf16").restype = I
+    for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x"):
+        getattr(lib, fn).argtypes = lib.bcg_stencil_spmm.argtypes
+        getattr(lib, fn).restype = I
     for fn in (lib.bcg_stencil_spmm, lib.bcg_mm_update, lib.bcg_gram,
                lib.bcg_mm_update_gram, lib.bcg_mm2_update_gram,
                lib.bcg_px_update,

@@ -13,16 +13,27 @@ of the same contract, ``blockcg_tpu/ops/block_stencil_ring.py``; all run as
   X[i, b, (s + o_d) mod ns]``.
 
 The ring kernels are a TPU schedule (each X block fetched from HBM once),
-not part of the contract: the port has no ring entry of its own. The
-reference's merged kernels need m % 8 == 0 (a TPU sublane rule); the CUDA
-kernel takes any m. Left out: the folded wrap diagonals (``fold=``), bf16
-block storage and ``donate``.
+not part of the contract: the port has no ring entry of its own. Their
+``fold=`` mode is: the merged wrappers take ``fold``, the reference's
+``((diagonal, L), ...)`` of folded periodic wraps (``blockcg_tpu/ops/
+block_stencil_ring.py:62-97``), with the operator's folded blocks and
+offsets: a folded diagonal's source site is ``(s + o (1 - L)) mod ns`` where
+``(s // |o|) % L`` is its wrap phase (L - 1 for o > 0, 0 for o < 0) and
+``(s + o) mod ns`` elsewhere. The reference's merged kernels need m % 8 == 0
+(a TPU sublane rule); the CUDA kernel takes any m. Left out: ``donate``.
 
-Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
-plain versions below (the reference's ``_matmat_m_xla`` roll-and-einsum),
-CUDA float32 tensors launch the kernel, and anything else raises, complex
-blocks included (their route to the card is ``operators.realify``). Kernel
-bounds: at most 32 diagonals and bs <= 8; the wrappers raise outside them.
+Dispatch follows ``ops/_native.py`` (``pair_kernel``): CPU and CUDA float64
+tensors run the plain versions below (the reference's ``_matmat_m_xla``
+roll-and-einsum, summed in f32 as its kernels sum), CUDA float32 fields
+launch the kernel on float32 blocks, or its ``[bf16 coeffs]`` variant on
+bfloat16 blocks (lifted exactly to f32; the reference's gate
+``BlockDIAOperator._kernel_ok`` takes both with f32 fields), and anything
+else raises, bf16 fields and complex blocks included (the operator sends a
+bf16 field to its own plain route, ``operators/bdia.py``; the route of
+complex blocks to the card is ``operators.realify``). A folded launch counts
+as ``[fold]`` (``[fold, bf16 coeffs]``). Kernel bounds: at most 32
+diagonals and bs <= 8, and an even ns on bf16 blocks; the wrappers raise
+outside them.
 One launch takes m = bs * k <= 96 rows; a wider field runs as one launch per
 chunk of right-hand sides (on the merged view with the field's spin stride,
 as in ``ops/const_block_stencil.py``). ``block_stencil_plan`` picks each
@@ -42,6 +53,9 @@ import torch
 
 from blockcg_tpu_torch.ops import _native
 from blockcg_tpu_torch.solvers.common import acc_dtype, gram_t
+
+# The (field, blocks) dtype pairs the kernel takes on CUDA.
+PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16))
 
 MAX_DIAGS = 32  # csrc/block_stencil.cu kMaxDiags
 MAX_BS = 8  # csrc/block_stencil.cu kMaxBs
@@ -80,17 +94,19 @@ def _rhs_width(bs: int, nd: int, name: str) -> int:
 BARRIER_BYTES = 8 * (2 * max(STAGES) + 2)  # csrc/block_stencil.cu: static mbarriers
 
 
-def smem_bytes(bs: int, k: int, T: int, h: int, stages: int, far: bool, gram: bool) -> int:
+def smem_bytes(bs: int, k: int, T: int, h: int, stages: int, far: bool, gram: bool,
+               csize: int = 4) -> int:
     """Dynamic shared bytes of a launch (``csrc/block_stencil.cu``
-    bs_smem_floats): two windows of m = bs * k rows and T + 2h + 4 columns;
-    ``stages`` ring slots of the bs^2 coefficient planes of T sites and, with
-    any far diagonal, m rows of X; with the Gram the (m, T + 4) Y tile, at
-    least the Gram's end-of-kernel scratch."""
+    bs_smem_bytes): two float windows of m = bs * k rows and T + 2h + 4
+    columns; ``stages`` ring slots of the bs^2 coefficient planes of T sites
+    (``csize``-byte elements) and, with any far diagonal, m float rows of X;
+    with the Gram the (m, T + 4) Y tile, at least the Gram's end-of-kernel
+    scratch."""
     m = bs * k
-    f = 2 * m * (T + 2 * h + 4) + stages * (bs * bs + (m if far else 0)) * T
+    b = 8 * m * (T + 2 * h + 4) + stages * (csize * bs * bs + (4 * m if far else 0)) * T
     if gram:
-        f = max(f + m * (T + 4), SCRATCH)
-    return 4 * f
+        b = max(b + 4 * m * (T + 4), 4 * SCRATCH)
+    return b
 
 
 class BlockStencilPlan(NamedTuple):
@@ -138,7 +154,8 @@ def _split(bs: int, k: int, groups: int | None) -> tuple[int, int]:
 @functools.lru_cache(maxsize=256)
 def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_gram: bool,
                        smem_cap: int, sm_count: int, *, h: int | None = None,
-                       groups: int | None = None, stages: int | None = None) -> BlockStencilPlan:
+                       groups: int | None = None, stages: int | None = None,
+                       csize: int = 4, wraps: tuple = ()) -> BlockStencilPlan:
     """The schedule of a launch of k right-hand sides (m = bs * k <= 96) on
     ns sites. With ``with_gram`` it first tries a fused Gram (at most two
     groups, so the Gram's register width 2 BS ki covers m), and falls back to
@@ -148,13 +165,19 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
     memory fits ``smem_cap`` beside the kernel's mbarriers, it keeps the
     least L2->SM traffic of X, then the deeper ring, then the smaller halo. A
     diagonal is near when its offset mod ns lies within h of 0 or of ns, the
-    rule the kernel applies. ``h``, ``groups`` and ``stages`` pin those
+    rule the kernel applies; a folded diagonal (``wraps``: ``((d, w), ...)``,
+    its wrap partner's offset w) is near when both its offsets are, and the
+    kernel then reads each site's X from the window at its own shift; a far
+    one stages each site's X from its own source. ``csize``: bytes of a
+    block element (2 on bf16 blocks). ``h``, ``groups`` and ``stages`` pin those
     choices (the timing tool's variants)."""
     if not 1 <= bs * k <= MAX_ROWS:
         raise ValueError(f"block stencil: one launch takes bs * k <= {MAX_ROWS} rows, "
                          f"got {bs} x {k}")
     offs = [int(o) % ns for o in offsets]
     dist = [min(o, ns - o) for o in offs]
+    for d, w in wraps:
+        dist[d] = max(dist[d], min(int(w) % ns, ns - int(w) % ns))
     halos = sorted({0} | {-(-d // 4) * 4 for d in dist}) if h is None else [h]
     depths = STAGES if stages is None else (stages,)
     tries = [(groups, False)]
@@ -172,7 +195,7 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
         for st in depths:
             for hh in halos:
                 far = [d > hh for d in dist]
-                nbytes = smem_bytes(bs, k, T, hh, st, any(far), gram)
+                nbytes = smem_bytes(bs, k, T, hh, st, any(far), gram, csize)
                 if nbytes + BARRIER_BYTES > smem_cap:
                     break
                 traffic = (T + 2 * hh) / T + sum(far)
@@ -192,19 +215,43 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
 # ------------------------------------------------------------ plain versions
 
 
-def block_stencil_plain(blocks, offsets, Xm, with_gram: bool = False):
+def fold_terms(offsets, fold, ns: int) -> dict:
+    """``{d: (w, st, L, phase)}`` of the folded diagonals of ``fold`` (the
+    reference's ``((d, L), ...)``): the wrap partner's offset ``w = o (1 -
+    L)``, the run ``st = |o|`` of sites sharing a source, the axis extent and
+    the destination phase that reads the wrap (L - 1 for o > 0, 0 for o <
+    0)."""
+    out = {}
+    for d, L in fold:
+        o = int(offsets[d])
+        st = abs(o)
+        if st == 0 or L < 3 or ns % (st * L):
+            raise ValueError(f"block stencil: fold ({d}, {L}) of offset {o} does not tile "
+                             f"{ns} sites")
+        out[int(d)] = (o * (1 - L), st, int(L), L - 1 if o > 0 else 0)
+    return out
+
+
+def block_stencil_plain(blocks, offsets, Xm, with_gram: bool = False, fold=()):
     """Plain PyTorch version on the merged (m, ns) view: the roll-and-einsum
     of the reference's ``BlockDIAOperator._matmat_m_xla``, one input spin at
-    a time. Returns ``(Ym, Gm or None)`` with ``Gm = X^H Y`` taken on the
-    accumulator."""
+    a time, summed in f32 on f32 and bf16 fields (the kernels' contract).
+    Returns ``(Ym, Gm or None)`` with ``Gm = X^H Y`` taken on the
+    accumulator. ``fold``: folded diagonals, whose source per site is the
+    wrap partner's on its phase (``fold_terms``)."""
     bs = blocks.shape[1]
     m, ns = Xm.shape
     adt = acc_dtype(Xm.dtype)
     Xv = Xm.reshape(bs, m // bs, ns).to(adt)
     C = blocks.to(adt)
     Yv = torch.zeros_like(Xv)
+    folds = fold_terms(offsets, fold, ns)
+    sites = torch.arange(ns, device=Xm.device)
     for d, o in enumerate(offsets):
         src = Xv if o % ns == 0 else torch.roll(Xv, -o, dims=2)
+        if d in folds:
+            w, st, L, phase = folds[d]
+            src = torch.where((sites // st) % L == phase, torch.roll(Xv, -w, dims=2), src)
         for b in range(bs):
             Yv += C[d, :, b, None, :] * src[b]
     Y = Yv.reshape(m, ns)
@@ -223,37 +270,59 @@ def block_stencil_v_plain(blocks, offsets, Xv):
 # ------------------------------------------------------------------ wrappers
 
 
-def launch_plans(blocks, offsets, k: int, with_gram: bool, device, name: str = "block stencil"):
+def launch_plans(blocks, offsets, k: int, with_gram: bool, device, name: str = "block stencil",
+                 fold=()):
     """``[((j0, j1), plan), ...]``: the chunks of right-hand sides a field of
     k runs as, one launch each, and the plan of each (the Gram fused only on a
     field of one chunk)."""
     nd, bs, _, ns = blocks.shape
     chunks = _native.row_chunks(k, _rhs_width(bs, nd, name))
     offs = tuple(int(o) % ns for o in offsets)
+    wraps = tuple((d, t[0]) for d, t in sorted(fold_terms(offsets, fold, ns).items()))
     cap, sms = _native.max_smem(device.index), _native.sm_count(device.index)
     return [((j0, j1), block_stencil_plan(offs, ns, bs, j1 - j0, with_gram and len(chunks) == 1,
-                                          cap, sms)) for j0, j1 in chunks]
+                                          cap, sms, csize=blocks.element_size(),
+                                          wraps=wraps)) for j0, j1 in chunks]
 
 
-def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str):
+def label(name: str, blocks, fold=()) -> str:
+    """The launch-count name of a launch on these blocks: ``name``, with
+    ``[bf16 coeffs]`` on bf16 blocks, ``[fold]`` folded (``[fold, bf16
+    coeffs]``)."""
+    tags = (["fold"] if fold else []) + (["bf16 coeffs"] if blocks.dtype == torch.bfloat16
+                                         else [])
+    return f"{name}[{', '.join(tags)}]" if tags else name
+
+
+def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str, fold=()):
     """Launch on a contiguous (bs * k, ns)-shaped field X (the merged view, or
     the (k, bs, ns) view and its flat form), one launch per chunk of
     right-hand sides; returns (Y shaped like X, Gm or None)."""
     from blockcg_tpu_torch.ops import fused
 
     nd, bs, _, ns = blocks.shape
+    if blocks.dtype == torch.bfloat16 and ns % 2:
+        raise ValueError(f"{name}: the kernel takes bf16 blocks on an even number of sites, "
+                         f"got {ns}")
     offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
+    folds = fold_terms(offsets, fold, ns)
+    table = None  # (wrap offset mod ns, st, L, phase) a diagonal, st = 0 unfolded
+    if folds:
+        quads = [folds.get(d, (0, 0, 0, 0)) for d in range(nd)]
+        table = (ctypes.c_int * (4 * nd))(*(v for w, st, L, ph in quads
+                                            for v in (w % ns, st, L, ph)))
     Y = torch.empty_like(X)
     row = ns * 4 * (1 if merged else bs)  # bytes from one RHS to the next
     p = _native.ptr
     G = None
-    for (j0, j1), plan in launch_plans(blocks, offsets, k, with_gram, X.device, name):
+    for (j0, j1), plan in launch_plans(blocks, offsets, k, with_gram, X.device, name, fold):
         part = None
         if plan.fused_gram:
             m = bs * k
             part = torch.empty((plan.blocks, m, m), dtype=torch.float32, device=X.device)
             G = torch.empty((m, m), dtype=torch.float32, device=X.device)
-        _native.launch(name, "bcg_block_stencil_spmm", X.device, p(blocks), offs, nd, bs,
+        _native.launch(label(name, blocks, fold), "bcg_block_stencil_spmm", X.device,
+                       p(blocks), blocks.element_size(), offs, table, nd, bs,
                        p(X) + j0 * row, p(Y) + j0 * row, p(part), p(G), j1 - j0,
                        k if merged else j1 - j0, ns, int(merged), plan.h, plan.groups,
                        plan.ki, plan.stages, plan.blocks)
@@ -262,28 +331,29 @@ def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str
     return Y, G
 
 
-def _merged(blocks, offsets, Xm, with_gram: bool, name: str):
+def _merged(blocks, offsets, Xm, with_gram: bool, name: str, fold=()):
     if Xm.dim() != 2:
         raise ValueError(f"{name}: expected a merged (m, ns) field, got {tuple(Xm.shape)}")
     _check(blocks, offsets, Xm.shape[0], Xm.shape[1], name)
-    if not _native.use_kernel(blocks, Xm):
-        return block_stencil_plain(blocks, offsets, Xm, with_gram)
+    if _native.pair_kernel(Xm, blocks, PAIRS) is None:
+        return block_stencil_plain(blocks, offsets, Xm, with_gram, fold)
     return _launch(blocks, offsets, Xm, Xm.shape[0] // blocks.shape[1], True,
-                   with_gram, name)
+                   with_gram, name, fold)
 
 
 def block_stencil_spmm_m_t(blocks: torch.Tensor, offsets: tuple[int, ...],
-                           Xm: torch.Tensor) -> torch.Tensor:
+                           Xm: torch.Tensor, fold=()) -> torch.Tensor:
     """Merged-layout block SpMM: blocks (noff, bs, bs, ns), Xm (m = bs*k,
-    ns) with row a*k + i. Returns Ym."""
-    return _merged(blocks, offsets, Xm, False, "block_stencil_spmm_m_t")[0]
+    ns) with row a*k + i. Returns Ym. ``fold``: the folded diagonals of
+    folded blocks and offsets (module docstring)."""
+    return _merged(blocks, offsets, Xm, False, "block_stencil_spmm_m_t", fold)[0]
 
 
 def block_stencil_spmm_m_gram_t(blocks: torch.Tensor, offsets: tuple[int, ...],
-                                Xm: torch.Tensor):
+                                Xm: torch.Tensor, fold=()):
     """``(Ym, Gm = X Y^T)``, Gm (m, m); contract it to k x k with the
     operator's ``gram_contract``."""
-    return _merged(blocks, offsets, Xm, True, "block_stencil_spmm_m_gram_t")
+    return _merged(blocks, offsets, Xm, True, "block_stencil_spmm_m_gram_t", fold)
 
 
 def block_stencil_spmm_t(blocks: torch.Tensor, offsets: tuple[int, ...],
@@ -297,6 +367,6 @@ def block_stencil_spmm_t(blocks: torch.Tensor, offsets: tuple[int, ...],
                          f"field, got {tuple(Xt.shape)}")
     k = Xt.shape[0]
     _check(blocks, offsets, bs * k, ns, name)
-    if not _native.use_kernel(blocks, Xt):
+    if _native.pair_kernel(Xt, blocks, PAIRS) is None:
         return block_stencil_v_plain(blocks, offsets, Xt.reshape(k, bs, ns)).reshape(Xt.shape)
     return _launch(blocks, offsets, Xt, k, False, False, name)[0]

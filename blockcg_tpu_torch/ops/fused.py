@@ -41,8 +41,10 @@ breaks BCGA down, and buys nothing here, where the kernels multiply in
 f32): the f32 coefficient times the field lifted to f32, summed in f32,
 outputs stored in bf16 (``qr_p_update`` and ``qr_px_update`` add rho P to
 the unrounded f32 Q), and a fused Gram taken on the stored bf16 output,
-its f32 sum of exact products. ``cheb_step`` refuses bf16 on the card, as the reference's gate
-does (``cheb_step_available``).
+its f32 sum of exact products. ``cheb_step`` runs its plain version on
+bf16 fields on any device, as the reference's gate sends every dtype but
+float32 to XLA (``cheb_step_available``; ``_native.f32_kernel``): each
+operation rounds to bf16 there.
 
 ``donate`` writes an output into the storage of the named input, which the
 caller must treat as dead afterwards; both routes honour it, so a caller that
@@ -714,7 +716,7 @@ def cheb_step(R: torch.Tensor, Z: torch.Tensor, D: torch.Tensor, AZ: torch.Tenso
         raise ValueError("cheb_step: donated Z and D share storage")
     if not (R.shape == Z.shape == D.shape == AZ.shape):
         raise ValueError(f"cheb_step: fields of shapes {[tuple(F.shape) for F in (R, Z, D, AZ)]}")
-    if not _native.use_kernel(R, Z, D, AZ):
+    if not _native.f32_kernel(R, Z, D, AZ):
         Zn, Dn = cheb_step_plain(R, Z, D, AZ, c1, c2)
         if donate:
             return Z.copy_(Zn), D.copy_(Dn)

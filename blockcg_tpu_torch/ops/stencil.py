@@ -7,19 +7,25 @@ part of them. Semantics are toroidal, ``Yt[:, i] = sum_d diags[d, i] *
 Xt[:, (i + offsets[d]) mod n]``; Dirichlet builders zero every wrap-crossing
 coefficient, which makes this the truncated apply.
 
-Dispatch follows ``ops/_native.py``: CPU and CUDA float64 tensors run the
-plain roll-and-accumulate below, CUDA float32 tensors launch the kernel, and
-CUDA bf16 X with bf16 diagonals its bf16 variant (counted as
-``stencil_spmm_t[bf16]`` and ``stencil_spmm_gram_t[bf16]``): products of two
-bf16 are exact in f32 and accumulate in f32, Y is stored in bf16, and the
-fused Gram is taken on the unrounded f32 sums, as the reference's Pallas
-kernel takes it (``blockcg_tpu/ops/stencil.py`` ``_kernel``). A bf16 Gram
-needs those sums, so it takes one launch: at most 64 rows. A mixed pair
-(bf16 diagonals and an f32 field, or the reverse) raises ``TypeError``.
-The kernel writes Y to a fresh buffer, never onto X. The rows of a field are
-independent right-hand sides, so a field wider than one launch (64 rows) runs
-as one launch per chunk of rows; the fused Gram's cross blocks then come from
-``fused.gram`` on the stored output.
+Dispatch follows ``ops/_native.py`` (``pair_kernel``): CPU and CUDA float64
+tensors run the plain roll-and-accumulate below; on CUDA the diagonals and
+the field are each float32 or bfloat16, as the reference's gate takes them
+(``DIAOperator._pallas_ok``), and each pair launches its variant: f32/f32
+the kernel, bf16/bf16 ``[bf16]``, bf16 diagonals with an f32 field ``[bf16
+coeffs]``, f32 diagonals with a bf16 field ``[bf16 field]``. Every variant
+lifts its bf16 operands to f32 exactly and sums in f32 (the reference's
+kernel sums in f32 whenever its output is bf16, and in f32 anyway on an f32
+field, ``blockcg_tpu/ops/stencil.py`` ``_kernel``); Y is stored in the
+field's dtype, and the fused Gram is taken on the unrounded f32 sums, as
+the reference's Pallas kernel takes it. The kernel writes Y to a fresh
+buffer, never onto X. The rows of a field are independent right-hand sides,
+so a field wider than one launch (64 rows) runs as one launch per chunk of
+rows; the fused Gram's cross blocks then come from ``fused.gram`` on X and
+the launches' f32 sums: the stored Y on an f32 field, and on a bf16 field
+an f32 (k, n) scratch the launches also write their sums to, beside X
+lifted to f32 (two f32 copies of the field: the cost of a bf16 Gram on more
+than 64 rows); those launches count as ``[bf16, wide]`` (``[bf16 field,
+wide]``).
 
 Each launch stages a window of X in shared memory and serves the diagonals
 near the tile from it (``csrc/stencil.cu``); ``stencil_plan`` picks the
@@ -57,20 +63,24 @@ class StencilPlan(NamedTuple):
     blocks_per_sm: int
 
 
-def smem_bytes(k: int, ndiag: int, h: int, T: int, with_gram: bool, esize: int = 4) -> int:
+def smem_bytes(k: int, ndiag: int, h: int, T: int, with_gram: bool, esize: int = 4,
+               dsize: int | None = None) -> int:
     """Shared bytes of a launch (``csrc/stencil.cu`` smem_bytes): two
-    windows of k rows and T + 2h columns (+4 at k <= 32 on floats), two
-    (ndiag, T) coefficient tiles, all of ``esize``-byte elements, and, with
-    the Gram, the float (k, T + 4) Y tile, at least the Gram's end-of-kernel
-    scratch (64 KB above 16 rows, 16 KB up to 16)."""
+    windows of k rows and T + 2h columns (+4 at k <= 32 on floats) of
+    ``esize``-byte elements, two (ndiag, T) coefficient tiles of
+    ``dsize``-byte ones (``esize`` by default), and, with the Gram, the
+    float (k, T + 4) Y tile, at least the Gram's end-of-kernel scratch (64
+    KB above 16 rows, 16 KB up to 16)."""
+    dsize = esize if dsize is None else dsize
     W = T + 2 * h + (4 if esize == 4 and k <= 32 else 0)
-    b = 2 * esize * (k * W + ndiag * T) + (4 * k * (T + 4) if with_gram else 0)
+    b = 2 * (esize * k * W + dsize * ndiag * T) + (4 * k * (T + 4) if with_gram else 0)
     return max(b, 4 * 256 * (64 if k > 16 else 16)) if with_gram else b
 
 
 @functools.lru_cache(maxsize=256)
 def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
-                 smem_cap: int, sm_count: int, esize: int = 4) -> StencilPlan:
+                 smem_cap: int, sm_count: int, esize: int = 4,
+                 dsize: int | None = None) -> StencilPlan:
     """The (h, T) for a launch of k rows on n columns that minimises the
     L2->SM traffic per busy thread, ``traffic / (blocks_per_sm * T / 256)``,
     among those whose shared memory fits ``smem_cap``; ties go to the wider
@@ -80,9 +90,9 @@ def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
     the SM reserves for each block), at most the two the SpMM is built for
     up to 32 rows, one above and with the Gram (csrc/stencil.cu
     kStBlocksPerSm). T is 128 where n / sm_count < 256, so a small field
-    still spreads over the card. ``esize``: bytes of an element of X and of
-    the diagonals (2 on bf16, whose halos are multiples of 8: a 16-byte copy
-    carries 8 elements)."""
+    still spreads over the card. ``esize``: bytes of an element of X (2 on
+    bf16, whose halos are multiples of 8: a 16-byte copy carries 8
+    elements); ``dsize``: of the diagonals (``esize`` by default)."""
     offs = [int(o) % n for o in offsets]
     dist = [min(o, n - o) for o in offs]
     quantum = 16 // esize
@@ -92,7 +102,7 @@ def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
         if T > max(TILES[0], n // sm_count):
             continue
         for h in sorted({0} | {-(-d // quantum) * quantum for d in dist}):
-            nbytes = smem_bytes(k, len(offs), h, T, with_gram, esize)
+            nbytes = smem_bytes(k, len(offs), h, T, with_gram, esize, dsize)
             if nbytes > smem_cap:
                 break
             blocks = min(built, (smem_cap + 1024) // (nbytes + 1024))
@@ -122,7 +132,12 @@ def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
     return acc.to(Xt.dtype), G
 
 
-def _launch(diags, offsets, Xt, with_gram: bool, name: str):
+# The (field, diagonals) dtype pairs the kernel takes on CUDA: the
+# reference's gate takes float32 or bfloat16 for each.
+PAIRS = tuple(_native.PAIR_VARIANTS)
+
+
+def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
     from blockcg_tpu_torch.ops import fused
 
     ndiag, n = diags.shape
@@ -134,16 +149,19 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str):
     offs = (ctypes.c_int * ndiag)(*(int(o) % n for o in offsets))
     Y = torch.empty_like(Xt)
     chunks = _native.row_chunks(k)
-    if with_gram and Xt.dtype == torch.bfloat16 and len(chunks) > 1:
-        raise ValueError(f"{name}: a bf16 field's Gram comes from the f32 sums of one "
-                         f"launch, at most {_native.MAX_K} rows; got {k}")
+    # A bf16 Y has lost the f32 sums the cross blocks of a wide Gram need.
+    S = None
+    if with_gram and len(chunks) > 1 and Xt.dtype == torch.bfloat16:
+        S = torch.empty(Xt.shape, dtype=torch.float32, device=Xt.device)
     cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
-    label, fn = _native.variant(name, "bcg_stencil_spmm", Xt.dtype)
+    label, fn = _native.pair_variant(name, "bcg_stencil_spmm", pair)
+    if S is not None:  # the launches that also write their f32 sums
+        label = f"{label[:-1]}, wide]"
     diag = []
     for r0, r1 in chunks:
         kc = r1 - r0
         plan = stencil_plan(tuple(int(o) for o in offsets), n, kc, with_gram, cap, sms,
-                            Xt.element_size())
+                            Xt.element_size(), diags.element_size())
         max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None
         if with_gram:
@@ -151,8 +169,11 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str):
             G = torch.empty((kc, kc), dtype=torch.float32, device=Xt.device)
         _native.launch(label, fn, Xt.device, _native.ptr(diags),
                        offs, ndiag, _native.ptr(Xt[r0:r1]), _native.ptr(Y[r0:r1]),
+                       None if S is None else _native.ptr(S[r0:r1]),
                        _native.ptr(part), _native.ptr(G), kc, n, plan.h, plan.T, max_blocks)
         diag.append(G)
+    if S is not None:
+        return Y, fused.wide_gram(Xt.float(), S, diag, chunks)
     if with_gram and len(chunks) > 1:
         return Y, fused.wide_gram(Xt, Y, diag, chunks)
     return Y, diag[0]
@@ -162,14 +183,17 @@ def stencil_spmm_t(diags: torch.Tensor, offsets: tuple[int, ...],
                    Xt: torch.Tensor) -> torch.Tensor:
     """``Yt[:, i] = sum_d diags[d, i] * Xt[:, (i + offsets[d]) mod n]``;
     diags (ndiag, n), Xt (k, n)."""
-    if _native.field_kernel((Xt,), (diags,), torch.bfloat16) is None:
+    pair = _native.pair_kernel(Xt, diags, PAIRS)
+    if pair is None:
         return stencil_spmm_plain(diags, offsets, Xt)[0]
-    return _launch(diags, offsets, Xt, False, "stencil_spmm_t")[0]
+    return _launch(diags, offsets, Xt, False, "stencil_spmm_t", pair)[0]
 
 
 def stencil_spmm_gram_t(diags: torch.Tensor, offsets: tuple[int, ...],
                         Xt: torch.Tensor):
-    """``(Yt, G = X Y^T)``: the SpMM with the solvers' ``P^T A P`` Gram."""
-    if _native.field_kernel((Xt,), (diags,), torch.bfloat16) is None:
+    """``(Yt, G = X Y^T)``: the SpMM with the solvers' ``P^T A P`` Gram,
+    taken on the f32 sums (before a bf16 Y is rounded)."""
+    pair = _native.pair_kernel(Xt, diags, PAIRS)
+    if pair is None:
         return stencil_spmm_plain(diags, offsets, Xt, with_gram=True)
-    return _launch(diags, offsets, Xt, True, "stencil_spmm_gram_t")
+    return _launch(diags, offsets, Xt, True, "stencil_spmm_gram_t", pair)

@@ -30,13 +30,15 @@ order (general block sparsity), and ``dirac_scipy`` exports that form.
 
 The numpy construction is carried over as it is, since the port may not
 import the reference package: masks, hops, blocks, offsets, slots, slabs,
-``wrap_zero`` and nnz come out bitwise the reference's. The reference's
-folded wrap fields (opt-in through ``BLOCKCG_FOLD``) are not built.
-Every builder puts its operator on the card unless ``device`` says
-otherwise.
+``wrap_zero``, nnz and the folded wrap fields (``_folded_fields``, built on
+periodic per-site operators under ``BLOCKCG_FOLD``, as the reference's) come
+out bitwise the reference's. Every builder puts its operator on the card
+unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -82,18 +84,80 @@ def _coords(ns: int, L: int) -> tuple[list[np.ndarray], list[int]]:
     return [(idx // strides[ax]) % L for ax in range(_NDIM)], strides
 
 
+def _folded_fields(blk: np.ndarray, offsets, L: int, force: bool = False) -> dict:
+    """The folded periodic-wrap form of per-site blocks (the reference's
+    ``problems/dirac.py`` ``_folded_fields``): each toroidal wrap diagonal
+    (offset o (1 - L), nonzero only on its axis's wrap boundary) merged into
+    its bulk hop partner (offset o, zero exactly there), so one coefficient
+    stream serves both. Returns the keywords ``blocks_folded`` (numpy),
+    ``fold_offsets`` and ``fold`` (``((index in the folded offsets, L),
+    ...)``), or {} without wrap pairs. The kernel selects the wrap's source
+    on destination sites with ``(s // st) % L == phase`` (L - 1 for o > 0, 0
+    for o < 0): a pair is folded only where the bulk values are zero on
+    exactly those sites and the wrap values nowhere else, checked here.
+    Opt-in, as the reference's: ``BLOCKCG_FOLD``, or ``force``."""
+    if not (force or os.environ.get("BLOCKCG_FOLD")):
+        return {}
+    if L <= 2:  # the wrap offset -o is the opposite bulk hop: nothing to fold
+        return {}
+    ns = blk.shape[-1]
+    pairs = []
+    used: set[int] = set()
+    for d, o in enumerate(offsets):
+        if d in used:
+            continue
+        ow = o * (1 - L)
+        if o == 0 or ow == o:
+            continue
+        st = abs(o)
+        if st * L > ns or ns % (st * L) != 0:
+            continue
+        phase = L - 1 if o > 0 else 0
+        on_mask = (np.arange(ns) // st) % L == phase
+        if ((np.abs(blk[d]).sum(axis=(0, 1)) > 0) & on_mask).any():
+            continue
+        # Duplicate offsets are legal: take the first unused wrap candidate
+        # whose values sit on the mask's sites alone.
+        for dw, oo in enumerate(offsets):
+            if oo != ow or dw in used or dw == d:
+                continue
+            if ((np.abs(blk[dw]).sum(axis=(0, 1)) > 0) & ~on_mask).any():
+                continue
+            pairs.append((d, dw))
+            used.update((d, dw))
+            break
+    if not pairs:
+        return {}
+    wrap_idx = {dw for _, dw in pairs}
+    keep = [d for d in range(len(offsets)) if d not in wrap_idx]
+    folded = blk[keep].copy()
+    fold = []
+    for d, dw in pairs:
+        pos = keep.index(d)
+        folded[pos] += blk[dw]
+        fold.append((pos, L))
+    return {"blocks_folded": folded, "fold_offsets": tuple(offsets[d] for d in keep),
+            "fold": tuple(fold)}
+
+
 def _np_dtype(dtype: torch.dtype, what: str):
     if dtype not in _NP_DTYPES:
         raise TypeError(f"{what}: dtype must be float32, float64, complex64 or "
-                        f"complex128, got {dtype}")
+                        f"complex128, got {dtype} (operators.astype(op, dtype) casts a "
+                        f"built operator)")
     return np.dtype(_NP_DTYPES[dtype])
 
 
-def _setup(L: int, bc: str, dtype: torch.dtype, seed: int, what: str):
-    """(np dtype, complex?, H, ns, coords, strides) of a builder."""
+def _setup(L: int, bc: str, dtype: torch.dtype, seed: int, what: str,
+           bf16_ok: bool = False):
+    """(np dtype, complex?, H, ns, coords, strides) of a builder. A bf16
+    build (``bf16_ok``: the builders that take ``torch.bfloat16``) works in
+    float32: its operator rounds every entry to bf16 once, which gives the
+    reference's bf16 build bitwise."""
     if bc not in ("periodic", "open"):
         raise ValueError(f"bc must be 'periodic' or 'open', got {bc!r}")
-    np_dtype = _np_dtype(dtype, what)
+    bf16 = bf16_ok and dtype == torch.bfloat16
+    np_dtype = _np_dtype(torch.float32 if bf16 else dtype, what)
     cplx = np.issubdtype(np_dtype, np.complexfloating)
     H = hopping_matrices(seed, hermitian=cplx).astype(np_dtype)
     ns = L ** _NDIM
@@ -126,8 +190,8 @@ def dirac_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
     as the reference's bf16 build does), so ``hops`` holds the bf16 values
     and an f64 copy (``astype``) applies exactly the bf16 matrix."""
     bf16 = dtype == torch.bfloat16
-    np_dtype, cplx, H, ns, coords, strides = _setup(
-        L, bc, torch.float32 if bf16 else dtype, seed, "dirac_cbdia")
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_cbdia",
+                                                    bf16_ok=True)
     scal = complex if cplx else float
     # Boundary masks are real 0/1 gates, of the dtype's real width.
     single = np_dtype in (np.float32, np.complex64)
@@ -260,12 +324,16 @@ def dirac_gauged_cbdia(L: int, m: float = 0.5, bc: str = "periodic",
 
 
 def _bdia(blk: np.ndarray, offsets, L: int, bc: str, dtype, device) -> BlockDIAOperator:
+    """The operator of host blocks, with its folded form on periodic
+    lattices (``_folded_fields``), in ``dtype`` (bf16 rounds both block
+    arrays once)."""
     ns = blk.shape[-1]
     if bc == "open":
         assert_wrap_zero(blk, offsets, ns, what=f"dirac builder (L={L}, open)")
+    folded = _folded_fields(blk, list(offsets), L) if bc == "periodic" else {}
     return BlockDIAOperator.from_numpy(blk, tuple(offsets), wrap_zero=(bc == "open"),
                                        nnz=int(np.count_nonzero(blk)), dtype=dtype,
-                                       device=device)
+                                       device=device, **folded)
 
 
 def _diag_blocks(m: float, ns: int, np_dtype) -> np.ndarray:
@@ -278,8 +346,10 @@ def dirac_bdia(L: int, m: float = 0.5, bc: str = "periodic",
                dtype: torch.dtype = torch.float32, seed: int = 7,
                device="cuda") -> BlockDIAOperator:
     """The operator as a BlockDIAOperator (spin-major rows): the same matrix
-    as ``dirac_cbdia``, with every hop block stored per site."""
-    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_bdia")
+    as ``dirac_cbdia``, with every hop block stored per site. ``torch.bfloat16``
+    stores the blocks rounded to bf16, as the reference's bf16 build."""
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_bdia",
+                                                    bf16_ok=True)
     offsets: list[int] = [0]
     blocks: list[np.ndarray] = [_diag_blocks(m, ns, np_dtype)]
 
@@ -317,8 +387,11 @@ def dirac_gauged(L: int, m: float = 0.5, bc: str = "periodic",
     """Gauged (site-dependent scalar link) flavour as a BlockDIAOperator:
     real dtypes carry Z2 links (+-1 per site and direction), complex dtypes
     U(1) phases. ``A[x, x+mu] = -phi_mu(x) H_mu``, ``A[x+mu, x] =
-    -conj(phi_mu(x)) H_mu^H``; |phi| = 1 keeps ``lambda_min >= m^2``."""
-    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_gauged")
+    -conj(phi_mu(x)) H_mu^H``; |phi| = 1 keeps ``lambda_min >= m^2``.
+    ``torch.bfloat16`` stores the blocks rounded to bf16 (the Z2 links are
+    exact), as the reference's bf16 build."""
+    np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed, "dirac_gauged",
+                                                    bf16_ok=True)
     grng = np.random.default_rng(gauge_seed)
     if cplx:
         links = np.exp(2j * np.pi * grng.random((_NDIM, ns))).astype(np_dtype)
@@ -365,7 +438,9 @@ def dirac_gauged_matrix(L: int, m: float = 0.5, bc: str = "periodic",
     U_mu(x), with ``A[x, x+mu] = -U_mu(x) H_mu`` and ``A[x+mu, x]`` its
     adjoint. Orthogonal U keeps ``||U H|| = 1``, so ``lambda_min >= m^2``.
     Such links do not factor into the const-hop form: this family needs the
-    per-site block stencil."""
+    per-site block stencil. ``torch.bfloat16`` raises, as the reference's
+    build does: ``operators.astype(op, torch.bfloat16)`` stores a built
+    operator's blocks (and folded blocks) in bf16."""
     np_dtype, cplx, H, ns, coords, strides = _setup(L, bc, dtype, seed,
                                                     "dirac_gauged_matrix")
     grng = np.random.default_rng(gauge_seed)

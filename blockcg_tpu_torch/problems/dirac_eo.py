@@ -18,10 +18,9 @@ every neighbour's half-index numerically and groups equal offsets into
 masked diagonals.
 
 The numpy construction is carried over as it is, so hops, masks, offsets,
-slabs and blocks come out bitwise the reference's. Left out: the folded wrap
-fields of the matrix-link hops (the reference's opt-in ``BLOCKCG_FOLD``;
-``BlockDIAOperator`` has no ``fold=``), and the reference's single-jit
-pipeline, a dispatch optimisation of the same chain, which runs here as the
+slabs, blocks and the matrix-link hops' folded wrap fields (the reference's
+opt-in ``BLOCKCG_FOLD``) come out bitwise the reference's. Left out: the
+reference's single-jit pipeline, a dispatch optimisation of the same chain, which runs here as the
 plain eager chain. ``solve_dirac_eo_dist`` runs the Schur solve row-partitioned
 over a process group (``parallel/``).
 Splitting and assembling run on the device as a masked select on a
@@ -44,7 +43,13 @@ from blockcg_tpu_torch.operators.bdia import BlockDIAOperator
 from blockcg_tpu_torch.operators.cbdia import ConstBlockDIAOperator, detect_slabs
 from blockcg_tpu_torch.operators.realify import k1k2_blocks, real_mask_dtype
 from blockcg_tpu_torch.operators.schur import EONormalOperator, SchurEvenOperator
-from blockcg_tpu_torch.problems.dirac import BS, _NDIM, _np_dtype, hopping_matrices
+from blockcg_tpu_torch.problems.dirac import (
+    BS,
+    _NDIM,
+    _folded_fields,
+    _np_dtype,
+    hopping_matrices,
+)
 
 __all__ = ["dirac_eo", "dirac_gauged_eo", "dirac_gauged_matrix_eo",
            "eo_split", "eo_assemble", "solve_dirac_eo", "solve_dirac_eo_dist",
@@ -204,8 +209,13 @@ def _parity_hop_matrix(L: int, H: np.ndarray, U: np.ndarray, target_parity: int,
     if bc == "open":
         assert_wrap_zero(blocks, offsets, ns2,
                          what=f"parity hop (L={L}, to={target_parity}, open)")
+    # Half-index wraps fold as the full lattice's do (the z and y half
+    # strides pair with their (L - 1) multiples; x hops are parity-split and
+    # stay plain); _folded_fields checks the structure.
+    folded = _folded_fields(blocks, list(offsets), L) if bc == "periodic" else {}
     return BlockDIAOperator.from_numpy(blocks, tuple(offsets), wrap_zero=(bc == "open"),
-                                       nnz=int(np.count_nonzero(blocks)), device=device)
+                                       nnz=int(np.count_nonzero(blocks)), device=device,
+                                       **folded)
 
 
 @dataclasses.dataclass

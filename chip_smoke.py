@@ -66,7 +66,12 @@ at full size, CG on config 1's column 0, BCG, BCGA and BCGdQ on config 2,
 SBCGrQ on configs 3 and 4 (config 4's const-hop applies on the plain route,
 no const-hop kernel launched), each beside ``solve_refined`` on the bf16
 operator and the f32 B to 1e-6 (up to 16 cycles: config 2's, with inner
-BCG, takes about 11).
+BCG, takes about 11). Then ``[storage]``: the matrix-link operator with its
+folded wraps (``BLOCKCG_FOLD``), its bf16-block and folded kernels and the
+mixed-dtype and wide bf16 DIA stencil kernels against their plain versions,
+then SBCGrQ on the bf16-stored, the folded and the folded bf16-stored
+matrix link, on the 128^3 Laplacian with bf16 diagonals and f32 fields and
+with f32 diagonals and bf16 fields, and on the bf16 Laplacian with 96 RHS.
 Each phase prints one or a few lines; any failure raises, and the process exits
 non-zero. The last two lines are the kernels' JSON record, whose launch
 counts are those of each kernel's own path (the north-star solves, config 4,
@@ -153,6 +158,24 @@ CONFIG5_BF16 = tuple(f"{w}[bf16]" for w in (
     "mm2_update_gram", "px_update"))
 PRESETS_BF16 = ("xr_update_gram[bf16]", "qr_p_update[bf16]", "qr_px_update[bf16]")
 BF16_KERNELS = {w: KERNELS[w.removesuffix("[bf16]")] for w in (*CONFIG5_BF16, *PRESETS_BF16)}
+# [storage]'s variants -> (source, the TPU kernel whose mode it replaces):
+# bf16 blocks with f32 fields on the per-site block stencil (rows 22h, 23h),
+# its folded wraps (24f, 24fg, and 24f on bf16 blocks), the mixed-dtype DIA
+# stencil (1m, 2m: bf16 diagonals; 1x, 2x: a bf16 field) and the bf16
+# stencil's Gram above one launch's 64 rows (2w).
+STORAGE_BLOCK_BF16 = ("block_stencil_spmm_t[bf16 coeffs]", "block_stencil_spmm_m_t[bf16 coeffs]")
+STORAGE_STENCIL = ("stencil_spmm_t[bf16 coeffs]", "stencil_spmm_gram_t[bf16 coeffs]",
+                   "stencil_spmm_t[bf16 field]", "stencil_spmm_gram_t[bf16 field]")
+RING_BS = "blockcg_tpu/ops/block_stencil_ring.py"
+STORAGE_KERNELS = {
+    **{w: KERNELS[w.split("[")[0]] for w in (*STORAGE_BLOCK_BF16, *STORAGE_STENCIL)},
+    "block_stencil_spmm_m_t[fold]": (KERNELS["block_stencil_spmm_m_t"][0], f"{RING_BS}:359"),
+    "block_stencil_spmm_m_gram_t[fold]": (KERNELS["block_stencil_spmm_m_t"][0],
+                                          f"{RING_BS}:371"),
+    "block_stencil_spmm_m_t[fold, bf16 coeffs]": (KERNELS["block_stencil_spmm_m_t"][0],
+                                                  f"{RING_BS}:359"),
+    "stencil_spmm_gram_t[bf16, wide]": KERNELS["stencil_spmm_gram_t"],
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 products with f32 sums, tensor cores, dense
@@ -295,6 +318,8 @@ PRESETS_INNER_TOL = 5e-3
 PRESETS_CYCLES = 16
 PRESETS_DIRAC_K = 4 * DIRAC_K  # config 4's merged width, m = bs * k
 PRESETS_BCG_SHAPE = (16, 512 ** 2)  # config 2's field
+# [storage]: the bf16 stencil's solve above one launch's 64 rows.
+STORAGE_WIDE_K = 96
 # The const-hop kernels a bf16 config 4 must not launch: their reference
 # gate takes float32 alone, and the operator sends a bf16 field whole to the
 # plain route (ops/_native.py f32_gate_refuses).
@@ -2479,6 +2504,315 @@ def phase_bf16presets(torch, dev) -> dict:
     return counts2
 
 
+def _fold_env(on: bool) -> None:
+    """Set or clear ``BLOCKCG_FOLD``, which the builders read when they build
+    and ``BlockDIAOperator`` when it applies."""
+    import os
+
+    if on:
+        os.environ["BLOCKCG_FOLD"] = "1"
+    else:
+        os.environ.pop("BLOCKCG_FOLD", None)
+
+
+def require_launches(label: str, counts: dict, wrappers) -> None:
+    """Raise unless each of ``wrappers`` launched on the path of ``label``."""
+    missing = [w for w in wrappers if counts.get(w, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label} never launched the kernels of {missing}")
+
+
+def _bf16_record(torch, records, name, what, kern, plain, timed, work, rate, gram_rtol):
+    """A variant with a bf16 output against its plain version
+    (``bf16_compare``), timed beside it; prints one line and sets the
+    record. ``timed``: the two calls to time (the variant's and the plain
+    version's)."""
+    err, abs_err = bf16_compare(torch, name, what, kern(), plain(), gram_rtol)
+    ms, plain_ms = (median_ms(torch, fn) for fn in timed)
+    bound, by = bound_ms(*work, rate)
+    print(f"[kernel] {name} {what}: max err {err:.2e} (bf16 ulps of a field, rel Frobenius "
+          f"of a Gram; max abs {abs_err:.2e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}: {work[0] / 1e6:.1f} MB, {work[1] / 1e9:.2f} GFLOP), "
+          f"library none")
+    records[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def phase_storage_kernels(torch, dev, records, op) -> None:
+    """``[storage] kernels``: the new variants against their plain versions at
+    the main path's shapes. On ``dirac_gauged_matrix(32)`` at k = 12 (m =
+    48): bf16 blocks with f32 X (rows 22h, 23h), also bitwise the f32 kernel
+    on the blocks lifted to f32; the folded blocks (9 of 15 diagonals) with
+    and without the Gram (24f, 24fg), within FIELD_RTOL of the unfolded
+    kernel, and with bf16 folded blocks (bitwise the f32 folded kernel on
+    their lift); each unfolded apply timed beside. On the 128^3 Laplacian at
+    k = 32: both mixed stencil pairs (rows 1m, 2m with bf16 diagonals, 1x, 2x
+    with a bf16 field), bitwise the unmixed kernels (the Laplacian's
+    entries are exact in bf16); at k = 96 the bf16 stencil's wide Gram
+    (``[bf16, wide]``), nearer the f64 Gram of its contract (X and the f32
+    sums) than the stored Y's."""
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+    from blockcg_tpu_torch.ops import stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    bf = torch.bfloat16
+    k, (nd, bs, _, ns) = ML_K, op.blocks.shape
+    m = bs * k
+    gen = torch.Generator(device=dev).manual_seed(15)
+    Xm = torch.randn((m, ns), generator=gen, device=dev)
+    Xv = torch.randn((k, bs, ns), generator=gen, device=dev)
+    what = f"dirac_gauged_matrix({ML_L}) ns={ns} k={k} m={m}"
+
+    def is_gram(w):
+        return w.shape == (m, m)
+
+    def same(name, label, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} ({what}): not bitwise {label}")
+        print(f"[storage] {name}: bitwise {label}")
+
+    b16, offs = op.blocks.to(bf), op.offsets
+    lifted = b16.float()
+    for name in STORAGE_BLOCK_BF16:
+        _library_note(name, "no PyTorch call takes bf16 blocks with an f32 field")
+    _timed_check(torch, "block_stencil_spmm_m_t[bf16 coeffs]", what,
+                 lambda: (bsk.block_stencil_spmm_m_t(b16, offs, Xm), None),
+                 lambda: bsk.block_stencil_plain(b16, offs, Xm), is_gram, records,
+                 work=(nbytes(b16, Xm, Xm), 2 * k * nnz(b16)))
+    same("block_stencil_spmm_m_t[bf16 coeffs]", "the f32 kernel on the lifted blocks",
+         bsk.block_stencil_spmm_m_t(b16, offs, Xm), bsk.block_stencil_spmm_m_t(lifted, offs, Xm))
+    _timed_check(torch, "block_stencil_spmm_t[bf16 coeffs]", f"({k}, {bs}, {ns}) view",
+                 lambda: (bsk.block_stencil_spmm_t(b16, offs, Xv), None),
+                 lambda: (bsk.block_stencil_v_plain(b16, offs, Xv), None), is_gram, records,
+                 work=(nbytes(b16, Xv, Xv), 2 * k * nnz(b16)))
+    same("block_stencil_spmm_t[bf16 coeffs]", "the f32 kernel on the lifted blocks",
+         bsk.block_stencil_spmm_t(b16, offs, Xv), bsk.block_stencil_spmm_t(lifted, offs, Xv))
+    del lifted
+
+    fb, foffs, fold = op.blocks_folded, op.fold_offsets, op.fold
+    print(f"[storage] folded: {len(foffs)} of {len(offs)} diagonals streamed, fold {fold}")
+    Y = bsk.block_stencil_spmm_m_t(op.blocks, offs, Xm)
+    bsr, why = _site_bsr_library(torch, op.blocks, offs, Xm, Y)
+    _library_note(f"block_stencil_spmm_m_t[fold] {what} (torch BSR @ dense of the same "
+                  f"matrix, unfolded)", why)
+    _library_note("block_stencil_spmm_m_gram_t[fold]", "no single PyTorch call")
+    apply_work = (nbytes(fb, Xm, Xm), 2 * k * nnz(fb))
+    _timed_check(torch, "block_stencil_spmm_m_t[fold]", what,
+                 lambda: (bsk.block_stencil_spmm_m_t(fb, foffs, Xm, fold), None),
+                 lambda: bsk.block_stencil_plain(fb, foffs, Xm, False, fold), is_gram, records,
+                 work=apply_work, library=bsr)
+    del bsr
+    _timed_check(torch, "block_stencil_spmm_m_gram_t[fold]", what,
+                 lambda: bsk.block_stencil_spmm_m_gram_t(fb, foffs, Xm, fold),
+                 lambda: bsk.block_stencil_plain(fb, foffs, Xm, True, fold), is_gram, records,
+                 work=(apply_work[0] + m * m * 4, apply_work[1] + syrk_flops(m, ns)))
+    Yf = bsk.block_stencil_spmm_m_t(fb, foffs, Xm, fold)
+    torch.cuda.synchronize()
+    err = relmax(Yf, Y)
+    _check("block_stencil_spmm_m_t[fold]", "against the unfolded kernel", err, FIELD_RTOL)
+    fb16 = fb.to(bf)
+    _library_note("block_stencil_spmm_m_t[fold, bf16 coeffs]",
+                  "no PyTorch call takes bf16 blocks with an f32 field")
+    _timed_check(torch, "block_stencil_spmm_m_t[fold, bf16 coeffs]", what,
+                 lambda: (bsk.block_stencil_spmm_m_t(fb16, foffs, Xm, fold), None),
+                 lambda: bsk.block_stencil_plain(fb16, foffs, Xm, False, fold), is_gram, records,
+                 work=(nbytes(fb16, Xm, Xm), 2 * k * nnz(fb16)))
+    same("block_stencil_spmm_m_t[fold, bf16 coeffs]", "the f32 folded kernel on the lift",
+         bsk.block_stencil_spmm_m_t(fb16, foffs, Xm, fold),
+         bsk.block_stencil_spmm_m_t(fb16.float(), foffs, Xm, fold))
+    times = {label: median_ms(torch, fn) for label, fn in (
+        ("unfolded", lambda: bsk.block_stencil_spmm_m_t(op.blocks, offs, Xm)),
+        ("unfolded with Gram", lambda: bsk.block_stencil_spmm_m_gram_t(op.blocks, offs, Xm)),
+        ("folded", lambda: bsk.block_stencil_spmm_m_t(fb, foffs, Xm, fold)),
+        ("folded with Gram", lambda: bsk.block_stencil_spmm_m_gram_t(fb, foffs, Xm, fold)),
+        ("bf16 blocks", lambda: bsk.block_stencil_spmm_m_t(b16, offs, Xm)),
+        ("folded bf16 blocks", lambda: bsk.block_stencil_spmm_m_t(fb16, foffs, Xm, fold)))}
+    print(f"[storage] {what} apply ms, one process: " +
+          ", ".join(f"{label} {t:.4f}" for label, t in times.items()) +
+          f"; folded vs unfolded rel err {err:.2e}")
+    del Xm, Xv, Y, Yf, fb16, b16
+    torch.cuda.empty_cache()
+
+    lap = laplacian_dia(SHAPES[0], device=dev)
+    n, kk = lap.n, K
+    d32, d16 = lap.diags, lap.diags.to(bf)
+    X32 = torch.randn((kk, n), generator=gen, device=dev)
+    X16 = X32.to(bf)
+    lw = f"n={n} k={kk}"
+
+    def is_kk(w):
+        return w.shape == (kk, kk)
+
+    for name in STORAGE_STENCIL:
+        _library_note(name, "no PyTorch call takes a mixed bf16/f32 pair")
+    sp_work = (nbytes(d16, X32, X32), 2 * kk * nnz(d16))
+    _timed_check(torch, "stencil_spmm_t[bf16 coeffs]", f"{lw} bf16 diagonals, f32 X",
+                 lambda: (stencil.stencil_spmm_t(d16, lap.offsets, X32),),
+                 lambda: (stencil.stencil_spmm_plain(d16, lap.offsets, X32)[0],), is_kk,
+                 records, work=sp_work)
+    _timed_check(torch, "stencil_spmm_gram_t[bf16 coeffs]", f"{lw} bf16 diagonals, f32 X",
+                 lambda: stencil.stencil_spmm_gram_t(d16, lap.offsets, X32),
+                 lambda: stencil.stencil_spmm_plain(d16, lap.offsets, X32, True), is_kk,
+                 records, work=(sp_work[0] + kk * kk * 4, sp_work[1] + 2 * kk * kk * n))
+    Ym, Gm = stencil.stencil_spmm_gram_t(d16, lap.offsets, X32)
+    Yu, Gu = stencil.stencil_spmm_gram_t(d32, lap.offsets, X32)
+    same("stencil_spmm_gram_t[bf16 coeffs]", "the f32 kernel (Y and G)",
+         torch.cat([Ym.reshape(-1), Gm.reshape(-1)]), torch.cat([Yu.reshape(-1), Gu.reshape(-1)]))
+    same("stencil_spmm_t[bf16 coeffs]", "the f32 kernel",
+         stencil.stencil_spmm_t(d16, lap.offsets, X32), Yu)
+    xw = (nbytes(d32, X16, X16), 2 * kk * nnz(d32))
+    _bf16_record(torch, records, "stencil_spmm_t[bf16 field]", f"{lw} f32 diagonals, bf16 X",
+                 lambda: (stencil.stencil_spmm_t(d32, lap.offsets, X16),),
+                 lambda: (stencil.stencil_spmm_plain(d32, lap.offsets, X16)[0],),
+                 (lambda: stencil.stencil_spmm_t(d32, lap.offsets, X16),
+                  lambda: stencil.stencil_spmm_plain(d32, lap.offsets, X16)),
+                 xw, F32_FLOPS, GRAM_RTOL)
+    _bf16_record(torch, records, "stencil_spmm_gram_t[bf16 field]",
+                 f"{lw} f32 diagonals, bf16 X",
+                 lambda: stencil.stencil_spmm_gram_t(d32, lap.offsets, X16),
+                 lambda: stencil.stencil_spmm_plain(d32, lap.offsets, X16, True),
+                 (lambda: stencil.stencil_spmm_gram_t(d32, lap.offsets, X16),
+                  lambda: stencil.stencil_spmm_plain(d32, lap.offsets, X16, True)),
+                 (xw[0] + kk * kk * 4, xw[1] + 2 * kk * kk * n), F32_FLOPS, GRAM_RTOL)
+    Yx, Gx = stencil.stencil_spmm_gram_t(d32, lap.offsets, X16)
+    Yb, Gb = stencil.stencil_spmm_gram_t(d16, lap.offsets, X16)
+    same("stencil_spmm_gram_t[bf16 field]", "the bf16 kernel (Y and G)",
+         torch.cat([Yx.float().reshape(-1), Gx.reshape(-1)]),
+         torch.cat([Yb.float().reshape(-1), Gb.reshape(-1)]))
+    del Ym, Gm, Yu, Gu, Yx, Gx, Yb, Gb, X32, X16
+
+    kw = STORAGE_WIDE_K
+    W16 = torch.randn((kw, n), generator=gen, device=dev).to(bf)
+    ww = f"n={n} k={kw} bf16"
+    _library_note("stencil_spmm_gram_t[bf16, wide]", "no single PyTorch call")
+    _bf16_record(torch, records, "stencil_spmm_gram_t[bf16, wide]", ww,
+                 lambda: stencil.stencil_spmm_gram_t(d16, lap.offsets, W16),
+                 lambda: stencil.stencil_spmm_plain(d16, lap.offsets, W16, True),
+                 (lambda: stencil.stencil_spmm_gram_t(d16, lap.offsets, W16),
+                  lambda: stencil.stencil_spmm_plain(d16, lap.offsets, W16, True)),
+                 (nbytes(d16, W16, W16) + kw * kw * 4, 2 * kw * nnz(d16) + 2 * kw * kw * n),
+                 BF16_FLOPS, C5_GRAM_RTOL)
+    Yw, Gw = stencil.stencil_spmm_gram_t(d16, lap.offsets, W16)
+    S = stencil.stencil_spmm_t(d32, lap.offsets, W16.float())  # the f32 sums, same order
+    contract_distance(torch, "[storage]", "stencil_spmm_gram_t[bf16, wide]", ww, Gw,
+                      (W16, S), (W16, Yw), 1.0)
+    del lap, W16, Yw, Gw, S
+    torch.cuda.empty_cache()
+
+
+def phase_storage(torch, dev, records) -> dict:
+    """``[storage]``: bf16 block storage, folded wraps and the mixed-dtype DIA
+    stencil on their solves. Builds ``dirac_gauged_matrix(32)`` with its
+    folds, runs ``phase_storage_kernels``, then, with the launch counts set
+    to 0: the operator stored in bf16 with ``[matrixlink]``'s 12 RHS,
+    ``solve_sbcgrq`` at tol 1e-6 twice (bitwise repeat, converged, true
+    relres <= 1e-5 against the stored operator's exact f64 lift; iterations
+    and the relres against the f32 operator printed beside the f32 solve's),
+    its public ``op(X)`` and one apply on a bf16 field (no launch, the
+    repaired plain route's bits); the folded operator (iterations within 1
+    of ``[matrixlink]``'s, true relres <= 1e-5) and its bf16 storage
+    (converged); on the 128^3 Laplacian with the north-star B (k = 32): bf16
+    diagonals with f32 fields at the north-star inner solve (tol 3e-6,
+    qr_passes=1), iterations equal to the f32 operator's, and f32 diagonals
+    with bf16 fields at tol 5e-3, iterations equal to the all-bf16 solve's
+    (X bitwise equal where Y is: printed); and the bf16 operator with a bf16
+    B of k = 96 at tol 5e-3 (the wide Gram), converged. Returns the launch
+    counts of the solves."""
+    from blockcg_tpu_torch import solve_sbcgrq
+    from blockcg_tpu_torch.operators import BlockDIAOperator, astype
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.problems import dirac_gauged_matrix, laplacian_dia
+    from blockcg_tpu_torch.problems.presets import _rhs
+
+    bf = torch.bfloat16
+    _fold_env(True)
+    try:
+        op, build_s = _timed(torch, lambda: dirac_gauged_matrix(ML_L, m=0.5, device=dev))
+    finally:
+        _fold_env(False)
+    print(f"[storage] dirac_gauged_matrix({ML_L}) with folds: built in {build_s:.1f} s")
+    phase_storage_kernels(torch, dev, records, op)
+    plain = BlockDIAOperator(op.blocks, op.offsets, op.wrap_zero, op.nnz)  # no folds
+    op16 = astype(plain, bf)
+    B = torch.as_tensor(np.random.default_rng(ML_SEED).standard_normal((ML_K, op.n)),
+                        dtype=torch.float32, device=dev).T.contiguous()
+    op64 = astype(plain, torch.float64)
+    _native.reset_launches()
+
+    def sbcgrq(o, rhs, tol, **kw):
+        return _timed(torch, lambda: solve_sbcgrq(o, rhs, tol=tol, qr_passes=1, **kw))
+
+    (X1, info), s1 = sbcgrq(op16, B, 1e-6)
+    (X2, _), _ = sbcgrq(op16, B, 1e-6)
+    (X32, info32), s32 = sbcgrq(plain, B, 1e-6)
+    rel16 = true_relres(torch, op16, X1, B)
+    rel32 = true_relres(torch, plain, X1, B, op64=op64)
+    gb = [nbytes(o.blocks) / 1e9 for o in (plain, op16)]
+    print(f"[storage] bf16 blocks SBCGrQ k={ML_K} tol=1e-6: {info.iterations} iterations "
+          f"{s1:.3f} s (f32 blocks {info32.iterations} iterations {s32:.3f} s), repeat bitwise "
+          f"{torch.equal(X1, X2)}, true relres {rel16:.3e} against the stored operator, "
+          f"{rel32:.3e} against the f32 operator; blocks {gb[0]:.3f} GB f32, {gb[1]:.3f} GB "
+          f"bf16")
+    if not (bool(info.converged.all()) and torch.equal(X1, X2) and rel16 <= 1e-5):
+        raise AssertionError(f"[storage] bf16 blocks: {info}, relres {rel16:.3e}")
+    Y = op16(X1)  # the public apply on the flat f32 field: the (k, bs, ns) kernel
+    Xb = op16.to_internal(X1.T.contiguous()).to(bf)
+    before = sum(_native.launches.values())
+    Yb = op16.matmat_t(Xb)
+    torch.cuda.synchronize()
+    if sum(_native.launches.values()) != before or not torch.equal(Yb, op16._matmat_m_plain(Xb)):
+        raise AssertionError("[storage] a bf16 field launched a kernel or left the plain route")
+    print(f"[storage] bf16 field on the bf16 operator: the plain route, 0 launches, Y "
+          f"{Yb.dtype}; op(X) {tuple(Y.shape)}")
+    del X1, X2, X32, Y, Xb, Yb, op16
+
+    _fold_env(True)
+    try:
+        (Xf, finfo), fs = sbcgrq(op, B, 1e-6)
+        (Xf16, f16info), f16s = sbcgrq(astype(op, bf), B, 1e-6)
+    finally:
+        _fold_env(False)
+    frel = true_relres(torch, plain, Xf, B, op64=op64)
+    print(f"[storage] folded SBCGrQ: {finfo.iterations} iterations {fs:.3f} s, true relres "
+          f"{frel:.3e}; folded bf16 blocks {f16info.iterations} iterations {f16s:.3f} s")
+    if not (bool(finfo.converged.all()) and abs(finfo.iterations - DIST_ML_ITERS) <= 1
+            and frel <= 1e-5 and bool(f16info.converged.all())):
+        raise AssertionError(f"[storage] folded: {finfo}, relres {frel:.3e}; bf16 {f16info}")
+    del op, plain, op64, B, Xf, Xf16
+    torch.cuda.empty_cache()
+
+    lap = laplacian_dia(SHAPES[0], device=dev)
+    lap16 = astype(lap, bf)
+    B = _rhs(lap.n, K, torch.float32, device=dev)
+    (Xm, minfo), ms_ = sbcgrq(lap16, B, 3e-6)
+    (Xu, uinfo), us = sbcgrq(lap, B, 3e-6)
+    print(f"[storage] bf16 diagonals, f32 fields, {SHAPES[0][0]}^3 k={K} tol=3e-6: "
+          f"{minfo.iterations} iterations {ms_:.3f} s; f32 operator {uinfo.iterations} "
+          f"iterations {us:.3f} s; "
+          f"X bitwise {torch.equal(Xm, Xu)}")
+    if not (bool(minfo.converged.all()) and minfo.iterations == uinfo.iterations):
+        raise AssertionError(f"[storage] bf16 diagonals: {minfo} against {uinfo}")
+    B16 = B.to(bf)
+    (Xx, xinfo), xs = sbcgrq(lap, B16, 5e-3)
+    (Xb, binfo), bs_ = sbcgrq(lap16, B16, 5e-3)
+    print(f"[storage] f32 diagonals, bf16 fields, tol=5e-3: {xinfo.iterations} iterations "
+          f"{xs:.3f} s; all bf16 {binfo.iterations} iterations {bs_:.3f} s; X bitwise "
+          f"{torch.equal(Xx, Xb)}")
+    if not (bool(xinfo.converged.all()) and xinfo.iterations == binfo.iterations):
+        raise AssertionError(f"[storage] bf16 fields: {xinfo} against {binfo}")
+    W = _rhs(lap.n, STORAGE_WIDE_K, bf, device=dev)
+    (Xw, winfo), ws = sbcgrq(lap16, W, 5e-3)
+    print(f"[storage] bf16 {SHAPES[0][0]}^3 k={STORAGE_WIDE_K} tol=5e-3 (the wide bf16 Gram): "
+          f"{winfo.iterations} iterations {ws:.3f} s, converged {bool(winfo.converged.all())}")
+    if not bool(winfo.converged.all()):
+        raise AssertionError(f"[storage] k = {STORAGE_WIDE_K}: {winfo}")
+    counts = dict(_native.launches)
+    del lap, lap16, B, B16, W, Xm, Xu, Xx, Xb, Xw
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _halo_case(torch, kern_fn, plain_fn, Y0):
     """(kern, plain, timed) for an in-place halo slab add: each compared
     call starts from a fresh copy of Y0, the timed ones add in place."""
@@ -2895,6 +3229,14 @@ def main() -> None:
     counts["xr_update_gram[bf16]"] = got["xr_update_gram[bf16]"]
     counts["qr_p_update[bf16]"] = counts["qr_px_update[bf16]"] = 0
     print(f"[wall] [bf16presets] {time.perf_counter() - t_presets:.1f} s")
+    # [storage]: bf16 block storage, folded wraps, the mixed DIA stencil and
+    # the wide bf16 Gram keep the counts of its solves.
+    t_storage = time.perf_counter()
+    got = phase_storage(torch, dev, records)
+    print(f"[launches] storage: {got}")
+    require_launches("[storage]", got, STORAGE_KERNELS)
+    counts.update({w: got[w] for w in STORAGE_KERNELS})
+    print(f"[wall] [storage] {time.perf_counter() - t_storage:.1f} s")
     # The distributed layer on one rank: rows 20 and 21 keep its counts.
     t_dist = time.perf_counter()
     phase_dist_kernels(torch, dev, records)
@@ -2910,7 +3252,7 @@ def main() -> None:
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **records[name]}
-               for name, (src, rep) in {**KERNELS, **BF16_KERNELS}.items()]
+               for name, (src, rep) in {**KERNELS, **BF16_KERNELS, **STORAGE_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -206,8 +206,10 @@ def test_coefficient_rounding_cancellation(monkeypatch):
 def test_dispatch_rule_cpu():
     """On CPU tensors every bf16 wrapper runs its plain version and counts no
     launch; the dtype rule itself (checked before the device type, so meta
-    tensors show it without a card) sends bf16 fields with f32 coefficients,
-    and the bf16 stencil pair, to the bf16 variant and refuses other mixes."""
+    tensors show it without a card) sends bf16 fields with f32 coefficients
+    to the bf16 variant and refuses other mixes; the stencil's pair rule
+    sends each of its four f32/bf16 pairs to its variant and refuses any
+    other."""
     F, C, _, _ = _inputs(3)
     _native.reset_launches()
     fused.mm_update(C[0], F[0])
@@ -220,14 +222,15 @@ def test_dispatch_rule_cpu():
     f, c, d = meta
     with pytest.raises(ValueError, match="unsupported device"):
         _native.field_kernel((f, f), (c,))  # bf16 fields, f32 coefficients: the bf16 kernel
-    with pytest.raises(ValueError, match="unsupported device"):
-        _native.field_kernel((f,), (d,), torch.bfloat16)  # the bf16 stencil pair
-    for fields, coeffs, kw in (((f,), (c.to(BF),), {}),  # bf16 coefficients
-                               ((f, f.float()), (c,), {}),  # a mixed field set
-                               ((f,), (d.float(),), {"bf16_coeffs": BF}),  # f32 diagonals
-                               ((f.float(),), (d,), {"bf16_coeffs": BF})):  # f32 field
+    for fields, coeffs in (((f,), (c.to(BF),)),  # bf16 coefficients
+                           ((f, f.float()), (c,))):  # a mixed field set
         with pytest.raises(TypeError):
-            _native.field_kernel(fields, coeffs, **kw)
+            _native.field_kernel(fields, coeffs)
+    for x, dg in ((f, d), (f, d.float()), (f.float(), d), (f.float(), d.float())):
+        with pytest.raises(ValueError, match="unsupported device"):
+            _native.pair_kernel(x, dg, stencil.PAIRS)  # past the dtype rule
+    with pytest.raises(TypeError):
+        _native.pair_kernel(f, d.double(), stencil.PAIRS)  # f64 diagonals, bf16 field
     assert _native.variant("px_update", "bcg_px_update", BF) == (
         "px_update[bf16]", "bcg_px_update_bf16")
     assert _native.variant("gram", "bcg_gram", torch.float32) == ("gram", "bcg_gram")

@@ -1448,8 +1448,8 @@ def test_block_stencil_plan_variants_give_the_same_bits(dev, h, groups, stages):
             part = torch.empty((plan.blocks, bs * k, bs * k), device=dev)
             Gk = torch.empty((bs * k, bs * k), device=dev)
         p = _native.ptr
-        _native.launch("test", "bcg_block_stencil_spmm", dev, p(blocks),
-                       (ctypes.c_int * len(offs))(*offs), len(offs), bs, p(Xm),
+        _native.launch("test", "bcg_block_stencil_spmm", dev, p(blocks), 4,
+                       (ctypes.c_int * len(offs))(*offs), None, len(offs), bs, p(Xm),
                        p(Yk), p(part), p(Gk), k, k, ns, 1, plan.h, plan.groups, plan.ki,
                        plan.stages, plan.blocks)
         torch.cuda.synchronize()
@@ -1686,17 +1686,19 @@ def test_fused_bf16_donated_match_fresh(dev):
 
 
 def test_bf16_dispatch_refusals(dev):
-    """Mixed stencil pairs, bf16 coefficients, mixed field sets and a bf16
-    ``cheb_step`` raise; nothing launches and nothing falls back to a plain
-    version."""
+    """A stencil pair no rule names, bf16 coefficients and mixed field sets
+    raise; nothing launches and nothing falls back to a plain version. (The
+    mixed f32/bf16 stencil pairs launch their variants and an all-bf16
+    ``cheb_step`` runs its plain version, as the reference's gates take
+    them: ``test_mixed_stencil_pairs_match_plain``,
+    ``test_cheb_step_bf16_runs_plain``.)"""
     op32 = laplacian_dia((8, 8, 8), device=dev)
-    d16 = op32.diags.bfloat16()
     X32 = _field(4, op32.n, 220, dev)
     _native.reset_launches()
     with pytest.raises(TypeError):
-        stencil.stencil_spmm_t(d16, op32.offsets, X32)  # bf16 diagonals, f32 field
+        stencil.stencil_spmm_t(op32.diags.double(), op32.offsets, X32.bfloat16())
     with pytest.raises(TypeError):
-        stencil.stencil_spmm_gram_t(op32.diags, op32.offsets, X32.bfloat16())  # the reverse
+        stencil.stencil_spmm_gram_t(op32.diags.double(), op32.offsets, X32)
     a = _t(np.eye(4), dev)
     with pytest.raises(TypeError):  # a bf16 coefficient is not the contract
         fused.xr_update_gram(a.bfloat16(), *(X32.bfloat16() for _ in range(4)))
@@ -1705,12 +1707,10 @@ def test_bf16_dispatch_refusals(dev):
     with pytest.raises(TypeError):
         fused.qr_px_update(a, X32.bfloat16(), a, X32.bfloat16(), a, X32)
     with pytest.raises(TypeError):
-        fused.cheb_step(*(X32.bfloat16() for _ in range(4)), 0.5, 0.5)
+        fused.cheb_step(*(X32.bfloat16() for _ in range(3)), X32, 0.5, 0.5)
     with pytest.raises(TypeError):  # bf16 and f32 fields in one call
         fused.mm2_update_gram(a, X32.bfloat16(), a, X32)
     assert sum(_native.launches.values()) == 0
-    with pytest.raises(ValueError, match="64 rows"):  # the bf16 Gram takes one launch
-        stencil.stencil_spmm_gram_t(d16, op32.offsets, _bf_field(65, op32.n, 221, dev))
 
 
 # Each staging site of a bf16 variant's coefficients, on Y = (1 + 2^-10) b - b:
@@ -1869,3 +1869,198 @@ def test_const_hop_bf16_runs_plain_on_card(dev, k):
     with pytest.raises(TypeError):
         cbs.const_block_stencil_spmm_m_t(op.hops_main, op.main_offsets, op.main_slots,
                                          op.masks_main, Xm.float())
+
+
+# ------------------- mixed-dtype stencil, bf16 block storage, folded wraps
+# The mixed pairs and bf16 blocks are lifted to f32 exactly and summed in
+# the f32 kernels' order: on values exact in both types they give the f32
+# kernel's bits. A folded wrap term is added where its bulk partner's was:
+# against the unfolded kernel to 1e-5.
+
+
+@pytest.mark.parametrize("n,k,offsets", [
+    (1000, 4, (-130, -7, -1, 0, 2, 64, 257)),      # n % 8 == 0, populated wraps
+    (4096, 32, (-256, -16, -1, 0, 1, 16, 256)),
+    (777, 40, (0, 700, -700, 3)),                   # ragged n: element copies
+    (300, 64, (-1, 0, 1, 600)),                     # |o| >= n reduces mod n
+])
+@pytest.mark.parametrize("pair", ["bf16 coeffs", "bf16 field"])
+def test_mixed_stencil_pairs_match_plain(dev, pair, n, k, offsets):
+    """Each mixed pair against its plain version, with and without the Gram
+    (a bf16 Y within one ulp, f32 Y and the Gram to 1e-5), and bitwise the
+    unmixed kernel on values exact in both types (diagonals of small
+    integers); each counts under its own name."""
+    rng = np.random.default_rng(3)
+    d32 = _t(rng.integers(-3, 4, (len(offsets), n)), dev)
+    X32 = _bf_field(k, n, 4, dev).float()  # exact in bf16
+    d, X = (d32.bfloat16(), X32) if pair == "bf16 coeffs" else (d32, X32.bfloat16())
+    _native.reset_launches()
+    Y, G = stencil.stencil_spmm_gram_t(d, offsets, X)
+    Y1 = stencil.stencil_spmm_t(d, offsets, X)
+    Yp, Gp = stencil.stencil_spmm_plain(d, offsets, X, with_gram=True)
+    ref = (stencil.stencil_spmm_gram_t(d32, offsets, X32) if pair == "bf16 coeffs" else
+           stencil.stencil_spmm_gram_t(d32.bfloat16(), offsets, X))
+    torch.cuda.synchronize()
+    chunks = len(_native.row_chunks(k))
+    assert _native.launches[f"stencil_spmm_t[{pair}]"] == chunks
+    assert _native.launches[f"stencil_spmm_gram_t[{pair}]"] == chunks
+    assert Y.dtype == X.dtype and torch.equal(Y, Y1)
+    if X.dtype == torch.bfloat16:
+        assert _ulps(Y, Yp) <= 1.0
+    else:
+        assert _relmax(Y, Yp) < 1e-5
+    assert _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, ref[0]) and (chunks > 1 or torch.equal(G, ref[1]))
+
+
+@pytest.mark.parametrize("k", [65, 72, 96, 130])
+@pytest.mark.parametrize("pair", ["bf16", "bf16 field"])
+def test_bf16_wide_gram_matches_plain(dev, pair, k):
+    """A bf16 field's Gram above one launch's 64 rows, on the f32 sums: the
+    launches write them to a scratch (counted as ``[..., wide]``) and the
+    cross blocks come from ``gram``; G within 1e-5 of the plain version's,
+    nearer the f64 Gram of X and the sums than that of the stored Y."""
+    op = laplacian_dia((16, 16, 16), device=dev)
+    d = op.diags.bfloat16() if pair == "bf16" else op.diags
+    X = _bf_field(k, op.n, 5, dev)
+    _native.reset_launches()
+    Y, G = stencil.stencil_spmm_gram_t(d, op.offsets, X)
+    Yp, Gp = stencil.stencil_spmm_plain(d, op.offsets, X, with_gram=True)
+    torch.cuda.synchronize()
+    assert _native.launches[f"stencil_spmm_gram_t[{pair}, wide]"] == len(_native.row_chunks(k))
+    assert _ulps(Y, Yp) <= 1.0 and _relfro(G, Gp) < 1e-5
+    S = stencil.stencil_spmm_t(op.diags.float(), op.offsets, X.float())
+    G64 = X.double() @ S.double().T
+    Gy = X.double() @ Y.double().T
+    assert _relfro(G.double(), G64) < _relfro(Gy, G64)
+
+
+def test_cheb_step_bf16_runs_plain(dev):
+    """All-bf16 ``cheb_step`` runs its plain version on the card (the
+    reference sends every dtype but f32 to XLA); nothing launches."""
+    R, Z, D, AZ = (_bf_field(4, 1000, s, dev) for s in (80, 81, 82, 83))
+    _native.reset_launches()
+    Zn, Dn = fused.cheb_step(R, Z, D, AZ, 0.5, 0.25)
+    Zp, Dp = fused.cheb_step_plain(R, Z, D, AZ, 0.5, 0.25)
+    torch.cuda.synchronize()
+    assert sum(_native.launches.values()) == 0
+    assert Zn.dtype == torch.bfloat16 and torch.equal(Zn, Zp) and torch.equal(Dn, Dp)
+
+
+@pytest.mark.parametrize("ns", [300, 1000, 40_000])
+@pytest.mark.parametrize("bs,k", [(4, 12), (3, 5), (8, 6), (4, 30)])
+def test_block_stencil_bf16_blocks_match_plain(dev, bs, k, ns):
+    """bf16 blocks with an f32 field (16-byte copies at ns % 8 == 0, 4-byte
+    at 300): merged with and without the Gram and the (k, bs, ns) view
+    against the plain versions, and bitwise the f32 kernel on the lifted
+    blocks; an odd ns raises."""
+    blocks, offsets, Xm = _bs_redesign_operands(ns, bs, k, dev, 900)
+    b16 = blocks.bfloat16()
+    lifted = b16.float()
+    Xv = _field(k, bs * ns, 901, dev).reshape(k, bs, ns)
+    _native.reset_launches()
+    Y = bsk.block_stencil_spmm_m_t(b16, offsets, Xm)
+    Yg, G = bsk.block_stencil_spmm_m_gram_t(b16, offsets, Xm)
+    Yv = bsk.block_stencil_spmm_t(b16, offsets, Xv)
+    Yp, Gp = bsk.block_stencil_plain(b16, offsets, Xm, True)
+    Yvp = bsk.block_stencil_v_plain(b16, offsets, Xv)
+    torch.cuda.synchronize()
+    assert _native.launches["block_stencil_spmm_m_t[bf16 coeffs]"] >= 1
+    assert _native.launches["block_stencil_spmm_t[bf16 coeffs]"] >= 1
+    assert _relmax(Y, Yp) < 1e-5 and _relmax(Yv, Yvp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, Yg)
+    assert torch.equal(Y, bsk.block_stencil_spmm_m_t(lifted, offsets, Xm))
+    assert torch.equal(Yv, bsk.block_stencil_spmm_t(lifted, offsets, Xv))
+    odd = torch.zeros((1, bs, bs, 301), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="even number of sites"):
+        bsk.block_stencil_spmm_m_t(odd, (0,), _field(bs * k, 301, 902, dev))
+    with pytest.raises(TypeError):  # a bf16 field: the operator's plain route, not a kernel
+        bsk.block_stencil_spmm_m_t(blocks, offsets, Xm.bfloat16())
+
+
+def _folded_ops(dev):
+    import os
+
+    os.environ["BLOCKCG_FOLD"] = "1"
+    try:
+        ops = [("dirac_gauged_matrix(8)", dirac_gauged_matrix(8, device=dev)),
+               ("dirac_bdia(8)", dirac_bdia(8, device=dev))]
+        eo = _dirac_gauged_matrix_eo(8, device=dev)
+        ops += [("dirac_gauged_matrix_eo(8) hop", eo.hop_eo)]
+    finally:
+        os.environ.pop("BLOCKCG_FOLD", None)
+    return ops
+
+
+def _dirac_gauged_matrix_eo(L, device):
+    from blockcg_tpu_torch.problems import dirac_gauged_matrix_eo
+
+    return dirac_gauged_matrix_eo(L, device=device)
+
+
+@pytest.mark.parametrize("k", [1, 3, 12, 30])
+def test_block_stencil_folded_matches_plain(dev, k):
+    """Folded wraps (x-axis pairs of st = 1 copied a site at a time, the
+    others 16 bytes at a time) with and without the Gram, f32 and bf16
+    folded blocks, against the folded plain version and the unfolded kernel;
+    the bf16 folded kernel bitwise the f32 one on the lift."""
+    for label, op in _folded_ops(dev):
+        assert op.fold, label
+        fb, foffs, fold = op.blocks_folded, op.fold_offsets, op.fold
+        Xm = _field(op.bs * k, op.ns, 903, dev)
+        _native.reset_launches()
+        Y = bsk.block_stencil_spmm_m_t(fb, foffs, Xm, fold)
+        Yg, G = bsk.block_stencil_spmm_m_gram_t(fb, foffs, Xm, fold)
+        Yp, Gp = bsk.block_stencil_plain(fb, foffs, Xm, True, fold)
+        Yu = bsk.block_stencil_spmm_m_t(op.blocks, op.offsets, Xm)
+        f16 = fb.bfloat16()
+        Yh = bsk.block_stencil_spmm_m_t(f16, foffs, Xm, fold)
+        Yhl = bsk.block_stencil_spmm_m_t(f16.float(), foffs, Xm, fold)
+        torch.cuda.synchronize()
+        assert _native.launches["block_stencil_spmm_m_t[fold]"] >= 2, label
+        assert _native.launches["block_stencil_spmm_m_t[fold, bf16 coeffs]"] >= 1, label
+        assert _relmax(Y, Yp) < 1e-5 and _relmax(Y, Yu) < 1e-5, label
+        assert _relfro(G, Gp) < 1e-5 and torch.equal(Y, Yg), label
+        assert torch.equal(Yh, Yhl), label
+
+
+def test_bdia_operator_dtype_routes_on_card(dev, monkeypatch):
+    """The operator's one dtype decision on the card: a bf16 field takes the
+    plain route with no launch; bf16 blocks with f32 fields launch the
+    ``[bf16 coeffs]`` kernels and fuse no Gram; under ``BLOCKCG_FOLD`` a
+    folded operator launches the folded kernels."""
+    from blockcg_tpu_torch.operators import astype
+
+    monkeypatch.setenv("BLOCKCG_FOLD", "1")
+    op = dirac_gauged_matrix(8, device=dev)
+    Xm = _field(op.bs * 3, op.ns, 904, dev)
+    _native.reset_launches()
+    Y16 = op.matmat_t(Xm.bfloat16())
+    assert sum(_native.launches.values()) == 0
+    assert torch.equal(Y16, op._matmat_m_plain(Xm.bfloat16()))
+    op16 = astype(op, torch.bfloat16)
+    monkeypatch.delenv("BLOCKCG_FOLD")
+    Y, G = op16.matmat_gram_t(Xm)
+    assert G is None and _native.launches["block_stencil_spmm_m_t[bf16 coeffs]"] == 1
+    monkeypatch.setenv("BLOCKCG_FOLD", "1")
+    Yf, Gf = op.matmat_gram_t(Xm)
+    Yu, Gu = bsk.block_stencil_spmm_m_gram_t(op.blocks, op.offsets, Xm)
+    torch.cuda.synchronize()
+    assert _native.launches["block_stencil_spmm_m_gram_t[fold]"] == 1
+    assert _relmax(Yf, Yu) < 1e-5 and _relfro(Gf, op.gram_contract(Gu)) < 1e-5
+
+
+def test_tiled_operator_bf16_field_runs_plain(dev):
+    """A bf16 X on ``TiledOperator`` takes the plain route on the card (the
+    reference's kernel gate takes f32 X alone); the wrapper itself still
+    raises on it."""
+    from blockcg_tpu_torch.operators import TiledOperator
+
+    a = laplacian_scipy((24, 24))
+    op = TiledOperator.from_scipy(a, device=dev)
+    X = _bf_field(5, op.n, 905, dev)
+    _native.reset_launches()
+    Y = op.matmat_t(X)
+    torch.cuda.synchronize()
+    assert sum(_native.launches.values()) == 0 and Y.dtype == torch.bfloat16
+    assert torch.equal(Y, spmm_tiled.tiled_spmm_plain(op.tiles, op.rt, op.ct, X))

@@ -391,8 +391,9 @@ def test_host_constants_mirror_the_sources():
                         ("kBsMaxStages", max(bsk.STAGES)), ("kBsScratch", bsk.SCRATCH)):
         assert int(re.search(rf"{name} = (\d+)", bs).group(1)) == value, name
     assert "return T + 2 * h + 4;" in bs
-    assert ("2LL * m * window_ld(T, h) + 1LL * stages * (bs * bs + (far ? m : 0)) * T +"
-            in bs and "(gram ? 1LL * m * (T + 4) : 0);" in bs)
+    assert ("return 1LL * csize * bs * bs * T + (far ? 4LL * m * T : 0);" in bs
+            and "8LL * m * window_ld(T, h) + stages * bs_slot_bytes(bs, m, T, far, csize) +"
+            in bs and "(gram ? 4LL * m * (T + 4) : 0);" in bs)
     assert ("__shared__ unsigned long long full[kBsMaxStages], empty[kBsMaxStages], wfree[2];"
             in bs and bsk.BARRIER_BYTES == 8 * (2 * max(bsk.STAGES) + 2))
     built = {w: tuple(int(ki) for ki in re.findall(rf"BCG_BS\({w}, (\d+)\);", bs)) for w in (4, 8)}

@@ -238,3 +238,19 @@ def test_smoke_eo_true_relres_is_the_full_operators(dtype):
     want = (np.linalg.norm(B - a @ X - sigma * X, axis=0) / np.linalg.norm(B, axis=0)).max()
     got = smoke.eo_true_relres(torch, eo, torch.from_numpy(X), torch.from_numpy(B), sigma)
     assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_smoke_storage_variants_are_required_on_their_path():
+    """[storage]'s launch check fails when any of its variants was not
+    launched on its path, and every one of them is a row of the kernels
+    line with its TPU kernel."""
+    smoke = _load("chip_smoke")
+    counts = {w: 3 for w in smoke.STORAGE_KERNELS}
+    smoke.require_launches("[storage]", counts, smoke.STORAGE_KERNELS)
+    for w in smoke.STORAGE_KERNELS:
+        with pytest.raises(AssertionError, match=r"\[storage\] never launched"):
+            smoke.require_launches("[storage]", {**counts, w: 0}, smoke.STORAGE_KERNELS)
+    assert len(smoke.STORAGE_KERNELS) == 10
+    for src, rep in smoke.STORAGE_KERNELS.values():
+        assert (ROOT / src).is_file() and (ROOT / rep.split(":")[0]).is_file()
+    assert not set(smoke.STORAGE_KERNELS) & (set(smoke.KERNELS) | set(smoke.BF16_KERNELS))

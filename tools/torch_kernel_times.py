@@ -781,8 +781,8 @@ def bs_variants(torch, dev, tmp: Path):
                 if plan.fused_gram:
                     part = torch.empty((plan.blocks, m, m), device=dev)
                     G = torch.empty((m, m), device=dev)
-                _native.launch("variant", "bcg_block_stencil_spmm", dev, p(blocks), coffs, nd,
-                               bs, p(Xm), p(Y), p(part), p(G), k, k, ns, 1, plan.h,
+                _native.launch("variant", "bcg_block_stencil_spmm", dev, p(blocks), 4, coffs,
+                               None, nd, bs, p(Xm), p(Y), p(part), p(G), k, k, ns, 1, plan.h,
                                plan.groups, plan.ki, plan.stages, plan.blocks)
                 return Y if G is None else (Y, G)
             name = "row 23 plan" if not kw else f"variant row 23 {kw}"
@@ -865,7 +865,8 @@ def sweep_cases(torch, dev):
                            f"smem={nbytes}{mark}",
                            lambda op=op, X=X, Y=Y, offs=offs, part=part, G=G, h=h, T=T, mb=mb:
                            _native.launch("sweep", "bcg_stencil_spmm", dev, p(op.diags), offs,
-                                          nd, p(X), p(Y), p(part), p(G), k, n, h, T, mb))
+                                          nd, p(X), p(Y), None, p(part), p(G), k, n, h, T,
+                                          mb))
         del op, X, Y
 
 
