@@ -26,7 +26,10 @@
 // where it is stored (from_f32). The
 // k x k coefficients of a bf16 update stay f32 (the reference's f32
 // coefficient route, BLOCKCG_NO_BF16_MXU=1), so the kernels and their plain
-// versions differ in summation order alone.
+// versions differ in summation order alone. The bf16 variants of gram.cu
+// and mm_update.cu run on the tensor cores instead (mma.cuh): exact bf16
+// products summed in f32, mm_update's f32 coefficient as three exact bf16
+// pieces.
 //
 // Everything here has internal linkage: each .cu includes this header, is
 // compiled to its own object, and the objects are linked into one library.

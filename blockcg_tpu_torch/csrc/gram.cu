@@ -18,12 +18,12 @@
 // (32, 2,097,152) and 1.643 ms at (96, 32^4) as four 48-row launches, each
 // field read twice.
 //
-// Design: a persistent grid of 256-thread blocks, one an SM, walks tiles of
-// T columns (ops/fused.py gram_plan: the widest tile whose two stages fit,
-// 128 columns at 96 + 96 rows, 256 at 32 + 32 and at 48 + 48). Each tile of
-// the stacked rows [U; V] (U alone when U is V) is copied into shared
-// memory with cp.async, double-buffered: the next tile's copy is in flight
-// while this one computes. 16-byte copies where
+// Design (f32 fields, bcg_gram): a persistent grid of 256-thread blocks, one
+// an SM, walks tiles of T columns (ops/fused.py gram_plan: the widest tile
+// whose two stages fit, 128 columns at 96 + 96 rows, 256 at 32 + 32 and at
+// 48 + 48). Each tile of the stacked rows [U; V] (U alone when U is V) is
+// copied into shared memory with cp.async, double-buffered: the next tile's
+// copy is in flight while this one computes. 16-byte copies where
 // n % 4 == 0 and both fields are 16-byte aligned, else 4-byte copies on the
 // same schedule; columns past n are zero-filled. The Gram comes from
 // common.cuh's register tiles fed by float4 shared reads: VecGram for U V^T
@@ -35,14 +35,39 @@
 // on the card and the plan alone, so a repeated call gives the same bits (no
 // atomics).
 //
-// bf16 fields (bcg_gram_bf16): the tiles are staged as bf16, 16-byte copies
-// of 8 elements (n % 8 == 0), a row stride of T + 8 elements for both Grams,
-// and the register tiles read four bf16 a load, lifted to f32. A bf16 x bf16
+// bf16 fields (bcg_gram_bf16, gram_mma): on the tensor cores. A bf16 x bf16
 // product is exact in f32, so G is the f32 sum of exact products, as the
-// reference's native-bf16 Gram.
+// reference's native-bf16 Gram. At (32, 256^3) the 2.15 GB of the two
+// fields take 0.641 ms at 3.35 TB/s and the 34.4 GFLOP 0.035 ms at 989
+// TFLOP/s, so bytes bind, and f32 FMAs on lifted bf16 (0.51 ms of issue
+// alone) would not keep up with them. A ring of `stages` tiles
+// (ops/fused.py gram_plan) is filled by TMA tensor copies in 128-byte
+// swizzled boxes of 64 columns (mma.cuh TmaRing), each stage completing on
+// its mbarrier, so stages - 1 tiles are in flight while one computes and no
+// thread spends an instruction on the copies: one TMA request a box of all
+// rows, not one a row, as each request costs the SM time of its own
+// (PERF.md section 6 has the timings). G is
+// tiled into m16n8 fragments (ku padded to 16 rows, kv to 8, by clamping
+// the rows ldmatrix reads to the last real one: their products land only
+// in entries the store drops); the staged tile, n contiguous, is the
+// row-major A operand for U and the column-major B operand for V, so
+// ldmatrix feeds mma.sync m16n8k16 without a transpose. Up to 32 rows each
+// warp holds every fragment of G over its own 16-column steps of a tile
+// (2 x 4 fragments at 32 x 32); at 48-96 rows the warps split G's
+// fragments over the tile's columns (MmaGram). Each
+// warp's fragments start at zero every tile and are added to a double
+// running sum after it, so the f32 chains inside the tensor cores stay a
+// few k-steps long (the library's one long chain is what puts it 1.4e-4
+// from the f64 Gram). When U is V the fragments below the diagonal are
+// skipped and the store mirrors the upper entries, so G is exactly
+// symmetric. The warps' sums are added in warp order, the blocks' partials
+// by launch_reduce as above: no atomics, the same bits on every call. A
+// ragged n (n % 8 != 0) or an unaligned field takes element copies into
+// the same stages.
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -56,18 +81,14 @@ constexpr int kGrStages = 2;
 // scratch (VecGram / SymGram kScratch), mirrored by ops/fused.py.
 constexpr int kGrScratch = 16384;
 
-// Row stride of a staged tile of T columns, in elements of esize bytes: for
-// floats 4 mod 8 words for VecGram's float4 reads, 8 mod 32 for SymGram's;
-// for bf16 T + 8, which keeps every row's 16-byte copies aligned.
-__host__ __device__ inline int gram_ld(int T, bool sym, int esize) {
-  return T + (sym || esize != 4 ? 8 : 4);
-}
+// Row stride of a staged tile of T floats: 4 mod 8 words for VecGram's
+// float4 reads, 8 mod 32 for SymGram's.
+__host__ __device__ inline int gram_ld(int T, bool sym) { return T + (sym ? 8 : 4); }
 
 // Shared bytes of a launch: `stages` tiles of `rows` stacked rows; mirrored
 // by ops/fused.py gram_smem_bytes.
-__host__ __device__ inline long long gram_smem_bytes(int rows, int T, bool sym, int stages,
-                                                     int esize) {
-  const long long b = 1LL * esize * stages * rows * gram_ld(T, sym, esize);
+__host__ __device__ inline long long gram_smem_bytes(int rows, int T, bool sym, int stages) {
+  const long long b = 4LL * stages * rows * gram_ld(T, sym);
   return b > 4LL * kGrScratch ? b : 4LL * kGrScratch;
 }
 
@@ -75,17 +96,16 @@ __host__ __device__ inline long long gram_smem_bytes(int rows, int T, bool sym, 
 // into s (row stride ld) with cp.async: warp w copies rows w, w + 8, ...,
 // each lane 16 bytes (or one element) at a time; columns past n are
 // zero-filled.
-template <typename E>
-__device__ __forceinline__ void load_tile(E* s, const E* U, const E* V, int ku, int rows,
-                                          long long n, long long i0, int T, int ld, bool vec) {
-  constexpr int kv = kVec<E>;
+__device__ __forceinline__ void load_tile(float* s, const float* U, const float* V, int ku,
+                                          int rows, long long n, long long i0, int T, int ld,
+                                          bool vec) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kGrThreads / 32) {
-    const E* F = (r < ku ? U + static_cast<long long>(r) * n
-                         : V + static_cast<long long>(r - ku) * n) + i0;
-    E* d = s + r * ld;
+    const float* F = (r < ku ? U + static_cast<long long>(r) * n
+                             : V + static_cast<long long>(r - ku) * n) + i0;
+    float* d = s + r * ld;
     if (vec) {
-      for (int q = kv * lane; q < T; q += 32 * kv)
+      for (int q = 4 * lane; q < T; q += 32 * 4)
         cp_async16(d + q, i0 + q < n ? F + q : U, i0 + q < n);
     } else {
       for (int q = lane; q < T; q += 32) cp_elem(d + q, i0 + q < n ? F + q : U, i0 + q < n);
@@ -103,18 +123,17 @@ template <int KMAX, bool SYM, int TS>
 using GramOf =
     std::conditional_t<SYM, SymGram<KMAX, kGrThreads, TS>, VecGram<KMAX, kGrThreads, TS>>;
 
-// E: the field element (float or bf16). TS, MINB (blocks an SM for
-// __launch_bounds__) and ST (tiles in shared memory) other than the built
-// ones are for timing probes (tools/torch_kernel_times.py --variants).
-template <typename E, int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1,
-          int ST = kGrStages>
+// TS, MINB (blocks an SM for __launch_bounds__) and ST (tiles in shared
+// memory) other than the built ones are for timing probes
+// (tools/torch_kernel_times.py --variants).
+template <int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1, int ST = kGrStages>
 __global__ void __launch_bounds__(kGrThreads, MINB)
-    gram_kernel(const E* __restrict__ U, const E* __restrict__ V, float* __restrict__ part,
-                int ku, int kv, long long n, int T, bool vec) {
-  extern __shared__ __align__(16) float smem[];  // ST tiles of (rows, ld) elements of E
-  E* tiles = reinterpret_cast<E*>(smem);
+    gram_kernel(const float* __restrict__ U, const float* __restrict__ V,
+                float* __restrict__ part, int ku, int kv, long long n, int T, bool vec) {
+  extern __shared__ __align__(16) float smem[];  // ST tiles of (rows, ld) floats
+  float* tiles = smem;
   const int rows = SYM ? ku : ku + kv;
-  const int ld = gram_ld(T, SYM, sizeof(E));
+  const int ld = gram_ld(T, SYM);
   const long long stage = static_cast<long long>(rows) * ld;
   GramOf<KMAX, SYM, TS> g;
   const long long ntiles = (n + T - 1) / T;
@@ -132,7 +151,7 @@ __global__ void __launch_bounds__(kGrThreads, MINB)
     cp_async_commit();
     cp_async_wait<ST - 1>();  // this tile's copy has landed
     __syncthreads();          // ... for every thread's share of it
-    const E* s = tiles + buf * stage;
+    const float* s = tiles + buf * stage;
     if constexpr (SYM) g.accumulate(s, ld, T, ku);
     else g.accumulate(s, ld, s + ku * ld, ld, T, ku, kv);
     __syncthreads();  // every read of this buffer is done before its refill
@@ -145,20 +164,19 @@ __global__ void __launch_bounds__(kGrThreads, MINB)
   else g.store(mine, ku, kv, smem);
 }
 
-template <typename E, int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1,
-          int ST = kGrStages>
-cudaError_t launch(const E* U, const E* V, float* part, float* G, int ku, int kv, long long n,
-                   int T, int max_blocks, int device, cudaStream_t stream) {
+template <int KMAX, bool SYM, int TS = kGrTS<KMAX, SYM>, int MINB = 1, int ST = kGrStages>
+cudaError_t launch(const float* U, const float* V, float* part, float* G, int ku, int kv,
+                   long long n, int T, int max_blocks, int device, cudaStream_t stream) {
   static_assert(GramOf<KMAX, SYM, TS>::kScratch <= kGrScratch,
                 "the Gram's scratch must fit the shared floor");
-  auto kernel = gram_kernel<E, KMAX, SYM, TS, MINB, ST>;
-  const size_t smem = gram_smem_bytes(SYM ? ku : ku + kv, T, SYM, ST, sizeof(E));
+  auto kernel = gram_kernel<KMAX, SYM, TS, MINB, ST>;
+  const size_t smem = gram_smem_bytes(SYM ? ku : ku + kv, T, SYM, ST);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
   err = persistent_grid(kernel, kGrThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % kVec<E> == 0 && aligned16(U) && aligned16(V);
+  const bool vec = n % 4 == 0 && aligned16(U) && aligned16(V);
   kernel<<<grid, kGrThreads, smem, stream>>>(U, V, part, ku, kv, n, T, vec);
   launch_reduce(part, G, ku, kv, grid, stream);
   return cudaGetLastError();
@@ -173,10 +191,10 @@ inline int gram_width(int k) {
   return 0;
 }
 
-template <typename E, bool SYM>
-cudaError_t dispatch(const E* U, const E* V, float* part, float* G, int ku, int kv,
+template <bool SYM>
+cudaError_t dispatch(const float* U, const float* V, float* part, float* G, int ku, int kv,
                      long long n, int T, int max_blocks, int device, cudaStream_t stream) {
-#define BCG_GR(W) return launch<E, W, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream)
+#define BCG_GR(W) return launch<W, SYM>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream)
   switch (gram_width(ku > kv ? ku : kv)) {
     case 8: BCG_GR(8);
     case 16: BCG_GR(16);
@@ -189,16 +207,188 @@ cudaError_t dispatch(const E* U, const E* V, float* part, float* G, int ku, int 
 #undef BCG_GR
 }
 
-template <typename E>
-int gram_entry(const E* U, const E* V, float* part, float* G, int ku, int kv, long long n,
-               int T, int max_blocks, int device, cudaStream_t stream) {
-  if (max_blocks < 1 || n < 1 || ku < 1 || kv < 1 || T < 128 || T > 1024 || T % 128 != 0)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+
+// ---- bf16 fields on the tensor cores (bcg_gram_bf16)
+
+// How the 8 warps of a block share a launch of width W (gram_width): G's
+// MT x NT fragments of 16 x 8 are cut into QM x QN groups of TM x TN, and
+// the P = 8 / (QM QN) warps of a group take every P-th 16-column step of a
+// tile. Up to 32 rows one group holds them all (2 x 4 at 32: 32 f32 and 64
+// f64 registers a thread); wider, at most 3 x 3 a warp.
+template <int W>
+struct MmaGram {
+  static constexpr int MT = (W + 15) / 16, NT = W / 8;
+  static constexpr int QM = W >= 64 ? 2 : 1;
+  static constexpr int QN = W == 96 ? 4 : W >= 48 ? 2 : 1;
+  static constexpr int P = 8 / (QM * QN);
+  static constexpr int TM = MT / QM, TN = NT / QN;
+  static constexpr int kScratch = P * 16 * MT * 8 * NT;  // floats of the warps' sums
+  static_assert(QM * TM == MT && QN * TN == NT && P * QM * QN == 8, "the warps must tile G");
+};
+
+// Shared bytes of a launch: `stages` tiles of ku (+ kv) rows of T columns in
+// swizzled boxes (mma.cuh), at least the warps' sums, and 1 KB to align the
+// boxes; mirrored by ops/fused.py gram_mma_smem_bytes.
+__host__ __device__ inline long long gram_mma_smem_bytes(int ku, int kv, bool sym, int T,
+                                                         int stages) {
+  const long long b = 2LL * stages * T * (round8(ku) + (sym ? 0 : round8(kv)));
+  return (b > 4LL * kGrScratch ? b : 4LL * kGrScratch) + 1024;
+}
+
+// One tile's products for this warp: its fragments (mt0 + a, nt0 + b) over
+// the 16-column steps p, p + P, ... of the staged tile (rows of U at su in
+// boxes of r8u rows, of V at sv in boxes of r8v), added to the running
+// sums. SYM: U is V, and the fragments wholly below the diagonal
+// (nt < 2 mt) are skipped.
+template <int W, bool SYM>
+__device__ __forceinline__ void gram_mma_tile(double (&run)[MmaGram<W>::TM][MmaGram<W>::TN][4],
+                                              const char* su, const char* sv, int r8u, int r8v,
+                                              int T, int ku, int kv, int mt0, int nt0, int p) {
+  using S = MmaGram<W>;
+  const int lane = threadIdx.x % 32;
+  float acc[S::TM][S::TN][4] = {};
+  // ldmatrix rows of this lane: A's matrices are (rows 0-7, k 0-7), (rows
+  // 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15); B's, two
+  // fragments at a time, (fragment b, k 0-7), (b, k 8-15), (b + 1, k 0-7),
+  // (b + 1, k 8-15).
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 8 * ((lane >> 3) & 1);
+  for (int c0 = 16 * p; c0 < T; c0 += 16 * S::P) {
+    unsigned a[S::TM][4], b[S::TN][2];
+#pragma unroll
+    for (int i = 0; i < S::TM; ++i)
+      ldsm_x4(a[i], su + swz(min(16 * (mt0 + i) + arow, ku - 1), c0 + acol, r8u));
+#pragma unroll
+    for (int j = 0; j + 1 < S::TN; j += 2) {
+      unsigned r[4];
+      ldsm_x4(r, sv + swz(min(8 * (nt0 + j) + brow, kv - 1), c0 + bcol, r8v));
+      b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
+    }
+    if constexpr (S::TN % 2 == 1)
+      ldsm_x2(b[S::TN - 1][0], b[S::TN - 1][1],
+              sv + swz(min(8 * (nt0 + S::TN - 1) + (lane & 7), kv - 1), c0 + bcol, r8v));
+#pragma unroll
+    for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+        if (!SYM || nt0 + j >= 2 * (mt0 + i)) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[i][j][e] += acc[i][j][e];
+}
+
+// tu, tv: the fields' tensor maps (vec; unused otherwise).
+template <int W, bool SYM>
+__global__ void __launch_bounds__(kGrThreads, 1)
+    gram_mma(const __grid_constant__ CUtensorMap tu, const __grid_constant__ CUtensorMap tv,
+             const bf16* __restrict__ U, const bf16* __restrict__ V, float* __restrict__ part,
+             int ku, int kv, long long n, int T, int stages, bool vec) {
+  using S = MmaGram<W>;
+  extern __shared__ __align__(16) float smem[];  // `stages` tiles of [U; V] (mma.cuh boxes)
+  __shared__ unsigned long long full[kRingMaxStages];
+  char* base = align1k(smem);
+  const int r8u = round8(ku), r8v = SYM ? r8u : round8(kv);
+  const int stage = 2 * T * (r8u + (SYM ? 0 : r8v));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p = warp % S::P, q = warp / S::P;
+  const int mt0 = q / S::QN * S::TM, nt0 = q % S::QN * S::TN;
+  double run[S::TM][S::TN][4] = {};
+  const TmaRing ring{full, stages, (n + T - 1) / T};
+  const auto load = [&](int s, long long t) {  // stage s takes tile t by TMA
+    char* su = base + s * stage;
+    tma_post(&full[s], SYM ? ku : ku + kv, T);
+    tma_tile(su, &tu, r8u, t * T, T, &full[s]);
+    if (!SYM) tma_tile(su + 2 * T * r8u, &tv, r8v, t * T, T, &full[s]);
+  };
+  ring.init();
+  __syncthreads();  // the barriers
+  if (vec) ring.prime(load);
+  for (long long j = 0, t = blockIdx.x; t < ring.ntiles; ++j, t += gridDim.x) {
+    char* su = base + ring.stage(j) * stage;
+    if (vec) {
+      ring.wait(j);
+    } else {  // element copies into the same stage
+      elem_tile(su, U, ku, r8u, n, t * T, T);
+      if (!SYM) elem_tile(su + 2 * T * r8u, V, kv, r8v, n, t * T, T);
+      __syncthreads();
+    }
+    gram_mma_tile<W, SYM>(run, su, SYM ? su : su + 2 * T * r8u, r8u, r8v, T, ku, kv, mt0, nt0,
+                          p);
+    __syncthreads();  // every read of this stage is done before its refill
+    if (vec) ring.refill(j, load);
+  }
+  // The warps' sums, through the drained stages: scratch[p][r][c] over the
+  // padded (16 MT, 8 NT) Gram, then added in warp order for each entry
+  // (an entry below the diagonal from its mirror when U is V).
+  float* scratch = reinterpret_cast<float*>(base);
+  constexpr int kR = 16 * S::MT, kC = 8 * S::NT;
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < S::TN; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (mt0 + i) + g + 8 * (e >> 1), c = 8 * (nt0 + jj) + 2 * tq + (e & 1);
+        scratch[(p * kR + r) * kC + c] = static_cast<float>(run[i][jj][e]);
+      }
+  __syncthreads();
+  float* mine = part + static_cast<long long>(blockIdx.x) * ku * kv;
+  for (int e = threadIdx.x; e < ku * kv; e += kGrThreads) {
+    int r = e / kv, c = e % kv;
+    if (SYM && r > c) {
+      const int u = r; r = c; c = u;
+    }
+    double v = 0.0;
+    for (int w = 0; w < S::P; ++w) v += scratch[(w * kR + r) * kC + c];
+    mine[e] = static_cast<float>(v);
+  }
+}
+
+template <int W, bool SYM>
+cudaError_t launch_mma(const bf16* U, const bf16* V, float* part, float* G, int ku, int kv,
+                       long long n, int T, int stages, int max_blocks, int device,
+                       cudaStream_t stream) {
+  static_assert(MmaGram<W>::kScratch <= kGrScratch, "the warps' sums must fit the shared floor");
+  auto kernel = gram_mma<W, SYM>;
+  const size_t smem = gram_mma_smem_bytes(ku, kv, SYM, T, stages);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  if (U == V && ku == kv)
-    return dispatch<E, true>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
-  return dispatch<E, false>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+  int grid = 0;
+  err = persistent_grid(kernel, kGrThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = tma_ok(U, n) && tma_ok(V, n);
+  CUtensorMap tu{}, tv{};
+  if (vec) {
+    err = make_tmap(&tu, U, n, ku);
+    if (err == cudaSuccess) err = make_tmap(&tv, V, n, kv);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kGrThreads, smem, stream>>>(tu, tv, U, V, part, ku, kv, n, T, stages, vec);
+  launch_reduce(part, G, ku, kv, grid, stream);
+  return cudaGetLastError();
+}
+
+template <bool SYM>
+cudaError_t dispatch_mma(const bf16* U, const bf16* V, float* part, float* G, int ku, int kv,
+                         long long n, int T, int stages, int max_blocks, int device,
+                         cudaStream_t stream) {
+#define BCG_GM(W) \
+  return launch_mma<W, SYM>(U, V, part, G, ku, kv, n, T, stages, max_blocks, device, stream)
+  switch (gram_width(ku > kv ? ku : kv)) {
+    case 8: BCG_GM(8);
+    case 16: BCG_GM(16);
+    case 32: BCG_GM(32);
+    case 48: BCG_GM(48);
+    case 64: BCG_GM(64);
+    case 96: BCG_GM(96);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BCG_GM
 }
 
 }  // namespace
@@ -209,14 +399,29 @@ int gram_entry(const E* U, const E* V, float* part, float* G, int ku, int kv, lo
 // ku, kv)) come from ops/fused.py gram_plan.
 extern "C" int bcg_gram(const float* U, const float* V, float* part, float* G, int ku, int kv,
                         long long n, int T, int max_blocks, int device, cudaStream_t stream) {
-  return gram_entry(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+  if (max_blocks < 1 || n < 1 || ku < 1 || kv < 1 || T < 128 || T > 1024 || T % 128 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (U == V && ku == kv)
+    return dispatch<true>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+  return dispatch<false>(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
 }
 
-// The same on bf16 fields; G is f32.
+// The same on bf16 fields on the tensor cores (gram_mma); G is f32. T (a
+// multiple of 128, at most 1024), stages (2 to kRingMaxStages) and
+// max_blocks come from ops/fused.py gram_plan.
 extern "C" int bcg_gram_bf16(const bf16* U, const bf16* V, float* part, float* G, int ku,
-                             int kv, long long n, int T, int max_blocks, int device,
+                             int kv, long long n, int T, int stages, int max_blocks, int device,
                              cudaStream_t stream) {
-  return gram_entry(U, V, part, G, ku, kv, n, T, max_blocks, device, stream);
+  if (max_blocks < 1 || n < 1 || ku < 1 || kv < 1 || T < 128 || T > 1024 || T % 128 != 0 ||
+      stages < 2 || stages > kRingMaxStages)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (U == V && ku == kv)
+    return dispatch_mma<true>(U, V, part, G, ku, kv, n, T, stages, max_blocks, device, stream);
+  return dispatch_mma<false>(U, V, part, G, ku, kv, n, T, stages, max_blocks, device, stream);
 }
 
 extern "C" const char* bcg_error_string(int code) {

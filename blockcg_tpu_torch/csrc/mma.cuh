@@ -1,0 +1,230 @@
+// Tensor-core pieces of the bf16 kernels (gram.cu's and mm_update.cu's bf16
+// variants): the warp-level product mma.sync m16n8k16 (bf16 x bf16
+// products, exact in f32, summed in f32), ldmatrix loads of its operands
+// from staged tiles, the exact split of an f32 coefficient into three bf16
+// pieces, and a ring of shared-memory stages filled by TMA tensor copies
+// (boxes of 64 columns in the 128-byte swizzle) that complete on one
+// mbarrier a stage.
+//
+// Fragments (PTX ISA, "mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
+//   A, 16 x 16 (m x k) row-major, four registers of two bf16 each: a[0]
+//     row g, k 2t and 2t + 1; a[1] row g + 8; a[2] row g, k 2t + 8 and
+//     2t + 9; a[3] row g + 8, k 2t + 8 and 2t + 9;
+//   B, 16 x 8 (k x n) column-major, two registers: b[0] column g, k 2t and
+//     2t + 1; b[1] column g, k 2t + 8 and 2t + 9;
+//   D, 16 x 8 f32, four registers: d[0], d[1] row g, columns 2t and 2t + 1;
+//     d[2], d[3] row g + 8.
+// The element of the lower index sits in the lower 16 bits of a register.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace {
+
+// d += A B on one warp.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned) and receives, from
+// each matrix r[i], row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1; with
+// .trans, column l / 4, rows 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Two matrices: lanes 0-15 give the addresses.
+__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// v = p[0] + p[1] + p[2] exactly: p[0] = bf16(v), p[1] = bf16(v - p[0]),
+// p[2] = v - p[0] - p[1]. Each difference is exact in f32 (a multiple of
+// v's f32 ulp, at most half a bf16 ulp of what it is taken from), and the
+// last one has at most 8 significant bits, so p[2] holds it exactly: three
+// 8-bit significands carry f32's 24 (for 2^-103 <= |v| < 2^128 (1 - 2^-9),
+// where every piece is a normal bf16 or 0 and p[0] does not round to inf).
+// A two-piece split would keep 16 of them.
+__device__ __forceinline__ void split3(float v, bf16 (&p)[3]) {
+  p[0] = __float2bfloat16_rn(v);
+  const float r1 = v - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16_rn(r1);
+  p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
+}
+
+// ---- tiles staged by TMA (cp.async.bulk.tensor) in 128-byte swizzled boxes
+//
+// A staged tile of a (rows, n) bf16 field holds columns i0 .. i0+T-1 as
+// T / 64 boxes of 64 columns; a box is R8 rows (rows rounded up to 8) of 128
+// bytes, whose 16-byte chunks are permuted by the TMA's 128-byte swizzle
+// (chunk c of row r sits at chunk c ^ (r % 8)), so the 8 rows an ldmatrix
+// reads at one logical chunk fall in 8 distinct bank groups. One TMA request
+// copies a box (rows x 128 bytes) and zero-fills its columns past n.
+constexpr int kRingMaxStages = 8;  // mbarriers a block holds (static shared memory)
+constexpr int kBoxCols = 64;       // columns of a box: 128 bytes of bf16
+
+// Byte offset of element (r, c) of a staged tile whose boxes hold r8 rows.
+__host__ __device__ __forceinline__ int swz(int r, int c, int r8) {
+  return (c >> 6) * r8 * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+__host__ __device__ inline int round8(int r) { return (r + 7) / 8 * 8; }
+
+// The tensor map of a (rows, n) row-major bf16 field (n % 8 == 0, 16-byte
+// aligned) cut into boxes of (rows, 64) with the 128-byte swizzle; the
+// driver's encoder is found through the runtime, so nothing links libcuda.
+inline cudaError_t make_tmap(CUtensorMap* map, const bf16* F, long long n, int rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 2};
+  const cuuint32_t box[2] = {kBoxCols, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(F), dims,
+                             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Whether a field can be staged by TMA: n % 8 == 0 (16-byte rows), a
+// 16-byte aligned base, and column coordinates that fit an int.
+inline bool tma_ok(const void* F, long long n) {
+  return n % 8 == 0 && n < (1LL << 31) && aligned16(F);
+}
+
+// Post `bytes` more to arrive on bar in its current phase, and arrive.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One box, the (rows, 64) block of `map` at column c0, into dst (1024-byte
+// aligned); its bytes count against bar.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c0,
+                                        unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
+      "r"(c0), "r"(0)
+      : "memory");
+}
+
+// One field's share of a stage: the T / 64 boxes of `map` from column i0
+// into dst (boxes of r8 rows), issued by the lanes of warp 0; lane 0 has
+// posted the stage's bytes on bar before (tma_post).
+__device__ __forceinline__ void tma_tile(char* dst, const CUtensorMap* map, int r8, long long i0,
+                                         int T, unsigned long long* bar) {
+  for (int b = threadIdx.x; b < T / kBoxCols; b += 32)
+    tma_box(dst + b * r8 * 128, map, static_cast<int>(i0) + kBoxCols * b, bar);
+}
+
+// Lane 0 of warp 0 posts a stage of `rows` field rows by T columns (the
+// boxes' bytes, zero-filled columns included) on bar; the warp then issues
+// its tiles (tma_tile).
+__device__ __forceinline__ void tma_post(unsigned long long* bar, int rows, int T) {
+  if (threadIdx.x == 0) mbar_expect_tx(bar, 2u * rows * T);
+  __syncwarp();
+}
+
+// The ring of a persistent block: `stages` shared-memory stages, each
+// completing on its mbarrier, that take the block's tiles t_j = blockIdx.x +
+// j gridDim.x (j = 0, 1, ...) in turn. Iteration j reads stage j % stages
+// once its tile has landed (wait); once every thread has read it, the stage
+// takes the tile of iteration j + stages (refill), so stages - 1 tiles are in
+// flight while one computes. load(s, t) posts stage s and issues the TMA
+// copies of tile t (tma_post, tma_tile); the ring calls it on warp 0 alone.
+struct TmaRing {
+  unsigned long long* full;  // one mbarrier a stage, in shared memory
+  int stages;
+  long long ntiles;
+
+  __device__ __forceinline__ long long tile(long long j) const {
+    return blockIdx.x + j * gridDim.x;
+  }
+  __device__ __forceinline__ int stage(long long j) const {
+    return static_cast<int>(j % stages);
+  }
+  // The barriers (thread 0; the caller syncs the block before prime).
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+      mbar_fence_init();
+    }
+  }
+  // Every stage takes its first tile.
+  template <typename Load>
+  __device__ __forceinline__ void prime(const Load& load) const {
+    if (threadIdx.x < 32)
+      for (int s = 0; s < stages; ++s)
+        if (tile(s) < ntiles) load(s, tile(s));
+  }
+  // Iteration j's tile has landed (the barrier's phase flips each round).
+  __device__ __forceinline__ void wait(long long j) const {
+    mbar_wait(&full[stage(j)], static_cast<unsigned>(j / stages) & 1);
+  }
+  // Iteration j's stage, read by every thread, takes the tile of j + stages.
+  template <typename Load>
+  __device__ __forceinline__ void refill(long long j, const Load& load) const {
+    if (threadIdx.x < 32 && tile(j + stages) < ntiles) load(stage(j), tile(j + stages));
+  }
+};
+
+// The same tile copied element by element by the whole block (a ragged n
+// or an unaligned field), columns past n zeroed; the caller syncs.
+__device__ __forceinline__ void elem_tile(char* dst, const bf16* F, int rows, int r8, long long n,
+                                          long long i0, int T) {
+  for (int e = threadIdx.x; e < rows * T; e += blockDim.x) {
+    const int r = e / T, q = e % T;
+    *reinterpret_cast<bf16*>(dst + swz(r, q, r8)) =
+        i0 + q < n ? F[static_cast<long long>(r) * n + i0 + q] : __float2bfloat16_rn(0.f);
+  }
+}
+
+// The first 1024-byte aligned address of dynamic shared memory (the
+// swizzled boxes need it; a launch asks for 1 KB more).
+__device__ __forceinline__ char* align1k(void* p) {
+  return reinterpret_cast<char*>(p) + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+}  // namespace

@@ -343,11 +343,16 @@ def library() -> ctypes.CDLL:
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, I, P, P, I, I, L, I, I, I, I, P]
-    for fn in ("stencil_spmm", "mm_update", "gram", "mm_update_gram", "mm2_update_gram",
+    for fn in ("stencil_spmm", "mm_update_gram", "mm2_update_gram",
                "px_update", "xr_update_gram", "qr_p_update",
                "qr_px_update"):  # the bf16 variants take the f32 kernels' arguments
         getattr(lib, f"bcg_{fn}_bf16").argtypes = getattr(lib, f"bcg_{fn}").argtypes
         getattr(lib, f"bcg_{fn}_bf16").restype = I
+    # The tensor-core variants also take their ring's tile and stage count.
+    lib.bcg_gram_bf16.argtypes = [P, P, P, P, I, I, L, I, I, I, I, P]
+    lib.bcg_mm_update_bf16.argtypes = [P, P, P, P, I, L, I, I, I, P]
+    for fn in (lib.bcg_gram_bf16, lib.bcg_mm_update_bf16):
+        fn.restype = I
     for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x"):
         getattr(lib, fn).argtypes = lib.bcg_stencil_spmm.argtypes
         getattr(lib, fn).restype = I

@@ -37,11 +37,12 @@ as ``name[bf16]``). Their contract is the reference kernels' on bf16
 fields with its f32 coefficient route (``blockcg_tpu/ops/fused.py``
 ``_mxu_pair`` under ``BLOCKCG_NO_BF16_MXU=1``; its default rounds each
 coefficient to bf16 for the TPU's bf16 MXU rate, which stalls bf16 BCG and
-breaks BCGA down, and buys nothing here, where the kernels multiply in
-f32): the f32 coefficient times the field lifted to f32, summed in f32,
-outputs stored in bf16 (``qr_p_update`` and ``qr_px_update`` add rho P to
-the unrounded f32 Q), and a fused Gram taken on the stored bf16 output,
-its f32 sum of exact products. ``cheb_step`` runs its plain version on
+breaks BCGA down): the f32 coefficient times the field lifted to f32,
+summed in f32 (``mm_update`` on the tensor cores takes the coefficient as
+three bf16 pieces whose sum is it exactly), outputs stored in bf16
+(``qr_p_update`` and ``qr_px_update`` add rho P to the unrounded f32 Q),
+and a fused Gram taken on the stored bf16 output, its f32 sum of exact
+products. ``cheb_step`` runs its plain version on
 bf16 fields on any device, as the reference's gate sends every dtype but
 float32 to XLA (``cheb_step_available``; ``_native.f32_kernel``): each
 operation rounds to bf16 there.
@@ -65,7 +66,9 @@ copied over. A field of at most 64 rows is one launch, as it always was.
 ``gram`` streams tiles of [U; V] (U alone when U is V, whose Gram is then
 exactly symmetric) through shared memory, one launch up to 96 rows
 (``csrc/gram.cu``, ``gram_plan``); a wider Gram is blocks of at most 96
-rows.
+rows. On bf16 fields ``gram`` and ``mm_update`` (up to 128 rows) run on the
+tensor cores, their tiles streamed through a ring of TMA tensor copies
+(``gram_plan``, ``mm_update_mma_plan``).
 
 ``mm_update``, ``mm_update_gram``, ``mm2_update_gram``, ``px_update`` and
 ``qr_p_update`` run streaming kernels that stage their input tiles in shared
@@ -176,7 +179,81 @@ def _chunks(k: int, nmat: int, with_gram: bool, name: str, device):
                      f"coefficients in {cap} bytes of shared memory")
 
 
+RING_MAX_STAGES = 8  # csrc/mma.cuh kRingMaxStages: stages of a TMA ring
+RING_BARRIER_BYTES = 8 * RING_MAX_STAGES  # its mbarriers, in static shared memory
+RING_ALIGN = 1024  # bytes a launch adds to align its swizzled boxes (csrc/mma.cuh align1k)
+
+
+def round8(r: int) -> int:
+    """Rows of a staged box (``csrc/mma.cuh`` round8)."""
+    return -(-r // 8) * 8
+
+
+def ring_stages(smem_cap: int, stage_bytes: int, fixed: int = 0, blocks: int = 1,
+                most: int = RING_MAX_STAGES) -> int:
+    """Stages of ``stage_bytes`` a TMA ring (``csrc/mma.cuh``) holds beside
+    ``fixed`` bytes, its alignment and its mbarriers in a block's share of
+    the SM when ``blocks`` blocks share it (the SM's cap + 1 KB, less 1 KB a
+    block), at most ``most``."""
+    room = (smem_cap + 1024) // blocks - 1024 - RING_BARRIER_BYTES - RING_ALIGN - fixed
+    return min(most, room // stage_bytes)
+
+
 MM_UPDATE_MAX_K = 128  # csrc/mm_update.cu: output rows of one launch
+MM_MMA_WIDTHS = (16, 32, 64, 128)  # csrc/mm_update.cu mm_mma_width: the bf16 kernel's widths
+MM_MMA_TILES = (256, 128)  # column tiles of the bf16 kernel, widest first
+MM_MMA_MAX_STAGES = 4  # deepest ring its plan takes
+
+
+def mm_mma_blocks_per_sm(k: int) -> int:
+    """Blocks an SM the bf16 ``mm_update`` kernel is built for
+    (``csrc/mm_update.cu`` kMmMmaBlocks): two up to 64 rows, where one
+    block's epilogue overlaps the other's products; one at 128 rows, whose
+    96 registers of coefficient fragments a thread leave room for one."""
+    return 2 if k <= 64 else 1
+
+
+def mm_update_mma_smem_bytes(k: int, T: int, stages: int, has_a: bool) -> int:
+    """Shared bytes of one bf16 ``mm_update`` launch (``csrc/mm_update.cu``
+    mm_mma_smem_bytes): ``stages`` tiles of B, its k rows padded to the
+    launch's width, and with A of A, and the tile of Y, all bf16 (k, T)
+    tiles in swizzled boxes of ``round8(k)`` rows, and the alignment."""
+    w = next(w for w in MM_MMA_WIDTHS if k <= w)
+    return 2 * T * (stages * (w + (round8(k) if has_a else 0)) + round8(k)) + RING_ALIGN
+
+
+class RingPlan(NamedTuple):
+    """One launch of a tensor-core kernel fed by a TMA ring: its column tile
+    ``T``, the ring's ``stages`` and the launch's shared bytes."""
+    T: int
+    stages: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def mm_update_mma_plan(k: int, n: int, has_a: bool, smem_cap: int, sm_count: int) -> RingPlan:
+    """The bf16 ``mm_update`` launch of k <= 128 rows on n columns (with A
+    or not): the widest tile of ``MM_MMA_TILES`` that leaves every SM a
+    tile (waived at 128 columns) and whose ring, beside the tile of Y, holds
+    two stages in the shared memory of ``mm_mma_blocks_per_sm`` blocks, with
+    as many stages as fit there up to ``MM_MMA_MAX_STAGES``. At (32, 256^3)
+    the kernel took 703.5-786.9 us on 256 columns at two blocks an SM with
+    four stages, 772.0-790.2 with two, three or five, 781.8 on 512 (two
+    stages, the deepest two blocks hold), and 996-1,016 on 128; one block an
+    SM took 1,040-1,313 (H100, tools/torch_kernel_times.py --bf16
+    --variants, four calls)."""
+    if not 1 <= k <= MM_UPDATE_MAX_K:
+        raise ValueError(f"mm_update: one bf16 launch takes 1 to {MM_UPDATE_MAX_K} rows, got {k}")
+    w = next(w for w in MM_MMA_WIDTHS if k <= w)
+    for T in MM_MMA_TILES:
+        if T > 128 and T > n // sm_count:
+            continue
+        stages = ring_stages(smem_cap, 2 * T * (w + (round8(k) if has_a else 0)),
+                             2 * T * round8(k), mm_mma_blocks_per_sm(k), MM_MMA_MAX_STAGES)
+        if stages >= 2:
+            return RingPlan(T, stages, mm_update_mma_smem_bytes(k, T, stages, has_a))
+    raise ValueError(f"mm_update: {k} rows leave no bf16 tile in {smem_cap} bytes of shared "
+                     "memory")
 
 
 def mm_update_plan(k: int, donate: str | None, device,
@@ -338,23 +415,33 @@ GRAM_STAGES = 2  # csrc/gram.cu kGrStages: tiles in shared memory
 GRAM_SCRATCH = 16384  # csrc/gram.cu kGrScratch: floats of a launch's shared floor
 
 
-def gram_smem_bytes(rows: int, T: int, same: bool, esize: int = 4) -> int:
-    """Shared bytes of one ``gram`` launch (``csrc/gram.cu``
-    gram_smem_bytes): two tiles of ``rows`` stacked rows of T columns of
-    ``esize``-byte elements at a row stride of T + 8 (``SymGram``, U is V, and
-    every bf16 tile) or T + 4 (``VecGram`` on floats), at least the Gram's
-    end-of-kernel scratch."""
-    ld = T + (8 if same or esize != 4 else 4)
-    return max(esize * GRAM_STAGES * rows * ld, 4 * GRAM_SCRATCH)
+def gram_smem_bytes(rows: int, T: int, same: bool) -> int:
+    """Shared bytes of one ``gram`` launch on f32 fields (``csrc/gram.cu``
+    gram_smem_bytes): two tiles of ``rows`` stacked rows of T columns at a
+    row stride of T + 8 (``SymGram``, U is V) or T + 4 (``VecGram``), at
+    least the Gram's end-of-kernel scratch."""
+    return max(4 * GRAM_STAGES * rows * (T + (8 if same else 4)), 4 * GRAM_SCRATCH)
+
+
+def gram_mma_smem_bytes(ku: int, kv: int, same: bool, T: int, stages: int) -> int:
+    """Shared bytes of one ``gram`` launch on bf16 fields (``csrc/gram.cu``
+    gram_mma_smem_bytes): ``stages`` tiles of U (and V) in swizzled boxes of
+    ``round8`` rows, at least the Gram's end-of-kernel scratch, and the
+    alignment."""
+    b = 2 * stages * T * (round8(ku) + (0 if same else round8(kv)))
+    return max(b, 4 * GRAM_SCRATCH) + RING_ALIGN
 
 
 class GramPlan(NamedTuple):
     """One ``gram`` launch (``csrc/gram.cu``): the column tile ``T`` a stage
-    copies, the launch's shared bytes and its grid (one block an SM, at most
-    one a tile), which is also the row count of the Gram partials."""
+    copies, the launch's shared bytes, its grid (one block an SM, at most
+    one a tile), which is also the row count of the Gram partials, and the
+    tiles in shared memory (2 for f32 fields; the TMA ring's depth for bf16
+    fields)."""
     T: int
     smem_bytes: int
     blocks: int
+    stages: int = GRAM_STAGES
 
 
 @functools.lru_cache(maxsize=256)
@@ -365,16 +452,27 @@ def gram_plan(ku: int, kv: int, same: bool, n: int, smem_cap: int, sm_count: int
     tile (waived at 128 columns). Wider tiles ran faster wherever they fit:
     at (48, 32^4) 224 us on 256 columns against 305 on 128, with U is V 171
     on 512 against 183 on 256; at (96, 32^4) with U is V 444 on 256 against
-    508 on 128 (H100, tools/torch_kernel_times.py --variants)."""
+    508 on 128 (H100, tools/torch_kernel_times.py --variants). bf16 fields
+    (``esize`` 2, the tensor-core kernel) take the widest such tile whose
+    ring holds two stages, with as many as fit up to ``RING_MAX_STAGES``:
+    at (32, 256^3) 682.4-705.0 us on 512 and 256 columns at any depth,
+    1,122-1,158 on 128; with U is V 350.0-358.6 on 1,024, 407-421 on 512
+    (H100, tools/torch_kernel_times.py --bf16 --variants)."""
     if not (1 <= ku <= GRAM_MAX_K and 1 <= kv <= GRAM_MAX_K):
         raise ValueError(f"gram: one launch takes at most {GRAM_MAX_K} rows, got {ku} x {kv}")
     rows = ku if same else ku + kv
     for T in GRAM_TILES:
         if T > 128 and T > n // sm_count:
             continue
-        nbytes = gram_smem_bytes(rows, T, same, esize)
+        blocks = min(-(-n // T), sm_count, _native.MAX_BLOCKS)
+        if esize == 2:
+            stages = ring_stages(smem_cap, 2 * T * (round8(ku) + (0 if same else round8(kv))))
+            if stages >= 2:
+                return GramPlan(T, gram_mma_smem_bytes(ku, kv, same, T, stages), blocks, stages)
+            continue
+        nbytes = gram_smem_bytes(rows, T, same)
         if nbytes <= smem_cap:
-            return GramPlan(T, nbytes, min(-(-n // T), sm_count, _native.MAX_BLOCKS))
+            return GramPlan(T, nbytes, blocks)
     raise ValueError(f"gram: {rows} stacked rows leave no tile in {smem_cap} bytes of "
                      "shared memory")
 
@@ -390,8 +488,9 @@ def _launch_gram(U, V):
                      U.element_size())
     part = torch.empty((plan.blocks, ku, kv), dtype=torch.float32, device=U.device)
     G = torch.empty((ku, kv), dtype=torch.float32, device=U.device)
+    ring = (plan.stages,) if U.dtype == torch.bfloat16 else ()
     _native.launch(*_native.variant("gram", "bcg_gram", U.dtype), U.device, _native.ptr(U),
-                   _native.ptr(V), _native.ptr(part), _native.ptr(G), ku, kv, n, plan.T,
+                   _native.ptr(V), _native.ptr(part), _native.ptr(G), ku, kv, n, plan.T, *ring,
                    plan.blocks)
     return G
 
@@ -517,8 +616,14 @@ def mm_update(M: torch.Tensor, B: torch.Tensor,
     _native.check_kk(M, k, "mm_update M")
     Y = torch.empty_like(Bf) if df is None else df
     p = _native.ptr
+    ring = ()
+    if dt == torch.bfloat16:
+        idx = Bf.device.index
+        plan = mm_update_mma_plan(k, n, Af is not None, _native.max_smem(idx),
+                                  _native.sm_count(idx))
+        ring = (plan.T, plan.stages)
     _native.launch(*_native.variant("mm_update", "bcg_mm_update", dt), Bf.device, p(M), p(Bf),
-                   p(Af), p(Y), k, n)
+                   p(Af), p(Y), k, n, *ring)
     return Y.view(B.shape)
 
 

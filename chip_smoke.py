@@ -52,7 +52,9 @@ Chebyshev solves, each beside its single-device run with the time ratio).
 Before the distributed layer, config 5 at full size (the 256^3 Laplacian,
 64 RHS): ``[config5] kernels`` holds each bf16 variant (rows 1-2, 5-9)
 against its plain version at (32, 256^3) on the bf16 operator, beside the
-f32 kernel at that shape; ``[config5] lean`` drives ``solve_refined_lean``
+f32 kernel at that shape (rows 5 and 6, on the tensor cores, also beside
+the f32-FMA kernels they replaced; row 5 as U V^T and as U U^T, the
+symmetric Gram the lean path launches); ``[config5] lean`` drives ``solve_refined_lean``
 on the bf16 preset (inner slices of 32, tol 1e-6) to a true f64 relres <=
 1e-6 within 16 GiB of allocated memory; ``[config5] qr2``, row 7's own path,
 runs its first inner solve again at ``qr_passes=2`` (the second QR pass,
@@ -300,6 +302,12 @@ BF16_ULPS = 1.0
 # version is the less accurate of the two). Each kernel's Gram of stored
 # bf16 fields is also held to GRAM_RTOL against its f64 sum.
 C5_GRAM_RTOL = 1e-4
+# Rows 5 and 6 in bf16 run on the tensor cores; the f32-FMA kernels they
+# replaced, at (32, 256^3) on an H100 80GB HBM3 at 700 W: the Gram 1.4972 ms
+# and 9.300e-07 from its f64 sum, Y = M B 1.3576 ms and 0 bf16 ulps from the
+# plain version. Printed beside this run's figures.
+TENSOR_CORE_ROWS_BEFORE = {"gram[bf16]": (1.4972, "9.300e-07 from the f64 Gram"),
+                           "mm_update[bf16]": (1.3576, "0.00 bf16 ulps from the plain version")}
 # [bf16presets]: configs 1-4 in bf16 as bench_cli.py --dtype bf16 runs them
 # (tol 1e-6, max_iter 2000; --refined: solve_refined with inner_tol 5e-3, the
 # f64 outer loop and the f32 B, inner BCG on config 2 and SBCGrQ on the
@@ -2068,9 +2076,9 @@ def gram_contract(torch, op, M1, M2, B1, B2, margin: float, label: str) -> None:
     its contract names and of the other candidate: row 2's X Y^T of its
     unrounded f32 sums (the f32 kernel on the same values), not of the
     stored bf16 Y; rows 7 and 8's Y Y^T of the stored Y, not of the f32
-    sums; row 5's U V^T (no other candidate). e_c and e_o are relative
-    Frobenius distances; the check needs e_c <= GRAM_RTOL and margin * e_c
-    < e_o."""
+    sums; row 5's U V^T and U U^T (the symmetric kernel the solvers run;
+    no other candidate). e_c and e_o are relative Frobenius distances; the
+    check needs e_c <= GRAM_RTOL and margin * e_c < e_o."""
     from blockcg_tpu_torch.ops import fused, stencil
 
     F1, F2 = B1.float(), B2.float()
@@ -2079,6 +2087,7 @@ def gram_contract(torch, op, M1, M2, B1, B2, margin: float, label: str) -> None:
          lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1),
          lambda Y: ((B1, stencil.stencil_spmm_t(op.diags.float(), op.offsets, F1)), (B1, Y))),
         ("gram[bf16]", lambda: (None, fused.gram(B1, B2)), lambda Y: ((B1, B2), None)),
+        ("gram[bf16] U is V", lambda: (None, fused.gram(B1, B1)), lambda Y: ((B1, B1), None)),
         ("mm_update_gram[bf16]", lambda: fused.mm_update_gram(M1, B1),
          lambda Y: ((Y, Y), (fused.mm_update(M1, F1),) * 2)),
         ("mm2_update_gram[bf16]", lambda: fused.mm2_update_gram(M1, B1, M2, B2),
@@ -2099,7 +2108,10 @@ def phase_config5_kernels(torch, dev, records) -> None:
     and (by ``GRAM_MARGIN``) on the ``CONFIG5_CUT`` grid. Times (event
     medians: every launch here takes milliseconds) of the variant, its plain
     version, the f32 kernel on the same values in f32 and the library call,
-    and the bound of the bf16 contract."""
+    and the bound of the bf16 contract. Row 5 runs twice: U V^T, and U U^T,
+    the symmetric kernel that SBCGrQ's Gram launches on the lean path, held
+    also to exact symmetry; the record of ``gram[bf16]`` is the symmetric
+    kernel's, beside its launches."""
     from blockcg_tpu_torch.ops import fused, stencil
     from blockcg_tpu_torch.problems import laplacian_dia
 
@@ -2128,6 +2140,25 @@ def phase_config5_kernels(torch, dev, records) -> None:
                               G64, "bf16 mm with out_dtype=float32 (relative Frobenius "
                               "error against the f64 Gram)", lambda g, w: relfro(g.double(), w))
     _library_note(f"gram[bf16] {what} (torch.mm, f32 out)", why)
+    G64s = B1.double() @ B1.double().T
+    mms, why = _library_check(torch, lambda: torch.mm(B1, B1.T, out_dtype=torch.float32),
+                              G64s, "bf16 mm of U U^T with out_dtype=float32 (relative "
+                              "Frobenius error against the f64 Gram)",
+                              lambda g, w: relfro(g.double(), w))
+    _library_note(f"gram[bf16] U is V {what} (torch.mm, f32 out)", why)
+    G, Gs = fused.gram(B1, B2), fused.gram(B1, B1)
+    accuracy = {"gram[bf16]": f"{relfro(G.double(), G64):.3e} from the f64 Gram",
+                "gram[bf16] U is V": f"{relfro(Gs.double(), G64s):.3e} from the f64 Gram",
+                "mm_update[bf16]": f"{ulps(fused.mm_update(M1, B1), fused.mm_update_plain(M1, B1)):.2f}"
+                                   " bf16 ulps from the plain version"}
+    _check(f"gram[bf16] ({what})", "Gram against its f64 sum", relfro(G.double(), G64), GRAM_RTOL)
+    _check(f"gram[bf16] U is V ({what})", "Gram against its f64 sum",
+           relfro(Gs.double(), G64s), GRAM_RTOL)
+    if not torch.equal(Gs, Gs.T):
+        raise AssertionError(f"gram[bf16] U is V ({what}): the Gram is not exactly symmetric "
+                             f"(max |G - G^T| {float((Gs - Gs.T).abs().max()):.3e})")
+    print(f"[config5] kernels gram[bf16] U is V {what}: exactly symmetric")
+    del G, Gs
     Mb = M1.to(bf)  # the rounded coefficient: bf16 GEMM with f32 accumulation
     mmb, why = _library_check(torch, lambda: Mb @ B1, fused.mm_update(M1, B1),
                               "bf16 GEMM (bf16 ulps of the kernel's Y)", ulps)
@@ -2135,8 +2166,8 @@ def phase_config5_kernels(torch, dev, records) -> None:
     for name in ("stencil_spmm_gram_t[bf16]", "mm_update_gram[bf16]", "mm2_update_gram[bf16]",
                  "px_update[bf16]"):
         _library_note(f"{name} {what}", "no single PyTorch call computes the fused outputs")
-    del Y, G64
-    cases = [
+    del Y, G64, G64s
+    cases = [  # name, kernel, plain, f32 kernel, (bytes, FLOPs), library, record key
         ("stencil_spmm_t[bf16]",
          lambda: (stencil.stencil_spmm_t(op.diags, op.offsets, B1),),
          lambda: (stencil.stencil_spmm_plain(op.diags, op.offsets, B1)[0],),
@@ -2150,6 +2181,10 @@ def phase_config5_kernels(torch, dev, records) -> None:
          (nbytes(op.diags) + 2 * fb + gb, 2 * k * nnz(op.diags) + 2 * k * k * n), None),
         ("gram[bf16]", lambda: (fused.gram(B1, B2),), lambda: (fused.gram_plain(B1, B2),),
          lambda: fused.gram(F1, F2), (2 * fb + gb, 2 * k * k * n), mmf),
+        # U U^T reads one field and computes the entries on and above the
+        # diagonal
+        ("gram[bf16] U is V", lambda: (fused.gram(B1, B1),), lambda: (fused.gram_plain(B1, B1),),
+         lambda: fused.gram(F1, F1), (fb + gb, sf), mms),
         ("mm_update[bf16]", lambda: (fused.mm_update(M1, B1),),
          lambda: (fused.mm_update_plain(M1, B1),), lambda: fused.mm_update(M1, F1),
          (nbytes(M1) + 2 * fb, 2 * n * nnz(M1)), mmb),
@@ -2165,6 +2200,9 @@ def phase_config5_kernels(torch, dev, records) -> None:
          lambda: fused.px_update(M1, F1, M2, F2, M3, F3),
          (nbytes(M1, M2, M3) + 5 * fb, 2 * n * nnz(M1, M2, M3)), None),
     ]
+    # The wrapper's record: the symmetric Gram's for gram[bf16], as the
+    # solvers launch it; the U V^T case is printed alone.
+    keys = {"gram[bf16]": None, "gram[bf16] U is V": "gram[bf16]"}
     for name, kern, plain, f32, work, library in cases:
         err, abs_err = bf16_compare(torch, name, what, kern(), plain(), C5_GRAM_RTOL)
         ms, plain_ms, f32_ms = (median_ms(torch, fn) for fn in (kern, plain, f32))
@@ -2175,9 +2213,18 @@ def phase_config5_kernels(torch, dev, records) -> None:
               f"rel Frobenius of a Gram; max abs {abs_err:.2e}), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
               f"{work[0] / 1e6:.1f} MB, {work[1] / 1e9:.2f} GFLOP), library {lib}")
-        records[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
-    del cases, F1, F2, F3, d32, csr, mmf, mmb
+        key = keys.get(name, name)
+        if key is not None:
+            records[key] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        if name in TENSOR_CORE_ROWS_BEFORE:
+            old_ms, old_acc = TENSOR_CORE_ROWS_BEFORE[name]
+            print(f"[config5] tensor cores {name} {what}: {accuracy[name]}, kernel {ms:.4f} ms, "
+                  f"library {lib:s}; the f32-FMA kernel it replaced: {old_acc}, {old_ms:.4f} ms")
+        elif name in accuracy:
+            print(f"[config5] tensor cores {name} {what}: {accuracy[name]}, kernel {ms:.4f} ms, "
+                  f"library {lib:s}")
+    del cases, F1, F2, F3, d32, csr, mmf, mms, mmb
     gram_contract(torch, op, M1, M2, B1, B2, 1.0, what)
     del op, B1, B2, B3
     op = laplacian_dia(CONFIG5_CUT, dtype=bf, device=dev)

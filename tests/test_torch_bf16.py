@@ -333,7 +333,7 @@ def test_plans_sized_by_element_bytes():
     f32 = fused._update_plan("px_update", 32, 2, 3, 0, cap, True, 4)
     b16 = fused._update_plan("px_update", 32, 2, 3, 0, cap, True, 2)
     assert b16.smem_bytes <= cap and b16.kc >= f32.kc
-    assert fused.gram_smem_bytes(64, 256, False, 2) == 2 * 2 * 64 * 264
+    assert fused.gram_mma_smem_bytes(32, 32, False, 256, 3) == 3 * 2 * 64 * 256 + 1024
     offs = (-65536, -256, -1, 0, 1, 256, 65536)
     for gram in (False, True):
         p2 = stencil.stencil_plan(offs, 256 ** 3, 32, gram, cap, sms, 2)

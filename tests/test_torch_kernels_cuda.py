@@ -1639,7 +1639,10 @@ def test_stencil_bf16_laplacian_256(dev):
 
 
 @pytest.mark.parametrize("k,n", [(3, 1000), (16, 5000), (32, 4099), (32, 8192), (64, 700),
-                                 (96, 2048), (128, 1024), (200, 512)])
+                                 (96, 2048), (128, 1024), (200, 512),
+                                 # the tensor cores' edges: rows not a multiple of 16
+                                 # (of 8 for 12), ragged n
+                                 (12, 4099), (40, 777), (48, 8192)])
 def test_fused_bf16_kernels_match_plain(dev, k, n):
     rng = np.random.default_rng(200 + k)
     M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
@@ -1732,7 +1735,10 @@ _F32_COEFF_CASES = {
 def test_bf16_coefficients_stay_f32(dev, name):
     """The bf16 variants multiply by the f32 coefficient, as the plain
     versions do (the reference's f32 coefficient route), never by its bf16
-    rounding."""
+    rounding; and by all 24 of its bits, which a split of the coefficient
+    into two bf16 pieces (16 bits) would not hold: Y = c b - c' b with c = 1
+    + 2^-10 + 2^-20 and c' = 1 + 2^-10 is 2^-20 b (0 from two pieces), on b
+    of two significant bits, so every product and sum is exact in f32."""
     b = _bf_field(1, 4096, 350, dev)
     B = torch.cat([b, b])
     M = _t([[1 + 2.0 ** -10, -1.0], [0.0, 1.0]], dev)
@@ -1740,6 +1746,97 @@ def test_bf16_coefficients_stay_f32(dev, name):
     Y = _F32_COEFF_CASES[name](M, B, torch.zeros_like(M), torch.zeros_like(B))
     assert torch.equal(Y[0], b[0] * 2.0 ** -10)
     assert _native.launches[f"{name}[bf16]"] == 1
+    rng = np.random.default_rng(351)
+    b = _bf(rng.choice([-3.0, -1.5, -1.0, -0.75, 0.75, 1.0, 1.5, 3.0], (1, 4096)), dev)
+    B = torch.cat([b, b])
+    c, c2 = 1 + 2.0 ** -10 + 2.0 ** -20, 1 + 2.0 ** -10
+    M = _t([[c, -c2], [0.0, 1.0]], dev)
+    Y = _F32_COEFF_CASES[name](M, B, torch.zeros_like(M), torch.zeros_like(B))
+    want = b[0].double() * (c - c2)
+    assert float(((Y[0].double() - want).abs() / want.abs()).max()) <= 2.0 ** -12
+    assert torch.equal(Y[0], (b[0].float() * 2.0 ** -20).bfloat16())
+    assert _native.launches[f"{name}[bf16]"] == 2
+
+
+def _wraps(tiles, blocks, stages):
+    """Times the busiest block of a persistent grid goes round its ring."""
+    return -(-tiles // blocks) / stages
+
+
+# n = 40,000: about one column tile a block; n = 2^22: every block goes
+# round its TMA ring several times, so stages are refilled and their
+# barriers change phase.
+@pytest.mark.parametrize("n", [40000, 1 << 22])
+def test_bf16_tensor_core_rows_repeat_and_donate(dev, n):
+    """``gram[bf16]`` (U V^T and U U^T) and ``mm_update[bf16]`` (with and
+    without A) at k = 32 (tensor cores): Grams within 1e-5 (relative
+    Frobenius) of the plain version and of the f64 Gram, U U^T exactly
+    symmetric, Y within 1 bf16 ulp of the plain version; a repeated call
+    gives the same bits, and a donated B or A takes the fresh Y's bits in
+    place."""
+    k = 32
+    if n > 1 << 20:
+        idx = torch.cuda.current_device()
+        smem, sms = _native.max_smem(idx), _native.sm_count(idx)
+        for same in (False, True):
+            plan = fused.gram_plan(k, k, same, n, smem, sms, 2)
+            assert _wraps(-(-n // plan.T), plan.blocks, plan.stages) >= 4
+        for has_a in (False, True):
+            plan = fused.mm_update_mma_plan(k, n, has_a, smem, sms)
+            blocks = min(-(-n // plan.T), sms * fused.mm_mma_blocks_per_sm(k))
+            assert _wraps(-(-n // plan.T), blocks, plan.stages) >= 4
+    gen = torch.Generator(device=dev).manual_seed(360)
+    U, V, A = (torch.randn((k, n), generator=gen, device=dev).bfloat16() for _ in range(3))
+    M = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
+    _native.reset_launches()
+    for X in (V, U):
+        G = fused.gram(U, X)
+        assert torch.equal(G, fused.gram(U, X))
+        assert _relfro(G, fused.gram_plain(U, X)) < 1e-5
+        assert _relfro(G.double(), U.double() @ X.double().T) < 1e-5
+    assert torch.equal(G, G.T)
+    del G
+    for a in (None, A):
+        want = fused.mm_update(M, U, a)
+        assert torch.equal(want, fused.mm_update(M, U, a))
+        assert _ulps(want, fused.mm_update_plain(M, U, a)) <= 1
+        for donate in ("b",) + (("a",) if a is not None else ()):
+            Ud, Ad = U.clone(), None if a is None else a.clone()
+            got = fused.mm_update(M, Ud, Ad, donate=donate)
+            assert got.data_ptr() == (Ud if donate == "b" else Ad).data_ptr()
+            assert torch.equal(got, want)
+            del Ud, Ad, got
+    assert _native.launches["gram[bf16]"] == 4 and _native.launches["mm_update[bf16]"] == 7
+
+
+@pytest.mark.parametrize("k,n", [(16, 4096), (40, 1000), (33, 4104)])
+def test_bf16_tensor_core_rows_unaligned_fields(dev, k, n):
+    """Fields one element off 16-byte alignment take the element copies into
+    the same stages (no TMA): Gram within 1e-5 (relative Frobenius), Y
+    within 1 bf16 ulp of the plain versions."""
+    rng = np.random.default_rng(370 + k)
+    raw = _bf(rng.standard_normal(3 * k * n + 1), dev)
+    U, V, A = (raw[1 + i * k * n:1 + (i + 1) * k * n].view(k, n) for i in range(3))
+    assert U.data_ptr() % 16 != 0
+    M = _t(rng.standard_normal((k, k)) / np.sqrt(k), dev)
+    _native.reset_launches()
+    assert _relfro(fused.gram(U, V), fused.gram_plain(U, V)) < 1e-5
+    Gs = fused.gram(U, U)
+    assert torch.equal(Gs, Gs.T) and _relfro(Gs, fused.gram_plain(U, U)) < 1e-5
+    for a in (None, A):
+        assert _ulps(fused.mm_update(M, U, a), fused.mm_update_plain(M, U, a)) <= 1
+    assert _native.launches["gram[bf16]"] == 2 and _native.launches["mm_update[bf16]"] == 2
+
+
+@pytest.mark.parametrize("ku,kv", [(16, 40), (40, 16), (8, 96), (96, 12)])
+def test_gram_bf16_rectangular_launch(dev, ku, kv):
+    """One launch of U V^T with ku != kv (rows padded to 16 and 8 inside
+    the launch) against the f32 product of the same values."""
+    U, V = _bf_field(ku, 5000, 380, dev), _bf_field(kv, 5000, 381, dev)
+    _native.reset_launches()
+    G = fused._launch_gram(U, V)
+    assert G.shape == (ku, kv) and _native.launches["gram[bf16]"] == 1
+    assert _relfro(G, U.float() @ V.float().T) < 1e-5
 
 
 def test_bf16_sbcgrq_and_lean_on_card(dev):

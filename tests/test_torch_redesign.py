@@ -377,14 +377,36 @@ def test_host_constants_mirror_the_sources():
     gr = (CSRC / "gram.cu").read_text()
     assert int(re.search(r"kGrThreads = (\d+)", gr).group(1)) == fused.GRAM_THREADS
     assert int(re.search(r"kGrScratch = (\d+)", gr).group(1)) == fused.GRAM_SCRATCH
-    assert "return T + (sym || esize != 4 ? 8 : 4);" in gr
-    assert "const long long b = 1LL * esize * stages * rows * gram_ld(T, sym, esize);" in gr
+    assert "return T + (sym ? 8 : 4);" in gr
+    assert "const long long b = 4LL * stages * rows * gram_ld(T, sym);" in gr
     assert int(re.search(r"kGrStages = (\d+)", gr).group(1)) == fused.GRAM_STAGES
     listed = re.search(r"widths\[\] = \{([\d, ]+)\};", gr).group(1)
     widths = tuple(int(w) for w in listed.split(","))
     assert widths == fused.GRAM_WIDTHS and widths[-1] == fused.GRAM_MAX_K
     assert "T < 128 || T > 1024 || T % 128 != 0" in gr
     assert set(fused.GRAM_TILES) == {128, 256, 512, 1024}
+    # The tensor-core kernels of bf16 rows 5 and 6 and their TMA rings.
+    mma = (CSRC / "mma.cuh").read_text()
+    assert int(re.search(r"kRingMaxStages = (\d+)", mma).group(1)) == fused.RING_MAX_STAGES
+    assert int(re.search(r"kBoxCols = (\d+)", mma).group(1)) == 64
+    assert "return (r + 7) / 8 * 8;" in mma and fused.round8(12) == 16 == fused.round8(16)
+    assert ("return (c >> 6) * r8 * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + "
+            "(c & 7) * 2;" in mma)
+    assert "((1024 - (smem_u32(p) & 1023)) & 1023)" in mma and fused.RING_ALIGN == 1024
+    for src in (gr, mm):
+        assert "__shared__ unsigned long long full[kRingMaxStages];" in src
+        assert "stages < 2" in src and "stages > kRingMaxStages" in src
+    assert fused.RING_BARRIER_BYTES == 8 * fused.RING_MAX_STAGES
+    assert ("const long long b = 2LL * stages * T * (round8(ku) + (sym ? 0 : round8(kv)));\n"
+            "  return (b > 4LL * kGrScratch ? b : 4LL * kGrScratch) + 1024;" in gr)
+    assert "static_assert(MmaGram<W>::kScratch <= kGrScratch" in gr
+    assert "return 2LL * T * (stages * (W + (has_a ? round8(k) : 0)) + round8(k)) + 1024;" in mm
+    listed = re.search(r"mm_mma_width\(int k\) \{\n  static const int widths\[\] = \{([\d, ]+)\};",
+                       mm).group(1)
+    assert tuple(int(w) for w in listed.split(",")) == fused.MM_MMA_WIDTHS
+    assert "kMmMmaBlocks = W <= 64 ? 2 : 1;" in mm
+    assert [fused.mm_mma_blocks_per_sm(k) for k in (16, 32, 64, 65, 128)] == [2, 2, 2, 1, 1]
+    assert "T < 128 || T > 256 || T % 128 != 0" in mm and set(fused.MM_MMA_TILES) == {128, 256}
     bs = (CSRC / "block_stencil.cu").read_text()
     for name, value in (("kMaxDiags", bsk.MAX_DIAGS), ("kMaxBs", bsk.MAX_BS),
                         ("kBsThreads", bsk.THREADS), ("kBsMaxRows", bsk.MAX_ROWS),
@@ -461,6 +483,107 @@ def test_gram_plan_of_the_main_paths(ku, kv, same, n, T):
     assert T == 128 or T <= n // H100_SMS
     wider = [t for t in fused.GRAM_TILES if t > T and t <= max(128, n // H100_SMS)]
     assert all(fused.gram_smem_bytes(rows, t, same) > H100_SMEM for t in wider)
+
+
+@pytest.mark.parametrize("ku,kv,same,n,T,stages", [
+    (32, 32, False, 256 ** 3, 512, 3),   # config 5's inner shape: a box of 32 rows a field
+    (32, 32, True, 256 ** 3, 1024, 3),
+    (16, 16, False, 512 ** 2, 1024, 3),  # config 2's
+    (48, 48, False, 32 ** 4, 512, 2),    # config 4's
+    (48, 48, True, 32 ** 4, 1024, 2),
+    (96, 96, False, 32 ** 4, 256, 2),    # the widest launch
+    (96, 96, True, 32 ** 4, 512, 2),
+    (12, 40, False, 777, 128, 8),        # a small ragged field: 128 columns, the deepest ring
+])
+def test_gram_plan_of_the_bf16_paths(ku, kv, same, n, T, stages):
+    """bf16 fields: the widest tile that leaves every SM a tile and whose
+    TMA ring holds two stages, as deep as the card's shared memory allows."""
+    plan = fused.gram_plan(ku, kv, same, n, H100_SMEM, H100_SMS, 2)
+    assert (plan.T, plan.stages) == (T, stages)
+    assert plan.smem_bytes == fused.gram_mma_smem_bytes(ku, kv, same, T, stages)
+    assert plan.smem_bytes + fused.RING_BARRIER_BYTES <= H100_SMEM
+    assert plan.blocks == min(-(-n // T), H100_SMS)
+    deeper = fused.gram_mma_smem_bytes(ku, kv, same, T, stages + 1)
+    assert stages == fused.RING_MAX_STAGES or deeper + fused.RING_BARRIER_BYTES > H100_SMEM
+    wider = [t for t in fused.GRAM_TILES if t > T and t <= max(128, n // H100_SMS)]
+    assert all(fused.gram_mma_smem_bytes(ku, kv, same, t, 2) + fused.RING_BARRIER_BYTES
+               > H100_SMEM for t in wider)
+
+
+@pytest.mark.parametrize("k,n,has_a,T,stages", [
+    (32, 256 ** 3, False, 256, 4),  # config 5's inner shape, two blocks an SM
+    (32, 256 ** 3, True, 256, 2),
+    (16, 512 ** 2, False, 256, 4),
+    (48, 32 ** 4, False, 256, 2),
+    (48, 32 ** 4, True, 128, 3),
+    (96, 32 ** 4, False, 256, 2),   # one block an SM above 64 rows
+    (128, 2 ** 20, True, 128, 3),
+    (12, 777, False, 128, 4),
+])
+def test_mm_update_mma_plan_of_the_bf16_paths(k, n, has_a, T, stages):
+    """The bf16 ``mm_update`` ring: the widest tile whose two stages fit the
+    shared memory of the blocks an SM the kernel is built for."""
+    plan = fused.mm_update_mma_plan(k, n, has_a, H100_SMEM, H100_SMS)
+    assert (plan.T, plan.stages) == (T, stages)
+    assert plan.smem_bytes == fused.mm_update_mma_smem_bytes(k, T, stages, has_a)
+    blocks = fused.mm_mma_blocks_per_sm(k)
+    share = (H100_SMEM + 1024) // blocks - 1024
+    assert plan.smem_bytes + fused.RING_BARRIER_BYTES <= share
+    deeper = fused.mm_update_mma_smem_bytes(k, T, stages + 1, has_a)
+    assert stages == fused.MM_MMA_MAX_STAGES or deeper + fused.RING_BARRIER_BYTES > share
+    with pytest.raises(ValueError, match="1 to 128 rows"):
+        fused.mm_update_mma_plan(129, n, has_a, H100_SMEM, H100_SMS)
+
+
+def _bf16_round(x):
+    """Round-to-nearest-even to bf16 of f32 values, back in f32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).bfloat16().float().numpy()
+
+
+def test_three_piece_split_holds_the_f32_coefficient():
+    """``csrc/mma.cuh`` split3, modelled: hi = bf16(M), mid = bf16(M - hi),
+    lo = bf16(M - hi - mid), each difference taken in f32; hi + mid + lo is
+    M exactly on seeded matrices with large, small and negative entries,
+    where hi + mid (two pieces, 16 bits) misses most of them."""
+    rng = np.random.default_rng(16)
+    M = np.concatenate([
+        rng.standard_normal(4096),
+        rng.standard_normal(1024) * 10.0 ** rng.integers(-30, 30, 1024),  # 2^-100 .. 2^100
+        np.array([1 + 2.0 ** -10 + 2.0 ** -20, -(1 + 2.0 ** -23), 3.0e38, -3.0e38, 1e-30,
+                  2.0 ** -103, 0.0, -0.0, 1.0, -65504.0]),
+    ]).astype(np.float32)
+    hi = _bf16_round(M)
+    r1 = (M - hi).astype(np.float32)
+    mid = _bf16_round(r1)
+    r2 = (r1 - mid).astype(np.float32)
+    lo = _bf16_round(r2)
+    assert np.array_equal(lo, r2)  # the last piece is exact in bf16
+    whole = hi.astype(np.float64) + mid.astype(np.float64) + lo.astype(np.float64)
+    assert np.array_equal(whole, M.astype(np.float64))
+    two = hi.astype(np.float64) + mid.astype(np.float64)
+    assert np.mean(two != M.astype(np.float64)) > 0.5
+
+
+def _swz(r, c, r8):
+    """``csrc/mma.cuh`` swz: byte offset of element (r, c) of a staged tile."""
+    return (c >> 6) * r8 * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2
+
+
+@pytest.mark.parametrize("rows", [12, 32, 40, 96])
+def test_swizzled_boxes_are_a_conflict_free_bijection(rows):
+    """The staged tile's layout: every element of a (rows, 256) tile has its
+    own 2 bytes inside the boxes of round8(rows) rows; the 8 rows an
+    ldmatrix reads at one 16-byte chunk (rows 8i .. 8i + 7) fall in 8
+    distinct bank groups; a box starts every round8(rows) * 128 bytes."""
+    r8, T = fused.round8(rows), 256
+    offs = np.array([[_swz(r, c, r8) for c in range(T)] for r in range(rows)])
+    assert len(np.unique(offs)) == rows * T and offs.max() < 2 * T * r8
+    assert (offs % 2 == 0).all()
+    for r0 in range(0, rows - 7, 8):
+        for c in range(0, T, 8):
+            groups = {(_swz(r, c, r8) % 128) // 16 for r in range(r0, r0 + 8)}
+            assert len(groups) == 8
+    assert [_swz(0, 64 * b, r8) for b in range(4)] == [b * r8 * 128 for b in range(4)]
 
 
 def test_gram_plan_refuses_what_one_launch_cannot_take():

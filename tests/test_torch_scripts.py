@@ -126,12 +126,13 @@ def _gram_contract_case(smoke, torch):
 def test_smoke_gram_contract_holds_the_plain_versions(capsys):
     """[config5]'s Gram check on the plain versions (the CPU route): each
     Gram is nearer the f64 Gram its contract names (rows 7-8 the stored bf16
-    Y, row 2 the f32 sums) by the margin of the 64^3 cut."""
+    Y, row 2 the f32 sums) by the margin of the 64^3 cut; row 5 as U V^T
+    and as U U^T."""
     import torch
 
     smoke = _load("chip_smoke")
     smoke.gram_contract(torch, *_gram_contract_case(smoke, torch), smoke.GRAM_MARGIN, "8^3")
-    assert capsys.readouterr().out.count("[config5] gram contract") == 4
+    assert capsys.readouterr().out.count("[config5] gram contract") == 5
 
 
 @pytest.mark.parametrize("row", ["stencil_spmm_gram_t", "mm_update_gram"])

@@ -26,7 +26,11 @@ capacity route) at its inner shape, (32, 256^3), on the bf16 7-point
 operator, each beside its f32 kernel on the same values in f32, with the
 bound of each (bf16 fields 2 bytes an element, their FLOPs at the bf16
 tensor-core rate, 989 TFLOP/s; the stencil's Gram X Y^T counted as 2 k^2
-FLOPs a column, it is not symmetric).
+FLOPs a column, it is not symmetric). With ``--variants`` it times the
+tensor-core kernels of rows 5 and 6 (``gram`` with U != V and U is V,
+``mm_update`` without and with A) at that shape on each column tile and
+ring depth that fits, marking the ones their plans (``gram_plan``,
+``mm_update_mma_plan``) pick.
 
 ``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
 32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
@@ -509,6 +513,54 @@ def bf16_cases(torch, dev):
         del X, V, Z
 
 
+def bf16_variants(torch, dev):
+    """Rows 5 and 6 in bf16 at (32, 256^3) on each (T, stages) of their TMA
+    rings that fits the card, the plans' own marked, each with its bound."""
+    from blockcg_tpu_torch.ops import _native, fused
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k, n = 32, 256 ** 3
+    idx, p = dev.index, _native.ptr
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    U, V, A = (torch.randn((k, n), generator=gen, device=dev).bfloat16() for _ in range(3))
+    M = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
+    Y = torch.empty_like(U)
+    part = torch.empty((sms, k, k), device=dev)
+    G = torch.empty((k, k), device=dev)
+    fb = 2 * k * n
+    for same in (False, True):
+        W = U if same else V
+        rows = k if same else 2 * k
+        plan = fused.gram_plan(k, k, same, n, cap, sms, 2)
+        bound = max((rows * n * 2 + 4 * k * k) / 3.35e12,
+                    (k * (k + 1) if same else 2 * k * k) * n / 989e12) * 1e6
+        for T in fused.GRAM_TILES:
+            for st in range(2, fused.RING_MAX_STAGES + 1):
+                if fused.gram_mma_smem_bytes(k, k, same, T, st) + fused.RING_BARRIER_BYTES > cap:
+                    continue
+                mark = " (plan)" if (T, st) == (plan.T, plan.stages) else ""
+                yield (f"variant row 5 gram[bf16] {'U is V ' if same else ''}T={T} stages={st}"
+                       f"{mark} (32, 256^3)",
+                       lambda W=W, T=T, st=st: (_native.launch(
+                           "variant", "bcg_gram_bf16", dev, p(U), p(W), p(part), p(G), k, k, n,
+                           T, st, sms), G)[1], bound)
+    for a in (None, A):
+        plan = fused.mm_update_mma_plan(k, n, a is not None, cap, sms)
+        bound = max(((3 if a is not None else 2) * fb + 4 * k * k) / 3.35e12,
+                    2 * k * k * n / 989e12) * 1e6
+        for T in fused.MM_MMA_TILES:
+            for st in range(2, fused.RING_MAX_STAGES + 1):
+                if (fused.mm_update_mma_smem_bytes(k, T, st, a is not None)
+                        + fused.RING_BARRIER_BYTES > cap):
+                    continue
+                mark = " (plan)" if (T, st) == (plan.T, plan.stages) else ""
+                yield (f"variant row 6 mm_update[bf16] {'+A ' if a is not None else ''}T={T} "
+                       f"stages={st}{mark} (32, 256^3)",
+                       lambda a=a, T=T, st=st: (_native.launch(
+                           "variant", "bcg_mm_update_bf16", dev, p(M), p(U), p(a), p(Y), k, n, T,
+                           st), Y)[1], bound)
+
+
 def bound_us(name: str) -> float | None:
     """The least device time of a row 5-9 case (max of its bytes over 3.35
     TB/s and its FLOPs over 67 TFLOP/s, chip_smoke.py's rates) from the
@@ -603,8 +655,8 @@ def block_stencil_cases(torch, dev, library: bool):
         del Xm, Xv
 
 
-# Probe builds of the Gram (csrc/gram.cu gram_kernel<E, KMAX, SYM, TS, MINB,
-# ST>, E = float) beside the built kernels: 4x4 register tiles built for two blocks an
+# Probe builds of the Gram (csrc/gram.cu gram_kernel<KMAX, SYM, TS, MINB,
+# ST>, f32 fields) beside the built kernels: 4x4 register tiles built for two blocks an
 # SM, and a ring of three tiles.
 GRAM_PROBE = r"""#include "{src}"
 extern "C" int gram_probe(const float* U, const float* V, float* part, float* G, int ku, int kv,
@@ -618,11 +670,11 @@ extern "C" int gram_probe(const float* U, const float* V, float* part, float* G,
 }}
 """
 # which: (label, template arguments, rows, U is V)
-GRAM_PROBES = {0: ("4x4 tiles, two blocks an SM", "float, 32, false, 4, 2", 32, False),
-               1: ("4x4 tiles, two blocks an SM", "float, 32, true, 4, 2", 32, True),
-               2: ("three tiles in shared memory", "float, 32, false, 8, 1, 3", 32, False),
-               3: ("three tiles in shared memory", "float, 32, true, 4, 1, 3", 32, True),
-               4: ("three tiles in shared memory", "float, 96, false, 6, 1, 3", 96, False)}
+GRAM_PROBES = {0: ("4x4 tiles, two blocks an SM", "32, false, 4, 2", 32, False),
+               1: ("4x4 tiles, two blocks an SM", "32, true, 4, 2", 32, True),
+               2: ("three tiles in shared memory", "32, false, 8, 1, 3", 32, False),
+               3: ("three tiles in shared memory", "32, true, 4, 1, 3", 32, True),
+               4: ("three tiles in shared memory", "96, false, 6, 1, 3", 96, False)}
 
 
 def gram_variants(torch, dev, tmp: Path):
@@ -1055,7 +1107,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        todo = (bf16_cases(torch, dev) if args.bf16
+        todo = (bf16_variants(torch, dev) if args.bf16 and args.variants
+                else bf16_cases(torch, dev) if args.bf16
                 else sweep_cases(torch, dev) if args.sweep
                 else const_hop_variants(torch, dev, Path(tmp), args.only)
                 if args.variants and args.const_hop
