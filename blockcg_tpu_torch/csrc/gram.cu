@@ -54,7 +54,7 @@
 // ldmatrix feeds mma.sync m16n8k16 without a transpose. Up to 32 rows each
 // warp holds every fragment of G over its own 16-column steps of a tile
 // (2 x 4 fragments at 32 x 32); at 48-96 rows the warps split G's
-// fragments over the tile's columns (MmaGram). Each
+// fragments over the tile's columns (mma.cuh MmaGram). Each
 // warp's fragments start at zero every tile and are added to a double
 // running sum after it, so the f32 chains inside the tensor cores stay a
 // few k-steps long (the library's one long chain is what puts it 1.4e-4
@@ -210,22 +210,6 @@ cudaError_t dispatch(const float* U, const float* V, float* part, float* G, int 
 
 // ---- bf16 fields on the tensor cores (bcg_gram_bf16)
 
-// How the 8 warps of a block share a launch of width W (gram_width): G's
-// MT x NT fragments of 16 x 8 are cut into QM x QN groups of TM x TN, and
-// the P = 8 / (QM QN) warps of a group take every P-th 16-column step of a
-// tile. Up to 32 rows one group holds them all (2 x 4 at 32: 32 f32 and 64
-// f64 registers a thread); wider, at most 3 x 3 a warp.
-template <int W>
-struct MmaGram {
-  static constexpr int MT = (W + 15) / 16, NT = W / 8;
-  static constexpr int QM = W >= 64 ? 2 : 1;
-  static constexpr int QN = W == 96 ? 4 : W >= 48 ? 2 : 1;
-  static constexpr int P = 8 / (QM * QN);
-  static constexpr int TM = MT / QM, TN = NT / QN;
-  static constexpr int kScratch = P * 16 * MT * 8 * NT;  // floats of the warps' sums
-  static_assert(QM * TM == MT && QN * TN == NT && P * QM * QN == 8, "the warps must tile G");
-};
-
 // Shared bytes of a launch: `stages` tiles of ku (+ kv) rows of T columns in
 // swizzled boxes (mma.cuh), at least the warps' sums, and 1 KB to align the
 // boxes; mirrored by ops/fused.py gram_mma_smem_bytes.
@@ -233,52 +217,6 @@ __host__ __device__ inline long long gram_mma_smem_bytes(int ku, int kv, bool sy
                                                          int stages) {
   const long long b = 2LL * stages * T * (round8(ku) + (sym ? 0 : round8(kv)));
   return (b > 4LL * kGrScratch ? b : 4LL * kGrScratch) + 1024;
-}
-
-// One tile's products for this warp: its fragments (mt0 + a, nt0 + b) over
-// the 16-column steps p, p + P, ... of the staged tile (rows of U at su in
-// boxes of r8u rows, of V at sv in boxes of r8v), added to the running
-// sums. SYM: U is V, and the fragments wholly below the diagonal
-// (nt < 2 mt) are skipped.
-template <int W, bool SYM>
-__device__ __forceinline__ void gram_mma_tile(double (&run)[MmaGram<W>::TM][MmaGram<W>::TN][4],
-                                              const char* su, const char* sv, int r8u, int r8v,
-                                              int T, int ku, int kv, int mt0, int nt0, int p) {
-  using S = MmaGram<W>;
-  const int lane = threadIdx.x % 32;
-  float acc[S::TM][S::TN][4] = {};
-  // ldmatrix rows of this lane: A's matrices are (rows 0-7, k 0-7), (rows
-  // 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15); B's, two
-  // fragments at a time, (fragment b, k 0-7), (b, k 8-15), (b + 1, k 0-7),
-  // (b + 1, k 8-15).
-  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
-  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 8 * ((lane >> 3) & 1);
-  for (int c0 = 16 * p; c0 < T; c0 += 16 * S::P) {
-    unsigned a[S::TM][4], b[S::TN][2];
-#pragma unroll
-    for (int i = 0; i < S::TM; ++i)
-      ldsm_x4(a[i], su + swz(min(16 * (mt0 + i) + arow, ku - 1), c0 + acol, r8u));
-#pragma unroll
-    for (int j = 0; j + 1 < S::TN; j += 2) {
-      unsigned r[4];
-      ldsm_x4(r, sv + swz(min(8 * (nt0 + j) + brow, kv - 1), c0 + bcol, r8v));
-      b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
-    }
-    if constexpr (S::TN % 2 == 1)
-      ldsm_x2(b[S::TN - 1][0], b[S::TN - 1][1],
-              sv + swz(min(8 * (nt0 + S::TN - 1) + (lane & 7), kv - 1), c0 + bcol, r8v));
-#pragma unroll
-    for (int i = 0; i < S::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < S::TN; ++j)
-        if (!SYM || nt0 + j >= 2 * (mt0 + i)) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-  }
-#pragma unroll
-  for (int i = 0; i < S::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < S::TN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) run[i][j][e] += acc[i][j][e];
 }
 
 // tu, tv: the fields' tensor maps (vec; unused otherwise).
@@ -293,7 +231,7 @@ __global__ void __launch_bounds__(kGrThreads, 1)
   char* base = align1k(smem);
   const int r8u = round8(ku), r8v = SYM ? r8u : round8(kv);
   const int stage = 2 * T * (r8u + (SYM ? 0 : r8v));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int p = warp % S::P, q = warp / S::P;
   const int mt0 = q / S::QN * S::TM, nt0 = q % S::QN * S::TN;
   double run[S::TM][S::TN][4] = {};
@@ -321,32 +259,9 @@ __global__ void __launch_bounds__(kGrThreads, 1)
     __syncthreads();  // every read of this stage is done before its refill
     if (vec) ring.refill(j, load);
   }
-  // The warps' sums, through the drained stages: scratch[p][r][c] over the
-  // padded (16 MT, 8 NT) Gram, then added in warp order for each entry
-  // (an entry below the diagonal from its mirror when U is V).
-  float* scratch = reinterpret_cast<float*>(base);
-  constexpr int kR = 16 * S::MT, kC = 8 * S::NT;
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int i = 0; i < S::TM; ++i)
-#pragma unroll
-    for (int jj = 0; jj < S::TN; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 16 * (mt0 + i) + g + 8 * (e >> 1), c = 8 * (nt0 + jj) + 2 * tq + (e & 1);
-        scratch[(p * kR + r) * kC + c] = static_cast<float>(run[i][jj][e]);
-      }
-  __syncthreads();
-  float* mine = part + static_cast<long long>(blockIdx.x) * ku * kv;
-  for (int e = threadIdx.x; e < ku * kv; e += kGrThreads) {
-    int r = e / kv, c = e % kv;
-    if (SYM && r > c) {
-      const int u = r; r = c; c = u;
-    }
-    double v = 0.0;
-    for (int w = 0; w < S::P; ++w) v += scratch[(w * kR + r) * kC + c];
-    mine[e] = static_cast<float>(v);
-  }
+  // The warps' sums, through the drained stages.
+  gram_mma_store<S, SYM>(run, reinterpret_cast<float*>(base),
+                         part + static_cast<long long>(blockIdx.x) * ku * kv, ku, kv, mt0, nt0, p);
 }
 
 template <int W, bool SYM>

@@ -78,6 +78,21 @@ __device__ __forceinline__ void split3(float v, bf16 (&p)[3]) {
   p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
 }
 
+// split3 of two values at once, each piece packed as an mma operand word
+// (a in the lower 16 bits): the pieces split3 gives, in three bf16x2
+// conversions.
+__device__ __forceinline__ void split3_pair(float a, float b, unsigned (&w)[3]) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+  const float2 h = __bfloat1622float2(hi);
+  const float ra = a - h.x, rb = b - h.y;
+  const __nv_bfloat162 mid = __floats2bfloat162_rn(ra, rb);
+  const float2 m = __bfloat1622float2(mid);
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(ra - m.x, rb - m.y);
+  w[0] = *reinterpret_cast<const unsigned*>(&hi);
+  w[1] = *reinterpret_cast<const unsigned*>(&mid);
+  w[2] = *reinterpret_cast<const unsigned*>(&lo);
+}
+
 // ---- tiles staged by TMA (cp.async.bulk.tensor) in 128-byte swizzled boxes
 //
 // A staged tile of a (rows, n) bf16 field holds columns i0 .. i0+T-1 as
@@ -225,6 +240,105 @@ __device__ __forceinline__ void elem_tile(char* dst, const bf16* F, int rows, in
 // swizzled boxes need it; a launch asks for 1 KB more).
 __device__ __forceinline__ char* align1k(void* p) {
   return reinterpret_cast<char*>(p) + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// ---- the Gram of staged bf16 tiles on the tensor cores (gram.cu's gram_mma,
+// the bf16 stencil's and the fused updates' Grams)
+
+// How the 8 warps of a block share a launch of width W (gram_width): G's
+// MT x NT fragments of 16 x 8 are cut into QM x QN groups of TM x TN, and
+// the P = 8 / (QM QN) warps of a group take every P-th 16-column step of a
+// tile. Up to 32 rows one group holds them all (2 x 4 at 32: 32 f32 and 64
+// f64 registers a thread); wider, at most 3 x 3 a warp.
+template <int W>
+struct MmaGram {
+  static constexpr int MT = (W + 15) / 16, NT = W / 8;
+  static constexpr int QM = W >= 64 ? 2 : 1;
+  static constexpr int QN = W == 96 ? 4 : W >= 48 ? 2 : 1;
+  static constexpr int P = 8 / (QM * QN);
+  static constexpr int TM = MT / QM, TN = NT / QN;
+  static constexpr int kScratch = P * 16 * MT * 8 * NT;  // floats of the warps' sums
+  static_assert(QM * TM == MT && QN * TN == NT && P * QM * QN == 8, "the warps must tile G");
+};
+
+// One tile's products for this warp: its fragments (mt0 + a, nt0 + b) over
+// the 16-column steps p, p + P, ... of the staged tile (rows of U at su in
+// boxes of r8u rows, of V at sv in boxes of r8v), added to the running
+// sums. SYM: U is V, and the fragments wholly below the diagonal
+// (nt < 2 mt) are skipped.
+template <int W, bool SYM>
+__device__ __forceinline__ void gram_mma_tile(double (&run)[MmaGram<W>::TM][MmaGram<W>::TN][4],
+                                              const char* su, const char* sv, int r8u, int r8v,
+                                              int T, int ku, int kv, int mt0, int nt0, int p) {
+  using S = MmaGram<W>;
+  const int lane = threadIdx.x % 32;
+  float acc[S::TM][S::TN][4] = {};
+  // ldmatrix rows of this lane: A's matrices are (rows 0-7, k 0-7), (rows
+  // 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15); B's, two
+  // fragments at a time, (fragment b, k 0-7), (b, k 8-15), (b + 1, k 0-7),
+  // (b + 1, k 8-15).
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 8 * ((lane >> 3) & 1);
+  for (int c0 = 16 * p; c0 < T; c0 += 16 * S::P) {
+    unsigned a[S::TM][4], b[S::TN][2];
+#pragma unroll
+    for (int i = 0; i < S::TM; ++i)
+      ldsm_x4(a[i], su + swz(min(16 * (mt0 + i) + arow, ku - 1), c0 + acol, r8u));
+#pragma unroll
+    for (int j = 0; j + 1 < S::TN; j += 2) {
+      unsigned r[4];
+      ldsm_x4(r, sv + swz(min(8 * (nt0 + j) + brow, kv - 1), c0 + bcol, r8v));
+      b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
+    }
+    if constexpr (S::TN % 2 == 1)
+      ldsm_x2(b[S::TN - 1][0], b[S::TN - 1][1],
+              sv + swz(min(8 * (nt0 + S::TN - 1) + (lane & 7), kv - 1), c0 + bcol, r8v));
+#pragma unroll
+    for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+        if (!SYM || nt0 + j >= 2 * (mt0 + i)) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[i][j][e] += acc[i][j][e];
+}
+
+// The block's (ku, kv) partial of the Gram from the warps' running sums
+// (gram_mma_tile), the warps sharing G as S (MmaGram<W>, or another split
+// with its MT, NT, P, TM and TN): scratch[p][r][c] over the padded (16 MT,
+// 8 NT) Gram (S::kScratch floats of shared memory that no thread reads any
+// more), then added in warp order for each entry in double (an entry below
+// the diagonal from its mirror when SYM), so G is exactly symmetric when
+// SYM and a repeated call gives the same bits.
+template <typename S, bool SYM>
+__device__ __forceinline__ void gram_mma_store(const double (&run)[S::TM][S::TN][4],
+                                               float* scratch, float* mine, int ku, int kv,
+                                               int mt0, int nt0, int p) {
+  constexpr int kR = 16 * S::MT, kC = 8 * S::NT;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < S::TN; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (mt0 + i) + g + 8 * (e >> 1), c = 8 * (nt0 + jj) + 2 * tq + (e & 1);
+        scratch[(p * kR + r) * kC + c] = static_cast<float>(run[i][jj][e]);
+      }
+  __syncthreads();
+  for (int e = threadIdx.x; e < ku * kv; e += blockDim.x) {
+    int r = e / kv, c = e % kv;
+    if (SYM && r > c) {
+      const int u = r; r = c; c = u;
+    }
+    double v = 0.0;
+    for (int w = 0; w < S::P; ++w) v += scratch[(w * kR + r) * kC + c];
+    mine[e] = static_cast<float>(v);
+  }
 }
 
 }  // namespace

@@ -60,14 +60,17 @@
 // is a multiple of 8 (the window's first column then is too) and n % 8 == 0
 // for the vector copies; the window's row stride is T + 2h. Every product
 // of two bf16 is exact in f32 and accumulates in f32 in the same order as
-// the f32 kernel's; Y is stored rounded to bf16, and the Gram is taken on
-// the unrounded f32 sums in sY, against the window's bf16 X read four at a
-// time (load4), as the reference's Pallas kernel takes it from its f32
-// accumulator.
+// the f32 kernel's; Y is stored rounded to bf16. With the Gram (and no S),
+// a bf16 field runs stencil_mma below: the same sums, the Gram X Y^T of the
+// unrounded f32 sums on the tensor cores, Y split into three exact bf16
+// pieces (its design and bound are described there), as the reference's
+// Pallas kernel takes the Gram from its f32 accumulator. Without the Gram
+// (row 1b) and with S, stencil_spmm runs.
 //
 // Mixed pairs (the reference's gate takes bf16 or f32 for the diagonals and
 // the field independently): bcg_stencil_spmm_bf16d takes bf16 diagonals with
-// f32 X and Y, bcg_stencil_spmm_bf16x f32 diagonals with bf16 X and Y. The
+// f32 X and Y, bcg_stencil_spmm_bf16x f32 diagonals with bf16 X and Y (its
+// Gram on stencil_mma, as the bf16 field's). The
 // diagonals' element (ED) and the field's (EX) are separate template
 // parameters: the window is staged in EX (h a multiple of kVec<EX>), the
 // coefficient tiles in ED, each lifted to f32 at its use, and every sum runs
@@ -79,7 +82,10 @@
 // lost. A launch given S (f32, the launch's rows of a (k, n) scratch) also
 // writes its f32 sums there, and the wrapper takes the Gram's cross blocks
 // from gram.cu on X lifted to f32 and S (ops/stencil.py).
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -88,8 +94,11 @@ constexpr int kStThreads = 256;
 constexpr int kFar = 0x7fffffff;
 
 struct Diags {
-  int o[kMaxDiags];  // each in [0, n)
-  int s[kMaxDiags];  // signed shift in [-h, h] for a near diagonal, kFar otherwise
+  int o[kMaxDiags];      // each in [0, n)
+  int s[kMaxDiags];      // signed shift in [-h, h] for a near diagonal, kFar otherwise
+  int stage[kMaxDiags];  // stencil_mma: the far slab a far diagonal is staged in, or -1
+  int far[kMaxDiags];    // stencil_mma: the diagonal of each staged far slab
+  int nst;               // stencil_mma: staged far slabs
 };
 
 // Window of the tile at i0: sw[r * W + v] = X[r, (i0 - h + v) mod n] for
@@ -263,6 +272,513 @@ cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX*
   return cudaGetLastError();
 }
 
+// ---- bf16 fields with the Gram on the tensor cores (stencil_mma)
+
+constexpr int kStMmaThreads = 512;  // 16 warps
+// Floor of a launch's shared floats: room for the warps' sums of any Gram
+// width (StMma<W>::kScratch); mirrored by ops/stencil.py MMA_SCRATCH.
+constexpr int kStMmaScratch = 9216;
+// Diagonals whose shared-memory reads are in flight together before their
+// FMAs: at (32, 256^3) 3.63 ms with 3, 3.72 with 2 and 4.06 with 8, where
+// the 128 registers of 16 warps spill (H100, tools/torch_kernel_times.py
+// --bf16 --variants).
+constexpr int kStChunk = 3;
+// Far diagonals whose X a stencil_mma tile stages in shared memory (the
+// rest are read from L2 at their use); mirrored by ops/stencil.py
+// MMA_MAX_STAGED.
+constexpr int kStMaxStaged = 4;
+
+// How the 16 warps of a stencil_mma block share G (k padded to W = 8, 16,
+// 32 or 64 rows, 48 taking 64): G's MT x NT fragments of 16 x 8 in QM x QN
+// groups of TM x TN, each group's P warps taking every P-th 16-column step
+// of a tile. At W = 32 a warp holds 2 x 2 fragments: 16 f32 and 32 f64
+// registers of the 128 that 16 warps leave a thread.
+template <int W>
+struct StMma {
+  static constexpr int MT = (W + 15) / 16, NT = W / 8;
+  static constexpr int QM = W >= 64 ? 2 : 1;
+  static constexpr int QN = W == 8 ? 1 : W >= 64 ? 4 : 2;
+  static constexpr int P = 16 / (QM * QN);
+  static constexpr int TM = MT / QM, TN = NT / QN;
+  static constexpr int kScratch = P * 16 * MT * 8 * NT;  // floats of the warps' sums
+  static_assert(QM * TM == MT && QN * TN == NT && P * QM * QN == 16, "the warps must tile G");
+};
+
+// Row stride of stencil_mma's window, in elements: the least L >= T + 2h
+// with L = 16 mod 64, so a row is 32 bytes mod 128 past the one before and
+// the 4 rows of 4 lanes' 8-byte reads in each half warp touch 128 distinct
+// bytes; mirrored by ops/stencil.py mma_window_ld.
+__host__ __device__ inline int mma_window_ld(int h, int T) {
+  return T + 2 * h + ((16 - T - 2 * h) & 63);
+}
+
+// The same for the tile of Y (T columns).
+__host__ __device__ inline int mma_tile_ld(int T) { return T + ((16 - T) & 63); }
+
+// Bytes of one stage of a stencil_mma launch, a multiple of 1 KB: nst far
+// slabs of k rows in swizzled boxes (mma.cuh), the bf16 window of k rows,
+// the coefficient tile of dsize-byte elements.
+__host__ __device__ inline int mma_stage_bytes(int k, int ndiag, int nst, int h, int T,
+                                               int dsize) {
+  const int b = 2 * nst * T * round8(k) + 2 * k * mma_window_ld(h, T) + dsize * ndiag * T;
+  return (b + 1023) / 1024 * 1024;
+}
+
+// Shared bytes of a stencil_mma launch: two stages, the bf16 tile of Y, at
+// least the warps' sums, and 1 KB to align the boxes; mirrored by
+// ops/stencil.py mma_smem_bytes.
+__host__ __device__ inline long long mma_smem_bytes(int k, int ndiag, int nst, int h, int T,
+                                                    int dsize) {
+  const long long b = 2LL * mma_stage_bytes(k, ndiag, nst, h, T, dsize) +
+                      2LL * k * mma_tile_ld(T);
+  return (b > 4LL * kStMmaScratch ? b : 4LL * kStMmaScratch) + 1024;
+}
+
+// The two f32 values of a bf16 pair (the element of the lower index in the
+// lower 16 bits): exact.
+__device__ __forceinline__ float2 unpack_bf16(unsigned w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// Elements v .. v + 3 of a bf16 row in shared memory (8-byte aligned), as
+// two words (the lower index in the lower 16 bits): one 8-byte read where v
+// = 0 mod 4, two 4-byte reads where v = 2 mod 4, an 8-byte and a 4-byte read
+// and two byte permutes where v is odd.
+__device__ __forceinline__ uint2 quad_at(const bf16* row, int v) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(row);
+  switch (v & 3) {
+    case 0: return *reinterpret_cast<const uint2*>(row + v);
+    case 2: return make_uint2(w[v / 2], w[v / 2 + 1]);
+    case 1: {
+      const uint2 a = *reinterpret_cast<const uint2*>(row + v - 1);
+      const unsigned b = w[(v + 3) / 2];
+      return make_uint2(__byte_perm(a.x, a.y, 0x5432), __byte_perm(a.y, b, 0x5432));
+    }
+    default: {
+      const unsigned a = w[(v - 1) / 2];
+      const uint2 b = *reinterpret_cast<const uint2*>(row + v + 1);
+      return make_uint2(__byte_perm(a, b.x, 0x5432), __byte_perm(b.x, b.y, 0x5432));
+    }
+  }
+}
+
+// Four coefficients (c = 0 mod 4): four bf16 or four floats.
+__device__ __forceinline__ float4 coef_quad(const bf16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = unpack_bf16(q.x), b = unpack_bf16(q.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 coef_quad(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// X[r, (i + o) mod n] and X[r, (i + 1 + o) mod n] of an unstaged far
+// diagonal from global memory (L2), as one word, 0 for a column past n: one
+// 4-byte read where pairs (n even, X 4-byte aligned, o even: the pair never
+// straddles n), else two element reads.
+__device__ __forceinline__ unsigned far_word(const bf16* __restrict__ Xr, long long n,
+                                             long long i, int o, bool pairs) {
+  if (i >= n) return 0u;
+  long long j = i + o;
+  if (j >= n) j -= n;
+  if (pairs) return __ldg(reinterpret_cast<const unsigned*>(Xr + j));
+  long long j1 = j + 1;
+  if (j1 >= n) j1 -= n;
+  const unsigned hi = i + 1 < n ? __bfloat16_as_ushort(Xr[j1]) : 0u;
+  return __bfloat16_as_ushort(Xr[j]) | (hi << 16);
+}
+
+// One stage of stencil_mma's tile at i0: the window sw[r * L + v] = X[r,
+// (i0 - h + v) mod n], v < T + 2h; the coefficients sd[d T + c] =
+// diags[d, i0 + c] (0 past n); unless the far slabs come by TMA (nst == 0
+// here then), each staged far slab f at sf + f 2 T r8 holds X[r, (i0 + c +
+// o) mod n] (0 past n) at byte swz(r, c, r8), as a TMA box would put it.
+// Warps copy whole rows, 16 bytes a lane (one row's 512 contiguous bytes a
+// warp copy), where vec (and, for a far slab, o % 8 == 0: its copies never
+// straddle n); else element copies.
+template <typename ED>
+__device__ __forceinline__ void load_tile_mma(bf16* sw, char* sf, ED* sd, const bf16* X,
+                                              const ED* diags, const Diags& dg, int nst,
+                                              int ndiag, int k, long long n, long long i0, int h,
+                                              int T, int L, bool vec) {
+  const int r8 = round8(k);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  const int span = T + 2 * h;
+  long long base = (i0 - h) % n;  // the window's first column, in [0, n)
+  if (base < 0) base += n;
+  for (int r = warp; r < k; r += nw) {
+    const bf16* Xr = X + static_cast<long long>(r) * n;
+    bf16* w = sw + r * L;
+    if (vec) {
+      for (int v = 8 * lane; v < span; v += 256) {
+        long long j = base + v;
+        while (j >= n) j -= n;  // more than once only where the window is wider than n
+        cp_async16(w + v, Xr + j, true);
+      }
+    } else {
+      for (int v = lane; v < span; v += 32) {
+        long long j = base + v;
+        while (j >= n) j -= n;
+        cp_elem(w + v, Xr + j, true);
+      }
+    }
+    for (int f = 0; f < nst; ++f) {
+      const int o = dg.o[dg.far[f]];
+      char* slab = sf + 2 * f * T * r8;
+      if (vec && o % 8 == 0) {
+        for (int c = 8 * lane; c < T; c += 256) {
+          const bool in = i0 + c < n;
+          long long j = i0 + c + o;
+          if (j >= n) j -= n;
+          cp_async16(slab + swz(r, c, r8), in ? Xr + j : X, in);
+        }
+      } else {
+        for (int c = lane; c < T; c += 32) {
+          const bool in = i0 + c < n;
+          long long j = i0 + c + o;
+          if (j >= n) j -= n;
+          cp_elem(reinterpret_cast<bf16*>(slab + swz(r, c, r8)), in ? Xr + j : X, in);
+        }
+      }
+    }
+  }
+  constexpr int kd = kVec<ED>;
+  if (vec) {
+    const int tq = T / kd;
+    for (int e = threadIdx.x; e < ndiag * tq; e += blockDim.x) {
+      const int d = e / tq, c = kd * (e - d * tq);
+      const bool in = i0 + c < n;
+      cp_async16(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ndiag * T; e += blockDim.x) {
+      const int d = e / T, c = e - d * T;
+      const bool in = i0 + c < n;
+      cp_elem(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
+    }
+  }
+}
+
+// PROBE: bits that switch parts of the kernel off, for timing probes only
+// (tools/torch_kernel_times.py --bf16 --variants).
+constexpr int kMmaProbeNoFar = 1, kMmaProbeNoGram = 2, kMmaProbeNoStore = 4,
+              kMmaProbeNoRefill = 8;
+
+// bf16 X and Y (ED: the diagonals' element) with the Gram G = X Y^T of the
+// f32 sums, W the Gram's width, on the tensor cores. A persistent grid of
+// 16-warp blocks, one an SM, walks tiles of T columns, double-buffered: each
+// tile's window and coefficients are copied into shared memory with
+// cp.async, a warp copying whole rows, and the slabs of X its far diagonals
+// read (up to kStMaxStaged) come by TMA, one request a box of 64 columns by
+// k rows in the 128-byte swizzle (by cp.async into the same layout where a
+// box would straddle n). The warps share the tile's 16-column steps and
+// G's fragments (StMma): for each of its steps a warp computes the Y rows
+// 8 (nt0 + j) + g of the fragments it holds at columns 4t .. 4t + 3 of the
+// step for lane (g, t), reading every X quad from shared memory (the window
+// at h + s, a far slab, or, past the staged slabs, L2) in 8-byte reads, so
+// each sum goes from its FMAs straight into an mma B fragment, split into
+// three exact bf16 pieces (split3_pair). The Gram sums over a step's 16
+// columns in any order, so the step's column 4t + e stands at the mma's k
+// index 2t + e (e < 2) or 2t + 6 + e (e >= 2): lane (g, t) then carries its
+// own four columns in its B fragment, and the A fragments of X come from
+// the window's centre in the same order, two 8-byte reads an m16 tile. Three
+// mma.sync a fragment and step, hi first, into f32 fragments that restart
+// every tile and are added to double running sums after it. Y, rounded once to bf16,
+// goes to a tile in shared memory and out after the tile, 16 bytes a lane,
+// a warp writing one row's 512 contiguous bytes. Each element's sum is the
+// fmaf chain over d = 0..ndiag-1 of stencil_spmm, so Y keeps its bits.
+//
+// Bound: bytes, 2,382 MB at (32, 256^3) (0.711 ms at 3.35 TB/s; the Gram's
+// 103 GFLOP in three pieces take 0.10 ms at 989 TFLOP/s). The kernel it
+// replaced took the Gram in f32 FMAs (VecGram) behind the tile's SpMM, 4.52
+// ms; this one takes 3.63 ms (H100; PERF.md section 6 has the timings and
+// probe builds): its SpMM alone takes 1.8 ms, the window's copies (h = 256,
+// T = 256: 3.0 reads of X a column) do not overlap it, and wider tiles,
+// which would cut that traffic, do not fit beside the staged far slabs. At
+// 8 warps with the far diagonals read from L2 in 4-byte pairs (8 rows a
+// request) it took 5.5-7.4 ms.
+template <typename ED, int W, int PROBE = 0, int CH = kStChunk>
+__global__ void __launch_bounds__(kStMmaThreads, 1)
+    stencil_mma(const __grid_constant__ CUtensorMap tx, const ED* __restrict__ diags,
+                const Diags dgp, int ndiag, const bf16* __restrict__ X, bf16* __restrict__ Y,
+                float* __restrict__ part, int k, long long n, int h, int T, bool vec, bool pairs,
+                bool yvec, bool tma) {
+  using S = StMma<W>;
+  extern __shared__ __align__(16) float smem[];  // 2 stages | the tile of Y
+  __shared__ Diags dg;  // read with a per-diagonal index: from shared memory
+  __shared__ unsigned long long full[2];  // a stage's far slabs have landed (TMA)
+  const int nst = PROBE & kMmaProbeNoFar ? 0 : dgp.nst;
+  const bool far_tma = tma && nst > 0;
+  if (threadIdx.x == 0) {
+    dg = dgp;
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+  }
+  const int L = mma_window_ld(h, T), Lf = mma_tile_ld(T), r8 = round8(k);
+  const int fbytes = 2 * dgp.nst * T * r8, wbytes = 2 * k * L;
+  const int sbytes = mma_stage_bytes(k, ndiag, dgp.nst, h, T, sizeof(ED));
+  char* base = align1k(smem);  // stage: far slabs | window | coefficients
+  bf16* ytile = reinterpret_cast<bf16*>(base + 2 * sbytes);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int p = warp % S::P, q = warp / S::P;
+  const int mt0 = q / S::QN * S::TM, nt0 = q % S::QN * S::TN;
+  // The Y rows of this lane (rows past k repeat row k - 1: their products
+  // land in entries of G that are dropped, and they are not stored). Where
+  // two row groups hold the same Y rows (QM == 2) the first stores them.
+  int yr[S::TN];
+  bool ys[S::TN];
+#pragma unroll
+  for (int j = 0; j < S::TN; ++j) {
+    const int r = 8 * (nt0 + j) + g;
+    yr[j] = min(r, k - 1);
+    ys[j] = r < k && q / S::QN == 0;
+  }
+  double run[S::TM][S::TN][4] = {};
+  const long long ntiles = (n + T - 1) / T;
+  long long t = blockIdx.x;
+  int buf = 0;
+  __syncthreads();  // dg, the barriers
+  // Stage b takes the tile: its far slabs by TMA (thread 0: one request a
+  // box of 64 columns by k rows) where far_tma, else with the rest by
+  // cp.async (load_tile_mma).
+  const auto load = [&](int b, long long tile) {
+    char* st = base + b * sbytes;
+    const long long i0 = tile * T;
+    if (far_tma && threadIdx.x == 0) {
+      mbar_expect_tx(&full[b], 2u * nst * k * T);
+      for (int f = 0; f < nst; ++f) {
+        long long c = i0 + dg.o[dg.far[f]];
+        for (int bb = 0; bb < T / kBoxCols; ++bb, c += kBoxCols) {
+          if (c >= n) c -= n;
+          tma_box(st + 2 * f * T * r8 + bb * r8 * 128, &tx, static_cast<int>(c), &full[b]);
+        }
+      }
+    }
+    load_tile_mma(reinterpret_cast<bf16*>(st + fbytes), st,
+                  reinterpret_cast<ED*>(st + fbytes + wbytes), X, diags, dg, far_tma ? 0 : nst,
+                  ndiag, k, n, i0, h, T, L, vec);
+  };
+  if (t < ntiles) load(0, t);
+  cp_async_commit();
+  for (long long it = 0; t < ntiles; t += gridDim.x, ++it) {
+    const long long tn = t + gridDim.x;
+    if (tn < ntiles && !(PROBE & kMmaProbeNoRefill && t > blockIdx.x)) load(buf ^ 1, tn);
+    cp_async_commit();
+    cp_async_wait<1>();
+    if (far_tma && !(PROBE & kMmaProbeNoRefill && it >= 2))
+      mbar_wait(&full[buf], static_cast<unsigned>(it >> 1) & 1);
+    __syncthreads();  // this tile's stage (and the tile of Y is free)
+    const char* sf = base + buf * sbytes;
+    const bf16* sw = reinterpret_cast<const bf16*>(sf + fbytes);
+    const ED* sd = reinterpret_cast<const ED*>(sf + fbytes + wbytes);
+    const long long i0 = t * T;
+    float acc[S::TM][S::TN][4] = {};
+    for (int c0 = 16 * p; c0 < T; c0 += 16 * S::P) {
+      const int c = c0 + 4 * tq;  // this lane's columns: c .. c + 3
+      const long long i = i0 + c;
+      float y[S::TN][4] = {};
+      for (int d0 = 0; d0 < ndiag; d0 += CH) {
+        // Every read of the chunk, then its FMAs in the order d = d0, d0 + 1, ...
+        uint2 xw[CH][S::TN];
+#pragma unroll
+        for (int u = 0; u < CH; ++u) {
+          const int d = d0 + u;
+          if (d >= ndiag) continue;
+          const int s = dg.s[d];
+          if (s != kFar) {  // the window at column h + s + c holds X[:, i + s]
+#pragma unroll
+            for (int j = 0; j < S::TN; ++j) xw[u][j] = quad_at(sw + yr[j] * L, h + s + c);
+          } else if (dg.stage[d] >= 0 && !(PROBE & kMmaProbeNoFar)) {
+            // a far slab's swizzled boxes at column c hold X[:, i + o]
+            const char* slab = sf + 2 * dg.stage[d] * T * r8;
+#pragma unroll
+            for (int j = 0; j < S::TN; ++j)
+              xw[u][j] = *reinterpret_cast<const uint2*>(slab + swz(yr[j], c, r8));
+          } else if (PROBE & kMmaProbeNoFar) {
+#pragma unroll
+            for (int j = 0; j < S::TN; ++j) xw[u][j] = make_uint2(0u, 0u);
+          } else {
+            const bool fp = pairs && (dg.o[d] & 1) == 0;
+#pragma unroll
+            for (int j = 0; j < S::TN; ++j) {
+              const bf16* Xr = X + static_cast<long long>(yr[j]) * n;
+              xw[u][j] = make_uint2(far_word(Xr, n, i, dg.o[d], fp),
+                                    far_word(Xr, n, i + 2, dg.o[d], fp));
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < CH; ++u) {
+          const int d = d0 + u;
+          if (d >= ndiag) continue;
+          const float4 cf = coef_quad(sd + d * T + c);
+#pragma unroll
+          for (int j = 0; j < S::TN; ++j) {
+            const float2 xa = unpack_bf16(xw[u][j].x), xb = unpack_bf16(xw[u][j].y);
+            y[j][0] = fmaf(cf.x, xa.x, y[j][0]);
+            y[j][1] = fmaf(cf.y, xa.y, y[j][1]);
+            y[j][2] = fmaf(cf.z, xb.x, y[j][2]);
+            y[j][3] = fmaf(cf.w, xb.y, y[j][3]);
+          }
+        }
+      }
+      // Columns past n hold 0 (their coefficients were zero-filled; an
+      // infinite X must not leak into G).
+      const bool in[4] = {i < n, i + 1 < n, i + 2 < n, i + 3 < n};
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!in[e]) y[j][e] = 0.f;
+      // Y, rounded once to bf16, into the tile of Y.
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j) {
+        if (!ys[j]) continue;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(y[j][0], y[j][1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(y[j][2], y[j][3]);
+        *reinterpret_cast<uint2*>(ytile + yr[j] * Lf + c) =
+            make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                       *reinterpret_cast<const unsigned*>(&hi));
+      }
+      if (PROBE & kMmaProbeNoGram) {
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j) acc[0][j][0] += y[j][0] + y[j][1] + y[j][2] + y[j][3];
+        continue;
+      }
+      // The Gram: X's rows from the window's centre (A: rows g and g + 8 of
+      // the m16 tile at this lane's columns), Y's f32 sums in three exact
+      // bf16 pieces (B), hi first.
+      unsigned a[S::TM][4];
+#pragma unroll
+      for (int m = 0; m < S::TM; ++m) {
+        const uint2 qa = *reinterpret_cast<const uint2*>(
+            sw + min(16 * (mt0 + m) + g, k - 1) * L + h + c);
+        const uint2 qb = *reinterpret_cast<const uint2*>(
+            sw + min(16 * (mt0 + m) + 8 + g, k - 1) * L + h + c);
+        a[m][0] = qa.x;
+        a[m][1] = qb.x;
+        a[m][2] = qa.y;
+        a[m][3] = qb.y;
+      }
+      unsigned b[S::TN][2][3];
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j) {
+        split3_pair(y[j][0], y[j][1], b[j][0]);
+        split3_pair(y[j][2], y[j][3], b[j][1]);
+      }
+      // Piece by piece, every fragment's mma of a piece before the next
+      // piece's: TM x TN independent products between two that chain.
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece)
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+          for (int m = 0; m < S::TM; ++m)
+            mma_bf16(acc[m][j], a[m], b[j][0][piece], b[j][1][piece]);
+    }
+#pragma unroll
+    for (int m = 0; m < S::TM; ++m)
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[m][j][e] += acc[m][j][e];
+    __syncthreads();  // the tile of Y is complete, and every read of this stage done
+    // Y out: a warp writes a row's 16-byte chunks.
+    if (!(PROBE & kMmaProbeNoStore)) {
+      const int chunks = T / 8;
+      for (int e = threadIdx.x; e < k * chunks; e += blockDim.x) {
+        const int r = e / chunks, c8 = 8 * (e - r * chunks);
+        const long long i = i0 + c8;
+        if (i >= n) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(ytile + r * Lf + c8);
+        bf16* out = Y + static_cast<long long>(r) * n + i;
+        if (yvec) {
+          *reinterpret_cast<uint4*>(out) = v;
+        } else {
+          const bf16* w = reinterpret_cast<const bf16*>(&v);
+          for (int e2 = 0; e2 < 8 && i + e2 < n; ++e2) out[e2] = w[e2];
+        }
+      }
+    }
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  gram_mma_store<S, false>(run, smem, part + static_cast<long long>(blockIdx.x) * k * k, k, k,
+                           mt0, nt0, p);
+}
+
+template <typename ED, int W, int PROBE = 0, int CH = kStChunk>
+cudaError_t launch_mma(const ED* diags, const Diags& dg, int ndiag, const bf16* X, bf16* Y,
+                       float* part, float* G, int k, long long n, int h, int T, int max_blocks,
+                       int device, cudaStream_t stream) {
+  static_assert(StMma<W>::kScratch <= kStMmaScratch, "the warps' sums must fit the floor");
+  auto kernel = stencil_mma<ED, W, PROBE, CH>;
+  const size_t smem = mma_smem_bytes(k, ndiag, dg.nst, h, T, sizeof(ED));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(kernel, kStMmaThreads, smem, device, (n + T - 1) / T, max_blocks,
+                        &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = n % kVec<bf16> == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
+  const bool pairs = n % 2 == 0 && (reinterpret_cast<size_t>(X) & 3) == 0;
+  const bool yvec = n % kVec<bf16> == 0 && aligned16(Y);
+  // The far slabs by TMA where every box is whole: 64-column boxes at
+  // offsets of whole boxes never straddle n.
+  bool tma = dg.nst > 0 && tma_ok(X, n) && n % kBoxCols == 0;
+  for (int f = 0; f < dg.nst; ++f) tma = tma && dg.o[dg.far[f]] % kBoxCols == 0;
+  CUtensorMap tx{};
+  if (tma) {
+    err = make_tmap(&tx, X, n, k);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kStMmaThreads, smem, stream>>>(tx, diags, dg, ndiag, X, Y, part, k, n, h, T,
+                                                vec, pairs, yvec, tma);
+  launch_reduce(part, G, k, grid, stream);
+  return cudaGetLastError();
+}
+
+// The Gram's width of a launch of k <= 64 rows (48 rows take 64's split).
+inline int mma_gram_width(int k) { return k <= 8 ? 8 : k <= 16 ? 16 : k <= 32 ? 32 : 64; }
+
+template <typename ED>
+cudaError_t dispatch_mma(const ED* diags, const Diags& dg, int ndiag, const bf16* X, bf16* Y,
+                         float* part, float* G, int k, long long n, int h, int T, int max_blocks,
+                         int device, cudaStream_t stream) {
+#define BCG_SM(W)                                                                       \
+  return launch_mma<ED, W>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device, \
+                           stream)
+  switch (mma_gram_width(k)) {
+    case 8: BCG_SM(8);
+    case 16: BCG_SM(16);
+    case 32: BCG_SM(32);
+    default: BCG_SM(64);
+  }
+#undef BCG_SM
+}
+
+// The launch's diagonals: offsets (each in [0, n)), near shifts within h,
+// and stencil_mma's staged far slabs (the first kStMaxStaged far
+// diagonals); false on an offset out of range.
+inline bool make_diags(Diags* dg, const int* offsets, int ndiag, long long n, int h) {
+  dg->nst = 0;
+  for (int d = 0; d < ndiag; ++d) {
+    const int o = offsets[d];
+    if (o < 0 || o >= n) return false;
+    dg->o[d] = o;
+    dg->s[d] = o <= h ? o : (n - o <= h ? static_cast<int>(o - n) : kFar);
+    dg->stage[d] = -1;
+    if (dg->s[d] == kFar && dg->nst < kStMaxStaged) {
+      dg->stage[d] = dg->nst;
+      dg->far[dg->nst++] = d;
+    }
+  }
+  return true;
+}
+
 template <typename ED, typename EX>
 int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, EX* Y, float* S,
                   float* part, float* G, int k, long long n, int h, int T, int max_blocks,
@@ -273,13 +789,12 @@ int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, E
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Diags dg{};
-  for (int d = 0; d < ndiag; ++d) {
-    const int o = offsets[d];
-    if (o < 0 || o >= n) return cudaErrorInvalidValue;
-    dg.o[d] = o;
-    dg.s[d] = o <= h ? o : (n - o <= h ? static_cast<int>(o - n) : kFar);
-  }
+  if (!make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
   const bool gram = G != nullptr;
+  if constexpr (std::is_same_v<EX, bf16>)
+    if (gram && S == nullptr && k <= 64)
+      return dispatch_mma(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                          stream);
 #define BCG_STENCIL(KM)                                                                        \
   return gram ? launch<ED, EX, KM, true>(diags, dg, ndiag, X, Y, S, part, G, k, n, h, T,        \
                                          max_blocks, device, stream)                           \

@@ -351,7 +351,10 @@ def library() -> ctypes.CDLL:
     # The tensor-core variants also take their ring's tile and stage count.
     lib.bcg_gram_bf16.argtypes = [P, P, P, P, I, I, L, I, I, I, I, P]
     lib.bcg_mm_update_bf16.argtypes = [P, P, P, P, I, L, I, I, I, P]
-    for fn in (lib.bcg_gram_bf16, lib.bcg_mm_update_bf16):
+    lib.bcg_mm_update_gram_mma.argtypes = [P, P, P, P, P, P, I, L, I, I, I, I, P]
+    lib.bcg_mm2_update_gram_mma.argtypes = [P, P, P, P, P, P, P, I, L, I, I, I, I, P]
+    for fn in (lib.bcg_gram_bf16, lib.bcg_mm_update_bf16, lib.bcg_mm_update_gram_mma,
+               lib.bcg_mm2_update_gram_mma):
         fn.restype = I
     for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x"):
         getattr(lib, fn).argtypes = lib.bcg_stencil_spmm.argtypes

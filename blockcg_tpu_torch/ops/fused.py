@@ -68,7 +68,10 @@ exactly symmetric) through shared memory, one launch up to 96 rows
 (``csrc/gram.cu``, ``gram_plan``); a wider Gram is blocks of at most 96
 rows. On bf16 fields ``gram`` and ``mm_update`` (up to 128 rows) run on the
 tensor cores, their tiles streamed through a ring of TMA tensor copies
-(``gram_plan``, ``mm_update_mma_plan``).
+(``gram_plan``, ``mm_update_mma_plan``), and so do ``mm_update_gram`` and
+``mm2_update_gram`` with their fused Gram up to 64 rows
+(``update_gram_mma_plan``: the coefficients in three exact bf16 pieces, the
+Gram of the stored Y exactly symmetric).
 
 ``mm_update``, ``mm_update_gram``, ``mm2_update_gram``, ``px_update`` and
 ``qr_p_update`` run streaming kernels that stage their input tiles in shared
@@ -253,6 +256,52 @@ def mm_update_mma_plan(k: int, n: int, has_a: bool, smem_cap: int, sm_count: int
         if stages >= 2:
             return RingPlan(T, stages, mm_update_mma_smem_bytes(k, T, stages, has_a))
     raise ValueError(f"mm_update: {k} rows leave no bf16 tile in {smem_cap} bytes of shared "
+                     "memory")
+
+
+UPDATE_GRAM_MMA_MAX_K = 64  # rows of one tensor-core launch of rows 7 and 8 (with the Gram)
+UPDATE_MMA_WIDTHS = (16, 32, 64)  # csrc/update_gram.cuh dispatch_mma: the update's widths
+UPDATE_MMA_TILES = (512, 256, 128)  # column tiles of update_gram_mma, widest first
+UPDATE_MMA_MAX_STAGES = 4  # deepest ring its plan takes
+UPDATE_MMA_SCRATCH = 9216  # floats of the Gram's sums, the launch's shared floor
+
+
+def update_gram_mma_smem_bytes(k: int, T: int, stages: int, nf: int, has_a: bool) -> int:
+    """Shared bytes of one bf16 ``mm_update_gram`` (``nf`` 1) or
+    ``mm2_update_gram`` (``nf`` 2) launch on the tensor cores
+    (``csrc/update_gram.cuh`` update_mma_smem_bytes): ``stages`` stages of
+    the nf fields' (k, T) tiles, each padded to the update's width, and with
+    A of A, and the tile of Y, in swizzled boxes; at least the Gram's sums;
+    and the alignment."""
+    w = next(w for w in UPDATE_MMA_WIDTHS if k <= w)
+    b = 2 * T * (stages * (nf * w + (round8(k) if has_a else 0)) + round8(k))
+    return max(b, 4 * UPDATE_MMA_SCRATCH) + RING_ALIGN
+
+
+@functools.lru_cache(maxsize=64)
+def update_gram_mma_plan(k: int, n: int, nf: int, has_a: bool, smem_cap: int,
+                         sm_count: int) -> RingPlan:
+    """The bf16 launch of ``mm_update_gram`` (``nf`` 1, with A or not) or
+    ``mm2_update_gram`` (``nf`` 2) with its fused Gram on k <= 64 rows
+    (``csrc/update_gram.cuh`` update_gram_mma, one block an SM): the widest
+    tile of ``UPDATE_MMA_TILES`` that leaves every SM a tile (waived at 128
+    columns) and whose ring, beside the tile of Y, holds two stages, with as
+    many stages as fit up to ``UPDATE_MMA_MAX_STAGES``. At (32, 256^3) row 8
+    took 1,586-1,600 us on 512 columns (two or three stages), 1,854-1,878
+    on 256 (two to six), 2,478-2,551 on 128; row 7 1,304-1,312, 1,589-1,610
+    and 1,780-2,202 (H100, tools/torch_kernel_times.py --bf16 --variants)."""
+    if not 1 <= k <= UPDATE_GRAM_MMA_MAX_K:
+        raise ValueError(f"update_gram_mma: one launch takes 1 to {UPDATE_GRAM_MMA_MAX_K} rows, "
+                         f"got {k}")
+    w = next(w for w in UPDATE_MMA_WIDTHS if k <= w)
+    for T in UPDATE_MMA_TILES:
+        if T > 128 and T > n // sm_count:
+            continue
+        stages = ring_stages(smem_cap, 2 * T * (nf * w + (round8(k) if has_a else 0)),
+                             2 * T * round8(k), 1, UPDATE_MMA_MAX_STAGES)
+        if stages >= 2:
+            return RingPlan(T, stages, update_gram_mma_smem_bytes(k, T, stages, nf, has_a))
+    raise ValueError(f"update_gram_mma: {k} rows leave no tile in {smem_cap} bytes of shared "
                      "memory")
 
 
@@ -639,9 +688,19 @@ def mm_update_gram(M: torch.Tensor, B: torch.Tensor,
     Bf, Af = _flat("mm_update_gram", B, A)
     k, n = Bf.shape
     _native.check_kk(M, k, "mm_update_gram M")
+    p = _native.ptr
+    if dt == torch.bfloat16 and k <= UPDATE_GRAM_MMA_MAX_K:  # the tensor cores, one launch
+        idx = Bf.device.index
+        mma = update_gram_mma_plan(k, n, 1, Af is not None, _native.max_smem(idx),
+                                   _native.sm_count(idx))
+        Y = Bf if donate else torch.empty_like(Bf)
+        part, G = _gram_buffers(k, n, Bf.device)
+        _native.launch("mm_update_gram[bf16]", "bcg_mm_update_gram_mma", Bf.device, p(M),
+                       p(Bf), p(Af), p(Y), p(part), p(G), k, n, mma.T, mma.stages,
+                       _native.nblocks(n))
+        return Y.view(B.shape), G
     plan = mm_update_gram_plan(k, Bf.device, Bf.element_size())
     Y = Bf if donate and plan.in_place else torch.empty_like(Bf)
-    p = _native.ptr
     part, G = _gram_buffers(k, n, Bf.device) if plan.fused_gram else (None, None)
     name = _native.variant("mm_update_gram", "bcg_mm_update_gram", dt)
     for r0, r1 in plan.chunks:
@@ -668,9 +727,18 @@ def mm2_update_gram(M1: torch.Tensor, B1: torch.Tensor, M2: torch.Tensor,
     k, n = B1f.shape
     for M, what in ((M1, "M1"), (M2, "M2")):
         _native.check_kk(M, k, f"mm2_update_gram {what}")
+    p = _native.ptr
+    if dt == torch.bfloat16 and k <= UPDATE_GRAM_MMA_MAX_K:  # the tensor cores, one launch
+        idx = B1f.device.index
+        mma = update_gram_mma_plan(k, n, 2, False, _native.max_smem(idx), _native.sm_count(idx))
+        Y = B1f if donate else torch.empty_like(B1f)
+        part, G = _gram_buffers(k, n, B1f.device)
+        _native.launch("mm2_update_gram[bf16]", "bcg_mm2_update_gram_mma", B1f.device, p(M1),
+                       p(B1f), p(M2), p(B2f), p(Y), p(part), p(G), k, n, mma.T, mma.stages,
+                       _native.nblocks(n))
+        return Y.view(B1.shape), G
     plan = mm2_update_gram_plan(k, B1f.device, B1f.element_size())
     Y = B1f if donate and plan.in_place else torch.empty_like(B1f)
-    p = _native.ptr
     part, G = _gram_buffers(k, n, B1f.device) if plan.fused_gram else (None, None)
     name = _native.variant("mm2_update_gram", "bcg_mm2_update_gram", dt)
     for r0, r1 in plan.chunks:

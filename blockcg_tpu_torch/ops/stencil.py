@@ -30,7 +30,10 @@ wide]``).
 Each launch stages a window of X in shared memory and serves the diagonals
 near the tile from it (``csrc/stencil.cu``); ``stencil_plan`` picks the
 window's halo and the tile width on the host from the offsets, the launch's
-rows and the card's shared-memory cap.
+rows and the card's shared-memory cap. A bf16 field's launch with the Gram
+(and no scratch) runs the tensor-core kernel, which also stages the far
+diagonals' X and takes the Gram of the f32 sums in three exact bf16 pieces
+(``stencil_mma_plan``).
 """
 
 from __future__ import annotations
@@ -117,6 +120,78 @@ def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
     return best
 
 
+# The bf16 field with its Gram on the tensor cores (csrc/stencil.cu
+# stencil_mma): one 16-warp block an SM.
+MMA_TILES = (128, 256, 512, 768, 1024)  # tile widths it takes: 16-column steps of its warps
+MMA_SCRATCH = 9216  # csrc/stencil.cu kStMmaScratch: floats of the warps' sums
+MMA_MAX_K = 64  # rows of one launch
+MMA_MAX_STAGED = 4  # csrc/stencil.cu kStMaxStaged: far diagonals a tile stages
+MMA_STATIC_BYTES = 4 * (4 * MAX_DIAGS + 1) + 16  # its static shared memory: Diags, 2 mbarriers
+
+
+def mma_window_ld(h: int, T: int) -> int:
+    """Row stride of stencil_mma's window (``csrc/stencil.cu``
+    mma_window_ld): the least L >= T + 2h with L = 16 mod 64 elements, so
+    consecutive rows start 32 bytes apart modulo 128 and the 4 rows of a
+    half warp's 8-byte reads touch 128 distinct bytes."""
+    return T + 2 * h + ((16 - T - 2 * h) & 63)
+
+
+def mma_tile_ld(T: int) -> int:
+    """The same for the tile of Y (``mma_tile_ld``)."""
+    return T + ((16 - T) & 63)
+
+
+def mma_smem_bytes(k: int, ndiag: int, nst: int, h: int, T: int, dsize: int = 2) -> int:
+    """Shared bytes of one stencil_mma launch (``csrc/stencil.cu``
+    mma_smem_bytes): two stages, each ``nst`` far slabs of k rows in
+    swizzled boxes of ``round8(k)`` rows, the bf16 window of k rows at
+    ``mma_window_ld`` and the (ndiag, T) coefficient tile of
+    ``dsize``-byte elements, rounded up to 1 KB; the bf16 tile of Y; at
+    least the warps' sums; and 1 KB to align the boxes."""
+    r8 = -(-k // 8) * 8
+    stage = 2 * nst * T * r8 + 2 * k * mma_window_ld(h, T) + dsize * ndiag * T
+    stage = -(-stage // 1024) * 1024
+    return max(2 * stage + 2 * k * mma_tile_ld(T), 4 * MMA_SCRATCH) + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_mma_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
+                     sm_count: int, dsize: int = 2) -> StencilPlan:
+    """The (h, T) of a bf16 launch of k <= 64 rows with the fused Gram
+    (``csrc/stencil.cu`` stencil_mma, one block an SM, every warp busy at
+    any tile): the least L2->SM traffic per column, ``(T + 2h) / T`` plus
+    one per far diagonal (staged in shared memory, up to
+    ``MMA_MAX_STAGED``, or read from L2), among the tiles of ``MMA_TILES``
+    up to ``max(128, n / sm_count)`` and the halos (multiples of 8: the
+    window is copied in 16-byte chunks) whose shared memory, with its static
+    ``MMA_STATIC_BYTES``, fits ``smem_cap``; ties go to the wider tile, then
+    the smaller halo. At config 5's (32, 256^3) that is h = 256, T = 256:
+    +-1 and +-256 from the window, +-65,536 from two staged slabs, traffic
+    5.0. ``dsize``: bytes of a diagonal's element."""
+    if not 1 <= k <= MMA_MAX_K:
+        raise ValueError(f"stencil: one bf16 Gram launch takes 1 to {MMA_MAX_K} rows, got {k}")
+    offs = [int(o) % n for o in offsets]
+    dist = [min(o, n - o) for o in offs]
+    best, best_key = None, None
+    for T in MMA_TILES:
+        if T > max(MMA_TILES[0], n // sm_count):
+            continue
+        for h in sorted({0} | {-(-d // 8) * 8 for d in dist}):
+            nfar = sum(d > h for d in dist)
+            nbytes = mma_smem_bytes(k, len(offs), min(nfar, MMA_MAX_STAGED), h, T, dsize)
+            if nbytes + MMA_STATIC_BYTES > smem_cap:
+                continue
+            traffic = (T + 2 * h) / T + nfar
+            key = (traffic, -T, h)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = StencilPlan(h, T, tuple(d <= h for d in dist), nbytes, traffic, 1)
+    if best is None:
+        raise ValueError(f"stencil: {k} rows leave no bf16 tile in {smem_cap} bytes of "
+                         "shared memory")
+    return best
+
 def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
                        Xt: torch.Tensor, with_gram: bool = False):
     """Plain PyTorch version: the roll-and-accumulate of the reference's XLA
@@ -160,8 +235,12 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
     diag = []
     for r0, r1 in chunks:
         kc = r1 - r0
-        plan = stencil_plan(tuple(int(o) for o in offsets), n, kc, with_gram, cap, sms,
-                            Xt.element_size(), diags.element_size())
+        if with_gram and S is None and Xt.dtype == torch.bfloat16:  # the tensor cores
+            plan = stencil_mma_plan(tuple(int(o) for o in offsets), n, kc, cap, sms,
+                                    diags.element_size())
+        else:
+            plan = stencil_plan(tuple(int(o) for o in offsets), n, kc, with_gram, cap, sms,
+                                Xt.element_size(), diags.element_size())
         max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None
         if with_gram:

@@ -302,12 +302,21 @@ BF16_ULPS = 1.0
 # version is the less accurate of the two). Each kernel's Gram of stored
 # bf16 fields is also held to GRAM_RTOL against its f64 sum.
 C5_GRAM_RTOL = 1e-4
-# Rows 5 and 6 in bf16 run on the tensor cores; the f32-FMA kernels they
+# Rows 2, 5-8 in bf16 run on the tensor cores; the f32-FMA kernels they
 # replaced, at (32, 256^3) on an H100 80GB HBM3 at 700 W: the Gram 1.4972 ms
 # and 9.300e-07 from its f64 sum, Y = M B 1.3576 ms and 0 bf16 ulps from the
-# plain version. Printed beside this run's figures.
-TENSOR_CORE_ROWS_BEFORE = {"gram[bf16]": (1.4972, "9.300e-07 from the f64 Gram"),
-                           "mm_update[bf16]": (1.3576, "0.00 bf16 ulps from the plain version")}
+# plain version; the stencil with its Gram 4.6279 ms, its Gram 3.539e-08
+# from the f64 Gram of its contract (X Y^T of the f32 sums); mm_update_gram
+# 2.5136 ms and mm2_update_gram 3.9716 ms, their Grams 2.377e-06 and
+# 2.481e-06 from theirs (Y Y^T of the stored Y). Printed beside this run's
+# figures.
+TENSOR_CORE_ROWS_BEFORE = {
+    "gram[bf16]": (1.4972, "9.300e-07 from the f64 Gram"),
+    "mm_update[bf16]": (1.3576, "0.00 bf16 ulps from the plain version"),
+    "stencil_spmm_gram_t[bf16]": (4.6279, "3.539e-08 from the f64 Gram of its contract"),
+    "mm_update_gram[bf16]": (2.5136, "2.377e-06 from the f64 Gram of its contract"),
+    "mm2_update_gram[bf16]": (3.9716, "2.481e-06 from the f64 Gram of its contract"),
+}
 # [bf16presets]: configs 1-4 in bf16 as bench_cli.py --dtype bf16 runs them
 # (tol 1e-6, max_iter 2000; --refined: solve_refined with inner_tol 5e-3, the
 # f64 outer loop and the f32 B, inner BCG on config 2 and SBCGrQ on the
@@ -2159,6 +2168,23 @@ def phase_config5_kernels(torch, dev, records) -> None:
                              f"(max |G - G^T| {float((Gs - Gs.T).abs().max()):.3e})")
     print(f"[config5] kernels gram[bf16] U is V {what}: exactly symmetric")
     del G, Gs
+    # The Grams of rows 2, 7 and 8 against the f64 Gram of their contracts'
+    # operands; rows 7 and 8's exactly symmetric.
+    Yst, G = stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1)
+    S32 = stencil.stencil_spmm_t(op.diags.float(), op.offsets, F1)
+    accuracy["stencil_spmm_gram_t[bf16]"] = (
+        f"{relfro(G.double(), B1.double() @ S32.double().T):.3e} from the f64 Gram of its "
+        "contract")
+    del Yst, S32
+    for name, Yg, G in (("mm_update_gram[bf16]", *fused.mm_update_gram(M1, B1)),
+                        ("mm2_update_gram[bf16]", *fused.mm2_update_gram(M1, B1, M2, B2))):
+        accuracy[name] = (f"{relfro(G.double(), Yg.double() @ Yg.double().T):.3e} from the f64 "
+                          "Gram of its contract")
+        if not torch.equal(G, G.T):
+            raise AssertionError(f"{name} ({what}): the Gram is not exactly symmetric "
+                                 f"(max |G - G^T| {float((G - G.T).abs().max()):.3e})")
+        print(f"[config5] kernels {name} {what}: exactly symmetric")
+    del Yg, G
     Mb = M1.to(bf)  # the rounded coefficient: bf16 GEMM with f32 accumulation
     mmb, why = _library_check(torch, lambda: Mb @ B1, fused.mm_update(M1, B1),
                               "bf16 GEMM (bf16 ulps of the kernel's Y)", ulps)

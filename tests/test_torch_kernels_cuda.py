@@ -1613,8 +1613,18 @@ def _ulps(got, want):
     (4096, 32, (-256, -16, -1, 0, 1, 16, 256)),
     (777, 40, (0, 700, -700, 3)),                   # ragged n: element copies
     (300, 64, (-1, 0, 1, 600)),                     # |o| >= n reduces mod n
+    # the tensor-core Gram's edges: Gram widths 16, 48 and 64, ragged n,
+    # far diagonals of odd offset, windows across 0 and n on every tile
+    (4099, 12, (-5, -1, 0, 1, 3)),
+    (8192, 48, (-1, 0, 1, 601, -600)),
+    (2048, 64, (0, 1, -1, 2047, 1, 2041)),
 ])
 def test_stencil_bf16_matches_plain(dev, n, k, offsets):
+    """The bf16 stencil with and without its Gram against the plain
+    version: Y within one bf16 ulp, and the Gram's Y (on the tensor cores)
+    bitwise the SpMM's (both sum each element with fmaf in the diagonals'
+    order); G within 1e-5 of the plain version and of the f64 Gram of the
+    f32 sums (the f32 kernel on the lifted values)."""
     rng = np.random.default_rng(100)
     diags = _bf(rng.standard_normal((len(offsets), n)), dev)
     Xt = _bf_field(k, n, 101, dev)
@@ -1626,23 +1636,118 @@ def test_stencil_bf16_matches_plain(dev, n, k, offsets):
     Yp, Gp = stencil.stencil_spmm_plain(diags, offsets, Xt, with_gram=True)
     assert Y.dtype == torch.bfloat16 and G.dtype == torch.float32
     assert _ulps(Y, Yp) <= 1 and _ulps(Y1, Yp) <= 1 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, Y1)
+    S = stencil.stencil_spmm_t(diags.float(), offsets, Xt.float())
+    assert _relfro(G.double(), Xt.double() @ S.double().T) < 1e-5
+    assert torch.equal(stencil.stencil_spmm_gram_t(diags, offsets, Xt)[1], G)
 
 
 def test_stencil_bf16_laplacian_256(dev):
-    """Config 5's operator in bf16 at a 64^3 cut: the plan's halo of 8 serves
-    +-1 from the window, +-64 and +-4096 are far."""
+    """Config 5's operator in bf16 at a 64^3 cut: the Gram's plan serves
+    +-1 and +-64 from the window, +-4096 are far. Y bitwise the SpMM's, the
+    Gram within 1e-5 of the f64 Gram of the f32 sums, a repeat bitwise."""
     op = laplacian_dia((64, 64, 64), dtype=torch.bfloat16, device=dev)
     Xt = _bf_field(32, op.n, 102, dev)
     Y, G = op.matmat_gram_t(Xt)
     Yp, Gp = stencil.stencil_spmm_plain(op.diags, op.offsets, Xt, with_gram=True)
     assert _ulps(Y, Yp) <= 1 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, stencil.stencil_spmm_t(op.diags, op.offsets, Xt))
+    S = stencil.stencil_spmm_t(op.diags.float(), op.offsets, Xt.float())
+    assert _relfro(G.double(), Xt.double() @ S.double().T) < 1e-5
+    Y2, G2 = op.matmat_gram_t(Xt)
+    assert torch.equal(Y2, Y) and torch.equal(G2, G)
+
+
+# sha256 (16 hex digits) of the bits of the bf16 stencil's Y with its Gram,
+# as the one-thread-a-column kernel gave them before the Gram moved to the
+# tensor cores (H100), on the inputs of _pinned_stencil_case.
+_STENCIL_Y_PINS = {
+    (4096, 32, (-256, -16, -1, 0, 1, 16, 256)): "624bf8f6cfe55d96",
+    (4099, 12, (-5, -1, 0, 1, 3)): "a38a5d108d69a081",
+    (777, 40, (0, 700, -700, 3)): "fdd949baf5f645f4",
+    (8192, 64, (-1, 0, 1, 600, -600)): "7aa424e552079d7c",
+    (1000, 48, (-130, -7, -1, 0, 2, 64, 257)): "def1728d0725fca4",
+    "laplacian 64^3": "1b7b9bfc9f673d45",
+}
+
+
+def _sha16(t):
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().view(torch.int16).numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("case", list(_STENCIL_Y_PINS), ids=str)
+def test_stencil_bf16_gram_y_keeps_its_bits(dev, case):
+    """The stored Y of ``stencil_spmm_gram_t[bf16]`` is bitwise what the
+    kernel gave before its Gram moved to the tensor cores (pinned checksums
+    of the bits), and its Gram within 1e-5 of the f64 Gram of the f32 sums."""
+    if case == "laplacian 64^3":
+        op = laplacian_dia((64, 64, 64), dtype=torch.bfloat16, device=dev)
+        diags, offsets = op.diags, op.offsets
+        Xt = _bf(np.random.default_rng(532).standard_normal((32, op.n)), dev)
+    else:
+        n, k, offsets = case
+        rng = np.random.default_rng(500 + k)
+        diags = _bf(rng.standard_normal((len(offsets), n)), dev)
+        Xt = _bf(rng.standard_normal((k, n)), dev)
+    Y, G = stencil.stencil_spmm_gram_t(diags, offsets, Xt)
+    assert _sha16(Y) == _STENCIL_Y_PINS[case]
+    S = stencil.stencil_spmm_t(diags.float(), offsets, Xt.float())
+    assert _relfro(G.double(), Xt.double() @ S.double().T) < 1e-5
+
+
+@pytest.mark.parametrize("pair", ["bf16", "bf16 field"])
+def test_stencil_bf16_gram_keeps_every_bit_of_the_sums(dev, pair):
+    """The Gram X Y^T of the f32 sums, whose bits past bf16's 16 a
+    two-piece split would drop: offsets (0, 1, 2) with diagonals 1, 2^-10 and
+    2^-20 on X = b_r on three columns of every 512 (0 elsewhere) give sums
+    b (1 + 2^-10 + 2^-20), b (1 + 2^-10), b and G = 8 b_r b_s (3 + 2^-9 +
+    2^-20), every partial sum exact in f32: G equals it bitwise, which the
+    sums in two pieces (8 b_r b_s (3 + 2^-9)) do not."""
+    k, n = 16, 4096
+    b = np.random.default_rng(390).choice([-2.0, -1.0, -0.5, 0.5, 1.0, 2.0], k)
+    X = np.zeros((k, n))
+    for m in range(0, n, 512):
+        X[:, m:m + 3] = b[:, None]
+    d = np.stack([np.full(n, 1.0), np.full(n, 2.0 ** -10), np.full(n, 2.0 ** -20)])
+    Yf = sum(d[j] * np.roll(X, -j, axis=1) for j in range(3))
+    want = X @ Yf.T
+    f = torch.from_numpy(Yf.astype(np.float32))
+    hi = f.bfloat16().float()
+    two = (hi + (f - hi).bfloat16().float()).double().numpy()
+    assert not np.array_equal(want, X @ two.T)
+    Xt = _bf(X, dev)
+    diags = _bf(d, dev) if pair == "bf16" else _t(d, dev)
+    _native.reset_launches()
+    Y, G = stencil.stencil_spmm_gram_t(diags, (0, 1, 2), Xt)
+    assert _native.launches[f"stencil_spmm_gram_t[{pair}]"] == 1
+    assert torch.equal(G.double().cpu(), torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("k,n", [(16, 4096), (40, 1000), (33, 4104)])
+def test_stencil_bf16_unaligned_field(dev, k, n):
+    """A field one element off 4-byte alignment (element copies of the
+    window, element reads of the far diagonals, element stores of Y): Y
+    within one bf16 ulp of the plain version and bitwise the SpMM's, the
+    Gram within 1e-5."""
+    rng = np.random.default_rng(395 + k)
+    offsets = (-2049, -1, 0, 1, 2, 700)
+    diags = _bf(rng.standard_normal((len(offsets), n)), dev)
+    raw = _bf(rng.standard_normal(k * n + 1), dev)
+    Xt = raw[1:].view(k, n)
+    assert Xt.data_ptr() % 4 != 0
+    Y, G = stencil.stencil_spmm_gram_t(diags, offsets, Xt)
+    Yp, Gp = stencil.stencil_spmm_plain(diags, offsets, Xt, with_gram=True)
+    assert _ulps(Y, Yp) <= 1 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, stencil.stencil_spmm_t(diags, offsets, Xt))
 
 
 @pytest.mark.parametrize("k,n", [(3, 1000), (16, 5000), (32, 4099), (32, 8192), (64, 700),
                                  (96, 2048), (128, 1024), (200, 512),
                                  # the tensor cores' edges: rows not a multiple of 16
                                  # (of 8 for 12), ragged n
-                                 (12, 4099), (40, 777), (48, 8192)])
+                                 (12, 4099), (40, 777), (48, 8192), (64, 8192)])
 def test_fused_bf16_kernels_match_plain(dev, k, n):
     rng = np.random.default_rng(200 + k)
     M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
@@ -1661,9 +1766,15 @@ def test_fused_bf16_kernels_match_plain(dev, k, n):
         Y, G = fused.mm_update_gram(M1, B1, a)
         Yp, _ = fused.mm_update_gram_plain(M1, B1, a)
         assert _ulps(Y, Yp) <= 1 and _relfro(G, fused.gram_plain(Y, Y)) < 1e-5
+        assert _relfro(G.double(), Y.double() @ Y.double().T) < 1e-5
+        if k <= fused.UPDATE_GRAM_MMA_MAX_K:  # the tensor cores' Gram: exactly symmetric
+            assert torch.equal(G, G.T)
     Y, G = fused.mm2_update_gram(M1, B1, M2, B2)
     Yp, _ = fused.mm2_update_gram_plain(M1, B1, M2, B2)
     assert _ulps(Y, Yp) <= 1 and _relfro(G, fused.gram_plain(Y, Y)) < 1e-5
+    assert _relfro(G.double(), Y.double() @ Y.double().T) < 1e-5
+    if k <= fused.UPDATE_GRAM_MMA_MAX_K:
+        assert torch.equal(G, G.T)
     Pn, Xn = fused.px_update(M1, B1, M2, B2, M3, A)
     Pp, Xp = fused.px_update_plain(M1, B1, M2, B2, M3, A)
     assert _ulps(Pn, Pp) <= 1 and _ulps(Xn, Xp) <= 1
@@ -1671,14 +1782,21 @@ def test_fused_bf16_kernels_match_plain(dev, k, n):
         assert _native.launches[f"{w}[bf16]"] >= 1 and _native.launches[w] == 0
 
 
-def test_fused_bf16_donated_match_fresh(dev):
-    k, n = 32, 3000
+@pytest.mark.parametrize("k,n", [(32, 3000), (12, 4099), (48, 8192), (64, 777)])
+def test_fused_bf16_donated_match_fresh(dev, k, n):
+    """In place (the solvers donate) gives the fresh call's bits: rows 7
+    and 8 on the tensor cores up to 64 rows (aligned, ragged), row 9."""
     rng = np.random.default_rng(210)
     M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
     W, P, X = (_bf_field(k, n, s, dev) for s in (211, 212, 213))
     want = fused.mm2_update_gram(M1, W, M2, P)
     Wd = W.clone()
     got = fused.mm2_update_gram(M1, Wd, M2, P, donate=True)
+    assert got[0].data_ptr() == Wd.data_ptr()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want = fused.mm_update_gram(M1, W, X)
+    Wd = W.clone()
+    got = fused.mm_update_gram(M1, Wd, X, donate=True)
     assert got[0].data_ptr() == Wd.data_ptr()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     want = fused.px_update(M1, W, M2, P, M3, X)
@@ -1724,6 +1842,10 @@ _F32_COEFF_CASES = {
     "mm_update": lambda M, B, O, Z: fused.mm_update(M, B),
     "mm_update_gram": lambda M, B, O, Z: fused.mm_update_gram(M, B)[0],
     "mm2_update_gram": lambda M, B, O, Z: fused.mm2_update_gram(M, B, O, B)[0],
+    # the cancelling pair across the stacked coefficient [M1 M2]: c from M1,
+    # -c' from M2, both on b
+    "mm2_update_gram M1 M2": lambda M, B, O, Z: fused.mm2_update_gram(
+        torch.diag(torch.diag(M)), B, M - torch.diag(torch.diag(M)), B.flip(0))[0],
     "px_update": lambda M, B, O, Z: fused.px_update(M, B, O, B, O, B)[0],
     "xr_update_gram": lambda M, B, O, Z: fused.xr_update_gram(M, B, Z, B, B)[0],
     "qr_p_update": lambda M, B, O, Z: fused.qr_p_update(M, B, O, B)[0],
@@ -1745,7 +1867,7 @@ def test_bf16_coefficients_stay_f32(dev, name):
     _native.reset_launches()
     Y = _F32_COEFF_CASES[name](M, B, torch.zeros_like(M), torch.zeros_like(B))
     assert torch.equal(Y[0], b[0] * 2.0 ** -10)
-    assert _native.launches[f"{name}[bf16]"] == 1
+    assert _native.launches[f"{name.split()[0]}[bf16]"] == 1
     rng = np.random.default_rng(351)
     b = _bf(rng.choice([-3.0, -1.5, -1.0, -0.75, 0.75, 1.0, 1.5, 3.0], (1, 4096)), dev)
     B = torch.cat([b, b])
@@ -1755,7 +1877,7 @@ def test_bf16_coefficients_stay_f32(dev, name):
     want = b[0].double() * (c - c2)
     assert float(((Y[0].double() - want).abs() / want.abs()).max()) <= 2.0 ** -12
     assert torch.equal(Y[0], (b[0].float() * 2.0 ** -20).bfloat16())
-    assert _native.launches[f"{name}[bf16]"] == 2
+    assert _native.launches[f"{name.split()[0]}[bf16]"] == 2
 
 
 def _wraps(tiles, blocks, stages):
@@ -1807,6 +1929,49 @@ def test_bf16_tensor_core_rows_repeat_and_donate(dev, n):
             assert torch.equal(got, want)
             del Ud, Ad, got
     assert _native.launches["gram[bf16]"] == 4 and _native.launches["mm_update[bf16]"] == 7
+    # Rows 7 and 8 with their Gram (update_gram_mma's ring) and the stencil
+    # with its Gram on a 64 x 256 x 256 (n = 2^22) or 40,000-column torus:
+    # Y within 1 bf16 ulp, G within 1e-5 of the f64 Gram its contract names
+    # (exactly symmetric for rows 7 and 8), a repeat bitwise, a donated B1
+    # (B) the fresh Y's bits.
+    if n > 1 << 20:
+        for nf, has_a in ((2, False), (1, False), (1, True)):
+            plan = fused.update_gram_mma_plan(k, n, nf, has_a, smem, sms)
+            assert _wraps(-(-n // plan.T), min(-(-n // plan.T), sms), plan.stages) >= 4
+    M2 = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
+    _native.reset_launches()
+    want = fused.mm2_update_gram(M, U, M2, V)
+    assert all(torch.equal(a, b) for a, b in zip(want, fused.mm2_update_gram(M, U, M2, V)))
+    assert _ulps(want[0], fused.mm2_update_gram_plain(M, U, M2, V)[0]) <= 1
+    assert torch.equal(want[1], want[1].T)
+    assert _relfro(want[1].double(), want[0].double() @ want[0].double().T) < 1e-5
+    Ud = U.clone()
+    got = fused.mm2_update_gram(M, Ud, M2, V, donate=True)
+    assert got[0].data_ptr() == Ud.data_ptr()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    del want, got, Ud
+    for a in (None, A):
+        want = fused.mm_update_gram(M, U, a)
+        assert all(torch.equal(x, y) for x, y in zip(want, fused.mm_update_gram(M, U, a)))
+        assert _ulps(want[0], fused.mm_update_gram_plain(M, U, a)[0]) <= 1
+        assert torch.equal(want[1], want[1].T)
+        Ud = U.clone()
+        got = fused.mm_update_gram(M, Ud, a, donate=True)
+        assert got[0].data_ptr() == Ud.data_ptr()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        del want, got, Ud
+    assert _native.launches["mm2_update_gram[bf16]"] == 3
+    assert _native.launches["mm_update_gram[bf16]"] == 6
+    offsets = (0, 1, -1, 256, -256, 65536, -65536) if n > 1 << 20 else (0, 1, -1, 200, -200,
+                                                                         20000, -20001)
+    diags = torch.randn((len(offsets), n), generator=gen, device=dev).bfloat16()
+    Y, G = stencil.stencil_spmm_gram_t(diags, offsets, U)
+    Y2, G2 = stencil.stencil_spmm_gram_t(diags, offsets, U)
+    assert torch.equal(Y, Y2) and torch.equal(G, G2)
+    assert torch.equal(Y, stencil.stencil_spmm_t(diags, offsets, U))
+    S = stencil.stencil_spmm_t(diags.float(), offsets, U.float())
+    assert _relfro(G.double(), U.double() @ S.double().T) < 1e-5
+    assert _ulps(Y, S) <= 1
 
 
 @pytest.mark.parametrize("k,n", [(16, 4096), (40, 1000), (33, 4104)])
@@ -1825,7 +1990,15 @@ def test_bf16_tensor_core_rows_unaligned_fields(dev, k, n):
     assert torch.equal(Gs, Gs.T) and _relfro(Gs, fused.gram_plain(U, U)) < 1e-5
     for a in (None, A):
         assert _ulps(fused.mm_update(M, U, a), fused.mm_update_plain(M, U, a)) <= 1
+        Y, G = fused.mm_update_gram(M, U, a)
+        assert _ulps(Y, fused.mm_update_gram_plain(M, U, a)[0]) <= 1
+        assert torch.equal(G, G.T) and _relfro(G, fused.gram_plain(Y, Y)) < 1e-5
+    Y, G = fused.mm2_update_gram(M, U, M, V)
+    assert _ulps(Y, fused.mm2_update_gram_plain(M, U, M, V)[0]) <= 1
+    assert torch.equal(G, G.T) and _relfro(G, fused.gram_plain(Y, Y)) < 1e-5
     assert _native.launches["gram[bf16]"] == 2 and _native.launches["mm_update[bf16]"] == 2
+    assert _native.launches["mm_update_gram[bf16]"] == 2
+    assert _native.launches["mm2_update_gram[bf16]"] == 1
 
 
 @pytest.mark.parametrize("ku,kv", [(16, 40), (40, 16), (8, 96), (96, 12)])
@@ -1980,6 +2153,10 @@ def test_const_hop_bf16_runs_plain_on_card(dev, k):
     (4096, 32, (-256, -16, -1, 0, 1, 16, 256)),
     (777, 40, (0, 700, -700, 3)),                   # ragged n: element copies
     (300, 64, (-1, 0, 1, 600)),                     # |o| >= n reduces mod n
+    # the bf16 field's tensor-core Gram: width 16, ragged n; width 64 with
+    # windows across 0 and n on every tile
+    (4099, 12, (-5, -1, 0, 1, 3)),
+    (2048, 64, (0, 1, -1, 2047, 1, 2041)),
 ])
 @pytest.mark.parametrize("pair", ["bf16 coeffs", "bf16 field"])
 def test_mixed_stencil_pairs_match_plain(dev, pair, n, k, offsets):

@@ -407,6 +407,40 @@ def test_host_constants_mirror_the_sources():
     assert "kMmMmaBlocks = W <= 64 ? 2 : 1;" in mm
     assert [fused.mm_mma_blocks_per_sm(k) for k in (16, 32, 64, 65, 128)] == [2, 2, 2, 1, 1]
     assert "T < 128 || T > 256 || T % 128 != 0" in mm and set(fused.MM_MMA_TILES) == {128, 256}
+    # The bf16 stencil with its Gram (row 2b) and rows 7-8 with theirs on
+    # the tensor cores.
+    assert int(re.search(r"kStMmaScratch = (\d+)", st).group(1)) == stencil.MMA_SCRATCH
+    assert "return T + 2 * h + ((16 - T - 2 * h) & 63);" in st
+    assert ("const int b = 2 * nst * T * round8(k) + 2 * k * mma_window_ld(h, T) + "
+            "dsize * ndiag * T;\n  return (b + 1023) / 1024 * 1024;" in st)
+    assert ("const long long b = 2LL * mma_stage_bytes(k, ndiag, nst, h, T, dsize) +\n"
+            "                      2LL * k * mma_tile_ld(T);\n"
+            "  return (b > 4LL * kStMmaScratch ? b : 4LL * kStMmaScratch) + 1024;" in st)
+    assert "if (gram && S == nullptr && k <= 64)" in st and stencil.MMA_MAX_K == 64
+    assert "__launch_bounds__(kStMmaThreads, 1)\n    stencil_mma(" in st
+    assert "constexpr int kStMmaThreads = 512;" in st
+    assert "__shared__ Diags dg;" in st and "__shared__ unsigned long long full[2];" in st
+    assert stencil.MMA_STATIC_BYTES == 4 * (4 * 32 + 1) + 16
+    assert ("int stage[kMaxDiags];" in st and "int far[kMaxDiags];" in st
+            and "int nst;" in st)
+    assert int(re.search(r"kStMaxStaged = (\d+)", st).group(1)) == stencil.MMA_MAX_STAGED
+    assert "inline int mma_tile_ld(int T) { return T + ((16 - T) & 63); }" in st
+    assert "QN = W == 8 ? 1 : W >= 64 ? 4 : 2;" in st and "P = 16 / (QM * QN);" in st
+    assert "return k <= 8 ? 8 : k <= 16 ? 16 : k <= 32 ? 32 : 64; }" in st
+    assert ("const long long b = 2LL * T * (stages * (nf * W + (has_a ? round8(k) : 0)) + "
+            "round8(k));" in ug)
+    assert ("const long long scratch = 4LL * 9216;" in ug and "kScratch <= 9216" in ug
+            and fused.UPDATE_MMA_SCRATCH == 9216)
+    built = re.findall(r"if \(k <= (\d+)\) BCG_UM\((\d+), (\d+)\);", ug)
+    assert [(int(a), int(b), int(c)) for a, b, c in built] == [
+        (8, 16, 8), (16, 16, 16), (32, 32, 32), (48, 64, 48)]
+    assert "  BCG_UM(64, 64);" in ug and fused.UPDATE_MMA_WIDTHS == (16, 32, 64)
+    assert ("k > 64 || T < 128 || T > 512 || T % 128 != 0 || stages < 2 ||\n"
+            "      stages > kRingMaxStages" in ug)
+    assert fused.UPDATE_GRAM_MMA_MAX_K == 64
+    assert set(fused.UPDATE_MMA_TILES) <= {128, 256, 384, 512}
+    assert "__launch_bounds__(kUpThreads, 1)\n    update_gram_mma(" in ug
+    assert "return dispatch_mma<2>(" in mm2 and "return dispatch_mma<1>(" in mm1
     bs = (CSRC / "block_stencil.cu").read_text()
     for name, value in (("kMaxDiags", bsk.MAX_DIAGS), ("kMaxBs", bsk.MAX_BS),
                         ("kBsThreads", bsk.THREADS), ("kBsMaxRows", bsk.MAX_ROWS),
@@ -797,3 +831,180 @@ def test_timing_tool_bounds_of_the_new_cases():
     assert tool.bound_us("row 5 gram 64 x 32 (96, 32^4)") == pytest.approx(
         max(4 * (96 * n + 64 * 32) / 3.35e12, 2 * 64 * 32 * n / 67e12) * 1e6)
     assert tool.bound_us("row 23 block_stencil_spmm_m_t x") is None
+
+
+# ------------- bf16 rows 2 and 7-8 on the tensor cores: plans and schedules
+
+
+_LAP = {  # config 5's inner shape, config 3's, config 2's, config 4's lattice
+    "256^3": (256 ** 3, _lap_offsets((256, 256, 256))),
+    "64^3": (64 ** 3, _lap_offsets((64, 64, 64))),
+    "512^2": (512 ** 2, _lap_offsets((512, 512))),
+    "32^4": (32 ** 4, _lap_offsets((32, 32, 32, 32))),
+}
+
+
+@pytest.mark.parametrize("shape,k,h,T,nfar", [
+    ("256^3", 32, 256, 256, 2),    # +-1, +-256 from the window, +-65536 staged: traffic 5.0
+    ("64^3", 32, 64, 256, 2),
+    ("512^2", 16, 512, 1024, 0),   # every diagonal from the window
+    ("32^4", 48, 32, 128, 4),
+])
+def test_stencil_mma_plan_of_the_main_shapes(shape, k, h, T, nfar):
+    """The bf16 stencil with its Gram on the tensor cores: the plan fits the
+    card's shared memory at one block an SM with its far slabs staged, its
+    halo is a multiple of the window's 8-column copy chunk, its tile a
+    multiple of the 16-column steps of every warp, and no wider tile fits at
+    its halo."""
+    n, offsets = _LAP[shape]
+    plan = stencil.stencil_mma_plan(offsets, n, k, H100_SMEM, H100_SMS)
+    assert (plan.h, plan.T, plan.near.count(False), plan.blocks_per_sm) == (h, T, nfar, 1)
+    assert plan.h % 8 == 0 and plan.T % 128 == 0 and plan.T in stencil.MMA_TILES
+    nst = min(nfar, stencil.MMA_MAX_STAGED)
+    assert plan.smem_bytes == stencil.mma_smem_bytes(k, len(offsets), nst, h, T)
+    assert plan.smem_bytes + stencil.MMA_STATIC_BYTES <= H100_SMEM
+    assert plan.traffic == pytest.approx((T + 2 * h) / T + nfar)
+    assert plan.near == tuple(min(o % n, n - o % n) <= h for o in offsets)
+    L, Lf = stencil.mma_window_ld(h, T), stencil.mma_tile_ld(T)
+    assert L >= T + 2 * h and L % 64 == 16 and L - (T + 2 * h) < 64
+    assert Lf >= T and Lf % 64 == 16
+    for t in stencil.MMA_TILES:
+        if t > T and t <= n // H100_SMS and (stencil.mma_smem_bytes(k, len(offsets), nst, h, t)
+                                            + stencil.MMA_STATIC_BYTES <= H100_SMEM):
+            raise AssertionError(f"a wider tile {t} fits at h = {h}")
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        stencil.stencil_mma_plan(offsets, n, 65, H100_SMEM, H100_SMS)
+
+
+@pytest.mark.parametrize("k,n,nf,has_a,T,stages", [
+    (32, 256 ** 3, 2, False, 512, 3),  # row 8 at config 5's inner shape
+    (32, 256 ** 3, 1, True, 512, 3),   # row 7 there, with A
+    (32, 64 ** 3, 2, False, 512, 3),
+    (16, 512 ** 2, 2, False, 512, 4),
+    (48, 32 ** 4, 2, False, 256, 3),   # 64-row boxes: no room for 512 columns
+    (64, 2 ** 20, 2, False, 256, 3),
+    (12, 777, 1, False, 128, 4),       # a small field: 128 columns
+])
+def test_update_gram_mma_plan_of_the_main_shapes(k, n, nf, has_a, T, stages):
+    """Rows 7 and 8 in bf16 with the fused Gram: the widest tile whose ring
+    holds two stages beside the tile of Y at one block an SM, as deep as
+    fits up to ``UPDATE_MMA_MAX_STAGES``."""
+    plan = fused.update_gram_mma_plan(k, n, nf, has_a, H100_SMEM, H100_SMS)
+    assert (plan.T, plan.stages) == (T, stages)
+    assert plan.smem_bytes == fused.update_gram_mma_smem_bytes(k, T, stages, nf, has_a)
+    assert plan.smem_bytes + fused.RING_BARRIER_BYTES <= H100_SMEM
+    deeper = fused.update_gram_mma_smem_bytes(k, T, stages + 1, nf, has_a)
+    assert (stages == fused.UPDATE_MMA_MAX_STAGES
+            or deeper + fused.RING_BARRIER_BYTES > H100_SMEM)
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        fused.update_gram_mma_plan(65, n, nf, has_a, H100_SMEM, H100_SMS)
+
+
+def _mma_gram_split(W):
+    """``csrc/mma.cuh`` MmaGram<W>: (MT, NT, QM, QN, P, TM, TN)."""
+    MT, NT = (W + 15) // 16, W // 8
+    QM = 2 if W >= 64 else 1
+    QN = 4 if W == 96 else 2 if W >= 48 else 1
+    P = 8 // (QM * QN)
+    return MT, NT, QM, QN, P, MT // QM, NT // QN
+
+
+def _gram_width(k):
+    return next(w for w in fused.GRAM_WIDTHS if k <= w)
+
+
+def _st_mma_split(k):
+    """``csrc/stencil.cu`` StMma<W> for a launch of k rows (W 8, 16, 32 or
+    64, 48 rows taking 64's): (MT, NT, QM, QN, P, TM, TN) of its 16 warps."""
+    W = 8 if k <= 8 else 16 if k <= 16 else 32 if k <= 32 else 64
+    MT, NT = (W + 15) // 16, W // 8
+    QM = 2 if W >= 64 else 1
+    QN = 1 if W == 8 else 4 if W >= 64 else 2
+    P = 16 // (QM * QN)
+    return MT, NT, QM, QN, P, MT // QM, NT // QN
+
+
+@pytest.mark.parametrize("k,n,T", [(32, 3000, 1024), (12, 777, 256), (40, 1000, 768),
+                                   (48, 2048, 512), (64, 1100, 256), (5, 300, 128)])
+def test_stencil_mma_schedule_covers_x_and_y_once(k, n, T):
+    """``csrc/stencil.cu`` stencil_mma's schedule in numpy: warp (p, q) of
+    the 16 takes the 16-column steps p, p + P, ... of each tile; lane (g, t)
+    computes Y rows 8 (nt0 + j) + g (clamped to k - 1) at the tile's columns
+    c0 + 4t .. c0 + 4t + 3 and stores those of the first row group below k and
+    n; the warp's mma fragments (mt0 + a, nt0 + b) take X rows 16 (mt0 + a)
+    .. + 15 over the step's 16 columns. Every Y entry is stored exactly
+    once; every product X[r, c] Y[s, c] (r, s < k, c < n) enters G exactly
+    once; and the Gram of the f32 sums in three bf16 pieces is X Y^T
+    exactly (in f64), which two pieces are not."""
+    MT, NT, QM, QN, P, TM, TN = _st_mma_split(k)
+    assert P * QM * QN == 16 and QM * TM == MT and QN * TN == NT
+    stored = np.zeros((k, n), dtype=int)
+    products = np.zeros((k, k, n), dtype=int)
+    for i0 in range(0, n, T):
+        for warp in range(16):
+            p, q = warp % P, warp // P
+            mt0, nt0 = q // QN * TM, q % QN * TN
+            for c0 in range(16 * p, T, 16 * P):
+                for g in range(8):
+                    for t in range(4):
+                        for j in range(TN):
+                            r = 8 * (nt0 + j) + g
+                            for dc in range(4):
+                                col = i0 + c0 + 4 * t + dc
+                                if r < k and q // QN == 0 and col < n:
+                                    stored[r, col] += 1
+                cols = np.arange(i0 + c0, min(i0 + c0 + 16, n))
+                xr = [r for m in range(TM) for r in range(16 * (mt0 + m), 16 * (mt0 + m) + 16)
+                      if r < k]
+                yr = [s for j in range(TN) for s in range(8 * (nt0 + j), 8 * (nt0 + j) + 8)
+                      if s < k]
+                if len(cols):
+                    products[np.ix_(xr, yr, cols)] += 1
+    assert (stored == 1).all()
+    assert (products == 1).all()
+    rng = np.random.default_rng(k)
+    X = _bf16_round(rng.standard_normal((k, n))).astype(np.float64)
+    Yf = (rng.standard_normal((k, n)) * 10.0 ** rng.integers(-3, 3, (k, n))).astype(np.float32)
+    hi = _bf16_round(Yf)
+    mid = _bf16_round((Yf - hi).astype(np.float32))
+    lo = _bf16_round((Yf - hi - mid).astype(np.float32))
+    want = X @ Yf.astype(np.float64).T
+    three = X @ (hi.astype(np.float64) + mid + lo).T
+    two = X @ (hi.astype(np.float64) + mid).T
+    assert np.array_equal(three, want) and not np.array_equal(two, want)
+
+
+@pytest.mark.parametrize("k", [8, 12, 32, 40, 64])
+def test_update_gram_mma_schedule_covers_y_once(k):
+    """``csrc/update_gram.cuh`` update_gram_mma in numpy: warp w owns the
+    16-row tile w / CG of Y (CG = 8 / (W / 16)) and every CG-th 16-column
+    pair of a tile, so every Y entry of a tile is written once; the
+    symmetric Gram (MmaGram<gram_width(k)>, fragments with nt >= 2 mt, the
+    rest mirrored) holds every entry r <= s of the padded Gram exactly once
+    a column step, so each G entry of the stored Y is one sum, exactly
+    symmetric."""
+    W = next(w for w in fused.UPDATE_MMA_WIDTHS if k <= w)
+    MT = W // 16
+    CG = 8 // MT
+    T = 256
+    written = np.zeros((k, T), dtype=int)
+    for warp in range(8):
+        rg, cg = warp // CG, warp % CG
+        for pair in range(cg, T // 16, CG):
+            for r in range(16 * rg, 16 * rg + 16):
+                if r < k:
+                    written[r, 16 * pair:16 * pair + 16] += 1
+    assert (written == 1).all()
+    MTg, NTg, QM, QN, P, TM, TN = _mma_gram_split(_gram_width(k))
+    held = np.zeros((16 * MTg, 8 * NTg, T // 16), dtype=int)
+    for warp in range(8):
+        p, q = warp % P, warp // P
+        mt0, nt0 = q // QN * TM, q % QN * TN
+        for step in range(p, T // 16, P):
+            for i in range(TM):
+                for j in range(TN):
+                    if nt0 + j >= 2 * (mt0 + i):
+                        held[16 * (mt0 + i):16 * (mt0 + i) + 16,
+                             8 * (nt0 + j):8 * (nt0 + j) + 8, step] += 1
+    upper = np.triu(np.ones((k, k), dtype=bool))
+    assert (held[:k, :k][upper] == 1).all()

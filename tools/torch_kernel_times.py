@@ -30,7 +30,12 @@ FLOPs a column, it is not symmetric). With ``--variants`` it times the
 tensor-core kernels of rows 5 and 6 (``gram`` with U != V and U is V,
 ``mm_update`` without and with A) at that shape on each column tile and
 ring depth that fits, marking the ones their plans (``gram_plan``,
-``mm_update_mma_plan``) pick.
+``mm_update_mma_plan``) pick; then the tensor-core kernels of rows 2, 7 and
+8 with their Grams: the stencil on each window halo (8 or 256) and tile
+that fits, rows 7 and 8 on each column tile and ring depth
+(``stencil_mma_plan``, ``update_gram_mma_plan`` marked), and the stencil's
+probe builds with parts switched off (far X, the Gram, the stores of Y,
+the window's refills).
 
 ``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
 32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
@@ -75,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+from itertools import chain
 import json
 import re
 import sys
@@ -559,6 +565,138 @@ def bf16_variants(torch, dev):
                        lambda a=a, T=T, st=st: (_native.launch(
                            "variant", "bcg_mm_update_bf16", dev, p(M), p(U), p(a), p(Y), k, n, T,
                            st), Y)[1], bound)
+
+
+def bf16_mma_variants(torch, dev):
+    """Rows 2, 7 and 8 in bf16 with their Grams on the tensor cores at
+    (32, 256^3): the stencil (``stencil_mma``) on each (h, T) that fits the
+    card at one block an SM, h one of the halos its plan weighs, and rows 7
+    and 8 (``update_gram_mma``) on each (T, stages) that fits; the plans'
+    own marked, each with its bound and checksums."""
+    from blockcg_tpu_torch.ops import _native, fused, stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 32
+    op = laplacian_dia((256,) * 3, dtype=torch.bfloat16, device=dev)
+    n, nd, p = op.n, len(op.offsets), _native.ptr
+    idx = dev.index
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    U, V = (torch.randn((k, n), generator=gen, device=dev).bfloat16() for _ in range(2))
+    M, M2 = (torch.randn((k, k), generator=gen, device=dev) / k ** 0.5 for _ in range(2))
+    Y = torch.empty_like(U)
+    part = torch.empty((_native.nblocks(n), k, k), device=dev)
+    G = torch.empty((k, k), device=dev)
+    fb, kk = 2 * k * n, 4 * k * k
+    nnz = int(torch.count_nonzero(op.diags))
+    plan = stencil.stencil_mma_plan(tuple(op.offsets), n, k, cap, sms)
+    offs = [int(o) % n for o in op.offsets]
+    import ctypes
+    carr = (ctypes.c_int * nd)(*offs)
+    bound = max((2 * nd * n + 2 * fb + kk) / 3.35e12,
+                (2 * k * nnz + 2 * k * k * n) / 989e12) * 1e6
+    dist = [min(o, n - o) for o in offs]
+    for T in stencil.MMA_TILES:
+        for h in (8, 256):
+            nst = min(sum(d > h for d in dist), stencil.MMA_MAX_STAGED)
+            if stencil.mma_smem_bytes(k, nd, nst, h, T) + stencil.MMA_STATIC_BYTES > cap:
+                continue
+            mark = " (plan)" if (h, T) == (plan.h, plan.T) else ""
+            yield (f"variant row 2 stencil_spmm_gram_t[bf16] h={h} T={T}{mark} (32, 256^3)",
+                   lambda h=h, T=T: (_native.launch(
+                       "variant", "bcg_stencil_spmm_bf16", dev, p(op.diags), carr, nd, p(U),
+                       p(Y), None, p(part), p(G), k, n, h, T, _native.nblocks(n)), Y, G)[1:],
+                   bound)
+    for nf in (2, 1):
+        mplan = fused.update_gram_mma_plan(k, n, nf, False, cap, sms)
+        bound = max(((nf + 1) * fb + (nf + 1) * kk) / 3.35e12,
+                    (2 * nf * k * k * n + k * (k + 1) * n) / 989e12) * 1e6
+        row = "row 8 mm2_update_gram" if nf == 2 else "row 7 mm_update_gram"
+        for T in fused.UPDATE_MMA_TILES:
+            for st in range(2, fused.RING_MAX_STAGES + 1):
+                if (fused.update_gram_mma_smem_bytes(k, T, st, nf, False)
+                        + fused.RING_BARRIER_BYTES > cap):
+                    continue
+                mark = " (plan)" if (T, st) == (mplan.T, mplan.stages) else ""
+                args = ((p(M), p(U), p(M2), p(V), p(Y)) if nf == 2
+                        else (p(M), p(U), None, p(Y)))
+                fn = "bcg_mm2_update_gram_mma" if nf == 2 else "bcg_mm_update_gram_mma"
+                yield (f"variant {row}[bf16] T={T} stages={st}{mark} (32, 256^3)",
+                       lambda args=args, fn=fn, T=T, st=st: (_native.launch(
+                           "variant", fn, dev, *args, p(part), p(G), k, n, T, st,
+                           _native.nblocks(n)), Y, G)[1:], bound)
+
+
+# Probe builds of the bf16 stencil with its Gram on the tensor cores
+# (csrc/stencil.cu stencil_mma<bf16, 32, PROBE>, exported by a source that
+# includes it) on its plan at (32, 256^3): parts switched off, to see what
+# its time is made of, and other counts of diagonals whose reads are in
+# flight together (probe 100 + CH: stencil_mma<bf16, 32, 0, CH>).
+SM_PROBE = r"""#include "{src}"
+extern "C" int sm_probe(const bf16* diags, const int* offsets, int ndiag, const bf16* X, bf16* Y,
+                        float* part, float* G, int k, long long n, int h, int T, int max_blocks,
+                        int probe, int device, cudaStream_t stream) {{
+  Diags dg{{}};
+  if (k <= 16 || k > 32 || !make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (probe) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+SM_PROBES = ((0, "as built"), (1, "no far X"), (2, "no Gram"), (4, "no Y stores"),
+             (8, "no window refills"), (6, "no Gram, no Y stores"),
+             (7, "no far X, no Gram, no Y stores"), (15, "nothing but the near SpMM"),
+             (102, "reads of 2 diagonals in flight"), (104, "reads of 4 diagonals in flight"),
+             (108, "reads of 8 diagonals in flight"))
+
+
+def sm_probe_cases(torch, dev, tmp: Path):
+    """Row 2 in bf16 at (32, 256^3) on its plan in the probe builds of
+    ``SM_PROBES``."""
+    import ctypes
+    import subprocess
+
+    from blockcg_tpu_torch.ops import _native, stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    probe = tmp / "sm_probe.cu"
+    cases = "".join(f"    case {v}: return launch_mma<bf16, 32, {v if v < 100 else 0}"
+                    f"{', ' + str(v - 100) if v >= 100 else ''}>(diags, dg, ndiag, X, Y, part, "
+                    "G, k, n, h, T, max_blocks, device, stream);\n" for v, _ in SM_PROBES)
+    probe.write_text(SM_PROBE.format(src=_native.CSRC / "stencil.cu", cases=cases))
+    lib = tmp / "libsmprobe.so"
+    built = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-shared", str(probe), "-o",
+                            str(lib)], capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the stencil probe:\n{built.stdout}{built.stderr}")
+    fn = ctypes.CDLL(str(lib)).sm_probe
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes, fn.restype = [P, ctypes.POINTER(ctypes.c_int), I, P, P, P, P, I, L, I, I, I, I,
+                               I, P], I
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 32
+    op = laplacian_dia((256,) * 3, dtype=torch.bfloat16, device=dev)
+    n, nd = op.n, len(op.offsets)
+    idx = dev.index
+    plan = stencil.stencil_mma_plan(tuple(op.offsets), n, k, _native.max_smem(idx),
+                                    _native.sm_count(idx))
+    U = torch.randn((k, n), generator=gen, device=dev).bfloat16()
+    Y = torch.empty_like(U)
+    part = torch.empty((_native.nblocks(n), k, k), device=dev)
+    G = torch.empty((k, k), device=dev)
+    coffs = (ctypes.c_int * nd)(*(int(o) % n for o in op.offsets))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for v, what in SM_PROBES:
+        def run(v=v):
+            rc = fn(op.diags.data_ptr(), coffs, nd, U.data_ptr(), Y.data_ptr(), part.data_ptr(),
+                    G.data_ptr(), k, n, plan.h, plan.T, _native.nblocks(n), v, idx, stream)
+            if rc != 0:
+                raise RuntimeError(f"stencil probe {v} failed: {rc}")
+            return Y, G
+        yield f"probe row 2 stencil_spmm_gram_t[bf16] {what} h={plan.h} T={plan.T} (32, 256^3)", \
+            run, None
 
 
 def bound_us(name: str) -> float | None:
@@ -1107,7 +1245,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        todo = (bf16_variants(torch, dev) if args.bf16 and args.variants
+        todo = (chain(bf16_variants(torch, dev), bf16_mma_variants(torch, dev),
+                      sm_probe_cases(torch, dev, Path(tmp)))
+                if args.bf16 and args.variants
                 else bf16_cases(torch, dev) if args.bf16
                 else sweep_cases(torch, dev) if args.sweep
                 else const_hop_variants(torch, dev, Path(tmp), args.only)
