@@ -146,6 +146,12 @@ inline bool tma_ok(const void* F, long long n) {
   return n % 8 == 0 && n < (1LL << 31) && aligned16(F);
 }
 
+// Order this thread's earlier writes to shared memory before later copies
+// of the asynchronous proxy (TMA) into the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Post `bytes` more to arrive on bar in its current phase, and arrive.
 __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),

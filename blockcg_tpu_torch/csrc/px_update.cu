@@ -41,7 +41,8 @@
 // copies of 8 elements (n % 8 == 0), lifted to f32 four at a time as they
 // are read; M1, rho and C stay f32; X is
 // read and Pn and Xn written four bf16 at a time. The FMAs and their order
-// are those of the f32 kernel. QR mode takes bf16 fields too
+// are those of the f32 kernel. That route takes bf16 fields above 64 rows;
+// up to 64 rows they run px_update_mma on the tensor cores (below). QR mode takes bf16 fields too
 // (bcg_qr_p_update_bf16): Q is rounded where it is stored mid-tile, while pn
 // goes on from the unrounded f32 sums, so Pn = Q + rho P adds rho P to the
 // f32 Q (the reference's q + rho p) and is rounded once, at its own store.
@@ -69,6 +70,7 @@
 // and no block reads columns that another block writes; the field pointers
 // are therefore not __restrict__.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -267,6 +269,253 @@ int qr_p_update_entry(const float* M2, const E* Q1, const float* Rho, const E* P
 #undef BCG_QR
 }
 
+// ---- bf16 fields on the tensor cores (px_update_mma: row 9 in bf16, k <= 64)
+//
+// update_gram.cuh's update_gram_mma with two outputs and no Gram. The
+// stacked coefficient [M1 rho] (k x 2k) and C (k x k) are split exactly
+// into three bf16 pieces once a block (split3); each warp owns one 16-row
+// tile of both outputs and takes every CG-th pair of 8-column fragments of
+// a tile. A ring of TMA stages holds W's and P's (k, T) tiles in boxes of W
+// rows (the rows past k zero) and X's in boxes of round8(k) rows, staged as
+// update_gram_mma stages its additive field. Per fragment pair and k-step,
+// one ldmatrix.trans of W's rows feeds [M1 rho]'s W half, and one of P's
+// rows feeds both its rho half and C: the shared read of P the reference
+// fuses the two outputs for. Three mma.sync a fragment and k-step (hi, mid,
+// lo) sum the exact products in f32. Pn is rounded once into a bf16 tile;
+// Xn's fragments add X from the stage in f32 and are rounded once back into
+// the stage's X, each element by the thread that read it. The block then
+// writes both tiles in 16-byte stores. C's fragments stay in registers up
+// to 32 rows; at 64 the three pieces of [M1 rho] already take 96 registers
+// a lane, so C's are read from shared memory (one swizzled box of 64
+// columns a piece) by ldmatrix, where they cost 24 KB instead of 48
+// registers. One block an SM.
+//
+// Bound: bytes, five field passes (read W, P, X; write Pn, Xn), at (32,
+// 256^3) 5,369 MB (1.603 ms at 3.35 TB/s) against 309 GFLOP of products in
+// three pieces (0.31 ms at 989 TFLOP/s). The f32-FMA kernel above took 4.4
+// ms there on an H100 (its FMAs on the lifted fields at the f32 kernel's
+// issue); this one 2.1 ms (PERF.md section 6).
+//
+// In place: Pn may be P and Xn may be X (the solver donates both). A block
+// stages the whole tile (all of W, P and X at its columns) before it writes
+// the tile's columns, the TMA copies in flight meanwhile are of its later
+// tiles' columns, and no block reads columns another block writes; the field
+// pointers are therefore not __restrict__.
+
+// Shared bytes of a launch: `stages` stages of W's and P's tiles (W rows
+// each) and X's (round8(k) rows), the bf16 tile of Pn, C's three pieces at
+// W = 64, and 1 KB to align the boxes; mirrored by ops/fused.py
+// px_update_mma_smem_bytes.
+__host__ __device__ inline long long px_mma_smem_bytes(int k, int W, int T, int stages) {
+  return 2LL * T * (stages * (2 * W + round8(k)) + round8(k)) +
+         (W == 64 ? 3LL * 64 * 128 : 0) + 1024;
+}
+
+// W: the outputs' width (16, 32, 64: k padded). tw, tp, tx: tensor maps of
+// W, P and X (vec; unused otherwise).
+template <int W>
+__global__ void __launch_bounds__(kUpThreads, 1)
+    px_update_mma(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tp,
+                  const __grid_constant__ CUtensorMap tx, const float* __restrict__ M1,
+                  const bf16* Wf, const float* __restrict__ Rho, const bf16* P,
+                  const float* __restrict__ C, const bf16* X, bf16* Pn, bf16* Xn, int k,
+                  long long n, int T, int stages, bool vec) {
+  constexpr int MT = W / 16;      // 16-row tiles of the outputs, and k-steps of each field
+  constexpr int CG = 8 / MT;      // warps a row tile
+  constexpr bool kCs = W == 64;   // C's fragments from shared memory
+  extern __shared__ __align__(16) float smem[];  // stages of [W; P; X] | the tile of Pn | C
+  __shared__ unsigned long long full[kRingMaxStages];
+  char* base = align1k(smem);
+  const int r8 = round8(k);
+  const int fbytes = 2 * T * W, stage = 2 * fbytes + 2 * T * r8;
+  char* pt = base + stages * stage;  // the bf16 tile of Pn, boxes of r8 rows
+  char* cs = pt + 2 * T * r8;        // C's piece p: one box of 64 rows at cs + p 64 128
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int rg = warp / CG, cg = warp % CG;
+  // The A fragments of this warp's row tile, f[piece][e], of the k x k
+  // coefficient M at k-step ks (rows and columns past k zero).
+  const auto split_frag = [&](const float* M, int ks, unsigned (&f)[3][4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * rg + g + 8 * (e & 1);
+      const int c = 16 * ks + 2 * tq + 8 * (e >> 1);
+      bf16 x0[3], x1[3];  // the pieces of M[r, c] and M[r, c + 1]
+      split3(r < k && c < k ? M[r * k + c] : 0.f, x0);
+      split3(r < k && c + 1 < k ? M[r * k + c + 1] : 0.f, x1);
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece) f[piece][e] = pack_bf16(x0[piece], x1[piece]);
+    }
+  };
+  unsigned a[2 * MT][3][4];     // [M1 rho]: k-step ks of W's rows (ks < MT), then of P's
+  [[maybe_unused]] unsigned c[kCs ? 1 : MT][3][4];  // C, in registers up to 32 rows
+#pragma unroll
+  for (int ks = 0; ks < MT; ++ks) {
+    split_frag(M1, ks, a[ks]);
+    split_frag(Rho, ks, a[MT + ks]);
+    if constexpr (!kCs) split_frag(C, ks, c[ks]);
+  }
+  if constexpr (kCs) {
+    for (int e = threadIdx.x; e < 64 * 64; e += kUpThreads) {
+      const int r = e / 64, q = e % 64;
+      bf16 x[3];
+      split3(r < k && q < k ? C[r * k + q] : 0.f, x);
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece)
+        *reinterpret_cast<bf16*>(cs + piece * 64 * 128 + swz(r, q, 64)) = x[piece];
+    }
+  }
+  // Rows k .. W-1 of every stage's W and P stay zero: their products meet
+  // the coefficients' zero columns.
+  for (int e = threadIdx.x; e < stages * 2 * (W - k) * T; e += kUpThreads) {
+    const int s = e / (2 * (W - k) * T), x = e % (2 * (W - k) * T);
+    const int f = x / ((W - k) * T), y = x % ((W - k) * T);
+    *reinterpret_cast<bf16*>(base + s * stage + f * fbytes + swz(k + y / T, y % T, W)) =
+        __float2bfloat16_rn(0.f);
+  }
+  const TmaRing ring{full, stages, (n + T - 1) / T};
+  const auto load = [&](int s, long long t) {  // stage s takes the tiles t by TMA
+    char* sb = base + s * stage;
+    tma_post(&full[s], 3 * k, T);
+    tma_tile(sb, &tw, W, t * T, T, &full[s]);
+    tma_tile(sb + fbytes, &tp, W, t * T, T, &full[s]);
+    tma_tile(sb + 2 * fbytes, &tx, r8, t * T, T, &full[s]);
+  };
+  ring.init();
+  __syncthreads();  // the barriers, the zero rows and C's pieces
+  if (vec) ring.prime(load);
+  // ldmatrix rows of this lane: .trans of a field's (k 16, n 16) block as
+  // two B fragments (mm_update_mma), and C's A fragment (gram_mma_tile).
+  const int brow = (lane & 7) + 8 * ((lane >> 3) & 1), bcol = 8 * (lane >> 4);
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+  for (long long j = 0, t = blockIdx.x; t < ring.ntiles; ++j, t += gridDim.x) {
+    char* sb = base + ring.stage(j) * stage;
+    char* sx = sb + 2 * fbytes;
+    if (vec) {
+      ring.wait(j);
+    } else {  // element copies into the same stage
+      elem_tile(sb, Wf, k, W, n, t * T, T);
+      elem_tile(sb + fbytes, P, k, W, n, t * T, T);
+      elem_tile(sx, X, k, r8, n, t * T, T);
+    }
+    // Every thread is done with the last tile (its stage, which held Xn,
+    // and the tile of Pn).
+    __syncthreads();
+    if (vec && j > 0) ring.refill(j - 1, load);
+    for (int pair = cg; pair < T / 16; pair += CG) {
+      float pa[2][4] = {}, xa[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < MT; ++ks) {  // W's rows: Pn += M1 W
+        unsigned b[4];  // fragment 2 pair (k 0-7, 8-15), then 2 pair + 1
+        ldsm_x4_trans(b, sb + swz(16 * ks + brow, 16 * pair + bcol, W));
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece) {
+          mma_bf16(pa[0], a[ks][piece], b[0], b[1]);
+          mma_bf16(pa[1], a[ks][piece], b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < MT; ++ks) {  // P's rows, read once: Pn += rho P, Xn = C P
+        unsigned b[4];
+        ldsm_x4_trans(b, sb + fbytes + swz(16 * ks + brow, 16 * pair + bcol, W));
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece) {
+          mma_bf16(pa[0], a[MT + ks][piece], b[0], b[1]);
+          mma_bf16(pa[1], a[MT + ks][piece], b[2], b[3]);
+          if constexpr (kCs) {
+            unsigned cf[4];
+            ldsm_x4(cf, cs + piece * 64 * 128 + swz(16 * rg + arow, 16 * ks + acol, 64));
+            mma_bf16(xa[0], cf, b[0], b[1]);
+            mma_bf16(xa[1], cf, b[2], b[3]);
+          } else {
+            mma_bf16(xa[0], c[ks][piece], b[0], b[1]);
+            mma_bf16(xa[1], c[ks][piece], b[2], b[3]);
+          }
+        }
+      }
+      // Pn rounded once into its tile; Xn = X + C P in f32, rounded once
+      // into the stage's X where this thread read it.
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * rg + g + 8 * h, q = 16 * pair + 8 * f + 2 * tq;
+          if (r >= k) continue;
+          *reinterpret_cast<__nv_bfloat162*>(pt + swz(r, q, r8)) =
+              __floats2bfloat162_rn(pa[f][2 * h], pa[f][2 * h + 1]);
+          __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(sx + swz(r, q, r8));
+          const float2 xv = __bfloat1622float2(*xp);
+          *xp = __floats2bfloat162_rn(xv.x + xa[f][2 * h], xv.y + xa[f][2 * h + 1]);
+        }
+    }
+    __syncthreads();  // both tiles are complete
+    // Pn and Xn out, 8 columns (16 bytes) a thread.
+    const long long i0 = t * T;
+    const int chunks = T / 8;
+    for (int e = threadIdx.x; e < 2 * k * chunks; e += kUpThreads) {
+      const int o = e / (k * chunks), rc = e % (k * chunks);
+      const int r = rc / chunks, q = 8 * (rc % chunks);
+      const long long i = i0 + q;
+      if (i >= n) continue;
+      const uint4 v = *reinterpret_cast<const uint4*>((o == 0 ? pt : sx) + swz(r, q, r8));
+      bf16* out = (o == 0 ? Pn : Xn) + r * n + i;
+      if (vec) {
+        *reinterpret_cast<uint4*>(out) = v;
+      } else {
+        const bf16* w = reinterpret_cast<const bf16*>(&v);
+        for (int x = 0; x < 8 && i + x < n; ++x) out[x] = w[x];
+      }
+    }
+    // This thread's writes of Xn into the stage come before the TMA copy
+    // that refills it.
+    fence_proxy_async();
+  }
+}
+
+template <int W>
+cudaError_t launch_px_mma(const float* M1, const bf16* Wf, const float* Rho, const bf16* P,
+                          const float* C, const bf16* X, bf16* Pn, bf16* Xn, int k, long long n,
+                          int T, int stages, int device, cudaStream_t stream) {
+  auto kernel = px_update_mma<W>;
+  const size_t smem = px_mma_smem_bytes(k, W, T, stages);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long ntiles = (n + T - 1) / T;
+  int grid = 0;
+  err = persistent_grid(kernel, kUpThreads, smem, device, ntiles, ntiles, &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = tma_ok(Wf, n) && tma_ok(P, n) && tma_ok(X, n) && aligned16(Pn) &&
+                   aligned16(Xn);
+  CUtensorMap tw{}, tp{}, tx{};
+  if (vec) {
+    err = make_tmap(&tw, Wf, n, k);
+    if (err == cudaSuccess) err = make_tmap(&tp, P, n, k);
+    if (err == cudaSuccess) err = make_tmap(&tx, X, n, k);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kUpThreads, smem, stream>>>(tw, tp, tx, M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T,
+                                             stages, vec);
+  return cudaGetLastError();
+}
+
+// The tensor-core launch of a k-row px_update (1 <= k <= 64) at its width:
+// W = 16, 32 or 64. T (128 to 512) and stages come from ops/fused.py
+// px_update_mma_plan.
+int px_update_mma_entry(const float* M1, const bf16* Wf, const float* Rho, const bf16* P,
+                        const float* C, const bf16* X, bf16* Pn, bf16* Xn, int k, long long n,
+                        int T, int stages, int device, cudaStream_t stream) {
+  if (n < 1 || k < 1 || k > 64 || T < 128 || T > 512 || T % 128 != 0 || stages < 2 ||
+      stages > kRingMaxStages)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (k <= 16)
+    return launch_px_mma<16>(M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
+  if (k <= 32)
+    return launch_px_mma<32>(M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
+  return launch_px_mma<64>(M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
+}
+
 }  // namespace
 
 // Pn, Xn, X (k, n); M1, rho, C k x kin (row stride kin); W, P (kin, n). kc:
@@ -301,4 +550,15 @@ extern "C" int bcg_qr_p_update_bf16(const float* M2, const bf16* Q1, const float
                                     const bf16* P, bf16* Q, bf16* Pn, int k, int kin,
                                     long long n, int kc, int device, cudaStream_t stream) {
   return qr_p_update_entry(M2, Q1, Rho, P, Q, Pn, k, kin, n, kc, device, stream);
+}
+
+// The same on bf16 fields on the tensor cores (px_update_mma), k <= 64: Pn =
+// M1 W + rho P and Xn = X + C P with M1, rho and C f32 k x k, each split
+// exactly into three bf16 pieces. T and stages come from ops/fused.py
+// px_update_mma_plan. Pn may equal P and Xn X.
+extern "C" int bcg_px_update_mma(const float* M1, const bf16* W, const float* Rho,
+                                 const bf16* P, const float* C, const bf16* X, bf16* Pn,
+                                 bf16* Xn, int k, long long n, int T, int stages, int device,
+                                 cudaStream_t stream) {
+  return px_update_mma_entry(M1, W, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
 }

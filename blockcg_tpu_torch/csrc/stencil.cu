@@ -60,12 +60,12 @@
 // is a multiple of 8 (the window's first column then is too) and n % 8 == 0
 // for the vector copies; the window's row stride is T + 2h. Every product
 // of two bf16 is exact in f32 and accumulates in f32 in the same order as
-// the f32 kernel's; Y is stored rounded to bf16. With the Gram (and no S),
-// a bf16 field runs stencil_mma below: the same sums, the Gram X Y^T of the
-// unrounded f32 sums on the tensor cores, Y split into three exact bf16
-// pieces (its design and bound are described there), as the reference's
-// Pallas kernel takes the Gram from its f32 accumulator. Without the Gram
-// (row 1b) and with S, stencil_spmm runs.
+// the f32 kernel's; Y is stored rounded to bf16. With the Gram, a bf16 field
+// runs stencil_mma below: the same sums, the Gram X Y^T of the unrounded f32
+// sums on the tensor cores, Y split into three exact bf16 pieces (its design
+// and bound are described there), as the reference's Pallas kernel takes the
+// Gram from its f32 accumulator. Without the Gram (row 1b) stencil_spmm
+// runs.
 //
 // Mixed pairs (the reference's gate takes bf16 or f32 for the diagonals and
 // the field independently): bcg_stencil_spmm_bf16d takes bf16 diagonals with
@@ -79,9 +79,9 @@
 //
 // Wide bf16 Gram: where Y is bf16 and the field is wider than one launch,
 // the solvers' Gram needs the f32 sums of every row, which the stored Y has
-// lost. A launch given S (f32, the launch's rows of a (k, n) scratch) also
-// writes its f32 sums there, and the wrapper takes the Gram's cross blocks
-// from gram.cu on X lifted to f32 and S (ops/stencil.py).
+// lost. Each launch then runs stencil_mma_cols below: its rows of Y and the
+// whole column block of G they give, G[:, r0:r1] = X Y_f32[r0:r1]^T, from
+// the sums it has just computed (ops/stencil.py).
 #include <type_traits>
 
 #include "common.cuh"
@@ -170,13 +170,11 @@ template <int KMAX, bool WITH_GRAM>
 constexpr int kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1;
 
 // ED: the element of the diagonals, EX: of X and Y (float or bf16 each).
-// S: null, or the launch's rows of an f32 (k, n) scratch that takes the
-// f32 sums (the wide bf16 Gram's).
 template <typename ED, typename EX, int KMAX, bool WITH_GRAM>
 __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
     stencil_spmm(const ED* __restrict__ diags, Diags dg, int ndiag, const EX* __restrict__ X,
-                 EX* __restrict__ Y, float* __restrict__ S, float* __restrict__ part, int k,
-                 long long n, int h, int T, bool vec) {
+                 EX* __restrict__ Y, float* __restrict__ part, int k, long long n, int h, int T,
+                 bool vec) {
   extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles | sY
   const int W = window_ld(k, h, T, sizeof(EX)), LY = T + 4;
   EX* sw0 = reinterpret_cast<EX*>(smem);
@@ -229,11 +227,6 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
 #pragma unroll
         for (int r = 0; r < KMAX; ++r)
           if (r < k) Y[r * n + i] = from_f32<EX>(acc[r]);
-        if (S != nullptr) {
-#pragma unroll
-          for (int r = 0; r < KMAX; ++r)
-            if (r < k) S[r * n + i] = acc[r];
-        }
       }
       if constexpr (WITH_GRAM) {
 #pragma unroll
@@ -256,9 +249,9 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
 }
 
 template <typename ED, typename EX, int KMAX, bool WITH_GRAM>
-cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX* Y, float* S,
-                   float* part, float* G, int k, long long n, int h, int T, int max_blocks,
-                   int device, cudaStream_t stream) {
+cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX* Y, float* part,
+                   float* G, int k, long long n, int h, int T, int max_blocks, int device,
+                   cudaStream_t stream) {
   auto kernel = stencil_spmm<ED, EX, KMAX, WITH_GRAM>;
   const size_t smem = smem_bytes(k, ndiag, h, T, WITH_GRAM, sizeof(EX), sizeof(ED));
   cudaError_t err = allow_smem(kernel, smem);
@@ -267,7 +260,7 @@ cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX*
   err = persistent_grid(kernel, kStThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
   const bool vec = n % kVec<EX> == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
-  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, S, part, k, n, h, T, vec);
+  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k, n, h, T, vec);
   if (WITH_GRAM) launch_reduce(part, G, k, grid, stream);
   return cudaGetLastError();
 }
@@ -360,6 +353,12 @@ __device__ __forceinline__ uint2 quad_at(const bf16* row, int v) {
       return make_uint2(__byte_perm(a, b.x, 0x5432), __byte_perm(b.x, b.y, 0x5432));
     }
   }
+}
+
+// a and b rounded to bf16, as one word (a in the lower 16 bits).
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  const __nv_bfloat162 w = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&w);
 }
 
 // Four coefficients (c = 0 mod 4): four bf16 or four floats.
@@ -760,6 +759,365 @@ cudaError_t dispatch_mma(const ED* diags, const Diags& dg, int ndiag, const bf16
 #undef BCG_SM
 }
 
+// ---- a bf16 field's Gram above one launch's 64 rows (stencil_mma_cols)
+//
+// The solvers' Gram of a (kg, n) bf16 field, G = X Y_f32^T with kg > 64,
+// is cut into column blocks: the launch of Y's rows r0 .. r0 + k (k <= 64,
+// ops/stencil.py) computes those rows of Y and G[a0:a1, r0:r0+k] = X[a0:a1]
+// Y_f32[r0:r0+k]^T for the Gram's rows a0 .. a1 (all kg of them up to 128
+// rows beside chunks of 41 to 64), so every entry of G comes from exactly
+// one launch and no f32 copy of X or of the sums is ever written to device
+// memory. The launch's window, coefficient tiles and far slabs are
+// stencil_mma's (load_tile_mma, TMA); beside them each tile copies,
+// single-buffered by cp.async, the centre columns of the Gram's other rows
+// (those past the launch's own, whose centre the window already holds),
+// issued as the tile starts, so they land while its SpMM runs.
+//
+// A tile runs in two phases split by a barrier. The SpMM: 16 warps take
+// units (8 rows, 16 columns), two at a time, lane (g, t) the fmaf chain over
+// d = 0..ndiag-1 of stencil_spmm for row 8 u + g at four columns, so Y keeps
+// its bits; the f32 sums go to a tile in shared memory. The Gram: warp w
+// owns a column tile of 8 rows of Y and up to kStColsFw m-tiles of 16 rows
+// of X of the (a1 - a0, k) block over all of the tile's columns, so its
+// running sums are its own and need no reduction inside the block, and it
+// splits each step's B operand, the f32 sums in three exact bf16 pieces
+// (split3_pair), once for all of its m-tiles; A comes from X at the tile's
+// centre (the window for the launch's own rows, else the centre copy). With
+// stencil_mma's column permutation every read is 8 or 16 bytes and
+// conflict-free. Y goes out, rounded once, between the two phases. Three
+// mma.sync a fragment and step, hi first, into f32 sums that restart every
+// tile and are added to double running sums after it.
+//
+// Bound: bytes, at (96, 128^3) with two launches 835 MB (0.249 ms at 3.35
+// TB/s; the Gram's 116 GFLOP in three pieces 0.12 ms at 989 TFLOP/s). The
+// route it replaced wrote the f32 sums to a (k, n) scratch beside Y, lifted
+// X to f32 and took the cross blocks from gram.cu: 3.81 ms there (H100).
+
+// G's fragments of 16 x 8 a warp holds: m-tiles of one column tile. A
+// launch of k rows takes a Gram of up to 16 kStColsFw (16 / ceil(k / 8))
+// rows: 128 beside 41 to 64, 256 beside 32. It is built for 3 (FW) and 4
+// m-tiles a warp; at 4 a step takes them two at a time (MH), which keeps
+// the kernel within its 128 registers.
+constexpr int kStColsFw = 4;
+// Diagonals whose shared-memory reads are in flight together in the SpMM.
+constexpr int kStColsChunk = 2;
+
+// Row stride of the f32 tile of Y's sums: the least L >= T with L = 16 mod
+// 32 floats, so the two rows of a quarter warp's 16-byte reads fall in the
+// two halves of the banks.
+__host__ __device__ inline int mma_sums_ld(int T) { return T + ((16 - T) & 31); }
+
+// Shared bytes of a stencil_mma_cols launch of k rows whose Gram takes
+// `others` rows of X besides them: two stages of stencil_mma's far slabs,
+// window and coefficients (laid out by kind, so only the far slabs' swizzled
+// boxes need the 1 KB alignment: the stages are not rounded), the f32 sums,
+// the centre copy of the others, and 1 KB to align the boxes; mirrored by
+// ops/stencil.py mma_cols_smem_bytes.
+__host__ __device__ inline long long mma_cols_smem_bytes(int k, int ndiag, int nst, int h,
+                                                         int T, int others, int dsize) {
+  return 2LL * (2LL * nst * T * round8(k) + 2LL * k * mma_window_ld(h, T) +
+                1LL * dsize * ndiag * T) +
+         4LL * k * mma_sums_ld(T) + 2LL * others * mma_tile_ld(T) + 1024;
+}
+
+// PROBE: bits that switch parts of stencil_mma_cols off, for timing probes
+// only (tools/torch_kernel_times.py --bf16 --variants).
+// (kColsProbeChain: one chain of mma.sync sums through a tile's steps.)
+constexpr int kColsProbeNoGram = 1, kColsProbeNoCentre = 2, kColsProbeNoSpmm = 4,
+              kColsProbeNoRefill = 8, kColsProbeNoCentreWait = 16, kColsProbeChain = 32;
+
+// X: the launch's k rows; Xa: the Gram's ga rows, of which X's are rows own
+// .. own + k - 1 (own >= 0), or none (own = -1); Y: the launch's rows of Y,
+// or null (another launch stores them); part: (gridDim.x, ga, k).
+// FW: m-tiles a warp holds (3 or 4, kStColsFw), MH of them at a time.
+template <typename ED, int FW, int PROBE = 0>
+__global__ void __launch_bounds__(kStMmaThreads, 1)
+    stencil_mma_cols(const __grid_constant__ CUtensorMap tx, const ED* __restrict__ diags,
+                     const Diags dgp, int ndiag, const bf16* __restrict__ X,
+                     const bf16* __restrict__ Xa, bf16* __restrict__ Y,
+                     float* __restrict__ part, int k, int ga, int own, long long n, int h, int T,
+                     bool vec, bool pairs, bool yvec, bool tma) {
+  // 2 stages' far slabs | 2 windows | 2 coefficient tiles | the f32 sums | the centre copy
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Diags dg;
+  __shared__ unsigned long long full[2];  // a stage's far slabs have landed (TMA)
+  constexpr int MH = FW == 4 ? 2 : FW;
+  const int nst = dgp.nst;
+  const bool far_tma = tma && nst > 0;
+  if (threadIdx.x == 0) {
+    dg = dgp;
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+  }
+  const int L = mma_window_ld(h, T), Lc = mma_tile_ld(T), Ly = mma_sums_ld(T), r8 = round8(k);
+  const int fbytes = 2 * nst * T * r8, wbytes = 2 * k * L, dbytes = sizeof(ED) * ndiag * T;
+  char* base = align1k(smem);
+  char* sfar = base;                  // stage b's far slabs at sfar + b fbytes
+  char* swin = base + 2 * fbytes;     // its window at swin + b wbytes
+  char* scoef = swin + 2 * wbytes;    // its coefficients at scoef + b dbytes
+  float* ys = reinterpret_cast<float*>(scoef + 2 * dbytes);
+  bf16* xc = reinterpret_cast<bf16*>(ys + k * Ly);
+  const int others = ga - (own >= 0 ? k : 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = kStMmaThreads / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int RG = (k + 7) / 8, units = RG * (T / 16);
+  // The Gram's share of this warp: column tile nt, m-tiles mg TM .. mg TM +
+  // tm - 1 of the MT (MG groups of TM, RG MG <= 16 warps).
+  const int MT = (ga + 15) / 16, MG = nw / RG, TM = (MT + MG - 1) / MG;
+  const int nt = warp % RG, mg = warp / RG;
+  const int tm = warp < MG * RG ? max(0, min(TM, MT - mg * TM)) : 0;
+  // X's row 16 (mg TM + m) + g + 8 hh of Xa at the centre of stage b: the
+  // window for X's own rows, else the centre copy.
+  const auto arow = [&](int m, int hh, int b) -> const bf16* {
+    const int a = min(16 * (mg * TM + m) + g + 8 * hh, ga - 1);
+    if (own >= 0 && a >= own && a < own + k)
+      return reinterpret_cast<const bf16*>(swin + b * wbytes) + (a - own) * L + h;
+    return xc + (own >= 0 && a >= own + k ? a - k : a) * Lc;
+  };
+  double run[FW][4] = {};
+  const long long ntiles = (n + T - 1) / T;
+  long long t = blockIdx.x;
+  int buf = 0;
+  __syncthreads();  // dg, the barriers
+  const auto load = [&](int b, long long tile) {  // as stencil_mma's
+    char* st = sfar + b * fbytes;
+    const long long i0 = tile * T;
+    if (far_tma && threadIdx.x == 0) {
+      mbar_expect_tx(&full[b], 2u * nst * k * T);
+      for (int f = 0; f < nst; ++f) {
+        long long c = i0 + dg.o[dg.far[f]];
+        for (int bb = 0; bb < T / kBoxCols; ++bb, c += kBoxCols) {
+          if (c >= n) c -= n;
+          tma_box(st + 2 * f * T * r8 + bb * r8 * 128, &tx, static_cast<int>(c), &full[b]);
+        }
+      }
+    }
+    load_tile_mma(reinterpret_cast<bf16*>(swin + b * wbytes), st,
+                  reinterpret_cast<ED*>(scoef + b * dbytes), X, diags, dg, far_tma ? 0 : nst,
+                  ndiag, k, n, i0, h, T, L, vec);
+  };
+  // The centre copy: xc[j Lc + c] = Xa[a, i0 + c] (0 past n) for the j-th
+  // row a of Xa that is not one of X's.
+  const auto load_centre = [&](long long i0) {
+    const int per = vec ? T / 8 : T;
+    for (int e = threadIdx.x; e < others * per; e += kStMmaThreads) {
+      const int j = e / per, c = (vec ? 8 : 1) * (e - j * per);
+      const int a = own >= 0 && j >= own ? j + k : j;
+      const bool in = i0 + c < n;
+      const bf16* src = in ? Xa + static_cast<long long>(a) * n + i0 + c : Xa;
+      if (vec) cp_async16(xc + j * Lc + c, src, in);
+      else cp_elem(xc + j * Lc + c, src, in);
+    }
+  };
+  if (t < ntiles) load(0, t);
+  cp_async_commit();
+  for (long long it = 0; t < ntiles; t += gridDim.x, ++it) {
+    const long long i0 = t * T;
+    const bool refill = !(PROBE & kColsProbeNoRefill && it >= 2);
+    // The last Gram that read the centre copy is done (the loop's last barrier).
+    if (!(PROBE & kColsProbeNoCentre) && refill) load_centre(i0);
+    cp_async_commit();
+    const long long tn = t + gridDim.x;
+    if (tn < ntiles && !(PROBE & kColsProbeNoRefill && t > blockIdx.x)) load(buf ^ 1, tn);
+    cp_async_commit();
+    cp_async_wait<2>();  // this tile's stage; the centre copy and the next stage may fly on
+    if (far_tma && !(PROBE & kColsProbeNoRefill && it >= 2))
+      mbar_wait(&full[buf], static_cast<unsigned>(it >> 1) & 1);
+    __syncthreads();
+    const char* sf = sfar + buf * fbytes;
+    const bf16* sw = reinterpret_cast<const bf16*>(swin + buf * wbytes);
+    const ED* sd = reinterpret_cast<const ED*>(scoef + buf * dbytes);
+    // The SpMM: unit u is rows 8 (u % RG) .. + 7 at the 16-column step u /
+    // RG (rows past k repeat row k - 1 and are not kept).
+    for (int u = warp; u < (PROBE & kColsProbeNoSpmm ? 0 : units); u += nw) {
+      const int r = 8 * (u % RG) + g, row = min(r, k - 1);
+      const int c = 16 * (u / RG) + 4 * tq;  // this lane's columns: c .. c + 3
+      const long long i = i0 + c;
+      float y[4] = {};
+      for (int d0 = 0; d0 < ndiag; d0 += kStColsChunk) {
+        // Every read of the chunk, then its FMAs in the order d = d0, d0 + 1, ...
+        uint2 xw[kStColsChunk];
+        int sv[kStColsChunk], stv[kStColsChunk];  // the chunk's shifts and slabs, read first
+#pragma unroll
+        for (int v = 0; v < kStColsChunk; ++v) {
+          const int d = min(d0 + v, ndiag - 1);
+          sv[v] = dg.s[d];
+          stv[v] = dg.stage[d];
+        }
+#pragma unroll
+        for (int v = 0; v < kStColsChunk; ++v) {
+          const int d = d0 + v;
+          if (d >= ndiag) continue;
+          if (sv[v] != kFar) {  // the window at column h + s + c holds X[:, i + s]
+            xw[v] = quad_at(sw + row * L, h + sv[v] + c);
+          } else if (stv[v] >= 0) {  // a far slab's boxes at column c hold X[:, i + o]
+            xw[v] = *reinterpret_cast<const uint2*>(sf + 2 * stv[v] * T * r8 + swz(row, c, r8));
+          } else {
+            const bool fp = pairs && (dg.o[d] & 1) == 0;
+            const bf16* Xr = X + static_cast<long long>(row) * n;
+            xw[v] = make_uint2(far_word(Xr, n, i, dg.o[d], fp),
+                               far_word(Xr, n, i + 2, dg.o[d], fp));
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < kStColsChunk; ++v) {
+          const int d = d0 + v;
+          if (d >= ndiag) continue;
+          const float4 cf = coef_quad(sd + d * T + c);
+          const float2 xa = unpack_bf16(xw[v].x), xb = unpack_bf16(xw[v].y);
+          y[0] = fmaf(cf.x, xa.x, y[0]);
+          y[1] = fmaf(cf.y, xa.y, y[1]);
+          y[2] = fmaf(cf.z, xb.x, y[2]);
+          y[3] = fmaf(cf.w, xb.y, y[3]);
+        }
+      }
+      // Columns past n hold 0 (an infinite X there must not leak into G).
+      if (r < k)
+        *reinterpret_cast<float4*>(ys + r * Ly + c) =
+            make_float4(i < n ? y[0] : 0.f, i + 1 < n ? y[1] : 0.f, i + 2 < n ? y[2] : 0.f,
+                        i + 3 < n ? y[3] : 0.f);
+    }
+    if (!(PROBE & kColsProbeNoCentreWait))
+      cp_async_wait<1>();  // the centre copy, not the next stage
+    __syncthreads();  // the sums, and every thread's share of the centre copy
+    // Y out, rounded once: 8 columns (16 bytes) a thread.
+    if (Y != nullptr) {
+      const int chunks = T / 8;
+      for (int e = threadIdx.x; e < k * chunks; e += kStMmaThreads) {
+        const int r = e / chunks, c8 = 8 * (e - r * chunks);
+        const long long i = i0 + c8;
+        if (i >= n) continue;
+        const float4 lo = *reinterpret_cast<const float4*>(ys + r * Ly + c8);
+        const float4 hi = *reinterpret_cast<const float4*>(ys + r * Ly + c8 + 4);
+        const uint4 v = make_uint4(bf16_pair(lo.x, lo.y), bf16_pair(lo.z, lo.w),
+                                   bf16_pair(hi.x, hi.y), bf16_pair(hi.z, hi.w));
+        bf16* out = Y + static_cast<long long>(r) * n + i;
+        if (yvec) {
+          *reinterpret_cast<uint4*>(out) = v;
+        } else {
+          const bf16* w = reinterpret_cast<const bf16*>(&v);
+          for (int e2 = 0; e2 < 8 && i + e2 < n; ++e2) out[e2] = w[e2];
+        }
+      }
+    }
+    // The Gram: warp w < MG RG takes the column tile nt = w % RG of the
+    // block and its m-tiles mt = (w / RG) TM + i, i < tm, over all of the
+    // tile's 16-column steps: Y's sums at row 8 nt + g split once a step,
+    // X's rows 16 mt + g and + 8 for each m-tile (rows past ga repeat row ga
+    // - 1: their entries are dropped).
+    if (tm > 0 && !(PROBE & kColsProbeNoGram)) {
+      const float* br = ys + min(8 * nt + g, k - 1) * Ly;
+      const bf16* sb = reinterpret_cast<const bf16*>(base);
+      int ao[FW][2];  // X's rows, as offsets from the base
+#pragma unroll
+      for (int m = 0; m < FW; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          ao[m][hh] = static_cast<int>(arow(min(m, tm - 1), hh, buf) - sb);
+      float acc[FW][4] = {};  // the tile's f32 sums, added to run after it
+      for (int c0 = 0; c0 < T; c0 += 16) {
+        const int c = c0 + 4 * tq;
+        const float4 yv = *reinterpret_cast<const float4*>(br + c);
+        unsigned b0[3], b1[3];
+        split3_pair(yv.x, yv.y, b0);
+        split3_pair(yv.z, yv.w, b1);
+        // The m-tiles MH at a time (registers), piece by piece: every
+        // m-tile's mma of a piece before the next piece's (independent
+        // products between two that chain).
+#pragma unroll
+        for (int m0 = 0; m0 < FW; m0 += MH) {
+          unsigned af[MH][4];
+#pragma unroll
+          for (int m = 0; m < MH; ++m) {
+            const uint2 qa = *reinterpret_cast<const uint2*>(sb + ao[m0 + m][0] + c);
+            const uint2 qb = *reinterpret_cast<const uint2*>(sb + ao[m0 + m][1] + c);
+            af[m][0] = qa.x;
+            af[m][1] = qb.x;
+            af[m][2] = qa.y;
+            af[m][3] = qb.y;
+          }
+          if constexpr (PROBE & kColsProbeChain) {
+#pragma unroll
+            for (int piece = 0; piece < 3; ++piece)
+#pragma unroll
+              for (int m = 0; m < MH; ++m)
+                if (m0 + m < tm) mma_bf16(acc[m0 + m], af[m], b0[piece], b1[piece]);
+          } else {
+            // Each step's hi products and the others' in two sums from 0,
+            // added to the tile's sums in f32 (rounded to nearest):
+            // mma.sync's f32 sums lose more than rounding to nearest, and a
+            // chain through the tile's steps (kColsProbeChain) left G ten
+            // times farther from its contract at (96, 128^3).
+            float hi[MH][4] = {}, rest[MH][4] = {};
+#pragma unroll
+            for (int m = 0; m < MH; ++m)
+              if (m0 + m < tm) mma_bf16(hi[m], af[m], b0[0], b1[0]);
+#pragma unroll
+            for (int piece = 1; piece < 3; ++piece)
+#pragma unroll
+              for (int m = 0; m < MH; ++m)
+                if (m0 + m < tm) mma_bf16(rest[m], af[m], b0[piece], b1[piece]);
+#pragma unroll
+            for (int m = 0; m < MH; ++m)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m0 + m][e] += hi[m][e] + rest[m][e];
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < FW; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[m][e] += acc[m][e];
+    }
+    __syncthreads();  // every read of this stage, of the sums and of the centre copy is done
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+  // The block's partial: each entry of G is one lane's running sum.
+  float* mine = part + static_cast<long long>(blockIdx.x) * ga * k;
+#pragma unroll
+  for (int m = 0; m < FW; ++m) {
+    if (m >= tm) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * (mg * TM + m) + g + 8 * (e >> 1), s = 8 * nt + 2 * tq + (e & 1);
+      if (r < ga && s < k) mine[r * k + s] = static_cast<float>(run[m][e]);
+    }
+  }
+}
+
+template <typename ED, int FW, int PROBE = 0>
+cudaError_t launch_mma_cols(const ED* diags, const Diags& dg, int ndiag, const bf16* X,
+                            const bf16* Xa, bf16* Y, float* part, float* G, int k, int ga,
+                            int own, long long n, int h, int T, int max_blocks, int device,
+                            cudaStream_t stream) {
+  auto kernel = stencil_mma_cols<ED, FW, PROBE>;
+  const int others = ga - (own >= 0 ? k : 0);
+  const size_t smem = mma_cols_smem_bytes(k, ndiag, dg.nst, h, T, others, sizeof(ED));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(kernel, kStMmaThreads, smem, device, (n + T - 1) / T, max_blocks,
+                        &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = n % kVec<bf16> == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(Xa) &&
+                   aligned16(diags);
+  const bool pairs = n % 2 == 0 && (reinterpret_cast<size_t>(X) & 3) == 0;
+  const bool yvec = n % kVec<bf16> == 0 && aligned16(Y);
+  bool tma = dg.nst > 0 && tma_ok(X, n) && n % kBoxCols == 0;
+  for (int f = 0; f < dg.nst; ++f) tma = tma && dg.o[dg.far[f]] % kBoxCols == 0;
+  CUtensorMap tx{};
+  if (tma) {
+    err = make_tmap(&tx, X, n, k);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kStMmaThreads, smem, stream>>>(tx, diags, dg, ndiag, X, Xa, Y, part, k, ga, own,
+                                                n, h, T, vec, pairs, yvec, tma);
+  launch_reduce(part, G, ga, k, grid, stream);
+  return cudaGetLastError();
+}
+
 // The launch's diagonals: offsets (each in [0, n)), near shifts within h,
 // and stencil_mma's staged far slabs (the first kStMaxStaged far
 // diagonals); false on an offset out of range.
@@ -780,7 +1138,7 @@ inline bool make_diags(Diags* dg, const int* offsets, int ndiag, long long n, in
 }
 
 template <typename ED, typename EX>
-int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, EX* Y, float* S,
+int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, EX* Y,
                   float* part, float* G, int k, long long n, int h, int T, int max_blocks,
                   int device, cudaStream_t stream) {
   if (ndiag < 1 || ndiag > kMaxDiags || max_blocks < 1 || n < 1 || h < 0 ||
@@ -792,13 +1150,13 @@ int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, E
   if (!make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
   const bool gram = G != nullptr;
   if constexpr (std::is_same_v<EX, bf16>)
-    if (gram && S == nullptr && k <= 64)
+    if (gram && k <= 64)
       return dispatch_mma(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                           stream);
-#define BCG_STENCIL(KM)                                                                        \
-  return gram ? launch<ED, EX, KM, true>(diags, dg, ndiag, X, Y, S, part, G, k, n, h, T,        \
-                                         max_blocks, device, stream)                           \
-              : launch<ED, EX, KM, false>(diags, dg, ndiag, X, Y, S, part, G, k, n, h, T,       \
+#define BCG_STENCIL(KM)                                                                     \
+  return gram ? launch<ED, EX, KM, true>(diags, dg, ndiag, X, Y, part, G, k, n, h, T,        \
+                                         max_blocks, device, stream)                        \
+              : launch<ED, EX, KM, false>(diags, dg, ndiag, X, Y, part, G, k, n, h, T,       \
                                           max_blocks, device, stream)
   switch (kmax_for(k)) {
     case 8: BCG_STENCIL(8);
@@ -810,45 +1168,91 @@ int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, E
 #undef BCG_STENCIL
 }
 
+template <typename ED>
+int stencil_cols_entry(const ED* diags, const int* offsets, int ndiag, const bf16* X,
+                       const bf16* Xa, bf16* Y, float* part, float* G, int k, int ga, int own,
+                       long long n, int h, int T, int max_blocks, int device,
+                       cudaStream_t stream) {
+  if (ndiag < 1 || ndiag > kMaxDiags || max_blocks < 1 || n < 1 || h < 0 || h % 8 != 0 ||
+      T < 128 || T % 128 != 0 || k < 1 || k > 64 || ga < 1 || own < -1 ||
+      (own >= 0 && own + k > ga) || (ga + 15) / 16 > kStColsFw * (16 / ((k + 7) / 8)) ||
+      part == nullptr || G == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Diags dg{};
+  if (!make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
+  // m-tiles a warp: ceil(MT / MG), MG = 16 / ceil(k / 8) warps a column tile.
+  const int mg = 16 / ((k + 7) / 8), tm = ((ga + 15) / 16 + mg - 1) / mg;
+  if (tm <= 3)
+    return launch_mma_cols<ED, 3>(diags, dg, ndiag, X, Xa, Y, part, G, k, ga, own, n, h, T,
+                                  max_blocks, device, stream);
+  return launch_mma_cols<ED, 4>(diags, dg, ndiag, X, Xa, Y, part, G, k, ga, own, n, h, T,
+                                max_blocks, device, stream);
+}
+
 }  // namespace
 
 // offsets: host array of ndiag offsets, each already reduced to [0, n); a
 // diagonal is near when o <= h or n - o <= h. h (a multiple of 4; of 8 on a
 // bf16 field) and T (a multiple of 128) come from ops/stencil.py
 // stencil_plan. G == nullptr selects the plain SpMM; otherwise part holds
-// (max_blocks, k, k) and the launch uses at most max_blocks blocks. S: null,
-// or f32 (k, n) rows that also take the f32 sums.
+// (max_blocks, k, k) and the launch uses at most max_blocks blocks.
 extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndiag,
-                                const float* X, float* Y, float* S, float* part, float* G, int k,
+                                const float* X, float* Y, float* part, float* G, int k,
                                 long long n, int h, int T, int max_blocks, int device,
                                 cudaStream_t stream) {
-  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
+  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                        stream);
 }
 
 // The same on bf16 diagonals, X and Y; G is f32, of the unrounded sums.
 extern "C" int bcg_stencil_spmm_bf16(const bf16* diags, const int* offsets, int ndiag,
-                                     const bf16* X, bf16* Y, float* S, float* part, float* G,
-                                     int k, long long n, int h, int T, int max_blocks,
-                                     int device, cudaStream_t stream) {
-  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
+                                     const bf16* X, bf16* Y, float* part, float* G, int k,
+                                     long long n, int h, int T, int max_blocks, int device,
+                                     cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                        stream);
 }
 
 // bf16 diagonals with f32 X and Y.
 extern "C" int bcg_stencil_spmm_bf16d(const bf16* diags, const int* offsets, int ndiag,
-                                      const float* X, float* Y, float* S, float* part, float* G,
-                                      int k, long long n, int h, int T, int max_blocks,
-                                      int device, cudaStream_t stream) {
-  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
+                                      const float* X, float* Y, float* part, float* G, int k,
+                                      long long n, int h, int T, int max_blocks, int device,
+                                      cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                        stream);
 }
 
 // f32 diagonals with bf16 X and Y; G is f32, of the unrounded sums.
 extern "C" int bcg_stencil_spmm_bf16x(const float* diags, const int* offsets, int ndiag,
-                                      const bf16* X, bf16* Y, float* S, float* part, float* G,
-                                      int k, long long n, int h, int T, int max_blocks,
-                                      int device, cudaStream_t stream) {
-  return stencil_entry(diags, offsets, ndiag, X, Y, S, part, G, k, n, h, T, max_blocks, device,
+                                      const bf16* X, bf16* Y, float* part, float* G, int k,
+                                      long long n, int h, int T, int max_blocks, int device,
+                                      cudaStream_t stream) {
+  return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                        stream);
+}
+
+// A bf16 field's Gram above one launch (stencil_mma_cols): Y's k <= 64 rows
+// at X (null Y: not stored) and G (ga x k) = Xa Y_f32^T, where Xa holds the
+// Gram's ga rows (X's among them from row own, or own = -1) and part
+// (max_blocks, ga, k); h, T from ops/stencil.py stencil_mma_plan with the
+// Gram's rows. bf16 diagonals.
+extern "C" int bcg_stencil_mma_cols_bf16(const bf16* diags, const int* offsets, int ndiag,
+                                         const bf16* X, const bf16* Xa, bf16* Y, float* part,
+                                         float* G, int k, int ga, int own, long long n, int h,
+                                         int T, int max_blocks, int device,
+                                         cudaStream_t stream) {
+  return stencil_cols_entry(diags, offsets, ndiag, X, Xa, Y, part, G, k, ga, own, n, h, T,
+                            max_blocks, device, stream);
+}
+
+// The same with f32 diagonals.
+extern "C" int bcg_stencil_mma_cols_bf16x(const float* diags, const int* offsets, int ndiag,
+                                          const bf16* X, const bf16* Xa, bf16* Y, float* part,
+                                          float* G, int k, int ga, int own, long long n, int h,
+                                          int T, int max_blocks, int device,
+                                          cudaStream_t stream) {
+  return stencil_cols_entry(diags, offsets, ndiag, X, Xa, Y, part, G, k, ga, own, n, h, T,
+                            max_blocks, device, stream);
 }

@@ -56,9 +56,9 @@ Every rule reads the dtypes before any launch; nothing is tried and retried.
 they launch and nowhere else. A bf16 variant counts under its own name, the
 wrapper's with ``[bf16]`` after it (``px_update[bf16]``); the mixed pairs as
 ``[bf16 coeffs]`` (bf16 diagonals or blocks, f32 field) and ``[bf16 field]``
-(f32 diagonals, bf16 field); the stencil's launches that also write their
-f32 sums for a bf16 Gram above one launch as ``[bf16, wide]`` (``[bf16
-field, wide]``); a folded block stencil as ``[fold]`` (``[fold, bf16
+(f32 diagonals, bf16 field); the stencil's launches that take a column block
+of a bf16 field's Gram above one launch as ``[bf16, wide]`` (``[bf16 field,
+wide]``); a folded block stencil as ``[fold]`` (``[fold, bf16
 coeffs]`` on bf16 blocks).
 """
 
@@ -321,7 +321,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bcg_stencil_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int), I, P, P,
-                                     P, P, P, I, L, I, I, I, I, P]
+                                     P, P, I, L, I, I, I, I, P]
     lib.bcg_mm_update.argtypes = [P, P, P, P, I, L, I, P]
     lib.bcg_gram.argtypes = [P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_mm_update_gram.argtypes = [P, P, P, P, P, P, I, I, L, I, I, I, P]
@@ -353,12 +353,16 @@ def library() -> ctypes.CDLL:
     lib.bcg_mm_update_bf16.argtypes = [P, P, P, P, I, L, I, I, I, P]
     lib.bcg_mm_update_gram_mma.argtypes = [P, P, P, P, P, P, I, L, I, I, I, I, P]
     lib.bcg_mm2_update_gram_mma.argtypes = [P, P, P, P, P, P, P, I, L, I, I, I, I, P]
+    lib.bcg_px_update_mma.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, P]
     for fn in (lib.bcg_gram_bf16, lib.bcg_mm_update_bf16, lib.bcg_mm_update_gram_mma,
-               lib.bcg_mm2_update_gram_mma):
+               lib.bcg_mm2_update_gram_mma, lib.bcg_px_update_mma):
         fn.restype = I
     for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x"):
         getattr(lib, fn).argtypes = lib.bcg_stencil_spmm.argtypes
         getattr(lib, fn).restype = I
+    for fn in (lib.bcg_stencil_mma_cols_bf16, lib.bcg_stencil_mma_cols_bf16x):
+        fn.argtypes = [P, IP, I, P, P, P, P, P, I, I, I, L, I, I, I, I, P]
+        fn.restype = I
     for fn in (lib.bcg_stencil_spmm, lib.bcg_mm_update, lib.bcg_gram,
                lib.bcg_mm_update_gram, lib.bcg_mm2_update_gram,
                lib.bcg_px_update,

@@ -71,7 +71,9 @@ tensor cores, their tiles streamed through a ring of TMA tensor copies
 (``gram_plan``, ``mm_update_mma_plan``), and so do ``mm_update_gram`` and
 ``mm2_update_gram`` with their fused Gram up to 64 rows
 (``update_gram_mma_plan``: the coefficients in three exact bf16 pieces, the
-Gram of the stored Y exactly symmetric).
+Gram of the stored Y exactly symmetric), and ``px_update`` up to 64 rows
+(``px_update_mma_plan``: [M1 rho] and C in three pieces, one read of P
+feeding both outputs).
 
 ``mm_update``, ``mm_update_gram``, ``mm2_update_gram``, ``px_update`` and
 ``qr_p_update`` run streaming kernels that stage their input tiles in shared
@@ -302,6 +304,44 @@ def update_gram_mma_plan(k: int, n: int, nf: int, has_a: bool, smem_cap: int,
         if stages >= 2:
             return RingPlan(T, stages, update_gram_mma_smem_bytes(k, T, stages, nf, has_a))
     raise ValueError(f"update_gram_mma: {k} rows leave no tile in {smem_cap} bytes of shared "
+                     "memory")
+
+
+PX_MMA_MAX_K = 64  # rows of one tensor-core launch of px_update (bf16 fields)
+PX_MMA_C_BYTES = 3 * 64 * 128  # C's three pieces in shared memory at the 64-row width
+
+
+def px_update_mma_smem_bytes(k: int, T: int, stages: int) -> int:
+    """Shared bytes of one bf16 ``px_update`` launch on the tensor cores
+    (``csrc/px_update.cu`` px_mma_smem_bytes): ``stages`` stages of W's and
+    P's (k, T) tiles, each padded to the update's width, and of X's, the
+    tile of Pn, all in swizzled boxes; C's three pieces at the 64-row width;
+    and the alignment."""
+    w = next(w for w in UPDATE_MMA_WIDTHS if k <= w)
+    return (2 * T * (stages * (2 * w + round8(k)) + round8(k))
+            + (PX_MMA_C_BYTES if w == 64 else 0) + RING_ALIGN)
+
+
+@functools.lru_cache(maxsize=64)
+def px_update_mma_plan(k: int, n: int, smem_cap: int, sm_count: int) -> RingPlan:
+    """The bf16 ``px_update`` launch on k <= 64 rows (``csrc/px_update.cu``
+    px_update_mma, one block an SM): the widest tile of ``UPDATE_MMA_TILES``
+    that leaves every SM a tile (waived at 128 columns) and whose ring,
+    beside the tile of Pn (and C's pieces at 64 rows), holds two stages,
+    with as many stages as fit up to ``UPDATE_MMA_MAX_STAGES``, the rule of
+    ``update_gram_mma_plan``, whose kernel this one extends."""
+    if not 1 <= k <= PX_MMA_MAX_K:
+        raise ValueError(f"px_update_mma: one launch takes 1 to {PX_MMA_MAX_K} rows, got {k}")
+    w = next(w for w in UPDATE_MMA_WIDTHS if k <= w)
+    for T in UPDATE_MMA_TILES:
+        if T > 128 and T > n // sm_count:
+            continue
+        fixed = 2 * T * round8(k) + (PX_MMA_C_BYTES if w == 64 else 0)
+        stages = ring_stages(smem_cap, 2 * T * (2 * w + round8(k)), fixed, 1,
+                             UPDATE_MMA_MAX_STAGES)
+        if stages >= 2:
+            return RingPlan(T, stages, px_update_mma_smem_bytes(k, T, stages))
+    raise ValueError(f"px_update_mma: {k} rows leave no tile in {smem_cap} bytes of shared "
                      "memory")
 
 
@@ -769,11 +809,18 @@ def px_update(M1: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
     k, n = W.shape
     for M, what in ((M1, "M1"), (rho, "rho"), (C, "C")):
         _native.check_kk(M, k, f"px_update {what}")
+    p = _native.ptr
+    if dt == torch.bfloat16 and k <= PX_MMA_MAX_K:  # the tensor cores, one launch
+        idx = W.device.index
+        mma = px_update_mma_plan(k, n, _native.max_smem(idx), _native.sm_count(idx))
+        Pn, Xn = (P, X) if donate else (torch.empty_like(P), torch.empty_like(X))
+        _native.launch("px_update[bf16]", "bcg_px_update_mma", W.device, p(M1), p(W), p(rho),
+                       p(P), p(C), p(X), p(Pn), p(Xn), k, n, mma.T, mma.stages)
+        return Pn.view(shape), Xn.view(shape)
     plan = px_update_plan(k, W.device, W.element_size())
     # A chunk reads all of P but only its own rows of X.
     Pn = P if donate and plan.in_place else torch.empty_like(P)
     Xn = X if donate else torch.empty_like(X)
-    p = _native.ptr
     name = _native.variant("px_update", "bcg_px_update", dt)
     for r0, r1 in plan.chunks:
         _native.launch(*name, W.device, p(M1[r0:r1]), p(W),

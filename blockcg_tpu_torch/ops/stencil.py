@@ -20,20 +20,22 @@ field's dtype, and the fused Gram is taken on the unrounded f32 sums, as
 the reference's Pallas kernel takes it. The kernel writes Y to a fresh
 buffer, never onto X. The rows of a field are independent right-hand sides,
 so a field wider than one launch (64 rows) runs as one launch per chunk of
-rows; the fused Gram's cross blocks then come from ``fused.gram`` on X and
-the launches' f32 sums: the stored Y on an f32 field, and on a bf16 field
-an f32 (k, n) scratch the launches also write their sums to, beside X
-lifted to f32 (two f32 copies of the field: the cost of a bf16 Gram on more
-than 64 rows); those launches count as ``[bf16, wide]`` (``[bf16 field,
+rows. On an f32 field the fused Gram's cross blocks then come from
+``fused.gram`` on X and the stored Y (its f32 sums). A bf16 Y has lost
+them, so on a bf16 field each chunk's launch takes the whole column block
+of G its rows give, ``G[:, r0:r1] = X Y_f32[r0:r1]^T``, from the sums it
+has just computed (``wide_gram_launches``; no f32 copy of X or of the sums
+is written); those launches count as ``[bf16, wide]`` (``[bf16 field,
 wide]``).
 
 Each launch stages a window of X in shared memory and serves the diagonals
 near the tile from it (``csrc/stencil.cu``); ``stencil_plan`` picks the
 window's halo and the tile width on the host from the offsets, the launch's
 rows and the card's shared-memory cap. A bf16 field's launch with the Gram
-(and no scratch) runs the tensor-core kernel, which also stages the far
-diagonals' X and takes the Gram of the f32 sums in three exact bf16 pieces
-(``stencil_mma_plan``).
+runs the tensor-core kernel, which also stages the far diagonals' X and
+takes the Gram of the f32 sums in three exact bf16 pieces
+(``stencil_mma_plan``; with ``gram_rows`` the column-block launches of a
+wider field).
 """
 
 from __future__ import annotations
@@ -155,9 +157,38 @@ def mma_smem_bytes(k: int, ndiag: int, nst: int, h: int, T: int, dsize: int = 2)
     return max(2 * stage + 2 * k * mma_tile_ld(T), 4 * MMA_SCRATCH) + 1024
 
 
+MMA_COLS_FW = 4  # csrc/stencil.cu kStColsFw: m-tiles of 16 rows of X a warp's Gram holds
+
+
+def mma_cols_gram_rows(k: int) -> int:
+    """Rows of X a column-block launch of k rows takes in its Gram
+    (``csrc/stencil.cu`` stencil_mma_cols): ``MMA_COLS_FW`` m-tiles of 16
+    for each of the 16 // ceil(k / 8) warps of a column tile of 8 rows."""
+    return 16 * MMA_COLS_FW * (16 // -(-k // 8))
+
+
+def mma_sums_ld(T: int) -> int:
+    """Row stride of stencil_mma_cols's f32 tile of Y's sums (``csrc/stencil.cu``
+    mma_sums_ld): the least L >= T with L = 16 mod 32 floats."""
+    return T + ((16 - T) & 31)
+
+
+def mma_cols_smem_bytes(k: int, ndiag: int, nst: int, h: int, T: int, others: int,
+                        dsize: int = 2) -> int:
+    """Shared bytes of one stencil_mma_cols launch of k rows whose Gram also
+    takes ``others`` rows of X (``csrc/stencil.cu`` mma_cols_smem_bytes):
+    two stages of stencil_mma's far slabs, window and coefficients (not
+    rounded to 1 KB: they are laid out by kind), the f32 tile of the sums,
+    the centre copy of the others' X, and 1 KB to align the boxes."""
+    r8 = -(-k // 8) * 8
+    stage = 2 * nst * T * r8 + 2 * k * mma_window_ld(h, T) + dsize * ndiag * T
+    return 2 * stage + 4 * k * mma_sums_ld(T) + 2 * others * mma_tile_ld(T) + 1024
+
+
 @functools.lru_cache(maxsize=256)
 def stencil_mma_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
-                     sm_count: int, dsize: int = 2) -> StencilPlan:
+                     sm_count: int, dsize: int = 2, gram_rows: int | None = None,
+                     own: bool = True) -> StencilPlan:
     """The (h, T) of a bf16 launch of k <= 64 rows with the fused Gram
     (``csrc/stencil.cu`` stencil_mma, one block an SM, every warp busy at
     any tile): the least L2->SM traffic per column, ``(T + 2h) / T`` plus
@@ -168,9 +199,16 @@ def stencil_mma_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
     ``MMA_STATIC_BYTES``, fits ``smem_cap``; ties go to the wider tile, then
     the smaller halo. At config 5's (32, 256^3) that is h = 256, T = 256:
     +-1 and +-256 from the window, +-65,536 from two staged slabs, traffic
-    5.0. ``dsize``: bytes of a diagonal's element."""
+    5.0. ``dsize``: bytes of a diagonal's element. ``gram_rows``: the rows of
+    X a column-block launch's Gram takes (``stencil_mma_cols``, a bf16 field
+    above 64 rows), its own k among them when ``own``; the centre of the
+    others is staged beside the stages (at (96, 128^3) in two launches of
+    48 rows: h = 128, T = 128)."""
     if not 1 <= k <= MMA_MAX_K:
         raise ValueError(f"stencil: one bf16 Gram launch takes 1 to {MMA_MAX_K} rows, got {k}")
+    if gram_rows is not None and gram_rows > mma_cols_gram_rows(k):
+        raise ValueError(f"stencil: a launch of {k} rows takes a Gram of at most "
+                         f"{mma_cols_gram_rows(k)} rows, got {gram_rows}")
     offs = [int(o) % n for o in offsets]
     dist = [min(o, n - o) for o in offs]
     best, best_key = None, None
@@ -179,7 +217,10 @@ def stencil_mma_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
             continue
         for h in sorted({0} | {-(-d // 8) * 8 for d in dist}):
             nfar = sum(d > h for d in dist)
-            nbytes = mma_smem_bytes(k, len(offs), min(nfar, MMA_MAX_STAGED), h, T, dsize)
+            nst = min(nfar, MMA_MAX_STAGED)
+            nbytes = (mma_smem_bytes(k, len(offs), nst, h, T, dsize) if gram_rows is None else
+                      mma_cols_smem_bytes(k, len(offs), nst, h, T,
+                                          gram_rows - (k if own else 0), dsize))
             if nbytes + MMA_STATIC_BYTES > smem_cap:
                 continue
             traffic = (T + 2 * h) / T + nfar
@@ -212,6 +253,51 @@ def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
 PAIRS = tuple(_native.PAIR_VARIANTS)
 
 
+def wide_gram_launches(k: int) -> list[tuple[int, int, int, int]]:
+    """The launches of a bf16 field's Gram above one launch's 64 rows, ``(r0,
+    r1, a0, a1)``: Y's rows r0:r1 (``_native.row_chunks``) and the block
+    ``G[a0:a1, r0:r1]``. The Gram's rows a0:a1 are runs of whole chunks of
+    at most ``mma_cols_gram_rows`` of the widest chunk: all k rows up to 128
+    beside chunks of 41 to 64 rows (two launches at k = 96 and at 128).
+    Every entry of G is one launch's, and each chunk lies in one run of Gram
+    rows, the launch that stores its Y."""
+    chunks = _native.row_chunks(k)
+    cap = mma_cols_gram_rows(max(r1 - r0 for r0, r1 in chunks))
+    runs: list[list[int]] = []
+    for r0, r1 in chunks:
+        if not runs or r1 - runs[-1][0] > cap:
+            runs.append([r0, r1])
+        runs[-1][1] = r1
+    return [(r0, r1, a0, a1) for r0, r1 in chunks for a0, a1 in runs]
+
+
+def _launch_wide_mma(diags, offsets, Xt, label: str, fn: str):
+    """(Y, G) of a bf16 field above one launch's 64 rows on the tensor cores
+    (``csrc/stencil.cu`` stencil_mma_cols): one launch per (chunk, run of
+    Gram rows) of ``wide_gram_launches``, each writing its block of G; the
+    launch whose run holds its chunk stores that chunk's Y."""
+    ndiag, n = diags.shape
+    k = Xt.shape[0]
+    offs = (ctypes.c_int * ndiag)(*(o % n for o in offsets))
+    cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
+    Y = torch.empty_like(Xt)
+    G = torch.empty((k, k), dtype=torch.float32, device=Xt.device)
+    p = _native.ptr
+    for r0, r1, a0, a1 in wide_gram_launches(k):
+        own = r0 - a0 if a0 <= r0 < a1 else -1
+        plan = stencil_mma_plan(offsets, n, r1 - r0, cap, sms, diags.element_size(), a1 - a0,
+                                own >= 0)
+        max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
+        part = torch.empty((max_blocks, a1 - a0, r1 - r0), dtype=torch.float32,
+                           device=Xt.device)
+        Gb = torch.empty((a1 - a0, r1 - r0), dtype=torch.float32, device=Xt.device)
+        _native.launch(label, fn, Xt.device, p(diags), offs, ndiag, p(Xt[r0:r1]), p(Xt[a0:a1]),
+                       p(Y[r0:r1]) if own >= 0 else None, p(part), p(Gb), r1 - r0, a1 - a0,
+                       own, n, plan.h, plan.T, max_blocks)
+        G[a0:a1, r0:r1] = Gb
+    return Y, G
+
+
 def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
     from blockcg_tpu_torch.ops import fused
 
@@ -221,38 +307,33 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
     if len(offsets) != ndiag or not 1 <= ndiag <= MAX_DIAGS:
         raise ValueError(f"{name}: {len(offsets)} offsets for {ndiag} "
                          f"diagonals (at most {MAX_DIAGS})")
-    offs = (ctypes.c_int * ndiag)(*(int(o) % n for o in offsets))
-    Y = torch.empty_like(Xt)
-    chunks = _native.row_chunks(k)
-    # A bf16 Y has lost the f32 sums the cross blocks of a wide Gram need.
-    S = None
-    if with_gram and len(chunks) > 1 and Xt.dtype == torch.bfloat16:
-        S = torch.empty(Xt.shape, dtype=torch.float32, device=Xt.device)
-    cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
+    offsets = tuple(int(o) for o in offsets)
     label, fn = _native.pair_variant(name, "bcg_stencil_spmm", pair)
-    if S is not None:  # the launches that also write their f32 sums
-        label = f"{label[:-1]}, wide]"
+    chunks = _native.row_chunks(k)
+    mma = with_gram and Xt.dtype == torch.bfloat16  # the tensor cores
+    if mma and len(chunks) > 1:  # a bf16 Y has lost the f32 sums the cross blocks need
+        return _launch_wide_mma(diags, offsets, Xt, f"{label[:-1]}, wide]",
+                                fn.replace("bcg_stencil_spmm", "bcg_stencil_mma_cols"))
+    offs = (ctypes.c_int * ndiag)(*(o % n for o in offsets))
+    Y = torch.empty_like(Xt)
+    cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
     diag = []
     for r0, r1 in chunks:
         kc = r1 - r0
-        if with_gram and S is None and Xt.dtype == torch.bfloat16:  # the tensor cores
-            plan = stencil_mma_plan(tuple(int(o) for o in offsets), n, kc, cap, sms,
-                                    diags.element_size())
+        if mma:
+            plan = stencil_mma_plan(offsets, n, kc, cap, sms, diags.element_size())
         else:
-            plan = stencil_plan(tuple(int(o) for o in offsets), n, kc, with_gram, cap, sms,
-                                Xt.element_size(), diags.element_size())
+            plan = stencil_plan(offsets, n, kc, with_gram, cap, sms, Xt.element_size(),
+                                diags.element_size())
         max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None
         if with_gram:
             part = torch.empty((max_blocks, kc, kc), dtype=torch.float32, device=Xt.device)
             G = torch.empty((kc, kc), dtype=torch.float32, device=Xt.device)
-        _native.launch(label, fn, Xt.device, _native.ptr(diags),
-                       offs, ndiag, _native.ptr(Xt[r0:r1]), _native.ptr(Y[r0:r1]),
-                       None if S is None else _native.ptr(S[r0:r1]),
-                       _native.ptr(part), _native.ptr(G), kc, n, plan.h, plan.T, max_blocks)
+        _native.launch(label, fn, Xt.device, _native.ptr(diags), offs, ndiag,
+                       _native.ptr(Xt[r0:r1]), _native.ptr(Y[r0:r1]), _native.ptr(part),
+                       _native.ptr(G), kc, n, plan.h, plan.T, max_blocks)
         diag.append(G)
-    if S is not None:
-        return Y, fused.wide_gram(Xt.float(), S, diag, chunks)
     if with_gram and len(chunks) > 1:
         return Y, fused.wide_gram(Xt, Y, diag, chunks)
     return Y, diag[0]

@@ -302,8 +302,9 @@ BF16_ULPS = 1.0
 # version is the less accurate of the two). Each kernel's Gram of stored
 # bf16 fields is also held to GRAM_RTOL against its f64 sum.
 C5_GRAM_RTOL = 1e-4
-# Rows 2, 5-8 in bf16 run on the tensor cores; the f32-FMA kernels they
-# replaced, at (32, 256^3) on an H100 80GB HBM3 at 700 W: the Gram 1.4972 ms
+# Rows 2, 5-9 in bf16 run on the tensor cores; the f32-FMA kernels they
+# replaced, at (32, 256^3) on an H100 80GB HBM3 at 700 W: px_update 4.4352
+# ms and 1 bf16 ulp from the plain version, the Gram 1.4972 ms
 # and 9.300e-07 from its f64 sum, Y = M B 1.3576 ms and 0 bf16 ulps from the
 # plain version; the stencil with its Gram 4.6279 ms, its Gram 3.539e-08
 # from the f64 Gram of its contract (X Y^T of the f32 sums); mm_update_gram
@@ -311,6 +312,7 @@ C5_GRAM_RTOL = 1e-4
 # 2.481e-06 from theirs (Y Y^T of the stored Y). Printed beside this run's
 # figures.
 TENSOR_CORE_ROWS_BEFORE = {
+    "px_update[bf16]": (4.4352, "1 bf16 ulp from the plain version"),
     "gram[bf16]": (1.4972, "9.300e-07 from the f64 Gram"),
     "mm_update[bf16]": (1.3576, "0.00 bf16 ulps from the plain version"),
     "stencil_spmm_gram_t[bf16]": (4.6279, "3.539e-08 from the f64 Gram of its contract"),
@@ -337,6 +339,11 @@ PRESETS_DIRAC_K = 4 * DIRAC_K  # config 4's merged width, m = bs * k
 PRESETS_BCG_SHAPE = (16, 512 ** 2)  # config 2's field
 # [storage]: the bf16 stencil's solve above one launch's 64 rows.
 STORAGE_WIDE_K = 96
+# Row 2w (the bf16 stencil's Gram at k = 96 on the 128^3 Laplacian) before
+# its column blocks on the tensor cores: sums to an f32 (k, n) scratch, X
+# lifted to f32 and the cross blocks from gram.cu; event ms on an H100 80GB
+# HBM3 at 700 W and what it allocated. Printed beside this run's figures.
+STORAGE_WIDE_BEFORE = (3.8448, "two f32 (k, n) copies of the field a call (1,611 MB)")
 # The const-hop kernels a bf16 config 4 must not launch: their reference
 # gate takes float32 alone, and the operator sends a bf16 field whole to the
 # plain route (ops/_native.py f32_gate_refuses).
@@ -2156,7 +2163,11 @@ def phase_config5_kernels(torch, dev, records) -> None:
                               lambda g, w: relfro(g.double(), w))
     _library_note(f"gram[bf16] U is V {what} (torch.mm, f32 out)", why)
     G, Gs = fused.gram(B1, B2), fused.gram(B1, B1)
-    accuracy = {"gram[bf16]": f"{relfro(G.double(), G64):.3e} from the f64 Gram",
+    Pn, Xn = fused.px_update(M1, B1, M2, B2, M3, B3)
+    Pp, Xp = fused.px_update_plain(M1, B1, M2, B2, M3, B3)
+    accuracy = {"px_update[bf16]": f"{max(ulps(Pn, Pp), ulps(Xn, Xp)):.2f} bf16 ulps from the "
+                                   "plain version",
+                "gram[bf16]": f"{relfro(G.double(), G64):.3e} from the f64 Gram",
                 "gram[bf16] U is V": f"{relfro(Gs.double(), G64s):.3e} from the f64 Gram",
                 "mm_update[bf16]": f"{ulps(fused.mm_update(M1, B1), fused.mm_update_plain(M1, B1)):.2f}"
                                    " bf16 ulps from the plain version"}
@@ -2167,7 +2178,7 @@ def phase_config5_kernels(torch, dev, records) -> None:
         raise AssertionError(f"gram[bf16] U is V ({what}): the Gram is not exactly symmetric "
                              f"(max |G - G^T| {float((Gs - Gs.T).abs().max()):.3e})")
     print(f"[config5] kernels gram[bf16] U is V {what}: exactly symmetric")
-    del G, Gs
+    del G, Gs, Pn, Xn, Pp, Xp
     # The Grams of rows 2, 7 and 8 against the f64 Gram of their contracts'
     # operands; rows 7 and 8's exactly symmetric.
     Yst, G = stencil.stencil_spmm_gram_t(op.diags, op.offsets, B1)
@@ -2770,7 +2781,24 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
     S = stencil.stencil_spmm_t(d32, lap.offsets, W16.float())  # the f32 sums, same order
     contract_distance(torch, "[storage]", "stencil_spmm_gram_t[bf16, wide]", ww, Gw,
                       (W16, S), (W16, Yw), 1.0)
-    del lap, W16, Yw, Gw, S
+    same("stencil_spmm_t[bf16]", f"the wide Gram's Y ({ww})", Yw,
+         stencil.stencil_spmm_t(d16, lap.offsets, W16))
+    Yx, Gx = stencil.stencil_spmm_gram_t(d32, lap.offsets, W16)
+    same("stencil_spmm_gram_t[bf16 field, wide]", "the [bf16, wide] launches (Y and G)",
+         torch.cat([Yx.float().reshape(-1), Gx.reshape(-1)]),
+         torch.cat([Yw.float().reshape(-1), Gw.reshape(-1)]))
+    # The route the column blocks replaced summed in f32 FMAs as the f32
+    # kernel does on the lifted field (its launches' Grams and gram.cu's
+    # cross blocks of X and the sums): its distance from the contract.
+    G32 = stencil.stencil_spmm_gram_t(d32, lap.offsets, W16.float())[1]
+    G64 = W16.double() @ S.double().T
+    e_new, e_old = (relfro(g.double(), G64) for g in (Gw, G32))
+    old_ms, old_what = STORAGE_WIDE_BEFORE
+    print(f"[storage] tensor cores stencil_spmm_gram_t[bf16, wide] {ww}: "
+          f"{records['stencil_spmm_gram_t[bf16, wide]']['ms']:.4f} ms in column blocks, its Gram "
+          f"{e_new:.3e} from its contract's f64 Gram; the route it replaced: {old_ms:.4f} ms, "
+          f"{old_what}, its f32 arithmetic {e_old:.3e} from it")
+    del lap, W16, Yw, Gw, S, Yx, Gx, G32, G64
     torch.cuda.empty_cache()
 
 
@@ -2875,9 +2903,13 @@ def phase_storage(torch, dev, records) -> dict:
     if not (bool(xinfo.converged.all()) and xinfo.iterations == binfo.iterations):
         raise AssertionError(f"[storage] bf16 fields: {xinfo} against {binfo}")
     W = _rhs(lap.n, STORAGE_WIDE_K, bf, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     (Xw, winfo), ws = sbcgrq(lap16, W, 5e-3)
+    wpeak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[storage] bf16 {SHAPES[0][0]}^3 k={STORAGE_WIDE_K} tol=5e-3 (the wide bf16 Gram): "
-          f"{winfo.iterations} iterations {ws:.3f} s, converged {bool(winfo.converged.all())}")
+          f"{winfo.iterations} iterations {ws:.3f} s, converged {bool(winfo.converged.all())}, "
+          f"peak allocated {wpeak:.3f} GiB (operator, B and the solve)")
     if not bool(winfo.converged.all()):
         raise AssertionError(f"[storage] k = {STORAGE_WIDE_K}: {winfo}")
     counts = dict(_native.launches)

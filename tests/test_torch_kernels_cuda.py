@@ -2190,10 +2190,11 @@ def test_mixed_stencil_pairs_match_plain(dev, pair, n, k, offsets):
 @pytest.mark.parametrize("k", [65, 72, 96, 130])
 @pytest.mark.parametrize("pair", ["bf16", "bf16 field"])
 def test_bf16_wide_gram_matches_plain(dev, pair, k):
-    """A bf16 field's Gram above one launch's 64 rows, on the f32 sums: the
-    launches write them to a scratch (counted as ``[..., wide]``) and the
-    cross blocks come from ``gram``; G within 1e-5 of the plain version's,
-    nearer the f64 Gram of X and the sums than that of the stored Y."""
+    """A bf16 field's Gram above one launch's 64 rows, on the f32 sums: each
+    launch (counted as ``[..., wide]``) takes a column block of G from the
+    sums it has just computed (``stencil.wide_gram_launches``); G within
+    1e-5 of the plain version's, nearer the f64 Gram of X and the sums than
+    that of the stored Y."""
     op = laplacian_dia((16, 16, 16), device=dev)
     d = op.diags.bfloat16() if pair == "bf16" else op.diags
     X = _bf_field(k, op.n, 5, dev)
@@ -2201,7 +2202,8 @@ def test_bf16_wide_gram_matches_plain(dev, pair, k):
     Y, G = stencil.stencil_spmm_gram_t(d, op.offsets, X)
     Yp, Gp = stencil.stencil_spmm_plain(d, op.offsets, X, with_gram=True)
     torch.cuda.synchronize()
-    assert _native.launches[f"stencil_spmm_gram_t[{pair}, wide]"] == len(_native.row_chunks(k))
+    assert (_native.launches[f"stencil_spmm_gram_t[{pair}, wide]"]
+            == len(stencil.wide_gram_launches(k)))
     assert _ulps(Y, Yp) <= 1.0 and _relfro(G, Gp) < 1e-5
     S = stencil.stencil_spmm_t(op.diags.float(), op.offsets, X.float())
     G64 = X.double() @ S.double().T
@@ -2338,3 +2340,107 @@ def test_tiled_operator_bf16_field_runs_plain(dev):
     torch.cuda.synchronize()
     assert sum(_native.launches.values()) == 0 and Y.dtype == torch.bfloat16
     assert torch.equal(Y, spmm_tiled.tiled_spmm_plain(op.tiles, op.rt, op.ct, X))
+
+
+# ------------- bf16 row 9 on the tensor cores, row 2w in column blocks
+
+
+@pytest.mark.parametrize("k", [16, 32, 48, 64])
+def test_px_update_mma_matches_plain(dev, k):
+    """Row 9b (``px_update[bf16]`` up to 64 rows, on the tensor cores): Pn
+    and Xn within one bf16 ulp of the plain version on fields whose width is
+    no multiple of the tile (5,000 columns by TMA, the last tile ragged;
+    4,099 by element copies), one launch a call; donated P and X take the
+    fresh call's bits in place."""
+    rng = np.random.default_rng(400 + k)
+    M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
+    for n in (5000, 4099):
+        assert n % 512 != 0
+        W, P, X = (_bf_field(k, n, s, dev) for s in (401, 402, 403))
+        _native.reset_launches()
+        Pn, Xn = fused.px_update(M1, W, M2, P, M3, X)
+        Pp, Xp = fused.px_update_plain(M1, W, M2, P, M3, X)
+        assert Pn.dtype == Xn.dtype == torch.bfloat16
+        assert _ulps(Pn, Pp) <= 1 and _ulps(Xn, Xp) <= 1
+        assert _native.launches["px_update[bf16]"] == 1 and _native.launches["px_update"] == 0
+        Pd, Xd = P.clone(), X.clone()
+        got = fused.px_update(M1, W, M2, Pd, M3, Xd, donate=True)
+        assert got[0].data_ptr() == Pd.data_ptr() and got[1].data_ptr() == Xd.data_ptr()
+        assert torch.equal(got[0], Pn) and torch.equal(got[1], Xn)
+        assert torch.equal(fused.px_update(M1, W, M2, P, M3, X)[0], Pn)
+
+
+def _sha32(t):
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# sha256 (16 hex digits) of the bits of the outputs of the kernels that stay
+# on their schedules (the f32 px_update, row 9, at 32 and 96 rows; bf16
+# qr_p_update, row 12b), as they were before bf16 px_update moved to the
+# tensor cores (H100), on the inputs test_px_schedule_rows_keep_their_bits
+# makes.
+_UPDATE_PINS = {
+    "px_update f32 (32, 40000)": ["e8a968f765721032", "7de7231c757117a3"],
+    "px_update f32 (96, 8192)": ["17d98e5ad1c77ffd", "6dcf8a0514fa403d"],
+    "qr_p_update[bf16] (48, 40000)": ["e81d35effb7d0883", "7fe86ef2e1d2c783"],
+}
+
+
+@pytest.mark.parametrize("case", list(_UPDATE_PINS))
+def test_px_schedule_rows_keep_their_bits(dev, case):
+    """The f32 row 9 and the bf16 QR mode of ``px_update.cu`` (row 12b) keep
+    their bits (pinned checksums of the kernels before row 9b's redesign)."""
+    name, shape = case.split(" (")
+    k, n = (int(v) for v in shape.rstrip(")").split(", "))
+    rng = np.random.default_rng(700 + k)
+    M1, M2, M3 = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
+    W, P, X = (rng.standard_normal((k, n)) for _ in range(3))
+    if name == "px_update f32":
+        got = fused.px_update(M1, _t(W, dev), M2, _t(P, dev), M3, _t(X, dev))
+    else:
+        got = fused.qr_p_update(M1, _bf(W, dev), M2, _bf(P, dev))
+    sums = [_sha16(t) if t.dtype == torch.bfloat16 else _sha32(t) for t in got]
+    assert sums == _UPDATE_PINS[case]
+
+
+# Row 2w before its column blocks (sums to an f32 scratch, X lifted to f32,
+# cross blocks from gram.cu; H100), on the X that
+# test_bf16_wide_gram_columns_keep_y_and_near_the_contract makes: the sha256
+# (16 hex digits) of the bits of Y on the 32^3 Laplacian, and G's relative
+# Frobenius distance from the f64 Gram of X and the f32 sums on the 128^3
+# one, the [storage] solve's field. (On fields of a few tiles a block the
+# old route's f32 chains are short, and its Gram nearer the contract than
+# the column blocks': tools/torch_kernel_times.py --bf16 prints both.)
+_WIDE_PINS = {
+    ("bf16", 96): ("5515a3f48d850e21", 4.562215619815542e-08),
+    ("bf16 field", 96): ("5515a3f48d850e21", 4.562215619815542e-08),
+    ("bf16", 128): ("be2865c89c775b2a", 4.021463128049386e-08),
+    ("bf16 field", 128): ("be2865c89c775b2a", 4.021463128049386e-08),
+}
+
+
+@pytest.mark.parametrize("pair,k", list(_WIDE_PINS), ids=str)
+def test_bf16_wide_gram_columns_keep_y_and_near_the_contract(dev, pair, k):
+    """Row 2w in column blocks (``stencil_mma_cols``), on both bf16-field
+    pairs at k = 96 and 128: one launch per block of
+    ``stencil.wide_gram_launches``; Y bitwise the route's before it (pinned
+    checksums) and the SpMM's; on the 128^3 Laplacian G at or nearer the
+    f64 Gram of X and the f32 sums, its contract, than the route before."""
+    pin, before = _WIDE_PINS[(pair, k)]
+    for edge in (32, 128):
+        op = laplacian_dia((edge,) * 3, device=dev)
+        d = op.diags.bfloat16() if pair == "bf16" else op.diags
+        X = _bf(np.random.default_rng(600 + k).standard_normal((k, op.n)), dev)
+        _native.reset_launches()
+        Y, G = stencil.stencil_spmm_gram_t(d, op.offsets, X)
+        assert (_native.launches[f"stencil_spmm_gram_t[{pair}, wide]"]
+                == len(stencil.wide_gram_launches(k)) == 2)
+        assert torch.equal(Y, stencil.stencil_spmm_t(d, op.offsets, X))
+        if edge == 32:
+            assert _sha16(Y) == pin
+            continue
+        S = stencil.stencil_spmm_t(op.diags.float(), op.offsets, X.float())
+        G64 = X.double() @ S.double().T
+        assert _relfro(G.double(), G64) <= before

@@ -416,7 +416,26 @@ def test_host_constants_mirror_the_sources():
     assert ("const long long b = 2LL * mma_stage_bytes(k, ndiag, nst, h, T, dsize) +\n"
             "                      2LL * k * mma_tile_ld(T);\n"
             "  return (b > 4LL * kStMmaScratch ? b : 4LL * kStMmaScratch) + 1024;" in st)
-    assert "if (gram && S == nullptr && k <= 64)" in st and stencil.MMA_MAX_K == 64
+    assert "if (gram && k <= 64)" in st and stencil.MMA_MAX_K == 64
+    # A bf16 field's Gram above 64 rows in column blocks (stencil_mma_cols)
+    # and bf16 px_update on the tensor cores.
+    assert int(re.search(r"kStColsFw = (\d+)", st).group(1)) == stencil.MMA_COLS_FW
+    assert "(ga + 15) / 16 > kStColsFw * (16 / ((k + 7) / 8))" in st
+    assert "MG = nw / RG, TM = (MT + MG - 1) / MG;" in st
+    assert "inline int mma_sums_ld(int T) { return T + ((16 - T) & 31); }" in st
+    assert ("return 2LL * (2LL * nst * T * round8(k) + 2LL * k * mma_window_ld(h, T) +\n"
+            "                1LL * dsize * ndiag * T) +\n"
+            "         4LL * k * mma_sums_ld(T) + 2LL * others * mma_tile_ld(T) + 1024;" in st)
+    assert "__launch_bounds__(kStMmaThreads, 1)\n    stencil_mma_cols(" in st
+    assert ("return 2LL * T * (stages * (2 * W + round8(k)) + round8(k)) +\n"
+            "         (W == 64 ? 3LL * 64 * 128 : 0) + 1024;" in px)
+    assert fused.PX_MMA_C_BYTES == 3 * 64 * 128 and fused.PX_MMA_MAX_K == 64
+    assert "__launch_bounds__(kUpThreads, 1)\n    px_update_mma(" in px
+    assert ("k > 64 || T < 128 || T > 512 || T % 128 != 0 || stages < 2 ||\n"
+            "      stages > kRingMaxStages" in px)
+    assert ("if (k <= 16)\n    return launch_px_mma<16>(" in px
+            and "if (k <= 32)\n    return launch_px_mma<32>(" in px
+            and "  return launch_px_mma<64>(" in px)
     assert "__launch_bounds__(kStMmaThreads, 1)\n    stencil_mma(" in st
     assert "constexpr int kStMmaThreads = 512;" in st
     assert "__shared__ Diags dg;" in st and "__shared__ unsigned long long full[2];" in st
@@ -1008,3 +1027,138 @@ def test_update_gram_mma_schedule_covers_y_once(k):
                              8 * (nt0 + j):8 * (nt0 + j) + 8, step] += 1
     upper = np.triu(np.ones((k, k), dtype=bool))
     assert (held[:k, :k][upper] == 1).all()
+
+
+# ------------- bf16 row 9 on the tensor cores, row 2w in column blocks
+
+
+@pytest.mark.parametrize("k,n,T,stages", [
+    (32, 256 ** 3, 512, 2),  # config 5's inner shape: the lean path
+    (48, 32 ** 4, 256, 2),   # 64-row boxes and C's pieces in shared memory
+    (64, 2 ** 20, 128, 3),
+    (16, 512 ** 2, 512, 4),
+    (12, 777, 128, 4),       # a small field: 128 columns
+])
+def test_px_update_mma_plan_of_the_main_shapes(k, n, T, stages):
+    """bf16 ``px_update`` on the tensor cores: the widest tile whose ring of
+    W, P and X holds two stages beside the tile of Pn (and C's three pieces
+    at the 64-row width) at one block an SM, as deep as fits up to
+    ``UPDATE_MMA_MAX_STAGES``, within the H100's 232,448 bytes; more than 64
+    rows are refused (the f32-FMA kernel's chunks take them)."""
+    plan = fused.px_update_mma_plan(k, n, H100_SMEM, H100_SMS)
+    assert (plan.T, plan.stages) == (T, stages)
+    assert plan.smem_bytes == fused.px_update_mma_smem_bytes(k, T, stages)
+    assert plan.smem_bytes + fused.RING_BARRIER_BYTES <= H100_SMEM
+    w = next(w for w in fused.UPDATE_MMA_WIDTHS if k <= w)
+    assert plan.smem_bytes == (2 * T * (stages * (2 * w + fused.round8(k)) + fused.round8(k))
+                               + (3 * 64 * 128 if w == 64 else 0) + 1024)
+    deeper = fused.px_update_mma_smem_bytes(k, T, stages + 1)
+    assert (stages == fused.UPDATE_MMA_MAX_STAGES
+            or deeper + fused.RING_BARRIER_BYTES > H100_SMEM)
+    for t in fused.UPDATE_MMA_TILES:  # no wider tile holds two stages
+        if T < t <= max(128, n // H100_SMS):
+            assert fused.px_update_mma_smem_bytes(k, t, 2) + fused.RING_BARRIER_BYTES > H100_SMEM
+    for bad in (0, 65, 96):
+        with pytest.raises(ValueError, match="1 to 64 rows"):
+            fused.px_update_mma_plan(bad, n, H100_SMEM, H100_SMS)
+
+
+@pytest.mark.parametrize("k", [96, 128])
+@pytest.mark.parametrize("dsize", [2, 4])  # bf16 diagonals, or f32 ones with a bf16 field
+def test_stencil_mma_plan_takes_the_gram_rows(k, dsize):
+    """The column-block launches of a bf16 field's Gram on the 128^3
+    Laplacian at k = 96 and 128: every launch's plan, with the Gram's rows
+    (the centre of the other chunks' X staged beside it), fits the H100 at
+    one block an SM; its bytes are ``mma_cols_smem_bytes``'s; and a Gram
+    beyond ``MMA_COLS_FRAGS`` fragments of 16 x 8 is refused."""
+    shape = (128, 128, 128)
+    n, offsets = int(np.prod(shape)), _lap_offsets(shape)
+    launches = stencil.wide_gram_launches(k)
+    runs = [(0, k)]  # the Gram's rows of each launch: all of them
+    assert launches == [(r0, r1, a0, a1) for r0, r1 in _native.row_chunks(k) for a0, a1 in runs]
+    for r0, r1, a0, a1 in launches:
+        kc, own = r1 - r0, a0 <= r0 < a1
+        others = a1 - a0 - (kc if own else 0)
+        plan = stencil.stencil_mma_plan(offsets, n, kc, H100_SMEM, H100_SMS, dsize, a1 - a0,
+                                        own)
+        assert (plan.h, plan.T, plan.near.count(False)) == (128, 128, 2)
+        assert plan.smem_bytes == stencil.mma_cols_smem_bytes(kc, 7, 2, 128, 128, others, dsize)
+        assert plan.smem_bytes + stencil.MMA_STATIC_BYTES <= H100_SMEM
+        r8, L = -(-kc // 8) * 8, stencil.mma_window_ld(128, 128)
+        stage = 2 * 2 * 128 * r8 + 2 * kc * L + dsize * 7 * 128
+        assert plan.smem_bytes == (2 * stage + 4 * kc * stencil.mma_sums_ld(128)
+                                   + 2 * others * stencil.mma_tile_ld(128) + 1024)
+    assert stencil.mma_sums_ld(128) % 32 == 16 and stencil.mma_sums_ld(128) >= 128
+    assert [stencil.mma_cols_gram_rows(kc) for kc in (64, 48, 41, 40, 32)] == [
+        128, 128, 128, 192, 256]
+    with pytest.raises(ValueError, match="at most 128 rows"):
+        stencil.stencil_mma_plan(offsets, n, 64, H100_SMEM, H100_SMS, 2, 144)
+
+
+@pytest.mark.parametrize("k", [65, 72, 96, 128, 130, 200])
+def test_wide_gram_column_blocks_cover_every_entry_once(k):
+    """``csrc/stencil.cu`` stencil_mma_cols's schedule in numpy, over the
+    launches of ``wide_gram_launches``: in a launch of Y's rows r0:r1 whose
+    Gram takes X's rows a0:a1 (RG = ceil(kc / 8) column tiles, MT =
+    ceil(ga / 16) m-tiles in MG = 16 // RG groups of TM), warp w < MG RG
+    owns the column tile nt = w % RG and the m-tiles (w // RG) TM + i, i <
+    tm, over all of a tile's 16-column steps, lane (g, t) holding entries
+    (16 mt + g + 8 (e / 2), 8 nt + 2 t + e % 2), at most ``MMA_COLS_FW``
+    m-tiles a warp. Every entry of G is held by exactly one lane of one
+    launch, so each is one running sum and nothing is reduced inside a
+    block; every product X[a, c] Y[s, c] enters it once a column; each
+    launch's SpMM units cover its rows of Y once a tile, and each row of Y
+    is stored by one launch; and every row of X the Gram takes comes from
+    the window (the launch's own rows) or from the centre copy, whose rows
+    are exactly the others, once each."""
+    T = 128
+    launches = stencil.wide_gram_launches(k)
+    assert sorted({(r0, r1) for r0, r1, _, _ in launches}) == _native.row_chunks(k)
+    held = np.zeros((k, k), dtype=int)
+    stored = np.zeros(k, dtype=int)
+    for r0, r1, a0, a1 in launches:
+        kc, ga = r1 - r0, a1 - a0
+        own = r0 - a0 if a0 <= r0 < a1 else -1
+        RG, MT = -(-kc // 8), -(-ga // 16)
+        MG = 16 // RG
+        TM = -(-MT // MG)
+        assert TM <= stencil.MMA_COLS_FW and ga <= stencil.mma_cols_gram_rows(kc)
+        block = np.zeros((ga, kc), dtype=int)
+        products = np.zeros((ga, kc), dtype=int)
+        for warp in range(16):
+            nt, mg = warp % RG, warp // RG
+            tm = max(0, min(TM, MT - mg * TM)) if warp < MG * RG else 0
+            for i in range(tm):
+                mt = mg * TM + i
+                for g in range(8):
+                    for t in range(4):
+                        for e in range(4):
+                            r, s = 16 * mt + g + 8 * (e // 2), 8 * nt + 2 * t + e % 2
+                            if r < ga and s < kc:
+                                block[r, s] += 1
+                products[16 * mt:16 * mt + 16, 8 * nt:8 * nt + 8] += 1  # each column step once
+        assert (block == 1).all() and (products[:ga, :kc] == 1).all()
+        held[a0:a1, r0:r1] += block
+        units = np.zeros((kc, T), dtype=int)
+        nunits = RG * (T // 16)
+        for warp in range(16):
+            for u0 in range(warp, nunits, 2 * 16):
+                for b in range(2):
+                    u = min(u0 + 16 * b, nunits - 1)
+                    if u0 + 16 * b >= nunits:
+                        continue  # a repeat of the last unit, not kept
+                    for g in range(8):
+                        r = 8 * (u % RG) + g
+                        if r < kc:
+                            units[r, 16 * (u // RG):16 * (u // RG) + 16] += 1
+        assert (units == 1).all()
+        if own >= 0:
+            stored[r0:r1] += 1
+        others = ga - (kc if own >= 0 else 0)
+        centre = [j + kc if own >= 0 and j >= own else j for j in range(others)]
+        from_window = [a for a in range(ga) if own >= 0 and own <= a < own + kc]
+        slab = [a - kc if own >= 0 and a >= own + kc else a for a in range(ga)
+                if a not in from_window]
+        assert sorted(centre + from_window) == list(range(ga))
+        assert [centre[j] for j in slab] == [a for a in range(ga) if a not in from_window]
+    assert (held == 1).all() and (stored == 1).all()

@@ -19,7 +19,7 @@ torch's BSR product).
 Run on a machine with a card, from the root of a checkout:
 
     python3 tools/torch_kernel_times.py [--root DIR] [--reps 50] [--only REGEX]
-        [--const-hop | --bf16] [--library | --sweep | --variants]
+        [--const-hop | --bf16 | --short] [--library | --sweep | --variants]
 
 ``--bf16`` times the bf16 variants of rows 1, 2 and 5-9 (config 5's
 capacity route) at its inner shape, (32, 256^3), on the bf16 7-point
@@ -30,12 +30,19 @@ FLOPs a column, it is not symmetric). With ``--variants`` it times the
 tensor-core kernels of rows 5 and 6 (``gram`` with U != V and U is V,
 ``mm_update`` without and with A) at that shape on each column tile and
 ring depth that fits, marking the ones their plans (``gram_plan``,
-``mm_update_mma_plan``) pick; then the tensor-core kernels of rows 2, 7 and
-8 with their Grams: the stencil on each window halo (8 or 256) and tile
-that fits, rows 7 and 8 on each column tile and ring depth
-(``stencil_mma_plan``, ``update_gram_mma_plan`` marked), and the stencil's
+``mm_update_mma_plan``) pick; then the tensor-core kernels of rows 2, 7, 8
+and 9: the stencil on each window halo (8 or 256) and tile that fits, rows
+7, 8 and 9 on each column tile and ring depth (``stencil_mma_plan``,
+``update_gram_mma_plan``, ``px_update_mma_plan`` marked), the stencil's
 probe builds with parts switched off (far X, the Gram, the stores of Y,
-the window's refills).
+the window's refills), and those of row 2w, the bf16 stencil's Gram above
+64 rows in column blocks at (96, 128^3) (the Gram, the SpMM, the centre
+copy or its wait, the refills). ``--bf16`` also times row 2w at (96,
+128^3) on bf16 and on f32 diagonals. ``--short`` times rows 10 and 10b
+(``xr_update_gram`` at (16, 512^2) in f32 and bf16, and in bf16 at (48,
+32^4)) and row 14 (``const_block_stencil_spmm_t`` on ``dirac_eo(32)``'s
+parity hop at one RHS): the rows whose event medians in ``chip_smoke.py``
+time the host.
 
 ``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
 32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
@@ -517,6 +524,80 @@ def bf16_cases(torch, dev):
                lambda X=X, V=V, Z=Z: fused.px_update(M, X, M2, V, M3, Z),
                bound(5 * fb + 3 * kk, 6 * k * k * n))
         del X, V, Z
+    yield from row2w_cases(torch, dev)
+
+
+def row2w_cases(torch, dev):
+    """(name, fn, bound us) of the bf16 stencil's Gram above one launch's 64
+    rows (row 2w) at the ``[storage]`` shape, (96, 128^3), on bf16 and on
+    f32 diagonals of the 7-point operator (``[bf16, wide]``, ``[bf16 field,
+    wide]``): X read and Y written once in bf16, the diagonals once, G
+    written; the SpMM's FLOPs and the Gram's 2 k^2 a column at the bf16
+    tensor-core rate. First one line of the Gram's relative Frobenius
+    distance from the f64 Gram of X and the f32 sums, its contract, at k =
+    96 and 128 on the 32^3 and 128^3 Laplacians (the checkout's route)."""
+    from blockcg_tpu_torch.ops import stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    dist = {}
+    for edge in (32, 128):
+        lap = laplacian_dia((edge,) * 3, device=dev)
+        for k in (96, 128):
+            gen = torch.Generator(device=dev).manual_seed(k)
+            X = torch.randn((k, lap.n), generator=gen, device=dev).bfloat16()
+            S = stencil.stencil_spmm_t(lap.diags, lap.offsets, X.float())
+            G64 = X.double() @ S.double().T
+            G = stencil.stencil_spmm_gram_t(lap.diags.bfloat16(), lap.offsets, X)[1].double()
+            dist[f"({k}, {edge}^3)"] = float(torch.linalg.norm(G - G64) / torch.linalg.norm(G64))
+            del X, S, G64, G
+    print(json.dumps({"case": "row 2w gram contract distance", "dist": dist}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 96
+    op = laplacian_dia((128,) * 3, dtype=torch.bfloat16, device=dev)
+    n, nd = op.n, len(op.offsets)
+    nnz = int(torch.count_nonzero(op.diags))
+    X = torch.randn((k, n), generator=gen, device=dev).bfloat16()
+    for D, what in ((op.diags, "[bf16, wide]"), (op.diags.float(), "[bf16 field, wide]")):
+        bound = max((D.element_size() * nd * n + 4 * k * n + 4 * k * k) / 3.35e12,
+                    (2 * k * nnz + 2 * k * k * n) / 989e12) * 1e6
+        yield (f"row 2w stencil_spmm_gram_t{what} (96, 128^3)",
+               lambda D=D: stencil.stencil_spmm_gram_t(D, op.offsets, X), bound)
+
+
+def short_cases(torch, dev):
+    """(name, fn, bound us) of the rows whose CUDA-event medians in
+    ``chip_smoke.py`` time the host's wrapper (PERF.md section 6): row 10
+    (``xr_update_gram``) at config 2's (16, 512^2), f32 and bf16, and bf16
+    at (48, 32^4) on ``I_4 x C``; row 14 (``const_block_stencil_spmm_t``) on
+    the even-odd CG's parity hop of ``dirac_eo(32)`` at one RHS, (1, 4,
+    2^19). Bounds as ``chip_smoke.py`` counts them."""
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+    from blockcg_tpu_torch.ops import fused
+    from blockcg_tpu_torch.problems import dirac_eo
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for m, kc, n, dt, what in ((16, 16, 512 ** 2, torch.float32, "f32 (16, 512^2)"),
+                              (16, 16, 512 ** 2, torch.bfloat16, "bf16 (16, 512^2)"),
+                              (48, 12, 32 ** 4, torch.bfloat16, "bf16 (48, 32^4)")):
+        C = torch.randn((kc, kc), generator=gen, device=dev) / kc ** 0.5
+        A = C if kc == m else torch.kron(torch.eye(m // kc, device=dev), C)
+        F = [torch.randn((m, n), generator=gen, device=dev).to(dt) for _ in range(4)]
+        e = F[0].element_size()
+        nnz = int(torch.count_nonzero(A))
+        rate = 989e12 if e == 2 else 67e12
+        bound = max((4 * m * m + 6 * e * m * n + 4 * m * m) / 3.35e12,
+                    (4 * n * nnz + m * (m + 1) * n) / rate) * 1e6
+        row = "10b" if e == 2 else "10"
+        yield (f"row {row} xr_update_gram {what}",
+               lambda A=A, F=F: fused.xr_update_gram(A, *F), bound)
+    eo = dirac_eo(32, device=dev)
+    hop = eo.hop_oe
+    Xv = torch.randn((1, hop.bs, hop.ns), generator=gen, device=dev)
+    main = (hop.hops_main, hop.main_offsets, hop.main_slots, hop.masks_main, Xv)
+    nbytes = 4 * (hop.hops_main.numel() + (0 if hop.masks_main is None else
+                                           hop.masks_main.numel()) + 2 * Xv.numel())
+    yield (f"row 14 const_block_stencil_spmm_t dirac_eo(32) hop_oe (1, {hop.bs}, {hop.ns})",
+           lambda: cbs.const_block_stencil_spmm_t(*main), nbytes / 3.35e12 * 1e6)
 
 
 def bf16_variants(torch, dev):
@@ -605,8 +686,22 @@ def bf16_mma_variants(torch, dev):
             yield (f"variant row 2 stencil_spmm_gram_t[bf16] h={h} T={T}{mark} (32, 256^3)",
                    lambda h=h, T=T: (_native.launch(
                        "variant", "bcg_stencil_spmm_bf16", dev, p(op.diags), carr, nd, p(U),
-                       p(Y), None, p(part), p(G), k, n, h, T, _native.nblocks(n)), Y, G)[1:],
+                       p(Y), p(part), p(G), k, n, h, T, _native.nblocks(n)), Y, G)[1:],
                    bound)
+    W3 = torch.randn((k, n), generator=gen, device=dev).bfloat16()
+    M3 = torch.randn((k, k), generator=gen, device=dev) / k ** 0.5
+    Pn, Xn = torch.empty_like(U), torch.empty_like(U)
+    pplan = fused.px_update_mma_plan(k, n, cap, sms)
+    bound9 = max((5 * fb + 3 * kk) / 3.35e12, 18 * k * k * n / 989e12) * 1e6
+    for T in fused.UPDATE_MMA_TILES:
+        for st in range(2, fused.RING_MAX_STAGES + 1):
+            if fused.px_update_mma_smem_bytes(k, T, st) + fused.RING_BARRIER_BYTES > cap:
+                continue
+            mark = " (plan)" if (T, st) == (pplan.T, pplan.stages) else ""
+            yield (f"variant row 9 px_update[bf16] T={T} stages={st}{mark} (32, 256^3)",
+                   lambda T=T, st=st: (_native.launch(
+                       "variant", "bcg_px_update_mma", dev, p(M), p(U), p(M2), p(V), p(M3),
+                       p(W3), p(Pn), p(Xn), k, n, T, st), Pn, Xn)[1:], bound9)
     for nf in (2, 1):
         mplan = fused.update_gram_mma_plan(k, n, nf, False, cap, sms)
         bound = max(((nf + 1) * fb + (nf + 1) * kk) / 3.35e12,
@@ -697,6 +792,100 @@ def sm_probe_cases(torch, dev, tmp: Path):
             return Y, G
         yield f"probe row 2 stencil_spmm_gram_t[bf16] {what} h={plan.h} T={plan.T} (32, 256^3)", \
             run, None
+
+
+# Probe builds of row 2w, the bf16 stencil's Gram above 64 rows in column
+# blocks (csrc/stencil.cu stencil_mma_cols<bf16, PROBE>, exported by a source
+# that includes it), on its plans at (96, 128^3): parts switched off.
+COLS_PROBE = r"""#include "{src}"
+extern "C" int cols_probe(const bf16* diags, const int* offsets, int ndiag, const bf16* X,
+                          const bf16* Xa, bf16* Y, float* part, float* G, int k, int ga, int own,
+                          long long n, int h, int T, int max_blocks, int probe, int device,
+                          cudaStream_t stream) {{
+  Diags dg{{}};
+  if (!make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (probe) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+COLS_PROBES = ((0, "as built"), (1, "no Gram"), (4, "no SpMM"), (5, "no SpMM, no Gram"),
+               (2, "no centre copy"), (16, "no wait for the centre copy"),
+               (8, "no refills"), (13, "no refills, no SpMM, no Gram"),
+               (32, "one mma.sync chain through a tile"))
+
+
+def cols_probe_cases(torch, dev, tmp: Path):
+    """Row 2w at (96, 128^3) on its plans in the probe builds of
+    ``COLS_PROBES``: both column-block launches a call. The builds that
+    compute all of G (as built, and the one chain of mma.sync sums through
+    a tile) first print their Gram's relative Frobenius distance from the
+    f64 Gram of X and the f32 sums, its contract."""
+    import ctypes
+    import subprocess
+
+    from blockcg_tpu_torch.ops import _native, stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    probe = tmp / "cols_probe.cu"
+    cases = "".join(f"    case {v}: return launch_mma_cols<bf16, 3, {v}>(diags, dg, ndiag, X, "
+                    "Xa, Y, "
+                    "part, G, k, ga, own, n, h, T, max_blocks, device, stream);\n"
+                    for v, _ in COLS_PROBES)
+    probe.write_text(COLS_PROBE.format(src=_native.CSRC / "stencil.cu", cases=cases))
+    lib = tmp / "libcolsprobe.so"
+    built = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-shared", str(probe), "-o",
+                            str(lib)], capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the column-block probe:\n{built.stdout}{built.stderr}")
+    fn = ctypes.CDLL(str(lib)).cols_probe
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes, fn.restype = [P, ctypes.POINTER(ctypes.c_int), I, P, P, P, P, P, I, I, I, L, I,
+                               I, I, I, I, P], I
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 96
+    op = laplacian_dia((128,) * 3, dtype=torch.bfloat16, device=dev)
+    n, nd, idx = op.n, len(op.offsets), dev.index
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    X = torch.randn((k, n), generator=gen, device=dev).bfloat16()
+    Y = torch.empty_like(X)
+    coffs = (ctypes.c_int * nd)(*(int(o) % n for o in op.offsets))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launches = []
+    for r0, r1, a0, a1 in stencil.wide_gram_launches(k):
+        own = r0 - a0 if a0 <= r0 < a1 else -1
+        plan = stencil.stencil_mma_plan(tuple(op.offsets), n, r1 - r0, cap, sms, 2, a1 - a0,
+                                        own >= 0)
+        mb = min(-(-n // plan.T), _native.MAX_BLOCKS)
+        part = torch.empty((mb, a1 - a0, r1 - r0), device=dev)
+        G = torch.empty((a1 - a0, r1 - r0), device=dev)
+        launches.append((r0, r1, a0, a1, own, plan, mb, part, G))
+    S = stencil.stencil_spmm_t(op.diags.float(), op.offsets, X.float())
+    G64 = X.double() @ S.double().T
+    del S
+    Gfull = torch.empty((k, k), dtype=torch.float64, device=dev)
+    for v, what in COLS_PROBES:
+        def run(v=v):
+            for r0, r1, a0, a1, own, plan, mb, part, G in launches:
+                rc = fn(op.diags.data_ptr(), coffs, nd, X[r0:r1].data_ptr(),
+                        X[a0:a1].data_ptr(), Y[r0:r1].data_ptr(), part.data_ptr(),
+                        G.data_ptr(), r1 - r0, a1 - a0, own, n, plan.h, plan.T, mb, v, idx,
+                        stream)
+                if rc != 0:
+                    raise RuntimeError(f"column-block probe {v} failed: {rc}")
+            return Y
+        plan = launches[0][5]
+        if v in (0, 32):
+            run()
+            for r0, r1, a0, a1, *_, G in launches:
+                Gfull[a0:a1, r0:r1] = G
+            err = float(torch.linalg.norm(Gfull - G64) / torch.linalg.norm(G64))
+            print(json.dumps({"case": f"probe row 2w {what} (96, 128^3)",
+                              "gram_contract_distance": err}), flush=True)
+        yield (f"probe row 2w stencil_spmm_gram_t[bf16, wide] {what} h={plan.h} T={plan.T} "
+               "(96, 128^3)", run, None)
 
 
 def bound_us(name: str) -> float | None:
@@ -1055,8 +1244,7 @@ def sweep_cases(torch, dev):
                            f"smem={nbytes}{mark}",
                            lambda op=op, X=X, Y=Y, offs=offs, part=part, G=G, h=h, T=T, mb=mb:
                            _native.launch("sweep", "bcg_stencil_spmm", dev, p(op.diags), offs,
-                                          nd, p(X), p(Y), None, p(part), p(G), k, n, h, T,
-                                          mb))
+                                          nd, p(X), p(Y), p(part), p(G), k, n, h, T, mb))
         del op, X, Y
 
 
@@ -1233,6 +1421,8 @@ def main() -> None:
     ap.add_argument("--bf16", action="store_true",
                     help="time only the bf16 variants of rows 1, 2 and 5-9 and their f32 "
                          "kernels at (32, 256^3)")
+    ap.add_argument("--short", action="store_true",
+                    help="time only rows 10, 10b and 14, whose event medians time the host")
     ap.add_argument("--only", default=None,
                     help="time only the cases whose name matches this regular expression")
     args = ap.parse_args()
@@ -1246,9 +1436,11 @@ def main() -> None:
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
         todo = (chain(bf16_variants(torch, dev), bf16_mma_variants(torch, dev),
-                      sm_probe_cases(torch, dev, Path(tmp)))
+                      sm_probe_cases(torch, dev, Path(tmp)),
+                      cols_probe_cases(torch, dev, Path(tmp)))
                 if args.bf16 and args.variants
                 else bf16_cases(torch, dev) if args.bf16
+                else short_cases(torch, dev) if args.short
                 else sweep_cases(torch, dev) if args.sweep
                 else const_hop_variants(torch, dev, Path(tmp), args.only)
                 if args.variants and args.const_hop
