@@ -3,7 +3,7 @@
 // (GramTile, and VecGram and SymGram of the streaming kernels), the
 // deterministic second-stage reduction of the Gram partials, the cp.async
 // pieces of the streaming kernels (stencil.cu, mm_update.cu,
-// update_gram.cuh, px_update.cu, gram.cu) and the mbarriers of the
+// update_gram.cuh, px_update.cu, xr_update.cu, gram.cu) and the mbarriers of the
 // warp-specialised block stencil (block_stencil.cu).
 //
 // Layout: every field is lanes-major (k, n), row r of column i at
@@ -166,14 +166,6 @@ __device__ __forceinline__ void apply_coeff(float (&y)[KMAX], const float* sT,
 #pragma unroll
     for (int r = 0; r < KMAX; ++r) y[r] = fmaf(m[r], fc, y[r]);
   }
-}
-
-// Write the thread's column into a staged (KMAX, kLd) tile, as a field of E
-// stores it (rounded to bf16 on bf16 fields, lifted back to f32).
-template <int KMAX, typename E = float>
-__device__ __forceinline__ void stage_col(float* s, const float (&v)[KMAX]) {
-#pragma unroll
-  for (int r = 0; r < KMAX; ++r) s[r * kLd + threadIdx.x] = rounded<E>(v[r]);
 }
 
 // The block's share of G = X Y^T. Thread t owns a kTR x kTS register tile of
@@ -457,7 +449,7 @@ __device__ __forceinline__ void cp_async_wait() {
 inline bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
 // ---- the streaming coefficient updates (mm_update.cu, update_gram.cuh,
-// px_update.cu). A persistent grid of kUpThreads-thread blocks walks
+// px_update.cu, xr_update.cu). A persistent grid of kUpThreads-thread blocks walks
 // kUpTile-column tiles; warp w owns output rows w*R .. w*R+R-1 and lane l
 // columns 4l .. 4l+3, so global accesses are 16 bytes a thread and shared
 // reads of a staged tile are conflict-free float4s.
@@ -495,6 +487,48 @@ __device__ __forceinline__ void load_rows(float (&m)[R], const float* p) {
   } else {
 #pragma unroll
     for (int j = 0; j < R; ++j) m[j] = p[j];
+  }
+}
+
+// v[a][q] = F[r0 + a, i + q], lifted to f32, for the rows below k and the
+// columns below n, else 0: 4-element loads, or scalar ones past n and on
+// unaligned fields (a thread's rows of a tile, loaded ahead of use).
+template <typename E, int R>
+__device__ __forceinline__ void load_rows4(float (&v)[R][4], const E* F, int r0, int k,
+                                           long long n, long long i, bool vec) {
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int r = r0 + a;
+    const long long at = r * n + i;
+    if (r >= k) {
+      v[a][0] = v[a][1] = v[a][2] = v[a][3] = 0.f;
+    } else if (vec && i + 3 < n) {
+      const float4 x = load4(F + at);
+      v[a][0] = x.x; v[a][1] = x.y; v[a][2] = x.z; v[a][3] = x.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[a][q] = i + q < n ? to_f32(F[at + q]) : 0.f;
+    }
+  }
+}
+
+// F[r0 + a, i .. i + 3] = v[a] for the rows below k: 4-element stores, or
+// scalar ones past n and on unaligned fields.
+template <typename E, int R>
+__device__ __forceinline__ void store_rows4(E* F, const float (&v)[R][4], int r0, int k,
+                                            long long n, long long i, bool vec) {
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int r = r0 + a;
+    if (r >= k) continue;
+    const long long at = r * n + i;
+    if (vec && i + 3 < n) {
+      store4(F + at, make_float4(v[a][0], v[a][1], v[a][2], v[a][3]));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (i + q < n) F[at + q] = from_f32<E>(v[a][q]);
+    }
   }
 }
 

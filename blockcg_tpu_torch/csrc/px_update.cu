@@ -80,26 +80,6 @@ namespace {
 template <int R>
 constexpr int kPxBlocksPerSm = R <= 8 ? 2 : 1;
 
-// F[r0 + a, i .. i + 3] = v[a] for the rows below k: 4-element stores, or
-// scalar ones past n and on unaligned fields.
-template <typename E, int R>
-__device__ __forceinline__ void store_rows4(E* F, const float (&v)[R][4], int r0, int k,
-                                            long long n, long long i, bool vec) {
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int r = r0 + a;
-    if (r >= k) continue;
-    const long long at = r * n + i;
-    if (vec && i + 3 < n) {
-      store4(F + at, make_float4(v[a][0], v[a][1], v[a][2], v[a][3]));
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (i + q < n) F[at + q] = from_f32<E>(v[a][q]);
-    }
-  }
-}
-
 // E: the field element (float or bf16). QR: W is Q1, M1 is M2, Xn receives
 // Q; C and X are unused.
 template <typename E, int R, bool QR>
@@ -141,21 +121,8 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
     if (r0 < k) {
       if (j == 0) {
 #pragma unroll
-        for (int a = 0; a < R; ++a) {
-          const int r = r0 + a;
-          pn[a][0] = pn[a][1] = pn[a][2] = pn[a][3] = 0.f;
-          if constexpr (QR) continue;
-          const long long at = r * n + i;
-          if (r >= k) {
-            xn[a][0] = xn[a][1] = xn[a][2] = xn[a][3] = 0.f;
-          } else if (vec && i + 3 < n) {
-            const float4 x = load4(X + at);
-            xn[a][0] = x.x; xn[a][1] = x.y; xn[a][2] = x.z; xn[a][3] = x.w;
-          } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) xn[a][q] = i + q < n ? to_f32(X[at + q]) : 0.f;
-          }
-        }
+        for (int a = 0; a < R; ++a) pn[a][0] = pn[a][1] = pn[a][2] = pn[a][3] = 0.f;
+        if constexpr (!QR) load_rows4<E, R>(xn, X, r0, k, n, i, vec);
       }
       const int c0 = j * kc, c1 = min(c0 + kc, nin), cw = min(c1, kin);
       const E* sb = sB + buf * kc * kUpTile + 4 * lane;

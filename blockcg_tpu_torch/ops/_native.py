@@ -327,7 +327,7 @@ def library() -> ctypes.CDLL:
     lib.bcg_mm_update_gram.argtypes = [P, P, P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_mm2_update_gram.argtypes = [P, P, P, P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_px_update.argtypes = [P, P, P, P, P, P, P, P, I, I, L, I, I, P]
-    lib.bcg_xr_update_gram.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, P]
+    lib.bcg_xr_update_gram.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, I, P]
     lib.bcg_qr_p_update.argtypes = [P, P, P, P, P, P, I, I, L, I, I, P]
     lib.bcg_qr_px_update.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, P]
     lib.bcg_cbs_spmm.argtypes = [P, ctypes.POINTER(ctypes.c_int),

@@ -53,15 +53,17 @@ still reads a donated input fails on the CPU as it would on the card. Column
 i of every output depends only on column i of the inputs, which is what makes
 the kernels' in-place writes safe.
 
-Width: a kernel launch of the one-thread-a-column kernels holds at most 64
-output rows in registers. A wider field runs as one launch per chunk of
-output rows (``_chunks``: 64 rows, or 32, 16 or 8 where the staged k-column
-coefficients would pass the card's shared memory), each contracting over all
-k input rows; a fused Gram then takes its diagonal blocks from the chunks'
-launches and the rest from ``gram`` on the stored output (``wide_gram``,
-laid out by ``gram_blocks``). A donated output whose chunks read rows that
-an earlier chunk would overwrite is written to a fresh buffer first and
-copied over. A field of at most 64 rows is one launch, as it always was.
+Width: a kernel launch of the one-thread-a-column kernel (``qr_px_update``)
+holds at most 64 output rows in registers, and ``xr_update_gram`` takes the
+Gram of at most 64 rows a launch. A wider field runs as one launch per chunk
+of output rows (``_chunks``, ``xr_update_gram_plan``: 64 rows, or 32, 16 or
+8 where the staged k-column coefficients would pass the card's shared
+memory), each contracting over all k input rows; a fused Gram then takes its
+diagonal blocks from the chunks' launches and the rest from ``gram`` on the
+stored output (``wide_gram``, laid out by ``gram_blocks``). A donated output
+whose chunks read rows that an earlier chunk would overwrite is written to a
+fresh buffer first and copied over. A field of at most 64 rows is one
+launch, as it always was.
 
 ``gram`` streams tiles of [U; V] (U alone when U is V, whose Gram is then
 exactly symmetric) through shared memory, one launch up to 96 rows
@@ -75,14 +77,15 @@ Gram of the stored Y exactly symmetric), and ``px_update`` up to 64 rows
 (``px_update_mma_plan``: [M1 rho] and C in three pieces, one read of P
 feeding both outputs).
 
-``mm_update``, ``mm_update_gram``, ``mm2_update_gram``, ``px_update`` and
-``qr_p_update`` run streaming kernels that stage their input tiles in shared
-memory and split the output rows across warps (``csrc/mm_update.cu``,
-``update_gram.cuh`` through ``mm_update_gram.cu`` and ``mm2_update_gram.cu``,
-``px_update.cu`` for the last two): one launch reads the inputs once up to
+``mm_update``, ``mm_update_gram``, ``mm2_update_gram``, ``px_update``,
+``qr_p_update`` and ``xr_update_gram`` run streaming kernels that stage their
+input tiles in shared memory and split the output rows across warps
+(``csrc/mm_update.cu``, ``update_gram.cuh`` through ``mm_update_gram.cu`` and
+``mm2_update_gram.cu``, ``px_update.cu`` for the next two, ``xr_update.cu``
+on 64 rows a launch with their Gram): one launch reads the inputs once up to
 96 rows (128 where they fit), so a donated operand takes its output in place
 (``mm_update_plan``, ``mm_update_gram_plan``, ``mm2_update_gram_plan``,
-``px_update_plan``, ``qr_p_update_plan``).
+``px_update_plan``, ``qr_p_update_plan``, ``xr_update_gram_plan``).
 """
 
 from __future__ import annotations
@@ -153,8 +156,11 @@ def cheb_step_plain(R, Z, D, AZ, c1: float, c2: float):
 # ------------------------------------------------------------------ wrappers
 
 
-def _gram_buffers(k: int, n: int, device):
-    part = torch.empty((_native.nblocks(n), k, k), dtype=torch.float32, device=device)
+def _gram_buffers(k: int, n: int, device, blocks: int | None = None):
+    """The (blocks, k, k) Gram partials of a launch (``nblocks(n)`` rows
+    unless its plan gives ``blocks``) and its (k, k) Gram."""
+    part = torch.empty((_native.nblocks(n) if blocks is None else blocks, k, k),
+                       dtype=torch.float32, device=device)
     return part, torch.empty((k, k), dtype=torch.float32, device=device)
 
 
@@ -409,10 +415,11 @@ class UpdatePlan(NamedTuple):
 def _blocks_per_sm(kout: int, fused: bool, px: bool) -> int:
     """Blocks an SM a launch of kout rows is built for (the kernels'
     ``__launch_bounds__``: csrc/update_gram.cuh kUgBlocksPerSm for rows 7
-    and 8, csrc/px_update.cu kPxBlocksPerSm for rows 9 and 12, ``px``): two
-    where registers allow, else one. At (48, 32^4) row 12 took 324 us on two
-    blocks an SM (two stages a tile) against 370 on one (one stage; H100,
-    tools/torch_kernel_times.py --const-hop --variants)."""
+    and 8 (and csrc/xr_update.cu kXrBlocksPerSm for row 10, whose launches
+    all take a Gram), csrc/px_update.cu kPxBlocksPerSm for rows 9 and 12,
+    ``px``): two where registers allow, else one. At (48, 32^4) row 12 took
+    324 us on two blocks an SM (two stages a tile) against 370 on one (one
+    stage; H100, tools/torch_kernel_times.py --const-hop --variants)."""
     if not px:
         return 2 if fused and kout <= 32 else 1
     return 2 if kout <= 64 else 1
@@ -494,6 +501,76 @@ def px_update_plan(k: int, device, esize: int = 4) -> UpdatePlan:
     place (a chunk reads only its own rows of X); a donated P takes Pn in
     place on one launch."""
     return _update_plan("px_update", k, 2, 3, 0, _native.max_smem(device.index), True, esize)
+
+
+class XrPlan(NamedTuple):
+    """The launches of ``xr_update_gram`` on k rows (``csrc/xr_update.cu``):
+    the row ``chunks``, one launch each with the Gram of its rows, every one
+    contracting over all k rows of P and Z; ``kc``, the stacked rows of
+    [P; Z] a pipeline stage copies; the launch's shared bytes; the blocks an
+    SM it is built for; and ``grid``, those blocks times the card's SMs: the
+    persistent grid of every launch (at most one block a tile) and the row
+    count of its Gram partials. It depends on the card and the build alone,
+    not on n."""
+    chunks: list[tuple[int, int]]
+    kc: int
+    smem_bytes: int
+    blocks_per_sm: int
+    grid: int
+
+
+def xr_smem_bytes(k: int, kin: int, kc: int, esize: int = 4, floor: bool = True) -> int:
+    """Shared bytes of one ``xr_update_gram`` launch of k rows
+    (``csrc/xr_update.cu`` xr_smem_bytes): alpha's (kin, 8R) float table,
+    two stage buffers of kc stacked rows of [P; Z] (on bf16 fields and the
+    2k rows of [X; R]) in ``esize``-byte elements, the float (k, 136) tile
+    of Rn, at least the Gram's end-of-kernel scratch (not with ``floor``
+    False)."""
+    rows = kc + (2 * k if esize == 2 else 0)
+    b = 4 * (8 * rows_per_warp(k) * kin + k * UPDATE_LD)
+    b += esize * UPDATE_STAGES * rows * UPDATE_TILE
+    return max(b, 4 * 256 * (64 if k > 32 else 16)) if floor else b
+
+
+@functools.lru_cache(maxsize=64)
+def _xr_plan(k: int, cap: int, sms: int, esize: int) -> XrPlan:
+    """Up to 64 rows one launch, else the widest row chunks (64, 32, 16 or 8
+    rows) whose launch leaves room for stages of at least ``UPDATE_MIN_KC``
+    stacked rows (or all 2k); failing those, 8-row chunks on any depth.
+    Stages as deep as the shared memory of the blocks an SM the kernel is
+    built for allows (two blocks share the SM's cap + 1 KB, less 1 KB a
+    block), or of one block, cut into equal parts of the 2k rows of
+    [P; Z]."""
+    nin = 2 * k
+    widths = ([k] if k <= UPDATE_GRAM_MAX_K else []) + [w for w in (64, 32, 16, 8) if w < k]
+    for w, min_kc in [(w, UPDATE_MIN_KC) for w in widths] + [(8, 1)]:
+        chunks = _native.row_chunks(k, w)
+        kout = max(r1 - r0 for r0, r1 in chunks)
+        # xr_smem_bytes less its stages of [P; Z] (its floor lies below any room)
+        fixed = xr_smem_bytes(kout, k, 0, esize, floor=False)
+        for blocks in range(_blocks_per_sm(kout, True, False), 0, -1):
+            room = (cap + 1024) // blocks - 1024
+            deepest = (room - fixed) // (esize * UPDATE_STAGES * UPDATE_TILE)
+            if deepest < min(nin, min_kc):
+                continue
+            stages = -(-nin // min(deepest, nin))
+            kc = -(-nin // stages)
+            return XrPlan(chunks, kc, xr_smem_bytes(kout, k, kc, esize), blocks, blocks * sms)
+    raise ValueError(f"xr_update_gram: {k} right-hand sides leave no room for the "
+                     f"coefficients in {cap} bytes of shared memory")
+
+
+def xr_update_gram_plan(k: int, device, esize: int = 4) -> XrPlan:
+    """The launches of ``xr_update_gram`` on k rows (``csrc/xr_update.cu``):
+    up to 64 rows one launch with the fused Gram, which reads P and Z once;
+    wider, row chunks of at most 64 rows, each with the Gram of its own rows
+    (``wide_gram`` adds the cross blocks). The stages and the blocks an SM
+    follow rows 7 and 8 (two blocks up to 32 rows, one above); the grid is
+    blocks an SM times SMs. ``esize``: bytes of a field element (2 on bf16
+    fields). Cached per card, width and element size: a call does no more
+    than a few cache lookups."""
+    idx = device.index
+    return _xr_plan(k, _native.max_smem(idx), _native.sm_count(idx), esize)
 
 
 GRAM_THREADS = 256  # csrc/gram.cu kGrThreads
@@ -847,18 +924,18 @@ def xr_update_gram(alpha: torch.Tensor, P: torch.Tensor, X: torch.Tensor,
     # A chunk reads its own rows of X and R and all of P and Z, which no
     # chunk writes: in place is safe at every width.
     Xn, Rn = (X, R) if donate else (torch.empty_like(X), torch.empty_like(R))
-    chunks = _chunks(k, 1, True, "xr_update_gram", P.device)
+    plan = xr_update_gram_plan(k, P.device, P.element_size())
     p = _native.ptr
     name = _native.variant("xr_update_gram", "bcg_xr_update_gram", dt)
     diag = []
-    for r0, r1 in chunks:
-        part, G = _gram_buffers(r1 - r0, n, P.device)
+    for r0, r1 in plan.chunks:
+        part, G = _gram_buffers(r1 - r0, n, P.device, plan.grid)
         _native.launch(*name, P.device, p(alpha[r0:r1]),
                        p(P), p(X[r0:r1]), p(Z), p(R[r0:r1]), p(Xn[r0:r1]), p(Rn[r0:r1]),
-                       p(part), p(G), r1 - r0, k, n, _native.nblocks(n))
+                       p(part), p(G), r1 - r0, k, n, plan.kc, plan.grid)
         diag.append(G)
     return (Xn.view(shape), Rn.view(shape),
-            diag[0] if len(chunks) == 1 else wide_gram(Rn, Rn, diag, chunks))
+            diag[0] if len(plan.chunks) == 1 else wide_gram(Rn, Rn, diag, plan.chunks))
 
 
 def qr_p_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,

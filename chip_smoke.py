@@ -253,7 +253,8 @@ WIDE_M = 96
 WIDE_CONFIG4_K = 24
 # A width whose staged k-column coefficients leave room in shared memory for
 # narrow row chunks only (16 rows for mm2_update_gram, whose plan names them;
-# 32 for xr_update_gram, where 64 rows stop at k = 778), on a short field.
+# 32 for xr_update_gram, whose plan takes chunks of more than 32 rows up to
+# k = 652), on a short field.
 NARROW_CHUNK_K = 800
 NARROW_CHUNK_N = 2 ** 16
 # The fused SBCGrQ tail against the pair it replaces: (32, 128^3), (48, 32^4).
@@ -826,6 +827,7 @@ def phase_krylov_kernels(torch, dev, records) -> None:
     config4, config2 = operands(DIRAC_K, 4, DIRAC_L ** 4), operands(16, 1, 512 ** 2)
     for m in (4 * DIRAC_K, 16):
         print(f"[plan] qr_p_update m={m}: {fused.qr_p_update_plan(m, dev)}")
+        print(f"[plan] xr_update_gram m={m}: {fused.xr_update_gram_plan(m, dev)}")
     # Each kernel's own path first: its first check sets its record's times.
     for cases, name in ((config4, "qr_p_update"), (config2, "xr_update_gram"),
                         (config4, "xr_update_gram"), (config2, "qr_p_update")):
@@ -1617,6 +1619,7 @@ def phase_wide_kernels(torch, dev, records) -> None:
     if len(plan.chunks) != 1 or not plan.in_place:
         raise AssertionError(f"qr_p_update at m = {m}: {plan}, not one launch in place")
     print(f"[plan] qr_p_update m={m}: {plan}")
+    print(f"[plan] xr_update_gram m={m}: {fused.xr_update_gram_plan(m, dev)}")
 
     kw, nw = NARROW_CHUNK_K, NARROW_CHUNK_N
     Mw = [torch.randn((kw, kw), generator=gen, device=dev) / kw ** 0.5 for _ in range(3)]
@@ -1640,8 +1643,11 @@ def phase_wide_kernels(torch, dev, records) -> None:
                  lambda: fused.mm_update_gram(Mw[0], Fw[0], Fw[1]),
                  lambda: fused.mm_update_gram_plain(Mw[0], Fw[0], Fw[1]), is_gram_w, records,
                  work=(nbytes(Mw[0]) + 3 * wb + wg[0], 2 * kw * kw * nw + wg[1]))
-    xr_chunks = fused._chunks(kw, 1, True, "xr_update_gram", dev)
-    _timed_check(torch, "xr_update_gram", what_w(xr_chunks),
+    xr_plan = fused.xr_update_gram_plan(kw, dev)
+    print(f"[plan] xr_update_gram k={kw}: {len(xr_plan.chunks)} launches of "
+          f"{xr_plan.chunks[0][1]} rows, kc={xr_plan.kc}, {xr_plan.smem_bytes} shared bytes, "
+          f"{xr_plan.blocks_per_sm} blocks an SM, grid {xr_plan.grid}")
+    _timed_check(torch, "xr_update_gram", what_w(xr_plan.chunks),
                  lambda: fused.xr_update_gram(Mw[0], *Fw),
                  lambda: fused.xr_update_gram_plain(Mw[0], *Fw), is_gram_w, records,
                  work=(nbytes(Mw[0]) + 6 * wb + wg[0], 4 * kw * kw * nw + wg[1]))
@@ -2449,6 +2455,7 @@ def phase_bf16presets_kernels(torch, dev, records) -> None:
         F32 = [f.float() for f in F]
         fb = nbytes(F[0])
         if name.startswith("xr_update_gram"):
+            print(f"[plan] {name} ({m}, {n}): {fused.xr_update_gram_plan(m, dev, 2)}")
             calls = (lambda: fused.xr_update_gram(A1, *F),
                      lambda: fused.xr_update_gram_plain(A1, *F),
                      lambda: fused.xr_update_gram(A1, *F32))

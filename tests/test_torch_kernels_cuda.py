@@ -2444,3 +2444,93 @@ def test_bf16_wide_gram_columns_keep_y_and_near_the_contract(dev, pair, k):
         S = stencil.stencil_spmm_t(op.diags.float(), op.offsets, X.float())
         G64 = X.double() @ S.double().T
         assert _relfro(G.double(), G64) <= before
+
+
+# ---- row 10 (xr_update_gram, f32 and bf16) on the streaming schedule
+
+# sha256 (16 hex digits) of the bits of Xn and Rn of xr_update_gram at config
+# 2's (16, 512^2), as the one-thread-a-column kernel gave them before the
+# streaming schedule (H100), on the inputs that
+# tools/torch_kernel_times.py --short makes for rows 10 and 10b.
+_XR_PINS = {
+    "f32": ["a000af05f20e4cef", "5295d8b111a29bb8"],
+    "bf16": ["798b5c53b283e4a3", "b090e818c1b8fe79"],
+}
+
+
+def _short_xr_inputs(dev):
+    """Rows 10 and 10b's inputs of ``tools/torch_kernel_times.py --short``:
+    alpha (16, 16) and P, X, Z, R (16, 512^2) from one CUDA generator seeded
+    0, f32 first, then bf16."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for what, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        alpha = torch.randn((16, 16), generator=gen, device=dev) / 16 ** 0.5
+        out[what] = alpha, [torch.randn((16, 512 ** 2), generator=gen, device=dev).to(dt)
+                            for _ in range(4)]
+    return out
+
+
+@pytest.mark.parametrize("what", list(_XR_PINS))
+def test_xr_update_gram_keeps_its_bits(dev, what):
+    """Row 10 (10b) on the streaming schedule at config 2's width: Xn and Rn
+    bitwise what the kernel before it gave (pinned checksums), G within
+    1e-5 (relative Frobenius) of the plain version's and exactly symmetric;
+    donated gives the fresh call's bits."""
+    alpha, F = _short_xr_inputs(dev)[what]
+    _native.reset_launches()
+    Xn, Rn, G = fused.xr_update_gram(alpha, *F)
+    assert _native.launches[_native.variant("xr_update_gram", "", F[0].dtype)[0]] == 1
+    sha = _sha16 if what == "bf16" else _sha32
+    assert [sha(Xn), sha(Rn)] == _XR_PINS[what]
+    assert _relfro(G, fused.xr_update_gram_plain(alpha, *F)[2]) < 1e-5
+    assert torch.equal(G, G.T)
+    X, R = F[1].clone(), F[3].clone()
+    got = fused.xr_update_gram(alpha, F[0], X, F[2], R, donate=True)
+    assert got[0].data_ptr() == X.data_ptr() and got[1].data_ptr() == R.data_ptr()
+    assert all(torch.equal(g, w) for g, w in zip(got, (Xn, Rn, G)))
+
+
+def _placed(a, dt, offset, dev):
+    """The numpy field a as a contiguous (k, n) tensor of dtype dt that
+    starts ``offset`` elements into its storage (1: not 16-byte aligned)."""
+    k, n = a.shape
+    buf = torch.empty(k * n + offset, dtype=dt, device=dev)
+    f = buf[offset:].view(k, n)
+    f.copy_(torch.as_tensor(a, dtype=torch.float32, device=dev))
+    return f
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,n,offset", [
+    (8, 4096, 0), (16, 3001, 0), (16, 4096, 1), (48, 8192, 0), (48, 2051, 0), (64, 5000, 0),
+    (64, 1000, 1), (96, 2048, 0), (128, 1024, 0)])
+def test_xr_update_gram_streaming_schedule(dev, dt, k, n, offset):
+    """Row 10 (10b) at 8, 16, 48 and 64 rows (one launch with its Gram), on
+    ragged n and one-element offset fields (element copies and scalar loads
+    and stores on the same schedule), and at 96 and 128 rows (row chunks,
+    ``wide_gram``'s cross blocks): Xn and Rn within 1e-5 (f32) or one bf16
+    ulp of the plain version, G within 1e-5 of the Gram of the stored Rn
+    and exactly symmetric; a repeat, and a donated call on fields placed
+    alike, give the same bits."""
+    rng = np.random.default_rng(900 + k + offset)
+    alpha = _t(rng.standard_normal((k, k)) / np.sqrt(k), dev)
+    arrays = [rng.standard_normal((k, n)) for _ in range(4)]
+    P, X, Z, R = (_placed(a, dt, offset, dev) for a in arrays)
+    plan = fused.xr_update_gram_plan(k, P.device, P.element_size())
+    name = _native.variant("xr_update_gram", "", dt)[0]
+    _native.reset_launches()
+    Xn, Rn, G = fused.xr_update_gram(alpha, P, X, Z, R)
+    assert _native.launches[name] == len(plan.chunks) == (1 if k <= 64 else 2)
+    Xp, Rp, _ = fused.xr_update_gram_plain(alpha, P, X, Z, R)
+    if dt == torch.float32:
+        assert _relmax(Xn, Xp) < 1e-5 and _relmax(Rn, Rp) < 1e-5
+    else:
+        assert _ulps(Xn, Xp) <= 1 and _ulps(Rn, Rp) <= 1
+    assert _relfro(G, fused.gram_plain(Rn, Rn)) < 1e-5 and torch.equal(G, G.T)
+    assert all(torch.equal(g, w) for g, w in zip(fused.xr_update_gram(alpha, P, X, Z, R),
+                                                  (Xn, Rn, G)))
+    Xd, Rd = _placed(arrays[1], dt, offset, dev), _placed(arrays[3], dt, offset, dev)
+    got = fused.xr_update_gram(alpha, P, Xd, Z, Rd, donate=True)
+    assert got[0].data_ptr() == Xd.data_ptr() and got[1].data_ptr() == Rd.data_ptr()
+    assert all(torch.equal(g, w) for g, w in zip(got, (Xn, Rn, G)))

@@ -1162,3 +1162,111 @@ def test_wide_gram_column_blocks_cover_every_entry_once(k):
         assert sorted(centre + from_window) == list(range(ga))
         assert [centre[j] for j in slab] == [a for a in range(ga) if a not in from_window]
     assert (held == 1).all() and (stored == 1).all()
+
+
+# ------------- row 10 (xr_update_gram) on the streaming schedule
+
+
+def _h100(monkeypatch, sms=H100_SMS):
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    monkeypatch.setattr(_native, "sm_count", lambda index: sms)
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("k", [8, 16, 32, 48, 64])
+def test_xr_update_gram_plan_is_one_launch_with_its_gram(monkeypatch, k, esize):
+    """Up to 64 rows ``xr_update_gram`` is one launch of ``csrc/xr_update.cu``
+    with the fused Gram, reading P and Z once in one stage a tile (kc = 2k
+    stacked rows), at two blocks an SM up to 32 rows and one above; its
+    shared bytes, as the kernel counts them (one alpha table, two stages of
+    [P; Z] and on bf16 fields of [X; R], the Rn tile and the Gram's scratch
+    floor), fit the H100's cap at the blocks an SM the plan claims. On f32
+    fields the stages are those of rows 7-9's plans."""
+    _h100(monkeypatch)
+    plan = fused.xr_update_gram_plan(k, torch.device("cpu"), esize)
+    assert plan.chunks == [(0, k)] and plan.kc == 2 * k
+    assert plan.blocks_per_sm == (2 if k <= 32 else 1)
+    assert plan.smem_bytes == fused.xr_smem_bytes(k, k, plan.kc, esize)
+    rp = 8 * fused.rows_per_warp(k)
+    rows = plan.kc + (2 * k if esize == 2 else 0)
+    assert plan.smem_bytes == max(4 * (k * rp + k * fused.UPDATE_LD)
+                                  + esize * 2 * rows * fused.UPDATE_TILE,
+                                  4 * 256 * (64 if k > 32 else 16))
+    if esize == 4:
+        assert plan.smem_bytes == fused.update_smem_bytes(k, k, plan.kc, 1, True)
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= H100_SMEM + 1024
+    assert plan.grid == plan.blocks_per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("k,chunk", [(96, 48), (128, 64)])
+def test_xr_update_gram_plan_chunks_wider_fields(monkeypatch, k, chunk, esize):
+    """Above 64 rows the plan runs row chunks of at most 64 rows that cover
+    the field, each launch with the Gram of its own rows (``wide_gram``
+    adds the cross blocks) and contracting over all k rows of P and Z, in
+    shared memory that fits at one block an SM."""
+    _h100(monkeypatch)
+    plan = fused.xr_update_gram_plan(k, torch.device("cpu"), esize)
+    assert plan.chunks == _native.row_chunks(k, 64) == [(0, chunk), (chunk, k)]
+    assert plan.blocks_per_sm == 1 and 1 <= plan.kc <= 2 * k
+    assert plan.smem_bytes == fused.xr_smem_bytes(chunk, k, plan.kc, esize)
+    assert plan.smem_bytes <= H100_SMEM
+    gram = fused.gram_blocks(k, plan.chunks, True)
+    assert [b[0] for b in gram].count("diag") == len(plan.chunks)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_xr_update_gram_grid_follows_the_card_not_n(monkeypatch, sms):
+    """The wrapper launches every chunk on the plan's grid (blocks an SM
+    times the card's SMs) and sizes its Gram partials by it, whatever n:
+    the launch arguments on the kernel route, recorded on the CPU."""
+    _h100(monkeypatch, sms)
+    monkeypatch.setattr(_native, "field_kernel", lambda fields, coeffs=(): torch.float32)
+    calls, parts = [], []
+    monkeypatch.setattr(_native, "launch", lambda name, fn, device, *a: calls.append((name, a)))
+    real = fused._gram_buffers
+
+    def buffers(k, n, device, blocks=None):
+        part, G = real(k, n, device, blocks)
+        parts.append(part.shape[0])
+        return part, G
+    monkeypatch.setattr(fused, "_gram_buffers", buffers)
+    for k, n in ((16, 3001), (16, 512 ** 2), (48, 700), (96, 40000)):
+        calls.clear()
+        parts.clear()
+        alpha = torch.zeros((k, k))
+        fields = [torch.zeros((k, n)) for _ in range(4)]
+        fused.xr_update_gram(alpha, *fields)
+        plan = fused.xr_update_gram_plan(k, torch.device("cpu"))
+        xr = [a for name, a in calls if name == "xr_update_gram"]
+        assert [a[9:] for a in xr] == [(r1 - r0, k, n, plan.kc, plan.grid)
+                                       for r0, r1 in plan.chunks]
+        assert parts == [plan.grid] * len(plan.chunks)
+        assert plan.grid == (2 if k <= 32 else 1) * sms
+
+
+def test_xr_update_gram_source_mirrors_its_plan():
+    """``csrc/xr_update.cu`` builds what ``xr_update_gram_plan`` and the
+    library's argument types assume: the blocks an SM of rows 7 and 8, the
+    shared bytes of ``xr_smem_bytes`` (one coefficient table, the stages,
+    on bf16 fields with X and R, the Gram), the register widths of
+    ``rows_per_warp`` up to 64 rows, and a kc and a grid after n; the
+    one-thread-a-column kernel is gone."""
+    xr = (CSRC / "xr_update.cu").read_text()
+    assert "kXrBlocksPerSm = GK <= 32 ? 2 : 1;" in xr
+    assert "const size_t smem = xr_smem_bytes(k, kin, kc, sizeof(E));" in xr
+    assert "constexpr bool kStageXR = sizeof(E) == 2;" in xr
+    assert ("const long long rows = kc + (esize == 2 ? 2LL * k : 0);\n"
+            "  const long long b = 4 * (8LL * rows_per_warp(k) * kin + 1LL * k * kUpLd) +\n"
+            "                      esize * kUpStages * rows * kUpTile;" in xr)
+    assert "const long long scratch = 4LL * kUpThreads * (k > 32 ? 64 : 16);" in xr
+    built = re.findall(r"case (\d+): BCG_XR\((\d+), (\d+)\);", xr)
+    assert [(int(a), int(b), int(c)) for a, b, c in built] == [
+        (1, 1, 8), (2, 2, 16), (4, 4, 32), (6, 6, 48), (8, 8, 64)]
+    assert [fused.rows_per_warp(k) for k in (8, 16, 32, 48, 64)] == [1, 2, 4, 6, 8]
+    assert "SymGram<GK, kUpThreads, (GK > 32 ? 8 : 4)>" in xr
+    assert "int kc, int max_blocks, int device, cudaStream_t stream)" in xr
+    assert "GramTile<" not in xr and "kmax_for(" not in xr and "kThreads)" not in xr
+    native = (Path(_native.__file__)).read_text()
+    assert ("lib.bcg_xr_update_gram.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, I, P]"
+            in native)

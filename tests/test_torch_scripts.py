@@ -67,6 +67,9 @@ def test_profile_summary_of_trace_events():
     ("void (anonymous namespace)::update_gram_kernel<1, true, 4, 32, 2>(float const*)", True),
     ("void (anonymous namespace)::tiled_spmm<8, 32, float>(float const*, int const*)", True),
     ("void (anonymous namespace)::coeff_update<64, true>(float const*, float const*)", True),
+    ("void (anonymous namespace)::xr_update_gram_kernel<float, 2, 16>(float const*)", True),
+    ("void (anonymous namespace)::xr_update_gram_kernel<__nv_bfloat16, 6, 48>(float const*)",
+     True),
     ("void at::native::vectorized_elementwise_kernel<4>", False),
 ])
 def test_profile_port_kernel_names(name, port):

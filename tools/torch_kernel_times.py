@@ -42,7 +42,14 @@ copy or its wait, the refills). ``--bf16`` also times row 2w at (96,
 (``xr_update_gram`` at (16, 512^2) in f32 and bf16, and in bf16 at (48,
 32^4)) and row 14 (``const_block_stencil_spmm_t`` on ``dirac_eo(32)``'s
 parity hop at one RHS): the rows whose event medians in ``chip_smoke.py``
-time the host.
+time the host. Their fields (67 MB in f32 and 34 MB in bf16 at (16,
+512^2), 40 MB at row 14's) fit in the H100's 50 MB L2 or come near it, so
+``--short`` also times each call with L2 flushed: before each call it
+writes a 256 MB scratch buffer and reads it back (the read writes back the
+scratch's dirty lines there, not during the call), outside the timed
+kernels, and counts only the kernels whose names the call launches
+(``device_us_cold``, beside the warm ``device_us``, with each kernel's
+share in ``kernels_us_cold``).
 
 ``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
 32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
@@ -78,9 +85,11 @@ count, ending in a synchronize), the least time the work could take
 (``bound_us``: rows 5-9, 12, 16, 17, 22-23b; max of the bytes over 3.35 TB/s and the
 FLOPs over 67 TFLOP/s, a symmetric Gram counted as its upper triangle) and a
 checksum of the bytes of each of the call's outputs, so two checkouts show
-whether a kernel kept its bits. The inputs come from a fixed seed; L2 is
-not flushed between calls (the fields are 268-805 MB, far above the 50 MB
-L2).
+whether a kernel kept its bits. The inputs come from a fixed seed. L2 is
+flushed before each call only with ``--short``; the other cases' fields are
+268-805 MB, far above the 50 MB L2, but for the rows 5-9 cases at (32,
+64^3) (34-42 MB) and (400 or 800, 2^16) (105-210 MB), which are partly
+warm.
 """
 
 from __future__ import annotations
@@ -96,20 +105,67 @@ import time
 from pathlib import Path
 
 
-def device_us(torch, fn, reps: int, tmp: Path) -> float:
-    """Device us of all kernels per call of fn."""
+def kernel_events(torch, fn, reps: int, tmp: Path, flush=None) -> list[tuple[str, float]]:
+    """(name, device us) of every kernel record of reps calls of fn, with
+    flush() before each call when given."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     trace = tmp / "trace.json"
     prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+    events = [(e["name"], float(e["dur"])) for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") == "kernel" and "dur" in e]
     trace.unlink()
-    return sum(float(e["dur"]) for e in events) / reps
+    return events
+
+
+def device_us(torch, fn, reps: int, tmp: Path) -> float:
+    """Device us of all kernels per call of fn."""
+    return sum(d for _, d in kernel_events(torch, fn, reps, tmp)) / reps
+
+
+FLUSH_BYTES = 256 * 2 ** 20  # the scratch written (and read back) before a cold call
+
+
+def l2_flush(torch, dev):
+    """A function that evicts a call's data from L2: it writes a 256 MB
+    scratch buffer, then reads it back, so the scratch's dirty lines are
+    written back then and not during the timed call."""
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.fill_(1.0)
+        scratch.sum()
+    return flush
+
+
+def kernel_label(name: str) -> str:
+    """A profiler kernel name without its arguments and namespaces."""
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+    head = name.split("(")[0]
+    return name[:name.index(">") + 1] if "<" in head else head
+
+
+def cold_us(torch, fn, reps: int, tmp: Path, flush) -> tuple[float, dict[str, float]]:
+    """(device us per call of fn with L2 flushed before each call, us per
+    call of each of its kernels). Only kernels named as a call without the
+    flush names its own count, and there must be as many as the calls
+    launch."""
+    alone = kernel_events(torch, fn, 1, tmp)
+    own = {name for name, _ in alone}
+    events = [(n, d) for n, d in kernel_events(torch, fn, reps, tmp, flush) if n in own]
+    if len(events) != len(alone) * reps:
+        raise SystemExit(f"cold timing: {len(events)} records of {sorted(own)} for {reps} "
+                         f"calls of {len(alone)} kernels (does the flush share a name?)")
+    shares: dict[str, float] = {}
+    for n, d in events:
+        shares[kernel_label(n)] = shares.get(kernel_label(n), 0.0) + d / reps
+    return sum(d for _, d in events) / reps, shares
 
 
 def host_us(torch, fn, reps: int) -> float:
@@ -1434,6 +1490,7 @@ def main() -> None:
     sys.path.insert(0, str(Path(args.root).resolve()))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    flush = l2_flush(torch, dev) if args.short else None
     with tempfile.TemporaryDirectory() as tmp:
         todo = (chain(bf16_variants(torch, dev), bf16_mma_variants(torch, dev),
                       sm_probe_cases(torch, dev, Path(tmp)),
@@ -1456,9 +1513,13 @@ def main() -> None:
                 fn()
             out = fn()
             torch.cuda.synchronize()
+            cold = {}
+            if flush is not None:
+                us, shares = cold_us(torch, fn, args.reps, Path(tmp), flush)
+                cold = {"device_us_cold": us, "kernels_us_cold": shares}
             print(json.dumps({"root": args.root, "case": name,
                               "device_us": device_us(torch, fn, args.reps, Path(tmp)),
-                              "host_us": host_us(torch, fn, args.reps),
+                              **cold, "host_us": host_us(torch, fn, args.reps),
                               "bound_us": bound[0] if bound else bound_us(name),
                               "checksums": checksums(torch, out), **plan}), flush=True)
             del out

@@ -34,7 +34,6 @@ from blockcg_tpu_torch.ops import _native  # noqa: E402
 # The KMAX = 128 candidates of each source (kernel templates at that width).
 PROBES = {
     "gram.cu": ["gram_kernel<128, false>", "gram_kernel<128, true>"],
-    "xr_update.cu": ["xr_update_gram<128>"],
     "qr_p_update.cu": ["qr_px_update<128>"],
     "cbs_merged.cu": ["cm_spmm<4, 0, 4>", "cm_spmm<8, 0, 4>"],
     "stencil.cu": [],
