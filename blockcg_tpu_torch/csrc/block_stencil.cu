@@ -98,7 +98,7 @@
 // aligned source (st, o and w multiples of 4), else 4 bytes a site. Its
 // terms are added where its bulk partner's were, so the sum is not bitwise
 // the unfolded one.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -264,6 +264,39 @@ __device__ __forceinline__ void produce(const Launch& p, float* win, char* slot,
 template <int BS, int KI>
 using BsGram = VecGram<2 * BS * KI, kBsThreads, 2 * BS * KI == 96 ? 6 : 4>;
 
+// One diagonal's terms of a consumer thread (its site column, RHS i0g ..
+// i0g + KI - 1) added to acc: X from xs (staged rows b * k + i at row stride
+// lx: the window, or a slot's far rows), the coefficients from cs (the
+// slot's planes at the thread's column, plane stride T). The diagonal's X
+// loads first, then, for each b, its column of coefficients and their FMAs:
+// the order b, then a, of the kernel this replaced.
+template <int BS, int KI, typename CE>
+__device__ __forceinline__ void apply_diag(float (&acc)[BS][KI], const Launch& p,
+                                           const float* xs, int lx, const CE* cs, int T,
+                                           int i0g) {
+  float x[BS][KI];
+#pragma unroll
+  for (int b = 0; b < BS; ++b)
+#pragma unroll
+    for (int ii = 0; ii < KI; ++ii)
+      x[b][ii] = b < p.bs ? xs[(b * p.k + min(i0g + ii, p.k - 1)) * lx] : 0.f;
+#pragma unroll
+  for (int b = 0; b < BS; ++b) {
+    if (b < p.bs) {
+      float w[BS];
+#pragma unroll
+      for (int a = 0; a < BS; ++a) w[a] = a < p.bs ? to_f32(cs[(a * p.bs + b) * T]) : 0.f;
+#pragma unroll
+      for (int a = 0; a < BS; ++a) {
+        if (a < p.bs) {
+#pragma unroll
+          for (int ii = 0; ii < KI; ++ii) acc[a][ii] = fmaf(w[a], x[b][ii], acc[a][ii]);
+        }
+      }
+    }
+  }
+}
+
 // A barrier of the consumer warps alone (named barrier 1).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kBsThreads) : "memory");
@@ -343,33 +376,8 @@ __global__ void __launch_bounds__(kBsThreads + 32 * PW, 1) bs_spmm(const Launch 
           const float* xs = sh != kFar
                                 ? wt + p.h + sh + c
                                 : reinterpret_cast<const float*>(sp + sizeof(CE) * planes * T) + c;
-          const int lx = sh != kFar ? W : T;
-          const CE* cs = reinterpret_cast<const CE*>(sp) + c;
-          // The diagonal's X loads first, then, for each b, its column of
-          // coefficients and their FMAs: the order b, then a, of the kernel
-          // this replaced.
-          float x[BS][KI];
-#pragma unroll
-          for (int b = 0; b < BS; ++b)
-#pragma unroll
-            for (int ii = 0; ii < KI; ++ii)
-              x[b][ii] = b < p.bs ? xs[(b * p.k + min(i0g + ii, p.k - 1)) * lx] : 0.f;
-#pragma unroll
-          for (int b = 0; b < BS; ++b) {
-            if (b < p.bs) {
-              float w[BS];
-#pragma unroll
-              for (int a = 0; a < BS; ++a)
-                w[a] = a < p.bs ? to_f32(cs[(a * p.bs + b) * T]) : 0.f;
-#pragma unroll
-              for (int a = 0; a < BS; ++a) {
-                if (a < p.bs) {
-#pragma unroll
-                  for (int ii = 0; ii < KI; ++ii) acc[a][ii] = fmaf(w[a], x[b][ii], acc[a][ii]);
-                }
-              }
-            }
-          }
+          apply_diag(acc, p, xs, sh != kFar ? W : T, reinterpret_cast<const CE*>(sp) + c, T,
+                     i0g);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[sl]);  // this warp is done with the slot
@@ -472,6 +480,250 @@ cudaError_t make_launch(Launch* p, const void* blocks, const int* offsets, int n
   return cudaSuccess;
 }
 
+// ---- bf16 blocks on the merged view, staged by TMA tensor boxes (bs_tma)
+//
+// Rows 23h and 24h (block_stencil_spmm_m_t on bf16 blocks, no Gram, no
+// folds). bs_spmm's copies set its pace at the rate of the warps that issue
+// them (see the header: 8 producer warps of 16-byte cp.async, 1.57 ms at
+// 32^4, m = 48, for 2.42 GB of L2->SM copies, about 1.5 TB/s). Here one
+// elected lane issues each stage as TMA tensor copies, one request a slab,
+// that complete on the slot's `full` mbarrier (expect_tx): the window (a
+// box of m rows by T + 2h sites of the f32 field), each diagonal's bs^2
+// coefficient planes at the tile's sites (a box of a 3-D map over (ns, bs^2,
+// nd) of the bf16 blocks; sites past ns zero-filled) and, for a far
+// diagonal, its slab of m rows by T sites. The field is one 3-D map over
+// (ns, k, bs) with the merged view's strides, so a box lays the staged rows
+// in the order b * k + i, also on a launch of a chunk of right-hand sides.
+// A box lays its rows at its own width: the window's rows are T + 2h apart
+// (the lanes of a warp read consecutive sites of a row, conflict-free). A
+// box that would cross ns (the windows of the first and last tiles, a far
+// slab whose (i0 + o) mod ns + T passes ns), and a far slab whose offset is
+// not a multiple of 4 (its box would not start on a 16-byte boundary), is
+// copied instead by the producer warp's lanes with cp.async into the same
+// layout (4-byte copies there), before lane 0 posts the stage.
+// The consumer warps and their arithmetic are bs_spmm's (apply_diag, in the
+// order d, then b, then a), so Y keeps its bits: bitwise the f32 kernel on
+// the blocks lifted to f32. The one producer warp frees shared memory and
+// issue slots for a deeper ring (kBtMaxStages): at 32^4, m = 48 with 5
+// stages 0.765 ms against bs_spmm's 1.58 on an H100 (2, 3 and 4 stages:
+// 0.964, 0.812, 0.766), the copies still setting the pace (without the
+// arithmetic 0.518; PERF.md section 6).
+constexpr int kBtMaxStages = 6;
+
+__host__ __device__ inline long long round128(long long b) { return (b + 127) / 128 * 128; }
+
+// Bytes of one bs_tma ring slot: the bs^2 bf16 coefficient planes of T
+// sites (rounded up to 128 bytes, a box's alignment) and, with any far
+// diagonal, m f32 rows of X.
+__host__ __device__ inline long long bt_slot_bytes(int bs, int m, int T, bool far) {
+  return round128(2LL * bs * bs * T) + (far ? 4LL * m * T : 0);
+}
+
+// Shared bytes of a bs_tma launch: two windows of m rows by T + 2h sites
+// (each rounded up to 128 bytes), `stages` slots and 128 bytes to align the
+// boxes; mirrored by ops/block_stencil.py tma_smem_bytes.
+__host__ __device__ inline long long bt_smem_bytes(int bs, int m, int T, int h, int stages,
+                                                   bool far) {
+  return 2 * round128(4LL * m * (T + 2 * h)) + stages * bt_slot_bytes(bs, m, T, far) + 128;
+}
+
+struct BtMaps {
+  CUtensorMap win, far, coef;  // the field's window and slab boxes; the blocks' planes
+};
+
+// The producer warp's share of stage j of the tile at i0: j = 0 the window
+// into win, j = 1 + d diagonal d's coefficient planes (and far slab) into
+// the slot. Boxes that lie in [0, ns) by TMA (lane 0, after it posts their
+// bytes on bar), the others by the lanes' cp.async, landed before lane 0
+// arrives.
+template <int PROBE>
+__device__ __forceinline__ void produce_tma(const Launch& p, const BtMaps& maps, float* win,
+                                            char* slot, int cbytes, int j, long long i0,
+                                            unsigned long long* bar, int lane) {
+  const int m = p.bs * p.k, T = p.T, W = T + 2 * p.h;
+  unsigned tx = 0;
+  bool win_box = false, coef_box = false, far_box = false, copied = false;
+  long long c0 = 0;
+  const int d = j - 1;
+  if (j == 0) {
+    if (!(PROBE & kProbeNoWindow)) {
+      c0 = (i0 - p.h) % p.ns;  // the window's first site, in [0, ns)
+      if (c0 < 0) c0 += p.ns;
+      win_box = c0 + W <= p.ns;
+      if (win_box) {
+        tx += 4u * m * W;
+      } else {
+        for (int r = 0; r < m; ++r) copy_row(win + r * W, x_row(p, r), c0, W, p.ns, p.vec, lane);
+        copied = true;
+      }
+    }
+  } else {
+    coef_box = !(PROBE & kProbeNoCoef);
+    if (coef_box) tx += 2u * p.bs * p.bs * T;
+    if (p.offs.s[d] == kFar && !(PROBE & kProbeNoFar)) {
+      c0 = i0 + p.offs.o[d];
+      if (c0 >= p.ns) c0 -= p.ns;
+      // A box starts on a 16-byte boundary of the row (an offset that is a
+      // multiple of 4) and stays within ns.
+      far_box = p.offs.o[d] % 4 == 0 && c0 + T <= p.ns;
+      if (far_box) {
+        tx += 4u * m * T;
+      } else {
+        float* xs = reinterpret_cast<float*>(slot + cbytes);
+        const bool vec = p.vec && p.offs.o[d] % 4 == 0;
+        for (int r = 0; r < m; ++r) copy_row(xs + r * T, x_row(p, r), c0, T, p.ns, vec, lane);
+        copied = true;
+      }
+    }
+  }
+  if (copied) {
+    cp_async_commit();  // wait_group waits only on committed groups
+    cp_async_wait<0>();
+    fence_proxy_async();  // before later TMA copies into the same bytes
+  }
+  __syncwarp();
+  if (lane == 0) {
+    mbar_expect_tx(bar, tx);
+    if (win_box) tma_box3(win, &maps.win, static_cast<int>(c0), 0, 0, bar);
+    if (coef_box) tma_box3(slot, &maps.coef, static_cast<int>(i0), 0, d, bar);
+    if (far_box) tma_box3(slot + cbytes, &maps.far, static_cast<int>(c0), 0, 0, bar);
+  }
+}
+
+// BS >= bs spins, KI right-hand sides a consumer thread, as bs_spmm's plain
+// apply; warps 0-7 consume, warp 8 produces. Barriers: full[s], the slot's
+// stage has landed (lane 0's expect_tx arrival and the TMA bytes); empty[s]
+// and wfree[b] as bs_spmm's.
+template <int BS, int KI, int PROBE = 0>
+__global__ void __launch_bounds__(kBsThreads + 32, 1)
+    bs_tma(const __grid_constant__ BtMaps maps, const Launch p) {
+  extern __shared__ __align__(16) float smem[];  // 2 windows | ring
+  __shared__ unsigned long long full[kBtMaxStages], empty[kBtMaxStages], wfree[2];
+  const int m = p.bs * p.k, T = p.T, W = T + 2 * p.h;
+  const int wbytes = static_cast<int>(round128(4LL * m * W));
+  const int cbytes = static_cast<int>(round128(2LL * p.bs * p.bs * T));
+  const int slot_bytes = static_cast<int>(bt_slot_bytes(p.bs, m, T, p.far));
+  char* base = reinterpret_cast<char*>(smem) + ((128 - (smem_u32(smem) & 127)) & 127);
+  char* ring = base + 2 * wbytes;
+  const int per_tile = p.nd + 1;
+  const long long ntiles = (p.ns + T - 1) / T;
+  const int cwarps = kBsThreads / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], cwarps);
+    }
+    mbar_init(&wfree[0], cwarps);
+    mbar_init(&wfree[1], cwarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= kBsThreads) {  // the producer warp
+    unsigned q = 0;
+    for (long long t = blockIdx.x, lt = 0; t < ntiles; t += gridDim.x, ++lt) {
+      for (int j = 0; j < per_tile; ++j, ++q) {
+        const int sl = static_cast<int>(q % p.stages);
+        if (lane == 0) {
+          if (q >= static_cast<unsigned>(p.stages))
+            mbar_wait(&empty[sl], (q / p.stages - 1) & 1);  // the slot's last stage is consumed
+          if (j == 0 && lt >= 2) mbar_wait(&wfree[lt & 1], (lt / 2 - 1) & 1);  // tile lt - 2 too
+        }
+        __syncwarp();
+        produce_tma<PROBE>(p, maps, reinterpret_cast<float*>(base + (lt & 1) * wbytes),
+                           ring + sl * slot_bytes, cbytes, j, t * T, &full[sl], lane);
+      }
+    }
+  } else {  // consumers
+    const int c = threadIdx.x % T, i0g = (threadIdx.x / T) * KI;  // site column, first RHS
+    float acc[BS][KI];
+    unsigned q = 0;
+    for (long long t = blockIdx.x, lt = 0; t < ntiles; t += gridDim.x, ++lt) {
+      const float* wt = reinterpret_cast<const float*>(base + (lt & 1) * wbytes);
+      const long long s = t * T + c;
+      for (int j = 0; j < per_tile; ++j, ++q) {
+        const int sl = static_cast<int>(q % p.stages);
+        mbar_wait(&full[sl], (q / p.stages) & 1);  // the stage has landed
+        if (j > 0 && !(PROBE & kProbeNoMath)) {
+          const int d = j - 1;
+          if (d == 0) zero(acc);
+          const char* sp = ring + sl * slot_bytes;
+          const int sh = p.offs.s[d];
+          const float* xs = sh != kFar ? wt + p.h + sh + c
+                                       : reinterpret_cast<const float*>(sp + cbytes) + c;
+          apply_diag(acc, p, xs, sh != kFar ? W : T, reinterpret_cast<const bf16*>(sp) + c, T,
+                     i0g);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[sl]);  // this warp is done with the slot
+      }
+      if (!(PROBE & kProbeNoMath) && s < p.ns) {
+        const RowStrides rs = p.row.times(p.ns);
+#pragma unroll
+        for (int a = 0; a < BS; ++a)
+#pragma unroll
+          for (int ii = 0; ii < KI; ++ii) {
+            const int i = i0g + ii;
+            if (a < p.bs && i < p.k) p.Y[s + a * rs.a + i * rs.i] = acc[a][ii];
+          }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&wfree[lt & 1]);  // this warp is done with the window
+    }
+  }
+}
+
+template <int BS, int KI, int PROBE = 0>
+cudaError_t launch_tma(const Launch& p, int max_blocks, int device, cudaStream_t stream) {
+  const int m = p.bs * p.k;
+  const size_t smem = bt_smem_bytes(p.bs, m, p.T, p.h, p.stages, p.far);
+  BtMaps maps{};
+  // The field as (ns, k, bs) with the merged view's strides (row b * ks + i:
+  // the spin stride ks rows, the RHS stride one row); the blocks as (ns,
+  // bs^2, nd).
+  const cuuint64_t fdims[3] = {static_cast<cuuint64_t>(p.ns), static_cast<cuuint64_t>(p.k),
+                               static_cast<cuuint64_t>(p.bs)};
+  const cuuint64_t fstrides[2] = {4ULL * p.ns, 4ULL * p.ns * p.row.sa};
+  const cuuint32_t wbox[3] = {static_cast<cuuint32_t>(p.T + 2 * p.h),
+                              static_cast<cuuint32_t>(p.k), static_cast<cuuint32_t>(p.bs)};
+  const cuuint32_t fbox[3] = {static_cast<cuuint32_t>(p.T), static_cast<cuuint32_t>(p.k),
+                              static_cast<cuuint32_t>(p.bs)};
+  const cuuint64_t cdims[3] = {static_cast<cuuint64_t>(p.ns),
+                               static_cast<cuuint64_t>(p.bs * p.bs),
+                               static_cast<cuuint64_t>(p.nd)};
+  const cuuint64_t cstrides[2] = {2ULL * p.ns, 2ULL * p.ns * p.bs * p.bs};
+  const cuuint32_t cbox[3] = {static_cast<cuuint32_t>(p.T),
+                              static_cast<cuuint32_t>(p.bs * p.bs), 1};
+  cudaError_t err = encode_tmap(&maps.win, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.X, fdims,
+                                fstrides, wbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = encode_tmap(&maps.far, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.X, fdims, fstrides, fbox,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = encode_tmap(&maps.coef, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p.blocks, cdims, cstrides,
+                      cbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  auto kernel = bs_tma<BS, KI, PROBE>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(kernel, kBsThreads + 32, smem, device, (p.ns + p.T - 1) / p.T,
+                        max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBsThreads + 32, smem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+// Whether a merged bf16-block launch without the Gram or folds can run
+// bs_tma: 16-byte aligned field and blocks, ns % 8 == 0 (16-byte rows of
+// both), sites that fit a box coordinate, a window box of at most 256 sites
+// within ns, boxes of at most 256 rows and spins, and a ring it holds.
+inline bool tma_launch_ok(const Launch& p, const void* blocks, int stages) {
+  return aligned16(p.X) && aligned16(blocks) && p.ns % 8 == 0 &&
+         p.ns < (1LL << 31) && p.T + 2 * p.h <= 256 && p.T + 2 * p.h <= p.ns && p.k <= 256 &&
+         stages <= kBtMaxStages;
+}
+
 }  // namespace
 
 // offsets: host array of nd entries, each already reduced to [0, ns).
@@ -520,4 +772,44 @@ extern "C" int bcg_block_stencil_spmm(const void* blocks, int csize, const int* 
     default: return cudaErrorInvalidValue;
   }
 #undef BCG_BS
+}
+
+// bf16 blocks on the merged view without the Gram or folds (rows 23h, 24h),
+// on bs_tma: bcg_block_stencil_spmm's arguments for such a launch, h,
+// groups, ki and stages from ops/block_stencil.py block_stencil_plan with
+// tma=True (T + 2h <= 256, up to kBtMaxStages stages); X and the blocks
+// 16-byte aligned, ns % 8 == 0.
+extern "C" int bcg_block_stencil_tma(const void* blocks, const int* offsets, int nd, int bs,
+                                     const float* X, float* Y, int k, int ks, long long ns,
+                                     int h, int groups, int ki, int stages, int max_blocks,
+                                     int device, cudaStream_t stream) {
+  Launch p;
+  // make_launch checks the rest with bs_spmm's ring depth; the stages are checked here
+  cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, nullptr, false, k, ks, ns, 1,
+                                h, groups, ki, 2, max_blocks, 2);
+  if (err != cudaSuccess) return err;
+  p.stages = stages;
+  if (stages < 2 || !tma_launch_ok(p, blocks, stages)) return cudaErrorInvalidValue;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+#define BCG_BT(BS, KI) return launch_tma<BS, KI>(p, max_blocks, device, stream)
+  if (bs <= 4) {
+    switch (ki) {
+      case 1: BCG_BT(4, 1);
+      case 2: BCG_BT(4, 2);
+      case 3: BCG_BT(4, 3);
+      case 4: BCG_BT(4, 4);
+      case 6: BCG_BT(4, 6);
+      case 8: BCG_BT(4, 8);
+      case 12: BCG_BT(4, 12);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (ki) {
+    case 1: BCG_BT(8, 1);
+    case 2: BCG_BT(8, 2);
+    case 3: BCG_BT(8, 3);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BCG_BT
 }

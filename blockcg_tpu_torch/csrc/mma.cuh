@@ -4,7 +4,8 @@
 // from staged tiles, the exact split of an f32 coefficient into three bf16
 // pieces, and a ring of shared-memory stages filled by TMA tensor copies
 // (boxes of 64 columns in the 128-byte swizzle) that complete on one
-// mbarrier a stage.
+// mbarrier a stage; the tiled tensor-map encoder and the 3-D box copy also
+// serve block_stencil.cu's bf16 schedule (bs_tma).
 //
 // Fragments (PTX ISA, "mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
 //   A, 16 x 16 (m x k) row-major, four registers of two bf16 each: a[0]
@@ -111,10 +112,14 @@ __host__ __device__ __forceinline__ int swz(int r, int c, int r8) {
 
 __host__ __device__ inline int round8(int r) { return (r + 7) / 8 * 8; }
 
-// The tensor map of a (rows, n) row-major bf16 field (n % 8 == 0, 16-byte
-// aligned) cut into boxes of (rows, 64) with the 128-byte swizzle; the
-// driver's encoder is found through the runtime, so nothing links libcuda.
-inline cudaError_t make_tmap(CUtensorMap* map, const bf16* F, long long n, int rows) {
+// A tiled tensor map of `rank` dimensions (dims innermost first, strides in
+// bytes of dimensions 1 .. rank - 1, box in elements, elements past the
+// tensor's edges zero-filled); the driver's encoder is found through the
+// runtime, so nothing links libcuda.
+inline cudaError_t encode_tmap(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                               const void* base, const cuuint64_t* dims,
+                               const cuuint64_t* strides, const cuuint32_t* box,
+                               CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -129,15 +134,22 @@ inline cudaError_t make_tmap(CUtensorMap* map, const bf16* F, long long n, int r
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult rc = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a (rows, n) row-major bf16 field (n % 8 == 0, 16-byte
+// aligned) cut into boxes of (rows, 64) with the 128-byte swizzle.
+inline cudaError_t make_tmap(CUtensorMap* map, const bf16* F, long long n, int rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 2};
   const cuuint32_t box[2] = {kBoxCols, static_cast<cuuint32_t>(rows)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(F), dims,
-                             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, F, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Whether a field can be staged by TMA: n % 8 == 0 (16-byte rows), a
@@ -168,6 +180,18 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c
       " [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
       "r"(c0), "r"(0)
+      : "memory");
+}
+
+// One box of a 3-D map at (c0, c1, c2) into dst (128-byte aligned without
+// a swizzle); its bytes count against bar.
+__device__ __forceinline__ void tma_box3(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
+      "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

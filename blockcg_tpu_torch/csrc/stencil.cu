@@ -10,16 +10,14 @@
 // writes k values of Y (0.18 ms at 128^3, k = 32). The kernel this replaced
 // read all k rows of X once per diagonal and left the reuse to L2: 7x X of
 // L2->SM traffic at 128^3, which alone takes about as long as the whole
-// apply did (0.44 ms). Its Gram staged X and Y between two barriers and took
-// 6 scalar shared loads for 8 FMAs, so the Gram was bound by shared-memory
-// issue and serialised behind the tile's loads (1.05 ms with the Gram).
+// apply did (0.44 ms).
 //
 // Design. A persistent grid walks column tiles [i0, i0 + T), T = 256 (128 on
 // small fields): one column a thread. For each tile a block copies the window
 // X[:, i0 - h, i0 + T + h) (taken mod n, so a window that crosses 0 or n
 // wraps) and the tile's diags into shared memory with cp.async,
 // double-buffered: the next tile's copies are in flight while this tile's
-// SpMM and Gram run. Diagonals with a signed offset |s| <= h (the near ones)
+// SpMM runs. Diagonals with a signed offset |s| <= h (the near ones)
 // read X from the window; the others (far) read global memory, which L2
 // serves, since neighbouring blocks touch the same planes. The host picks h
 // and T (ops/stencil.py stencil_plan) to
@@ -36,16 +34,8 @@
 // added in the order d = 0..ndiag-1 with fmaf, as the kernel before this one
 // did, so Y keeps its bits.
 //
-// Gram. The tile's X is the window's centre; Y goes to shared memory once.
-// VecGram (common.cuh) holds a TS x TS register tile of G per thread (8x8 from KMAX = 32,
-// 4x4 below), rows rt + S*a and columns st + S*b (S = KMAX / TS), fed by
-// float4 shared loads along the columns: 16 loads for 256 FMAs. A 4x4 tile
-// (8 loads for 64 FMAs) left the Gram bound by shared-memory wavefronts at
-// half the FMA rate. The row strides of Y and (up to KMAX = 32) of the window
-// are 4 mod 8 words, so the lanes of a quarter warp read their different
-// rows from different bank groups (at KMAX = 64 they share their X row, a
-// broadcast). Blocks of 256 threads hold 256 / S^2 copies of the tile, each
-// over its own columns, summed in a fixed order at the end; every block
+// Gram. Every launch with the Gram runs one of the tensor-core kernels below
+// (stencil_mma on a bf16 field, stencil_mma_f32 on an f32 one); each block
 // writes one (k, k) partial, and a second kernel sums the partials in block
 // order in double (common.cuh). No atomics: a repeated call gives the same
 // bits.
@@ -69,13 +59,18 @@
 //
 // Mixed pairs (the reference's gate takes bf16 or f32 for the diagonals and
 // the field independently): bcg_stencil_spmm_bf16d takes bf16 diagonals with
-// f32 X and Y, bcg_stencil_spmm_bf16x f32 diagonals with bf16 X and Y (its
-// Gram on stencil_mma, as the bf16 field's). The
+// f32 X and Y (its Gram on stencil_mma_f32, as the f32 field's),
+// bcg_stencil_spmm_bf16x f32 diagonals with bf16 X and Y (its Gram on
+// stencil_mma, as the bf16 field's). The
 // diagonals' element (ED) and the field's (EX) are separate template
 // parameters: the window is staged in EX (h a multiple of kVec<EX>), the
 // coefficient tiles in ED, each lifted to f32 at its use, and every sum runs
 // in f32 in the order d = 0..ndiag-1, so a pair whose values are exact in
 // both types gives the unmixed kernel's bits.
+//
+// f32 field with the Gram (rows 2 and 2m, any diagonals' element): each
+// launch of at most 64 rows runs stencil_mma_f32 below, the Gram on the
+// tensor cores from X and the f32 sums in three exact bf16 pieces.
 //
 // Wide bf16 Gram: where Y is bf16 and the field is wider than one launch,
 // the solvers' Gram needs the f32 sums of every row, which the stored Y has
@@ -96,9 +91,11 @@ constexpr int kFar = 0x7fffffff;
 struct Diags {
   int o[kMaxDiags];      // each in [0, n)
   int s[kMaxDiags];      // signed shift in [-h, h] for a near diagonal, kFar otherwise
-  int stage[kMaxDiags];  // stencil_mma: the far slab a far diagonal is staged in, or -1
-  int far[kMaxDiags];    // stencil_mma: the diagonal of each staged far slab
-  int nst;               // stencil_mma: staged far slabs
+  // stencil_mma: the far slab a far diagonal is staged in, or -1 (stencil_mma_f32:
+  // the first kStF32Prefetch of them are loaded a step ahead)
+  int stage[kMaxDiags];
+  int far[kMaxDiags];  // stencil_mma: the diagonal of each staged far slab
+  int nst;             // stencil_mma: staged far slabs
 };
 
 // Window of the tile at i0: sw[r * W + v] = X[r, (i0 - h + v) mod n] for
@@ -142,45 +139,37 @@ __device__ __forceinline__ void load_tile(EX* sw, ED* sd, const EX* X, const ED*
 }
 
 // Row stride of the window, in elements of esize bytes: its T + 2h columns,
-// plus 4 for floats where VecGram puts two or more rows of X in one quarter
-// warp (KMAX <= 32), which makes the stride 4 mod 8 words. A bf16 window
-// keeps T + 2h, a multiple of 8: every row's 16-byte copies stay aligned.
+// plus 4 for floats up to 32 rows (without them row 1m at (32, 128^3) ran 2%
+// slower on an H100, 371.5-376.5 against 363.6-370.4 device us; PERF.md). A
+// bf16 window keeps T + 2h, a multiple of 8: every row's 16-byte copies stay
+// aligned.
 __host__ __device__ inline int window_ld(int k, int h, int T, int esize) {
   return T + 2 * h + (esize == 4 && k <= 32 ? 4 : 0);
 }
 
-// Shared bytes of one launch: two windows of esize-byte elements, two
-// coefficient tiles of dsize-byte ones, and with the Gram the float Y tile,
-// at least the Gram's scratch; mirrored by ops/stencil.py smem_bytes.
-__host__ __device__ inline long long smem_bytes(int k, int ndiag, int h, int T, bool gram,
-                                                int esize, int dsize) {
-  const long long W = window_ld(k, h, T, esize), LY = T + 4;
-  long long b = 2LL * (esize * k * W + dsize * static_cast<long long>(ndiag) * T) +
-                (gram ? 4 * k * LY : 0);
-  const long long scratch = 4 * 256LL * (k > 16 ? 64 : 16);  // VecGram::kScratch (common.cuh)
-  if (gram && b < scratch) b = scratch;
-  return b;
+// Shared bytes of one launch: two windows of k rows of window_ld esize-byte
+// elements and two coefficient tiles of dsize-byte ones; mirrored by
+// ops/stencil.py smem_bytes.
+__host__ __device__ inline long long smem_bytes(int k, int ndiag, int h, int T, int esize,
+                                                int dsize) {
+  return 2LL * (esize * k * static_cast<long long>(window_ld(k, h, T, esize)) +
+                dsize * static_cast<long long>(ndiag) * T);
 }
 
-// Blocks an SM the kernel is built for: two for the SpMM up to KMAX = 32
-// (128 registers a thread), one at KMAX = 64 and with the Gram, whose 8x8
-// register tiles want the registers more than a second block (held to 128,
-// the Gram variant spilled). ops/stencil.py stencil_plan assumes the same.
-template <int KMAX, bool WITH_GRAM>
-constexpr int kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1;
+// Blocks an SM the kernel is built for: two up to KMAX = 32 (128 registers
+// a thread), one at KMAX = 64. ops/stencil.py stencil_plan assumes the same.
+template <int KMAX>
+constexpr int kStBlocksPerSm = KMAX <= 32 ? 2 : 1;
 
 // ED: the element of the diagonals, EX: of X and Y (float or bf16 each).
-template <typename ED, typename EX, int KMAX, bool WITH_GRAM>
-__global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
+template <typename ED, typename EX, int KMAX>
+__global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX>)
     stencil_spmm(const ED* __restrict__ diags, Diags dg, int ndiag, const EX* __restrict__ X,
-                 EX* __restrict__ Y, float* __restrict__ part, int k, long long n, int h, int T,
-                 bool vec) {
-  extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles | sY
-  const int W = window_ld(k, h, T, sizeof(EX)), LY = T + 4;
+                 EX* __restrict__ Y, int k, long long n, int h, int T, bool vec) {
+  extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles
+  const int W = window_ld(k, h, T, sizeof(EX));
   EX* sw0 = reinterpret_cast<EX*>(smem);
   ED* sd0 = reinterpret_cast<ED*>(sw0 + 2 * k * W);
-  float* sy = reinterpret_cast<float*>(sd0 + 2 * ndiag * T);
-  VecGram<KMAX, kStThreads> g;
   const long long ntiles = (n + T - 1) / T;
   long long t = blockIdx.x;
   int buf = 0;
@@ -228,40 +217,25 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX, WITH_GRAM>)
         for (int r = 0; r < KMAX; ++r)
           if (r < k) Y[r * n + i] = from_f32<EX>(acc[r]);
       }
-      if constexpr (WITH_GRAM) {
-#pragma unroll
-        for (int r = 0; r < KMAX; ++r)
-          if (r < k) sy[r * LY + c] = acc[r];  // 0 past n
-      }
     }
-    if constexpr (WITH_GRAM) {
-      __syncthreads();  // sY is written
-      g.accumulate(sw + h, W, sy, LY, T, k);
-    }
-    __syncthreads();  // every read of this buffer and of sY is done
+    __syncthreads();  // every read of this buffer is done
     buf ^= 1;
   }
   cp_async_wait<0>();
-  if constexpr (WITH_GRAM) {
-    __syncthreads();
-    g.store(part + static_cast<long long>(blockIdx.x) * k * k, k, smem);
-  }
 }
 
-template <typename ED, typename EX, int KMAX, bool WITH_GRAM>
-cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX* Y, float* part,
-                   float* G, int k, long long n, int h, int T, int max_blocks, int device,
-                   cudaStream_t stream) {
-  auto kernel = stencil_spmm<ED, EX, KMAX, WITH_GRAM>;
-  const size_t smem = smem_bytes(k, ndiag, h, T, WITH_GRAM, sizeof(EX), sizeof(ED));
+template <typename ED, typename EX, int KMAX>
+cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX* Y, int k,
+                   long long n, int h, int T, int max_blocks, int device, cudaStream_t stream) {
+  auto kernel = stencil_spmm<ED, EX, KMAX>;
+  const size_t smem = smem_bytes(k, ndiag, h, T, sizeof(EX), sizeof(ED));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
   err = persistent_grid(kernel, kStThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
   const bool vec = n % kVec<EX> == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
-  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k, n, h, T, vec);
-  if (WITH_GRAM) launch_reduce(part, G, k, grid, stream);
+  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, k, n, h, T, vec);
   return cudaGetLastError();
 }
 
@@ -759,6 +733,430 @@ cudaError_t dispatch_mma(const ED* diags, const Diags& dg, int ndiag, const bf16
 #undef BCG_SM
 }
 
+// ---- f32 fields with the Gram on the tensor cores (stencil_mma_f32)
+//
+// Rows 2 and 2m (f32 X and Y, f32 or bf16 diagonals) with their Gram: G = X
+// Y^T of the f32 sums, which are Y. The kernel it replaced (stencil_spmm's
+// Gram variant, since removed) took the SpMM one column a thread at
+// one 8-warp block an SM, then, behind a barrier, the Gram in f32 FMAs
+// (VecGram) from an f32 tile of Y in shared memory: about 0.59 ms at (32,
+// 128^3), 0.24 of it the Gram (H100; PERF.md section 6). This one is
+// stencil_mma's schedule on an f32 field: 16 warps share each tile's
+// 16-column steps and G's fragments (StMma), lane (g, t) of a warp computes
+// the Y rows 8 (nt0 + j) + g of its fragments at columns 4t .. 4t + 3 of a
+// step (the fmaf chain over d = 0..ndiag-1 of stencil_spmm, so Y keeps its
+// bits), stores them from its registers (16 bytes a lane) and splits them
+// into three exact bf16 pieces for the mma B fragments (split3_pair), with
+// no tile of Y and no barrier between the SpMM and the Gram. X is f32 too,
+// so its A fragments (rows 16 m + g and + 8 at the same four columns of the
+// window's centre, one 16-byte read each) are split as well; of the nine
+// products of the pieces the six whose weight is at least 2^-24 of hi x hi
+// are taken (hi hi, hi mid, mid hi, hi lo, lo hi, mid mid): six mma.sync a
+// fragment and step, hi x hi into one sum from 0 and the others into a
+// second, smallest first, both added to f32 sums that restart every tile and
+// go into double running sums after it (a chain of mma.sync sums through a
+// tile left stencil_mma_cols's Gram ten times farther from the f64 one).
+// Each block writes one (k, k) partial, summed in block order in double: a
+// repeated call gives the same bits. A diagonal's window reads take one
+// warp-uniform branch on its shift mod 4 (one, two 8-byte or two aligned
+// 16-byte reads a row), from row pointers set once a step: with a branch a
+// read and the row addresses rematerialised in the loop, the near SpMM alone
+// took 216 us at (32, 128^3), 142-152 since.
+//
+// Memory. The f32 window of k rows (T + 2h columns) and the coefficient tile
+// are double-buffered by cp.async, one barrier a tile; at (32, 128^3) T =
+// 256 and h = 128 (ops/stencil.py stencil_mma_f32_plan): 0, +-1, +-128 from
+// the window, 2 reads of X a column (T = 512 read 1.5 and ran slower). Far
+// slabs of f32 columns do not fit beside two such windows, so the far
+// diagonals (+-16384) are read from L2, 16 bytes a lane, those of the first
+// kStF32Prefetch far diagonals one step ahead (issued as soon as a step has
+// its sums, so they are in flight across its stores and Gram; read at their
+// use instead, +64-80 us).
+//
+// Bound: bytes, 567 MB at (32, 128^3) with bf16 diagonals (0.169 ms at 3.35
+// TB/s; the Gram's 4.3 GFLOP in six bf16 products a pair take 0.026 ms at
+// 989 TFLOP/s). It takes about 0.45 ms there on an H100 (row 2, f32
+// diagonals, 0.47; 0.60 and 0.61 before):
+// probe builds (tools/torch_kernel_times.py --storage --variants) put the
+// near SpMM at about 150 us and add the Gram (+90-125), the far X (+70-80),
+// the window's refills (+48-70) and the stores of Y (+18-20) rather than
+// overlapping them. Tried and slower: X split once a tile into shared
+// memory by the whole block (538 us: a second pass and barrier), the
+// window's rows as 1-D bulk copies (557), Y through a shared tile and TMA
+// tensor stores (521), the two warps of a step each splitting one m-tile of
+// X and swapping the pieces behind a 64-thread barrier (502), the far X
+// issued after the Gram (581, at T = 512);
+// moving the halo within shared memory between a block's contiguous tiles
+// (half the window's reads) gained what the contiguous walk lost (444 against
+// 443).
+
+// Far diagonals whose X a step loads one step ahead, into registers;
+// mirrored by ops/stencil.py MMA_F32_PREFETCH.
+constexpr int kStF32Prefetch = 2;
+
+// Row stride of stencil_mma_f32's window, in floats: the least L >= T + 2h
+// with L = 16 mod 32, so the two rows a quarter warp's 16-byte reads touch
+// fall in the two halves of the banks; mirrored by ops/stencil.py
+// mma_f32_window_ld.
+__host__ __device__ inline int mma_f32_window_ld(int h, int T) {
+  return T + 2 * h + ((16 - T - 2 * h) & 31);
+}
+
+// Shared bytes of a stencil_mma_f32 launch: two f32 windows of k rows, two
+// coefficient tiles of dsize-byte elements, at least the warps' sums;
+// mirrored by ops/stencil.py mma_f32_smem_bytes.
+__host__ __device__ inline long long mma_f32_smem_bytes(int k, int ndiag, int h, int T,
+                                                        int dsize) {
+  const long long b = 2LL * (4LL * k * mma_f32_window_ld(h, T) + 1LL * dsize * ndiag * T);
+  return b > 4LL * kStMmaScratch ? b : 4LL * kStMmaScratch;
+}
+
+// The four f32 elements s .. s + 3 past each row pointer wr[j] (16-byte
+// aligned) of the window, s warp-uniform (one branch a diagonal): one
+// 16-byte read a row where s = 0 mod 4, two 8-byte reads where s = 2 mod
+// 4, two aligned 16-byte reads where s is odd (within the row: |s| <= h,
+// and h and the tile's columns are multiples of 4).
+template <int TN>
+__device__ __forceinline__ void window_quads(float4 (&x)[TN], const float* const (&wr)[TN],
+                                             int s) {
+  switch (s & 3) {
+    case 0:
+#pragma unroll
+      for (int j = 0; j < TN; ++j) x[j] = *reinterpret_cast<const float4*>(wr[j] + s);
+      break;
+    case 2:
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float2 a = *reinterpret_cast<const float2*>(wr[j] + s);
+        const float2 b = *reinterpret_cast<const float2*>(wr[j] + s + 2);
+        x[j] = make_float4(a.x, a.y, b.x, b.y);
+      }
+      break;
+    case 1:
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 a = *reinterpret_cast<const float4*>(wr[j] + s - 1);
+        const float4 b = *reinterpret_cast<const float4*>(wr[j] + s + 3);
+        x[j] = make_float4(a.y, a.z, a.w, b.x);
+      }
+      break;
+    default:
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 a = *reinterpret_cast<const float4*>(wr[j] + s - 3);
+        const float4 b = *reinterpret_cast<const float4*>(wr[j] + s + 1);
+        x[j] = make_float4(a.w, b.x, b.y, b.z);
+      }
+  }
+}
+
+// X[r, (i + e + o) mod n], e < 4, of a far diagonal from global memory (L2),
+// 0 for a column past n: one 16-byte read where quads (n % 4 == 0, X
+// 16-byte aligned, o % 4 == 0: i = 0 mod 4, so the quad never straddles n),
+// else element reads (o < n: one wrap at most).
+__device__ __forceinline__ float4 far_quad(const float* __restrict__ Xr, long long n,
+                                           long long i, int o, bool quads) {
+  if (quads) {
+    if (i >= n) return make_float4(0.f, 0.f, 0.f, 0.f);
+    long long j = i + o;
+    if (j >= n) j -= n;
+    return __ldg(reinterpret_cast<const float4*>(Xr + j));
+  }
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bool in = i + e < n;
+    long long j = (in ? i + e : 0) + o;
+    if (j >= n) j -= n;
+    v[e] = in ? __ldg(Xr + j) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// One stage of stencil_mma_f32's tile at i0: the window sw[r * L + v] = X[r,
+// (i0 - h + v) mod n], v < T + 2h, warps copying whole rows (16 bytes a lane
+// where vec, else 4), and the coefficients sd[d T + c] = diags[d, i0 + c] (0
+// past n).
+template <typename ED>
+__device__ __forceinline__ void load_tile_f32(float* sw, ED* sd, const float* X, const ED* diags,
+                                              int ndiag, int k, long long n, long long i0, int h,
+                                              int T, int L, bool vec) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  const int span = T + 2 * h;
+  long long base = (i0 - h) % n;  // the window's first column, in [0, n)
+  if (base < 0) base += n;
+  for (int r = warp; r < k; r += nw) {
+    const float* Xr = X + static_cast<long long>(r) * n;
+    float* w = sw + r * L;
+    for (int v = (vec ? 4 : 1) * lane; v < span; v += (vec ? 4 : 1) * 32) {
+      long long j = base + v;
+      while (j >= n) j -= n;  // more than once only where the window is wider than n
+      if (vec) cp_async16(w + v, Xr + j, true);
+      else cp_async4(w + v, Xr + j, true);
+    }
+  }
+  constexpr int kd = kVec<ED>;
+  for (int e = threadIdx.x; e < ndiag * (vec ? T / kd : T); e += blockDim.x) {
+    const int d = vec ? e / (T / kd) : e / T;
+    const int c = vec ? kd * (e - d * (T / kd)) : e - d * T;
+    const bool in = i0 + c < n;
+    if (vec) cp_async16(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
+    else cp_elem(sd + d * T + c, diags + (in ? d * n + i0 + c : 0), in);
+  }
+}
+
+// PROBE: bits that switch parts of stencil_mma_f32 off, for timing probes
+// only (tools/torch_kernel_times.py --storage --variants); kF32ProbeAtUse:
+// the far diagonals read at their use, not a step ahead; kF32ProbeDirect:
+// each step's products straight into the double sums, without the tile's
+// f32 sums.
+constexpr int kF32ProbeNoFar = 1, kF32ProbeNoGram = 2, kF32ProbeNoStore = 4,
+              kF32ProbeNoRefill = 8, kF32ProbeAtUse = 16, kF32ProbeDirect = 32;
+
+// ED: the diagonals' element; W: the Gram's width (StMma<W>).
+template <typename ED, int W, int PROBE = 0>
+__global__ void __launch_bounds__(kStMmaThreads, 1)
+    stencil_mma_f32(const ED* __restrict__ diags, const __grid_constant__ Diags dg, int ndiag,
+                    const float* __restrict__ X, float* __restrict__ Y,
+                    float* __restrict__ part, int k, long long n, int h, int T, bool vec,
+                    bool quads, bool yvec) {
+  using S = StMma<W>;
+  constexpr int FP = PROBE & (kF32ProbeNoFar | kF32ProbeAtUse) ? 0 : kStF32Prefetch;
+  constexpr bool tile_sums = !(PROBE & kF32ProbeDirect);
+  extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles
+  const int L = mma_f32_window_ld(h, T);
+  ED* sd0 = reinterpret_cast<ED*>(smem + 2 * k * L);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int p = warp % S::P, q = warp / S::P;
+  const int mt0 = q / S::QN * S::TM, nt0 = q % S::QN * S::TN;
+  // The Y rows of this lane (rows past k repeat row k - 1: their products
+  // land in entries of G that are dropped, and they are not stored). Where
+  // two row groups hold the same Y rows (QM == 2) the first stores them.
+  int yr[S::TN];
+  bool ys[S::TN];
+#pragma unroll
+  for (int j = 0; j < S::TN; ++j) {
+    const int r = 8 * (nt0 + j) + g;
+    yr[j] = min(r, k - 1);
+    ys[j] = r < k && q / S::QN == 0;
+  }
+  // X's rows 16 (mt0 + m) + g and + 8 (the A fragments), as offsets in a window.
+  int ar[S::TM][2];
+#pragma unroll
+  for (int m = 0; m < S::TM; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) ar[m][hh] = min(16 * (mt0 + m) + 8 * hh + g, k - 1) * L + h;
+  const int nfp = min(dg.nst, FP);  // far diagonals loaded a step ahead
+  double run[S::TM][S::TN][4] = {};
+  const long long ntiles = (n + T - 1) / T;
+  long long t = blockIdx.x;
+  int buf = 0;
+  // This lane's X quads of the first nfp far diagonals at the step of
+  // column c0 of tile `tile` (into fx).
+  float4 fx[FP > 0 ? FP : 1][S::TN];
+  const auto prefetch = [&](long long tile, int c0) {
+#pragma unroll
+    for (int f = 0; f < FP; ++f) {
+      if (f >= nfp) break;
+      const int o = dg.o[dg.far[f]];
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+        fx[f][j] = far_quad(X + static_cast<long long>(yr[j]) * n, n, tile * T + c0 + 4 * tq,
+                            o, quads && o % 4 == 0);
+    }
+  };
+  if (t < ntiles) {
+    load_tile_f32(smem, sd0, X, diags, ndiag, k, n, t * T, h, T, L, vec);
+    if (16 * p < T) prefetch(t, 16 * p);
+  }
+  cp_async_commit();
+  for (long long it = 0; t < ntiles; t += gridDim.x, ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's stage; every read of the other stage is done
+    const float* sw = smem + buf * k * L;
+    const long long tn = t + gridDim.x;
+    if (tn < ntiles && !(PROBE & kF32ProbeNoRefill && it >= 1))
+      load_tile_f32(smem + (buf ^ 1) * k * L, sd0 + (buf ^ 1) * ndiag * T, X, diags, ndiag, k,
+                    n, tn * T, h, T, L, vec);
+    cp_async_commit();
+    const ED* sd = sd0 + buf * ndiag * T;
+    const long long i0 = t * T;
+    float acc[tile_sums ? S::TM : 1][tile_sums ? S::TN : 1][4] = {};
+    for (int c0 = 16 * p; c0 < T; c0 += 16 * S::P) {
+      const int c = c0 + 4 * tq;  // this lane's columns: c .. c + 3
+      const long long i = i0 + c;
+      const float* wr[S::TN];  // this lane's window rows at column h + c: X[yr, i]
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j) wr[j] = sw + yr[j] * L + h + c;
+      float y[S::TN][4] = {};
+      // Each element's fmaf chain in the order d = 0..ndiag-1.
+      for (int d = 0; d < ndiag; ++d) {
+        const int s = dg.s[d];
+        float4 x[S::TN];
+        if (s != kFar) {  // the window at column h + s + c holds X[:, i + s]
+          window_quads(x, wr, s);
+        } else if (PROBE & kF32ProbeNoFar) {
+#pragma unroll
+          for (int j = 0; j < S::TN; ++j) x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          const int f = dg.stage[d];
+          if (FP > 0 && f == 0) {
+#pragma unroll
+            for (int j = 0; j < S::TN; ++j) x[j] = fx[0][j];
+          } else if (FP > 1 && f == 1) {
+#pragma unroll
+            for (int j = 0; j < S::TN; ++j) x[j] = fx[FP > 1 ? 1 : 0][j];
+          } else {
+            const int o = dg.o[d];
+#pragma unroll
+            for (int j = 0; j < S::TN; ++j)
+              x[j] = far_quad(X + static_cast<long long>(yr[j]) * n, n, i, o,
+                              quads && o % 4 == 0);
+          }
+        }
+        const float4 cf = coef_quad(sd + d * T + c);
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j) {
+          y[j][0] = fmaf(cf.x, x[j].x, y[j][0]);
+          y[j][1] = fmaf(cf.y, x[j].y, y[j][1]);
+          y[j][2] = fmaf(cf.z, x[j].z, y[j][2]);
+          y[j][3] = fmaf(cf.w, x[j].w, y[j][3]);
+        }
+      }
+      // The far quads of this warp's next step (the next tile's first one
+      // after its last), in flight across this step's stores and Gram.
+      if (FP > 0) {
+        const int nc0 = c0 + 16 * S::P;
+        if (nc0 < T) prefetch(t, nc0);
+        else if (tn < ntiles && 16 * p < T) prefetch(tn, 16 * p);
+      }
+      // Columns past n hold 0 (their coefficients were zero-filled; an
+      // infinite X must not leak into G).
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i + e >= n) y[j][e] = 0.f;
+      // Y from the registers: 16 bytes a lane, 64 contiguous bytes a row
+      // and quarter warp.
+      if (!(PROBE & kF32ProbeNoStore)) {
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j) {
+          if (!ys[j]) continue;
+          float* out = Y + static_cast<long long>(yr[j]) * n + i;
+          if (yvec && i + 3 < n) {
+            *reinterpret_cast<float4*>(out) = make_float4(y[j][0], y[j][1], y[j][2], y[j][3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (i + e < n) out[e] = y[j][e];
+          }
+        }
+      }
+      if (PROBE & kF32ProbeNoGram) {
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j) run[0][j][0] += y[j][0] + y[j][1] + y[j][2] + y[j][3];
+        continue;
+      }
+      // The Gram. B: Y's f32 sums in three exact bf16 pieces; A: X's rows
+      // 16 (mt0 + m) + g and + 8 at this lane's columns of the window's
+      // centre, in three pieces too (the step's column 4t + e at the mma's k
+      // index 2t + e, e < 2, or 2t + 6 + e, e >= 2, as stencil_mma).
+      unsigned b[S::TN][2][3];
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j) {
+        split3_pair(y[j][0], y[j][1], b[j][0]);
+        split3_pair(y[j][2], y[j][3], b[j][1]);
+      }
+#pragma unroll
+      for (int m = 0; m < S::TM; ++m) {
+        const float4 qa = *reinterpret_cast<const float4*>(sw + ar[m][0] + c);
+        const float4 qb = *reinterpret_cast<const float4*>(sw + ar[m][1] + c);
+        unsigned w0[3], w1[3], w2[3], w3[3];
+        split3_pair(qa.x, qa.y, w0);
+        split3_pair(qb.x, qb.y, w1);
+        split3_pair(qa.z, qa.w, w2);
+        split3_pair(qb.z, qb.w, w3);
+        unsigned a[3][4];
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece) {
+          a[piece][0] = w0[piece];
+          a[piece][1] = w1[piece];
+          a[piece][2] = w2[piece];
+          a[piece][3] = w3[piece];
+        }
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j) {
+          float hi[4] = {}, rest[4] = {};
+          mma_bf16(hi, a[0], b[j][0][0], b[j][1][0]);
+          mma_bf16(rest, a[1], b[j][0][1], b[j][1][1]);  // mid x mid
+          mma_bf16(rest, a[2], b[j][0][0], b[j][1][0]);  // lo x hi
+          mma_bf16(rest, a[0], b[j][0][2], b[j][1][2]);  // hi x lo
+          mma_bf16(rest, a[1], b[j][0][0], b[j][1][0]);  // mid x hi
+          mma_bf16(rest, a[0], b[j][0][1], b[j][1][1]);  // hi x mid
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (tile_sums) acc[m][j][e] += hi[e] + rest[e];
+            else run[m][j][e] += hi[e] + rest[e];
+          }
+        }
+      }
+    }
+    if constexpr (tile_sums) {
+#pragma unroll
+      for (int m = 0; m < S::TM; ++m)
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) run[m][j][e] += acc[m][j][e];
+    }
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  gram_mma_store<S, false>(run, smem, part + static_cast<long long>(blockIdx.x) * k * k, k, k,
+                           mt0, nt0, p);
+}
+
+template <typename ED, int W, int PROBE = 0>
+cudaError_t launch_mma_f32(const ED* diags, const Diags& dg, int ndiag, const float* X,
+                           float* Y, float* part, float* G, int k, long long n, int h, int T,
+                           int max_blocks, int device, cudaStream_t stream) {
+  static_assert(StMma<W>::kScratch <= kStMmaScratch, "the warps' sums must fit the floor");
+  auto kernel = stencil_mma_f32<ED, W, PROBE>;
+  const size_t smem = mma_f32_smem_bytes(k, ndiag, h, T, sizeof(ED));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(kernel, kStMmaThreads, smem, device, (n + T - 1) / T, max_blocks,
+                        &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = n % 4 == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
+  const bool quads = n % 4 == 0 && aligned16(X);
+  const bool yvec = n % 4 == 0 && aligned16(Y);
+  kernel<<<grid, kStMmaThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k, n, h, T, vec,
+                                                quads, yvec);
+  launch_reduce(part, G, k, grid, stream);
+  return cudaGetLastError();
+}
+
+template <typename ED>
+cudaError_t dispatch_mma_f32(const ED* diags, const Diags& dg, int ndiag, const float* X,
+                             float* Y, float* part, float* G, int k, long long n, int h, int T,
+                             int max_blocks, int device, cudaStream_t stream) {
+#define BCG_SF(W)                                                                           \
+  return launch_mma_f32<ED, W>(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device, \
+                               stream)
+  switch (mma_gram_width(k)) {
+    case 8: BCG_SF(8);
+    case 16: BCG_SF(16);
+    case 32: BCG_SF(32);
+    default: BCG_SF(64);
+  }
+#undef BCG_SF
+}
+
 // ---- a bf16 field's Gram above one launch's 64 rows (stencil_mma_cols)
 //
 // The solvers' Gram of a (kg, n) bf16 field, G = X Y_f32^T with kg > 64,
@@ -1148,16 +1546,17 @@ int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, E
   if (err != cudaSuccess) return err;
   Diags dg{};
   if (!make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
-  const bool gram = G != nullptr;
-  if constexpr (std::is_same_v<EX, bf16>)
-    if (gram && k <= 64)
+  if (G != nullptr) {  // the Gram: on the tensor cores, k <= 64 rows a launch
+    if (k > 64) return cudaErrorInvalidValue;
+    if constexpr (std::is_same_v<EX, bf16>)
       return dispatch_mma(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                           stream);
-#define BCG_STENCIL(KM)                                                                     \
-  return gram ? launch<ED, EX, KM, true>(diags, dg, ndiag, X, Y, part, G, k, n, h, T,        \
-                                         max_blocks, device, stream)                        \
-              : launch<ED, EX, KM, false>(diags, dg, ndiag, X, Y, part, G, k, n, h, T,       \
-                                          max_blocks, device, stream)
+    else
+      return dispatch_mma_f32(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                              stream);
+  }
+#define BCG_STENCIL(KM) \
+  return launch<ED, EX, KM>(diags, dg, ndiag, X, Y, k, n, h, T, max_blocks, device, stream)
   switch (kmax_for(k)) {
     case 8: BCG_STENCIL(8);
     case 16: BCG_STENCIL(16);
@@ -1196,8 +1595,10 @@ int stencil_cols_entry(const ED* diags, const int* offsets, int ndiag, const bf1
 // offsets: host array of ndiag offsets, each already reduced to [0, n); a
 // diagonal is near when o <= h or n - o <= h. h (a multiple of 4; of 8 on a
 // bf16 field) and T (a multiple of 128) come from ops/stencil.py
-// stencil_plan. G == nullptr selects the plain SpMM; otherwise part holds
-// (max_blocks, k, k) and the launch uses at most max_blocks blocks.
+// stencil_plan. G == nullptr selects the plain SpMM; otherwise the Gram
+// (k <= 64; h and T from stencil_mma_plan on a bf16 field,
+// stencil_mma_f32_plan on an f32 one), part holds (max_blocks, k, k) and the
+// launch uses at most max_blocks blocks.
 extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndiag,
                                 const float* X, float* Y, float* part, float* G, int k,
                                 long long n, int h, int T, int max_blocks, int device,

@@ -340,6 +340,8 @@ def library() -> ctypes.CDLL:
                                         I, I, L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, I, IP, IP, I, I, P, P, P, P, I, I, L, I, I,
                                            I, I, I, I, I, P]
+    lib.bcg_block_stencil_tma.argtypes = [P, IP, I, I, P, P, I, I, L, I, I, I, I, I, I, P]
+    lib.bcg_block_stencil_tma.restype = I
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
     lib.bcg_tiled_spmm.argtypes = [P, I, P, P, P, P, I, P, P, I, I, L, I, I, I, I, P]

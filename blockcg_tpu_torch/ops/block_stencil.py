@@ -40,7 +40,12 @@ as in ``ops/const_block_stencil.py``). ``block_stencil_plan`` picks each
 launch's schedule on the host (``csrc/block_stencil.cu``: the window of X
 around a tile of sites, the split of a site's outputs over threads, the ring
 of coefficient stages); a Gram the launch cannot fuse (several chunks, or a
-plan without room for it) is ``fused.gram`` of X and the stored Y.
+plan without room for it) is ``fused.gram`` of X and the stored Y. A merged
+launch on bf16 blocks without the Gram or folds (rows 23h, 24h) runs the
+same arithmetic on TMA tensor boxes (``bs_tma``: one request a window, a
+diagonal's coefficient planes or a far slab, issued by one producer warp;
+``block_stencil_plan(..., tma=True)``) where TMA can map its operands
+(``_tma_ok``) and the schedule fits.
 """
 
 from __future__ import annotations
@@ -109,6 +114,28 @@ def smem_bytes(bs: int, k: int, T: int, h: int, stages: int, far: bool, gram: bo
     return b
 
 
+# The merged bf16-block schedule on TMA tensor boxes (csrc/block_stencil.cu
+# bs_tma): one producer warp, a deeper ring.
+TMA_STAGES = (2, 3, 4, 5, 6)  # ring depths it takes (kBtMaxStages = 6)
+TMA_MAX_BOX = 256  # sites of a window box: T + 2h <= 256
+TMA_BARRIER_BYTES = 8 * (2 * max(TMA_STAGES) + 2)
+
+
+def tma_smem_bytes(bs: int, k: int, T: int, h: int, stages: int, far: bool) -> int:
+    """Dynamic shared bytes of a bs_tma launch (``csrc/block_stencil.cu``
+    bt_smem_bytes): two f32 windows of m = bs * k rows and T + 2h sites,
+    ``stages`` ring slots of the bs^2 bf16 coefficient planes of T sites and,
+    with any far diagonal, m f32 rows of X (each window and each slot's
+    planes rounded up to 128 bytes, a box's alignment), and 128 bytes to
+    align the boxes."""
+    m = bs * k
+
+    def r128(b):
+        return -(-b // 128) * 128
+    return (2 * r128(4 * m * (T + 2 * h))
+            + stages * (r128(2 * bs * bs * T) + (4 * m * T if far else 0)) + 128)
+
+
 class BlockStencilPlan(NamedTuple):
     """One launch's schedule (``csrc/block_stencil.cu``): the window's halo
     ``h`` (a multiple of 4), the tile of ``T`` sites, the ``groups`` a site's
@@ -116,8 +143,9 @@ class BlockStencilPlan(NamedTuple):
     ring's depth ``stages``, which diagonals read the window (``near``),
     whether the launch takes the Gram (``fused_gram``), its shared bytes, the
     L2->SM traffic of X per site in units of X, ``(T + 2h) / T`` plus one
-    per far diagonal, and its grid (one block an SM, at most one a tile),
-    also the row count of the Gram partials."""
+    per far diagonal, its grid (one block an SM, at most one a tile), also
+    the row count of the Gram partials, and whether it runs on TMA tensor
+    boxes (``tma``: ``bs_tma``, else ``bs_spmm``'s cp.async ring)."""
     h: int
     T: int
     groups: int
@@ -128,12 +156,14 @@ class BlockStencilPlan(NamedTuple):
     smem_bytes: int
     traffic: float
     blocks: int
+    tma: bool = False
 
     def describe(self) -> str:
         gram = {True: "fused", False: "gram.cu", None: "none"}[self.fused_gram]
         return (f"h={self.h} T={self.T} groups={self.groups} ki={self.ki} "
                 f"stages={self.stages} near={sum(self.near)}/{len(self.near)} gram={gram} "
-                f"smem={self.smem_bytes} traffic={self.traffic:g} blocks={self.blocks}")
+                f"smem={self.smem_bytes} traffic={self.traffic:g} blocks={self.blocks}"
+                + (" tma" if self.tma else ""))
 
 
 def _split(bs: int, k: int, groups: int | None) -> tuple[int, int]:
@@ -155,7 +185,8 @@ def _split(bs: int, k: int, groups: int | None) -> tuple[int, int]:
 def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_gram: bool,
                        smem_cap: int, sm_count: int, *, h: int | None = None,
                        groups: int | None = None, stages: int | None = None,
-                       csize: int = 4, wraps: tuple = ()) -> BlockStencilPlan:
+                       csize: int = 4, wraps: tuple = (), tma: bool = False
+                       ) -> BlockStencilPlan:
     """The schedule of a launch of k right-hand sides (m = bs * k <= 96) on
     ns sites. With ``with_gram`` it first tries a fused Gram (at most two
     groups, so the Gram's register width 2 BS ki covers m), and falls back to
@@ -170,7 +201,15 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
     kernel then reads each site's X from the window at its own shift; a far
     one stages each site's X from its own source. ``csize``: bytes of a
     block element (2 on bf16 blocks). ``h``, ``groups`` and ``stages`` pin those
-    choices (the timing tool's variants)."""
+    choices (the timing tool's variants). ``tma``: a merged launch on bf16
+    blocks without the Gram or folds whose field and blocks TMA can map
+    (``_tma_ok``); it takes ``bs_tma``'s schedule (``tma_smem_bytes``, halos
+    with T + 2h at most ``TMA_MAX_BOX`` and ns, depths ``TMA_STAGES``) where
+    one fits with no more L2->SM traffic than ``bs_spmm``'s, else
+    ``bs_spmm``'s. At 32^4, m = 48 on an H100 it ran in half ``bs_spmm``'s
+    time at equal traffic, but pinned to narrower halos (more far slabs,
+    many copied by the one producer warp) 1.8 to 3 times slower than
+    ``bs_spmm``: PERF.md."""
     if not 1 <= bs * k <= MAX_ROWS:
         raise ValueError(f"block stencil: one launch takes bs * k <= {MAX_ROWS} rows, "
                          f"got {bs} x {k}")
@@ -179,6 +218,29 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
     for d, w in wraps:
         dist[d] = max(dist[d], min(int(w) % ns, ns - int(w) % ns))
     halos = sorted({0} | {-(-d // 4) * 4 for d in dist}) if h is None else [h]
+    if tma and not with_gram and not wraps:
+        cp = block_stencil_plan(offsets, ns, bs, k, False, smem_cap, sm_count, h=h,
+                                groups=groups, stages=None, csize=csize)
+        g, ki = _split(bs, k, groups)
+        T = THREADS // g
+        best, best_key = None, None
+        for st in TMA_STAGES if stages is None else (stages,):
+            for hh in halos:
+                if T + 2 * hh > min(TMA_MAX_BOX, ns) or st not in TMA_STAGES:
+                    break
+                far = [d > hh for d in dist]
+                nbytes = tma_smem_bytes(bs, k, T, hh, st, any(far))
+                if nbytes + TMA_BARRIER_BYTES > smem_cap:
+                    break
+                traffic = (T + 2 * hh) / T + sum(far)
+                key = (traffic, -st, hh)
+                if best_key is None or key < best_key:
+                    best_key = key
+                    best = BlockStencilPlan(hh, T, g, ki, st, tuple(not f for f in far), None,
+                                            nbytes, traffic,
+                                            min(-(-ns // T), sm_count, _native.MAX_BLOCKS), True)
+        if best is not None and best.traffic <= cp.traffic:
+            return best
     depths = STAGES if stages is None else (stages,)
     tries = [(groups, False)]
     if with_gram:
@@ -270,19 +332,30 @@ def block_stencil_v_plain(blocks, offsets, Xv):
 # ------------------------------------------------------------------ wrappers
 
 
+def _tma_ok(blocks, X, merged: bool) -> bool:
+    """Whether TMA can map a launch's operands (``csrc/block_stencil.cu``
+    tma_launch_ok): the merged view on bf16 blocks, ns % 8 == 0 (16-byte rows
+    of both) and 16-byte aligned storage."""
+    ns = blocks.shape[-1]
+    return (merged and blocks.dtype == torch.bfloat16 and ns % 8 == 0 and ns < 2 ** 31
+            and blocks.data_ptr() % 16 == 0 and X.data_ptr() % 16 == 0)
+
+
 def launch_plans(blocks, offsets, k: int, with_gram: bool, device, name: str = "block stencil",
-                 fold=()):
+                 fold=(), tma: bool = False):
     """``[((j0, j1), plan), ...]``: the chunks of right-hand sides a field of
     k runs as, one launch each, and the plan of each (the Gram fused only on a
-    field of one chunk)."""
+    field of one chunk; ``tma``: the operands suit ``bs_tma``, which a launch
+    without a fused Gram or folds takes where its schedule fits)."""
     nd, bs, _, ns = blocks.shape
     chunks = _native.row_chunks(k, _rhs_width(bs, nd, name))
     offs = tuple(int(o) % ns for o in offsets)
     wraps = tuple((d, t[0]) for d, t in sorted(fold_terms(offsets, fold, ns).items()))
     cap, sms = _native.max_smem(device.index), _native.sm_count(device.index)
-    return [((j0, j1), block_stencil_plan(offs, ns, bs, j1 - j0, with_gram and len(chunks) == 1,
-                                          cap, sms, csize=blocks.element_size(),
-                                          wraps=wraps)) for j0, j1 in chunks]
+    gram = with_gram and len(chunks) == 1
+    return [((j0, j1), block_stencil_plan(offs, ns, bs, j1 - j0, gram, cap, sms,
+                                          csize=blocks.element_size(), wraps=wraps,
+                                          tma=tma and not gram)) for j0, j1 in chunks]
 
 
 def label(name: str, blocks, fold=()) -> str:
@@ -315,7 +388,13 @@ def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str
     row = ns * 4 * (1 if merged else bs)  # bytes from one RHS to the next
     p = _native.ptr
     G = None
-    for (j0, j1), plan in launch_plans(blocks, offsets, k, with_gram, X.device, name, fold):
+    for (j0, j1), plan in launch_plans(blocks, offsets, k, with_gram, X.device, name, fold,
+                                       _tma_ok(blocks, X, merged)):
+        if plan.tma:
+            _native.launch(label(name, blocks, fold), "bcg_block_stencil_tma", X.device,
+                           p(blocks), offs, nd, bs, p(X) + j0 * row, p(Y) + j0 * row, j1 - j0, k,
+                           ns, plan.h, plan.groups, plan.ki, plan.stages, plan.blocks)
+            continue
         part = None
         if plan.fused_gram:
             m = bs * k

@@ -35,7 +35,10 @@ rows and the card's shared-memory cap. A bf16 field's launch with the Gram
 runs the tensor-core kernel, which also stages the far diagonals' X and
 takes the Gram of the f32 sums in three exact bf16 pieces
 (``stencil_mma_plan``; with ``gram_rows`` the column-block launches of a
-wider field).
+wider field). An f32 field's launch with the Gram, whatever its diagonals'
+element, runs the f32 tensor-core kernel: X and the sums each in three exact
+bf16 pieces, the far diagonals read from L2 a step ahead
+(``stencil_mma_f32_plan``); its Y is the SpMM's, bit for bit.
 """
 
 from __future__ import annotations
@@ -68,46 +71,42 @@ class StencilPlan(NamedTuple):
     blocks_per_sm: int
 
 
-def smem_bytes(k: int, ndiag: int, h: int, T: int, with_gram: bool, esize: int = 4,
+def smem_bytes(k: int, ndiag: int, h: int, T: int, esize: int = 4,
                dsize: int | None = None) -> int:
     """Shared bytes of a launch (``csrc/stencil.cu`` smem_bytes): two
     windows of k rows and T + 2h columns (+4 at k <= 32 on floats) of
-    ``esize``-byte elements, two (ndiag, T) coefficient tiles of
-    ``dsize``-byte ones (``esize`` by default), and, with the Gram, the
-    float (k, T + 4) Y tile, at least the Gram's end-of-kernel scratch (64
-    KB above 16 rows, 16 KB up to 16)."""
+    ``esize``-byte elements and two (ndiag, T) coefficient tiles of
+    ``dsize``-byte ones (``esize`` by default)."""
     dsize = esize if dsize is None else dsize
     W = T + 2 * h + (4 if esize == 4 and k <= 32 else 0)
-    b = 2 * (esize * k * W + dsize * ndiag * T) + (4 * k * (T + 4) if with_gram else 0)
-    return max(b, 4 * 256 * (64 if k > 16 else 16)) if with_gram else b
+    return 2 * (esize * k * W + dsize * ndiag * T)
 
 
 @functools.lru_cache(maxsize=256)
-def stencil_plan(offsets: tuple[int, ...], n: int, k: int, with_gram: bool,
-                 smem_cap: int, sm_count: int, esize: int = 4,
-                 dsize: int | None = None) -> StencilPlan:
-    """The (h, T) for a launch of k rows on n columns that minimises the
+def stencil_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, sm_count: int,
+                 esize: int = 4, dsize: int | None = None) -> StencilPlan:
+    """The (h, T) for a launch of k rows on n columns without the Gram
+    (``csrc/stencil.cu`` stencil_spmm) that minimises the
     L2->SM traffic per busy thread, ``traffic / (blocks_per_sm * T / 256)``,
     among those whose shared memory fits ``smem_cap``; ties go to the wider
     tile, then the smaller halo. A diagonal is near when its offset mod n
     lies within h of 0 or of n, the rule the kernel applies. Blocks an SM:
     as many as the SM's shared memory holds (the per-block cap plus the 1 KB
     the SM reserves for each block), at most the two the SpMM is built for
-    up to 32 rows, one above and with the Gram (csrc/stencil.cu
-    kStBlocksPerSm). T is 128 where n / sm_count < 256, so a small field
+    up to 32 rows, one above (csrc/stencil.cu kStBlocksPerSm). T is 128 where n / sm_count < 256, so a small field
     still spreads over the card. ``esize``: bytes of an element of X (2 on
     bf16, whose halos are multiples of 8: a 16-byte copy carries 8
     elements); ``dsize``: of the diagonals (``esize`` by default)."""
     offs = [int(o) % n for o in offsets]
     dist = [min(o, n - o) for o in offs]
     quantum = 16 // esize
-    built = 2 if k <= 32 and not with_gram else 1
+    built = 2 if k <= 32 else 1
     best, best_key = None, None
     for T in TILES:
         if T > max(TILES[0], n // sm_count):
             continue
         for h in sorted({0} | {-(-d // quantum) * quantum for d in dist}):
-            nbytes = smem_bytes(k, len(offs), h, T, with_gram, esize, dsize)
+            nbytes = smem_bytes(k, len(offs), h, T, esize, dsize)
             if nbytes > smem_cap:
                 break
             blocks = min(built, (smem_cap + 1024) // (nbytes + 1024))
@@ -233,6 +232,67 @@ def stencil_mma_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
                          "shared memory")
     return best
 
+# An f32 field with its Gram on the tensor cores (csrc/stencil.cu
+# stencil_mma_f32): stencil_mma's 16 warps on an f32 window, the far
+# diagonals read from L2.
+MMA_F32_PREFETCH = 2  # csrc/stencil.cu kStF32Prefetch: far diagonals loaded a step ahead
+# Tile widths of its plan: at (32, 128^3) T = 512 (1.5 reads of X a column)
+# ran slower than T = 256 (2.0): 475 against 452 device us (H100, PERF.md).
+MMA_F32_TILES = (128, 256)
+
+
+def mma_f32_window_ld(h: int, T: int) -> int:
+    """Row stride of stencil_mma_f32's f32 window (``csrc/stencil.cu``
+    mma_f32_window_ld): the least L >= T + 2h with L = 16 mod 32 floats, so
+    the two rows of a quarter warp's 16-byte reads fall in the two halves of
+    the banks."""
+    return T + 2 * h + ((16 - T - 2 * h) & 31)
+
+
+def mma_f32_smem_bytes(k: int, ndiag: int, h: int, T: int, dsize: int = 4) -> int:
+    """Shared bytes of one stencil_mma_f32 launch (``csrc/stencil.cu``
+    mma_f32_smem_bytes): two f32 windows of k rows at ``mma_f32_window_ld``
+    and two (ndiag, T) coefficient tiles of ``dsize``-byte elements, at
+    least the warps' sums."""
+    return max(2 * (4 * k * mma_f32_window_ld(h, T) + dsize * ndiag * T), 4 * MMA_SCRATCH)
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_mma_f32_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
+                         sm_count: int, dsize: int = 4) -> StencilPlan:
+    """The (h, T) of an f32 launch of k <= 64 rows with the fused Gram
+    (``csrc/stencil.cu`` stencil_mma_f32, one 16-warp block an SM; f32 or
+    bf16 diagonals, ``dsize`` bytes an element): the least L2->SM traffic
+    per column, ``(T + 2h) / T`` plus one per far diagonal (read from L2),
+    among the tiles of ``MMA_F32_TILES`` up to ``max(128, n / sm_count)`` and
+    the halos (multiples of 4: the window is copied in 16-byte chunks) whose
+    shared memory, with the static ``MMA_STATIC_BYTES``, fits ``smem_cap``;
+    ties go to the wider tile, then the smaller halo. At the north star's
+    (32, 128^3) that is h = 128, T = 256: 0, +-1 and +-128 from the window,
+    +-16384 from L2, traffic 4.0."""
+    if not 1 <= k <= MMA_MAX_K:
+        raise ValueError(f"stencil: one f32 Gram launch takes 1 to {MMA_MAX_K} rows, got {k}")
+    offs = [int(o) % n for o in offsets]
+    dist = [min(o, n - o) for o in offs]
+    best, best_key = None, None
+    for T in MMA_F32_TILES:
+        if T > max(MMA_F32_TILES[0], n // sm_count):
+            continue
+        for h in sorted({0} | {-(-d // 4) * 4 for d in dist}):
+            nbytes = mma_f32_smem_bytes(k, len(offs), h, T, dsize)
+            if nbytes + MMA_STATIC_BYTES > smem_cap:
+                break
+            traffic = (T + 2 * h) / T + sum(d > h for d in dist)
+            key = (traffic, -T, h)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = StencilPlan(h, T, tuple(d <= h for d in dist), nbytes, traffic, 1)
+    if best is None:
+        raise ValueError(f"stencil: {k} rows leave no f32 tile in {smem_cap} bytes of "
+                         "shared memory")
+    return best
+
+
 def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
                        Xt: torch.Tensor, with_gram: bool = False):
     """Plain PyTorch version: the roll-and-accumulate of the reference's XLA
@@ -322,8 +382,10 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
         kc = r1 - r0
         if mma:
             plan = stencil_mma_plan(offsets, n, kc, cap, sms, diags.element_size())
+        elif with_gram:
+            plan = stencil_mma_f32_plan(offsets, n, kc, cap, sms, diags.element_size())
         else:
-            plan = stencil_plan(offsets, n, kc, with_gram, cap, sms, Xt.element_size(),
+            plan = stencil_plan(offsets, n, kc, cap, sms, Xt.element_size(),
                                 diags.element_size())
         max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None

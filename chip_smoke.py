@@ -2665,21 +2665,33 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
 
     b16, offs = op.blocks.to(bf), op.offsets
     lifted = b16.float()
-    for name in STORAGE_BLOCK_BF16:
-        _library_note(name, "no PyTorch call takes bf16 blocks with an f32 field")
+    # One PyTorch call computing each: torch's BSR product of the blocks
+    # lifted to f32 (the same linear map) times the site-major field.
+    plan = bsk.launch_plans(b16, offs, k, False, dev, tma=bsk._tma_ok(b16, Xm, True))[0][1]
+    print(f"[plan] block_stencil_spmm_m_t[bf16 coeffs] {what}: 1 launch: {plan.describe()}")
+    Y = bsk.block_stencil_spmm_m_t(b16, offs, Xm)
+    bsr, why = _site_bsr_library(torch, lifted, offs, Xm, Y)
+    _library_note(f"block_stencil_spmm_m_t[bf16 coeffs] {what} (torch BSR @ dense of the "
+                  "blocks lifted to f32)", why)
     _timed_check(torch, "block_stencil_spmm_m_t[bf16 coeffs]", what,
                  lambda: (bsk.block_stencil_spmm_m_t(b16, offs, Xm), None),
                  lambda: bsk.block_stencil_plain(b16, offs, Xm), is_gram, records,
-                 work=(nbytes(b16, Xm, Xm), 2 * k * nnz(b16)))
+                 work=(nbytes(b16, Xm, Xm), 2 * k * nnz(b16)), library=bsr)
+    del bsr
     same("block_stencil_spmm_m_t[bf16 coeffs]", "the f32 kernel on the lifted blocks",
          bsk.block_stencil_spmm_m_t(b16, offs, Xm), bsk.block_stencil_spmm_m_t(lifted, offs, Xm))
+    bsr, why = _site_bsr_library(torch, lifted, offs, Xv,
+                                 bsk.block_stencil_spmm_t(b16, offs, Xv))
+    _library_note(f"block_stencil_spmm_t[bf16 coeffs] ({k}, {bs}, {ns}) view (torch BSR @ "
+                  "dense of the blocks lifted to f32)", why)
     _timed_check(torch, "block_stencil_spmm_t[bf16 coeffs]", f"({k}, {bs}, {ns}) view",
                  lambda: (bsk.block_stencil_spmm_t(b16, offs, Xv), None),
                  lambda: (bsk.block_stencil_v_plain(b16, offs, Xv), None), is_gram, records,
-                 work=(nbytes(b16, Xv, Xv), 2 * k * nnz(b16)))
+                 work=(nbytes(b16, Xv, Xv), 2 * k * nnz(b16)), library=bsr)
+    del bsr
     same("block_stencil_spmm_t[bf16 coeffs]", "the f32 kernel on the lifted blocks",
          bsk.block_stencil_spmm_t(b16, offs, Xv), bsk.block_stencil_spmm_t(lifted, offs, Xv))
-    del lifted
+    del lifted, Y
 
     fb, foffs, fold = op.blocks_folded, op.fold_offsets, op.fold
     print(f"[storage] folded: {len(foffs)} of {len(offs)} diagonals streamed, fold {fold}")
@@ -2703,12 +2715,17 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
     err = relmax(Yf, Y)
     _check("block_stencil_spmm_m_t[fold]", "against the unfolded kernel", err, FIELD_RTOL)
     fb16 = fb.to(bf)
-    _library_note("block_stencil_spmm_m_t[fold, bf16 coeffs]",
-                  "no PyTorch call takes bf16 blocks with an f32 field")
+    # Folding and rounding to bf16 commute (each site's block is one of the
+    # pair's), so the unfolded matrix lifted to f32 is the same linear map.
+    bsr, why = _site_bsr_library(torch, op.blocks.to(bf).float(), offs, Xm,
+                                 bsk.block_stencil_spmm_m_t(fb16, foffs, Xm, fold))
+    _library_note(f"block_stencil_spmm_m_t[fold, bf16 coeffs] {what} (torch BSR @ dense of the "
+                  "unfolded matrix, lifted to f32)", why)
     _timed_check(torch, "block_stencil_spmm_m_t[fold, bf16 coeffs]", what,
                  lambda: (bsk.block_stencil_spmm_m_t(fb16, foffs, Xm, fold), None),
                  lambda: bsk.block_stencil_plain(fb16, foffs, Xm, False, fold), is_gram, records,
-                 work=(nbytes(fb16, Xm, Xm), 2 * k * nnz(fb16)))
+                 work=(nbytes(fb16, Xm, Xm), 2 * k * nnz(fb16)), library=bsr)
+    del bsr
     same("block_stencil_spmm_m_t[fold, bf16 coeffs]", "the f32 folded kernel on the lift",
          bsk.block_stencil_spmm_m_t(fb16, foffs, Xm, fold),
          bsk.block_stencil_spmm_m_t(fb16.float(), foffs, Xm, fold))
@@ -2735,13 +2752,18 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
     def is_kk(w):
         return w.shape == (kk, kk)
 
-    for name in STORAGE_STENCIL:
+    for name in STORAGE_STENCIL[1:]:
         _library_note(name, "no PyTorch call takes a mixed bf16/f32 pair")
+    csr, why = _dia_csr_library(torch, d16.float(), lap.offsets, X32,
+                                stencil.stencil_spmm_t(d16, lap.offsets, X32))
+    _library_note(f"stencil_spmm_t[bf16 coeffs] {lw} (torch CSR @ dense of the diagonals "
+                  "lifted to f32)", why)
     sp_work = (nbytes(d16, X32, X32), 2 * kk * nnz(d16))
     _timed_check(torch, "stencil_spmm_t[bf16 coeffs]", f"{lw} bf16 diagonals, f32 X",
                  lambda: (stencil.stencil_spmm_t(d16, lap.offsets, X32),),
                  lambda: (stencil.stencil_spmm_plain(d16, lap.offsets, X32)[0],), is_kk,
-                 records, work=sp_work)
+                 records, work=sp_work, library=csr)
+    del csr
     _timed_check(torch, "stencil_spmm_gram_t[bf16 coeffs]", f"{lw} bf16 diagonals, f32 X",
                  lambda: stencil.stencil_spmm_gram_t(d16, lap.offsets, X32),
                  lambda: stencil.stencil_spmm_plain(d16, lap.offsets, X32, True), is_kk,
@@ -2750,6 +2772,12 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
     Yu, Gu = stencil.stencil_spmm_gram_t(d32, lap.offsets, X32)
     same("stencil_spmm_gram_t[bf16 coeffs]", "the f32 kernel (Y and G)",
          torch.cat([Ym.reshape(-1), Gm.reshape(-1)]), torch.cat([Yu.reshape(-1), Gu.reshape(-1)]))
+    # Rows 2m and 2 (stencil_mma_f32): G from its f32 sums, Y itself; no
+    # other candidate Gram on an f32 field.
+    for name, G, Yf in (("stencil_spmm_gram_t[bf16 coeffs]", Gm, Ym), ("stencil_spmm_gram_t", Gu,
+                                                                        Yu)):
+        contract_distance(torch, "[storage]", name, f"{lw} (the north star's field)", G,
+                          (X32, Yf), None, 1.0)
     same("stencil_spmm_t[bf16 coeffs]", "the f32 kernel",
          stencil.stencil_spmm_t(d16, lap.offsets, X32), Yu)
     xw = (nbytes(d32, X16, X16), 2 * kk * nnz(d32))

@@ -335,12 +335,11 @@ def test_plans_sized_by_element_bytes():
     assert b16.smem_bytes <= cap and b16.kc >= f32.kc
     assert fused.gram_mma_smem_bytes(32, 32, False, 256, 3) == 3 * 2 * 64 * 256 + 1024
     offs = (-65536, -256, -1, 0, 1, 256, 65536)
-    for gram in (False, True):
-        p2 = stencil.stencil_plan(offs, 256 ** 3, 32, gram, cap, sms, 2)
-        p4 = stencil.stencil_plan(offs, 256 ** 3, 32, gram, cap, sms, 4)
-        assert p2.h % 8 == 0 and p4.h % 4 == 0
-        assert p2.smem_bytes == stencil.smem_bytes(32, 7, p2.h, p2.T, gram, 2) <= cap
-        assert p2.near[2] and p2.near[4]  # +-1 from the window
+    p2 = stencil.stencil_plan(offs, 256 ** 3, 32, cap, sms, 2)
+    p4 = stencil.stencil_plan(offs, 256 ** 3, 32, cap, sms, 4)
+    assert p2.h % 8 == 0 and p4.h % 4 == 0
+    assert p2.smem_bytes == stencil.smem_bytes(32, 7, p2.h, p2.T, 2) <= cap
+    assert p2.near[2] and p2.near[4]  # +-1 from the window
 
 
 def test_bf16_sbcgrq_keeps_bf16_fields():

@@ -1002,8 +1002,8 @@ def test_stencil_window_kernel_matches_plain(dev, case, k):
     version: near, far and mixed diagonals, ragged n, windows that wrap at 0
     and at n, k from 1 to 96 (two 48-row launches)."""
     n, offsets = _WINDOW_CASES[case]
-    plan = stencil.stencil_plan(offsets, n, min(k, 64), True,
-                                _native.max_smem(dev.index or 0), _native.sm_count(dev.index or 0))
+    plan = stencil.stencil_mma_f32_plan(offsets, n, min(k, 64), _native.max_smem(dev.index or 0),
+                                        _native.sm_count(dev.index or 0))
     if case == "all_far":
         assert not any(plan.near)
     if case == "all_near_scalar":
@@ -2534,3 +2534,161 @@ def test_xr_update_gram_streaming_schedule(dev, dt, k, n, offset):
     got = fused.xr_update_gram(alpha, P, Xd, Z, Rd, donate=True)
     assert got[0].data_ptr() == Xd.data_ptr() and got[1].data_ptr() == Rd.data_ptr()
     assert all(torch.equal(g, w) for g, w in zip(got, (Xn, Rn, G)))
+
+
+# ---- rows 2 and 2m (an f32 field with its Gram) on the tensor cores, and
+# rows 23h and 24h (bf16 blocks on the merged view) on TMA tensor boxes
+
+_F32_MMA_CASES = {
+    # name: (n, offsets); random coefficients on every diagonal, wraps populated
+    "ragged": (4099, (-5, -1, 0, 1, 3, 1030, -2049)),          # n % 4 != 0: element copies
+    "wrap_both_ends": (4096, (4095, 1, -4, 4092, 2048, 1024)),  # windows cross 0 and n
+    # far offsets that are not multiples of 4 (element reads), three far
+    # diagonals (the third read at its use)
+    "misaligned_far": (8192, (0, 1, -1, 1027, -3001, 4098)),
+    "laplacian_16": (16 ** 3, (0, 1, -1, 16, -16, 256, -256)),
+}
+
+
+@pytest.mark.parametrize("dd", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 8, 12, 32, 48, 64, 96])
+@pytest.mark.parametrize("case", sorted(_F32_MMA_CASES))
+def test_stencil_f32_gram_on_tensor_cores_matches_plain(dev, case, k, dd):
+    """``stencil_spmm_gram_t`` on an f32 field with f32 or bf16 diagonals
+    (``stencil_mma_f32``, one launch per chunk of at most 64 rows, 48-row
+    chunks at k = 96): ragged n, windows across 0 and n, far offsets that
+    are not multiples of 4, more far diagonals than are loaded a step ahead.
+    Y within 1e-5 of the plain version and bitwise the SpMM's (the fmaf
+    chain it keeps); G within 1e-5 of the plain version and of the f64 Gram
+    of X and the f32 sums; a repeat bitwise."""
+    n, offsets = _F32_MMA_CASES[case]
+    rng = np.random.default_rng(40 + k)
+    d = _t(rng.standard_normal((len(offsets), n)), dev)
+    d = d.bfloat16() if dd == "bf16" else d
+    X = _field(k, n, 41 + k, dev)
+    plan = stencil.stencil_mma_f32_plan(offsets, n, min(k, 64), _native.max_smem(dev.index or 0),
+                                        _native.sm_count(dev.index or 0), d.element_size())
+    assert plan.blocks_per_sm == 1
+    name = "stencil_spmm_gram_t" + ("[bf16 coeffs]" if dd == "bf16" else "")
+    _native.reset_launches()
+    Y, G = stencil.stencil_spmm_gram_t(d, offsets, X)
+    assert _native.launches[name] == len(_native.row_chunks(k))
+    Yp, Gp = stencil.stencil_spmm_plain(d, offsets, X, with_gram=True)
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, stencil.stencil_spmm_t(d, offsets, X))
+    assert _relfro(G.double(), X.double() @ Y.double().T) < 1e-5
+    Y2, G2 = stencil.stencil_spmm_gram_t(d, offsets, X)
+    assert torch.equal(Y2, Y) and torch.equal(G2, G)
+
+
+def test_stencil_f32_gram_unaligned_field(dev):
+    """An f32 field one element off 16-byte alignment: the window's 4-byte
+    copies, the far diagonals' element reads and Y's element stores on the
+    same schedule; Y bitwise the SpMM's, G within 1e-5."""
+    k, n = 32, 4096
+    rng = np.random.default_rng(47)
+    offsets = (-1025, -1, 0, 1, 2, 700)
+    d = _t(rng.standard_normal((len(offsets), n)), dev)
+    raw = _t(rng.standard_normal(k * n + 1), dev)
+    X = raw[1:].view(k, n)
+    assert X.data_ptr() % 16 != 0
+    Y, G = stencil.stencil_spmm_gram_t(d, offsets, X)
+    Yp, Gp = stencil.stencil_spmm_plain(d, offsets, X, with_gram=True)
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, stencil.stencil_spmm_t(d, offsets, X))
+
+
+# Rows 2 and 2m before their Gram moved to the tensor cores (stencil_spmm<ED,
+# float, KMAX, true>: VecGram in f32 FMAs; H100), on the X that
+# test_stencil_f32_gram_keeps_y_and_nears_its_contract makes on the 7-point
+# Laplacian: the sha256 (16 hex digits) of the bytes of Y, and G's relative
+# Frobenius distance from the f64 Gram of X and the f32 sums.
+_F32_GRAM_PINS = {
+    ("f32", 64): ("8286defddbda8d2a", 2.5496330756127053e-08),
+    ("bf16", 64): ("8286defddbda8d2a", 2.5496330756127053e-08),
+    ("f32", 128): ("1c03aafad7df1f6f", 2.372139523325416e-08),
+    ("bf16", 128): ("1c03aafad7df1f6f", 2.372139523325416e-08),
+}
+
+
+@pytest.mark.parametrize("dd,edge", list(_F32_GRAM_PINS), ids=str)
+def test_stencil_f32_gram_keeps_y_and_nears_its_contract(dev, dd, edge):
+    """Rows 2 and 2m at k = 32 on the 64^3 and 128^3 (the north star's)
+    Laplacians: Y bitwise the kernel's before (pinned checksums), and G no
+    farther than twice the kernel before from the f64 Gram of X and the f32
+    sums, its contract."""
+    pin, before = _F32_GRAM_PINS[(dd, edge)]
+    op = laplacian_dia((edge,) * 3, device=dev)
+    d = op.diags.bfloat16() if dd == "bf16" else op.diags
+    X = _t(np.random.default_rng(620 + edge).standard_normal((32, op.n)), dev)
+    Y, G = stencil.stencil_spmm_gram_t(d, op.offsets, X)
+    assert _sha32(Y) == pin
+    assert _relfro(G.double(), X.double() @ Y.double().T) <= 2 * before
+
+
+def _bs_tma_operands(ns, bs, k, dev, seed):
+    """Per-site blocks on near (0, +-1, 17, -60, 64, wraps ns - 1 and -ns -
+    4) and far (450 and ns + 401 off a 16-byte boundary, -412 on one)
+    offsets: far beyond any halo either schedule fits, so bs_tma's plan has
+    bs_spmm's traffic and takes the boxes (tests/test_torch_redesign.py
+    holds the plans)."""
+    rng = np.random.default_rng(seed)
+    offsets = (0, 1, -1, 17, -60, 64, ns - 1, -ns - 4, 450, -412, ns + 401)
+    blocks = _t(rng.standard_normal((len(offsets), bs, bs, ns)), dev)
+    return blocks, offsets, _field(bs * k, ns, seed + 1, dev)
+
+
+@pytest.mark.parametrize("ns", [1000, 4096, 40_000])
+@pytest.mark.parametrize("bs,k", [(4, 12), (3, 8), (8, 6), (4, 30), (2, 7)])
+def test_block_stencil_tma_boxes_match_plain(dev, bs, k, ns):
+    """Merged launches on bf16 blocks without the Gram (``bs_tma``): windows
+    and far slabs that cross ns (copied by the producer warp's lanes), far
+    offsets that are not multiples of 4, a ragged last tile (40,000 sites),
+    chunked launches (k = 30 at bs = 4: two of 15 RHS, tiles of 64 sites), bs
+    = 2, 3, 4 and 8. Every launch's plan is the TMA schedule; Y within 1e-5
+    of the plain version, bitwise the f32 kernel on the blocks lifted to f32
+    (``bs_spmm``), a repeat bitwise."""
+    blocks, offsets, Xm = _bs_tma_operands(ns, bs, k, dev, 950)
+    b16 = blocks.bfloat16()
+    plans = bsk.launch_plans(b16, offsets, k, False, Xm.device, tma=True)
+    assert all(plan.tma for _, plan in plans)
+    _native.reset_launches()
+    Y = bsk.block_stencil_spmm_m_t(b16, offsets, Xm)
+    assert _native.launches["block_stencil_spmm_m_t[bf16 coeffs]"] == len(plans)
+    Yp = bsk.block_stencil_plain(b16, offsets, Xm)[0]
+    torch.cuda.synchronize()
+    assert _relmax(Y, Yp) < 1e-5
+    assert torch.equal(Y, bsk.block_stencil_spmm_m_t(b16.float(), offsets, Xm))
+    assert torch.equal(Y, bsk.block_stencil_spmm_m_t(b16, offsets, Xm))
+
+
+def test_block_stencil_tma_on_the_matrix_link_8(dev):
+    """``dirac_gauged_matrix(8)``'s 15 diagonals in bf16 at k = 12 (m = 48;
+    4,096 sites, 32 tiles of 128): every far offset's slab, the crossing ones
+    by the producer's lanes; Y bitwise the f32 kernel on the lifted blocks
+    and within 1e-5 of the plain version."""
+    op = dirac_gauged_matrix(8, device=dev)
+    b16 = op.blocks.bfloat16()
+    Xm = _field(48, op.blocks.shape[-1], 960, dev)
+    plans = bsk.launch_plans(b16, op.offsets, 12, False, Xm.device, tma=True)
+    assert len(plans) == 1 and plans[0][1].tma
+    Y = bsk.block_stencil_spmm_m_t(b16, op.offsets, Xm)
+    assert _relmax(Y, bsk.block_stencil_plain(b16, op.offsets, Xm)[0]) < 1e-5
+    assert torch.equal(Y, bsk.block_stencil_spmm_m_t(b16.float(), op.offsets, Xm))
+
+
+def test_block_stencil_tma_copied_stages_land_before_use(dev):
+    """At 1,000 sites (8 tiles of 128, one a block) the first and last
+    tiles' windows cross 0 and ns, and on every tile the producer warp's
+    lanes copy the far slabs of 450 and ns + 401 (off a 16-byte boundary):
+    300 calls, each bitwise the f32 kernel on the lifted blocks. A stage
+    posted before its lanes' copies land shows as a wrong bit on some call."""
+    blocks, offsets, Xm = _bs_tma_operands(1000, 4, 12, dev, 970)
+    b16 = blocks.bfloat16()
+    assert all(plan.tma for _, plan in bsk.launch_plans(b16, offsets, 12, False, Xm.device,
+                                                        tma=True))
+    want = bsk.block_stencil_spmm_m_t(b16.float(), offsets, Xm)
+    bad = [i for i in range(300)
+           if not torch.equal(bsk.block_stencil_spmm_m_t(b16, offsets, Xm), want)]
+    assert bad == []

@@ -64,17 +64,24 @@ def _far_count(offsets, n, h):
 @pytest.mark.parametrize("with_gram", [False, True])
 def test_stencil_plan_fits_and_splits_the_offsets(preset, k, with_gram):
     """Every launch of the field (48-row chunks at k = 96) gets a halo that
-    is a multiple of 4, a tile of one column a thread, shared memory within
-    the cap (as the kernel counts it) and blocks an SM that it holds, the
-    near/far split of the kernel's rule, and less L2 traffic than one read
-    of X per diagonal."""
+    is a multiple of 4, a tile of one column a thread (with the Gram, a tile
+    of the tensor-core kernel that takes it, ``stencil_mma_f32_plan``),
+    shared memory within the cap (as the kernel counts it) and blocks an SM
+    that it holds, the near/far split of the kernel's rule, and less L2
+    traffic than one read of X per diagonal."""
     n, offsets = _PRESETS[preset]
     for r0, r1 in _native.row_chunks(k):
         kc = r1 - r0
-        plan = stencil.stencil_plan(offsets, n, kc, with_gram, H100_SMEM, H100_SMS)
-        assert plan.h % 4 == 0 and plan.T in stencil.TILES
-        assert plan.smem_bytes == stencil.smem_bytes(kc, len(offsets), plan.h, plan.T, with_gram)
-        assert plan.smem_bytes <= H100_SMEM
+        if with_gram:
+            plan = stencil.stencil_mma_f32_plan(offsets, n, kc, H100_SMEM, H100_SMS)
+            assert plan.T in stencil.MMA_F32_TILES
+            assert plan.smem_bytes == stencil.mma_f32_smem_bytes(kc, len(offsets), plan.h, plan.T)
+            assert plan.smem_bytes + stencil.MMA_STATIC_BYTES <= H100_SMEM
+        else:
+            plan = stencil.stencil_plan(offsets, n, kc, H100_SMEM, H100_SMS)
+            assert plan.T in stencil.TILES
+            assert plan.smem_bytes == stencil.smem_bytes(kc, len(offsets), plan.h, plan.T)
+        assert plan.h % 4 == 0 and plan.smem_bytes <= H100_SMEM
         assert 1 <= plan.blocks_per_sm <= (2 if kc <= 32 and not with_gram else 1)
         assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= H100_SMEM + 1024
         assert plan.near == tuple(min(o % n, n - o % n) <= plan.h for o in offsets)
@@ -86,33 +93,36 @@ def test_stencil_plan_fits_and_splits_the_offsets(preset, k, with_gram):
 
 @pytest.mark.parametrize("k,with_gram,h,T,near,blocks", [
     (32, False, 4, 256, 3, 2),   # 0, +-1 from the window, two blocks an SM
-    (32, True, 128, 256, 5, 1),  # one block an SM with the Gram: the widest halo
+    (32, True, 128, 256, 5, 1),  # the Gram's tensor-core kernel: the widest halo
     (1, False, 128, 256, 5, 2),  # small rows: +-128 fits beside two blocks
     (48, False, 128, 256, 5, 1), # one block an SM at KMAX = 64: the widest halo
-    (64, True, 4, 256, 3, 1),    # no room for a 128-column halo beside 64 rows and Y
+    (64, True, 128, 128, 5, 1),  # with the Gram at 64 rows: tiles of 128 keep the halo
 ])
 def test_stencil_plan_of_the_north_star(k, with_gram, h, T, near, blocks):
-    plan = stencil.stencil_plan(_PRESETS["lap_128^3"][1], 128 ** 3, k, with_gram,
-                                H100_SMEM, H100_SMS)
+    """The SpMM's plan, and with the Gram the tensor-core kernel's
+    (``stencil_mma_f32_plan``), at (k, 128^3)."""
+    offsets = _PRESETS["lap_128^3"][1]
+    plan = (stencil.stencil_mma_f32_plan(offsets, 128 ** 3, k, H100_SMEM, H100_SMS) if with_gram
+            else stencil.stencil_plan(offsets, 128 ** 3, k, H100_SMEM, H100_SMS))
     assert (plan.h, plan.T, sum(plan.near), plan.blocks_per_sm) == (h, T, near, blocks)
 
 
 def test_stencil_plan_at_64_cubed_and_small_fields():
-    plan = stencil.stencil_plan(_PRESETS["lap_64^3"][1], 64 ** 3, 32, False, H100_SMEM, H100_SMS)
+    plan = stencil.stencil_plan(_PRESETS["lap_64^3"][1], 64 ** 3, 32, H100_SMEM, H100_SMS)
     assert plan.h == 64 and sum(plan.near) == 5 and plan.blocks_per_sm == 2
     # A field of 1000 columns still makes tiles of at least 128.
-    plan = stencil.stencil_plan((0, 1, -1), 1000, 5, True, H100_SMEM, H100_SMS)
+    plan = stencil.stencil_plan((0, 1, -1), 1000, 5, H100_SMEM, H100_SMS)
     assert plan.T == 128 and all(plan.near)
     # All offsets far from the tile: no halo at all.
-    plan = stencil.stencil_plan((3000, -3000, 7777), 65536, 8, False, H100_SMEM, H100_SMS)
+    plan = stencil.stencil_plan((3000, -3000, 7777), 65536, 8, H100_SMEM, H100_SMS)
     assert plan.h == 0 and not any(plan.near)
 
 
 def test_stencil_plan_refuses_a_cap_with_no_room():
     with pytest.raises(ValueError, match="no tile"):
-        stencil.stencil_plan((0, 1, -1), 4096, 64, True, 16 * 1024, H100_SMS)
+        stencil.stencil_plan((0, 1, -1), 4096, 64, 16 * 1024, H100_SMS)
     with pytest.raises(ValueError, match="no tile"):
-        stencil.stencil_plan((0, 1, -1), 4096, 64, False, 128 * 64 * 4, H100_SMS)
+        stencil.stencil_plan((0, 1, -1), 4096, 64, 128 * 64 * 4, H100_SMS)
 
 
 def _windowed_apply(diags, offsets, X, plan):
@@ -143,7 +153,7 @@ def _windowed_apply(diags, offsets, X, plan):
 ])
 def test_windowed_schedule_matches_the_oracle(n, offsets, cap, sms):
     k = 3
-    plan = stencil.stencil_plan(offsets, n, k, True, cap, sms)
+    plan = stencil.stencil_plan(offsets, n, k, cap, sms)
     rng = np.random.default_rng(n)
     diags, X = rng.standard_normal((len(offsets), n)), rng.standard_normal((k, n))
     want = np.zeros((k, n))
@@ -362,8 +372,9 @@ def test_host_constants_mirror_the_sources():
     st = (CSRC / "stencil.cu").read_text()
     assert int(re.search(r"kMaxDiags = (\d+)", st).group(1)) == stencil.MAX_DIAGS
     assert "return T + 2 * h + (esize == 4 && k <= 32 ? 4 : 0);" in st
-    assert "256LL * (k > 16 ? 64 : 16)" in st
-    assert "kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1" in st
+    assert ("return 2LL * (esize * k * static_cast<long long>(window_ld(k, h, T, esize)) +\n"
+            "                dsize * static_cast<long long>(ndiag) * T);" in st)
+    assert "kStBlocksPerSm = KMAX <= 32 ? 2 : 1" in st
     assert int(re.search(r"kStThreads = (\d+)", st).group(1)) == stencil.THREADS
     ts = (CSRC / "spmm_tiled.cu").read_text()
     assert int(re.search(r"kMaxThreads = (\d+)", ts).group(1)) == spmm_tiled.MAX_THREADS
@@ -416,7 +427,7 @@ def test_host_constants_mirror_the_sources():
     assert ("const long long b = 2LL * mma_stage_bytes(k, ndiag, nst, h, T, dsize) +\n"
             "                      2LL * k * mma_tile_ld(T);\n"
             "  return (b > 4LL * kStMmaScratch ? b : 4LL * kStMmaScratch) + 1024;" in st)
-    assert "if (gram && k <= 64)" in st and stencil.MMA_MAX_K == 64
+    assert "if (k > 64) return cudaErrorInvalidValue;" in st and stencil.MMA_MAX_K == 64
     # A bf16 field's Gram above 64 rows in column blocks (stencil_mma_cols)
     # and bf16 px_update on the tensor cores.
     assert int(re.search(r"kStColsFw = (\d+)", st).group(1)) == stencil.MMA_COLS_FW
@@ -474,6 +485,23 @@ def test_host_constants_mirror_the_sources():
     built = {w: tuple(int(ki) for ki in re.findall(rf"BCG_BS\({w}, (\d+)\);", bs)) for w in (4, 8)}
     assert built == bsk.KI_BUILT
     assert "kBsThreads / groups" in bs
+    # Rows 2 and 2m on the tensor cores (stencil_mma_f32) and rows 23h, 24h on
+    # TMA tensor boxes (bs_tma).
+    assert int(re.search(r"kStF32Prefetch = (\d+)", st).group(1)) == stencil.MMA_F32_PREFETCH
+    assert "return T + 2 * h + ((16 - T - 2 * h) & 31);" in st
+    assert ("const long long b = 2LL * (4LL * k * mma_f32_window_ld(h, T) + 1LL * dsize * ndiag * T);"
+            "\n  return b > 4LL * kStMmaScratch ? b : 4LL * kStMmaScratch;" in st)
+    assert "__launch_bounds__(kStMmaThreads, 1)\n    stencil_mma_f32(" in st
+    assert "return dispatch_mma_f32(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks" in st
+    assert int(re.search(r"kBtMaxStages = (\d+)", bs).group(1)) == max(bsk.TMA_STAGES)
+    assert ("return round128(2LL * bs * bs * T) + (far ? 4LL * m * T : 0);" in bs
+            and "return 2 * round128(4LL * m * (T + 2 * h)) + stages * bt_slot_bytes(bs, m, T, far) "
+            "+ 128;" in bs)
+    assert "p.T + 2 * p.h <= 256" in bs and bsk.TMA_MAX_BOX == 256
+    assert "__shared__ unsigned long long full[kBtMaxStages], empty[kBtMaxStages], wfree[2];" in bs
+    assert bsk.TMA_BARRIER_BYTES == 8 * (2 * max(bsk.TMA_STAGES) + 2)
+    assert "__launch_bounds__(kBsThreads + 32, 1)\n    bs_tma(" in bs
+    assert "far_box = p.offs.o[d] % 4 == 0 && c0 + T <= p.ns;" in bs
 
 
 def _smoke():
@@ -486,22 +514,43 @@ def _smoke():
     return mod
 
 
-@pytest.mark.parametrize("case", ["dia_csr", "cbdia_merged", "cbdia_view", "bdia_view"])
-def test_smoke_library_calls_compute_the_kernels_function(case):
+@pytest.mark.parametrize("case", ["dia_csr", "cbdia_merged", "cbdia_view", "bdia_view",
+                                  "dia_csr_bf16_diagonals", "bdia_merged_bf16_blocks",
+                                  "bdia_view_bf16_blocks", "bdia_folded_bf16_blocks"])
+def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
     """``chip_smoke.py``'s library yardsticks (a torch CSR or BSR tensor of
     the operator times the dense field) compute the wrapper's function: the
-    check inside them passes on the plain route's output."""
+    check inside them passes on the plain route's output. Rows 1m, 22h, 23h
+    and 24f on bf16 coefficients take the product of the coefficients lifted
+    to f32 (24f's of the unfolded matrix: folding and rounding to bf16
+    commute)."""
+    from blockcg_tpu_torch.operators import astype
     from blockcg_tpu_torch.ops import block_stencil as bsk
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
-    from blockcg_tpu_torch.problems import dirac_cbdia, laplacian_dia
+    from blockcg_tpu_torch.problems import dirac_cbdia, dirac_gauged_matrix, laplacian_dia
 
     smoke = _smoke()
     torch.manual_seed(0)
-    if case == "dia_csr":
+    if case.startswith("dia_csr"):
         op = laplacian_dia((8, 8, 8), device="cpu")
         X = torch.randn(5, op.n)
-        call, why = smoke._dia_csr_library(torch, op.diags, op.offsets, X,
-                                           stencil.stencil_spmm_t(op.diags, op.offsets, X))
+        d = op.diags if case == "dia_csr" else op.diags.bfloat16()
+        call, why = smoke._dia_csr_library(torch, d.float(), op.offsets, X,
+                                           stencil.stencil_spmm_t(d, op.offsets, X))
+    elif case.endswith("bf16_blocks"):
+        monkeypatch.setenv("BLOCKCG_FOLD", "1")
+        op = astype(dirac_gauged_matrix(4, device="cpu"), torch.bfloat16)
+        lifted = op.blocks.float()
+        if case == "bdia_view_bf16_blocks":
+            X = torch.randn(3, op.bs, op.ns)
+            Y = bsk.block_stencil_spmm_t(op.blocks, op.offsets, X)
+        else:
+            X = torch.randn(3 * op.bs, op.ns)
+            Y = (bsk.block_stencil_spmm_m_t(op.blocks, op.offsets, X)
+                 if case == "bdia_merged_bf16_blocks" else
+                 bsk.block_stencil_spmm_m_t(op.blocks_folded, op.fold_offsets, X, op.fold))
+            assert op.fold or case == "bdia_merged_bf16_blocks"
+        call, why = smoke._site_bsr_library(torch, lifted, op.offsets, X, Y)
     else:
         op = dirac_cbdia(4, device="cpu")
         main = (op.hops_main, op.main_offsets, op.main_slots, op.masks_main)
@@ -1270,3 +1319,269 @@ def test_xr_update_gram_source_mirrors_its_plan():
     native = (Path(_native.__file__)).read_text()
     assert ("lib.bcg_xr_update_gram.argtypes = [P, P, P, P, P, P, P, P, P, I, I, L, I, I, I, P]"
             in native)
+
+
+# ------- rows 2 and 2m (an f32 field with its Gram) on the tensor cores, rows
+# 23h and 24h (bf16 blocks) on TMA tensor boxes: plans and schedules
+
+
+@pytest.mark.parametrize("k,h,T", [(8, 128, 256), (16, 128, 256), (32, 128, 256), (48, 128, 256),
+                                   (64, 128, 128)])
+@pytest.mark.parametrize("dsize", [4, 2])  # f32 (row 2) or bf16 (row 2m) diagonals
+def test_stencil_mma_f32_plan_of_the_north_star(k, h, T, dsize):
+    """``stencil_mma_f32_plan`` at the north star's 128^3 (the [storage]
+    shape of rows 2 and 2m): 0, +-1 and +-128 from the window, +-16384 from
+    L2; the shared memory as the source counts it fits the H100's 227 KB at
+    one block an SM; at 64 rows only a 128-column tile holds the 128-column
+    halo; no tile of ``MMA_F32_TILES`` with less traffic fits."""
+    n, offsets = _PRESETS["lap_128^3"]
+    plan = stencil.stencil_mma_f32_plan(offsets, n, k, H100_SMEM, H100_SMS, dsize)
+    assert (plan.h, plan.T, sum(plan.near), plan.blocks_per_sm) == (h, T, 5, 1)
+    assert plan.smem_bytes == stencil.mma_f32_smem_bytes(k, 7, h, T, dsize)
+    assert plan.smem_bytes + stencil.MMA_STATIC_BYTES <= H100_SMEM
+    assert plan.traffic == pytest.approx((T + 2 * h) / T + 2)
+    L = stencil.mma_f32_window_ld(h, T)
+    assert L >= T + 2 * h and L % 32 == 16 and L - (T + 2 * h) < 32
+    for t in stencil.MMA_F32_TILES:
+        for hh in (0, 4, 128):
+            traffic = (t + 2 * hh) / t + sum(min(o % n, n - o % n) > hh for o in offsets)
+            if traffic < plan.traffic:
+                assert (stencil.mma_f32_smem_bytes(k, 7, hh, t, dsize) + stencil.MMA_STATIC_BYTES
+                        > H100_SMEM)
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        stencil.stencil_mma_f32_plan(offsets, n, 65, H100_SMEM, H100_SMS, dsize)
+
+
+@pytest.mark.parametrize("k,n,T,offsets", [
+    (32, 3000, 256, (0, 1, -1, 128, -128, 1300, -1301)),  # ragged n, misaligned far offsets
+    (12, 777, 128, (-5, -1, 0, 1, 3)),
+    (48, 2048, 256, (0, 2, -2, 3, -3, 64, -64)),
+    (64, 1100, 256, (0, 1, -1, 600)),
+    (5, 300, 128, (0, 1, 299)),
+])
+def test_stencil_mma_f32_schedule_covers_y_and_g_once(k, n, T, offsets):
+    """``csrc/stencil.cu`` stencil_mma_f32's schedule in numpy: warp (p, q)
+    of the 16 takes the 16-column steps p, p + P, ... of each tile (StMma);
+    lane (g, t) computes the Y rows 8 (nt0 + j) + g at columns c0 + 4t .. +
+    3 and stores those of the first row group below k and n; the warp's
+    fragments take X rows 16 (mt0 + m) + g and + 8 of the window's centre.
+    Every Y entry is stored exactly once, every product X[r, c] Y[s, c]
+    enters G exactly once; each near diagonal's quad read (``window_quads``:
+    one, or two aligned, 16-byte reads, or two 8-byte reads) stays within
+    its row's T + 2h columns and covers columns h + s + c .. + 3 of the
+    window, and the window holds X[:, (i + s) mod n] there."""
+    MT, NT, QM, QN, P, TM, TN = _st_mma_split(k)
+    plan = stencil.stencil_mma_f32_plan(offsets, n, k, H100_SMEM, 4)
+    assert plan.T == T
+    h = plan.h
+    stored = np.zeros((k, n), dtype=int)
+    products = np.zeros((k, k, n), dtype=int)
+    for i0 in range(0, n, T):
+        window_cols = (i0 - h + np.arange(T + 2 * h)) % n
+        for warp in range(16):
+            p, q = warp % P, warp // P
+            mt0, nt0 = q // QN * TM, q % QN * TN
+            for c0 in range(16 * p, T, 16 * P):
+                for t in range(4):
+                    c = c0 + 4 * t
+                    for o in offsets:
+                        o %= n
+                        if min(o, n - o) > h:
+                            continue
+                        s = o if o <= h else o - n
+                        reads = {0: [s], 2: [s, s + 2], 1: [s - 1, s + 3], 3: [s - 3, s + 1]}[s & 3]
+                        width = 4 if s & 3 != 2 else 2
+                        got = set()
+                        for r0 in reads:
+                            lo, hi_ = h + c + r0, h + c + r0 + width
+                            assert (h + c + r0) % width == 0 and 0 <= lo and hi_ <= T + 2 * h
+                            got |= set(range(lo, hi_))
+                        assert set(range(h + c + s, h + c + s + 4)) <= got
+                        cols = np.arange(i0 + c, i0 + c + 4)
+                        assert (window_cols[h + c + s:h + c + s + 4] == (cols + o) % n).all()
+                    for g in range(8):
+                        for j in range(TN):
+                            r = 8 * (nt0 + j) + g
+                            for dc in range(4):
+                                col = i0 + c + dc
+                                if r < k and q // QN == 0 and col < n:
+                                    stored[r, col] += 1
+                cols = np.arange(i0 + c0, min(i0 + c0 + 16, n))
+                xr = [r for m in range(TM) for r in range(16 * (mt0 + m), 16 * (mt0 + m) + 16)
+                      if r < k]
+                yr = [s_ for j in range(TN) for s_ in range(8 * (nt0 + j), 8 * (nt0 + j) + 8)
+                      if s_ < k]
+                if len(cols):
+                    products[np.ix_(xr, yr, cols)] += 1
+    assert (stored == 1).all()
+    assert (products == 1).all()
+
+
+def _split3(v):
+    """``csrc/mma.cuh`` split3 of f32 values: hi, mid, lo (f32 arrays of
+    bf16 values), each difference taken in f32."""
+    v = np.asarray(v, np.float32)
+    hi = _bf16_round(v)
+    r1 = (v - hi).astype(np.float32)
+    mid = _bf16_round(r1)
+    lo = _bf16_round((r1 - mid).astype(np.float32))
+    return hi.astype(np.float64), mid.astype(np.float64), lo.astype(np.float64)
+
+
+def test_six_products_of_the_split_hold_an_f32_product():
+    """stencil_mma_f32's Gram of an f32 X and the f32 sums Y: both split into
+    three exact bf16 pieces, the six products of weight at least 2^-24 of hi
+    x hi (hi hi, hi mid, mid hi, hi lo, lo hi, mid mid), each exact in f32,
+    give x y within 2^-22 |x y| on random and extreme values (2^-100 ..
+    2^100, negative, zero); without mid x mid (five products) they do not.
+    Summed in f64 over 4,096 columns the six give a dot product within f32
+    rounding (2^-24) of the exact one, as VecGram's f32 FMAs do not."""
+    rng = np.random.default_rng(20)
+    x = np.concatenate([rng.standard_normal(8192),
+                        rng.standard_normal(2048) * 2.0 ** rng.integers(-100, 100, 2048),
+                        np.array([1 + 2.0 ** -10 + 2.0 ** -20, -(1 + 2.0 ** -23), 0.0, -0.0,
+                                  3.0e30, 2.0 ** -100])]).astype(np.float32)
+    y = rng.permutation(x).astype(np.float32)
+    xh, xm, xl = _split3(x)
+    yh, ym, yl = _split3(y)
+    exact = x.astype(np.float64) * y.astype(np.float64)
+    five = xh * yh + xh * ym + xm * yh + xh * yl + xl * yh
+    six = five + xm * ym
+    bound = 2.0 ** -22 * np.abs(exact)
+    assert (np.abs(six - exact) <= bound).all()
+    assert (np.abs(five - exact) > bound).any()
+    X = rng.standard_normal((4, 4096)).astype(np.float32)
+    Y = rng.standard_normal((4, 4096)).astype(np.float32)
+    Xs, Ys = _split3(X), _split3(Y)
+    G = sum(a @ b.T for a, b in ((Xs[0], Ys[0]), (Xs[0], Ys[1]), (Xs[1], Ys[0]),
+                                  (Xs[0], Ys[2]), (Xs[2], Ys[0]), (Xs[1], Ys[1])))
+    G64 = X.astype(np.float64) @ Y.astype(np.float64).T
+    scale = np.abs(X).astype(np.float64) @ np.abs(Y).astype(np.float64).T
+    assert (np.abs(G - G64) <= 2.0 ** -24 * scale).all()
+
+
+def _tma_stages(plan, ns, offsets):
+    """``csrc/block_stencil.cu`` bs_tma's producer in numpy: for each tile
+    of T sites, the window (a box of T + 2h sites from (i0 - h) mod ns, unless
+    it crosses ns) and each far diagonal's slab (a box of T sites from (i0 +
+    o) mod ns, where o % 4 == 0 and the box stays within ns); a box's site
+    coordinate and the sites it holds, or the copied sites (mod ns) where
+    the producer's lanes copy it. Returns {(i0, d or 'w'): (route, sites)}."""
+    T, h = plan.T, plan.h
+    out = {}
+    for i0 in range(0, ns, T):
+        c0 = (i0 - h) % ns
+        W = T + 2 * h
+        sites = (c0 + np.arange(W)) % ns
+        out[(i0, "w")] = ("box" if c0 + W <= ns else "copy", c0, sites)
+        for d, o in enumerate(offsets):
+            o %= ns
+            if min(o, ns - o) <= h:
+                continue
+            c0 = (i0 + o) % ns
+            box = o % 4 == 0 and c0 + T <= ns
+            out[(i0, d)] = ("box" if box else "copy", c0, (c0 + np.arange(T)) % ns)
+    return out
+
+
+@pytest.mark.parametrize("k", [12, 24])
+def test_block_stencil_tma_boxes_cover_each_source_once(k):
+    """bs_tma's stages on ``dirac_gauged_matrix(8)``'s 15 offsets (4,096
+    sites, k = 12 and 24), the plan's h and T: every box starts on a 16-byte
+    boundary (a site coordinate that is a multiple of 4) and lies within
+    [0, ns); the window of tile i0 holds the sources (i0 + c + s) mod ns of
+    every near diagonal's sites c at h + s + c, and each far diagonal's slab
+    (box or copy) the source (i0 + c + o) mod ns of site c, exactly once a
+    site; the tiles' centre sites cover every site once; the 3-D box of the
+    merged field lays staged row b * k + i from merged row b * ks + i."""
+    bs, L = 4, 8
+    ns, offsets = L ** 4, _dirac_offsets(L)
+    offs = tuple(o % ns for o in offsets)
+    plan = bsk.block_stencil_plan(offs, ns, bs, k, False, H100_SMEM, H100_SMS, csize=2, tma=True)
+    assert plan.tma and plan.T + 2 * plan.h <= bsk.TMA_MAX_BOX
+    stages = _tma_stages(plan, ns, offs)
+    T, h = plan.T, plan.h
+    centre = np.zeros(ns, dtype=int)
+    routes = set()
+    for (i0, d), (route, c0, sites) in stages.items():
+        routes.add((d == "w", route))
+        if route == "box":
+            assert c0 % 4 == 0 and 0 <= c0 and c0 + len(sites) <= ns
+        if d == "w":
+            live = np.arange(T)[i0 + np.arange(T) < ns]
+            centre[i0 + live] += 1
+            for o in offs:
+                if min(o, ns - o) <= h:
+                    s = o if o <= h else o - ns
+                    assert (sites[h + s + live] == (i0 + live + o) % ns).all()
+        else:
+            assert (sites == (i0 + np.arange(T) + offs[d]) % ns).all()
+            assert len(set(sites.tolist())) == T
+    assert (centre == 1).all()
+    # both routes run: boxes, and copies of the windows across ns and (h = 64
+    # at k = 12 on tiles of 128 sites) of the far slabs whose boxes would
+    # cross ns ((i0 + 448) mod ns + 128 > ns)
+    assert {(True, "box"), (True, "copy"), (False, "box")} <= routes
+    assert ((False, "copy") in routes) is (plan.T == 128)
+    # The 3-D map (ns, k, bs) with strides (ns, ks ns) elements: box element
+    # (c, i, b) at staged row b * k + i holds merged row b * ks + i.
+    ks = k + 3  # a chunk of k right-hand sides of a wider field
+    staged = [b * ks + i for b in range(bs) for i in range(k)]
+    assert staged == [(r // k) * ks + r % k for r in range(bs * k)]
+
+
+
+def _bs_tma_offsets(ns):
+    """tests/test_torch_kernels_cuda.py ``_bs_tma_operands``' offsets: near
+    (0, +-1, 17, -60, 64, wraps ns - 1 and -ns - 4) and far (450 and ns +
+    401 off a 16-byte boundary, -412 on one)."""
+    return (0, 1, -1, 17, -60, 64, ns - 1, -ns - 4, 450, -412, ns + 401)
+
+
+def test_block_stencil_tma_plan_of_the_matrix_link():
+    """Rows 23h and 24h: the merged (48, 32^4) launch on bf16 blocks takes
+    ``bs_tma``'s schedule (h = 32, two groups of 6 over 128 sites, the 0,
+    +-1, +-31 and +-32 diagonals from the window) with the deepest ring that
+    fits 227 KB as the source counts it (5 stages), the same traffic as
+    ``bs_spmm``'s; a launch whose boxes would move more than ``bs_spmm``
+    keeps ``bs_spmm``: a tile of 256 sites that leaves the boxes no halo (T +
+    2h <= 256; one RHS at 32^4: 15 against 9.25, six RHS on
+    ``dirac_gauged_matrix(8)``: 15 against 5.5), a halo ``bs_spmm``'s wider
+    window makes near (4.0 against 3.375); a pin of the depth holds."""
+    ns, offsets = _BS_PRESETS["matrix_32^4"]
+    offs = tuple(o % ns for o in offsets)
+    plan = bsk.block_stencil_plan(offs, ns, 4, 12, False, H100_SMEM, H100_SMS, csize=2, tma=True)
+    assert plan.tma and (plan.h, plan.T, plan.groups, plan.ki, plan.stages, sum(plan.near)) == (
+        32, 128, 2, 6, 5, 7)
+    assert plan.smem_bytes == bsk.tma_smem_bytes(4, 12, 128, 32, 5, True)
+    assert plan.smem_bytes + bsk.TMA_BARRIER_BYTES <= H100_SMEM
+    assert bsk.tma_smem_bytes(4, 12, 128, 32, 6, True) + bsk.TMA_BARRIER_BYTES > H100_SMEM
+    cp = bsk.block_stencil_plan(offs, ns, 4, 12, False, H100_SMEM, H100_SMS, csize=2)
+    assert not cp.tma and cp.traffic == plan.traffic and cp.stages == 4
+    one = bsk.block_stencil_plan(offs, ns, 4, 1, False, H100_SMEM, H100_SMS, csize=2, tma=True)
+    cp1 = bsk.block_stencil_plan(offs, ns, 4, 1, False, H100_SMEM, H100_SMS, csize=2)
+    assert one == cp1 and not one.tma and (one.h, one.T, one.traffic) == (32, 256, 9.25)
+    assert bsk.block_stencil_plan(offs, ns, 4, 1, False, H100_SMEM, H100_SMS, csize=2,
+                                  tma=True, h=0).tma  # 15 against 15: a pinned halo ties
+    small = tuple(o % 8 ** 4 for o in _dirac_offsets(8))
+    six = bsk.block_stencil_plan(small, 8 ** 4, 4, 6, False, H100_SMEM, H100_SMS, csize=2,
+                                 tma=True)
+    assert not six.tma and (six.h, six.T, six.traffic) == (64, 256, 5.5)
+    # _bs_redesign_operands' offsets at 1,000 sites (tests/test_torch_kernels_cuda.py):
+    # bs_spmm's h = 152 (traffic 3.375) against the boxes' h = 64 (4.0)
+    wide = (0, 1, 999, 17, 850, 64, 999, 152, 996)
+    tplan = bsk.block_stencil_plan(wide, 1000, 4, 12, False, H100_SMEM, H100_SMS, csize=2,
+                                   tma=True)
+    assert not tplan.tma and (tplan.h, tplan.traffic) == (152, 3.375)
+    # _bs_tma_operands' offsets (the far ones beyond any halo either fits):
+    # the same traffic, so the boxes
+    for ns_ in (1000, 4096, 40_000):
+        tofs = tuple(o % ns_ for o in _bs_tma_offsets(ns_))
+        for bs_, k_ in ((4, 12), (3, 8), (8, 6), (4, 15), (2, 7), (4, 24)):
+            t = bsk.block_stencil_plan(tofs, ns_, bs_, k_, False, H100_SMEM, H100_SMS, csize=2,
+                                       tma=True)
+            c = bsk.block_stencil_plan(tofs, ns_, bs_, k_, False, H100_SMEM, H100_SMS, csize=2)
+            assert t.tma and t.traffic == c.traffic
+    pinned = bsk.block_stencil_plan(offs, ns, 4, 12, False, H100_SMEM, H100_SMS, csize=2,
+                                    tma=True, stages=3)
+    assert pinned.tma and pinned.stages == 3

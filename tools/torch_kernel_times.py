@@ -19,7 +19,7 @@ torch's BSR product).
 Run on a machine with a card, from the root of a checkout:
 
     python3 tools/torch_kernel_times.py [--root DIR] [--reps 50] [--only REGEX]
-        [--const-hop | --bf16 | --short] [--library | --sweep | --variants]
+        [--const-hop | --bf16 | --short | --storage] [--library | --sweep | --variants]
 
 ``--bf16`` times the bf16 variants of rows 1, 2 and 5-9 (config 5's
 capacity route) at its inner shape, (32, 256^3), on the bf16 7-point
@@ -49,7 +49,17 @@ writes a 256 MB scratch buffer and reads it back (the read writes back the
 scratch's dirty lines there, not during the call), outside the timed
 kernels, and counts only the kernels whose names the call launches
 (``device_us_cold``, beside the warm ``device_us``, with each kernel's
-share in ``kernels_us_cold``).
+share in ``kernels_us_cold``). ``--storage`` times rows 1m, 2m and 2 (the
+DIA stencil on bf16 or f32 diagonals and an f32 field, without and with its
+Gram) at (32, 128^3) and rows 22h, 23h and 23 (the per-site block stencil,
+bf16 blocks on either view and f32 blocks merged) on
+``dirac_gauged_matrix(32)`` at k = 12, the ``[storage]`` shapes of
+``chip_smoke.py``, the same way; with ``--variants``, the plans' tiles,
+halos and ring depths of ``stencil_mma_f32`` and ``bs_tma`` and their probe
+builds with parts switched off. Every case prints the profiler's records of
+each kernel over its calls (``records``; ``records_cold`` beside
+``records_expected``, reps times one call's): where the cold count is not
+the expected one, ``device_us_cold`` is null.
 
 ``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
 32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
@@ -86,10 +96,10 @@ count, ending in a synchronize), the least time the work could take
 FLOPs over 67 TFLOP/s, a symmetric Gram counted as its upper triangle) and a
 checksum of the bytes of each of the call's outputs, so two checkouts show
 whether a kernel kept its bits. The inputs come from a fixed seed. L2 is
-flushed before each call only with ``--short``; the other cases' fields are
-268-805 MB, far above the 50 MB L2, but for the rows 5-9 cases at (32,
-64^3) (34-42 MB) and (400 or 800, 2^16) (105-210 MB), which are partly
-warm.
+flushed before each call only with ``--short`` and ``--storage``; the other
+cases' fields are 268-805 MB, far above the 50 MB L2, but for the rows 5-9
+cases at (32, 64^3) (34-42 MB) and (400 or 800, 2^16) (105-210 MB), which
+are partly warm.
 """
 
 from __future__ import annotations
@@ -105,12 +115,20 @@ import time
 from pathlib import Path
 
 
+SENTINEL = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
 def kernel_events(torch, fn, reps: int, tmp: Path, flush=None) -> list[tuple[str, float]]:
     """(name, device us) of every kernel record of reps calls of fn, with
-    flush() before each call when given."""
+    flush() before each call when given. The profiler has returned sessions
+    without the record of their first kernel (on an H100, every session of
+    the block stencil's calls at 32^4), so a sentinel launch goes first,
+    ``torch.cuda._sleep``, whose records are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(reps):
             if flush is not None:
                 flush()
@@ -119,14 +137,24 @@ def kernel_events(torch, fn, reps: int, tmp: Path, flush=None) -> list[tuple[str
     trace = tmp / "trace.json"
     prof.export_chrome_trace(str(trace))
     events = [(e["name"], float(e["dur"])) for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") == "kernel" and "dur" in e]
+              if e.get("cat") == "kernel" and "dur" in e and SENTINEL not in e["name"]]
     trace.unlink()
     return events
 
 
-def device_us(torch, fn, reps: int, tmp: Path) -> float:
-    """Device us of all kernels per call of fn."""
-    return sum(d for _, d in kernel_events(torch, fn, reps, tmp)) / reps
+def record_counts(events) -> dict[str, int]:
+    """Records of each kernel (``kernel_label`` of its name) among events."""
+    counts: dict[str, int] = {}
+    for name, _ in events:
+        counts[kernel_label(name)] = counts.get(kernel_label(name), 0) + 1
+    return counts
+
+
+def device_us(torch, fn, reps: int, tmp: Path) -> tuple[float, dict[str, int]]:
+    """(device us of all kernels per call of fn, records of each kernel over
+    the reps calls)."""
+    events = kernel_events(torch, fn, reps, tmp)
+    return sum(d for _, d in events) / reps, record_counts(events)
 
 
 FLUSH_BYTES = 256 * 2 ** 20  # the scratch written (and read back) before a cold call
@@ -151,21 +179,23 @@ def kernel_label(name: str) -> str:
     return name[:name.index(">") + 1] if "<" in head else head
 
 
-def cold_us(torch, fn, reps: int, tmp: Path, flush) -> tuple[float, dict[str, float]]:
+def cold_us(torch, fn, reps: int, tmp: Path, flush):
     """(device us per call of fn with L2 flushed before each call, us per
-    call of each of its kernels). Only kernels named as a call without the
-    flush names its own count, and there must be as many as the calls
-    launch."""
+    call of each of its kernels, records of each kernel, records expected).
+    Only kernels named in one call without the flush count, and reps times
+    that call's records are expected: where the profiler returned another
+    number (a record dropped, or an extra launch), the time is None and the
+    counts tell which kernel."""
     alone = kernel_events(torch, fn, 1, tmp)
     own = {name for name, _ in alone}
+    want = {n: c * reps for n, c in record_counts(alone).items()}
     events = [(n, d) for n, d in kernel_events(torch, fn, reps, tmp, flush) if n in own]
-    if len(events) != len(alone) * reps:
-        raise SystemExit(f"cold timing: {len(events)} records of {sorted(own)} for {reps} "
-                         f"calls of {len(alone)} kernels (does the flush share a name?)")
+    got = record_counts(events)
     shares: dict[str, float] = {}
     for n, d in events:
         shares[kernel_label(n)] = shares.get(kernel_label(n), 0.0) + d / reps
-    return sum(d for _, d in events) / reps, shares
+    us = sum(d for _, d in events) / reps if want and got == want else None
+    return us, shares, got, want
 
 
 def host_us(torch, fn, reps: int) -> float:
@@ -654,6 +684,237 @@ def short_cases(torch, dev):
                                            hop.masks_main.numel()) + 2 * Xv.numel())
     yield (f"row 14 const_block_stencil_spmm_t dirac_eo(32) hop_oe (1, {hop.bs}, {hop.ns})",
            lambda: cbs.const_block_stencil_spmm_t(*main), nbytes / 3.35e12 * 1e6)
+
+
+def storage_cases(torch, dev):
+    """(name, fn, bound us) of ``chip_smoke.py``'s ``[storage]`` shapes:
+    rows 1m, 2m and 2 (the DIA stencil on bf16 and f32 diagonals with an f32
+    field, without and with its Gram) at (32, 128^3) on the 7-point
+    Laplacian, then rows 22h, 23h and 23 (the per-site block stencil on bf16
+    blocks, the (k, bs, ns) view and the merged one, and the merged one on
+    f32 blocks) on ``dirac_gauged_matrix(32)`` at k = 12 (about 40 s of host
+    build). Bounds as ``chip_smoke.py`` counts them: each input read once
+    and each output written once over 3.35 TB/s against the FLOPs over 67
+    TFLOP/s. First one line of rows 2m's and 2's Gram distance from the f64
+    Gram of X and the f32 sums, their contract."""
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+    from blockcg_tpu_torch.ops import stencil
+    from blockcg_tpu_torch.problems import dirac_gauged_matrix, laplacian_dia
+
+    def bound(nbytes, flops):
+        return max(nbytes / 3.35e12, flops / 67e12) * 1e6
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 32
+    lap = laplacian_dia((128,) * 3, device=dev)
+    n, nd = lap.n, len(lap.offsets)
+    nnz = int(torch.count_nonzero(lap.diags))
+    X = torch.randn((k, n), generator=gen, device=dev)
+    d16 = lap.diags.bfloat16()
+    dist = {}
+    for D, row in ((d16, "2m"), (lap.diags, "2")):
+        Y, G = stencil.stencil_spmm_gram_t(D, lap.offsets, X)
+        G64 = X.double() @ Y.double().T
+        dist[row] = float(torch.linalg.norm(G.double() - G64) / torch.linalg.norm(G64))
+        del Y, G, G64
+    print(json.dumps({"case": "rows 2m, 2 gram contract distance (32, 128^3)", "dist": dist}),
+          flush=True)
+    for D, row, what in ((d16, "1m", "[bf16 coeffs]"), (d16, "2m", "[bf16 coeffs]"),
+                         (lap.diags, "2", "")):
+        fb = D.element_size() * nd * n + 8 * k * n
+        if row == "1m":
+            yield (f"row 1m stencil_spmm_t{what} (32, 128^3)",
+                   lambda D=D: stencil.stencil_spmm_t(D, lap.offsets, X), bound(fb, 2 * k * nnz))
+        else:
+            yield (f"row {row} stencil_spmm_gram_t{what} (32, 128^3)",
+                   lambda D=D: stencil.stencil_spmm_gram_t(D, lap.offsets, X),
+                   bound(fb + 4 * k * k, 2 * k * nnz + 2 * k * k * n))
+    del X, lap, d16
+    op = dirac_gauged_matrix(32, m=0.5, device=dev)
+    k = 12
+    blocks, offs = op.blocks, op.offsets
+    nd, bs, _, ns = blocks.shape
+    m = bs * k
+    Xm = torch.randn((m, ns), generator=gen, device=dev)
+    Xv = torch.randn((k, bs, ns), generator=gen, device=dev)
+    b16 = blocks.bfloat16()
+    bnnz = int(torch.count_nonzero(b16))
+    for B, row, what in ((b16, "22h", "[bf16 coeffs]"), (b16, "23h", "[bf16 coeffs]"),
+                         (blocks, "23", "")):
+        w = bound(B.numel() * B.element_size() + 8 * m * ns, 2 * k * bnnz)
+        if row == "22h":
+            yield (f"row 22h block_stencil_spmm_t{what} ({k}, {bs}, 32^4)",
+                   lambda B=B: bsk.block_stencil_spmm_t(B, offs, Xv), w)
+        else:
+            tma = getattr(bsk, "_tma_ok", None)  # a checkout before bs_tma has no TMA route
+            plan = (bsk.launch_plans(B, offs, k, False, dev, tma=tma(B, Xm, True)) if tma else
+                    bsk.launch_plans(B, offs, k, False, dev))[0][1]
+            yield (f"row {row} block_stencil_spmm_m_t{what} ({m}, 32^4)",
+                   lambda B=B: bsk.block_stencil_spmm_m_t(B, offs, Xm), w, plan.describe())
+
+
+# Probe builds of rows 2m and 2 (csrc/stencil.cu stencil_mma_f32<ED, 32,
+# PROBE>, exported by a source that includes it) at (32, 128^3): parts
+# switched off, the far diagonals read at their use instead of a step
+# ahead, and the products summed a tile in f32 before the double sums.
+F32_PROBE = r"""#include "{src}"
+extern "C" int f32_probe(const bf16* diags, const int* offsets, int ndiag, const float* X,
+                         float* Y, float* part, float* G, int k, long long n, int h, int T,
+                         int max_blocks, int probe, int device, cudaStream_t stream) {{
+  Diags dg{{}};
+  if (k <= 16 || k > 32 || !make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (probe) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+F32_PROBES = ((0, "as built"), (1, "no far X"), (2, "no Gram"), (4, "no Y stores"),
+              (8, "no window refills"), (16, "far X read at its use"), (6, "no Gram, no Y stores"),
+              (7, "no far X, no Gram, no Y stores"), (15, "nothing but the near SpMM"),
+              (32, "products straight into the double sums"))
+
+# Probe builds of rows 23h and 24h (csrc/block_stencil.cu bs_tma<4, 6,
+# PROBE>) on their plan at m = 48: parts switched off.
+BT_PROBE = r"""#include "{src}"
+extern "C" int bt_probe(const void* blocks, const int* offsets, int nd, int bs, const float* X,
+                        float* Y, int k, long long ns, int h, int groups, int ki, int stages,
+                        int max_blocks, int probe, int device, cudaStream_t stream) {{
+  Launch p;
+  cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, nullptr, false, k, k, ns, 1,
+                                h, groups, ki, 2, max_blocks, 2);
+  if (err != cudaSuccess) return err;
+  p.stages = stages;
+  if (bs > 4 || ki != 6 || !tma_launch_ok(p, blocks, stages)) return cudaErrorInvalidValue;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (probe) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+BT_PROBES = ((0, "as built"), (1, "no arithmetic"), (3, "no arithmetic, no far X"),
+             (5, "no arithmetic, no coefficients"), (9, "no arithmetic, no window"),
+             (15, "no arithmetic, no copies"))
+
+
+def _probe_lib(src: str, name: str, tmp: Path):
+    import ctypes
+    import subprocess
+
+    from blockcg_tpu_torch.ops import _native
+
+    probe = tmp / f"{name}.cu"
+    probe.write_text(src)
+    lib = tmp / f"lib{name}.so"
+    built = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-shared", str(probe), "-o",
+                            str(lib)], capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{built.stdout}{built.stderr}")
+    return getattr(ctypes.CDLL(str(lib)), name)
+
+
+def storage_variants(torch, dev, tmp: Path):
+    """Rows 2m and 2 at (32, 128^3) on each (h, T) of ``stencil_mma_f32``
+    that fits the card, the plan's marked, then row 2m on its plan in the
+    probe builds of ``F32_PROBES``; row 23h on ``dirac_gauged_matrix(32)``
+    at k = 12 on each ring depth and split of ``bs_tma``'s schedule that
+    fits, the plan's marked, then in the probe builds of ``BT_PROBES``; each
+    with its bound (``storage_cases``) and checksums."""
+    import ctypes
+
+    from blockcg_tpu_torch.ops import _native, stencil
+    from blockcg_tpu_torch.ops import block_stencil as bsk
+    from blockcg_tpu_torch.problems import dirac_gauged_matrix, laplacian_dia
+
+    idx, p = dev.index, _native.ptr
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    IP = ctypes.POINTER(ctypes.c_int)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 32
+    lap = laplacian_dia((128,) * 3, device=dev)
+    n, nd = lap.n, len(lap.offsets)
+    nnz = int(torch.count_nonzero(lap.diags))
+    X = torch.randn((k, n), generator=gen, device=dev)
+    Y = torch.empty_like(X)
+    G = torch.empty((k, k), device=dev)
+    part = torch.empty((_native.MAX_BLOCKS, k, k), device=dev)
+    coffs = (ctypes.c_int * nd)(*(int(o) % n for o in lap.offsets))
+    dist = sorted({min(o % n, n - o % n) for o in lap.offsets})
+    for D, row in ((lap.diags.bfloat16(), "2m"), (lap.diags, "2")):
+        fn = "bcg_stencil_spmm_bf16d" if row == "2m" else "bcg_stencil_spmm"
+        bnd = max((D.element_size() * nd * n + 8 * k * n + 4 * k * k) / 3.35e12,
+                  (2 * k * nnz + 2 * k * k * n) / 67e12) * 1e6
+        plan = stencil.stencil_mma_f32_plan(tuple(lap.offsets), n, k, cap, sms, D.element_size())
+        for T in stencil.MMA_TILES:
+            for h in sorted({0} | {-(-d // 4) * 4 for d in dist}):
+                if (T > max(128, n // sms) or stencil.mma_f32_smem_bytes(
+                        k, nd, h, T, D.element_size()) + stencil.MMA_STATIC_BYTES > cap):
+                    continue
+                mark = " (plan)" if (h, T) == (plan.h, plan.T) else ""
+                yield (f"variant row {row} stencil_mma_f32 h={h} T={T}{mark} (32, 128^3)",
+                       lambda D=D, fn=fn, h=h, T=T: (_native.launch(
+                           "variant", fn, dev, p(D), coffs, nd, p(X), p(Y), p(part), p(G), k, n,
+                           h, T, min(-(-n // T), _native.MAX_BLOCKS)), Y, G)[1:], bnd)
+    cases = "".join(f"    case {v}: return launch_mma_f32<bf16, 32, {v}>(diags, dg, ndiag, X, Y, "
+                    "part, G, k, n, h, T, max_blocks, device, stream);\n" for v, _ in F32_PROBES)
+    fn = _probe_lib(F32_PROBE.format(src=_native.CSRC / "stencil.cu", cases=cases), "f32_probe",
+                    tmp)
+    fn.argtypes, fn.restype = [P, IP, I, P, P, P, P, I, L, I, I, I, I, I, P], I
+    D = lap.diags.bfloat16()
+    plan = stencil.stencil_mma_f32_plan(tuple(lap.offsets), n, k, cap, sms, 2)
+    for v, what in F32_PROBES:
+        def run(v=v):
+            rc = fn(D.data_ptr(), coffs, nd, X.data_ptr(), Y.data_ptr(), part.data_ptr(),
+                    G.data_ptr(), k, n, plan.h, plan.T, min(-(-n // plan.T), _native.MAX_BLOCKS),
+                    v, idx, stream)
+            if rc != 0:
+                raise RuntimeError(f"f32 stencil probe {v} failed: {rc}")
+            return Y, G
+        yield (f"probe row 2m stencil_mma_f32 {what} h={plan.h} T={plan.T} (32, 128^3)", run,
+               None)
+    del X, Y, lap, D
+    op = dirac_gauged_matrix(32, m=0.5, device=dev)
+    k = 12
+    b16, offs = op.blocks.bfloat16(), tuple(int(o) % op.blocks.shape[-1] for o in op.offsets)
+    del op
+    nd, bs, _, ns = b16.shape
+    m = bs * k
+    Xm = torch.randn((m, ns), generator=gen, device=dev)
+    Ym = torch.empty_like(Xm)
+    boffs = (ctypes.c_int * nd)(*offs)
+    bnd = max((b16.numel() * 2 + 8 * m * ns) / 3.35e12,
+              2 * k * int(torch.count_nonzero(b16)) / 67e12) * 1e6
+    plan = bsk.block_stencil_plan(offs, ns, bs, k, False, cap, sms, csize=2, tma=True)
+    for kw in ({},) + tuple({"stages": s} for s in bsk.TMA_STAGES) + (
+            {"groups": 1, "h": 0}, {"groups": 4}, {"h": 0}):
+        vplan = bsk.block_stencil_plan(offs, ns, bs, k, False, cap, sms, csize=2, tma=True, **kw)
+        if not vplan.tma or (kw and vplan == plan):
+            continue
+
+        def run(vplan=vplan):
+            _native.launch("variant", "bcg_block_stencil_tma", dev, p(b16), boffs, nd, bs, p(Xm),
+                           p(Ym), k, k, ns, vplan.h, vplan.groups, vplan.ki, vplan.stages,
+                           vplan.blocks)
+            return Ym
+        name = "row 23h plan" if not kw else f"variant row 23h {kw}"
+        yield f"{name} bs_tma (48, 32^4) [{vplan.describe()}]", run, bnd
+    cases = "".join(f"    case {v}: return launch_tma<4, 6, {v}>(p, max_blocks, device, "
+                    "stream);\n" for v, _ in BT_PROBES)
+    fn = _probe_lib(BT_PROBE.format(src=_native.CSRC / "block_stencil.cu", cases=cases),
+                    "bt_probe", tmp)
+    fn.argtypes, fn.restype = [P, IP, I, I, P, P, I, L, I, I, I, I, I, I, I, P], I
+    for v, what in BT_PROBES:
+        def run(v=v):
+            rc = fn(b16.data_ptr(), boffs, nd, bs, Xm.data_ptr(), Ym.data_ptr(), k, ns, plan.h,
+                    plan.groups, plan.ki, plan.stages, plan.blocks, v, idx, stream)
+            if rc != 0:
+                raise RuntimeError(f"block-stencil TMA probe {v} failed: {rc}")
+            return Ym
+        yield f"probe row 23h bs_tma {what} (48, 32^4) [{plan.describe()}]", run, None
 
 
 def bf16_variants(torch, dev):
@@ -1267,10 +1528,12 @@ def rows89(fused, what, M1, M2, M3, W, P, X):
 
 
 def sweep_cases(torch, dev):
-    """The stencil at (32, 128^3) and (32, 64^3), with and without its Gram,
-    launched directly at each (h, T) whose shared memory fits, beside the
-    one ``stencil_plan`` picks: how the window's halo and tile width trade
-    L2 traffic against blocks per SM."""
+    """The stencil at (32, 128^3) and (32, 64^3), without its Gram
+    (``stencil_spmm``, planned by ``stencil_plan``) and with it
+    (``stencil_mma_f32``, ``stencil_mma_f32_plan``), launched directly at
+    each (h, T) whose shared memory fits, beside the one the plan picks: how
+    the window's halo and tile width trade L2 traffic against blocks per
+    SM."""
     import ctypes
 
     from blockcg_tpu_torch.ops import _native, stencil
@@ -1285,10 +1548,16 @@ def sweep_cases(torch, dev):
         Y = torch.empty_like(X)
         offs = (ctypes.c_int * nd)(*(o % n for o in op.offsets))
         for gram in (False, True):
-            plan = stencil.stencil_plan(op.offsets, n, k, gram, cap, sms)
+            if gram:
+                plan = stencil.stencil_mma_f32_plan(tuple(op.offsets), n, k, cap, sms)
+                tiles = stencil.MMA_F32_TILES
+            else:
+                plan = stencil.stencil_plan(tuple(op.offsets), n, k, cap, sms)
+                tiles = (128, 256, 512)
             for h in (0, 4, edge):
-                for T in (128, 256, 512):
-                    nbytes = stencil.smem_bytes(k, nd, h, T, gram)
+                for T in tiles:
+                    nbytes = (stencil.mma_f32_smem_bytes(k, nd, h, T) + stencil.MMA_STATIC_BYTES
+                              if gram else stencil.smem_bytes(k, nd, h, T))
                     if nbytes > cap:
                         continue
                     mb = min(-(-n // T), _native.MAX_BLOCKS)
@@ -1479,6 +1748,9 @@ def main() -> None:
                          "kernels at (32, 256^3)")
     ap.add_argument("--short", action="store_true",
                     help="time only rows 10, 10b and 14, whose event medians time the host")
+    ap.add_argument("--storage", action="store_true",
+                    help="time only rows 1m, 2m, 2, 22h, 23h and 23 at [storage]'s shapes, "
+                         "with L2 flushed")
     ap.add_argument("--only", default=None,
                     help="time only the cases whose name matches this regular expression")
     args = ap.parse_args()
@@ -1490,13 +1762,15 @@ def main() -> None:
     sys.path.insert(0, str(Path(args.root).resolve()))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    flush = l2_flush(torch, dev) if args.short else None
+    flush = l2_flush(torch, dev) if args.short or args.storage else None
     with tempfile.TemporaryDirectory() as tmp:
         todo = (chain(bf16_variants(torch, dev), bf16_mma_variants(torch, dev),
                       sm_probe_cases(torch, dev, Path(tmp)),
                       cols_probe_cases(torch, dev, Path(tmp)))
                 if args.bf16 and args.variants
                 else bf16_cases(torch, dev) if args.bf16
+                else storage_variants(torch, dev, Path(tmp)) if args.storage and args.variants
+                else storage_cases(torch, dev) if args.storage
                 else short_cases(torch, dev) if args.short
                 else sweep_cases(torch, dev) if args.sweep
                 else const_hop_variants(torch, dev, Path(tmp), args.only)
@@ -1514,11 +1788,13 @@ def main() -> None:
             out = fn()
             torch.cuda.synchronize()
             cold = {}
-            if flush is not None:
-                us, shares = cold_us(torch, fn, args.reps, Path(tmp), flush)
-                cold = {"device_us_cold": us, "kernels_us_cold": shares}
-            print(json.dumps({"root": args.root, "case": name,
-                              "device_us": device_us(torch, fn, args.reps, Path(tmp)),
+            if flush is not None and bound and bound[0] is not None:
+                us, shares, got, want = cold_us(torch, fn, args.reps, Path(tmp), flush)
+                cold = {"device_us_cold": us, "kernels_us_cold": shares, "records_cold": got,
+                        "records_expected": want}
+            warm, records = device_us(torch, fn, args.reps, Path(tmp))
+            print(json.dumps({"root": args.root, "case": name, "device_us": warm,
+                              "records": records, "reps": args.reps,
                               **cold, "host_us": host_us(torch, fn, args.reps),
                               "bound_us": bound[0] if bound else bound_us(name),
                               "checksums": checksums(torch, out), **plan}), flush=True)
