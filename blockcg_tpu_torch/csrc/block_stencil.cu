@@ -118,6 +118,7 @@ struct Offsets {
   // of sites sharing a choice, the axis extent L and the wrap phase; fs, the
   // wrap's signed shift in [-h, h] where the diagonal is near (s != kFar).
   int fw[kMaxDiags], fst[kMaxDiags], fL[kMaxDiags], fph[kMaxDiags], fs[kMaxDiags];
+  int fgl[kMaxDiags];  // bs_tma: log2 of the sites of a far slab's granule (tma_launch_ok)
 };
 
 // Row stride of a window of T + 2h sites: plus 4, so it is 4 mod 8 words for
@@ -151,6 +152,9 @@ struct Launch {
   long long ns;
   int nd, bs, k, h, T, stages;
   bool far, vec, cvec;  // vec: 16-byte copies of X; cvec: of the coefficients
+  // bs_tma (tma_launch_ok): a folded diagonal near (read at each site's
+  // shift) or far in granules narrower than T
+  bool fold_near, fold_granules;
 };
 
 // PROBE: bits that switch parts of the kernel off, for timing probes only
@@ -455,7 +459,7 @@ cudaError_t make_launch(Launch* p, const void* blocks, const int* offsets, int n
       (csize == 2 && (ns % 2 != 0 || reinterpret_cast<size_t>(blocks) % 4 != 0)))
     return cudaErrorInvalidValue;
   *p = Launch{blocks, X, Y, part, {}, row_map(merged != 0, bs, ks), ns, nd, bs, k, h,
-              kBsThreads / groups, stages, false, false, false};
+              kBsThreads / groups, stages, false, false, false, false, false};
   for (int d = 0; d < nd; ++d) {
     const int o = offsets[d];
     if (o < 0 || o >= ns) return cudaErrorInvalidValue;
@@ -480,76 +484,134 @@ cudaError_t make_launch(Launch* p, const void* blocks, const int* offsets, int n
   return cudaSuccess;
 }
 
-// ---- bf16 blocks on the merged view, staged by TMA tensor boxes (bs_tma)
+// ---- the merged view staged by TMA tensor boxes (bs_tma)
 //
 // Rows 23h and 24h (block_stencil_spmm_m_t on bf16 blocks, no Gram, no
-// folds). bs_spmm's copies set its pace at the rate of the warps that issue
-// them (see the header: 8 producer warps of 16-byte cp.async, 1.57 ms at
-// 32^4, m = 48, for 2.42 GB of L2->SM copies, about 1.5 TB/s). Here one
-// elected lane issues each stage as TMA tensor copies, one request a slab,
-// that complete on the slot's `full` mbarrier (expect_tx): the window (a
-// box of m rows by T + 2h sites of the f32 field), each diagonal's bs^2
-// coefficient planes at the tile's sites (a box of a 3-D map over (ns, bs^2,
-// nd) of the bf16 blocks; sites past ns zero-filled) and, for a far
-// diagonal, its slab of m rows by T sites. The field is one 3-D map over
-// (ns, k, bs) with the merged view's strides, so a box lays the staged rows
-// in the order b * k + i, also on a launch of a chunk of right-hand sides.
-// A box lays its rows at its own width: the window's rows are T + 2h apart
-// (the lanes of a warp read consecutive sites of a row, conflict-free). A
-// box that would cross ns (the windows of the first and last tiles, a far
-// slab whose (i0 + o) mod ns + T passes ns), and a far slab whose offset is
-// not a multiple of 4 (its box would not start on a 16-byte boundary), is
-// copied instead by the producer warp's lanes with cp.async into the same
-// layout (4-byte copies there), before lane 0 posts the stage.
+// folds) and the folded rows 24f and 24fg (fold=, f32 or bf16 blocks, with
+// or without the Gram, which gram.cu takes). bs_spmm's copies set its pace
+// at the rate of the warps that issue them (see the header: 8 producer
+// warps of 16-byte cp.async, 1.57 ms at 32^4, m = 48, for 2.42 GB of L2->SM
+// copies, about 1.5 TB/s). Here one elected lane issues each stage as TMA
+// tensor copies that complete on the slot's `full` mbarrier (expect_tx):
+// the window (a box of m rows by T + 2h sites of the f32 field), each
+// diagonal's bs^2 coefficient planes at the tile's sites (a box of a 3-D
+// map over (ns, bs^2, nd) of the blocks, f32 or bf16; sites past ns
+// zero-filled) and, for a far diagonal, its slab of m rows by T sites. The field is one 3-D map over (ns, k, bs)
+// with the merged view's strides, so a box lays the staged rows in the
+// order b * k + i, also on a launch of a chunk of right-hand sides. A box
+// lays its rows at its own width: the window's rows are T + 2h apart (the
+// lanes of a warp read consecutive sites of a row, conflict-free).
+//
+// Folds. A near folded diagonal (the x-axis pair at 32^4: +-1 and -+31 in h
+// = 32) reads the window at each site's own shift, as bs_spmm does. A far
+// folded diagonal's source changes only every st = |o| sites, so a tile of
+// T sites is at most T / g runs of g sites that share one (g = T where the
+// runs are whole tiles, st % T == 0; else the largest power of two dividing
+// st): its slab is laid granule by granule, each granule one box of g sites
+// from its own source, its m rows g apart. At 32^4 on tiles of 128 sites:
+// the y pair (st = 32) four boxes a slab, the z and t pairs (st = 1,024 and
+// 32,768) one; with the window and nine coefficient boxes, 22 requests a
+// tile.
+//
+// A box that would cross ns (the windows of the first and last tiles, a far
+// slab or granule whose source runs past ns), start off a 16-byte boundary
+// (an offset that is not a multiple of 4: such a box raised an illegal
+// instruction on an H100), or land off a 128-byte boundary is copied
+// instead by the producer warp's lanes with cp.async into the same layout,
+// committed and waited on before lane 0 posts the stage.
+//
 // The consumer warps and their arithmetic are bs_spmm's (apply_diag, in the
-// order d, then b, then a), so Y keeps its bits: bitwise the f32 kernel on
-// the blocks lifted to f32. The one producer warp frees shared memory and
-// issue slots for a deeper ring (kBtMaxStages): at 32^4, m = 48 with 5
-// stages 0.765 ms against bs_spmm's 1.58 on an H100 (2, 3 and 4 stages:
-// 0.964, 0.812, 0.766), the copies still setting the pace (without the
-// arithmetic 0.518; PERF.md section 6).
+// order d, then b, then a; a folded diagonal's terms where its bulk
+// partner's were), so Y keeps its bits: bitwise bs_spmm's on the same
+// blocks, and bf16 blocks bitwise the f32 kernel on the blocks lifted to
+// f32. A folded launch's Gram (row 24fg) is gram.cu's on X and the stored Y:
+// at 32^4, m = 48 the apply and gram.cu took 1.165 ms on an H100 where the
+// Gram fused here (bs_spmm's VecGram beside the consumers, its Y tile
+// taking a slot's room) took 1.275, both before the producer's lighter
+// stages below (0.973 since, with gram.cu). The one producer warp frees
+// shared memory and issue slots for a deeper ring (kBtMaxStages): at 32^4,
+// m = 48 on bf16 blocks with 5 stages 0.750-0.765 ms against bs_spmm's 1.58
+// on an H100 (2, 3 and 4 stages: 0.964, 0.812, 0.766), the copies still
+// setting the pace (without the arithmetic 0.518); folded, 0.748 ms on f32
+// blocks (4 stages) and 0.751 on bf16 (5) against bs_spmm's 1.398-1.400 and
+// 1.389-1.400. The producer's per-stage latency is on that path: a stage's
+// sources in 64-bit arithmetic and its granules by division cost the folded
+// rows 0.19 ms (0.939 against 0.748; PERF.md section 6).
 constexpr int kBtMaxStages = 6;
 
 __host__ __device__ inline long long round128(long long b) { return (b + 127) / 128 * 128; }
 
-// Bytes of one bs_tma ring slot: the bs^2 bf16 coefficient planes of T
-// sites (rounded up to 128 bytes, a box's alignment) and, with any far
-// diagonal, m f32 rows of X.
-__host__ __device__ inline long long bt_slot_bytes(int bs, int m, int T, bool far) {
-  return round128(2LL * bs * bs * T) + (far ? 4LL * m * T : 0);
+// Bytes of one bs_tma ring slot: the bs^2 coefficient planes of T sites of
+// csize-byte elements (rounded up to 128 bytes, a box's alignment) and, with
+// any far diagonal, m f32 rows of X.
+__host__ __device__ inline long long bt_slot_bytes(int bs, int m, int T, bool far, int csize) {
+  return round128(1LL * csize * bs * bs * T) + (far ? 4LL * m * T : 0);
 }
 
 // Shared bytes of a bs_tma launch: two windows of m rows by T + 2h sites
 // (each rounded up to 128 bytes), `stages` slots and 128 bytes to align the
 // boxes; mirrored by ops/block_stencil.py tma_smem_bytes.
 __host__ __device__ inline long long bt_smem_bytes(int bs, int m, int T, int h, int stages,
-                                                   bool far) {
-  return 2 * round128(4LL * m * (T + 2 * h)) + stages * bt_slot_bytes(bs, m, T, far) + 128;
+                                                   bool far, int csize) {
+  return 2 * round128(4LL * m * (T + 2 * h)) + stages * bt_slot_bytes(bs, m, T, far, csize) +
+         128;
 }
 
 struct BtMaps {
-  CUtensorMap win, far, coef;  // the field's window and slab boxes; the blocks' planes
+  // the field's window, far slab and far granule boxes; the blocks' planes
+  CUtensorMap win, far, farg, coef;
 };
+
+// The source site of site a on far diagonal d: (a + w) mod ns on a folded
+// diagonal's wrap phase, (a + o) mod ns elsewhere (a < ns + T; 32-bit: ns <
+// 2^31 - 2 T, tma_launch_ok).
+template <bool FOLD>
+__device__ __forceinline__ int bt_source(const Launch& p, int d, int a) {
+  const int ns = static_cast<int>(p.ns);
+  int j = a + p.offs.o[d];
+  if constexpr (FOLD) {
+    const int st = p.offs.fst[d];
+    if (st > 0 && (a / st) % p.offs.fL[d] == p.offs.fph[d]) j = a + p.offs.fw[d];
+  }
+  if (j >= ns) j -= ns;
+  if (j >= ns) j -= ns;
+  return j;
+}
+
+// Whether a far granule of 1 << gl sites from source site j goes by TMA: its
+// box starts on a 16-byte boundary of the row, has a width of whole 16
+// bytes, lands 128-byte aligned in the slot (m << gl floats a granule) and
+// stays within ns.
+__device__ __forceinline__ bool bt_boxed(const Launch& p, int j, int gl) {
+  return (j & 3) == 0 && gl >= 2 && ((p.bs * p.k) << gl) % 32 == 0 && j + (1 << gl) <= p.ns;
+}
 
 // The producer warp's share of stage j of the tile at i0: j = 0 the window
 // into win, j = 1 + d diagonal d's coefficient planes (and far slab) into
-// the slot. Boxes that lie in [0, ns) by TMA (lane 0, after it posts their
-// bytes on bar), the others by the lanes' cp.async, landed before lane 0
-// arrives.
-template <int PROBE>
+// the slot. A far slab is laid granule by granule (d's 1 << fgl sites, one
+// run of a folded diagonal's sites that share their source: T unfolded or
+// where the runs are whole tiles), granule q's staged rows b * k + i at (q m
+// + b k + i) << fgl. Boxes that lie in [0, ns) by TMA (lane 0, after it
+// posts their bytes on bar), the others by the lanes' cp.async, landed
+// before lane 0 arrives. FOLD: the launch has folded diagonals (else every
+// far slab is one granule and no source depends on the site).
+template <int PROBE, typename CE, bool FOLD>
 __device__ __forceinline__ void produce_tma(const Launch& p, const BtMaps& maps, float* win,
-                                            char* slot, int cbytes, int j, long long i0,
+                                            char* slot, int cbytes, int j, int i0,
                                             unsigned long long* bar, int lane) {
-  const int m = p.bs * p.k, T = p.T, W = T + 2 * p.h;
+  const int m = p.bs * p.k, T = p.T, W = T + 2 * p.h, ns = static_cast<int>(p.ns);
   unsigned tx = 0;
-  bool win_box = false, coef_box = false, far_box = false, copied = false;
-  long long c0 = 0;
+  bool win_box = false, coef_box = false, far = false, copied = false;
+  int c0 = 0, src0 = 0;
+  bool box0 = false;
   const int d = j - 1;
+  const int gl = j > 0 ? p.offs.fgl[d] : 0, ng = FOLD ? T >> gl : 1;  // far slab granules
+  float* xs = reinterpret_cast<float*>(slot + cbytes);
   if (j == 0) {
     if (!(PROBE & kProbeNoWindow)) {
-      c0 = (i0 - p.h) % p.ns;  // the window's first site, in [0, ns)
-      if (c0 < 0) c0 += p.ns;
-      win_box = c0 + W <= p.ns;
+      c0 = i0 - p.h;  // the window's first site, in [0, ns)
+      if (c0 < 0) c0 += ns;
+      win_box = c0 + W <= ns;
       if (win_box) {
         tx += 4u * m * W;
       } else {
@@ -559,19 +621,27 @@ __device__ __forceinline__ void produce_tma(const Launch& p, const BtMaps& maps,
     }
   } else {
     coef_box = !(PROBE & kProbeNoCoef);
-    if (coef_box) tx += 2u * p.bs * p.bs * T;
-    if (p.offs.s[d] == kFar && !(PROBE & kProbeNoFar)) {
-      c0 = i0 + p.offs.o[d];
-      if (c0 >= p.ns) c0 -= p.ns;
-      // A box starts on a 16-byte boundary of the row (an offset that is a
-      // multiple of 4) and stays within ns.
-      far_box = p.offs.o[d] % 4 == 0 && c0 + T <= p.ns;
-      if (far_box) {
+    if (coef_box) tx += static_cast<unsigned>(sizeof(CE)) * p.bs * p.bs * T;
+    far = p.offs.s[d] == kFar && !(PROBE & kProbeNoFar);
+    if (far && ng == 1) {  // one box of the tile's T sites
+      src0 = bt_source<FOLD>(p, d, i0);
+      box0 = bt_boxed(p, src0, gl);
+      if (box0) {
         tx += 4u * m * T;
       } else {
-        float* xs = reinterpret_cast<float*>(slot + cbytes);
-        const bool vec = p.vec && p.offs.o[d] % 4 == 0;
-        for (int r = 0; r < m; ++r) copy_row(xs + r * T, x_row(p, r), c0, T, p.ns, vec, lane);
+        const bool vec = p.vec && (src0 & 3) == 0;
+        for (int r = 0; r < m; ++r) copy_row(xs + r * T, x_row(p, r), src0, T, p.ns, vec, lane);
+        copied = true;
+      }
+    }
+    for (int q = 0; FOLD && far && ng > 1 && q < ng; ++q) {
+      const int src = bt_source<FOLD>(p, d, i0 + (q << gl));
+      if (bt_boxed(p, src, gl)) {
+        tx += (4u * m) << gl;
+      } else {
+        const bool vec = p.vec && (src & 3) == 0 && gl >= 2;
+        for (int r = 0; r < m; ++r)
+          copy_row(xs + ((q * m + r) << gl), x_row(p, r), src, 1 << gl, p.ns, vec, lane);
         copied = true;
       }
     }
@@ -584,25 +654,32 @@ __device__ __forceinline__ void produce_tma(const Launch& p, const BtMaps& maps,
   __syncwarp();
   if (lane == 0) {
     mbar_expect_tx(bar, tx);
-    if (win_box) tma_box3(win, &maps.win, static_cast<int>(c0), 0, 0, bar);
-    if (coef_box) tma_box3(slot, &maps.coef, static_cast<int>(i0), 0, d, bar);
-    if (far_box) tma_box3(slot + cbytes, &maps.far, static_cast<int>(c0), 0, 0, bar);
+    if (win_box) tma_box3(win, &maps.win, c0, 0, 0, bar);
+    if (coef_box) tma_box3(slot, &maps.coef, i0, 0, d, bar);
+    if (box0) tma_box3(xs, &maps.far, src0, 0, 0, bar);
+    for (int q = 0; FOLD && far && ng > 1 && q < ng; ++q) {
+      const int src = bt_source<FOLD>(p, d, i0 + (q << gl));
+      if (bt_boxed(p, src, gl)) tma_box3(xs + ((q * m) << gl), &maps.farg, src, 0, 0, bar);
+    }
   }
 }
 
-// BS >= bs spins, KI right-hand sides a consumer thread, as bs_spmm's plain
-// apply; warps 0-7 consume, warp 8 produces. Barriers: full[s], the slot's
-// stage has landed (lane 0's expect_tx arrival and the TMA bytes); empty[s]
-// and wfree[b] as bs_spmm's.
-template <int BS, int KI, int PROBE = 0>
+// BS >= bs spins, KI right-hand sides a consumer thread, as bs_spmm's
+// apply and its folds; CE: the blocks' element; FOLD: a folded launch (an
+// unfolded one compiles without the fold checks and the granule loop: on
+// its path they cost 2-7% at 32^4, m = 48 on an H100, where the producer's
+// per-stage latency sets the pace). Warps 0-7 consume, warp 8 produces.
+// Barriers: full[s], the slot's stage has landed (lane 0's expect_tx
+// arrival and the TMA bytes); empty[s] and wfree[b] as bs_spmm's.
+template <int BS, int KI, typename CE, bool FOLD, int PROBE = 0>
 __global__ void __launch_bounds__(kBsThreads + 32, 1)
     bs_tma(const __grid_constant__ BtMaps maps, const Launch p) {
   extern __shared__ __align__(16) float smem[];  // 2 windows | ring
   __shared__ unsigned long long full[kBtMaxStages], empty[kBtMaxStages], wfree[2];
   const int m = p.bs * p.k, T = p.T, W = T + 2 * p.h;
   const int wbytes = static_cast<int>(round128(4LL * m * W));
-  const int cbytes = static_cast<int>(round128(2LL * p.bs * p.bs * T));
-  const int slot_bytes = static_cast<int>(bt_slot_bytes(p.bs, m, T, p.far));
+  const int cbytes = static_cast<int>(round128(1LL * sizeof(CE) * p.bs * p.bs * T));
+  const int slot_bytes = static_cast<int>(bt_slot_bytes(p.bs, m, T, p.far, sizeof(CE)));
   char* base = reinterpret_cast<char*>(smem) + ((128 - (smem_u32(smem) & 127)) & 127);
   char* ring = base + 2 * wbytes;
   const int per_tile = p.nd + 1;
@@ -630,8 +707,9 @@ __global__ void __launch_bounds__(kBsThreads + 32, 1)
           if (j == 0 && lt >= 2) mbar_wait(&wfree[lt & 1], (lt / 2 - 1) & 1);  // tile lt - 2 too
         }
         __syncwarp();
-        produce_tma<PROBE>(p, maps, reinterpret_cast<float*>(base + (lt & 1) * wbytes),
-                           ring + sl * slot_bytes, cbytes, j, t * T, &full[sl], lane);
+        produce_tma<PROBE, CE, FOLD>(p, maps, reinterpret_cast<float*>(base + (lt & 1) * wbytes),
+                               ring + sl * slot_bytes, cbytes, j, static_cast<int>(t * T),
+                               &full[sl], lane);
       }
     }
   } else {  // consumers
@@ -648,11 +726,24 @@ __global__ void __launch_bounds__(kBsThreads + 32, 1)
           const int d = j - 1;
           if (d == 0) zero(acc);
           const char* sp = ring + sl * slot_bytes;
-          const int sh = p.offs.s[d];
-          const float* xs = sh != kFar ? wt + p.h + sh + c
-                                       : reinterpret_cast<const float*>(sp + cbytes) + c;
-          apply_diag(acc, p, xs, sh != kFar ? W : T, reinterpret_cast<const bf16*>(sp) + c, T,
-                     i0g);
+          int sh = p.offs.s[d];
+          if (FOLD && p.fold_near && sh != kFar) {
+            const int st = p.offs.fst[d];  // 32-bit: s < ns + T < 2^31
+            if (st > 0 && (static_cast<int>(s) / st) % p.offs.fL[d] == p.offs.fph[d])
+              sh = p.offs.fs[d];  // a near folded diagonal's wrap site
+          }
+          const float* xs = wt + p.h + sh + c;
+          int lx = W;
+          if (sh == kFar) {
+            xs = reinterpret_cast<const float*>(sp + cbytes) + c;
+            lx = T;
+            if (FOLD && p.fold_granules) {  // granule c >> gl, its rows 1 << gl apart
+              const int gl = p.offs.fgl[d];
+              xs += ((((c >> gl) * m) << gl) + (c & ((1 << gl) - 1))) - c;
+              lx = 1 << gl;
+            }
+          }
+          apply_diag(acc, p, xs, lx, reinterpret_cast<const CE*>(sp) + c, T, i0g);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[sl]);  // this warp is done with the slot
@@ -673,10 +764,14 @@ __global__ void __launch_bounds__(kBsThreads + 32, 1)
   }
 }
 
-template <int BS, int KI, int PROBE = 0>
+template <int BS, int KI, typename CE, bool FOLD, int PROBE = 0>
 cudaError_t launch_tma(const Launch& p, int max_blocks, int device, cudaStream_t stream) {
   const int m = p.bs * p.k;
-  const size_t smem = bt_smem_bytes(p.bs, m, p.T, p.h, p.stages, p.far);
+  const size_t smem = bt_smem_bytes(p.bs, m, p.T, p.h, p.stages, p.far, sizeof(CE));
+  // The far granule (tma_launch_ok): the least one (T without a folded far
+  // diagonal whose runs are not whole tiles).
+  int gf = p.T;
+  for (int d = 0; d < p.nd; ++d) gf = min(gf, 1 << p.offs.fgl[d]);
   BtMaps maps{};
   // The field as (ns, k, bs) with the merged view's strides (row b * ks + i:
   // the spin stride ks rows, the RHS stride one row); the blocks as (ns,
@@ -688,10 +783,12 @@ cudaError_t launch_tma(const Launch& p, int max_blocks, int device, cudaStream_t
                               static_cast<cuuint32_t>(p.k), static_cast<cuuint32_t>(p.bs)};
   const cuuint32_t fbox[3] = {static_cast<cuuint32_t>(p.T), static_cast<cuuint32_t>(p.k),
                               static_cast<cuuint32_t>(p.bs)};
+  const cuuint32_t gbox[3] = {static_cast<cuuint32_t>(max(gf, 4)), static_cast<cuuint32_t>(p.k),
+                              static_cast<cuuint32_t>(p.bs)};
   const cuuint64_t cdims[3] = {static_cast<cuuint64_t>(p.ns),
                                static_cast<cuuint64_t>(p.bs * p.bs),
                                static_cast<cuuint64_t>(p.nd)};
-  const cuuint64_t cstrides[2] = {2ULL * p.ns, 2ULL * p.ns * p.bs * p.bs};
+  const cuuint64_t cstrides[2] = {sizeof(CE) * p.ns, sizeof(CE) * p.ns * p.bs * p.bs};
   const cuuint32_t cbox[3] = {static_cast<cuuint32_t>(p.T),
                               static_cast<cuuint32_t>(p.bs * p.bs), 1};
   cudaError_t err = encode_tmap(&maps.win, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.X, fdims,
@@ -700,10 +797,15 @@ cudaError_t launch_tma(const Launch& p, int max_blocks, int device, cudaStream_t
     err = encode_tmap(&maps.far, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.X, fdims, fstrides, fbox,
                       CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err == cudaSuccess)
-    err = encode_tmap(&maps.coef, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p.blocks, cdims, cstrides,
-                      cbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = encode_tmap(&maps.farg, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.X, fdims, fstrides, gbox,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = encode_tmap(&maps.coef,
+                      sizeof(CE) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                      3, p.blocks, cdims, cstrides, cbox, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
-  auto kernel = bs_tma<BS, KI, PROBE>;
+  auto kernel = bs_tma<BS, KI, CE, FOLD, PROBE>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
@@ -714,14 +816,32 @@ cudaError_t launch_tma(const Launch& p, int max_blocks, int device, cudaStream_t
   return cudaGetLastError();
 }
 
-// Whether a merged bf16-block launch without the Gram or folds can run
-// bs_tma: 16-byte aligned field and blocks, ns % 8 == 0 (16-byte rows of
-// both), sites that fit a box coordinate, a window box of at most 256 sites
-// within ns, boxes of at most 256 rows and spins, and a ring it holds.
-inline bool tma_launch_ok(const Launch& p, const void* blocks, int stages) {
-  return aligned16(p.X) && aligned16(blocks) && p.ns % 8 == 0 &&
-         p.ns < (1LL << 31) && p.T + 2 * p.h <= 256 && p.T + 2 * p.h <= p.ns && p.k <= 256 &&
-         stages <= kBtMaxStages;
+// Whether a merged launch can run bs_tma: 16-byte aligned field and blocks,
+// ns % 8 == 0 (16-byte rows of both), sites that fit a box coordinate, a
+// window box of at most 256 sites within ns, boxes of at most 256 rows and
+// spins, and a ring it holds. Sets each far slab's granule (its log2, fgl):
+// T, or on a far folded diagonal whose runs of st sites are not whole
+// tiles, the least over those of the largest power of two dividing st (one
+// box shape, the `farg` map's, serves them all; it divides each one's
+// runs). T is a power of two (256 / groups).
+inline bool tma_launch_ok(Launch* p, const void* blocks, int stages) {
+  if (!(aligned16(p->X) && aligned16(blocks) && p->ns % 8 == 0 && p->ns < (1LL << 30) &&
+        p->T + 2 * p->h <= 256 && p->T + 2 * p->h <= p->ns && p->k <= 256 &&
+        stages <= kBtMaxStages))
+    return false;
+  int gf = p->T;
+  for (int d = 0; d < p->nd; ++d) {
+    const int st = p->offs.fst[d];
+    if (st > 0 && p->offs.s[d] == kFar) gf = min(gf, st & -st);
+    if (st > 0 && p->offs.s[d] != kFar) p->fold_near = true;
+  }
+  for (int d = 0; d < p->nd; ++d) {
+    const int st = p->offs.fst[d];
+    const int g = st > 0 && p->offs.s[d] == kFar && (st & -st) < p->T ? gf : p->T;
+    p->offs.fgl[d] = __builtin_ctz(static_cast<unsigned>(g));
+  }
+  p->fold_granules = gf < p->T;
+  return true;
 }
 
 }  // namespace
@@ -774,25 +894,32 @@ extern "C" int bcg_block_stencil_spmm(const void* blocks, int csize, const int* 
 #undef BCG_BS
 }
 
-// bf16 blocks on the merged view without the Gram or folds (rows 23h, 24h),
-// on bs_tma: bcg_block_stencil_spmm's arguments for such a launch, h,
-// groups, ki and stages from ops/block_stencil.py block_stencil_plan with
-// tma=True (T + 2h <= 256, up to kBtMaxStages stages); X and the blocks
-// 16-byte aligned, ns % 8 == 0.
-extern "C" int bcg_block_stencil_tma(const void* blocks, const int* offsets, int nd, int bs,
-                                     const float* X, float* Y, int k, int ks, long long ns,
-                                     int h, int groups, int ki, int stages, int max_blocks,
-                                     int device, cudaStream_t stream) {
+// The merged view on bs_tma without the Gram (rows 23h and 24h: bf16
+// blocks, no folds; rows 24f and 24fg's apply: folded, f32 or bf16 blocks):
+// bcg_block_stencil_spmm's arguments for such a launch, h, groups, ki and
+// stages from ops/block_stencil.py block_stencil_plan with tma=True (T + 2h
+// <= 256, up to kBtMaxStages stages); X and the blocks 16-byte aligned, ns
+// % 8 == 0.
+extern "C" int bcg_block_stencil_tma(const void* blocks, int csize, const int* offsets,
+                                     const int* fold, int nd, int bs, const float* X, float* Y,
+                                     int k, int ks, long long ns, int h, int groups, int ki,
+                                     int stages, int max_blocks, int device,
+                                     cudaStream_t stream) {
   Launch p;
   // make_launch checks the rest with bs_spmm's ring depth; the stages are checked here
   cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, nullptr, false, k, ks, ns, 1,
-                                h, groups, ki, 2, max_blocks, 2);
+                                h, groups, ki, 2, max_blocks, csize, fold);
   if (err != cudaSuccess) return err;
   p.stages = stages;
-  if (stages < 2 || !tma_launch_ok(p, blocks, stages)) return cudaErrorInvalidValue;
+  // unfolded launches take bf16 blocks alone
+  if (stages < 2 || (fold == nullptr && csize != 2) || !tma_launch_ok(&p, blocks, stages))
+    return cudaErrorInvalidValue;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-#define BCG_BT(BS, KI) return launch_tma<BS, KI>(p, max_blocks, device, stream)
+#define BCG_BT(BS, KI)                                                                  \
+  return fold == nullptr ? launch_tma<BS, KI, bf16, false>(p, max_blocks, device, stream) \
+         : csize == 2    ? launch_tma<BS, KI, bf16, true>(p, max_blocks, device, stream)  \
+                         : launch_tma<BS, KI, float, true>(p, max_blocks, device, stream)
   if (bs <= 4) {
     switch (ki) {
       case 1: BCG_BT(4, 1);

@@ -54,8 +54,10 @@
 // runs stencil_mma below: the same sums, the Gram X Y^T of the unrounded f32
 // sums on the tensor cores, Y split into three exact bf16 pieces (its design
 // and bound are described there), as the reference's Pallas kernel takes the
-// Gram from its f32 accumulator. Without the Gram (row 1b) stencil_spmm
-// runs.
+// Gram from its f32 accumulator. Without the Gram (rows 1b and 1x) a bf16
+// field runs stencil_ring below, the reference's ring of planes cut to fit
+// an SM, where its plan finds a stride that takes every offset, else
+// stencil_spmm.
 //
 // Mixed pairs (the reference's gate takes bf16 or f32 for the diagonals and
 // the field independently): bcg_stencil_spmm_bf16d takes bf16 diagonals with
@@ -237,6 +239,377 @@ cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX*
   const bool vec = n % kVec<EX> == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
   kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, k, n, h, T, vec);
   return cudaGetLastError();
+}
+
+// ---- a bf16 field without the Gram on a ring of planes (stencil_ring)
+//
+// Rows 1b and 1x (bf16 X and Y; bf16 or f32 diagonals), the reference's
+// ring schedule (blockcg_tpu/ops/stencil_ring.py) cut to fit an SM. Each
+// offset decomposes as o = m S + r with |r| <= h and |m| <= M, S a stride
+// that divides n (at (32, 256^3) S = 65,536, h = 256: 0, +-1 and +-256 are
+// near, +-65,536 one plane away; at 128^3 S = 16,384, h = 128). A work item
+// owns a patch of P = kRingCols columns [c0, c0 + P), a group of R rows
+// and a run of planes j; it walks the columns c0 + j S + [0, P) plane by
+// plane. Its ring holds 2M + 2 slots in shared memory: the planes j - M ..
+// j + M that step j reads and the one being filled. A slot holds the R rows
+// of X at columns c0 + j S - h .. c0 + j S + P + h (mod n), so a term of
+// offset m S + r reads slot j + m at its column + h + r, and no X is read
+// from L2 at its use. Each slot is copied once, as one TMA tensor box of a
+// 3-D view of X ((granule, granule index, row): boxes of at most 256 in
+// each dimension and rows that start on 16-byte boundaries); the windows
+// that cross 0 or n (the first patch's first plane, the last patch's last)
+// are copied by the producer warp's lanes. Beside the X slots, two buffers
+// take the coefficients of the step's plane, one box of the (256, n / 256,
+// ndiag) view of the diagonals.
+//
+// Pipeline: one producer warp and 8 consumer warps. Stage q (the block's
+// q-th step) brings X of plane j + M and the coefficients of plane j (the
+// item's first stage also the planes j - M .. j + M - 1) and completes on
+// full[q % 2] (lane 0 posts its bytes, expect_tx); it is issued once step q
+// - 2 is done (empty[q % 2]), which freed the slot and the coefficient
+// buffer it takes, so up to two stages are in flight while a step computes.
+// An item's first stage also waits for the step before it: the ring
+// restarts with each item.
+//
+// Consumers: thread t computes the patch's columns 4t .. 4t + 3 for the R
+// rows of its group, the sums in registers, each term added with fmaf in the
+// order d = 0..ndiag-1 from operands lifted exactly to f32 (stencil_spmm's
+// chain, so Y keeps its bits), Y rounded to bf16 and stored 8 bytes a row.
+// X comes from the slots in 8-byte reads where the shift h + r is a multiple
+// of 4, else in 4-byte reads of the aligned words holding the four values
+// (two for an even shift, three for an odd one), one warp-uniform branch a
+// diagonal.
+//
+// The host plan (ops/stencil.py stencil_ring_plan) picks S, h, M, R and the
+// planes an item walks (enough items to fill the SMs, the ring's refills
+// of the first planes counted) by L2->SM traffic, and sends a launch where
+// no S fits (no stride that divides n and takes every offset, a window
+// wider than the boxes take, a ragged or unaligned field) to stencil_spmm.
+// Traffic at (32, 256^3) on bf16 diagonals: X (P + 2h) / P = 1.5 times (R =
+// 16 rows of 32), the diagonals once per row group: about 2.1 GB of
+// L2->SM copies against stencil_spmm's 5 X = 5.4 GB.
+//
+// Bound: bytes, 2,382 MB at (32, 256^3) with bf16 diagonals (0.711 ms at
+// 3.35 TB/s), 327 MB at (32, 128^3) with f32 diagonals (0.098 ms). On an
+// H100 with L2 flushed: 0.852 ms (83% of the bound) against stencil_spmm's
+// 2.46-2.48 at 256^3, and 0.124 (79%) against 0.287-0.289 at 128^3 (PERF.md
+// section 6).
+constexpr int kRingThreads = 256;                 // consumer threads, 4 columns each
+constexpr int kRingCols = 4 * kRingThreads;       // P: the columns of a patch
+constexpr int kRingMaxSlots = 8;                  // 2M + 2 slots: M <= 3
+constexpr int kRingBox = 256;                     // the largest dimension of a TMA box
+
+struct Ring {
+  int m[kMaxDiags], r[kMaxDiags];  // o_d = m S + r (mod n)
+  long long n, S;
+  int ndiag, k, h, M, slots, npl, len, npatch, ngrp, items, g;
+};
+
+struct RingMaps {
+  CUtensorMap x, d;  // X as (g, n / g, k); the diagonals as (256, n / 256, ndiag)
+};
+
+__host__ __device__ inline long long ring_round128(long long b) { return (b + 127) / 128 * 128; }
+__host__ __device__ inline int ring_span(int h) { return kRingCols + 2 * h; }
+
+// Bytes of a slot of R rows (rounded up to 128, a box's alignment) and of a
+// coefficient buffer of dsize-byte elements.
+__host__ __device__ inline long long ring_slot_bytes(int R, int h) {
+  return ring_round128(2LL * R * ring_span(h));
+}
+__host__ __device__ inline long long ring_coef_bytes(int ndiag, int dsize) {
+  return ring_round128(1LL * dsize * ndiag * kRingCols);
+}
+
+// Shared bytes of a launch: the slots, two coefficient buffers, 128 bytes to
+// align the boxes and 128 past the last buffer, which an odd shift's last
+// 4-byte read may touch; mirrored by ops/stencil.py ring_smem_bytes.
+__host__ __device__ inline long long ring_smem_bytes(int R, int h, int slots, int ndiag,
+                                                     int dsize) {
+  return slots * ring_slot_bytes(R, h) + 2 * ring_coef_bytes(ndiag, dsize) + 256;
+}
+
+// The item's patch, first row, first plane and planes: items run patch
+// fastest, then row group, then run of planes, so the blocks in flight
+// together share planes (their halos and coefficients meet in L2).
+struct RingItem {
+  long long c0;
+  int r0, j0, len;
+};
+
+__device__ __forceinline__ RingItem ring_item(const Ring& rg, int R, int it) {
+  const int patch = it % rg.npatch, rest = it / rg.npatch;
+  RingItem a;
+  a.c0 = static_cast<long long>(patch) * kRingCols;
+  a.r0 = (rest % rg.ngrp) * R;
+  a.j0 = (rest / rg.ngrp) * rg.len;
+  a.len = min(rg.len, rg.npl - a.j0);
+  return a;
+}
+
+// The first column of the window of the item's plane j0 + v (v may be
+// negative or pass the last plane: the planes are taken mod npl); may lie
+// below 0 or end past n, where the window wraps.
+__device__ __forceinline__ long long ring_window(const Ring& rg, const RingItem& a, int v) {
+  int jr = a.j0 + v;  // in [-M, npl + M): no division on the producer's path
+  while (jr < 0) jr += rg.npl;
+  while (jr >= rg.npl) jr -= rg.npl;
+  return a.c0 + jr * rg.S - rg.h;
+}
+
+// f32 of the lower and upper bf16 of a word.
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Four consecutive bf16 of a staged row from element 4 q + SH, lifted to f32
+// (p: the 8-byte aligned element 4 q).
+template <int SH>
+__device__ __forceinline__ void ring_quad(float (&x)[4], const bf16* p) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(p);
+  if constexpr (SH == 0) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    x[0] = bf_lo(u.x); x[1] = bf_hi(u.x); x[2] = bf_lo(u.y); x[3] = bf_hi(u.y);
+  } else if constexpr (SH == 2) {
+    const unsigned a = w[1], b = w[2];
+    x[0] = bf_lo(a); x[1] = bf_hi(a); x[2] = bf_lo(b); x[3] = bf_hi(b);
+  } else {
+    constexpr int i = SH == 1 ? 0 : 1;
+    const unsigned a = w[i], b = w[i + 1], c = w[i + 2];
+    x[0] = bf_hi(a); x[1] = bf_lo(b); x[2] = bf_hi(b); x[3] = bf_lo(c);
+  }
+}
+
+// One diagonal's terms for the thread's R x 4 sums: all R rows' reads first,
+// then the FMAs (coefficient c[e] for column e).
+template <int R, int SH>
+__device__ __forceinline__ void ring_diag(float (&acc)[R][4], const float (&c)[4],
+                                          const bf16* xs, int ld) {
+  float x[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) ring_quad<SH>(x[r], xs + r * ld);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(c[e], x[r][e], acc[r][e]);
+}
+
+// The producer warp's share of stage q: the windows of the item's planes v0
+// .. v1 into their slots (by TMA, or by the lanes where a window wraps) and
+// the coefficients of plane s into buffer q % 2.
+template <int R, typename ED>
+__device__ __forceinline__ void ring_produce(const RingMaps& maps, const Ring& rg,
+                                             const RingItem& a, const bf16* X, char* slots,
+                                             char* coefs, int s, int v0, int v1, unsigned q,
+                                             unsigned long long* bar, int lane) {
+  const int span = ring_span(rg.h);
+  const int sbytes = static_cast<int>(ring_slot_bytes(R, rg.h));
+  unsigned tx = static_cast<unsigned>(sizeof(ED)) * rg.ndiag * kRingCols;
+  bool copied = false;
+  for (int v = v0; v <= v1; ++v) {
+    const long long w0 = ring_window(rg, a, v);
+    if (w0 >= 0 && w0 + span <= rg.n) {
+      tx += 2u * R * span;
+      continue;
+    }
+    bf16* dst = reinterpret_cast<bf16*>(slots + ((v + rg.M) % rg.slots) * sbytes);
+    const int q8 = span / 8;  // 16-byte chunks a row: w0 and n are multiples of 8
+    for (int e = lane; e < R * q8; e += 32) {
+      const int r = e / q8, c = 8 * (e - r * q8);
+      long long j = w0 + c;
+      if (j < 0) j += rg.n;
+      if (j >= rg.n) j -= rg.n;
+      const bool in = a.r0 + r < rg.k;
+      cp_async16(dst + r * span + c, in ? X + (a.r0 + r) * rg.n + j : X, in);
+    }
+    copied = true;
+  }
+  if (copied) {
+    cp_async_commit();  // wait_group waits only on committed groups
+    cp_async_wait<0>();
+    fence_proxy_async();  // before later TMA copies into the same bytes
+  }
+  __syncwarp();
+  if (lane == 0) {
+    mbar_expect_tx(bar, tx);
+    for (int v = v0; v <= v1; ++v) {
+      const long long w0 = ring_window(rg, a, v);
+      if (w0 >= 0 && w0 + span <= rg.n)
+        tma_box3(slots + ((v + rg.M) % rg.slots) * sbytes, &maps.x, 0,
+                 static_cast<int>(w0 / rg.g), a.r0, bar);
+    }
+    const long long c = ring_window(rg, a, s) + rg.h;  // the step's plane's first column
+    tma_box3(coefs + (q & 1) * ring_coef_bytes(rg.ndiag, sizeof(ED)), &maps.d, 0,
+             static_cast<int>(c / 256), 0, bar);
+  }
+}
+
+// R rows a work item (8 or 16); ED: the diagonals' element. Warps 0-7
+// consume, warp 8 produces.
+template <typename ED, int R>
+__global__ void __launch_bounds__(kRingThreads + 32, 1)
+    stencil_ring(const __grid_constant__ RingMaps maps, const Ring rg, const bf16* __restrict__ X,
+                 bf16* __restrict__ Y) {
+  extern __shared__ __align__(16) float smem[];  // slots | 2 coefficient buffers
+  __shared__ unsigned long long full[2], empty[2];
+  const int span = ring_span(rg.h);
+  const int sbytes = static_cast<int>(ring_slot_bytes(R, rg.h));
+  const int cbytes = static_cast<int>(ring_coef_bytes(rg.ndiag, sizeof(ED)));
+  char* slots = reinterpret_cast<char*>(smem) + ((128 - (smem_u32(smem) & 127)) & 127);
+  char* coefs = slots + rg.slots * sbytes;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&full[b], 1);
+      mbar_init(&empty[b], kRingThreads / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= kRingThreads) {  // the producer warp
+    unsigned q = 0;
+    for (int it = blockIdx.x; it < rg.items; it += gridDim.x) {
+      const RingItem a = ring_item(rg, R, it);
+      for (int s = 0; s < a.len; ++s, ++q) {
+        if (lane == 0) {
+          if (q >= 2) mbar_wait(&empty[q & 1], ((q - 2) >> 1) & 1);  // step q - 2 is done
+          if (s == 0 && q >= 1)  // the ring restarts: step q - 1 is done too
+            mbar_wait(&empty[(q - 1) & 1], ((q - 1) >> 1) & 1);
+        }
+        __syncwarp();
+        ring_produce<R, ED>(maps, rg, a, X, slots, coefs, s, s == 0 ? -rg.M : s + rg.M,
+                                   s + rg.M, q, &full[q & 1], lane);
+      }
+    }
+  } else {  // consumers
+    const int t = threadIdx.x;
+    unsigned q = 0;
+    for (int it = blockIdx.x; it < rg.items; it += gridDim.x) {
+      const RingItem a = ring_item(rg, R, it);
+      for (int s = 0; s < a.len; ++s, ++q) {
+        mbar_wait(&full[q & 1], (q >> 1) & 1);  // the stage has landed
+        const ED* cf = reinterpret_cast<const ED*>(coefs + (q & 1) * cbytes) + 4 * t;
+        const int s0 = s % rg.slots;  // the slot of plane s - M
+        float acc[R][4];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+        for (int d = 0; d < rg.ndiag; ++d) {
+          const int m = rg.m[d];
+          const float4 c4 = load4(cf + d * kRingCols);
+          const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+          const int p = rg.h + rg.r[d] + 4 * t;  // >= 0: |r| <= h
+          int sl = s0 + m + rg.M;  // the slot of plane s + m
+          if (sl >= rg.slots) sl -= rg.slots;
+          const bf16* xs = reinterpret_cast<const bf16*>(slots + sl * sbytes) + (p & ~3);
+          switch (p & 3) {  // (h + r) mod 4: uniform across the block
+            case 0: ring_diag<R, 0>(acc, c, xs, span); break;
+            case 1: ring_diag<R, 1>(acc, c, xs, span); break;
+            case 2: ring_diag<R, 2>(acc, c, xs, span); break;
+            default: ring_diag<R, 3>(acc, c, xs, span); break;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[q & 1]);  // this warp is done with the stage
+        const long long col = ring_window(rg, a, s) + rg.h + 4 * t;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (a.r0 + r < rg.k)
+            store4(Y + (a.r0 + r) * rg.n + col, make_float4(acc[r][0], acc[r][1], acc[r][2],
+                                                            acc[r][3]));
+      }
+    }
+  }
+}
+
+// The ring of a launch: each offset's (m, r) for the stride S (|r| <= h,
+// |m| <= M), the item count; false where an offset does not decompose, S
+// does not divide n into planes of whole patches, or the ring or its boxes
+// do not fit their limits. segs: runs of planes a patch's walk is cut into.
+inline bool make_ring(Ring* rg, const int* offsets, int ndiag, int k, long long n, long long S,
+                      int h, int M, int R, int segs) {
+  if (ndiag < 1 || ndiag > kMaxDiags || k < 1 || k > 64 || n < 1 || S < kRingCols ||
+      S % kRingCols != 0 || n % S != 0 || n / S < 2 || n >= (1LL << 31) || h < 0 ||
+      h % 8 != 0 || 2LL * h >= S || M < 1 || 2 * M + 2 > kRingMaxSlots || segs < 1 ||
+      segs > n / S)
+    return false;
+  rg->n = n;
+  rg->S = S;
+  rg->ndiag = ndiag;
+  rg->k = k;
+  rg->h = h;
+  rg->M = M;
+  rg->slots = 2 * M + 2;
+  rg->npl = static_cast<int>(n / S);
+  rg->len = (rg->npl + segs - 1) / segs;
+  rg->npatch = static_cast<int>(S / kRingCols);
+  rg->ngrp = (k + R - 1) / R;
+  rg->items = rg->npatch * rg->ngrp * ((rg->npl + rg->len - 1) / rg->len);
+  // the boxes' granule: the largest power of two up to 256 dividing h and P
+  // (S is a multiple of P), so every window starts on one
+  rg->g = kRingBox;
+  while (h % rg->g != 0) rg->g /= 2;
+  if (rg->g < 8 || ring_span(h) / rg->g > kRingBox) return false;
+  for (int d = 0; d < ndiag; ++d) {
+    const long long o = offsets[d];
+    if (o < 0 || o >= n) return false;
+    const long long so = o <= n / 2 ? o : o - n;  // signed, in (-n/2, n/2]
+    const long long m = so >= 0 ? (so + S / 2) / S : -((-so + S / 2) / S);
+    const long long r = so - m * S;
+    if (r < -h || r > h || m < -M || m > M) return false;
+    rg->m[d] = static_cast<int>(m);
+    rg->r[d] = static_cast<int>(r);
+  }
+  return true;
+}
+
+template <typename ED, int R>
+cudaError_t launch_ring(const ED* diags, const Ring& rg, const bf16* X, bf16* Y, int max_blocks,
+                        int device, cudaStream_t stream) {
+  RingMaps maps{};
+  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(rg.g),
+                               static_cast<cuuint64_t>(rg.n / rg.g),
+                               static_cast<cuuint64_t>(rg.k)};
+  const cuuint64_t xstrides[2] = {2ULL * rg.g, 2ULL * rg.n};
+  const cuuint32_t xbox[3] = {static_cast<cuuint32_t>(rg.g),
+                              static_cast<cuuint32_t>(ring_span(rg.h) / rg.g),
+                              static_cast<cuuint32_t>(R)};
+  const cuuint64_t ddims[3] = {256, static_cast<cuuint64_t>(rg.n / 256),
+                               static_cast<cuuint64_t>(rg.ndiag)};
+  const cuuint64_t dstrides[2] = {256ULL * sizeof(ED), static_cast<cuuint64_t>(rg.n) * sizeof(ED)};
+  const cuuint32_t dbox[3] = {256, kRingCols / 256, static_cast<cuuint32_t>(rg.ndiag)};
+  cudaError_t err = encode_tmap(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, X, xdims, xstrides,
+                                xbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = encode_tmap(&maps.d,
+                      sizeof(ED) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                      3, diags, ddims, dstrides, dbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  auto kernel = stencil_ring<ED, R>;
+  const size_t smem = ring_smem_bytes(R, rg.h, rg.slots, rg.ndiag, sizeof(ED));
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(kernel, kRingThreads + 32, smem, device, rg.items, max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kRingThreads + 32, smem, stream>>>(maps, rg, X, Y);
+  return cudaGetLastError();
+}
+
+template <typename ED>
+int ring_entry(const ED* diags, const int* offsets, int ndiag, const bf16* X, bf16* Y, int k,
+               long long n, long long S, int h, int M, int R, int segs, int max_blocks,
+               int device, cudaStream_t stream) {
+  Ring rg{};
+  if (max_blocks < 1 || (R != 8 && R != 16) ||
+      !make_ring(&rg, offsets, ndiag, k, n, S, h, M, R, segs) || !aligned16(X) ||
+      !aligned16(Y) || !aligned16(diags))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return R == 8 ? launch_ring<ED, 8>(diags, rg, X, Y, max_blocks, device, stream)
+                : launch_ring<ED, 16>(diags, rg, X, Y, max_blocks, device, stream);
 }
 
 // ---- bf16 fields with the Gram on the tensor cores (stencil_mma)
@@ -1632,6 +2005,27 @@ extern "C" int bcg_stencil_spmm_bf16x(const float* diags, const int* offsets, in
                                       cudaStream_t stream) {
   return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                        stream);
+}
+
+// A bf16 field without the Gram on the ring of planes (stencil_ring): Y's k
+// <= 64 rows from X's; offsets as above, S, h, M, R (8 or 16 rows a work
+// item) and segs (runs a patch's planes are cut into) from ops/stencil.py
+// stencil_ring_plan; X, Y and the diagonals 16-byte aligned. bf16 diagonals.
+extern "C" int bcg_stencil_ring_bf16(const bf16* diags, const int* offsets, int ndiag,
+                                     const bf16* X, bf16* Y, int k, long long n, long long S,
+                                     int h, int M, int R, int segs, int max_blocks, int device,
+                                     cudaStream_t stream) {
+  return ring_entry(diags, offsets, ndiag, X, Y, k, n, S, h, M, R, segs, max_blocks, device,
+                    stream);
+}
+
+// The same with f32 diagonals.
+extern "C" int bcg_stencil_ring_bf16x(const float* diags, const int* offsets, int ndiag,
+                                      const bf16* X, bf16* Y, int k, long long n, long long S,
+                                      int h, int M, int R, int segs, int max_blocks, int device,
+                                      cudaStream_t stream) {
+  return ring_entry(diags, offsets, ndiag, X, Y, k, n, S, h, M, R, segs, max_blocks, device,
+                    stream);
 }
 
 // A bf16 field's Gram above one launch (stencil_mma_cols): Y's k <= 64 rows

@@ -53,8 +53,9 @@ Dispatch rule, shared by every wrapper in ``ops/``:
 Every rule reads the dtypes before any launch; nothing is tried and retried.
 
 ``launches`` counts kernel launches per wrapper; the wrappers add to it where
-they launch and nowhere else. A bf16 variant counts under its own name, the
-wrapper's with ``[bf16]`` after it (``px_update[bf16]``); the mixed pairs as
+they launch and nowhere else. ``functions`` counts the same launches by the
+library function each called, which tells a wrapper's routes apart. A bf16
+variant counts under its own name, the wrapper's with ``[bf16]`` after it (``px_update[bf16]``); the mixed pairs as
 ``[bf16 coeffs]`` (bf16 diagonals or blocks, f32 field) and ``[bf16 field]``
 (f32 diagonals, bf16 field); the stencil's launches that take a column block
 of a bf16 field's Gram above one launch as ``[bf16, wide]`` (``[bf16 field,
@@ -85,10 +86,15 @@ MAX_BLOCKS = 1024  # grid cap; also the row count of the Gram partials
 MAX_K = 64  # widest register tile the kernels are built for: rows per launch
 
 launches: Counter = Counter()
+# Launches by library function, beside ``launches``: where a wrapper has
+# several kernels (the DIA stencil's ring and window routes, the block
+# stencil's TMA and cp.async rings), the route each launch took.
+functions: Counter = Counter()
 
 
 def reset_launches() -> None:
     launches.clear()
+    functions.clear()
 
 
 def nblocks(n: int) -> int:
@@ -340,7 +346,8 @@ def library() -> ctypes.CDLL:
                                         I, I, L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, I, IP, IP, I, I, P, P, P, P, I, I, L, I, I,
                                            I, I, I, I, I, P]
-    lib.bcg_block_stencil_tma.argtypes = [P, IP, I, I, P, P, I, I, L, I, I, I, I, I, I, P]
+    lib.bcg_block_stencil_tma.argtypes = [P, I, IP, IP, I, I, P, P, I, I, L, I, I, I, I, I,
+                                          I, P]
     lib.bcg_block_stencil_tma.restype = I
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]
@@ -362,6 +369,9 @@ def library() -> ctypes.CDLL:
     for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x"):
         getattr(lib, fn).argtypes = lib.bcg_stencil_spmm.argtypes
         getattr(lib, fn).restype = I
+    for fn in (lib.bcg_stencil_ring_bf16, lib.bcg_stencil_ring_bf16x):
+        fn.argtypes = [P, IP, I, P, P, I, L, L, I, I, I, I, I, I, P]
+        fn.restype = I
     for fn in (lib.bcg_stencil_mma_cols_bf16, lib.bcg_stencil_mma_cols_bf16x):
         fn.argtypes = [P, IP, I, P, P, P, P, P, I, I, I, L, I, I, I, I, P]
         fn.restype = I
@@ -415,3 +425,4 @@ def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
         msg = lib.bcg_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed: error {rc} ({msg})")
     launches[name] += 1
+    functions[fn_name] += 1

@@ -45,7 +45,9 @@ launch on bf16 blocks without the Gram or folds (rows 23h, 24h) runs the
 same arithmetic on TMA tensor boxes (``bs_tma``: one request a window, a
 diagonal's coefficient planes or a far slab, issued by one producer warp;
 ``block_stencil_plan(..., tma=True)``) where TMA can map its operands
-(``_tma_ok``) and the schedule fits.
+(``_tma_ok``) and the schedule fits; so does a folded launch on f32 or bf16
+blocks (rows 24f, 24fg, whose Gram ``fused.gram`` takes), a far folded
+diagonal's slab as one box a run of sites that share their source.
 """
 
 from __future__ import annotations
@@ -121,19 +123,38 @@ TMA_MAX_BOX = 256  # sites of a window box: T + 2h <= 256
 TMA_BARRIER_BYTES = 8 * (2 * max(TMA_STAGES) + 2)
 
 
-def tma_smem_bytes(bs: int, k: int, T: int, h: int, stages: int, far: bool) -> int:
+def tma_smem_bytes(bs: int, k: int, T: int, h: int, stages: int, far: bool,
+                   csize: int = 2) -> int:
     """Dynamic shared bytes of a bs_tma launch (``csrc/block_stencil.cu``
     bt_smem_bytes): two f32 windows of m = bs * k rows and T + 2h sites,
-    ``stages`` ring slots of the bs^2 bf16 coefficient planes of T sites and,
-    with any far diagonal, m f32 rows of X (each window and each slot's
-    planes rounded up to 128 bytes, a box's alignment), and 128 bytes to
-    align the boxes."""
+    ``stages`` ring slots of the bs^2 coefficient planes of T sites
+    (``csize``-byte elements) and, with any far diagonal, m f32 rows of X
+    (each window and each slot's planes rounded up to 128 bytes, a box's
+    alignment), and 128 bytes to align the boxes."""
     m = bs * k
 
     def r128(b):
         return -(-b // 128) * 128
     return (2 * r128(4 * m * (T + 2 * h))
-            + stages * (r128(2 * bs * bs * T) + (4 * m * T if far else 0)) + 128)
+            + stages * (r128(csize * bs * bs * T) + (4 * m * T if far else 0)) + 128)
+
+
+def tma_far_granules(T: int, steps) -> list[int]:
+    """Sites of each far slab's granule in ``bs_tma``
+    (``csrc/block_stencil.cu`` tma_launch_ok), for the far diagonals' runs
+    ``steps`` (None unfolded): T, or on a folded diagonal whose runs of st
+    sites are not whole tiles, the least over those of the largest power of
+    two dividing st (one box shape serves them)."""
+    g = [T if not st else min(T, st & -st) for st in steps]
+    least = min(g, default=T)
+    return [T if v == T else least for v in g]
+
+
+def tma_far_boxes(m: int, T: int, g: int) -> int:
+    """TMA boxes of one far slab of a tile laid in granules of g sites: one a
+    granule, where a granule's box is whole 16 bytes wide and lands 128-byte
+    aligned (``bt_boxed``), else none (the lanes copy it)."""
+    return T // g if g % 4 == 0 and m * g % 32 == 0 else 0
 
 
 class BlockStencilPlan(NamedTuple):
@@ -145,7 +166,10 @@ class BlockStencilPlan(NamedTuple):
     L2->SM traffic of X per site in units of X, ``(T + 2h) / T`` plus one
     per far diagonal, its grid (one block an SM, at most one a tile), also
     the row count of the Gram partials, and whether it runs on TMA tensor
-    boxes (``tma``: ``bs_tma``, else ``bs_spmm``'s cp.async ring)."""
+    boxes (``tma``: ``bs_tma``, else ``bs_spmm``'s cp.async ring) and then
+    the TMA requests a tile issues at most (``boxes``: the window, each
+    diagonal's coefficients, each far slab or granule of a folded one;
+    those that would cross ns are copied instead)."""
     h: int
     T: int
     groups: int
@@ -157,13 +181,14 @@ class BlockStencilPlan(NamedTuple):
     traffic: float
     blocks: int
     tma: bool = False
+    boxes: int = 0
 
     def describe(self) -> str:
         gram = {True: "fused", False: "gram.cu", None: "none"}[self.fused_gram]
         return (f"h={self.h} T={self.T} groups={self.groups} ki={self.ki} "
                 f"stages={self.stages} near={sum(self.near)}/{len(self.near)} gram={gram} "
                 f"smem={self.smem_bytes} traffic={self.traffic:g} blocks={self.blocks}"
-                + (" tma" if self.tma else ""))
+                + (f" tma boxes/tile={self.boxes}" if self.tma else ""))
 
 
 def _split(bs: int, k: int, groups: int | None) -> tuple[int, int]:
@@ -201,15 +226,19 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
     kernel then reads each site's X from the window at its own shift; a far
     one stages each site's X from its own source. ``csize``: bytes of a
     block element (2 on bf16 blocks). ``h``, ``groups`` and ``stages`` pin those
-    choices (the timing tool's variants). ``tma``: a merged launch on bf16
-    blocks without the Gram or folds whose field and blocks TMA can map
-    (``_tma_ok``); it takes ``bs_tma``'s schedule (``tma_smem_bytes``, halos
-    with T + 2h at most ``TMA_MAX_BOX`` and ns, depths ``TMA_STAGES``) where
-    one fits with no more L2->SM traffic than ``bs_spmm``'s, else
-    ``bs_spmm``'s. At 32^4, m = 48 on an H100 it ran in half ``bs_spmm``'s
-    time at equal traffic, but pinned to narrower halos (more far slabs,
-    many copied by the one producer warp) 1.8 to 3 times slower than
-    ``bs_spmm``: PERF.md."""
+    choices (the timing tool's variants). ``tma``: a merged launch whose
+    field and blocks TMA can map (``_tma_ok``), on bf16 blocks without the
+    Gram or folds, or folded (``wraps``) on either blocks, with or without
+    the Gram (then from ``fused.gram``: at 32^4, m = 48 the apply and
+    ``gram`` took 1.165 ms on an H100, the Gram fused in ``bs_tma`` 1.275,
+    PERF.md); it takes ``bs_tma``'s schedule
+    (``tma_smem_bytes``, halos with T + 2h at most ``TMA_MAX_BOX`` and ns,
+    depths ``TMA_STAGES``) where one fits with no more L2->SM traffic than
+    ``bs_spmm``'s, else ``bs_spmm``'s. Unfolded launches on f32 blocks, and
+    unfolded ones with the Gram, keep ``bs_spmm``. At 32^4, m = 48 on an H100
+    it ran in half ``bs_spmm``'s time at equal traffic, but pinned to
+    narrower halos (more far slabs, many copied by the one producer warp) 1.8
+    to 3 times slower than ``bs_spmm``: PERF.md."""
     if not 1 <= bs * k <= MAX_ROWS:
         raise ValueError(f"block stencil: one launch takes bs * k <= {MAX_ROWS} rows, "
                          f"got {bs} x {k}")
@@ -218,9 +247,10 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
     for d, w in wraps:
         dist[d] = max(dist[d], min(int(w) % ns, ns - int(w) % ns))
     halos = sorted({0} | {-(-d // 4) * 4 for d in dist}) if h is None else [h]
-    if tma and not with_gram and not wraps:
-        cp = block_stencil_plan(offsets, ns, bs, k, False, smem_cap, sm_count, h=h,
-                                groups=groups, stages=None, csize=csize)
+    if tma and (wraps or (csize == 2 and not with_gram)):
+        cp = block_stencil_plan(offsets, ns, bs, k, with_gram, smem_cap, sm_count, h=h,
+                                groups=groups, stages=None, csize=csize, wraps=wraps)
+        steps = {int(d): min(offs[d], ns - offs[d]) for d, _ in wraps}  # a fold's run: |o|
         g, ki = _split(bs, k, groups)
         T = THREADS // g
         best, best_key = None, None
@@ -229,16 +259,20 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
                 if T + 2 * hh > min(TMA_MAX_BOX, ns) or st not in TMA_STAGES:
                     break
                 far = [d > hh for d in dist]
-                nbytes = tma_smem_bytes(bs, k, T, hh, st, any(far))
+                nbytes = tma_smem_bytes(bs, k, T, hh, st, any(far), csize)
                 if nbytes + TMA_BARRIER_BYTES > smem_cap:
                     break
                 traffic = (T + 2 * hh) / T + sum(far)
                 key = (traffic, -st, hh)
                 if best_key is None or key < best_key:
                     best_key = key
-                    best = BlockStencilPlan(hh, T, g, ki, st, tuple(not f for f in far), None,
-                                            nbytes, traffic,
-                                            min(-(-ns // T), sm_count, _native.MAX_BLOCKS), True)
+                    boxes = 1 + len(dist) + sum(
+                        tma_far_boxes(bs * k, T, gr) for gr in tma_far_granules(
+                            T, [steps.get(d) for d, f in enumerate(far) if f]))
+                    best = BlockStencilPlan(hh, T, g, ki, st, tuple(not f for f in far),
+                                            False if with_gram else None, nbytes, traffic,
+                                            min(-(-ns // T), sm_count, _native.MAX_BLOCKS),
+                                            True, boxes)
         if best is not None and best.traffic <= cp.traffic:
             return best
     depths = STAGES if stages is None else (stages,)
@@ -334,19 +368,20 @@ def block_stencil_v_plain(blocks, offsets, Xv):
 
 def _tma_ok(blocks, X, merged: bool) -> bool:
     """Whether TMA can map a launch's operands (``csrc/block_stencil.cu``
-    tma_launch_ok): the merged view on bf16 blocks, ns % 8 == 0 (16-byte rows
-    of both) and 16-byte aligned storage."""
+    tma_launch_ok): the merged view on f32 or bf16 blocks, ns % 8 == 0
+    (16-byte rows of both) and 16-byte aligned storage. Which launches take
+    it is ``block_stencil_plan``'s choice."""
     ns = blocks.shape[-1]
-    return (merged and blocks.dtype == torch.bfloat16 and ns % 8 == 0 and ns < 2 ** 31
-            and blocks.data_ptr() % 16 == 0 and X.data_ptr() % 16 == 0)
+    return (merged and blocks.dtype in (torch.float32, torch.bfloat16) and ns % 8 == 0
+            and ns < 2 ** 30 and blocks.data_ptr() % 16 == 0 and X.data_ptr() % 16 == 0)
 
 
 def launch_plans(blocks, offsets, k: int, with_gram: bool, device, name: str = "block stencil",
                  fold=(), tma: bool = False):
     """``[((j0, j1), plan), ...]``: the chunks of right-hand sides a field of
     k runs as, one launch each, and the plan of each (the Gram fused only on a
-    field of one chunk; ``tma``: the operands suit ``bs_tma``, which a launch
-    without a fused Gram or folds takes where its schedule fits)."""
+    field of one chunk; ``tma``: the operands suit ``bs_tma``, which the
+    plan takes where it may and its schedule fits)."""
     nd, bs, _, ns = blocks.shape
     chunks = _native.row_chunks(k, _rhs_width(bs, nd, name))
     offs = tuple(int(o) % ns for o in offsets)
@@ -355,7 +390,7 @@ def launch_plans(blocks, offsets, k: int, with_gram: bool, device, name: str = "
     gram = with_gram and len(chunks) == 1
     return [((j0, j1), block_stencil_plan(offs, ns, bs, j1 - j0, gram, cap, sms,
                                           csize=blocks.element_size(), wraps=wraps,
-                                          tma=tma and not gram)) for j0, j1 in chunks]
+                                          tma=tma)) for j0, j1 in chunks]
 
 
 def label(name: str, blocks, fold=()) -> str:
@@ -390,16 +425,17 @@ def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str
     G = None
     for (j0, j1), plan in launch_plans(blocks, offsets, k, with_gram, X.device, name, fold,
                                        _tma_ok(blocks, X, merged)):
-        if plan.tma:
-            _native.launch(label(name, blocks, fold), "bcg_block_stencil_tma", X.device,
-                           p(blocks), offs, nd, bs, p(X) + j0 * row, p(Y) + j0 * row, j1 - j0, k,
-                           ns, plan.h, plan.groups, plan.ki, plan.stages, plan.blocks)
-            continue
         part = None
         if plan.fused_gram:
             m = bs * k
             part = torch.empty((plan.blocks, m, m), dtype=torch.float32, device=X.device)
             G = torch.empty((m, m), dtype=torch.float32, device=X.device)
+        if plan.tma:
+            _native.launch(label(name, blocks, fold), "bcg_block_stencil_tma", X.device,
+                           p(blocks), blocks.element_size(), offs, table, nd, bs,
+                           p(X) + j0 * row, p(Y) + j0 * row, j1 - j0, k, ns, plan.h,
+                           plan.groups, plan.ki, plan.stages, plan.blocks)
+            continue
         _native.launch(label(name, blocks, fold), "bcg_block_stencil_spmm", X.device,
                        p(blocks), blocks.element_size(), offs, table, nd, bs,
                        p(X) + j0 * row, p(Y) + j0 * row, p(part), p(G), j1 - j0,

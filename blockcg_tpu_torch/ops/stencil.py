@@ -38,7 +38,14 @@ takes the Gram of the f32 sums in three exact bf16 pieces
 wider field). An f32 field's launch with the Gram, whatever its diagonals'
 element, runs the f32 tensor-core kernel: X and the sums each in three exact
 bf16 pieces, the far diagonals read from L2 a step ahead
-(``stencil_mma_f32_plan``); its Y is the SpMM's, bit for bit.
+(``stencil_mma_f32_plan``); its Y is the SpMM's, bit for bit. A bf16
+field's launch without the Gram runs the ring of planes (``stencil_ring``,
+the reference's ``stencil_ring.py`` schedule cut to fit an SM: each offset
+o = m S + r for a stride S dividing n, a work item walking the planes of a
+patch of columns with the planes it reads in shared memory, each copied
+once by TMA) where ``stencil_ring_plan`` finds a stride and its traffic is
+below the window's (``launch_plans``), else the window kernel.
+``_native.functions`` counts the launches by route.
 """
 
 from __future__ import annotations
@@ -293,6 +300,134 @@ def stencil_mma_f32_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int
     return best
 
 
+# A bf16 field without the Gram on a ring of planes (csrc/stencil.cu
+# stencil_ring): one block an SM, 8 consumer warps of 4 columns a thread and
+# one producer warp.
+RING_COLS = 1024  # csrc/stencil.cu kRingCols: P, the columns of a patch
+RING_ROWS = (8, 16)  # rows of a work item, the consumers' register tile
+RING_MAX_SLOTS = 8  # kRingMaxSlots: 2M + 2
+RING_BOX = 256  # the largest dimension of a TMA box
+RING_STATIC_BYTES = 4 * 8  # its static shared memory: four mbarriers
+
+
+class RingPlan(NamedTuple):
+    """One ring launch (``csrc/stencil.cu`` stencil_ring): the stride ``S``
+    (planes of S columns), the halo ``h``, the reach ``M`` (each offset o =
+    m S + r with |r| <= h, |m| <= M), the ``rows`` of a work item, the ring's
+    ``slots`` (2M + 2), the ``segs`` runs a patch's planes are cut into, of
+    ``len`` planes, the work ``items`` and the ``grid``, the boxes' ``granule``
+    (columns), the launch's shared bytes and the L2->SM traffic per column in
+    units of X: the slots' ``(P + 2h) / P``, times ``(len + 2M) / len`` for
+    the ring's first fill of an item, plus the diagonals' reads past the
+    first (once a row group) in units of X's bytes."""
+    S: int
+    h: int
+    M: int
+    rows: int
+    slots: int
+    segs: int
+    len: int
+    items: int
+    grid: int
+    granule: int
+    smem_bytes: int
+    traffic: float
+
+    def describe(self) -> str:
+        return (f"ring S={self.S} h={self.h} P={RING_COLS} M={self.M} rows={self.rows} "
+                f"depth={self.slots} planes={self.len} items={self.items} grid={self.grid} "
+                f"smem={self.smem_bytes} traffic={self.traffic:.4g}")
+
+
+def ring_decompose(offsets, n: int, S: int) -> list[tuple[int, int]]:
+    """``[(m, r), ...]``: each offset o (mod n) as ``m S + r``, the rule of
+    ``csrc/stencil.cu`` make_ring: o taken signed in (-n/2, n/2], m its
+    nearest multiple of S (halves away from 0)."""
+    out = []
+    for o in offsets:
+        o = int(o) % n
+        so = o if o <= n // 2 else o - n
+        m = (so + S // 2) // S if so >= 0 else -((-so + S // 2) // S)
+        out.append((m, so - m * S))
+    return out
+
+
+def ring_smem_bytes(rows: int, h: int, slots: int, ndiag: int, dsize: int) -> int:
+    """Shared bytes of a ring launch (``csrc/stencil.cu`` ring_smem_bytes):
+    ``slots`` slots of ``rows`` bf16 rows of P + 2h columns and two (ndiag,
+    P) coefficient buffers of ``dsize``-byte elements (each rounded up to 128
+    bytes), 128 bytes to align the boxes and 128 past the last buffer."""
+    def r128(b):
+        return -(-b // 128) * 128
+    return (slots * r128(2 * rows * (RING_COLS + 2 * h))
+            + 2 * r128(dsize * ndiag * RING_COLS) + 256)
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_ring_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, sm_count: int,
+                      dsize: int = 2) -> RingPlan | None:
+    """The ring launch of a bf16 field of k <= 64 rows without the Gram
+    (``csrc/stencil.cu`` stencil_ring), or None where no stride fits. The
+    strides tried are the offsets' distances S that P divides and that
+    divide n; each takes the offsets whose decomposition (``ring_decompose``)
+    leaves |m| <= 3 (a ring of at most 8 slots), some m != 0 and a halo h
+    (the largest |r| rounded up to 8) with 2h < S and P + 2h at most 256
+    boxes' granules (the largest power of two up to 256 dividing h). For
+    each that fits ``smem_cap`` with its static bytes, and each row tile of
+    ``RING_ROWS`` (8 alone at k <= 8), the planes of a patch are cut into
+    the runs that minimise the modelled bytes a block copies, waves x (len +
+    2M slot fills + len coefficient buffers), the grid one block an SM; the
+    least of those wins, ties to fewer runs and the narrower row tile. At
+    (32, 256^3) on bf16 diagonals: S = 65,536, h = 256, M = 1, 16 rows, one
+    run of 256 planes for each of 128 items (traffic 1.5 X and the
+    diagonals once more); at (32, 128^3): S = 16,384, h = 128, 16 rows, four
+    runs of 32 planes (128 items). ``dsize``: bytes of a diagonal's
+    element."""
+    if not 1 <= k <= 64 or n % RING_COLS or n >= 2 ** 31:
+        return None
+    offs = [int(o) % n for o in offsets]
+    ndiag = len(offs)
+    best, best_key = None, None
+    for S in sorted({min(o, n - o) for o in offs}):
+        if S < RING_COLS or S % RING_COLS or n % S or n // S < 2:
+            continue
+        dec = ring_decompose(offs, n, S)
+        M = max(abs(m) for m, _ in dec)
+        h = -(-max(abs(r) for _, r in dec) // 8) * 8
+        g = RING_BOX
+        while h % g:
+            g //= 2
+        slots = 2 * M + 2
+        if (not 1 <= M or slots > RING_MAX_SLOTS or 2 * h >= S
+                or (RING_COLS + 2 * h) // g > RING_BOX):
+            continue
+        npl, npatch = n // S, S // RING_COLS
+        for rows in RING_ROWS:
+            if rows > 8 and k <= 8:
+                continue
+            nbytes = ring_smem_bytes(rows, h, slots, ndiag, dsize)
+            if nbytes + RING_STATIC_BYTES > smem_cap:
+                continue
+            ngrp = -(-k // rows)
+            slot = 2 * rows * (RING_COLS + 2 * h)
+            coef = dsize * ndiag * RING_COLS
+            for segs in range(1, npl + 1):
+                ln = -(-npl // segs)
+                if -(-npl // ln) != segs:
+                    continue  # the same runs as fewer segs
+                items = npatch * ngrp * segs
+                waves = -(-items // sm_count)
+                cost = waves * ((ln + 2 * M) * slot + ln * coef)
+                key = (cost, segs, rows)
+                if best_key is None or key < best_key:
+                    traffic = ((RING_COLS + 2 * h) / RING_COLS * (ln + 2 * M) / ln
+                               + ndiag * dsize * (ngrp - 1) / (2 * k))
+                    best_key = key
+                    best = RingPlan(S, h, M, rows, slots, segs, ln, items,
+                                    min(items, sm_count), g, nbytes, traffic)
+    return best
+
+
 def stencil_spmm_plain(diags: torch.Tensor, offsets: tuple[int, ...],
                        Xt: torch.Tensor, with_gram: bool = False):
     """Plain PyTorch version: the roll-and-accumulate of the reference's XLA
@@ -358,6 +493,53 @@ def _launch_wide_mma(diags, offsets, Xt, label: str, fn: str):
     return Y, G
 
 
+def _ring_ok(diags, Xt) -> bool:
+    """Whether a launch's operands suit the ring's TMA boxes: a bf16 field
+    with rows on 16-byte boundaries (n % 8 == 0; ``stencil_ring_plan`` asks
+    n % 1024 == 0) and 16-byte aligned field and diagonals."""
+    return (Xt.dtype == torch.bfloat16 and Xt.shape[1] % 8 == 0
+            and Xt.data_ptr() % 16 == 0 and diags.data_ptr() % 16 == 0)
+
+
+def launch_plans(diags, offsets, Xt, with_gram: bool):
+    """``[((r0, r1), plan), ...]``: the row chunks a field runs as, one
+    launch each, and the plan of each: a ``RingPlan`` (``stencil_ring``) for
+    a bf16 field without the Gram where one fits with less traffic than
+    ``stencil_plan``'s and the operands suit it (``_ring_ok``), else a
+    ``StencilPlan`` (``stencil_mma_plan`` for a bf16 field's Gram,
+    ``stencil_mma_f32_plan`` for an f32 field's, else ``stencil_plan``). A
+    bf16 field's Gram above one launch runs ``wide_gram_launches`` instead."""
+    n = diags.shape[1]
+    offsets = tuple(int(o) for o in offsets)
+    cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
+    ring_ok = not with_gram and _ring_ok(diags, Xt)
+    out = []
+    for r0, r1 in _native.row_chunks(Xt.shape[0]):
+        kc = r1 - r0
+        if with_gram and Xt.dtype == torch.bfloat16:
+            plan = stencil_mma_plan(offsets, n, kc, cap, sms, diags.element_size())
+        elif with_gram:
+            plan = stencil_mma_f32_plan(offsets, n, kc, cap, sms, diags.element_size())
+        else:
+            plan = stencil_plan(offsets, n, kc, cap, sms, Xt.element_size(),
+                                diags.element_size())
+            ring = (stencil_ring_plan(offsets, n, kc, cap, sms, diags.element_size())
+                    if ring_ok else None)
+            if ring is not None and ring.traffic < plan.traffic:
+                plan = ring
+        out.append(((r0, r1), plan))
+    return out
+
+
+def describe(plan) -> str:
+    """One line of a launch's plan (``launch_plans``)."""
+    if isinstance(plan, RingPlan):
+        return plan.describe()
+    return (f"window h={plan.h} T={plan.T} near={sum(plan.near)}/{len(plan.near)} "
+            f"smem={plan.smem_bytes} traffic={plan.traffic:.4g} "
+            f"blocks/SM={plan.blocks_per_sm}")
+
+
 def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
     from blockcg_tpu_torch.ops import fused
 
@@ -370,35 +552,32 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
     offsets = tuple(int(o) for o in offsets)
     label, fn = _native.pair_variant(name, "bcg_stencil_spmm", pair)
     chunks = _native.row_chunks(k)
-    mma = with_gram and Xt.dtype == torch.bfloat16  # the tensor cores
-    if mma and len(chunks) > 1:  # a bf16 Y has lost the f32 sums the cross blocks need
+    if with_gram and Xt.dtype == torch.bfloat16 and len(chunks) > 1:
+        # a bf16 Y has lost the f32 sums the cross blocks need
         return _launch_wide_mma(diags, offsets, Xt, f"{label[:-1]}, wide]",
                                 fn.replace("bcg_stencil_spmm", "bcg_stencil_mma_cols"))
     offs = (ctypes.c_int * ndiag)(*(o % n for o in offsets))
     Y = torch.empty_like(Xt)
-    cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
+    p = _native.ptr
     diag = []
-    for r0, r1 in chunks:
+    for (r0, r1), plan in launch_plans(diags, offsets, Xt, with_gram):
         kc = r1 - r0
-        if mma:
-            plan = stencil_mma_plan(offsets, n, kc, cap, sms, diags.element_size())
-        elif with_gram:
-            plan = stencil_mma_f32_plan(offsets, n, kc, cap, sms, diags.element_size())
-        else:
-            plan = stencil_plan(offsets, n, kc, cap, sms, Xt.element_size(),
-                                diags.element_size())
+        if isinstance(plan, RingPlan):
+            _native.launch(label, fn.replace("bcg_stencil_spmm", "bcg_stencil_ring"), Xt.device,
+                           p(diags), offs, ndiag, p(Xt[r0:r1]), p(Y[r0:r1]), kc, n, plan.S,
+                           plan.h, plan.M, plan.rows, plan.segs, plan.grid)
+            continue
         max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None
         if with_gram:
             part = torch.empty((max_blocks, kc, kc), dtype=torch.float32, device=Xt.device)
             G = torch.empty((kc, kc), dtype=torch.float32, device=Xt.device)
-        _native.launch(label, fn, Xt.device, _native.ptr(diags), offs, ndiag,
-                       _native.ptr(Xt[r0:r1]), _native.ptr(Y[r0:r1]), _native.ptr(part),
-                       _native.ptr(G), kc, n, plan.h, plan.T, max_blocks)
+        _native.launch(label, fn, Xt.device, p(diags), offs, ndiag, p(Xt[r0:r1]), p(Y[r0:r1]),
+                       p(part), p(G), kc, n, plan.h, plan.T, max_blocks)
         diag.append(G)
     if with_gram and len(chunks) > 1:
         return Y, fused.wide_gram(Xt, Y, diag, chunks)
-    return Y, diag[0]
+    return Y, (diag[0] if diag else None)
 
 
 def stencil_spmm_t(diags: torch.Tensor, offsets: tuple[int, ...],

@@ -74,6 +74,11 @@ mixed-dtype and wide bf16 DIA stencil kernels against their plain versions,
 then SBCGrQ on the bf16-stored, the folded and the folded bf16-stored
 matrix link, on the 128^3 Laplacian with bf16 diagonals and f32 fields and
 with f32 diagonals and bf16 fields, and on the bf16 Laplacian with 96 RHS.
+The routes of the wrappers with several kernels are held by the library
+function each launch called (``_native.functions``): ``[config5] lean``'s
+bf16 stencil launches without the Gram take the ring of planes, and every
+folded launch of ``[storage]``'s folded solves the TMA boxes; the
+``[plan]`` lines print those launches' plans.
 Each phase prints one or a few lines; any failure raises, and the process exits
 non-zero. The last two lines are the kernels' JSON record, whose launch
 counts are those of each kernel's own path (the north-star solves, config 4,
@@ -2154,6 +2159,9 @@ def phase_config5_kernels(torch, dev, records) -> None:
         return bf16_ulps(torch, got, want)
 
     G64 = B1.double() @ B2.double().T
+    print(f"[plan] stencil_spmm_t[bf16] {what}: " + "; ".join(
+        stencil.describe(plan) for _, plan in stencil.launch_plans(op.diags, op.offsets, B1,
+                                                                    False)))
     Y = stencil.stencil_spmm_t(op.diags, op.offsets, B1)
     csr, why = _dia_csr_library(torch, op.diags, op.offsets, B1, Y, ulps)
     _library_note(f"stencil_spmm_t[bf16] {what} (torch CSR @ dense, bf16; error in bf16 ulps "
@@ -2326,6 +2334,7 @@ def phase_config5_lean(torch, dev) -> tuple[dict, float, object]:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = dict(_native.launches)
+        routes = dict(_native.functions)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         refine._sbcgrq_impl = impl
@@ -2341,6 +2350,13 @@ def phase_config5_lean(torch, dev) -> tuple[dict, float, object]:
         raise AssertionError(f"[config5] lean: true relres {rel:.3e}, not {CONFIG5_TOL:g}: {info}")
     if not peak <= CONFIG5_PEAK_GIB:
         raise AssertionError(f"[config5] lean: peak {peak:.2f} GiB > {CONFIG5_PEAK_GIB} GiB")
+    # Row 1b's launches on the path take the ring of planes (stencil_ring).
+    ring = routes.get("bcg_stencil_ring_bf16", 0)
+    print(f"[config5] lean routes: stencil_spmm_t[bf16] {counts.get('stencil_spmm_t[bf16]', 0)} "
+          f"launches, {ring} on the ring (bcg_stencil_ring_bf16)")
+    if not 0 < ring == counts.get("stencil_spmm_t[bf16]", 0):
+        raise AssertionError(f"[config5] lean: stencil_spmm_t[bf16] launched the ring {ring} of "
+                             f"{counts.get('stencil_spmm_t[bf16]', 0)} times: {routes}")
     return counts, peak, op
 
 
@@ -2613,20 +2629,23 @@ def require_launches(label: str, counts: dict, wrappers) -> None:
         raise AssertionError(f"{label} never launched the kernels of {missing}")
 
 
-def _bf16_record(torch, records, name, what, kern, plain, timed, work, rate, gram_rtol):
+def _bf16_record(torch, records, name, what, kern, plain, timed, work, rate, gram_rtol,
+                 library=None):
     """A variant with a bf16 output against its plain version
-    (``bf16_compare``), timed beside it; prints one line and sets the
-    record. ``timed``: the two calls to time (the variant's and the plain
-    version's)."""
+    (``bf16_compare``), timed beside it and beside ``library`` (one PyTorch
+    call computing the same function, or None); prints one line and sets
+    the record. ``timed``: the two calls to time (the variant's and the
+    plain version's)."""
     err, abs_err = bf16_compare(torch, name, what, kern(), plain(), gram_rtol)
     ms, plain_ms = (median_ms(torch, fn) for fn in timed)
     bound, by = bound_ms(*work, rate)
+    lib_ms = None if library is None else median_ms(torch, library)
     print(f"[kernel] {name} {what}: max err {err:.2e} (bf16 ulps of a field, rel Frobenius "
           f"of a Gram; max abs {abs_err:.2e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound:.4f} ms ({by}: {work[0] / 1e6:.1f} MB, {work[1] / 1e9:.2f} GFLOP), "
-          f"library none")
+          f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     records[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
 def phase_storage_kernels(torch, dev, records, op) -> None:
@@ -2695,6 +2714,13 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
 
     fb, foffs, fold = op.blocks_folded, op.fold_offsets, op.fold
     print(f"[storage] folded: {len(foffs)} of {len(offs)} diagonals streamed, fold {fold}")
+    for blocks, gram, name in ((fb, False, "block_stencil_spmm_m_t[fold]"),
+                               (fb, True, "block_stencil_spmm_m_gram_t[fold]"),
+                               (fb.to(bf), False, "block_stencil_spmm_m_t[fold, bf16 coeffs]")):
+        plans = bsk.launch_plans(blocks, foffs, k, gram, dev, fold=fold,
+                                 tma=bsk._tma_ok(blocks, Xm, True))
+        print(f"[plan] {name} {what}: {len(plans)} launch: "
+              + "; ".join(plan.describe() for _, plan in plans))
     Y = bsk.block_stencil_spmm_m_t(op.blocks, offs, Xm)
     bsr, why = _site_bsr_library(torch, op.blocks, offs, Xm, Y)
     _library_note(f"block_stencil_spmm_m_t[fold] {what} (torch BSR @ dense of the same "
@@ -2710,6 +2736,10 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
                  lambda: bsk.block_stencil_spmm_m_gram_t(fb, foffs, Xm, fold),
                  lambda: bsk.block_stencil_plain(fb, foffs, Xm, True, fold), is_gram, records,
                  work=(apply_work[0] + m * m * 4, apply_work[1] + syrk_flops(m, ns)))
+    Yg, Gg = bsk.block_stencil_spmm_m_gram_t(fb, foffs, Xm, fold)
+    contract_distance(torch, "[storage]", "block_stencil_spmm_m_gram_t[fold]", what, Gg,
+                      (Xm, Yg), None, 1.0)
+    del Yg, Gg
     Yf = bsk.block_stencil_spmm_m_t(fb, foffs, Xm, fold)
     torch.cuda.synchronize()
     err = relmax(Yf, Y)
@@ -2752,7 +2782,7 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
     def is_kk(w):
         return w.shape == (kk, kk)
 
-    for name in STORAGE_STENCIL[1:]:
+    for name in STORAGE_STENCIL[1:2] + STORAGE_STENCIL[3:]:
         _library_note(name, "no PyTorch call takes a mixed bf16/f32 pair")
     csr, why = _dia_csr_library(torch, d16.float(), lap.offsets, X32,
                                 stencil.stencil_spmm_t(d16, lap.offsets, X32))
@@ -2781,12 +2811,24 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
     same("stencil_spmm_t[bf16 coeffs]", "the f32 kernel",
          stencil.stencil_spmm_t(d16, lap.offsets, X32), Yu)
     xw = (nbytes(d32, X16, X16), 2 * kk * nnz(d32))
+    print(f"[plan] stencil_spmm_t[bf16 field] {lw} f32 diagonals, bf16 X: "
+          + "; ".join(stencil.describe(plan)
+                      for _, plan in stencil.launch_plans(d32, lap.offsets, X16, False)))
+    # One PyTorch call: the CSR of the f32 diagonals times X lifted to f32
+    # (lifted outside the timed call), its f32 result rounded to bf16 when
+    # held to the kernel's Y.
+    csr, why = _dia_csr_library(torch, d32, lap.offsets, X16.float(),
+                                stencil.stencil_spmm_t(d32, lap.offsets, X16),
+                                lambda g, w: bf16_ulps(torch, g.to(bf), w))
+    _library_note(f"stencil_spmm_t[bf16 field] {lw} (torch CSR @ dense of the f32 diagonals and "
+                  "X lifted to f32; error in bf16 ulps of the kernel's Y)", why)
     _bf16_record(torch, records, "stencil_spmm_t[bf16 field]", f"{lw} f32 diagonals, bf16 X",
                  lambda: (stencil.stencil_spmm_t(d32, lap.offsets, X16),),
                  lambda: (stencil.stencil_spmm_plain(d32, lap.offsets, X16)[0],),
                  (lambda: stencil.stencil_spmm_t(d32, lap.offsets, X16),
                   lambda: stencil.stencil_spmm_plain(d32, lap.offsets, X16)),
-                 xw, F32_FLOPS, GRAM_RTOL)
+                 xw, F32_FLOPS, GRAM_RTOL, library=csr)
+    del csr
     _bf16_record(torch, records, "stencil_spmm_gram_t[bf16 field]",
                  f"{lw} f32 diagonals, bf16 X",
                  lambda: stencil.stencil_spmm_gram_t(d32, lap.offsets, X16),
@@ -2904,11 +2946,20 @@ def phase_storage(torch, dev, records) -> dict:
     del X1, X2, X32, Y, Xb, Yb, op16
 
     _fold_env(True)
+    before = (dict(_native.launches), _native.functions["bcg_block_stencil_tma"])
     try:
         (Xf, finfo), fs = sbcgrq(op, B, 1e-6)
         (Xf16, f16info), f16s = sbcgrq(astype(op, bf), B, 1e-6)
     finally:
         _fold_env(False)
+    # Every folded launch of the two solves took the TMA boxes (bs_tma).
+    folded = sum(c - before[0].get(w, 0) for w, c in _native.launches.items() if "[fold" in w)
+    tma = _native.functions["bcg_block_stencil_tma"] - before[1]
+    print(f"[storage] folded solves: {folded} folded launches, {tma} on TMA boxes "
+          "(bcg_block_stencil_tma)")
+    if not 0 < folded == tma:
+        raise AssertionError(f"[storage] folded solves: {tma} of {folded} folded launches on "
+                             "TMA boxes")
     frel = true_relres(torch, plain, Xf, B, op64=op64)
     print(f"[storage] folded SBCGrQ: {finfo.iterations} iterations {fs:.3f} s, true relres "
           f"{frel:.3e}; folded bf16 blocks {f16info.iterations} iterations {f16s:.3f} s")

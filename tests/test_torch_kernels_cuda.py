@@ -2692,3 +2692,172 @@ def test_block_stencil_tma_copied_stages_land_before_use(dev):
     bad = [i for i in range(300)
            if not torch.equal(bsk.block_stencil_spmm_m_t(b16, offsets, Xm), want)]
     assert bad == []
+
+
+# -------- the bf16 field's ring of planes; the folded block stencil on bs_tma
+
+
+def _window_route(monkeypatch):
+    """Send the bf16 stencil's launches to the window kernel (the parent's
+    route for a bf16 field without the Gram)."""
+    monkeypatch.setattr(stencil, "_ring_ok", lambda *a: False)
+
+
+_RING_CASES = {  # n, offsets: the 64^3 Laplacian; banded of reach 2 with odd and even residues
+    "lap_64^3": (64 ** 3, (0, 4096, -4096, 64, -64, 1, -1)),
+    "reach_2": (128 * 2048, (0, 2048, -2047, 4094, -4093, 5, -3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_RING_CASES))
+@pytest.mark.parametrize("k", [8, 16, 32, 64, 96])
+@pytest.mark.parametrize("dd", ["bf16", "f32"])
+def test_stencil_ring_matches_the_window_kernel(dev, case, k, dd, monkeypatch):
+    """A bf16 field without the Gram on the ring (``stencil_ring``): bf16
+    or f32 diagonals, 8 to 64 rows a launch and 96 in two chunks, odd and
+    even shifts (h + r mod 4 of 0 to 3), a reach of two planes, windows
+    across 0 and n. Every launch takes the ring (``_native.functions``); Y
+    within one bf16 ulp of the plain version and bitwise the window kernel's
+    (the parent route: the same fmaf chain over the diagonals); a repeat
+    bitwise."""
+    n, offsets = _RING_CASES[case]
+    rng = np.random.default_rng(980 + k)
+    diags = _t(rng.standard_normal((len(offsets), n)), dev)
+    diags = diags.bfloat16() if dd == "bf16" else diags
+    Xt = _bf_field(k, n, 981, dev)
+    plans = stencil.launch_plans(diags, offsets, Xt, False)
+    assert all(isinstance(p, stencil.RingPlan) for _, p in plans)
+    fn = "bcg_stencil_ring_bf16" + ("" if dd == "bf16" else "x")
+    _native.reset_launches()
+    Y = stencil.stencil_spmm_t(diags, offsets, Xt)
+    assert _native.functions[fn] == len(plans) == len(_native.row_chunks(k))
+    Yp = stencil.stencil_spmm_plain(diags, offsets, Xt)[0]
+    assert torch.equal(Y, stencil.stencil_spmm_t(diags, offsets, Xt))
+    _window_route(monkeypatch)
+    Yw = stencil.stencil_spmm_t(diags, offsets, Xt)
+    torch.cuda.synchronize()
+    assert _ulps(Y, Yp) <= 1
+    assert torch.equal(Y, Yw)
+
+
+@pytest.mark.parametrize("n,offsets", [
+    (1000 * 1024 + 8, (0, 1, -1, 1024, -1024)),   # no stride divides n
+    (4096, (-256, -16, -1, 0, 1, 16, 256)),       # planes narrower than a patch
+    (64 ** 3, (0, 4096, -4096, 64, -64, 1, -1)),  # an unaligned field
+])
+def test_stencil_ring_plan_keeps_the_window_kernel(dev, n, offsets):
+    """Where no stride fits (or the field is not 16-byte aligned) the plan
+    keeps the window kernel (``bcg_stencil_spmm_bf16``), within one bf16 ulp
+    of the plain version."""
+    diags = _bf(np.random.default_rng(990).standard_normal((len(offsets), n)), dev)
+    if n == 64 ** 3:  # one element past an aligned base
+        Xt = torch.empty(17 * n + 1, dtype=torch.bfloat16, device=dev)[1:].view(17, n)
+        Xt.copy_(_bf_field(17, n, 991, dev))
+        assert Xt.data_ptr() % 16 != 0 and Xt.is_contiguous()
+    else:
+        Xt = _bf_field(17, n, 991, dev)
+    plans = stencil.launch_plans(diags, offsets, Xt, False)
+    assert not any(isinstance(p, stencil.RingPlan) for _, p in plans)
+    _native.reset_launches()
+    Y = stencil.stencil_spmm_t(diags, offsets, Xt)
+    torch.cuda.synchronize()
+    assert _native.functions == {"bcg_stencil_spmm_bf16": 1}
+    assert _ulps(Y, stencil.stencil_spmm_plain(diags, offsets, Xt)[0]) <= 1
+
+
+def test_stencil_ring_repeats_its_bits(dev, monkeypatch):
+    """300 calls of the 64^3 Laplacian's ring at k = 32 (items of four
+    planes, so each block restarts its ring about every six steps; the
+    first and last patches' windows copied by the producer's lanes), each
+    bitwise the window kernel's: a stage posted before its copies land, or
+    a slot refilled while a step still reads it, shows as a wrong bit on
+    some call."""
+    op = laplacian_dia((64, 64, 64), dtype=torch.bfloat16, device=dev)
+    Xt = _bf_field(32, op.n, 992, dev)
+    plan = stencil.launch_plans(op.diags, op.offsets, Xt, False)[0][1]
+    assert isinstance(plan, stencil.RingPlan) and plan.len == 4
+    _window_route(monkeypatch)
+    want = stencil.stencil_spmm_t(op.diags, op.offsets, Xt)
+    monkeypatch.undo()
+    bad = [i for i in range(300)
+           if not torch.equal(stencil.stencil_spmm_t(op.diags, op.offsets, Xt), want)]
+    assert bad == []
+
+
+def _cp_route(monkeypatch):
+    """Send the block stencil's launches to ``bs_spmm`` (the parent's route
+    of a folded launch)."""
+    monkeypatch.setattr(bsk, "_tma_ok", lambda *a: False)
+
+
+@pytest.mark.parametrize("L", [8, 16])
+@pytest.mark.parametrize("k", [12, 24])
+def test_block_stencil_tma_folded_matches_plain(dev, L, k, monkeypatch):
+    """Folded launches on ``bs_tma``, f32 and bf16 blocks, with and without
+    the Gram (then from ``gram``), on ``dirac_gauged_matrix(L)``'s folded
+    fields at 12 and 24 right-hand sides (tiles of 128 and 64 sites: the y
+    pair's runs of L sites as granule boxes, the z pair's as whole slabs or
+    granules; the x pair from the window): every launch takes the TMA
+    route; Y within 1e-5 of the plain version and of the unfolded kernel on
+    the same blocks, the Gram's Y bitwise the SpMM's and its G within 1e-5
+    of the plain version's, bf16 bitwise the f32 kernel on the lifted
+    blocks, and Y bitwise ``bs_spmm``'s folded apply (the parent route)."""
+    monkeypatch.setenv("BLOCKCG_FOLD", "1")
+    op = dirac_gauged_matrix(L, device=dev)
+    fb, foffs, fold = op.blocks_folded, op.fold_offsets, op.fold
+    Xm = _field(op.bs * k, op.ns, 1000 + k, dev)
+    for B in (fb, fb.bfloat16()):
+        for gram in (False, True):
+            plans = bsk.launch_plans(B, foffs, k, gram, Xm.device, fold=fold,
+                                     tma=bsk._tma_ok(B, Xm, True))
+            assert all(p.tma for _, p in plans)
+        _native.reset_launches()
+        Y = bsk.block_stencil_spmm_m_t(B, foffs, Xm, fold)
+        Yg, G = bsk.block_stencil_spmm_m_gram_t(B, foffs, Xm, fold)
+        assert _native.functions == {"bcg_block_stencil_tma": 2, "bcg_gram": 1}, \
+            dict(_native.functions)
+        Yp, Gp = bsk.block_stencil_plain(B, foffs, Xm, True, fold)
+        # the unfolded kernel on the same blocks: folding and rounding to
+        # bf16 commute
+        Yu = bsk.block_stencil_spmm_m_t(op.blocks.to(B.dtype), op.offsets, Xm)
+        torch.cuda.synchronize()
+        assert _relmax(Y, Yp) < 1e-5 and _relmax(Y, Yu) < 1e-5
+        assert torch.equal(Y, Yg) and _relfro(G, Gp) < 1e-5
+        if B.dtype == torch.bfloat16:
+            assert torch.equal(Y, bsk.block_stencil_spmm_m_t(B.float(), foffs, Xm, fold))
+        with monkeypatch.context() as mp:
+            _cp_route(mp)
+            _native.reset_launches()
+            Yc = bsk.block_stencil_spmm_m_t(B, foffs, Xm, fold)
+            assert _native.functions == {"bcg_block_stencil_spmm": 1}
+        assert torch.equal(Y, Yc)
+
+
+def test_block_stencil_tma_folded_copied_granules_land_before_use(dev, monkeypatch):
+    """``dirac_gauged_matrix(8)`` folded (4,096 sites, 32 tiles of 128) at k
+    = 12 on plans pinned to h = 0, so every diagonal but the first is far:
+    the x pair's runs of one site copied by the producer's lanes, the y
+    pair's as 16 granule boxes of 8 sites, the z pair's as two of 64, the t
+    pair's as whole slabs, the windows across 0 and ns copied. 300 calls,
+    each bitwise ``bs_spmm``'s folded apply on the same pin and within 1e-5
+    of the plain version."""
+    monkeypatch.setenv("BLOCKCG_FOLD", "1")
+    op = dirac_gauged_matrix(8, device=dev)
+    fb, foffs, fold = op.blocks_folded, op.fold_offsets, op.fold
+    ns, k = op.ns, 12
+    Xm = _field(op.bs * k, ns, 1010, dev)
+    offs = tuple(int(o) % ns for o in foffs)
+    wraps = tuple((d, t[0]) for d, t in sorted(bsk.fold_terms(foffs, fold, ns).items()))
+    cap, sms = _native.max_smem(Xm.device.index), _native.sm_count(Xm.device.index)
+    pins = {tma: bsk.block_stencil_plan(offs, ns, op.bs, k, False, cap, sms, wraps=wraps, h=0,
+                                        tma=tma) for tma in (False, True)}
+    assert pins[True].tma and not pins[False].tma and sum(pins[True].near) == 1
+
+    def apply(tma):
+        with monkeypatch.context() as mp:
+            mp.setattr(bsk, "launch_plans", lambda *a, **kw: [((0, k), pins[tma])])
+            return bsk.block_stencil_spmm_m_t(fb, foffs, Xm, fold)
+    want = apply(False)
+    assert _relmax(want, bsk.block_stencil_plain(fb, foffs, Xm, False, fold)[0]) < 1e-5
+    bad = [i for i in range(300) if not torch.equal(apply(True), want)]
+    assert bad == []

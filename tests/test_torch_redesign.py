@@ -494,14 +494,29 @@ def test_host_constants_mirror_the_sources():
     assert "__launch_bounds__(kStMmaThreads, 1)\n    stencil_mma_f32(" in st
     assert "return dispatch_mma_f32(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks" in st
     assert int(re.search(r"kBtMaxStages = (\d+)", bs).group(1)) == max(bsk.TMA_STAGES)
-    assert ("return round128(2LL * bs * bs * T) + (far ? 4LL * m * T : 0);" in bs
-            and "return 2 * round128(4LL * m * (T + 2 * h)) + stages * bt_slot_bytes(bs, m, T, far) "
-            "+ 128;" in bs)
-    assert "p.T + 2 * p.h <= 256" in bs and bsk.TMA_MAX_BOX == 256
+    assert ("return round128(1LL * csize * bs * bs * T) + (far ? 4LL * m * T : 0);" in bs
+            and "return 2 * round128(4LL * m * (T + 2 * h)) + stages * "
+            "bt_slot_bytes(bs, m, T, far, csize) +\n         128;" in bs)
+    assert "p->T + 2 * p->h <= 256" in bs and bsk.TMA_MAX_BOX == 256
     assert "__shared__ unsigned long long full[kBtMaxStages], empty[kBtMaxStages], wfree[2];" in bs
     assert bsk.TMA_BARRIER_BYTES == 8 * (2 * max(bsk.TMA_STAGES) + 2)
     assert "__launch_bounds__(kBsThreads + 32, 1)\n    bs_tma(" in bs
-    assert "far_box = p.offs.o[d] % 4 == 0 && c0 + T <= p.ns;" in bs
+    assert ("return (j & 3) == 0 && gl >= 2 && ((p.bs * p.k) << gl) % 32 == 0 && "
+            "j + (1 << gl) <= p.ns;" in bs)
+    assert ("if (st > 0 && p->offs.s[d] == kFar) gf = min(gf, st & -st);" in bs
+            and "const int g = st > 0 && p->offs.s[d] == kFar && (st & -st) < p->T ? gf : p->T;"
+            in bs)
+    # The bf16 field's ring (stencil_ring).
+    for name, value in (("kRingCols", "4 * kRingThreads"), ("kRingThreads", "256"),
+                        ("kRingMaxSlots", "8"), ("kRingBox", "256")):
+        assert re.search(rf"constexpr int {name} = ([^;]+);", st).group(1) == value, name
+    assert (stencil.RING_COLS, stencil.RING_MAX_SLOTS, stencil.RING_BOX) == (4 * 256, 8, 256)
+    assert ("return slots * ring_slot_bytes(R, h) + 2 * ring_coef_bytes(ndiag, dsize) + 256;"
+            in st and "return ring_round128(2LL * R * ring_span(h));" in st
+            and "return ring_round128(1LL * dsize * ndiag * kRingCols);" in st)
+    assert "__shared__ unsigned long long full[2], empty[2];" in st
+    assert stencil.RING_STATIC_BYTES == 4 * 8
+    assert "(R != 8 && R != 16)" in st and stencil.RING_ROWS == (8, 16)
 
 
 def _smoke():
@@ -516,14 +531,16 @@ def _smoke():
 
 @pytest.mark.parametrize("case", ["dia_csr", "cbdia_merged", "cbdia_view", "bdia_view",
                                   "dia_csr_bf16_diagonals", "bdia_merged_bf16_blocks",
-                                  "bdia_view_bf16_blocks", "bdia_folded_bf16_blocks"])
+                                  "bdia_view_bf16_blocks", "bdia_folded_bf16_blocks",
+                                  "dia_csr_bf16_field"])
 def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
     """``chip_smoke.py``'s library yardsticks (a torch CSR or BSR tensor of
     the operator times the dense field) compute the wrapper's function: the
     check inside them passes on the plain route's output. Rows 1m, 22h, 23h
     and 24f on bf16 coefficients take the product of the coefficients lifted
     to f32 (24f's of the unfolded matrix: folding and rounding to bf16
-    commute)."""
+    commute); row 1x's (a bf16 field) takes X lifted to f32 and rounds its
+    product to bf16, within one bf16 ulp of the wrapper's Y."""
     from blockcg_tpu_torch.operators import astype
     from blockcg_tpu_torch.ops import block_stencil as bsk
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
@@ -531,7 +548,18 @@ def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
 
     smoke = _smoke()
     torch.manual_seed(0)
-    if case.startswith("dia_csr"):
+    if case == "dia_csr_bf16_field":
+        op = laplacian_dia((8, 8, 8), device="cpu")
+        X = torch.randn(5, op.n).bfloat16()
+        errs = []
+
+        def ulps(got, want):
+            errs.append(smoke.bf16_ulps(torch, got.to(torch.bfloat16), want))
+            return errs[-1]
+        call, why = smoke._dia_csr_library(torch, op.diags, op.offsets, X.float(),
+                                           stencil.stencil_spmm_t(op.diags, op.offsets, X), ulps)
+        assert errs and errs[-1] <= 1
+    elif case.startswith("dia_csr"):
         op = laplacian_dia((8, 8, 8), device="cpu")
         X = torch.randn(5, op.n)
         d = op.diags if case == "dia_csr" else op.diags.bfloat16()
@@ -1585,3 +1613,225 @@ def test_block_stencil_tma_plan_of_the_matrix_link():
     pinned = bsk.block_stencil_plan(offs, ns, 4, 12, False, H100_SMEM, H100_SMS, csize=2,
                                     tma=True, stages=3)
     assert pinned.tma and pinned.stages == 3
+
+
+# ------------------------------------------- the bf16 field's ring of planes
+
+
+def _ring_presets():
+    """(n, offsets) of the ring's cases: the 7-point Laplacians, a 2-D grid of
+    1,024-column rows, and banded offsets of reach M = 2 with odd residues."""
+    return {
+        "lap_256^3": (256 ** 3, _lap_offsets((256, 256, 256))),
+        "lap_128^3": (128 ** 3, _lap_offsets((128, 128, 128))),
+        "lap_64^3": (64 ** 3, _lap_offsets((64, 64, 64))),
+        "grid_2048x1024": (2048 * 1024, _lap_offsets((2048, 1024))),
+        "reach_2": (128 * 2048, (0, 2048, -2047, 4094, -4093, 5, -3)),
+    }
+
+
+@pytest.mark.parametrize("preset", sorted(_ring_presets()))
+@pytest.mark.parametrize("k", [1, 8, 12, 32, 48, 64])
+@pytest.mark.parametrize("dsize", [2, 4])
+def test_stencil_ring_plan_fits_and_serves_every_offset(preset, k, dsize):
+    """``stencil_ring_plan``: the launch fits 227 KB with its static bytes
+    (as the kernel counts them); every offset is m S + r (mod n) with |r| <=
+    h and |m| <= M, so a term reads slot j + m of a ring of 2M + 2; the
+    boxes' granule divides h and the patch and P + 2h is at most 256
+    granules; the items cover the row groups, patches and runs of planes,
+    one block an SM at most; the traffic is the model's."""
+    n, offsets = _ring_presets()[preset]
+    plan = stencil.stencil_ring_plan(offsets, n, k, H100_SMEM, H100_SMS, dsize)
+    assert plan is not None
+    P, S, h, M = stencil.RING_COLS, plan.S, plan.h, plan.M
+    assert plan.smem_bytes == stencil.ring_smem_bytes(plan.rows, h, plan.slots, len(offsets),
+                                                      dsize)
+    assert plan.smem_bytes + stencil.RING_STATIC_BYTES <= H100_SMEM
+    assert n % S == 0 and S % P == 0 and h % 8 == 0 and 2 * h < S
+    assert plan.slots == 2 * M + 2 <= stencil.RING_MAX_SLOTS and M >= 1
+    for o, (m, r) in zip(offsets, stencil.ring_decompose(offsets, n, S)):
+        assert (m * S + r - o) % n == 0 and abs(r) <= h and abs(m) <= M
+    assert h % plan.granule == 0 and P % plan.granule == 0 and plan.granule >= 8
+    assert (P + 2 * h) // plan.granule <= stencil.RING_BOX
+    assert plan.rows in stencil.RING_ROWS and (plan.rows == 8 or k > 8)
+    npl, ngrp = n // S, -(-k // plan.rows)
+    assert (plan.segs - 1) * plan.len < npl <= plan.segs * plan.len
+    assert plan.items == S // P * ngrp * plan.segs and plan.grid == min(plan.items, H100_SMS)
+    assert plan.traffic == pytest.approx((P + 2 * h) / P * (plan.len + 2 * M) / plan.len
+                                         + len(offsets) * dsize * (ngrp - 1) / (2 * k))
+
+
+def test_stencil_ring_plan_of_the_main_shapes():
+    """Row 1b at (32, 256^3) on bf16 diagonals: planes of 65,536 columns,
+    0, +-1 and +-256 near (h = 256), +-65,536 one slot away, a ring of four
+    48 KB slots of 16 rows, 128 items of one run of 256 planes (traffic 1.73
+    against the window's 5.0); row 1x at (32, 128^3) on f32 diagonals:
+    16,384-column planes, h = 128, 16 rows, runs of 32 planes (128 items;
+    1.77 against 4.0). Where no stride fits, None, and the launch keeps
+    ``stencil_spmm``: planes narrower than a patch (512^2, 128^2), an n that
+    is not a multiple of the patch, offsets that no stride dividing n takes
+    (the banded ``near_n``), a reach past a ring of 8 slots."""
+    big = stencil.stencil_ring_plan(_lap_offsets((256,) * 3), 256 ** 3, 32, H100_SMEM,
+                                    H100_SMS, 2)
+    assert (big.S, big.h, big.M, big.rows, big.slots, big.segs, big.len, big.items, big.grid,
+            big.granule, big.smem_bytes) == (65536, 256, 1, 16, 4, 1, 256, 128, 128, 256, 225536)
+    assert big.traffic == pytest.approx(1.5 * 258 / 256 + 7 * 2 / 64)
+    window = stencil.stencil_plan(_lap_offsets((256,) * 3), 256 ** 3, 32, H100_SMEM, H100_SMS, 2, 2)
+    assert window.traffic == 5.0 and big.traffic < window.traffic
+    x = stencil.stencil_ring_plan(_lap_offsets((128,) * 3), 128 ** 3, 32, H100_SMEM, H100_SMS, 4)
+    assert (x.S, x.h, x.M, x.rows, x.segs, x.len, x.items, x.grid, x.granule) == (
+        16384, 128, 1, 16, 4, 32, 128, 128, 128)
+    assert x.traffic == pytest.approx(1.25 * 34 / 32 + 7 * 4 / 64)
+    assert stencil.stencil_plan(_lap_offsets((128,) * 3), 128 ** 3, 32, H100_SMEM, H100_SMS, 2,
+                                4).traffic == 4.0
+    assert "ring S=65536 h=256 P=1024 M=1 rows=16 depth=4 planes=256" in big.describe()
+    for n, offsets in (_PRESETS["lap_512^2"], _PRESETS["lap_128^2"], _PRESETS["near_n"],
+                       (1000 * 1024 + 8, (0, 1, -1, 1024, -1024)),
+                       (16 * 4096, (0, 4096, 4 * 4096 + 1))):
+        assert stencil.stencil_ring_plan(offsets, n, 32, H100_SMEM, H100_SMS, 2) is None
+
+
+def _ring_schedule(n, offsets, k, plan):
+    """The ring's schedule in numpy (``csrc/stencil.cu`` stencil_ring): each
+    item's stages load windows into slots, each step reads them. Returns
+    (times each Y entry is stored, whether each refill hit a slot the step
+    before it reads, the windows that cross 0 or n) and raises where a read
+    finds another column than its term's source."""
+    P, S, h, M, R = stencil.RING_COLS, plan.S, plan.h, plan.M, plan.rows
+    npl, npatch, ngrp = n // S, S // P, -(-k // R)
+    span = P + 2 * h
+    dec = stencil.ring_decompose(offsets, n, S)
+    stored = np.zeros((k, n), dtype=int)
+    cols = 4 * np.arange(P // 4)[:, None] + np.arange(4)[None, :]  # thread t's columns
+    races, wrapped = [], 0
+    for b in range(plan.grid):
+        slots = [None] * plan.slots
+        reads_before = set()
+        for it in range(b, plan.items, plan.grid):
+            patch, rest = it % npatch, it // npatch
+            c0, r0, j0 = patch * P, (rest % ngrp) * R, (rest // ngrp) * plan.len
+            ln = min(plan.len, npl - j0)
+
+            def window(v):
+                w0 = c0 + ((j0 + v) % npl) * S - h
+                return w0, (w0 + np.arange(span)) % n
+            for s in range(ln):
+                for v in (range(-M, M + 1) if s == 0 else (s + M,)):
+                    w0, held = window(v)
+                    sl = (v + M) % plan.slots
+                    races.append((sl in reads_before) and s > 0)
+                    if 0 <= w0 and w0 + span <= n:  # a box starts on a granule
+                        assert w0 % plan.granule == 0
+                    else:
+                        wrapped += 1
+                    slots[sl] = held
+                j = (j0 + s) % npl
+                read = set()
+                for (m, r), o in zip(dec, offsets):
+                    sl = (s + m + M) % plan.slots
+                    read.add(sl)
+                    got = slots[sl][h + r + cols]
+                    assert np.array_equal(got, (c0 + j * S + cols + o) % n)
+                reads_before = read  # what step s reads while stage s + 1 lands
+                rows = np.arange(r0, min(r0 + R, k))
+                stored[np.ix_(rows, (c0 + j * S + cols).ravel())] += 1
+    return stored, races, wrapped
+
+
+@pytest.mark.parametrize("preset,k", [("lap_64^3", 20), ("grid_2048x1024", 8),
+                                      ("reach_2", 33), ("lap_64^3", 64)])
+def test_stencil_ring_schedule_covers_y_once_and_reads_its_slots(preset, k):
+    """A pure-Python oracle of the ring's schedule on the plan's S, h, M,
+    rows and runs: every Y entry is stored exactly once; every column a term
+    reads lies in the slot it reads from, at its column + h + r, also across
+    the wrap at 0 and n (the first patch's first plane, the last patch's
+    last, each run's first and last planes' neighbours taken mod the
+    planes); the windows that come as boxes start on a granule; and the slot
+    a stage refills is none that the step before it reads (a stage goes out
+    once step s - 2 is done, while step s - 1 may still run)."""
+    n, offsets = _ring_presets()[preset]
+    plan = stencil.stencil_ring_plan(offsets, n, k, H100_SMEM, H100_SMS, 2)
+    stored, races, wrapped = _ring_schedule(n, offsets, k, plan)
+    assert (stored == 1).all()
+    assert not any(races)
+    assert wrapped > 0  # the windows that cross 0 and n were among them
+
+
+def _folded_matrix_link(L):
+    """``dirac_gauged_matrix(L)``'s folded offsets and ``fold``
+    (problems/dirac.py under BLOCKCG_FOLD): 0, the t pair (its wrap is its own
+    offset mod ns: not folded) and the z, y and x pairs, each folded on L."""
+    offsets = (0, L ** 3, -L ** 3, L * L, -L * L, L, -L, 1, -1)
+    return L ** 4, offsets, tuple((d, L) for d in range(3, 9))
+
+
+@pytest.mark.parametrize("csize,with_gram,stages,fused", [(4, False, 4, None), (2, False, 5, None),
+                                                          (4, True, 4, False), (2, True, 5, False)])
+def test_block_stencil_tma_plan_of_the_folded_matrix_link(csize, with_gram, stages, fused):
+    """Rows 24f (f32 and bf16 blocks) and 24fg: the folded (48, 32^4) launch
+    takes ``bs_tma``: h = 32 (0 and the x pair, +-1 with -+31, from the
+    window), two groups of 6 over 128 sites, the y pair's (st = 32) slabs as
+    four boxes of 32 sites, the z (st = 1,024) and t pairs' as one, so 22
+    requests a tile with the window and nine coefficient boxes; the deepest
+    ring that fits (4 stages of f32 planes, 5 of bf16); with the Gram the
+    same apply, the Gram from ``gram`` (not fused); bs_spmm's traffic,
+    7.5."""
+    ns, offsets, fold = _folded_matrix_link(32)
+    offs = tuple(o % ns for o in offsets)
+    wraps = tuple((d, t[0]) for d, t in sorted(bsk.fold_terms(offsets, fold, ns).items()))
+    plan = bsk.block_stencil_plan(offs, ns, 4, 12, with_gram, H100_SMEM, H100_SMS, csize=csize,
+                                  wraps=wraps, tma=True)
+    cp = bsk.block_stencil_plan(offs, ns, 4, 12, with_gram, H100_SMEM, H100_SMS, csize=csize,
+                                wraps=wraps)
+    assert plan.tma and not cp.tma
+    assert (plan.h, plan.T, plan.groups, plan.ki, plan.stages, sum(plan.near), plan.boxes,
+            plan.fused_gram) == (32, 128, 2, 6, stages, 3, 22, fused)
+    assert plan.traffic == cp.traffic == 7.5
+    assert plan.smem_bytes == bsk.tma_smem_bytes(4, 12, 128, 32, stages, True, csize)
+    assert plan.smem_bytes + bsk.TMA_BARRIER_BYTES <= H100_SMEM
+    assert (bsk.tma_smem_bytes(4, 12, 128, 32, stages + 1, True, csize)
+            + bsk.TMA_BARRIER_BYTES > H100_SMEM)
+    assert bsk.tma_far_granules(128, [None, 32, 1024, 32]) == [128, 32, 128, 32]
+    assert bsk.tma_far_granules(128, [64, 32, 1, None]) == [1, 1, 1, 128]
+    assert [bsk.tma_far_boxes(48, 128, g) for g in (128, 1, 32, 4)] == [1, 0, 4, 32]
+    assert bsk.tma_far_boxes(12, 128, 4) == 0  # 192-byte granules: not 128-byte aligned
+    # unfolded f32 blocks keep bs_spmm, with or without the Gram (rows 22, 23, 23b)
+    uoffs = tuple(o % ns for o in _dirac_offsets(32))
+    assert not bsk.block_stencil_plan(uoffs, ns, 4, 12, with_gram, H100_SMEM, H100_SMS,
+                                      csize=4, tma=True).tma
+
+
+@pytest.mark.parametrize("st", [1, 32, 1024, 32768])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_block_stencil_tma_folded_boxes_cover_each_source_once(st, sign):
+    """A far folded diagonal's slab in ``bs_tma`` (``csrc/block_stencil.cu``
+    produce_tma) at 32^4 sites, tiles of 128, m = 48, on both phases (o =
+    +st reads its wrap on phase L - 1, o = -st on phase 0): the slab is laid
+    granule by granule (``tma_far_granules``: 1, 32, 128, 128 sites), each
+    granule from the source of its first site, and the consumer's read of
+    site c, granule c // g at c % g, finds the site's own source, (s + w) mod
+    ns on its phase, (s + o) mod ns elsewhere, exactly once a site; granules
+    whose source is a whole box within ns go as boxes (16-byte aligned, at
+    most ``tma_far_boxes`` a tile), the rest are copied (st = 1: every one;
+    else only those whose source crosses ns)."""
+    L, T, m = 32, 128, 48
+    ns = L ** 4
+    o = sign * st
+    (w, st_, L_, phase), = bsk.fold_terms((0, o), ((1, L),), ns).values()
+    assert st_ == st
+    g, = bsk.tma_far_granules(T, [st])
+    assert g == min(T, st)
+    s = np.arange(ns)
+    want = (s + np.where((s // st) % L == phase, w, o)) % ns
+    first = s - s % g  # the granule's first site
+    src = (first + np.where((first // st) % L == phase, w, o)) % ns
+    got = (src + s % g) % ns
+    assert np.array_equal(got, want)
+    boxed = (src % 4 == 0) & (g % 4 == 0) & (m * g % 32 == 0) & (src + g <= ns)
+    per_tile = boxed[::g].reshape(-1, T // g).sum(axis=1)
+    assert per_tile.max() <= bsk.tma_far_boxes(m, T, g)
+    if st == 1:
+        assert not boxed.any()
+    else:
+        assert per_tile.max() == T // g and (~boxed[::g]).sum() <= 2 * ns // st
+        assert (src[~boxed] + g > ns).all()

@@ -54,9 +54,13 @@ DIA stencil on bf16 or f32 diagonals and an f32 field, without and with its
 Gram) at (32, 128^3) and rows 22h, 23h and 23 (the per-site block stencil,
 bf16 blocks on either view and f32 blocks merged) on
 ``dirac_gauged_matrix(32)`` at k = 12, the ``[storage]`` shapes of
-``chip_smoke.py``, the same way; with ``--variants``, the plans' tiles,
-halos and ring depths of ``stencil_mma_f32`` and ``bs_tma`` and their probe
-builds with parts switched off. Every case prints the profiler's records of
+``chip_smoke.py``, the same way, beside rows 1x (f32 diagonals, a bf16
+field, (32, 128^3)), 1b (bf16, (32, 256^3)), row 2 at (32, 64^3) and (64,
+256^3), and the folded rows 24f (f32 and bf16 blocks) and 24fg (the fused
+Gram, and the apply followed by ``gram``), each line with its launches'
+plans; with ``--variants``, the plans' tiles, halos and ring depths of
+``stencil_mma_f32`` and ``bs_tma`` and their probe builds with parts
+switched off. Every case prints the profiler's records of
 each kernel over its calls (``records``; ``records_cold`` beside
 ``records_expected``, reps times one call's): where the cold count is not
 the expected one, ``device_us_cold`` is null.
@@ -106,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import os
 from itertools import chain
 import json
 import re
@@ -686,23 +691,36 @@ def short_cases(torch, dev):
            lambda: cbs.const_block_stencil_spmm_t(*main), nbytes / 3.35e12 * 1e6)
 
 
-def storage_cases(torch, dev):
-    """(name, fn, bound us) of ``chip_smoke.py``'s ``[storage]`` shapes:
-    rows 1m, 2m and 2 (the DIA stencil on bf16 and f32 diagonals with an f32
-    field, without and with its Gram) at (32, 128^3) on the 7-point
-    Laplacian, then rows 22h, 23h and 23 (the per-site block stencil on bf16
-    blocks, the (k, bs, ns) view and the merged one, and the merged one on
-    f32 blocks) on ``dirac_gauged_matrix(32)`` at k = 12 (about 40 s of host
-    build). Bounds as ``chip_smoke.py`` counts them: each input read once
-    and each output written once over 3.35 TB/s against the FLOPs over 67
-    TFLOP/s. First one line of rows 2m's and 2's Gram distance from the f64
-    Gram of X and the f32 sums, their contract."""
+def storage_cases(torch, dev, only: str | None = None):
+    """(name, fn, bound us[, plan]) of ``chip_smoke.py``'s ``[storage]``
+    shapes: rows 1m, 2m and 2 (the DIA stencil on bf16 and f32 diagonals
+    with an f32 field, without and with its Gram) and row 1x (f32 diagonals,
+    a bf16 field) at (32, 128^3) on the 7-point Laplacian, row 1b (bf16
+    diagonals and field) at config 5's (32, 256^3), row 2 also at (32, 64^3)
+    and (64, 256^3); then rows 22h, 23h and 23 (the per-site block
+    stencil on bf16 blocks, the (k, bs, ns) view and the merged one, and the
+    merged one on f32 blocks) and the folded rows 24f (f32 and bf16 blocks)
+    and 24fg (with the fused Gram, and the apply followed by ``gram``) on
+    ``dirac_gauged_matrix(32)`` at k = 12 (about 40 s of host build, skipped
+    where ``only`` leaves none of those rows). Bounds as ``chip_smoke.py``
+    counts them: each input read once and each output written once over
+    3.35 TB/s against the FLOPs over 67 TFLOP/s. First one line of rows 2m's
+    and 2's Gram distance from the f64 Gram of X and the f32 sums, their
+    contract."""
     from blockcg_tpu_torch.ops import block_stencil as bsk
-    from blockcg_tpu_torch.ops import stencil
+    from blockcg_tpu_torch.ops import fused, stencil
     from blockcg_tpu_torch.problems import dirac_gauged_matrix, laplacian_dia
 
     def bound(nbytes, flops):
         return max(nbytes / 3.35e12, flops / 67e12) * 1e6
+
+    def wanted(*names):
+        return only is None or any(re.search(only, name) for name in names)
+
+    def ring_plan(D, offsets, X):  # a checkout before the ring has no launch_plans
+        plans = getattr(stencil, "launch_plans", None)
+        return "; ".join(stencil.describe(p) for _, p in plans(D, offsets, X, False)) if plans \
+            else None
 
     gen = torch.Generator(device=dev).manual_seed(0)
     k = 32
@@ -711,14 +729,15 @@ def storage_cases(torch, dev):
     nnz = int(torch.count_nonzero(lap.diags))
     X = torch.randn((k, n), generator=gen, device=dev)
     d16 = lap.diags.bfloat16()
-    dist = {}
-    for D, row in ((d16, "2m"), (lap.diags, "2")):
-        Y, G = stencil.stencil_spmm_gram_t(D, lap.offsets, X)
-        G64 = X.double() @ Y.double().T
-        dist[row] = float(torch.linalg.norm(G.double() - G64) / torch.linalg.norm(G64))
-        del Y, G, G64
-    print(json.dumps({"case": "rows 2m, 2 gram contract distance (32, 128^3)", "dist": dist}),
-          flush=True)
+    if wanted("row 2m ", "row 2 "):
+        dist = {}
+        for D, row in ((d16, "2m"), (lap.diags, "2")):
+            Y, G = stencil.stencil_spmm_gram_t(D, lap.offsets, X)
+            G64 = X.double() @ Y.double().T
+            dist[row] = float(torch.linalg.norm(G.double() - G64) / torch.linalg.norm(G64))
+            del Y, G, G64
+        print(json.dumps({"case": "rows 2m, 2 gram contract distance (32, 128^3)",
+                          "dist": dist}), flush=True)
     for D, row, what in ((d16, "1m", "[bf16 coeffs]"), (d16, "2m", "[bf16 coeffs]"),
                          (lap.diags, "2", "")):
         fb = D.element_size() * nd * n + 8 * k * n
@@ -729,8 +748,39 @@ def storage_cases(torch, dev):
             yield (f"row {row} stencil_spmm_gram_t{what} (32, 128^3)",
                    lambda D=D: stencil.stencil_spmm_gram_t(D, lap.offsets, X),
                    bound(fb + 4 * k * k, 2 * k * nnz + 2 * k * k * n))
-    del X, lap, d16
-    op = dirac_gauged_matrix(32, m=0.5, device=dev)
+    X16 = X.bfloat16()
+    yield ("row 1x stencil_spmm_t[bf16 field] (32, 128^3)",
+           lambda: stencil.stencil_spmm_t(lap.diags, lap.offsets, X16),
+           bound(4 * nd * n + 4 * k * n, 2 * k * nnz), ring_plan(lap.diags, lap.offsets, X16))
+    del X, X16, lap, d16
+    if wanted("row 1b stencil_spmm_t[bf16] (32, 256^3)"):
+        lap = laplacian_dia((256,) * 3, dtype=torch.bfloat16, device=dev)
+        n, nd, nnz = lap.n, len(lap.offsets), int(torch.count_nonzero(lap.diags))
+        X = torch.randn((k, n), generator=gen, device=dev).bfloat16()
+        yield ("row 1b stencil_spmm_t[bf16] (32, 256^3)",
+               lambda lap=lap, X=X: stencil.stencil_spmm_t(lap.diags, lap.offsets, X),
+               bound(2 * nd * n + 4 * k * n, 2 * k * nnz), ring_plan(lap.diags, lap.offsets, X))
+        del lap, X
+    for edge, kk in ((64, 32), (256, 64)):
+        if not wanted(f"row 2 stencil_spmm_gram_t ({kk}, {edge}^3)"):
+            continue
+        lap = laplacian_dia((edge,) * 3, device=dev)
+        n, nnz = lap.n, int(torch.count_nonzero(lap.diags))
+        X = torch.randn((kk, n), generator=gen, device=dev)
+        yield (f"row 2 stencil_spmm_gram_t ({kk}, {edge}^3)",
+               lambda lap=lap, X=X: stencil.stencil_spmm_gram_t(lap.diags, lap.offsets, X),
+               bound(4 * len(lap.offsets) * n + 8 * kk * n + 4 * kk * kk,
+                     2 * kk * nnz + 2 * kk * kk * n))
+        del lap, X
+    if not wanted("row 22h block_stencil_spmm_t", "row 23h block_stencil_spmm_m_t",
+                  "row 23 block_stencil_spmm_m_t", "row 24f block_stencil_spmm_m_t",
+                  "row 24fg block_stencil_spmm_m_gram_t", "row 24fg via gram.cu"):
+        return
+    os.environ["BLOCKCG_FOLD"] = "1"  # the folded blocks beside the unfolded ones
+    try:
+        op = dirac_gauged_matrix(32, m=0.5, device=dev)
+    finally:
+        os.environ.pop("BLOCKCG_FOLD", None)
     k = 12
     blocks, offs = op.blocks, op.offsets
     nd, bs, _, ns = blocks.shape
@@ -739,6 +789,12 @@ def storage_cases(torch, dev):
     Xv = torch.randn((k, bs, ns), generator=gen, device=dev)
     b16 = blocks.bfloat16()
     bnnz = int(torch.count_nonzero(b16))
+    tma = getattr(bsk, "_tma_ok", None)  # a checkout before bs_tma has no TMA route
+
+    def describe(B, o, gram, fold=()):
+        kw = {"tma": tma(B, Xm, True)} if tma else {}
+        return "; ".join(p.describe() for _, p in bsk.launch_plans(B, o, k, gram, dev,
+                                                                    fold=fold, **kw))
     for B, row, what in ((b16, "22h", "[bf16 coeffs]"), (b16, "23h", "[bf16 coeffs]"),
                          (blocks, "23", "")):
         w = bound(B.numel() * B.element_size() + 8 * m * ns, 2 * k * bnnz)
@@ -746,11 +802,25 @@ def storage_cases(torch, dev):
             yield (f"row 22h block_stencil_spmm_t{what} ({k}, {bs}, 32^4)",
                    lambda B=B: bsk.block_stencil_spmm_t(B, offs, Xv), w)
         else:
-            tma = getattr(bsk, "_tma_ok", None)  # a checkout before bs_tma has no TMA route
-            plan = (bsk.launch_plans(B, offs, k, False, dev, tma=tma(B, Xm, True)) if tma else
-                    bsk.launch_plans(B, offs, k, False, dev))[0][1]
             yield (f"row {row} block_stencil_spmm_m_t{what} ({m}, 32^4)",
-                   lambda B=B: bsk.block_stencil_spmm_m_t(B, offs, Xm), w, plan.describe())
+                   lambda B=B: bsk.block_stencil_spmm_m_t(B, offs, Xm), w,
+                   describe(B, offs, False))
+    fb, foffs, fold = op.blocks_folded, op.fold_offsets, op.fold
+    del op, Xv, b16
+    fb16 = fb.bfloat16()
+    for B, what in ((fb, "[fold]"), (fb16, "[fold, bf16 coeffs]")):
+        w = (B.numel() * B.element_size() + 8 * m * ns, 2 * k * int(torch.count_nonzero(B)))
+        yield (f"row 24f block_stencil_spmm_m_t{what} ({m}, 32^4)",
+               lambda B=B: bsk.block_stencil_spmm_m_t(B, foffs, Xm, fold), bound(*w),
+               describe(B, foffs, False, fold))
+        if B is fb:
+            gw = bound(w[0] + 4 * m * m, w[1] + m * (m + 1) * ns)
+            yield (f"row 24fg block_stencil_spmm_m_gram_t[fold] ({m}, 32^4)",
+                   lambda: bsk.block_stencil_spmm_m_gram_t(fb, foffs, Xm, fold), gw,
+                   describe(fb, foffs, True, fold))
+            yield (f"row 24fg via gram.cu: block_stencil_spmm_m_t[fold] then gram ({m}, 32^4)",
+                   lambda: (lambda Y: (Y, fused.gram(Xm, Y)))(
+                       bsk.block_stencil_spmm_m_t(fb, foffs, Xm, fold)), gw)
 
 
 # Probe builds of rows 2m and 2 (csrc/stencil.cu stencil_mma_f32<ED, 32,
@@ -786,7 +856,7 @@ extern "C" int bt_probe(const void* blocks, const int* offsets, int nd, int bs, 
                                 h, groups, ki, 2, max_blocks, 2);
   if (err != cudaSuccess) return err;
   p.stages = stages;
-  if (bs > 4 || ki != 6 || !tma_launch_ok(p, blocks, stages)) return cudaErrorInvalidValue;
+  if (bs > 4 || ki != 6 || !tma_launch_ok(&p, blocks, stages)) return cudaErrorInvalidValue;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (probe) {{
@@ -896,14 +966,14 @@ def storage_variants(torch, dev, tmp: Path):
             continue
 
         def run(vplan=vplan):
-            _native.launch("variant", "bcg_block_stencil_tma", dev, p(b16), boffs, nd, bs, p(Xm),
-                           p(Ym), k, k, ns, vplan.h, vplan.groups, vplan.ki, vplan.stages,
-                           vplan.blocks)
+            _native.launch("variant", "bcg_block_stencil_tma", dev, p(b16), 2, boffs, None, nd,
+                           bs, p(Xm), p(Ym), k, k, ns, vplan.h, vplan.groups, vplan.ki,
+                           vplan.stages, vplan.blocks)
             return Ym
         name = "row 23h plan" if not kw else f"variant row 23h {kw}"
         yield f"{name} bs_tma (48, 32^4) [{vplan.describe()}]", run, bnd
-    cases = "".join(f"    case {v}: return launch_tma<4, 6, {v}>(p, max_blocks, device, "
-                    "stream);\n" for v, _ in BT_PROBES)
+    cases = "".join(f"    case {v}: return launch_tma<4, 6, bf16, false, {v}>(p, max_blocks, "
+                    "device, stream);\n" for v, _ in BT_PROBES)
     fn = _probe_lib(BT_PROBE.format(src=_native.CSRC / "block_stencil.cu", cases=cases),
                     "bt_probe", tmp)
     fn.argtypes, fn.restype = [P, IP, I, I, P, P, I, L, I, I, I, I, I, I, I, P], I
@@ -1749,8 +1819,8 @@ def main() -> None:
     ap.add_argument("--short", action="store_true",
                     help="time only rows 10, 10b and 14, whose event medians time the host")
     ap.add_argument("--storage", action="store_true",
-                    help="time only rows 1m, 2m, 2, 22h, 23h and 23 at [storage]'s shapes, "
-                         "with L2 flushed")
+                    help="time only rows 1m, 2m, 2, 1x, 22h, 23h, 23, 24f and 24fg at "
+                         "[storage]'s shapes, with L2 flushed")
     ap.add_argument("--only", default=None,
                     help="time only the cases whose name matches this regular expression")
     args = ap.parse_args()
@@ -1770,7 +1840,7 @@ def main() -> None:
                 if args.bf16 and args.variants
                 else bf16_cases(torch, dev) if args.bf16
                 else storage_variants(torch, dev, Path(tmp)) if args.storage and args.variants
-                else storage_cases(torch, dev) if args.storage
+                else storage_cases(torch, dev, args.only) if args.storage
                 else short_cases(torch, dev) if args.short
                 else sweep_cases(torch, dev) if args.sweep
                 else const_hop_variants(torch, dev, Path(tmp), args.only)
