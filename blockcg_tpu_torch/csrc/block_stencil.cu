@@ -487,7 +487,8 @@ cudaError_t make_launch(Launch* p, const void* blocks, const int* offsets, int n
 // ---- the merged view staged by TMA tensor boxes (bs_tma)
 //
 // Rows 23h and 24h (block_stencil_spmm_m_t on bf16 blocks, no Gram, no
-// folds) and the folded rows 24f and 24fg (fold=, f32 or bf16 blocks, with
+// folds), row 22h (block_stencil_spmm_t, the (k, bs, ns) view, on bf16
+// blocks) and the folded rows 24f and 24fg (fold=, f32 or bf16 blocks, with
 // or without the Gram, which gram.cu takes). bs_spmm's copies set its pace
 // at the rate of the warps that issue them (see the header: 8 producer
 // warps of 16-byte cp.async, 1.57 ms at 32^4, m = 48, for 2.42 GB of L2->SM
@@ -496,11 +497,14 @@ cudaError_t make_launch(Launch* p, const void* blocks, const int* offsets, int n
 // the window (a box of m rows by T + 2h sites of the f32 field), each
 // diagonal's bs^2 coefficient planes at the tile's sites (a box of a 3-D
 // map over (ns, bs^2, nd) of the blocks, f32 or bf16; sites past ns
-// zero-filled) and, for a far diagonal, its slab of m rows by T sites. The field is one 3-D map over (ns, k, bs)
-// with the merged view's strides, so a box lays the staged rows in the
-// order b * k + i, also on a launch of a chunk of right-hand sides. A box
-// lays its rows at its own width: the window's rows are T + 2h apart (the
-// lanes of a warp read consecutive sites of a row, conflict-free).
+// zero-filled) and, for a far diagonal, its slab of m rows by T sites. The
+// field is one 3-D map over (ns, k, bs) with the strides of its row map,
+// RHS i at si rows and spin b at sa rows (the merged view: 1 and ks; the (k,
+// bs, ns) view: bs and 1, strides that do not increase), so a box lays the
+// staged rows in the order b * k + i on either view, also on a launch of a
+// chunk of right-hand sides, and the consumers are the same. A box lays its
+// rows at its own width: the window's rows are T + 2h apart (the lanes of a
+// warp read consecutive sites of a row, conflict-free).
 //
 // Folds. A near folded diagonal (the x-axis pair at 32^4: +-1 and -+31 in h
 // = 32) reads the window at each site's own shift, as bs_spmm does. A far
@@ -773,12 +777,12 @@ cudaError_t launch_tma(const Launch& p, int max_blocks, int device, cudaStream_t
   int gf = p.T;
   for (int d = 0; d < p.nd; ++d) gf = min(gf, 1 << p.offs.fgl[d]);
   BtMaps maps{};
-  // The field as (ns, k, bs) with the merged view's strides (row b * ks + i:
-  // the spin stride ks rows, the RHS stride one row); the blocks as (ns,
-  // bs^2, nd).
+  // The field as (ns, k, bs) with the row map's strides (the RHS stride si
+  // rows, the spin stride sa: 1 and ks on the merged view, bs and 1 on the
+  // (k, bs, ns) view); the blocks as (ns, bs^2, nd).
   const cuuint64_t fdims[3] = {static_cast<cuuint64_t>(p.ns), static_cast<cuuint64_t>(p.k),
                                static_cast<cuuint64_t>(p.bs)};
-  const cuuint64_t fstrides[2] = {4ULL * p.ns, 4ULL * p.ns * p.row.sa};
+  const cuuint64_t fstrides[2] = {4ULL * p.ns * p.row.si, 4ULL * p.ns * p.row.sa};
   const cuuint32_t wbox[3] = {static_cast<cuuint32_t>(p.T + 2 * p.h),
                               static_cast<cuuint32_t>(p.k), static_cast<cuuint32_t>(p.bs)};
   const cuuint32_t fbox[3] = {static_cast<cuuint32_t>(p.T), static_cast<cuuint32_t>(p.k),
@@ -816,7 +820,7 @@ cudaError_t launch_tma(const Launch& p, int max_blocks, int device, cudaStream_t
   return cudaGetLastError();
 }
 
-// Whether a merged launch can run bs_tma: 16-byte aligned field and blocks,
+// Whether a launch can run bs_tma: 16-byte aligned field and blocks,
 // ns % 8 == 0 (16-byte rows of both), sites that fit a box coordinate, a
 // window box of at most 256 sites within ns, boxes of at most 256 rows and
 // spins, and a ring it holds. Sets each far slab's granule (its log2, fgl):
@@ -894,25 +898,27 @@ extern "C" int bcg_block_stencil_spmm(const void* blocks, int csize, const int* 
 #undef BCG_BS
 }
 
-// The merged view on bs_tma without the Gram (rows 23h and 24h: bf16
-// blocks, no folds; rows 24f and 24fg's apply: folded, f32 or bf16 blocks):
-// bcg_block_stencil_spmm's arguments for such a launch, h, groups, ki and
-// stages from ops/block_stencil.py block_stencil_plan with tma=True (T + 2h
-// <= 256, up to kBtMaxStages stages); X and the blocks 16-byte aligned, ns
-// % 8 == 0.
+// bs_tma without the Gram (rows 23h and 24h, the merged view, and row 22h,
+// the (k, bs, ns) view: bf16 blocks, no folds; rows 24f and 24fg's apply:
+// merged and folded, f32 or bf16 blocks): bcg_block_stencil_spmm's
+// arguments for such a launch (merged, ks and the chunks as there), h,
+// groups, ki and stages from ops/block_stencil.py block_stencil_plan with
+// tma=True (T + 2h <= 256, up to kBtMaxStages stages); X and the blocks
+// 16-byte aligned, ns % 8 == 0.
 extern "C" int bcg_block_stencil_tma(const void* blocks, int csize, const int* offsets,
                                      const int* fold, int nd, int bs, const float* X, float* Y,
-                                     int k, int ks, long long ns, int h, int groups, int ki,
-                                     int stages, int max_blocks, int device,
+                                     int k, int ks, long long ns, int merged, int h, int groups,
+                                     int ki, int stages, int max_blocks, int device,
                                      cudaStream_t stream) {
   Launch p;
   // make_launch checks the rest with bs_spmm's ring depth; the stages are checked here
-  cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, nullptr, false, k, ks, ns, 1,
-                                h, groups, ki, 2, max_blocks, csize, fold);
+  cudaError_t err = make_launch(&p, blocks, offsets, nd, bs, X, Y, nullptr, false, k, ks, ns,
+                                merged, h, groups, ki, 2, max_blocks, csize, fold);
   if (err != cudaSuccess) return err;
   p.stages = stages;
-  // unfolded launches take bf16 blocks alone
-  if (stages < 2 || (fold == nullptr && csize != 2) || !tma_launch_ok(&p, blocks, stages))
+  // unfolded launches take bf16 blocks alone, folded ones the merged view alone
+  if (stages < 2 || (fold == nullptr && csize != 2) || (fold != nullptr && merged == 0) ||
+      !tma_launch_ok(&p, blocks, stages))
     return cudaErrorInvalidValue;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

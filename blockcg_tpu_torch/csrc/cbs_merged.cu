@@ -3,12 +3,15 @@
 // once per group.
 //
 // Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
-// const_block_stencil_spmm_m_t (:617) and, with the Gram taken by gram.cu
-// on the stored Y, const_block_stencil_spmm_m_gram_t (:637). The (k, bs,
-// ns) view's kernels and the slab adds stay in const_block_stencil.cu.
+// const_block_stencil_spmm_m_t (:617), with the Gram taken by gram.cu on the
+// stored Y const_block_stencil_spmm_m_gram_t (:637), and on the (k, bs, ns)
+// view const_block_stencil_spmm_t (:330). The view's Gram kernel and the
+// slab adds stay in const_block_stencil.cu.
 //
-// Contract: a field is (m = bs * k, ns) float32, row a * k + i holding spin
-// a of right-hand side i. For every diagonal d,
+// Contract: a field is (m = bs * k, ns) float32 whose row map (RowMap in
+// common.cuh) puts spin a of right-hand side i in row a * k + i on the
+// merged view, in row i * bs + a on the (k, bs, ns) view. For every
+// diagonal d,
 //   Y[row(a, i), s] += w_d(s) * sum_b H_d[a][b] * X[row(b, i), (s + o_d) mod ns],
 // w_d(s) = masks[slot_d, s] when slot_d >= 0, else 1 (a value, not a gate:
 // the gauged operators carry +-1 links in it).
@@ -30,14 +33,17 @@
 // aligned quads and funnels them, the shift mod 4 a template argument. Far
 // ones read X from L2 a quad at a time, where L2 holds the band of the far
 // offsets (+-32,768 sites at m = 48 is 12.6 MB); the far diagonals of a hop
-// group come first in plan order, and the loads of up to NFB of them are
-// issued together. The diagonals are walked in hop-group order: a group's
-// masked windows are summed first (u = sum_d w_d X_d), then its bs x bs hop
-// is applied once (y += H u), as the reference's _m_kernel does with
-// _group_offsets: on config 4, 5 hop applies a site instead of 13. The host
+// group come first in plan order, and the loads of up to NFB consecutive
+// far diagonals are issued together. The diagonals are walked in hop-group
+// order: a group's masked windows are summed first (u = sum_d w_d X_d),
+// then its bs x bs hop is applied once (y += H u), as the reference's
+// _m_kernel does with _group_offsets: on config 4, 5 hop applies a site
+// instead of 13. The host
 // plan (ops/const_block_stencil.py const_block_stencil_plan) picks h, sw,
 // kb and the order from the offsets, the hops, the rows and the card's
-// shared memory. One launch takes any k.
+// shared memory. One launch takes any k. The staged window's rows are in the
+// order b * kb + ii on either view (the copies apply the row map), so the
+// sums do not depend on the view.
 //
 // What the variants showed (H100, tools/torch_kernel_times.py --const-hop
 // --variants, at (48, 32^4) on config 4; PERF.md section 6 has the tables):
@@ -84,7 +90,7 @@ struct CmDiags {
   int slot[kCmMaxDiags];   // mask row, or -1
   int hop[kCmMaxDiags];    // row of the hop table
   int flags[kCmMaxDiags];
-  int run[kCmMaxDiags];    // far diagonals from this one on in its group (0: near)
+  int run[kCmMaxDiags];    // consecutive far diagonals from this one on (0: near)
 };
 
 // Row stride of a window of T + 2h sites.
@@ -114,6 +120,7 @@ struct CmLaunch {
   long long ns;
   int nd, bs, k, kb, ng, h, T, nmask, nhop;
   bool vec;
+  RowMap row;  // the field's rows: the merged view's or the (k, bs, ns) view's
 };
 
 // PROBE: bits that switch parts of the kernel off, for timing probes only
@@ -138,7 +145,7 @@ __device__ __forceinline__ void cm_copy_row(float* d, const float* F, long long 
 
 // The block's copy of item (tile at i0, right-hand sides j0 .. j0 + kb - 1):
 // the window (bs * kb rows at sites i0 - h .. i0 + T + h, mod ns, in the
-// staged row order b * kb + ii, the merged row b * k + j0 + ii; a group
+// staged row order b * kb + ii, the field's row p.row(b, j0 + ii); a group
 // past k repeats RHS k - 1) and the mask rows (sites i0 .. i0 + T - 1, zero
 // past ns) into buf. Warp w of nw copies rows w, w + nw, ..., its lanes
 // over the sites.
@@ -150,7 +157,7 @@ __device__ __forceinline__ void cm_copy_tile(const CmLaunch& p, float* buf, long
   if (base < 0) base += p.ns;
   for (int r = warp; r < m; r += nwarps) {
     const int b = r / p.kb, i = min(j0 + r - b * p.kb, p.k - 1);
-    cm_copy_row(buf + r * W, p.X + (static_cast<long long>(b) * p.k + i) * p.ns, base,
+    cm_copy_row(buf + r * W, p.X + static_cast<long long>(p.row(b, i)) * p.ns, base,
                 p.T + 2 * p.h, p.ns, p.vec, lane);
   }
   float* wm = buf + m * W;
@@ -307,8 +314,11 @@ __device__ __forceinline__ void cm_sums(const CmLaunch& p, const float* hops, lo
       ++d;
       continue;
     }
-    // Up to NFB far diagonals of a group at once: their loads are issued
-    // together, then added in plan order.
+    // Up to NFB consecutive far diagonals at once, of one group or of
+    // several: their loads are issued together, then added in plan order
+    // (each member's sums as one at a time). On the ungrouped plan (a group
+    // a diagonal, the (k, bs, ns) view's) loads batched by group would go
+    // one at a time.
     const int nb = min(p.dg.run[d], NFB);
     float4 xf[NFB][BS];
 #pragma unroll
@@ -365,7 +375,7 @@ __global__ void __launch_bounds__(kCmMaxThreads) cm_spmm(const CmLaunch p) {
   cm_stage_hops<BS>(p, sh);
   const int warp = threadIdx.x / 32, sw = T / 128;
   const int c = 4 * ((warp % sw) * 32 + threadIdx.x % 32), ii = warp / sw;
-  const RowStrides rs = RowMap{p.k, 1}.times(p.ns);
+  const RowStrides rs = p.row.times(p.ns);
   float acc[BS][4];
   long long w = blockIdx.x;
   if (w < nitems && !(PROBE & kCmNoWindow))
@@ -417,18 +427,18 @@ cudaError_t cm_launch(const CmLaunch& p, int max_blocks, int device, cudaStream_
 // cudaErrorInvalidValue. order: nhop diagonal indices (into offsets, slots
 // and the hop table) in plan order; gid: each ordered diagonal's hop group
 // (a group's members consecutive, one hop). T: the tile's sites (a
-// multiple of 4); kb: right-hand sides a block.
+// multiple of 4); kb: right-hand sides a block; merged: the field's view.
 cudaError_t cm_make_launch(CmLaunch* p, const float* hops, int nhop, const int* offsets,
                            const int* slots, const int* order, const int* gid, int bs,
                            const float* masks, int nmask, const float* X, float* Y, int k,
-                           long long ns, int h, int T, int kb, int max_blocks) {
+                           long long ns, int h, int T, int kb, int max_blocks, int merged = 1) {
   if (nhop < 1 || nhop > kCmMaxDiags || bs < 1 || bs > kCmMaxBs || k < 1 || kb < 1 ||
       bs * kb > kCmMaxRows || ns < 1 || T < 4 || T % 4 != 0 || h < 0 ||
       h % 4 != 0 || nmask < 0 || (nmask > 0) != (masks != nullptr) || max_blocks < 1)
     return cudaErrorInvalidValue;
   const int nd = nhop;
   *p = CmLaunch{hops, masks, X, Y, {}, ns, nd, bs, k, kb, (k + kb - 1) / kb, h, T, nmask, nhop,
-                false};
+                false, row_map(merged != 0, bs, k)};
   bool seen[kCmMaxDiags] = {};
   for (int d = 0; d < nd; ++d) {
     const int e = order[d];
@@ -449,10 +459,8 @@ cudaError_t cm_make_launch(CmLaunch* p, const float* hops, int nhop, const int* 
     p->dg.hop[d] = e;  // the group applies its last member's hop: the plan groups equal hops
     p->dg.flags[d] = flags;
   }
-  for (int d = nd - 1; d >= 0; --d) {
-    const bool chain = d + 1 < nd && gid[d + 1] == gid[d] && p->dg.run[d + 1] > 0;
-    p->dg.run[d] = p->dg.sh[d] != kCmFar ? 0 : 1 + (chain ? p->dg.run[d + 1] : 0);
-  }
+  for (int d = nd - 1; d >= 0; --d)
+    p->dg.run[d] = p->dg.sh[d] != kCmFar ? 0 : 1 + (d + 1 < nd ? p->dg.run[d + 1] : 0);
   p->vec = ns % 4 == 0 && aligned16(X) && aligned16(Y) && (masks == nullptr || aligned16(masks));
   return cudaSuccess;
 }
@@ -463,20 +471,20 @@ cudaError_t cm_make_launch(CmLaunch* p, const float* hops, int nhop, const int* 
 // diagonals; offsets reduced to [0, ns)); hops: device (nhop, bs, bs);
 // masks: device (nmask, ns), or null with nmask = 0. order, gid: host arrays
 // of nhop entries, the plan's diagonal order and hop groups. X, Y: device
-// merged fields of m = bs * k rows (row b * k + i). h, sw, kb and
-// max_blocks come from ops/const_block_stencil.py const_block_stencil_plan
-// (T = 128 * sw sites a tile, sw one of 1, 2, 4; kb right-hand sides a
-// block, kb * sw <= 12).
+// fields of m = bs * k rows, merged (row b * k + i) when merged != 0, else
+// the (k, bs, ns) view (row i * bs + b). h, sw, kb and max_blocks come from
+// ops/const_block_stencil.py const_block_stencil_plan (T = 128 * sw sites a
+// tile, sw one of 1, 2, 4; kb right-hand sides a block, kb * sw <= 12).
 extern "C" int bcg_cbs_merged_spmm(const float* hops, int nhop, const int* offsets,
                                    const int* slots, const int* order, const int* gid, int bs,
                                    const float* masks, int nmask, const float* X, float* Y,
-                                   int k, long long ns, int h, int sw, int kb, int max_blocks,
-                                   int device, cudaStream_t stream) {
+                                   int k, long long ns, int merged, int h, int sw, int kb,
+                                   int max_blocks, int device, cudaStream_t stream) {
   if ((sw != 1 && sw != 2 && sw != 4) || kb * sw * 32 > kCmMaxThreads)
     return cudaErrorInvalidValue;
   CmLaunch p;
   cudaError_t err = cm_make_launch(&p, hops, nhop, offsets, slots, order, gid, bs, masks, nmask,
-                                   X, Y, k, ns, h, 128 * sw, kb, max_blocks);
+                                   X, Y, k, ns, h, 128 * sw, kb, max_blocks, merged);
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

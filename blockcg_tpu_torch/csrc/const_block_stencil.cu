@@ -1,21 +1,20 @@
-// Const-hop block stencil (optionally with the fused Gram) on the (k, bs,
-// ns) view, and the slab accumulate of the periodic wrap diagonals on merged
-// spin-major fields and on that view. (The merged view's main kernels run
-// cbs_merged.cu.)
+// Const-hop block stencil with the fused Gram on the (k, bs, ns) view, and
+// the slab accumulate of the periodic wrap diagonals on merged spin-major
+// fields and on that view. (The main kernels without the Gram, both views,
+// run cbs_merged.cu; this one's plain apply, G null, serves the on-card
+// tests as the bitwise reference of the view's apply there.)
 //
 // Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
 // slab_m_accumulate (:780) and slab_m_accumulate_from (:846) on the merged
-// view, and const_block_stencil_spmm_t (:330),
-// const_block_stencil_spmm_gram_t (:361), slab_block_accumulate (:691) and
-// slab_block_accumulate_from (:955) on the (k, bs, ns) view.
+// view, and const_block_stencil_spmm_gram_t (:361), slab_block_accumulate
+// (:691) and slab_block_accumulate_from (:955) on the (k, bs, ns) view.
 //
 // Layout: a field is (m, ns) float32 with m = bs * k; site s of row r sits at
 // F[r * ns + s]. The row map is a runtime pair of strides (RowMap in
 // common.cuh): on the merged view row a * k + i holds spin a of right-hand
 // side i; on the (k, bs, ns) view, row i * bs + a. One slab instantiation
-// serves both. At k = 1 the two views are the same memory, and the main
-// kernel here does the arithmetic of cbs_merged.cu's groups of one, so the
-// two routes give the same bits.
+// serves both. The main kernel here does the arithmetic of cbs_merged.cu's
+// groups of one, so on the ungrouped plan the two give the same bits.
 //
 // Contract, main kernel: for every diagonal d of the main set,
 //   Y[row(a, i), s] += w_d(s) * sum_b H_d[a][b] * X[row(b, i), (s + o_d) mod ns],

@@ -231,7 +231,8 @@ class ConstBlockDIAOperator(MatmatMixin, nn.Module):
         adds in place."""
         self._check_device(Xv)
         Yv = cbs.const_block_stencil_spmm_t(self.hops_main, self.main_offsets,
-                                            self.main_slots, self.masks_main, Xv)
+                                            self.main_slots, self.masks_main, Xv,
+                                            self.main_plans)
         for d, g, nblocks, dst_mul, dst_off, src_shift in self.slabs:
             Yv = cbs.slab_block_accumulate(self.hops_all[d], g, nblocks, dst_mul,
                                            dst_off, src_shift, Xv, Yv)

@@ -341,13 +341,13 @@ def library() -> ctypes.CDLL:
                                  P, P, I, L, I, I, P]
     IP = ctypes.POINTER(ctypes.c_int)
     lib.bcg_cbs_merged_spmm.argtypes = [P, I, IP, IP, IP, IP, I, P, I, P, P, I, L, I, I, I, I,
-                                        I, P]
+                                        I, I, P]
     lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P,
                                         I, I, L, I, I, I, P]
     lib.bcg_block_stencil_spmm.argtypes = [P, I, IP, IP, I, I, P, P, P, P, I, I, L, I, I,
                                            I, I, I, I, I, P]
     lib.bcg_block_stencil_tma.argtypes = [P, I, IP, IP, I, I, P, P, I, I, L, I, I, I, I, I,
-                                          I, P]
+                                          I, I, P]
     lib.bcg_block_stencil_tma.restype = I
     F = ctypes.c_float
     lib.bcg_cheb_step.argtypes = [P, P, P, P, P, P, F, F, L, I, P]

@@ -45,9 +45,12 @@ launch on bf16 blocks without the Gram or folds (rows 23h, 24h) runs the
 same arithmetic on TMA tensor boxes (``bs_tma``: one request a window, a
 diagonal's coefficient planes or a far slab, issued by one producer warp;
 ``block_stencil_plan(..., tma=True)``) where TMA can map its operands
-(``_tma_ok``) and the schedule fits; so does a folded launch on f32 or bf16
-blocks (rows 24f, 24fg, whose Gram ``fused.gram`` takes), a far folded
-diagonal's slab as one box a run of sites that share their source.
+(``_tma_ok``) and the schedule fits, and so does a launch of the (k, bs, ns)
+view on bf16 blocks (row 22h: the field's 3-D map takes the view's strides,
+so the staged rows and the consumers are the merged launch's); so does a
+folded launch on f32 or bf16 blocks (rows 24f, 24fg, whose Gram
+``fused.gram`` takes), a far folded diagonal's slab as one box a run of
+sites that share their source.
 """
 
 from __future__ import annotations
@@ -226,10 +229,10 @@ def block_stencil_plan(offsets: tuple[int, ...], ns: int, bs: int, k: int, with_
     kernel then reads each site's X from the window at its own shift; a far
     one stages each site's X from its own source. ``csize``: bytes of a
     block element (2 on bf16 blocks). ``h``, ``groups`` and ``stages`` pin those
-    choices (the timing tool's variants). ``tma``: a merged launch whose
-    field and blocks TMA can map (``_tma_ok``), on bf16 blocks without the
-    Gram or folds, or folded (``wraps``) on either blocks, with or without
-    the Gram (then from ``fused.gram``: at 32^4, m = 48 the apply and
+    choices (the timing tool's variants). ``tma``: a launch whose field and
+    blocks TMA can map (``_tma_ok``), on bf16 blocks without the Gram or
+    folds (either view), or folded (``wraps``, merged) on either blocks, with
+    or without the Gram (then from ``fused.gram``: at 32^4, m = 48 the apply and
     ``gram`` took 1.165 ms on an H100, the Gram fused in ``bs_tma`` 1.275,
     PERF.md); it takes ``bs_tma``'s schedule
     (``tma_smem_bytes``, halos with T + 2h at most ``TMA_MAX_BOX`` and ns,
@@ -366,13 +369,13 @@ def block_stencil_v_plain(blocks, offsets, Xv):
 # ------------------------------------------------------------------ wrappers
 
 
-def _tma_ok(blocks, X, merged: bool) -> bool:
+def _tma_ok(blocks, X) -> bool:
     """Whether TMA can map a launch's operands (``csrc/block_stencil.cu``
-    tma_launch_ok): the merged view on f32 or bf16 blocks, ns % 8 == 0
-    (16-byte rows of both) and 16-byte aligned storage. Which launches take
-    it is ``block_stencil_plan``'s choice."""
+    tma_launch_ok): either view on f32 or bf16 blocks, ns % 8 == 0 (16-byte
+    rows of both) and 16-byte aligned storage. Which launches take it is
+    ``block_stencil_plan``'s choice (unfolded f32 blocks keep ``bs_spmm``)."""
     ns = blocks.shape[-1]
-    return (merged and blocks.dtype in (torch.float32, torch.bfloat16) and ns % 8 == 0
+    return (blocks.dtype in (torch.float32, torch.bfloat16) and ns % 8 == 0
             and ns < 2 ** 30 and blocks.data_ptr() % 16 == 0 and X.data_ptr() % 16 == 0)
 
 
@@ -424,7 +427,7 @@ def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str
     p = _native.ptr
     G = None
     for (j0, j1), plan in launch_plans(blocks, offsets, k, with_gram, X.device, name, fold,
-                                       _tma_ok(blocks, X, merged)):
+                                       _tma_ok(blocks, X)):
         part = None
         if plan.fused_gram:
             m = bs * k
@@ -433,8 +436,9 @@ def _launch(blocks, offsets, X, k: int, merged: bool, with_gram: bool, name: str
         if plan.tma:
             _native.launch(label(name, blocks, fold), "bcg_block_stencil_tma", X.device,
                            p(blocks), blocks.element_size(), offs, table, nd, bs,
-                           p(X) + j0 * row, p(Y) + j0 * row, j1 - j0, k, ns, plan.h,
-                           plan.groups, plan.ki, plan.stages, plan.blocks)
+                           p(X) + j0 * row, p(Y) + j0 * row, j1 - j0,
+                           k if merged else j1 - j0, ns, int(merged), plan.h, plan.groups,
+                           plan.ki, plan.stages, plan.blocks)
             continue
         _native.launch(label(name, blocks, fold), "bcg_block_stencil_spmm", X.device,
                        p(blocks), blocks.element_size(), offs, table, nd, bs,

@@ -42,16 +42,19 @@ the tile, the group of right-hand sides and the diagonals' order on the
 host; ``hop_groups`` is the reference's ``_group_offsets``; an operator
 keeps its plans in a ``MergedPlans``). Row 17's Gram is ``fused.gram`` of X and the stored Y:
 on the card that took less time than every fused Gram tried (see the
-kernel's notes). The (k, bs, ns) view's kernels and the slab adds run
-``csrc/const_block_stencil.cu``, whose row map is a pair of runtime strides
-(the slab adds take both views).
+kernel's notes). The (k, bs, ns) view's apply without the Gram (row 14)
+runs the same kernel with the view's row map on the ungrouped plan (a group
+a diagonal, in diagonal order), which gives the bits of the view's kernel in
+``csrc/const_block_stencil.cu``; that kernel keeps the view's Gram (row 15)
+and the slab adds, whose row map is a pair of runtime strides (the slab
+adds take both views).
 
-Width: the merged kernel takes any k in one launch (its blocks take groups
-of right-hand sides); the other kernels at most 64 rows after bs is rounded
-up to a power of two (``rhs_width(bs)`` right-hand sides), and a wider
-field runs as one launch per chunk of right-hand sides (on the (k, bs, ns)
-view a chunk is contiguous). A view Gram wider than one launch is ``fused.gram`` of X and the
-stored Y on the flat fields; the slab's with-Gram form computes its
+Width: the merged kernel takes any k in one launch on either view (its
+blocks take groups of right-hand sides); the other kernels at most 64 rows
+after bs is rounded up to a power of two (``rhs_width(bs)`` right-hand
+sides), and a wider field runs as one launch per chunk of right-hand sides
+(on the (k, bs, ns) view a chunk is contiguous). A view Gram wider than one
+launch is ``fused.gram`` of X and the stored Y on the flat fields; the slab's with-Gram form computes its
 increment on the slab's columns alone, takes its Gram there, and adds it, so
 Y's bits are the one-launch add's.
 
@@ -118,6 +121,13 @@ CM_SW = (4, 2, 1)  # warps a right-hand side (tiles of 128 * sw sites), widest f
 # and 0.604 for all 12 on 12 warps (H100, tools/torch_kernel_times.py
 # --const-hop --variants, one call): two blocks an SM hold 16 warps.
 CM_KB, CM_WARPS = 4, 8
+# Warps an SM the plan's second key counts up to (the blocks an SM the
+# shared memory holds times kb * sw): at one right-hand side (kb = 1, the
+# (k, bs, ns) view's apply on the even-odd hop) a 16-site halo that lets
+# three 4-warp blocks onto an SM took 42.9 device us where the 512-site one
+# that leaves only the +-16,384 diagonals to L2, at two blocks, took 49.9
+# (H100, tools/torch_kernel_times.py --short --variants; PERF.md).
+CM_SM_WARPS = 12
 
 
 def _spin_width(bs: int) -> int:
@@ -189,10 +199,11 @@ def const_block_stencil_plan(offsets: tuple[int, ...], hops: tuple, nmask: int, 
     for the diagonals' ``offsets`` and ``hops`` (nested tuples: equal hops
     form a group, by ``hop_groups``) and ``nmask`` mask rows. A block takes
     ``kb = min(k, 4)`` right-hand sides; among the tiles (``sw`` of 4, 2, 1
-    with kb * sw <= 8 warps) and halos (0, and each offset's distance rounded
-    up to 4) whose shared memory fits ``smem_cap``, it keeps two blocks an
-    SM where it can, then the least L2->SM traffic of X (wider tiles first),
-    then the smaller halo. A diagonal is near when its offset mod ns lies
+    with kb * sw <= 8 warps) and halos (0, and each offset's distance
+    rounded up to 4) whose shared memory fits ``smem_cap``, it keeps two
+    blocks an SM where it can, then the most warps an SM up to
+    ``CM_SM_WARPS`` (blocks of fewer warps, kb = 1), then the least L2->SM
+    traffic of X (wider tiles first), then the smaller halo. A diagonal is near when its offset mod ns lies
     within h of 0 or of ns, the rule the kernel applies. ``h``, ``sw``,
     ``kb`` (kb * sw <= 12, bs * kb <= 96) and ``grouped`` (False: a group a
     diagonal, the default at k = 1, where the merged kernel then gives the
@@ -231,7 +242,7 @@ def const_block_stencil_plan(offsets: tuple[int, ...], hops: tuple, nmask: int, 
         # Each group's far diagonals first, so that their loads go together.
         order = tuple(d for g in groups for d in sorted(g, key=lambda d: not far[d]))
         traffic = (T + 2 * hh) / T + sum(far)
-        key = (-min(fit, 2), traffic, hh)
+        key = (-min(fit, 2), -min(fit * kb * ww, CM_SM_WARPS), traffic, hh)
         if best_key is None or key < best_key:
             best_key = key
             items = -(-ns // T) * -(-k // kb)
@@ -249,28 +260,36 @@ def hop_table_key(hops) -> tuple:
     return tuple(tuple(tuple(row) for row in h) for h in hops)
 
 
-def launch_plan(hop_key: tuple, offsets, nmask: int, k: int, ns: int, device) -> ConstHopPlan:
-    """The plan of the one merged launch of k right-hand sides, for the
-    diagonals' ``hop_table_key``, on ``device``'s card."""
+def launch_plan(hop_key: tuple, offsets, nmask: int, k: int, ns: int, device,
+                view: bool = False) -> ConstHopPlan:
+    """The plan of the one ``csrc/cbs_merged.cu`` launch of k right-hand
+    sides, for the diagonals' ``hop_table_key``, on ``device``'s card: the
+    merged view's, or (``view``) the (k, bs, ns) view's without the Gram (row
+    14), ungrouped (a group a diagonal, in diagonal order), so that Y has the
+    bits of the view's kernel in ``csrc/const_block_stencil.cu``."""
     offs = tuple(int(o) % ns for o in offsets)
     cap, sms = _native.max_smem(device.index), _native.sm_count(device.index)
-    return const_block_stencil_plan(offs, hop_key, nmask, len(hop_key[0]), k, ns, cap, sms)
+    return const_block_stencil_plan(offs, hop_key, nmask, len(hop_key[0]), k, ns, cap, sms,
+                                    grouped=False if view else None)
 
 
 class MergedPlans:
-    """The ``launch_plan`` of one operator's merged applies, made from its
+    """The ``launch_plan`` of one operator's ``csrc/cbs_merged.cu`` applies
+    (merged, and the (k, bs, ns) view's without the Gram), made from its
     host hop table (``hop_table_key``, taken when the operator is built)
-    once per width and device."""
+    once per width, view and device."""
 
     def __init__(self, hop_key: tuple):
         self.hop_key = hop_key
         self._made: dict = {}
 
-    def get(self, offsets, nmask: int, k: int, ns: int, device) -> ConstHopPlan:
-        key = (k, ns, device.index)
+    def get(self, offsets, nmask: int, k: int, ns: int, device,
+            view: bool = False) -> ConstHopPlan:
+        key = (k, ns, device.index, view)
         got = self._made.get(key)
         if got is None:
-            got = self._made[key] = launch_plan(self.hop_key, offsets, nmask, k, ns, device)
+            got = self._made[key] = launch_plan(self.hop_key, offsets, nmask, k, ns, device,
+                                                view)
         return got
 
 
@@ -396,18 +415,28 @@ def slab_v_from_plain(hop, g, nblocks, dst_base, src_base, Src, Yv):
 # ------------------------------------------------------------------ wrappers
 
 
-def _launch_view(hops, offsets, mask_slot, masks, X, k: int, with_gram: bool, name: str):
-    """Launch ``csrc/const_block_stencil.cu`` on a contiguous (k, bs, ns)
-    view or its flat form, one launch per chunk of right-hand sides. Returns
-    (Y shaped like X, the (k, k) Gram or None)."""
+def _launch_view(hops, offsets, mask_slot, masks, X, k: int, with_gram: bool, name: str,
+                 plans=None):
+    """Launch on a contiguous (k, bs, ns) view or its flat form: without the
+    Gram (row 14) one ``csrc/cbs_merged.cu`` launch with the view's row map,
+    on the view's plan from ``plans`` (a ``MergedPlans``; by default made
+    from the hop table, which is then read from the card); with it (row 15)
+    ``csrc/const_block_stencil.cu``, one launch per chunk of right-hand
+    sides. Returns (Y shaped like X, the (k, k) Gram or None)."""
     from blockcg_tpu_torch.ops import fused
 
     nd, bs, _ = hops.shape
     m = bs * k
     ns = X.numel() // m
-    chunks = _native.row_chunks(k, rhs_width(bs, name))
     if nd > MAX_DIAGS:
         raise ValueError(f"{name}: {nd} diagonals, the CUDA kernel takes at most {MAX_DIAGS}")
+    if not with_gram:
+        if plans is None:
+            plans = MergedPlans(hop_table_key(hops.tolist()))
+        plan = plans.get(offsets, 0 if masks is None else masks.shape[0], k, ns, X.device,
+                         view=True)
+        return _launch_cm(hops, offsets, mask_slot, masks, X, k, ns, False, plan, name), None
+    chunks = _native.row_chunks(k, rhs_width(bs, name))
     offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
     slots = (ctypes.c_int * nd)(*mask_slot)
     Y = torch.empty_like(X)
@@ -446,14 +475,24 @@ def _launch_merged(hops, offsets, mask_slot, masks, X, with_gram: bool, name: st
         plan = MergedPlans(hop_table_key(hops.tolist()))
     if isinstance(plan, MergedPlans):
         plan = plan.get(offsets, nmask, k, ns, X.device)
+    Y = _launch_cm(hops, offsets, mask_slot, masks, X, k, ns, True, plan, name)
+    return Y, (fused.gram(X, Y) if with_gram else None)
+
+
+def _launch_cm(hops, offsets, mask_slot, masks, X, k: int, ns: int, merged: bool,
+               plan: ConstHopPlan, name: str) -> torch.Tensor:
+    """One ``csrc/cbs_merged.cu`` launch on ``plan`` of a contiguous field
+    of k right-hand sides, the merged view or (``merged`` False) the (k, bs,
+    ns) view; returns Y shaped like X."""
+    nd, bs, _ = hops.shape
     cint = ctypes.c_int * nd
     Y = torch.empty_like(X)
     p = _native.ptr
     _native.launch(name, "bcg_cbs_merged_spmm", X.device, p(hops), nd,
                    cint(*(int(o) % ns for o in offsets)), cint(*mask_slot), cint(*plan.order),
-                   cint(*plan.gid), bs, p(masks), nmask, p(X), p(Y), k, ns, plan.h, plan.sw,
-                   plan.kb, plan.blocks)
-    return Y, (fused.gram(X, Y) if with_gram else None)
+                   cint(*plan.gid), bs, p(masks), 0 if masks is None else masks.shape[0], p(X),
+                   p(Y), k, ns, int(merged), plan.h, plan.sw, plan.kb, plan.blocks)
+    return Y
 
 
 def launch_planned(hops: torch.Tensor, offsets, mask_slot, masks, Xm: torch.Tensor,
@@ -476,7 +515,7 @@ def _main(hops, offsets, mask_slot, masks, Xm, with_gram: bool, name: str, plans
     return _launch_merged(hops, offsets, mask_slot, masks, Xm, with_gram, name, plans)
 
 
-def _view(hops, offsets, mask_slot, masks, Xt, with_gram: bool, name: str):
+def _view(hops, offsets, mask_slot, masks, Xt, with_gram: bool, name: str, plans=None):
     """The (k, bs, ns) view or its flat (k, bs*ns) form; Y comes back in
     Xt's shape."""
     hops = _hops(hops, Xt)
@@ -494,7 +533,7 @@ def _view(hops, offsets, mask_slot, masks, Xt, with_gram: bool, name: str):
         Yv, G = const_block_stencil_v_plain(hops, offsets, mask_slot, masks,
                                             Xt.reshape(k, bs, ns), with_gram)
         return Yv.reshape(Xt.shape), G
-    return _launch_view(hops, offsets, mask_slot, masks, Xt, k, with_gram, name)
+    return _launch_view(hops, offsets, mask_slot, masks, Xt, k, with_gram, name, plans)
 
 
 def const_block_stencil_spmm_m_t(hops, offsets: tuple[int, ...],
@@ -525,11 +564,13 @@ def const_block_stencil_spmm_m_gram_t(hops, offsets: tuple[int, ...],
 def const_block_stencil_spmm_t(hops, offsets: tuple[int, ...],
                                mask_slot: tuple[int, ...],
                                masks: torch.Tensor | None,
-                               Xt: torch.Tensor) -> torch.Tensor:
+                               Xt: torch.Tensor,
+                               plans: MergedPlans | None = None) -> torch.Tensor:
     """Const-hop block SpMM on the (k, bs, ns) view, or its flat (k, bs*ns)
-    form; returns Yt shaped like Xt."""
+    form; returns Yt shaped like Xt. ``plans`` as in
+    :func:`const_block_stencil_spmm_m_t`."""
     return _view(hops, offsets, mask_slot, masks, Xt, False,
-                 "const_block_stencil_spmm_t")[0]
+                 "const_block_stencil_spmm_t", plans)[0]
 
 
 def const_block_stencil_spmm_gram_t(hops, offsets: tuple[int, ...],

@@ -246,6 +246,60 @@ MMA_F32_PREFETCH = 2  # csrc/stencil.cu kStF32Prefetch: far diagonals loaded a s
 # Tile widths of its plan: at (32, 128^3) T = 512 (1.5 reads of X a column)
 # ran slower than T = 256 (2.0): 475 against 452 device us (H100, PERF.md).
 MMA_F32_TILES = (128, 256)
+# csrc/stencil.cu StMma<W>'s (QM, QN) by the Gram's width W: a launch's 16
+# warps in QM row groups, each of which computes the SpMM of every row of Y
+# it holds, by QN column groups, each of which reads all of its rows of X
+# (the A fragments) at every column.
+MMA_SPLIT = {8: (1, 1), 16: (1, 2), 32: (1, 2), 64: (2, 4)}
+
+
+def mma_gram_width(k: int) -> int:
+    """W of a launch of k <= 64 rows (``csrc/stencil.cu`` mma_gram_width)."""
+    return 8 if k <= 8 else 16 if k <= 16 else 32 if k <= 32 else 64
+
+
+def f32_gram_reads(ndiag: int, chunks) -> int:
+    """The rows of X and Y an f32 field's Gram route reads into registers
+    per column, on the row ``chunks`` its ``stencil_mma_f32`` launches take:
+    a launch of kc rows reads each row once a diagonal in each of its QM row
+    groups (the SpMM, from the window or from L2) and once in each of its
+    QN column groups (the Gram's A fragments; ``MMA_SPLIT``); each block of
+    G between two chunks is a ``gram`` launch (``fused.gram_blocks``) that
+    reads its rows of X and of Y once."""
+    from blockcg_tpu_torch.ops import fused
+
+    k = chunks[-1][1]
+    reads = 0
+    for r0, r1 in chunks:
+        qm, qn = MMA_SPLIT[mma_gram_width(r1 - r0)]
+        reads += (r1 - r0) * (qm * ndiag + qn)
+    if len(chunks) > 1:
+        reads += sum(r1 - r0 + s1 - s0 for what, r0, r1, s0, s1, _ in
+                     fused.gram_blocks(k, chunks) if what == "launch")
+    return reads
+
+
+@functools.lru_cache(maxsize=256)
+def f32_gram_chunks(ndiag: int, k: int) -> tuple[tuple[int, int], ...]:
+    """The row chunks an f32 field's Gram runs as, one ``stencil_mma_f32``
+    launch each, the Gram's blocks between chunks from ``gram``: of the
+    splits into chunks of at most 64, 32, 16 or 8 rows (``_native.row_chunks``)
+    the one with the least ``f32_gram_reads``, ties to fewer chunks. The
+    traffic that model counts is the one that grows faster than a launch's
+    rows: at 64 rows two row groups each compute every row's SpMM and four
+    column groups each read all 64 rows of X, at 32 rows one and two. On
+    the 7-point operators (7 diagonals) 64 rows split into two launches of
+    32 (576 + 128 reads against 1,152): 12,253 against 15,309 device us at
+    (64, 256^3) (H100, PERF.md); 32 rows stay one launch (288 against 352
+    as two of 16): 460 us at (32, 128^3), where the SpMM followed by
+    ``gram`` took 596."""
+    best = None
+    for width in (64, 32, 16, 8):
+        chunks = tuple(_native.row_chunks(k, width))
+        key = (f32_gram_reads(ndiag, chunks), len(chunks))
+        if best is None or key < best[0]:
+            best = (key, chunks)
+    return best[1]
 
 
 def mma_f32_window_ld(h: int, T: int) -> int:
@@ -503,7 +557,8 @@ def _ring_ok(diags, Xt) -> bool:
 
 def launch_plans(diags, offsets, Xt, with_gram: bool):
     """``[((r0, r1), plan), ...]``: the row chunks a field runs as, one
-    launch each, and the plan of each: a ``RingPlan`` (``stencil_ring``) for
+    launch each (an f32 field's Gram on ``f32_gram_chunks``), and the plan of
+    each: a ``RingPlan`` (``stencil_ring``) for
     a bf16 field without the Gram where one fits with less traffic than
     ``stencil_plan``'s and the operands suit it (``_ring_ok``), else a
     ``StencilPlan`` (``stencil_mma_plan`` for a bf16 field's Gram,
@@ -513,8 +568,10 @@ def launch_plans(diags, offsets, Xt, with_gram: bool):
     offsets = tuple(int(o) for o in offsets)
     cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
     ring_ok = not with_gram and _ring_ok(diags, Xt)
+    f32_gram = with_gram and Xt.dtype != torch.bfloat16
     out = []
-    for r0, r1 in _native.row_chunks(Xt.shape[0]):
+    for r0, r1 in (f32_gram_chunks(len(offsets), Xt.shape[0]) if f32_gram
+                   else _native.row_chunks(Xt.shape[0])):
         kc = r1 - r0
         if with_gram and Xt.dtype == torch.bfloat16:
             plan = stencil_mma_plan(offsets, n, kc, cap, sms, diags.element_size())
@@ -551,8 +608,7 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
                          f"diagonals (at most {MAX_DIAGS})")
     offsets = tuple(int(o) for o in offsets)
     label, fn = _native.pair_variant(name, "bcg_stencil_spmm", pair)
-    chunks = _native.row_chunks(k)
-    if with_gram and Xt.dtype == torch.bfloat16 and len(chunks) > 1:
+    if with_gram and Xt.dtype == torch.bfloat16 and k > _native.MAX_K:
         # a bf16 Y has lost the f32 sums the cross blocks need
         return _launch_wide_mma(diags, offsets, Xt, f"{label[:-1]}, wide]",
                                 fn.replace("bcg_stencil_spmm", "bcg_stencil_mma_cols"))
@@ -560,7 +616,9 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
     Y = torch.empty_like(Xt)
     p = _native.ptr
     diag = []
-    for (r0, r1), plan in launch_plans(diags, offsets, Xt, with_gram):
+    plans = launch_plans(diags, offsets, Xt, with_gram)
+    chunks = [rows for rows, _ in plans]
+    for (r0, r1), plan in plans:
         kc = r1 - r0
         if isinstance(plan, RingPlan):
             _native.launch(label, fn.replace("bcg_stencil_spmm", "bcg_stencil_ring"), Xt.device,

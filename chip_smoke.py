@@ -142,7 +142,7 @@ KERNELS = {
     "block_stencil_spmm_t": ("blockcg_tpu_torch/csrc/block_stencil.cu",
                              "blockcg_tpu/ops/block_stencil.py:94"),
     "cheb_step": ("blockcg_tpu_torch/csrc/cheb_step.cu", "blockcg_tpu/ops/fused.py:670"),
-    "const_block_stencil_spmm_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+    "const_block_stencil_spmm_t": ("blockcg_tpu_torch/csrc/cbs_merged.cu",
                                    "blockcg_tpu/ops/const_block_stencil.py:330"),
     "const_block_stencil_spmm_gram_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                                         "blockcg_tpu/ops/const_block_stencil.py:361"),
@@ -1303,10 +1303,22 @@ def phase_view_kernels(torch, dev, records) -> None:
             op.main_offsets, Xv, cbs.const_block_stencil_spmm_t(*main))
         _library_note(f"const_block_stencil_spmm_t {what} (torch BSR @ dense)", why)
         _timed_check(torch, "const_block_stencil_spmm_t", what,
-                     lambda: (cbs.const_block_stencil_spmm_t(*main), None),
+                     lambda: (cbs.const_block_stencil_spmm_t(*main, op.main_plans), None),
                      lambda: cbs.const_block_stencil_v_plain(*main), is_gram, records,
                      work=_view_main_work(op, k), library=bsr)
         del bsr
+        plan = op.main_plans.get(op.main_offsets, op.masks_main.shape[0], k, op.ns, dev,
+                                 view=True)
+        print(f"[plan] const_block_stencil_spmm_t {what}: cm_spmm {plan.describe()}")
+        if k > 1:  # the view's launch beside the merged one (row 16) on the same field
+            Xm = Xv.transpose(0, 1).reshape(op.bs * k, op.ns).contiguous()
+            vms = median_ms(torch, lambda: cbs.const_block_stencil_spmm_t(*main, op.main_plans))
+            mms = median_ms(torch, lambda: cbs.const_block_stencil_spmm_m_t(
+                *main[:4], Xm, op.main_plans))
+            print(f"[kernel] const_block_stencil_spmm_t {what}: {vms:.4f} ms on the view "
+                  f"(ungrouped), const_block_stencil_spmm_m_t {mms:.4f} ms on the merged field "
+                  "(row 16, grouped)")
+            del Xm
         _timed_check(torch, "const_block_stencil_spmm_gram_t", what,
                      lambda: cbs.const_block_stencil_spmm_gram_t(*main),
                      lambda: cbs.const_block_stencil_v_plain(*main, True), is_gram, records,
@@ -1497,6 +1509,22 @@ def phase_eo(torch, dev) -> dict:
     (x, icg), scg = _timed(torch, lambda: solve_dirac_eo(eo, B[:, :1], solver=solve_cg,
                                                          tol=1e-6, max_iter=5000))
     cg_counts = dict(_native.launches)
+    # Row 14 runs cm_spmm with the view's row map (bcg_cbs_merged_spmm): a
+    # launch of the view's apply on cbs_spmm (bcg_cbs_spmm, row 15's alone
+    # now) is the old route.
+    cm, old = _native.functions["bcg_cbs_merged_spmm"], _native.functions["bcg_cbs_spmm"]
+    hop = eo.hop_oe
+    plan = hop.main_plans.get(hop.main_offsets, hop.masks_main.shape[0], 1, hop.ns, dev,
+                              view=True)
+    print(f"[plan] const_block_stencil_spmm_t dirac_eo({DIRAC_L}) hop_oe (1, {hop.bs}, "
+          f"{hop.ns}): cm_spmm {plan.describe()}")
+    print(f"[eo] the CG's (k, bs, ns) applies: {cg_counts.get('const_block_stencil_spmm_t', 0)} "
+          f"launches of const_block_stencil_spmm_t, {cm} on cm_spmm (bcg_cbs_merged_spmm), "
+          f"{old} on cbs_spmm")
+    if not (cm == cg_counts.get("const_block_stencil_spmm_t", 0) > 0
+            and old == cg_counts.get("const_block_stencil_spmm_gram_t", 0)):
+        raise AssertionError(f"even-odd CG: row 14 launched {cm} times on cm_spmm and {old} "
+                             "on cbs_spmm")
     rel = eo_true_relres(torch, eo, x, B[:, :1])
     print(f"[eo] solve_dirac_eo(solver=solve_cg) on column 0: {icg.iterations} iterations, "
           f"{scg:.3f} s, monitor relres {float(icg.relres.max()):.3e}, true relres {rel:.3e}, "
@@ -2408,6 +2436,7 @@ def phase_config5_f32(torch, dev, lean_peak: float) -> None:
     qr_passes=2, its defaults) on the f32 config-5 preset to tol 1e-6, beside
     the lean route's peak."""
     from blockcg_tpu_torch import solve_refined, solve_sbcgrq
+    from blockcg_tpu_torch.ops import _native, stencil
     from blockcg_tpu_torch.problems import config5_sbcgrq_3d_256
 
     (op, B, meta), build_s = _timed(torch, lambda: config5_sbcgrq_3d_256(device=dev))
@@ -2418,11 +2447,31 @@ def phase_config5_f32(torch, dev, lean_peak: float) -> None:
         inner.append(info.iterations)
         return X, info
 
+    # Row 2 at the inner solves' 64 rows: its plan's chunks (two launches of
+    # 32, the cross blocks of G from gram.cu); every Gram apply counted, so a
+    # launch on the one-launch route fails the check below.
+    chunks = stencil.f32_gram_chunks(len(op.offsets), B.shape[1])
+    plans = stencil.launch_plans(op.diags, op.offsets, B.T, True)  # (k, n): its shape, dtype
+    print(f"[plan] stencil_spmm_gram_t ({B.shape[1]}, {op.n}): {len(plans)} launches "
+          f"{chunks}: " + "; ".join(stencil.describe(plan) for _, plan in plans))
+    applies = []
+    gram_apply = op.matmat_gram_t
+    op.matmat_gram_t = lambda Xt: (applies.append(Xt.shape[0]), gram_apply(Xt))[1]
+    _native.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     (X, info), secs = _timed(torch, lambda: solve_refined(op, B, tol=CONFIG5_TOL,
                                                           solve_fn=solve_fn))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = (_native.launches["stencil_spmm_gram_t"], _native.functions["bcg_gram"])
+    wide = sum(1 for k in applies if len(stencil.f32_gram_chunks(len(op.offsets), k)) > 1)
+    want = sum(len(stencil.f32_gram_chunks(len(op.offsets), k)) for k in applies)
+    print(f"[config5] f32 row 2: {len(applies)} Gram applies, {launched[0]} launches of "
+          f"stencil_spmm_gram_t (the plan's {want}), {launched[1]} gram.cu launches")
+    if not (0 < wide and launched[0] == want and launched[1] >= 2 * wide):
+        raise AssertionError(f"[config5] f32: row 2 launched {launched[0]} times for "
+                             f"{len(applies)} applies ({want} on its chunks), gram.cu "
+                             f"{launched[1]} times")
     rel = relres_by_columns(torch, op, X, B)
     print(f"[config5] f32 {meta['name']} n={op.n} k={B.shape[1]} (built in {build_s:.1f} s) "
           f"solve_refined tol={CONFIG5_TOL:g}: {info.iterations} cycles, {info.matvecs} "
@@ -2686,7 +2735,7 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
     lifted = b16.float()
     # One PyTorch call computing each: torch's BSR product of the blocks
     # lifted to f32 (the same linear map) times the site-major field.
-    plan = bsk.launch_plans(b16, offs, k, False, dev, tma=bsk._tma_ok(b16, Xm, True))[0][1]
+    plan = bsk.launch_plans(b16, offs, k, False, dev, tma=bsk._tma_ok(b16, Xm))[0][1]
     print(f"[plan] block_stencil_spmm_m_t[bf16 coeffs] {what}: 1 launch: {plan.describe()}")
     Y = bsk.block_stencil_spmm_m_t(b16, offs, Xm)
     bsr, why = _site_bsr_library(torch, lifted, offs, Xm, Y)
@@ -2708,6 +2757,11 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
                  lambda: (bsk.block_stencil_v_plain(b16, offs, Xv), None), is_gram, records,
                  work=(nbytes(b16, Xv, Xv), 2 * k * nnz(b16)), library=bsr)
     del bsr
+    vplans = bsk.launch_plans(b16, offs, k, False, dev, tma=bsk._tma_ok(b16, Xv))
+    print(f"[plan] block_stencil_spmm_t[bf16 coeffs] ({k}, {bs}, {ns}) view: {len(vplans)} "
+          "launch: " + "; ".join(plan.describe() for _, plan in vplans))
+    if not all(plan.tma for _, plan in vplans):
+        raise AssertionError("[storage] the (k, bs, ns) view on bf16 blocks left bs_tma")
     same("block_stencil_spmm_t[bf16 coeffs]", "the f32 kernel on the lifted blocks",
          bsk.block_stencil_spmm_t(b16, offs, Xv), bsk.block_stencil_spmm_t(lifted, offs, Xv))
     del lifted, Y
@@ -2718,7 +2772,7 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
                                (fb, True, "block_stencil_spmm_m_gram_t[fold]"),
                                (fb.to(bf), False, "block_stencil_spmm_m_t[fold, bf16 coeffs]")):
         plans = bsk.launch_plans(blocks, foffs, k, gram, dev, fold=fold,
-                                 tma=bsk._tma_ok(blocks, Xm, True))
+                                 tma=bsk._tma_ok(blocks, Xm))
         print(f"[plan] {name} {what}: {len(plans)} launch: "
               + "; ".join(plan.describe() for _, plan in plans))
     Y = bsk.block_stencil_spmm_m_t(op.blocks, offs, Xm)
@@ -2934,7 +2988,16 @@ def phase_storage(torch, dev, records) -> dict:
           f"bf16")
     if not (bool(info.converged.all()) and torch.equal(X1, X2) and rel16 <= 1e-5):
         raise AssertionError(f"[storage] bf16 blocks: {info}, relres {rel16:.3e}")
+    before = (_native.launches["block_stencil_spmm_t[bf16 coeffs]"],
+              _native.functions["bcg_block_stencil_tma"])
     Y = op16(X1)  # the public apply on the flat f32 field: the (k, bs, ns) kernel
+    view = (_native.launches["block_stencil_spmm_t[bf16 coeffs]"] - before[0],
+            _native.functions["bcg_block_stencil_tma"] - before[1])
+    print(f"[storage] op(X) on bf16 blocks: {view[0]} (k, bs, ns) launch, {view[1]} on TMA "
+          "boxes (bcg_block_stencil_tma)")
+    if not 0 < view[0] == view[1]:
+        raise AssertionError(f"[storage] the view's apply: {view[1]} of {view[0]} launches on "
+                             "TMA boxes")
     Xb = op16.to_internal(X1.T.contiguous()).to(bf)
     before = sum(_native.launches.values())
     Yb = op16.matmat_t(Xb)

@@ -739,7 +739,9 @@ def test_stencil_at_m96_matches_plain(dev):
                stencil.stencil_spmm_plain(diags, offsets, Xt, with_gram=True))
     _check_all((stencil.stencil_spmm_t(diags, offsets, Xt),),
                stencil.stencil_spmm_plain(diags, offsets, Xt)[:1])
-    assert _native.launches["stencil_spmm_gram_t"] == 2 and _native.launches["stencil_spmm_t"] == 2
+    assert _native.launches["stencil_spmm_gram_t"] == len(stencil.f32_gram_chunks(len(offsets),
+                                                                                  WIDE))
+    assert _native.launches["stencil_spmm_t"] == 2
 
 
 @pytest.mark.parametrize("bs", [4, 8])
@@ -2177,7 +2179,9 @@ def test_mixed_stencil_pairs_match_plain(dev, pair, n, k, offsets):
     torch.cuda.synchronize()
     chunks = len(_native.row_chunks(k))
     assert _native.launches[f"stencil_spmm_t[{pair}]"] == chunks
-    assert _native.launches[f"stencil_spmm_gram_t[{pair}]"] == chunks
+    # an f32 field's Gram runs stencil.f32_gram_chunks
+    assert _native.launches[f"stencil_spmm_gram_t[{pair}]"] == len(
+        stencil.launch_plans(d, offsets, X, True))
     assert Y.dtype == X.dtype and torch.equal(Y, Y1)
     if X.dtype == torch.bfloat16:
         assert _ulps(Y, Yp) <= 1.0
@@ -2555,8 +2559,9 @@ _F32_MMA_CASES = {
 @pytest.mark.parametrize("case", sorted(_F32_MMA_CASES))
 def test_stencil_f32_gram_on_tensor_cores_matches_plain(dev, case, k, dd):
     """``stencil_spmm_gram_t`` on an f32 field with f32 or bf16 diagonals
-    (``stencil_mma_f32``, one launch per chunk of at most 64 rows, 48-row
-    chunks at k = 96): ragged n, windows across 0 and n, far offsets that
+    (``stencil_mma_f32``, one launch per chunk of ``f32_gram_chunks``: 32-row
+    chunks from 33 rows on, the cross blocks of G from ``gram``): ragged n,
+    windows across 0 and n, far offsets that
     are not multiples of 4, more far diagonals than are loaded a step ahead.
     Y within 1e-5 of the plain version and bitwise the SpMM's (the fmaf
     chain it keeps); G within 1e-5 of the plain version and of the f64 Gram
@@ -2572,7 +2577,7 @@ def test_stencil_f32_gram_on_tensor_cores_matches_plain(dev, case, k, dd):
     name = "stencil_spmm_gram_t" + ("[bf16 coeffs]" if dd == "bf16" else "")
     _native.reset_launches()
     Y, G = stencil.stencil_spmm_gram_t(d, offsets, X)
-    assert _native.launches[name] == len(_native.row_chunks(k))
+    assert _native.launches[name] == len(stencil.f32_gram_chunks(len(offsets), k))
     Yp, Gp = stencil.stencil_spmm_plain(d, offsets, X, with_gram=True)
     torch.cuda.synchronize()
     assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
@@ -2809,7 +2814,7 @@ def test_block_stencil_tma_folded_matches_plain(dev, L, k, monkeypatch):
     for B in (fb, fb.bfloat16()):
         for gram in (False, True):
             plans = bsk.launch_plans(B, foffs, k, gram, Xm.device, fold=fold,
-                                     tma=bsk._tma_ok(B, Xm, True))
+                                     tma=bsk._tma_ok(B, Xm))
             assert all(p.tma for _, p in plans)
         _native.reset_launches()
         Y = bsk.block_stencil_spmm_m_t(B, foffs, Xm, fold)
@@ -2861,3 +2866,150 @@ def test_block_stencil_tma_folded_copied_granules_land_before_use(dev, monkeypat
     assert _relmax(want, bsk.block_stencil_plain(fb, foffs, Xm, False, fold)[0]) < 1e-5
     bad = [i for i in range(300) if not torch.equal(apply(True), want)]
     assert bad == []
+
+
+# ---- the (k, bs, ns) view on the redesigned kernels: row 22h on bs_tma,
+# row 14 on cm_spmm; row 2 at 64 rows a launch
+
+
+def _view_functions(fn, *args):
+    """The library functions one call of fn launches, and its output."""
+    _native.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return dict(_native.functions), out
+
+
+@pytest.mark.parametrize("k", [1, 12, 24, 30])
+@pytest.mark.parametrize("L", [8, 32])
+def test_block_stencil_tma_view_matches_bs_spmm(dev, L, k, monkeypatch):
+    """Row 22h: ``block_stencil_spmm_t`` on bf16 blocks on the (k, bs, ns)
+    view (its flat form too) at 4,096 and 32^4 sites on
+    ``dirac_gauged_matrix(L)``'s 15 offsets (random blocks), k = 1, 12, 24
+    and 30 (two chunks of 15): each launch takes the route its plan names
+    (``bs_tma`` where the boxes move no more than ``bs_spmm``, from k = 12
+    on), Y bitwise ``bs_spmm``'s on the same blocks (the parent's route)
+    and the f32 kernel's on the blocks lifted to f32, within 1e-5 of the
+    plain version, a repeat bitwise."""
+    offsets = [0, L ** 3, -L ** 3]
+    for st in (L ** 2, L, 1):
+        offsets += [st, -st, -(L - 1) * st, (L - 1) * st]
+    ns, bs = L ** 4, 4
+    rng = np.random.default_rng(2200 + L + k)
+    b16 = _t(rng.standard_normal((len(offsets), bs, bs, ns)), dev).bfloat16()
+    Xv = _field(k, bs * ns, 2201 + k, dev).reshape(k, bs, ns)
+    plans = bsk.launch_plans(b16, offsets, k, False, Xv.device, tma=bsk._tma_ok(b16, Xv))
+    assert len(plans) == len(_native.row_chunks(k, bsk.MAX_ROWS // bs))
+    if k >= 12:
+        assert all(p.tma for _, p in plans)
+    ntma = sum(p.tma for _, p in plans)
+    fns, Y = _view_functions(bsk.block_stencil_spmm_t, b16, offsets, Xv)
+    assert fns.get("bcg_block_stencil_tma", 0) == ntma
+    assert fns.get("bcg_block_stencil_spmm", 0) == len(plans) - ntma
+    with monkeypatch.context() as mp:
+        _cp_route(mp)
+        fns, Yc = _view_functions(bsk.block_stencil_spmm_t, b16, offsets, Xv)
+        assert fns == {"bcg_block_stencil_spmm": len(plans)}
+    assert torch.equal(Y, Yc)
+    assert torch.equal(Y, bsk.block_stencil_spmm_t(b16.float(), offsets, Xv))
+    assert torch.equal(bsk.block_stencil_spmm_t(b16, offsets, Xv.reshape(k, -1)),
+                       Y.reshape(k, -1))
+    assert torch.equal(bsk.block_stencil_spmm_t(b16, offsets, Xv), Y)
+    assert _relmax(Y, bsk.block_stencil_v_plain(b16, offsets, Xv)) < 1e-5
+
+
+def test_block_stencil_tma_view_copied_stages_land_before_use(dev):
+    """The view on ``bs_tma`` at 1,000 sites (the first and last tiles'
+    windows across 0 and ns, the far slabs of 450 and ns + 401 copied by the
+    producer warp's lanes on every tile), k = 12: 300 calls, each bitwise
+    the f32 kernel on the lifted blocks. A stage posted before its lanes'
+    copies land shows as a wrong bit on some call."""
+    blocks, offsets, Xm = _bs_tma_operands(1000, 4, 12, dev, 2210)
+    b16 = blocks.bfloat16()
+    Xv = Xm.reshape(12, 4, 1000)
+    assert all(p.tma for _, p in bsk.launch_plans(b16, offsets, 12, False, Xv.device,
+                                                  tma=bsk._tma_ok(b16, Xv)))
+    want = bsk.block_stencil_spmm_t(b16.float(), offsets, Xv)
+    bad = [i for i in range(300) if not torch.equal(bsk.block_stencil_spmm_t(b16, offsets, Xv),
+                                                    want)]
+    assert bad == []
+
+
+def _cbs_spmm_view(hops, offsets, slots, masks, Xv):
+    """``csrc/const_block_stencil.cu``'s view kernel without the Gram (row
+    14's route before ``cm_spmm``), one launch per chunk of right-hand sides
+    as its wrapper made them."""
+    nd, bs, _ = hops.shape
+    k, ns = Xv.shape[0], Xv.shape[-1]
+    offs = (ctypes.c_int * nd)(*(int(o) % ns for o in offsets))
+    cslots = (ctypes.c_int * nd)(*slots)
+    Y = torch.empty_like(Xv)
+    row = ns * 4 * bs
+    p = _native.ptr
+    for j0, j1 in _native.row_chunks(k, cbs.rhs_width(bs)):
+        _native.launch("cbs_spmm", "bcg_cbs_spmm", Xv.device, p(hops), offs, cslots, nd, bs,
+                       p(masks), p(Xv) + j0 * row, p(Y) + j0 * row, None, None, j1 - j0, ns,
+                       _native.nblocks(ns))
+    return Y
+
+
+@pytest.mark.parametrize("k", [1, 12])
+@pytest.mark.parametrize("which", ["random 300 none", "random 300 gates", "random 300 values",
+                                   "eo16 hop_oe", "config4", "gauged config4"])
+def test_const_hop_view_on_cm_spmm_keeps_cbs_spmm_bits(dev, which, k):
+    """Row 14 on ``cm_spmm`` with the view's row map (the ungrouped plan):
+    one ``bcg_cbs_merged_spmm`` launch, Y bitwise ``cbs_spmm``'s (the
+    parent's route) at k = 1 and 12, without masks, with gates and with
+    value masks (random hops on 300 sites), on ``dirac_eo(16)``'s hop and on
+    config 4's operator and its Z2-gauged form at 32^4; within 1e-5 of the
+    plain version, its flat form and a repeat bitwise."""
+    if which.startswith("random"):
+        hops, offsets, slots, rows, Xm = _cbs_operands(300, 4, k, which.split()[-1], dev,
+                                                       seed=2220 + k)
+        op = None
+        Xv = Xm.reshape(k, 4, 300)
+    else:
+        op = (dirac_eo(16, device=dev).hop_oe if which.startswith("eo")
+              else (dirac_gauged_cbdia if which.startswith("gauged") else dirac_cbdia)(
+                  32, device=dev))
+        hops, offsets, slots, rows = op.hops_main, op.main_offsets, op.main_slots, op.masks_main
+        Xv = _field(k, op.bs * op.ns, 2230 + k, dev).reshape(k, op.bs, op.ns)
+    main = (hops, offsets, slots, rows)
+    extra = () if op is None else (op.main_plans,)
+    fns, Y = _view_functions(cbs.const_block_stencil_spmm_t, *main, Xv, *extra)
+    assert fns == {"bcg_cbs_merged_spmm": 1}
+    assert torch.equal(Y, _cbs_spmm_view(*main, Xv))
+    assert _relmax(Y, cbs.const_block_stencil_v_plain(*main, Xv)[0]) < 1e-5
+    assert torch.equal(cbs.const_block_stencil_spmm_t(*main, Xv.reshape(k, -1)),
+                       Y.reshape(k, -1))
+    assert torch.equal(cbs.const_block_stencil_spmm_t(*main, Xv, *extra), Y)
+
+
+# Row 2 at 64 rows a launch before its repair (the parent's stencil_mma_f32
+# on StMma<64>; H100), on the X that
+# test_stencil_f32_gram_at_64_rows_keeps_y_and_nears_its_contract makes on
+# the 7-point Laplacian: the sha256 (16 hex digits) of the bytes of Y, and
+# G's relative Frobenius distance from the f64 Gram of X and the f32 sums.
+_F32_GRAM_64_PINS = {
+    64: ("580dda9ab7fc46bc", 4.1585521990078676e-08),
+    128: ("9521abcca95bed05", 3.58630157097096e-08),
+}
+
+
+@pytest.mark.parametrize("edge", list(_F32_GRAM_64_PINS))
+def test_stencil_f32_gram_at_64_rows_keeps_y_and_nears_its_contract(dev, edge):
+    """Row 2 at k = 64 (config 5's f32 width) on the 64^3 and 128^3
+    Laplacians on the repaired route (two 32-row launches, the cross blocks
+    of G from ``gram``): Y bitwise the parent's one 64-row launch (pinned
+    checksums) and the SpMM's, G no farther than twice the parent's from the
+    f64 Gram of X and the f32 sums, its contract; a repeat bitwise."""
+    pin, before = _F32_GRAM_64_PINS[edge]
+    op = laplacian_dia((edge,) * 3, device=dev)
+    X = _t(np.random.default_rng(2240 + edge).standard_normal((64, op.n)), dev)
+    _native.reset_launches()
+    Y, G = stencil.stencil_spmm_gram_t(op.diags, op.offsets, X)
+    assert _native.functions == {"bcg_stencil_spmm": 2, "bcg_gram": 2}
+    assert _sha32(Y) == pin and torch.equal(Y, stencil.stencil_spmm_t(op.diags, op.offsets, X))
+    assert _relfro(G.double(), X.double() @ Y.double().T) <= 2 * before
+    Y2, G2 = stencil.stencil_spmm_gram_t(op.diags, op.offsets, X)
+    assert torch.equal(Y2, Y) and torch.equal(G2, G)

@@ -1835,3 +1835,73 @@ def test_block_stencil_tma_folded_boxes_cover_each_source_once(st, sign):
     else:
         assert per_tile.max() == T // g and (~boxed[::g]).sum() <= 2 * ns // st
         assert (src[~boxed] + g > ns).all()
+
+
+# ---------------- row 2 at 64 rows: the f32 Gram's chunks by their reads
+
+
+@pytest.mark.parametrize("shape,k,chunks,hT", [
+    ((256, 256, 256), 64, ((0, 32), (32, 64)), (256, 256)),  # config 5's f32 route
+    ((128, 128, 128), 64, ((0, 32), (32, 64)), (128, 256)),
+    ((64, 64, 64), 32, ((0, 32),), None),                    # config 3
+    ((128, 128, 128), 32, ((0, 32),), (128, 256)),           # the north star
+    ((128, 128, 128), 96, ((0, 32), (32, 64), (64, 96)), (128, 256)),
+    ((128, 128, 128), 12, ((0, 12),), None),
+])
+def test_f32_gram_chunks_follow_their_reads(monkeypatch, shape, k, chunks, hT):
+    """An f32 field's Gram (rows 2, 2m) runs ``f32_gram_chunks``: at 64 rows
+    on the 7-point Laplacians two launches of 32 (each row read once a
+    diagonal in one row group and once in each of two column groups, 2 x 32
+    x (7 + 2) = 576, and ``gram``'s two cross blocks 128, against one
+    launch's 64 x (2 x 7 + 4) = 1,152), at 32 rows and below one launch as
+    before (288 against 352 as two of 16), at 96 three of 32; each chunk on
+    ``stencil_mma_f32_plan``'s own plan. A bf16 field's Gram keeps
+    ``row_chunks`` (its wide route above 64 rows). ``MMA_SPLIT`` mirrors
+    ``csrc/stencil.cu`` StMma."""
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    monkeypatch.setattr(_native, "sm_count", lambda index: H100_SMS)
+    offsets = _lap_offsets(shape)
+    n = int(np.prod(shape))
+    assert stencil.f32_gram_chunks(len(offsets), k) == chunks
+    assert [stencil.MMA_SPLIT[W] for W in (8, 16, 32, 64)] == [
+        (QM, QN) for _, _, QM, QN, _, _, _ in map(_st_mma_split, (8, 16, 32, 64))]
+    if k == 64:
+        assert stencil.f32_gram_reads(7, ((0, 64),)) == 1152
+        assert stencil.f32_gram_reads(7, chunks) == 576 + 128
+    if k == 32:
+        assert stencil.f32_gram_reads(7, ((0, 32),)) == 288
+        assert stencil.f32_gram_reads(7, ((0, 16), (16, 32))) == 288 + 64
+    D = torch.empty((len(offsets), n), device="meta")
+    X = torch.empty((k, n), device="meta")
+    plans = stencil.launch_plans(D, offsets, X, True)
+    assert tuple(rows for rows, _ in plans) == chunks
+    for (r0, r1), plan in plans:
+        assert plan == stencil.stencil_mma_f32_plan(tuple(offsets), n, r1 - r0, H100_SMEM,
+                                                    H100_SMS)
+        if hT is not None:
+            assert (plan.h, plan.T) == hT
+    X16 = torch.empty((k, n), dtype=torch.bfloat16, device="meta")
+    assert [rows for rows, _ in stencil.launch_plans(D.bfloat16(), offsets, X16, True)] == \
+        _native.row_chunks(k)
+
+
+def test_f32_gram_launches_its_chunks_and_the_cross_blocks(monkeypatch):
+    """``stencil._launch`` on an f32 field of 64 rows with the Gram: two
+    ``bcg_stencil_spmm`` launches of 32 rows (X, Y offset by 32 rows, a part
+    buffer and a G each), then ``fused.wide_gram`` on X, Y, their two
+    diagonal blocks and the plan's chunks."""
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    monkeypatch.setattr(_native, "sm_count", lambda index: H100_SMS)
+    n, offsets = _PRESETS["lap_64^3"]
+    D = torch.ones((len(offsets), n))
+    X = torch.zeros((64, n))
+    calls, wide = [], []
+    monkeypatch.setattr(_native, "launch", lambda name, fn, dev, *a: calls.append((fn, a)))
+    monkeypatch.setattr(fused, "wide_gram",
+                        lambda U, V, diag, chunks: wide.append((U, V, diag, chunks)) or "G")
+    Y, G = stencil._launch(D, offsets, X, True, "stencil_spmm_gram_t", (torch.float32,) * 2)
+    assert G == "G" and [fn for fn, _ in calls] == ["bcg_stencil_spmm"] * 2
+    for (fn, a), r0 in zip(calls, (0, 32)):
+        assert a[3] == X[r0:].data_ptr() and a[4] == Y[r0:].data_ptr() and a[7] == 32
+    U, V, diag, chunks = wide[0]
+    assert U is X and V is Y and len(diag) == 2 and chunks == [(0, 32), (32, 64)]

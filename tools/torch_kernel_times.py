@@ -41,8 +41,11 @@ copy or its wait, the refills). ``--bf16`` also times row 2w at (96,
 128^3) on bf16 and on f32 diagonals. ``--short`` times rows 10 and 10b
 (``xr_update_gram`` at (16, 512^2) in f32 and bf16, and in bf16 at (48,
 32^4)) and row 14 (``const_block_stencil_spmm_t`` on ``dirac_eo(32)``'s
-parity hop at one RHS): the rows whose event medians in ``chip_smoke.py``
-time the host. Their fields (67 MB in f32 and 34 MB in bf16 at (16,
+parity hop at one RHS, and on config 4's (12, 4, 32^4) view beside row 16,
+the merged launch on the same field): the rows whose event medians in
+``chip_smoke.py`` time the host; with ``--variants``, row 14 on pins of its
+plan (tiles, halos, grids) and in probe builds that load one, two or four
+far diagonals together. Their fields (67 MB in f32 and 34 MB in bf16 at (16,
 512^2), 40 MB at row 14's) fit in the H100's 50 MB L2 or come near it, so
 ``--short`` also times each call with L2 flushed: before each call it
 writes a 256 MB scratch buffer and reads it back (the read writes back the
@@ -58,7 +61,10 @@ bf16 blocks on either view and f32 blocks merged) on
 field, (32, 128^3)), 1b (bf16, (32, 256^3)), row 2 at (32, 64^3) and (64,
 256^3), and the folded rows 24f (f32 and bf16 blocks) and 24fg (the fused
 Gram, and the apply followed by ``gram``), each line with its launches'
-plans; with ``--variants``, the plans' tiles, halos and ring depths of
+plans; with ``--variants``, row 2 at (64, 256^3) and (32, 256^3) on each
+(h, T) of ``stencil_mma_f32`` and the routes its plan could take at 32 and
+64 rows (one fused launch, the SpMM and ``gram``, two 32-row launches and
+``gram``'s cross blocks), the plans' tiles, halos and ring depths of
 ``stencil_mma_f32`` and ``bs_tma`` and their probe builds with parts
 switched off. Every case prints the profiler's records of
 each kernel over its calls (``records``; ``records_cold`` beside
@@ -110,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import os
 from itertools import chain
 import json
@@ -656,15 +663,14 @@ def row2w_cases(torch, dev):
 
 
 def short_cases(torch, dev):
-    """(name, fn, bound us) of the rows whose CUDA-event medians in
+    """(name, fn, bound us[, plan]) of the rows whose CUDA-event medians in
     ``chip_smoke.py`` time the host's wrapper (PERF.md section 6): row 10
     (``xr_update_gram``) at config 2's (16, 512^2), f32 and bf16, and bf16
     at (48, 32^4) on ``I_4 x C``; row 14 (``const_block_stencil_spmm_t``) on
-    the even-odd CG's parity hop of ``dirac_eo(32)`` at one RHS, (1, 4,
-    2^19). Bounds as ``chip_smoke.py`` counts them."""
+    ``row14_operands``, each with its launch's plan, and row 16 beside it.
+    Bounds as ``chip_smoke.py`` counts them."""
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
     from blockcg_tpu_torch.ops import fused
-    from blockcg_tpu_torch.problems import dirac_eo
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for m, kc, n, dt, what in ((16, 16, 512 ** 2, torch.float32, "f32 (16, 512^2)"),
@@ -681,14 +687,120 @@ def short_cases(torch, dev):
         row = "10b" if e == 2 else "10"
         yield (f"row {row} xr_update_gram {what}",
                lambda A=A, F=F: fused.xr_update_gram(A, *F), bound)
-    eo = dirac_eo(32, device=dev)
-    hop = eo.hop_oe
-    Xv = torch.randn((1, hop.bs, hop.ns), generator=gen, device=dev)
-    main = (hop.hops_main, hop.main_offsets, hop.main_slots, hop.masks_main, Xv)
-    nbytes = 4 * (hop.hops_main.numel() + (0 if hop.masks_main is None else
-                                           hop.masks_main.numel()) + 2 * Xv.numel())
-    yield (f"row 14 const_block_stencil_spmm_t dirac_eo(32) hop_oe (1, {hop.bs}, {hop.ns})",
-           lambda: cbs.const_block_stencil_spmm_t(*main), nbytes / 3.35e12 * 1e6)
+    for row, what, hop, Xv in row14_operands(torch, dev, gen):
+        main = (hop.hops_main, hop.main_offsets, hop.main_slots, hop.masks_main, Xv)
+        # the operator's plans where the view's wrapper takes them (as its applies pass them)
+        extra = ((hop.main_plans,) if "plans" in inspect.signature(
+            cbs.const_block_stencil_spmm_t).parameters else ())
+        k = Xv.shape[0]
+        if row == "16":
+            Xm = Xv.transpose(0, 1).reshape(hop.bs * k, hop.ns).contiguous()
+            yield (f"row 16 const_block_stencil_spmm_m_t {what}",
+                   lambda hop=hop, Xm=Xm: cbs.const_block_stencil_spmm_m_t(
+                       *main[:4], Xm, hop.main_plans), cbs_work(hop, k, False))
+            continue
+        yield (f"row 14 const_block_stencil_spmm_t {what}",
+               lambda main=main, extra=extra: cbs.const_block_stencil_spmm_t(*main, *extra),
+               cbs_work(hop, k, False), row14_plan(hop, k))
+
+
+def row14_operands(torch, dev, gen):
+    """(row, what, operator, X on the (k, bs, ns) view) of row 14's cases:
+    the even-odd CG's parity hop of ``dirac_eo(32)`` at one RHS, (1, 4,
+    2^19), and config 4's ``dirac_cbdia(32)`` at (12, 4, 32^4), beside row
+    16 (the merged launch) on the same field."""
+    from blockcg_tpu_torch.problems import dirac_cbdia, dirac_eo
+
+    hop = dirac_eo(32, device=dev).hop_oe
+    yield ("14", f"dirac_eo(32) hop_oe (1, {hop.bs}, {hop.ns})", hop,
+           torch.randn((1, hop.bs, hop.ns), generator=gen, device=dev))
+    op = dirac_cbdia(32, device=dev)
+    Xv = torch.randn((12, op.bs, op.ns), generator=gen, device=dev)
+    yield "14", f"dirac_cbdia(32) (12, {op.bs}, 32^4)", op, Xv
+    yield "16", f"dirac_cbdia(32) merged (k=12, m={op.bs * 12})", op, Xv
+
+
+def row14_plan(hop, k: int):
+    """The plan line of row 14's launch on a checkout that runs it on
+    ``csrc/cbs_merged.cu`` (the view's ``MergedPlans`` entry), else None."""
+    if "view" not in inspect.signature(hop.main_plans.get).parameters:
+        return None
+    dev = hop.hops_main.device
+    return hop.main_plans.get(hop.main_offsets, hop.masks_main.shape[0], k, hop.ns, dev,
+                              view=True).describe()
+
+
+def short_variants(torch, dev, tmp: Path):
+    """Row 14 on ``dirac_eo(32)``'s hop_oe at one RHS and on config 4's (12,
+    4, 32^4) view on the view's plan and on pins of
+    ``const_block_stencil_plan`` (ungrouped, as the view's): each tile width
+    ``sw`` with the plan's halo and with a 16-site and a 512-site one, and the
+    plan's grid at two and four times its blocks (more blocks an SM where
+    the shared memory holds them); at one RHS also the probe builds of
+    ``CM_PROBES`` that load one, two or four far diagonals together
+    (``cm_spmm<4, 0, NFB>``; at k = 1 the merged row map is the view's) on
+    the plan and the 512-site halo; each with its bound and checksums."""
+    import ctypes
+
+    from blockcg_tpu_torch.ops import _native
+    from blockcg_tpu_torch.ops import const_block_stencil as cbs
+
+    cap, sms = _native.max_smem(dev.index), _native.sm_count(dev.index)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for row, what, hop, Xv in row14_operands(torch, dev, gen):
+        if row != "14":
+            continue
+        k, ns = Xv.shape[0], hop.ns
+        nmask = hop.masks_main.shape[0]
+        main = (hop.hops_main, hop.main_offsets, hop.main_slots, hop.masks_main)
+        plan = hop.main_plans.get(hop.main_offsets, nmask, k, ns, dev, view=True)
+        offs = tuple(o % ns for o in hop.main_offsets)
+        pins = [plan]
+        for sw in cbs.CM_SW:
+            for h in (plan.h, 16, 512):
+                try:
+                    v = cbs.const_block_stencil_plan(offs, hop.main_plans.hop_key, nmask, hop.bs,
+                                                     k, ns, cap, sms, h=h, sw=sw,
+                                                     grouped=False)
+                except ValueError:
+                    continue
+                if v not in pins:
+                    pins.append(v)
+        for mul in (2, 4):
+            pins.append(plan._replace(blocks=min(plan.blocks * mul, _native.MAX_BLOCKS)))
+        for v in pins:
+            name = "row 14 plan" if v is plan else "variant row 14"
+            yield (f"{name} {what} [{v.describe()}]",
+                   lambda v=v, Xv=Xv: cbs._launch_cm(*main, Xv, k, ns, False, v, "variant"),
+                   cbs_work(hop, k, False))
+        if k != 1 or hop.bs > 4:
+            continue
+        fn = _probe_lib(CM_PROBE.format(
+            src=_native.CSRC / "cbs_merged.cu",
+            cases="".join(f"    case {f}: return cm_launch<4, 0, {f}>(p, max_blocks, device, "
+                          "stream);\n" for f in (1, 2, 4))), "cm_probe", tmp)
+        P, I, L, IP = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.POINTER(ctypes.c_int))
+        fn.argtypes = [P, I, IP, IP, IP, IP, P, I, P, P, I, L, I, I, I, I, I, I, P]
+        fn.restype = I
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        nd = len(offs)
+        cint = ctypes.c_int * nd
+        Y = torch.empty_like(Xv)
+        h512 = cbs.const_block_stencil_plan(offs, hop.main_plans.hop_key, nmask, hop.bs, k, ns,
+                                            cap, sms, h=512, sw=plan.sw, grouped=False)
+        for v in (plan, h512):
+            for nfb in (1, 2, 4):
+                def run(v=v, nfb=nfb):
+                    rc = fn(hop.hops_main.data_ptr(), nd, cint(*offs), cint(*hop.main_slots),
+                            cint(*v.order), cint(*v.gid), hop.masks_main.data_ptr(), nmask,
+                            Xv.data_ptr(), Y.data_ptr(), k, ns, v.h, v.T, v.kb, v.blocks, nfb,
+                            dev.index, stream)
+                    if rc != 0:
+                        raise RuntimeError(f"const-hop probe NFB = {nfb} failed: {rc}")
+                    return Y
+                yield (f"probe row 14 far loads {nfb} together {what} [{v.describe()}]", run,
+                       cbs_work(hop, k, False))
 
 
 def storage_cases(torch, dev, only: str | None = None):
@@ -791,8 +903,10 @@ def storage_cases(torch, dev, only: str | None = None):
     bnnz = int(torch.count_nonzero(b16))
     tma = getattr(bsk, "_tma_ok", None)  # a checkout before bs_tma has no TMA route
 
-    def describe(B, o, gram, fold=()):
-        kw = {"tma": tma(B, Xm, True)} if tma else {}
+    def describe(B, o, gram, fold=(), X=Xm, merged=True):
+        kw = {}
+        if tma:  # a checkout whose _tma_ok also took the view refused the (k, bs, ns) one
+            kw["tma"] = tma(B, X, merged) if tma.__code__.co_argcount == 3 else tma(B, X)
         return "; ".join(p.describe() for _, p in bsk.launch_plans(B, o, k, gram, dev,
                                                                     fold=fold, **kw))
     for B, row, what in ((b16, "22h", "[bf16 coeffs]"), (b16, "23h", "[bf16 coeffs]"),
@@ -800,7 +914,8 @@ def storage_cases(torch, dev, only: str | None = None):
         w = bound(B.numel() * B.element_size() + 8 * m * ns, 2 * k * bnnz)
         if row == "22h":
             yield (f"row 22h block_stencil_spmm_t{what} ({k}, {bs}, 32^4)",
-                   lambda B=B: bsk.block_stencil_spmm_t(B, offs, Xv), w)
+                   lambda B=B: bsk.block_stencil_spmm_t(B, offs, Xv), w,
+                   describe(B, offs, False, X=Xv, merged=False))
         else:
             yield (f"row {row} block_stencil_spmm_m_t{what} ({m}, 32^4)",
                    lambda B=B: bsk.block_stencil_spmm_m_t(B, offs, Xm), w,
@@ -885,13 +1000,95 @@ def _probe_lib(src: str, name: str, tmp: Path):
     return getattr(ctypes.CDLL(str(lib)), name)
 
 
-def storage_variants(torch, dev, tmp: Path):
-    """Rows 2m and 2 at (32, 128^3) on each (h, T) of ``stencil_mma_f32``
-    that fits the card, the plan's marked, then row 2m on its plan in the
-    probe builds of ``F32_PROBES``; row 23h on ``dirac_gauged_matrix(32)``
-    at k = 12 on each ring depth and split of ``bs_tma``'s schedule that
-    fits, the plan's marked, then in the probe builds of ``BT_PROBES``; each
-    with its bound (``storage_cases``) and checksums."""
+def row2_wide_variants(torch, dev):
+    """Row 2 at (64, 256^3) (config 5's f32 route) and (32, 256^3) (its
+    chunks) on each (h, T) of ``stencil_mma_f32`` that fits the card, the
+    plan's marked;
+    then at (64, 256^3), (32, 256^3), (64, 128^3) and (32, 128^3) the
+    routes a plan could take: the fused launch (``stencil_mma_f32``), the
+    SpMM (``stencil_spmm_t``) followed by ``gram`` on X and the stored Y, and
+    at 64 rows two 32-row fused launches with the cross blocks of G from
+    ``gram`` (the route ``fused.wide_gram`` takes for several chunks); each
+    with its bound, checksums and one line of its G's distance from the f64
+    Gram of X and Y."""
+    import ctypes
+
+    from blockcg_tpu_torch.ops import _native, fused, stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    idx, p = dev.index, _native.ptr
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def bound(k, n, nd, nnz):
+        return max((4 * nd * n + 8 * k * n + 4 * k * k) / 3.35e12,
+                   (2 * k * nnz + 2 * k * k * n) / 67e12) * 1e6
+
+    lap = laplacian_dia((256,) * 3, device=dev)
+    n, nd = lap.n, len(lap.offsets)
+    nnz = int(torch.count_nonzero(lap.diags))
+    coffs = (ctypes.c_int * nd)(*(int(o) % n for o in lap.offsets))
+    dist = sorted({min(o % n, n - o % n) for o in lap.offsets})
+    for k in (64, 32):
+        X = torch.randn((k, n), generator=gen, device=dev)
+        plan = stencil.stencil_mma_f32_plan(tuple(lap.offsets), n, k, cap, sms, 4)
+        Y = torch.empty_like(X)
+        G = torch.empty((k, k), device=dev)
+        part = torch.empty((_native.MAX_BLOCKS, k, k), device=dev)
+        for T in stencil.MMA_F32_TILES:
+            for h in sorted({0} | {-(-d // 4) * 4 for d in dist}):
+                if stencil.mma_f32_smem_bytes(k, nd, h, T) + stencil.MMA_STATIC_BYTES > cap:
+                    continue
+                mark = " (plan)" if (h, T) == (plan.h, plan.T) else ""
+                yield (f"variant row 2 stencil_mma_f32 h={h} T={T}{mark} ({k}, 256^3)",
+                       lambda h=h, T=T, k=k, X=X, Y=Y, G=G, part=part: (_native.launch(
+                           "variant", "bcg_stencil_spmm", dev, p(lap.diags), coffs, nd, p(X),
+                           p(Y), p(part), p(G), k, n, h, T,
+                           min(-(-n // T), _native.MAX_BLOCKS)), Y, G)[1:],
+                       bound(k, n, nd, nnz))
+        del X, Y, G, part
+    del lap
+    for edge, k in ((256, 64), (256, 32), (128, 64), (128, 32)):
+        lap = laplacian_dia((edge,) * 3, device=dev)
+        n, nd = lap.n, len(lap.offsets)
+        nnz = int(torch.count_nonzero(lap.diags))
+        X = torch.randn((k, n), generator=gen, device=dev)
+        D, o = lap.diags, lap.offsets
+        routes = {"fused": lambda D=D, o=o, X=X: stencil.stencil_spmm_gram_t(D, o, X),
+                  "spmm then gram.cu": lambda D=D, o=o, X=X: (lambda Y: (Y, fused.gram(X, Y)))(
+                      stencil.stencil_spmm_t(D, o, X))}
+        if k == 64:
+            def split(D=D, o=o, X=X, k=k):
+                Y = torch.empty_like(X)
+                Gs = torch.empty((k, k), device=dev)
+                for r0, r1 in ((0, 32), (32, 64)):
+                    Yc, Gs[r0:r1, r0:r1] = stencil.stencil_spmm_gram_t(D, o, X[r0:r1])
+                    Y[r0:r1] = Yc
+                Gs[:32, 32:] = fused.gram(X[:32], Y[32:])
+                Gs[32:, :32] = fused.gram(X[32:], Y[:32])
+                return Y, Gs
+            routes["two 32-row launches and gram.cu"] = split
+        shape = f"({k}, {edge}^3)"
+        for what, fn in routes.items():
+            Yr, Gr = fn()
+            G64 = X.double() @ Yr.double().T
+            print(json.dumps({"case": f"variant row 2 {what} {shape} gram contract distance",
+                              "dist": float(torch.linalg.norm(Gr.double() - G64)
+                                            / torch.linalg.norm(G64))}), flush=True)
+            del Yr, Gr, G64
+            yield f"variant row 2 {what} {shape}", fn, bound(k, n, nd, nnz)
+        del X, lap, routes
+
+
+def storage_variants(torch, dev, tmp: Path, only: str | None = None):
+    """Row 2 at (64, 256^3) on ``row2_wide_variants``; rows 2m and 2 at (32,
+    128^3) on each (h, T) of ``stencil_mma_f32`` that fits the card, the
+    plan's marked, then row 2m on its plan in the probe builds of
+    ``F32_PROBES``; row 23h on ``dirac_gauged_matrix(32)`` at k = 12 on each
+    ring depth and split of ``bs_tma``'s schedule that fits, the plan's
+    marked, then in the probe builds of ``BT_PROBES``; each with its bound
+    (``storage_cases``) and checksums. ``only`` skips the groups none of
+    whose cases it matches."""
     import ctypes
 
     from blockcg_tpu_torch.ops import _native, stencil
@@ -903,6 +1100,17 @@ def storage_variants(torch, dev, tmp: Path):
     stream = torch.cuda.current_stream(dev).cuda_stream
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     IP = ctypes.POINTER(ctypes.c_int)
+
+    def wanted(*words):
+        return only is None or any(re.search(only, w) for w in words)
+    if wanted("variant row 2 stencil_mma_f32 (64, 256^3)", "variant row 2 fused (64, 256^3)",
+              "variant row 2 stencil_mma_f32 (32, 256^3)",
+              "variant row 2 two 32-row launches and gram.cu (64, 256^3)",
+              "variant row 2 spmm then gram.cu (64, 256^3)"):
+        yield from row2_wide_variants(torch, dev)
+    if not wanted("variant row 2m (32, 128^3)", "variant row 2 stencil_mma_f32 (32, 128^3)",
+                  "probe row 2m", "row 23h plan", "variant row 23h", "probe row 23h"):
+        return
     gen = torch.Generator(device=dev).manual_seed(0)
     k = 32
     lap = laplacian_dia((128,) * 3, device=dev)
@@ -967,7 +1175,7 @@ def storage_variants(torch, dev, tmp: Path):
 
         def run(vplan=vplan):
             _native.launch("variant", "bcg_block_stencil_tma", dev, p(b16), 2, boffs, None, nd,
-                           bs, p(Xm), p(Ym), k, k, ns, vplan.h, vplan.groups, vplan.ki,
+                           bs, p(Xm), p(Ym), k, k, ns, 1, vplan.h, vplan.groups, vplan.ki,
                            vplan.stages, vplan.blocks)
             return Ym
         name = "row 23h plan" if not kw else f"variant row 23h {kw}"
@@ -1839,8 +2047,10 @@ def main() -> None:
                       cols_probe_cases(torch, dev, Path(tmp)))
                 if args.bf16 and args.variants
                 else bf16_cases(torch, dev) if args.bf16
-                else storage_variants(torch, dev, Path(tmp)) if args.storage and args.variants
+                else storage_variants(torch, dev, Path(tmp), args.only)
+                if args.storage and args.variants
                 else storage_cases(torch, dev, args.only) if args.storage
+                else short_variants(torch, dev, Path(tmp)) if args.short and args.variants
                 else short_cases(torch, dev) if args.short
                 else sweep_cases(torch, dev) if args.sweep
                 else const_hop_variants(torch, dev, Path(tmp), args.only)
