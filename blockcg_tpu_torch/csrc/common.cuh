@@ -688,6 +688,11 @@ struct VecGram {
   __device__ void store(float* part, int k, float* scratch) const { store(part, k, k, scratch); }
 
   __device__ void store(float* part, int kx, int ky, float* scratch) const {
+    store(part, kx, ky, ky, scratch);
+  }
+
+  // The (kx, ky) partial at rows ld apart (a block of a wider partial).
+  __device__ void store(float* part, int kx, int ky, int ld, float* scratch) const {
     if (grp < kGroups) {
       float* mine = scratch + grp * KMAX * KMAX;
 #pragma unroll
@@ -702,7 +707,7 @@ struct VecGram {
       if (r >= kx || s >= ky) continue;
       float v = scratch[e];
       for (int g = 1; g < kGroups; ++g) v += scratch[g * KMAX * KMAX + e];
-      part[r * ky + s] = v;
+      part[r * ld + s] = v;
     }
   }
 };

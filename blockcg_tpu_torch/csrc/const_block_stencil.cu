@@ -1,20 +1,19 @@
 // Const-hop block stencil with the fused Gram on the (k, bs, ns) view, and
-// the slab accumulate of the periodic wrap diagonals on merged spin-major
-// fields and on that view. (The main kernels without the Gram, both views,
-// run cbs_merged.cu; this one's plain apply, G null, serves the on-card
-// tests as the bitwise reference of the view's apply there.)
+// the slab accumulate of the periodic wrap diagonals on that view. (The main
+// kernels without the Gram, both views, run cbs_merged.cu, and the merged
+// view's slab adds slab_stream.cu; this one's plain apply, G null, serves
+// the on-card tests as the bitwise reference of the view's apply there.)
 //
 // Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
-// slab_m_accumulate (:780) and slab_m_accumulate_from (:846) on the merged
-// view, and const_block_stencil_spmm_gram_t (:361), slab_block_accumulate
-// (:691) and slab_block_accumulate_from (:955) on the (k, bs, ns) view.
+// const_block_stencil_spmm_gram_t (:361), slab_block_accumulate (:691) and
+// slab_block_accumulate_from (:955) on the (k, bs, ns) view.
 //
 // Layout: a field is (m, ns) float32 with m = bs * k; site s of row r sits at
 // F[r * ns + s]. The row map is a runtime pair of strides (RowMap in
-// common.cuh): on the merged view row a * k + i holds spin a of right-hand
-// side i; on the (k, bs, ns) view, row i * bs + a. One slab instantiation
-// serves both. The main kernel here does the arithmetic of cbs_merged.cu's
-// groups of one, so on the ungrouped plan the two give the same bits.
+// common.cuh): on the (k, bs, ns) view row i * bs + a holds spin a of
+// right-hand side i. The main kernel here does the arithmetic of
+// cbs_merged.cu's groups of one, so on the ungrouped plan the two give the
+// same bits.
 //
 // Contract, main kernel: for every diagonal d of the main set,
 //   Y[row(a, i), s] += w_d(s) * sum_b H_d[a][b] * X[row(b, i), (s + o_d) mod ns],
@@ -25,12 +24,9 @@
 // Contract, slab kernel: for slab j < nblocks of g sites, destination block
 // dst = (dst_mul * j + dst_off) mod nb of Y (nb = ns / g blocks) and source
 // block src = (src_mul * j + src_off) mod src_nb of X; Y[:, dst block] +=
-// v * (H ⊗ I_k) X[:, src block], in place on Y, with v the slab site's entry
-// of vals, or 1. X is the field itself (src_nb = nb, the periodic wraps:
-// src = dst + shift) or a separate halo buffer of its own width (the
-// distributed layer's crossings, with the gauged links in vals). With the
-// Gram (merged view only), G = Gin + sum over the slab sites of
-// Xd[:, dst] dY^T, Xd the field.
+// (H ⊗ I_k) X[:, src block], in place on Y. X is the field itself (src_nb =
+// nb, the periodic wraps: src = dst + shift) or a separate halo buffer of its
+// own width (the distributed layer's crossings).
 //
 // The TPU kernels build the MXU weight W = H ⊗ I_k, which is 3/4 zeros at
 // bs = 4. Here one thread owns one site column and applies the bs x bs hop
@@ -56,13 +52,11 @@
 // destination blocks of one diagonal are distinct (the wrapper checks it), so
 // every destination column has exactly one writer.
 //
-// Gram: as in stencil.cu, each block stages its tile's X and Y columns in
-// shared memory in the field's own row order, adds them into a register tile
-// (GramTile), writes one (m, m) partial, and a second kernel sums the
-// partials in a fixed order (and adds Gin for the slab). On the (k, bs, ns)
-// view reduce_spin_contract sums and contracts the spins instead: one block
-// per (i, j), each thread a fixed stride of the terms, then a tree in shared
-// memory. No atomics: a repeated call gives the same bits.
+// Gram: each block stages its tile's X and Y columns in shared memory in the
+// field's own row order, adds them into a register tile (GramTile) and writes
+// one (m, m) partial; reduce_spin_contract sums and contracts the spins: one
+// block per (i, j), each thread a fixed stride of the terms, then a tree in
+// shared memory. No atomics: a repeated call gives the same bits.
 #include "common.cuh"
 
 namespace {
@@ -173,62 +167,28 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (WITH_GRAM) g.store(part + static_cast<long long>(blockIdx.x) * m * m, m);
 }
 
-// part == nullptr: no Gram. The flag is uniform over the grid, so the
-// barriers under it are safe. X has xn columns (ns for a slab of the field
-// itself, the halo's width for a separate source); Xd is the field whose
-// destination columns the Gram reads. vals (or null) scales the increment of
-// slab site e = j * g + c after the hop's sum, as the plain version does.
+// One slab site a thread, all k right-hand sides. X has xn columns (ns for a
+// slab of the field itself, the halo's width for a separate source).
 template <int BS, int KMAX>
 __global__ void __launch_bounds__(kThreads)
     slab_accumulate(const float* __restrict__ hop, SlabGeom geo, int bs,
-                    const float* __restrict__ X, long long xn,
-                    const float* __restrict__ vals, const float* __restrict__ Xd,
-                    float* __restrict__ Y, float* __restrict__ part, RowMap row,
-                    int k, long long ns) {
+                    const float* __restrict__ X, long long xn, float* __restrict__ Y,
+                    RowMap row, int k, long long ns) {
   constexpr int KI = KMAX / BS;
-  extern __shared__ __align__(16) float smem[];  // [xs | ys] (Gram), then hop
-  const bool gram = part != nullptr;
-  float* xs = smem;
-  float* ys = smem + KMAX * kLd;
-  float* sh = gram ? smem + 2 * KMAX * kLd : smem;
-  const int m = bs * k;
+  __shared__ float sh[kMaxBs * kMaxBs];
   for (int e = threadIdx.x; e < bs * bs; e += blockDim.x) sh[e] = hop[e];
-  if (gram) zero_pad_rows<KMAX>(xs, ys, m);
   __syncthreads();
-
-  GramTile<KMAX> g;
   const long long total = static_cast<long long>(geo.nblocks) * geo.g;
-  const long long ntiles = (total + kThreads - 1) / kThreads;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long e = t * kThreads + threadIdx.x;
-    const bool valid = e < total;
-    long long dst = 0;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long j = e / geo.g, c = e - j * geo.g;
+    const long long dblk = (geo.dst_mul * j + geo.dst_off) % geo.nb;
+    const long long sblk = (geo.src_mul * j + geo.src_off) % geo.src_nb;
     float acc[BS][KI];
     zero(acc);
-    if (valid) {
-      const long long j = e / geo.g, c = e - j * geo.g;
-      const long long dblk = (geo.dst_mul * j + geo.dst_off) % geo.nb;
-      const long long sblk = (geo.src_mul * j + geo.src_off) % geo.src_nb;
-      dst = dblk * geo.g + c;
-      hop_apply(acc, sh, 1.f, X, bs, k, row.times(xn), sblk * geo.g + c);
-      if (vals != nullptr) {
-        const float v = vals[e];
-#pragma unroll
-        for (int a = 0; a < BS; ++a)
-#pragma unroll
-          for (int i = 0; i < KI; ++i) acc[a][i] *= v;
-      }
-      store_rows<true>(Y, acc, bs, k, row.times(ns), dst);
-    }
-    if (gram) {
-      __syncthreads();
-      stage_x(xs, Xd, m, ns, dst, valid);
-      stage_rows(ys, acc, bs, k, row);
-      __syncthreads();
-      g.accumulate(xs, ys);
-    }
+    hop_apply(acc, sh, 1.f, X, bs, k, row.times(xn), sblk * geo.g + c);
+    store_rows<true>(Y, acc, bs, k, row.times(ns), dblk * geo.g + c);
   }
-  if (gram) g.store(part + static_cast<long long>(blockIdx.x) * m * m, m);
 }
 
 // The (k, bs, ns) view's Gram: G[i, j] = sum over blocks b and spins a of
@@ -276,13 +236,9 @@ struct SlabArgs {
   int bs;
   const float* X;
   long long xn;
-  const float *vals, *Xd;
   float* Y;
-  const float* Gin;
-  float *part, *G;
-  int k, ks;
+  int k;
   long long ns;
-  bool merged;
   int nblocks;
   cudaStream_t stream;
 };
@@ -306,18 +262,10 @@ cudaError_t launch_main(const MainArgs& a) {
   return cudaGetLastError();
 }
 
-// Only the merged view has the slab's Gram.
 template <int BS, int KMAX>
 cudaError_t launch_slab(const SlabArgs& a) {
-  auto kernel = slab_accumulate<BS, KMAX>;
-  const bool gram = a.G != nullptr;
-  const size_t smem = staged_bytes(KMAX, gram, a.bs * a.bs);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.nblocks, kThreads, smem, a.stream>>>(a.hop, a.geo, a.bs, a.X, a.xn, a.vals,
-                                                  a.Xd, a.Y, gram ? a.part : nullptr,
-                                                  row_map(a.merged, a.bs, a.ks), a.k, a.ns);
-  if (gram) launch_reduce(a.part, a.G, a.bs * a.k, a.nblocks, a.stream, a.Gin);
+  slab_accumulate<BS, KMAX><<<a.nblocks, kThreads, 0, a.stream>>>(
+      a.hop, a.geo, a.bs, a.X, a.xn, a.Y, row_map(false, a.bs, a.k), a.k, a.ns);
   return cudaGetLastError();
 }
 
@@ -393,38 +341,30 @@ extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
   }
 }
 
-// hop: device (bs, bs). Y (ns columns, nb = ns / g blocks) is updated in
-// place from X (xn columns, src_nb = xn / g blocks): destination block
+// hop: device (bs, bs). Y ((k, bs, ns) view, nb = ns / g blocks) is updated
+// in place from X ((k, bs, xn), src_nb = xn / g blocks): destination block
 // (dst_mul * j + dst_off) mod nb gets (H ⊗ I_k) times source block
 // (src_mul * j + src_off) mod src_nb, each of dst_mul, dst_off, src_mul,
 // src_off reduced to its range; the nblocks destination blocks must be
-// distinct. X is the field itself (xn = ns) or a separate halo buffer. vals:
-// device (nblocks * g), or null. X, Xd and Y are merged when merged != 0,
-// else (k, bs, ns) views. ks: the merged view's right-hand sides per spin, k
-// on a whole field; a row-chunked launch covers RHS j0..j0+k of a field of
-// ks, with the fields offset by j0 rows (the view's chunks are contiguous
-// and take ks = k). G == nullptr: no Gram;
-// otherwise (merged only, ks == k) G = Gin + the slab's Xd_dst dY^T (Gin may
-// be null), with part (grid, m, m).
+// distinct. X is the field itself (xn = ns) or a separate halo buffer. A
+// row-chunked launch covers RHS j0..j0+k with the fields offset by j0 rows
+// (the view's chunks are contiguous).
 extern "C" int bcg_slab_accumulate(const float* hop, int bs, int g, int nblocks,
                                    long long dst_mul, long long dst_off,
                                    long long src_mul, long long src_off,
-                                   const float* X, long long xn, const float* vals,
-                                   const float* Xd, float* Y, const float* Gin,
-                                   float* part, float* G, int k, int ks, long long ns,
-                                   int merged, int grid, int device, cudaStream_t stream) {
+                                   const float* X, long long xn, float* Y, int k, long long ns,
+                                   int grid, int device, cudaStream_t stream) {
   const int bsw = bs_width(bs);
   const int kmax = kmax_for(bsw * k);
   if (bsw == 0 || k < 1 || kmax == 0 || g < 1 || ns < 1 || ns % g != 0 || xn < 1 ||
-      xn % g != 0 || nblocks < 1 || grid < 1 || (G != nullptr && !merged) || ks < k ||
-      (G != nullptr && (ks != k || Xd == nullptr)))
+      xn % g != 0 || nblocks < 1 || grid < 1)
     return cudaErrorInvalidValue;
   const long long nb = ns / g, src_nb = xn / g;
   if (nblocks > nb || dst_mul < 0 || dst_mul >= nb || dst_off < 0 || dst_off >= nb ||
       src_mul < 0 || src_mul >= src_nb || src_off < 0 || src_off >= src_nb)
     return cudaErrorInvalidValue;
   SlabArgs a{hop, {nb, dst_mul, dst_off, src_nb, src_mul, src_off, g, nblocks}, bs, X, xn,
-             vals, Xd, Y, Gin, part, G, k, ks, ns, merged != 0, grid, stream};
+             Y, k, ns, grid, stream};
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (bsw) {

@@ -342,8 +342,10 @@ def library() -> ctypes.CDLL:
     IP = ctypes.POINTER(ctypes.c_int)
     lib.bcg_cbs_merged_spmm.argtypes = [P, I, IP, IP, IP, IP, I, P, I, P, P, I, L, I, I, I, I,
                                         I, I, P]
-    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P,
-                                        I, I, L, I, I, I, P]
+    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, I, L, I, I, P]
+    for fn in (lib.bcg_slab_stream, lib.bcg_slab_stream_scalar):
+        fn.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P, P, I, L, I, I, I, I, P]
+        fn.restype = I
     lib.bcg_block_stencil_spmm.argtypes = [P, I, IP, IP, I, I, P, P, P, P, I, I, L, I, I,
                                            I, I, I, I, I, P]
     lib.bcg_block_stencil_tma.argtypes = [P, I, IP, IP, I, I, P, P, I, I, L, I, I, I, I, I,

@@ -46,17 +46,21 @@ kernel's notes). The (k, bs, ns) view's apply without the Gram (row 14)
 runs the same kernel with the view's row map on the ungrouped plan (a group
 a diagonal, in diagonal order), which gives the bits of the view's kernel in
 ``csrc/const_block_stencil.cu``; that kernel keeps the view's Gram (row 15)
-and the slab adds, whose row map is a pair of runtime strides (the slab
-adds take both views).
+and the view's slab adds (rows 18 and 21). The merged view's slab adds
+(rows 19 and 20) run ``csrc/slab_stream.cu``: one launch a slab add at any
+width, with or without ``vals`` and the Gram, a lane one right-hand side
+and four slab sites in 16-byte accesses (``slab_plan`` sizes the grid; a
+slab whose width or fields are not 16-byte aligned takes the same kernel's
+4-byte route), the Gram from each block's tiles in ``VecGram`` partials
+summed in the same launch behind one grid-wide barrier.
 
-Width: the merged kernel takes any k in one launch on either view (its
-blocks take groups of right-hand sides); the other kernels at most 64 rows
-after bs is rounded up to a power of two (``rhs_width(bs)`` right-hand
-sides), and a wider field runs as one launch per chunk of right-hand sides
-(on the (k, bs, ns) view a chunk is contiguous). A view Gram wider than one
-launch is ``fused.gram`` of X and the stored Y on the flat fields; the slab's with-Gram form computes its
-increment on the slab's columns alone, takes its Gram there, and adds it, so
-Y's bits are the one-launch add's.
+Width: the merged kernel and the merged slab adds take any k in one launch
+(the merged kernel's blocks take groups of right-hand sides); the view's
+Gram and slab adds at most 64 rows after bs is rounded up to a power of two
+(``rhs_width(bs)`` right-hand sides), and a wider field runs as one launch
+per chunk of right-hand sides (on the (k, bs, ns) view a chunk is
+contiguous). A view Gram wider than one launch is ``fused.gram`` of X and
+the stored Y on the flat fields.
 
 Dispatch follows ``ops/_native.py`` ``f32_kernel``: CPU tensors and CUDA
 float64 and bfloat16 tensors run the plain versions below (the reference's
@@ -104,11 +108,113 @@ def _check_main(hops, offsets, mask_slot, masks, Xm, name: str):
 
 
 def rhs_width(bs: int, name: str = "const-hop kernel") -> int:
-    """Right-hand sides one launch takes: 64 rows over bs rounded up to a
-    power of two."""
+    """Right-hand sides one launch of the view's kernels takes: 64 rows
+    over bs rounded up to a power of two."""
     if not 1 <= bs <= MAX_BS:
         raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
     return _native.MAX_K // (1 << (bs - 1).bit_length())
+
+
+# ------------------------------ the merged slab adds' host plan (rows 19, 20)
+
+SLAB_THREADS = 256  # csrc/slab_stream.cu kSlabThreads
+SLAB_GRAM_ROWS = 128  # kSlabGramRows: the widest Gram tile; a wider Gram in passes
+SLAB_KMAX = (32, 48, 64, 96, SLAB_GRAM_ROWS)  # slab_kmax: the Gram tile's rows
+SLAB_TILES = (256, 128, 64, 32)  # slab sites a tile of the Gram route, widest first
+# Static shared bytes of a Gram launch: the hop table and the reduction's doubles.
+SLAB_STATIC_BYTES = 4 * MAX_BS * MAX_BS + 8 * SLAB_THREADS
+
+
+class SlabPlan(NamedTuple):
+    """A ``csrc/slab_stream.cu`` launch: the 16-byte route (``vec``: four
+    slab sites an item) or the 4-byte one; with the Gram, its tile's rows
+    ``kmax`` (``passes`` of (kmax, kmax) blocks above ``SLAB_GRAM_ROWS``)
+    and the slab sites of a tile ``tc`` (0 and 0 without it); the blocks an
+    SM it is built for, its grid and its dynamic shared bytes."""
+    vec: bool
+    kmax: int
+    passes: int
+    tc: int
+    blocks_per_sm: int
+    grid: int
+    smem_bytes: int
+
+    def describe(self) -> str:
+        return (f"{'16-byte' if self.vec else '4-byte'} kmax={self.kmax} passes={self.passes} "
+                f"tc={self.tc} blocks/SM={self.blocks_per_sm} grid={self.grid} "
+                f"smem={self.smem_bytes}")
+
+
+def slab_blocks(bs: int, kmax: int) -> int:
+    """Blocks an SM a ``csrc/slab_stream.cu`` build takes: without the Gram
+    (kmax 0) 4 up to bs = 4, else 2 (kSlabBlocksPerSm, its register cap);
+    with it one, with every register its Gram tile needs."""
+    return (4 if bs <= 4 else 2) if kmax == 0 else 1
+
+
+def slab_kmax(m: int) -> int:
+    """The Gram tile's rows for m rows (``csrc/slab_stream.cu`` slab_kmax):
+    the least of ``SLAB_KMAX`` that holds them, ``SLAB_GRAM_ROWS`` above."""
+    return next((w for w in SLAB_KMAX if m <= w), SLAB_GRAM_ROWS)
+
+
+def slab_ts(kmax: int) -> int:
+    """The side of a thread's VecGram tile for a Gram tile of kmax rows
+    (``csrc/slab_stream.cu`` kSlabTS): 8 at 128 rows, 6 at 48 and 96, else
+    4, the least that 256 threads hold."""
+    return 8 if kmax == 128 else 6 if kmax in (48, 96) else 4
+
+
+def vecgram_scratch(kmax: int, threads: int = SLAB_THREADS) -> int:
+    """Floats of ``SlabGram<kmax>::kScratch`` (``VecGram`` in
+    ``csrc/common.cuh`` on ``slab_ts``): its copies of the (kmax, kmax)
+    tile, one a ``(kmax / TS)^2`` threads."""
+    return threads // (kmax // slab_ts(kmax)) ** 2 * kmax * kmax
+
+
+def slab_smem_bytes(kmax: int, tc: int) -> int:
+    """Dynamic shared bytes of a Gram launch (``slab_smem_floats``): the
+    staged X_dst and dY tiles, (kmax, tc + 4) floats each, or VecGram's
+    scratch where larger."""
+    return 4 * max(2 * kmax * (tc + 4), vecgram_scratch(kmax))
+
+
+@functools.lru_cache(maxsize=256)
+def slab_plan(m: int, bs: int, g: int, nblocks: int, gram: bool, vec: bool, sm_count: int,
+              smem_cap: int) -> SlabPlan:
+    """The launch of a merged slab add of m = bs * k rows over ``nblocks``
+    slabs of g sites, with or without the Gram, on the 16-byte route
+    (``vec``, which needs g % 4 == 0) or the 4-byte one, on a card of
+    ``sm_count`` SMs and ``smem_cap`` shared bytes a block. Without the
+    Gram the grid is the items' blocks of ``SLAB_THREADS`` (an item one
+    right-hand side and four sites, or one), at most the blocks an SM the
+    build takes (``slab_blocks``) times the SMs. With it one block an SM:
+    the tile is the widest of ``SLAB_TILES`` that fits and leaves at least a
+    tile an SM (else the narrowest that fits), and the grid is the tiles, at
+    most one block an SM: every block is resident, as the grid-wide barrier
+    needs. The plan depends on the shapes and the card alone, so a repeat
+    sums the Gram's partials in the same order."""
+    if not 1 <= bs <= MAX_BS:
+        raise ValueError(f"slab_m_accumulate: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
+    if m < bs or m % bs or g < 1 or nblocks < 1:
+        raise ValueError(f"slab_m_accumulate: {m} rows of bs = {bs}, {nblocks} slabs of {g} "
+                         "sites")
+    if vec and g % 4:
+        raise ValueError(f"slab_m_accumulate: the 16-byte route needs g % 4 == 0, got g = {g}")
+    total = nblocks * g
+    if not gram:
+        per_sm = slab_blocks(bs, 0)
+        items = m // bs * (total // 4 if vec else total)
+        grid = min(-(-items // SLAB_THREADS), per_sm * sm_count)
+        return SlabPlan(vec, 0, 0, 0, per_sm, grid, 0)
+    kmax = slab_kmax(m)
+    per_sm = slab_blocks(bs, kmax)
+    fits = [tc for tc in SLAB_TILES
+            if slab_smem_bytes(kmax, tc) + SLAB_STATIC_BYTES <= smem_cap]
+    tc = next((tc for tc in fits if -(-total // tc) >= sm_count), fits[-1])
+    grid = min(-(-total // tc), per_sm * sm_count)
+    return SlabPlan(vec, kmax, (-(-m // kmax)) ** 2, tc, per_sm, grid,
+                    slab_smem_bytes(kmax, tc))
 
 
 # -------------------------------------------- the merged kernel's host plan
@@ -617,29 +723,13 @@ def slab_m_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
     if not _native.f32_kernel(*ops):
         return slab_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xm, Ym,
                           Gm, with_gram)
-    m, ns = Xm.shape
-    bs = hop.shape[-1]
-    k = m // bs
-    chunks = _native.row_chunks(k, rhs_width(bs, name))
     if Ym.data_ptr() == Xm.data_ptr():
         raise ValueError(f"{name}: Y must not share X's storage")
-    if with_gram and len(chunks) > 1:
-        # On the slab's own columns: the source sites gathered into a compact
-        # field whose block j is slab j, the increment into a zeroed buffer
-        # (the same bits as the fused add), its Gram against X's destination
-        # sites, then the add.
-        from blockcg_tpu_torch.ops import fused
-
-        dst, src = slab_columns(g, nblocks, dst_mul, dst_off, src_shift, ns, Xm.device)
-        Xs = Xm[:, src]
-        dY = slab_m_accumulate(hop, g, nblocks, 1, 0, 0, Xs, torch.zeros_like(Xs))
-        G = fused.gram(Xm[:, dst], dY)
-        Ym[:, dst] += dY
-        return Ym, (G if Gm is None else Gm + G)
+    ns = Xm.shape[1]
     nb = ns // g
-    G = _launch_slab(name, hop, g, nblocks, (dst_mul % nb, dst_off % nb),
-                     (dst_mul % nb, (dst_off + src_shift) % nb), Xm, ns, None, Xm, Ym,
-                     Gm if with_gram else None, with_gram, chunks, True)
+    G = _launch_stream(name, hop, g, nblocks, (dst_mul % nb, dst_off % nb),
+                       (dst_mul % nb, (dst_off + src_shift) % nb), Xm, ns, None, Xm, Ym,
+                       Gm if with_gram else None, with_gram)
     return (Ym, G) if with_gram else Ym
 
 
@@ -660,13 +750,11 @@ def slab_block_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
                 None, name)
     if not _native.f32_kernel(hop, Xv, Yv):
         return slab_v_plain(hop, g, nblocks, dst_mul, dst_off, src_shift, Xv, Yv)
-    chunks = _native.row_chunks(k, rhs_width(bs, name))
     if Yv.data_ptr() == Xv.data_ptr():
         raise ValueError(f"{name}: Y must not share X's storage")
     nb = ns // g
     _launch_slab(name, hop, g, nblocks, (dst_mul % nb, dst_off % nb),
-                 (dst_mul % nb, (dst_off + src_shift) % nb), Xv, ns, None, None, Yv, None,
-                 False, chunks, False)
+                 (dst_mul % nb, (dst_off + src_shift) % nb), Xv, ns, Yv)
     return Yv
 
 
@@ -712,25 +800,11 @@ def slab_m_accumulate_from(hop, g: int, nblocks: int, dst_base: int, src_base: i
     if not _native.f32_kernel(*ops):
         return slab_from_plain(hop, g, nblocks, dst_base, src_base, Src, Ym, Xm, vals,
                                with_gram)
-    bs = hop.shape[-1]
-    chunks = _native.row_chunks(m // bs, rhs_width(bs, name))
     if Ym.data_ptr() in (Src.data_ptr(), Xm.data_ptr() if with_gram else None):
         raise ValueError(f"{name}: Y must not share Src's or X's storage")
-    if with_gram and len(chunks) > 1:
-        # As in slab_m_accumulate: the increment into a zeroed compact field,
-        # its Gram against X's destination columns, then the add.
-        from blockcg_tpu_torch.ops import fused
-
-        cols = nblocks * g
-        d0 = dst_base * g
-        dY = slab_m_accumulate_from(hop, g, nblocks, 0, src_base, Src,
-                                    torch.zeros((m, cols), device=Ym.device), vals=vals)
-        G = fused.gram(Xm[:, d0:d0 + cols].contiguous(), dY)
-        Ym[:, d0:d0 + cols] += dY
-        return Ym, G
     nb, src_nb = ns // g, bw // g
-    G = _launch_slab(name, hop, g, nblocks, (1 % nb, dst_base), (1 % src_nb, src_base), Src,
-                     bw, vals, Xm, Ym, None, with_gram, chunks, True)
+    G = _launch_stream(name, hop, g, nblocks, (1 % nb, dst_base), (1 % src_nb, src_base), Src,
+                       bw, vals, Xm, Ym, None, with_gram)
     return (Ym, G) if with_gram else Ym
 
 
@@ -754,35 +828,56 @@ def slab_block_accumulate_from(hop, g: int, nblocks: int, dst_base: int, src_bas
         return slab_v_from_plain(hop, g, nblocks, dst_base, src_base, Src, Yv)
     if Yv.data_ptr() == Src.data_ptr():
         raise ValueError(f"{name}: Y must not share Src's storage")
-    chunks = _native.row_chunks(k, rhs_width(bs, name))
     _launch_slab(name, hop, g, nblocks, (1 % (ns // g), dst_base), (1 % (bw // g), src_base),
-                 Src, bw, None, None, Yv, None, False, chunks, False)
+                 Src, bw, Yv)
     return Yv
 
 
-def _launch_slab(name, hop, g, nblocks, dst, src, X, xn, vals, Xd, Y, Gin, with_gram,
-                 chunks, merged):
-    """One slab launch per row chunk: ``dst`` and ``src`` are the reduced
-    (mul, off) block maps of Y (ns columns) and X (xn columns), see
-    ``csrc/const_block_stencil.cu``. Returns the (m, m) Gram, Gin plus the
-    slab's (merged, one chunk only), or None."""
+def _launch_slab(name, hop, g, nblocks, dst, src, X, xn, Y):
+    """The (k, bs, ns) view's slab add (rows 18 and 21): one
+    ``csrc/const_block_stencil.cu`` launch per chunk of right-hand sides (a
+    contiguous run of the view); ``dst`` and ``src`` are the reduced (mul,
+    off) block maps of Y (ns columns) and X (xn columns)."""
     bs = hop.shape[-1]
-    k = Y.shape[0] // bs if merged else Y.shape[0]
+    k = Y.shape[0]
     ns = Y.numel() // (bs * k)
     grid = _native.nblocks(nblocks * g)
-    part = G = None
-    if with_gram:
-        m = bs * k
-        part = torch.empty((grid, m, m), dtype=torch.float32, device=Y.device)
-        G = torch.empty((m, m), dtype=torch.float32, device=Y.device)
-    # Bytes from one RHS to the next: the merged view's rows are a spin
-    # stride apart (k), the view's chunks are contiguous.
-    yrow, xrow = (ns * 4, xn * 4) if merged else (bs * ns * 4, bs * xn * 4)
     p = _native.ptr
-    for j0, j1 in chunks:
+    for j0, j1 in _native.row_chunks(k, rhs_width(bs, name)):
         _native.launch(name, "bcg_slab_accumulate", Y.device, p(hop), bs, g, nblocks, *dst,
-                       *src, p(X) + j0 * xrow, xn, p(vals),
-                       None if Xd is None else p(Xd) + j0 * yrow, p(Y) + j0 * yrow, p(Gin),
-                       p(part), p(G), j1 - j0, k if merged else j1 - j0, ns, int(merged),
+                       *src, p(X) + j0 * bs * xn * 4, xn, p(Y) + j0 * bs * ns * 4, j1 - j0, ns,
                        grid)
+
+
+def _slab_vec(g: int, *fields) -> bool:
+    """Whether a merged slab add takes ``csrc/slab_stream.cu``'s 16-byte
+    route: g % 4 == 0 and every field it reads or writes (None skipped) on a
+    16-byte boundary (the row strides, multiples of g, keep every slab's
+    quads aligned)."""
+    return g % 4 == 0 and all(f.data_ptr() % 16 == 0 for f in fields if f is not None)
+
+
+def _launch_stream(name, hop, g, nblocks, dst, src, X, xn, vals, Xd, Y, Gin, with_gram):
+    """One ``csrc/slab_stream.cu`` launch of a merged slab add on
+    ``slab_plan``: ``dst`` and ``src`` are the reduced (mul, off) block maps
+    of Y (ns columns) and X (xn columns); with the Gram Xd is the field
+    whose destination columns it reads. Returns the (m, m) Gram, Gin plus
+    the slab's, or None. The Gram's scratch is one buffer: the (grid, m, m)
+    partials, then the grid barrier's counter."""
+    bs = hop.shape[-1]
+    m, ns = Y.shape
+    dev = Y.device
+    vec = _slab_vec(g, X, Y, vals, Xd if with_gram else None)
+    plan = slab_plan(m, bs, g, nblocks, with_gram, vec, _native.sm_count(dev.index),
+                     _native.max_smem(dev.index))
+    p = _native.ptr
+    part = G = arrived = None
+    if with_gram:
+        part = torch.empty(plan.grid * m * m + 4, dtype=torch.float32, device=dev)
+        G = torch.empty((m, m), dtype=torch.float32, device=dev)
+        arrived = p(part) + 4 * plan.grid * m * m
+    _native.launch(name, "bcg_slab_stream" if vec else "bcg_slab_stream_scalar", dev, p(hop),
+                   bs, g, nblocks, *dst, *src, p(X), xn, p(vals), p(Xd) if with_gram else None,
+                   p(Y), p(Gin), p(part), p(G), arrived, m // bs, ns, plan.kmax, plan.tc,
+                   plan.grid)
     return G

@@ -129,7 +129,7 @@ KERNELS = {
                                      "blockcg_tpu/ops/const_block_stencil.py:617"),
     "const_block_stencil_spmm_m_gram_t": ("blockcg_tpu_torch/csrc/cbs_merged.cu",
                                           "blockcg_tpu/ops/const_block_stencil.py:637"),
-    "slab_m_accumulate": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+    "slab_m_accumulate": ("blockcg_tpu_torch/csrc/slab_stream.cu",
                           "blockcg_tpu/ops/const_block_stencil.py:780"),
     "xr_update_gram": ("blockcg_tpu_torch/csrc/xr_update.cu", "blockcg_tpu/ops/fused.py:496"),
     "qr_p_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:730"),
@@ -150,7 +150,7 @@ KERNELS = {
                               "blockcg_tpu/ops/const_block_stencil.py:691"),
     "tiled_spmm_t": ("blockcg_tpu_torch/csrc/spmm_tiled.cu", "blockcg_tpu/ops/spmm_tiled.py:63"),
     "qr_px_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:795"),
-    "slab_m_accumulate_from": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+    "slab_m_accumulate_from": ("blockcg_tpu_torch/csrc/slab_stream.cu",
                                "blockcg_tpu/ops/const_block_stencil.py:846"),
     "slab_block_accumulate_from": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                                    "blockcg_tpu/ops/const_block_stencil.py:955"),
@@ -267,7 +267,8 @@ QR_PX_SHAPES = ((K, 128 ** 3), (4 * DIRAC_K, DIRAC_L ** 4))
 # dirac_bell(32) (site-major BSR) against config 4's const-hop solve.
 BELL_X_RTOL = 1e-6
 # The m = 96 solves (config 4's SBCGrQ on 24 RHS, the even-odd multi-shift
-# solve on 12) launch these, each as row-chunked launches.
+# solve on 12) launch these: the merged stencil and the slab adds one launch
+# a call (``[wide]`` checks one a slab add), the others row-chunked launches.
 WIDE_WRAPPERS = ("const_block_stencil_spmm_m_t", "slab_m_accumulate", "gram",
                  "mm2_update_gram", "px_update", "qr_p_update")
 SPARSE_WRAPPERS = ("tiled_spmm_t", "gram", "mm2_update_gram", "px_update")
@@ -495,6 +496,69 @@ def _library_check(torch, call, want, what, measure=None):
     return call, None
 
 
+def _slab_weights(torch, hop, k):
+    """W = H ⊗ I_k, the (m, m) weight of a merged slab add (the reference's
+    ``_slab_weights``)."""
+    return torch.kron(hop.float(), torch.eye(k, device=hop.device))
+
+
+def _slab_library(torch, hop, g, nblocks, dst_mul, dst_off, src_shift, Xm, Y0, want):
+    """One PyTorch call computing row 19's slab add without the Gram:
+    ``Yb.baddbmm_(W.expand(nblocks, m, m), Xb)`` on strided views of the
+    slab's destination and source blocks (an arithmetic run of blocks, as
+    config 4's wraps are), in place on a copy of ``Y0``: held by
+    ``_library_check`` to the kernel's Y ``want`` (the add on Y0), then
+    timed on that copy."""
+    m, ns = Xm.shape
+    nb = ns // g
+    src_off = (dst_off + src_shift) % nb
+    span = dst_mul * (nblocks - 1)
+    if dst_mul < 1 or dst_off + span >= nb or src_off + span >= nb:
+        return None, "the slab's blocks wrap: no strided view"
+    W = _slab_weights(torch, hop, m // hop.shape[-1]).expand(nblocks, m, m)
+    Yc = Y0.clone()
+
+    def blocks(F, off):
+        return F.view(m, nb, g)[:, off:off + span + 1:dst_mul].permute(1, 0, 2)
+
+    def call():
+        return blocks(Yc, dst_off).baddbmm_(W, blocks(Xm, src_off))
+    _, why = _library_check(torch, lambda: (call(), Yc)[1], want, "baddbmm_ on the slab's blocks")
+    return (None, why) if why else (call, None)
+
+
+def _halo_library(torch, hop, g, nblocks, dst_base, src_base, Src, Y0, want):
+    """One PyTorch call computing row 20's halo slab add without ``vals`` or
+    the Gram: ``Y[:, d0:d0 + cols].addmm_(W, Src[:, s0:s0 + cols])``, in
+    place on a copy of ``Y0``, held to the kernel's Y ``want`` first."""
+    m = Y0.shape[0]
+    cols, d0, s0 = nblocks * g, dst_base * g, src_base * g
+    W = _slab_weights(torch, hop, m // hop.shape[-1])
+    Yc = Y0.clone()
+
+    def call():
+        return Yc[:, d0:d0 + cols].addmm_(W, Src[:, s0:s0 + cols])
+    _, why = _library_check(torch, lambda: (call(), Yc)[1], want, "addmm_ on the halo slab")
+    return (None, why) if why else (call, None)
+
+
+def _slab_plans(torch, cbs, slab, Y) -> str:
+    """The route and ``slab_plan`` of a merged slab add (row 19) without and
+    with its Gram, as its wrapper makes them."""
+    from blockcg_tpu_torch.ops import _native
+
+    hop, g, nblocks, X = slab[0], slab[1], slab[2], slab[-1]
+    m, idx = Y.shape[0], Y.device.index
+    out = []
+    for gram in (False, True):
+        vec = cbs._slab_vec(g, X, Y, X if gram else None)
+        plan = cbs.slab_plan(m, hop.shape[-1], g, nblocks, gram, vec, _native.sm_count(idx),
+                             _native.max_smem(idx))
+        route = "bcg_slab_stream" if vec else "bcg_slab_stream_scalar"
+        out.append(f"{'with' if gram else 'without'} Gram {route} {plan.describe()}")
+    return "; ".join(out)
+
+
 def _dia_csr_library(torch, diags, offsets, Xt, Y, measure=None):
     """One PyTorch call computing the DIA SpMM: the torch CSR tensor of the
     same toroidal diagonals (explicit zeros dropped, columns sorted in each
@@ -707,6 +771,10 @@ def phase_cbs_kernels(torch, dev, records) -> None:
         torch, _const_hop_blocks(torch, op.hops_main, op.main_slots, op.masks_main, ns),
         op.main_offsets, Xm, cbs.const_block_stencil_spmm_m_t(*main, op.main_plans))
     _library_note(f"const_block_stencil_spmm_m_t {what} (torch BSR @ dense)", why)
+    slab_lib, why = _slab_library(torch, op.hops_all[d], g, nblocks, mul, off, shift, Xm, Ym,
+                                  cbs.slab_m_accumulate(*slab, Ym.clone()))
+    _library_note(f"slab_m_accumulate {what} (baddbmm_ of H ⊗ I_k on the slab's blocks)", why)
+    print(f"[plan] slab_m_accumulate {what}: {_slab_plans(torch, cbs, slab, Ym)}")
     cases = [
         ("const_block_stencil_spmm_m_t", what,
          lambda: (cbs.const_block_stencil_spmm_m_t(*main, op.main_plans), None),
@@ -715,7 +783,7 @@ def phase_cbs_kernels(torch, dev, records) -> None:
          lambda: cbs.const_block_stencil_spmm_m_gram_t(*main, op.main_plans),
          lambda: cbs.const_block_stencil_plain(*main, True), None, main_work(op, main, True),
          None),
-        ("slab_m_accumulate", what, *slab_case(False), (slab_bytes, slab_flops), None),
+        ("slab_m_accumulate", what, *slab_case(False), (slab_bytes, slab_flops), slab_lib),
         # With the Gram: X at the destinations too, G read and written.
         ("slab_m_accumulate", what + " with Gram", *slab_case(True),
          (slab_bytes + (fb // ns) * cols + 2 * gb, slab_flops + 2 * m * m * cols), None),
@@ -945,6 +1013,7 @@ def phase_config4(torch, dev) -> None:
     (X1, info, s1), (X2, info2, s2) = runs
     if not bool(info.converged.all()):
         raise AssertionError(f"config 4 did not converge: {info}")
+    print(f"[config4] {_slab_launches(_native, op)}")
     rel = true_relres(torch, op, X1, B)
     if not rel <= 1e-5:
         raise AssertionError(f"config 4 true relres {rel:.3e} > 1e-5")
@@ -1579,6 +1648,7 @@ def phase_wide_kernels(torch, dev, records) -> None:
     config 4's operator with 24 RHS (merged, the (24, 4, ns) view, both slab
     adds); the block stencil on random per-site blocks (16^4 sites, bs = 4,
     k = 24). These checks fold into the records' max_abs_err only."""
+    from blockcg_tpu_torch.ops import _native
     from blockcg_tpu_torch.ops import block_stencil as bsk
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
     from blockcg_tpu_torch.ops import fused, stencil
@@ -1718,14 +1788,27 @@ def phase_wide_kernels(torch, dev, records) -> None:
     Yk, Yp = Ym.clone(), Ym.clone()
     slab = (op.hops_all[d], g, nblocks, mul, off, shift, Xm)
     swork = (3 * 4 * m * cols, 2 * k * nnz(op.hops_all[d]) * cols)
+    slab_lib, why = _slab_library(torch, op.hops_all[d], g, nblocks, mul, off, shift, Xm, Ym,
+                                  cbs.slab_m_accumulate(*slab, Ym.clone()))
+    _library_note(f"slab_m_accumulate config 4 m={m} (baddbmm_ on the slab's blocks)", why)
+    print(f"[plan] slab_m_accumulate config 4 m={m}: {_slab_plans(torch, cbs, slab, Ym)}")
     for with_gram in (False, True):
+        _native.reset_launches()
+        cbs.slab_m_accumulate(*slab, Yk, Gm, with_gram=with_gram)
+        if dict(_native.launches) != {"slab_m_accumulate": 1}:
+            raise AssertionError(f"slab_m_accumulate at m={m}: {dict(_native.launches)} "
+                                 "launches for one slab add")
+        print(f"[plan] slab_m_accumulate config 4 m={m}" + " with Gram" * with_gram
+              + f": one launch, {dict(_native.functions)}")
         _timed_check(torch, "slab_m_accumulate", f"config 4 m={m} slab" + " with Gram" * with_gram,
                      lambda: _tuple((Yk.copy_(Ym), cbs.slab_m_accumulate(
                          *slab, Yk, Gm, with_gram=with_gram))[1]),
                      lambda: _tuple((Yp.copy_(Ym), cbs.slab_plain(*slab, Yp, Gm, with_gram))[1]),
-                     is_gram, records, work=swork,
+                     is_gram, records, work=(swork[0] + with_gram * 4 * m * (cols + 2 * m),
+                                             swork[1] + with_gram * 2 * m * m * cols),
                      timed=(lambda: cbs.slab_m_accumulate(*slab, Yk, Gm, with_gram=with_gram),
-                            lambda: cbs.slab_plain(*slab, Yp, Gm, with_gram)))
+                            lambda: cbs.slab_plain(*slab, Yp, Gm, with_gram)),
+                     library=None if with_gram else slab_lib)
     Yvk, Yvp = Yk.reshape(k, bs, ns), Yp.reshape(k, bs, ns)
     vslab = (op.hops_all[d], g, nblocks, mul, off, shift, Xv)
     _timed_check(torch, "slab_block_accumulate", f"config 4 ({k}, {bs}, {ns}) slab",
@@ -2040,6 +2123,20 @@ def phase_bell(torch, dev) -> None:
           f"|Xb - Xc| / |Xc| {dx:.3e}, true relres {rel:.3e}")
 
 
+def _slab_launches(_native, op) -> str:
+    """Checks that the solves counted in ``_native`` launched
+    ``slab_m_accumulate`` once a slab add: each merged apply (one main
+    launch, with or without the Gram) adds each of ``op.slabs``."""
+    applies = sum(_native.launches[w] for w in ("const_block_stencil_spmm_m_t",
+                                                  "const_block_stencil_spmm_m_gram_t"))
+    slabs = _native.launches["slab_m_accumulate"]
+    if slabs != len(op.slabs) * applies or _native.functions["bcg_slab_stream"] != slabs:
+        raise AssertionError(f"{slabs} slab_m_accumulate launches for {applies} applies of "
+                             f"{len(op.slabs)} slabs: {dict(_native.functions)}")
+    return (f"slab adds: {slabs} slab_m_accumulate launches for {applies} merged applies of "
+            f"{len(op.slabs)} slabs (one launch a slab add, bcg_slab_stream)")
+
+
 def phase_wide_solves(torch, dev) -> dict:
     """Solves on fields of m = 96 rows: config 4's SBCGrQ with 24 RHS (seed
     42), and ``solve_dirac_eo_shifted`` on ``dirac_eo(32)`` with config 4's
@@ -2060,6 +2157,7 @@ def phase_wide_solves(torch, dev) -> dict:
                              f"{rel:.3e}: {info}")
     print(f"[wide] config 4 SBCGrQ k={WIDE_CONFIG4_K} (m = {4 * WIDE_CONFIG4_K}) tol=1e-6: "
           f"{info.iterations} iterations, {secs:.3f} s, true relres {rel:.3e}")
+    print(f"[wide] {_slab_launches(_native, op)}")
     del op, X
     torch.cuda.empty_cache()
     eo = dirac_eo(DIRAC_L, device=dev)
@@ -3098,6 +3196,7 @@ def phase_dist_kernels(torch, dev, records) -> None:
     ``vals``, and at m = 96. Row 21 on a ``dirac_eo(32)`` parity hop's
     crossing at (1, 4, 2^19) and on config 4's at (12, 4, 32^4)."""
     from blockcg_tpu_torch import parallel as par
+    from blockcg_tpu_torch.ops import _native
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
     from blockcg_tpu_torch.problems import dirac_cbdia, dirac_eo, dirac_gauged_cbdia
 
@@ -3133,14 +3232,24 @@ def phase_dist_kernels(torch, dev, records) -> None:
         kern, plain, timed = _halo_case(
             torch, lambda Y: cbs.slab_m_accumulate_from(*args, Y, X, v, with_gram=gram),
             lambda Y: cbs.slab_from_plain(*args, Y, X, v, gram), Y0)
+        library = None
+        if m == 4 * DIRAC_K and not gram and not gauged:
+            library, why = _halo_library(torch, h, g, nb, dst, 0, Src, Y0,
+                                         cbs.slab_m_accumulate_from(*args, Y0.clone()))
+            _library_note(f"slab_m_accumulate_from m={m} (addmm_ on the halo slab)", why)
         fbc = m * 4  # bytes of one site column
         work = (3 * fbc * cols + (0 if v is None else 4 * cols) + gram * (fbc * cols + m * m * 4),
                 2 * (m // 4) * nnz(h) * cols + (0 if v is None else m * cols)
                 + gram * 2 * m * m * cols)
         what = (f"halo ({m}, {bw}) into ({m}, {ns}) g={g} x {nb}"
                 + (" with Gram" if gram else "") + (" Z2 vals" if gauged else ""))
-        _timed_check(torch, "slab_m_accumulate_from", what, kern, plain, is_gram, records, timed,
-                     work=work)
+        _native.reset_launches()
+        kern()
+        if dict(_native.launches) != {"slab_m_accumulate_from": 1}:
+            raise AssertionError(f"slab_m_accumulate_from ({what}): {dict(_native.launches)} "
+                                 "launches for one slab add")
+        _timed_check(torch, "slab_m_accumulate_from", what + f" {dict(_native.functions)}",
+                     kern, plain, is_gram, records, timed, work=work, library=library)
     del plan, gplan, Src, Y0, X
     eo = dirac_eo(DIRAC_L, device=dev)
     eplan = par.partition_cbdia(eo.hop_oe, 1)

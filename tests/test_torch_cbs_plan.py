@@ -271,3 +271,185 @@ def test_qr_p_update_at_m96_matches_pallas(donate):
     for got, w in zip((Q, Pn), want):
         err = np.abs(got.numpy().astype(np.float64) - w).max() / np.abs(w).max()
         assert err < 1e-5, err
+
+
+# ---------------- rows 19 and 20: the merged slab adds (csrc/slab_stream.cu)
+
+# Config 4's slab adds: a wrap slab of dirac_cbdia(32) (32 slabs of 1,024
+# sites) and the one-rank +t crossing (8 of 4,096), both 32,768 sites.
+CONFIG4_SLAB = (1024, 32)
+
+
+@pytest.mark.parametrize("m,gram,want", [
+    (48, False, (0, 0, 0, 4, 384)),       # config 4: (48 / 4) x 32,768 / 4 items
+    (96, False, (0, 0, 0, 4, 528)),       # [wide]: four blocks an SM
+    (48, True, (48, 1, 128, 1, 132)),     # a block an SM, 256 tiles of 128 sites
+    (96, True, (96, 1, 128, 1, 132)),
+    (8, True, (32, 1, 128, 1, 132)),
+    (128, True, (128, 1, 128, 1, 132)),
+    (160, True, (128, 4, 128, 1, 132)),   # above 128 rows: the Gram in passes
+])
+def test_slab_plan_one_launch_at_any_width(m, gram, want):
+    """``slab_plan`` gives one ``csrc/slab_stream.cu`` launch a slab add at
+    any width: without the Gram a grid of the items' blocks up to four
+    blocks an SM (bs <= 4); with it the Gram tile's rows, its passes, one
+    block an SM (every block resident for the grid barrier) on the widest
+    tile of sites that fits and leaves a tile an SM; shared bytes within the
+    cap."""
+    g, nb = CONFIG4_SLAB
+    plan = cbs.slab_plan(m, 4, g, nb, gram, True, H100_SMS, H100_SMEM)
+    assert (plan.kmax, plan.passes, plan.tc, plan.blocks_per_sm, plan.grid) == want
+    assert plan.vec and plan.grid <= plan.blocks_per_sm * H100_SMS
+    if gram:
+        assert plan.kmax == cbs.slab_kmax(m) and plan.passes == (-(-m // plan.kmax)) ** 2
+        assert plan.smem_bytes == cbs.slab_smem_bytes(plan.kmax, plan.tc)
+        assert plan.smem_bytes + cbs.SLAB_STATIC_BYTES <= H100_SMEM
+        assert plan.blocks_per_sm == cbs.slab_blocks(4, plan.kmax) == 1
+        assert -(-g * nb // plan.tc) >= H100_SMS
+        assert plan.grid == min(-(-g * nb // plan.tc), H100_SMS)
+
+
+def test_slab_plan_grid_depends_on_shapes_and_sms_alone():
+    """The grid (which orders the Gram's partial sums) is a function of the
+    shapes and the card: equal arguments give equal plans, another SM count
+    another grid and tile; bs = 8 takes two blocks an SM without the Gram."""
+    g, nb = CONFIG4_SLAB
+    a = cbs.slab_plan(48, 4, g, nb, True, True, H100_SMS, H100_SMEM)
+    cbs.slab_plan.cache_clear()
+    assert cbs.slab_plan(48, 4, g, nb, True, True, H100_SMS, H100_SMEM) == a
+    assert cbs.slab_plan(48, 4, g, nb, True, True, 66, H100_SMEM)[3:] == (256, 1, 66, 99840)
+    assert cbs.slab_plan(96, 8, g, nb, False, True, H100_SMS, H100_SMEM).blocks_per_sm == 2
+    scalar = cbs.slab_plan(48, 4, 2, 100, False, False, H100_SMS, H100_SMEM)
+    assert not scalar.vec and scalar.grid == -(-12 * 200 // cbs.SLAB_THREADS)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((48, 9, 1024, 32, True, True), "bs <= 8"),
+    ((50, 4, 1024, 32, True, True), "rows of bs"),
+    ((48, 4, 0, 32, False, True), "slabs of"),
+    ((48, 4, 1024, 0, False, True), "slabs of"),
+    ((48, 4, 6, 32, False, True), "g % 4 == 0"),
+])
+def test_slab_plan_refusals(args, match):
+    with pytest.raises(ValueError, match=match):
+        cbs.slab_plan(*args, H100_SMS, H100_SMEM)
+
+
+def test_slab_16_byte_route_conditions():
+    """``_slab_vec``: the 16-byte route needs g % 4 == 0 and every field it
+    reads or writes on a 16-byte boundary (None skipped)."""
+    F = torch.zeros(48, 4096)
+    off = torch.zeros(48 * 4096 + 1)[1:].view(48, 4096)
+    assert F.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 4
+    assert cbs._slab_vec(1024, F, F, None, F)
+    assert not cbs._slab_vec(2, F, F, None, F) and not cbs._slab_vec(6, F, F)
+    assert not cbs._slab_vec(1024, F, off, None) and not cbs._slab_vec(1024, off, F)
+    assert not cbs._slab_vec(1024, F, F, off[:1, :1024].reshape(1, 1024))
+
+
+@pytest.mark.parametrize("gram,vals,g,offset,fn", [
+    (True, True, 256, False, "bcg_slab_stream"),
+    (False, False, 256, False, "bcg_slab_stream"),
+    (True, False, 256, True, "bcg_slab_stream_scalar"),
+    (True, True, 2, False, "bcg_slab_stream_scalar"),
+])
+def test_slab_stream_launch_arguments(monkeypatch, gram, vals, g, offset, fn):
+    """``_launch_stream`` at m = 96 issues one launch on its plan: the 16-byte
+    route or the 4-byte one by ``_slab_vec``, the plan's kmax, tile and grid,
+    the Gram's partials (grid, m, m) with the barrier's counter past them."""
+    monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
+    monkeypatch.setattr(_native, "sm_count", lambda index: H100_SMS)
+    calls = []
+    monkeypatch.setattr(_native, "launch", lambda name, f, dev, *a: calls.append((name, f, a)))
+    hop = torch.ones(4, 4)
+    m, nb = 96, 3
+    Src = torch.zeros(m * 4 * g + 1)[1:].view(m, 4 * g) if offset else torch.zeros(m, 4 * g)
+    Y, X = torch.zeros(m, 8 * g), torch.zeros(m, 8 * g)
+    v = torch.ones(1, nb * g) if vals else None
+    G = cbs._launch_stream("slab_m_accumulate_from", hop, g, nb, (1, 5), (1, 1), Src, 4 * g,
+                           v, X if gram else None, Y, None, gram)
+    assert len(calls) == 1 and calls[0][:2] == ("slab_m_accumulate_from", fn)
+    plan = cbs.slab_plan(m, 4, g, nb, gram, fn == "bcg_slab_stream", H100_SMS, H100_SMEM)
+    a = calls[0][2]
+    assert a[:8] == (hop.data_ptr(), 4, g, nb, 1, 5, 1, 1)
+    assert a[8:10] == (Src.data_ptr(), 4 * g) and a[12] == Y.data_ptr()
+    assert a[17:] == (24, 8 * g, plan.kmax, plan.tc, plan.grid)
+    if gram:
+        assert G.shape == (m, m) and a[15] == G.data_ptr() and a[11] == X.data_ptr()
+        assert a[16] == a[14] + 4 * plan.grid * m * m
+    else:
+        assert G is None and a[14:17] == (None, None, None)
+
+
+def test_host_constants_mirror_the_slab_kernel():
+    """``ops/const_block_stencil.py``'s slab plan mirrors ``csrc/slab_stream.cu``."""
+    ss = (CSRC / "slab_stream.cu").read_text()
+    cm = (CSRC / "common.cuh").read_text()
+    for name, value in (("kSlabThreads", cbs.SLAB_THREADS), ("kSlabMaxBs", cbs.MAX_BS),
+                        ("kSlabGramRows", cbs.SLAB_GRAM_ROWS)):
+        assert int(re.search(rf"{name} = (\d+)", ss).group(1)) == value, name
+    assert "kSlabBlocksPerSm = BS <= 4 ? 4 : 2;" in ss
+    assert "__launch_bounds__(kSlabThreads, 1)" in ss
+    assert [cbs.slab_blocks(bs, w) for bs, w in ((4, 0), (8, 0), (4, 48), (8, 64), (4, 96),
+                                                  (4, 128))] == [4, 2, 1, 1, 1, 1]
+    assert ("return m <= 32 ? 32 : m <= 48 ? 48 : m <= 64 ? 64 : m <= 96 ? 96 : kSlabGramRows;"
+            in ss and cbs.SLAB_KMAX == (32, 48, 64, 96, 128))
+    assert [cbs.slab_kmax(m) for m in (1, 32, 33, 48, 64, 65, 96, 97, 200)] == \
+        [32, 32, 48, 48, 64, 96, 96, 128, 128]
+    assert "const long long tiles = 2LL * KMAX * (tc + 4);" in ss
+    assert "constexpr long long scratch = SlabGram<KMAX>::kScratch;" in ss
+    assert "kSlabTS = KMAX == 128 ? 8 : (KMAX == 48 || KMAX == 96) ? 6 : 4;" in ss
+    assert [cbs.slab_ts(w) for w in cbs.SLAB_KMAX] == [4, 6, 4, 6, 8]
+    assert "const size_t smem = 4 * slab_smem_floats<KMAX>(a.tc);" in ss
+    assert "__shared__ float hs[kSlabMaxBs * kSlabMaxBs];" in ss
+    assert "__shared__ double red[kSlabThreads];" in ss
+    assert cbs.SLAB_STATIC_BYTES == 4 * 8 * 8 + 8 * 256
+    assert "static constexpr int kGroups = THREADS / kCopy;" in cm
+    assert [cbs.vecgram_scratch(w) for w in (32, 48, 64, 96, 128)] == \
+        [4 * 1024, 4 * 2304, 4096, 9216, 16384]
+
+
+@pytest.mark.parametrize("with_vals", [False, True])
+def test_slab_adds_at_m96_match_pallas(with_vals):
+    """Rows 19 and 20 at k = 24 (m = 96, one launch on the card) with the
+    Gram on the plain route against the Pallas kernels in interpret mode:
+    a wrap slab of ``dirac_cbdia(16)`` (with ``Gin``), and a halo of 3 blocks
+    of g = 256 into blocks 5..7 of 8 with ``vals`` (or without). Max
+    relative error 1e-5 on Y, relative Frobenius 1e-5 on G (f32)."""
+    rng = np.random.default_rng(2300)
+    k = 24
+    jop = jdirac.dirac_cbdia(16, dtype=jnp.float32)
+    m = jop.bs * k
+    d, g, nblocks, mul, off, shift = jop.slabs[0]
+    Xm, Ym = (rng.standard_normal((m, jop.ns)).astype(np.float32) for _ in range(2))
+    Gm = rng.standard_normal((m, m)).astype(np.float32)
+    args = (jop.hops[d], g, nblocks, mul, off, shift)
+    Y, G = cbs.slab_m_accumulate(*args, torch.from_numpy(Xm), torch.from_numpy(Ym.copy()),
+                                 torch.from_numpy(Gm), with_gram=True)
+    Yj, Gj = jcbs.slab_m_accumulate(*args, jnp.asarray(Xm), jnp.asarray(Ym), jnp.asarray(Gm),
+                                    with_gram=True, interpret=True)
+    assert _relmax(Y, Yj) <= 1e-5 and _relfro(G, Gj) <= 1e-5
+    hop = jop.hops[1]
+    g, nb, dst, src = 256, 3, 5, 1
+    Src = rng.standard_normal((m, 4 * g)).astype(np.float32)
+    Yh, Xh = (rng.standard_normal((m, 8 * g)).astype(np.float32) for _ in range(2))
+    v = rng.choice([-1.0, 1.0], (1, nb * g)).astype(np.float32) if with_vals else None
+    Y, G = cbs.slab_m_accumulate_from(hop, g, nb, dst, src, torch.from_numpy(Src),
+                                      torch.from_numpy(Yh.copy()), torch.from_numpy(Xh),
+                                      None if v is None else torch.from_numpy(v),
+                                      with_gram=True)
+    Yj, Gj = jcbs.slab_m_accumulate_from(hop, g, nb, dst, src, jnp.asarray(Src),
+                                         jnp.asarray(Yh), jnp.asarray(Xh),
+                                         None if v is None else jnp.asarray(v),
+                                         with_gram=True, interpret=True)
+    assert _relmax(Y, Yj) <= 1e-5 and _relfro(G, Gj) <= 1e-5
+
+
+def _relmax(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _relfro(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)

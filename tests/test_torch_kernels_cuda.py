@@ -236,8 +236,11 @@ def test_const_block_stencil_kernel_bounds(dev):
     assert _native.launches["const_block_stencil_spmm_m_t"] == 3
 
 
-@pytest.mark.parametrize("k", [2, 12])
+@pytest.mark.parametrize("k", [2, 12, 24])
 def test_slab_kernel_matches_plain(dev, k):
+    """Row 19 (``csrc/slab_stream.cu``) on ``dirac_cbdia(16)``'s slabs at k
+    = 2, 12 and 24 (m = 96): one 16-byte-route launch a slab add, with and
+    without the Gram, against its plain version; a repeat's G bitwise."""
     op = dirac_cbdia(16, device=dev)
     m, ns = op.bs * k, op.ns
     Xm, Ym = _field(m, ns, 20, dev), _field(m, ns, 21, dev)
@@ -245,11 +248,13 @@ def test_slab_kernel_matches_plain(dev, k):
     for d, g, nblocks, mul, off, shift in op.slabs:
         args = (op.hops_all[d], g, nblocks, mul, off, shift, Xm)
         Yk, Yp = Ym.clone(), Ym.clone()
+        _native.reset_launches()
         out = cbs.slab_m_accumulate(*args, Yk)
         cbs.slab_plain(*args, Yp)
         assert out.data_ptr() == Yk.data_ptr() and _relmax(Yk, Yp) < 1e-5
         Yk, Yp = Ym.clone(), Ym.clone()
         Yk, G = cbs.slab_m_accumulate(*args, Yk, Gm, with_gram=True)
+        assert _native.functions == {"bcg_slab_stream": 2}
         Yp, Gp = cbs.slab_plain(*args, Yp, Gm, with_gram=True)
         assert _relmax(Yk, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
         G2 = cbs.slab_m_accumulate(*args, Ym.clone(), Gm, with_gram=True)[1]
@@ -879,7 +884,7 @@ def test_tiled_operator_solve_on_card(dev, rgg_tiles):
 def test_halo_slab_kernel_matches_plain(dev, m, gram, vals):
     """Row 20: 3 slabs of g = 256 from block 1 of a 4-block halo into blocks
     5..7 of an 8-block field (a dirac_cbdia hop, +-1 link values), in place,
-    one launch a 48-row chunk; a repeat gives the same bits."""
+    one launch at m = 48 and at 96; a repeat gives the same bits."""
     g, nb = 256, 3
     hop = dirac_cbdia(4, device=dev).hops_all[1]
     Src, Y0, X = _field(m, 4 * g, 150, dev), _field(m, 8 * g, 151, dev), _field(m, 8 * g, 152, dev)
@@ -891,7 +896,7 @@ def test_halo_slab_kernel_matches_plain(dev, m, gram, vals):
     got = cbs.slab_m_accumulate_from(*args, Yk, X, v, with_gram=gram)
     want = cbs.slab_from_plain(*args, Yp, X, v, gram)
     torch.cuda.synchronize()
-    assert _native.launches["slab_m_accumulate_from"] == m // 48
+    assert _native.launches["slab_m_accumulate_from"] == 1
     got, want = (got, want) if gram else ((got, None), (want, None))
     assert got[0].data_ptr() == Yk.data_ptr()
     _check_all(got, want)
@@ -3013,3 +3018,141 @@ def test_stencil_f32_gram_at_64_rows_keeps_y_and_nears_its_contract(dev, edge):
     assert _relfro(G.double(), X.double() @ Y.double().T) <= 2 * before
     Y2, G2 = stencil.stencil_spmm_gram_t(op.diags, op.offsets, X)
     assert torch.equal(Y2, Y) and torch.equal(G2, G)
+
+
+@pytest.mark.parametrize("k,dtype", [(64, torch.float32), (48, torch.float32),
+                                     (64, torch.bfloat16), (40, torch.float32)])
+def test_stencil_f32_gram_at_64_rows_matches_plain(dev, k, dtype):
+    """Rows 2 and 2m above 32 rows on the 64^3 Laplacian (config 5's f32
+    route at 64 rows) against the plain version: the launches of the plan's
+    chunks (``f32_gram_chunks``) and ``gram.cu``'s cross blocks, Y within
+    1e-5 and bitwise the SpMM's, G within 1e-5 (the sums in another order);
+    at 64 rows on a field one element off a 16-byte boundary the same."""
+    op = laplacian_dia((64,) * 3, device=dev)
+    D = op.diags.to(dtype)
+    X = _field(k, op.n, 2300 + k, dev)
+    chunks = stencil.f32_gram_chunks(len(op.offsets), k)
+    _native.reset_launches()
+    Y, G = stencil.stencil_spmm_gram_t(D, op.offsets, X)
+    fn = "bcg_stencil_spmm" + ("_bf16d" if dtype == torch.bfloat16 else "")
+    assert len(chunks) == 2 and _native.functions[fn] == 2
+    Yp, Gp = stencil.stencil_spmm_plain(D, op.offsets, X, with_gram=True)
+    assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(Y, stencil.stencil_spmm_t(D, op.offsets, X))
+    if k == 64 and dtype == torch.float32:
+        Xo = torch.empty(k * op.n + 1, device=dev)[1:].view(k, op.n)
+        Xo.copy_(X)
+        Yo, Go = stencil.stencil_spmm_gram_t(D, op.offsets, Xo)
+        assert torch.equal(Yo, Y) and _relfro(Go, Gp) < 1e-5
+
+
+# ------------------- rows 19 and 20 on csrc/slab_stream.cu
+
+
+def _config4_slab(dev, k, seed):
+    """Config 4's first wrap slab (``dirac_cbdia(32)``: g = 1024 x 32) and
+    merged fields X, Y of k right-hand sides, with a Gin."""
+    op = dirac_cbdia(32, device=dev)
+    m, ns = op.bs * k, op.ns
+    d, g, nb, mul, off, shift = op.slabs[0]
+    X, Y = _field(m, ns, seed, dev), _field(m, ns, seed + 1, dev)
+    Gin = _t(np.random.default_rng(seed + 2).standard_normal((m, m)), dev)
+    return (op.hops_all[d], g, nb, mul, off, shift, X), Y, Gin
+
+
+@pytest.mark.parametrize("k", [12, 24])
+def test_slab_stream_repeats_its_bits(dev, k):
+    """Rows 19 and 20 at config 4's shapes (m = 48 and 96): a repeat gives
+    the same Y and G bits, with and without ``vals``; the 16-byte route;
+    within 1e-5 of the plain version (its hop product is a library GEMM)."""
+    args, Y0, Gin = _config4_slab(dev, k, 2500)
+    outs = []
+    for _ in range(2):
+        outs.append(cbs.slab_m_accumulate(*args, Y0.clone(), Gin, with_gram=True))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    Yp, Gp = cbs.slab_plain(*args, Y0.clone(), Gin, with_gram=True)
+    assert _relmax(outs[0][0], Yp) < 1e-5 and _relfro(outs[0][1], Gp) < 1e-5
+    m, ns = Y0.shape
+    bw, g = 32 ** 3, 4096
+    hop, X = args[0], args[-1]
+    Src = _field(m, bw, 2503, dev)
+    v = _t(np.random.default_rng(2504).choice([-1.0, 1.0], (1, bw)), dev)
+    _native.reset_launches()
+    got = [cbs.slab_m_accumulate_from(hop, g, 8, (ns - bw) // g, 0, Src, Y0.clone(), X, v,
+                                      with_gram=True) for _ in range(2)]
+    assert _native.functions == {"bcg_slab_stream": 2}
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])
+    want = cbs.slab_from_plain(hop, g, 8, (ns - bw) // g, 0, Src, Y0.clone(), X, v, True)
+    assert _relmax(got[0][0], want[0]) < 1e-5 and _relfro(got[0][1], want[1]) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["g2", "offset source", "offset field"])
+@pytest.mark.parametrize("gram", [False, True])
+def test_slab_stream_scalar_route_matches_plain(dev, case, gram):
+    """The 4-byte route of ``csrc/slab_stream.cu`` (``bcg_slab_stream_scalar``):
+    slabs of g = 2 sites (on a 4 x 300-site field), a halo source that starts
+    one element off a 16-byte boundary, or such a field; against the plain
+    version within 1e-5, and where the operands have aligned copies Y
+    bitwise the 16-byte route's (the same arithmetic) and G within 1e-6."""
+    hop = dirac_cbdia(4, device=dev).hops_all[1]
+    k = 12
+    m = 4 * k
+
+    def off(F):  # the same values one element past a 16-byte boundary
+        O = torch.empty(F.numel() + 1, device=dev)[1:].view(F.shape)
+        return O.copy_(F)
+
+    _native.reset_launches()
+    if case == "g2":
+        X, Y0 = _field(m, 1200, 2600, dev), _field(m, 1200, 2601, dev)
+        args = (hop, 2, 150, 3, 1, 7, X)
+        got = cbs.slab_m_accumulate(*args, Y0.clone(), with_gram=gram)
+        want = cbs.slab_plain(*args, Y0.clone(), with_gram=gram)
+    else:
+        Src, Y0, X = (_field(m, 4 * 256, 2602, dev), _field(m, 8 * 256, 2603, dev),
+                      _field(m, 8 * 256, 2604, dev))
+        v = _t(np.random.default_rng(2605).choice([-1.0, 1.0], (1, 3 * 256)), dev)
+        if case == "offset source":
+            Src = off(Src)
+        else:
+            X = off(X)
+        args = (hop, 256, 3, 5, 1, Src)
+        got = cbs.slab_m_accumulate_from(*args, Y0.clone(), X, v, with_gram=gram)
+        want = cbs.slab_from_plain(*args, Y0.clone(), X, v, gram)
+        vec = cbs.slab_m_accumulate_from(hop, 256, 3, 5, 1, Src.clone(), Y0.clone(), X.clone(), v,
+                                         with_gram=gram)
+    # Without the Gram the field X is not read: an offset X leaves the 16-byte route.
+    scalar = 0 if case == "offset field" and not gram else 1
+    assert _native.functions["bcg_slab_stream_scalar"] == scalar
+    got, want = (got, want) if gram else ((got,), (want,))
+    assert _relmax(got[0], want[0]) < 1e-5
+    if gram:
+        assert _relfro(got[1], want[1]) < 1e-5
+    if case != "g2":
+        assert _native.functions["bcg_slab_stream"] == 2 - scalar
+        vec = vec if gram else (vec,)
+        assert torch.equal(got[0], vec[0])
+        if gram:
+            assert _relfro(got[1], vec[1]) < 1e-6
+
+
+def test_slab_stream_gram_in_passes_matches_plain(dev):
+    """Row 19 at m = 160 (k = 40), above the Gram's widest tile of 128 rows:
+    one launch, the Gram in four passes of (128, 128) blocks; within 1e-5
+    of the plain version, Y bitwise the add's without the Gram, a repeat's
+    G bitwise."""
+    op = dirac_cbdia(16, device=dev)
+    k = 40
+    m, ns = op.bs * k, op.ns
+    X, Y0 = _field(m, ns, 2700, dev), _field(m, ns, 2701, dev)
+    Gin = _t(np.random.default_rng(2702).standard_normal((m, m)), dev)
+    d, g, nb, mul, off, shift = op.slabs[0]
+    args = (op.hops_all[d], g, nb, mul, off, shift, X)
+    assert cbs.slab_plan(m, op.bs, g, nb, True, g % 4 == 0, 132, 232448).passes == 4
+    _native.reset_launches()
+    Yk, G = cbs.slab_m_accumulate(*args, Y0.clone(), Gin, with_gram=True)
+    assert _native.launches["slab_m_accumulate"] == 1
+    Yp, Gp = cbs.slab_plain(*args, Y0.clone(), Gin, with_gram=True)
+    assert _relmax(Yk, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
+    assert torch.equal(cbs.slab_m_accumulate(*args, Y0.clone()), Yk)
+    assert torch.equal(cbs.slab_m_accumulate(*args, Y0.clone(), Gin, with_gram=True)[1], G)

@@ -532,7 +532,7 @@ def _smoke():
 @pytest.mark.parametrize("case", ["dia_csr", "cbdia_merged", "cbdia_view", "bdia_view",
                                   "dia_csr_bf16_diagonals", "bdia_merged_bf16_blocks",
                                   "bdia_view_bf16_blocks", "bdia_folded_bf16_blocks",
-                                  "dia_csr_bf16_field"])
+                                  "dia_csr_bf16_field", "slab_m", "slab_from"])
 def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
     """``chip_smoke.py``'s library yardsticks (a torch CSR or BSR tensor of
     the operator times the dense field) compute the wrapper's function: the
@@ -540,7 +540,10 @@ def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
     and 24f on bf16 coefficients take the product of the coefficients lifted
     to f32 (24f's of the unfolded matrix: folding and rounding to bf16
     commute); row 1x's (a bf16 field) takes X lifted to f32 and rounds its
-    product to bf16, within one bf16 ulp of the wrapper's Y."""
+    product to bf16, within one bf16 ulp of the wrapper's Y. Rows 19 and 20
+    (the merged slab adds, without the Gram or ``vals``): ``baddbmm_`` of
+    ``H ⊗ I_k`` on strided views of a wrap slab's blocks of
+    ``dirac_cbdia(16)``, and ``addmm_`` on a halo slab's columns."""
     from blockcg_tpu_torch.operators import astype
     from blockcg_tpu_torch.ops import block_stencil as bsk
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
@@ -548,7 +551,21 @@ def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
 
     smoke = _smoke()
     torch.manual_seed(0)
-    if case == "dia_csr_bf16_field":
+    if case.startswith("slab"):
+        op = dirac_cbdia(16, device="cpu")
+        k = 3
+        X, Y0 = torch.randn(op.bs * k, op.ns), torch.randn(op.bs * k, op.ns)
+        if case == "slab_m":
+            for d, g, nblocks, mul, off, shift in op.slabs:
+                slab = (op.hops_all[d], g, nblocks, mul, off, shift, X)
+                call, why = smoke._slab_library(torch, *slab[:6], X, Y0,
+                                                cbs.slab_m_accumulate(*slab, Y0.clone()))
+                assert why is None and call is not None
+        else:
+            Src = torch.randn(op.bs * k, 4 * 256)
+            want = cbs.slab_m_accumulate_from(op.hops_all[1], 256, 3, 5, 1, Src, Y0.clone())
+            call, why = smoke._halo_library(torch, op.hops_all[1], 256, 3, 5, 1, Src, Y0, want)
+    elif case == "dia_csr_bf16_field":
         op = laplacian_dia((8, 8, 8), device="cpu")
         X = torch.randn(5, op.n).bfloat16()
         errs = []

@@ -3,48 +3,57 @@
 table) at the shapes ``chip_smoke.py`` times them, from torch.profiler's
 kernel records: the time the card spends in a wrapper's launches, free of
 the host's launch rate, which the CUDA-event medians of ``chip_smoke.py``
-include for kernels this short.
+include for kernels this short. Rows 19 and 20 also at m = 96 (config 4
+with 24 right-hand sides, ``[wide]``).
 
 Run on a machine with a card, from the root of a checkout:
 
-    python3 tools/torch_slab_times.py [--root DIR] [--reps 200]
+    python3 tools/torch_slab_times.py [--root DIR] [--reps 200] [--cold] [--only REGEX]
+        [--library]
 
 ``--root`` imports ``blockcg_tpu_torch`` from another checkout (its kernels
 build there), so two commits compare in one call: parent, change, change,
-parent. Rows 20 and 21 are timed where the checkout has them. One JSON line
-per case: device us per call (all of the call's kernels), the slab kernel's
-share, and host us per call (wall time of the timed calls over their
-count, ending in a synchronize).
+parent. Rows 20 and 21 are timed where the checkout has them. ``--cold``
+writes and reads back a 256 MB scratch before each timed call, outside the
+timed kernels (``tools/torch_kernel_times.py`` ``l2_flush``), so the call
+finds L2 cold, as a solver's apply does, and counts only the kernels the
+call launches (``device_us_cold``, null where the profiler dropped a
+record). One JSON line per case: device us per call (all of the call's
+kernels), the slab kernel's share, each kernel's records, host us per call
+(wall time of the timed calls over their count, ending in a synchronize),
+and the sha256 (16 hex digits) of the outputs of one call on fresh copies of
+its inputs (Y, and G with the Gram), which a parent and a change share
+where their bits agree. ``--library`` times instead the one PyTorch call
+that computes rows 19 and 20 without the Gram or ``vals`` (``chip_smoke.py``'s
+yardsticks): ``baddbmm_`` of ``W = H ⊗ I_k`` on strided views of the wrap
+slab's blocks, and ``addmm_`` on the halo slab's columns.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import tempfile
 import time
 from pathlib import Path
 
-L, K = 32, 12  # config 4: dirac_cbdia(32), 12 right-hand sides
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_kernel_times import (checksums, cold_us, kernel_events, l2_flush,  # noqa: E402
+                                record_counts)
+
+L, K, K_WIDE = 32, 12, 24  # config 4: dirac_cbdia(32), 12 right-hand sides; [wide]: 24
+SLAB_KERNELS = ("slab_accumulate", "slab_stream")
 
 
-def device_us(torch, fn, reps: int, tmp: Path) -> tuple[float, float]:
-    """(device us of all kernels, of the slab kernel) per call of fn."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    trace = tmp / "trace.json"
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") == "kernel" and "dur" in e]
-    trace.unlink()
-    total = sum(float(e["dur"]) for e in events)
-    slab = sum(float(e["dur"]) for e in events if "slab_accumulate" in e["name"])
-    return total / reps, slab / reps
+def device_us(torch, fn, reps: int, tmp: Path) -> tuple[float, float, dict[str, int]]:
+    """(device us of all kernels, of the slab kernel, records of each
+    kernel) per call of fn, L2 warm."""
+    events = kernel_events(torch, fn, reps, tmp)
+    total = sum(d for _, d in events)
+    slab = sum(d for name, d in events if any(s in name for s in SLAB_KERNELS))
+    return total / reps, slab / reps, record_counts(events)
 
 
 def host_us(torch, fn, reps: int) -> float:
@@ -57,50 +66,102 @@ def host_us(torch, fn, reps: int) -> float:
 
 
 def cases(torch, dev):
-    """(name, fn) of each slab add, in place on its own buffer."""
+    """(name, fn, once) of each slab add: fn in place on its own buffer (the
+    timed call), once on a fresh copy of that buffer's first values."""
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
     from blockcg_tpu_torch.problems import dirac_cbdia, dirac_eo
 
     gen = torch.Generator(device=dev).manual_seed(1)
     op = dirac_cbdia(L, device=dev)
-    m, ns = op.bs * K, op.ns
-    Xm = torch.randn((m, ns), generator=gen, device=dev)
-    Ym = torch.randn((m, ns), generator=gen, device=dev)
-    Gm = torch.randn((m, m), generator=gen, device=dev)
+    ns = op.ns
     d, g, nb, mul, off, shift = op.slabs[0]
-    slab = (op.hops_all[d], g, nb, mul, off, shift, Xm)
-    yield (f"row 19 slab_m_accumulate ({m}, {ns}) g={g} x {nb}",
-           lambda: cbs.slab_m_accumulate(*slab, Ym))
-    yield (f"row 19 slab_m_accumulate ({m}, {ns}) g={g} x {nb} with Gram",
-           lambda: cbs.slab_m_accumulate(*slab, Ym, Gm, with_gram=True))
-    eo = dirac_eo(L, device=dev)
-    hop = eo.hop_oe
-    Xv = torch.randn((1, hop.bs, hop.ns), generator=gen, device=dev)
-    Yv = torch.randn((1, hop.bs, hop.ns), generator=gen, device=dev)
-    for d, g, nb, mul, off, shift in hop.slabs[:1]:  # dirac_eo(L) has slabs from L = 32
-        vslab = (hop.hops_all[d], g, nb, mul, off, shift, Xv)
-        yield (f"row 18 slab_block_accumulate (1, {hop.bs}, {hop.ns}) g={g} x {nb}",
-               lambda: cbs.slab_block_accumulate(*vslab, Yv))
-    if not hasattr(cbs, "slab_m_accumulate_from"):
-        return
-    # Config 4's +t crossing at one rank: 8 blocks of 4096 sites from the
-    # (m, 32^3) halo into the field's last 8 blocks.
-    bw = L ** 3
-    g = min(4096, bw)
-    nb = bw // g
-    Src = torch.randn((m, bw), generator=gen, device=dev)
+    bw = L ** 3  # config 4's +t crossing at one rank: 8 blocks of 4096 sites
+    gh = min(4096, bw)
+    nbh = bw // gh
+    dst = (ns - bw) // gh
     hop4 = op.hops_all[1]
-    dst = (ns - bw) // g
-    yield (f"row 20 slab_m_accumulate_from ({m}, {bw}) into ({m}, {ns}) g={g} x {nb}",
-           lambda: cbs.slab_m_accumulate_from(hop4, g, nb, dst, 0, Src, Ym))
-    yield (f"row 20 slab_m_accumulate_from ({m}, {bw}) into ({m}, {ns}) g={g} x {nb} "
-           "with Gram",
-           lambda: cbs.slab_m_accumulate_from(hop4, g, nb, dst, 0, Src, Ym, Xm, with_gram=True))
-    Srcv = torch.randn((K, op.bs, bw), generator=gen, device=dev)
-    Yv4 = Ym.view(K, op.bs, ns)
-    yield (f"row 21 slab_block_accumulate_from ({K}, {op.bs}, {bw}) into ({K}, {op.bs}, {ns}) "
-           f"g={g} x {nb}",
-           lambda: cbs.slab_block_accumulate_from(hop4, g, nb, dst, 0, Srcv, Yv4))
+    for k in (K, K_WIDE):
+        m = op.bs * k
+        Xm = torch.randn((m, ns), generator=gen, device=dev)
+        Ym = torch.randn((m, ns), generator=gen, device=dev)
+        Gm = torch.randn((m, m), generator=gen, device=dev)
+        Y0 = Ym.clone()
+        slab = (op.hops_all[d], g, nb, mul, off, shift, Xm)
+        yield (f"row 19 slab_m_accumulate ({m}, {ns}) g={g} x {nb}",
+               lambda slab=slab, Ym=Ym: cbs.slab_m_accumulate(*slab, Ym),
+               lambda slab=slab, Y0=Y0: cbs.slab_m_accumulate(*slab, Y0.clone()))
+        yield (f"row 19 slab_m_accumulate ({m}, {ns}) g={g} x {nb} with Gram",
+               lambda slab=slab, Ym=Ym, Gm=Gm: cbs.slab_m_accumulate(*slab, Ym, Gm,
+                                                                      with_gram=True),
+               lambda slab=slab, Y0=Y0, Gm=Gm: cbs.slab_m_accumulate(*slab, Y0.clone(), Gm,
+                                                                      with_gram=True))
+        if k == K:
+            eo = dirac_eo(L, device=dev)
+            hop = eo.hop_oe
+            Xv = torch.randn((1, hop.bs, hop.ns), generator=gen, device=dev)
+            Yv = torch.randn((1, hop.bs, hop.ns), generator=gen, device=dev)
+            Yv0 = Yv.clone()
+            for dv, gv, nbv, mulv, offv, shiftv in hop.slabs[:1]:  # slabs from L = 32
+                vslab = (hop.hops_all[dv], gv, nbv, mulv, offv, shiftv, Xv)
+                yield (f"row 18 slab_block_accumulate (1, {hop.bs}, {hop.ns}) g={gv} x {nbv}",
+                       lambda vslab=vslab: cbs.slab_block_accumulate(*vslab, Yv),
+                       lambda vslab=vslab: cbs.slab_block_accumulate(*vslab, Yv0.clone()))
+            del eo
+        if not hasattr(cbs, "slab_m_accumulate_from"):
+            continue
+        Src = torch.randn((m, bw), generator=gen, device=dev)
+        halo = (hop4, gh, nbh, dst, 0, Src)
+        yield (f"row 20 slab_m_accumulate_from ({m}, {bw}) into ({m}, {ns}) g={gh} x {nbh}",
+               lambda halo=halo, Ym=Ym: cbs.slab_m_accumulate_from(*halo, Ym),
+               lambda halo=halo, Y0=Y0: cbs.slab_m_accumulate_from(*halo, Y0.clone()))
+        yield (f"row 20 slab_m_accumulate_from ({m}, {bw}) into ({m}, {ns}) g={gh} x {nbh} "
+               "with Gram",
+               lambda halo=halo, Ym=Ym, Xm=Xm: cbs.slab_m_accumulate_from(*halo, Ym, Xm,
+                                                                           with_gram=True),
+               lambda halo=halo, Y0=Y0, Xm=Xm: cbs.slab_m_accumulate_from(
+                   *halo, Y0.clone(), Xm, with_gram=True))
+        if k == K:
+            Srcv = torch.randn((K, op.bs, bw), generator=gen, device=dev)
+            Yv4 = Ym.view(K, op.bs, ns)
+            yield (f"row 21 slab_block_accumulate_from ({K}, {op.bs}, {bw}) into "
+                   f"({K}, {op.bs}, {ns}) g={gh} x {nbh}",
+                   lambda Srcv=Srcv, Yv4=Yv4: cbs.slab_block_accumulate_from(
+                       hop4, gh, nbh, dst, 0, Srcv, Yv4),
+                   lambda Srcv=Srcv: cbs.slab_block_accumulate_from(
+                       hop4, gh, nbh, dst, 0, Srcv, Y0.view(K, op.bs, ns).clone()))
+
+
+def library_cases(torch, dev):
+    """(name, fn, once) of the one-call PyTorch equivalents of rows 19 and
+    20 without the Gram or ``vals``, at m = 48 and 96, in place on their own
+    buffers."""
+    from blockcg_tpu_torch.problems import dirac_cbdia
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    op = dirac_cbdia(L, device=dev)
+    ns = op.ns
+    d, g, nb, mul, off, shift = op.slabs[0]
+    nbk, span = ns // g, mul * (nb - 1)
+    src_off = (off + shift) % nbk
+    bw, gh = L ** 3, 4096
+    cols, d0 = bw, ns - bw
+    for k in (K, K_WIDE):
+        m = op.bs * k
+        X = torch.randn((m, ns), generator=gen, device=dev)
+        Y = torch.randn((m, ns), generator=gen, device=dev)
+        Src = torch.randn((m, bw), generator=gen, device=dev)
+        W = torch.kron(op.hops_all[d], torch.eye(k, device=dev)).expand(nb, m, m)
+        W1 = torch.kron(op.hops_all[1], torch.eye(k, device=dev))
+
+        def blocks(F, o, m=m):
+            return F.view(m, nbk, g)[:, o:o + span + 1:mul].permute(1, 0, 2)
+
+        yield (f"library row 19 baddbmm_ ({m}, {ns}) g={g} x {nb}",
+               lambda Y=Y, X=X, W=W: blocks(Y, off).baddbmm_(W, blocks(X, src_off)),
+               lambda Y=Y: Y)
+        yield (f"library row 20 addmm_ ({m}, {bw}) into ({m}, {ns}) g={gh} x {bw // gh}",
+               lambda Y=Y, Src=Src, W1=W1: Y[:, d0:d0 + cols].addmm_(W1, Src),
+               lambda Y=Y: Y)
 
 
 def main() -> None:
@@ -108,22 +169,39 @@ def main() -> None:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose blockcg_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--cold", action="store_true",
+                    help="also time each call with L2 flushed before it")
+    ap.add_argument("--only", default=None,
+                    help="time only the cases whose name matches this regular expression")
+    ap.add_argument("--library", action="store_true",
+                    help="time the one-call PyTorch equivalents of rows 19 and 20 instead")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_slab_times.py: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(Path(args.root).resolve()))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    flush = l2_flush(torch, dev) if args.cold else None
     with tempfile.TemporaryDirectory() as tmp:
-        for name, fn in cases(torch, dev):
+        for name, fn, once in (library_cases if args.library else cases)(torch, dev):
+            if args.only and not re.search(args.only, name):
+                continue
+            sums = checksums(torch, once())
             for _ in range(5):
                 fn()
-            dev_all, dev_slab = device_us(torch, fn, args.reps, Path(tmp))
+            cold = {}
+            if flush is not None:
+                us, shares, got, want = cold_us(torch, fn, args.reps, Path(tmp), flush)
+                cold = {"device_us_cold": us, "kernels_us_cold": shares, "records_cold": got,
+                        "records_expected": want}
+            dev_all, dev_slab, records = device_us(torch, fn, args.reps, Path(tmp))
             print(json.dumps({"root": args.root, "case": name, "device_us": dev_all,
-                              "slab_kernel_us": dev_slab,
-                              "host_us": host_us(torch, fn, args.reps)}), flush=True)
+                              "slab_kernel_us": dev_slab, "records": records, **cold,
+                              "host_us": host_us(torch, fn, args.reps), "checksums": sums}),
+                  flush=True)
 
 
 if __name__ == "__main__":
