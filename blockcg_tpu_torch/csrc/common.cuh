@@ -339,6 +339,22 @@ inline void launch_reduce(const float* part, float* G, int k, int nblocks,
   launch_reduce(part, G, k, k, nblocks, stream, base);
 }
 
+// The same on partials kept in double (stencil.cu's stencil_vec_gram): G[e]
+// = sum over blocks of part[b, e], in block order, rounded once.
+__global__ void reduce_partials_f64(const double* __restrict__ part, float* __restrict__ G,
+                                    int kk, int nblocks) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= kk) return;
+  double s = 0.0;
+  for (int b = 0; b < nblocks; ++b) s += part[static_cast<long long>(b) * kk + e];
+  G[e] = static_cast<float>(s);
+}
+
+inline void launch_reduce_f64(const double* part, float* G, int kk, int nblocks,
+                              cudaStream_t stream) {
+  reduce_partials_f64<<<(kk + 255) / 256, 256, 0, stream>>>(part, G, kk, nblocks);
+}
+
 // ---- per-site register tiles of the lattice kernels (const_block_stencil.cu,
 // block_stencil.cu). A thread owns one site column of a (m = bs * k, ns)
 // field as acc[BS][KI]: BS >= bs spins, KI >= k right-hand sides; entries

@@ -1,12 +1,10 @@
-// Const-hop block stencil with the fused Gram on the (k, bs, ns) view, and
-// the slab accumulate of the periodic wrap diagonals on that view. (The main
-// kernels without the Gram, both views, run cbs_merged.cu, and the merged
-// view's slab adds slab_stream.cu; this one's plain apply, G null, serves
+// Const-hop block stencil with the fused Gram on the (k, bs, ns) view. (The
+// main kernels without the Gram, both views, run cbs_merged.cu, and the slab
+// adds of both views slab_stream.cu; this one's plain apply, G null, serves
 // the on-card tests as the bitwise reference of the view's apply there.)
 //
-// Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
-// const_block_stencil_spmm_gram_t (:361), slab_block_accumulate (:691) and
-// slab_block_accumulate_from (:955) on the (k, bs, ns) view.
+// Replaces the Pallas kernel blockcg_tpu/ops/const_block_stencil.py
+// const_block_stencil_spmm_gram_t (:361) on the (k, bs, ns) view.
 //
 // Layout: a field is (m, ns) float32 with m = bs * k; site s of row r sits at
 // F[r * ns + s]. The row map is a runtime pair of strides (RowMap in
@@ -21,12 +19,6 @@
 // not a gate: the gauged operators carry +-1 links in it. The Gram variant
 // also returns the contraction of G = X Y^T over spins and sites, the (k, k)
 // G[i, j] = sum_{a, s} X[i, a, s] Y[j, a, s].
-// Contract, slab kernel: for slab j < nblocks of g sites, destination block
-// dst = (dst_mul * j + dst_off) mod nb of Y (nb = ns / g blocks) and source
-// block src = (src_mul * j + src_off) mod src_nb of X; Y[:, dst block] +=
-// (H ⊗ I_k) X[:, src block], in place on Y. X is the field itself (src_nb =
-// nb, the periodic wraps: src = dst + shift) or a separate halo buffer of its
-// own width (the distributed layer's crossings).
 //
 // The TPU kernels build the MXU weight W = H ⊗ I_k, which is 3/4 zeros at
 // bs = 4. Here one thread owns one site column and applies the bs x bs hop
@@ -47,10 +39,8 @@
 // loads per diagonal, so the apply is bound by load count and latency more
 // than by bytes. The hop table (at most 32 x 8 x 8 floats) and the offsets
 // sit in shared memory; the offsets come reduced to [0, ns), so the column
-// wraps with one conditional subtraction. Y is a fresh buffer in the main
-// kernel (other blocks still read X). The slab kernel writes Y in place: the
-// destination blocks of one diagonal are distinct (the wrapper checks it), so
-// every destination column has exactly one writer.
+// wraps with one conditional subtraction. Y is a fresh buffer (other blocks
+// still read X).
 //
 // Gram: each block stages its tile's X and Y columns in shared memory in the
 // field's own row order, adds them into a register tile (GramTile) and writes
@@ -67,14 +57,6 @@ constexpr int kMaxBs = 8;
 struct Diags {
   int o[kMaxDiags];     // site offsets, each in [0, ns)
   int slot[kMaxDiags];  // mask row, or -1 for an unmasked diagonal
-};
-
-// Slab j < nblocks: destination block (dst_mul * j + dst_off) mod nb of Y,
-// source block (src_mul * j + src_off) mod src_nb of X. Every field but g and
-// nblocks is reduced to [0, nb) or [0, src_nb).
-struct SlabGeom {
-  long long nb, dst_mul, dst_off, src_nb, src_mul, src_off;
-  int g, nblocks;
 };
 
 // acc[a][i] += w * sum_b h[a * bs + b] * X[row(b, i), src].
@@ -102,8 +84,8 @@ __device__ __forceinline__ void hop_apply(float (&acc)[BS][KI], const float* h,
   }
 }
 
-// Y[row(a, i), col] = v[a][i] (or += with ADD) for a < bs, i < k.
-template <bool ADD, int BS, int KI>
+// Y[row(a, i), col] = v[a][i] for a < bs, i < k.
+template <int BS, int KI>
 __device__ __forceinline__ void store_rows(float* __restrict__ Y,
                                            const float (&v)[BS][KI], int bs,
                                            int k, RowStrides rows, long long col) {
@@ -111,10 +93,7 @@ __device__ __forceinline__ void store_rows(float* __restrict__ Y,
   for (int a = 0; a < BS; ++a)
 #pragma unroll
     for (int i = 0; i < KI; ++i)
-      if (a < bs && i < k) {
-        float* p = Y + col + a * rows.a + i * rows.i;
-        *p = ADD ? *p + v[a][i] : v[a][i];
-      }
+      if (a < bs && i < k) Y[col + a * rows.a + i * rows.i] = v[a][i];
 }
 
 template <int BS, int KMAX, bool WITH_GRAM>
@@ -154,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
         const float w = sl < 0 ? 1.f : masks[sl * ns + s];
         hop_apply(acc, sh + d * bs * bs, w, X, bs, k, row.times(ns), src);
       }
-      store_rows<false>(Y, acc, bs, k, row.times(ns), s);
+      store_rows(Y, acc, bs, k, row.times(ns), s);
     }
     if constexpr (WITH_GRAM) {
       __syncthreads();  // the previous tile's Gram reads are done
@@ -165,30 +144,6 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if constexpr (WITH_GRAM) g.store(part + static_cast<long long>(blockIdx.x) * m * m, m);
-}
-
-// One slab site a thread, all k right-hand sides. X has xn columns (ns for a
-// slab of the field itself, the halo's width for a separate source).
-template <int BS, int KMAX>
-__global__ void __launch_bounds__(kThreads)
-    slab_accumulate(const float* __restrict__ hop, SlabGeom geo, int bs,
-                    const float* __restrict__ X, long long xn, float* __restrict__ Y,
-                    RowMap row, int k, long long ns) {
-  constexpr int KI = KMAX / BS;
-  __shared__ float sh[kMaxBs * kMaxBs];
-  for (int e = threadIdx.x; e < bs * bs; e += blockDim.x) sh[e] = hop[e];
-  __syncthreads();
-  const long long total = static_cast<long long>(geo.nblocks) * geo.g;
-  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < total;
-       e += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long j = e / geo.g, c = e - j * geo.g;
-    const long long dblk = (geo.dst_mul * j + geo.dst_off) % geo.nb;
-    const long long sblk = (geo.src_mul * j + geo.src_off) % geo.src_nb;
-    float acc[BS][KI];
-    zero(acc);
-    hop_apply(acc, sh, 1.f, X, bs, k, row.times(xn), sblk * geo.g + c);
-    store_rows<true>(Y, acc, bs, k, row.times(ns), dblk * geo.g + c);
-  }
 }
 
 // The (k, bs, ns) view's Gram: G[i, j] = sum over blocks b and spins a of
@@ -230,19 +185,6 @@ struct MainArgs {
   cudaStream_t stream;
 };
 
-struct SlabArgs {
-  const float* hop;
-  SlabGeom geo;
-  int bs;
-  const float* X;
-  long long xn;
-  float* Y;
-  int k;
-  long long ns;
-  int nblocks;
-  cudaStream_t stream;
-};
-
 size_t staged_bytes(int kmax, bool gram, int hop_floats) {
   return ((gram ? 2 * kmax * kLd : 0) + hop_floats) * sizeof(float);
 }
@@ -259,13 +201,6 @@ cudaError_t launch_main(const MainArgs& a) {
   if (WITH_GRAM)
     reduce_spin_contract<<<a.k * a.k, kReduceThreads, 0, a.stream>>>(a.part, a.G, a.bs, a.k,
                                                                        a.nblocks);
-  return cudaGetLastError();
-}
-
-template <int BS, int KMAX>
-cudaError_t launch_slab(const SlabArgs& a) {
-  slab_accumulate<BS, KMAX><<<a.nblocks, kThreads, 0, a.stream>>>(
-      a.hop, a.geo, a.bs, a.X, a.xn, a.Y, row_map(false, a.bs, a.k), a.k, a.ns);
   return cudaGetLastError();
 }
 
@@ -291,17 +226,6 @@ cudaError_t main_by_kmax(int kmax, bool gram, const MainArgs& a) {
     case 16: return main_by_gram<BS, 16>(gram, a);
     case 32: return main_by_gram<BS, 32>(gram, a);
     case 64: return main_by_gram<BS, 64>(gram, a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <int BS>
-cudaError_t slab_by_kmax(int kmax, const SlabArgs& a) {
-  switch (kmax) {
-    case 8: return launch_slab<BS, 8>(a);
-    case 16: return launch_slab<BS, 16>(a);
-    case 32: return launch_slab<BS, 32>(a);
-    case 64: return launch_slab<BS, 64>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -338,39 +262,5 @@ extern "C" int bcg_cbs_spmm(const float* hops, const int* offsets,
     case 2: return main_by_kmax<2>(kmax, gram, a);
     case 4: return main_by_kmax<4>(kmax, gram, a);
     default: return main_by_kmax<8>(kmax, gram, a);
-  }
-}
-
-// hop: device (bs, bs). Y ((k, bs, ns) view, nb = ns / g blocks) is updated
-// in place from X ((k, bs, xn), src_nb = xn / g blocks): destination block
-// (dst_mul * j + dst_off) mod nb gets (H ⊗ I_k) times source block
-// (src_mul * j + src_off) mod src_nb, each of dst_mul, dst_off, src_mul,
-// src_off reduced to its range; the nblocks destination blocks must be
-// distinct. X is the field itself (xn = ns) or a separate halo buffer. A
-// row-chunked launch covers RHS j0..j0+k with the fields offset by j0 rows
-// (the view's chunks are contiguous).
-extern "C" int bcg_slab_accumulate(const float* hop, int bs, int g, int nblocks,
-                                   long long dst_mul, long long dst_off,
-                                   long long src_mul, long long src_off,
-                                   const float* X, long long xn, float* Y, int k, long long ns,
-                                   int grid, int device, cudaStream_t stream) {
-  const int bsw = bs_width(bs);
-  const int kmax = kmax_for(bsw * k);
-  if (bsw == 0 || k < 1 || kmax == 0 || g < 1 || ns < 1 || ns % g != 0 || xn < 1 ||
-      xn % g != 0 || nblocks < 1 || grid < 1)
-    return cudaErrorInvalidValue;
-  const long long nb = ns / g, src_nb = xn / g;
-  if (nblocks > nb || dst_mul < 0 || dst_mul >= nb || dst_off < 0 || dst_off >= nb ||
-      src_mul < 0 || src_mul >= src_nb || src_off < 0 || src_off >= src_nb)
-    return cudaErrorInvalidValue;
-  SlabArgs a{hop, {nb, dst_mul, dst_off, src_nb, src_mul, src_off, g, nblocks}, bs, X, xn,
-             Y, k, ns, grid, stream};
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  switch (bsw) {
-    case 1: return slab_by_kmax<1>(kmax, a);
-    case 2: return slab_by_kmax<2>(kmax, a);
-    case 4: return slab_by_kmax<4>(kmax, a);
-    default: return slab_by_kmax<8>(kmax, a);
   }
 }

@@ -1,27 +1,30 @@
-// The slab adds of the merged const-hop operator (rows 19 and 20), with and
-// without their Gram, as one streaming launch at any width.
+// The slab adds of the const-hop operator (rows 18-21), with and without
+// their Gram, as one streaming launch at any width, on either view.
 //
 // Replaces the Pallas kernels blockcg_tpu/ops/const_block_stencil.py
 // slab_m_accumulate (:780), the periodic wrap diagonals of the merged field,
-// and slab_m_accumulate_from (:846), the distributed layer's halo crossings.
-// (The (k, bs, ns) view's slab adds, rows 18 and 21, stay on
-// const_block_stencil.cu's slab_accumulate.)
+// and slab_m_accumulate_from (:846), the distributed layer's halo crossings,
+// and on the (k, bs, ns) view slab_block_accumulate (:691) and
+// slab_block_accumulate_from (:955), which have no Gram and no vals.
 //
-// Layout: merged spin-major fields, (m = bs * k, ns) float32, row a * k + i
-// holding spin a of right-hand side i; site s of row r at F[r * ns + s].
+// Layout: (m = bs * k, ns) float32 fields, site s of row r at F[r * ns + s];
+// the row of spin a of right-hand side i is a runtime map, row(a, i) = a sa +
+// i si (RowMap in common.cuh): (sa, si) = (k, 1) on the merged spin-major
+// view, (1, bs) on the (k, bs, ns) view. At k = 1 both are the same memory.
 //
 // Contract: for site e = j * g + c of slab j < nblocks (c < g), destination
 // column dst(e) = ((dst_mul * j + dst_off) mod nb) * g + c of Y (nb = ns / g)
 // and source column src(e) = ((src_mul * j + src_off) mod src_nb) * g + c of
 // X (xn columns, src_nb = xn / g):
-//   Y[a k + i, dst(e)] += v(e) * sum_b H[a][b] * X[b k + i, src(e)],
+//   Y[row(a, i), dst(e)] += v(e) * sum_b H[a][b] * X[row(b, i), src(e)],
 // in place on Y, v(e) = vals[e] or 1. X is the field itself (xn = ns, the
-// periodic wraps) or a separate halo buffer. With the Gram,
+// periodic wraps) or a separate halo buffer. With the Gram (merged fields
+// alone: the view's slab adds have none),
 //   G = Gin + sum_e Xd[:, dst(e)] dY[:, e]^T   (m x m; Gin may be null),
-// Xd the field whose destination columns the Gram reads. Each element's sum
-// is taken over b in order with fmaf(H[a][b], x_b, acc) from 0, then
-// multiplied by v, then added to Y: slab_accumulate's arithmetic, so Y keeps
-// its bits.
+// Xd the field whose destination columns the Gram reads.
+// Each element's sum is taken over b in order with fmaf(H[a][b], x_b, acc)
+// from 0, then multiplied by v, then added to Y: the arithmetic of the
+// kernel these replaced (slab_accumulate, a site a thread), so Y keeps its bits.
 //
 // Bound: bytes. At config 4's slabs (m = 48, 32,768 slab sites of 32^4) a
 // slab add reads X at the sources and Y and writes Y, 18.87 MB (5.63 us at
@@ -29,7 +32,9 @@
 // m = 96 doubles both. The kernel it replaces (slab_accumulate) took one site
 // a thread with all m rows, 4-byte loads spin by spin and 48 one-float
 // read-modify-writes of Y, on 8 warps an SM, a launch per 64 rows, and its
-// Gram in GramTile partials summed by a second launch.
+// Gram in GramTile partials summed by a second launch. On the (k, bs, ns)
+// view a warp still reads 512 contiguous bytes of one row: an item is one
+// right-hand side and V sites, whichever the row map.
 //
 // Design. A work item is one right-hand side i and V consecutive slab sites
 // (V = 4 where g % 4 == 0 and X, Y, Xd and vals are 16-byte aligned: every
@@ -111,33 +116,34 @@ __device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
   else *p = v[0];
 }
 
-// dy[a][u] = v(e + u) * sum_b H[a][b] X[b k + i, src(e) + u] for a < bs, u <
-// V, added into Y's destination columns when `store`; with Xd, xd[a] =
-// Xd[a k + i, dst(e) ..] for the rows a k + i in [r0, r1), loaded with the
-// item's other loads. The V sites share their slab (g % V == 0).
+// dy[a][u] = v(e + u) * sum_b H[a][b] X[row(b, i), src(e) + u] for a < bs,
+// u < V, added into Y's destination columns when `store`; with Xd, xd[a] =
+// Xd[row(a, i), dst(e) ..] for the rows row(a, i) in [r0, r1), loaded with
+// the item's other loads. The V sites share their slab (g % V == 0).
 template <int BS, int V>
-__device__ __forceinline__ void slab_item(const float* hs, int bs, int k, int i, long long e,
-                                          const SlabMap& mp, const float* __restrict__ X,
-                                          long long xn, const float* __restrict__ vals,
-                                          float* Y, long long ns, bool store,
-                                          float (&dy)[BS][V], const float* __restrict__ Xd,
-                                          float (&xd)[BS][V], int r0, int r1) {
+__device__ __forceinline__ void slab_item(const float* hs, int bs, RowMap row, int i,
+                                          long long e, const SlabMap& mp,
+                                          const float* __restrict__ X, long long xn,
+                                          const float* __restrict__ vals, float* Y,
+                                          long long ns, bool store, float (&dy)[BS][V],
+                                          const float* __restrict__ Xd, float (&xd)[BS][V],
+                                          int r0, int r1) {
   const long long j = e / mp.g, c = e - j * mp.g;
   const long long dst = (mp.dst_mul * j + mp.dst_off) % mp.nb * mp.g + c;
   const long long src = (mp.src_mul * j + mp.src_off) % mp.src_nb * mp.g + c;
   float x[BS][V], y[BS][V], v[V];
 #pragma unroll
   for (int b = 0; b < BS; ++b)
-    if (b < bs) load_ro<V>(x[b], X + (static_cast<long long>(b) * k + i) * xn + src);
+    if (b < bs) load_ro<V>(x[b], X + static_cast<long long>(row(b, i)) * xn + src);
   if (store) {
 #pragma unroll
     for (int a = 0; a < BS; ++a)
-      if (a < bs) load_rw<V>(y[a], Y + (static_cast<long long>(a) * k + i) * ns + dst);
+      if (a < bs) load_rw<V>(y[a], Y + static_cast<long long>(row(a, i)) * ns + dst);
   }
   if (Xd != nullptr) {
 #pragma unroll
     for (int a = 0; a < BS; ++a) {
-      const int r = a * k + i;
+      const int r = row(a, i);
       if (a < bs && r >= r0 && r < r1) load_ro<V>(xd[a], Xd + static_cast<long long>(r) * ns + dst);
     }
   }
@@ -155,7 +161,7 @@ __device__ __forceinline__ void slab_item(const float* hs, int bs, int k, int i,
       dy[a][u] = acc;
       if (store) y[a][u] += acc;
     }
-    if (store) store_v<V>(Y + (static_cast<long long>(a) * k + i) * ns + dst, y[a]);
+    if (store) store_v<V>(Y + static_cast<long long>(row(a, i)) * ns + dst, y[a]);
   }
 }
 
@@ -186,7 +192,7 @@ template <int BS, int V>
 __global__ void __launch_bounds__(kSlabThreads, kSlabBlocksPerSm<BS>)
     slab_stream(const float* __restrict__ hop, int bs, SlabMap mp, const float* __restrict__ X,
                 long long xn, const float* __restrict__ vals, float* __restrict__ Y, int k,
-                long long ns) {
+                long long ns, RowMap row) {
   __shared__ float hs[kSlabMaxBs * kSlabMaxBs];
   for (int e = threadIdx.x; e < bs * bs; e += kSlabThreads) hs[e] = hop[e];
   __syncthreads();
@@ -195,12 +201,13 @@ __global__ void __launch_bounds__(kSlabThreads, kSlabBlocksPerSm<BS>)
        it < items; it += static_cast<long long>(gridDim.x) * kSlabThreads) {
     const long long i = it / nq;
     float dy[BS][V], xd[BS][V];
-    slab_item<BS, V>(hs, bs, k, static_cast<int>(i), (it - i * nq) * V, mp, X, xn, vals, Y, ns,
-                     true, dy, nullptr, xd, 0, 0);
+    slab_item<BS, V>(hs, bs, row, static_cast<int>(i), (it - i * nq) * V, mp, X, xn, vals, Y,
+                     ns, true, dy, nullptr, xd, 0, 0);
   }
 }
 
-// With the Gram: Xd's destination columns, Gin (or null), part (gridDim.x,
+// With the Gram (the merged view's rows 19 and 20 alone, its map known to
+// the compiler): Xd's destination columns, Gin (or null), part (gridDim.x,
 // m, m), arrived (one unsigned, zeroed before the launch), tiles of tc sites.
 template <int BS, int V, int KMAX>
 __global__ void __launch_bounds__(kSlabThreads, 1)
@@ -209,6 +216,7 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
                      const float* __restrict__ Xd, float* __restrict__ Y, int k, long long ns,
                      const float* __restrict__ Gin, float* __restrict__ part,
                      float* __restrict__ G, unsigned* arrived, int tc) {
+  const RowMap row{k, 1};  // the merged view's: the (k, bs, ns) view's slab adds have no Gram
   __shared__ float hs[kSlabMaxBs * kSlabMaxBs];
   __shared__ double red[kSlabThreads];
   extern __shared__ __align__(16) float smem[];
@@ -231,12 +239,12 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
         float dy[BS][V], xd[BS][V];
         const bool in = col < ncol;  // all V sites: ncol % V == 0
         if (in)
-          slab_item<BS, V>(hs, bs, k, i, t * tc + col, mp, X, xn, vals, Y, ns, pass == 0, dy,
-                           Xd, xd, r0, r0 + kx);
+          slab_item<BS, V>(hs, bs, row, i, t * tc + col, mp, X, xn, vals, Y, ns, pass == 0,
+                           dy, Xd, xd, r0, r0 + kx);
 #pragma unroll
         for (int a = 0; a < BS; ++a) {
           if (a >= bs) break;
-          const int r = a * k + i;
+          const int r = row(a, i);
           if (!in) {
 #pragma unroll
             for (int u = 0; u < V; ++u) xd[a][u] = dy[a][u] = 0.f;
@@ -297,6 +305,7 @@ struct StreamArgs {
   float* Y;
   int k;
   long long ns;
+  RowMap row;
   const float* Gin;
   float *part, *G;
   unsigned* arrived;
@@ -308,7 +317,7 @@ struct StreamArgs {
 template <int BS, int V>
 cudaError_t launch_plain(const StreamArgs& a) {
   slab_stream<BS, V><<<a.grid, kSlabThreads, 0, a.stream>>>(a.hop, a.bs, a.mp, a.X, a.xn,
-                                                              a.vals, a.Y, a.k, a.ns);
+                                                              a.vals, a.Y, a.k, a.ns, a.row);
   return cudaGetLastError();
 }
 
@@ -357,13 +366,14 @@ template <int V>
 int slab_entry(const float* hop, int bs, int g, int nblocks, long long dst_mul,
                long long dst_off, long long src_mul, long long src_off, const float* X,
                long long xn, const float* vals, const float* Xd, float* Y, const float* Gin,
-               float* part, float* G, unsigned* arrived, int k, long long ns, int kmax, int tc,
-               int grid, int device, cudaStream_t stream) {
+               float* part, float* G, unsigned* arrived, int k, long long ns, int sa, int si,
+               int kmax, int tc, int grid, int device, cudaStream_t stream) {
   const bool gram = G != nullptr;
   if (bs < 1 || bs > kSlabMaxBs || k < 1 || g < 1 || ns < 1 || ns % g != 0 || xn < 1 ||
-      xn % g != 0 || nblocks < 1 || grid < 1 || g % V != 0)
+      xn % g != 0 || nblocks < 1 || grid < 1 || g % V != 0 ||
+      !((sa == k && si == 1) || (sa == 1 && si == bs)))
     return cudaErrorInvalidValue;
-  if (gram && (part == nullptr || Xd == nullptr || arrived == nullptr ||
+  if (gram && (part == nullptr || Xd == nullptr || arrived == nullptr || sa != k || si != 1 ||
                kmax != slab_kmax(bs * k) || tc < 4 || tc % 4 != 0 || tc % V != 0))
     return cudaErrorInvalidValue;
   if (V == 4 && !(aligned16(X) && aligned16(Y) && (vals == nullptr || aligned16(vals)) &&
@@ -376,23 +386,24 @@ int slab_entry(const float* hop, int bs, int g, int nblocks, long long dst_mul,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const StreamArgs a{hop, bs, {nb, dst_mul, dst_off, src_nb, src_mul, src_off, g,
-                     static_cast<long long>(nblocks) * g}, X, xn, vals, Xd, Y, k, ns, Gin,
-                     part, G, arrived, tc, grid, device, stream};
+                     static_cast<long long>(nblocks) * g}, X, xn, vals, Xd, Y, k, ns,
+                     RowMap{sa, si}, Gin, part, G, arrived, tc, grid, device, stream};
   const int km = gram ? kmax : 0;
   return bs <= 4 ? stream_by_kmax<4, V>(km, a) : stream_by_kmax<kSlabMaxBs, V>(km, a);
 }
 
 }  // namespace
 
-// hop: device (bs, bs). Y (merged (bs k, ns), nb = ns / g blocks of g sites)
-// is updated in place from X (merged (bs k, xn), src_nb = xn / g blocks):
-// destination block (dst_mul * j + dst_off) mod nb gets (H ⊗ I_k) times source
-// block (src_mul * j + src_off) mod src_nb, j < nblocks, each of the four
-// reduced to its range (the destination blocks distinct). vals: device
-// (nblocks * g), or null. G == nullptr: no Gram; else G (m x m) = Gin + the
-// slab's Xd_dst dY^T (Gin may be null) on the Gram's tile of kmax rows and
-// tiles of tc sites, part (grid, m, m) and arrived (one unsigned, zeroed
-// here) its scratch. grid: blocks (ops/const_block_stencil.py slab_plan).
+// hop: device (bs, bs). Y ((bs k, ns), nb = ns / g blocks of g sites) is
+// updated in place from X ((bs k, xn), src_nb = xn / g blocks): destination
+// block (dst_mul * j + dst_off) mod nb gets (H ⊗ I_k) times source block
+// (src_mul * j + src_off) mod src_nb, j < nblocks, each of the four reduced
+// to its range (the destination blocks distinct). Rows by the map (sa, si):
+// (k, 1) merged, (1, bs) the (k, bs, ns) view (no Gram). vals: device (nblocks * g),
+// or null. G == nullptr: no Gram; else G (m x m) = Gin + the slab's Xd_dst
+// dY^T (Gin may be null) on the Gram's tile of kmax rows and tiles of tc
+// sites, part (grid, m, m) and arrived (one unsigned, zeroed here) its
+// scratch. grid: blocks (ops/const_block_stencil.py slab_plan).
 // bcg_slab_stream takes 16-byte accesses (g % 4 == 0, X, Y, Xd, vals
 // 16-byte aligned), bcg_slab_stream_scalar 4-byte ones.
 extern "C" int bcg_slab_stream(const float* hop, int bs, int g, int nblocks,
@@ -400,9 +411,11 @@ extern "C" int bcg_slab_stream(const float* hop, int bs, int g, int nblocks,
                                long long src_off, const float* X, long long xn,
                                const float* vals, const float* Xd, float* Y, const float* Gin,
                                float* part, float* G, unsigned* arrived, int k, long long ns,
-                               int kmax, int tc, int grid, int device, cudaStream_t stream) {
+                               int sa, int si, int kmax, int tc, int grid, int device,
+                               cudaStream_t stream) {
   return slab_entry<4>(hop, bs, g, nblocks, dst_mul, dst_off, src_mul, src_off, X, xn, vals,
-                       Xd, Y, Gin, part, G, arrived, k, ns, kmax, tc, grid, device, stream);
+                       Xd, Y, Gin, part, G, arrived, k, ns, sa, si, kmax, tc, grid, device,
+                       stream);
 }
 
 extern "C" int bcg_slab_stream_scalar(const float* hop, int bs, int g, int nblocks,
@@ -410,8 +423,10 @@ extern "C" int bcg_slab_stream_scalar(const float* hop, int bs, int g, int nbloc
                                       long long src_off, const float* X, long long xn,
                                       const float* vals, const float* Xd, float* Y,
                                       const float* Gin, float* part, float* G,
-                                      unsigned* arrived, int k, long long ns, int kmax, int tc,
-                                      int grid, int device, cudaStream_t stream) {
+                                      unsigned* arrived, int k, long long ns, int sa, int si,
+                                      int kmax, int tc, int grid, int device,
+                                      cudaStream_t stream) {
   return slab_entry<1>(hop, bs, g, nblocks, dst_mul, dst_off, src_mul, src_off, X, xn, vals,
-                       Xd, Y, Gin, part, G, arrived, k, ns, kmax, tc, grid, device, stream);
+                       Xd, Y, Gin, part, G, arrived, k, ns, sa, si, kmax, tc, grid, device,
+                       stream);
 }

@@ -34,11 +34,12 @@
 // added in the order d = 0..ndiag-1 with fmaf, as the kernel before this one
 // did, so Y keeps its bits.
 //
-// Gram. Every launch with the Gram runs one of the tensor-core kernels below
-// (stencil_mma on a bf16 field, stencil_mma_f32 on an f32 one); each block
-// writes one (k, k) partial, and a second kernel sums the partials in block
-// order in double (common.cuh). No atomics: a repeated call gives the same
-// bits.
+// Gram. A launch with the Gram runs one of the tensor-core kernels below
+// (stencil_mma on a bf16 field, stencil_mma_f32 on an f32 one of at most 32
+// rows) or, on an f32 field of 33 to 64 rows, this kernel's Gram form
+// (stencil_vec_gram below); each block writes one (k, k) partial, and a
+// second kernel sums the partials in block order in double (common.cuh). No
+// atomics: a repeated call gives the same bits.
 //
 // Width: one launch holds k <= 64 rows (the Python wrapper issues one launch
 // per row chunk; the window's budget shrinks h or T as k grows). Y is always
@@ -61,7 +62,7 @@
 //
 // Mixed pairs (the reference's gate takes bf16 or f32 for the diagonals and
 // the field independently): bcg_stencil_spmm_bf16d takes bf16 diagonals with
-// f32 X and Y (its Gram on stencil_mma_f32, as the f32 field's),
+// f32 X and Y (its Gram as the f32 field's),
 // bcg_stencil_spmm_bf16x f32 diagonals with bf16 X and Y (its Gram on
 // stencil_mma, as the bf16 field's). The
 // diagonals' element (ED) and the field's (EX) are separate template
@@ -70,9 +71,11 @@
 // in f32 in the order d = 0..ndiag-1, so a pair whose values are exact in
 // both types gives the unmixed kernel's bits.
 //
-// f32 field with the Gram (rows 2 and 2m, any diagonals' element): each
-// launch of at most 64 rows runs stencil_mma_f32 below, the Gram on the
-// tensor cores from X and the f32 sums in three exact bf16 pieces.
+// f32 field with the Gram (rows 2 and 2m, any diagonals' element): a launch
+// of at most 32 rows runs stencil_mma_f32 below, the Gram on the tensor
+// cores from X and the f32 sums in three exact bf16 pieces; a launch of 33
+// to 64 rows runs stencil_vec_gram, this kernel with its Gram in f32 FMAs
+// (VecGram) flushed to double sums every kVecGramFlush tiles.
 //
 // Wide bf16 Gram: where Y is bf16 and the field is wider than one launch,
 // the solvers' Gram needs the f32 sums of every row, which the stored Y has
@@ -158,20 +161,109 @@ __host__ __device__ inline long long smem_bytes(int k, int ndiag, int h, int T, 
                 dsize * static_cast<long long>(ndiag) * T);
 }
 
-// Blocks an SM the kernel is built for: two up to KMAX = 32 (128 registers
-// a thread), one at KMAX = 64. ops/stencil.py stencil_plan assumes the same.
-template <int KMAX>
-constexpr int kStBlocksPerSm = KMAX <= 32 ? 2 : 1;
+// ---- an f32 field's Gram at 33 to 64 rows (stencil_vec_gram)
+//
+// Rows 2 and 2m at 33 to 64 rows a launch (config 5's f32 route: 64 rows):
+// stencil_spmm below with WITH_GRAM, the schedule the tensor-core Gram
+// replaced, whose SpMM is the kernel's own (so Y keeps its bits). After a
+// tile's SpMM its f32 sums go to a tile of Y in shared memory (0 past n)
+// and, behind a barrier, the
+// block adds X Y^T of the tile into VecGram<64> register tiles: 8 x 8 a
+// thread, rows rt + 8a and columns st + 8b, fed by float4 shared loads along
+// the columns of the window's centre and of the tile of Y (16 loads for 256
+// FMAs); the block's 256 threads hold four copies of G, each over every
+// fourth group of 4 columns. At 64 rows the tensor-core schedule
+// (stencil_mma_f32 on StMma<64>, no longer built: that kernel takes 32 rows
+// at most) computed every row's SpMM in each of its two row groups and read X
+// in each of its four column groups: 15.3 ms at (64, 256^3) against this
+// schedule's 11.5 (H100 80GB HBM3 at 700 W; PERF.md section 6).
+//
+// Summation. Kept in f32 across all of a block's tiles (the kernel before),
+// each entry of G summed a few thousand products in f32, and its distance
+// from the f64 Gram grew with n (1.37x the tensor-core route's at (64,
+// 128^3)). Here the f32 tiles restart every F = kVecGramFlush tiles: the
+// four copies' tiles go through
+// the tile of Y's shared memory (the copy's slot e = (t mod 64) + 64 (8a +
+// b), conflict-free both ways), and thread u adds slots u + 256 j (j < 16)
+// of the four copies, in copy order, into its 16 double sums, which no
+// thread but u touches. At the end each block writes its double sums as a
+// (k, k) partial, and reduce_partials_f64 (common.cuh) adds the partials in
+// block order in double. No atomics: a repeat gives the same bits.
+//
+// Bound: bytes, 9.06 GB at (64, 256^3) (2.70 ms at 3.35 TB/s; the SpMM's
+// and the Gram's 152 GFLOP of f32 FMAs 2.27 ms at 67 TFLOP/s). The Gram's
+// FMAs, two barriers a tile and the far diagonals' reads from L2 run one
+// after another in each block, one 8-warp block an SM.
+
+// Blocks an SM the kernel is built for: two for the SpMM up to KMAX = 32
+// (128 registers a thread), one at KMAX = 64 and with the Gram, whose 8x8
+// register tiles want the registers more than a second block.
+// ops/stencil.py stencil_plan assumes the same.
+template <int KMAX, bool WITH_GRAM = false>
+constexpr int kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1;
+
+// Tiles a block's f32 Gram tiles sum before flush_gram adds them into
+// doubles; mirrored by ops/stencil.py VEC_GRAM_FLUSH. At (64, 256^3) F = 1,
+// 2 and 4 took 11,641, 11,427 and 11,330 device us, 8 and 16 about 11,330,
+// G's distance from its f64 contract at (64, 64^3) rising from 2.49e-08 (F
+// = 1) to 2.57e-08 (4) and 3.06e-08 (8) (H100 80GB HBM3 at 700 W, L2
+// flushed; tools/torch_kernel_times.py --storage --variants, PERF.md
+// section 6).
+constexpr int kVecGramFlush = 4;
+
+// The Gram form's register tiles, and the double sums each thread keeps of
+// the block's (64, 64) tile.
+using StGram = VecGram<64, kStThreads>;
+constexpr int kStGramSlots = 64 * 64 / kStThreads;
+static_assert(StGram::TS == 8 && StGram::S == 8 &&
+                  StGram::kGroups * StGram::kCopy == kStThreads,
+              "flush_gram's slots assume 8x8 tiles in four copies of 64 threads");
+
+// Add the copies' f32 tiles into the threads' double sums, in copy order,
+// and restart them; scratch: StGram::kScratch floats no thread still reads.
+__device__ __forceinline__ void flush_gram(StGram& g, double (&sum)[kStGramSlots],
+                                           float* scratch) {
+  float* mine = scratch + g.grp * 4096 + threadIdx.x % 64;
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      mine[64 * (8 * a + b)] = g.acc[a][b];
+      g.acc[a][b] = 0.f;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kStGramSlots; ++j) {
+    const float* e = scratch + threadIdx.x + kStThreads * j;
+    double v = sum[j];
+#pragma unroll
+    for (int c = 0; c < StGram::kGroups; ++c) v += static_cast<double>(e[4096 * c]);
+    sum[j] = v;
+  }
+}
 
 // ED: the element of the diagonals, EX: of X and Y (float or bf16 each).
-template <typename ED, typename EX, int KMAX>
-__global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX>)
+// WITH_GRAM (f32 X, KMAX = 64): part (gridDim.x, k, k) doubles, the tiles'
+// f32 sums flushed to double every F tiles (kVecGramFlush; other F in the
+// timing tool's probe builds alone).
+template <typename ED, typename EX, int KMAX, bool WITH_GRAM = false, int F = kVecGramFlush>
+__global__ void __launch_bounds__(kStThreads, (kStBlocksPerSm<KMAX, WITH_GRAM>))
     stencil_spmm(const ED* __restrict__ diags, Diags dg, int ndiag, const EX* __restrict__ X,
-                 EX* __restrict__ Y, int k, long long n, int h, int T, bool vec) {
-  extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles
+                 EX* __restrict__ Y, double* __restrict__ part, int k, long long n, int h,
+                 int T, bool vec) {
+  static_assert(!WITH_GRAM || (KMAX == 64 && std::is_same_v<EX, float>),
+                "the Gram form takes an f32 field of up to 64 rows");
+  static_assert(F >= 1, "a flush every F >= 1 tiles");
+  extern __shared__ __align__(16) float smem[];  // 2 windows | 2 coefficient tiles | sY
   const int W = window_ld(k, h, T, sizeof(EX));
   EX* sw0 = reinterpret_cast<EX*>(smem);
   ED* sd0 = reinterpret_cast<ED*>(sw0 + 2 * k * W);
+  [[maybe_unused]] float* sy = reinterpret_cast<float*>(sd0 + 2 * ndiag * T);
+  [[maybe_unused]] const int LY = T + 4;
+  using Gram = std::conditional_t<WITH_GRAM, StGram, char>;
+  [[maybe_unused]] Gram g{};
+  [[maybe_unused]] double sum[WITH_GRAM ? kStGramSlots : 1] = {};
+  [[maybe_unused]] int f = 0;
   const long long ntiles = (n + T - 1) / T;
   long long t = blockIdx.x;
   int buf = 0;
@@ -219,11 +311,36 @@ __global__ void __launch_bounds__(kStThreads, kStBlocksPerSm<KMAX>)
         for (int r = 0; r < KMAX; ++r)
           if (r < k) Y[r * n + i] = from_f32<EX>(acc[r]);
       }
+      if constexpr (WITH_GRAM) {
+#pragma unroll
+        for (int r = 0; r < KMAX; ++r)
+          if (r < k) sy[r * LY + c] = acc[r];  // 0 past n
+      }
     }
-    __syncthreads();  // every read of this buffer is done
+    if constexpr (WITH_GRAM) {
+      __syncthreads();  // sY is written
+      g.accumulate(sw + h, W, sy, LY, T, k);
+    }
+    __syncthreads();  // every read of this buffer (and of sY) is done
+    if constexpr (WITH_GRAM) {
+      if (++f == F) {  // the next tile's first barrier orders the flush's reads of sY
+        flush_gram(g, sum, sy);
+        f = 0;
+      }
+    }
     buf ^= 1;
   }
   cp_async_wait<0>();
+  if constexpr (WITH_GRAM) {
+    if (f != 0) flush_gram(g, sum, sy);
+    double* mine = part + static_cast<long long>(blockIdx.x) * k * k;
+#pragma unroll
+    for (int j = 0; j < kStGramSlots; ++j) {
+      const int e = threadIdx.x + kStThreads * j, s = e % 64, ab = e / 64;
+      const int r = s / 8 + 8 * (ab / 8), c = s % 8 + 8 * (ab % 8);
+      if (r < k && c < k) mine[r * k + c] = sum[j];
+    }
+  }
 }
 
 template <typename ED, typename EX, int KMAX>
@@ -237,7 +354,35 @@ cudaError_t launch(const ED* diags, const Diags& dg, int ndiag, const EX* X, EX*
   err = persistent_grid(kernel, kStThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
   if (err != cudaSuccess) return err;
   const bool vec = n % kVec<EX> == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
-  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, k, n, h, T, vec);
+  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, nullptr, k, n, h, T, vec);
+  return cudaGetLastError();
+}
+
+// Shared bytes of a stencil_vec_gram launch: stencil_spmm's two f32 windows
+// and coefficient tiles of dsize-byte elements, then the float (k, T + 4)
+// tile of Y, at least the copies' tiles that flush_gram stages there;
+// mirrored by ops/stencil.py vec_gram_smem_bytes.
+__host__ __device__ inline long long vec_gram_smem_bytes(int k, int ndiag, int h, int T,
+                                                         int dsize) {
+  const long long ly = 1LL * k * (T + 4);
+  return smem_bytes(k, ndiag, h, T, 4, dsize) +
+         4 * (ly > StGram::kScratch ? ly : StGram::kScratch);
+}
+
+template <typename ED, int F = kVecGramFlush>
+cudaError_t launch_vec_gram(const ED* diags, const Diags& dg, int ndiag, const float* X,
+                            float* Y, double* part, float* G, int k, long long n, int h, int T,
+                            int max_blocks, int device, cudaStream_t stream) {
+  auto kernel = stencil_spmm<ED, float, 64, true, F>;
+  const size_t smem = vec_gram_smem_bytes(k, ndiag, h, T, sizeof(ED));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(kernel, kStThreads, smem, device, (n + T - 1) / T, max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  const bool vec = n % 4 == 0 && n % kVec<ED> == 0 && aligned16(X) && aligned16(diags);
+  kernel<<<grid, kStThreads, smem, stream>>>(diags, dg, ndiag, X, Y, part, k, n, h, T, vec);
+  launch_reduce_f64(part, G, k * k, grid, stream);
   return cudaGetLastError();
 }
 
@@ -1108,12 +1253,13 @@ cudaError_t dispatch_mma(const ED* diags, const Diags& dg, int ndiag, const bf16
 
 // ---- f32 fields with the Gram on the tensor cores (stencil_mma_f32)
 //
-// Rows 2 and 2m (f32 X and Y, f32 or bf16 diagonals) with their Gram: G = X
-// Y^T of the f32 sums, which are Y. The kernel it replaced (stencil_spmm's
-// Gram variant, since removed) took the SpMM one column a thread at
-// one 8-warp block an SM, then, behind a barrier, the Gram in f32 FMAs
-// (VecGram) from an f32 tile of Y in shared memory: about 0.59 ms at (32,
-// 128^3), 0.24 of it the Gram (H100; PERF.md section 6). This one is
+// Rows 2 and 2m (f32 X and Y, f32 or bf16 diagonals) with their Gram, up to
+// 32 rows a launch: G = X Y^T of the f32 sums, which are Y. The kernel it
+// replaced (stencil_spmm's Gram form, now at 33 to 64 rows) took the SpMM one
+// column a thread at one 8-warp block an SM, then, behind a barrier, the
+// Gram in f32 FMAs (VecGram) from an f32 tile of Y in shared memory: about
+// 0.59 ms at (32, 128^3), 0.24 of it the Gram (H100; PERF.md section 6).
+// This one is
 // stencil_mma's schedule on an f32 field: 16 warps share each tile's
 // 16-column steps and G's fragments (StMma), lane (g, t) of a warp computes
 // the Y rows 8 (nt0 + j) + g of its fragments at columns 4t .. 4t + 3 of a
@@ -1166,6 +1312,9 @@ cudaError_t dispatch_mma(const ED* diags, const Diags& dg, int ndiag, const bf16
 // Far diagonals whose X a step loads one step ahead, into registers;
 // mirrored by ops/stencil.py MMA_F32_PREFETCH.
 constexpr int kStF32Prefetch = 2;
+// Rows of one stencil_mma_f32 launch (StMma<8>, <16> or <32>); 33 to 64
+// rows run stencil_vec_gram; mirrored by ops/stencil.py MMA_F32_MAX_K.
+constexpr int kStMmaF32MaxK = 32;
 
 // Row stride of stencil_mma_f32's window, in floats: the least L >= T + 2h
 // with L = 16 mod 32, so the two rows a quarter warp's 16-byte reads touch
@@ -1524,8 +1673,7 @@ cudaError_t dispatch_mma_f32(const ED* diags, const Diags& dg, int ndiag, const 
   switch (mma_gram_width(k)) {
     case 8: BCG_SF(8);
     case 16: BCG_SF(16);
-    case 32: BCG_SF(32);
-    default: BCG_SF(64);
+    default: BCG_SF(32);
   }
 #undef BCG_SF
 }
@@ -1924,6 +2072,8 @@ int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, E
     if constexpr (std::is_same_v<EX, bf16>)
       return dispatch_mma(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                           stream);
+    else if (k > kStMmaF32MaxK)  // an f32 field's 33 to 64 rows: bcg_stencil_vec_gram
+      return cudaErrorInvalidValue;
     else
       return dispatch_mma_f32(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                               stream);
@@ -1938,6 +2088,22 @@ int stencil_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, E
     default: return cudaErrorInvalidValue;
   }
 #undef BCG_STENCIL
+}
+
+template <typename ED>
+int vec_gram_entry(const ED* diags, const int* offsets, int ndiag, const float* X, float* Y,
+                   double* part, float* G, int k, long long n, int h, int T, int max_blocks,
+                   int device, cudaStream_t stream) {
+  if (ndiag < 1 || ndiag > kMaxDiags || max_blocks < 1 || n < 1 || h < 0 || h % 4 != 0 ||
+      T < 128 || T % 128 != 0 || k <= kStMmaF32MaxK || k > 64 || part == nullptr ||
+      G == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Diags dg{};
+  if (!make_diags(&dg, offsets, ndiag, n, h)) return cudaErrorInvalidValue;
+  return launch_vec_gram(diags, dg, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                         stream);
 }
 
 template <typename ED>
@@ -1969,9 +2135,9 @@ int stencil_cols_entry(const ED* diags, const int* offsets, int ndiag, const bf1
 // diagonal is near when o <= h or n - o <= h. h (a multiple of 4; of 8 on a
 // bf16 field) and T (a multiple of 128) come from ops/stencil.py
 // stencil_plan. G == nullptr selects the plain SpMM; otherwise the Gram
-// (k <= 64; h and T from stencil_mma_plan on a bf16 field,
-// stencil_mma_f32_plan on an f32 one), part holds (max_blocks, k, k) and the
-// launch uses at most max_blocks blocks.
+// (h and T from stencil_mma_plan on a bf16 field, k <= 64; from
+// stencil_mma_f32_plan on an f32 one, k <= 32), part holds (max_blocks, k,
+// k) and the launch uses at most max_blocks blocks.
 extern "C" int bcg_stencil_spmm(const float* diags, const int* offsets, int ndiag,
                                 const float* X, float* Y, float* part, float* G, int k,
                                 long long n, int h, int T, int max_blocks, int device,
@@ -2005,6 +2171,26 @@ extern "C" int bcg_stencil_spmm_bf16x(const float* diags, const int* offsets, in
                                       cudaStream_t stream) {
   return stencil_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
                        stream);
+}
+
+// An f32 field's SpMM with its Gram at 33 <= k <= 64 rows (stencil_vec_gram):
+// offsets as above, h (a multiple of 4) and T from ops/stencil.py
+// stencil_vec_gram_plan; part holds (max_blocks, k, k) doubles.
+extern "C" int bcg_stencil_vec_gram(const float* diags, const int* offsets, int ndiag,
+                                    const float* X, float* Y, double* part, float* G, int k,
+                                    long long n, int h, int T, int max_blocks, int device,
+                                    cudaStream_t stream) {
+  return vec_gram_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                        stream);
+}
+
+// The same on bf16 diagonals.
+extern "C" int bcg_stencil_vec_gram_bf16d(const bf16* diags, const int* offsets, int ndiag,
+                                          const float* X, float* Y, double* part, float* G,
+                                          int k, long long n, int h, int T, int max_blocks,
+                                          int device, cudaStream_t stream) {
+  return vec_gram_entry(diags, offsets, ndiag, X, Y, part, G, k, n, h, T, max_blocks, device,
+                        stream);
 }
 
 // A bf16 field without the Gram on the ring of planes (stencil_ring): Y's k

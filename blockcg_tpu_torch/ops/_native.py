@@ -342,9 +342,9 @@ def library() -> ctypes.CDLL:
     IP = ctypes.POINTER(ctypes.c_int)
     lib.bcg_cbs_merged_spmm.argtypes = [P, I, IP, IP, IP, IP, I, P, I, P, P, I, L, I, I, I, I,
                                         I, I, P]
-    lib.bcg_slab_accumulate.argtypes = [P, I, I, I, L, L, L, L, P, L, P, I, L, I, I, P]
     for fn in (lib.bcg_slab_stream, lib.bcg_slab_stream_scalar):
-        fn.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P, P, I, L, I, I, I, I, P]
+        fn.argtypes = [P, I, I, I, L, L, L, L, P, L, P, P, P, P, P, P, P, I, L, I, I, I, I, I, I,
+                       P]
         fn.restype = I
     lib.bcg_block_stencil_spmm.argtypes = [P, I, IP, IP, I, I, P, P, P, P, I, I, L, I, I,
                                            I, I, I, I, I, P]
@@ -368,7 +368,8 @@ def library() -> ctypes.CDLL:
     for fn in (lib.bcg_gram_bf16, lib.bcg_mm_update_bf16, lib.bcg_mm_update_gram_mma,
                lib.bcg_mm2_update_gram_mma, lib.bcg_px_update_mma):
         fn.restype = I
-    for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x"):
+    for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x", "bcg_stencil_vec_gram",
+               "bcg_stencil_vec_gram_bf16d"):
         getattr(lib, fn).argtypes = lib.bcg_stencil_spmm.argtypes
         getattr(lib, fn).restype = I
     for fn in (lib.bcg_stencil_ring_bf16, lib.bcg_stencil_ring_bf16x):
@@ -383,7 +384,7 @@ def library() -> ctypes.CDLL:
                lib.bcg_xr_update_gram,
                lib.bcg_qr_p_update, lib.bcg_qr_px_update, lib.bcg_cbs_spmm,
                lib.bcg_cbs_merged_spmm,
-               lib.bcg_slab_accumulate, lib.bcg_block_stencil_spmm, lib.bcg_cheb_step,
+               lib.bcg_block_stencil_spmm, lib.bcg_cheb_step,
                lib.bcg_tiled_spmm):
         fn.restype = I
     lib.bcg_tiled_spmm_blocks_per_sm.argtypes = [I, I, I, I, I, I]

@@ -45,22 +45,24 @@ on the card that took less time than every fused Gram tried (see the
 kernel's notes). The (k, bs, ns) view's apply without the Gram (row 14)
 runs the same kernel with the view's row map on the ungrouped plan (a group
 a diagonal, in diagonal order), which gives the bits of the view's kernel in
-``csrc/const_block_stencil.cu``; that kernel keeps the view's Gram (row 15)
-and the view's slab adds (rows 18 and 21). The merged view's slab adds
-(rows 19 and 20) run ``csrc/slab_stream.cu``: one launch a slab add at any
-width, with or without ``vals`` and the Gram, a lane one right-hand side
-and four slab sites in 16-byte accesses (``slab_plan`` sizes the grid; a
-slab whose width or fields are not 16-byte aligned takes the same kernel's
-4-byte route), the Gram from each block's tiles in ``VecGram`` partials
-summed in the same launch behind one grid-wide barrier.
+``csrc/const_block_stencil.cu``; that kernel keeps the view's Gram (row 15).
+The slab adds of both views (rows 18-21) run ``csrc/slab_stream.cu``: one
+launch a slab add at any width, with or without ``vals`` and the Gram (the
+merged view's; the view's have neither), a lane one right-hand side and
+four slab sites in 16-byte accesses (``slab_plan`` sizes the grid; a slab
+whose width or fields are not 16-byte aligned takes the same kernel's
+4-byte route), the rows by the view's map, (sa, si) = (k, 1) merged or (1,
+bs) on the (k, bs, ns) view, the Gram from each block's tiles in
+``VecGram`` partials summed in the same launch behind one grid-wide
+barrier.
 
-Width: the merged kernel and the merged slab adds take any k in one launch
-(the merged kernel's blocks take groups of right-hand sides); the view's
-Gram and slab adds at most 64 rows after bs is rounded up to a power of two
-(``rhs_width(bs)`` right-hand sides), and a wider field runs as one launch
-per chunk of right-hand sides (on the (k, bs, ns) view a chunk is
-contiguous). A view Gram wider than one launch is ``fused.gram`` of X and
-the stored Y on the flat fields.
+Width: the merged kernel and the slab adds take any k in one launch (the
+merged kernel's blocks take groups of right-hand sides); the view's Gram at
+most 64 rows after bs is rounded up to a power of two (``rhs_width(bs)``
+right-hand sides), and a wider field runs as one launch per chunk of
+right-hand sides (on the (k, bs, ns) view a chunk is contiguous). A view
+Gram wider than one launch is ``fused.gram`` of X and the stored Y on the
+flat fields.
 
 Dispatch follows ``ops/_native.py`` ``f32_kernel``: CPU tensors and CUDA
 float64 and bfloat16 tensors run the plain versions below (the reference's
@@ -108,14 +110,14 @@ def _check_main(hops, offsets, mask_slot, masks, Xm, name: str):
 
 
 def rhs_width(bs: int, name: str = "const-hop kernel") -> int:
-    """Right-hand sides one launch of the view's kernels takes: 64 rows
+    """Right-hand sides one launch of the view's Gram kernel takes: 64 rows
     over bs rounded up to a power of two."""
     if not 1 <= bs <= MAX_BS:
         raise ValueError(f"{name}: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
     return _native.MAX_K // (1 << (bs - 1).bit_length())
 
 
-# ------------------------------ the merged slab adds' host plan (rows 19, 20)
+# ------------------------------ the slab adds' host plan (rows 18-21)
 
 SLAB_THREADS = 256  # csrc/slab_stream.cu kSlabThreads
 SLAB_GRAM_ROWS = 128  # kSlabGramRows: the widest Gram tile; a wider Gram in passes
@@ -182,7 +184,7 @@ def slab_smem_bytes(kmax: int, tc: int) -> int:
 @functools.lru_cache(maxsize=256)
 def slab_plan(m: int, bs: int, g: int, nblocks: int, gram: bool, vec: bool, sm_count: int,
               smem_cap: int) -> SlabPlan:
-    """The launch of a merged slab add of m = bs * k rows over ``nblocks``
+    """The launch of a slab add of m = bs * k rows (either view) over ``nblocks``
     slabs of g sites, with or without the Gram, on the 16-byte route
     (``vec``, which needs g % 4 == 0) or the 4-byte one, on a card of
     ``sm_count`` SMs and ``smem_cap`` shared bytes a block. Without the
@@ -195,12 +197,12 @@ def slab_plan(m: int, bs: int, g: int, nblocks: int, gram: bool, vec: bool, sm_c
     needs. The plan depends on the shapes and the card alone, so a repeat
     sums the Gram's partials in the same order."""
     if not 1 <= bs <= MAX_BS:
-        raise ValueError(f"slab_m_accumulate: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
+        raise ValueError(f"slab add: the CUDA kernel takes bs <= {MAX_BS}, got {bs}")
     if m < bs or m % bs or g < 1 or nblocks < 1:
-        raise ValueError(f"slab_m_accumulate: {m} rows of bs = {bs}, {nblocks} slabs of {g} "
+        raise ValueError(f"slab add: {m} rows of bs = {bs}, {nblocks} slabs of {g} "
                          "sites")
     if vec and g % 4:
-        raise ValueError(f"slab_m_accumulate: the 16-byte route needs g % 4 == 0, got g = {g}")
+        raise ValueError(f"slab add: the 16-byte route needs g % 4 == 0, got g = {g}")
     total = nblocks * g
     if not gram:
         per_sm = slab_blocks(bs, 0)
@@ -753,8 +755,9 @@ def slab_block_accumulate(hop, g: int, nblocks: int, dst_mul: int, dst_off: int,
     if Yv.data_ptr() == Xv.data_ptr():
         raise ValueError(f"{name}: Y must not share X's storage")
     nb = ns // g
-    _launch_slab(name, hop, g, nblocks, (dst_mul % nb, dst_off % nb),
-                 (dst_mul % nb, (dst_off + src_shift) % nb), Xv, ns, Yv)
+    _launch_stream(name, hop, g, nblocks, (dst_mul % nb, dst_off % nb),
+                   (dst_mul % nb, (dst_off + src_shift) % nb), Xv, ns, None, None, Yv, None,
+                   False, view=True)
     return Yv
 
 
@@ -828,44 +831,34 @@ def slab_block_accumulate_from(hop, g: int, nblocks: int, dst_base: int, src_bas
         return slab_v_from_plain(hop, g, nblocks, dst_base, src_base, Src, Yv)
     if Yv.data_ptr() == Src.data_ptr():
         raise ValueError(f"{name}: Y must not share Src's storage")
-    _launch_slab(name, hop, g, nblocks, (1 % (ns // g), dst_base), (1 % (bw // g), src_base),
-                 Src, bw, Yv)
+    _launch_stream(name, hop, g, nblocks, (1 % (ns // g), dst_base), (1 % (bw // g), src_base),
+                   Src, bw, None, None, Yv, None, False, view=True)
     return Yv
 
 
-def _launch_slab(name, hop, g, nblocks, dst, src, X, xn, Y):
-    """The (k, bs, ns) view's slab add (rows 18 and 21): one
-    ``csrc/const_block_stencil.cu`` launch per chunk of right-hand sides (a
-    contiguous run of the view); ``dst`` and ``src`` are the reduced (mul,
-    off) block maps of Y (ns columns) and X (xn columns)."""
-    bs = hop.shape[-1]
-    k = Y.shape[0]
-    ns = Y.numel() // (bs * k)
-    grid = _native.nblocks(nblocks * g)
-    p = _native.ptr
-    for j0, j1 in _native.row_chunks(k, rhs_width(bs, name)):
-        _native.launch(name, "bcg_slab_accumulate", Y.device, p(hop), bs, g, nblocks, *dst,
-                       *src, p(X) + j0 * bs * xn * 4, xn, p(Y) + j0 * bs * ns * 4, j1 - j0, ns,
-                       grid)
-
-
 def _slab_vec(g: int, *fields) -> bool:
-    """Whether a merged slab add takes ``csrc/slab_stream.cu``'s 16-byte
+    """Whether a slab add takes ``csrc/slab_stream.cu``'s 16-byte
     route: g % 4 == 0 and every field it reads or writes (None skipped) on a
     16-byte boundary (the row strides, multiples of g, keep every slab's
     quads aligned)."""
     return g % 4 == 0 and all(f.data_ptr() % 16 == 0 for f in fields if f is not None)
 
 
-def _launch_stream(name, hop, g, nblocks, dst, src, X, xn, vals, Xd, Y, Gin, with_gram):
-    """One ``csrc/slab_stream.cu`` launch of a merged slab add on
-    ``slab_plan``: ``dst`` and ``src`` are the reduced (mul, off) block maps
-    of Y (ns columns) and X (xn columns); with the Gram Xd is the field
-    whose destination columns it reads. Returns the (m, m) Gram, Gin plus
-    the slab's, or None. The Gram's scratch is one buffer: the (grid, m, m)
-    partials, then the grid barrier's counter."""
+def _launch_stream(name, hop, g, nblocks, dst, src, X, xn, vals, Xd, Y, Gin, with_gram,
+                   view: bool = False):
+    """One ``csrc/slab_stream.cu`` launch of a slab add on ``slab_plan``,
+    on a merged (m, ns) field or (``view``) the (k, bs, ns) view, whose row
+    map (sa, si) it passes: (k, 1) merged, (1, bs) on the view. ``dst`` and
+    ``src`` are the reduced (mul, off) block maps of Y (ns columns) and X (xn
+    columns); with the Gram Xd is the field whose destination columns it
+    reads. Returns the (m, m) Gram, Gin plus the slab's, or None. The Gram's
+    scratch is one buffer: the (grid, m, m) partials, then the grid
+    barrier's counter."""
     bs = hop.shape[-1]
-    m, ns = Y.shape
+    ns = Y.shape[-1]
+    m = Y.numel() // ns
+    k = m // bs
+    sa, si = (1, bs) if view else (k, 1)
     dev = Y.device
     vec = _slab_vec(g, X, Y, vals, Xd if with_gram else None)
     plan = slab_plan(m, bs, g, nblocks, with_gram, vec, _native.sm_count(dev.index),
@@ -878,6 +871,6 @@ def _launch_stream(name, hop, g, nblocks, dst, src, X, xn, vals, Xd, Y, Gin, wit
         arrived = p(part) + 4 * plan.grid * m * m
     _native.launch(name, "bcg_slab_stream" if vec else "bcg_slab_stream_scalar", dev, p(hop),
                    bs, g, nblocks, *dst, *src, p(X), xn, p(vals), p(Xd) if with_gram else None,
-                   p(Y), p(Gin), p(part), p(G), arrived, m // bs, ns, plan.kmax, plan.tc,
+                   p(Y), p(Gin), p(part), p(G), arrived, k, ns, sa, si, plan.kmax, plan.tc,
                    plan.grid)
     return G

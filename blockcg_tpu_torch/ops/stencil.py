@@ -36,9 +36,12 @@ runs the tensor-core kernel, which also stages the far diagonals' X and
 takes the Gram of the f32 sums in three exact bf16 pieces
 (``stencil_mma_plan``; with ``gram_rows`` the column-block launches of a
 wider field). An f32 field's launch with the Gram, whatever its diagonals'
-element, runs the f32 tensor-core kernel: X and the sums each in three exact
-bf16 pieces, the far diagonals read from L2 a step ahead
-(``stencil_mma_f32_plan``); its Y is the SpMM's, bit for bit. A bf16
+element, runs the f32 tensor-core kernel up to 32 rows: X and the sums each
+in three exact bf16 pieces, the far diagonals read from L2 a step ahead
+(``stencil_mma_f32_plan``); from 33 to 64 rows the window kernel with its
+Gram in f32 register tiles that go into double sums every few tiles
+(``stencil_vec_gram_plan``). Either way its Y is the SpMM's, bit for bit.
+A bf16
 field's launch without the Gram runs the ring of planes (``stencil_ring``,
 the reference's ``stencil_ring.py`` schedule cut to fit an SM: each offset
 o = m S + r for a stride S dividing n, a work item walking the planes of a
@@ -89,12 +92,50 @@ def smem_bytes(k: int, ndiag: int, h: int, T: int, esize: int = 4,
     return 2 * (esize * k * W + dsize * ndiag * T)
 
 
+# An f32 field's Gram at 33 to 64 rows a launch, on f32 or bf16 diagonals
+# (csrc/stencil.cu stencil_vec_gram): the window kernel with its Gram in
+# VecGram<64> register tiles, one block an SM, the tiles' f32 sums added into
+# doubles every VEC_GRAM_FLUSH tiles.
+VEC_GRAM_ROWS = (33, 64)
+VEC_GRAM_FLUSH = 4  # csrc/stencil.cu kVecGramFlush
+VEC_GRAM_SCRATCH = 4 * 64 * 64  # csrc/common.cuh VecGram<64, 256>::kScratch, floats
+
+
+def vec_gram_smem_bytes(k: int, ndiag: int, h: int, T: int, dsize: int = 4) -> int:
+    """Shared bytes of a ``stencil_vec_gram`` launch (``csrc/stencil.cu``
+    vec_gram_smem_bytes): ``smem_bytes`` of its f32 windows and coefficient
+    tiles, then the float (k, T + 4) tile of Y, at least the four VecGram
+    copies' tiles that each flush stages there."""
+    return smem_bytes(k, ndiag, h, T, 4, dsize) + 4 * max(k * (T + 4), VEC_GRAM_SCRATCH)
+
+
+def vec_gram_takes(k: int) -> bool:
+    """Whether an f32 field's Gram launch of k rows runs
+    ``stencil_vec_gram`` (else ``stencil_mma_f32``)."""
+    return VEC_GRAM_ROWS[0] <= k <= VEC_GRAM_ROWS[1]
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_vec_gram_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
+                          sm_count: int, dsize: int = 4) -> StencilPlan:
+    """The (h, T) of an f32 field's Gram launch of 33 to 64 rows
+    (``csrc/stencil.cu`` stencil_vec_gram): ``stencil_plan``'s search at
+    one block an SM on ``vec_gram_smem_bytes``. At config 5's (64, 256^3)
+    that is h = 4, T = 256: 0 and +-1 from the window, +-256 and +-65,536
+    from L2."""
+    if not vec_gram_takes(k):
+        raise ValueError(f"stencil: the Gram form takes {VEC_GRAM_ROWS[0]} to "
+                         f"{VEC_GRAM_ROWS[1]} rows, got {k}")
+    return _window_plan(offsets, n, k, smem_cap, sm_count, 4, 1,
+                        lambda h, T: vec_gram_smem_bytes(k, len(offsets), h, T, dsize))
+
+
 @functools.lru_cache(maxsize=256)
 def stencil_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, sm_count: int,
                  esize: int = 4, dsize: int | None = None) -> StencilPlan:
     """The (h, T) for a launch of k rows on n columns without the Gram
-    (``csrc/stencil.cu`` stencil_spmm) that minimises the
-    L2->SM traffic per busy thread, ``traffic / (blocks_per_sm * T / 256)``,
+    (``csrc/stencil.cu`` stencil_spmm) that
+    minimises the L2->SM traffic per busy thread, ``traffic / (blocks_per_sm * T / 256)``,
     among those whose shared memory fits ``smem_cap``; ties go to the wider
     tile, then the smaller halo. A diagonal is near when its offset mod n
     lies within h of 0 or of n, the rule the kernel applies. Blocks an SM:
@@ -104,16 +145,23 @@ def stencil_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, sm_cou
     still spreads over the card. ``esize``: bytes of an element of X (2 on
     bf16, whose halos are multiples of 8: a 16-byte copy carries 8
     elements); ``dsize``: of the diagonals (``esize`` by default)."""
+    return _window_plan(offsets, n, k, smem_cap, sm_count, esize, 2 if k <= 32 else 1,
+                        lambda h, T: smem_bytes(k, len(offsets), h, T, esize, dsize))
+
+
+def _window_plan(offsets, n, k, smem_cap, sm_count, esize, built, nbytes_of) -> StencilPlan:
+    """``stencil_plan``'s search over (h, T) for a window kernel built for
+    ``built`` blocks an SM whose launch takes ``nbytes_of(h, T)`` shared
+    bytes."""
     offs = [int(o) % n for o in offsets]
     dist = [min(o, n - o) for o in offs]
     quantum = 16 // esize
-    built = 2 if k <= 32 else 1
     best, best_key = None, None
     for T in TILES:
         if T > max(TILES[0], n // sm_count):
             continue
         for h in sorted({0} | {-(-d // quantum) * quantum for d in dist}):
-            nbytes = smem_bytes(k, len(offs), h, T, esize, dsize)
+            nbytes = nbytes_of(h, T)
             if nbytes > smem_cap:
                 break
             blocks = min(built, (smem_cap + 1024) // (nbytes + 1024))
@@ -243,65 +291,10 @@ def stencil_mma_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
 # stencil_mma_f32): stencil_mma's 16 warps on an f32 window, the far
 # diagonals read from L2.
 MMA_F32_PREFETCH = 2  # csrc/stencil.cu kStF32Prefetch: far diagonals loaded a step ahead
+MMA_F32_MAX_K = 32  # csrc/stencil.cu kStMmaF32MaxK: rows of one launch (33-64: stencil_vec_gram)
 # Tile widths of its plan: at (32, 128^3) T = 512 (1.5 reads of X a column)
 # ran slower than T = 256 (2.0): 475 against 452 device us (H100, PERF.md).
 MMA_F32_TILES = (128, 256)
-# csrc/stencil.cu StMma<W>'s (QM, QN) by the Gram's width W: a launch's 16
-# warps in QM row groups, each of which computes the SpMM of every row of Y
-# it holds, by QN column groups, each of which reads all of its rows of X
-# (the A fragments) at every column.
-MMA_SPLIT = {8: (1, 1), 16: (1, 2), 32: (1, 2), 64: (2, 4)}
-
-
-def mma_gram_width(k: int) -> int:
-    """W of a launch of k <= 64 rows (``csrc/stencil.cu`` mma_gram_width)."""
-    return 8 if k <= 8 else 16 if k <= 16 else 32 if k <= 32 else 64
-
-
-def f32_gram_reads(ndiag: int, chunks) -> int:
-    """The rows of X and Y an f32 field's Gram route reads into registers
-    per column, on the row ``chunks`` its ``stencil_mma_f32`` launches take:
-    a launch of kc rows reads each row once a diagonal in each of its QM row
-    groups (the SpMM, from the window or from L2) and once in each of its
-    QN column groups (the Gram's A fragments; ``MMA_SPLIT``); each block of
-    G between two chunks is a ``gram`` launch (``fused.gram_blocks``) that
-    reads its rows of X and of Y once."""
-    from blockcg_tpu_torch.ops import fused
-
-    k = chunks[-1][1]
-    reads = 0
-    for r0, r1 in chunks:
-        qm, qn = MMA_SPLIT[mma_gram_width(r1 - r0)]
-        reads += (r1 - r0) * (qm * ndiag + qn)
-    if len(chunks) > 1:
-        reads += sum(r1 - r0 + s1 - s0 for what, r0, r1, s0, s1, _ in
-                     fused.gram_blocks(k, chunks) if what == "launch")
-    return reads
-
-
-@functools.lru_cache(maxsize=256)
-def f32_gram_chunks(ndiag: int, k: int) -> tuple[tuple[int, int], ...]:
-    """The row chunks an f32 field's Gram runs as, one ``stencil_mma_f32``
-    launch each, the Gram's blocks between chunks from ``gram``: of the
-    splits into chunks of at most 64, 32, 16 or 8 rows (``_native.row_chunks``)
-    the one with the least ``f32_gram_reads``, ties to fewer chunks. The
-    traffic that model counts is the one that grows faster than a launch's
-    rows: at 64 rows two row groups each compute every row's SpMM and four
-    column groups each read all 64 rows of X, at 32 rows one and two. On
-    the 7-point operators (7 diagonals) 64 rows split into two launches of
-    32 (576 + 128 reads against 1,152): 12,253 against 15,309 device us at
-    (64, 256^3) (H100, PERF.md); 32 rows stay one launch (288 against 352
-    as two of 16): 460 us at (32, 128^3), where the SpMM followed by
-    ``gram`` took 596."""
-    best = None
-    for width in (64, 32, 16, 8):
-        chunks = tuple(_native.row_chunks(k, width))
-        key = (f32_gram_reads(ndiag, chunks), len(chunks))
-        if best is None or key < best[0]:
-            best = (key, chunks)
-    return best[1]
-
-
 def mma_f32_window_ld(h: int, T: int) -> int:
     """Row stride of stencil_mma_f32's f32 window (``csrc/stencil.cu``
     mma_f32_window_ld): the least L >= T + 2h with L = 16 mod 32 floats, so
@@ -321,7 +314,7 @@ def mma_f32_smem_bytes(k: int, ndiag: int, h: int, T: int, dsize: int = 4) -> in
 @functools.lru_cache(maxsize=256)
 def stencil_mma_f32_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int,
                          sm_count: int, dsize: int = 4) -> StencilPlan:
-    """The (h, T) of an f32 launch of k <= 64 rows with the fused Gram
+    """The (h, T) of an f32 launch of k <= 32 rows with the fused Gram
     (``csrc/stencil.cu`` stencil_mma_f32, one 16-warp block an SM; f32 or
     bf16 diagonals, ``dsize`` bytes an element): the least L2->SM traffic
     per column, ``(T + 2h) / T`` plus one per far diagonal (read from L2),
@@ -331,8 +324,9 @@ def stencil_mma_f32_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int
     ties go to the wider tile, then the smaller halo. At the north star's
     (32, 128^3) that is h = 128, T = 256: 0, +-1 and +-128 from the window,
     +-16384 from L2, traffic 4.0."""
-    if not 1 <= k <= MMA_MAX_K:
-        raise ValueError(f"stencil: one f32 Gram launch takes 1 to {MMA_MAX_K} rows, got {k}")
+    if not 1 <= k <= MMA_F32_MAX_K:
+        raise ValueError(f"stencil: one f32 Gram launch takes 1 to {MMA_F32_MAX_K} rows, "
+                         f"got {k}")
     offs = [int(o) % n for o in offsets]
     dist = [min(o, n - o) for o in offs]
     best, best_key = None, None
@@ -557,24 +551,31 @@ def _ring_ok(diags, Xt) -> bool:
 
 def launch_plans(diags, offsets, Xt, with_gram: bool):
     """``[((r0, r1), plan), ...]``: the row chunks a field runs as, one
-    launch each (an f32 field's Gram on ``f32_gram_chunks``), and the plan of
-    each: a ``RingPlan`` (``stencil_ring``) for
+    launch each (``_native.row_chunks``: chunks of at most 64 rows), and the
+    plan of each: a ``RingPlan`` (``stencil_ring``) for
     a bf16 field without the Gram where one fits with less traffic than
     ``stencil_plan``'s and the operands suit it (``_ring_ok``), else a
-    ``StencilPlan`` (``stencil_mma_plan`` for a bf16 field's Gram,
-    ``stencil_mma_f32_plan`` for an f32 field's, else ``stencil_plan``). A
-    bf16 field's Gram above one launch runs ``wide_gram_launches`` instead."""
+    ``StencilPlan``: ``stencil_mma_plan`` for a bf16 field's Gram; for an f32
+    field's, ``stencil_vec_gram_plan`` where ``vec_gram_takes`` (33 to 64
+    rows), else ``stencil_mma_f32_plan``; else ``stencil_plan``. An f32
+    field's Gram above one launch takes its cross blocks from ``gram``
+    (``fused.wide_gram``); a bf16 field's runs ``wide_gram_launches``
+    instead. At (64, 256^3) on the 7-point Laplacian the Gram form took
+    11,508-11,525 device us (with its f32 tiles kept for a block's whole
+    run) against 12,244-12,324 for two 32-row ``stencil_mma_f32`` launches
+    and ``gram``'s cross blocks (H100 80GB HBM3 at 700 W, L2 flushed;
+    PERF.md section 6)."""
     n = diags.shape[1]
     offsets = tuple(int(o) for o in offsets)
     cap, sms = _native.max_smem(Xt.device.index), _native.sm_count(Xt.device.index)
     ring_ok = not with_gram and _ring_ok(diags, Xt)
-    f32_gram = with_gram and Xt.dtype != torch.bfloat16
     out = []
-    for r0, r1 in (f32_gram_chunks(len(offsets), Xt.shape[0]) if f32_gram
-                   else _native.row_chunks(Xt.shape[0])):
+    for r0, r1 in _native.row_chunks(Xt.shape[0]):
         kc = r1 - r0
         if with_gram and Xt.dtype == torch.bfloat16:
             plan = stencil_mma_plan(offsets, n, kc, cap, sms, diags.element_size())
+        elif with_gram and vec_gram_takes(kc):
+            plan = stencil_vec_gram_plan(offsets, n, kc, cap, sms, diags.element_size())
         elif with_gram:
             plan = stencil_mma_f32_plan(offsets, n, kc, cap, sms, diags.element_size())
         else:
@@ -627,11 +628,20 @@ def _launch(diags, offsets, Xt, with_gram: bool, name: str, pair):
             continue
         max_blocks = min(-(-n // plan.T), _native.MAX_BLOCKS)
         part = G = None
+        route = fn
         if with_gram:
-            part = torch.empty((max_blocks, kc, kc), dtype=torch.float32, device=Xt.device)
             G = torch.empty((kc, kc), dtype=torch.float32, device=Xt.device)
-        _native.launch(label, fn, Xt.device, p(diags), offs, ndiag, p(Xt[r0:r1]), p(Y[r0:r1]),
-                       p(part), p(G), kc, n, plan.h, plan.T, max_blocks)
+            if Xt.dtype != torch.bfloat16 and vec_gram_takes(kc):
+                # the window kernel's Gram form: its partials in double
+                route = ("bcg_stencil_vec_gram_bf16d" if diags.dtype == torch.bfloat16
+                         else "bcg_stencil_vec_gram")
+                sms = _native.sm_count(Xt.device.index)
+                max_blocks = min(max_blocks, plan.blocks_per_sm * sms)
+                part = torch.empty((max_blocks, kc, kc), dtype=torch.float64, device=Xt.device)
+            else:
+                part = torch.empty((max_blocks, kc, kc), dtype=torch.float32, device=Xt.device)
+        _native.launch(label, route, Xt.device, p(diags), offs, ndiag, p(Xt[r0:r1]),
+                       p(Y[r0:r1]), p(part), p(G), kc, n, plan.h, plan.T, max_blocks)
         diag.append(G)
     if with_gram and len(chunks) > 1:
         return Y, fused.wide_gram(Xt, Y, diag, chunks)

@@ -73,7 +73,7 @@ TOP = 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PORT_KERNEL = re.compile(r"\b(stencil_spmm|mm_update_kernel|coeff_update|px_update|gram_kernel"
                          r"|mm2_update_gram_kernel|update_gram_kernel|px_update_kernel|tiled_spmm"
-                         r"|reduce_partials|cbs_spmm|cm_spmm|slab_accumulate|slab_stream"
+                         r"|reduce_partials|reduce_partials_f64|cbs_spmm|cm_spmm|slab_stream"
                          r"|xr_update_gram|qr_p_update|qr_px_update|bs_spmm|xr_update_gram_kernel"
                          r"|cheb_step_vec|cheb_step_scalar|reduce_spin_contract)\b")
 

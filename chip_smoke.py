@@ -146,13 +146,13 @@ KERNELS = {
                                    "blockcg_tpu/ops/const_block_stencil.py:330"),
     "const_block_stencil_spmm_gram_t": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
                                         "blockcg_tpu/ops/const_block_stencil.py:361"),
-    "slab_block_accumulate": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+    "slab_block_accumulate": ("blockcg_tpu_torch/csrc/slab_stream.cu",
                               "blockcg_tpu/ops/const_block_stencil.py:691"),
     "tiled_spmm_t": ("blockcg_tpu_torch/csrc/spmm_tiled.cu", "blockcg_tpu/ops/spmm_tiled.py:63"),
     "qr_px_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:795"),
     "slab_m_accumulate_from": ("blockcg_tpu_torch/csrc/slab_stream.cu",
                                "blockcg_tpu/ops/const_block_stencil.py:846"),
-    "slab_block_accumulate_from": ("blockcg_tpu_torch/csrc/const_block_stencil.cu",
+    "slab_block_accumulate_from": ("blockcg_tpu_torch/csrc/slab_stream.cu",
                                    "blockcg_tpu/ops/const_block_stencil.py:955"),
 }
 # The bf16 variants: wrapper[bf16] -> (source, the TPU kernel whose bf16
@@ -539,6 +539,23 @@ def _halo_library(torch, hop, g, nblocks, dst_base, src_base, Src, Y0, want):
     def call():
         return Yc[:, d0:d0 + cols].addmm_(W, Src[:, s0:s0 + cols])
     _, why = _library_check(torch, lambda: (call(), Yc)[1], want, "addmm_ on the halo slab")
+    return (None, why) if why else (call, None)
+
+
+def _view_halo_library(torch, hop, g, nblocks, dst_base, src_base, Src, Y0, want):
+    """One PyTorch call computing row 21's halo slab add on the (k, bs, ns)
+    view: ``Y[:, :, d0:d0 + cols].baddbmm_(H.expand(k, bs, bs), Src[:, :,
+    s0:s0 + cols])``, in place on a copy of ``Y0``, held to the kernel's Y
+    ``want`` first."""
+    k, bs = Y0.shape[:2]
+    cols, d0, s0 = nblocks * g, dst_base * g, src_base * g
+    H = hop.float().expand(k, bs, bs)
+    Yc = Y0.clone()
+
+    def call():
+        return Yc[:, :, d0:d0 + cols].baddbmm_(H, Src[:, :, s0:s0 + cols])
+    _, why = _library_check(torch, lambda: (call(), Yc)[1], want,
+                            "baddbmm_ on the view's halo columns")
     return (None, why) if why else (call, None)
 
 
@@ -1396,13 +1413,22 @@ def phase_view_kernels(torch, dev, records) -> None:
             slab = (op.hops_all[d], g, nblocks, mul, off, shift, Xv)
             Yk, Yp = Yv.clone(), Yv.clone()
             cols = g * nblocks
+            library = None
+            if k == 1:  # one RHS: the merged form's baddbmm_ on the same memory (W = H)
+                flat = (op.bs, op.ns)
+                library, why = _slab_library(
+                    torch, *slab[:-1], Xv.view(flat), Yv.view(flat),
+                    cbs.slab_block_accumulate(*slab, Yv.clone()).view(flat))
+                _library_note(f"slab_block_accumulate {what} (baddbmm_ on the slab's blocks)",
+                              why)
             _timed_check(torch, "slab_block_accumulate", f"{what} slab g={g} x {nblocks}",
                          lambda: (Yk.copy_(Yv), cbs.slab_block_accumulate(*slab, Yk))[1:],
                          lambda: (Yp.copy_(Yv), cbs.slab_v_plain(*slab, Yp))[1:],
                          is_gram, records,
                          timed=(lambda: cbs.slab_block_accumulate(*slab, Yk),
                                 lambda: cbs.slab_v_plain(*slab, Yp)),
-                         work=(3 * 4 * op.bs * k * cols, 2 * k * nnz(op.hops_all[d]) * cols))
+                         work=(3 * 4 * op.bs * k * cols, 2 * k * nnz(op.hops_all[d]) * cols),
+                         library=library)
         del Xv, Yv, main
     for label, op in (("config 4", op4), (f"dirac_eo({DIRAC_L}) hop_oe", eo.hop_oe),
                       (f"dirac_eo({DIRAC_L}) hop_eo", eo.hop_eo)):
@@ -2545,13 +2571,28 @@ def phase_config5_f32(torch, dev, lean_peak: float) -> None:
         inner.append(info.iterations)
         return X, info
 
-    # Row 2 at the inner solves' 64 rows: its plan's chunks (two launches of
-    # 32, the cross blocks of G from gram.cu); every Gram apply counted, so a
-    # launch on the one-launch route fails the check below.
-    chunks = stencil.f32_gram_chunks(len(op.offsets), B.shape[1])
+    # Row 2 at the inner solves' 64 rows against its plain version, on a
+    # random field of their shape (the kernels line keeps row 2's first
+    # check, the north star's).
+    X = torch.randn(B.T.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    nnz_ = int(torch.count_nonzero(op.diags))
+    k, n = X.shape
+    _timed_check(torch, "stencil_spmm_gram_t", f"[config5] f32 ({k}, {n})",
+                 lambda: stencil.stencil_spmm_gram_t(op.diags, op.offsets, X),
+                 lambda: stencil.stencil_spmm_plain(op.diags, op.offsets, X, with_gram=True),
+                 lambda w: w.shape[0] == w.shape[1], {},
+                 work=(4 * op.diags.numel() + 8 * k * n + 4 * k * k,
+                       2 * k * nnz_ + 2 * k * k * n))
+    del X
+    torch.cuda.empty_cache()
+    # Row 2 in the inner solves: its plan's one launch of the window kernel's
+    # Gram form (stencil_vec_gram, no cross blocks); every Gram apply
+    # counted, so a launch on another route fails the check below.
     plans = stencil.launch_plans(op.diags, op.offsets, B.T, True)  # (k, n): its shape, dtype
     print(f"[plan] stencil_spmm_gram_t ({B.shape[1]}, {op.n}): {len(plans)} launches "
-          f"{chunks}: " + "; ".join(stencil.describe(plan) for _, plan in plans))
+          f"{[rows for rows, _ in plans]}: "
+          + "; ".join(stencil.describe(plan) for _, plan in plans))
     applies = []
     gram_apply = op.matmat_gram_t
     op.matmat_gram_t = lambda Xt: (applies.append(Xt.shape[0]), gram_apply(Xt))[1]
@@ -2561,15 +2602,17 @@ def phase_config5_f32(torch, dev, lean_peak: float) -> None:
     (X, info), secs = _timed(torch, lambda: solve_refined(op, B, tol=CONFIG5_TOL,
                                                           solve_fn=solve_fn))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launched = (_native.launches["stencil_spmm_gram_t"], _native.functions["bcg_gram"])
-    wide = sum(1 for k in applies if len(stencil.f32_gram_chunks(len(op.offsets), k)) > 1)
-    want = sum(len(stencil.f32_gram_chunks(len(op.offsets), k)) for k in applies)
+    launched = (_native.launches["stencil_spmm_gram_t"],
+                _native.functions["bcg_stencil_vec_gram"])
+    want = [stencil.vec_gram_takes(r1 - r0) for k in applies
+            for (r0, r1) in _native.row_chunks(k)]
     print(f"[config5] f32 row 2: {len(applies)} Gram applies, {launched[0]} launches of "
-          f"stencil_spmm_gram_t (the plan's {want}), {launched[1]} gram.cu launches")
-    if not (0 < wide and launched[0] == want and launched[1] >= 2 * wide):
+          f"stencil_spmm_gram_t (the plan's {len(want)}), {launched[1]} of them "
+          f"stencil_vec_gram (the plan's {sum(want)})")
+    if not (0 < sum(want) and launched == (len(want), sum(want))):
         raise AssertionError(f"[config5] f32: row 2 launched {launched[0]} times for "
-                             f"{len(applies)} applies ({want} on its chunks), gram.cu "
-                             f"{launched[1]} times")
+                             f"{len(applies)} applies ({len(want)} on its chunks), "
+                             f"stencil_vec_gram {launched[1]} times ({sum(want)})")
     rel = relres_by_columns(torch, op, X, B)
     print(f"[config5] f32 {meta['name']} n={op.n} k={B.shape[1]} (built in {build_s:.1f} s) "
           f"solve_refined tol={CONFIG5_TOL:g}: {info.iterations} cycles, {info.matvecs} "
@@ -3265,10 +3308,12 @@ def phase_dist_kernels(torch, dev, records) -> None:
             torch, lambda Y: cbs.slab_block_accumulate_from(*args, Y),
             lambda Y: cbs.slab_v_from_plain(*args, Y), Y0)
         cols = nb * g
-        _timed_check(torch, "slab_block_accumulate_from",
-                     f"{label} halo ({k}, 4, {bw}) into ({k}, 4, {nsites}) g={g} x {nb}",
-                     kern, plain, is_gram, records, timed,
-                     work=(3 * 16 * k * cols, 2 * k * nnz(h) * cols))
+        what = f"{label} halo ({k}, 4, {bw}) into ({k}, 4, {nsites}) g={g} x {nb}"
+        library, why = _view_halo_library(torch, *args, Y0,
+                                          cbs.slab_block_accumulate_from(*args, Y0.clone()))
+        _library_note(f"slab_block_accumulate_from {what} (baddbmm_ on the halo columns)", why)
+        _timed_check(torch, "slab_block_accumulate_from", what, kern, plain, is_gram, records,
+                     timed, work=(3 * 16 * k * cols, 2 * k * nnz(h) * cols), library=library)
     del eo, eplan
     torch.cuda.empty_cache()
 

@@ -355,8 +355,9 @@ def test_slab_16_byte_route_conditions():
 ])
 def test_slab_stream_launch_arguments(monkeypatch, gram, vals, g, offset, fn):
     """``_launch_stream`` at m = 96 issues one launch on its plan: the 16-byte
-    route or the 4-byte one by ``_slab_vec``, the plan's kmax, tile and grid,
-    the Gram's partials (grid, m, m) with the barrier's counter past them."""
+    route or the 4-byte one by ``_slab_vec``, the merged row map (sa, si) =
+    (k, 1), the plan's kmax, tile and grid, the Gram's partials (grid, m, m)
+    with the barrier's counter past them."""
     monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
     monkeypatch.setattr(_native, "sm_count", lambda index: H100_SMS)
     calls = []
@@ -373,7 +374,7 @@ def test_slab_stream_launch_arguments(monkeypatch, gram, vals, g, offset, fn):
     a = calls[0][2]
     assert a[:8] == (hop.data_ptr(), 4, g, nb, 1, 5, 1, 1)
     assert a[8:10] == (Src.data_ptr(), 4 * g) and a[12] == Y.data_ptr()
-    assert a[17:] == (24, 8 * g, plan.kmax, plan.tc, plan.grid)
+    assert a[17:] == (24, 8 * g, 24, 1, plan.kmax, plan.tc, plan.grid)
     if gram:
         assert G.shape == (m, m) and a[15] == G.data_ptr() and a[11] == X.data_ptr()
         assert a[16] == a[14] + 4 * plan.grid * m * m

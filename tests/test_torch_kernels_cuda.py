@@ -744,8 +744,8 @@ def test_stencil_at_m96_matches_plain(dev):
                stencil.stencil_spmm_plain(diags, offsets, Xt, with_gram=True))
     _check_all((stencil.stencil_spmm_t(diags, offsets, Xt),),
                stencil.stencil_spmm_plain(diags, offsets, Xt)[:1])
-    assert _native.launches["stencil_spmm_gram_t"] == len(stencil.f32_gram_chunks(len(offsets),
-                                                                                  WIDE))
+    assert _native.launches["stencil_spmm_gram_t"] == len(_native.row_chunks(WIDE))
+    assert _native.functions["bcg_stencil_vec_gram"] == 2  # two chunks of 48 rows
     assert _native.launches["stencil_spmm_t"] == 2
 
 
@@ -908,8 +908,9 @@ def test_halo_slab_kernel_matches_plain(dev, m, gram, vals):
 
 @pytest.mark.parametrize("k", [1, 12, 24])
 def test_halo_slab_view_kernel_matches_plain(dev, k):
-    """Row 21 on the (k, bs, ns) view against its plain version; at k = 1
-    the bits of row 20 on the same memory."""
+    """Row 21 on the (k, bs, ns) view against its plain version, one
+    ``csrc/slab_stream.cu`` launch at any k; at k = 1 the bits of row 20 on
+    the same memory."""
     g, nb = 256, 2
     hop = dirac_cbdia(4, device=dev).hops_all[3]
     Src = _field(k, 4 * 2 * g, 154, dev).reshape(k, 4, 2 * g)
@@ -921,7 +922,7 @@ def test_halo_slab_view_kernel_matches_plain(dev, k):
     cbs.slab_v_from_plain(*args, Yp)
     torch.cuda.synchronize()
     assert got.data_ptr() == Yk.data_ptr() and _relmax(Yk, Yp) < 1e-5
-    assert _native.launches["slab_block_accumulate_from"] == (2 if k == 24 else 1)
+    assert dict(_native.functions) == {"bcg_slab_stream": 1}
     if k == 1:
         Ym = Y0.clone().reshape(4, -1)
         cbs.slab_m_accumulate_from(hop, g, nb, 6, 0, Src.reshape(4, -1), Ym)
@@ -1009,7 +1010,7 @@ def test_stencil_window_kernel_matches_plain(dev, case, k):
     version: near, far and mixed diagonals, ragged n, windows that wrap at 0
     and at n, k from 1 to 96 (two 48-row launches)."""
     n, offsets = _WINDOW_CASES[case]
-    plan = stencil.stencil_mma_f32_plan(offsets, n, min(k, 64), _native.max_smem(dev.index or 0),
+    plan = stencil.stencil_mma_f32_plan(offsets, n, min(k, 32), _native.max_smem(dev.index or 0),
                                         _native.sm_count(dev.index or 0))
     if case == "all_far":
         assert not any(plan.near)
@@ -2184,7 +2185,7 @@ def test_mixed_stencil_pairs_match_plain(dev, pair, n, k, offsets):
     torch.cuda.synchronize()
     chunks = len(_native.row_chunks(k))
     assert _native.launches[f"stencil_spmm_t[{pair}]"] == chunks
-    # an f32 field's Gram runs stencil.f32_gram_chunks
+    # an f32 field's Gram runs the chunks of stencil.launch_plans
     assert _native.launches[f"stencil_spmm_gram_t[{pair}]"] == len(
         stencil.launch_plans(d, offsets, X, True))
     assert Y.dtype == X.dtype and torch.equal(Y, Y1)
@@ -2564,8 +2565,10 @@ _F32_MMA_CASES = {
 @pytest.mark.parametrize("case", sorted(_F32_MMA_CASES))
 def test_stencil_f32_gram_on_tensor_cores_matches_plain(dev, case, k, dd):
     """``stencil_spmm_gram_t`` on an f32 field with f32 or bf16 diagonals
-    (``stencil_mma_f32``, one launch per chunk of ``f32_gram_chunks``: 32-row
-    chunks from 33 rows on, the cross blocks of G from ``gram``): ragged n,
+    (one launch per chunk of ``launch_plans``: ``stencil_mma_f32`` up to 32
+    rows, ``stencil_vec_gram`` from 33 to 64 where ``vec_gram_takes``,
+    chunks of at most 64 rows above with the cross blocks of G from
+    ``gram``): ragged n,
     windows across 0 and n, far offsets that
     are not multiples of 4, more far diagonals than are loaded a step ahead.
     Y within 1e-5 of the plain version and bitwise the SpMM's (the fmaf
@@ -2576,13 +2579,16 @@ def test_stencil_f32_gram_on_tensor_cores_matches_plain(dev, case, k, dd):
     d = _t(rng.standard_normal((len(offsets), n)), dev)
     d = d.bfloat16() if dd == "bf16" else d
     X = _field(k, n, 41 + k, dev)
-    plan = stencil.stencil_mma_f32_plan(offsets, n, min(k, 64), _native.max_smem(dev.index or 0),
+    plan = stencil.stencil_mma_f32_plan(offsets, n, min(k, 32), _native.max_smem(dev.index or 0),
                                         _native.sm_count(dev.index or 0), d.element_size())
     assert plan.blocks_per_sm == 1
     name = "stencil_spmm_gram_t" + ("[bf16 coeffs]" if dd == "bf16" else "")
     _native.reset_launches()
     Y, G = stencil.stencil_spmm_gram_t(d, offsets, X)
-    assert _native.launches[name] == len(stencil.f32_gram_chunks(len(offsets), k))
+    plans = stencil.launch_plans(d, offsets, X, True)
+    assert _native.launches[name] == len(plans) == len(_native.row_chunks(k))
+    assert _native.functions["bcg_stencil_vec_gram" + ("_bf16d" if dd == "bf16" else "")] == sum(
+        stencil.vec_gram_takes(r1 - r0) for (r0, r1), _ in plans)
     Yp, Gp = stencil.stencil_spmm_plain(d, offsets, X, with_gram=True)
     torch.cuda.synchronize()
     assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
@@ -2990,52 +2996,79 @@ def test_const_hop_view_on_cm_spmm_keeps_cbs_spmm_bits(dev, which, k):
     assert torch.equal(cbs.const_block_stencil_spmm_t(*main, Xv, *extra), Y)
 
 
-# Row 2 at 64 rows a launch before its repair (the parent's stencil_mma_f32
-# on StMma<64>; H100), on the X that
+# Row 2 at 64 rows a launch (H100 80GB HBM3, 700 W), on the X that
 # test_stencil_f32_gram_at_64_rows_keeps_y_and_nears_its_contract makes on
-# the 7-point Laplacian: the sha256 (16 hex digits) of the bytes of Y, and
-# G's relative Frobenius distance from the f64 Gram of X and the f32 sums.
+# the 7-point Laplacian: the sha256 (16 hex digits) of the bytes of Y, the
+# same on every route (the SpMM's fmaf chain), and G's relative
+# Frobenius distance from the f64 Gram of X and the f32 sums on the route
+# before stencil_vec_gram (two 32-row stencil_mma_f32 launches and gram.cu's
+# cross blocks, 4.1445e-08 / 3.5907e-08; PERF.md section 6).
 _F32_GRAM_64_PINS = {
-    64: ("580dda9ab7fc46bc", 4.1585521990078676e-08),
-    128: ("9521abcca95bed05", 3.58630157097096e-08),
+    64: ("580dda9ab7fc46bc", 4.1445e-08),
+    128: ("9521abcca95bed05", 3.5907e-08),
 }
 
 
 @pytest.mark.parametrize("edge", list(_F32_GRAM_64_PINS))
 def test_stencil_f32_gram_at_64_rows_keeps_y_and_nears_its_contract(dev, edge):
     """Row 2 at k = 64 (config 5's f32 width) on the 64^3 and 128^3
-    Laplacians on the repaired route (two 32-row launches, the cross blocks
-    of G from ``gram``): Y bitwise the parent's one 64-row launch (pinned
-    checksums) and the SpMM's, G no farther than twice the parent's from the
-    f64 Gram of X and the f32 sums, its contract; a repeat bitwise."""
+    Laplacians on ``stencil_vec_gram`` (one launch): Y bitwise the route
+    before (pinned checksums) and the SpMM's, G no farther than 1.1 times
+    the route before from the f64 Gram of X and the f32 sums, its contract
+    (4.559e-08 and 3.950e-08); a repeat bitwise."""
     pin, before = _F32_GRAM_64_PINS[edge]
     op = laplacian_dia((edge,) * 3, device=dev)
     X = _t(np.random.default_rng(2240 + edge).standard_normal((64, op.n)), dev)
     _native.reset_launches()
     Y, G = stencil.stencil_spmm_gram_t(op.diags, op.offsets, X)
-    assert _native.functions == {"bcg_stencil_spmm": 2, "bcg_gram": 2}
+    assert _native.functions == {"bcg_stencil_vec_gram": 1}
     assert _sha32(Y) == pin and torch.equal(Y, stencil.stencil_spmm_t(op.diags, op.offsets, X))
-    assert _relfro(G.double(), X.double() @ Y.double().T) <= 2 * before
+    G64 = X.double() @ Y.double().T
+    assert _relfro(G.double(), G64) <= 1.1 * before
     Y2, G2 = stencil.stencil_spmm_gram_t(op.diags, op.offsets, X)
     assert torch.equal(Y2, Y) and torch.equal(G2, G)
 
 
+@pytest.mark.parametrize("fn,k", [("bcg_stencil_spmm", 33), ("bcg_stencil_spmm", 64),
+                                  ("bcg_stencil_vec_gram", 32), ("bcg_stencil_vec_gram", 65)])
+def test_stencil_f32_gram_entries_refuse_the_others_rows(dev, fn, k):
+    """An f32 field's Gram runs ``stencil_mma_f32`` (``bcg_stencil_spmm``)
+    up to 32 rows a launch and ``stencil_vec_gram`` from 33 to 64: each C
+    entry refuses the other's rows (and above 64) with an error, and writes
+    nothing."""
+    op = laplacian_dia((16,) * 3, device=dev)
+    n, nd = op.n, len(op.offsets)
+    X = _field(k, n, 2400 + k, dev)
+    Y = torch.zeros_like(X)
+    G = torch.zeros((k, k), device=dev)
+    part = torch.zeros((8, k, k), dtype=torch.float64 if "vec" in fn else torch.float32,
+                       device=dev)
+    offs = (ctypes.c_int * nd)(*(int(o) % n for o in op.offsets))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _native.launch("refusal", fn, X.device, op.diags.data_ptr(), offs, nd, X.data_ptr(),
+                       Y.data_ptr(), part.data_ptr(), G.data_ptr(), k, n, 4, 256, 8)
+    torch.cuda.synchronize()
+    assert not Y.any() and not G.any()
+
+
 @pytest.mark.parametrize("k,dtype", [(64, torch.float32), (48, torch.float32),
-                                     (64, torch.bfloat16), (40, torch.float32)])
+                                     (64, torch.bfloat16), (40, torch.float32),
+                                     (33, torch.float32)])
 def test_stencil_f32_gram_at_64_rows_matches_plain(dev, k, dtype):
     """Rows 2 and 2m above 32 rows on the 64^3 Laplacian (config 5's f32
-    route at 64 rows) against the plain version: the launches of the plan's
-    chunks (``f32_gram_chunks``) and ``gram.cu``'s cross blocks, Y within
-    1e-5 and bitwise the SpMM's, G within 1e-5 (the sums in another order);
-    at 64 rows on a field one element off a 16-byte boundary the same."""
+    route at 64 rows) against the plain version: one launch, of
+    ``stencil_vec_gram`` (``vec_gram_takes``; 33 to 64 rows),
+    Y within 1e-5 and bitwise the SpMM's, G within 1e-5 (the sums in another
+    order); at 64 rows on a field one element off a 16-byte boundary the
+    same."""
     op = laplacian_dia((64,) * 3, device=dev)
     D = op.diags.to(dtype)
     X = _field(k, op.n, 2300 + k, dev)
-    chunks = stencil.f32_gram_chunks(len(op.offsets), k)
     _native.reset_launches()
     Y, G = stencil.stencil_spmm_gram_t(D, op.offsets, X)
-    fn = "bcg_stencil_spmm" + ("_bf16d" if dtype == torch.bfloat16 else "")
-    assert len(chunks) == 2 and _native.functions[fn] == 2
+    suffix = "_bf16d" if dtype == torch.bfloat16 else ""
+    fn = ("bcg_stencil_vec_gram" if stencil.vec_gram_takes(k) else "bcg_stencil_spmm") + suffix
+    assert dict(_native.functions) == {fn: 1}
     Yp, Gp = stencil.stencil_spmm_plain(D, op.offsets, X, with_gram=True)
     assert _relmax(Y, Yp) < 1e-5 and _relfro(G, Gp) < 1e-5
     assert torch.equal(Y, stencil.stencil_spmm_t(D, op.offsets, X))
@@ -3047,6 +3080,76 @@ def test_stencil_f32_gram_at_64_rows_matches_plain(dev, k, dtype):
 
 
 # ------------------- rows 19 and 20 on csrc/slab_stream.cu
+
+
+@pytest.mark.parametrize("k", [1, 3, 12])
+@pytest.mark.parametrize("route", ["16-byte", "4-byte"])
+def test_view_slab_adds_on_slab_stream_match_plain(dev, k, route):
+    """Rows 18 and 21 on ``csrc/slab_stream.cu`` (the (k, bs, ns) view's row
+    map) against their plain versions within 1e-5: row 18 on config 4's
+    first wrap slab (``dirac_cbdia(32)``: g = 1024 x 32) and row 21 on a halo
+    of 8 blocks of 4,096 sites into the last 8 of 32^4; the 4-byte route on
+    fields one element off a 16-byte boundary. One launch each at any k; Y
+    in place; a repeat gives its bits; at k = 1 the bits of rows 19 and 20
+    on the same memory."""
+    op = dirac_cbdia(32, device=dev)
+    ns, bs = op.ns, op.bs
+    d, g, nb, mul, off, shift = op.slabs[0]
+    bw, gh = 32 ** 3, 4096
+
+    def placed(F):
+        if route == "16-byte":
+            return F
+        O = torch.empty(F.numel() + 1, device=dev)[1:].view(F.shape)
+        return O.copy_(F)
+
+    Xv = placed(_field(k, bs * ns, 2450, dev).reshape(k, bs, ns))
+    Y0 = placed(_field(k, bs * ns, 2451, dev).reshape(k, bs, ns))
+    Src = placed(_field(k, bs * bw, 2452, dev).reshape(k, bs, bw))
+    wrap = (op.hops_all[d], g, nb, mul, off, shift, Xv)
+    halo = (op.hops_all[1], gh, bw // gh, (ns - bw) // gh, 0, Src)
+    fn = "bcg_slab_stream" if route == "16-byte" else "bcg_slab_stream_scalar"
+    for name, kern, plain, merged in (
+            ("slab_block_accumulate", lambda Y: cbs.slab_block_accumulate(*wrap, Y),
+             lambda Y: cbs.slab_v_plain(*wrap, Y),
+             lambda Y: cbs.slab_m_accumulate(*wrap[:-1], Xv.reshape(bs, ns), Y)),
+            ("slab_block_accumulate_from", lambda Y: cbs.slab_block_accumulate_from(*halo, Y),
+             lambda Y: cbs.slab_v_from_plain(*halo, Y),
+             lambda Y: cbs.slab_m_accumulate_from(*halo[:-1], Src.reshape(bs, bw), Y))):
+        Yk, Yp = placed(Y0.clone()), Y0.clone()
+        _native.reset_launches()
+        assert kern(Yk).data_ptr() == Yk.data_ptr()
+        assert dict(_native.launches) == {name: 1} and dict(_native.functions) == {fn: 1}
+        plain(Yp)
+        torch.cuda.synchronize()
+        assert _relmax(Yk, Yp) < 1e-5
+        again = placed(Y0.clone())
+        kern(again)
+        assert torch.equal(again, Yk)
+        if k == 1:
+            Ym = placed(Y0.clone()).reshape(bs, ns)
+            merged(Ym)
+            assert torch.equal(Ym, Yk.reshape(bs, ns))
+
+
+def test_view_slab_add_on_the_even_odd_hop_is_row_19s(dev):
+    """Row 18 at one right-hand side on ``dirac_eo(32)``'s parity hop (the
+    even-odd CG's path, (1, 4, 2^19)): each slab add one 16-byte
+    ``slab_stream`` launch, bitwise row 19 on the same memory and within
+    1e-5 of its plain version."""
+    hop = dirac_eo(32, device=dev).hop_oe
+    X = _field(hop.bs, hop.ns, 2460, dev)
+    Y0 = _field(hop.bs, hop.ns, 2461, dev)
+    for d, g, nb, mul, off, shift in hop.slabs:
+        args = (hop.hops_all[d], g, nb, mul, off, shift)
+        Yv, Ym, Yp = (Y0.clone() for _ in range(3))
+        _native.reset_launches()
+        cbs.slab_block_accumulate(*args, X.view(1, hop.bs, hop.ns), Yv.view(1, hop.bs, hop.ns))
+        assert dict(_native.functions) == {"bcg_slab_stream": 1}
+        cbs.slab_m_accumulate(*args, X, Ym)
+        cbs.slab_plain(*args, X, Yp)
+        torch.cuda.synchronize()
+        assert torch.equal(Yv, Ym) and _relmax(Yv, Yp) < 1e-5
 
 
 def _config4_slab(dev, k, seed):

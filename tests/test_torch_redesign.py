@@ -64,15 +64,22 @@ def _far_count(offsets, n, h):
 @pytest.mark.parametrize("with_gram", [False, True])
 def test_stencil_plan_fits_and_splits_the_offsets(preset, k, with_gram):
     """Every launch of the field (48-row chunks at k = 96) gets a halo that
-    is a multiple of 4, a tile of one column a thread (with the Gram, a tile
-    of the tensor-core kernel that takes it, ``stencil_mma_f32_plan``),
-    shared memory within the cap (as the kernel counts it) and blocks an SM
-    that it holds, the near/far split of the kernel's rule, and less L2
-    traffic than one read of X per diagonal."""
+    is a multiple of 4, a tile of one column a thread (with the Gram, up to
+    32 rows a tile of the tensor-core kernel that takes it,
+    ``stencil_mma_f32_plan``, and from 33 to 64 the window kernel's Gram
+    form's, ``stencil_vec_gram_plan``), shared memory within the cap (as the
+    kernel counts it) and blocks an SM that it holds, the near/far split of
+    the kernel's rule, and less L2 traffic than one read of X per
+    diagonal."""
     n, offsets = _PRESETS[preset]
     for r0, r1 in _native.row_chunks(k):
         kc = r1 - r0
-        if with_gram:
+        if with_gram and stencil.vec_gram_takes(kc):
+            plan = stencil.stencil_vec_gram_plan(offsets, n, kc, H100_SMEM, H100_SMS)
+            assert plan.T in stencil.TILES
+            assert plan.smem_bytes == stencil.vec_gram_smem_bytes(kc, len(offsets), plan.h,
+                                                                  plan.T)
+        elif with_gram:
             plan = stencil.stencil_mma_f32_plan(offsets, n, kc, H100_SMEM, H100_SMS)
             assert plan.T in stencil.MMA_F32_TILES
             assert plan.smem_bytes == stencil.mma_f32_smem_bytes(kc, len(offsets), plan.h, plan.T)
@@ -96,14 +103,19 @@ def test_stencil_plan_fits_and_splits_the_offsets(preset, k, with_gram):
     (32, True, 128, 256, 5, 1),  # the Gram's tensor-core kernel: the widest halo
     (1, False, 128, 256, 5, 2),  # small rows: +-128 fits beside two blocks
     (48, False, 128, 256, 5, 1), # one block an SM at KMAX = 64: the widest halo
-    (64, True, 128, 128, 5, 1),  # with the Gram at 64 rows: tiles of 128 keep the halo
+    (64, True, 4, 256, 3, 1),    # the window kernel's Gram form: the (64, 64) tile's room
 ])
 def test_stencil_plan_of_the_north_star(k, with_gram, h, T, near, blocks):
-    """The SpMM's plan, and with the Gram the tensor-core kernel's
-    (``stencil_mma_f32_plan``), at (k, 128^3)."""
+    """The SpMM's plan, and with the Gram the tensor-core kernel's up to 32
+    rows (``stencil_mma_f32_plan``) and the window kernel's Gram form's
+    above (``stencil_vec_gram_plan``), at (k, 128^3)."""
     offsets = _PRESETS["lap_128^3"][1]
-    plan = (stencil.stencil_mma_f32_plan(offsets, 128 ** 3, k, H100_SMEM, H100_SMS) if with_gram
-            else stencil.stencil_plan(offsets, 128 ** 3, k, H100_SMEM, H100_SMS))
+    if with_gram and stencil.vec_gram_takes(k):
+        plan = stencil.stencil_vec_gram_plan(offsets, 128 ** 3, k, H100_SMEM, H100_SMS)
+    elif with_gram:
+        plan = stencil.stencil_mma_f32_plan(offsets, 128 ** 3, k, H100_SMEM, H100_SMS)
+    else:
+        plan = stencil.stencil_plan(offsets, 128 ** 3, k, H100_SMEM, H100_SMS)
     assert (plan.h, plan.T, sum(plan.near), plan.blocks_per_sm) == (h, T, near, blocks)
 
 
@@ -374,7 +386,16 @@ def test_host_constants_mirror_the_sources():
     assert "return T + 2 * h + (esize == 4 && k <= 32 ? 4 : 0);" in st
     assert ("return 2LL * (esize * k * static_cast<long long>(window_ld(k, h, T, esize)) +\n"
             "                dsize * static_cast<long long>(ndiag) * T);" in st)
-    assert "kStBlocksPerSm = KMAX <= 32 ? 2 : 1" in st
+    assert "kStBlocksPerSm = !WITH_GRAM && KMAX <= 32 ? 2 : 1" in st
+    assert ("  return smem_bytes(k, ndiag, h, T, 4, dsize) +\n"
+            "         4 * (ly > StGram::kScratch ? ly : StGram::kScratch);" in st)
+    assert "const long long ly = 1LL * k * (T + 4);" in st
+    assert "using StGram = VecGram<64, kStThreads>;" in st and stencil.VEC_GRAM_SCRATCH == 16384
+    assert int(re.search(r"kVecGramFlush = (\d+);", st).group(1)) == stencil.VEC_GRAM_FLUSH
+    assert int(re.search(r"kStMmaF32MaxK = (\d+);", st).group(1)) == stencil.MMA_F32_MAX_K
+    assert stencil.VEC_GRAM_ROWS == (stencil.MMA_F32_MAX_K + 1, 64)
+    assert "k <= kStMmaF32MaxK || k > 64 || part == nullptr" in st
+    assert "else if (k > kStMmaF32MaxK)  // an f32 field's 33 to 64 rows" in st
     assert int(re.search(r"kStThreads = (\d+)", st).group(1)) == stencil.THREADS
     ts = (CSRC / "spmm_tiled.cu").read_text()
     assert int(re.search(r"kMaxThreads = (\d+)", ts).group(1)) == spmm_tiled.MAX_THREADS
@@ -532,7 +553,8 @@ def _smoke():
 @pytest.mark.parametrize("case", ["dia_csr", "cbdia_merged", "cbdia_view", "bdia_view",
                                   "dia_csr_bf16_diagonals", "bdia_merged_bf16_blocks",
                                   "bdia_view_bf16_blocks", "bdia_folded_bf16_blocks",
-                                  "dia_csr_bf16_field", "slab_m", "slab_from"])
+                                  "dia_csr_bf16_field", "slab_m", "slab_from", "slab_view",
+                                  "slab_view_from"])
 def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
     """``chip_smoke.py``'s library yardsticks (a torch CSR or BSR tensor of
     the operator times the dense field) compute the wrapper's function: the
@@ -543,7 +565,10 @@ def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
     product to bf16, within one bf16 ulp of the wrapper's Y. Rows 19 and 20
     (the merged slab adds, without the Gram or ``vals``): ``baddbmm_`` of
     ``H ⊗ I_k`` on strided views of a wrap slab's blocks of
-    ``dirac_cbdia(16)``, and ``addmm_`` on a halo slab's columns."""
+    ``dirac_cbdia(16)``, and ``addmm_`` on a halo slab's columns. Rows 18
+    and 21 (the (k, bs, ns) view's): at one RHS row 19's ``baddbmm_`` on the
+    same memory (W = H), and ``baddbmm_`` of H over the right-hand sides on
+    the view's halo columns."""
     from blockcg_tpu_torch.operators import astype
     from blockcg_tpu_torch.ops import block_stencil as bsk
     from blockcg_tpu_torch.ops import const_block_stencil as cbs
@@ -561,6 +586,20 @@ def test_smoke_library_calls_compute_the_kernels_function(case, monkeypatch):
                 call, why = smoke._slab_library(torch, *slab[:6], X, Y0,
                                                 cbs.slab_m_accumulate(*slab, Y0.clone()))
                 assert why is None and call is not None
+        elif case == "slab_view":
+            Xv, Yv = X[:op.bs].reshape(1, op.bs, op.ns), Y0[:op.bs].reshape(1, op.bs, op.ns)
+            for d, g, nblocks, mul, off, shift in op.slabs:
+                slab = (op.hops_all[d], g, nblocks, mul, off, shift)
+                want = cbs.slab_block_accumulate(*slab, Xv, Yv.clone())
+                call, why = smoke._slab_library(torch, *slab, Xv.view(op.bs, op.ns),
+                                                Yv.view(op.bs, op.ns), want.view(op.bs, op.ns))
+                assert why is None and call is not None
+        elif case == "slab_view_from":
+            Srcv = torch.randn(k, op.bs, 4 * 256)
+            Yv = Y0.reshape(k, op.bs, op.ns)
+            want = cbs.slab_block_accumulate_from(op.hops_all[1], 256, 3, 5, 1, Srcv, Yv.clone())
+            call, why = smoke._view_halo_library(torch, op.hops_all[1], 256, 3, 5, 1, Srcv, Yv,
+                                                 want)
         else:
             Src = torch.randn(op.bs * k, 4 * 256)
             want = cbs.slab_m_accumulate_from(op.hops_all[1], 256, 3, 5, 1, Src, Y0.clone())
@@ -1370,15 +1409,14 @@ def test_xr_update_gram_source_mirrors_its_plan():
 # 23h and 24h (bf16 blocks) on TMA tensor boxes: plans and schedules
 
 
-@pytest.mark.parametrize("k,h,T", [(8, 128, 256), (16, 128, 256), (32, 128, 256), (48, 128, 256),
-                                   (64, 128, 128)])
+@pytest.mark.parametrize("k,h,T", [(8, 128, 256), (16, 128, 256), (32, 128, 256)])
 @pytest.mark.parametrize("dsize", [4, 2])  # f32 (row 2) or bf16 (row 2m) diagonals
 def test_stencil_mma_f32_plan_of_the_north_star(k, h, T, dsize):
     """``stencil_mma_f32_plan`` at the north star's 128^3 (the [storage]
     shape of rows 2 and 2m): 0, +-1 and +-128 from the window, +-16384 from
     L2; the shared memory as the source counts it fits the H100's 227 KB at
-    one block an SM; at 64 rows only a 128-column tile holds the 128-column
-    halo; no tile of ``MMA_F32_TILES`` with less traffic fits."""
+    one block an SM; no tile of ``MMA_F32_TILES`` with less traffic fits;
+    33 rows and more are refused (``stencil_vec_gram_plan``'s)."""
     n, offsets = _PRESETS["lap_128^3"]
     plan = stencil.stencil_mma_f32_plan(offsets, n, k, H100_SMEM, H100_SMS, dsize)
     assert (plan.h, plan.T, sum(plan.near), plan.blocks_per_sm) == (h, T, 5, 1)
@@ -1393,15 +1431,43 @@ def test_stencil_mma_f32_plan_of_the_north_star(k, h, T, dsize):
             if traffic < plan.traffic:
                 assert (stencil.mma_f32_smem_bytes(k, 7, hh, t, dsize) + stencil.MMA_STATIC_BYTES
                         > H100_SMEM)
-    with pytest.raises(ValueError, match="1 to 64 rows"):
-        stencil.stencil_mma_f32_plan(offsets, n, 65, H100_SMEM, H100_SMS, dsize)
+    with pytest.raises(ValueError, match="1 to 32 rows"):
+        stencil.stencil_mma_f32_plan(offsets, n, 33, H100_SMEM, H100_SMS, dsize)
+
+
+@pytest.mark.parametrize("k,h,near", [(33, 128, 5), (48, 4, 3), (64, 4, 3)])
+@pytest.mark.parametrize("dsize", [4, 2])  # f32 (row 2) or bf16 (row 2m) diagonals
+def test_stencil_vec_gram_plan_of_the_north_star(k, h, near, dsize):
+    """``stencil_vec_gram_plan`` at the north star's 128^3 (rows 2 and 2m
+    at 33 to 64 rows): one block an SM on ``vec_gram_smem_bytes`` (the
+    window kernel's f32 windows and coefficient tiles, then the tile of Y,
+    at least the four VecGram copies' tiles), within the H100's 227 KB; T =
+    256 and at 33 rows h = 128 (0, +-1 and +-128 from the window), from 48
+    rows h = 4 (0 and +-1: a halo of 128 no longer fits beside the tile of
+    Y); no (h, T) of ``TILES`` with less traffic per busy thread fits; 32
+    rows and fewer, and more than 64, are refused."""
+    n, offsets = _PRESETS["lap_128^3"]
+    plan = stencil.stencil_vec_gram_plan(offsets, n, k, H100_SMEM, H100_SMS, dsize)
+    assert (plan.h, plan.T, sum(plan.near), plan.blocks_per_sm) == (h, 256, near, 1)
+    assert plan.smem_bytes == stencil.vec_gram_smem_bytes(k, 7, h, 256, dsize) <= H100_SMEM
+    assert plan.smem_bytes == (stencil.smem_bytes(k, 7, h, 256, 4, dsize)
+                               + 4 * max(k * 260, stencil.VEC_GRAM_SCRATCH))
+    assert plan.traffic == pytest.approx((256 + 2 * h) / 256 + 7 - near)
+    for t in stencil.TILES:
+        for hh in (0, 4, 128, 16384):
+            traffic = (t + 2 * hh) / t + sum(min(o % n, n - o % n) > hh for o in offsets)
+            if traffic / (t / stencil.THREADS) < plan.traffic:
+                assert stencil.vec_gram_smem_bytes(k, 7, hh, t, dsize) > H100_SMEM
+    for bad in (32, 65):
+        with pytest.raises(ValueError, match="33 to 64 rows"):
+            stencil.stencil_vec_gram_plan(offsets, n, bad, H100_SMEM, H100_SMS, dsize)
 
 
 @pytest.mark.parametrize("k,n,T,offsets", [
     (32, 3000, 256, (0, 1, -1, 128, -128, 1300, -1301)),  # ragged n, misaligned far offsets
     (12, 777, 128, (-5, -1, 0, 1, 3)),
-    (48, 2048, 256, (0, 2, -2, 3, -3, 64, -64)),
-    (64, 1100, 256, (0, 1, -1, 600)),
+    (24, 2048, 256, (0, 2, -2, 3, -3, 64, -64)),
+    (32, 1100, 256, (0, 1, -1, 600)),
     (5, 300, 128, (0, 1, 299)),
 ])
 def test_stencil_mma_f32_schedule_covers_y_and_g_once(k, n, T, offsets):
@@ -1854,71 +1920,133 @@ def test_block_stencil_tma_folded_boxes_cover_each_source_once(st, sign):
         assert (src[~boxed] + g > ns).all()
 
 
-# ---------------- row 2 at 64 rows: the f32 Gram's chunks by their reads
+# ---------------- row 2 above 32 rows: the window kernel's Gram form
 
 
 @pytest.mark.parametrize("shape,k,chunks,hT", [
-    ((256, 256, 256), 64, ((0, 32), (32, 64)), (256, 256)),  # config 5's f32 route
-    ((128, 128, 128), 64, ((0, 32), (32, 64)), (128, 256)),
+    ((256, 256, 256), 64, ((0, 64),), (4, 256)),            # config 5's f32 route
+    ((128, 128, 128), 64, ((0, 64),), (4, 256)),
     ((64, 64, 64), 32, ((0, 32),), None),                    # config 3
     ((128, 128, 128), 32, ((0, 32),), (128, 256)),           # the north star
-    ((128, 128, 128), 96, ((0, 32), (32, 64), (64, 96)), (128, 256)),
+    ((128, 128, 128), 33, ((0, 33),), None),
+    ((128, 128, 128), 65, ((0, 33), (33, 65)), None),
+    ((128, 128, 128), 96, ((0, 48), (48, 96)), None),
+    ((128, 128, 128), 128, ((0, 64), (64, 128)), (4, 256)),
     ((128, 128, 128), 12, ((0, 12),), None),
 ])
 def test_f32_gram_chunks_follow_their_reads(monkeypatch, shape, k, chunks, hT):
-    """An f32 field's Gram (rows 2, 2m) runs ``f32_gram_chunks``: at 64 rows
-    on the 7-point Laplacians two launches of 32 (each row read once a
-    diagonal in one row group and once in each of two column groups, 2 x 32
-    x (7 + 2) = 576, and ``gram``'s two cross blocks 128, against one
-    launch's 64 x (2 x 7 + 4) = 1,152), at 32 rows and below one launch as
-    before (288 against 352 as two of 16), at 96 three of 32; each chunk on
-    ``stencil_mma_f32_plan``'s own plan. A bf16 field's Gram keeps
-    ``row_chunks`` (its wide route above 64 rows). ``MMA_SPLIT`` mirrors
-    ``csrc/stencil.cu`` StMma."""
+    """An f32 field's Gram (rows 2, 2m) runs ``_native.row_chunks``, chunks
+    of at most 64 rows: a chunk of 33 to 64 rows as one launch of the window
+    kernel's Gram form (``stencil_vec_gram_plan``, its f32 tiles flushed
+    every ``VEC_GRAM_FLUSH`` tiles; at 64 rows h = 4, T = 256, one block an
+    SM), 32 rows and fewer on ``stencil_mma_f32_plan``; above 64 rows the
+    cross blocks come from ``gram``; bf16 diagonals (row 2m) the same. A
+    bf16 field's Gram keeps ``row_chunks`` on ``stencil_mma_plan``."""
     monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
     monkeypatch.setattr(_native, "sm_count", lambda index: H100_SMS)
     offsets = _lap_offsets(shape)
     n = int(np.prod(shape))
-    assert stencil.f32_gram_chunks(len(offsets), k) == chunks
-    assert [stencil.MMA_SPLIT[W] for W in (8, 16, 32, 64)] == [
-        (QM, QN) for _, _, QM, QN, _, _, _ in map(_st_mma_split, (8, 16, 32, 64))]
-    if k == 64:
-        assert stencil.f32_gram_reads(7, ((0, 64),)) == 1152
-        assert stencil.f32_gram_reads(7, chunks) == 576 + 128
-    if k == 32:
-        assert stencil.f32_gram_reads(7, ((0, 32),)) == 288
-        assert stencil.f32_gram_reads(7, ((0, 16), (16, 32))) == 288 + 64
-    D = torch.empty((len(offsets), n), device="meta")
     X = torch.empty((k, n), device="meta")
-    plans = stencil.launch_plans(D, offsets, X, True)
-    assert tuple(rows for rows, _ in plans) == chunks
-    for (r0, r1), plan in plans:
-        assert plan == stencil.stencil_mma_f32_plan(tuple(offsets), n, r1 - r0, H100_SMEM,
-                                                    H100_SMS)
-        if hT is not None:
-            assert (plan.h, plan.T) == hT
+    for dt in (torch.float32, torch.bfloat16):
+        D = torch.empty((len(offsets), n), dtype=dt, device="meta")
+        plans = stencil.launch_plans(D, offsets, X, True)
+        assert tuple(rows for rows, _ in plans) == chunks == tuple(_native.row_chunks(k))
+        for (r0, r1), plan in plans:
+            kc, dsize = r1 - r0, D.element_size()
+            if 33 <= kc <= 64:
+                assert stencil.vec_gram_takes(kc)
+                assert plan == stencil.stencil_vec_gram_plan(tuple(offsets), n, kc, H100_SMEM,
+                                                              H100_SMS, dsize)
+                assert plan.blocks_per_sm == 1
+                assert plan.smem_bytes == stencil.vec_gram_smem_bytes(kc, len(offsets), plan.h,
+                                                                      plan.T, dsize)
+                if hT is not None:
+                    assert (plan.h, plan.T) == hT
+            else:
+                assert not stencil.vec_gram_takes(kc)
+                assert plan == stencil.stencil_mma_f32_plan(tuple(offsets), n, kc, H100_SMEM,
+                                                            H100_SMS, dsize)
+                if hT is not None and dt == torch.float32:
+                    assert (plan.h, plan.T) == hT
     X16 = torch.empty((k, n), dtype=torch.bfloat16, device="meta")
-    assert [rows for rows, _ in stencil.launch_plans(D.bfloat16(), offsets, X16, True)] == \
+    D16 = torch.empty((len(offsets), n), dtype=torch.bfloat16, device="meta")
+    assert [rows for rows, _ in stencil.launch_plans(D16, offsets, X16, True)] == \
         _native.row_chunks(k)
 
 
 def test_f32_gram_launches_its_chunks_and_the_cross_blocks(monkeypatch):
-    """``stencil._launch`` on an f32 field of 64 rows with the Gram: two
-    ``bcg_stencil_spmm`` launches of 32 rows (X, Y offset by 32 rows, a part
-    buffer and a G each), then ``fused.wide_gram`` on X, Y, their two
-    diagonal blocks and the plan's chunks."""
+    """``stencil._launch`` on an f32 field with the Gram: at 64 rows one
+    ``bcg_stencil_vec_gram`` launch (X, Y, a (grid, 64, 64) float64 partial
+    of one block an SM, G, the plan's h and T) and no cross blocks;
+    at 96 rows two launches of 48 rows (X, Y offset by 48 rows), then
+    ``fused.wide_gram`` on X, Y, their diagonal blocks and the chunks; at 32
+    rows one ``bcg_stencil_spmm`` launch (``stencil_mma_f32``) with a float32
+    partial."""
     monkeypatch.setattr(_native, "max_smem", lambda index: H100_SMEM)
     monkeypatch.setattr(_native, "sm_count", lambda index: H100_SMS)
     n, offsets = _PRESETS["lap_64^3"]
     D = torch.ones((len(offsets), n))
-    X = torch.zeros((64, n))
     calls, wide = [], []
     monkeypatch.setattr(_native, "launch", lambda name, fn, dev, *a: calls.append((fn, a)))
     monkeypatch.setattr(fused, "wide_gram",
                         lambda U, V, diag, chunks: wide.append((U, V, diag, chunks)) or "G")
-    Y, G = stencil._launch(D, offsets, X, True, "stencil_spmm_gram_t", (torch.float32,) * 2)
-    assert G == "G" and [fn for fn, _ in calls] == ["bcg_stencil_spmm"] * 2
-    for (fn, a), r0 in zip(calls, (0, 32)):
-        assert a[3] == X[r0:].data_ptr() and a[4] == Y[r0:].data_ptr() and a[7] == 32
+    f32 = (torch.float32,) * 2
+    X = torch.zeros((64, n))
+    Y, G = stencil._launch(D, offsets, X, True, "stencil_spmm_gram_t", f32)
+    plan = stencil.stencil_vec_gram_plan(tuple(offsets), n, 64, H100_SMEM, H100_SMS)
+    assert [fn for fn, _ in calls] == ["bcg_stencil_vec_gram"] and not wide
+    a = calls[0][1]
+    assert a[3] == X.data_ptr() and a[4] == Y.data_ptr() and a[7:] == (
+        64, n, plan.h, plan.T, min(-(-n // plan.T), H100_SMS))
+    assert a[6] == G.data_ptr() and G.shape == (64, 64) and G.dtype == torch.float32
+    calls.clear()
+    X = torch.zeros((96, n))
+    Y, G = stencil._launch(D, offsets, X, True, "stencil_spmm_gram_t", f32)
+    assert G == "G" and [fn for fn, _ in calls] == ["bcg_stencil_vec_gram"] * 2
+    for (fn, a), r0 in zip(calls, (0, 48)):
+        assert a[3] == X[r0:].data_ptr() and a[4] == Y[r0:].data_ptr() and a[7] == 48
     U, V, diag, chunks = wide[0]
-    assert U is X and V is Y and len(diag) == 2 and chunks == [(0, 32), (32, 64)]
+    assert U is X and V is Y and len(diag) == 2 and chunks == [(0, 48), (48, 96)]
+    calls.clear()
+    X = torch.zeros((32, n))
+    stencil._launch(D, offsets, X, True, "stencil_spmm_gram_t", f32)
+    assert [fn for fn, _ in calls] == ["bcg_stencil_spmm"] and calls[0][1][7] == 32
+
+
+def test_vec_gram_flush_slots_cover_the_tile_once():
+    """``csrc/stencil.cu`` flush_gram and the partial's store in numpy: the
+    four VecGram<64> copies of a 256-thread block write thread t's entry
+    (a, b), row (t mod 64) / 8 + 8a and column t mod 8 + 8b, to slot (t mod
+    64) + 64 (8a + b) of copy t / 64; thread u sums slots u + 256 j of the
+    four copies in copy order and stores slot e at row (e mod 64) / 8 + 8
+    (e / 64 / 8), column e mod 8 + 8 (e / 64 mod 8). Every entry of the
+    (64, 64) tile is one slot of one thread; each copy's entries land where
+    its own tile holds them; the sum of the copies' tiles comes back."""
+    rng = np.random.default_rng(2400)
+    tiles = rng.standard_normal((4, 64, 64))  # each copy's f32 tile of G
+    scratch = np.zeros(4 * 4096)
+    for t in range(256):
+        grp, rt, st = t // 64, (t % 64) // 8, t % 8
+        for a in range(8):
+            for b in range(8):
+                scratch[grp * 4096 + t % 64 + 64 * (8 * a + b)] = tiles[grp, rt + 8 * a,
+                                                                        st + 8 * b]
+    got = np.zeros((64, 64))
+    seen = np.zeros((64, 64), dtype=int)
+    for u in range(256):
+        for j in range(16):
+            e = u + 256 * j
+            v = 0.0
+            for c in range(4):
+                v += scratch[4096 * c + e]
+            s, ab = e % 64, e // 64
+            r, col = s // 8 + 8 * (ab // 8), s % 8 + 8 * (ab % 8)
+            got[r, col] = v
+            seen[r, col] += 1
+    assert (seen == 1).all()
+    np.testing.assert_allclose(got, tiles.sum(axis=0), rtol=1e-13, atol=1e-13)
+    src = (CSRC / "stencil.cu").read_text()
+    assert "float* mine = scratch + g.grp * 4096 + threadIdx.x % 64;" in src
+    assert "mine[64 * (8 * a + b)] = g.acc[a][b];" in src
+    assert "const float* e = scratch + threadIdx.x + kStThreads * j;" in src
+    assert "const int r = s / 8 + 8 * (ab / 8), c = s % 8 + 8 * (ab % 8);" in src

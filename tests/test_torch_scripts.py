@@ -49,7 +49,9 @@ def test_profile_summary_of_trace_events():
 
 @pytest.mark.parametrize("name,port", [
     ("void (anonymous namespace)::cbs_spmm<4, 64, true>(float const*, Diags)", True),
-    ("void (anonymous namespace)::slab_accumulate<4, 64>(float const*)", True),
+    ("void (anonymous namespace)::stencil_spmm<float, float, 64, true>(float const*, Diags)",
+     True),
+    ("void (anonymous namespace)::reduce_partials_f64(double const*, float*, int, int)", True),
     ("void (anonymous namespace)::slab_stream<4, 4, 48>(float const*, int)", True),
     ("void (anonymous namespace)::reduce_partials(float const*)", True),
     ("void (anonymous namespace)::xr_update_gram<16>(float const*, float const*)", True),

@@ -58,13 +58,17 @@ Gram) at (32, 128^3) and rows 22h, 23h and 23 (the per-site block stencil,
 bf16 blocks on either view and f32 blocks merged) on
 ``dirac_gauged_matrix(32)`` at k = 12, the ``[storage]`` shapes of
 ``chip_smoke.py``, the same way, beside rows 1x (f32 diagonals, a bf16
-field, (32, 128^3)), 1b (bf16, (32, 256^3)), row 2 at (32, 64^3) and (64,
-256^3), and the folded rows 24f (f32 and bf16 blocks) and 24fg (the fused
-Gram, and the apply followed by ``gram``), each line with its launches'
-plans; with ``--variants``, row 2 at (64, 256^3) and (32, 256^3) on each
-(h, T) of ``stencil_mma_f32`` and the routes its plan could take at 32 and
-64 rows (one fused launch, the SpMM and ``gram``, two 32-row launches and
-``gram``'s cross blocks), the plans' tiles, halos and ring depths of
+field, (32, 128^3)), 1b (bf16, (32, 256^3)), row 2 at (32, 64^3), (64,
+256^3), (64, 128^3) and (64, 64^3) and row 2m at (64, 256^3) (first a line
+each of row 2's Gram distance from its f64 contract and Y's checksum at
+(64, 64^3) and (64, 128^3) on the on-card test's X), and the folded rows
+24f (f32 and bf16 blocks) and 24fg (the fused Gram, and the apply followed
+by ``gram``), each line with its launches' plans; with ``--variants``, row
+2 at 64 rows on ``stencil_vec_gram`` built with each flush interval
+(``VEC_GRAM_FLUSHES``, probe builds, with the same distances), row 2 at
+(32, 256^3) on each (h, T) of ``stencil_mma_f32`` and the routes its plan
+could take at 32 rows (one fused launch, the SpMM and ``gram``), the
+plans' tiles, halos and ring depths of
 ``stencil_mma_f32`` and ``bs_tma`` and their probe builds with parts
 switched off. Every case prints the profiler's records of
 each kernel over its calls (``records``; ``records_cold`` beside
@@ -126,6 +130,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 
 SENTINEL = "spin_kernel"  # the kernel of torch.cuda._sleep
 
@@ -873,17 +878,35 @@ def storage_cases(torch, dev, only: str | None = None):
                lambda lap=lap, X=X: stencil.stencil_spmm_t(lap.diags, lap.offsets, X),
                bound(2 * nd * n + 4 * k * n, 2 * k * nnz), ring_plan(lap.diags, lap.offsets, X))
         del lap, X
-    for edge, kk in ((64, 32), (256, 64)):
-        if not wanted(f"row 2 stencil_spmm_gram_t ({kk}, {edge}^3)"):
+    for edge in (64, 128):  # row 2's Gram at 64 rows on the on-card test's X
+        if not wanted(f"row 2 gram contract distance (64, {edge}^3)"):
             continue
         lap = laplacian_dia((edge,) * 3, device=dev)
+        X = torch.as_tensor(np.random.default_rng(2240 + edge).standard_normal((64, lap.n)),
+                            dtype=torch.float32, device=dev)
+        Y, G = stencil.stencil_spmm_gram_t(lap.diags, lap.offsets, X)
+        G64 = X.double() @ Y.double().T
+        print(json.dumps({"case": f"row 2 gram contract distance (64, {edge}^3)",
+                          "dist": float(torch.linalg.norm(G.double() - G64)
+                                        / torch.linalg.norm(G64)),
+                          "checksums": checksums(torch, (Y,))}), flush=True)
+        del lap, X, Y, G, G64
+    for edge, kk, row in ((64, 32, "2"), (256, 64, "2"), (128, 64, "2"), (64, 64, "2"),
+                          (256, 64, "2m")):
+        name = (f"row {row} stencil_spmm_gram_t{'[bf16 coeffs]' if row == '2m' else ''} "
+                f"({kk}, {edge}^3)")
+        if not wanted(name):
+            continue
+        lap = laplacian_dia((edge,) * 3, device=dev)
+        D = lap.diags.bfloat16() if row == "2m" else lap.diags
         n, nnz = lap.n, int(torch.count_nonzero(lap.diags))
         X = torch.randn((kk, n), generator=gen, device=dev)
-        yield (f"row 2 stencil_spmm_gram_t ({kk}, {edge}^3)",
-               lambda lap=lap, X=X: stencil.stencil_spmm_gram_t(lap.diags, lap.offsets, X),
-               bound(4 * len(lap.offsets) * n + 8 * kk * n + 4 * kk * kk,
-                     2 * kk * nnz + 2 * kk * kk * n))
-        del lap, X
+        yield (name, lambda lap=lap, D=D, X=X: stencil.stencil_spmm_gram_t(D, lap.offsets, X),
+               bound(D.element_size() * len(lap.offsets) * n + 8 * kk * n + 4 * kk * kk,
+                     2 * kk * nnz + 2 * kk * kk * n),
+               "; ".join(stencil.describe(pl) for _, pl in stencil.launch_plans(
+                   D, lap.offsets, X, True)) if hasattr(stencil, "launch_plans") else None)
+        del lap, X, D
     if not wanted("row 22h block_stencil_spmm_t", "row 23h block_stencil_spmm_m_t",
                   "row 23 block_stencil_spmm_m_t", "row 24f block_stencil_spmm_m_t",
                   "row 24fg block_stencil_spmm_m_gram_t", "row 24fg via gram.cu"):
@@ -1001,16 +1024,13 @@ def _probe_lib(src: str, name: str, tmp: Path):
 
 
 def row2_wide_variants(torch, dev):
-    """Row 2 at (64, 256^3) (config 5's f32 route) and (32, 256^3) (its
-    chunks) on each (h, T) of ``stencil_mma_f32`` that fits the card, the
-    plan's marked;
-    then at (64, 256^3), (32, 256^3), (64, 128^3) and (32, 128^3) the
-    routes a plan could take: the fused launch (``stencil_mma_f32``), the
-    SpMM (``stencil_spmm_t``) followed by ``gram`` on X and the stored Y, and
-    at 64 rows two 32-row fused launches with the cross blocks of G from
-    ``gram`` (the route ``fused.wide_gram`` takes for several chunks); each
-    with its bound, checksums and one line of its G's distance from the f64
-    Gram of X and Y."""
+    """Row 2 at (32, 256^3) (config 5's f32 route cut to one
+    ``stencil_mma_f32`` launch) on each (h, T) of ``stencil_mma_f32`` that
+    fits the card, the plan's marked; then at (32, 256^3) and (32, 128^3)
+    the routes a plan could take: the fused launch (``stencil_mma_f32``) and
+    the SpMM (``stencil_spmm_t``) followed by ``gram`` on X and the stored
+    Y; each with its bound, checksums and one line of its G's distance from
+    the f64 Gram of X and Y."""
     import ctypes
 
     from blockcg_tpu_torch.ops import _native, fused, stencil
@@ -1024,31 +1044,30 @@ def row2_wide_variants(torch, dev):
         return max((4 * nd * n + 8 * k * n + 4 * k * k) / 3.35e12,
                    (2 * k * nnz + 2 * k * k * n) / 67e12) * 1e6
 
+    k = 32
     lap = laplacian_dia((256,) * 3, device=dev)
     n, nd = lap.n, len(lap.offsets)
     nnz = int(torch.count_nonzero(lap.diags))
     coffs = (ctypes.c_int * nd)(*(int(o) % n for o in lap.offsets))
     dist = sorted({min(o % n, n - o % n) for o in lap.offsets})
-    for k in (64, 32):
-        X = torch.randn((k, n), generator=gen, device=dev)
-        plan = stencil.stencil_mma_f32_plan(tuple(lap.offsets), n, k, cap, sms, 4)
-        Y = torch.empty_like(X)
-        G = torch.empty((k, k), device=dev)
-        part = torch.empty((_native.MAX_BLOCKS, k, k), device=dev)
-        for T in stencil.MMA_F32_TILES:
-            for h in sorted({0} | {-(-d // 4) * 4 for d in dist}):
-                if stencil.mma_f32_smem_bytes(k, nd, h, T) + stencil.MMA_STATIC_BYTES > cap:
-                    continue
-                mark = " (plan)" if (h, T) == (plan.h, plan.T) else ""
-                yield (f"variant row 2 stencil_mma_f32 h={h} T={T}{mark} ({k}, 256^3)",
-                       lambda h=h, T=T, k=k, X=X, Y=Y, G=G, part=part: (_native.launch(
-                           "variant", "bcg_stencil_spmm", dev, p(lap.diags), coffs, nd, p(X),
-                           p(Y), p(part), p(G), k, n, h, T,
-                           min(-(-n // T), _native.MAX_BLOCKS)), Y, G)[1:],
-                       bound(k, n, nd, nnz))
-        del X, Y, G, part
-    del lap
-    for edge, k in ((256, 64), (256, 32), (128, 64), (128, 32)):
+    X = torch.randn((k, n), generator=gen, device=dev)
+    plan = stencil.stencil_mma_f32_plan(tuple(lap.offsets), n, k, cap, sms, 4)
+    Y = torch.empty_like(X)
+    G = torch.empty((k, k), device=dev)
+    part = torch.empty((_native.MAX_BLOCKS, k, k), device=dev)
+    for T in stencil.MMA_F32_TILES:
+        for h in sorted({0} | {-(-d // 4) * 4 for d in dist}):
+            if stencil.mma_f32_smem_bytes(k, nd, h, T) + stencil.MMA_STATIC_BYTES > cap:
+                continue
+            mark = " (plan)" if (h, T) == (plan.h, plan.T) else ""
+            yield (f"variant row 2 stencil_mma_f32 h={h} T={T}{mark} ({k}, 256^3)",
+                   lambda h=h, T=T: (_native.launch(
+                       "variant", "bcg_stencil_spmm", dev, p(lap.diags), coffs, nd, p(X),
+                       p(Y), p(part), p(G), k, n, h, T,
+                       min(-(-n // T), _native.MAX_BLOCKS)), Y, G)[1:],
+                   bound(k, n, nd, nnz))
+    del X, Y, G, part, lap
+    for edge in (256, 128):
         lap = laplacian_dia((edge,) * 3, device=dev)
         n, nd = lap.n, len(lap.offsets)
         nnz = int(torch.count_nonzero(lap.diags))
@@ -1057,17 +1076,6 @@ def row2_wide_variants(torch, dev):
         routes = {"fused": lambda D=D, o=o, X=X: stencil.stencil_spmm_gram_t(D, o, X),
                   "spmm then gram.cu": lambda D=D, o=o, X=X: (lambda Y: (Y, fused.gram(X, Y)))(
                       stencil.stencil_spmm_t(D, o, X))}
-        if k == 64:
-            def split(D=D, o=o, X=X, k=k):
-                Y = torch.empty_like(X)
-                Gs = torch.empty((k, k), device=dev)
-                for r0, r1 in ((0, 32), (32, 64)):
-                    Yc, Gs[r0:r1, r0:r1] = stencil.stencil_spmm_gram_t(D, o, X[r0:r1])
-                    Y[r0:r1] = Yc
-                Gs[:32, 32:] = fused.gram(X[:32], Y[32:])
-                Gs[32:, :32] = fused.gram(X[32:], Y[:32])
-                return Y, Gs
-            routes["two 32-row launches and gram.cu"] = split
         shape = f"({k}, {edge}^3)"
         for what, fn in routes.items():
             Yr, Gr = fn()
@@ -1080,8 +1088,93 @@ def row2_wide_variants(torch, dev):
         del X, lap, routes
 
 
+# Probe builds of row 2 at 64 rows (csrc/stencil.cu launch_vec_gram<float,
+# F>, exported by a source that includes it): the f32 Gram tiles flushed to
+# the double sums every F tiles, for each F of VEC_GRAM_FLUSHES.
+VG_PROBE = r"""#include "{src}"
+extern "C" int vg_probe(const float* diags, const int* offsets, int ndiag, const float* X,
+                        float* Y, double* part, float* G, int k, long long n, int h, int T,
+                        int max_blocks, int flush, int device, cudaStream_t stream) {{
+  Diags dg{{}};
+  if (k <= kStMmaF32MaxK || k > 64 || !make_diags(&dg, offsets, ndiag, n, h))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (flush) {{
+{cases}    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+VEC_GRAM_FLUSHES = (1, 2, 4, 8, 16)  # tiles a block's f32 Gram tiles sum before a flush
+
+
+def vec_gram_variants(torch, dev, tmp: Path):
+    """Row 2 at 64 rows on ``stencil_vec_gram`` (``csrc/stencil.cu``) built
+    with each flush interval F of ``VEC_GRAM_FLUSHES`` (``VG_PROBE``), the
+    one the library is built with (``stencil.VEC_GRAM_FLUSH``) marked: first
+    one line per F of G's distance from the f64 Gram of X and the f32 sums
+    at (64, 64^3) and (64, 128^3) on the on-card test's X, then the launch
+    at (64, 256^3) with its bound."""
+    import ctypes
+
+    from blockcg_tpu_torch.ops import _native, stencil
+    from blockcg_tpu_torch.problems import laplacian_dia
+
+    idx, p = dev.index, _native.ptr
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    cases = "".join(f"    case {f}: return launch_vec_gram<float, {f}>(diags, dg, ndiag, X, Y, "
+                    "part, G, k, n, h, T, max_blocks, device, stream);\n"
+                    for f in VEC_GRAM_FLUSHES)
+    probe = _probe_lib(VG_PROBE.format(src=_native.CSRC / "stencil.cu", cases=cases), "vg_probe",
+                       tmp)
+    probe.argtypes = [P, ctypes.POINTER(I), I, P, P, P, P, I, L, I, I, I, I, I, P]
+    probe.restype = I
+
+    def launcher(lap, X, flush):
+        n, nd = lap.n, len(lap.offsets)
+        plan = stencil.stencil_vec_gram_plan(tuple(lap.offsets), n, 64, cap, sms, 4)
+        grid = min(-(-n // plan.T), plan.blocks_per_sm * sms)
+        part = torch.empty((grid, 64, 64), dtype=torch.float64, device=dev)
+        Y, G = torch.empty_like(X), torch.empty((64, 64), device=dev)
+        offs = (ctypes.c_int * nd)(*(int(o) % n for o in lap.offsets))
+
+        def run():
+            rc = probe(p(lap.diags), offs, nd, p(X), p(Y), p(part), p(G), 64, n, plan.h, plan.T,
+                       grid, flush, idx, stream)
+            if rc != 0:
+                raise RuntimeError(f"vec_gram probe F={flush} failed: {rc}")
+            return Y, G
+        return run
+
+    for edge in (64, 128):
+        lap = laplacian_dia((edge,) * 3, device=dev)
+        X = torch.as_tensor(np.random.default_rng(2240 + edge).standard_normal((64, lap.n)),
+                            dtype=torch.float32, device=dev)
+        for flush in VEC_GRAM_FLUSHES:
+            Y, G = launcher(lap, X, flush)()
+            G64 = X.double() @ Y.double().T
+            print(json.dumps({"case": f"variant row 2 vec_gram F={flush} (64, {edge}^3) gram "
+                                      "contract distance",
+                              "dist": float(torch.linalg.norm(G.double() - G64)
+                                            / torch.linalg.norm(G64)),
+                              "checksums": checksums(torch, (Y,))}), flush=True)
+        del lap, X, Y, G, G64
+    lap = laplacian_dia((256,) * 3, device=dev)
+    n, nd = lap.n, len(lap.offsets)
+    nnz = int(torch.count_nonzero(lap.diags))
+    X = torch.randn((64, n), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    bnd = max((4 * nd * n + 8 * 64 * n + 4 * 64 * 64) / 3.35e12,
+              (2 * 64 * nnz + 2 * 64 * 64 * n) / 67e12) * 1e6
+    for flush in VEC_GRAM_FLUSHES:
+        mark = " (built)" if flush == stencil.VEC_GRAM_FLUSH else ""
+        yield f"variant row 2 vec_gram F={flush}{mark} (64, 256^3)", launcher(lap, X, flush), bnd
+
+
 def storage_variants(torch, dev, tmp: Path, only: str | None = None):
-    """Row 2 at (64, 256^3) on ``row2_wide_variants``; rows 2m and 2 at (32,
+    """Row 2 at (32, 256^3) on ``row2_wide_variants`` and at 64 rows on
+    ``vec_gram_variants``; rows 2m and 2 at (32,
     128^3) on each (h, T) of ``stencil_mma_f32`` that fits the card, the
     plan's marked, then row 2m on its plan in the probe builds of
     ``F32_PROBES``; row 23h on ``dirac_gauged_matrix(32)`` at k = 12 on each
@@ -1103,11 +1196,11 @@ def storage_variants(torch, dev, tmp: Path, only: str | None = None):
 
     def wanted(*words):
         return only is None or any(re.search(only, w) for w in words)
-    if wanted("variant row 2 stencil_mma_f32 (64, 256^3)", "variant row 2 fused (64, 256^3)",
-              "variant row 2 stencil_mma_f32 (32, 256^3)",
-              "variant row 2 two 32-row launches and gram.cu (64, 256^3)",
-              "variant row 2 spmm then gram.cu (64, 256^3)"):
+    if wanted("variant row 2 stencil_mma_f32 (32, 256^3)", "variant row 2 fused (32, 256^3)",
+              "variant row 2 spmm then gram.cu (32, 256^3)"):
         yield from row2_wide_variants(torch, dev)
+    if wanted("variant row 2 vec_gram F=1 (64, 256^3)"):
+        yield from vec_gram_variants(torch, dev, tmp)
     if not wanted("variant row 2m (32, 128^3)", "variant row 2 stencil_mma_f32 (32, 128^3)",
                   "probe row 2m", "row 23h plan", "variant row 23h", "probe row 23h"):
         return

@@ -4,7 +4,9 @@ table) at the shapes ``chip_smoke.py`` times them, from torch.profiler's
 kernel records: the time the card spends in a wrapper's launches, free of
 the host's launch rate, which the CUDA-event medians of ``chip_smoke.py``
 include for kernels this short. Rows 19 and 20 also at m = 96 (config 4
-with 24 right-hand sides, ``[wide]``).
+with 24 right-hand sides, ``[wide]``); row 21 also at one right-hand side on
+the one-rank crossing of ``dirac_eo(32)``'s parity hop (the even-odd
+solve's, ``chip_smoke.py``'s ``[dist]``).
 
 Run on a machine with a card, from the root of a checkout:
 
@@ -24,9 +26,11 @@ kernels), the slab kernel's share, each kernel's records, host us per call
 and the sha256 (16 hex digits) of the outputs of one call on fresh copies of
 its inputs (Y, and G with the Gram), which a parent and a change share
 where their bits agree. ``--library`` times instead the one PyTorch call
-that computes rows 19 and 20 without the Gram or ``vals`` (``chip_smoke.py``'s
-yardsticks): ``baddbmm_`` of ``W = H ⊗ I_k`` on strided views of the wrap
-slab's blocks, and ``addmm_`` on the halo slab's columns.
+that computes rows 18-21 without the Gram or ``vals`` (``chip_smoke.py``'s
+yardsticks for rows 19 and 20): ``baddbmm_`` of ``W = H ⊗ I_k`` on strided
+views of the wrap slab's blocks (row 18 at one right-hand side: ``W = H``),
+``addmm_`` on the halo slab's columns, and for row 21 ``baddbmm_`` of H over
+the right-hand sides on the (k, bs, ns) view's halo columns.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from torch_kernel_times import (checksums, cold_us, kernel_events, l2_flush,  # 
                                 record_counts)
 
 L, K, K_WIDE = 32, 12, 24  # config 4: dirac_cbdia(32), 12 right-hand sides; [wide]: 24
-SLAB_KERNELS = ("slab_accumulate", "slab_stream")
+SLAB_KERNELS = ("slab_",)  # the slab kernels of every checkout (a name with "slab_")
 
 
 def device_us(torch, fn, reps: int, tmp: Path) -> tuple[float, float, dict[str, int]]:
@@ -63,6 +67,20 @@ def host_us(torch, fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e6 / reps
+
+
+def eo_crossing(torch, dev):
+    """(hop, g, nblocks, dst_base, halo width, ns) of the +t crossing of the
+    one-rank plan of ``dirac_eo(32)``'s parity hop ``hop_oe``
+    (``parallel.partition_cbdia``), as ``chip_smoke.py``'s ``[dist]`` takes
+    it."""
+    from blockcg_tpu_torch import parallel as par
+    from blockcg_tpu_torch.problems import dirac_eo
+
+    eplan = par.partition_cbdia(dirac_eo(L, device=dev).hop_oe, 1)
+    ns = L ** 4 // 2
+    d, o, g, nb = next(c for c in eplan.crossings if c[1] > 0)
+    return torch.tensor(eplan.hops[d], device=dev), g, nb, (ns - o) // g, o, ns
 
 
 def cases(torch, dev):
@@ -129,13 +147,22 @@ def cases(torch, dev):
                        hop4, gh, nbh, dst, 0, Srcv, Yv4),
                    lambda Srcv=Srcv: cbs.slab_block_accumulate_from(
                        hop4, gh, nbh, dst, 0, Srcv, Y0.view(K, op.bs, ns).clone()))
+            hop1, g1, nb1, dst1, bw1, ns1 = eo_crossing(torch, dev)
+            Src1 = torch.randn((1, op.bs, bw1), generator=gen, device=dev)
+            Y1 = torch.randn((1, op.bs, ns1), generator=gen, device=dev)
+            Y10 = Y1.clone()
+            yield (f"row 21 slab_block_accumulate_from (1, {op.bs}, {bw1}) into "
+                   f"(1, {op.bs}, {ns1}) g={g1} x {nb1}",
+                   lambda: cbs.slab_block_accumulate_from(hop1, g1, nb1, dst1, 0, Src1, Y1),
+                   lambda: cbs.slab_block_accumulate_from(hop1, g1, nb1, dst1, 0, Src1,
+                                                          Y10.clone()))
 
 
 def library_cases(torch, dev):
     """(name, fn, once) of the one-call PyTorch equivalents of rows 19 and
-    20 without the Gram or ``vals``, at m = 48 and 96, in place on their own
-    buffers."""
-    from blockcg_tpu_torch.problems import dirac_cbdia
+    20 without the Gram or ``vals``, at m = 48 and 96, then of rows 18 and
+    21 at the shapes ``cases`` times them, in place on their own buffers."""
+    from blockcg_tpu_torch.problems import dirac_cbdia, dirac_eo
 
     gen = torch.Generator(device=dev).manual_seed(1)
     op = dirac_cbdia(L, device=dev)
@@ -162,6 +189,36 @@ def library_cases(torch, dev):
         yield (f"library row 20 addmm_ ({m}, {bw}) into ({m}, {ns}) g={gh} x {bw // gh}",
                lambda Y=Y, Src=Src, W1=W1: Y[:, d0:d0 + cols].addmm_(W1, Src),
                lambda Y=Y: Y)
+    # Row 18 at one right-hand side (the even-odd CG's parity hop, its first
+    # slab): the merged and the (1, bs, ns) view are one memory, W = H.
+    hop = dirac_eo(L, device=dev).hop_oe
+    d, g, nb, mul, off, shift = hop.slabs[0]
+    nbk, span = hop.ns // g, mul * (nb - 1)
+    src_off = (off + shift) % nbk
+    X = torch.randn((hop.bs, hop.ns), generator=gen, device=dev)
+    Y = torch.randn((hop.bs, hop.ns), generator=gen, device=dev)
+    H = hop.hops_all[d].expand(nb, hop.bs, hop.bs)
+
+    def vblocks(F, o, bs=hop.bs):
+        return F.view(bs, nbk, g)[:, o:o + span + 1:mul].permute(1, 0, 2)
+
+    yield (f"library row 18 baddbmm_ (1, {hop.bs}, {hop.ns}) g={g} x {nb}",
+           lambda: vblocks(Y, off).baddbmm_(H, vblocks(X, src_off)), lambda: Y)
+    # Row 21: H over the right-hand sides on the view's halo columns.
+    Srcv = torch.randn((K, op.bs, bw), generator=gen, device=dev)
+    Yv = torch.randn((K, op.bs, ns), generator=gen, device=dev)
+    H4 = op.hops_all[1].expand(K, op.bs, op.bs)
+    yield (f"library row 21 baddbmm_ ({K}, {op.bs}, {bw}) into ({K}, {op.bs}, {ns}) "
+           f"g={gh} x {bw // gh}",
+           lambda: Yv[:, :, d0:d0 + cols].baddbmm_(H4, Srcv), lambda: Yv)
+    hop1, g1, nb1, dst1, bw1, ns1 = eo_crossing(torch, dev)
+    Src1 = torch.randn((1, op.bs, bw1), generator=gen, device=dev)
+    Y1 = torch.randn((1, op.bs, ns1), generator=gen, device=dev)
+    e0 = dst1 * g1
+    yield (f"library row 21 baddbmm_ (1, {op.bs}, {bw1}) into (1, {op.bs}, {ns1}) "
+           f"g={g1} x {nb1}",
+           lambda: Y1[:, :, e0:e0 + nb1 * g1].baddbmm_(hop1.expand(1, op.bs, op.bs), Src1),
+           lambda: Y1)
 
 
 def main() -> None:
