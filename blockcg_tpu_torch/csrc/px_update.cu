@@ -1,9 +1,10 @@
 // The SBCGrQ iteration tail: Pn = M1 W + rho P and Xn = X + C P in one pass;
-// and, on the same schedule (QR), the shifted-block SBCGrQ tail Q = M2 Q1,
-// Pn = Q + rho P.
+// and, on the same schedule, the shifted-block SBCGrQ tail (QR) Q = M2 Q1,
+// Pn = Q + rho P, and that tail with the solution's update (QR with X) Q =
+// M2 Q1, Pn = Q + rho P, Xn = X + C P.
 //
-// Replaces the Pallas kernels blockcg_tpu/ops/fused.py px_update (:588) and
-// qr_p_update (:730).
+// Replaces the Pallas kernels blockcg_tpu/ops/fused.py px_update (:588),
+// qr_p_update (:730) and qr_px_update (:795).
 //
 // Bound: bytes, five field passes (read W, P, X; write Pn, Xn), 1,342 MB at
 // (32, 2,097,152), 0.40 ms at 3.35 TB/s, with 3 k^2 FMAs a column beside
@@ -43,7 +44,8 @@
 // read and Pn and Xn written four bf16 at a time. The FMAs and their order
 // are those of the f32 kernel. That route takes bf16 fields above 64 rows;
 // up to 64 rows they run px_update_mma on the tensor cores (below). QR mode takes bf16 fields too
-// (bcg_qr_p_update_bf16): Q is rounded where it is stored mid-tile, while pn
+// (bcg_qr_p_update_bf16; with X bcg_qr_px_update_bf16): Q is rounded where
+// it is stored mid-tile, while pn
 // goes on from the unrounded f32 sums, so Pn = Q + rho P adds rho P to the
 // f32 Q (the reference's q + rho p) and is rounded once, at its own store.
 //
@@ -61,14 +63,28 @@
 // 1.15 ms at (48, 32^4) and two launches at 96 rows, each reading all of Q1
 // and P.
 //
+// QR with X (qr_px_update): QR's stages and Q store with px's C table, X
+// loads and Xn stores; xn = X[r, i], then fmaf over c of C[r, c] P[c, i],
+// from the same shared read of P as pn's rho terms. Q, Pn and Xn are the
+// fmaf chains of the one-thread-a-column kernel this replaced
+// (csrc/qr_p_update.cu, deleted), so they keep its bits. Bound: bytes, six
+// field passes (read Q1, P, X; write Q, Pn, Xn), 1,611 MB at (32,
+// 2,097,152) in f32 (0.48 ms), with 3 k^2 FMAs a column beside them (0.19
+// ms). One launch takes up to 128 rows; the kernel it replaced held KMAX =
+// 64 sums a column in each of three register arrays, read one 4-byte element
+// of Q1 or P per coefficient column, and ran two launches at 96 rows, each
+// reading all of Q1 and P. It takes f32 fields, and bf16 ones above 64 rows
+// (px_update_mma's QR-with-X mode takes them up to 64).
+//
 // In place: Pn may be P (on a launch that covers all rows) and Xn may be X
 // (the solver donates both); with QR, Q may be Q1 and Pn P (one launch): Q
 // is stored mid-tile, after every stage holding Q1's rows of the tile has
-// been copied. A block copies all stages of its input tile before it
-// writes the tile's columns, the thread that writes Xn[r, i] has read X[r,
-// i] first, the copies in flight meanwhile are of its later tiles' columns,
-// and no block reads columns that another block writes; the field pointers
-// are therefore not __restrict__.
+// been copied; with QR and X, Q1, P and X all three (one launch). A block
+// copies all stages of its input tile before it writes the tile's columns,
+// the thread that writes Xn[r, i] has read X[r, i] first, the copies in
+// flight meanwhile are of its later tiles' columns, and no block reads
+// columns that another block writes; the field pointers are therefore not
+// __restrict__.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -80,24 +96,26 @@ namespace {
 template <int R>
 constexpr int kPxBlocksPerSm = R <= 8 ? 2 : 1;
 
-// E: the field element (float or bf16). QR: W is Q1, M1 is M2, Xn receives
-// Q; C and X are unused.
-template <typename E, int R, bool QR>
+// E: the field element (float or bf16). QR: W is Q1 and M1 is M2, and Q
+// receives M2 Q1 (else Q is unused); XN: C, X and Xn are read and written
+// (else unused). px_update: XN alone; qr_p_update: QR alone; qr_px_update:
+// both.
+template <typename E, int R, bool QR, bool XN>
 __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
     px_update_kernel(const float* __restrict__ M1, const E* W, const float* __restrict__ Rho,
-                     const E* P, const float* __restrict__ C, const E* X, E* Pn, E* Xn, int k,
-                     int kin, long long n, int kc, bool vec) {
+                     const E* P, const float* __restrict__ C, const E* X, E* Q, E* Pn, E* Xn,
+                     int k, int kin, long long n, int kc, bool vec) {
   extern __shared__ __align__(16) float smem[];  // sA (2kin x 8R) | sC (kin x 8R) | stages
   constexpr int kRows = 8 * R;
   const int nin = 2 * kin;
   float* sA = smem;
   float* sC = sA + nin * kRows;
-  E* sB = reinterpret_cast<E*>(sC + (QR ? 0 : kin * kRows));
+  E* sB = reinterpret_cast<E*>(sC + (XN ? kin * kRows : 0));
   for (int e = threadIdx.x; e < nin * kRows; e += kUpThreads) {
     const int c = e / kRows, r = e % kRows;
     sA[e] = r >= k ? 0.f : (c < kin ? M1[r * kin + c] : Rho[r * kin + c - kin]);
   }
-  if constexpr (!QR) {
+  if constexpr (XN) {
     for (int e = threadIdx.x; e < kin * kRows; e += kUpThreads) {
       const int c = e / kRows, r = e % kRows;
       sC[e] = r >= k ? 0.f : C[r * kin + c];
@@ -122,7 +140,7 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
       if (j == 0) {
 #pragma unroll
         for (int a = 0; a < R; ++a) pn[a][0] = pn[a][1] = pn[a][2] = pn[a][3] = 0.f;
-        if constexpr (!QR) load_rows4<E, R>(xn, X, r0, k, n, i, vec);
+        if constexpr (XN) load_rows4<E, R>(xn, X, r0, k, n, i, vec);
       }
       const int c0 = j * kc, c1 = min(c0 + kc, nin), cw = min(c1, kin);
       const E* sb = sB + buf * kc * kUpTile + 4 * lane;
@@ -139,20 +157,20 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
           pn[a][3] = fmaf(m[a], b.w, pn[a][3]);
         }
       }
-      if (QR && c0 < kin && c1 >= kin) store_rows4<E, R>(Xn, pn, r0, k, n, i, vec);  // Q
+      if (QR && c0 < kin && c1 >= kin) store_rows4<E, R>(Q, pn, r0, k, n, i, vec);
 #pragma unroll 2
       for (int c = c0 > kin ? c0 : kin; c < c1; ++c) {  // P's rows: pn += rho P, xn += C P
         const float4 b = load4(sb + (c - c0) * kUpTile);
         float m[R], cc[R];
         load_rows<R>(m, sA + c * kRows + r0);
-        if constexpr (!QR) load_rows<R>(cc, sC + (c - kin) * kRows + r0);
+        if constexpr (XN) load_rows<R>(cc, sC + (c - kin) * kRows + r0);
 #pragma unroll
         for (int a = 0; a < R; ++a) {
           pn[a][0] = fmaf(m[a], b.x, pn[a][0]);
           pn[a][1] = fmaf(m[a], b.y, pn[a][1]);
           pn[a][2] = fmaf(m[a], b.z, pn[a][2]);
           pn[a][3] = fmaf(m[a], b.w, pn[a][3]);
-          if constexpr (!QR) {
+          if constexpr (XN) {
             xn[a][0] = fmaf(cc[a], b.x, xn[a][0]);
             xn[a][1] = fmaf(cc[a], b.y, xn[a][1]);
             xn[a][2] = fmaf(cc[a], b.z, xn[a][2]);
@@ -162,7 +180,7 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
       }
       if (j == nk - 1) {  // the tile's last stage: store the outputs
         store_rows4<E, R>(Pn, pn, r0, k, n, i, vec);
-        if constexpr (!QR) store_rows4<E, R>(Xn, xn, r0, k, n, i, vec);
+        if constexpr (XN) store_rows4<E, R>(Xn, xn, r0, k, n, i, vec);
       }
     }
     __syncthreads();  // every read of this stage's buffer is done: refill it
@@ -174,33 +192,36 @@ __global__ void __launch_bounds__(kUpThreads, kPxBlocksPerSm<R>)
   cp_async_wait<0>();
 }
 
-template <typename E, int R, bool QR>
+template <typename E, int R, bool QR, bool XN>
 cudaError_t launch(const float* M1, const E* W, const float* Rho, const E* P, const float* C,
-                   const E* X, E* Pn, E* Xn, int k, int kin, long long n, int kc, int device,
-                   cudaStream_t stream) {
-  auto kernel = px_update_kernel<E, R, QR>;
-  const size_t smem = update_smem_bytes(k, kin, kc, QR ? 2 : 3, false, sizeof(E));
+                   const E* X, E* Q, E* Pn, E* Xn, int k, int kin, long long n, int kc,
+                   int device, cudaStream_t stream) {
+  auto kernel = px_update_kernel<E, R, QR, XN>;
+  const size_t smem = update_smem_bytes(k, kin, kc, XN ? 3 : 2, false, sizeof(E));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long ntiles = (n + kUpTile - 1) / kUpTile;
   int grid = 0;
   err = persistent_grid(kernel, kUpThreads, smem, device, ntiles, ntiles, &grid);
   if (err != cudaSuccess) return err;
-  const bool vec = n % kVec<E> == 0 && aligned16(W) && aligned16(P) && (QR || aligned16(X)) &&
-                   aligned16(Pn) && aligned16(Xn);
-  kernel<<<grid, kUpThreads, smem, stream>>>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, vec);
+  const bool vec = n % kVec<E> == 0 && aligned16(W) && aligned16(P) && aligned16(Pn) &&
+                   (!XN || (aligned16(X) && aligned16(Xn))) && (!QR || aligned16(Q));
+  kernel<<<grid, kUpThreads, smem, stream>>>(M1, W, Rho, P, C, X, Q, Pn, Xn, k, kin, n, kc,
+                                             vec);
   return cudaGetLastError();
 }
 
-template <typename E>
-int px_update_entry(const float* M1, const E* W, const float* Rho, const E* P, const float* C,
-                    const E* X, E* Pn, E* Xn, int k, int kin, long long n, int kc, int device,
-                    cudaStream_t stream) {
+// The streaming launch of a k-row update (k <= 128) contracting over kin
+// rows, by the mode (QR, XN) of px_update_kernel.
+template <typename E, bool QR, bool XN>
+int update_entry(const float* M1, const E* W, const float* Rho, const E* P, const float* C,
+                 const E* X, E* Q, E* Pn, E* Xn, int k, int kin, long long n, int kc, int device,
+                 cudaStream_t stream) {
   if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-#define BCG_PX(R) \
-  return launch<E, R, false>(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream)
+#define BCG_PX(R)                                                                            \
+  return launch<E, R, QR, XN>(M1, W, Rho, P, C, X, Q, Pn, Xn, k, kin, n, kc, device, stream)
   switch (rows_per_warp(k)) {
     case 1: BCG_PX(1);
     case 2: BCG_PX(2);
@@ -212,28 +233,6 @@ int px_update_entry(const float* M1, const E* W, const float* Rho, const E* P, c
     default: return cudaErrorInvalidValue;
   }
 #undef BCG_PX
-}
-
-template <typename E>
-int qr_p_update_entry(const float* M2, const E* Q1, const float* Rho, const E* P, E* Q, E* Pn,
-                      int k, int kin, long long n, int kc, int device, cudaStream_t stream) {
-  if (n < 1 || k < 1 || kin < k || kc < 1 || kc > 2 * kin) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-#define BCG_QR(R)                                                                            \
-  return launch<E, R, true>(M2, Q1, Rho, P, nullptr, nullptr, Pn, Q, k, kin, n, kc, device, \
-                            stream)
-  switch (rows_per_warp(k)) {
-    case 1: BCG_QR(1);
-    case 2: BCG_QR(2);
-    case 4: BCG_QR(4);
-    case 6: BCG_QR(6);
-    case 8: BCG_QR(8);
-    case 12: BCG_QR(12);
-    case 16: BCG_QR(16);
-    default: return cudaErrorInvalidValue;
-  }
-#undef BCG_QR
 }
 
 // ---- bf16 fields on the tensor cores (px_update_mma: row 9 in bf16, k <= 64)
@@ -263,11 +262,26 @@ int qr_p_update_entry(const float* M2, const E* Q1, const float* Rho, const E* P
 // ms there on an H100 (its FMAs on the lifted fields at the f32 kernel's
 // issue); this one 2.1 ms (PERF.md section 6).
 //
-// In place: Pn may be P and Xn may be X (the solver donates both). A block
-// stages the whole tile (all of W, P and X at its columns) before it writes
-// the tile's columns, the TMA copies in flight meanwhile are of its later
-// tiles' columns, and no block reads columns another block writes; the field
-// pointers are therefore not __restrict__.
+// QR with X (QR, bcg_qr_px_update_mma: row 13b, qr_px_update on bf16
+// fields up to 64 rows): Q1 takes W's place and [M2 rho] [M1 rho]'s; C and
+// X stay. For each fragment pair all of Q1's k-steps run first; Q is then
+// rounded once from the f32 sums and stored straight from the fragments (a
+// lane's two columns in one 4-byte store: no tile of Q, so the plan and the
+// shared bytes are px mode's), and P's k-steps go on from the same,
+// unrounded f32 sums, so Pn = Q_f32 + rho P (the reference's q + rho p on
+// bf16 fields) is rounded once at its own store; one ldmatrix.trans of P
+// feeds rho and C as in px mode. Bound: bytes, six field passes, 604 MB at
+// (48, 32^4) (0.18 ms at 3.35 TB/s), against 3 k^2 FMAs a column in f32
+// (0.21 ms at 67 TFLOP/s) for the one-thread-a-column kernel it replaced
+// (csrc/qr_p_update.cu, deleted), which took 1.79 ms there on an H100 80GB
+// HBM3 at 700 W (PERF.md section 6).
+//
+// In place: Pn may be P and Xn may be X (the solver donates both), and with
+// QR, Q may be Q1. A block stages the whole tile (all of W, P and X at its
+// columns) before it writes the tile's columns (Q's mid-tile), the TMA
+// copies in flight meanwhile are of its later tiles' columns, and no block
+// reads columns another block writes; the field pointers are therefore not
+// __restrict__.
 
 // Shared bytes of a launch: `stages` stages of W's and P's tiles (W rows
 // each) and X's (round8(k) rows), the bf16 tile of Pn, C's three pieces at
@@ -279,14 +293,15 @@ __host__ __device__ inline long long px_mma_smem_bytes(int k, int W, int T, int 
 }
 
 // W: the outputs' width (16, 32, 64: k padded). tw, tp, tx: tensor maps of
-// W, P and X (vec; unused otherwise).
-template <int W>
+// W, P and X (vec; unused otherwise). QR: Wf is Q1, M1 is M2, and Q
+// receives M2 Q1 (else Q is unused).
+template <int W, bool QR>
 __global__ void __launch_bounds__(kUpThreads, 1)
     px_update_mma(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tp,
                   const __grid_constant__ CUtensorMap tx, const float* __restrict__ M1,
                   const bf16* Wf, const float* __restrict__ Rho, const bf16* P,
-                  const float* __restrict__ C, const bf16* X, bf16* Pn, bf16* Xn, int k,
-                  long long n, int T, int stages, bool vec) {
+                  const float* __restrict__ C, const bf16* X, bf16* Q, bf16* Pn, bf16* Xn,
+                  int k, long long n, int T, int stages, bool vec) {
   constexpr int MT = W / 16;      // 16-row tiles of the outputs, and k-steps of each field
   constexpr int CG = 8 / MT;      // warps a row tile
   constexpr bool kCs = W == 64;   // C's fragments from shared memory
@@ -372,7 +387,7 @@ __global__ void __launch_bounds__(kUpThreads, 1)
     for (int pair = cg; pair < T / 16; pair += CG) {
       float pa[2][4] = {}, xa[2][4] = {};
 #pragma unroll
-      for (int ks = 0; ks < MT; ++ks) {  // W's rows: Pn += M1 W
+      for (int ks = 0; ks < MT; ++ks) {  // W's rows: Pn += M1 W (with QR, Q = M2 Q1)
         unsigned b[4];  // fragment 2 pair (k 0-7, 8-15), then 2 pair + 1
         ldsm_x4_trans(b, sb + swz(16 * ks + brow, 16 * pair + bcol, W));
 #pragma unroll
@@ -380,6 +395,24 @@ __global__ void __launch_bounds__(kUpThreads, 1)
           mma_bf16(pa[0], a[ks][piece], b[0], b[1]);
           mma_bf16(pa[1], a[ks][piece], b[2], b[3]);
         }
+      }
+      if constexpr (QR) {  // Q rounded once and stored; pa goes on unrounded
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * rg + g + 8 * h;
+            const long long i = t * T + 16 * pair + 8 * f + 2 * tq;
+            if (r >= k || i >= n) continue;
+            const __nv_bfloat162 v = __floats2bfloat162_rn(pa[f][2 * h], pa[f][2 * h + 1]);
+            bf16* out = Q + r * n + i;
+            if (vec) {  // n % 8 == 0 and i even: the pair lies in the row
+              *reinterpret_cast<__nv_bfloat162*>(out) = v;
+            } else {
+              out[0] = __low2bfloat16(v);
+              if (i + 1 < n) out[1] = __high2bfloat16(v);
+            }
+          }
       }
 #pragma unroll
       for (int ks = 0; ks < MT; ++ks) {  // P's rows, read once: Pn += rho P, Xn = C P
@@ -439,11 +472,11 @@ __global__ void __launch_bounds__(kUpThreads, 1)
   }
 }
 
-template <int W>
+template <int W, bool QR>
 cudaError_t launch_px_mma(const float* M1, const bf16* Wf, const float* Rho, const bf16* P,
-                          const float* C, const bf16* X, bf16* Pn, bf16* Xn, int k, long long n,
-                          int T, int stages, int device, cudaStream_t stream) {
-  auto kernel = px_update_mma<W>;
+                          const float* C, const bf16* X, bf16* Q, bf16* Pn, bf16* Xn, int k,
+                          long long n, int T, int stages, int device, cudaStream_t stream) {
+  auto kernel = px_update_mma<W, QR>;
   const size_t smem = px_mma_smem_bytes(k, W, T, stages);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -452,7 +485,7 @@ cudaError_t launch_px_mma(const float* M1, const bf16* Wf, const float* Rho, con
   err = persistent_grid(kernel, kUpThreads, smem, device, ntiles, ntiles, &grid);
   if (err != cudaSuccess) return err;
   const bool vec = tma_ok(Wf, n) && tma_ok(P, n) && tma_ok(X, n) && aligned16(Pn) &&
-                   aligned16(Xn);
+                   aligned16(Xn) && (!QR || aligned16(Q));
   CUtensorMap tw{}, tp{}, tx{};
   if (vec) {
     err = make_tmap(&tw, Wf, n, k);
@@ -460,27 +493,31 @@ cudaError_t launch_px_mma(const float* M1, const bf16* Wf, const float* Rho, con
     if (err == cudaSuccess) err = make_tmap(&tx, X, n, k);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, kUpThreads, smem, stream>>>(tw, tp, tx, M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T,
-                                             stages, vec);
+  kernel<<<grid, kUpThreads, smem, stream>>>(tw, tp, tx, M1, Wf, Rho, P, C, X, Q, Pn, Xn, k, n,
+                                             T, stages, vec);
   return cudaGetLastError();
 }
 
-// The tensor-core launch of a k-row px_update (1 <= k <= 64) at its width:
-// W = 16, 32 or 64. T (128 to 512) and stages come from ops/fused.py
-// px_update_mma_plan.
+// The tensor-core launch of a k-row px_update (1 <= k <= 64; with QR
+// qr_px_update) at its width: W = 16, 32 or 64. T (128 to 512) and stages
+// come from ops/fused.py px_update_mma_plan.
+template <bool QR>
 int px_update_mma_entry(const float* M1, const bf16* Wf, const float* Rho, const bf16* P,
-                        const float* C, const bf16* X, bf16* Pn, bf16* Xn, int k, long long n,
-                        int T, int stages, int device, cudaStream_t stream) {
+                        const float* C, const bf16* X, bf16* Q, bf16* Pn, bf16* Xn, int k,
+                        long long n, int T, int stages, int device, cudaStream_t stream) {
   if (n < 1 || k < 1 || k > 64 || T < 128 || T > 512 || T % 128 != 0 || stages < 2 ||
       stages > kRingMaxStages)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (k <= 16)
-    return launch_px_mma<16>(M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
+    return launch_px_mma<16, QR>(M1, Wf, Rho, P, C, X, Q, Pn, Xn, k, n, T, stages, device,
+                                 stream);
   if (k <= 32)
-    return launch_px_mma<32>(M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
-  return launch_px_mma<64>(M1, Wf, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
+    return launch_px_mma<32, QR>(M1, Wf, Rho, P, C, X, Q, Pn, Xn, k, n, T, stages, device,
+                                 stream);
+  return launch_px_mma<64, QR>(M1, Wf, Rho, P, C, X, Q, Pn, Xn, k, n, T, stages, device,
+                               stream);
 }
 
 }  // namespace
@@ -492,7 +529,8 @@ extern "C" int bcg_px_update(const float* M1, const float* W, const float* Rho,
                              const float* P, const float* C, const float* X, float* Pn,
                              float* Xn, int k, int kin, long long n, int kc, int device,
                              cudaStream_t stream) {
-  return px_update_entry(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream);
+  return update_entry<float, false, true>(M1, W, Rho, P, C, X, nullptr, Pn, Xn, k, kin, n, kc,
+                                          device, stream);
 }
 
 // The same on bf16 fields W, P, X, Pn and Xn; M1, rho and C stay f32.
@@ -500,7 +538,8 @@ extern "C" int bcg_px_update_bf16(const float* M1, const bf16* W, const float* R
                                   const bf16* P, const float* C, const bf16* X, bf16* Pn,
                                   bf16* Xn, int k, int kin, long long n, int kc, int device,
                                   cudaStream_t stream) {
-  return px_update_entry(M1, W, Rho, P, C, X, Pn, Xn, k, kin, n, kc, device, stream);
+  return update_entry<bf16, false, true>(M1, W, Rho, P, C, X, nullptr, Pn, Xn, k, kin, n, kc,
+                                         device, stream);
 }
 
 // Q, Pn (k, n); M2, rho k x kin (row stride kin); Q1, P (kin, n). kc: stacked
@@ -509,14 +548,36 @@ extern "C" int bcg_px_update_bf16(const float* M1, const bf16* W, const float* R
 extern "C" int bcg_qr_p_update(const float* M2, const float* Q1, const float* Rho,
                                const float* P, float* Q, float* Pn, int k, int kin,
                                long long n, int kc, int device, cudaStream_t stream) {
-  return qr_p_update_entry(M2, Q1, Rho, P, Q, Pn, k, kin, n, kc, device, stream);
+  return update_entry<float, true, false>(M2, Q1, Rho, P, nullptr, nullptr, Q, Pn, nullptr, k,
+                                          kin, n, kc, device, stream);
 }
 
 // The same on bf16 fields Q1, P, Q and Pn; M2 and rho stay f32.
 extern "C" int bcg_qr_p_update_bf16(const float* M2, const bf16* Q1, const float* Rho,
                                     const bf16* P, bf16* Q, bf16* Pn, int k, int kin,
                                     long long n, int kc, int device, cudaStream_t stream) {
-  return qr_p_update_entry(M2, Q1, Rho, P, Q, Pn, k, kin, n, kc, device, stream);
+  return update_entry<bf16, true, false>(M2, Q1, Rho, P, nullptr, nullptr, Q, Pn, nullptr, k,
+                                         kin, n, kc, device, stream);
+}
+
+// Q, Pn, Xn, X (k, n); M2, rho, C k x kin (row stride kin); Q1, P (kin, n).
+// kc: stacked input rows a stage copies (ops/fused.py qr_px_update_plan). Xn
+// may equal X; Q may equal Q1 and Pn P when k == kin.
+extern "C" int bcg_qr_px_update(const float* M2, const float* Q1, const float* Rho,
+                                const float* P, const float* C, const float* X, float* Q,
+                                float* Pn, float* Xn, int k, int kin, long long n, int kc,
+                                int device, cudaStream_t stream) {
+  return update_entry<float, true, true>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, kc, device,
+                                         stream);
+}
+
+// The same on bf16 fields Q1, P, X, Q, Pn and Xn; M2, rho and C stay f32.
+extern "C" int bcg_qr_px_update_bf16(const float* M2, const bf16* Q1, const float* Rho,
+                                     const bf16* P, const float* C, const bf16* X, bf16* Q,
+                                     bf16* Pn, bf16* Xn, int k, int kin, long long n, int kc,
+                                     int device, cudaStream_t stream) {
+  return update_entry<bf16, true, true>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, kin, n, kc, device,
+                                        stream);
 }
 
 // The same on bf16 fields on the tensor cores (px_update_mma), k <= 64: Pn =
@@ -527,5 +588,18 @@ extern "C" int bcg_px_update_mma(const float* M1, const bf16* W, const float* Rh
                                  const bf16* P, const float* C, const bf16* X, bf16* Pn,
                                  bf16* Xn, int k, long long n, int T, int stages, int device,
                                  cudaStream_t stream) {
-  return px_update_mma_entry(M1, W, Rho, P, C, X, Pn, Xn, k, n, T, stages, device, stream);
+  return px_update_mma_entry<false>(M1, W, Rho, P, C, X, nullptr, Pn, Xn, k, n, T, stages,
+                                    device, stream);
+}
+
+// qr_px_update on bf16 fields on the tensor cores (px_update_mma, QR with X),
+// k <= 64: Q = M2 Q1, Pn = Q + rho P (on the unrounded f32 Q) and Xn = X + C
+// P, M2, rho and C f32 k x k. T and stages come from ops/fused.py
+// px_update_mma_plan. Q may equal Q1, Pn P and Xn X.
+extern "C" int bcg_qr_px_update_mma(const float* M2, const bf16* Q1, const float* Rho,
+                                    const bf16* P, const float* C, const bf16* X, bf16* Q,
+                                    bf16* Pn, bf16* Xn, int k, long long n, int T, int stages,
+                                    int device, cudaStream_t stream) {
+  return px_update_mma_entry<true>(M2, Q1, Rho, P, C, X, Q, Pn, Xn, k, n, T, stages, device,
+                                   stream);
 }

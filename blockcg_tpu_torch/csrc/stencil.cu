@@ -58,7 +58,7 @@
 // Gram from its f32 accumulator. Without the Gram (rows 1b and 1x) a bf16
 // field runs stencil_ring below, the reference's ring of planes cut to fit
 // an SM, where its plan finds a stride that takes every offset, else
-// stencil_spmm.
+// stencil_spmm; so does an f32 field on bf16 diagonals (row 1m).
 //
 // Mixed pairs (the reference's gate takes bf16 or f32 for the diagonals and
 // the field independently): bcg_stencil_spmm_bf16d takes bf16 diagonals with
@@ -386,9 +386,10 @@ cudaError_t launch_vec_gram(const ED* diags, const Diags& dg, int ndiag, const f
   return cudaGetLastError();
 }
 
-// ---- a bf16 field without the Gram on a ring of planes (stencil_ring)
+// ---- the DIA stencil without the Gram on a ring of planes (stencil_ring)
 //
-// Rows 1b and 1x (bf16 X and Y; bf16 or f32 diagonals), the reference's
+// Rows 1b and 1x (bf16 X and Y; bf16 or f32 diagonals) and 1m (f32 X and
+// Y, bf16 diagonals; and row 1, f32 diagonals, where its plan sends it), the reference's
 // ring schedule (blockcg_tpu/ops/stencil_ring.py) cut to fit an SM. Each
 // offset decomposes as o = m S + r with |r| <= h and |m| <= M, S a stride
 // that divides n (at (32, 256^3) S = 65,536, h = 256: 0, +-1 and +-256 are
@@ -419,11 +420,19 @@ cudaError_t launch_vec_gram(const ED* diags, const Diags& dg, int ndiag, const f
 // Consumers: thread t computes the patch's columns 4t .. 4t + 3 for the R
 // rows of its group, the sums in registers, each term added with fmaf in the
 // order d = 0..ndiag-1 from operands lifted exactly to f32 (stencil_spmm's
-// chain, so Y keeps its bits), Y rounded to bf16 and stored 8 bytes a row.
-// X comes from the slots in 8-byte reads where the shift h + r is a multiple
-// of 4, else in 4-byte reads of the aligned words holding the four values
-// (two for an even shift, three for an odd one), one warp-uniform branch a
-// diagonal.
+// chain, so Y keeps its bits), Y stored in the field's element, 8 bytes a
+// row on bf16, 16 on f32. One warp-uniform branch a diagonal on the shift
+// h + r mod 4 picks the slot reads: on bf16 an 8-byte read where the shift
+// is a multiple of 4, else 4-byte reads of the aligned words holding the
+// four values (two for an even shift, three for an odd one); on f32 a
+// 16-byte read where it is a multiple of 4, two 8-byte reads for an even
+// shift, and a 4-byte, an 8-byte and a 4-byte read for an odd one.
+//
+// Element of the field (EX, beside the diagonals' ED): a slot holds R rows of
+// P + 2h elements of EX, so an f32 slot holds half the rows a bf16 one does
+// in the same bytes: R = 8 or 16 rows on bf16, 4 or 8 on f32. The 3-D view
+// of X takes boxes of EX, and a row starts on a 16-byte boundary (n % 1,024
+// == 0 from the plan).
 //
 // The host plan (ops/stencil.py stencil_ring_plan) picks S, h, M, R and the
 // planes an item walks (enough items to fill the SMs, the ring's refills
@@ -432,7 +441,10 @@ cudaError_t launch_vec_gram(const ED* diags, const Diags& dg, int ndiag, const f
 // wider than the boxes take, a ragged or unaligned field) to stencil_spmm.
 // Traffic at (32, 256^3) on bf16 diagonals: X (P + 2h) / P = 1.5 times (R =
 // 16 rows of 32), the diagonals once per row group: about 2.1 GB of
-// L2->SM copies against stencil_spmm's 5 X = 5.4 GB.
+// L2->SM copies against stencil_spmm's 5 X = 5.4 GB. Row 1m at (32, 128^3):
+// X 1.25 times (R = 8 f32 rows of a 40 KB slot, four slots and two 14 KB
+// coefficient buffers in 189 KB), the diagonals once per row group: about
+// 0.45 GB against the window kernel's 5 X = 1.34 GB.
 //
 // Bound: bytes, 2,382 MB at (32, 256^3) with bf16 diagonals (0.711 ms at
 // 3.35 TB/s), 327 MB at (32, 128^3) with f32 diagonals (0.098 ms). On an
@@ -457,10 +469,10 @@ struct RingMaps {
 __host__ __device__ inline long long ring_round128(long long b) { return (b + 127) / 128 * 128; }
 __host__ __device__ inline int ring_span(int h) { return kRingCols + 2 * h; }
 
-// Bytes of a slot of R rows (rounded up to 128, a box's alignment) and of a
-// coefficient buffer of dsize-byte elements.
-__host__ __device__ inline long long ring_slot_bytes(int R, int h) {
-  return ring_round128(2LL * R * ring_span(h));
+// Bytes of a slot of R rows of esize-byte elements (rounded up to 128, a
+// box's alignment) and of a coefficient buffer of dsize-byte elements.
+__host__ __device__ inline long long ring_slot_bytes(int R, int h, int esize) {
+  return ring_round128(1LL * esize * R * ring_span(h));
 }
 __host__ __device__ inline long long ring_coef_bytes(int ndiag, int dsize) {
   return ring_round128(1LL * dsize * ndiag * kRingCols);
@@ -470,8 +482,8 @@ __host__ __device__ inline long long ring_coef_bytes(int ndiag, int dsize) {
 // align the boxes and 128 past the last buffer, which an odd shift's last
 // 4-byte read may touch; mirrored by ops/stencil.py ring_smem_bytes.
 __host__ __device__ inline long long ring_smem_bytes(int R, int h, int slots, int ndiag,
-                                                     int dsize) {
-  return slots * ring_slot_bytes(R, h) + 2 * ring_coef_bytes(ndiag, dsize) + 256;
+                                                     int dsize, int esize) {
+  return slots * ring_slot_bytes(R, h, esize) + 2 * ring_coef_bytes(ndiag, dsize) + 256;
 }
 
 // The item's patch, first row, first plane and planes: items run patch
@@ -524,11 +536,29 @@ __device__ __forceinline__ void ring_quad(float (&x)[4], const bf16* p) {
   }
 }
 
+// Four consecutive f32 of a staged row from element 4 q + SH (p: the
+// 16-byte aligned element 4 q): one 16-byte read, two 8-byte reads, or a
+// 4-byte, an 8-byte and a 4-byte read, none past element 4 q + 7.
+template <int SH>
+__device__ __forceinline__ void ring_quad(float (&x)[4], const float* p) {
+  if constexpr (SH == 0) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+  } else if constexpr (SH == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p + 2);
+    const float2 b = *reinterpret_cast<const float2*>(p + 4);
+    x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+  } else {
+    const float2 b = *reinterpret_cast<const float2*>(p + SH + 1);
+    x[0] = p[SH]; x[1] = b.x; x[2] = b.y; x[3] = p[SH + 3];
+  }
+}
+
 // One diagonal's terms for the thread's R x 4 sums: all R rows' reads first,
 // then the FMAs (coefficient c[e] for column e).
-template <int R, int SH>
+template <int R, int SH, typename EX>
 __device__ __forceinline__ void ring_diag(float (&acc)[R][4], const float (&c)[4],
-                                          const bf16* xs, int ld) {
+                                          const EX* xs, int ld) {
   float x[R][4];
 #pragma unroll
   for (int r = 0; r < R; ++r) ring_quad<SH>(x[r], xs + r * ld);
@@ -541,25 +571,26 @@ __device__ __forceinline__ void ring_diag(float (&acc)[R][4], const float (&c)[4
 // The producer warp's share of stage q: the windows of the item's planes v0
 // .. v1 into their slots (by TMA, or by the lanes where a window wraps) and
 // the coefficients of plane s into buffer q % 2.
-template <int R, typename ED>
+template <int R, typename ED, typename EX>
 __device__ __forceinline__ void ring_produce(const RingMaps& maps, const Ring& rg,
-                                             const RingItem& a, const bf16* X, char* slots,
+                                             const RingItem& a, const EX* X, char* slots,
                                              char* coefs, int s, int v0, int v1, unsigned q,
                                              unsigned long long* bar, int lane) {
   const int span = ring_span(rg.h);
-  const int sbytes = static_cast<int>(ring_slot_bytes(R, rg.h));
+  const int sbytes = static_cast<int>(ring_slot_bytes(R, rg.h, sizeof(EX)));
   unsigned tx = static_cast<unsigned>(sizeof(ED)) * rg.ndiag * kRingCols;
   bool copied = false;
   for (int v = v0; v <= v1; ++v) {
     const long long w0 = ring_window(rg, a, v);
     if (w0 >= 0 && w0 + span <= rg.n) {
-      tx += 2u * R * span;
+      tx += static_cast<unsigned>(sizeof(EX)) * R * span;
       continue;
     }
-    bf16* dst = reinterpret_cast<bf16*>(slots + ((v + rg.M) % rg.slots) * sbytes);
-    const int q8 = span / 8;  // 16-byte chunks a row: w0 and n are multiples of 8
-    for (int e = lane; e < R * q8; e += 32) {
-      const int r = e / q8, c = 8 * (e - r * q8);
+    EX* dst = reinterpret_cast<EX*>(slots + ((v + rg.M) % rg.slots) * sbytes);
+    constexpr int kv = kVec<EX>;  // elements of a 16-byte chunk
+    const int qv = span / kv;     // chunks a row: w0 and n are multiples of 8
+    for (int e = lane; e < R * qv; e += 32) {
+      const int r = e / qv, c = kv * (e - r * qv);
       long long j = w0 + c;
       if (j < 0) j += rg.n;
       if (j >= rg.n) j -= rg.n;
@@ -588,16 +619,16 @@ __device__ __forceinline__ void ring_produce(const RingMaps& maps, const Ring& r
   }
 }
 
-// R rows a work item (8 or 16); ED: the diagonals' element. Warps 0-7
-// consume, warp 8 produces.
-template <typename ED, int R>
+// R rows a work item (8 or 16 on bf16, 4 or 8 on f32); ED: the diagonals'
+// element, EX: the field's. Warps 0-7 consume, warp 8 produces.
+template <typename ED, typename EX, int R>
 __global__ void __launch_bounds__(kRingThreads + 32, 1)
-    stencil_ring(const __grid_constant__ RingMaps maps, const Ring rg, const bf16* __restrict__ X,
-                 bf16* __restrict__ Y) {
+    stencil_ring(const __grid_constant__ RingMaps maps, const Ring rg, const EX* __restrict__ X,
+                 EX* __restrict__ Y) {
   extern __shared__ __align__(16) float smem[];  // slots | 2 coefficient buffers
   __shared__ unsigned long long full[2], empty[2];
   const int span = ring_span(rg.h);
-  const int sbytes = static_cast<int>(ring_slot_bytes(R, rg.h));
+  const int sbytes = static_cast<int>(ring_slot_bytes(R, rg.h, sizeof(EX)));
   const int cbytes = static_cast<int>(ring_coef_bytes(rg.ndiag, sizeof(ED)));
   char* slots = reinterpret_cast<char*>(smem) + ((128 - (smem_u32(smem) & 127)) & 127);
   char* coefs = slots + rg.slots * sbytes;
@@ -621,8 +652,8 @@ __global__ void __launch_bounds__(kRingThreads + 32, 1)
             mbar_wait(&empty[(q - 1) & 1], ((q - 1) >> 1) & 1);
         }
         __syncwarp();
-        ring_produce<R, ED>(maps, rg, a, X, slots, coefs, s, s == 0 ? -rg.M : s + rg.M,
-                                   s + rg.M, q, &full[q & 1], lane);
+        ring_produce<R, ED, EX>(maps, rg, a, X, slots, coefs, s, s == 0 ? -rg.M : s + rg.M,
+                                s + rg.M, q, &full[q & 1], lane);
       }
     }
   } else {  // consumers
@@ -646,7 +677,7 @@ __global__ void __launch_bounds__(kRingThreads + 32, 1)
           const int p = rg.h + rg.r[d] + 4 * t;  // >= 0: |r| <= h
           int sl = s0 + m + rg.M;  // the slot of plane s + m
           if (sl >= rg.slots) sl -= rg.slots;
-          const bf16* xs = reinterpret_cast<const bf16*>(slots + sl * sbytes) + (p & ~3);
+          const EX* xs = reinterpret_cast<const EX*>(slots + sl * sbytes) + (p & ~3);
           switch (p & 3) {  // (h + r) mod 4: uniform across the block
             case 0: ring_diag<R, 0>(acc, c, xs, span); break;
             case 1: ring_diag<R, 1>(acc, c, xs, span); break;
@@ -708,14 +739,14 @@ inline bool make_ring(Ring* rg, const int* offsets, int ndiag, int k, long long 
   return true;
 }
 
-template <typename ED, int R>
-cudaError_t launch_ring(const ED* diags, const Ring& rg, const bf16* X, bf16* Y, int max_blocks,
+template <typename ED, typename EX, int R>
+cudaError_t launch_ring(const ED* diags, const Ring& rg, const EX* X, EX* Y, int max_blocks,
                         int device, cudaStream_t stream) {
   RingMaps maps{};
   const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(rg.g),
                                static_cast<cuuint64_t>(rg.n / rg.g),
                                static_cast<cuuint64_t>(rg.k)};
-  const cuuint64_t xstrides[2] = {2ULL * rg.g, 2ULL * rg.n};
+  const cuuint64_t xstrides[2] = {sizeof(EX) * rg.g, sizeof(EX) * rg.n};
   const cuuint32_t xbox[3] = {static_cast<cuuint32_t>(rg.g),
                               static_cast<cuuint32_t>(ring_span(rg.h) / rg.g),
                               static_cast<cuuint32_t>(R)};
@@ -723,16 +754,18 @@ cudaError_t launch_ring(const ED* diags, const Ring& rg, const bf16* X, bf16* Y,
                                static_cast<cuuint64_t>(rg.ndiag)};
   const cuuint64_t dstrides[2] = {256ULL * sizeof(ED), static_cast<cuuint64_t>(rg.n) * sizeof(ED)};
   const cuuint32_t dbox[3] = {256, kRingCols / 256, static_cast<cuuint32_t>(rg.ndiag)};
-  cudaError_t err = encode_tmap(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, X, xdims, xstrides,
-                                xbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  cudaError_t err = encode_tmap(&maps.x,
+                                sizeof(EX) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                3, X, xdims, xstrides, xbox, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err == cudaSuccess)
     err = encode_tmap(&maps.d,
                       sizeof(ED) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                       3, diags, ddims, dstrides, dbox, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
-  auto kernel = stencil_ring<ED, R>;
-  const size_t smem = ring_smem_bytes(R, rg.h, rg.slots, rg.ndiag, sizeof(ED));
+  auto kernel = stencil_ring<ED, EX, R>;
+  const size_t smem = ring_smem_bytes(R, rg.h, rg.slots, rg.ndiag, sizeof(ED), sizeof(EX));
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int grid = 0;
@@ -742,19 +775,22 @@ cudaError_t launch_ring(const ED* diags, const Ring& rg, const bf16* X, bf16* Y,
   return cudaGetLastError();
 }
 
-template <typename ED>
-int ring_entry(const ED* diags, const int* offsets, int ndiag, const bf16* X, bf16* Y, int k,
+// R: 8 or 16 rows on a bf16 field, 4 or 8 on an f32 one (the same slot
+// bytes).
+template <typename ED, typename EX>
+int ring_entry(const ED* diags, const int* offsets, int ndiag, const EX* X, EX* Y, int k,
                long long n, long long S, int h, int M, int R, int segs, int max_blocks,
                int device, cudaStream_t stream) {
+  constexpr int lo = sizeof(EX) == 2 ? 8 : 4;  // the narrower of the two row tiles
   Ring rg{};
-  if (max_blocks < 1 || (R != 8 && R != 16) ||
+  if (max_blocks < 1 || (R != lo && R != 2 * lo) ||
       !make_ring(&rg, offsets, ndiag, k, n, S, h, M, R, segs) || !aligned16(X) ||
       !aligned16(Y) || !aligned16(diags))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return R == 8 ? launch_ring<ED, 8>(diags, rg, X, Y, max_blocks, device, stream)
-                : launch_ring<ED, 16>(diags, rg, X, Y, max_blocks, device, stream);
+  return R == lo ? launch_ring<ED, EX, lo>(diags, rg, X, Y, max_blocks, device, stream)
+                 : launch_ring<ED, EX, 2 * lo>(diags, rg, X, Y, max_blocks, device, stream);
 }
 
 // ---- bf16 fields with the Gram on the tensor cores (stencil_mma)
@@ -2210,6 +2246,24 @@ extern "C" int bcg_stencil_ring_bf16x(const float* diags, const int* offsets, in
                                       const bf16* X, bf16* Y, int k, long long n, long long S,
                                       int h, int M, int R, int segs, int max_blocks, int device,
                                       cudaStream_t stream) {
+  return ring_entry(diags, offsets, ndiag, X, Y, k, n, S, h, M, R, segs, max_blocks, device,
+                    stream);
+}
+
+// An f32 field (X and Y) on bf16 diagonals (row 1m): R is 4 or 8 rows.
+extern "C" int bcg_stencil_ring_bf16d(const bf16* diags, const int* offsets, int ndiag,
+                                      const float* X, float* Y, int k, long long n, long long S,
+                                      int h, int M, int R, int segs, int max_blocks, int device,
+                                      cudaStream_t stream) {
+  return ring_entry(diags, offsets, ndiag, X, Y, k, n, S, h, M, R, segs, max_blocks, device,
+                    stream);
+}
+
+// The same on f32 diagonals (row 1).
+extern "C" int bcg_stencil_ring(const float* diags, const int* offsets, int ndiag,
+                                const float* X, float* Y, int k, long long n, long long S, int h,
+                                int M, int R, int segs, int max_blocks, int device,
+                                cudaStream_t stream) {
   return ring_entry(diags, offsets, ndiag, X, Y, k, n, S, h, M, R, segs, max_blocks, device,
                     stream);
 }

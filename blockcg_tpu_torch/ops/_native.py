@@ -365,14 +365,16 @@ def library() -> ctypes.CDLL:
     lib.bcg_mm_update_gram_mma.argtypes = [P, P, P, P, P, P, I, L, I, I, I, I, P]
     lib.bcg_mm2_update_gram_mma.argtypes = [P, P, P, P, P, P, P, I, L, I, I, I, I, P]
     lib.bcg_px_update_mma.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, P]
+    lib.bcg_qr_px_update_mma.argtypes = [P, P, P, P, P, P, P, P, P, I, L, I, I, I, P]
     for fn in (lib.bcg_gram_bf16, lib.bcg_mm_update_bf16, lib.bcg_mm_update_gram_mma,
-               lib.bcg_mm2_update_gram_mma, lib.bcg_px_update_mma):
+               lib.bcg_mm2_update_gram_mma, lib.bcg_px_update_mma, lib.bcg_qr_px_update_mma):
         fn.restype = I
     for fn in ("bcg_stencil_spmm_bf16d", "bcg_stencil_spmm_bf16x", "bcg_stencil_vec_gram",
                "bcg_stencil_vec_gram_bf16d"):
         getattr(lib, fn).argtypes = lib.bcg_stencil_spmm.argtypes
         getattr(lib, fn).restype = I
-    for fn in (lib.bcg_stencil_ring_bf16, lib.bcg_stencil_ring_bf16x):
+    for fn in (lib.bcg_stencil_ring, lib.bcg_stencil_ring_bf16, lib.bcg_stencil_ring_bf16d,
+               lib.bcg_stencil_ring_bf16x):
         fn.argtypes = [P, IP, I, P, P, I, L, L, I, I, I, I, I, I, P]
         fn.restype = I
     for fn in (lib.bcg_stencil_mma_cols_bf16, lib.bcg_stencil_mma_cols_bf16x):

@@ -14,7 +14,7 @@ Counterpart of the main-path kernels of ``blockcg_tpu/ops/fused.py``:
 - ``qr_p_update(M2, Q1, rho, P)``     Q = M2 Q1, Pn = Q + rho P
                                                            (``csrc/px_update.cu``)
 - ``qr_px_update(M2, Q1, rho, P, C, X)`` Q = M2 Q1, Pn = Q + rho P, Xn = X + C P
-                                                           (``csrc/qr_p_update.cu``)
+                                                           (``csrc/px_update.cu``)
 - ``cheb_step(R, Z, D, AZ, c1, c2)``  D' = c1 D + c2 (R - AZ), Z' = Z + D'
                                                            (``csrc/cheb_step.cu``)
 
@@ -53,17 +53,15 @@ still reads a donated input fails on the CPU as it would on the card. Column
 i of every output depends only on column i of the inputs, which is what makes
 the kernels' in-place writes safe.
 
-Width: a kernel launch of the one-thread-a-column kernel (``qr_px_update``)
-holds at most 64 output rows in registers, and ``xr_update_gram`` takes the
-Gram of at most 64 rows a launch. A wider field runs as one launch per chunk
-of output rows (``_chunks``, ``xr_update_gram_plan``: 64 rows, or 32, 16 or
-8 where the staged k-column coefficients would pass the card's shared
-memory), each contracting over all k input rows; a fused Gram then takes its
-diagonal blocks from the chunks' launches and the rest from ``gram`` on the
-stored output (``wide_gram``, laid out by ``gram_blocks``). A donated output
-whose chunks read rows that an earlier chunk would overwrite is written to a
-fresh buffer first and copied over. A field of at most 64 rows is one
-launch, as it always was.
+Width: ``xr_update_gram`` takes the Gram of at most 64 rows a launch, and
+the streaming updates at most 128 output rows. A wider field runs as one
+launch per chunk of output rows (``xr_update_gram_plan``, ``_update_plan``:
+64 rows, or 32, 16 or 8 where the staged k-column coefficients would pass
+the card's shared memory), each contracting over all k input rows; a fused
+Gram then takes its diagonal blocks from the chunks' launches and the rest
+from ``gram`` on the stored output (``wide_gram``, laid out by
+``gram_blocks``). A donated output whose chunks read rows that an earlier
+chunk would overwrite is written to a fresh buffer first and copied over.
 
 ``gram`` streams tiles of [U; V] (U alone when U is V, whose Gram is then
 exactly symmetric) through shared memory, one launch up to 96 rows
@@ -75,17 +73,20 @@ tensor cores, their tiles streamed through a ring of TMA tensor copies
 (``update_gram_mma_plan``: the coefficients in three exact bf16 pieces, the
 Gram of the stored Y exactly symmetric), and ``px_update`` up to 64 rows
 (``px_update_mma_plan``: [M1 rho] and C in three pieces, one read of P
-feeding both outputs).
+feeding both outputs), and ``qr_px_update`` up to 64 rows on the same
+kernel (``px_update_mma_plan``: [M2 rho] and C, Q rounded from the f32
+sums and stored from the fragments, Pn going on from those sums).
 
 ``mm_update``, ``mm_update_gram``, ``mm2_update_gram``, ``px_update``,
-``qr_p_update`` and ``xr_update_gram`` run streaming kernels that stage their
-input tiles in shared memory and split the output rows across warps
-(``csrc/mm_update.cu``, ``update_gram.cuh`` through ``mm_update_gram.cu`` and
-``mm2_update_gram.cu``, ``px_update.cu`` for the next two, ``xr_update.cu``
-on 64 rows a launch with their Gram): one launch reads the inputs once up to
-96 rows (128 where they fit), so a donated operand takes its output in place
-(``mm_update_plan``, ``mm_update_gram_plan``, ``mm2_update_gram_plan``,
-``px_update_plan``, ``qr_p_update_plan``, ``xr_update_gram_plan``).
+``qr_p_update``, ``qr_px_update`` and ``xr_update_gram`` run streaming
+kernels that stage their input tiles in shared memory and split the output
+rows across warps (``csrc/mm_update.cu``, ``update_gram.cuh`` through
+``mm_update_gram.cu`` and ``mm2_update_gram.cu``, ``px_update.cu`` for the
+next three, ``xr_update.cu`` on 64 rows a launch with their Gram): one
+launch reads the inputs once up to 96 rows (128 where they fit), so a
+donated operand takes its output in place (``mm_update_plan``,
+``mm_update_gram_plan``, ``mm2_update_gram_plan``, ``px_update_plan``,
+``qr_p_update_plan``, ``qr_px_update_plan``, ``xr_update_gram_plan``).
 """
 
 from __future__ import annotations
@@ -174,20 +175,6 @@ def _flat(name, F, *others):
             raise ValueError(f"{name}: fields {tuple(F.shape)} and {tuple(G.shape)}")
     k = F.shape[0]
     return [None if G is None else G.view(k, -1) for G in (F, *others)]
-
-
-def _chunks(k: int, nmat: int, with_gram: bool, name: str, device):
-    """Row chunks of a k-row coefficient update: 64 rows a launch, fewer
-    where a launch's shared memory would pass the card's cap: ``nmat`` staged
-    coefficient tables of max(k, KMAX) x KMAX floats (csrc/common.cuh
-    coeff_cols) and, with a Gram, a KMAX x (THREADS + 1) tile. A fused Gram
-    is assembled by these same chunks (``wide_gram``)."""
-    cap = _native.max_smem(device.index)
-    for w in (64, 32, 16, 8):
-        if (nmat * max(k, w) + with_gram * (_native.THREADS + 1)) * w * 4 <= cap:
-            return _native.row_chunks(k, w)
-    raise ValueError(f"{name}: {k} right-hand sides leave no room for the "
-                     f"coefficients in {cap} bytes of shared memory")
 
 
 RING_MAX_STAGES = 8  # csrc/mma.cuh kRingMaxStages: stages of a TMA ring
@@ -318,8 +305,8 @@ PX_MMA_C_BYTES = 3 * 64 * 128  # C's three pieces in shared memory at the 64-row
 
 
 def px_update_mma_smem_bytes(k: int, T: int, stages: int) -> int:
-    """Shared bytes of one bf16 ``px_update`` launch on the tensor cores
-    (``csrc/px_update.cu`` px_mma_smem_bytes): ``stages`` stages of W's and
+    """Shared bytes of one bf16 ``px_update`` or ``qr_px_update`` launch on
+    the tensor cores (``csrc/px_update.cu`` px_mma_smem_bytes): ``stages`` stages of W's and
     P's (k, T) tiles, each padded to the update's width, and of X's, the
     tile of Pn, all in swizzled boxes; C's three pieces at the 64-row width;
     and the alignment."""
@@ -331,11 +318,13 @@ def px_update_mma_smem_bytes(k: int, T: int, stages: int) -> int:
 @functools.lru_cache(maxsize=64)
 def px_update_mma_plan(k: int, n: int, smem_cap: int, sm_count: int) -> RingPlan:
     """The bf16 ``px_update`` launch on k <= 64 rows (``csrc/px_update.cu``
-    px_update_mma, one block an SM): the widest tile of ``UPDATE_MMA_TILES``
+    px_update_mma, one block an SM), and ``qr_px_update``'s (its QR mode,
+    which stores Q from its fragments and stages nothing more): the widest tile of ``UPDATE_MMA_TILES``
     that leaves every SM a tile (waived at 128 columns) and whose ring,
     beside the tile of Pn (and C's pieces at 64 rows), holds two stages,
     with as many stages as fit up to ``UPDATE_MMA_MAX_STAGES``, the rule of
-    ``update_gram_mma_plan``, whose kernel this one extends."""
+    ``update_gram_mma_plan``, whose kernel this one extends. At (48, 32^4)
+    that is 256 columns in two stages."""
     if not 1 <= k <= PX_MMA_MAX_K:
         raise ValueError(f"px_update_mma: one launch takes 1 to {PX_MMA_MAX_K} rows, got {k}")
     w = next(w for w in UPDATE_MMA_WIDTHS if k <= w)
@@ -492,6 +481,16 @@ def qr_p_update_plan(k: int, device, esize: int = 4) -> UpdatePlan:
     place; wider, row chunks, each reading all of Q1 and P. ``esize``: bytes
     of a field element (2 on bf16 fields)."""
     return _update_plan("qr_p_update", k, 2, 2, 0, _native.max_smem(device.index), True, esize)
+
+
+def qr_px_update_plan(k: int, device, esize: int = 4) -> UpdatePlan:
+    """The launches of ``qr_px_update`` on k rows (``csrc/px_update.cu``, QR
+    with X: f32 fields, and bf16 above 64 rows): up to 128 rows one launch
+    where its three coefficient tables leave room (m = 96 in two stages a
+    tile), which reads Q1 and P once, so donated Q1, P and X take Q, Pn and
+    Xn in place; wider, row chunks, each reading all of Q1 and P and its own
+    rows of X. ``esize``: bytes of a field element (2 on bf16 fields)."""
+    return _update_plan("qr_px_update", k, 2, 3, 0, _native.max_smem(device.index), True, esize)
 
 
 def px_update_plan(k: int, device, esize: int = 4) -> UpdatePlan:
@@ -987,17 +986,24 @@ def qr_px_update(M2: torch.Tensor, Q1: torch.Tensor, rho: torch.Tensor,
     k, n = Q1.shape
     for M, what in ((M2, "M2"), (rho, "rho"), (C, "C")):
         _native.check_kk(M, k, f"qr_px_update {what}")
-    chunks = _chunks(k, 3, False, "qr_px_update", Q1.device)
+    p = _native.ptr
+    if dt == torch.bfloat16 and k <= PX_MMA_MAX_K:  # the tensor cores, one launch
+        idx = Q1.device.index
+        mma = px_update_mma_plan(k, n, _native.max_smem(idx), _native.sm_count(idx))
+        Q, Pn, Xn = (Q1, P, X) if donate else (torch.empty_like(F) for F in (Q1, P, X))
+        _native.launch("qr_px_update[bf16]", "bcg_qr_px_update_mma", Q1.device, p(M2), p(Q1),
+                       p(rho), p(P), p(C), p(X), p(Q), p(Pn), p(Xn), k, n, mma.T, mma.stages)
+        return Q.view(shape), Pn.view(shape), Xn.view(shape)
+    plan = qr_px_update_plan(k, Q1.device, Q1.element_size())
     # Every chunk reads all of Q1 and P; Xn only reads its own rows of X.
-    direct = donate and len(chunks) == 1
+    direct = donate and plan.in_place
     Q, Pn = (Q1, P) if direct else (torch.empty_like(Q1), torch.empty_like(P))
     Xn = X if donate else torch.empty_like(X)
-    p = _native.ptr
     name = _native.variant("qr_px_update", "bcg_qr_px_update", dt)
-    for r0, r1 in chunks:
-        _native.launch(*name, Q1.device, p(M2[r0:r1]),
-                       p(Q1), p(rho[r0:r1]), p(P), p(C[r0:r1]), p(X[r0:r1]), p(Q[r0:r1]),
-                       p(Pn[r0:r1]), p(Xn[r0:r1]), r1 - r0, k, n, _native.nblocks(n))
+    for r0, r1 in plan.chunks:
+        _native.launch(*name, Q1.device, p(M2[r0:r1]), p(Q1), p(rho[r0:r1]), p(P),
+                       p(C[r0:r1]), p(X[r0:r1]), p(Q[r0:r1]), p(Pn[r0:r1]), p(Xn[r0:r1]),
+                       r1 - r0, k, n, plan.kc)
     if donate and not direct:
         Q, Pn = Q1.copy_(Q), P.copy_(Pn)
     return Q.view(shape), Pn.view(shape), Xn.view(shape)

@@ -41,13 +41,13 @@ in three exact bf16 pieces, the far diagonals read from L2 a step ahead
 (``stencil_mma_f32_plan``); from 33 to 64 rows the window kernel with its
 Gram in f32 register tiles that go into double sums every few tiles
 (``stencil_vec_gram_plan``). Either way its Y is the SpMM's, bit for bit.
-A bf16
-field's launch without the Gram runs the ring of planes (``stencil_ring``,
-the reference's ``stencil_ring.py`` schedule cut to fit an SM: each offset
-o = m S + r for a stride S dividing n, a work item walking the planes of a
-patch of columns with the planes it reads in shared memory, each copied
-once by TMA) where ``stencil_ring_plan`` finds a stride and its traffic is
-below the window's (``launch_plans``), else the window kernel.
+A launch without the Gram, on any pair, runs the ring of planes
+(``stencil_ring``, the reference's ``stencil_ring.py`` schedule cut to fit
+an SM: each offset o = m S + r for a stride S dividing n, a work item
+walking the planes of a patch of columns with the planes it reads in shared
+memory, each copied once by TMA) where ``stencil_ring_plan`` finds a stride
+and its traffic is below the window's (``launch_plans``), else the window
+kernel; an f32 field's slots hold half the rows a bf16 field's do.
 ``_native.functions`` counts the launches by route.
 """
 
@@ -348,11 +348,13 @@ def stencil_mma_f32_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int
     return best
 
 
-# A bf16 field without the Gram on a ring of planes (csrc/stencil.cu
+# The stencil without the Gram on a ring of planes (csrc/stencil.cu
 # stencil_ring): one block an SM, 8 consumer warps of 4 columns a thread and
 # one producer warp.
 RING_COLS = 1024  # csrc/stencil.cu kRingCols: P, the columns of a patch
-RING_ROWS = (8, 16)  # rows of a work item, the consumers' register tile
+# Rows of a work item, the consumers' register tile, by the bytes of the
+# field's element: a slot of f32 rows holds half as many.
+RING_ROWS = {2: (8, 16), 4: (4, 8)}
 RING_MAX_SLOTS = 8  # kRingMaxSlots: 2M + 2
 RING_BOX = 256  # the largest dimension of a TMA box
 RING_STATIC_BYTES = 4 * 8  # its static shared memory: four mbarriers
@@ -400,21 +402,23 @@ def ring_decompose(offsets, n: int, S: int) -> list[tuple[int, int]]:
     return out
 
 
-def ring_smem_bytes(rows: int, h: int, slots: int, ndiag: int, dsize: int) -> int:
+def ring_smem_bytes(rows: int, h: int, slots: int, ndiag: int, dsize: int,
+                    esize: int = 2) -> int:
     """Shared bytes of a ring launch (``csrc/stencil.cu`` ring_smem_bytes):
-    ``slots`` slots of ``rows`` bf16 rows of P + 2h columns and two (ndiag,
-    P) coefficient buffers of ``dsize``-byte elements (each rounded up to 128
-    bytes), 128 bytes to align the boxes and 128 past the last buffer."""
+    ``slots`` slots of ``rows`` rows of P + 2h ``esize``-byte elements of the
+    field and two (ndiag, P) coefficient buffers of ``dsize``-byte elements
+    (each rounded up to 128 bytes), 128 bytes to align the boxes and 128
+    past the last buffer."""
     def r128(b):
         return -(-b // 128) * 128
-    return (slots * r128(2 * rows * (RING_COLS + 2 * h))
+    return (slots * r128(esize * rows * (RING_COLS + 2 * h))
             + 2 * r128(dsize * ndiag * RING_COLS) + 256)
 
 
 @functools.lru_cache(maxsize=256)
 def stencil_ring_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, sm_count: int,
-                      dsize: int = 2) -> RingPlan | None:
-    """The ring launch of a bf16 field of k <= 64 rows without the Gram
+                      dsize: int = 2, esize: int = 2) -> RingPlan | None:
+    """The ring launch of a field of k <= 64 rows without the Gram
     (``csrc/stencil.cu`` stencil_ring), or None where no stride fits. The
     strides tried are the offsets' distances S that P divides and that
     divide n; each takes the offsets whose decomposition (``ring_decompose``)
@@ -422,15 +426,17 @@ def stencil_ring_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, s
     (the largest |r| rounded up to 8) with 2h < S and P + 2h at most 256
     boxes' granules (the largest power of two up to 256 dividing h). For
     each that fits ``smem_cap`` with its static bytes, and each row tile of
-    ``RING_ROWS`` (8 alone at k <= 8), the planes of a patch are cut into
-    the runs that minimise the modelled bytes a block copies, waves x (len +
-    2M slot fills + len coefficient buffers), the grid one block an SM; the
-    least of those wins, ties to fewer runs and the narrower row tile. At
-    (32, 256^3) on bf16 diagonals: S = 65,536, h = 256, M = 1, 16 rows, one
-    run of 256 planes for each of 128 items (traffic 1.5 X and the
-    diagonals once more); at (32, 128^3): S = 16,384, h = 128, 16 rows, four
-    runs of 32 planes (128 items). ``dsize``: bytes of a diagonal's
-    element."""
+    ``RING_ROWS[esize]`` (the narrower alone where k fits it), the planes of
+    a patch are cut into the runs that minimise the modelled bytes a block
+    copies, waves x (len + 2M slot fills + len coefficient buffers), the
+    grid one block an SM; the least of those wins, ties to fewer runs and
+    the narrower row tile. On a bf16 field at (32, 256^3) on bf16
+    diagonals: S = 65,536, h = 256, M = 1, 16 rows, one run of 256 planes
+    for each of 128 items (traffic 1.5 X and the diagonals once more); at
+    (32, 128^3): S = 16,384, h = 128, 16 rows, four runs of 32 planes (128
+    items). An f32 field (``esize`` 4) takes 4 or 8 rows: 8 at (32, 128^3)
+    and (32, 256^3) on bf16 diagonals, in 189 and 220 KB. ``dsize``,
+    ``esize``: bytes of a diagonal's and of the field's element."""
     if not 1 <= k <= 64 or n % RING_COLS or n >= 2 ** 31:
         return None
     offs = [int(o) % n for o in offsets]
@@ -450,14 +456,15 @@ def stencil_ring_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, s
                 or (RING_COLS + 2 * h) // g > RING_BOX):
             continue
         npl, npatch = n // S, S // RING_COLS
-        for rows in RING_ROWS:
-            if rows > 8 and k <= 8:
+        narrow = RING_ROWS[esize][0]
+        for rows in RING_ROWS[esize]:
+            if rows > narrow and k <= narrow:
                 continue
-            nbytes = ring_smem_bytes(rows, h, slots, ndiag, dsize)
+            nbytes = ring_smem_bytes(rows, h, slots, ndiag, dsize, esize)
             if nbytes + RING_STATIC_BYTES > smem_cap:
                 continue
             ngrp = -(-k // rows)
-            slot = 2 * rows * (RING_COLS + 2 * h)
+            slot = esize * rows * (RING_COLS + 2 * h)
             coef = dsize * ndiag * RING_COLS
             for segs in range(1, npl + 1):
                 ln = -(-npl // segs)
@@ -469,7 +476,7 @@ def stencil_ring_plan(offsets: tuple[int, ...], n: int, k: int, smem_cap: int, s
                 key = (cost, segs, rows)
                 if best_key is None or key < best_key:
                     traffic = ((RING_COLS + 2 * h) / RING_COLS * (ln + 2 * M) / ln
-                               + ndiag * dsize * (ngrp - 1) / (2 * k))
+                               + ndiag * dsize * (ngrp - 1) / (esize * k))
                     best_key = key
                     best = RingPlan(S, h, M, rows, slots, segs, ln, items,
                                     min(items, sm_count), g, nbytes, traffic)
@@ -542,18 +549,18 @@ def _launch_wide_mma(diags, offsets, Xt, label: str, fn: str):
 
 
 def _ring_ok(diags, Xt) -> bool:
-    """Whether a launch's operands suit the ring's TMA boxes: a bf16 field
-    with rows on 16-byte boundaries (n % 8 == 0; ``stencil_ring_plan`` asks
-    n % 1024 == 0) and 16-byte aligned field and diagonals."""
-    return (Xt.dtype == torch.bfloat16 and Xt.shape[1] % 8 == 0
-            and Xt.data_ptr() % 16 == 0 and diags.data_ptr() % 16 == 0)
+    """Whether a launch's operands suit the ring's TMA boxes: rows on
+    16-byte boundaries (n % 8 == 0; ``stencil_ring_plan`` asks n % 1024 ==
+    0) and 16-byte aligned field and diagonals."""
+    return (Xt.shape[1] % 8 == 0 and Xt.data_ptr() % 16 == 0
+            and diags.data_ptr() % 16 == 0)
 
 
 def launch_plans(diags, offsets, Xt, with_gram: bool):
     """``[((r0, r1), plan), ...]``: the row chunks a field runs as, one
     launch each (``_native.row_chunks``: chunks of at most 64 rows), and the
     plan of each: a ``RingPlan`` (``stencil_ring``) for
-    a bf16 field without the Gram where one fits with less traffic than
+    a launch without the Gram where one fits with less traffic than
     ``stencil_plan``'s and the operands suit it (``_ring_ok``), else a
     ``StencilPlan``: ``stencil_mma_plan`` for a bf16 field's Gram; for an f32
     field's, ``stencil_vec_gram_plan`` where ``vec_gram_takes`` (33 to 64
@@ -581,8 +588,8 @@ def launch_plans(diags, offsets, Xt, with_gram: bool):
         else:
             plan = stencil_plan(offsets, n, kc, cap, sms, Xt.element_size(),
                                 diags.element_size())
-            ring = (stencil_ring_plan(offsets, n, kc, cap, sms, diags.element_size())
-                    if ring_ok else None)
+            ring = (stencil_ring_plan(offsets, n, kc, cap, sms, diags.element_size(),
+                                      Xt.element_size()) if ring_ok else None)
             if ring is not None and ring.traffic < plan.traffic:
                 plan = ring
         out.append(((r0, r1), plan))

@@ -63,7 +63,10 @@ solve at ``qr_passes=1``; and ``[config5] f32`` drives ``solve_refined`` on
 the f32 preset to the same tol. Then the bf16 presets of configs 1-4
 (``[bf16presets]``, as ``bench_cli.py --dtype bf16 [--refined]`` runs them):
 ``xr_update_gram[bf16]``, ``qr_p_update[bf16]`` and ``qr_px_update[bf16]``
-against their plain versions at (16, 512^2), (48, 32^4) and m = 96; then,
+against their plain versions at (16, 512^2), (48, 32^4) and m = 96
+(``qr_px_update[bf16]`` also at 16, 64 and 96 rows, fresh and donated, on
+its routes: ``px_update_mma``'s QR-with-X mode up to 64 rows, the
+streaming kernel's above); then,
 at full size, CG on config 1's column 0, BCG, BCGA and BCGdQ on config 2,
 SBCGrQ on configs 3 and 4 (config 4's const-hop applies on the plain route,
 no const-hop kernel launched), each beside ``solve_refined`` on the bf16
@@ -76,9 +79,11 @@ matrix link, on the 128^3 Laplacian with bf16 diagonals and f32 fields and
 with f32 diagonals and bf16 fields, and on the bf16 Laplacian with 96 RHS.
 The routes of the wrappers with several kernels are held by the library
 function each launch called (``_native.functions``): ``[config5] lean``'s
-bf16 stencil launches without the Gram take the ring of planes, and every
-folded launch of ``[storage]``'s folded solves the TMA boxes; the
-``[plan]`` lines print those launches' plans.
+bf16 stencil launches without the Gram take the ring of planes, and so do
+the 128^3 solve's launches on bf16 diagonals and f32 fields in
+``[storage]`` (row 1m, ``bcg_stencil_ring_bf16d``); every folded launch of
+``[storage]``'s folded solves takes the TMA boxes; the ``[plan]`` lines
+print those launches' plans.
 Each phase prints one or a few lines; any failure raises, and the process exits
 non-zero. The last two lines are the kernels' JSON record, whose launch
 counts are those of each kernel's own path (the north-star solves, config 4,
@@ -149,7 +154,7 @@ KERNELS = {
     "slab_block_accumulate": ("blockcg_tpu_torch/csrc/slab_stream.cu",
                               "blockcg_tpu/ops/const_block_stencil.py:691"),
     "tiled_spmm_t": ("blockcg_tpu_torch/csrc/spmm_tiled.cu", "blockcg_tpu/ops/spmm_tiled.py:63"),
-    "qr_px_update": ("blockcg_tpu_torch/csrc/qr_p_update.cu", "blockcg_tpu/ops/fused.py:795"),
+    "qr_px_update": ("blockcg_tpu_torch/csrc/px_update.cu", "blockcg_tpu/ops/fused.py:795"),
     "slab_m_accumulate_from": ("blockcg_tpu_torch/csrc/slab_stream.cu",
                                "blockcg_tpu/ops/const_block_stencil.py:846"),
     "slab_block_accumulate_from": ("blockcg_tpu_torch/csrc/slab_stream.cu",
@@ -343,6 +348,7 @@ PRESETS_MAX_ITER = 2000
 PRESETS_INNER_TOL = 5e-3
 PRESETS_CYCLES = 16
 PRESETS_DIRAC_K = 4 * DIRAC_K  # config 4's merged width, m = bs * k
+QR_PX_BF16_ROWS = (16, 64, 96)  # row 13b's other widths: both routes and the edge between
 PRESETS_BCG_SHAPE = (16, 512 ** 2)  # config 2's field
 # [storage]: the bf16 stencil's solve above one launch's 64 rows.
 STORAGE_WIDE_K = 96
@@ -2627,7 +2633,11 @@ def phase_bf16presets_kernels(torch, dev, records) -> None:
     against their plain versions: ``xr_update_gram[bf16]`` at config 2's
     field (16, 512^2) and at config 4's merged (48, 32^4) on I_4 ⊗ C
     coefficients, ``qr_p_update[bf16]`` at (48, 32^4) and at m = 96,
-    ``qr_px_update[bf16]`` at (48, 32^4). Fields within ``BF16_ULPS`` of the
+    ``qr_px_update[bf16]`` at (48, 32^4) and, dense, at 16, 64 and 96 rows
+    (``px_update_mma``'s QR-with-X mode up to 64 rows, one launch of the
+    streaming kernel at 96: the route printed from ``_native.functions``),
+    fresh and donated (the donated call in place, bitwise the fresh one).
+    Fields within ``BF16_ULPS`` of the
     plain version's, the Gram within ``GRAM_RTOL`` of it and, by
     ``contract_distance``, nearer the f64 Gram of the stored bf16 Rn than of
     the unrounded f32 Rn (by ``GRAM_MARGIN`` at 512^2, by 1 at 32^4, as
@@ -2635,7 +2645,7 @@ def phase_bf16presets_kernels(torch, dev, records) -> None:
     variant, its plain version and the f32 kernel on the same values; the
     first shape of each sets its record. No single PyTorch call computes any
     of the three fused functions."""
-    from blockcg_tpu_torch.ops import fused
+    from blockcg_tpu_torch.ops import _native, fused
 
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -2654,6 +2664,8 @@ def phase_bf16presets_kernels(torch, dev, records) -> None:
         ("qr_p_update[bf16]", "config 4", c4, None),
         ("qr_p_update[bf16]", f"m = {WIDE_M}", (WIDE_M, WIDE_M // 4, DIRAC_L ** 4), None),
         ("qr_px_update[bf16]", "config 4", c4, None),
+        *(("qr_px_update[bf16]", f"{m} rows", (m, m, DIRAC_L ** 4), None)
+          for m in QR_PX_BF16_ROWS),
     )
     for name, label, (m, k, n), margin in cases:
         A1, A2, A3 = (coeff(m, k) for _ in range(3))
@@ -2677,8 +2689,25 @@ def phase_bf16presets_kernels(torch, dev, records) -> None:
                      lambda: fused.qr_px_update(A1, F32[0], A2, F32[1], A3, F32[2]))
             work = (nbytes(A1, A2, A3) + 6 * fb, 2 * n * nnz(A1, A2, A3))
         what = f"{label} ({m}, {n}) bf16"
+        before = dict(_native.functions)
         got = calls[0]()
+        routes = {f: c - before.get(f, 0) for f, c in _native.functions.items()
+                  if c != before.get(f, 0)}
         err, abs_err = bf16_compare(torch, name, what, got, calls[1](), GRAM_RTOL)
+        if name.startswith("qr_px_update"):
+            want = {"bcg_qr_px_update_mma" if m <= 64 else "bcg_qr_px_update_bf16": 1}
+            bufs = [f.clone() for f in F[:3]]
+            don = fused.qr_px_update(A1, bufs[0], A2, bufs[1], A3, bufs[2], donate=True)
+            torch.cuda.synchronize()
+            in_place = [d.data_ptr() for d in don] == [b.data_ptr() for b in bufs]
+            print(f"[bf16presets] kernels {name} {what}: route {routes}, donated in place "
+                  f"{in_place}, bitwise the fresh call "
+                  f"{all(torch.equal(d, g) for d, g in zip(don, got))}")
+            if routes != want or not in_place or not all(
+                    torch.equal(d, g) for d, g in zip(don, got)):
+                raise AssertionError(f"[bf16presets] {name} {what}: route {routes} (want "
+                                     f"{want}), donated in place {in_place}")
+            del bufs, don
         if margin is not None:  # the Gram of the stored Rn, not of the f32 sums
             Rn32 = calls[2]()[1]
             contract_distance(torch, "[bf16presets]", name, what, got[2], (got[1], got[1]),
@@ -3003,8 +3032,16 @@ def phase_storage_kernels(torch, dev, records, op) -> None:
                                                                         Yu)):
         contract_distance(torch, "[storage]", name, f"{lw} (the north star's field)", G,
                           (X32, Yf), None, 1.0)
-    same("stencil_spmm_t[bf16 coeffs]", "the f32 kernel",
-         stencil.stencil_spmm_t(d16, lap.offsets, X32), Yu)
+    mplans = stencil.launch_plans(d16, lap.offsets, X32, False)
+    print(f"[plan] stencil_spmm_t[bf16 coeffs] {lw} bf16 diagonals, f32 X: "
+          + "; ".join(stencil.describe(plan) for _, plan in mplans))
+    if not all(isinstance(plan, stencil.RingPlan) for _, plan in mplans):
+        raise AssertionError(f"[storage] row 1m {lw}: not on the ring of planes")
+    Y1m = stencil.stencil_spmm_t(d16, lap.offsets, X32)
+    same("stencil_spmm_t[bf16 coeffs]", "the f32 kernel", Y1m, Yu)
+    same("stencil_spmm_t[bf16 coeffs]", "the f32 diagonals' apply", Y1m,
+         stencil.stencil_spmm_t(d32, lap.offsets, X32))
+    del Y1m
     xw = (nbytes(d32, X16, X16), 2 * kk * nnz(d32))
     print(f"[plan] stencil_spmm_t[bf16 field] {lw} f32 diagonals, bf16 X: "
           + "; ".join(stencil.describe(plan)
@@ -3176,14 +3213,22 @@ def phase_storage(torch, dev, records) -> dict:
     lap = laplacian_dia(SHAPES[0], device=dev)
     lap16 = astype(lap, bf)
     B = _rhs(lap.n, K, torch.float32, device=dev)
+    before = (_native.launches["stencil_spmm_t[bf16 coeffs]"],
+              _native.functions["bcg_stencil_ring_bf16d"])
     (Xm, minfo), ms_ = sbcgrq(lap16, B, 3e-6)
+    ring = (_native.launches["stencil_spmm_t[bf16 coeffs]"] - before[0],
+            _native.functions["bcg_stencil_ring_bf16d"] - before[1])
     (Xu, uinfo), us = sbcgrq(lap, B, 3e-6)
     print(f"[storage] bf16 diagonals, f32 fields, {SHAPES[0][0]}^3 k={K} tol=3e-6: "
           f"{minfo.iterations} iterations {ms_:.3f} s; f32 operator {uinfo.iterations} "
           f"iterations {us:.3f} s; "
-          f"X bitwise {torch.equal(Xm, Xu)}")
+          f"X bitwise {torch.equal(Xm, Xu)}; {ring[0]} applies without the Gram, {ring[1]} on "
+          "the ring (bcg_stencil_ring_bf16d)")
     if not (bool(minfo.converged.all()) and minfo.iterations == uinfo.iterations):
         raise AssertionError(f"[storage] bf16 diagonals: {minfo} against {uinfo}")
+    if not 0 < ring[0] == ring[1]:
+        raise AssertionError(f"[storage] bf16 diagonals: {ring[1]} of {ring[0]} applies "
+                             "without the Gram on the ring")
     B16 = B.to(bf)
     (Xx, xinfo), xs = sbcgrq(lap, B16, 5e-3)
     (Xb, binfo), bs_ = sbcgrq(lap16, B16, 5e-3)

@@ -2390,18 +2390,22 @@ def _sha32(t):
 # on their schedules (the f32 px_update, row 9, at 32 and 96 rows; bf16
 # qr_p_update, row 12b), as they were before bf16 px_update moved to the
 # tensor cores (H100), on the inputs test_px_schedule_rows_keep_their_bits
-# makes.
+# makes; and of qr_px_update's Q, Pn and Xn (row 13 in f32, 13b above 64
+# rows) as the one-thread-a-column kernel (csrc/qr_p_update.cu, before
+# px_update.cu's QR-with-X mode replaced it) gave them on an H100.
 _UPDATE_PINS = {
     "px_update f32 (32, 40000)": ["e8a968f765721032", "7de7231c757117a3"],
     "px_update f32 (96, 8192)": ["17d98e5ad1c77ffd", "6dcf8a0514fa403d"],
     "qr_p_update[bf16] (48, 40000)": ["e81d35effb7d0883", "7fe86ef2e1d2c783"],
+    "qr_px_update f32 (32, 40000)": ["324de7211cc8e781", "e8a968f765721032", "7de7231c757117a3"],
+    "qr_px_update f32 (96, 8192)": ["afea4bfe4fb06867", "17d98e5ad1c77ffd", "6dcf8a0514fa403d"],
+    "qr_px_update[bf16] (96, 8192)": ["f9d7e066cc1c5e54", "280e2ac4048452ab", "b3ffa023626b9b96"],
 }
 
 
-@pytest.mark.parametrize("case", list(_UPDATE_PINS))
-def test_px_schedule_rows_keep_their_bits(dev, case):
-    """The f32 row 9 and the bf16 QR mode of ``px_update.cu`` (row 12b) keep
-    their bits (pinned checksums of the kernels before row 9b's redesign)."""
+def _update_pin_sums(case, dev):
+    """The checksums ``_UPDATE_PINS`` holds for ``case``, of this checkout's
+    kernels, on the case's inputs from a numpy seed."""
     name, shape = case.split(" (")
     k, n = (int(v) for v in shape.rstrip(")").split(", "))
     rng = np.random.default_rng(700 + k)
@@ -2409,10 +2413,49 @@ def test_px_schedule_rows_keep_their_bits(dev, case):
     W, P, X = (rng.standard_normal((k, n)) for _ in range(3))
     if name == "px_update f32":
         got = fused.px_update(M1, _t(W, dev), M2, _t(P, dev), M3, _t(X, dev))
-    else:
+    elif name == "qr_p_update[bf16]":
         got = fused.qr_p_update(M1, _bf(W, dev), M2, _bf(P, dev))
-    sums = [_sha16(t) if t.dtype == torch.bfloat16 else _sha32(t) for t in got]
-    assert sums == _UPDATE_PINS[case]
+    else:
+        field = _bf if name.endswith("[bf16]") else _t
+        got = fused.qr_px_update(M1, field(W, dev), M2, field(P, dev), M3, field(X, dev))
+    return [_sha16(t) if t.dtype == torch.bfloat16 else _sha32(t) for t in got]
+
+
+@pytest.mark.parametrize("case", list(_UPDATE_PINS))
+def test_px_schedule_rows_keep_their_bits(dev, case):
+    """The f32 row 9, the bf16 QR mode of ``px_update.cu`` (row 12b) and
+    ``qr_px_update`` on its streaming QR-with-X mode (row 13 in f32, 13b at
+    96 rows) keep their bits (pinned checksums of the kernels before row
+    9b's redesign, and before row 13 moved off ``qr_p_update.cu``)."""
+    assert _update_pin_sums(case, dev) == _UPDATE_PINS[case]
+
+
+@pytest.mark.parametrize("k", [16, 32, 48, 64, 96])
+def test_qr_px_update_bf16_matches_plain(dev, k):
+    """Row 13b: up to 64 rows one ``bcg_qr_px_update_mma`` launch (tensor
+    cores, Q stored from its fragments, Pn from the unrounded f32 Q), at 96 one
+    ``bcg_qr_px_update_bf16`` launch (the streaming QR-with-X mode): Q, Pn
+    and Xn within one bf16 ulp of the plain version (the tolerance row 9b
+    is held to) on 5,000 columns (TMA, the last tile ragged) and 4,099
+    (element copies); donated Q1, P and X take the fresh call's bits in
+    place; a repeat gives the same bits."""
+    rng = np.random.default_rng(2500 + k)
+    M2, rho, C = (_t(rng.standard_normal((k, k)) / np.sqrt(k), dev) for _ in range(3))
+    fn = "bcg_qr_px_update_mma" if k <= 64 else "bcg_qr_px_update_bf16"
+    for n in (5000, 4099):
+        Q1, P, X = (_bf_field(k, n, s, dev) for s in (2501, 2502, 2503))
+        _native.reset_launches()
+        got = fused.qr_px_update(M2, Q1, rho, P, C, X)
+        torch.cuda.synchronize()
+        assert dict(_native.functions) == {fn: 1}
+        for g, w in zip(got, fused.qr_px_update_plain(M2, Q1, rho, P, C, X)):
+            assert g.dtype == torch.bfloat16 and _ulps(g, w) <= 1
+        args = [Q1.clone(), P.clone(), X.clone()]
+        don = fused.qr_px_update(M2, args[0], rho, args[1], C, args[2], donate=True)
+        assert [d.data_ptr() for d in don] == [a.data_ptr() for a in args]
+        assert all(torch.equal(d, g) for d, g in zip(don, got))
+        assert all(torch.equal(r, g) for r, g in zip(fused.qr_px_update(M2, Q1, rho, P, C, X),
+                                                    got))
 
 
 # Row 2w before its column blocks (sums to an f32 scratch, X lifted to f32,
@@ -2797,6 +2840,101 @@ def test_stencil_ring_repeats_its_bits(dev, monkeypatch):
     monkeypatch.undo()
     bad = [i for i in range(300)
            if not torch.equal(stencil.stencil_spmm_t(op.diags, op.offsets, Xt), want)]
+    assert bad == []
+
+
+# ---------------------------------- an f32 field on the ring (rows 1m and 1)
+
+
+@pytest.mark.parametrize("case", sorted(_RING_CASES))
+@pytest.mark.parametrize("k", [4, 8, 32, 64, 96])
+@pytest.mark.parametrize("dd", ["bf16", "f32"])
+def test_stencil_ring_f32_field_matches_the_window_kernel(dev, case, k, dd, monkeypatch):
+    """An f32 field without the Gram on the ring (``stencil_ring`` with f32
+    slots, 4 or 8 rows a work item): bf16 diagonals (row 1m) or f32 ones
+    (row 1), 4 to 64 rows a launch and 96 in two chunks, odd and even shifts,
+    a reach of two planes, windows across 0 and n. Every launch takes the
+    ring its plan gives (``_native.functions``); Y within ``FIELD_RTOL`` of
+    the plain version and bitwise the window kernel's (the parent route: the
+    same fmaf chain over the diagonals); a repeat bitwise."""
+    n, offsets = _RING_CASES[case]
+    rng = np.random.default_rng(2600 + k)
+    diags = _t(rng.standard_normal((len(offsets), n)), dev)
+    diags = diags.bfloat16() if dd == "bf16" else diags
+    Xt = _field(k, n, 2601, dev)
+    plans = stencil.launch_plans(diags, offsets, Xt, False)
+    assert all(isinstance(p, stencil.RingPlan) and p.rows in (4, 8) for _, p in plans)
+    fn = "bcg_stencil_ring" + ("_bf16d" if dd == "bf16" else "")
+    _native.reset_launches()
+    Y = stencil.stencil_spmm_t(diags, offsets, Xt)
+    assert _native.functions[fn] == len(plans) == len(_native.row_chunks(k))
+    assert torch.equal(Y, stencil.stencil_spmm_t(diags, offsets, Xt))
+    _window_route(monkeypatch)
+    Yw = stencil.stencil_spmm_t(diags, offsets, Xt)
+    torch.cuda.synchronize()
+    assert _relmax(Y, stencil.stencil_spmm_plain(diags, offsets, Xt)[0]) < 1e-5
+    assert torch.equal(Y, Yw)
+
+
+def test_stencil_ring_1m_keeps_the_laplacians_bits(dev, monkeypatch):
+    """Row 1m at the north star's (32, 128^3): the Laplacian's entries are
+    exact in bf16, so the ring on bf16 diagonals gives the bits of the window
+    kernel on them and of the f32 diagonals' route; one
+    ``bcg_stencil_ring_bf16d`` launch of 8-row items."""
+    op = laplacian_dia((128, 128, 128), device=dev)
+    d16 = op.diags.bfloat16()
+    Xt = _field(32, op.n, 2602, dev)
+    (_, plan), = stencil.launch_plans(d16, op.offsets, Xt, False)
+    assert isinstance(plan, stencil.RingPlan) and (plan.S, plan.h, plan.rows) == (16384, 128, 8)
+    _native.reset_launches()
+    Y = stencil.stencil_spmm_t(d16, op.offsets, Xt)
+    assert dict(_native.functions) == {"bcg_stencil_ring_bf16d": 1}
+    assert torch.equal(Y, stencil.stencil_spmm_t(op.diags, op.offsets, Xt))
+    _window_route(monkeypatch)
+    assert torch.equal(Y, stencil.stencil_spmm_t(d16, op.offsets, Xt))
+
+
+@pytest.mark.parametrize("n,offsets", [
+    (1000 * 1024 + 8, (0, 1, -1, 1024, -1024)),   # n % 1,024 != 0: no plane of whole patches
+    (4096, (-256, -16, -1, 0, 1, 16, 256)),       # planes narrower than a patch
+    (64 ** 3, (0, 4096, -4096, 64, -64, 1, -1)),  # an unaligned field
+])
+def test_stencil_ring_plan_keeps_the_window_kernel_on_f32_fields(dev, n, offsets):
+    """An f32 field on bf16 diagonals where no stride fits (or the field is
+    not 16-byte aligned) keeps the window kernel
+    (``bcg_stencil_spmm_bf16d``), within ``FIELD_RTOL`` of the plain
+    version."""
+    diags = _bf(np.random.default_rng(2603).standard_normal((len(offsets), n)), dev)
+    if n == 64 ** 3:  # one element past an aligned base
+        Xt = torch.empty(17 * n + 1, dtype=torch.float32, device=dev)[1:].view(17, n)
+        Xt.copy_(_field(17, n, 2604, dev))
+        assert Xt.data_ptr() % 16 != 0 and Xt.is_contiguous()
+    else:
+        Xt = _field(17, n, 2604, dev)
+    plans = stencil.launch_plans(diags, offsets, Xt, False)
+    assert not any(isinstance(p, stencil.RingPlan) for _, p in plans)
+    _native.reset_launches()
+    Y = stencil.stencil_spmm_t(diags, offsets, Xt)
+    torch.cuda.synchronize()
+    assert _native.functions == {"bcg_stencil_spmm_bf16d": 1}
+    assert _relmax(Y, stencil.stencil_spmm_plain(diags, offsets, Xt)[0]) < 1e-5
+
+
+def test_stencil_ring_f32_field_repeats_its_bits(dev, monkeypatch):
+    """300 calls of the 64^3 Laplacian's ring on bf16 diagonals and an f32
+    field at k = 32, each bitwise the window kernel's: a stage posted before
+    its copies land, or a slot refilled while a step still reads it, shows
+    as a wrong bit on some call."""
+    op = laplacian_dia((64, 64, 64), device=dev)
+    d16 = op.diags.bfloat16()
+    Xt = _field(32, op.n, 2605, dev)
+    plan = stencil.launch_plans(d16, op.offsets, Xt, False)[0][1]
+    assert isinstance(plan, stencil.RingPlan)
+    _window_route(monkeypatch)
+    want = stencil.stencil_spmm_t(d16, op.offsets, Xt)
+    monkeypatch.undo()
+    bad = [i for i in range(300)
+           if not torch.equal(stencil.stencil_spmm_t(d16, op.offsets, Xt), want)]
     assert bad == []
 
 

@@ -189,17 +189,19 @@ def test_row_chunks_cover_the_field_in_balanced_launches():
         _native.row_chunks(0)
 
 
-@pytest.mark.parametrize("k, nmat, with_gram, width", [
-    (96, 2, True, 64), (400, 2, True, 32), (800, 1, True, 32), (800, 3, False, 16)])
-def test_wide_gram_lays_out_the_chunks_that_made_its_blocks(monkeypatch, k, nmat,
-                                                            with_gram, width):
-    """A fused update too wide for 64-row launches under the shared-memory cap
-    runs narrower chunks, and the Gram is assembled by those same chunks:
-    the diagonal blocks as the chunks' launches give them, the rest as
-    ``gram`` blocks (both stood in for by plain products on the CPU)."""
+@pytest.mark.parametrize("k, plan, width", [
+    (200, "mm2_update_gram_plan", 64), (400, "qr_px_update_plan", 32),
+    (800, "mm_update_gram_plan", 32), (800, "px_update_plan", 16)])
+def test_wide_gram_lays_out_the_chunks_that_made_its_blocks(monkeypatch, k, plan, width):
+    """A fused update too wide for one launch runs row chunks, narrower
+    where its k-column coefficients would pass the shared-memory cap beside
+    64 rows (the plan's chunks are ``_native.row_chunks(k, width)``), and the
+    Gram is assembled by those same chunks: the diagonal blocks as the
+    chunks' launches give them, the rest as ``gram`` blocks (both stood in
+    for by plain products on the CPU)."""
     monkeypatch.setattr(_native, "max_smem", lambda index: 232448)  # an H100's cap
     monkeypatch.setattr(fused, "_launch_gram", lambda U, V: U @ V.T)
-    chunks = fused._chunks(k, nmat, with_gram, "test", torch.device("cpu"))
+    chunks = getattr(fused, plan)(k, torch.device("cpu")).chunks
     assert chunks == _native.row_chunks(k, width)
     Y = torch.from_numpy(_fields(k, 130, 1, 40)[0])
     diag = [fused.gram_plain(Y[r0:r1], Y[r0:r1]) for r0, r1 in chunks]
@@ -290,7 +292,7 @@ def test_native_build_command_and_sources(monkeypatch, tmp_path):
     sm_90a, one compile per source and one link, and a missing nvcc raises
     (there is no fallback)."""
     cus = {"stencil.cu", "gram.cu", "mm_update_gram.cu", "px_update.cu",
-           "const_block_stencil.cu", "xr_update.cu", "qr_p_update.cu", "spmm_tiled.cu"}
+           "const_block_stencil.cu", "xr_update.cu", "spmm_tiled.cu"}
     assert cus <= {p.name for p in _native.sources()}
     assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     root = Path(__file__).resolve().parents[1]

@@ -380,7 +380,7 @@ def test_host_constants_mirror_the_sources():
     assert "      case 8: BCG_UG(8, 64);" in ug and fused.UPDATE_GRAM_MAX_K == 64
     px = (CSRC / "px_update.cu").read_text()
     assert "kPxBlocksPerSm = R <= 8 ? 2 : 1;" in px
-    assert "update_smem_bytes(k, kin, kc, QR ? 2 : 3, false, sizeof(E))" in px
+    assert "update_smem_bytes(k, kin, kc, XN ? 3 : 2, false, sizeof(E))" in px
     st = (CSRC / "stencil.cu").read_text()
     assert int(re.search(r"kMaxDiags = (\d+)", st).group(1)) == stencil.MAX_DIAGS
     assert "return T + 2 * h + (esize == 4 && k <= 32 ? 4 : 0);" in st
@@ -465,9 +465,9 @@ def test_host_constants_mirror_the_sources():
     assert "__launch_bounds__(kUpThreads, 1)\n    px_update_mma(" in px
     assert ("k > 64 || T < 128 || T > 512 || T % 128 != 0 || stages < 2 ||\n"
             "      stages > kRingMaxStages" in px)
-    assert ("if (k <= 16)\n    return launch_px_mma<16>(" in px
-            and "if (k <= 32)\n    return launch_px_mma<32>(" in px
-            and "  return launch_px_mma<64>(" in px)
+    assert ("if (k <= 16)\n    return launch_px_mma<16, QR>(" in px
+            and "if (k <= 32)\n    return launch_px_mma<32, QR>(" in px
+            and "  return launch_px_mma<64, QR>(" in px)
     assert "__launch_bounds__(kStMmaThreads, 1)\n    stencil_mma(" in st
     assert "constexpr int kStMmaThreads = 512;" in st
     assert "__shared__ Diags dg;" in st and "__shared__ unsigned long long full[2];" in st
@@ -532,12 +532,13 @@ def test_host_constants_mirror_the_sources():
                         ("kRingMaxSlots", "8"), ("kRingBox", "256")):
         assert re.search(rf"constexpr int {name} = ([^;]+);", st).group(1) == value, name
     assert (stencil.RING_COLS, stencil.RING_MAX_SLOTS, stencil.RING_BOX) == (4 * 256, 8, 256)
-    assert ("return slots * ring_slot_bytes(R, h) + 2 * ring_coef_bytes(ndiag, dsize) + 256;"
-            in st and "return ring_round128(2LL * R * ring_span(h));" in st
+    assert ("return slots * ring_slot_bytes(R, h, esize) + 2 * ring_coef_bytes(ndiag, dsize) + 256;"
+            in st and "return ring_round128(1LL * esize * R * ring_span(h));" in st
             and "return ring_round128(1LL * dsize * ndiag * kRingCols);" in st)
     assert "__shared__ unsigned long long full[2], empty[2];" in st
     assert stencil.RING_STATIC_BYTES == 4 * 8
-    assert "(R != 8 && R != 16)" in st and stencil.RING_ROWS == (8, 16)
+    assert ("constexpr int lo = sizeof(EX) == 2 ? 8 : 4;" in st and "(R != lo && R != 2 * lo)" in st
+            and stencil.RING_ROWS == {2: (8, 16), 4: (4, 8)})
 
 
 def _smoke():
@@ -1736,7 +1737,7 @@ def test_stencil_ring_plan_fits_and_serves_every_offset(preset, k, dsize):
         assert (m * S + r - o) % n == 0 and abs(r) <= h and abs(m) <= M
     assert h % plan.granule == 0 and P % plan.granule == 0 and plan.granule >= 8
     assert (P + 2 * h) // plan.granule <= stencil.RING_BOX
-    assert plan.rows in stencil.RING_ROWS and (plan.rows == 8 or k > 8)
+    assert plan.rows in stencil.RING_ROWS[2] and (plan.rows == 8 or k > 8)
     npl, ngrp = n // S, -(-k // plan.rows)
     assert (plan.segs - 1) * plan.len < npl <= plan.segs * plan.len
     assert plan.items == S // P * ngrp * plan.segs and plan.grid == min(plan.items, H100_SMS)

@@ -19,7 +19,8 @@ torch's BSR product).
 Run on a machine with a card, from the root of a checkout:
 
     python3 tools/torch_kernel_times.py [--root DIR] [--reps 50] [--only REGEX]
-        [--const-hop | --bf16 | --short | --storage] [--library | --sweep | --variants]
+        [--const-hop | --bf16 | --short | --storage | --updates]
+        [--library | --sweep | --variants]
 
 ``--bf16`` times the bf16 variants of rows 1, 2 and 5-9 (config 5's
 capacity route) at its inner shape, (32, 256^3), on the bf16 7-point
@@ -75,6 +76,20 @@ each kernel over its calls (``records``; ``records_cold`` beside
 ``records_expected``, reps times one call's): where the cold count is not
 the expected one, ``device_us_cold`` is null.
 
+``--updates`` times ``csrc/px_update.cu``'s rows with L2 flushed, as
+``--short`` does: row 13 (``qr_px_update``, f32) at (32, 2^21) and (96,
+32^4), row 13b (bf16) at (48, 32^4) and at 16, 32, 64 and 96 rows of 32^4,
+beside rows 9 (f32, (32, 2^21)), 9b (bf16, (32, 256^3)), 12 and 12b
+(``qr_p_update``, (48, 32^4)), which share its templates; with
+``--variants``, rows 13b and 9b at 32, 48 and 64 rows of 32^4 on every
+column tile and ring depth of ``px_update_mma`` that fits. ``--storage``
+also times rows 1 (f32 diagonals and field) and 1m on their routes at the
+main path's other widths and operators (1, 4, 8, 32 and 64 rows of 128^3,
+(32, 64^3), (4, 128^2), (16, 512^2)) and at (32, 256^3), and, where the
+route is the ring, on the window kernel too (``variant row 1 window``:
+``bcg_stencil_spmm`` launched on ``stencil_plan``'s plan), each line with
+its plan.
+
 ``--const-hop`` times rows 12, 16 and 17 alone: ``qr_p_update`` at (48,
 32^4) and (96, 32^4), fresh and donated, and the merged const-hop stencil
 without and with its Gram on ``dirac_cbdia(32)``'s main diagonals at k = 12
@@ -119,6 +134,7 @@ are partly warm.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import inspect
 import os
@@ -709,6 +725,98 @@ def short_cases(torch, dev):
                cbs_work(hop, k, False), row14_plan(hop, k))
 
 
+def update_cases(torch, dev):
+    """(name, fn, bound us[, plan]) of ``csrc/px_update.cu``'s rows, with L2
+    flushed: row 13 (``qr_px_update``, f32) at (32, 2^21) and (96, 32^4),
+    row 13b (bf16) at (48, 32^4) and, dense, at 16, 32, 64 and 96 rows of
+    32^4, beside the rows that share its templates: row 9 (``px_update``,
+    f32) at (32, 2^21), 9b (bf16) at (32, 256^3) and at 16, 32, 48 and 64
+    rows of 32^4, 12 and 12b (``qr_p_update``) at (48, 32^4). Coefficients dense, scaled by 1 /
+    sqrt(m); fresh outputs. Each bound is the fields' bytes (every input read
+    once, every output written once) over 3.35 TB/s against 2 m^2 n FLOPs a
+    coefficient matrix over 67 TFLOP/s (989 on bf16 fields, the tensor
+    cores' rate); each line carries the launch's plan."""
+    from blockcg_tpu_torch.ops import fused
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def bound(m, n, esize, passes, nmat):
+        return max(passes * esize * m * n / 3.35e12,
+                   nmat * 2 * m * m * n / (989e12 if esize == 2 else 67e12)) * 1e6
+
+    def plan_of(m, n, dt, q):  # the route the wrapper takes, where it is px_update_mma
+        if (dt != torch.bfloat16 or m > fused.PX_MMA_MAX_K
+                or q and not hasattr(fused._native.library(), "bcg_qr_px_update_mma")):
+            return None  # a checkout before this mode ran qr_p_update.cu
+        idx = dev.index or 0
+        mma = fused.px_update_mma_plan(m, n, fused._native.max_smem(idx),
+                                       fused._native.sm_count(idx))
+        return f"px_update_mma T={mma.T} stages={mma.stages} smem={mma.smem_bytes}"
+
+    cases = (("13", "qr_px_update", 32, 2 ** 21, torch.float32),
+             ("13", "qr_px_update", 96, 32 ** 4, torch.float32),
+             ("13b", "qr_px_update", 48, 32 ** 4, torch.bfloat16),
+             *(("13b", "qr_px_update", m, 32 ** 4, torch.bfloat16) for m in (16, 32, 64, 96)),
+             ("9", "px_update", 32, 2 ** 21, torch.float32),
+             ("9b", "px_update", 32, 256 ** 3, torch.bfloat16),
+             *(("9b", "px_update", m, 32 ** 4, torch.bfloat16) for m in (16, 32, 48, 64)),
+             ("12", "qr_p_update", 48, 32 ** 4, torch.float32),
+             ("12b", "qr_p_update", 48, 32 ** 4, torch.bfloat16))
+    for row, name, m, n, dt in cases:
+        M = [torch.randn((m, m), generator=gen, device=dev) / m ** 0.5 for _ in range(3)]
+        F = [torch.randn((m, n), generator=gen, device=dev).to(dt) for _ in range(3)]
+        e = F[0].element_size()
+        what = f"{'f32' if e == 4 else 'bf16'} ({m}, {n})"
+        if name == "qr_px_update":
+            fn = lambda M=M, F=F: fused.qr_px_update(M[0], F[0], M[1], F[1], M[2], F[2])
+            yield (f"row {row} {name} {what}", fn, bound(m, n, e, 6, 3),
+                   plan_of(m, n, dt, True))
+        elif name == "px_update":
+            fn = lambda M=M, F=F: fused.px_update(M[0], F[0], M[1], F[1], M[2], F[2])
+            yield f"row {row} {name} {what}", fn, bound(m, n, e, 5, 3), plan_of(m, n, dt, False)
+        else:
+            fn = lambda M=M, F=F: fused.qr_p_update(M[0], F[0], M[1], F[1])
+            yield f"row {row} {name} {what}", fn, bound(m, n, e, 4, 2)
+        del F
+
+
+def update_variants(torch, dev):
+    """Row 13b (``qr_px_update`` on bf16 fields, ``px_update_mma``'s
+    QR-with-X mode) at 32, 48 and 64 rows of 32^4 on every column tile and
+    ring depth whose shared memory fits, launched through
+    ``bcg_qr_px_update_mma`` with the pinned (T, stages), the plan's marked
+    ``plan``; beside each, row 9b (``px_update``) on the same pins. Bounds
+    as ``update_cases`` counts them."""
+    from blockcg_tpu_torch.ops import _native, fused
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    idx = dev.index or 0
+    cap, sms = _native.max_smem(idx), _native.sm_count(idx)
+    n, p = 32 ** 4, _native.ptr
+    for m in (32, 48, 64):
+        M = [torch.randn((m, m), generator=gen, device=dev) / m ** 0.5 for _ in range(3)]
+        F = [torch.randn((m, n), generator=gen, device=dev).bfloat16() for _ in range(3)]
+        O = [torch.empty_like(F[0]) for _ in range(3)]
+        for q, row, passes in ((True, "13b", 6), (False, "9b", 5)):
+            plan = fused.px_update_mma_plan(m, n, cap, sms)
+            for T in (128, 256, 512):
+                for stages in (2, 3, 4):
+                    if (fused.px_update_mma_smem_bytes(m, T, stages)
+                            + fused.RING_BARRIER_BYTES > cap):
+                        continue
+                    tag = "plan" if (T, stages) == (plan.T, plan.stages) else "variant"
+                    args = ((p(M[0]), p(F[0]), p(M[1]), p(F[1]), p(M[2]), p(F[2]), p(O[0]),
+                             p(O[1]), p(O[2])) if q else
+                            (p(M[0]), p(F[0]), p(M[1]), p(F[1]), p(M[2]), p(F[2]), p(O[1]),
+                             p(O[2])))
+                    fn_name = "bcg_qr_px_update_mma" if q else "bcg_px_update_mma"
+                    yield (f"{tag} row {row} T={T} stages={stages} bf16 ({m}, {n})",
+                           lambda fn_name=fn_name, args=args, T=T, stages=stages, m=m:
+                           _native.launch("variant", fn_name, dev, *args, m, n, T, stages),
+                           max(passes * 2 * m * n / 3.35e12, 6 * m * m * n / 989e12) * 1e6)
+        del F, O
+
+
 def row14_operands(torch, dev, gen):
     """(row, what, operator, X on the (k, bs, ns) view) of row 14's cases:
     the even-odd CG's parity hop of ``dirac_eo(32)`` at one RHS, (1, 4,
@@ -824,8 +932,8 @@ def storage_cases(torch, dev, only: str | None = None):
     3.35 TB/s against the FLOPs over 67 TFLOP/s. First one line of rows 2m's
     and 2's Gram distance from the f64 Gram of X and the f32 sums, their
     contract."""
+    from blockcg_tpu_torch.ops import _native, fused, stencil
     from blockcg_tpu_torch.ops import block_stencil as bsk
-    from blockcg_tpu_torch.ops import fused, stencil
     from blockcg_tpu_torch.problems import dirac_gauged_matrix, laplacian_dia
 
     def bound(nbytes, flops):
@@ -838,6 +946,33 @@ def storage_cases(torch, dev, only: str | None = None):
         plans = getattr(stencil, "launch_plans", None)
         return "; ".join(stencil.describe(p) for _, p in plans(D, offsets, X, False)) if plans \
             else None
+
+    def window_plans(D, offsets, X):  # stencil_plan's (h, T) for each row chunk
+        kk, n = X.shape
+        idx = X.device.index or 0
+        return [((r0, r1), stencil.stencil_plan(tuple(int(o) for o in offsets), n, r1 - r0,
+                                                _native.max_smem(idx), _native.sm_count(idx),
+                                                X.element_size(), D.element_size()))
+                for r0, r1 in _native.row_chunks(kk)]
+
+    def window_plan(D, offsets, X):
+        return "; ".join(stencil.describe(p) for _, p in window_plans(D, offsets, X))
+
+    def window(D, offsets, X):
+        """The window kernel (``stencil_spmm``) launched on ``stencil_plan``'s
+        plans, as ``stencil._launch`` launches a ``StencilPlan``: the ring's
+        yardstick."""
+        n = X.shape[1]
+        label, fn = _native.pair_variant("stencil_spmm_t", "bcg_stencil_spmm",
+                                         _native.pair_kernel(X, D, stencil.PAIRS))
+        offs = (ctypes.c_int * len(offsets))(*(int(o) % n for o in offsets))
+        Y = torch.empty_like(X)
+        p = _native.ptr
+        for (r0, r1), plan in window_plans(D, offsets, X):
+            _native.launch(label, fn, X.device, p(D), offs, len(offsets), p(X[r0:r1]),
+                           p(Y[r0:r1]), None, None, r1 - r0, n, plan.h, plan.T,
+                           min(-(-n // plan.T), _native.MAX_BLOCKS))
+        return Y
 
     gen = torch.Generator(device=dev).manual_seed(0)
     k = 32
@@ -860,16 +995,58 @@ def storage_cases(torch, dev, only: str | None = None):
         fb = D.element_size() * nd * n + 8 * k * n
         if row == "1m":
             yield (f"row 1m stencil_spmm_t{what} (32, 128^3)",
-                   lambda D=D: stencil.stencil_spmm_t(D, lap.offsets, X), bound(fb, 2 * k * nnz))
+                   lambda D=D: stencil.stencil_spmm_t(D, lap.offsets, X), bound(fb, 2 * k * nnz),
+                   ring_plan(D, lap.offsets, X))
         else:
             yield (f"row {row} stencil_spmm_gram_t{what} (32, 128^3)",
                    lambda D=D: stencil.stencil_spmm_gram_t(D, lap.offsets, X),
                    bound(fb + 4 * k * k, 2 * k * nnz + 2 * k * k * n))
+    fb = 4 * nd * n + 8 * k * n
+    yield ("row 1 stencil_spmm_t (32, 128^3)",
+           lambda: stencil.stencil_spmm_t(lap.diags, lap.offsets, X), bound(fb, 2 * k * nnz),
+           ring_plan(lap.diags, lap.offsets, X))
+    # Rows 1 and 1m at the other widths and operators of the main path, each
+    # on its route and, where that is the ring, on the window kernel too.
+    for shape, kk, size in ([((128,) * 3, kk, "128^3") for kk in (1, 4, 8, 32, 64)]
+                            + [((64,) * 3, 32, "64^3"), ((128,) * 2, 4, "128^2"),
+                               ((512,) * 2, 16, "512^2")]):
+        at = f"({kk}, {size})"
+        if not wanted(f"row 1 stencil_spmm_t {at}", f"row 1m stencil_spmm_t[bf16 coeffs] {at}",
+                      f"variant row 1 window {at}", f"variant row 1m window {at}"):
+            continue
+        op = lap if shape == (128,) * 3 else laplacian_dia(shape, device=dev)
+        opn, ond, onnz = op.n, len(op.offsets), int(torch.count_nonzero(op.diags))
+        Xk = X[:kk] if op is lap and kk <= k else torch.randn((kk, opn), generator=gen,
+                                                              device=dev)
+        for D, row, what in ((op.diags, "1", ""), (op.diags.bfloat16(), "1m", "[bf16 coeffs]")):
+            work = bound(D.element_size() * ond * opn + 8 * kk * opn, 2 * kk * onnz)
+            if (op is not lap or kk != k) and wanted(f"row {row} stencil_spmm_t{what} {at}"):
+                yield (f"row {row} stencil_spmm_t{what} {at}",
+                       lambda D=D, op=op, Xk=Xk: stencil.stencil_spmm_t(D, op.offsets, Xk),
+                       work, ring_plan(D, op.offsets, Xk))
+            rings = any(isinstance(pl, stencil.RingPlan)
+                        for _, pl in stencil.launch_plans(D, op.offsets, Xk, False))
+            if rings and wanted(f"variant row {row} window {at}"):
+                yield (f"variant row {row} window {at}",
+                       lambda D=D, op=op, Xk=Xk: window(D, op.offsets, Xk), work,
+                       window_plan(D, op.offsets, Xk))
+        del op, Xk, D
     X16 = X.bfloat16()
     yield ("row 1x stencil_spmm_t[bf16 field] (32, 128^3)",
            lambda: stencil.stencil_spmm_t(lap.diags, lap.offsets, X16),
            bound(4 * nd * n + 4 * k * n, 2 * k * nnz), ring_plan(lap.diags, lap.offsets, X16))
     del X, X16, lap, d16
+    if wanted("row 1m stencil_spmm_t[bf16 coeffs] (32, 256^3)",
+              "row 1 stencil_spmm_t (32, 256^3)"):
+        lap = laplacian_dia((256,) * 3, device=dev)
+        n, nd, nnz = lap.n, len(lap.offsets), int(torch.count_nonzero(lap.diags))
+        X = torch.randn((k, n), generator=gen, device=dev)
+        for D, row, what in ((lap.diags.bfloat16(), "1m", "[bf16 coeffs]"), (lap.diags, "1", "")):
+            yield (f"row {row} stencil_spmm_t{what} (32, 256^3)",
+                   lambda D=D, X=X: stencil.stencil_spmm_t(D, lap.offsets, X),
+                   bound(D.element_size() * nd * n + 8 * k * n, 2 * k * nnz),
+                   ring_plan(D, lap.offsets, X))
+        del lap, X, D
     if wanted("row 1b stencil_spmm_t[bf16] (32, 256^3)"):
         lap = laplacian_dia((256,) * 3, dtype=torch.bfloat16, device=dev)
         n, nd, nnz = lap.n, len(lap.offsets), int(torch.count_nonzero(lap.diags))
@@ -2122,6 +2299,9 @@ def main() -> None:
     ap.add_argument("--storage", action="store_true",
                     help="time only rows 1m, 2m, 2, 1x, 22h, 23h, 23, 24f and 24fg at "
                          "[storage]'s shapes, with L2 flushed")
+    ap.add_argument("--updates", action="store_true",
+                    help="time only px_update.cu's rows 9, 9b, 12, 12b, 13 and 13b, with L2 "
+                         "flushed")
     ap.add_argument("--only", default=None,
                     help="time only the cases whose name matches this regular expression")
     args = ap.parse_args()
@@ -2133,13 +2313,15 @@ def main() -> None:
     sys.path.insert(0, str(Path(args.root).resolve()))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    flush = l2_flush(torch, dev) if args.short or args.storage else None
+    flush = l2_flush(torch, dev) if args.short or args.storage or args.updates else None
     with tempfile.TemporaryDirectory() as tmp:
         todo = (chain(bf16_variants(torch, dev), bf16_mma_variants(torch, dev),
                       sm_probe_cases(torch, dev, Path(tmp)),
                       cols_probe_cases(torch, dev, Path(tmp)))
                 if args.bf16 and args.variants
                 else bf16_cases(torch, dev) if args.bf16
+                else update_variants(torch, dev) if args.updates and args.variants
+                else update_cases(torch, dev) if args.updates
                 else storage_variants(torch, dev, Path(tmp), args.only)
                 if args.storage and args.variants
                 else storage_cases(torch, dev, args.only) if args.storage

@@ -15,7 +15,12 @@ kernels at KMAX = 128 (the width a field of up to 128 rows would need in one
 launch), which makes nvcc build them. One line per kernel: the source, the
 demangled name, registers, spill stores and spill loads (bytes). A field
 wider than 64 rows runs as row-chunked launches at the built widths; this
-report shows what the alternative would cost in registers.
+report shows what the alternative would cost in registers. The first pass
+reports every built instantiation, among them ``qr_px_update``'s two
+routes in ``px_update.cu``: ``px_update_kernel<E, R, true, true>`` (the
+streaming QR-with-X mode, R up to 16: 128 rows) and ``px_update_mma<W,
+true>`` (the tensor cores, W = 16, 32, 64), and the DIA stencil's ring on
+f32 fields, ``stencil_ring<ED, float, R>`` (R = 4, 8).
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ from blockcg_tpu_torch.ops import _native  # noqa: E402
 # The KMAX = 128 candidates of each source (kernel templates at that width).
 PROBES = {
     "gram.cu": ["gram_kernel<128, false>", "gram_kernel<128, true>"],
-    "qr_p_update.cu": ["qr_px_update<128>"],
     "cbs_merged.cu": ["cm_spmm<4, 0, 4>", "cm_spmm<8, 0, 4>"],
     "stencil.cu": [],
     "const_block_stencil.cu": ["cbs_spmm<4, 128, false>", "cbs_spmm<4, 128, true>"],
